@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the fp8tpu_torch port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py [--phases build,k1,k2,main,time]
+    python3 chip_smoke.py [--phases build,k1,k2,k3,k5,k6,main,serve,time]
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -16,14 +16,35 @@ Phases, each printing its own lines; any failure exits non-zero:
           large enough that each thread of the capped grid loops three times.
 3. k2     the fused fake-quant GEMM (K2) against its plain version at
           ResNet-50 conv shapes, within the f32 summation-order bound.
-4. main   ResNet-50 (full width, 1000 classes, random weights from a
+4. k3     the serving dequant-GEMM (K3) against its plain version: e4m3,
+          e5m2 and int8 payloads, bf16 and f32 results, decode and prefill
+          row counts at the full-width (K, N) of the serving linears and a
+          ragged pair, within the summation-order bound (plus one bf16
+          step for bf16 results).
+   k5     the int4 unpack-GEMM (K5) likewise, per-channel and group-128
+          scales.
+   k6     the in-place ring store (K6), bit-exact for 1-, 2- and 4-byte
+          types, aligned and unaligned rows, wrapping and negative indices,
+          and one launch captured in a CUDA graph and replayed with a
+          changed device index.
+5. main   ResNet-50 (full width, 1000 classes, random weights from a
           seed), batch 32 at 224x224: BN statistics from 2 train-mode
           passes, then quantize_model(e4m3, hw patching, BN folding,
           2 calibration batches, conv1/fc exempt), 1 warm-up and 3 timed
           quantized batches.  Launch counts per forward, logits against
           fp32 (correlation > 0.95), quantized weights bit-equal to the
           CPU path's, and a torch.profiler breakdown of one forward.
-5. time   each kernel at the main path's shapes: kernel, plain version,
+6. serve  the serving decoder at full width (16 layers, d_model 4096, 32
+          heads / 8 KV heads, d_ff 11008, vocabulary 32768, random e4m3
+          weights from a seed, int8 KV ring): (a) a ServingEngine behind an
+          EngineServer answers 16 requests of 32 new tokens, twice, with
+          K3 / K6 launches per decode step counted and no plain version
+          called; (b) 4 decode steps with the kernels against the same
+          steps with the plain versions on the card; (c) the same server at
+          4 layers with int4 weights (K5); (d) timed decode at batch 64 and
+          near-full context for e4m3 + int8 KV and for the bf16 twin, with
+          a torch.profiler breakdown of one step.
+7. time   each kernel at its main path's shapes: kernel, plain version,
           bound, and a PyTorch yardstick where one exists; K1 bit-exact
           at the largest residual_add operand.
 
@@ -44,6 +65,7 @@ import time
 BATCH = 32                     # images per batch on the main path
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_SIMT_FLOPS = 67e12         # H100 SXM f32 outside the tensor cores
+BF16_TC_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core rate
 
 BOUNDARY = [
     0.0, -0.0, 1.0, -1.0, 57344.0, -57344.0, 61440.0, -61440.0,
@@ -122,6 +144,31 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 16, replays: int = 5) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls are captured in
+    one CUDA graph and the graph is replayed, so the host's time between
+    launches (Python, allocator, wrapper) is not in the number.  For
+    launches of a few microseconds, where an event-timed loop measures the
+    host."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
 
 
 def bits_equal(a, b) -> int:
@@ -309,6 +356,209 @@ def phase_k2(record):
                          "summation-order bound")
 
 
+
+# -- phases k3, k5, k6 ---------------------------------------------------------
+
+# (K, N) of the serving linears at full width (d_model 4096, 32 heads / 8 KV
+# heads of 128, d_ff 11008): q/o, k/v, gate/up, down; then a ragged pair.
+SERVE_KN = [(4096, 4096), (4096, 1024), (4096, 11008), (11008, 4096),
+            (1001, 331)]
+SERVE_MS = (1, 8, 64, 100, 2048)
+
+
+def gemm_tolerance(xb, w_abs, col_scale, want, out_dtype):
+    """|kernel - plain| allowed for an f32-accumulated product of exact
+    bf16 x bf16 terms: both sums carry at most K * 2^-24 of sum|x_i w_i|
+    (summation order), times the column scale; a bf16 result may land one
+    bf16 step (2^-7 relative) away when the two f32 values straddle a
+    rounding boundary."""
+    import torch
+    from fp8tpu_torch._device import full_fp32
+    k = xb.shape[1]
+    with full_fp32():
+        mag = torch.matmul(xb.float().abs(), w_abs)
+    tol = 2.0 * k * 2.0 ** -24 * mag * col_scale + 1e-30
+    if out_dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * want.float().abs()
+    return tol
+
+
+def _gemm_case(rows, label, got, want, tol):
+    import torch
+    err = (got.float() - want.float()).abs()
+    ok = bool(torch.isfinite(got.float()).all()) and bool((err <= tol).all())
+    rows.append({"case": label, "max_abs_err": float(err.max()),
+                 "max_err_over_bound": float((err / tol).max()), "ok": ok})
+    if not ok:
+        print(f"  FAIL {label}: max|err| {float(err.max()):.3e}, err/bound "
+              f"{float((err / tol).max()):.3e}")
+    return ok
+
+
+def phase_k3(record):
+    import torch
+    from fp8tpu_torch.kernels import qmatmul
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for k, n in SERVE_KN:
+        w = torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
+        w[:, 0] = 0.0                                   # an all-zero column
+        xs = {m: torch.randn(m, k, device="cuda", generator=gen
+                             ).to(torch.bfloat16) for m in SERVE_MS}
+        for fmt in ("e4m3", "e5m2", "int8"):
+            w8, s = qmatmul.quantize_weights(w, fmt)
+            s = s.reshape(-1)
+            w_abs = w8.float().abs()
+            for m, x in xs.items():
+                for out_dtype in (torch.bfloat16, torch.float32):
+                    before = qmatmul.dequant_launches
+                    got = qmatmul.dequant_matmul(x, w8, s, out_dtype)
+                    if qmatmul.dequant_launches != before + 1:
+                        raise PhaseError("dequant_matmul did not count its "
+                                         "launch")
+                    want = qmatmul.dequant_matmul_plain(x, w8, s, out_dtype)
+                    tol = gemm_tolerance(x, w_abs, s.reshape(1, -1), want,
+                                         out_dtype)
+                    _gemm_case(rows, f"k3 {fmt} M={m} K={k} N={n} "
+                               f"{str(out_dtype)[6:]}", got, want, tol)
+    torch.cuda.synchronize()
+    record["k3"] = rows
+    worst = max(r["max_err_over_bound"] for r in rows)
+    print(f"k3: {len(rows)} cases (e4m3/e5m2/int8 x bf16/f32 out x M in "
+          f"{SERVE_MS} x (K, N) in {SERVE_KN}); worst err/bound {worst:.3e}")
+    if not all(r["ok"] for r in rows):
+        raise PhaseError("K3 disagrees with its plain version")
+
+
+def phase_k5(record):
+    import torch
+    from fp8tpu_torch.kernels import int4_matmul as k5
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for k, n in SERVE_KN[:4] + [(1024, 331)]:
+        w = torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
+        xs = {m: torch.randn(m, k, device="cuda", generator=gen
+                             ).to(torch.bfloat16) for m in SERVE_MS}
+        for group in (None, 128):
+            if group:
+                wp, s = k5.quantize_weights_int4_grouped(w, group)
+                sb = s.to(torch.bfloat16).repeat_interleave(group, dim=0)
+                col = torch.ones(1, n, device="cuda")
+            else:
+                wp, s = k5.quantize_weights_int4_grouped(w, k)
+                s = s.reshape(-1)
+                sb = torch.ones(k, n, device="cuda", dtype=torch.bfloat16)
+                col = s.reshape(1, -1)
+            lo, hi = k5.unpack_int4(wp)
+            wq = torch.stack([lo, hi], 1).reshape(k, n).to(torch.bfloat16)
+            w_abs = (wq * sb).float().abs()
+            for m, x in xs.items():
+                for out_dtype in (torch.bfloat16, torch.float32):
+                    before = k5.launches
+                    got = k5.int4_matmul(x, wp, s, group, out_dtype)
+                    if k5.launches != before + 1:
+                        raise PhaseError("int4_matmul did not count its "
+                                         "launch")
+                    want = k5.int4_matmul_plain(x, wp, s, group, out_dtype)
+                    tol = gemm_tolerance(x, w_abs, col, want, out_dtype)
+                    _gemm_case(rows, f"k5 group={group} M={m} K={k} N={n} "
+                               f"{str(out_dtype)[6:]}", got, want, tol)
+    torch.cuda.synchronize()
+    record["k5"] = rows
+    worst = max(r["max_err_over_bound"] for r in rows)
+    print(f"k5: {len(rows)} cases (per-channel / group 128 x bf16/f32 out x "
+          f"M in {SERVE_MS}); worst err/bound {worst:.3e}")
+    if not all(r["ok"] for r in rows):
+        raise PhaseError("K5 disagrees with its plain version")
+
+
+def phase_k6(record):
+    import torch
+    from fp8tpu_torch.kernels import inplace
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cases = bad = 0
+
+    def raw(shape, dtype):
+        size = torch.empty((), dtype=dtype).element_size()
+        n = 1
+        for d in shape:
+            n *= d
+        return torch.randint(0, 256, (n * size,), device="cuda",
+                             dtype=torch.uint8, generator=gen
+                             ).view(dtype).reshape(shape)
+
+    def bytes_of(t):
+        return t.contiguous().view(torch.uint8)
+
+    # 1-, 2- and 4-byte types; rows that are 16-byte aligned (the ring's
+    # payload and scale slabs at full width) and rows that are not.
+    shapes = [(512, 2, 16, 64, 128), (512, 2, 16, 64), (9, 7), (5, 3, 5)]
+    for dtype in (torch.int8, torch.float8_e4m3fn, torch.bfloat16,
+                  torch.float32):
+        for shape in shapes:
+            if dtype == torch.float32 and len(shape) == 5:
+                shape = (64,) + shape[1:]
+            n = shape[0]
+            buf = raw(shape, dtype)
+            ref = buf.clone()
+            ptr = buf.data_ptr()
+            for idx in (0, n - 1, n + 3, -1):
+                slab = raw(shape[1:], dtype)
+                before = inplace.launches
+                out = inplace.dyn_store(
+                    buf, slab, torch.tensor(idx, device="cuda",
+                                            dtype=torch.int32))
+                inplace.dyn_store_plain(ref, slab, idx)
+                cases += 1
+                if (inplace.launches != before + 1 or out is not buf
+                        or buf.data_ptr() != ptr
+                        or not torch.equal(bytes_of(buf), bytes_of(ref))):
+                    bad += 1
+                    print(f"  k6 FAIL {dtype} {shape} idx={idx}")
+    # An unaligned slab (a view one element into its storage).
+    buf = raw((8, 33), torch.int8)
+    ref = buf.clone()
+    slab = raw((34,), torch.int8)[1:]
+    inplace.dyn_store(buf, slab, torch.tensor(3, device="cuda",
+                                              dtype=torch.int32))
+    ref[3] = slab
+    cases += 1
+    bad += int(not torch.equal(buf, ref))
+
+    # The index is read on the device: capture one launch in a CUDA graph,
+    # then change the index and the slab and replay it.
+    buf = raw((512, 2, 16, 64, 128), torch.int8)
+    ref = buf.clone()
+    slab = raw(buf.shape[1:], torch.int8)
+    idx = torch.tensor(2, device="cuda", dtype=torch.int32)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        inplace.dyn_store(buf, slab, idx)               # warm-up: row 2
+    torch.cuda.current_stream().wait_stream(side)
+    ref[2] = slab
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        inplace.dyn_store(buf, slab, idx)
+    idx.fill_(515)                                      # 515 mod 512 = 3
+    slab.copy_(raw(buf.shape[1:], torch.int8))
+    graph.replay()
+    torch.cuda.synchronize()
+    ref[3] = slab
+    cases += 1
+    graph_ok = torch.equal(buf, ref)
+    bad += int(not graph_ok)
+    record["k6"] = {"cases": cases, "failed": bad, "graph_replay": graph_ok}
+    print(f"k6: {cases} cases (int8, e4m3, bf16, f32; aligned and unaligned "
+          f"rows; idx 0, n-1, n+3, -1; one CUDA-graph replay with a changed "
+          f"device index: {'ok' if graph_ok else 'FAIL'}), {bad} failed "
+          f"(bit-exact required)")
+    if bad:
+        raise PhaseError("K6 disagrees with its plain version")
+
 # -- phase 4 ----------------------------------------------------------------
 
 def phase_main(record, batch: int):
@@ -439,6 +689,332 @@ def profile_forward(qm, x, forward_ms: float):
                         for t, n, k in rows]}
 
 
+
+# -- phase serve -----------------------------------------------------------------
+
+SERVE_SLOTS = 8                # slots of the served engine
+SERVE_SEQ = 512                # its ring size
+SERVE_NEW = 32                 # new tokens per request
+BENCH_BATCH, BENCH_CACHE, BENCH_WARM_POS, BENCH_STEPS = 64, 512, 444, 32
+# Kernel-vs-plain logits over 4 decode steps, relative to max|logit|: the
+# two differ in f32 summation order only, which moves single bf16 steps
+# (2^-7 relative) of the activations; 7 linears in each of 16 layers carry
+# them to the logits of a random-weight model (first measured: 3.0e-2).
+# The ring payloads written on the way must agree on 99% of their bytes.
+SERVE_LOGIT_TOL = 5e-2
+SERVE_RING_EQUAL = 0.99
+STATE = {}                     # parameters shared by the serve and time phases
+
+
+def serve_config():
+    """The full-width decoder of the serving path: 16 layers, d_model 4096,
+    32 heads / 8 KV heads, d_ff 11008, vocabulary 32768 (about 2.8 GB of
+    e4m3 weights); nothing is cut."""
+    from fp8tpu_torch.models import DecoderConfig
+    return DecoderConfig(vocab_size=32768, d_model=4096, n_layers=16,
+                         n_heads=32, n_kv_heads=8, d_ff=11008,
+                         max_seq_len=1024)
+
+
+class _Counting:
+    """Count calls of ``module.name`` (and the decode steps they carry)
+    while the context is open; optionally forbid them."""
+
+    def __init__(self, module, name, steps_arg=None, forbid=False):
+        self.module, self.name = module, name
+        self.steps_arg, self.forbid = steps_arg, forbid
+        self.calls = self.steps = 0
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def shim(*a, **kw):
+            if self.forbid:
+                raise PhaseError(f"{self.name} was called on the card's "
+                                 "main path")
+            self.calls += 1
+            if self.steps_arg is not None:
+                self.steps += a[self.steps_arg]
+            return self.orig(*a, **kw)
+
+        setattr(self.module, self.name, shim)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def serve_requests(seed: int, n: int, vocab: int):
+    import numpy as np
+    from fp8tpu_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    return [Request(uid=i, prompt=rng.integers(
+        1, vocab, int(rng.integers(16, 49))).tolist(),
+        max_new_tokens=SERVE_NEW) for i in range(n)]
+
+
+def run_server(params, scfg, n_requests: int, chunk_size: int = 16):
+    """Answer ``n_requests`` through an EngineServer; returns ({uid:
+    tokens}, seconds, per-request meta)."""
+    from fp8tpu_torch.serve import EngineServer, ServingEngine
+    eng = ServingEngine(params, scfg, n_slots=SERVE_SLOTS, max_seq=SERVE_SEQ,
+                        chunk_size=chunk_size)
+    srv = EngineServer(eng).start()
+    t0 = time.perf_counter()
+    try:
+        futs = {r.uid: srv.submit(r) for r in serve_requests(
+            7, n_requests, scfg.model.vocab_size)}
+        out = {uid: f.result(timeout=600) for uid, f in futs.items()}
+    finally:
+        srv.stop()
+    seconds = time.perf_counter() - t0
+    meta = {uid: srv.pop_info(uid).get("meta", {}) for uid in out}
+    return out, seconds, meta
+
+
+def phase_serve(record):
+    import dataclasses
+    import torch
+    from fp8tpu_torch.kernels import inplace, int4_matmul, qmatmul
+    from fp8tpu_torch.serve import (RingKVCache, ServeConfig, decode_step,
+                                    decode_steps, prefill_batch,
+                                    random_serve_params)
+    from fp8tpu_torch.serve import engine as engine_mod
+
+    cfg = serve_config()
+    L = cfg.n_layers
+    scfg = ServeConfig(model=cfg, weight_fmt="e4m3", kv_fmt="int8")
+    t0 = time.perf_counter()
+    params = STATE["e4m3"] = random_serve_params(cfg, "e4m3", seed=0)
+    torch.cuda.synchronize()
+    weight_bytes = sum(v.numel() * v.element_size() for v in params.values())
+    print(f"serve: random e4m3 artifact, {weight_bytes / 1e9:.3f} GB, made "
+          f"in {time.perf_counter() - t0:.1f} s")
+    result = {"weight_bytes": weight_bytes}
+
+    # (a) the served main path: 16 requests behind an EngineServer, twice.
+    for m in (qmatmul, int4_matmul, inplace):
+        m.reset_launches()
+    with _Counting(engine_mod, "decode_chunk", steps_arg=6) as dc, \
+            _Counting(engine_mod, "prefill_batch") as pb, \
+            _Counting(qmatmul, "dequant_matmul_plain", forbid=True), \
+            _Counting(inplace, "dyn_store_plain", forbid=True):
+        out, seconds, meta = run_server(params, scfg, 16)
+    launches = {"dequant_matmul": qmatmul.dequant_launches,
+                "dyn_store": inplace.launches}
+    k3_per_step = (launches["dequant_matmul"] - 7 * L * pb.calls) / dc.steps
+    k6_per_step = launches["dyn_store"] / dc.steps
+    again, seconds2, _ = run_server(params, scfg, 16)
+    n_tok = sum(len(v) for v in out.values())
+    ttft = sorted(m_["ttft_s"] for m_ in meta.values())
+    print(f"serve (a): 16 requests x {SERVE_NEW} tokens through EngineServer "
+          f"({SERVE_SLOTS} slots, ring {SERVE_SEQ}, chunks of 16): "
+          f"{n_tok} tokens in {seconds:.2f} s ({n_tok / seconds:.1f} "
+          f"tokens/s; second run {seconds2:.2f} s), median time to first "
+          f"token {ttft[len(ttft) // 2]:.3f} s")
+    print(f"serve (a): {dc.steps} decode steps in {dc.calls} chunks, "
+          f"{pb.calls} prefill calls; launches {launches}: K3 "
+          f"{k3_per_step:.1f} and K6 {k6_per_step:.1f} per decode step, "
+          f"{7 * L} K3 per prefill; no plain version called")
+    problems = []
+    if any(len(v) != SERVE_NEW for v in out.values()) or len(out) != 16:
+        problems.append("a request did not finish with its budget")
+    if not all(0 <= t < cfg.vocab_size for v in out.values() for t in v):
+        problems.append("a token is outside the vocabulary")
+    if again != out:
+        problems.append("a second run gave other tokens")
+    if k3_per_step != 7 * L or k6_per_step != 2:
+        problems.append(f"K3 / K6 launches per decode step {k3_per_step} / "
+                        f"{k6_per_step}, expected {7 * L} / 2")
+    result["a"] = {"tokens": n_tok, "seconds": seconds, "seconds_2": seconds2,
+                   "decode_steps": dc.steps, "chunks": dc.calls,
+                   "prefills": pb.calls, "launches": launches,
+                   "ttft_s": ttft}
+
+    # (b) 4 decode steps from one engine state: kernels against the plain
+    # versions on the card.
+    def fresh_state():
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        ring = RingKVCache.create(L, SERVE_SLOTS, SERVE_SEQ, cfg.n_kv_heads,
+                                  cfg.head_dim, "int8")
+        prompts = torch.randint(1, cfg.vocab_size, (SERVE_SLOTS, 32),
+                                device="cuda", generator=gen,
+                                dtype=torch.int32)
+        lengths = torch.randint(8, 33, (SERVE_SLOTS,), device="cuda",
+                                generator=gen, dtype=torch.int32)
+        slots = torch.arange(SERVE_SLOTS, device="cuda", dtype=torch.int32)
+        zeros = torch.zeros(SERVE_SLOTS, device="cuda")
+        first, ring, toks, pos = prefill_batch(
+            params, ring, prompts, slots, lengths, None, zeros, None, None,
+            torch.zeros(SERVE_SLOTS, device="cuda", dtype=torch.int32),
+            torch.zeros(SERVE_SLOTS, device="cuda", dtype=torch.int32), scfg)
+        return ring, toks, pos
+
+    ring_k, toks, pos = fresh_state()
+    ring_p = RingKVCache(ring_k.kv8.clone(), ring_k.sc.clone(),
+                         ring_k.head.clone())
+    worst = 0.0
+    for step in range(4):
+        lk, ring_k = decode_step(params, ring_k, toks, pos, scfg)
+        orig = (qmatmul.dequant_matmul, inplace.dyn_store)
+        qmatmul.dequant_matmul = qmatmul.dequant_matmul_plain
+        inplace.dyn_store = inplace.dyn_store_plain
+        try:
+            lp, ring_p = decode_step(params, ring_p, toks, pos, scfg)
+        finally:
+            qmatmul.dequant_matmul, inplace.dyn_store = orig
+        err = float((lk - lp).abs().max() / lp.abs().max())
+        worst = max(worst, err)
+        if not bool(torch.isfinite(lk).all()):
+            problems.append(f"step {step}: logits not finite")
+        toks, pos = lk.argmax(-1).to(torch.int32), pos + 1
+    same_bytes = float((ring_k.kv8 == ring_p.kv8).float().mean())
+    print(f"serve (b): 4 decode steps, kernels vs plain versions on the "
+          f"card: max|logit diff| / max|logit| {worst:.3e} (tolerance "
+          f"{SERVE_LOGIT_TOL}), ring payload bytes equal {same_bytes:.4f} "
+          f"(at least {SERVE_RING_EQUAL})")
+    if worst > SERVE_LOGIT_TOL:
+        problems.append(f"kernel and plain logits differ by {worst}")
+    if same_bytes < SERVE_RING_EQUAL:
+        problems.append(f"kernel and plain ring payloads agree on only "
+                        f"{same_bytes} of their bytes")
+    if tuple(lk.shape) != (SERVE_SLOTS, cfg.vocab_size):
+        problems.append(f"logits of shape {tuple(lk.shape)}")
+    result["b"] = {"max_rel_logit_diff": worst, "ring_bytes_equal": same_bytes}
+    del ring_k, ring_p
+
+    # (c) the same server at 4 layers with int4 weights: K5 on a real path.
+    cfg4 = dataclasses.replace(cfg, n_layers=4)
+    scfg4 = ServeConfig(model=cfg4, weight_fmt="int4", kv_fmt="int8")
+    params4 = STATE["int4"] = random_serve_params(cfg4, "int4", seed=1)
+    int4_matmul.reset_launches()
+    with _Counting(engine_mod, "decode_chunk", steps_arg=6) as dc4, \
+            _Counting(engine_mod, "prefill_batch") as pb4, \
+            _Counting(int4_matmul, "int4_matmul_plain", forbid=True):
+        out4, sec4, _ = run_server(params4, scfg4, 8)
+    launches["int4_matmul"] = int4_matmul.launches
+    k5_per_step = (int4_matmul.launches - 28 * pb4.calls) / dc4.steps
+    again4, _, _ = run_server(params4, scfg4, 8)
+    print(f"serve (c): int4 weights (group 128), 4 layers: 8 requests x "
+          f"{SERVE_NEW} tokens in {sec4:.2f} s; {int4_matmul.launches} K5 "
+          f"launches, {k5_per_step:.1f} per decode step")
+    if any(len(v) != SERVE_NEW for v in out4.values()) or again4 != out4:
+        problems.append("int4 serving: budgets or repeatability")
+    if k5_per_step != 28:
+        problems.append(f"{k5_per_step} K5 launches per step, expected 28")
+    result["c"] = {"seconds": sec4, "launches": int4_matmul.launches,
+                   "decode_steps": dc4.steps}
+
+    # (d) timed decode: batch 64 at near-full context, chunks of 32 greedy
+    # steps, e4m3 weights + int8 KV against the bf16 / bf16 twin.
+    def bench(fmt, kv_fmt, prm):
+        bcfg = ServeConfig(model=cfg, weight_fmt=fmt, kv_fmt=kv_fmt)
+        ring = RingKVCache.create(L, BENCH_BATCH, BENCH_CACHE, cfg.n_kv_heads,
+                                  cfg.head_dim, kv_fmt)
+        ring.head = torch.tensor(BENCH_WARM_POS, device="cuda",
+                                 dtype=torch.int32)
+        toks = torch.ones(BENCH_BATCH, device="cuda", dtype=torch.int32)
+        pos = torch.full((BENCH_BATCH,), BENCH_WARM_POS, device="cuda",
+                         dtype=torch.int32)
+        temp = torch.zeros(BENCH_BATCH, device="cuda")
+
+        def chunk(n):
+            nonlocal ring
+            out_, ring = decode_steps(prm, ring, toks, pos, None, temp, n,
+                                      bcfg, greedy_only=True)
+            return out_
+
+        chunk(2)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            last = chunk(BENCH_STEPS)
+            int(last.sum())                      # one readback closes it
+            times.append(time.perf_counter() - t)
+        best = min(times)
+        prof = profile_decode_step(lambda: chunk(1), best / BENCH_STEPS * 1e3)
+        kv = ring.kv8[:, 0, 0]
+        upcast = cuda_ms(lambda: kv.to(torch.bfloat16)) * 2 * L
+        return {"tokens_per_s": BENCH_BATCH * BENCH_STEPS / best,
+                "step_ms": best / BENCH_STEPS * 1e3,
+                "chunk_s": times, "profile": prof,
+                "kv_upcast_ms_per_step": upcast,
+                "ring_bytes": ring.kv8.numel() * ring.kv8.element_size()
+                + ring.sc.numel() * 4}
+
+    fp8 = bench("e4m3", "int8", params)
+    bf16_params = random_serve_params(cfg, "bf16", seed=0)
+    twin = bench("bf16", "bf16", bf16_params)
+    del bf16_params
+    torch.cuda.empty_cache()
+    for name, r in (("e4m3 weights + int8 KV", fp8),
+                    ("bf16 weights + bf16 KV (torch.matmul linears)", twin)):
+        prof = r["profile"]
+        print(f"serve (d): {name}: {r['tokens_per_s']:.1f} tokens/s, "
+              f"{r['step_ms']:.3f} ms/step (batch {BENCH_BATCH}, ring "
+              f"{BENCH_CACHE}, position {BENCH_WARM_POS}, chunks of "
+              f"{BENCH_STEPS}); one step: {prof['device_ms']:.3f} ms of "
+              f"kernels in {prof['launches']} launches, device-busy share "
+              f"{prof['busy_share']:.3f}; KV upcast copies "
+              f"{r['kv_upcast_ms_per_step']:.3f} ms/step; ring "
+              f"{r['ring_bytes'] / 1e6:.1f} MB")
+        for group, (ms, n) in prof["groups"].items():
+            print(f"    {ms:8.3f} ms {n:5d}x  {group}")
+    print(f"serve (d): fp8 / bf16-twin tokens/s ratio "
+          f"{fp8['tokens_per_s'] / twin['tokens_per_s']:.3f}")
+    result["d"] = {"fp8": fp8, "bf16": twin}
+    record["serve"] = result
+    if problems:
+        raise PhaseError("; ".join(problems))
+    return launches
+
+
+def profile_decode_step(step, step_ms: float):
+    """Device time of one decode step by kind of kernel (torch.profiler);
+    fails if the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        step()
+        torch.cuda.synchronize()
+    groups, names = {}, {}
+    for e in p.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = (getattr(e, "device_time", None) or e.cuda_time) / 1000.0
+        low = e.name.lower()
+        if "w_gemm" in e.name:
+            kind = "K3/K5 weight GEMM (hand-written)"
+        elif "dyn_store_kernel" in e.name:
+            kind = "K6 ring store (hand-written)"
+        elif any(w in low for w in ("gemm", "cutlass", "xmma", "gemv",
+                                    "cublas", "nvjet")):
+            kind = "library matmuls (attention, LM head, bf16 linears)"
+        elif "copy" in low or "memcpy" in low:
+            kind = "copies and casts (KV upcast to bf16, slabs, dtype casts)"
+        elif "reduce" in low or "softmax" in low or "argmax" in low:
+            kind = "reductions (rms mean, amax, sums, argmax)"
+        else:
+            kind = "elementwise and other"
+        t, n = groups.get(kind, (0.0, 0))
+        groups[kind] = (t + ms, n + 1)
+        t, n = names.get(e.name, (0.0, 0))
+        names[e.name] = (t + ms, n + 1)
+    busy = sum(t for t, _ in groups.values())
+    if not busy > 0:
+        raise PhaseError("torch.profiler recorded no device time")
+    top = sorted(((t, n, k) for k, (t, n) in names.items()), reverse=True)
+    return {"device_ms": busy, "step_ms": step_ms,
+            "busy_share": busy / step_ms,
+            "launches": sum(n for _, n in groups.values()),
+            "groups": dict(sorted(groups.items(), key=lambda kv: -kv[1][0])),
+            "top_kernels": [{"name": k[:120], "ms": t, "count": n}
+                            for t, n, k in top[:12]]}
+
 # -- phase 5 ----------------------------------------------------------------
 
 def phase_time(record, batch: int, launches):
@@ -544,9 +1120,180 @@ def phase_time(record, batch: int, launches):
     return kernels
 
 
+
+def phase_time_serve(record, launches):
+    """K3, K5 and K6 at the serving path's shapes: kernel, plain version,
+    bound and a PyTorch yardstick.  Kernel and yardstick times are device
+    times (graph_ms); the plain versions are timed eagerly.  Weights rotate
+    over the layers of the artifact (16 x 45 MB for the e4m3 gate
+    projection, 4 x 22.5 MB for the int4 one), so a launch finds its
+    weights in device memory, not in the 50 MB L2."""
+    import torch
+    from fp8tpu_torch.kernels import inplace, int4_matmul, qmatmul
+
+    params, params4 = STATE["e4m3"], STATE["int4"]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    names = {"q8": "q/o 4096x4096", "k8": "k/v 4096x1024",
+             "gate8": "gate/up 4096x11008", "down8": "down 11008x4096"}
+    rows, kernels = [], []
+
+    def rotating(fn, stack):
+        state = {"i": 0}
+
+        def call():
+            state["i"] = (state["i"] + 1) % stack.shape[0]
+            return fn(stack[state["i"]])
+        return call
+
+    def bound(m, k, n, w_bytes, extra=0.0):
+        t_bytes = (2.0 * m * k + w_bytes + extra + 2.0 * m * n) \
+            / HBM_BYTES_PER_S * 1e3
+        t_ops = 2.0 * m * n * k / BF16_TC_FLOPS * 1e3
+        return max(t_bytes, t_ops), \
+            "operations" if t_ops > t_bytes else "bytes"
+
+    for key, label in names.items():
+        w_stack, s_stack = params[key], params[key[:-1] + "s"]
+        k, n = w_stack.shape[1:]
+        w_bf16 = w_stack[:4].to(torch.bfloat16)          # pre-converted
+        for m in (SERVE_SLOTS, BENCH_BATCH, 512):
+            x = torch.randn(m, k, device="cuda", generator=gen
+                            ).to(torch.bfloat16)
+            s = s_stack[0]
+            got = qmatmul.dequant_matmul(x, w_stack[0], s)
+            want = qmatmul.dequant_matmul_plain(x, w_stack[0], s)
+            err = float((got.float() - want.float()).abs().max())
+            t_k = graph_ms(rotating(
+                lambda w: qmatmul.dequant_matmul(x, w, s), w_stack))
+            t_call = cuda_ms(rotating(
+                lambda w: qmatmul.dequant_matmul(x, w, s), w_stack), iters=32)
+            t_p = cuda_ms(rotating(
+                lambda w: qmatmul.dequant_matmul_plain(x, w, s), w_stack),
+                iters=4, warmup=1)
+            t_conv = graph_ms(rotating(
+                lambda w: torch.matmul(x, w.to(torch.bfloat16)), w_stack))
+            t_pre = graph_ms(rotating(lambda w: torch.matmul(x, w), w_bf16))
+            b, by = bound(m, k, n, float(k) * n, 4.0 * n)
+            rows.append({"kernel": "K3", "shape": label, "m": m, "k": k,
+                         "n": n, "ms": t_k, "eager_call_ms": t_call,
+                         "plain_ms": t_p, "bound_ms": b,
+                         "bound_by": by, "library_convert_ms": t_conv,
+                         "library_bf16_ms": t_pre, "max_abs_err": err,
+                         "gb_per_s": (k * n) / t_k / 1e6})
+            print(f"time k3 {label} M={m}: kernel {t_k:.4f} ms on the device "
+                  f"({k * n / t_k / 1e6:.0f} GB/s of payload; {t_call:.4f} "
+                  f"ms per eager call, host included), plain "
+                  f"{t_p:.4f} ms, bound {b:.4f} ms ({by}), x @ "
+                  f"w8.to(bf16) {t_conv:.4f} ms, torch.matmul on a bf16 "
+                  f"weight {t_pre:.4f} ms")
+    head = next(r for r in rows if r["shape"].startswith("gate")
+                and r["m"] == SERVE_SLOTS)
+    kernels.append({
+        "name": "dequant_matmul", "route": "cuda",
+        "source": "fp8tpu_torch/kernels/csrc/dequant_matmul.cu",
+        "replaces": "fp8tpu/kernels/qmatmul.py:87",
+        "launches": launches["dequant_matmul"],
+        "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": head["library_convert_ms"]})
+
+    rows5 = []
+    for key, label in names.items():
+        w_stack, s_stack = params4[key], params4[key[:-1] + "s"]
+        k, n = 2 * w_stack.shape[1], w_stack.shape[2]
+        group = k // s_stack.shape[1]
+        lo, hi = int4_matmul.unpack_int4(w_stack)
+        w_bf16 = torch.stack([lo, hi], 2).reshape(-1, k, n).to(torch.bfloat16)
+        del lo, hi
+        for m in (SERVE_SLOTS, BENCH_BATCH, 512):
+            x = torch.randn(m, k, device="cuda", generator=gen
+                            ).to(torch.bfloat16)
+            s = s_stack[0]
+            got = int4_matmul.int4_matmul(x, w_stack[0], s, group)
+            want = int4_matmul.int4_matmul_plain(x, w_stack[0], s, group)
+            err = float((got.float() - want.float()).abs().max())
+            t_k = graph_ms(rotating(
+                lambda w: int4_matmul.int4_matmul(x, w, s, group), w_stack))
+            t_p = cuda_ms(rotating(
+                lambda w: int4_matmul.int4_matmul_plain(x, w, s, group),
+                w_stack), iters=4, warmup=1)
+            t_pre = graph_ms(rotating(lambda w: torch.matmul(x, w), w_bf16))
+            b, by = bound(m, k, n, k * n / 2.0, 4.0 * s.numel())
+            rows5.append({"kernel": "K5", "shape": label, "m": m, "k": k,
+                          "n": n, "group": group, "ms": t_k, "plain_ms": t_p,
+                          "bound_ms": b, "bound_by": by,
+                          "library_bf16_ms": t_pre, "max_abs_err": err})
+            print(f"time k5 {label} group {group} M={m}: kernel {t_k:.4f} "
+                  f"ms on the device ({k * n / 2 / t_k / 1e6:.0f} GB/s of "
+                  f"payload), plain "
+                  f"{t_p:.4f} ms, bound {b:.4f} ms ({by}), torch.matmul on "
+                  f"a pre-unpacked bf16 weight {t_pre:.4f} ms")
+        del w_bf16
+    head5 = next(r for r in rows5 if r["shape"].startswith("gate")
+                 and r["m"] == SERVE_SLOTS)
+    kernels.append({
+        "name": "int4_matmul", "route": "cuda",
+        "source": "fp8tpu_torch/kernels/csrc/int4_matmul.cu",
+        "replaces": "fp8tpu/kernels/int4_matmul.py:57",
+        "launches": launches["int4_matmul"],
+        "max_abs_err": head5["max_abs_err"], "ms": head5["ms"],
+        "plain_ms": head5["plain_ms"], "bound_ms": head5["bound_ms"],
+        "bound_by": head5["bound_by"],
+        "library_ms": head5["library_bf16_ms"]})
+
+    rows6 = []
+    cfg = serve_config()
+    for label, batch in (("served engine", SERVE_SLOTS),
+                         ("timed decode", BENCH_BATCH)):
+        bk = batch * cfg.n_kv_heads
+        for what, shape, dtype in (
+                ("payload", (2, cfg.n_layers, bk, cfg.head_dim), torch.int8),
+                ("scales", (2, cfg.n_layers, bk), torch.float32)):
+            buf = torch.zeros((SERVE_SEQ,) + shape, dtype=dtype,
+                              device="cuda")
+            ref = buf.clone()
+            slab = torch.randint(-100, 100, shape, device="cuda",
+                                 generator=gen).to(dtype)
+            idx = torch.tensor(SERVE_SEQ + 5, device="cuda",
+                               dtype=torch.int32)
+            row = torch.tensor([5], device="cuda")
+            inplace.dyn_store(buf, slab, idx)
+            inplace.dyn_store_plain(ref, slab, idx)
+            err = float((buf.float() - ref.float()).abs().max())
+            t_k = graph_ms(lambda: inplace.dyn_store(buf, slab, idx))
+            t_p = graph_ms(lambda: inplace.dyn_store_plain(ref, slab, idx))
+            t_l = graph_ms(lambda: buf.index_copy_(0, row, slab[None]))
+            nbytes = slab.numel() * slab.element_size()
+            b = 2.0 * nbytes / HBM_BYTES_PER_S * 1e3
+            rows6.append({"kernel": "K6", "what": f"{label} {what}",
+                          "bytes": nbytes, "ms": t_k, "plain_ms": t_p,
+                          "bound_ms": b, "bound_by": "bytes",
+                          "library_ms": t_l, "max_abs_err": err})
+            print(f"time k6 {label} {what} slab {shape} "
+                  f"{str(dtype)[6:]} ({nbytes} bytes): kernel {t_k:.5f} ms on "
+                  f"the device, plain {t_p:.5f} ms, bound {b:.5f} ms "
+                  f"(bytes), index_copy_ {t_l:.5f} ms")
+            if err:
+                raise PhaseError(f"K6 {label} {what}: differs from plain")
+    head6 = rows6[0]
+    kernels.append({
+        "name": "dyn_store", "route": "cuda",
+        "source": "fp8tpu_torch/kernels/csrc/inplace.cu",
+        "replaces": "fp8tpu/kernels/inplace.py:27",
+        "launches": launches["dyn_store"],
+        "max_abs_err": head6["max_abs_err"], "ms": head6["ms"],
+        "plain_ms": head6["plain_ms"], "bound_ms": head6["bound_ms"],
+        "bound_by": "bytes", "library_ms": head6["library_ms"]})
+    record.setdefault("time", {}).update(
+        {"k3_shapes": rows, "k5_shapes": rows5, "k6_shapes": rows6})
+    return kernels
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,k1,k2,main,time")
+    ap.add_argument("--phases",
+                    default="build,k1,k2,k3,k5,k6,main,serve,time")
     ap.add_argument("--out", default="chip_smoke_out/chip_smoke.json")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
@@ -567,7 +1314,7 @@ def main(argv=None) -> int:
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
     record = {"card": card, "phases": {}}
-    launches = None
+    launches = serve_launches = None
     kernels = []
     ok = True
     for phase in phases:
@@ -579,12 +1326,22 @@ def main(argv=None) -> int:
                 phase_k1(record)
             elif phase == "k2":
                 phase_k2(record)
+            elif phase == "k3":
+                phase_k3(record)
+            elif phase == "k5":
+                phase_k5(record)
+            elif phase == "k6":
+                phase_k6(record)
             elif phase == "main":
                 launches = phase_main(record, BATCH)
+            elif phase == "serve":
+                serve_launches = phase_serve(record)
             elif phase == "time":
-                if launches is None:
-                    raise PhaseError("the time phase needs the main phase")
+                if launches is None or serve_launches is None:
+                    raise PhaseError("the time phase needs the main and "
+                                     "serve phases")
                 kernels = phase_time(record, BATCH, launches)
+                kernels += phase_time_serve(record, serve_launches)
             else:
                 raise PhaseError(f"unknown phase {phase!r}")
             status = "ok"

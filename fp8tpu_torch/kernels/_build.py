@@ -22,7 +22,8 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("cast_kernel", "qmatmul")
+SOURCES = ("cast_kernel", "qmatmul", "dequant_matmul", "int4_matmul",
+           "inplace")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

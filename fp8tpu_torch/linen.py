@@ -101,18 +101,50 @@ def conv_padding(padding: PaddingLike, in_hw: Sequence[int],
 
 
 class Dense(Module):
-    """y = x @ weight.T + bias; ``weight`` is (out, in)."""
+    """y = x @ weight.T + bias; ``weight`` is (out, in).  With ``dtype`` set,
+    input and parameters are cast to it for the contraction, as Flax's
+    ``Dense(dtype=...)`` does."""
 
-    def __init__(self, in_features: int, features: int, use_bias: bool = True):
+    def __init__(self, in_features: int, features: int, use_bias: bool = True,
+                 dtype=None):
         super().__init__()
         self.in_features, self.features = in_features, features
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(features, in_features))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
         nn.init.normal_(self.weight, std=1.0 / math.sqrt(in_features))
 
     def forward(self, x):
+        w, b = self.weight, self.bias
+        if self.dtype is not None:
+            x, w = x.to(self.dtype), w.to(self.dtype)
+            b = None if b is None else b.to(self.dtype)
         with full_fp32():
-            return F.linear(x, self.weight, self.bias)
+            return F.linear(x, w, b)
+
+
+class Embed(Module):
+    """Token embedding with Flax's ``Embed`` semantics: ``forward`` looks
+    rows up, ``attend`` contracts a query with the table (the tied LM
+    head), both in ``dtype`` when it is set."""
+
+    def __init__(self, num_embeddings: int, features: int, dtype=None):
+        super().__init__()
+        self.dtype = dtype
+        self.embedding = nn.Parameter(torch.empty(num_embeddings, features))
+        nn.init.normal_(self.embedding, std=1.0 / math.sqrt(features))
+
+    def _table(self):
+        e = self.embedding
+        return e if self.dtype is None else e.to(self.dtype)
+
+    def forward(self, tokens):
+        return self._table()[tokens]
+
+    def attend(self, query):
+        table = self._table()
+        with full_fp32():
+            return torch.matmul(query.to(table.dtype), table.t())
 
 
 class Conv(Module):

@@ -148,6 +148,14 @@ def test_port_imports_nothing_of_jax_or_fp8tpu():
     files = sorted((REPO / "fp8tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py"]
     assert len(files) > 20
+    names = {str(f.relative_to(REPO)) for f in files}
+    assert {"fp8tpu_torch/kernels/int4_matmul.py",
+            "fp8tpu_torch/kernels/inplace.py",
+            "fp8tpu_torch/models/transformer.py",
+            "fp8tpu_torch/serve/__init__.py",
+            "fp8tpu_torch/serve/kv_cache.py", "fp8tpu_torch/serve/model.py",
+            "fp8tpu_torch/serve/engine.py",
+            "fp8tpu_torch/serve/server.py"} <= names
     for path in files:
         bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
         assert not bad, f"{path.relative_to(REPO)} imports {bad}"

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the fp8tpu_torch port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py [--phases build,k1,k2,k3,k5,k6,main,serve,time]
+    python3 chip_smoke.py [--phases build,k1,k2,k3,k4,k5,k6,main,serve,
+                                    serve_paged,time]
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -21,6 +22,15 @@ Phases, each printing its own lines; any failure exits non-zero:
           row counts at the full-width (K, N) of the serving linears and a
           ragged pair, within the summation-order bound (plus one bf16
           step for bf16 results).
+   k4     the paged decode-attention kernel (K4) against its plain
+          version at the full-width shapes (8 and 64 slots, 8 KV heads x 4
+          query heads of 128, pages of 64 tokens, 8 and 16 pages a slot):
+          int8, e4m3, e5m2 and bf16 pools, ragged lengths (0, one token, a
+          mid-page end, a full pool), a shuffled page table with unmapped
+          (-1) entries, every layer of a 3-layer pool; m bit-equal where
+          the dots are exact, l and acc within the stated bound; a second
+          launch bit-equal to the first; one launch captured in a CUDA
+          graph and replayed after the table and the lengths changed.
    k5     the int4 unpack-GEMM (K5) likewise, per-channel and group-128
           scales.
    k6     the in-place ring store (K6), bit-exact for 1-, 2- and 4-byte
@@ -44,7 +54,17 @@ Phases, each printing its own lines; any failure exits non-zero:
           4 layers with int4 weights (K5); (d) timed decode at batch 64 and
           near-full context for e4m3 + int8 KV and for the bf16 twin, with
           a torch.profiler breakdown of one step.
-7. time   each kernel at its main path's shapes: kernel, plain version,
+7. serve_paged  the same decoder served from the paged KV pool (int8 pool,
+          pages of 64, ``paged_decode_impl="kernel"``): (a) an EngineServer
+          over ``ServingEngine(use_paged=True, prefix_cache=True)`` answers
+          16 requests whose prompts share a 128-token prefix, twice, with
+          K4 / K3 launches per decode step counted, no plain version
+          called, the prefix pages shared and every page reclaimed; (b) 4
+          decode steps in "kernel" mode against the plain versions and
+          against "ringview"; (c) one request whose 900-token context
+          exceeds the ring of ``serve``; (d) timed decode at batch 64 for
+          "kernel" and "ringview" in turns.
+8. time   each kernel at its main path's shapes: kernel, plain version,
           bound, and a PyTorch yardstick where one exists; K1 bit-exact
           at the largest residual_add operand.
 
@@ -559,6 +579,216 @@ def phase_k6(record):
     if bad:
         raise PhaseError("K6 disagrees with its plain version")
 
+
+# -- phase k4 ------------------------------------------------------------------
+
+K4_KV, K4_G, K4_D, K4_PAGE, K4_LAYERS = 8, 4, 128, 64, 3
+KV_TORCH = {"int8": "int8", "e4m3": "float8_e4m3fn", "e5m2": "float8_e5m2",
+            "bf16": "bfloat16"}
+
+
+def k4_case(gen, batch, max_pages, fmt, exact):
+    """A pool of ``batch * max_pages`` pages behind a shuffled page table,
+    queries, and ragged lengths: 0, one token, a mid-page end, a page
+    boundary, a full pool, the rest random.  Entries of the table past a
+    slot's length are -1 (as the engine leaves them), and slot 6's whole row
+    is -1 although its length is not 0 (a retired slot that keeps decoding).
+    ``exact``: q on a 1/8 grid and payloads on a grid coarse enough that
+    every score dot is exact in f32 in any order."""
+    import torch
+    dev = "cuda"
+    P, R = batch * max_pages, K4_PAGE * K4_KV
+    shape = (P, 2, K4_LAYERS, R, K4_D)
+    dtype = getattr(torch, KV_TORCH[fmt])
+    if fmt == "int8":
+        pool = torch.randint(-127, 128, shape, device=dev, generator=gen,
+                             dtype=torch.int8)
+    elif exact:
+        pool = (torch.randint(-15, 16, shape, device=dev, generator=gen,
+                              dtype=torch.int8).float() * 0.25).to(dtype)
+    else:
+        pool = torch.cat([(torch.randn((64,) + shape[1:], device=dev,
+                                       generator=gen) * 3).to(dtype)
+                          for _ in range(P // 64)])
+    sc = torch.empty((P, 2, K4_LAYERS, R), device=dev).uniform_(
+        0.004, 0.02, generator=gen)
+    if exact:
+        q = (torch.randint(-16, 17, (batch, K4_KV * K4_G, K4_D), device=dev,
+                           generator=gen).float() / 8).to(torch.bfloat16)
+    else:
+        q = (torch.randn(batch, K4_KV * K4_G, K4_D, device=dev, generator=gen)
+             * 0.7).to(torch.bfloat16)
+    full = max_pages * K4_PAGE
+    lens = torch.randint(1, full + 1, (batch,), device=dev, generator=gen,
+                         dtype=torch.int32)
+    lens[:7] = torch.tensor([0, 1, K4_PAGE - 1, K4_PAGE, K4_PAGE + 3, full,
+                             K4_PAGE + 5], dtype=torch.int32)
+    table = torch.randperm(P, device=dev, generator=gen).to(torch.int32
+                                                            ).reshape(batch,
+                                                                      max_pages)
+    mapped = torch.arange(max_pages, device=dev)[None] * K4_PAGE \
+        < lens[:, None]
+    table = torch.where(mapped, table, -1).to(torch.int32)
+    table[6] = -1
+    return q, pool, sc, table, lens
+
+
+def k4_reference(q, pool, sc, table, lens, layer):
+    """K4's function computed a second way (all pages gathered, one softmax,
+    no recurrence) and the bounds of |kernel - plain| that go with it.
+
+    Scores are f32 sums of D exact products, so two orders of summation
+    differ by at most s_tol = 2 * D * 2^-24 * max_t(sum_d |q_d k_td| * ks_t),
+    which is also the bound for m.  A weight p = exp(s - m) then carries a
+    relative error of at most 2 * s_tol (plus a few ulps of exp), and p * vs
+    rounded to bf16 may land one bf16 step (2^-7 relative) away.  So
+      |l - l'|     <= l * (2 * s_tol + (T + 8) * 2^-23)
+      |acc - acc'| <= A * (2 * s_tol + 2^-7 + (T + 8) * 2^-23),
+    A = sum_t |pv_t| * |v_td|, T the tokens of the longest slot.
+    Returns (acc, m, l, m_tol, l_tol, acc_tol)."""
+    import torch
+    from fp8tpu_torch._device import full_fp32
+    B, KVG, D = q.shape
+    KV, G = K4_KV, KVG // K4_KV
+    MP = table.shape[1]
+    T = MP * K4_PAGE
+    safe = table.clamp(min=0).long()
+    raw = pool.view(torch.uint8 if pool.element_size() == 1 else torch.int16)
+    qh = q.float().reshape(B, KV, G, D)
+    mask = (torch.arange(T, device=q.device)[None] < lens[:, None]
+            )[:, None, None, :]
+    with full_fp32():
+        k = raw[safe, 0, layer].view(pool.dtype).float().reshape(B, T, KV, D)
+        ks = sc[safe, 0, layer].reshape(B, T, KV).permute(0, 2, 1)[:, :, None]
+        s = torch.einsum("bkgd,btkd->bkgt", qh, k) * ks
+        s_abs = torch.einsum("bkgd,btkd->bkgt", qh.abs(), k.abs()) * ks
+        del k
+        s = torch.where(mask, s, -1e30)
+        m = s.amax(-1)
+        s_tol = 2.0 * D * 2.0 ** -24 * torch.where(mask, s_abs, 0.0).amax(-1)
+        p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+        l = p.sum(-1)
+        v = raw[safe, 1, layer].view(pool.dtype).float().reshape(B, T, KV, D)
+        vs = sc[safe, 1, layer].reshape(B, T, KV).permute(0, 2, 1)[:, :, None]
+        pv = (p * vs).to(torch.bfloat16).float()
+        acc = torch.einsum("bkgt,btkd->bkgd", pv, v)
+        a_abs = torch.einsum("bkgt,btkd->bkgd", pv, v.abs())
+    rel = 2.0 * s_tol + (T + 8) * 2.0 ** -23
+    return (acc.reshape(B, KVG, D), m.reshape(B, KVG), l.reshape(B, KVG),
+            s_tol.reshape(B, KVG), (l * rel).reshape(B, KVG) + 1e-30,
+            (a_abs * (rel + 2.0 ** -7)[..., None]).reshape(B, KVG, D) + 1e-30)
+
+
+def phase_k4(record):
+    import torch
+    from fp8tpu_torch.kernels import paged_attention as k4
+
+    gen = torch.Generator(device="cuda").manual_seed(44)
+    kw = dict(page_size=K4_PAGE, kv_heads=K4_KV)
+    rows = []
+
+    def compare(label, args, layer, exact):
+        before = k4.launches
+        acc, m, l = k4.paged_decode_attention(*args, layer, **kw)
+        if k4.launches != before + 1:
+            raise PhaseError("paged_decode_attention did not count its launch")
+        acc_p, m_p, l_p = k4.paged_decode_attention_plain(*args, layer, **kw)
+        acc_r, m_r, l_r, m_tol, l_tol, acc_tol = k4_reference(*args, layer)
+        torch.cuda.synchronize()
+        # the plain version against the second reference: m bit-equal on
+        # exact data, everything within the same bounds
+        checks = {
+            "m": bool(((m - m_p).abs() <= (0.0 if exact else 1.0) * m_tol
+                       ).all()),
+            "m_bits": bits_equal(m, m_p) == 0 if exact else True,
+            "l": bool(((l - l_p).abs() <= l_tol).all()),
+            "acc": bool(((acc - acc_p).abs() <= acc_tol).all()),
+            "plain_vs_reference": bool(
+                ((m_p - m_r).abs() <= m_tol).all()
+                and ((l_p - l_r).abs() <= l_tol).all()
+                and ((acc_p - acc_r).abs() <= acc_tol).all()),
+            "finite": bool(torch.isfinite(acc).all()
+                           and torch.isfinite(l).all()),
+        }
+        lens = args[4]
+        empty = lens == 0
+        if bool(empty.any()):
+            checks["empty_slot"] = bool(
+                (m[empty] == -1e30).all() and (l[empty] == 0).all()
+                and (acc[empty] == 0).all())
+        ok = all(checks.values())
+        rows.append({"case": label, "ok": ok, "checks": checks,
+                     "max_abs_err": float((acc - acc_p).abs().max()),
+                     "max_err_over_bound": float(
+                         ((acc - acc_p).abs() / acc_tol).max()),
+                     "l_err_over_bound": float(
+                         ((l - l_p).abs() / l_tol).max())})
+        if not ok:
+            print(f"  k4 FAIL {label}: {checks}")
+        return acc, m, l
+
+    shapes = [(8, 8), (8, 16), (64, 8), (64, 16)]
+    for batch, max_pages in shapes:
+        for fmt in ("int8", "e4m3"):
+            for exact in (True, False):
+                args = k4_case(gen, batch, max_pages, fmt, exact)
+                for layer in range(K4_LAYERS):
+                    compare(f"B={batch} MP={max_pages} {fmt} "
+                            f"{'exact-dot' if exact else 'gaussian'} data "
+                            f"layer {layer}", args, layer, exact)
+                del args
+    for fmt in ("e5m2", "bf16"):
+        for exact in (True, False):
+            args = k4_case(gen, 8, 8, fmt, exact)
+            compare(f"B=8 MP=8 {fmt} {'exact-dot' if exact else 'gaussian'} "
+                    f"data layer 1", args, 1, exact)
+
+    # a second launch gives the same bits (the split partials are merged in a
+    # fixed order), at the split shape (8 slots) and the unsplit one (64)
+    repeat_ok = True
+    for batch in (8, 64):
+        args = k4_case(gen, batch, 8, "int8", False)
+        first = k4.paged_decode_attention(*args, 2, **kw)
+        for _ in range(3):
+            again = k4.paged_decode_attention(*args, 2, **kw)
+            repeat_ok &= all(bits_equal(a, b) == 0
+                             for a, b in zip(first, again))
+
+    # The table and the lengths are read on the device: capture one launch in
+    # a CUDA graph, then change both in place and replay it.
+    q, pool, sc, table, lens = args = k4_case(gen, 8, 8, "int8", False)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k4.paged_decode_attention(*args, 0, **kw)               # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = k4.paged_decode_attention(*args, 0, **kw)
+    _, _, _, table2, lens2 = k4_case(gen, 8, 8, "int8", False)
+    table.copy_(table2)
+    lens.copy_(lens2)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = k4.paged_decode_attention_plain(q, pool, sc, table, lens, 0, **kw)
+    _, _, _, m_tol, l_tol, acc_tol = k4_reference(q, pool, sc, table, lens, 0)
+    graph_ok = bool(((out[0] - want[0]).abs() <= acc_tol).all()
+                    and ((out[1] - want[1]).abs() <= m_tol).all()
+                    and ((out[2] - want[2]).abs() <= l_tol).all())
+
+    record["k4"] = {"cases": rows, "repeatable": repeat_ok,
+                    "graph_replay": graph_ok}
+    worst = max(r["max_err_over_bound"] for r in rows)
+    worst_l = max(r["l_err_over_bound"] for r in rows)
+    print(f"k4: {len(rows)} cases (int8 / e4m3 x exact-dot / gaussian data x "
+          f"(B, MP) in {shapes} x 3 layers; e5m2 and bf16 at B=8 MP=8); m "
+          f"bit-equal on exact-dot data; worst acc err/bound {worst:.3e}, "
+          f"l err/bound {worst_l:.3e}; repeated launches bit-equal: "
+          f"{'ok' if repeat_ok else 'FAIL'}; CUDA-graph replay with a "
+          f"changed table and lengths: {'ok' if graph_ok else 'FAIL'}")
+    if not (all(r["ok"] for r in rows) and repeat_ok and graph_ok):
+        raise PhaseError("K4 disagrees with its plain version")
+
 # -- phase 4 ----------------------------------------------------------------
 
 def phase_main(record, batch: int):
@@ -970,9 +1200,11 @@ def phase_serve(record):
     return launches
 
 
-def profile_decode_step(step, step_ms: float):
+def profile_decode_step(step, step_ms: float, steps: int = 1):
     """Device time of one decode step by kind of kernel (torch.profiler);
-    fails if the profiler saw no device time."""
+    fails if the profiler saw no device time.  ``step`` runs ``steps``
+    decode steps (one chunk, where work done once per chunk must be shared
+    out); times and launch counts are per step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     step()
@@ -985,12 +1217,14 @@ def profile_decode_step(step, step_ms: float):
     for e in p.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        ms = (getattr(e, "device_time", None) or e.cuda_time) / 1000.0
+        ms = (getattr(e, "device_time", None) or e.cuda_time) / 1000.0 / steps
         low = e.name.lower()
         if "w_gemm" in e.name:
             kind = "K3/K5 weight GEMM (hand-written)"
         elif "dyn_store_kernel" in e.name:
             kind = "K6 ring store (hand-written)"
+        elif "paged_attention_kernel" in e.name:
+            kind = "K4 paged attention (hand-written)"
         elif any(w in low for w in ("gemm", "cutlass", "xmma", "gemv",
                                     "cublas", "nvjet")):
             kind = "library matmuls (attention, LM head, bf16 linears)"
@@ -1004,6 +1238,9 @@ def profile_decode_step(step, step_ms: float):
         groups[kind] = (t + ms, n + 1)
         t, n = names.get(e.name, (0.0, 0))
         names[e.name] = (t + ms, n + 1)
+    if steps > 1:
+        groups = {k: (t, round(n / steps)) for k, (t, n) in groups.items()}
+        names = {k: (t, round(n / steps)) for k, (t, n) in names.items()}
     busy = sum(t for t, _ in groups.values())
     if not busy > 0:
         raise PhaseError("torch.profiler recorded no device time")
@@ -1014,6 +1251,286 @@ def profile_decode_step(step, step_ms: float):
             "groups": dict(sorted(groups.items(), key=lambda kv: -kv[1][0])),
             "top_kernels": [{"name": k[:120], "ms": t, "count": n}
                             for t, n, k in top[:12]]}
+
+
+# -- phase serve_paged ---------------------------------------------------------
+
+PAGE = 64                      # tokens per page of the served pool
+PREFIX_LEN = 128               # the shared system prefix: two full pages
+LONG_PROMPT, LONG_NEW, LONG_SEQ = 700, 200, 1024
+PROFILE_STEPS = 8              # steps of the chunk that (d) profiles
+
+
+def paged_requests(seed: int, n: int, vocab: int):
+    """Prompts that share a 128-token system prefix followed by 16-48
+    tokens of their own."""
+    import numpy as np
+    from fp8tpu_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(1, vocab, PREFIX_LEN).tolist()
+    return [Request(uid=i, prompt=prefix + rng.integers(
+        1, vocab, int(rng.integers(16, 49))).tolist(),
+        max_new_tokens=SERVE_NEW) for i in range(n)]
+
+
+def run_paged_server(params, scfg, requests, n_slots=SERVE_SLOTS,
+                     max_seq=SERVE_SEQ, chunk_size=16, prefix_cache=True):
+    """Answer ``requests`` through an EngineServer over the paged engine;
+    returns ({uid: tokens}, seconds, the engine)."""
+    from fp8tpu_torch.serve import EngineServer, ServingEngine
+    eng = ServingEngine(params, scfg, n_slots=n_slots, max_seq=max_seq,
+                        chunk_size=chunk_size, use_paged=True, page_size=PAGE,
+                        prefix_cache=prefix_cache)
+    srv = EngineServer(eng).start()
+    t0 = time.perf_counter()
+    try:
+        futs = {r.uid: srv.submit(r) for r in requests}
+        out = {uid: f.result(timeout=900) for uid, f in futs.items()}
+    finally:
+        srv.stop()
+    return out, time.perf_counter() - t0, eng
+
+
+def phase_serve_paged(record):
+    import dataclasses
+    import torch
+    from fp8tpu_torch.kernels import paged_attention as k4
+    from fp8tpu_torch.kernels import qmatmul
+    from fp8tpu_torch.serve import (PagedKVCache, ServeConfig,
+                                    decode_step_paged, decode_steps_paged,
+                                    full_logits, prefill_batch_paged,
+                                    random_serve_params)
+    from fp8tpu_torch.serve import engine as engine_mod
+
+    cfg = serve_config()
+    L, KV, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    scfg = ServeConfig(model=cfg, weight_fmt="e4m3", kv_fmt="int8",
+                       paged_decode_impl="kernel")
+    params = STATE.get("e4m3")
+    if params is None:
+        params = STATE["e4m3"] = random_serve_params(cfg, "e4m3", seed=0)
+    result, problems = {}, []
+
+    # (a) the served main path: 16 requests with a shared prefix, twice.
+    reqs = paged_requests(9, 16, cfg.vocab_size)
+    qmatmul.reset_launches()
+    k4.reset_launches()
+    with _Counting(engine_mod, "decode_chunk_paged", steps_arg=6) as dc, \
+            _Counting(engine_mod, "prefill_batch_paged") as pb, \
+            _Counting(qmatmul, "dequant_matmul_plain", forbid=True), \
+            _Counting(k4, "paged_decode_attention_plain", forbid=True):
+        out, seconds, eng = run_paged_server(params, scfg, reqs)
+    launches = {"paged_decode_attention": k4.launches,
+                "dequant_matmul": qmatmul.dequant_launches}
+    k4_per_step = k4.launches / dc.steps
+    k3_per_step = (qmatmul.dequant_launches - 7 * L * pb.calls) / dc.steps
+    again, seconds2, _ = run_paged_server(
+        params, scfg, paged_requests(9, 16, cfg.vocab_size))
+    n_tok = sum(len(v) for v in out.values())
+    stats = eng.page_stats
+    no_cache = sum(-(-(len(r.prompt) + r.max_new_tokens + 1) // PAGE)
+                   for r in reqs)
+    evictable = sum(1 for p in eng._prefix_index.values()
+                    if eng._page_ref[p] == 0)
+    print(f"serve_paged (a): 16 requests x {SERVE_NEW} tokens, prompts of a "
+          f"shared {PREFIX_LEN}-token prefix + 16-48 tokens, through "
+          f"EngineServer (paged pool of {eng.cache.n_pages} pages of {PAGE}, "
+          f"{SERVE_SLOTS} slots, prefix cache, chunks of 16): {n_tok} tokens "
+          f"in {seconds:.2f} s ({n_tok / seconds:.1f} tokens/s; second run "
+          f"{seconds2:.2f} s)")
+    print(f"serve_paged (a): {dc.steps} decode steps in {dc.calls} chunks, "
+          f"{pb.calls} prefill calls; launches {launches}: K4 "
+          f"{k4_per_step:.1f} and K3 {k3_per_step:.1f} per decode step; no "
+          f"plain version called; pages allocated {stats['allocated']} "
+          f"(without the cache: {no_cache}), shared mappings "
+          f"{stats['shared']}, most holders of one page {stats['max_ref']}; "
+          f"at the end {len(eng.free_pages)} free + {evictable} cached of "
+          f"{eng.cache.n_pages}")
+    if any(len(v) != SERVE_NEW for v in out.values()) or len(out) != 16:
+        problems.append("a request did not finish with its budget")
+    if not all(0 <= t < cfg.vocab_size for v in out.values() for t in v):
+        problems.append("a token is outside the vocabulary")
+    if again != out:
+        problems.append("a second run gave other tokens")
+    if k4_per_step != L or k3_per_step != 7 * L:
+        problems.append(f"K4 / K3 launches per decode step {k4_per_step} / "
+                        f"{k3_per_step}, expected {L} / {7 * L}")
+    if stats["max_ref"] < 2 or stats["shared"] < 2:
+        problems.append("the prefix pages were not shared between slots")
+    if stats["allocated"] >= no_cache:
+        problems.append("the prefix cache saved no page")
+    if len(eng.free_pages) + evictable != eng.cache.n_pages \
+            or int(eng._page_ref.sum()) != 0:
+        problems.append("pages were not reclaimed at the end")
+    result["a"] = {"tokens": n_tok, "seconds": seconds, "seconds_2": seconds2,
+                   "decode_steps": dc.steps, "chunks": dc.calls,
+                   "prefills": pb.calls, "launches": launches,
+                   "page_stats": stats, "pages_without_cache": no_cache}
+    del eng
+
+    # (b) 4 decode steps from one pool state: "kernel" mode against the same
+    # steps with the plain versions, and against "ringview".
+    def fresh_pool():
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        paged = PagedKVCache.create(SERVE_SLOTS * 8, PAGE, L, SERVE_SLOTS, 8,
+                                    KV, D, "int8")
+        table = torch.randperm(SERVE_SLOTS * 8, device="cuda", generator=gen
+                               ).to(torch.int32).reshape(SERVE_SLOTS, 8)
+        paged.page_table = table
+        prompts = torch.randint(1, cfg.vocab_size, (SERVE_SLOTS, 256),
+                                device="cuda", generator=gen,
+                                dtype=torch.int32)
+        lengths = torch.randint(70, 257, (SERVE_SLOTS,), device="cuda",
+                                generator=gen, dtype=torch.int32)
+        slots = torch.arange(SERVE_SLOTS, device="cuda", dtype=torch.int32)
+        zeros = torch.zeros(SERVE_SLOTS, device="cuda")
+        zi = torch.zeros(SERVE_SLOTS, device="cuda", dtype=torch.int32)
+        _, paged, toks, pos = prefill_batch_paged(
+            params, paged, prompts, slots, lengths, None, zeros, None, None,
+            zi, zi.clone(), scfg)
+        return paged, toks, pos
+
+    def clone(paged):
+        return PagedKVCache(pool=paged.pool.clone(), sc=paged.sc.clone(),
+                            page_table=paged.page_table.clone(), kv_heads=KV)
+
+    pool_k, toks, pos = fresh_pool()
+    pool_p, pool_r = clone(pool_k), clone(pool_k)
+    rcfg = dataclasses.replace(scfg, paged_decode_impl="ringview")
+    worst_p = worst_r = 0.0
+    for step in range(4):
+        lk, pool_k = decode_step_paged(params, pool_k, toks, pos, scfg)
+        orig = (qmatmul.dequant_matmul, k4.paged_decode_attention)
+        qmatmul.dequant_matmul = qmatmul.dequant_matmul_plain
+        k4.paged_decode_attention = k4.paged_decode_attention_plain
+        try:
+            lp, pool_p = decode_step_paged(params, pool_p, toks, pos, scfg)
+        finally:
+            qmatmul.dequant_matmul, k4.paged_decode_attention = orig
+        lr, pool_r = decode_step_paged(params, pool_r, toks, pos, rcfg)
+        worst_p = max(worst_p, float((lk - lp).abs().max() / lp.abs().max()))
+        worst_r = max(worst_r, float((lk - lr).abs().max() / lr.abs().max()))
+        if not bool(torch.isfinite(lk).all()):
+            problems.append(f"paged step {step}: logits not finite")
+        toks, pos = lk.argmax(-1).to(torch.int32), pos + 1
+    same_p = float((pool_k.pool == pool_p.pool).float().mean())
+    same_r = float((pool_k.pool == pool_r.pool).float().mean())
+    print(f"serve_paged (b): 4 decode steps in \"kernel\" mode vs the plain "
+          f"versions on the card: max|logit diff| / max|logit| {worst_p:.3e}, "
+          f"pool payload bytes equal {same_p:.4f}; vs \"ringview\": "
+          f"{worst_r:.3e}, {same_r:.4f} (tolerance {SERVE_LOGIT_TOL}, at "
+          f"least {SERVE_RING_EQUAL})")
+    if max(worst_p, worst_r) > SERVE_LOGIT_TOL:
+        problems.append(f"paged kernel logits differ by {worst_p} (plain) / "
+                        f"{worst_r} (ringview)")
+    if min(same_p, same_r) < SERVE_RING_EQUAL:
+        problems.append(f"pool payloads agree on only {same_p} / {same_r}")
+    result["b"] = {"vs_plain": worst_p, "vs_ringview": worst_r,
+                   "pool_bytes_equal_plain": same_p,
+                   "pool_bytes_equal_ringview": same_r}
+    del pool_k, pool_p, pool_r
+
+    # (c) a context beyond the ring of the serve phase: one request of 700
+    # prompt tokens and 200 new ones; then its tokens against a
+    # teacher-forced dense forward over the same 899 tokens.
+    import numpy as np
+    from fp8tpu_torch.serve import Request
+    rng = np.random.default_rng(21)
+    long_req = Request(uid=0, prompt=rng.integers(
+        1, cfg.vocab_size, LONG_PROMPT).tolist(), max_new_tokens=LONG_NEW)
+    k4.reset_launches()
+    out_l, sec_l, eng_l = run_paged_server(
+        params, scfg, [long_req], n_slots=2, max_seq=LONG_SEQ, chunk_size=32,
+        prefix_cache=False)
+    got = out_l[0]
+    seq = torch.tensor(long_req.prompt + got[:-1], device="cuda",
+                       dtype=torch.int32)
+    dense = full_logits(params, seq, scfg)[LONG_PROMPT - 1:].argmax(-1)
+    agree = float((dense.cpu() == torch.tensor(got)).float().mean())
+    print(f"serve_paged (c): one request, prompt {LONG_PROMPT} + "
+          f"{len(got)} new tokens (context {LONG_PROMPT + len(got)} > the "
+          f"ring's {SERVE_SEQ}; pool max_seq {LONG_SEQ}) in {sec_l:.2f} s, "
+          f"{k4.launches} K4 launches; greedy tokens equal to a "
+          f"teacher-forced dense forward's at {agree:.3f} of the positions")
+    if len(got) != LONG_NEW:
+        problems.append("the long request did not finish with its budget")
+    if agree < 0.5:
+        problems.append(f"long-context tokens agree with the dense forward "
+                        f"at only {agree}")
+    if len(eng_l.free_pages) != eng_l.cache.n_pages:
+        problems.append("the long request's pages were not reclaimed")
+    result["c"] = {"seconds": sec_l, "tokens": len(got),
+                   "dense_agreement": agree}
+    del eng_l
+
+    # (d) timed decode at batch 64, position 444, chunks of 32: "kernel"
+    # and "ringview" in turns on one pool.
+    def make_bench(impl):
+        bcfg = dataclasses.replace(scfg, paged_decode_impl=impl)
+        mp = BENCH_CACHE // PAGE
+        paged = PagedKVCache.create(BENCH_BATCH * mp, PAGE, L, BENCH_BATCH,
+                                    mp, KV, D, "int8")
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        paged.page_table = torch.randperm(
+            BENCH_BATCH * mp, device="cuda", generator=gen
+        ).to(torch.int32).reshape(BENCH_BATCH, mp)
+        paged.pool.copy_(torch.randint(-127, 128, paged.pool.shape,
+                                       device="cuda", generator=gen,
+                                       dtype=torch.int8))
+        toks = torch.ones(BENCH_BATCH, device="cuda", dtype=torch.int32)
+        pos = torch.full((BENCH_BATCH,), BENCH_WARM_POS, device="cuda",
+                         dtype=torch.int32)
+        temp = torch.zeros(BENCH_BATCH, device="cuda")
+
+        def chunk(n):
+            out_, _ = decode_steps_paged(params, paged, toks, pos, None, temp,
+                                         n, bcfg, greedy_only=True)
+            return out_
+        return chunk
+
+    chunks = {impl: make_bench(impl) for impl in ("kernel", "ringview")}
+    times = {impl: [] for impl in chunks}
+    for impl in chunks:
+        chunks[impl](2)
+    torch.cuda.synchronize()
+    for impl in ("kernel", "ringview", "ringview", "kernel"):
+        t = time.perf_counter()
+        int(chunks[impl](BENCH_STEPS).sum())         # one readback closes it
+        times[impl].append(time.perf_counter() - t)
+    bench = {}
+    for impl, fn in chunks.items():
+        best = min(times[impl])
+        # an 8-step chunk: tracing all 32 steps (60 000 launches) takes a
+        # minute, and what a chunk does once (the snapshot gather, the
+        # deferred pool write) still shows, shared over 8 steps, not 32
+        prof = profile_decode_step(lambda: fn(PROFILE_STEPS),
+                                   best / BENCH_STEPS * 1e3, PROFILE_STEPS)
+        bench[impl] = {"tokens_per_s": BENCH_BATCH * BENCH_STEPS / best,
+                       "step_ms": best / BENCH_STEPS * 1e3,
+                       "chunk_s": times[impl], "profile": prof}
+        print(f"serve_paged (d): \"{impl}\": "
+              f"{bench[impl]['tokens_per_s']:.1f} tokens/s, "
+              f"{bench[impl]['step_ms']:.3f} ms/step (batch {BENCH_BATCH}, "
+              f"pool of {BENCH_CACHE} tokens a slot, position "
+              f"{BENCH_WARM_POS}, chunks of {BENCH_STEPS}); per step of a "
+              f"profiled {PROFILE_STEPS}-step chunk: "
+              f"{prof['device_ms']:.3f} ms of kernels in "
+              f"{prof['launches']} launches, device-busy share "
+              f"{prof['busy_share']:.3f}")
+        for group, (ms, n) in prof["groups"].items():
+            print(f"    {ms:8.3f} ms {n:5d}x  {group}")
+    ring = record.get("serve", {}).get("d", {}).get("fp8")
+    if ring:
+        print(f"serve_paged (d): the ring path in this run (serve (d)): "
+              f"{ring['tokens_per_s']:.1f} tokens/s, {ring['step_ms']:.3f} "
+              f"ms/step, {ring['profile']['device_ms']:.3f} ms of kernels")
+    result["d"] = bench
+    record["serve_paged"] = result
+    del chunks
+    torch.cuda.empty_cache()
+    if problems:
+        raise PhaseError("; ".join(problems))
+    return launches
 
 # -- phase 5 ----------------------------------------------------------------
 
@@ -1290,10 +1807,123 @@ def phase_time_serve(record, launches):
     return kernels
 
 
+def phase_time_paged(record, launches):
+    """K4 at the paged path's shapes (8 slots and 64, position 444 of a
+    512-token pool, one layer a launch): device time by CUDA-graph replay
+    over the 16 layers of the pool in turn (16 x 8.6 MB of one layer's
+    mapped pages at 8 slots, so a launch finds them in device memory, not
+    in the L2), the plain version, the bound from this run's lengths, and a
+    PyTorch yardstick: the same partials from ``torch.bmm`` on a gathered
+    snapshot of the layer's pages upcast to bf16."""
+    import torch
+    from fp8tpu_torch.kernels import paged_attention as k4
+
+    cfg = serve_config()
+    L, KV, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    G = cfg.n_heads // KV
+    mp = BENCH_CACHE // PAGE
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    kw = dict(page_size=PAGE, kv_heads=KV)
+    rows = []
+    for label, batch in (("served engine", SERVE_SLOTS),
+                         ("timed decode", BENCH_BATCH)):
+        P = batch * mp
+        pool = torch.randint(-127, 128, (P, 2, L, PAGE * KV, D),
+                             device="cuda", generator=gen, dtype=torch.int8)
+        sc = torch.empty((P, 2, L, PAGE * KV), device="cuda").uniform_(
+            0.004, 0.02, generator=gen)
+        table = torch.randperm(P, device="cuda", generator=gen
+                               ).to(torch.int32).reshape(batch, mp)
+        lens = torch.full((batch,), BENCH_WARM_POS, device="cuda",
+                          dtype=torch.int32)
+        q = (torch.randn(batch, KV * G, D, device="cuda", generator=gen)
+             * 0.7).to(torch.bfloat16)
+        layer = {"i": 0}
+
+        def kern():
+            layer["i"] = (layer["i"] + 1) % L
+            return k4.paged_decode_attention(q, pool, sc, table, lens,
+                                             layer["i"], **kw)
+
+        def plain():
+            return k4.paged_decode_attention_plain(q, pool, sc, table, lens,
+                                                   3, **kw)
+
+        safe = table.long()
+        T = mp * PAGE
+        mask = (torch.arange(T, device="cuda")[None] < lens[:, None]
+                )[:, None, :].repeat_interleave(KV, 0)        # (B*KV, 1, T)
+
+        def library():
+            layer["i"] = (layer["i"] + 1) % L
+            li = layer["i"]
+            k = pool[safe, 0, li].to(torch.bfloat16).reshape(batch, T, KV, D)
+            v = pool[safe, 1, li].to(torch.bfloat16).reshape(batch, T, KV, D)
+            ks = sc[safe, 0, li].reshape(batch, T, KV).permute(0, 2, 1)
+            vs = sc[safe, 1, li].reshape(batch, T, KV).permute(0, 2, 1)
+            s = torch.bmm(q.reshape(batch * KV, G, D),
+                          k.permute(0, 2, 3, 1).reshape(batch * KV, D, T),
+                          out_dtype=torch.float32) \
+                * ks.reshape(batch * KV, 1, T)
+            s = torch.where(mask, s, -1e30)
+            m = s.amax(-1)
+            p = torch.exp(s - m[..., None])
+            pv = (p * vs.reshape(batch * KV, 1, T)).to(torch.bfloat16)
+            acc = torch.bmm(pv, v.permute(0, 2, 1, 3).reshape(batch * KV, T,
+                                                               D),
+                            out_dtype=torch.float32)
+            return acc, m, p.sum(-1)
+
+        got = k4.paged_decode_attention(q, pool, sc, table, lens, 3, **kw)
+        want = plain()
+        err = float((got[0] - want[0]).abs().max())
+        layer["i"] = 2                     # the next library() reads layer 3
+        lib = library()
+        lib_err = float((lib[0].reshape(batch, KV * G, D) - want[0]
+                         ).abs().max())
+        t_k = graph_ms(kern)
+        t_p = cuda_ms(plain, iters=3, warmup=1)
+        t_l = graph_ms(library)
+        # each input read once, each output written once, for THIS run's
+        # lengths: the valid tokens' K and V rows and scales of one head
+        # vector each, the table, the lengths, q, and the three outputs
+        tokens = int(lens.sum())
+        nbytes = (tokens * KV * (2 * D + 2 * 4) + table.numel() * 4
+                  + lens.numel() * 4 + q.numel() * 2
+                  + batch * KV * G * (D + 2) * 4)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2.0 * 2 * tokens * KV * G * D / F32_SIMT_FLOPS * 1e3
+        rows.append({"kernel": "K4", "what": label, "batch": batch,
+                     "tokens": tokens, "bytes": nbytes, "ms": t_k,
+                     "plain_ms": t_p, "library_ms": t_l,
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "operations" if t_ops > t_bytes else "bytes",
+                     "max_abs_err": err, "library_max_abs_err": lib_err,
+                     "gb_per_s": nbytes / t_k / 1e6})
+        print(f"time k4 {label}: {batch} slots x {BENCH_WARM_POS} tokens, "
+              f"int8 pool, one layer: kernel {t_k:.5f} ms on the device "
+              f"({nbytes / t_k / 1e6:.0f} GB/s of {nbytes / 1e6:.2f} MB), "
+              f"plain {t_p:.4f} ms, bound {max(t_bytes, t_ops):.5f} ms "
+              f"({rows[-1]['bound_by']}), gather + upcast + torch.bmm "
+              f"{t_l:.5f} ms (max|acc diff| to plain {lib_err:.2e})")
+        del pool, sc
+    head = rows[0]
+    record.setdefault("time", {})["k4_shapes"] = rows
+    return [{
+        "name": "paged_decode_attention", "route": "cuda",
+        "source": "fp8tpu_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "fp8tpu/kernels/paged_attention.py:55",
+        "launches": launches["paged_decode_attention"],
+        "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": head["library_ms"]}]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="build,k1,k2,k3,k5,k6,main,serve,time")
+                    default="build,k1,k2,k3,k4,k5,k6,main,serve,"
+                            "serve_paged,time")
     ap.add_argument("--out", default="chip_smoke_out/chip_smoke.json")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
@@ -1314,7 +1944,7 @@ def main(argv=None) -> int:
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
     record = {"card": card, "phases": {}}
-    launches = serve_launches = None
+    launches = serve_launches = paged_launches = None
     kernels = []
     ok = True
     for phase in phases:
@@ -1328,6 +1958,8 @@ def main(argv=None) -> int:
                 phase_k2(record)
             elif phase == "k3":
                 phase_k3(record)
+            elif phase == "k4":
+                phase_k4(record)
             elif phase == "k5":
                 phase_k5(record)
             elif phase == "k6":
@@ -1336,12 +1968,15 @@ def main(argv=None) -> int:
                 launches = phase_main(record, BATCH)
             elif phase == "serve":
                 serve_launches = phase_serve(record)
+            elif phase == "serve_paged":
+                paged_launches = phase_serve_paged(record)
             elif phase == "time":
-                if launches is None or serve_launches is None:
-                    raise PhaseError("the time phase needs the main and "
-                                     "serve phases")
+                if None in (launches, serve_launches, paged_launches):
+                    raise PhaseError("the time phase needs the main, serve "
+                                     "and serve_paged phases")
                 kernels = phase_time(record, BATCH, launches)
                 kernels += phase_time_serve(record, serve_launches)
+                kernels[3:3] = phase_time_paged(record, paged_launches)
             else:
                 raise PhaseError(f"unknown phase {phase!r}")
             status = "ok"

@@ -1,4 +1,4 @@
-"""Continuous-batching serving engine (ring cache).
+"""Continuous-batching serving engine (ring cache or paged pool).
 
 Single-host scheduler around the chunked serving decoder: a fixed pool of
 batch slots, each with its own sequence position; new requests prefill
@@ -23,9 +23,20 @@ into free slots while decode continues for the rest.
   per-slot generation counters discard tokens a parked slot produced after
   its logical retirement.
 
-Not ported yet, each raising NotImplementedError: the paged pool
-(``use_paged=True``, with its page allocator and prefix cache) and batched
-speculation (``draft_params=``).  ``run(on_token=)`` streams, ``cancel``
+* **Paged pool** (``use_paged=True``).  Each slot holds up to ``max_seq``
+  tokens exactly, in pages allocated at admission for the prompt and the
+  whole budget and reclaimed at retirement; a request stays queued while
+  the pool cannot satisfy it.  The page table lives on the host and is
+  uploaded, when it changed, before an admission and before a dispatch.
+  With ``prefix_cache=True`` the pages wholly inside a prompt are
+  content-addressed by their full token history: a later prompt with the
+  same prefix maps the SAME physical pages (refcounted, never rewritten),
+  and cached pages without a holder stay resident until the pool runs dry,
+  then evict least recently used first.
+
+Not ported yet, each raising NotImplementedError: batched speculation
+(``draft_params=``) and compute-level prefix reuse
+(``prefix_compute_reuse=True``).  ``run(on_token=)`` streams, ``cancel``
 retires a request early, ``finished_logprobs`` / ``finished_meta`` carry
 per-request side information; the threaded front end is
 :class:`fp8tpu_torch.serve.EngineServer`.
@@ -35,7 +46,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -43,8 +54,9 @@ import torch
 
 from fp8tpu_torch._device import resolve_device
 
-from .kv_cache import RingKVCache
-from .model import ServeConfig, _LATER, _check_cfg, decode_chunk, prefill_batch
+from .kv_cache import PagedKVCache, RingKVCache
+from .model import (ServeConfig, _check_cfg, decode_chunk, decode_chunk_paged,
+                    prefill_batch, prefill_batch_paged)
 
 
 @dataclasses.dataclass
@@ -118,14 +130,19 @@ class ServingEngine:
     def __init__(self, params: Dict, cfg: ServeConfig, n_slots: int = 8,
                  max_seq: Optional[int] = None, seed: int = 0,
                  chunk_size: int = 32, use_paged: bool = False,
+                 page_size: int = 64, n_pages: Optional[int] = None,
                  depth: int = 2, prefix_cache: bool = False,
+                 prefix_compute_reuse: bool = False,
                  draft_params: Optional[Dict] = None, device="cuda"):
-        if use_paged or prefix_cache:
-            raise NotImplementedError(_LATER["paged"])
         if draft_params is not None:
             raise NotImplementedError(
                 "batched speculation (draft_params=, serve/speculative.py) "
-                "is not ported yet; it comes after the paged pool")
+                "is not ported yet; it comes with the speculation slice")
+        if prefix_compute_reuse:
+            raise NotImplementedError(
+                "prefix_compute_reuse=True needs prefill_scored_paged "
+                "(serve/speculative.py), which is not ported yet; "
+                "prefix_cache=True alone shares the pages")
         _check_cfg(cfg, params)
         self.device = resolve_device(device)
         m = cfg.model
@@ -138,10 +155,43 @@ class ServingEngine:
         # Chunks the host may lag behind the dispatch frontier before it
         # must reconcile results.
         self.depth = max(0, depth)
-        self.use_paged = False
-        self.cache = RingKVCache.create(m.n_layers, n_slots, self.max_seq,
-                                        m.n_kv_heads, m.head_dim, cfg.kv_fmt,
-                                        device=self.device)
+        # Ring (throughput, per-slot sliding window of max_seq) or paged
+        # pool (long context: each slot holds up to max_seq tokens exactly,
+        # memory allocated page-wise, reclaimed on retirement).
+        self.use_paged = use_paged
+        if use_paged:
+            max_pages = -(-self.max_seq // page_size)
+            if n_pages is None:
+                n_pages = n_slots * max_pages
+            self.cache = PagedKVCache.create(
+                n_pages, page_size, m.n_layers, n_slots, max_pages,
+                m.n_kv_heads, m.head_dim, cfg.kv_fmt, device=self.device)
+            self.free_pages: List[int] = list(range(n_pages))
+            self._slot_pages: List[List[int]] = [[] for _ in range(n_slots)]
+            # The page table lives on the host: admissions and retirements
+            # edit it with no device work, and one small upload per
+            # admission / dispatch carries the changes.
+            self._table = np.full((n_slots, max_pages), -1, np.int32)
+            self._table_dirty = False
+            # Shared-prefix page cache: pages wholly inside a prompt are
+            # content-addressed by their full token history; a later
+            # request with the same prefix maps the SAME physical pages.
+            # Admission never writes shared pages (write_starts masks the
+            # positions they cover); the win is pool capacity.  Reclamation
+            # is refcounted; cached pages with no holder stay resident and
+            # evict LRU when the pool runs dry.
+            self.prefix_cache = prefix_cache
+            self._page_ref = np.zeros(n_pages, np.int64)
+            self._prefix_index: "OrderedDict[tuple, int]" = OrderedDict()
+            self._page_prefix: Dict[int, tuple] = {}
+            # admission counters: private pages allocated, shared pages
+            # mapped, and the most slots that held one page at once
+            self.page_stats = {"allocated": 0, "shared": 0, "max_ref": 0}
+        else:
+            self.prefix_cache = False
+            self.cache = RingKVCache.create(
+                m.n_layers, n_slots, self.max_seq, m.n_kv_heads, m.head_dim,
+                cfg.kv_fmt, device=self.device)
         self.slots: List[Optional[_SlotState]] = [None] * n_slots
         self.queue: List[Request] = []
         self._on_token = None
@@ -177,6 +227,16 @@ class ServingEngine:
                 f"request {req.uid}: max_new_tokens={req.max_new_tokens} "
                 f"does not fit max_seq={self.max_seq}; the engine can serve "
                 f"at most {self.max_seq - 2} new tokens per request")
+        if self.use_paged:
+            prompt = self._trim_prompt(req)
+            need_tokens = min(len(prompt) + req.max_new_tokens + 1,
+                              self.max_seq)
+            need = -(-need_tokens // self.cache.page_size)
+            if need > self.cache.n_pages:
+                raise ValueError(
+                    f"request {req.uid} needs {need} pages but the pool "
+                    f"only has {self.cache.n_pages}; lower max_new_tokens "
+                    f"or grow n_pages")
         self._submit_t[req.uid] = time.time()
         self.queue.append(req)
 
@@ -273,6 +333,83 @@ class ServingEngine:
         }
         self.slots[i] = None
         self._pending[i] = 0
+        if self.use_paged:
+            if self.prefix_cache:
+                for p in self._slot_pages[i]:
+                    self._page_ref[p] -= 1
+                    if self._page_ref[p] == 0 \
+                            and p not in self._page_prefix:
+                        self.free_pages.append(p)
+                    # refcount-0 cached pages stay resident (evictable)
+            else:
+                self.free_pages.extend(self._slot_pages[i])
+            self._slot_pages[i] = []
+            self._table[i] = -1
+            self._table_dirty = True
+
+    def _alloc_pages(self, n: int) -> Optional[List[int]]:
+        """Allocate ``n`` private pages: the free list first, then LRU
+        eviction of cached refcount-0 prefix pages.  None if short, checked
+        BEFORE evicting, so a failed allocation never destroys warm cache
+        entries as a side effect."""
+        evictable = 0
+        if self.prefix_cache:
+            evictable = sum(1 for p in self._prefix_index.values()
+                            if self._page_ref[p] == 0)
+        if len(self.free_pages) + evictable < n:
+            return None
+        pages = []
+        while len(pages) < n and self.free_pages:
+            pages.append(self.free_pages.pop())
+        if len(pages) < n:
+            for key in list(self._prefix_index):
+                if len(pages) >= n:
+                    break
+                p = self._prefix_index[key]
+                if self._page_ref[p] == 0:
+                    del self._prefix_index[key]
+                    del self._page_prefix[p]
+                    pages.append(p)
+        return pages
+
+    def _shared_prefix_pages(self, prompt: List[int]) -> List[int]:
+        """Longest chain of cached pages covering the prompt's full pages
+        (positions the slot never rewrites: generation starts at
+        len(prompt), beyond every fully covered page)."""
+        if not self.prefix_cache:
+            return []
+        psz = self.cache.page_size
+        shared = []
+        for k in range(1, len(prompt) // psz + 1):
+            key = tuple(prompt[:k * psz])
+            page = self._prefix_index.get(key)
+            if page is None:
+                break
+            self._prefix_index.move_to_end(key)
+            shared.append(page)
+        return shared
+
+    def _register_prefix_pages(self, i: int, prompt: List[int]):
+        """Content-address this slot's fully covered prompt pages (their
+        bytes are final once the prefill wrote them)."""
+        psz = self.cache.page_size
+        for k in range(1, len(prompt) // psz + 1):
+            key = tuple(prompt[:k * psz])
+            page = self._slot_pages[i][k - 1]
+            if key not in self._prefix_index:
+                self._prefix_index[key] = page
+                self._page_prefix[page] = key
+
+    def _sync_table(self):
+        """Upload the host page table if it changed, into a FRESH device
+        tensor: with ``depth`` chunks in flight, launches already queued go
+        on reading the table they were given (what the JAX package's
+        functional update gives), so a retirement can never unmap pages
+        under a running chunk."""
+        if self.use_paged and self._table_dirty:
+            self.cache.page_table = self._to_dev(self._table.copy(),
+                                                 torch.int32)
+            self._table_dirty = False
 
     def _to_dev(self, values, dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(values), dtype=dtype
@@ -299,11 +436,12 @@ class ServingEngine:
         # static all-greedy hint: skips the per-step categorical draw
         greedy_only = (top_k is None and top_p is None and not any(
             s is not None and s.temperature > 0 for s in self.slots))
-        toks, lps, self.cache, self._tokens_dev, self._pos_dev = \
-            decode_chunk(self.params, self.cache, self._tokens_dev,
-                         self._pos_dev, self.generator, temps, chunk,
-                         self.cfg, top_k=top_k, top_p=top_p,
-                         greedy_only=greedy_only)
+        self._sync_table()
+        decode = decode_chunk_paged if self.use_paged else decode_chunk
+        toks, lps, self.cache, self._tokens_dev, self._pos_dev = decode(
+            self.params, self.cache, self._tokens_dev, self._pos_dev,
+            self.generator, temps, chunk, self.cfg, top_k=top_k, top_p=top_p,
+            greedy_only=greedy_only)
         gens = []
         for i in range(self.n_slots):
             if self.slots[i] is not None:
@@ -341,17 +479,55 @@ class ServingEngine:
     def _admit(self):
         """Admit every admissible queued request in ONE batched prefill
         (one host readback for the whole batch's first tokens)."""
-        batch = []                                   # (slot, req, prompt)
+        batch = []                            # (slot, req, prompt, cover)
         for i in range(self.n_slots):
             if not self.queue:
                 break
             if self.slots[i] is not None:
                 continue
-            req = self.queue.pop(0)
-            batch.append((i, req, self._trim_prompt(req)))
+            req = self.queue[0]
+            prompt = self._trim_prompt(req)
+            cover = 0
+            if self.use_paged:
+                # Map enough pages for prompt + generation budget up front;
+                # stay queued (FIFO) if the pool can't satisfy it.  With
+                # prefix_cache, cached pages covering the prompt's full
+                # pages are mapped shared; only the rest allocates.
+                need_tokens = min(len(prompt) + req.max_new_tokens + 1,
+                                  self.max_seq)
+                psz = self.cache.page_size
+                need = -(-need_tokens // psz)
+                shared = self._shared_prefix_pages(prompt)[:need]
+                # Pin shared pages BEFORE allocating: _alloc_pages evicts
+                # refcount-0 cached pages, which must not include pages
+                # just selected for this very admission.
+                for p in shared:
+                    self._page_ref[p] += 1
+                priv = self._alloc_pages(need - len(shared))
+                if priv is None:
+                    for p in shared:
+                        self._page_ref[p] -= 1
+                    break
+                pages = shared + priv
+                if self.prefix_cache:
+                    for p in priv:
+                        self._page_ref[p] += 1
+                self.page_stats["allocated"] += len(priv)
+                self.page_stats["shared"] += len(shared)
+                self.page_stats["max_ref"] = max(
+                    self.page_stats["max_ref"],
+                    max((int(self._page_ref[p]) for p in shared), default=0))
+                self._slot_pages[i] = pages
+                self._table[i] = -1
+                self._table[i, :need] = pages
+                self._table_dirty = True
+                # positions covered by SHARED pages are never rewritten
+                cover = len(shared) * psz
+            self.queue.pop(0)
+            batch.append((i, req, prompt, cover))
         if not batch:
             return
-        sp = min(_bucket(max(len(p) for _, _, p in batch)), self.max_seq)
+        sp = min(_bucket(max(len(p) for _, _, p, _ in batch)), self.max_seq)
         n = _pow2ceil(len(batch))
         prompts = np.zeros((n, sp), np.int32)
         slots = np.full((n,), self.n_slots, np.int32)   # pad rows drop
@@ -359,22 +535,36 @@ class ServingEngine:
         temps = np.zeros((n,), np.float32)
         tks = np.zeros((n,), np.int32)
         tps = np.ones((n,), np.float32)
-        for j, (i, req, prompt) in enumerate(batch):
+        wstarts = np.zeros((n,), np.int32)
+        for j, (i, req, prompt, cover) in enumerate(batch):
             prompts[j, :len(prompt)] = prompt
             slots[j] = i
             lengths[j] = len(prompt)
             temps[j] = req.temperature
             tks[j] = req.top_k
             tps[j] = req.top_p
-        first, self.cache, self._tokens_dev, self._pos_dev = prefill_batch(
-            self.params, self.cache, self._to_dev(prompts, torch.int32),
-            self._to_dev(slots, torch.int32),
-            self._to_dev(lengths, torch.int32), self.generator,
-            self._to_dev(temps, torch.float32),
-            self._to_dev(tks, torch.int32), self._to_dev(tps, torch.float32),
-            self._tokens_dev, self._pos_dev, self.cfg)
+            wstarts[j] = cover
+        self._sync_table()
+        args = (self.params, self.cache, self._to_dev(prompts, torch.int32),
+                self._to_dev(slots, torch.int32),
+                self._to_dev(lengths, torch.int32), self.generator,
+                self._to_dev(temps, torch.float32),
+                self._to_dev(tks, torch.int32),
+                self._to_dev(tps, torch.float32),
+                self._tokens_dev, self._pos_dev, self.cfg)
+        if self.use_paged:
+            first, self.cache, self._tokens_dev, self._pos_dev = \
+                prefill_batch_paged(
+                    *args, write_starts=self._to_dev(wstarts, torch.int32)
+                    if self.prefix_cache else None)
+        else:
+            first, self.cache, self._tokens_dev, self._pos_dev = \
+                prefill_batch(*args)
         firsts = first.cpu().numpy()            # ONE readback per batch
-        for j, (i, req, prompt) in enumerate(batch):
+        if self.prefix_cache:
+            for i, _, prompt, _ in batch:
+                self._register_prefix_pages(i, prompt)
+        for j, (i, req, prompt, _) in enumerate(batch):
             tok = int(firsts[j])
             self._gen[i] += 1
             self._pending[i] = 0

@@ -1,4 +1,5 @@
-"""Production serving decoder: quantized weights + quantized ring KV cache.
+"""Production serving decoder: quantized weights + quantized KV cache (ring
+or paged pool).
 
 The real-quantization twin of :class:`fp8tpu_torch.models.Decoder`: weights
 live in device memory as fp8 / int8 payloads with per-output-channel scales
@@ -10,19 +11,20 @@ stay on the device.
 
 On a CUDA tensor every linear is one launch of a hand-written kernel
 (:func:`fp8_linear` -> K3 ``dequant_matmul``, :func:`int4_linear` -> K5
-``int4_matmul``) and a decode step's ring write is two launches of K6
-``dyn_store``; on the CPU the same functions use the kernels' plain
-versions.  The attention products, the tied LM head and the bf16-weight
-linear of the bf16 twin are PyTorch matmuls, as they are XLA dots in the
-JAX package.
+``int4_matmul``), a decode step's ring write is two launches of K6
+``dyn_store``, and paged decode with ``paged_decode_impl="kernel"`` reads
+the pooled prefix through one launch of K4 ``paged_decode_attention`` per
+layer; on the CPU the same functions use the kernels' plain versions.  The
+other attention products, the tied LM head and the bf16-weight linear of
+the bf16 twin are PyTorch matmuls, as they are XLA dots in the JAX package.
 
 Layout is the JAX package's: parameters stacked per layer, weights
 ``(L, K, N)``.  Where the JAX functions return a new cache, these update
-``ring.kv8`` / ``ring.sc`` in place and return the same ring.
+``ring.kv8`` / ``ring.sc`` (``paged.pool`` / ``paged.sc``) in place and
+return the same cache object.
 
-Not ported yet, each raising NotImplementedError: the paged pool and its
-decode / prefill functions, MoE expert stacks, ``ring_flush > 1`` and
-``matmul_impl="direct"`` (W8A8).
+Not ported yet, each raising NotImplementedError: MoE expert stacks,
+``ring_flush > 1`` and ``matmul_impl="direct"`` (W8A8).
 
 Design notes:
 
@@ -47,22 +49,21 @@ import torch.nn.functional as F
 from fp8tpu_torch._device import full_fp32, resolve_device
 from fp8tpu_torch.kernels import inplace
 from fp8tpu_torch.kernels import int4_matmul as int4_kernel
+from fp8tpu_torch.kernels import paged_attention as paged_kernel
 from fp8tpu_torch.kernels import qmatmul
 from fp8tpu_torch.kernels.int4_matmul import pack_int4
 from fp8tpu_torch.kernels.qmatmul import div_exact, quantize_weights
 from fp8tpu_torch.models.transformer import DecoderConfig, rope_freqs
 from fp8tpu_torch.numerics.formats import FORMATS
 
-from .kv_cache import KV_DTYPES, RingKVCache, bits, quantize_kv
+from .kv_cache import (KV_DTYPES, PagedKVCache, RingKVCache, bits,
+                       quantize_kv)
 
 _FP8_DTYPES = {"e4m3": torch.float8_e4m3fn, "e5m2": torch.float8_e5m2,
                "int8": torch.int8}
 _NEG = -1e30  # finite mask value keeps exp() NaN-free for empty slots
 
 _LATER = {
-    "paged": "the paged KV pool (PagedKVCache, the paged decode and prefill "
-             "functions, the paged-attention kernel) is not ported yet; it "
-             "is the next part of the serving stack to come",
     "moe": "MoE expert stacks (_moe_ffn) are not ported yet; they come with "
            "MoE serving",
     "ring_flush": "ring_flush > 1 (batched ring writes) is not ported yet",
@@ -87,8 +88,20 @@ class ServeConfig:
     # Ring-write batching: 0 writes each step's row directly; W > 1 raises.
     # (The ring write itself is always the dyn_store kernel on a CUDA ring
     # and its plain version on the CPU: the JAX package's staging_impl has
-    # no counterpart, and paged_decode_impl comes with the paged pool.)
+    # no counterpart.)
     ring_flush: int = 0
+    # Paged-decode chunk strategy.  "ringview" (default, as in the JAX
+    # package): gather the chunk's snapshot of the mapped pages into the
+    # ring layout once per chunk and run the ring attention with a position
+    # mask.  "kernel": the page-walk kernel (K4) reads the pool where it
+    # lies, no snapshot and no bf16 copy of it.  "side": the (B, MP, ...)
+    # snapshot layout with pool writes deferred to the chunk's end;
+    # "side-eager": the same with a pool write every step; "scatter": fresh
+    # K/V written into the snapshot every step, no side buffer.
+    paged_decode_impl: str = "ringview"
+
+
+PAGED_DECODE_IMPLS = ("ringview", "kernel", "side", "side-eager", "scatter")
 
 
 def _check_cfg(cfg: ServeConfig, params: Optional[Dict] = None) -> None:
@@ -98,6 +111,10 @@ def _check_cfg(cfg: ServeConfig, params: Optional[Dict] = None) -> None:
         raise ValueError(f"unknown matmul_impl {cfg.matmul_impl!r}")
     if cfg.ring_flush and cfg.ring_flush > 1:
         raise NotImplementedError(_LATER["ring_flush"])
+    if cfg.paged_decode_impl not in PAGED_DECODE_IMPLS:
+        raise ValueError(f"unknown paged_decode_impl "
+                         f"{cfg.paged_decode_impl!r}; one of "
+                         f"{PAGED_DECODE_IMPLS}")
     if cfg.model.n_experts > 0 or (params is not None and "router" in params):
         raise NotImplementedError(_LATER["moe"])
 
@@ -381,6 +398,17 @@ def ring_from_jax(kv8, sc, head, device="cuda") -> RingKVCache:
                              ).to(dev))
 
 
+def paged_from_jax(pool, sc, page_table, kv_heads: int,
+                   device="cuda") -> PagedKVCache:
+    """A JAX ``PagedKVCache``'s arrays (numpy / ml_dtypes) as a paged pool,
+    byte for byte."""
+    dev = resolve_device(device)
+    return PagedKVCache(
+        pool=_tensor_from_array(pool, dev), sc=_tensor_from_array(sc, dev),
+        page_table=_tensor_from_array(np.asarray(page_table, np.int32), dev),
+        kv_heads=int(kv_heads))
+
+
 def _make_linear(cfg: ServeConfig):
     if cfg.weight_fmt == "int4":
         return lambda x, w, s: int4_linear(x, w, s)
@@ -416,22 +444,63 @@ def ring_valid_mask(head: torch.Tensor, lens: torch.Tensor, S: int):
     return age[None, :] < lens[:, None]
 
 
+def _scaled_query(q: torch.Tensor) -> torch.Tensor:
+    """q / sqrt(D), divided in f32 and rounded back to q's dtype."""
+    qf32 = q.to(torch.float32)
+    return (qf32 / torch.full_like(qf32, math.sqrt(q.shape[-1]))).to(q.dtype)
+
+
+def _self_scores(qg, kq8, kqs):
+    """The fresh token's own score: qg (B,KV,G,D) . kq8 (B,KV,D), scaled;
+    (B,KV,G) f32."""
+    return (qg.to(torch.float32) * kq8.to(torch.float32)[:, :, None, :]
+            ).sum(-1) * kqs[:, :, None]
+
+
+def _side_scores(qf, sk8, sks, w, B, KV):
+    """Scores against the chunk's side buffer: qf (B*KV, G, D); sk8 (W,
+    B*KV, D) with scales sks (W, B*KV); rows j >= ``w`` masked.  (B,KV,G,W)
+    f32."""
+    W = sk8.shape[0]
+    G = qf.shape[1]
+    sscores = _dot_f32(qf, sk8.to(qf.dtype).permute(1, 2, 0)
+                       ).reshape(B, KV, G, W) * sks.t().reshape(B, KV, 1, W)
+    live = torch.arange(W, device=qf.device) < w
+    return torch.where(live[None, None, None], sscores, _NEG)
+
+
+def _side_context(spc, sv8, svs, dtype, B, KV):
+    """Unnormalised context of the side buffer: spc (B,KV,G,W) f32 exp
+    weights, sv8 (W, B*KV, D) with scales svs (W, B*KV).  (B,KV,G,D) f32."""
+    W = sv8.shape[0]
+    G = spc.shape[2]
+    spcs = (spc * svs.t().reshape(B, KV, 1, W)).to(dtype)
+    return _dot_f32(spcs.reshape(B * KV, G, W),
+                    sv8.to(dtype).permute(1, 0, 2)
+                    ).reshape(B, KV, G, sv8.shape[-1])
+
+
 def _attend_ring(q, kq8, kqs, vq8, vqs, k8, ks, v8, vs, head, lens,
-                 cfg: DecoderConfig, valid_mask=None):
+                 cfg: DecoderConfig, sk8=None, sks=None, sv8=None, svs=None,
+                 w=None, valid_mask=None):
     """Flash-style decode attention: ring-cached prefix + fresh token.
 
     q: (B,H,D) bf16 (the 1/sqrt(D) factor is applied here); fresh kq8/vq8:
     (B,KV,D) with scales kqs/vqs (B,KV); ring k8/v8: (S, B*KV, D) with
     scales ks/vs (S, B*KV); head: () int32 next write row; lens: (B,)
-    valid RING lengths.  Unnormalised partials of both parts are combined
-    and divided ONCE on the (B,KV,G,D) context.  The payload's upcast to
-    bf16 is a copy of the layer's ring rows in device memory."""
+    valid RING lengths.  Optional side buffer sk8/sv8 (W, B*KV, D) with
+    scales (W, B*KV), rows j < ``w`` valid: tokens decoded in this chunk and
+    not yet in the cache, re-read and re-scored every step, which is exact
+    (per-token K/V are query-independent).  ``valid_mask`` (B, S) replaces
+    the ring's age mask (the paged ring view: row s valid iff s < lens[b]).
+    Unnormalised partials of all parts are combined and divided ONCE on the
+    (B,KV,G,D) context.  The payload's upcast to bf16 is a copy of the
+    layer's rows in device memory."""
     B, H, D = q.shape
     S, BK, _ = k8.shape
     KV = kq8.shape[1]
     G = H // KV
-    qf32 = q.to(torch.float32)
-    qg = (qf32 / torch.full_like(qf32, math.sqrt(D))).to(q.dtype)
+    qg = _scaled_query(q)
     qf = qg.reshape(BK, G, D)
 
     scores = _dot_f32(qf, k8.to(q.dtype).permute(1, 2, 0)
@@ -440,11 +509,12 @@ def _attend_ring(q, kq8, kqs, vq8, vqs, k8, ks, v8, vs, head, lens,
         else valid_mask
     scores = torch.where(mask[:, None, None, :], scores, _NEG)
 
-    score_self = (qg.reshape(B, KV, G, D).to(torch.float32)
-                  * kq8.to(torch.float32)[:, :, None, :]
-                  ).sum(-1) * kqs[:, :, None]                 # (B,KV,G)
+    score_self = _self_scores(qg.reshape(B, KV, G, D), kq8, kqs)
 
     m = torch.maximum(scores.amax(dim=-1), score_self)
+    if sk8 is not None:
+        sscores = _side_scores(qf, sk8, sks, w, B, KV)
+        m = torch.maximum(m, sscores.amax(dim=-1))
     pc = torch.exp(scores - m[..., None])
     ps = torch.exp(score_self - m)
     denom = pc.sum(-1) + ps
@@ -454,6 +524,10 @@ def _attend_ring(q, kq8, kqs, vq8, vqs, k8, ks, v8, vs, head, lens,
                    ).reshape(B, KV, G, D)
     ctx = ctx + ((ps * vqs[:, :, None])[..., None]
                  * vq8.to(torch.float32)[:, :, None, :])
+    if sk8 is not None:
+        spc = torch.exp(sscores - m[..., None])
+        denom = denom + spc.sum(-1)
+        ctx = ctx + _side_context(spc, sv8, svs, q.dtype, B, KV)
     ctx = ctx / denom[..., None]
     return ctx.reshape(B, H * D).to(q.dtype)
 
@@ -831,9 +905,400 @@ def full_logits(params: Dict, tokens: torch.Tensor, cfg: ServeConfig
     return _lm_head(params, h)
 
 
-def _paged(*_args, **_kwargs):
-    raise NotImplementedError(_LATER["paged"])
+# ---------------------------------------------------------------------------
+# Paged decode (long-context serving: context bounded by page pool, not ring)
+# ---------------------------------------------------------------------------
+
+def _attend_paged(q, kq8, kqs, vq8, vqs, kp8, kps, vp8, vps, lens,
+                  page_size: int, cfg: DecoderConfig,
+                  sk8=None, sks=None, sv8=None, svs=None, w=None):
+    """Decode attention over a (chunk-frozen) page snapshot, the chunk's
+    own tokens in a small side buffer, and the fresh token.
+
+    q: (B,H,D); fresh kq8/vq8 (B,KV,D) with scales (B,KV); snapshot
+    kp8/vp8: (B, MP, page*KV, D) with scales (B, MP, page*KV); lens: (B,)
+    tokens in the snapshot (positions < lens are valid: pages are logically
+    ordered, no ring aging); side sk8/sv8: (W, B*KV, D) chunk-token payloads
+    with scales (W, B*KV), rows j < ``w`` valid."""
+    B, H, D = q.shape
+    KV = kq8.shape[1]
+    G = H // KV
+    MP = kp8.shape[1]
+    S = MP * page_size
+    BK = B * KV
+    qg = _scaled_query(q)
+    qf = qg.reshape(BK, G, D)
+
+    # (B, MP, page*KV, D) is (B, S, KV, D) with the token-major rows split
+    kp = kp8.to(q.dtype).reshape(B, S, KV, D)
+    vp = vp8.to(q.dtype).reshape(B, S, KV, D)
+    kss = kps.reshape(B, S, KV).permute(0, 2, 1)[:, :, None]    # (B,KV,1,S)
+    vss = vps.reshape(B, S, KV).permute(0, 2, 1)[:, :, None]
+
+    scores = _dot_f32(qf, kp.permute(0, 2, 3, 1).reshape(BK, D, S)
+                      ).reshape(B, KV, G, S) * kss
+    mask = torch.arange(S, device=q.device)[None] < lens[:, None]  # (B, S)
+    scores = torch.where(mask[:, None, None, :], scores, _NEG)
+
+    score_self = _self_scores(qg.reshape(B, KV, G, D), kq8, kqs)
+
+    m = torch.maximum(scores.amax(dim=-1), score_self)
+    if sk8 is not None:
+        sscores = _side_scores(qf, sk8, sks, w, B, KV)
+        m = torch.maximum(m, sscores.amax(dim=-1))
+    pc = torch.exp(scores - m[..., None])
+    ps = torch.exp(score_self - m)
+    denom = pc.sum(-1) + ps
+
+    pcs = (pc * vss).to(q.dtype)
+    ctx = _dot_f32(pcs.reshape(BK, G, S),
+                   vp.permute(0, 2, 1, 3).reshape(BK, S, D)
+                   ).reshape(B, KV, G, D)
+    ctx = ctx + ((ps * vqs[:, :, None])[..., None]
+                 * vq8.to(torch.float32)[:, :, None, :])
+    if sk8 is not None:
+        spc = torch.exp(sscores - m[..., None])
+        denom = denom + spc.sum(-1)
+        ctx = ctx + _side_context(spc, sv8, svs, q.dtype, B, KV)
+    ctx = ctx / denom[..., None]
+    return ctx.reshape(B, H * D).to(q.dtype)
 
 
-decode_step_paged = decode_steps_paged = decode_chunk_paged = _paged
-prefill_paged = prefill_batch_paged = _paged
+def _attend_paged_kernel(q, kq8, kqs, vq8, vqs, paged: PagedKVCache,
+                         li: int, lens, cfg: DecoderConfig,
+                         sk8=None, sks=None, sv8=None, svs=None, w=None):
+    """Decode attention with the page-walk kernel (K4) for the pooled
+    prefix: no snapshot is ever materialised and the pool's payload is
+    never copied to bf16; the fresh token and the chunk's side buffer are
+    computed here.  The three parts give unnormalised flash partials over
+    DISJOINT key sets, so merging them (rescale by exp(m_part - m_tot),
+    then one divide) is exact.  An empty slot's partial has m = -1e30,
+    l = 0, and exp(m_p - m) is 0 or 1, never inf."""
+    B, H, D = q.shape
+    KV = kq8.shape[1]
+    G = H // KV
+    BK = B * KV
+    qg = _scaled_query(q)
+    qh = qg.reshape(B, KV, G, D)
+
+    # (B, KVG = KV*G, D): the kernel's query order is kv-major, h = kv*G + g,
+    # which the (B, KV, G, D) reshape of the heads already is
+    acc_p, m_p, l_p = paged_kernel.paged_decode_attention(
+        qh.reshape(B, KV * G, D), paged.pool, paged.sc, paged.page_table,
+        lens, li, page_size=paged.page_size, kv_heads=KV)
+    acc_p = acc_p.reshape(B, KV, G, D)
+    m_p = m_p.reshape(B, KV, G)
+    l_p = l_p.reshape(B, KV, G)
+
+    score_self = _self_scores(qh, kq8, kqs)
+    m = torch.maximum(m_p, score_self)
+    if sk8 is not None:
+        sscores = _side_scores(qh.reshape(BK, G, D), sk8, sks, w, B, KV)
+        m = torch.maximum(m, sscores.amax(dim=-1))
+
+    corr = torch.exp(m_p - m)                                   # (B,KV,G)
+    ps = torch.exp(score_self - m)
+    denom = l_p * corr + ps
+    ctx = acc_p * corr[..., None]
+    ctx = ctx + ((ps * vqs[:, :, None])[..., None]
+                 * vq8.to(torch.float32)[:, :, None, :])
+    if sk8 is not None:
+        spc = torch.exp(sscores - m[..., None])
+        denom = denom + spc.sum(-1)
+        ctx = ctx + _side_context(spc, sv8, svs, q.dtype, B, KV)
+    ctx = ctx / denom[..., None]
+    return ctx.reshape(B, H * D).to(q.dtype)
+
+
+def _snap_write(kvp, scp, slab8, slabs, pos, page: int, KV: int):
+    """Write one fresh K/V row per slot into the snapshot (B, MP, 2, L,
+    page*KV, D) at logical position ``pos``; a position past the snapshot
+    lands in its last page (the slot's own copy, masked by lens).  slab8
+    (2, L, B*KV, D), slabs (2, L, B*KV)."""
+    B, MP = kvp.shape[:2]
+    L, D = slab8.shape[1], slab8.shape[3]
+    dev = kvp.device
+    pos = pos.to(torch.int64)
+    bi = torch.arange(B, device=dev)[:, None]
+    mpi = torch.clamp(pos // page, max=MP - 1)[:, None]
+    rows = (pos % page)[:, None] * KV + torch.arange(KV, device=dev)[None]
+    # updates indexed (B, KV, 2, L, D) / (B, KV, 2, L)
+    bits(kvp)[bi, mpi, :, :, rows, :] = \
+        bits(slab8).reshape(2, L, B, KV, D).permute(2, 3, 0, 1, 4)
+    scp[bi, mpi, :, :, rows] = slabs.reshape(2, L, B, KV).permute(2, 3, 0, 1)
+
+
+def _steps_impl_paged(params: Dict, paged: PagedKVCache, tokens: torch.Tensor,
+                      positions: torch.Tensor, generator,
+                      temperature: torch.Tensor, n_steps: int,
+                      cfg: ServeConfig, want_logits: bool,
+                      top_k=None, top_p=None, greedy_only: bool = False):
+    """Chunked decode over the paged pool.
+
+    Except in "kernel" mode the mapped pages are gathered into a
+    contiguous snapshot ONCE per chunk; each step attends over that
+    snapshot (or, in "kernel" mode, over the pool itself through K4) plus a
+    small side buffer holding the chunk's own fresh tokens, re-read and
+    re-scored against each step's new query, plus the fresh token.  "side",
+    "ringview" and "kernel" DEFER the pool writes to one batched scatter at
+    the chunk's end: within the chunk every step's attention covers the
+    fresh tokens through the side buffer, so the pool only has to be current
+    for the NEXT chunk.  "side-eager" writes the pool every step; "scatter"
+    writes the pool and the snapshot every step and carries no side
+    buffer."""
+    _check_cfg(cfg, params)
+    mcfg = cfg.model
+    H, KV, D, L = mcfg.n_heads, mcfg.n_kv_heads, mcfg.head_dim, mcfg.n_layers
+    B = tokens.shape[0]
+    BK = B * KV
+    dev = tokens.device
+    linear = _make_linear(cfg)
+    inv_freq = rope_freqs(mcfg, dev)
+    page = paged.page_size
+    W = n_steps
+    impl = cfg.paged_decode_impl
+    scatter = impl == "scatter"
+    use_kernel = impl == "kernel"
+    ringview = impl == "ringview"
+    defer_writes = impl in ("side", "kernel", "ringview")
+    dt = paged.pool.dtype
+
+    kvp = scp = None
+    if ringview:
+        # (B, MP, 2, L, page*KV, D) -> (MP*page, 2, L, B*KV, D): one gather
+        # and transpose per chunk, after which every per-layer slice and
+        # product is the ring code path
+        g8, gs = paged.gather()
+        MP = g8.shape[1]
+        SV = MP * page
+        kvp = (bits(g8).reshape(B, MP, 2, L, page, KV, D)
+               .permute(1, 4, 2, 3, 0, 5, 6).reshape(SV, 2, L, BK, D)
+               .view(dt))
+        scp = (gs.reshape(B, MP, 2, L, page, KV)
+               .permute(1, 4, 2, 3, 0, 5).reshape(SV, 2, L, BK))
+        rows_sv = torch.arange(SV, device=dev)[None]
+    elif not use_kernel:
+        kvp, scp = paged.gather()
+    if scatter:
+        # one step's fresh k/v of every layer, reused by every step
+        side8 = torch.empty((1, 2, L, BK, D), dtype=dt, device=dev)
+        side_sc = torch.empty((1, 2, L, BK), dtype=torch.float32, device=dev)
+    else:
+        side8 = torch.zeros((W, 2, L, BK, D), dtype=dt, device=dev)
+        side_sc = torch.ones((W, 2, L, BK), dtype=torch.float32, device=dev)
+    side_bits = bits(side8)
+
+    toks, pos = tokens.to(torch.int32), positions.to(torch.int32)
+    outs = []
+    for w in range(n_steps):
+        h = _embed_lookup(params, toks)
+        ang = pos[:, None].to(torch.float32) * inv_freq
+        cos, sin = torch.cos(ang)[:, None], torch.sin(ang)[:, None]
+        # tokens in the pooled prefix / snapshot (live in scatter mode)
+        lens0 = torch.clamp(pos if scatter else pos - w, max=paged.max_seq)
+        if ringview:
+            vmask = rows_sv < lens0[:, None]
+        row = 0 if scatter else w          # this step's row of the buffer
+
+        for li in range(L):
+            xs = _layer_xs(params, li)
+            x = _rms(h, xs["attn_norm"], mcfg.norm_eps)
+            q = linear(x, xs["q8"], xs["qs"]).reshape(B, H, D)
+            k = linear(x, xs["k8"], xs["ks"]).reshape(B, KV, D)
+            v = linear(x, xs["v8"], xs["vs"]).reshape(B, KV, D)
+            q, k = _rope(q, cos, sin), _rope(k, cos, sin)
+
+            kq8, kqs = quantize_kv(k, cfg.kv_fmt)
+            vq8, vqs = quantize_kv(v, cfg.kv_fmt)
+
+            side = {} if scatter else dict(
+                sk8=side8[:, 0, li], sks=side_sc[:, 0, li],
+                sv8=side8[:, 1, li], svs=side_sc[:, 1, li], w=w)
+            fresh = (q, kq8, kqs[..., 0], vq8, vqs[..., 0])
+            if use_kernel:
+                ctx = _attend_paged_kernel(*fresh, paged, li, lens0, mcfg,
+                                           **side)
+            elif ringview:
+                ctx = _attend_ring(*fresh, kvp[:, 0, li], scp[:, 0, li],
+                                   kvp[:, 1, li], scp[:, 1, li], None, lens0,
+                                   mcfg, valid_mask=vmask, **side)
+            else:
+                ctx = _attend_paged(*fresh, kvp[:, :, 0, li], scp[:, :, 0, li],
+                                    kvp[:, :, 1, li], scp[:, :, 1, li],
+                                    lens0, page, mcfg, **side)
+            h = h + linear(ctx, xs["o8"], xs["os"])
+            h = _ffn_block(h, xs, mcfg, linear)
+            # the step's own row of the side buffer is masked (j < w) while
+            # the step runs, so it can be filled layer by layer
+            side_bits[row, 0, li] = bits(kq8).reshape(BK, D)
+            side_bits[row, 1, li] = bits(vq8).reshape(BK, D)
+            side_sc[row, 0, li] = kqs.reshape(BK)
+            side_sc[row, 1, li] = vqs.reshape(BK)
+
+        if not defer_writes:
+            paged = paged.write_step(
+                side8[row, 0].reshape(L, B, KV, D),
+                side_sc[row, 0].reshape(L, B, KV),
+                side8[row, 1].reshape(L, B, KV, D),
+                side_sc[row, 1].reshape(L, B, KV), pos)
+        if scatter:
+            _snap_write(kvp, scp, side8[0], side_sc[0], pos, page, KV)
+
+        h = _rms(h, params["final_norm"], mcfg.norm_eps)
+        logits = _lm_head(params, h)
+        nxt = sample_tokens(logits, generator, temperature, top_k, top_p,
+                            greedy_only)
+        outs.append(logits if want_logits
+                    else (nxt, _chosen_logprob(logits, nxt)))
+        toks, pos = nxt, pos + 1
+
+    if defer_writes:
+        # One batched scatter of the whole chunk's fresh K/V (the side
+        # buffer holds exactly the W steps' quantized rows).
+        from .speculative import _paged_write_block
+        blk8 = side_bits.reshape(W, 2, L, B, KV, D)
+        blks = side_sc.reshape(W, 2, L, B, KV)
+        valid = torch.full((B,), W, dtype=torch.int32, device=dev)
+        paged = _paged_write_block(
+            paged,
+            blk8[:, 0].permute(1, 2, 0, 3, 4),     # (L, B, W, KV, D)
+            blks[:, 0].permute(1, 2, 0, 3),        # (L, B, W, KV)
+            blk8[:, 1].permute(1, 2, 0, 3, 4),
+            blks[:, 1].permute(1, 2, 0, 3),
+            positions.to(torch.int32), valid)
+
+    if want_logits:
+        stacked = torch.stack(outs)
+    else:
+        stacked = (torch.stack([o[0] for o in outs]),
+                   torch.stack([o[1] for o in outs]))
+    return stacked, paged, toks, pos
+
+
+@torch.no_grad()
+def decode_steps_paged(params: Dict, paged: PagedKVCache,
+                       tokens: torch.Tensor, positions: torch.Tensor,
+                       generator, temperature: torch.Tensor, n_steps: int,
+                       cfg: ServeConfig, top_k=None, top_p=None,
+                       greedy_only: bool = False
+                       ) -> Tuple[torch.Tensor, PagedKVCache]:
+    """``n_steps`` decode steps over the paged KV pool (long-context twin of
+    :func:`decode_steps`).  The pool is updated in place.  Returns (tokens
+    (B, n_steps), pool)."""
+    (toks, _), paged, _, _ = _steps_impl_paged(
+        params, paged, tokens, positions, generator, temperature, n_steps,
+        cfg, want_logits=False, top_k=top_k, top_p=top_p,
+        greedy_only=greedy_only)
+    return toks.t(), paged
+
+
+@torch.no_grad()
+def decode_chunk_paged(params: Dict, paged: PagedKVCache,
+                       tokens: torch.Tensor, positions: torch.Tensor,
+                       generator, temperature: torch.Tensor, n_steps: int,
+                       cfg: ServeConfig, top_k=None, top_p=None,
+                       greedy_only: bool = False):
+    """Paged twin of :func:`decode_chunk`: returns (tokens (B, n_steps),
+    logprobs (B, n_steps), pool, last_tokens (B,), positions (B,))."""
+    (toks, lps), paged, ftoks, fpos = _steps_impl_paged(
+        params, paged, tokens, positions, generator, temperature, n_steps,
+        cfg, want_logits=False, top_k=top_k, top_p=top_p,
+        greedy_only=greedy_only)
+    return toks.t(), lps.t(), paged, ftoks, fpos
+
+
+@torch.no_grad()
+def decode_step_paged(params: Dict, paged: PagedKVCache,
+                      tokens: torch.Tensor, positions: torch.Tensor,
+                      cfg: ServeConfig) -> Tuple[torch.Tensor, PagedKVCache]:
+    """One paged decode step; returns (logits (B, V) f32, pool)."""
+    temperature = torch.zeros(tokens.shape, dtype=torch.float32,
+                              device=tokens.device)
+    logits, paged, _, _ = _steps_impl_paged(
+        params, paged, tokens, positions, None, temperature, 1, cfg,
+        want_logits=True, greedy_only=True)
+    return logits[0], paged
+
+
+def _paged_write_prompts(paged: PagedKVCache, pk8, pks, pv8, pvs,
+                         slots: torch.Tensor, lengths: torch.Tensor,
+                         starts: Optional[torch.Tensor] = None
+                         ) -> PagedKVCache:
+    """Scatter N prompts' quantized k/v into the page pool in place.  Prompt
+    n's token i lands in slot n's logical page ``i // page_size`` at offset
+    ``i % page_size``; padding rows / slots and unmapped pages DROP (to the
+    pool's scratch page, without a host synchronisation).  ``starts`` (N,)
+    masks writes below it: positions already present in SHARED prefix pages
+    must never be rewritten (a differently shaped admission batch may
+    recompute K/V in another summation order, and a flipped payload bit
+    would perturb the pages' other holders)."""
+    L, N, Sp, KV, D = pk8.shape
+    page = paged.page_size
+    dev = paged.pool.device
+    tpos = torch.arange(Sp, device=dev)
+    lp = torch.clamp(tpos // page, max=paged.max_pages - 1)     # (Sp,)
+    slots = slots.to(torch.int64)
+    sl = torch.clamp(slots, 0, paged.n_slots - 1)
+    pg = paged.page_table.to(torch.int64)[sl][:, lp]            # (N, Sp)
+    valid = ((tpos[None] < torch.clamp(lengths[:, None], max=paged.max_seq))
+             & (pg >= 0) & (slots[:, None] < paged.n_slots)
+             & (slots[:, None] >= 0))
+    if starts is not None:
+        valid = valid & (tpos[None] >= starts[:, None])
+    pg = torch.where(valid, pg, paged.n_pages)                  # drops
+    rows = (tpos % page)[:, None] * KV \
+        + torch.arange(KV, device=dev)[None]                    # (Sp, KV)
+    return _paged_scatter(paged, pg[:, :, None], rows[None], pk8, pks, pv8,
+                          pvs)
+
+
+def _paged_scatter(paged: PagedKVCache, pgi, ri, pk8, pks, pv8, pvs
+                   ) -> PagedKVCache:
+    """Shared page-pool scatter core: payloads (L, N, T, KV, D) and scales
+    (L, N, T, KV) land at (page pgi (N, T, 1), row ri (N|1, T, KV)); a page
+    id equal to ``n_pages`` DROPS the row.  Callers (_paged_write_prompts,
+    speculative._paged_write_block) differ only in how they compute pgi, ri
+    and validity."""
+    u8 = torch.stack([bits(pk8), bits(pv8)]).permute(2, 3, 4, 0, 1, 5)
+    us = torch.stack([pks, pvs]).permute(2, 3, 4, 0, 1)         # (N,T,KV,2,L)
+    return paged.scatter(pgi, ri, u8, us)
+
+
+@torch.no_grad()
+def prefill_paged(params: Dict, paged: PagedKVCache, tokens: torch.Tensor,
+                  slot, length, cfg: ServeConfig
+                  ) -> Tuple[torch.Tensor, PagedKVCache]:
+    """Prefill one slot's prompt into its mapped pages.
+
+    Same dense causal forward as :func:`prefill`; token i lands in the
+    slot's logical page ``i // page_size`` at offset ``i % page_size``.
+    Padding rows (i >= length) are dropped."""
+    dev = tokens.device
+    h, pk8, pks, pv8, pvs = _dense_forward(params, tokens[None], cfg)
+    slots = torch.as_tensor(slot, device=dev).reshape(1).to(torch.int32)
+    lengths = torch.as_tensor(length, device=dev).reshape(1).to(torch.int32)
+    paged = _paged_write_prompts(paged, pk8, pks, pv8, pvs, slots, lengths)
+    logits = _first_token_logits(params, h, lengths, cfg.model)
+    return logits[0], paged
+
+
+@torch.no_grad()
+def prefill_batch_paged(params: Dict, paged: PagedKVCache,
+                        prompts: torch.Tensor, slots: torch.Tensor,
+                        lengths: torch.Tensor, generator,
+                        temperature: torch.Tensor, top_k, top_p,
+                        tokens: torch.Tensor, positions: torch.Tensor,
+                        cfg: ServeConfig,
+                        write_starts: Optional[torch.Tensor] = None):
+    """Paged twin of :func:`prefill_batch` (batched admission in one call).
+    ``write_starts`` (N,) skips cache writes below it (the positions covered
+    by shared prefix pages).  Returns (first_tokens (N,), paged, tokens,
+    positions)."""
+    h, pk8, pks, pv8, pvs = _dense_forward(params, prompts, cfg)
+    paged = _paged_write_prompts(paged, pk8, pks, pv8, pvs, slots, lengths,
+                                 starts=write_starts)
+    logits = _first_token_logits(params, h, lengths, cfg.model)
+    first = sample_tokens(logits, generator, temperature, top_k, top_p)
+    tokens = _scatter_slots(tokens, slots, first)
+    positions = _scatter_slots(positions, slots, lengths)
+    return first, paged, tokens, positions

@@ -161,8 +161,6 @@ def test_engine_long_prompt_is_trimmed_to_the_window():
 
 def test_engine_unported_modes_raise():
     _, _, tcfg, tp, scfg = _setup()
-    with pytest.raises(NotImplementedError, match="paged"):
-        ServingEngine(tp, scfg, use_paged=True, device="cpu")
     with pytest.raises(NotImplementedError, match="speculation"):
         ServingEngine(tp, scfg, draft_params=tp, device="cpu")
     with pytest.raises(NotImplementedError, match="ring_flush"):

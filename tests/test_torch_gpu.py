@@ -12,7 +12,8 @@ import pytest
 import torch
 
 import fp8tpu_torch
-from fp8tpu_torch.kernels import cast_kernel, inplace, int4_matmul, qmatmul
+from fp8tpu_torch.kernels import (cast_kernel, inplace, int4_matmul,
+                                  paged_attention, qmatmul)
 from fp8tpu_torch.models import RESNET_EXEMPT, tiny_config, tiny_resnet
 from fp8tpu_torch.numerics import cast as tcast
 from fp8tpu_torch.numerics.cast import cast_array
@@ -173,6 +174,97 @@ def test_dyn_store_kernel_matches_plain(cuda, dtype, row):
         assert out is buf and buf.data_ptr() == ptr
         inplace.dyn_store_plain(ref, slab, idx)
         assert torch.equal(buf, ref)
+
+
+@pytest.mark.parametrize("fmt", [torch.int8, torch.float8_e4m3fn,
+                                 torch.float8_e5m2, torch.bfloat16])
+@pytest.mark.parametrize("batch,kv,g,d,page,mp", [(3, 2, 2, 16, 8, 4),
+                                                  (9, 8, 4, 128, 64, 5),
+                                                  (2, 1, 8, 64, 16, 40)])
+def test_paged_attention_kernel_matches_plain(cuda, fmt, batch, kv, g, d,
+                                              page, mp):
+    """K4 against its plain version on the CPU.  q lies on a 1/8 grid and
+    the payload on a 1/4 grid, so every score dot is exact in f32 in any
+    order: m is bit-equal, l within T * 2^-22 relative, and acc within one
+    bf16 step (2^-7) of sum_t |pv_t v_td|, which bounds it from above by
+    the largest |v| times l."""
+    gen = torch.Generator().manual_seed(4)
+    P, L, R = batch * mp + 2, 2, page * kv
+    pool = (torch.randint(-15, 16, (P, 2, L, R, d), generator=gen).float()
+            * 0.25).to(fmt)
+    sc = torch.empty(P, 2, L, R).uniform_(0.004, 0.02, generator=gen)
+    q = (torch.randint(-16, 17, (batch, kv * g, d), generator=gen).float()
+         / 8).to(torch.bfloat16)
+    lens = torch.randint(1, mp * page + 1, (batch,), generator=gen,
+                         dtype=torch.int32)
+    lens[0], lens[1] = 0, mp * page
+    table = torch.randperm(P, generator=gen)[:batch * mp].reshape(
+        batch, mp).to(torch.int32)
+    table[torch.arange(mp)[None] * page >= lens[:, None]] = -1
+    kw = dict(page_size=page, kv_heads=kv)
+    for layer in range(L):
+        want = paged_attention.paged_decode_attention_plain(
+            q, pool, sc, table, lens, layer, **kw)
+        before = paged_attention.launches
+        got = paged_attention.paged_decode_attention(
+            q.to(cuda), pool.to(cuda), sc.to(cuda), table.to(cuda),
+            lens.to(cuda), layer, **kw)
+        assert paged_attention.launches == before + 1
+        acc, m, l = (t.cpu() for t in got)
+        assert torch.equal(m.view(torch.int32), want[1].view(torch.int32))
+        rel = mp * page * 2.0 ** -22
+        assert bool(((l - want[2]).abs() <= want[2] * rel).all())
+        bound = (0.02 * 3.75 * want[2] * (rel + 2.0 ** -7))[..., None] + 1e-30
+        assert bool(((acc - want[0]).abs() <= bound).all())
+        assert bool((m[0] == -1e30).all() and (l[0] == 0).all()
+                    and (acc[0] == 0).all())
+
+
+def test_paged_attention_kernel_rejects_what_it_does_not_take(cuda):
+    pool = torch.zeros(2, 2, 1, 8, 24, dtype=torch.int8, device=cuda)
+    sc = torch.ones(2, 2, 1, 8, device=cuda)
+    table = torch.zeros(1, 2, dtype=torch.int32, device=cuda)
+    lens = torch.ones(1, dtype=torch.int32, device=cuda)
+    q = torch.zeros(1, 2, 24, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_attention.paged_decode_attention(q, pool, sc, table, lens, 0,
+                                               page_size=4, kv_heads=2)
+
+
+@pytest.mark.parametrize("impl", ["kernel", "ringview"])
+def test_tiny_paged_serving_on_the_card_matches_cpu(cuda, impl):
+    """The tiny decoder's paged engine with the prefix cache on the card
+    (K3, and K4 in "kernel" mode) against the same engine on the CPU (plain
+    versions): token lists agree wherever the CPU's teacher-forced top-2
+    margin is not a near tie, and every page comes back."""
+    from fp8tpu_torch.serve import (Request, ServeConfig, ServingEngine,
+                                    full_logits, random_serve_params)
+    cfg = tiny_config(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
+                      d_ff=256, vocab_size=128, max_seq_len=64)
+    scfg = ServeConfig(model=cfg, kv_fmt="int8", paged_decode_impl=impl)
+    host = random_serve_params(cfg, "e4m3", device="cpu")
+    system = list(range(1, 17))
+    prompts = {i: system + [30 + i, 5, 8][:1 + i % 3] for i in range(4)}
+    reqs = lambda: [Request(uid=i, prompt=list(p), max_new_tokens=6)
+                    for i, p in prompts.items()]
+    kw = dict(n_slots=2, max_seq=64, chunk_size=4, use_paged=True,
+              page_size=8, prefix_cache=True)
+    want = ServingEngine(host, scfg, device="cpu", **kw).run(reqs())
+    before = (paged_attention.launches, qmatmul.dequant_launches)
+    eng = ServingEngine({k: v.to(cuda) for k, v in host.items()}, scfg, **kw)
+    got = eng.run(reqs())
+    k4 = paged_attention.launches - before[0]
+    assert qmatmul.dequant_launches > before[1]
+    assert k4 > 0 and k4 % cfg.n_layers == 0 if impl == "kernel" else k4 == 0
+    assert eng.page_stats["shared"] > 0 and int(eng._page_ref.sum()) == 0
+    for uid in want:
+        assert len(got[uid]) == 6
+        if got[uid] == want[uid]:
+            continue
+        j = next(i for i in range(6) if got[uid][i] != want[uid][i])
+        seq = torch.tensor(prompts[uid] + want[uid][:j], dtype=torch.int32)
+        top2 = full_logits(host, seq, scfg)[-1].topk(2).values
+        assert float(top2[0] - top2[1]) < 0.05 * float(top2[0].abs() + 1)
 
 
 @pytest.mark.parametrize("fmt", ["e4m3", "int4"])

@@ -151,6 +151,8 @@ def test_port_imports_nothing_of_jax_or_fp8tpu():
     names = {str(f.relative_to(REPO)) for f in files}
     assert {"fp8tpu_torch/kernels/int4_matmul.py",
             "fp8tpu_torch/kernels/inplace.py",
+            "fp8tpu_torch/kernels/paged_attention.py",
+            "fp8tpu_torch/serve/speculative.py",
             "fp8tpu_torch/models/transformer.py",
             "fp8tpu_torch/serve/__init__.py",
             "fp8tpu_torch/serve/kv_cache.py", "fp8tpu_torch/serve/model.py",

@@ -488,8 +488,6 @@ def test_unported_options_raise_not_implemented():
         cfg = ServeConfig(model=tcfg, kv_fmt="int8", **kw)
         with pytest.raises(NotImplementedError, match=msg):
             decode_step(tp, ring, tok, tok, cfg)
-    with pytest.raises(NotImplementedError, match="paged"):
-        tmodel.decode_chunk_paged(tp, None, tok, tok)
     with pytest.raises(NotImplementedError, match="MoE"):
         random_serve_params(tiny_config(n_experts=4, **TINY), device="cpu")
     with pytest.raises(NotImplementedError, match="MoE"):

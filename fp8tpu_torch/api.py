@@ -1,4 +1,5 @@
-"""User-facing facade: post-training quantization.
+"""User-facing facade: post-training quantization, and FP8 mixed-precision
+training through ``initialize`` (re-exported from ``training``).
 
 ``quantize_model(...)`` returns a :class:`QuantizedModel` that bundles the
 model, the policy, the quantized weights (a state_dict) and the calibrated
@@ -27,6 +28,7 @@ from fp8tpu_torch.quant.interceptor import (
     quantize_params,
 )
 from fp8tpu_torch.quant.policy import QuantPolicy, get_policy
+from fp8tpu_torch.training.mpt import initialize  # noqa: F401  (re-export)
 
 
 def _to(device, args):

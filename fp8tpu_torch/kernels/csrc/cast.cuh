@@ -412,15 +412,137 @@ __device__ __forceinline__ float block_scale(float amax) {
   return flush(__fdiv_rn(__fmul_rn(2.0f, p2), Geo<F>::headroom));
 }
 
+// -- the hardware-convert route (cast_impl="hw") -----------------------------
+//
+// numerics/cast.py::hw_qdq and hw_sr for e4m3, e5m2 and bfloat16, the
+// formats whose casts K2 runs in the "hw" route.  The convert is written at
+// the bit level (RNE onto the format's grid, after the clip), so that it
+// is the host's convert bit for bit, NaNs included (the sign and the quiet
+// bit, as XLA's convert keeps them).
+
+template <int F> struct Hw;
+template <> struct Hw<E4M3> {
+  static constexpr int mant = 3, emin = -6;
+  static constexpr float top = 448.0f;
+  static constexpr bool inf = false;
+};
+template <> struct Hw<E5M2> {
+  static constexpr int mant = 2, emin = -14;
+  static constexpr float top = 57344.0f;
+  static constexpr bool inf = true;
+};
+template <> struct Hw<BF16> {
+  static constexpr int mant = 7, emin = -126;
+  static constexpr float top = 3.38953139e38f;
+  static constexpr bool inf = true;
+};
+
+// a / b under DAZ/FTZ with the host's NaN rules (x86: the first NaN
+// operand's payload, quieted; 0xFFC00000 for 0/0 and inf/inf).
+__device__ __forceinline__ float div_ftz(float a, float b) {
+  if (isnan(a)) return quiet(a);
+  if (isnan(b)) return quiet(b);
+  const float r = __fdiv_rn(flush(a), flush(b));
+  return isnan(r) ? __uint_as_float(0xFFC00000u) : flush(r);
+}
+
+// Clamp to [-max, max]; NaN stays NaN (torch.clamp, jnp.clip).
+template <int F>
+__device__ __forceinline__ float clip_hw(float v) {
+  return isnan(v) ? v : fminf(fmaxf(v, -Hw<F>::top), Hw<F>::top);
+}
+
+// RNE onto F's grid of a finite value in [-max, max] that is not an f32
+// subnormal: mantissa rounding above the format's normal range, a fixed
+// grid of 2^(emin - mant) below it.
+template <int F>
+__device__ __forceinline__ float round_grid(float v) {
+  using H = Hw<F>;
+  const uint32_t u = __float_as_uint(v);
+  const int e = static_cast<int>((u >> 23) & 0xFF) - 127;
+  if (e >= H::emin) {
+    constexpr int cut = 23 - H::mant;
+    const uint32_t lsb = (u >> cut) & 1u;
+    return __uint_as_float((u + ((1u << (cut - 1)) - 1u) + lsb)
+                           & (0xFFFFFFFFu << cut));
+  }
+  if constexpr (H::mant - H::emin > 126) {
+    return v;  // bf16: below its normal range lie only (flushed) zeros
+  } else {
+    constexpr float up = static_cast<float>(1u << (H::mant - H::emin));
+    return __fmul_rn(rintf(__fmul_rn(v, up)), 1.0f / up);
+  }
+}
+
+// hw_qdq: clip, RNE convert to F and back, descale (descale=false keeps
+// the scaled grid value).
+template <int F>
+__device__ __forceinline__ float hw_qdq(float x, float s,
+                                        bool descale = true) {
+  const float xf = mul_ftz(x, s);
+  float y;
+  if (isnan(xf)) {
+    y = __uint_as_float((__float_as_uint(xf) & 0x80000000u) | 0x7FC00000u);
+  } else if (Hw<F>::inf && isinf(xf)) {
+    y = xf;
+  } else {
+    y = round_grid<F>(clip_hw<F>(xf));
+  }
+  return descale ? div_ftz(y, s) : y;
+}
+
+// hw_sr with 16 random bits ``rb``: add below the cut and truncate in the
+// normal range (the add wraps in 32 bits), floor(|x|/g + rb/2^16) * g on
+// the subnormal grid (bf16: exact zero), saturate; NaN and (e5m2, bf16)
+// ±inf pass through.
+template <int F>
+__device__ __forceinline__ float hw_sr(float x, float s, uint32_t rb,
+                                       bool descale = true) {
+  using H = Hw<F>;
+  const float xs0 = mul_ftz(x, s);
+  const uint32_t u = __float_as_uint(clip_hw<F>(xs0));
+  const uint32_t sign = u & 0x80000000u, mag = u & 0x7FFFFFFFu;
+  const int e = static_cast<int>(mag >> 23) - 127;
+  rb &= 0xFFFFu;
+  float y;
+  if (e >= H::emin) {
+    constexpr int cut = 23 - H::mant;
+    const uint32_t radd = cut >= 16 ? rb << (cut - 16) : rb >> (16 - cut);
+    y = __uint_as_float((mag + radd) & (0xFFFFFFFFu << cut));
+  } else if constexpr (H::mant - H::emin > 126) {
+    y = 0.0f;  // bf16: the subnormal grid is f32-subnormal, flushed to 0
+  } else {
+    constexpr float up = static_cast<float>(1u << (H::mant - H::emin));
+    const float u01 = __fmul_rn(static_cast<float>(rb), 1.0f / 65536.0f);
+    y = __fmul_rn(floorf(__fadd_rn(__fmul_rn(__uint_as_float(mag), up), u01)),
+                  1.0f / up);
+  }
+  float out = clip_hw<F>(__uint_as_float(sign | __float_as_uint(y)));
+  if (isnan(xs0) || (H::inf && isinf(xs0))) out = xs0;
+  return descale ? div_ftz(out, s) : out;
+}
+
+// Variant codes of the hw route: bit 8 set, the format, bit 1 for SR.
+__host__ __device__ constexpr int hw_code(int f, bool sr) {
+  return 0x100 | (f << 4) | (sr ? 2 : 0);
+}
+
 // Runtime-selected cast for callers that take the variant as an argument
-// (the GEMM's operand casts).  Returns x for an unknown code.
+// (the GEMM's operand casts); ``rb`` are the element's random bits (read
+// by stochastic variants).  Returns x for an unknown code.
 __device__ __forceinline__ float cast_code(int code, float x, float s,
-                                           float inv) {
+                                           float inv, uint32_t rb) {
   switch (code) {
 #define FP8_CAST_CASE(F, M, D) \
-    case code_of(F, M, D): return cast_elem<F, M, D>(x, s, inv, 0u);
+    case code_of(F, M, D): return cast_elem<F, M, D>(x, s, inv, rb);
     FP8_CAST_VARIANTS(FP8_CAST_CASE)
 #undef FP8_CAST_CASE
+    case hw_code(E4M3, false): return hw_qdq<E4M3>(x, s);
+    case hw_code(E5M2, false): return hw_qdq<E5M2>(x, s);
+    case hw_code(BF16, false): return hw_qdq<BF16>(x, s);
+    case hw_code(E4M3, true): return hw_sr<E4M3>(x, s, rb);
+    case hw_code(E5M2, true): return hw_sr<E5M2>(x, s, rb);
+    case hw_code(BF16, true): return hw_sr<BF16>(x, s, rb);
     default: return x;
   }
 }

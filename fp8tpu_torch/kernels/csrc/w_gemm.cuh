@@ -24,14 +24,16 @@
 // * Split-K: when the output has fewer tiles than the card has SMs (decode
 //   with N = 1024), gridDim.z blocks share one tile's K range.  Each writes
 //   its f32 partial to a workspace; the block that arrives last at the
-//   tile's counter adds the partials in split order 0..S-1 (so the result
-//   does not depend on which block was last), applies the epilogue and
-//   resets the counter.  One launch, deterministic.
+//   tile's counter (split_k.cuh) adds the partials in split order 0..S-1
+//   (so the result does not depend on which block was last), applies the
+//   epilogue and resets the counter.  One launch, deterministic.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "split_k.cuh"
 
 namespace wg {
 
@@ -117,14 +119,7 @@ __device__ __forceinline__ void epilogue(const Args& A, float (&acc)[MT][NT][4],
                 if (two) mine[at + 1] = v1;
             }
         });
-        __threadfence();
-        __syncthreads();
-        const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-        if (t == 0)
-            *is_last = atomicAdd(&A.counters[tile], 1) == A.splits - 1;
-        __syncthreads();
-        if (!*is_last) return;
-        __threadfence();
+        if (!splitk::last_of_tile(A.counters, A.splits, is_last)) return;
         for_each([&](float& v0, float& v1, size_t at, int, bool two) {
             float2 part[MAX_SPLITS];
 #pragma unroll
@@ -149,7 +144,7 @@ __device__ __forceinline__ void epilogue(const Args& A, float (&acc)[MT][NT][4],
                     v1 += part[z].y;
                 }
         });
-        if (t == 0) A.counters[tile] = 0;
+        splitk::release_tile(A.counters);
     }
     for_each([&](float& v0, float& v1, size_t at, int col, bool two) {
         const float r0 = v0 * W::epilogue_scale(A, col);

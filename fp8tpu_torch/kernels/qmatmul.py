@@ -2,15 +2,26 @@
 dequant-GEMM (``csrc/dequant_matmul.cu``): wrappers, launch counts and
 plain versions.
 
-Replaces ``fp8tpu/kernels/qmatmul.py::_qdq_matmul_kernel`` with
-``impl="bitexact"``: ``qdq(x; sx) @ qdq(w; sw[N])`` in IEEE f32 with f32
-accumulation.  Every hw-patched contraction on a CUDA tensor is one launch.
-The plain version, :func:`plain`, casts both operands with the plain cast
-and multiplies with ``torch.matmul`` in full f32; the wrapper uses it only
-for tensors on the CPU.
+K2 replaces ``fp8tpu/kernels/qmatmul.py::_qdq_matmul_kernel``:
+``qdq(x; sx) @ qdq(w; sw[N])`` in IEEE f32 with f32 accumulation, each
+operand cast by the bit pipeline (``impl="bitexact"``) or the
+hardware-convert route (``impl="hw"``: ``hw_qdq`` / ``hw_sr`` for e4m3,
+e5m2 and bfloat16, the bit pipeline for every other format, float16
+included), rounding to nearest or stochastically.  Stochastic operands
+take the bits of the JAX package's CPU route (``_qdq_matmul_jnp``): the
+counter hash salted by ``fold_in(fold_in(key(0), seed), tag)``, tag 1
+for x and 2 for w, over the operand's row-major index.  Every
+hw-patched contraction on a CUDA tensor, forward and backward, is one
+launch.  The plain version, :func:`plain`, casts both operands with the
+plain casts and multiplies with ``torch.matmul`` in full f32; the wrapper
+uses it only for tensors on the CPU.
 
-Not yet ported (FP8 training): ``impl="hw"`` and stochastic rounding of
-the operands; both raise NotImplementedError.
+With ``impl="hw"`` and both operands on formats of at most 7 mantissa
+bits the JAX package leaves Pallas (``_hw_xla_ok``): each operand is cast
+once onto its scaled grid, exact in bf16, the two are contracted with
+f32 accumulation and the product is descaled.  :func:`qdq_matmul` does
+the same with plain casts and a full-f32 ``torch.matmul`` on every
+device: that route has no kernel to port.
 
 K3 replaces ``fp8tpu/kernels/qmatmul.py::_dequant_matmul_kernel``:
 ``(x @ upcast(w8)) * s[N]`` with the payload upcast to bf16 in registers,
@@ -28,23 +39,33 @@ from typing import Optional
 import torch
 
 from fp8tpu_torch._device import full_fp32
-from fp8tpu_torch.numerics.cast import cast_array
+from fp8tpu_torch.numerics import prng
+from fp8tpu_torch.numerics.cast import (_flush, _mul, cast_array, hw_qdq,
+                                        hw_sr, sr_bits_from_salt)
 from fp8tpu_torch.numerics.formats import FORMATS, RoundMode
 
 from . import _build
-from .cast_kernel import variant_code
+from .cast_kernel import FMT_IDS, variant_code
 
-# Launches of K2 and of K3 since the last reset_launches().
+# Launches of K2 and of K3 since the last reset_launches(); K2's also by
+# variant: "bitexact" and "hw" casts, or "uncast" (neither operand cast).
 launches = 0
+k2_launches = {"bitexact": 0, "hw": 0, "uncast": 0}
 dequant_launches = 0
 
 _MAX_ROWS = 65535 * 64  # grid.y limit times the 64-row tile
+IMPLS = ("bitexact", "hw")
+# Formats that K2's "hw" route converts natively; others take the bit
+# pipeline (``fp8tpu/kernels/qmatmul.py::_HW_KERNEL_FMTS``).
+HW_KERNEL_FMTS = ("e4m3", "e5m2", "bfloat16")
 
 
 def reset_launches() -> None:
     global launches, dequant_launches
     launches = 0
     dequant_launches = 0
+    for variant in k2_launches:
+        k2_launches[variant] = 0
 
 
 def _scales(x, w, scale_x, scale_w):
@@ -55,48 +76,114 @@ def _scales(x, w, scale_x, scale_w):
     return sx.contiguous(), sw.reshape(-1).contiguous()
 
 
-def _check(x, w, fmt_x, mode_x, fmt_w, mode_w, impl):
-    if impl != "bitexact":
-        raise NotImplementedError(
-            f"qdq_matmul impl={impl!r} is ported with FP8 training")
-    for fmt, mode in ((fmt_x, mode_x), (fmt_w, mode_w)):
-        if fmt is not None and mode == RoundMode.STOCHASTIC:
-            raise NotImplementedError(
-                "stochastic operand rounding in qdq_matmul is ported with "
-                "FP8 training")
+def _check(x, w, impl):
+    if impl not in IMPLS:
+        raise ValueError(f"qdq_matmul impl must be one of {IMPLS}, got "
+                         f"{impl!r}")
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"qdq_matmul needs (M, K) @ (K, N), got "
                          f"{tuple(x.shape)} @ {tuple(w.shape)}")
 
 
+def _hw_xla_ok(fmt_x, fmt_w) -> bool:
+    """Whether ``impl="hw"`` takes the route outside the kernel: both
+    operands quantized to formats with at most 7 mantissa bits, whose
+    scaled grid values are exact in bf16."""
+    return (fmt_x is not None and fmt_w is not None
+            and FORMATS[fmt_x].mant_bits <= 7
+            and FORMATS[fmt_w].mant_bits <= 7)
+
+
+def sr_salt(seed: int, tag: int, fmt: Optional[str],
+            mode: RoundMode) -> Optional[int]:
+    """The SR salt of a stochastic operand (tag 1 for x, 2 for w); None
+    when the operand is uncast or rounds to nearest."""
+    if fmt is None or mode != RoundMode.STOCHASTIC:
+        return None
+    return prng.salt_of(prng.fold_in(prng.fold_in(prng.key(0), seed), tag))
+
+
+def cast_operand(v, fmt, mode, scale, impl, salt, descale=True):
+    """One operand through the plain casts: K2's in-kernel cast
+    (``descale=False`` gives the "hw" route's scaled grid values)."""
+    rb = None if salt is None else sr_bits_from_salt(
+        salt, v.numel(), v.device)[:v.numel()].reshape(v.shape)
+    if impl == "hw" and fmt in HW_KERNEL_FMTS:
+        if mode == RoundMode.STOCHASTIC:
+            return hw_sr(v, fmt, scale, rb, descale)
+        return hw_qdq(v, fmt, scale, descale)
+    out = cast_array(v, scale, rb, fmt, mode)
+    return out if descale else _mul(out, scale)
+
+
 def plain(x, w, fmt_x: Optional[str] = "e4m3",
           mode_x: RoundMode = RoundMode.RNE, fmt_w: Optional[str] = "e4m3",
-          mode_w: RoundMode = RoundMode.RNE, scale_x=1.0, scale_w=1.0):
+          mode_w: RoundMode = RoundMode.RNE, scale_x=1.0, scale_w=1.0,
+          seed: int = 0, impl: str = "bitexact"):
     """The plain version of K2 (any device): plain casts, then a full-f32
     ``torch.matmul``."""
     sx, sw = _scales(x, w, scale_x, scale_w)
     xq = x.to(torch.float32)
     wq = w.to(torch.float32)
     if fmt_x is not None:
-        xq = cast_array(xq, sx[0], None, fmt_x, mode_x)
+        xq = cast_operand(xq, fmt_x, mode_x, sx[0], impl,
+                          sr_salt(seed, 1, fmt_x, mode_x))
     if fmt_w is not None:
-        wq = cast_array(wq, sw.reshape(1, -1), None, fmt_w, mode_w)
+        wq = cast_operand(wq, fmt_w, mode_w, sw.reshape(1, -1), impl,
+                          sr_salt(seed, 2, fmt_w, mode_w))
     with full_fp32():
         return torch.matmul(xq, wq)
+
+
+def _hw_grid_matmul(x, w, fmt_x, mode_x, fmt_w, mode_w, scale_x, scale_w,
+                    seed):
+    """The "hw" route outside the kernel: each operand cast once onto its
+    scaled grid and rounded to bf16 (exact), an f32 contraction of the
+    bf16 values (``torch.matmul`` on bf16 tensors would round its result
+    to bf16), the descale last."""
+    sx, sw = _scales(x, w, scale_x, scale_w)
+    sw = sw.reshape(1, -1)
+    xg = cast_operand(x.to(torch.float32), fmt_x, mode_x, sx[0], "hw",
+                      sr_salt(seed, 1, fmt_x, mode_x), descale=False)
+    wg = cast_operand(w.to(device=x.device, dtype=torch.float32), fmt_w,
+                      mode_w, sw, "hw", sr_salt(seed, 2, fmt_w, mode_w),
+                      descale=False)
+    with full_fp32():
+        out = torch.matmul(xg.to(torch.bfloat16).to(torch.float32),
+                           wg.to(torch.bfloat16).to(torch.float32))
+    return _flush(out / _flush(_mul(sx[0], sw)))
 
 
 @functools.cache
 def _fn():
     fn = _build.load("qmatmul").fp8_qdq_matmul
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(x, w, fmt_x, mode_x, fmt_w, mode_w, scale_x, scale_w):
+def _operand_code(fmt, mode, impl) -> int:
+    """The kernel's cast variant for an operand: -1 uncast; the hw route's
+    codes (``cast.cuh::hw_code``) for its formats under ``impl="hw"``,
+    where every mode but SR rounds to nearest, as the JAX kernel does;
+    the bit pipeline's (``variant_code``) otherwise."""
+    if fmt is None:
+        return -1
+    if impl == "hw" and fmt in HW_KERNEL_FMTS:
+        return 0x100 | (FMT_IDS[fmt] << 4) \
+            | (2 if mode == RoundMode.STOCHASTIC else 0)
+    return variant_code(fmt, mode)
+
+
+def _launch(x, w, fmt_x, mode_x, fmt_w, mode_w, scale_x, scale_w, seed=0,
+            impl="bitexact", unsplit: bool = False):
+    """One K2 launch.  ``unsplit`` keeps K whole where :func:`k2_split`
+    would split it (a measurement of the kernel without split-K)."""
     global launches
     m, k = x.shape
     n = w.shape[1]
@@ -106,14 +193,21 @@ def _launch(x, w, fmt_x, mode_x, fmt_w, mode_w, scale_x, scale_w):
     xf = x.to(torch.float32).contiguous()
     wf = w.to(device=x.device, dtype=torch.float32).contiguous()
     sx, sw = _scales(xf, wf, scale_x, scale_w)
-    code_x = -1 if fmt_x is None else variant_code(fmt_x, mode_x)
-    code_w = -1 if fmt_w is None else variant_code(fmt_w, mode_w)
+    splits, kper = k2_split(m, n, k, sm_count(x.device.index or 0),
+                            unsplit)
+    ws, counters = split_workspace(x.device, splits, m, n)
+    salts = [sr_salt(seed, 1, fmt_x, mode_x), sr_salt(seed, 2, fmt_w, mode_w)]
+    salt_x, salt_w = (-1 if s is None else s for s in salts)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     err = _fn()(xf.data_ptr(), wf.data_ptr(), out.data_ptr(), m, n, k,
-                code_x, sx.data_ptr(), code_w, sw.data_ptr(),
+                _operand_code(fmt_x, mode_x, impl), sx.data_ptr(), salt_x,
+                _operand_code(fmt_w, mode_w, impl), sw.data_ptr(), salt_w,
+                splits, kper, ws.data_ptr() if ws is not None else None,
+                counters.data_ptr(),
                 torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "qdq_matmul kernel")
     launches += 1
+    k2_launches["uncast" if fmt_x is None and fmt_w is None else impl] += 1
     return out
 
 
@@ -126,19 +220,25 @@ def qdq_matmul(
     mode_w: RoundMode = RoundMode.RNE,
     scale_x=1.0,
     scale_w=1.0,
+    seed: int = 0,
     out_dtype=torch.float32,
     impl: str = "bitexact",
 ) -> torch.Tensor:
     """Fused fake-quant matmul ``qdq(x) @ qdq(w)``.  ``scale_x`` is one
     per-tensor scale, ``scale_w`` a scalar or one scale per output column
     (N,); scales may be CUDA tensors (no host sync).  A ``fmt`` of None
-    leaves that operand uncast.  K2 on a CUDA tensor, the plain version on
-    the CPU."""
-    _check(x, w, fmt_x, mode_x, fmt_w, mode_w, impl)
-    if x.is_cuda:
-        out = _launch(x, w, fmt_x, mode_x, fmt_w, mode_w, scale_x, scale_w)
+    leaves that operand uncast.  ``seed`` keys stochastic operands.  K2 on
+    a CUDA tensor, the plain version on the CPU; ``impl="hw"`` with two
+    operands of at most 7 mantissa bits takes the route outside the
+    kernel (see the module docstring)."""
+    _check(x, w, impl)
+    args = (x, w, fmt_x, mode_x, fmt_w, mode_w, scale_x, scale_w, seed)
+    if impl == "hw" and _hw_xla_ok(fmt_x, fmt_w):
+        out = _hw_grid_matmul(*args)
+    elif x.is_cuda:
+        out = _launch(*args, impl=impl)
     else:
-        out = plain(x, w, fmt_x, mode_x, fmt_w, mode_w, scale_x, scale_w)
+        out = plain(*args, impl=impl)
     return out.to(out_dtype)
 
 
@@ -218,24 +318,43 @@ def streams(m: int, n: int, k: int, *tensors: torch.Tensor) -> bool:
             and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
+def plan_splits(tiles: int, k: int, sms: int, cap: int, min_rows: int,
+                slab: int):
+    """(splits, K rows per split) for a launch of ``tiles`` output tiles
+    whose blocks may share a tile's K range (``split_k.cuh``): split when
+    the tiles alone give fewer than about two blocks per SM, at most
+    ``cap`` ways, at least ``min_rows`` rows a split, rows a multiple of
+    the kernel's K slab.  Never more tiles than tile counters."""
+    splits = 1 if not 0 < tiles <= _N_COUNTERS else max(
+        1, min(cap, (2 * sms + tiles // 2) // tiles, k // min_rows))
+    kper = max(slab, -(-k // (splits * slab)) * slab)
+    return max(1, -(-k // kper)), kper
+
+
+def k2_split(m: int, n: int, k: int, sms: int, unsplit: bool = False):
+    """K2's split of K over its 64x64 tiles (split launches take that
+    tile): up to 64 ways, at least 512 rows a split, as the backward's
+    weight gradient needs (576 x 64 outputs over K = 100352 at ResNet-50's
+    first stage)."""
+    tiles = -(-m // 64) * -(-n // 64)
+    return plan_splits(tiles, k, sms, 1 if unsplit else 64, 512, 16)
+
+
 def split_k(m: int, n: int, k: int, sms: int, stream: bool = False,
             bk: int = 64):
-    """(splits, K rows per split) for the weight-GEMM kernels: split K when
-    the output has fewer tiles than about two per SM, at most 8 ways, at
-    least 256 rows a split, rows a multiple of the kernel's K slab.  The
-    streaming kernel's tiles are 128 columns wide, the general kernel's
-    64."""
+    """(splits, K rows per split) for the weight-GEMM kernels (K3, K5): at
+    most 8 ways, at least 256 rows a split.  The streaming kernel's tiles
+    are 128 columns wide, the general kernel's 64."""
     if stream:
         tiles = -(-n // 128)
     else:
         bm = 16 if m <= 16 else 64 if m <= 64 else 128
         tiles = -(-n // 64) * -(-m // bm)
-    splits = max(1, min(8, (2 * sms + tiles // 2) // tiles, k // 256))
-    kper = -(-k // (splits * bk)) * bk
-    return -(-k // kper), kper
+    return plan_splits(tiles, k, sms, 8, 256, bk)
 
 
 _COUNTERS = {}
+_N_COUNTERS = 4096
 
 
 def split_workspace(device, splits: int, m: int, n: int):
@@ -245,7 +364,7 @@ def split_workspace(device, splits: int, m: int, n: int):
     counters = _COUNTERS.get(device)
     if counters is None:
         counters = _COUNTERS[device] = torch.zeros(
-            4096, dtype=torch.int32, device=device)
+            _N_COUNTERS, dtype=torch.int32, device=device)
     ws = torch.empty((splits, m, n), dtype=torch.float32, device=device) \
         if splits > 1 else None
     return ws, counters

@@ -180,9 +180,10 @@ class Conv(Module):
 
 class BatchNorm(Module):
     """Batch normalisation over the channel dim 1 with Flax's semantics:
-    in training mode it normalises with the batch's biased variance and
-    updates ``running_* = momentum * running_* + (1 - momentum) * batch``;
-    in eval mode it uses the running statistics."""
+    in training mode it normalises with the batch's biased variance, taken
+    as Flax takes it, ``max(E[x^2] - E[x]^2, 0)``, and updates
+    ``running_* = momentum * running_* + (1 - momentum) * batch``; in eval
+    mode it uses the running statistics."""
 
     def __init__(self, features: int, momentum: float = 0.9,
                  epsilon: float = 1e-5):
@@ -198,7 +199,7 @@ class BatchNorm(Module):
         if self.training:
             dims = tuple(i for i in range(x.ndim) if i != 1)
             mean = x.mean(dims)
-            var = x.var(dims, unbiased=False)
+            var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_((1 - m) * mean)

@@ -442,26 +442,74 @@ HW_DTYPES = {"e4m3": torch.float8_e4m3fn, "e5m2": torch.float8_e5m2,
              "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
+def _convert_nan(xf: torch.Tensor, fmt_name: str) -> torch.Tensor:
+    """What XLA's f32 → dtype → f32 round trip makes of a NaN: the sign and
+    the quiet bit for the fp8 formats and bf16; float16 keeps the top ten
+    payload bits as well.  torch's own converts drop the sign (bf16) or
+    depend on the tensor's size (float16), so the NaNs are made here."""
+    u = _bits(xf)
+    if fmt_name == "float16":
+        return _float((u & 0xFFFFE000) | 0x00400000)
+    return _float((u & 0x80000000) | 0x7FC00000)
+
+
 def hw_qdq(x, fmt_name: str, scale, descale: bool = True) -> torch.Tensor:
     """RNE fake-quant through the native dtype convert: clip, one
     f32→dtype→f32 round trip, descale.  Finite out-of-range values
     saturate to ±max_normal (the clip precedes the convert: torch and XLA
     disagree on out-of-range fp8 converts); ±inf passes through on
-    formats with an inf encoding and NaN stays NaN."""
+    formats with an inf encoding and NaN stays NaN, with the bits XLA's
+    convert gives it."""
     fmt = FORMATS[fmt_name]
     scale = _f32(scale, x)
     xf = _mul(x.to(torch.float32), scale)
     clipped = torch.clamp(xf, -fmt.max_normal, fmt.max_normal)
     xf = torch.where(torch.isinf(xf), xf, clipped) if fmt.has_inf else clipped
     y = xf.to(HW_DTYPES[fmt_name]).to(torch.float32)
+    y = torch.where(torch.isnan(xf), _convert_nan(xf, fmt_name), y)
     return _flush(y / _flush(scale)) if descale else y
 
 
-def hw_sr(x, fmt_name: str, scale, rb, descale: bool = True):
-    """f32-domain stochastic rounding (the training casts)."""
-    raise NotImplementedError(
-        "hw_sr (cast_impl='hw' stochastic rounding) is ported with FP8 "
-        "training")
+def hw_sr(x, fmt_name: str, scale, rb, descale: bool = True) -> torch.Tensor:
+    """f32-domain stochastic rounding onto ``fmt_name``'s grid (the
+    training casts), bit for bit ``fp8tpu.numerics.cast.hw_sr``.
+
+    ``rb``: uint16-valued random bits of ``x``'s shape.  Normal range: the
+    bits are added below the cut (23 - mantissa bits) of the f32 pattern,
+    which is then truncated; the add wraps in 32 bits as JAX's uint32 add
+    does.  Subnormal range: ``floor(|x|/g + u) * g`` on the format's fixed
+    grid g, u = rb / 2^16; bfloat16's subnormal range is f32-subnormal,
+    where XLA's flush leaves exact zeros.  Then saturation; NaN and, on
+    formats with an inf encoding, ±inf pass through."""
+    fmt = FORMATS[fmt_name]
+    m, emin = fmt.mant_bits, 1 - fmt.bias
+    scale = _f32(scale, x)
+    xs0 = _mul(x.to(torch.float32), scale)
+    xs = torch.clamp(xs0, -fmt.max_normal, fmt.max_normal)
+    u = _bits(xs)
+    sign = u & 0x80000000
+    mag = u & 0x7FFFFFFF
+    e = (mag >> 23) - 127
+    rb = rb.to(device=x.device, dtype=torch.int64) & 0xFFFF
+
+    cut = 23 - m
+    radd = rb << (cut - 16) if cut >= 16 else rb >> (16 - cut)
+    y_norm = _float(((mag + radd) & _M32) & ((_M32 << cut) & _M32))
+
+    shift = m - emin
+    if shift > 126:
+        y_sub = torch.zeros_like(xs)
+    else:
+        u01 = rb.to(torch.float32) * 2.0 ** -16
+        y_sub = torch.floor(_float(mag) * 2.0 ** shift + u01) \
+            * 2.0 ** (emin - m)
+    y = torch.where(e >= emin, y_norm, y_sub)
+    out = _float(sign | _bits(y))
+    out = torch.clamp(out, -fmt.max_normal, fmt.max_normal)
+    out = torch.where(torch.isnan(xs0), xs0, out)
+    if fmt.has_inf:
+        out = torch.where(torch.isinf(xs0), xs0, out)
+    return _flush(out / _flush(scale)) if descale else out
 
 
 # -- entry points ---------------------------------------------------------------

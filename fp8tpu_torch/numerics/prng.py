@@ -9,7 +9,7 @@ happens on the host, and only the final 32-bit salt reaches a kernel.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 PRNGKey = Tuple[int, int]
 
@@ -40,6 +40,46 @@ def key(seed: int) -> PRNGKey:
 def fold_in(k: PRNGKey, data: int) -> PRNGKey:
     """Derive a new key from ``k`` and an integer (``jax.random.fold_in``)."""
     return _threefry2x32(k[0], k[1], 0, int(data) & _M32)
+
+
+def split(k: PRNGKey, num: int = 2) -> List[PRNGKey]:
+    """``num`` keys from ``k`` (``jax.random.split``).  With
+    ``jax_threefry_partitionable`` on (the default since jax 0.5) key ``i``
+    hashes the 64-bit counter ``i`` as the word pair (0, i), which is the
+    same word pair :func:`fold_in` hashes; the old layout hashed
+    ``iota(2 num)`` instead."""
+    return [_threefry2x32(k[0], k[1], 0, i) for i in range(num)]
+
+
+def _bits32(k: PRNGKey) -> int:
+    """``jax.random.bits(k, (), uint32)``: counter (0, 0), words xored."""
+    b0, b1 = _threefry2x32(k[0], k[1], 0, 0)
+    return b0 ^ b1
+
+
+def _rem(a: int, b: int) -> int:
+    return a % b if b else a       # XLA's unsigned remainder by zero
+
+
+def randint(k: PRNGKey, minval: int, maxval: int) -> int:
+    """One int32 from ``jax.random.randint(k, (), minval, maxval,
+    jnp.int32)``: two 32-bit draws from the two halves of ``split(k)``,
+    folded into the span with uint32 arithmetic."""
+    lo, hi = -2 ** 31, 2 ** 31 - 1
+    out_of_range = maxval > hi
+    minval, maxval = min(max(minval, lo), hi), min(max(maxval, lo), hi)
+    k1, k2 = split(k)
+    higher, lower = _bits32(k1), _bits32(k2)
+    span = (maxval - minval) & _M32
+    if maxval <= minval:
+        span = 1
+    elif out_of_range:
+        span = (span + 1) & _M32
+    mult = _rem(1 << 16, span)
+    mult = _rem((mult * mult) & _M32, span)
+    offset = (_rem(higher, span) * mult + _rem(lower, span)) & _M32
+    out = (minval + _rem(offset, span)) & _M32
+    return out - 2 ** 32 if out > hi else out
 
 
 def salt_of(k: PRNGKey) -> int:

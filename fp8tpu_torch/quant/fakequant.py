@@ -50,7 +50,8 @@ def _quantize_impl(x: torch.Tensor, cfg: TensorQuantConfig,
     if _hw_eligible(cfg):
         scale = _scale(x, cfg)
         if cfg.scheme == "stochastic":
-            return _cast.hw_sr(x, cfg.dtype, scale, None)
+            return _cast.hw_sr(x, cfg.dtype, scale,
+                               _cast.sr_bits(key, x.shape, x.device))
         return _cast.hw_qdq(x, cfg.dtype, scale)
     fmt = FORMATS[cfg.dtype]
     key = key if cfg.is_stochastic else None

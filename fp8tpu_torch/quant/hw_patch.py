@@ -4,9 +4,10 @@ through one fused fake-quant GEMM (K2, ``kernels.qmatmul``) with the
 operands cast per the module's ``iact`` role, instead of separate casts
 around a plain matmul.
 
-Forward only: the backward of these contractions (two more engine GEMMs,
-straight-through w.r.t. the casts) is ported with FP8 training and raises
-until then.
+The backward runs two more engine GEMMs, uncast, over the re-quantized
+saved operands (the C-model's autograd, cmodel/simple.py:124-146),
+straight-through with respect to the casts: one ``torch.autograd.Function``
+in place of the JAX package's two ``custom_vjp``s.
 """
 
 from __future__ import annotations
@@ -18,8 +19,9 @@ import torch.nn.functional as F
 
 from fp8tpu_torch import linen
 from fp8tpu_torch.kernels.qmatmul import qdq_matmul
+from fp8tpu_torch.numerics import prng
 from fp8tpu_torch.numerics import scaling as _scaling
-from fp8tpu_torch.numerics.formats import FORMATS
+from fp8tpu_torch.numerics.formats import FORMATS, RoundMode
 from fp8tpu_torch.numerics.prng import PRNGKey
 
 from .config import ModuleQuantConfig, TensorQuantConfig
@@ -27,7 +29,7 @@ from .config import ModuleQuantConfig, TensorQuantConfig
 
 def _fmt_args(cfg: Optional[TensorQuantConfig]):
     if cfg is None:
-        return None, None
+        return None, RoundMode.RNE
     return cfg.dtype, cfg.round_mode
 
 
@@ -43,48 +45,71 @@ def _impl_of(cfg_t: Optional[TensorQuantConfig]) -> str:
             else "bitexact")
 
 
-class _NoBackward(torch.autograd.Function):
-    """Forward through ``fn``; the backward is not ported yet."""
+def _seed_of(key: Optional[PRNGKey]) -> int:
+    """The engine seed of a key: ``randint(key, (), 0, 2**31 - 1)``, 0
+    without a key (``fp8tpu/quant/hw_patch.py::_seed_of``)."""
+    return 0 if key is None else prng.randint(key, 0, 2 ** 31 - 1)
+
+
+def _requant(x, cfg_t: Optional[TensorQuantConfig]):
+    """The quantized operand for the backward, re-derived from the saved
+    one: the reference's hooks quantize in place, so its backward consumes
+    quantized values.  RNE reproduces the forward's cast; stochastic
+    configs take an independent draw from key(0), as the JAX package
+    does."""
+    from .fakequant import fake_quant
+    x = x.to(torch.float32)
+    if cfg_t is None:
+        return x
+    return fake_quant(x, cfg_t, prng.key(0) if cfg_t.is_stochastic else None)
+
+
+def _uncast(a, b):
+    return qdq_matmul(a, b, fmt_x=None, fmt_w=None)
+
+
+class _EngineMatmul(torch.autograd.Function):
+    """``qdq(a) @ qdq(b)``, each operand cast per its config (None leaves
+    it uncast); backward ``g @ bq.T`` and ``aq.T @ g`` over the
+    re-quantized saved operands."""
 
     @staticmethod
-    def forward(ctx, fn, a, b):
-        return fn(a, b)
+    def forward(ctx, a, b, seed, cfg_a, cfg_b):
+        ctx.save_for_backward(a, b)
+        ctx.cfgs = cfg_a, cfg_b
+        fmt_a, mode_a = _fmt_args(cfg_a)
+        fmt_b, mode_b = _fmt_args(cfg_b)
+        return qdq_matmul(a, b, fmt_x=fmt_a, mode_x=mode_a, fmt_w=fmt_b,
+                          mode_w=mode_b, scale_x=_operand_scale(a, cfg_a),
+                          scale_w=_operand_scale(b, cfg_b), seed=seed,
+                          impl=_impl_of(cfg_a)).to(a.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(
-            "the backward of hw-patched contractions is ported with FP8 "
-            "training")
+        a, b = ctx.saved_tensors
+        cfg_a, cfg_b = ctx.cfgs
+        gf = g.to(torch.float32)
+        da = _uncast(gf, _requant(b, cfg_b).t()) \
+            if ctx.needs_input_grad[0] else None
+        db = _uncast(_requant(a, cfg_a).t(), gf) \
+            if ctx.needs_input_grad[1] else None
+        return (None if da is None else da.to(a.dtype),
+                None if db is None else db.to(b.dtype), None, None, None)
 
 
-def patched_matmul(a: torch.Tensor, b: torch.Tensor,
-                   cfg: ModuleQuantConfig) -> torch.Tensor:
+def patched_matmul(a: torch.Tensor, b: torch.Tensor, cfg: ModuleQuantConfig,
+                   seed: int = 0) -> torch.Tensor:
     """2-D ``qdq(a) @ qdq(b)`` through the fused engine; both operands use
     the module's ``iact`` role."""
-    fmt, mode = _fmt_args(cfg.iact)
-
-    def fwd(a, b):
-        return qdq_matmul(a, b, fmt_x=fmt, mode_x=mode, fmt_w=fmt,
-                          mode_w=mode, scale_x=_operand_scale(a, cfg.iact),
-                          scale_w=_operand_scale(b, cfg.iact),
-                          impl=_impl_of(cfg.iact)).to(a.dtype)
-
-    return _NoBackward.apply(fwd, a, b)
+    return _EngineMatmul.apply(a, b, seed, cfg.iact, cfg.iact)
 
 
-def patched_linear(x: torch.Tensor, w: torch.Tensor,
-                   cfg: ModuleQuantConfig) -> torch.Tensor:
+def patched_linear(x: torch.Tensor, w: torch.Tensor, cfg: ModuleQuantConfig,
+                   seed: int = 0) -> torch.Tensor:
     """2-D ``qdq(x) @ w`` through the fused engine: the activation is cast
     per ``iact`` in the kernel; the weight passes uncast because
     quantize_params already applied the ``wt`` role."""
-    fmt, mode = _fmt_args(cfg.iact)
-
-    def fwd(x, w):
-        return qdq_matmul(x, w, fmt_x=fmt, mode_x=mode, fmt_w=None,
-                          scale_x=_operand_scale(x, cfg.iact),
-                          impl=_impl_of(cfg.iact)).to(x.dtype)
-
-    return _NoBackward.apply(fwd, x, w)
+    return _EngineMatmul.apply(x, w, seed, cfg.iact, None)
 
 
 def conv_patchable(module) -> bool:
@@ -104,8 +129,8 @@ def engine_conv(x: torch.Tensor, weight: torch.Tensor, bias, strides,
     """NCHW conv2d through the fused engine: im2col (one strided copy,
     features ordered (Cin, KH, KW) as in the JAX package) + one engine GEMM
     against the OIHW weight.  The per-tensor iact scale is taken on the
-    im2col matrix, as the JAX package does."""
-    del key  # stochastic engine modes are ported with FP8 training
+    im2col matrix, as the JAX package does.  The im2col's backward (the
+    col2im sum) comes from autograd."""
     cout, cin, kh, kw = weight.shape
     if isinstance(strides, int):
         strides = (strides, strides)
@@ -119,7 +144,7 @@ def engine_conv(x: torch.Tensor, weight: torch.Tensor, bias, strides,
     oh, ow = patches.shape[2], patches.shape[3]
     col = patches.permute(0, 2, 3, 1, 4, 5).reshape(-1, cin * kh * kw)
     w2d = weight.to(torch.float32).reshape(cout, cin * kh * kw).t()
-    out = patched_linear(col, w2d, cfg)
+    out = patched_linear(col, w2d, cfg, _seed_of(key))
     out = out.reshape(x.shape[0], oh, ow, cout).permute(0, 3, 1, 2)
     out = out.to(x.dtype)
     if bias is not None:
@@ -131,14 +156,15 @@ def engine_matmul(a: torch.Tensor, b: torch.Tensor, cfg: ModuleQuantConfig,
                   key: Optional[PRNGKey] = None) -> torch.Tensor:
     """Shape-polymorphic entry: 2-D direct; batched ``a`` against a 2-D
     ``b`` by flattening; batched x batched one engine GEMM per slice."""
-    del key  # stochastic engine modes are ported with FP8 training
+    seed = _seed_of(key)
     if a.ndim == 2 and b.ndim == 2:
-        return patched_matmul(a, b, cfg)
+        return patched_matmul(a, b, cfg, seed)
     if b.ndim == 2:
-        out = patched_matmul(a.reshape(-1, a.shape[-1]), b, cfg)
+        out = patched_matmul(a.reshape(-1, a.shape[-1]), b, cfg, seed)
         return out.reshape(*a.shape[:-1], b.shape[-1])
     batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
     af = a.expand(*batch, *a.shape[-2:]).reshape(-1, *a.shape[-2:])
     bf = b.expand(*batch, *b.shape[-2:]).reshape(-1, *b.shape[-2:])
-    out = torch.stack([patched_matmul(x, y, cfg) for x, y in zip(af, bf)])
+    out = torch.stack([patched_matmul(x, y, cfg, seed)
+                       for x, y in zip(af, bf)])
     return out.reshape(*batch, *out.shape[-2:])

@@ -58,6 +58,19 @@ def module_key(path: str) -> int:
     return zlib.crc32(path.encode()) & 0x7FFFFFFF
 
 
+def _in_jax_layout(fn, a: torch.Tensor, cfg: Optional[TensorQuantConfig]):
+    """``fn(a)`` for a cast whose result depends on the layout, computed in
+    the JAX package's layout: an NCHW activation is cast as NHWC, so SR
+    bits (keyed by the row-major index) and per-channel, fine-grained or
+    per-block scales land on the same elements.  Per-tensor RNE casts run
+    as they are."""
+    if (a.ndim != 4 or cfg is None or cfg.is_int
+            or (not cfg.is_stochastic
+                and cfg.scaling in ("none", "per-tensor"))):
+        return fn(a)
+    return fn(a.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
 class _GradCast(torch.autograd.Function):
     """Identity forward; quantizes the cotangent on the way back."""
 
@@ -68,7 +81,9 @@ class _GradCast(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return quantize_grad(g, ctx.cfg, ctx.key).to(g.dtype), None, None
+        q = _in_jax_layout(lambda t: quantize_grad(t, ctx.cfg, ctx.key),
+                           g, ctx.cfg)
+        return q.to(g.dtype), None, None
 
 
 def grad_cast(x: torch.Tensor, cfg: Optional[TensorQuantConfig],
@@ -121,6 +136,10 @@ def make_quant_interceptor(
             return None if key is None else fold_in(key,
                                                     module_key(path) ^ tag)
 
+        def cast(a, tcfg, tag):
+            return _in_jax_layout(
+                lambda t: fake_quant(t, tcfg, mod_key(tag)), a, tcfg)
+
         if stats_sink is not None:
             rec = stats_sink.setdefault(path, {"kind": kind.value})
             flat = [a for a in args if _is_float(a)]
@@ -164,12 +183,11 @@ def make_quant_interceptor(
             if patched:
                 ncontr = len(args) - 2
                 args = tuple(
-                    fake_quant(a, cfg.iact, mod_key(1))
+                    cast(a, cfg.iact, 1)
                     if (i < ncontr and _is_float(a)) else a
                     for i, a in enumerate(args))
             else:
-                args = _map_float_args(
-                    lambda a: fake_quant(a, cfg.iact, mod_key(1)), args)
+                args = _map_float_args(lambda a: cast(a, cfg.iact, 1), args)
         if cfg is not None and cfg.igrad is not None:
             args = _map_float_args(
                 lambda a: grad_cast(a, cfg.igrad, mod_key(2)), args)
@@ -201,7 +219,7 @@ def make_quant_interceptor(
             if cfg.ograd is not None:
                 out = grad_cast(out, cfg.ograd, mod_key(3))
             if cfg.oact is not None:
-                out = fake_quant(out, cfg.oact, mod_key(4))
+                out = cast(out, cfg.oact, 4)
         return out
 
     return interceptor
@@ -247,7 +265,9 @@ def quantize_params(
 ) -> Dict[str, torch.Tensor]:
     """Fake-quantize the weights of a state_dict per policy; biases are
     never quantized.  Each weight is cast in its Flax layout, so
-    ``channel_axis`` means what it means in the JAX package."""
+    ``channel_axis`` means what it means in the JAX package.  The casts are
+    straight-through: a loss through the quantized weights reaches the
+    weights passed in."""
     out = {}
     for name, leaf in params.items():
         path, _, leaf_name = name.rpartition(".")
@@ -257,9 +277,8 @@ def quantize_params(
         if (cfg is not None and cfg.wt is not None
                 and leaf_name in _WEIGHT_NAMES):
             k = fold_in(key, module_key(path)) if key is not None else None
-            with torch.no_grad():
-                leaf = from_flax_layout(
-                    fake_quant(to_flax_layout(leaf, kind), cfg.wt, k), kind)
+            leaf = from_flax_layout(
+                fake_quant(to_flax_layout(leaf, kind), cfg.wt, k), kind)
         out[name] = leaf
     return out
 

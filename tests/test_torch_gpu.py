@@ -108,6 +108,101 @@ def test_tiny_ptq_on_the_card_matches_cpu(cuda):
                                atol=2e-3 * np.abs(runs[0]).max())
 
 
+SR, RNE = RoundMode.STOCHASTIC, RoundMode.RNE
+
+
+@pytest.mark.parametrize("impl,fmt_x,mode_x,fmt_w,mode_w,m,k,n", [
+    ("hw", "e4m3", RNE, None, RNE, 300, 200, 70),
+    ("hw", "e5m2", RNE, None, RNE, 300, 200, 70),
+    ("hw", "bfloat16", SR, "e4m3", SR, 130, 77, 33),
+    ("hw", "float16", RNE, "e5m2", SR, 130, 77, 33),
+    ("bitexact", "e4m3", SR, "e3m4", SR, 130, 77, 33),
+    ("bitexact", None, RNE, None, RNE, 300, 200, 70),
+    ("bitexact", None, RNE, None, RNE, 72, 20000, 40),     # split K
+])
+def test_qdq_matmul_training_variants_match_plain(cuda, impl, fmt_x, mode_x,
+                                                  fmt_w, mode_w, m, k, n):
+    g = torch.Generator().manual_seed(2)
+    x = (torch.randn(m, k, generator=g) * 3).to(cuda)
+    w = torch.randn(k, n, generator=g).to(cuda)
+    sx, sw = torch.tensor(2.0), torch.linspace(1.0, 8.0, n)
+    args = (x, w, fmt_x, mode_x, fmt_w, mode_w, sx.to(cuda), sw.to(cuda), 9)
+    before = qmatmul.launches
+    got = qmatmul._launch(*args, impl=impl)
+    assert qmatmul.launches == before + 1
+    want = qmatmul.plain(*args, impl=impl)
+    xq = x if fmt_x is None else qmatmul.cast_operand(
+        x, fmt_x, mode_x, args[6], impl, qmatmul.sr_salt(9, 1, fmt_x, mode_x))
+    wq = w if fmt_w is None else qmatmul.cast_operand(
+        w, fmt_w, mode_w, args[7].reshape(1, -1), impl,
+        qmatmul.sr_salt(9, 2, fmt_w, mode_w))
+    # within the summation-order tolerance of the exact product, as the
+    # plain version is; a split K also against the unsplit kernel
+    from chip_smoke import k2_ratio, k2_reference
+    exact, tol = k2_reference(xq, wq)
+    assert k2_ratio(got, exact, tol) <= 1.0
+    assert k2_ratio(want, exact, tol) <= 1.0
+    if qmatmul.k2_split(m, n, k, qmatmul.sm_count(0))[0] > 1:
+        whole = qmatmul._launch(*args, impl=impl, unsplit=True)
+        assert k2_ratio(whole, exact, tol) <= 1.0
+        assert k2_ratio(got, whole.double(), tol) <= 1.0
+    assert torch.equal(qmatmul._launch(*args, impl=impl), got)  # repeatable
+    if fmt_x is not None:
+        # the in-kernel cast bit for bit: one exact product per output
+        eye = torch.eye(k, device=cuda)
+        xk = qmatmul.qdq_matmul(x, eye, fmt_x, mode_x, None, RNE, args[6],
+                                seed=9, impl=impl)
+        want_x = qmatmul.cast_operand(
+            x.cpu(), fmt_x, mode_x, sx, impl,
+            qmatmul.sr_salt(9, 1, fmt_x, mode_x)) + 0.0
+        np.testing.assert_array_equal(_bits(xk), _bits(want_x))
+
+
+def test_tiny_training_on_the_card_matches_cpu(cuda):
+    """Two hybrid FP8 train steps of the tiny ResNet with hw patching, on
+    the card and on the CPU from the same weights: 5 "hw" and 10 uncast K2
+    launches a step on the card; losses and parameters agree to the f32
+    summation order of the kernels (see tests/test_torch_training.py)."""
+    import dataclasses
+    import torch.nn.functional as F
+    from fp8tpu_torch.numerics import prng
+    from fp8tpu_torch.training import init_train_state, make_train_step
+
+    def xent(apply_fn, params, batch):
+        return F.cross_entropy(apply_fn(params, batch[0]), batch[1])
+
+    g = torch.Generator().manual_seed(3)
+    x, y = torch.randn(4, 3, 8, 8, generator=g), torch.arange(4) % 10
+    runs = []
+    for device in ("cpu", "cuda"):
+        tm = tiny_resnet(device="cpu",
+                         generator=torch.Generator().manual_seed(0))
+        emu = fp8tpu_torch.initialize(tm, training_algo="hybrid",
+                                      exempt_layers=RESNET_EXEMPT,
+                                      device=device)
+        emu = dataclasses.replace(emu, policy=emu.policy.with_hw_patching())
+        tm.train()
+        params = dict(tm.named_parameters())
+        state = init_train_state(torch.optim.SGD(params.values(), lr=0.1,
+                                                 momentum=0.9))
+        step = make_train_step(emu, xent)
+        losses = []
+        for i in range(2):
+            k2 = dict(qmatmul.k2_launches)
+            params, state, loss = step(params, state,
+                                       (x.to(device), y.to(device)),
+                                       prng.fold_in(prng.key(1), i))
+            if device == "cuda":
+                assert qmatmul.k2_launches["hw"] - k2["hw"] == 5
+                assert qmatmul.k2_launches["uncast"] - k2["uncast"] == 10
+            losses.append(float(loss))
+        runs.append((losses, {k: p.detach().cpu() for k, p in params.items()}))
+    np.testing.assert_allclose(runs[1][0], runs[0][0], rtol=1e-5)
+    for k, p in runs[0][1].items():
+        np.testing.assert_allclose(runs[1][1][k].numpy(), p.numpy(), rtol=0,
+                                   atol=2e-3, err_msg=k)
+
+
 def _product_bound(x, w_abs, col_scale, want):
     # two f32 sums of K exact products in different orders, then (bf16
     # results) one rounding that may land a bf16 step apart

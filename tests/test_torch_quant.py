@@ -125,6 +125,11 @@ FQ_CASES = [
     dict(dtype="e4m3", scheme="rne", scaling="per-tensor", cast_impl="hw"),
     dict(dtype="bfloat16", scheme="stochastic"),
     dict(dtype="e4m3", scheme="stochastic", scaling="per-channel"),
+    dict(dtype="e5m2", scheme="stochastic", cast_impl="hw"),
+    dict(dtype="e4m3", scheme="stochastic", scaling="per-tensor",
+         cast_impl="hw"),
+    dict(dtype="bfloat16", scheme="stochastic", cast_impl="hw"),
+    dict(dtype="float16", scheme="stochastic", cast_impl="hw"),
     dict(dtype="fp4", scheme="nearest", scaling="per-tensor"),
     dict(dtype="int8"),
     dict(dtype="int4"),
@@ -203,12 +208,85 @@ def test_qdq_matmul_matches_jax_interpret(fmt_x, fmt_w):
     assert np.all(np.abs(t - j) <= summation_bound(xq, wq))
 
 
+# (impl, fmt_x, mode_x, fmt_w, mode_w): the "hw" route in the kernel (RNE:
+# the Pallas kernel in interpret mode; SR: the JAX package's CPU route),
+# bitexact SR, and the "hw" route outside the kernel (both operands of at
+# most 7 mantissa bits), where float16 and e3m4 take the bit pipeline.
+SR, RNE = RoundMode.STOCHASTIC, RoundMode.RNE
+HW_CASES = [
+    ("hw", "e4m3", RNE, None, RNE),
+    ("hw", "e5m2", SR, None, RNE),
+    ("hw", "float16", RNE, "bfloat16", SR),
+    ("bitexact", "e4m3", SR, "e5m2", SR),
+    ("hw", "e4m3", RNE, "e4m3", RNE),
+    ("hw", "e5m2", SR, "e3m4", RNE),
+]
+
+
+@pytest.mark.parametrize("impl,fmt_x,mode_x,fmt_w,mode_w", HW_CASES)
+def test_qdq_matmul_hw_and_sr_match_jax(impl, fmt_x, mode_x, fmt_w, mode_w):
+    """Products within the f32 summation-order bound of the JAX package's,
+    and x's in-kernel cast bit-equal to its: against an identity weight
+    each output is one exact product (plus exact zeros, so -0 reads +0)."""
+    rng = np.random.default_rng(11)
+    x = (rng.standard_normal((37, 70)) * 4).astype(np.float32)
+    w = rng.standard_normal((70, 45)).astype(np.float32)
+    sx = np.float32(448.0 / np.abs(x).max())
+    sw = (448.0 / np.abs(w).max(0)).astype(np.float32)
+    jm = {"hw": "hw", "bitexact": "bitexact"}[impl]
+
+    def jax_mm(x, w, fmt_w, sw):
+        return np.asarray(j_qdq_matmul(
+            jnp.asarray(x), jnp.asarray(w), fmt_x, JRoundMode(mode_x.value),
+            fmt_w, JRoundMode(mode_w.value), sx, sw, seed=12345,
+            interpret=True, impl=jm))
+
+    def port_mm(x, w, fmt_w, sw):
+        return qmatmul.qdq_matmul(
+            torch.from_numpy(x), torch.from_numpy(w), fmt_x, mode_x, fmt_w,
+            mode_w, torch.tensor(sx), torch.from_numpy(np.asarray(sw)),
+            seed=12345, impl=impl).numpy()
+
+    j, t = jax_mm(x, w, fmt_w, sw), port_mm(x, w, fmt_w, sw)
+    xq = port_mm(x, np.eye(70, dtype=np.float32), None, np.float32(1.0))
+    want_xq = jax_mm(x, np.eye(70, dtype=np.float32), None, np.float32(1.0))
+    np.testing.assert_array_equal(xq.view(np.uint32),
+                                  want_xq.view(np.uint32))
+    wq = w if fmt_w is None else np.asarray(
+        qmatmul.cast_operand(torch.from_numpy(w), fmt_w, mode_w,
+                             torch.from_numpy(sw).reshape(1, -1), impl,
+                             qmatmul.sr_salt(12345, 2, fmt_w, mode_w)))
+    assert np.all(np.abs(t - j) <= 2 * summation_bound(xq, wq))
+
+
 def test_qdq_matmul_unported_modes_raise():
+    """Every impl of the JAX kernel is ported: "hw" and SR operands run;
+    an unknown impl and mismatched shapes raise."""
     x, w = torch.ones(4, 4), torch.ones(4, 4)
-    with pytest.raises(NotImplementedError):
-        qmatmul.qdq_matmul(x, w, impl="hw")
-    with pytest.raises(NotImplementedError):
-        qmatmul.qdq_matmul(x, w, mode_x=RoundMode.STOCHASTIC)
+    assert torch.equal(qmatmul.qdq_matmul(x, w, impl="hw"),
+                       torch.full((4, 4), 4.0))
+    assert torch.equal(qmatmul.qdq_matmul(x, w, mode_x=RoundMode.STOCHASTIC),
+                       torch.full((4, 4), 4.0))
+    with pytest.raises(ValueError):
+        qmatmul.qdq_matmul(x, w, impl="fast")
+    with pytest.raises(ValueError):
+        qmatmul.qdq_matmul(x, torch.ones(3, 4))
+
+
+@pytest.mark.parametrize("m,n,k,sms,unsplit,want", [
+    (576, 64, 100352, 132, False, (29, 3472)),  # ResNet-50 stage-1 3x3 dW
+    (576, 64, 100352, 132, True, (1, 100352)),  # the same, kept whole
+    (72, 40, 20000, 132, False, (38, 528)),
+    (100352, 64, 576, 132, False, (1, 576)),    # forward: tiles fill the card
+    (64, 64, 1000, 132, False, (1, 1008)),      # K too short to split
+    (4160, 4096, 8192, 8192, False, (1, 8192)),  # more tiles than counters
+])
+def test_k2_split_plan(m, n, k, sms, unsplit, want):
+    """K2's split of K (one plan with K3's, other caps): about two blocks
+    per SM, at most 64 ways, at least 512 rows a split."""
+    splits, kper = qmatmul.k2_split(m, n, k, sms, unsplit)
+    assert (splits, kper) == want
+    assert kper % 16 == 0 and (splits - 1) * kper < k <= splits * kper
 
 
 def _engine_cfgs():
@@ -305,11 +383,86 @@ def test_quantized_apply_through_op_wrappers(patched):
 
 
 def test_engine_backward_not_ported_yet():
+    """The engine's backward is ported: two uncast GEMMs over the
+    re-quantized operands, straight-through with respect to the casts."""
     _, tcfg = _engine_cfgs()
     a = torch.randn(4, 8, requires_grad=True)
-    out = thw.engine_matmul(a, torch.randn(8, 3), tcfg)
-    with pytest.raises(NotImplementedError):
-        out.sum().backward()
+    b = torch.randn(8, 3)
+    out = thw.engine_matmul(a, b, tcfg)
+    g = torch.randn(4, 3)
+    out.backward(g)
+    bq = tfq.fake_quant(b, tcfg.iact)
+    torch.testing.assert_close(a.grad, g @ bq.t(), rtol=1e-6, atol=1e-6)
+
+
+def _grad_cfgs(scheme, dtype, impl):
+    kw = dict(scaling="per-tensor", cast_impl=impl)
+    return tuple(c.ModuleQuantConfig(iact=c.TensorQuantConfig(dtype, scheme,
+                                                              **kw),
+                                     patch_ops=True)
+                 for c in (jconfig, tconfig))
+
+
+GRAD_CFGS = [("rne", "e4m3", "hw"), ("stochastic", "e5m2", "hw"),
+             ("rne", "e4m3", "bitexact")]
+
+
+@pytest.mark.parametrize("scheme,dtype,impl", GRAD_CFGS)
+@pytest.mark.parametrize("op", ["linear", "matmul"])
+def test_engine_gradients_match_jax_grad(op, scheme, dtype, impl):
+    """d/dx and d/dw of patched_linear / patched_matmul against jax.grad
+    through the JAX custom_vjp: the saved operands re-quantize to the same
+    bits (SR from key(0) on both sides), so the two backward GEMMs differ
+    by summation order only."""
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((20, 24)).astype(np.float32)
+    w = rng.standard_normal((24, 9)).astype(np.float32)
+    r = rng.standard_normal((20, 9)).astype(np.float32)
+    jcfg, tcfg = _grad_cfgs(scheme, dtype, impl)
+    jfn = jhw.patched_linear if op == "linear" else jhw.patched_matmul
+    tfn = thw.patched_linear if op == "linear" else thw.patched_matmul
+    seed = prng.randint(prng.key(3), 0, 2 ** 31 - 1)
+    jgx, jgw = jax.grad(lambda a, b: jnp.sum(jfn(
+        a, b, jnp.int32(seed), jcfg, True) * r), argnums=(0, 1))(
+            jnp.asarray(x), jnp.asarray(w))
+    tx = torch.from_numpy(x).requires_grad_(True)
+    tw_ = torch.from_numpy(w).requires_grad_(True)
+    (tfn(tx, tw_, tcfg, seed) * torch.from_numpy(r)).sum().backward()
+    xq = tfq.fake_quant(torch.from_numpy(x), tcfg.iact, prng.key(0)).numpy()
+    wq = w if op == "linear" else tfq.fake_quant(
+        torch.from_numpy(w), tcfg.iact, prng.key(0)).numpy()
+    assert np.all(np.abs(tx.grad.numpy() - np.asarray(jgx))
+                  <= summation_bound(r, wq.T))
+    assert np.all(np.abs(tw_.grad.numpy() - np.asarray(jgw))
+                  <= summation_bound(xq.T, r))
+
+
+@pytest.mark.parametrize("strides,padding", [(1, [(1, 1), (1, 1)]),
+                                             (2, "SAME")])
+def test_engine_conv_gradients_match_jax_grad(strides, padding):
+    """Through im2col: the port's col2im is autograd's unfold backward, the
+    JAX package's the VJP of conv_general_dilated_patches."""
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((2, 9, 9, 4)).astype(np.float32)
+    k = (rng.standard_normal((3, 3, 4, 6)) / 3).astype(np.float32)
+    jcfg, tcfg = _grad_cfgs("rne", "e4m3", "hw")
+    out_hw = 9 // strides + (9 % strides > 0) if strides > 1 else 9
+    r = rng.standard_normal((2, out_hw, out_hw, 6)).astype(np.float32)
+    jgx, jgk = jax.grad(lambda a, b: jnp.sum(jhw.engine_conv(
+        a, b, None, strides, padding, jcfg, interpret=True) * r),
+        argnums=(0, 1))(jnp.asarray(x), jnp.asarray(k))
+    tx = torch.from_numpy(x.transpose(0, 3, 1, 2).copy()).requires_grad_(True)
+    tk = torch.from_numpy(k.transpose(3, 2, 0, 1).copy()).requires_grad_(True)
+    out = thw.engine_conv(tx, tk, None, strides, padding, tcfg)
+    (out * torch.from_numpy(r.transpose(0, 3, 1, 2).copy())).sum().backward()
+    gx = tx.grad.numpy().transpose(0, 2, 3, 1)
+    gk = tk.grad.numpy().transpose(2, 3, 1, 0)
+    # sums of at most 6 * 9 products (dcol) then 9 overlapping patches,
+    # and of 2 * 81 products (dW), in another order than XLA's
+    np.testing.assert_allclose(gx, np.asarray(jgx), rtol=1e-5,
+                               atol=1e-5 * float(np.abs(jgx).max()))
+    np.testing.assert_allclose(gk, np.asarray(jgk), rtol=1e-5,
+                               atol=1e-5 * float(np.abs(jgk).max()))
 
 
 # -- module table, weights, folding, calibration ---------------------------------

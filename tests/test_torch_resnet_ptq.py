@@ -157,7 +157,9 @@ def test_port_imports_nothing_of_jax_or_fp8tpu():
             "fp8tpu_torch/serve/__init__.py",
             "fp8tpu_torch/serve/kv_cache.py", "fp8tpu_torch/serve/model.py",
             "fp8tpu_torch/serve/engine.py",
-            "fp8tpu_torch/serve/server.py"} <= names
+            "fp8tpu_torch/serve/server.py",
+            "fp8tpu_torch/training/__init__.py",
+            "fp8tpu_torch/training/mpt.py"} <= names
     for path in files:
         bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
         assert not bad, f"{path.relative_to(REPO)} imports {bad}"

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the fp8tpu_torch port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py [--phases build,k1,k2,k3,k4,k5,k6,main,train,
-                                    serve,serve_paged,time]
+    python3 chip_smoke.py [--phases build,k1,k2,k3,k4,k5,k6,t1,t2,main,
+                                    train,serve,serve_paged,time]
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -43,6 +43,21 @@ Phases, each printing its own lines; any failure exits non-zero:
           types, aligned and unaligned rows, wrapping and negative indices,
           and one launch captured in a CUDA graph and replayed with a
           changed device index.
+   t1     the convert study T1 through its entry point
+          (``fp8tpu_torch.tools.kexp_convert``) at the tool's shapes: 512
+          tiles of 512 x 128, 8 reps, the tool's seven modes and the full
+          block with the hardware convert, each timed warm (one copy
+          re-read) and cold (8 copies); the 256 e4m3 bytes through the
+          kernel's converts, bit for bit; each mode's kernel against the
+          plain version (fp8 conv modes bit-equal, the rest and every
+          tile's fold within the f64 reference's random-walk bound), a
+          second launch and the cold copies bit-identical to the first;
+          launches counted, no plain version called.
+   t2     the convert study T2 through ``fp8tpu_torch.tools.
+          bench_fp8_linear`` at the tool's shape (64 x 4096 @ 4096 x 11008,
+          64 reps): the three e4m3 converts bit-identical and right on all
+          256 bytes, every mode against the plain version within K3's
+          bound, warm and cold and a second launch bit-identical.
 5. main   ResNet-50 (full width, 1000 classes, random weights from a
           seed), batch 32 at 224x224: BN statistics from 2 train-mode
           passes, then quantize_model(e4m3, hw patching, BN folding,
@@ -161,15 +176,6 @@ class PhaseError(Exception):
     pass
 
 
-def gpu_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else \
-        "nvidia-smi gave no output"
-
-
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     import torch
     for _ in range(warmup):
@@ -183,31 +189,6 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def graph_ms(fn, iters: int = 16, replays: int = 5) -> float:
-    """Device time of one call of ``fn``: ``iters`` calls are captured in
-    one CUDA graph and the graph is replayed, so the host's time between
-    launches (Python, allocator, wrapper) is not in the number.  For
-    launches of a few microseconds, where an event-timed loop measures the
-    host."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (iters * replays)
 
 
 def bits_equal(a, b) -> int:
@@ -961,6 +942,181 @@ def phase_k4(record):
           f"changed table and lengths: {'ok' if graph_ok else 'FAIL'}")
     if not (all(r["ok"] for r in rows) and repeat_ok and graph_ok):
         raise PhaseError("K4 disagrees with its plain version")
+
+# -- phases t1, t2: the convert studies ---------------------------------------
+
+def _study_row(name, replaces, source, mode, launches, err, ms, warm_ms,
+               plain_ms, bound, bound_by, library_ms):
+    return {"name": f"{name}[{mode}]", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms}
+
+
+def phase_t1(record):
+    """T1 at the tool's shapes through its entry point, then each mode's
+    kernel against the plain version and the f64 reference."""
+    import torch
+    from fp8tpu_torch.kernels import kexp_convert as t1
+    from fp8tpu_torch.tools import kexp_convert as tool
+
+    t1.reset_launches()
+    with _Counting(t1, "stream_plain", forbid=True):
+        res = tool.run("cuda")
+    counts = dict(t1.mode_launches)
+    torch.cuda.synchronize()
+    problems = []
+    for m in ("conv-bits", "conv-astype"):
+        if res[f"{m} mismatches"]:
+            problems.append(f"{m}: {res[m + ' mismatches']} of 256 e4m3 "
+                            "bytes convert wrongly")
+    if any(counts[m] < 1 for m in t1.MODES):
+        problems.append(f"a mode never launched its kernel: {counts}")
+
+    q, k8, kb = tool.make_inputs(tool.B * tool.KV, "cuda")
+    reps, rows, kernels = 8, [], []
+    for mode in t1.MODES:
+        arr = kb if mode in t1.BF16_MODES else k8
+        r = res["modes"][mode]
+        warm, fold_w = r["out"], r["fold"]
+        again = t1.stream(q, arr, mode, reps=reps)
+        cold = t1.stream(q, arr, mode, reps=reps, cold=True)
+        want, want_fold = t1.stream_plain(q, arr, mode, reps=reps)
+        exact, tol, fold_exact, fold_tol = t1.error_bound(q, arr, mode, reps)
+        row = {"mode": mode,
+               "repeat_bits": bits_equal(again[0], warm)
+               + bits_equal(again[1], fold_w),
+               "cold_bits": bits_equal(cold[0], warm)
+               + bits_equal(cold[1], fold_w),
+               "max_abs_err": float((warm - want).abs().max()),
+               "err_over_tol": k2_ratio(warm, exact, tol),
+               "plain_err_over_tol": k2_ratio(want, exact, tol),
+               "fold_err_over_tol": float(
+                   ((fold_w.double() - fold_exact).abs() / fold_tol).max())}
+        if mode in ("conv-astype", "conv-bits"):
+            row["plain_bits"] = bits_equal(warm, want) + bits_equal(fold_w,
+                                                                    want_fold)
+            ok = row["plain_bits"] == 0
+        else:
+            ok = row["err_over_tol"] <= 1.0 and row["fold_err_over_tol"] <= 1.0
+        ok = ok and row["repeat_bits"] == 0 and row["cold_bits"] == 0
+        row["ok"] = ok
+        rows.append(row)
+        print(f"t1 {mode}: |kernel - plain| {row['max_abs_err']:.3e}, "
+              f"err/tol kernel {row['err_over_tol']:.3e} plain "
+              f"{row['plain_err_over_tol']:.3e}, fold err/tol "
+              f"{row['fold_err_over_tol']:.3e}, bits differing: plain "
+              f"{row.get('plain_bits', '-')}, repeat {row['repeat_bits']}, "
+              f"warm vs cold {row['cold_bits']} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            problems.append(f"T1 {mode} disagrees (see its line)")
+
+        plain_ms = cuda_ms(lambda: t1.stream_plain(q, arr, mode, reps=1),
+                           iters=3, warmup=1)
+        # the conv modes read no q
+        nbytes = (r["k_bytes"] + 4 * t1.G * t1.D + 4 * arr.shape[0]
+                  + (0 if mode.startswith("conv") else r["q_bytes"]))
+        flops = 0 if mode.startswith("conv") else (
+            2.0 * t1.G * t1.S * t1.D * arr.shape[0]
+            * (2 if mode.startswith("full") else 1))
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_TC_FLOPS * 1e3
+        row.update(warm_ms=r["warm_ms"], cold_ms=r["cold_ms"],
+                   plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops))
+        print(f"time t1 {mode}: warm {r['warm_ms']:.5f} ms, cold "
+              f"{r['cold_ms']:.5f} ms a rep, plain {plain_ms:.4f} ms, bound "
+              f"{max(t_bytes, t_ops):.5f} ms (bytes), no PyTorch call computes "
+              f"this; {counts[mode]} launches")
+        kernels.append(_study_row(
+            "kexp_convert", "tools/kexp_convert.py:91",
+            "fp8tpu_torch/kernels/csrc/kexp_convert.cu", mode, counts[mode],
+            row["max_abs_err"], r["cold_ms"], r["warm_ms"], plain_ms,
+            max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", None))
+    record["t1"] = {"rows": rows, "launches": counts}
+    if problems:
+        raise PhaseError("; ".join(problems))
+    return kernels
+
+
+def phase_t2(record):
+    """T2 at the tool's shapes through its entry point, then each mode's
+    kernel against the plain version."""
+    import torch
+    from fp8tpu_torch.kernels import fp8_linear_study as t2
+    from fp8tpu_torch.tools import bench_fp8_linear as tool
+
+    t2.reset_launches()
+    with _Counting(t2, "linear_plain", forbid=True):
+        res = tool.run("cuda")
+    counts = dict(t2.mode_launches)
+    torch.cuda.synchronize()
+    problems = []
+    for m in ("pl-astype", "pl-bits", "pl-magic"):
+        if res[f"{m} mismatches"]:
+            problems.append(f"{m}: {res[m + ' mismatches']} of 256 e4m3 "
+                            "bytes convert wrongly")
+    for m in ("pl-bits", "pl-magic"):
+        if res["modes"][m]["vs_astype"]:
+            problems.append(f"{m} is not bit-identical to pl-astype")
+    if any(counts[m] < 1 for m in t2.MODES):
+        problems.append(f"a mode never launched its kernel: {counts}")
+
+    x, w8, wb = tool.make_inputs(tool.K, tool.N, "cuda")
+    m_, k_, n_ = x.shape[0], tool.K, tool.N
+    reps, rows, kernels = 64, [], []
+    for mode in t2.MODES:
+        w = wb if mode == "pl-bf16" else w8
+        got = res["modes"][mode]["out"]
+        again = t2.linear(x, w, mode, reps=reps)
+        cold = t2.linear(x, w, mode, reps=reps, cold=True)
+        want = t2.linear_plain(x, w, mode)
+        w_abs = t2.weight_values(w, mode).float().abs()
+        tol = gemm_tolerance(x, w_abs, 1.0, want, torch.bfloat16)
+        case = []
+        ok = _gemm_case(case, f"t2 {mode}", got, want, tol)
+        row = dict(case[0], mode=mode, repeat_bits=bits_equal(again, got),
+                   cold_bits=bits_equal(cold, got))
+        ok = ok and row["repeat_bits"] == 0 and row["cold_bits"] == 0
+        row["ok"] = ok
+        rows.append(row)
+        print(f"t2 {mode}: |kernel - plain| {row['max_abs_err']:.3e}, "
+              f"err/bound {row['max_err_over_bound']:.3e}, bits differing: "
+              f"repeat {row['repeat_bits']}, warm vs cold {row['cold_bits']} "
+              f"-> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            problems.append(f"T2 {mode} disagrees (see its line)")
+        del again, cold
+
+        plain_ms = cuda_ms(lambda: t2.linear_plain(x, w, mode), iters=3,
+                           warmup=1)
+        nbytes = w.numel() * w.element_size() + 2 * (m_ * k_ + m_ * n_)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2.0 * m_ * n_ * k_ / BF16_TC_FLOPS * 1e3
+        library = res["xla-bf16_ms"] if mode == "pl-bf16" else None
+        r = res["modes"][mode]
+        row.update(warm_ms=r["warm_ms"], cold_ms=r["cold_ms"],
+                   plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                   library_ms=library)
+        print(f"time t2 {mode}: warm {r['warm_ms']:.5f} ms, cold "
+              f"{r['cold_ms']:.5f} ms a pass, plain {plain_ms:.4f} ms, bound "
+              f"{max(t_bytes, t_ops):.5f} ms (bytes), library "
+              f"{'x @ wb ' + format(library, '.5f') + ' ms' if library else 'none'}"
+              f"; {counts[mode]} launches")
+        kernels.append(_study_row(
+            "fp8_linear_study", "tools/bench_pallas_linear.py:108",
+            "fp8tpu_torch/kernels/csrc/fp8_linear_study.cu", mode,
+            counts[mode], row["max_abs_err"], r["cold_ms"], r["warm_ms"],
+            plain_ms, max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", library))
+    record["t2"] = {"rows": rows, "launches": counts,
+                    "xla_fp8_ms": res["xla-fp8_ms"],
+                    "xla_bf16_ms": res["xla-bf16_ms"]}
+    torch.cuda.empty_cache()
+    if problems:
+        raise PhaseError("; ".join(problems))
+    return kernels
+
 
 # -- phase 4 ----------------------------------------------------------------
 
@@ -2231,12 +2387,13 @@ def phase_time_train(record, launches):
 def phase_time_serve(record, launches):
     """K3, K5 and K6 at the serving path's shapes: kernel, plain version,
     bound and a PyTorch yardstick.  Kernel and yardstick times are device
-    times (graph_ms); the plain versions are timed eagerly.  Weights rotate
+    times (device_ms); the plain versions are timed eagerly.  Weights rotate
     over the layers of the artifact (16 x 45 MB for the e4m3 gate
     projection, 4 x 22.5 MB for the int4 one), so a launch finds its
     weights in device memory, not in the 50 MB L2."""
     import torch
     from fp8tpu_torch.kernels import inplace, int4_matmul, qmatmul
+    from fp8tpu_torch.tools import device_ms
 
     params, params4 = STATE["e4m3"], STATE["int4"]
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -2270,16 +2427,16 @@ def phase_time_serve(record, launches):
             got = qmatmul.dequant_matmul(x, w_stack[0], s)
             want = qmatmul.dequant_matmul_plain(x, w_stack[0], s)
             err = float((got.float() - want.float()).abs().max())
-            t_k = graph_ms(rotating(
+            t_k = device_ms(rotating(
                 lambda w: qmatmul.dequant_matmul(x, w, s), w_stack))
             t_call = cuda_ms(rotating(
                 lambda w: qmatmul.dequant_matmul(x, w, s), w_stack), iters=32)
             t_p = cuda_ms(rotating(
                 lambda w: qmatmul.dequant_matmul_plain(x, w, s), w_stack),
                 iters=4, warmup=1)
-            t_conv = graph_ms(rotating(
+            t_conv = device_ms(rotating(
                 lambda w: torch.matmul(x, w.to(torch.bfloat16)), w_stack))
-            t_pre = graph_ms(rotating(lambda w: torch.matmul(x, w), w_bf16))
+            t_pre = device_ms(rotating(lambda w: torch.matmul(x, w), w_bf16))
             b, by = bound(m, k, n, float(k) * n, 4.0 * n)
             rows.append({"kernel": "K3", "shape": label, "m": m, "k": k,
                          "n": n, "ms": t_k, "eager_call_ms": t_call,
@@ -2320,12 +2477,12 @@ def phase_time_serve(record, launches):
             got = int4_matmul.int4_matmul(x, w_stack[0], s, group)
             want = int4_matmul.int4_matmul_plain(x, w_stack[0], s, group)
             err = float((got.float() - want.float()).abs().max())
-            t_k = graph_ms(rotating(
+            t_k = device_ms(rotating(
                 lambda w: int4_matmul.int4_matmul(x, w, s, group), w_stack))
             t_p = cuda_ms(rotating(
                 lambda w: int4_matmul.int4_matmul_plain(x, w, s, group),
                 w_stack), iters=4, warmup=1)
-            t_pre = graph_ms(rotating(lambda w: torch.matmul(x, w), w_bf16))
+            t_pre = device_ms(rotating(lambda w: torch.matmul(x, w), w_bf16))
             b, by = bound(m, k, n, k * n / 2.0, 4.0 * s.numel())
             rows5.append({"kernel": "K5", "shape": label, "m": m, "k": k,
                           "n": n, "group": group, "ms": t_k, "plain_ms": t_p,
@@ -2368,9 +2525,9 @@ def phase_time_serve(record, launches):
             inplace.dyn_store(buf, slab, idx)
             inplace.dyn_store_plain(ref, slab, idx)
             err = float((buf.float() - ref.float()).abs().max())
-            t_k = graph_ms(lambda: inplace.dyn_store(buf, slab, idx))
-            t_p = graph_ms(lambda: inplace.dyn_store_plain(ref, slab, idx))
-            t_l = graph_ms(lambda: buf.index_copy_(0, row, slab[None]))
+            t_k = device_ms(lambda: inplace.dyn_store(buf, slab, idx))
+            t_p = device_ms(lambda: inplace.dyn_store_plain(ref, slab, idx))
+            t_l = device_ms(lambda: buf.index_copy_(0, row, slab[None]))
             nbytes = slab.numel() * slab.element_size()
             b = 2.0 * nbytes / HBM_BYTES_PER_S * 1e3
             rows6.append({"kernel": "K6", "what": f"{label} {what}",
@@ -2407,6 +2564,7 @@ def phase_time_paged(record, launches):
     snapshot of the layer's pages upcast to bf16."""
     import torch
     from fp8tpu_torch.kernels import paged_attention as k4
+    from fp8tpu_torch.tools import device_ms
 
     cfg = serve_config()
     L, KV, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
@@ -2471,9 +2629,9 @@ def phase_time_paged(record, launches):
         lib = library()
         lib_err = float((lib[0].reshape(batch, KV * G, D) - want[0]
                          ).abs().max())
-        t_k = graph_ms(kern)
+        t_k = device_ms(kern)
         t_p = cuda_ms(plain, iters=3, warmup=1)
-        t_l = graph_ms(library)
+        t_l = device_ms(library)
         # each input read once, each output written once, for THIS run's
         # lengths: the valid tokens' K and V rows and scales of one head
         # vector each, the table, the lengths, q, and the three outputs
@@ -2512,8 +2670,8 @@ def phase_time_paged(record, launches):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="build,k1,k2,k3,k4,k5,k6,main,train,serve,"
-                            "serve_paged,time")
+                    default="build,k1,k2,k3,k4,k5,k6,t1,t2,main,train,"
+                            "serve,serve_paged,time")
     ap.add_argument("--out", default="chip_smoke_out/chip_smoke.json")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
@@ -2530,12 +2688,13 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
 
-    card = gpu_line()
+    from fp8tpu_torch.tools import card_line
+    card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
     record = {"card": card, "phases": {}}
     launches = serve_launches = paged_launches = train_launches = None
-    kernels = []
+    kernels, study_kernels = [], []
     ok = True
     for phase in phases:
         t0 = time.perf_counter()
@@ -2554,6 +2713,10 @@ def main(argv=None) -> int:
                 phase_k5(record)
             elif phase == "k6":
                 phase_k6(record)
+            elif phase == "t1":
+                study_kernels += phase_t1(record)
+            elif phase == "t2":
+                study_kernels += phase_t2(record)
             elif phase == "main":
                 launches = phase_main(record, BATCH)
             elif phase == "train":
@@ -2589,8 +2752,8 @@ def main(argv=None) -> int:
     if not ok:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    if kernels:
-        print(json.dumps({"kernels": kernels}))
+    if kernels or study_kernels:
+        print(json.dumps({"kernels": kernels + study_kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

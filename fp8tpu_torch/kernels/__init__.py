@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels for Hopper (``csrc/``), their wrappers, launch
 counts and plain torch versions: K1 ``cast_kernel``, K2 and K3 ``qmatmul``
-(fused fake-quant GEMM, serving dequant-GEMM), K5 ``int4_matmul`` and K6
-``inplace``.  Nothing is built or loaded at import; a kernel is built at
-its first launch."""
+(fused fake-quant GEMM, serving dequant-GEMM), K4 ``paged_attention``, K5
+``int4_matmul``, K6 ``inplace``, and the convert studies T1
+``kexp_convert`` and T2 ``fp8_linear_study``.  Nothing is built or loaded
+at import; a kernel is built at its first launch."""

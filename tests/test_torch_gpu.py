@@ -12,8 +12,9 @@ import pytest
 import torch
 
 import fp8tpu_torch
-from fp8tpu_torch.kernels import (cast_kernel, inplace, int4_matmul,
-                                  paged_attention, qmatmul)
+from fp8tpu_torch.kernels import (cast_kernel, fp8_linear_study, inplace,
+                                  int4_matmul, kexp_convert, paged_attention,
+                                  qmatmul)
 from fp8tpu_torch.models import RESNET_EXEMPT, tiny_config, tiny_resnet
 from fp8tpu_torch.numerics import cast as tcast
 from fp8tpu_torch.numerics.cast import cast_array
@@ -418,3 +419,104 @@ def test_sampling_requests_on_the_card(cuda):
     assert runs[0] == runs[1]
     assert [len(runs[0][i]) for i in range(3)] == [6, 4, 5]
     assert all(0 <= t < 128 for v in runs[0].values() for t in v)
+
+
+# -- the convert studies T1 and T2 ---------------------------------------------
+
+def _t1_case(bkv, seed=3):
+    g = torch.Generator().manual_seed(seed)
+    raw = torch.randn(bkv, 1, kexp_convert.S, kexp_convert.D, generator=g)
+    q = torch.randn(bkv, 1, kexp_convert.G, kexp_convert.D,
+                    generator=g).to(torch.bfloat16)
+    return q, raw.to(torch.float8_e4m3fn), raw.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("mode", kexp_convert.MODES)
+def test_kexp_convert_kernel_matches_plain(cuda, mode):
+    q, k8, kb = _t1_case(5)
+    k = (kb if mode in kexp_convert.BF16_MODES else k8).to(cuda)
+    q = q.to(cuda)
+    before = kexp_convert.launches
+    out, fold = kexp_convert.stream(q, k, mode, reps=3)
+    assert kexp_convert.launches == before + 2     # the stream and its merge
+    want, want_fold = kexp_convert.stream_plain(q.cpu(), k.cpu(), mode, reps=3)
+    out, fold = out.cpu(), fold.cpu()
+    assert fold.shape == (3, 5)
+    if mode in ("conv-astype", "conv-bits"):
+        np.testing.assert_array_equal(_bits(out), _bits(want))
+        np.testing.assert_array_equal(_bits(fold), _bits(want_fold))
+    else:
+        # random-walk bounds on the f64 values: a dropped tile, or one
+        # warp's share of a tile's fold, fails them
+        exact, tol, fold_exact, fold_tol = kexp_convert.error_bound(
+            q.cpu(), k.cpu(), mode, 3)
+        assert bool(((out.double() - exact).abs() <= tol).all())
+        assert bool(((fold.double() - fold_exact).abs() <= fold_tol).all())
+    # a second launch and the cold copies give the same bits
+    again = kexp_convert.stream(q, k, mode, reps=3)
+    cold = kexp_convert.stream(q, k, mode, reps=3, cold=True)
+    for a, b in ((again, (out, fold)), (cold, (out, fold))):
+        np.testing.assert_array_equal(_bits(a[0]), _bits(b[0]))
+        np.testing.assert_array_equal(_bits(a[1]), _bits(b[1]))
+
+
+@pytest.mark.parametrize("mode", ["conv-bits", "conv-astype"])
+def test_kexp_convert_kernel_converts_every_e4m3_byte(cuda, mode):
+    k = torch.zeros(1, 1, 512, 128, dtype=torch.uint8)
+    k[0, 0, :2] = torch.arange(256, dtype=torch.int32).reshape(2, 128).to(
+        torch.uint8)
+    q = torch.zeros(1, 1, 8, 128, dtype=torch.bfloat16)
+    out, _ = kexp_convert.stream(q.to(cuda), k.to(cuda), mode, reps=1)
+    got = out[:2].reshape(-1).cpu().numpy()
+    want = kexp_convert.convert(k[0, 0, :2].reshape(-1), "astype"
+                                ).float().numpy()
+    nan = np.isnan(want)
+    assert (np.isnan(got) == nan).all()
+    np.testing.assert_array_equal(got[~nan], want[~nan])
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 512, 512), (8, 256, 272)])
+def test_fp8_linear_study_kernel_matches_plain(cuda, m, k, n):
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(m, k, generator=g).to(torch.bfloat16).to(cuda)
+    wf = torch.randn(k, n, generator=g) * 0.02
+    outs = {}
+    for mode in fp8_linear_study.MODES:
+        w = wf.to(torch.bfloat16 if mode == "pl-bf16"
+                  else torch.float8_e4m3fn).to(cuda)
+        before = fp8_linear_study.launches
+        got = fp8_linear_study.linear(x, w, mode, reps=3)
+        assert fp8_linear_study.launches == before + 3
+        want = fp8_linear_study.linear_plain(x, w, mode)
+        w_abs = fp8_linear_study.weight_values(w, mode).float().abs()
+        bound = _product_bound(x, w_abs, 1.0, want)
+        assert bool(((got.float() - want.float()).abs() <= bound).all())
+        cold = fp8_linear_study.linear(x, w, mode, reps=3, cold=True)
+        assert torch.equal(cold.view(torch.int16), got.view(torch.int16))
+        outs[mode] = got.view(torch.int16)
+    assert torch.equal(outs["pl-bits"], outs["pl-astype"])
+    assert torch.equal(outs["pl-magic"], outs["pl-astype"])
+
+
+def test_fp8_linear_study_kernel_converts_every_e4m3_byte(cuda):
+    w = torch.zeros(64, 256, dtype=torch.uint8)
+    w[0] = torch.arange(256, dtype=torch.int32).to(torch.uint8)
+    x = torch.zeros(16, 64, dtype=torch.bfloat16)
+    x[:, 0] = 1.0
+    want = kexp_convert.convert(w[0], "astype").float().numpy()
+    nan = np.isnan(want)
+    for mode in ("pl-astype", "pl-bits", "pl-magic"):
+        got = fp8_linear_study.linear(x.to(cuda), w.to(cuda), mode, reps=1)
+        got = got[0].float().cpu().numpy()
+        assert (np.isnan(got) == nan).all(), mode
+        np.testing.assert_array_equal(got[~nan], want[~nan], err_msg=mode)
+
+
+def test_convert_studies_reject_what_they_do_not_take(cuda):
+    q, k8, _ = _t1_case(2)
+    with pytest.raises(ValueError, match="bf16 k"):
+        kexp_convert.stream(q.to(cuda), k8.to(cuda), "dot-bf16")
+    x = torch.zeros(65, 64, dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros(64, 32, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="streaming kernel"):
+        fp8_linear_study.linear(x, w, "pl-bits")

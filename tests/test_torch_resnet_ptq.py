@@ -159,7 +159,12 @@ def test_port_imports_nothing_of_jax_or_fp8tpu():
             "fp8tpu_torch/serve/engine.py",
             "fp8tpu_torch/serve/server.py",
             "fp8tpu_torch/training/__init__.py",
-            "fp8tpu_torch/training/mpt.py"} <= names
+            "fp8tpu_torch/training/mpt.py",
+            "fp8tpu_torch/kernels/kexp_convert.py",
+            "fp8tpu_torch/kernels/fp8_linear_study.py",
+            "fp8tpu_torch/tools/__init__.py",
+            "fp8tpu_torch/tools/kexp_convert.py",
+            "fp8tpu_torch/tools/bench_fp8_linear.py"} <= names
     for path in files:
         bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
         assert not bad, f"{path.relative_to(REPO)} imports {bad}"

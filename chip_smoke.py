@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--phases build,k1,k2,k3,k4,k5,k6,t1,t2,main,
                                     train,serve,serve_paged,time]
+    python3 chip_smoke.py --phases build,k2_probe   # not in the default run
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -15,14 +16,23 @@ Phases, each printing its own lines; any failure exits non-zero:
           vector, f32 subnormals, and SR from explicit bits and from a salt;
           then scalar, per-channel, per-block and SR casts of a tensor
           large enough that each thread of the capped grid loops three times.
-3. k2     the fused fake-quant GEMM (K2) at ResNet-50 conv shapes, within
-          the f32 summation-order tolerance of the exact product: the
-          PTQ path's bitexact variants, the training path's "hw"-RNE
+3. k2     the fused fake-quant GEMM (K2: cast pre-passes and a bf16-split
+          GEMM on the tensor cores) at ResNet-50 conv shapes, within the
+          f32 summation-order tolerance of the exact product: the PTQ
+          path's bitexact variants, the training path's "hw"-RNE
           forward, hw-SR, bitexact-SR and float16-under-"hw" operands,
           the backward's uncast dX and dW GEMMs (dW split over K and
-          unsplit, and the two against each other); then each in-kernel
-          cast bit for bit against the plain cast on the CPU, through an
+          unsplit, and the two against each other); the engine conv as
+          an implicit GEMM at the four convs' geometries, a stride-2 1x1
+          downsample and a ragged conv, bitexact and "hw", against the
+          exact product of the rebuilt, cast im2col, its scale over the
+          gathered positions bit-equal to the im2col's; then each cast
+          bit for bit against the plain cast on the CPU, through an
           identity weight.
+   k2_probe  (asked for by name) K2's uncast product over K = 100352 of
+          terms of one sign at several tensor-core chunk lengths: the
+          measurement behind K2's promotion of each chunk into an f32
+          sum.
 4. k3     the serving dequant-GEMM (K3) against its plain version: e4m3,
           e5m2 and int8 payloads, bf16 and f32 results, decode and prefill
           row counts at the full-width (K, N) of the serving linears and a
@@ -62,16 +72,18 @@ Phases, each printing its own lines; any failure exits non-zero:
           seed), batch 32 at 224x224: BN statistics from 2 train-mode
           passes, then quantize_model(e4m3, hw patching, BN folding,
           2 calibration batches, conv1/fc exempt), 1 warm-up and 3 timed
-          quantized batches.  Launch counts per forward, logits against
+          quantized batches.  Launch counts per forward (52 K2 GEMMs, 104
+          K2 pre-passes, 32 K1), logits against
           fp32 (correlation > 0.95), quantized weights bit-equal to the
           CPU path's, and a torch.profiler breakdown of one forward.
    train  FP8 mixed-precision training of ResNet-50 at full width, batch
           32 at 224x224, random weights and data from a seed: the hybrid
           recipe with hw patching, fp16 SR master copy, dynamic loss
           scaling from 2^12, SGD with momentum; 1 warm-up and 4 timed
-          steps with K2 launches per step counted (52 "hw" forward, 104
-          uncast backward) and no plain version called; one step's 156
-          K2 launches each against the exact product of its operands, its
+          steps with K2 launches per step counted (52 "hw" implicit-GEMM
+          forward, 104 uncast backward, 260 pre-passes) and no plain
+          version called; one step's 156 K2 launches each against the
+          exact product of its operands (the conv's rebuilt im2col), its
           conv weight gradients with the kernels against the plain
           versions, the plain pass repeated (bit-identical) and the f32 /
           f64 spread with the casts on and off; a torch.profiler breakdown
@@ -98,8 +110,12 @@ Phases, each printing its own lines; any failure exits non-zero:
           "kernel" and "ringview" in turns.
 8. time   each kernel at its main path's shapes: kernel, plain version,
           bound, and a PyTorch yardstick where one exists; K1 bit-exact
-          at the largest residual_add operand; K2's training variants at
-          the first stage's 3x3 conv (forward, dX, dW).
+          at the largest residual_add operand; K2 as the engine conv at
+          four ResNet-50 convs and over all 52 convs of a forward (device
+          times by CUDA-graph replay, both bounds: f32 SIMT and the bf16
+          MMAs; yardsticks f32 torch.matmul on the cast im2col and f32
+          F.conv2d with TF32 off); K2's training variants at the first
+          stage's 3x3 conv (forward, dX, dW).
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Details go to the JSON
@@ -146,29 +162,50 @@ MODE_STRINGS = (
        "E5M2_FLEX_RNE"]
 )
 
-def resnet50_conv_gemms(batch: int):
-    """(M, K, N) of the 52 patched convs of one ResNet-50 forward (the
-    stem conv is exempt), in order."""
-    shapes, in_f, hw = [], 64, 56
+def resnet50_convs(batch: int):
+    """The 52 patched convs of one ResNet-50 forward (the stem conv is
+    exempt), in order: (batch, Cin, H = W, Cout, kernel, stride, pad)."""
+    convs, in_f, hw = [], 64, 56
     for stage, (blocks, f) in enumerate(zip((3, 4, 6, 3),
                                             (64, 128, 256, 512))):
         for b in range(blocks):
-            out = hw // (2 if stage > 0 and b == 0 else 1)
-            shapes += [(batch * hw * hw, in_f, f),
-                       (batch * out * out, f * 9, f),
-                       (batch * out * out, f, 4 * f)]
+            s = 2 if stage > 0 and b == 0 else 1
+            convs += [(batch, in_f, hw, f, 1, 1, 0),
+                      (batch, f, hw, f, 3, s, 1),
+                      (batch, f, hw // s, 4 * f, 1, 1, 0)]
             if b == 0:
-                shapes.append((batch * out * out, in_f, 4 * f))
-            in_f, hw = 4 * f, out
-    return shapes
+                convs.append((batch, in_f, hw, 4 * f, 1, s, 0))
+            in_f, hw = 4 * f, hw // s
+    return convs
 
 
-# Representative ResNet-50 conv GEMMs (batch 32): (name, M, K, N).
-K2_SHAPES = [
-    ("stage0 3x3", BATCH * 56 * 56, 64 * 9, 64),
-    ("stage0 1x1 expand", BATCH * 56 * 56, 64, 256),
-    ("stage3 1x1", BATCH * 7 * 7, 2048, 512),
-    ("stage3 3x3", BATCH * 7 * 7, 512 * 9, 512),
+def conv_gemm(conv):
+    """(M, K, N) of a conv's im2col GEMM."""
+    b, cin, h, cout, k, s, p = conv
+    out = (h + 2 * p - k) // s + 1
+    return b * out * out, cin * k * k, cout
+
+
+def resnet50_conv_gemms(batch: int):
+    """(M, K, N) of the 52 patched convs of one ResNet-50 forward."""
+    return [conv_gemm(c) for c in resnet50_convs(batch)]
+
+
+# Representative ResNet-50 convs (batch 32): (name, conv), and their GEMMs
+# (name, M, K, N).
+K2_CONVS = [
+    ("stage0 3x3", (BATCH, 64, 56, 64, 3, 1, 1)),
+    ("stage0 1x1 expand", (BATCH, 64, 56, 256, 1, 1, 0)),
+    ("stage3 1x1", (BATCH, 2048, 7, 512, 1, 1, 0)),
+    ("stage3 3x3", (BATCH, 512, 7, 512, 3, 1, 1)),
+]
+K2_SHAPES = [(name, *conv_gemm(conv)) for name, conv in K2_CONVS]
+# Further conv geometries for the k2 phase: the stride-2 1x1 downsample
+# (it gathers every other row and column) and a ragged conv (channels not
+# a multiple of 8, odd size, stride 2).
+K2_MORE_CONVS = [
+    ("stage1 1x1 stride-2 downsample", (BATCH, 256, 56, 512, 1, 2, 0)),
+    ("ragged", (3, 20, 11, 37, 3, 2, 1)),
 ]
 
 
@@ -410,6 +447,9 @@ def phase_k2(record):
         rows.append(k2_row(f"{name} x={fmt_x} w={fmt_w}", m, k, n, got,
                            want, *k2_reference(xq, wq)))
     rows += k2_training_cases(gen)
+    rows += [k2_conv_case(gen, name, conv, impl)
+             for name, conv in K2_CONVS + K2_MORE_CONVS
+             for impl in ("bitexact", "hw")]
     identity = k2_identity_casts()
     record["k2"] = {"cases": rows, "identity_casts": identity}
     print(f"k2: worst kernel |err| / tolerance {max(r['err_over_tol'] for r in rows):.3e} over "
@@ -420,6 +460,95 @@ def phase_k2(record):
                          "summation-order tolerance")
     if not all(r["ok"] for r in identity):
         raise PhaseError("K2's in-kernel casts differ from the plain casts")
+
+
+def conv_rows(out):
+    """An NCHW conv output as the (pixels, channels) rows of its GEMM."""
+    return out.permute(0, 2, 3, 1).reshape(-1, out.shape[1])
+
+
+def k2_conv_operands(x, weight, strides, pads, fmt, mode, scale, seed=0,
+                     impl="bitexact"):
+    """The two operands of a conv's GEMM as the plain version makes them:
+    the cast im2col, rebuilt from x, and the (Cin*KH*KW, Cout) weight."""
+    from fp8tpu_torch.kernels import qmatmul
+    col = qmatmul.im2col(x, tuple(weight.shape[2:]), strides, pads)[0]
+    if fmt is not None:
+        col = qmatmul.cast_operand(col, fmt, mode, scale, impl,
+                                   qmatmul.sr_salt(seed, 1, fmt, mode))
+    return col, weight.float().reshape(weight.shape[0], -1).t()
+
+
+def k2_conv_case(gen, name, conv, impl, fmt="e4m3"):
+    """The engine conv through K2's implicit GEMM (qmatmul.conv) within the
+    summation-order tolerance of the exact product of the cast im2col and
+    the weight, with the scale taken over the gathered positions bit-equal
+    to per_tensor of the im2col."""
+    import torch
+    from fp8tpu_torch.kernels import qmatmul
+    from fp8tpu_torch.numerics.formats import RoundMode
+    from fp8tpu_torch.numerics.scaling import per_tensor
+    b, cin, h, cout, k, s, p = conv
+    x = torch.randn(b, cin, h, h, device="cuda", generator=gen).relu_()
+    w = torch.randn(cout, cin, k, k, device="cuda",
+                    generator=gen) / (cin * k * k) ** 0.5
+    strides, pads = (s, s), ((p, p), (p, p))
+    scale = per_tensor(qmatmul.gathered(x, (k, k), strides, pads), fmt)
+    col = qmatmul.im2col(x, (k, k), strides, pads)[0]
+    scale_bits = bits_equal(scale, per_tensor(col, fmt))
+    del col
+    args = (x, w, strides, pads, fmt, RoundMode.RNE, scale, 0, impl)
+    got = conv_rows(qmatmul.conv(*args))
+    want = conv_rows(qmatmul.conv_plain(*args))
+    exact, tol = k2_reference(*k2_conv_operands(*args))
+    m, kk, n = conv_gemm(conv)
+    row = k2_row(f"conv {name} {impl} x={fmt} (implicit GEMM)", m, kk, n,
+                 got, want, exact, tol)
+    row["scale_bits_differ"] = scale_bits
+    if scale_bits:
+        print(f"k2 conv {name}: the gathered scale differs from "
+              "per_tensor(im2col) -> FAIL")
+        row["ok"] = False
+    return row
+
+
+# The accumulation probe: the tensor cores' f32 accumulation is not IEEE
+# round to nearest, so K2 sums each k-chunk on them and adds the chunk into
+# an f32 accumulator with ordinary adds.  Long sums of terms of one sign
+# are where a directed rounding shows: the probe runs K2's uncast product
+# over K = 100352 (the length of the backward's weight gradient at
+# ResNet-50's first stage) at several chunk lengths, 0 meaning one chunk.
+PROBE_PROMOTE = (0, 64, 16, 4, 1)
+
+
+def phase_k2_probe(record):
+    import torch
+    from fp8tpu_torch.kernels import qmatmul
+    from fp8tpu_torch.numerics.formats import RoundMode
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    m, k, n = 256, 100352, 64
+    x = torch.rand(m, k, device="cuda", generator=gen) + 0.5
+    w = torch.rand(k, n, device="cuda", generator=gen) + 0.5
+    exact, tol = k2_reference(x, w)
+    rows = []
+    for promote in PROBE_PROMOTE:
+        got = qmatmul._launch(x, w, None, RoundMode.RNE, None, RoundMode.RNE,
+                              1.0, 1.0, unsplit=True, promote=promote)
+        rel = (got.double() - exact) / exact
+        rows.append({"promote_slabs": promote,
+                     "chunk": promote * qmatmul.K2_BK if promote else k,
+                     "err_over_tol": k2_ratio(got, exact, tol),
+                     "mean_rel_err": float(rel.mean()),
+                     "max_abs_rel_err": float(rel.abs().max())})
+        print(f"k2_probe chunk {rows[-1]['chunk']} (M={m} K={k} N={n}, "
+              f"terms in [0.25, 2.25)): |err| / tolerance "
+              f"{rows[-1]['err_over_tol']:.3e}, mean relative error "
+              f"{rows[-1]['mean_rel_err']:.3e}")
+    record["k2_probe"] = {"rows": rows, "k2_promote": qmatmul.K2_PROMOTE}
+    used = [r for r in rows if r["promote_slabs"] == qmatmul.K2_PROMOTE]
+    if not used or used[0]["err_over_tol"] > 1.0:
+        raise PhaseError("K2's chunk length does not keep the long sum "
+                         "within the tolerance")
 
 
 # ResNet-50's first stage (56x56, stage0 in the module names), 3x3 conv at
@@ -1154,10 +1283,13 @@ def phase_main(record, batch: int):
     quantize_s = time.perf_counter() - t0
     with torch.no_grad():
         k1_0, k2_0 = cast_kernel.launches, qmatmul.launches
+        pre_0 = qmatmul.k2_launches["prepass"]
         out = qm(x)                                # warm-up
         torch.cuda.synchronize()
         per_fwd = {"cast_kernel": cast_kernel.launches - k1_0,
-                   "qdq_matmul": qmatmul.launches - k2_0}
+                   "qdq_matmul": qmatmul.launches - k2_0,
+                   "qdq_matmul_prepass": qmatmul.k2_launches["prepass"]
+                   - pre_0}
         times = []
         for _ in range(3):
             t = time.perf_counter()
@@ -1165,7 +1297,8 @@ def phase_main(record, batch: int):
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
     launches = {"cast_kernel": cast_kernel.launches,
-                "qdq_matmul": qmatmul.launches}
+                "qdq_matmul": qmatmul.launches,
+                "qdq_matmul_prepass": qmatmul.k2_launches["prepass"]}
     ms = 1000.0 * sum(times) / len(times)
     record["profile"] = profile_forward(qm, x, ms)
     print(f"main: ResNet-50 e4m3 hw-patched PTQ, batch {batch}, 224x224: "
@@ -1206,6 +1339,10 @@ def phase_main(record, batch: int):
     if per_fwd["qdq_matmul"] != 52:
         problems.append(f"{per_fwd['qdq_matmul']} K2 launches per forward, "
                         "expected 52")
+    if per_fwd["qdq_matmul_prepass"] != 104:
+        problems.append(f"{per_fwd['qdq_matmul_prepass']} K2 pre-pass "
+                        "launches per forward, expected 104 (activation "
+                        "and weight of each conv)")
     if per_fwd["cast_kernel"] != 32:
         problems.append(f"{per_fwd['cast_kernel']} K1 launches per forward, "
                         "expected 32")
@@ -1291,6 +1428,18 @@ def k2_operands(x, w, fmt_x, mode_x, fmt_w, mode_w, scale_x, scale_w, seed,
     return x, w
 
 
+def conv_plain_f64(x, weight, strides, pads, fmt, mode, scale, seed=0,
+                   impl="bitexact"):
+    """The engine conv's plain version with the sums in f64."""
+    col, w2d = k2_conv_operands(x, weight, strides, pads, fmt, mode, scale,
+                                seed, impl)
+    kh, kw = weight.shape[2:]
+    oh = (x.shape[2] + sum(pads[0]) - kh) // strides[0] + 1
+    ow = (x.shape[3] + sum(pads[1]) - kw) // strides[1] + 1
+    out = (col.double() @ w2d.double()).float()
+    return out.reshape(x.shape[0], oh, ow, -1).permute(0, 3, 1, 2)
+
+
 def k2_launch_error(out, args, impl) -> float:
     """max |K2 - exact| / summation-order tolerance over one launch."""
     return k2_ratio(out, *k2_reference(*k2_operands(*args, impl)))
@@ -1357,7 +1506,8 @@ def phase_train(record, batch: int):
             losses.append(float(loss))
             scales.append((state[1].scale, state[1].good_steps))
     launches = {"qdq_matmul_hw": qmatmul.k2_launches["hw"],
-                "qdq_matmul_uncast": qmatmul.k2_launches["uncast"]}
+                "qdq_matmul_uncast": qmatmul.k2_launches["uncast"],
+                "qdq_matmul_prepass": qmatmul.k2_launches["prepass"]}
     peak = torch.cuda.max_memory_allocated()
     ms = 1000.0 * sum(times[1:]) / TRAIN_STEPS
     print(f"train: ResNet-50 hybrid FP8 with hw patching, batch {batch}, "
@@ -1370,7 +1520,11 @@ def phase_train(record, batch: int):
           f"{scales}; no plain version called")
 
     problems = []
-    want = {"bitexact": 0, "hw": 52, "uncast": 104, "cast_kernel": 0}
+    # each conv: one implicit-GEMM forward ("hw") and the uncast dX and dW
+    # GEMMs; pre-passes over the forward's activation and weight, dX's g
+    # and weight and dW's g (dW reads the transposed im2col as it is)
+    want = {"bitexact": 0, "hw": 52, "uncast": 104, "prepass": 260,
+            "cast_kernel": 0}
     if any(p != want for p in per_step):
         problems.append(f"launches per step {per_step}, expected {want}")
     if not all(map(math.isfinite, losses)):
@@ -1387,11 +1541,17 @@ def phase_train(record, batch: int):
     # against the plain version on its own operands; with K2's plain
     # version; with the plain casts and f64 sums.
     gkey = prng.fold_in(key, 100)
-    launch, checked = qmatmul._launch, []
+    launch, conv, checked = qmatmul._launch, qmatmul.conv, []
 
     def checking(*args, impl="bitexact", unsplit=False):
         out = launch(*args, impl=impl, unsplit=unsplit)
         checked.append(k2_launch_error(out, args, impl))
+        return out
+
+    def checking_conv(*args):
+        out = conv(*args)
+        checked.append(k2_ratio(conv_rows(out), *k2_reference(
+            *k2_conv_operands(*args))))
         return out
 
     # Two witnesses that the kernel-vs-plain spread is the network's: the
@@ -1402,18 +1562,19 @@ def phase_train(record, batch: int):
         emu.policy, default=emu.policy.default.without_roles(
             "wt", "iact", "oact", "wtgrad", "igrad", "ograd")))
     grads = {}
-    for name, fn, e in (("kernel", checking, emu),
-                        ("plain", qmatmul.plain, emu),
-                        ("plain_again", qmatmul.plain, emu),
-                        ("plain_f64", k2_plain_f64, emu),
-                        ("off", qmatmul.plain, off),
-                        ("off_f64", k2_plain_f64, off)):
-        qmatmul._launch = fn
+    for name, fn, cfn, e in (
+            ("kernel", checking, checking_conv, emu),
+            ("plain", qmatmul.plain, qmatmul.conv_plain, emu),
+            ("plain_again", qmatmul.plain, qmatmul.conv_plain, emu),
+            ("plain_f64", k2_plain_f64, conv_plain_f64, emu),
+            ("off", qmatmul.plain, qmatmul.conv_plain, off),
+            ("off_f64", k2_plain_f64, conv_plain_f64, off)):
+        qmatmul._launch, qmatmul.conv = fn, cfn
         try:
             grads[name] = step_grads(e, xent, params, batches[0], gkey,
                                      2.0 ** 12)[1]
         finally:
-            qmatmul._launch = launch
+            qmatmul._launch, qmatmul.conv = launch, conv
 
     def rel(a, b):
         return {n: float((grads[a][n] - grads[b][n]).norm()
@@ -1498,11 +1659,11 @@ def phase_train(record, batch: int):
 
 def profile_train_step(run, step_ms: float):
     """Device time of one train step by part, from torch.profiler: K2 by
-    variant (forward "hw"; backward uncast launches alternate dX, dW per
-    layer), the fake-quant casts and the BatchNorm forwards (kernels whose
-    launching op lies inside a range the profiled run opens around them),
-    then the rest by kernel name.  Fails if the profiler saw no device
-    time."""
+    variant (the forward's implicit-GEMM launches, the backward's dX and
+    dW, the pre-passes), the fake-quant casts and the BatchNorm forwards
+    (kernels whose launching op lies inside a range the profiled run opens
+    around them), then the rest by kernel name.  Fails if the profiler saw
+    no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     from fp8tpu_torch import linen
@@ -1541,7 +1702,7 @@ def profile_train_step(run, step_ms: float):
             return "other reductions"
         return "other elementwise"
 
-    parts, uncast = {}, 0
+    parts = {}
 
     def add(part, ms, n=1):
         t, c = parts.get(part, (0.0, 0))
@@ -1552,12 +1713,15 @@ def profile_train_step(run, step_ms: float):
                      and not getattr(e, "is_user_annotation", False)),
                     key=lambda e: e.time_range.start):
         ms = (getattr(e, "device_time", None) or e.cuda_time) / 1000.0
-        if "qdq_matmul_kernel" in e.name:
-            if "-1, -1>" in e.name:
-                add(("K2 dX", "K2 dW")[uncast % 2], ms)
-                uncast += 1
-            else:
-                add("K2 forward (hw)", ms)
+        if "k2_prepass" in e.name:
+            add("K2 pre-passes (casts, bf16 planes)", ms)
+        elif "k2_gemm<" in e.name:
+            # template arguments (A planes, B planes, how A is read): the
+            # forward's implicit conv reads the activation's grid (1), dX
+            # pre-passed planes (0), dW the transposed im2col as f32 (2)
+            how = e.name.split("k2_gemm<")[1].split(">")[0].split(",")[-1]
+            add({"1": "K2 forward (hw, implicit GEMM)", "0": "K2 dX",
+                 "2": "K2 dW"}.get(how.strip(), "K2 other"), ms)
         else:
             add(category(e.name), ms)
     # Kernels launched by an op inside one of the ranges move from their
@@ -2212,11 +2376,11 @@ def phase_serve_paged(record):
 
 def phase_time(record, batch: int, launches):
     import torch
-    from fp8tpu_torch._device import full_fp32
     from fp8tpu_torch.kernels import cast_kernel, qmatmul
-    from fp8tpu_torch.numerics.cast import cast_array, qdq_plain
+    from fp8tpu_torch.numerics.cast import qdq_plain
     from fp8tpu_torch.numerics.formats import RoundMode
     from fp8tpu_torch.numerics.scaling import per_tensor
+    from fp8tpu_torch.tools import device_ms
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     kernels = []
@@ -2248,140 +2412,199 @@ def phase_time(record, batch: int, launches):
         "bound_by": "bytes", "library_ms": None,
     })
 
-    rows = []
-    for name, m, k, n in K2_SHAPES:
-        xx = torch.randn(m, k, device="cuda", generator=gen).relu_()
-        w = torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
-        sx = per_tensor(xx, "e4m3")
-
-        def kern():
-            return qmatmul.qdq_matmul(xx, w, "e4m3", RoundMode.RNE, None,
-                                      RoundMode.RNE, sx)
-
-        def plain():
-            return qmatmul.plain(xx, w, "e4m3", RoundMode.RNE, None,
-                                 RoundMode.RNE, sx)
-
-        xq = cast_array(xx, sx, None, "e4m3", RoundMode.RNE)
-
-        def library():
-            with full_fp32():
-                return torch.matmul(xq, w)
-
-        err = float((kern() - plain()).abs().max())
-        t_k = cuda_ms(kern, iters=5)
-        t_p = cuda_ms(plain, iters=3, warmup=1)
-        t_l = cuda_ms(library, iters=5)
-        t_bytes = 4.0 * (m * k + k * n + m * n) / HBM_BYTES_PER_S * 1e3
-        t_ops = 2.0 * m * n * k / F32_SIMT_FLOPS * 1e3
-        bound = max(t_bytes, t_ops)
-        rows.append({"shape": name, "m": m, "k": k, "n": n, "ms": t_k,
-                     "plain_ms": t_p, "library_ms": t_l, "bound_ms": bound,
-                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                     "max_abs_err": err,
-                     "tflops": 2.0 * m * n * k / t_k / 1e9})
-        print(f"time k2 {name} M={m} K={k} N={n}: kernel {t_k:.4f} ms "
-              f"({2.0 * m * n * k / t_k / 1e9:.2f} TFLOP/s), plain "
-              f"{t_p:.4f} ms, bound {bound:.4f} ms, f32 torch.matmul on the "
-              f"cast operands (yardstick of the contraction alone) "
-              f"{t_l:.4f} ms")
-    # K2 over all 52 patched convs of one forward, kernel time only.
-    shapes = resnet50_conv_gemms(batch)
+    rows = [time_k2_conv(gen, name, conv, "bitexact")
+            for name, conv in K2_CONVS]
+    # K2 over all 52 patched convs of one forward: pre-passes and GEMM,
+    # device time.
     total = 0.0
-    for m, k, n in shapes:
-        xx = torch.randn(m, k, device="cuda", generator=gen).relu_()
-        w = torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
-        sx = per_tensor(xx, "e4m3")
-        total += cuda_ms(lambda: qmatmul.qdq_matmul(
-            xx, w, "e4m3", RoundMode.RNE, None, RoundMode.RNE, sx), iters=5)
-    flops = sum(2.0 * m * n * k for m, k, n in shapes)
-    print(f"time k2 all {len(shapes)} convs of one forward: {total:.3f} ms "
-          f"({flops / total / 1e9:.2f} TFLOP/s; f32 bound "
-          f"{flops / F32_SIMT_FLOPS * 1e3:.3f} ms)")
+    for conv in resnet50_convs(batch):
+        bb, cin, h, cout, k, st, pad = conv
+        xx = torch.randn(bb, cin, h, h, device="cuda", generator=gen).relu_()
+        w = torch.randn(cout, cin, k, k, device="cuda",
+                        generator=gen) / (cin * k * k) ** 0.5
+        pads = ((pad, pad), (pad, pad))
+        sx = per_tensor(qmatmul.gathered(xx, (k, k), (st, st), pads), "e4m3")
+        total += device_ms(lambda: qmatmul.conv(
+            xx, w, (st, st), pads, "e4m3", RoundMode.RNE, sx))
+        del xx, w
+    flops = sum(2.0 * m * n * k for m, k, n in resnet50_conv_gemms(batch))
+    simt, mma = flops / F32_SIMT_FLOPS * 1e3, 3 * flops / BF16_TC_FLOPS * 1e3
+    print(f"time k2 all 52 convs of one forward: {total:.3f} ms "
+          f"({flops / total / 1e9:.2f} TFLOP/s; bounds: f32 SIMT "
+          f"{simt:.3f} ms, 3 bf16 MMAs {mma:.3f} ms)")
     record["time"] = {"k2_shapes": rows, "k2_forward_ms": total,
-                      "k2_forward_bound_ms": flops / F32_SIMT_FLOPS * 1e3}
+                      "k2_forward_bound_ms": simt,
+                      "k2_forward_mma_bound_ms": mma}
     head = rows[0]
-    kernels.append({
-        "name": "qdq_matmul", "route": "cuda",
-        "source": "fp8tpu_torch/kernels/csrc/qmatmul.cu",
-        "replaces": "fp8tpu/kernels/qmatmul.py:193",
-        "launches": launches["qdq_matmul"], "max_abs_err": head["max_abs_err"],
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-    })
+    entry = {"route": "cuda", "source": "fp8tpu_torch/kernels/csrc/qmatmul.cu",
+             "replaces": "fp8tpu/kernels/qmatmul.py:193"}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    kernels.append({"name": "qdq_matmul (PTQ, bitexact; pre-passes and "
+                            "GEMM)", **entry,
+                    "launches": launches["qdq_matmul"],
+                    **{k: head[k] for k in keys}})
+    kernels.append({"name": "qdq_matmul pre-pass (activation cast to bf16 "
+                            "grid planes)", **entry,
+                    "launches": launches["qdq_matmul_prepass"],
+                    **{k: head["prepass"][k] for k in keys}})
     return kernels
 
 
-def phase_time_train(record, launches):
-    """K2's training variants at ResNet-50's first-stage 3x3 conv, batch 32:
-    the "hw" e4m3 forward, the backward's dX and dW (dW also unsplit, the
-    kernel before split-K).  Event-timed loops; the bound is the larger of
-    the bytes over HBM and the FMAs at the SIMT f32 peak; the yardstick is
-    ``torch.matmul`` in f32 with TF32 off on the same (cast) operands."""
+def time_k2_conv(gen, name, conv, impl):
+    """K2 as the engine conv (qmatmul.conv, the implicit GEMM with its two
+    pre-passes), device time by CUDA-graph replay, beside its bounds (the
+    larger of the bytes over HBM and its 3 bf16 MMAs a product at the
+    dense bf16 rate; the f32 FMAs at the SIMT rate for reference), the
+    plain version and two yardsticks used nowhere in the port: f32
+    ``torch.matmul`` on the cast im2col and f32 ``F.conv2d`` (TF32 off) on
+    the cast activation.  The activation's pre-pass alone is timed too."""
     import torch
+    import torch.nn.functional as F
     from fp8tpu_torch._device import full_fp32
     from fp8tpu_torch.kernels import qmatmul
     from fp8tpu_torch.numerics.formats import RoundMode
     from fp8tpu_torch.numerics.scaling import per_tensor
+    from fp8tpu_torch.tools import device_ms
+    b, cin, h, cout, k, s, p = conv
+    m, kk, n = conv_gemm(conv)
+    x = torch.randn(b, cin, h, h, device="cuda", generator=gen).relu_()
+    w = torch.randn(cout, cin, k, k, device="cuda",
+                    generator=gen) / (cin * k * k) ** 0.5
+    strides, pads = (s, s), ((p, p), (p, p))
+    sx = per_tensor(qmatmul.gathered(x, (k, k), strides, pads), "e4m3")
+    args = (x, w, strides, pads, "e4m3", RoundMode.RNE, sx, 0, impl)
+    got = qmatmul.conv(*args)
+    err = float((got - qmatmul.conv_plain(*args)).abs().max())
+    colq, w2d = k2_conv_operands(*args)
+    xq = qmatmul.cast_operand(x, "e4m3", RoundMode.RNE, sx, impl, None)
+
+    def library():
+        with full_fp32():
+            return torch.matmul(colq, w2d)
+
+    def cudnn():
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            return F.conv2d(xq, w, stride=s, padding=p)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+
+    t_k = device_ms(lambda: qmatmul.conv(*args))
+    t_p = cuda_ms(lambda: qmatmul.conv_plain(*args), iters=3, warmup=1)
+    t_l, t_c = device_ms(library), device_ms(cudnn)
+    t_bytes = 4.0 * (x.numel() + w.numel() + got.numel()) / HBM_BYTES_PER_S \
+        * 1e3
+    flops = 2.0 * m * n * kk
+    t_simt = flops / F32_SIMT_FLOPS * 1e3
+    t_mma = 3 * flops / BF16_TC_FLOPS * 1e3
+    # the activation's pre-pass alone: its plain version is the plain
+    # grid cast and the bf16 split
+    t_pre = device_ms(lambda: qmatmul.conv_prepass(x, "e4m3", RoundMode.RNE,
+                                                   sx, impl))
+    t_pre_plain = cuda_ms(lambda: qmatmul.split_bf16(qmatmul.grid_operand(
+        x, "e4m3", RoundMode.RNE, sx, impl, None)), iters=3, warmup=1)
+    pre_got = qmatmul.conv_prepass(x, "e4m3", RoundMode.RNE, sx, impl)[0]
+    pre_want = qmatmul.grid_operand(x, "e4m3", RoundMode.RNE, sx, impl,
+                                    None).permute(0, 2, 3, 1).reshape(
+                                        -1, cin).to(torch.bfloat16)
+    pre_err = float((pre_got[:, :cin].float() - pre_want.float()).abs().max())
+    pre_bytes = 6.0 * x.numel() / HBM_BYTES_PER_S * 1e3
+    row = {"shape": name, "impl": impl, "m": m, "k": kk, "n": n, "ms": t_k,
+           "plain_ms": t_p, "library_ms": t_l, "cudnn_conv_ms": t_c,
+           "bound_ms": max(t_bytes, t_mma),
+           "bound_by": "operations" if t_mma >= t_bytes else "bytes",
+           "simt_f32_bound_ms": t_simt, "mma_bf16_bound_ms": t_mma,
+           "bytes_bound_ms": t_bytes, "max_abs_err": err,
+           "tflops": flops / t_k / 1e9,
+           "prepass": {"ms": t_pre, "plain_ms": t_pre_plain,
+                       "bound_ms": pre_bytes, "bound_by": "bytes",
+                       "library_ms": None, "max_abs_err": pre_err}}
+    print(f"time k2 {name} {impl} conv M={m} K={kk} N={n}: kernel "
+          f"{t_k:.4f} ms ({flops / t_k / 1e9:.2f} TFLOP/s; pre-pass "
+          f"{t_pre:.4f} ms against {pre_bytes:.4f} bytes), plain {t_p:.4f} "
+          f"ms, bounds: 3 bf16 MMAs {t_mma:.4f}, bytes {t_bytes:.4f}, f32 "
+          f"SIMT {t_simt:.4f} ms; yardsticks: f32 torch.matmul on the cast "
+          f"im2col {t_l:.4f} ms, f32 F.conv2d (TF32 off) {t_c:.4f} ms")
+    return row
+
+
+def phase_time_train(record, launches):
+    """K2's training variants at ResNet-50's first-stage 3x3 conv, batch 32:
+    the "hw" e4m3 forward (the implicit conv), the backward's dX (g @ the
+    weight's rows) and dW (the im2col read transposed in place, @ g; also
+    unsplit, the kernel before split-K).  Device times by CUDA-graph
+    replay; the bound is the larger of the bytes over HBM and the bf16
+    MMAs (3 a product forward, 6 backward) at the dense bf16 rate; the
+    yardstick is ``torch.matmul`` in f32 with TF32 off on the same
+    operands."""
+    import torch
+    from fp8tpu_torch._device import full_fp32
+    from fp8tpu_torch.kernels import qmatmul
+    from fp8tpu_torch.numerics.formats import RoundMode
+    from fp8tpu_torch.tools import device_ms
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     rne = RoundMode.RNE
-    rows = []
-    for what, unsplit in (("forward", False), ("dX", False), ("dW", False),
-                          ("dW", True)):
-        m, k, n = K2_TRAIN_SHAPES[what]
-        x = torch.randn(m, k, device="cuda", generator=gen)
-        w = torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
-        fmt = "e4m3" if what == "forward" else None
-        sx = per_tensor(x, "e4m3")
-        args = (x, w, fmt, rne, None, rne, sx, 1.0, 0)
-        xq = k2_operands(*args, "hw")[0]
+    rows = [time_k2_conv(gen, "stage0 3x3", K2_CONVS[0][1], "hw")]
+    rows[0]["shape"] = "stage0 3x3 forward (hw)"
+    m, kc, cout = K2_TRAIN_SHAPES["forward"]
+    g = torch.randn(m, cout, device="cuda", generator=gen)
+    w_rows = torch.randn(cout, kc, device="cuda", generator=gen) / kc ** 0.5
+    colq = torch.randn(m, kc, device="cuda", generator=gen).relu_()
+    for what, a, b, unsplit in (("dX", g, w_rows, False),
+                                ("dW", colq.t(), g, False),
+                                ("dW", colq.t(), g, True)):
+        mm, kk, nn = a.shape[0], a.shape[1], b.shape[1]
+        args = (a, b, None, rne, None, rne, 1.0, 1.0, 0)
 
         def kern():
-            return qmatmul._launch(*args, impl="hw", unsplit=unsplit)
-
-        def plain():
-            return qmatmul.plain(*args, impl="hw")
+            return qmatmul._launch(*args, unsplit=unsplit)
 
         def library():
             with full_fp32():
-                return torch.matmul(xq, w)
+                return torch.matmul(a, b)
 
-        err = float((kern() - plain()).abs().max())
-        t_k = cuda_ms(kern, iters=5)
-        t_p = cuda_ms(plain, iters=3, warmup=1)
-        t_l = cuda_ms(library, iters=5)
-        t_bytes = 4.0 * (m * k + k * n + m * n) / HBM_BYTES_PER_S * 1e3
-        t_ops = 2.0 * m * n * k / F32_SIMT_FLOPS * 1e3
-        used = qmatmul.k2_split(m, n, k, qmatmul.sm_count(0), unsplit)[0]
+        err = float((kern() - qmatmul.plain(*args)).abs().max())
+        t_k = device_ms(kern)
+        t_p = cuda_ms(lambda: qmatmul.plain(*args), iters=3, warmup=1)
+        t_l = device_ms(library)
+        t_bytes = 4.0 * (a.numel() + b.numel() + mm * nn) / HBM_BYTES_PER_S \
+            * 1e3
+        flops = 2.0 * mm * nn * kk
+        t_mma = 6 * flops / BF16_TC_FLOPS * 1e3
+        used = qmatmul.k2_split(mm, nn, kk, qmatmul.sm_count(0), unsplit)[0]
         label = f"stage0 3x3 {what}" + (" unsplit" if unsplit else "")
-        rows.append({"shape": label, "m": m, "k": k, "n": n, "splits": used,
-                     "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
-                     "bound_ms": max(t_bytes, t_ops),
-                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                     "max_abs_err": err,
-                     "tflops": 2.0 * m * n * k / t_k / 1e9})
-        print(f"time k2 {label} M={m} K={k} N={n} ({used} K splits): kernel "
-              f"{t_k:.4f} ms ({2.0 * m * n * k / t_k / 1e9:.2f} TFLOP/s), "
-              f"plain {t_p:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms, f32 "
-              f"torch.matmul {t_l:.4f} ms")
-        del x, w, xq
+        rows.append({"shape": label, "m": mm, "k": kk, "n": nn,
+                     "splits": used, "ms": t_k, "plain_ms": t_p,
+                     "library_ms": t_l, "bound_ms": max(t_bytes, t_mma),
+                     "bound_by": "operations" if t_mma >= t_bytes
+                     else "bytes",
+                     "simt_f32_bound_ms": flops / F32_SIMT_FLOPS * 1e3,
+                     "mma_bf16_bound_ms": t_mma, "bytes_bound_ms": t_bytes,
+                     "max_abs_err": err, "tflops": flops / t_k / 1e9})
+        print(f"time k2 {label} M={mm} K={kk} N={nn} ({used} K splits): "
+              f"kernel {t_k:.4f} ms ({flops / t_k / 1e9:.2f} TFLOP/s), "
+              f"plain {t_p:.4f} ms, bounds: bytes {t_bytes:.4f}, 6 bf16 "
+              f"MMAs {t_mma:.4f}, f32 SIMT "
+              f"{flops / F32_SIMT_FLOPS * 1e3:.4f} ms; f32 torch.matmul "
+              f"{t_l:.4f} ms")
     record.setdefault("time", {})["k2_train_shapes"] = rows
     entry = {"route": "cuda", "source": "fp8tpu_torch/kernels/csrc/qmatmul.cu",
              "replaces": "fp8tpu/kernels/qmatmul.py:193"}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     return [
-        {"name": "qdq_matmul (hw route, training forward)", **entry,
+        {"name": "qdq_matmul (hw route, training forward; pre-passes and "
+                 "GEMM)", **entry,
          "launches": launches["qdq_matmul_hw"],
-         **{k: rows[0][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms")}},
+         **{k: rows[0][k] for k in keys}},
         {"name": "qdq_matmul (uncast, training backward dX and dW; times "
                  "at dW)", **entry,
          "launches": launches["qdq_matmul_uncast"],
-         **{k: rows[2][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms")}},
+         **{k: rows[2][k] for k in keys}},
     ]
-
 
 
 def phase_time_serve(record, launches):
@@ -2705,6 +2928,8 @@ def main(argv=None) -> int:
                 phase_k1(record)
             elif phase == "k2":
                 phase_k2(record)
+            elif phase == "k2_probe":
+                phase_k2_probe(record)
             elif phase == "k3":
                 phase_k3(record)
             elif phase == "k4":

@@ -10,9 +10,12 @@ kernels (``fp8tpu_torch/kernels/csrc``), or on the CPU through their plain
 torch versions when the caller asks for ``device="cpu"``.
 """
 
+__version__ = "0.1.0"
+
 from fp8tpu_torch.api import QuantizedModel, initialize, quantize_model
 from fp8tpu_torch.numerics import (
     FORMATS,
+    FPFormat,
     RoundMode,
     qdq,
     qdq_blocked,
@@ -27,7 +30,8 @@ from fp8tpu_torch.quant import (
 )
 
 __all__ = [
-    "FORMATS", "ModuleQuantConfig", "QuantPolicy", "QuantizedModel",
-    "RoundMode", "TensorQuantConfig", "fake_quant", "get_policy",
-    "initialize", "qdq", "qdq_blocked", "qdq_mode_string", "quantize_model",
+    "FORMATS", "FPFormat", "ModuleQuantConfig", "QuantPolicy",
+    "QuantizedModel", "RoundMode", "TensorQuantConfig", "__version__",
+    "fake_quant", "get_policy", "initialize", "qdq", "qdq_blocked",
+    "qdq_mode_string", "quantize_model",
 ]

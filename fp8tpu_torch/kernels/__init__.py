@@ -4,3 +4,8 @@ counts and plain torch versions: K1 ``cast_kernel``, K2 and K3 ``qmatmul``
 ``int4_matmul``, K6 ``inplace``, and the convert studies T1
 ``kexp_convert`` and T2 ``fp8_linear_study``.  Nothing is built or loaded
 at import; a kernel is built at its first launch."""
+
+from .cast_kernel import cuda_qdq
+from .qmatmul import dequant_matmul, qdq_matmul, quantize_weights
+
+__all__ = ["cuda_qdq", "dequant_matmul", "qdq_matmul", "quantize_weights"]

@@ -1,6 +1,7 @@
 // The fake-quant cast pipeline as device functions, shared by the cast
-// kernel (cast_kernel.cu) and the fused fake-quant GEMM (qmatmul.cu), the
-// way fp8tpu/numerics/cast.py::cast_array is shared by both Pallas kernels.
+// kernel (cast_kernel.cu) and the fused fake-quant GEMM's pre-pass
+// (qmatmul.cu), the way fp8tpu/numerics/cast.py::cast_array is shared by
+// both Pallas kernels.
 //
 // Bit-for-bit the pipeline of fp8tpu_torch/numerics/cast.py (the plain
 // torch version): every format x rounding mode x DAZ of the mode-string
@@ -527,22 +528,24 @@ __host__ __device__ constexpr int hw_code(int f, bool sr) {
   return 0x100 | (f << 4) | (sr ? 2 : 0);
 }
 
-// Runtime-selected cast for callers that take the variant as an argument
-// (the GEMM's operand casts); ``rb`` are the element's random bits (read
-// by stochastic variants).  Returns x for an unknown code.
-__device__ __forceinline__ float cast_code(int code, float x, float s,
-                                           float inv, uint32_t rb) {
+// Runtime-selected cast onto the scaled grid, for K2's pre-pass: the cast
+// with its last descale left out (the bit pipeline's mul_ftz(g, inv) and
+// hw's div_ftz(y, s)), which K2's epilogue applies to the product.  ``rb``
+// are the element's random bits (read by stochastic variants).  Returns x
+// for an unknown code.
+__device__ __forceinline__ float grid_code(int code, float x, float s,
+                                           uint32_t rb) {
   switch (code) {
 #define FP8_CAST_CASE(F, M, D) \
-    case code_of(F, M, D): return cast_elem<F, M, D>(x, s, inv, rb);
+    case code_of(F, M, D): return cast_elem<F, M, D>(x, s, 1.0f, rb);
     FP8_CAST_VARIANTS(FP8_CAST_CASE)
 #undef FP8_CAST_CASE
-    case hw_code(E4M3, false): return hw_qdq<E4M3>(x, s);
-    case hw_code(E5M2, false): return hw_qdq<E5M2>(x, s);
-    case hw_code(BF16, false): return hw_qdq<BF16>(x, s);
-    case hw_code(E4M3, true): return hw_sr<E4M3>(x, s, rb);
-    case hw_code(E5M2, true): return hw_sr<E5M2>(x, s, rb);
-    case hw_code(BF16, true): return hw_sr<BF16>(x, s, rb);
+    case hw_code(E4M3, false): return hw_qdq<E4M3>(x, s, false);
+    case hw_code(E5M2, false): return hw_qdq<E5M2>(x, s, false);
+    case hw_code(BF16, false): return hw_qdq<BF16>(x, s, false);
+    case hw_code(E4M3, true): return hw_sr<E4M3>(x, s, rb, false);
+    case hw_code(E5M2, true): return hw_sr<E5M2>(x, s, rb, false);
+    case hw_code(BF16, true): return hw_sr<BF16>(x, s, rb, false);
     default: return x;
   }
 }

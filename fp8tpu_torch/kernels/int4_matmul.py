@@ -21,8 +21,8 @@ import torch
 from fp8tpu_torch._device import full_fp32
 
 from . import _build
-from .qmatmul import (check_gemm_shape, div_exact, sm_count, split_k,
-                      split_workspace, streams)
+from .qmatmul import (check_gemm_shape, div_exact, flush_amax, sm_count,
+                      split_k, split_workspace, streams)
 
 # Launches of the kernel since the last reset_launches().
 launches = 0
@@ -57,7 +57,7 @@ def quantize_weights_int4_grouped(w: torch.Tensor, group_size: int = 128):
         raise ValueError(f"K={k} must be a multiple of an even group_size "
                          f"(got {group_size})")
     wf = w.to(torch.float32).reshape(k // group_size, group_size, n)
-    amax = wf.abs().amax(dim=1)
+    amax = flush_amax(wf.abs().amax(dim=1))
     s = torch.where(amax > 0, div_exact(amax, 7.0), torch.ones_like(amax))
     q = torch.clip(torch.round(wf / s[:, None]), -8, 7).reshape(k, n)
     return pack_int4(q), s

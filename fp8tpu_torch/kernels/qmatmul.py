@@ -3,18 +3,24 @@ dequant-GEMM (``csrc/dequant_matmul.cu``): wrappers, launch counts and
 plain versions.
 
 K2 replaces ``fp8tpu/kernels/qmatmul.py::_qdq_matmul_kernel``:
-``qdq(x; sx) @ qdq(w; sw[N])`` in IEEE f32 with f32 accumulation, each
-operand cast by the bit pipeline (``impl="bitexact"``) or the
-hardware-convert route (``impl="hw"``: ``hw_qdq`` / ``hw_sr`` for e4m3,
-e5m2 and bfloat16, the bit pipeline for every other format, float16
-included), rounding to nearest or stochastically.  Stochastic operands
-take the bits of the JAX package's CPU route (``_qdq_matmul_jnp``): the
-counter hash salted by ``fold_in(fold_in(key(0), seed), tag)``, tag 1
-for x and 2 for w, over the operand's row-major index.  Every
-hw-patched contraction on a CUDA tensor, forward and backward, is one
-launch.  The plain version, :func:`plain`, casts both operands with the
-plain casts and multiplies with ``torch.matmul`` in full f32; the wrapper
-uses it only for tensors on the CPU.
+``qdq(x; sx) @ qdq(w; sw[N])`` with f32-accurate sums, each operand cast
+by the bit pipeline (``impl="bitexact"``) or the hardware-convert route
+(``impl="hw"``: ``hw_qdq`` / ``hw_sr`` for e4m3, e5m2 and bfloat16, the
+bit pipeline for every other format, float16 included), rounding to
+nearest or stochastically.  Stochastic operands take the bits of the JAX
+package's CPU route (``_qdq_matmul_jnp``): the counter hash salted by
+``fold_in(fold_in(key(0), seed), tag)``, tag 1 for x and 2 for w, over
+the operand's row-major index.
+
+On a CUDA tensor a K2 call is a cast pre-pass over each operand
+(:func:`grid_operand` is its plain version: the cast without its last
+descale, then :func:`split_bf16` into bf16 planes) and one GEMM on the
+tensor cores that applies the descale in its epilogue
+(:func:`descale`).  :func:`conv` is the engine conv as an implicit GEMM
+over the activation's grid values.  The plain version, :func:`plain`,
+casts both operands with the plain casts and multiplies with
+``torch.matmul`` in full f32; the wrappers use it only for tensors on the
+CPU.
 
 With ``impl="hw"`` and both operands on formats of at most 7 mantissa
 bits the JAX package leaves Pallas (``_hw_xla_ok``): each operand is cast
@@ -37,27 +43,36 @@ import functools
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from fp8tpu_torch._device import full_fp32
 from fp8tpu_torch.numerics import prng
-from fp8tpu_torch.numerics.cast import (_flush, _mul, cast_array, hw_qdq,
-                                        hw_sr, sr_bits_from_salt)
+from fp8tpu_torch.numerics.cast import (_flush, _mul, _recip, cast_array,
+                                        hw_qdq, hw_sr, sr_bits_from_salt)
 from fp8tpu_torch.numerics.formats import FORMATS, RoundMode
 
 from . import _build
 from .cast_kernel import FMT_IDS, variant_code
 
-# Launches of K2 and of K3 since the last reset_launches(); K2's also by
-# variant: "bitexact" and "hw" casts, or "uncast" (neither operand cast).
+# Launches of K2's GEMM and of K3 since the last reset_launches(); K2's
+# GEMMs also by variant ("bitexact" and "hw" casts, or "uncast": neither
+# operand cast), and K2's cast pre-passes ("prepass": one for each operand
+# that the GEMM does not read as it is).
 launches = 0
-k2_launches = {"bitexact": 0, "hw": 0, "uncast": 0}
+k2_launches = {"bitexact": 0, "hw": 0, "uncast": 0, "prepass": 0}
 dequant_launches = 0
 
-_MAX_ROWS = 65535 * 64  # grid.y limit times the 64-row tile
+_MAX_ROWS = 65535 * 64  # the pre-pass's grid.y limit times its 64-row tile
 IMPLS = ("bitexact", "hw")
 # Formats that K2's "hw" route converts natively; others take the bit
 # pipeline (``fp8tpu/kernels/qmatmul.py::_HW_KERNEL_FMTS``).
 HW_KERNEL_FMTS = ("e4m3", "e5m2", "bfloat16")
+# Formats whose bit-pipeline cast takes no scale (cast.cuh::cast_elem).
+_UNSCALED_FMTS = ("bfloat16", "float16", "e5m2_flex")
+K2_BK = 32       # K slab of the GEMM (csrc/qmatmul.cu::BK)
+# K slabs a tensor-core chunk sums before it is added into the f32
+# accumulator (chip_smoke.py's k2_probe phase measures the choice).
+K2_PROMOTE = 4
 
 
 def reset_launches() -> None:
@@ -68,12 +83,23 @@ def reset_launches() -> None:
         k2_launches[variant] = 0
 
 
+def _scale_vector(scale, n: int, device) -> torch.Tensor:
+    """``scale`` (a number, or a tensor that broadcasts to (n,)) as n f32
+    values on ``device``; a number is filled there (no host copy, so a
+    launch can be captured in a CUDA graph)."""
+    if not isinstance(scale, torch.Tensor):
+        return torch.full((n,), float(scale), dtype=torch.float32,
+                          device=device)
+    s = scale.to(device=device, dtype=torch.float32).reshape(-1)
+    return s.expand(n).contiguous() if s.numel() == 1 else s.contiguous()
+
+
 def _scales(x, w, scale_x, scale_w):
-    sx = torch.as_tensor(scale_x, dtype=torch.float32,
-                         device=x.device).reshape(-1)[:1]
-    sw = (torch.as_tensor(scale_w, dtype=torch.float32, device=x.device)
-          * torch.ones(w.shape[1], dtype=torch.float32, device=x.device))
-    return sx.contiguous(), sw.reshape(-1).contiguous()
+    """(sx (1,), sw (N,)): the per-tensor and per-column scales, f32 on
+    x's device."""
+    sx = _scale_vector(scale_x.reshape(-1)[:1] if isinstance(
+        scale_x, torch.Tensor) else scale_x, 1, x.device)
+    return sx, _scale_vector(scale_w, w.shape[1], x.device)
 
 
 def _check(x, w, impl):
@@ -103,17 +129,82 @@ def sr_salt(seed: int, tag: int, fmt: Optional[str],
     return prng.salt_of(prng.fold_in(prng.fold_in(prng.key(0), seed), tag))
 
 
+def _hw_native(fmt, impl) -> bool:
+    return impl == "hw" and fmt in HW_KERNEL_FMTS
+
+
 def cast_operand(v, fmt, mode, scale, impl, salt, descale=True):
-    """One operand through the plain casts: K2's in-kernel cast
-    (``descale=False`` gives the "hw" route's scaled grid values)."""
+    """One operand through the plain casts: K2's cast (``descale=False``
+    gives the scaled grid values, see :func:`grid_operand`)."""
     rb = None if salt is None else sr_bits_from_salt(
         salt, v.numel(), v.device)[:v.numel()].reshape(v.shape)
-    if impl == "hw" and fmt in HW_KERNEL_FMTS:
+    if _hw_native(fmt, impl):
         if mode == RoundMode.STOCHASTIC:
             return hw_sr(v, fmt, scale, rb, descale)
         return hw_qdq(v, fmt, scale, descale)
-    out = cast_array(v, scale, rb, fmt, mode)
-    return out if descale else _mul(out, scale)
+    return cast_array(v, scale, rb, fmt, mode, descale=descale)
+
+
+def grid_operand(v, fmt, mode, scale, impl, salt):
+    """The plain version of K2's cast pre-pass: the operand's scaled grid
+    values, the cast with its last descale left out (uncast: ``v``)."""
+    v = v.to(torch.float32)
+    return v if fmt is None else cast_operand(v, fmt, mode, scale, impl,
+                                              salt, descale=False)
+
+
+def descale_kind(fmt, impl) -> int:
+    """The cast's last operation, which K2's epilogue applies to the sum:
+    0 none (uncast, or a format whose cast takes no scale), 1 ``mul_ftz``
+    by the reciprocal (the bit pipeline), 2 ``div_ftz`` by the scale
+    (hw)."""
+    if fmt is None:
+        return 0
+    if _hw_native(fmt, impl):
+        return 2
+    return 0 if fmt in _UNSCALED_FMTS else 1
+
+
+def descale(acc, kind: int, scale):
+    """The plain version of K2's epilogue descale (one operand)."""
+    scale = torch.as_tensor(scale, dtype=torch.float32, device=acc.device)
+    if kind == 1:
+        return _mul(acc, _recip(scale))
+    if kind == 2:
+        return _flush(acc / _flush(scale))
+    return acc
+
+
+def planes_of(fmt) -> int:
+    """bf16 planes of an operand's grid values: 1 where the format has at
+    most 7 mantissa bits (exact in bf16), else 3 (:func:`split_bf16`)."""
+    return 3 if fmt is None or fmt == "float16" else 1
+
+
+def _bits(v: torch.Tensor) -> torch.Tensor:
+    return v.contiguous().view(torch.int32)
+
+
+def split_bf16(v: torch.Tensor):
+    """The pre-pass's exact split of f32 values into bf16 planes (hi, mid,
+    lo), by truncation: hi = the top 16 bits, mid = the top 16 of the
+    exact remainder, lo = the rest rounded to bf16.  hi + mid + lo == v
+    for every finite |v| >= 2^-110 and for 0 (below, lo keeps what bf16's
+    least subnormal 2^-133 allows); inf and NaN (quieted) go to hi whole."""
+    v = v.to(torch.float32)
+
+    def top(t):        # the top 16 bits as bf16
+        return (_bits(t) >> 16).to(torch.int16).view(torch.bfloat16)
+
+    def low_cleared(t):
+        return (_bits(t) & -65536).view(torch.float32)
+
+    special = ~torch.isfinite(v)
+    nan_quiet = torch.where(torch.isnan(v), 0x00400000, 0).to(torch.int32)
+    hi = top((_bits(v) | nan_quiet).view(torch.float32))
+    r = torch.where(special, 0.0, v - low_cleared(v))
+    mid = low_cleared(r)
+    return hi, top(mid), (r - mid).to(torch.bfloat16)
 
 
 def plain(x, w, fmt_x: Optional[str] = "e4m3",
@@ -140,14 +231,21 @@ def _hw_grid_matmul(x, w, fmt_x, mode_x, fmt_w, mode_w, scale_x, scale_w,
     """The "hw" route outside the kernel: each operand cast once onto its
     scaled grid and rounded to bf16 (exact), an f32 contraction of the
     bf16 values (``torch.matmul`` on bf16 tensors would round its result
-    to bf16), the descale last."""
+    to bf16), the descale last.  Formats without a hardware dtype are
+    cast, then multiplied by the scale, as the JAX package does."""
     sx, sw = _scales(x, w, scale_x, scale_w)
     sw = sw.reshape(1, -1)
-    xg = cast_operand(x.to(torch.float32), fmt_x, mode_x, sx[0], "hw",
-                      sr_salt(seed, 1, fmt_x, mode_x), descale=False)
-    wg = cast_operand(w.to(device=x.device, dtype=torch.float32), fmt_w,
-                      mode_w, sw, "hw", sr_salt(seed, 2, fmt_w, mode_w),
-                      descale=False)
+
+    def grid(v, fmt, mode, scale, tag):
+        v = v.to(device=x.device, dtype=torch.float32)
+        salt = sr_salt(seed, tag, fmt, mode)
+        if _hw_native(fmt, "hw"):
+            return cast_operand(v, fmt, mode, scale, "hw", salt,
+                                descale=False)
+        return _mul(cast_operand(v, fmt, mode, scale, "hw", salt), scale)
+
+    xg = grid(x, fmt_x, mode_x, sx[0], 1)
+    wg = grid(w, fmt_w, mode_w, sw, 2)
     with full_fp32():
         out = torch.matmul(xg.to(torch.bfloat16).to(torch.float32),
                            wg.to(torch.bfloat16).to(torch.float32))
@@ -155,16 +253,18 @@ def _hw_grid_matmul(x, w, fmt_x, mode_x, fmt_w, mode_w, scale_x, scale_w,
 
 
 @functools.cache
-def _fn():
-    fn = _build.load("qmatmul").fp8_qdq_matmul
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _fns():
+    lib = _build.load("qmatmul")
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    prep = lib.fp8_k2_prepass
+    prep.argtypes = [vp] + [i64] * 10 + [vp, i64, i32, i32, vp, i32, i64, vp]
+    prep.restype = i32
+    gemm = lib.fp8_k2_gemm
+    gemm.argtypes = [vp, i64, i32, i32, vp, i32, vp, i64, i32, i32, vp, i32,
+                     i32, i32, vp, i32, i32, vp, vp, i32, i32, vp, vp, i32,
+                     vp]
+    gemm.restype = i32
+    return prep, gemm
 
 
 def _operand_code(fmt, mode, impl) -> int:
@@ -174,40 +274,120 @@ def _operand_code(fmt, mode, impl) -> int:
     the bit pipeline's (``variant_code``) otherwise."""
     if fmt is None:
         return -1
-    if impl == "hw" and fmt in HW_KERNEL_FMTS:
+    if _hw_native(fmt, impl):
         return 0x100 | (FMT_IDS[fmt] << 4) \
             | (2 if mode == RoundMode.STOCHASTIC else 0)
     return variant_code(fmt, mode)
 
 
-def _launch(x, w, fmt_x, mode_x, fmt_w, mode_w, scale_x, scale_w, seed=0,
-            impl="bitexact", unsplit: bool = False):
-    """One K2 launch.  ``unsplit`` keeps K whole where :func:`k2_split`
-    would split it (a measurement of the kernel without split-K)."""
+def _round_up(v: int, to: int) -> int:
+    return -(-v // to) * to
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _prepass(src, rows, cols, ld, view, sr_index, planes, code, scale,
+             per_row, salt):
+    """One K2 pre-pass launch: ``planes`` bf16 planes (planes, rows, ld)
+    of ``src``'s grid values, element (r, c) read at ``view`` = (rg, r0,
+    r1, cg, c0, c1): (r // rg) * r1 + (r % rg) * r0 plus the same of c
+    (a group of 0: r * r0); SR index r * ir + c * ic, ``sr_index`` = (ir,
+    ic)."""
+    if rows > _MAX_ROWS:
+        raise ValueError(f"K2 pre-pass: {rows} rows exceed the kernel's grid")
+    out = torch.empty((planes, rows, ld), dtype=torch.bfloat16,
+                      device=src.device)
+    err = _fns()[0](src.data_ptr(), rows, cols, *view, *sr_index,
+                    out.data_ptr(), ld, planes, code, scale.data_ptr(),
+                    int(per_row), -1 if salt is None else salt,
+                    _stream(src))
+    _build.check(err, "K2 cast pre-pass")
+    k2_launches["prepass"] += 1
+    return out
+
+
+def _matrix_view(t, transpose=False):
+    """(view, sr_index) of a 2-D tensor read as (rows, cols) = t's (dims)
+    or, transposed, t's (dim 1, dim 0); SR indices row-major in t."""
+    s0, s1 = t.stride()
+    if transpose:
+        return (0, s1, 0, 0, s0, 0), (1, t.shape[1])
+    return (0, s0, 0, 0, s1, 0), (t.shape[1], 1)
+
+
+def _gemm(a, pa, b, pb, out, m, n, k_tiles, kinds, scales, conv=None,
+          unsplit=False, promote=None, a32=None):
+    """One launch of K2's GEMM over pre-passed planes, or with ``a32`` an
+    uncast f32 A read in place (see fp8_k2_gemm)."""
     global launches
-    m, k = x.shape
-    n = w.shape[1]
-    if m > _MAX_ROWS or max(m, n, k) >= 2 ** 31:
-        raise ValueError(f"qdq_matmul shape ({m}, {k}) @ ({k}, {n}) exceeds "
-                         "the kernel's grid")
-    xf = x.to(torch.float32).contiguous()
-    wf = w.to(device=x.device, dtype=torch.float32).contiguous()
-    sx, sw = _scales(xf, wf, scale_x, scale_w)
-    splits, kper = k2_split(m, n, k, sm_count(x.device.index or 0),
-                            unsplit)
-    ws, counters = split_workspace(x.device, splits, m, n)
-    salts = [sr_salt(seed, 1, fmt_x, mode_x), sr_salt(seed, 2, fmt_w, mode_w)]
-    salt_x, salt_w = (-1 if s is None else s for s in salts)
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    err = _fn()(xf.data_ptr(), wf.data_ptr(), out.data_ptr(), m, n, k,
-                _operand_code(fmt_x, mode_x, impl), sx.data_ptr(), salt_x,
-                _operand_code(fmt_w, mode_w, impl), sw.data_ptr(), salt_w,
-                splits, kper, ws.data_ptr() if ws is not None else None,
-                counters.data_ptr(),
-                torch.cuda.current_stream(x.device).cuda_stream)
+    splits, kper = k2_split(m, n, k_tiles * K2_BK,
+                            sm_count(out.device.index or 0), unsplit)
+    ws, counters = split_workspace(out.device, splits, m, n)
+    conv_args = None if conv is None else (ctypes.c_int * len(conv))(*conv)
+    sx, sw = scales
+    err = _fns()[1](
+        None if a is None else a.data_ptr(), 0 if a is None else a[0].numel(),
+        a32.stride(1) if a is None else a.shape[-1], pa,
+        None if a32 is None else a32.data_ptr(),
+        0 if a32 is None else a32.shape[1],
+        b.data_ptr(), b[0].numel(), b.shape[-1], pb,
+        out.data_ptr(), m, n, k_tiles,
+        None if conv_args is None else ctypes.addressof(conv_args),
+        kinds[0], kinds[1], sx.data_ptr(),
+        sw.data_ptr(), splits, kper // K2_BK,
+        ws.data_ptr() if ws is not None else None, counters.data_ptr(),
+        K2_PROMOTE if promote is None else promote, _stream(out))
     _build.check(err, "qdq_matmul kernel")
     launches += 1
-    k2_launches["uncast" if fmt_x is None and fmt_w is None else impl] += 1
+
+
+def _m_contiguous(x) -> bool:
+    """Whether the GEMM can read an f32 (M, K) operand in place: M
+    contiguous, in 16-byte pieces."""
+    return (x.dtype == torch.float32 and x.stride(0) == 1
+            and x.stride(1) % 4 == 0 and x.shape[0] % 4 == 0
+            and x.data_ptr() % 16 == 0)
+
+
+def _variant(fmt_x, fmt_w, impl) -> str:
+    return "uncast" if fmt_x is None and fmt_w is None else impl
+
+
+def _launch(x, w, fmt_x, mode_x, fmt_w, mode_w, scale_x, scale_w, seed=0,
+            impl="bitexact", unsplit: bool = False, promote=None):
+    """One K2 call on CUDA tensors: a pre-pass over each operand, read in
+    place through its strides (a transposed view is not copied), then the
+    GEMM; an uncast x with M contiguous goes to the GEMM as it is.
+    ``unsplit`` keeps K whole where :func:`k2_split` would split it,
+    ``promote`` overrides :data:`K2_PROMOTE` (measurements of the
+    kernel)."""
+    m, k = x.shape
+    n = w.shape[1]
+    if max(m, n, k) >= 2 ** 31:
+        raise ValueError(f"qdq_matmul shape ({m}, {k}) @ ({k}, {n}) exceeds "
+                         "the kernel's grid")
+    xf = x if x.dtype == torch.float32 else x.to(torch.float32)
+    wf = w.to(device=x.device, dtype=torch.float32)
+    sx, sw = _scales(xf, wf, scale_x, scale_w)
+    salts = [sr_salt(seed, 1, fmt_x, mode_x), sr_salt(seed, 2, fmt_w, mode_w)]
+    k_tiles = -(-k // K2_BK)
+    ld = k_tiles * K2_BK
+    pa, pb = planes_of(fmt_x), planes_of(fmt_w)
+    # An uncast x stored with M contiguous (the backward's transposed
+    # im2col) is split by the GEMM as it loads it: no pre-pass, no planes.
+    a32 = xf if fmt_x is None and _m_contiguous(xf) else None
+    a = None if a32 is not None else _prepass(
+        xf, m, k, ld, *_matrix_view(xf), pa,
+        _operand_code(fmt_x, mode_x, impl), sx, False, salts[0])
+    b = _prepass(wf, n, k, ld, *_matrix_view(wf, transpose=True), pb,
+                 _operand_code(fmt_w, mode_w, impl), sw, True, salts[1])
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    _gemm(a, pa, b, pb, out, m, n, k_tiles,
+          (descale_kind(fmt_x, impl), descale_kind(fmt_w, impl)), (sx, sw),
+          unsplit=unsplit, promote=promote, a32=a32)
+    k2_launches[_variant(fmt_x, fmt_w, impl)] += 1
     return out
 
 
@@ -242,6 +422,125 @@ def qdq_matmul(
     return out.to(out_dtype)
 
 
+# -- K2 as the engine conv ----------------------------------------------------
+
+def im2col(x, ksize, strides, pads):
+    """The engine's im2col of an NCHW tensor in f32: (B*OH*OW, Cin*KH*KW),
+    rows (b, oh, ow) and features (c, kh, kw), as the JAX package orders
+    them (one strided copy); returns (col, oh, ow)."""
+    kh, kw = ksize
+    (pt, pb), (pl, pr) = pads
+    xp = x.to(torch.float32)
+    if pt or pb or pl or pr:
+        xp = F.pad(xp, (pl, pr, pt, pb))
+    patches = xp.unfold(2, kh, strides[0]).unfold(3, kw, strides[1])
+    oh, ow = patches.shape[2], patches.shape[3]
+    col = patches.permute(0, 2, 3, 1, 4, 5).reshape(-1, x.shape[1] * kh * kw)
+    return col, oh, ow
+
+
+@functools.lru_cache(maxsize=None)
+def _gathered_positions(size: int, k: int, stride: int, lo: int, hi: int):
+    """The positions along one axis of ``size`` that an im2col with
+    ``k`` taps, ``stride`` and pads (lo, hi) reads; None if all."""
+    n_out = (size + lo + hi - k) // stride + 1
+    pos = sorted({o * stride - lo + i for o in range(n_out) for i in range(k)
+                  if 0 <= o * stride - lo + i < size})
+    return None if len(pos) == size else tuple(pos)
+
+
+_INDEX_TENSORS = {}
+
+
+def gathered(x, ksize, strides, pads):
+    """The elements of NCHW ``x`` that the im2col gathers, as a tensor
+    (``x`` itself where every position is gathered; a 1x1 stride-2 conv
+    gathers every other row and column).  A max over it equals the max
+    over the im2col with its zero pads (amax is at least 0)."""
+    for axis, k, s, (lo, hi) in zip((2, 3), ksize, strides, pads):
+        pos = _gathered_positions(x.shape[axis], k, s, lo, hi)
+        if pos is not None:
+            index = _INDEX_TENSORS.get((pos, x.device))
+            if index is None:
+                index = _INDEX_TENSORS[pos, x.device] = torch.tensor(
+                    pos, device=x.device)
+            x = x.index_select(axis, index)
+    return x
+
+
+def conv_plain(x, weight, strides, pads, fmt_x, mode_x, scale_x, seed=0,
+               impl="bitexact"):
+    """The plain version of :func:`conv`: im2col, then K2's plain version
+    against the (Cin*KH*KW, Cout) weight; NCHW out."""
+    cout, _, kh, kw = weight.shape
+    col, oh, ow = im2col(x, (kh, kw), strides, pads)
+    w2d = weight.to(torch.float32).reshape(cout, -1).t()
+    out = plain(col, w2d, fmt_x, mode_x, None, RoundMode.RNE, scale_x, 1.0,
+                seed, impl)
+    return out.reshape(x.shape[0], oh, ow, cout).permute(0, 3, 1, 2)
+
+
+def conv_prepass(x, fmt, mode, scale, impl="bitexact"):
+    """K2's pre-pass over an NCHW CUDA activation: its grid values as bf16
+    planes (planes, B*H*W, C rounded up to 8), pixels in rows, channels
+    contiguous (NHWC), one launch.  ``scale`` is a (1,) f32 tensor."""
+    bsz, cin, h, w = x.shape
+    xf = (x if x.dtype == torch.float32 else x.to(torch.float32)).contiguous()
+    hw = h * w
+    return _prepass(xf, bsz * hw, cin, _round_up(cin, 8),
+                    (hw, 1, cin * hw, 0, hw, 0), (0, 0), planes_of(fmt),
+                    _operand_code(fmt, mode, impl), scale, False, None)
+
+
+def conv(x, weight, strides, pads, fmt_x, mode_x, scale_x, seed=0,
+         impl="bitexact"):
+    """The engine conv ``qdq(x) (*) weight`` with a per-tensor activation
+    scale, as one K2 launch: on a CUDA tensor the pre-pass casts the NCHW
+    activation once into an NHWC grid (channels padded to 8) and the GEMM
+    gathers the im2col tile from it (K ordered (kh, kw, c), the weight's
+    columns permuted to match: only the order of the sums changes), with
+    the NCHW output written by its epilogue.  Sound for a per-tensor scale
+    because the cast of im2col(x) is the im2col of the cast of x (the zero
+    pads cast to +0); stochastic rounding, whose bits are keyed by the
+    im2col's index, takes :func:`qdq_matmul` on the explicit im2col.  The
+    plain version on the CPU."""
+    if not x.is_cuda:
+        return conv_plain(x, weight, strides, pads, fmt_x, mode_x, scale_x,
+                          seed, impl)
+    if fmt_x is not None and mode_x == RoundMode.STOCHASTIC:
+        raise ValueError("the implicit conv rounds to nearest; stochastic "
+                         "rounding takes qdq_matmul on the im2col")
+    bsz, cin, h, w_ = x.shape
+    cout, _, kh, kw = weight.shape
+    (pt, pb), (pl, pr) = pads
+    oh = (h + pt + pb - kh) // strides[0] + 1
+    ow = (w_ + pl + pr - kw) // strides[1] + 1
+    wf = weight.to(device=x.device, dtype=torch.float32)
+    sx = _scale_vector(scale_x.reshape(-1)[:1] if isinstance(
+        scale_x, torch.Tensor) else scale_x, 1, x.device)
+    cp = _round_up(cin, 8)
+    pa = planes_of(fmt_x)
+    act = conv_prepass(x, fmt_x, mode_x, sx, impl)
+    k_tiles = -(-(kh * kw * cp) // K2_BK)
+    if cp == cin:   # column k of the weight operand: tap k // cin, channel
+        wv = wf.contiguous()           # k % cin of the OIHW weight
+        view = (0, cin * kh * kw, 0, cin, kh * kw, 1)
+    else:
+        wv = F.pad(wf.permute(0, 2, 3, 1), (0, cp - cin)).reshape(
+            cout, -1).contiguous()
+        view = (0, kh * kw * cp, 0, 0, 1, 0)
+    # (the weight is uncast: no scale is read; sx stands in for one)
+    wpl = _prepass(wv, cout, kh * kw * cp, k_tiles * K2_BK, view, (0, 0), 3,
+                   -1, sx, True, None)
+    out = torch.empty((bsz, cout, oh, ow), dtype=torch.float32,
+                      device=x.device)
+    _gemm(act, pa, wpl, 3, out, bsz * oh * ow, cout, k_tiles,
+          (descale_kind(fmt_x, impl), 0), (sx, sx),
+          conv=(h, w_, cp, kh, kw, strides[0], strides[1], pt, pl, oh, ow))
+    k2_launches[_variant(fmt_x, None, impl)] += 1
+    return out
+
+
 # -- K3: serving dequant-GEMM ---------------------------------------------------
 
 FP8_DTYPES = {"e4m3": torch.float8_e4m3fn, "e5m2": torch.float8_e5m2}
@@ -252,6 +551,28 @@ def div_exact(a: torch.Tensor, c: float) -> torch.Tensor:
     """``a / c`` as one correctly rounded division on every device (with a
     Python scalar divisor torch multiplies by the reciprocal on CUDA)."""
     return a / torch.full_like(a, c)
+
+
+def flush_amax(amax: torch.Tensor) -> torch.Tensor:
+    """A quantizer's amax as XLA computes it: a subnormal max reads 0 (its
+    DAZ), so that slice takes scale 1 and quantizes to zeros, as in the
+    JAX package.  The scale derived from a normal amax is not flushed:
+    where XLA flushes a subnormal ``amax / max`` to 0, the JAX package
+    divides by that 0 and stores ±max or NaN payloads (a fault of its
+    own); the port keeps the finite scale."""
+    return _flush(amax)
+
+
+def fp8_payload(v: torch.Tensor, fmt: str) -> torch.Tensor:
+    """Clipped f32 values to fp8 storage, a NaN with the bits XLA's
+    convert gives it: e5m2 keeps the sign and the quiet bit (0x7E, 0xFE),
+    where torch's convert writes 0x7F / 0xFF (e4m3 has one NaN code)."""
+    payload = v.to(FP8_DTYPES[fmt])
+    if fmt != "e5m2":
+        return payload
+    nan_bits = torch.where(torch.signbit(v), 0xFE, 0x7E).to(torch.uint8)
+    return torch.where(torch.isnan(v), nan_bits, payload.view(
+        torch.uint8)).view(FP8_DTYPES[fmt])
 
 
 def quantize_weights(w: torch.Tensor, fmt: str = "e4m3", axis: int = -1):
@@ -265,6 +586,7 @@ def quantize_weights(w: torch.Tensor, fmt: str = "e4m3", axis: int = -1):
     reduce_axes = [i for i in range(w.ndim) if i != ax]
     amax = wf.abs().amax(dim=reduce_axes, keepdim=True) if reduce_axes \
         else wf.abs()
+    amax = flush_amax(amax)
     one = torch.ones_like(amax)
     if fmt == "int8":
         scales = torch.where(amax > 0, div_exact(amax, 127.0), one)
@@ -275,8 +597,7 @@ def quantize_weights(w: torch.Tensor, fmt: str = "e4m3", axis: int = -1):
                          "e5m2 or int8 (e3m4/fp4 use the emulation path)")
     top = FORMATS[fmt].max_normal
     scales = torch.where(amax > 0, div_exact(amax, top), one)
-    q = torch.clip(wf / scales, -top, top)
-    return q.to(FP8_DTYPES[fmt]), scales
+    return fp8_payload(torch.clip(wf / scales, -top, top), fmt), scales
 
 
 def _check_dequant(x, w8, scales, out_dtype):
@@ -332,12 +653,12 @@ def plan_splits(tiles: int, k: int, sms: int, cap: int, min_rows: int,
 
 
 def k2_split(m: int, n: int, k: int, sms: int, unsplit: bool = False):
-    """K2's split of K over its 64x64 tiles (split launches take that
-    tile): up to 64 ways, at least 512 rows a split, as the backward's
-    weight gradient needs (576 x 64 outputs over K = 100352 at ResNet-50's
-    first stage)."""
-    tiles = -(-m // 64) * -(-n // 64)
-    return plan_splits(tiles, k, sms, 1 if unsplit else 64, 512, 16)
+    """K2's split of K over its 128 x 64 tiles: up to 64 ways, at least
+    512 rows a split, rows a multiple of its 32-row slab, as the
+    backward's weight gradient needs (576 x 64 outputs over K = 100352 at
+    ResNet-50's first stage)."""
+    tiles = -(-m // 128) * -(-n // 64)
+    return plan_splits(tiles, k, sms, 1 if unsplit else 64, 512, K2_BK)
 
 
 def split_k(m: int, n: int, k: int, sms: int, stream: bool = False,

@@ -170,9 +170,11 @@ def _nearest_increment(mode, rnmask, rntie, positive, fmt: FPFormat):
     return up.to(torch.int64) << fmt.cast_lshift
 
 
-def _prep_scale(scale, x):
+def _prep_scale(scale, x, descale=True):
+    """(scale, the final multiplier): 1/scale, or 1 where the cast is to
+    stop on the scaled grid (``descale=False``)."""
     scale = _f32(scale, x)
-    return scale, _recip(scale)
+    return scale, _recip(scale) if descale else torch.ones_like(scale)
 
 
 def _rand(random_bits, mask):
@@ -181,9 +183,9 @@ def _rand(random_bits, mask):
 
 # -- format bodies --------------------------------------------------------------
 
-def _cast_e5m2(x, mode, scale, daz, random_bits):
+def _cast_e5m2(x, mode, scale, daz, random_bits, descale=True):
     fmt = FORMATS["e5m2"]
-    scale, inv = _prep_scale(scale, x)
+    scale, inv = _prep_scale(scale, x, descale)
     h = _to_f16_bits(x, scale)
 
     exp_field = h & 0x7C00
@@ -217,8 +219,8 @@ def _cast_e5m2(x, mode, scale, daz, random_bits):
     return _from_f16_bits(h, inv)
 
 
-def _cast_rebias(x, fmt: FPFormat, mode, scale, random_bits):
-    scale, inv = _prep_scale(scale, x)
+def _cast_rebias(x, fmt: FPFormat, mode, scale, random_bits, descale=True):
+    scale, inv = _prep_scale(scale, x, descale)
     h = _to_f16_bits(x, scale)
 
     exp = ((h >> 10) & 0x1F) - 15
@@ -261,12 +263,12 @@ def _cast_rebias(x, fmt: FPFormat, mode, scale, random_bits):
     return _from_f16_bits(out, inv)
 
 
-def _cast_e4m3_v2(x, mode, scale, random_bits):
+def _cast_e4m3_v2(x, mode, scale, random_bits, descale=True):
     """E4M3 "v2": raw fp16 exponent kept, 3 mantissa bits, everything
     ``|x| >= 1.0`` (inf/NaN included) saturated to ±0.9375 before
     rounding."""
     fmt = FORMATS["e4m3"]
-    scale, inv = _prep_scale(scale, x)
+    scale, inv = _prep_scale(scale, x, descale)
     h = _to_f16_bits(x, scale)
 
     exp = ((h >> 10) & 0x1F) - 15
@@ -341,9 +343,9 @@ def _cast_float16(x, mode, daz, random_bits):
     return f16_bits_to_f32(h & 0xFFFF)
 
 
-def _cast_e5m2_noinf(x, scale):
+def _cast_e5m2_noinf(x, scale, descale=True):
     """E5M2 noINF (exponent offset 16, inf/NaN encodings reclaimed)."""
-    scale, inv = _prep_scale(scale, x)
+    scale, inv = _prep_scale(scale, x, descale)
     h = _to_f16_bits(x, scale)
     naninf = (h & 0x7C00) == 0x7C00
     tie = ((h & 0x0100) == 0x0100).to(torch.int64)
@@ -385,8 +387,8 @@ def _cast_e5m2_flex(x, scale):
     return f16_bits_to_f32(out)
 
 
-def _cast_fp4(x, scale):
-    scale, inv = _prep_scale(scale, x)
+def _cast_fp4(x, scale, descale=True):
+    scale, inv = _prep_scale(scale, x, descale)
     f = _mul(x.to(torch.float32), scale)
     u = _bits(f)
     exp = ((u >> 23) & 0xFF) - 127
@@ -408,31 +410,33 @@ def _cast_fp4(x, scale):
 
 
 def cast_array(x, scale, random_bits, fmt_name: str, mode: RoundMode,
-               daz: bool = False) -> torch.Tensor:
+               daz: bool = False, descale: bool = True) -> torch.Tensor:
     """The plain cast core: ``x`` any float tensor, ``scale`` broadcastable
     to it, ``random_bits`` an integer tensor broadcastable to it (or None).
-    Returns float32."""
+    Returns float32.  ``descale=False`` stops on the scaled grid: the cast
+    without its final multiply by 1/scale (formats that take no scale
+    return their cast)."""
     if fmt_name == "e5m2_noinf":
         if mode != RoundMode.RNE:
             raise ValueError("e5m2_noinf implements RNE only")
-        return _cast_e5m2_noinf(x, scale)
+        return _cast_e5m2_noinf(x, scale, descale)
     if fmt_name == "e5m2_flex":
         if mode != RoundMode.RNE:
             raise ValueError("e5m2_flex implements RNE only")
         return _cast_e5m2_flex(x, scale)
     if fmt_name == "e4m3_v2":
-        return _cast_e4m3_v2(x, mode, scale, random_bits)
+        return _cast_e4m3_v2(x, mode, scale, random_bits, descale)
     fmt = FORMATS[fmt_name]
     if fmt_name == "e5m2":
-        return _cast_e5m2(x, mode, scale, daz, random_bits)
+        return _cast_e5m2(x, mode, scale, daz, random_bits, descale)
     if fmt_name in ("e4m3", "e4m3_ieee", "e3m4"):
-        return _cast_rebias(x, fmt, mode, scale, random_bits)
+        return _cast_rebias(x, fmt, mode, scale, random_bits, descale)
     if fmt_name == "bfloat16":
         return _cast_bfloat16(x, mode, random_bits)
     if fmt_name == "float16":
         return _cast_float16(x, mode, daz, random_bits)
     if fmt_name == "fp4":
-        return _cast_fp4(x, scale)
+        return _cast_fp4(x, scale, descale)
     raise ValueError(f"unknown format {fmt_name}")
 
 

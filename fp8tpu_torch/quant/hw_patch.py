@@ -7,7 +7,8 @@ around a plain matmul.
 The backward runs two more engine GEMMs, uncast, over the re-quantized
 saved operands (the C-model's autograd, cmodel/simple.py:124-146),
 straight-through with respect to the casts: one ``torch.autograd.Function``
-in place of the JAX package's two ``custom_vjp``s.
+in place of the JAX package's two ``custom_vjp``s, and one more for the
+conv, whose forward on the card is K2 as an implicit GEMM.
 """
 
 from __future__ import annotations
@@ -15,9 +16,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from fp8tpu_torch import linen
+from fp8tpu_torch.kernels import qmatmul
 from fp8tpu_torch.kernels.qmatmul import qdq_matmul
 from fp8tpu_torch.numerics import prng
 from fp8tpu_torch.numerics import scaling as _scaling
@@ -123,30 +124,83 @@ def conv_patchable(module) -> bool:
     return not isinstance(pad, str) or pad.upper() in ("SAME", "VALID")
 
 
+def _implicit_ok(cfg_t: Optional[TensorQuantConfig]) -> bool:
+    """Whether the conv's activation cast commutes with im2col, so that K2
+    can cast the activation once and gather its im2col: an elementwise
+    cast that is not stochastic (SR draws bits by the im2col's index),
+    under no scale or a per-tensor "max" scale (a max over the gathered
+    positions is the max over the im2col; a mean is not)."""
+    return cfg_t is None or (not cfg_t.is_stochastic and (
+        cfg_t.scaling == "none" or cfg_t.method == "max"))
+
+
+class _EngineConv(torch.autograd.Function):
+    """NCHW ``qdq(x) (*) weight`` through the fused engine, the weight
+    uncast (quantize_params applied its role).  On a CUDA tensor whose
+    cast commutes with im2col (:func:`_implicit_ok`) the forward is one
+    K2 implicit-GEMM launch (``qmatmul.conv``) with the scale taken over
+    the positions the im2col gathers; otherwise im2col and one engine GEMM,
+    the scale taken on the im2col, as the JAX package does.  It saves x,
+    not the im2col; the backward rebuilds the im2col, re-quantizes it
+    (:func:`_requant`) and runs the two uncast GEMMs, reading the
+    transposed operands in place, then autograd's col2im."""
+
+    @staticmethod
+    def forward(ctx, x, weight, seed, strides, pads, cfg_t):
+        ctx.save_for_backward(x, weight)
+        ctx.geometry = strides, pads
+        ctx.cfg = cfg_t
+        fmt, mode = _fmt_args(cfg_t)
+        impl = _impl_of(cfg_t)
+        ksize = tuple(weight.shape[2:])
+        if x.is_cuda and _implicit_ok(cfg_t):
+            scale = _operand_scale(qmatmul.gathered(x, ksize, strides, pads),
+                                   cfg_t)
+            return qmatmul.conv(x, weight, strides, pads, fmt, mode, scale,
+                                seed, impl)
+        col, oh, ow = qmatmul.im2col(x, ksize, strides, pads)
+        cout = weight.shape[0]
+        w2d = weight.to(torch.float32).reshape(cout, -1).t()
+        out = qdq_matmul(col, w2d, fmt_x=fmt, mode_x=mode, fmt_w=None,
+                         scale_x=_operand_scale(col, cfg_t), seed=seed,
+                         impl=impl)
+        return out.reshape(x.shape[0], oh, ow, cout).permute(0, 3, 1, 2)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        strides, pads = ctx.geometry
+        cout = weight.shape[0]
+        with torch.enable_grad():
+            xr = x.detach().requires_grad_(ctx.needs_input_grad[0])
+            col, _, _ = qmatmul.im2col(xr, tuple(weight.shape[2:]), strides,
+                                       pads)
+        gf = g.to(torch.float32).permute(0, 2, 3, 1).reshape(-1, cout)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            w_rows = weight.to(torch.float32).reshape(cout, -1)
+            dcol = _uncast(gf, w_rows)
+            dx = torch.autograd.grad(col, xr, dcol)[0].to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            colq = _requant(col.detach(), ctx.cfg)
+            dw = _uncast(colq.t(), gf).t().reshape(weight.shape).to(
+                weight.dtype)
+        return dx, dw, None, None, None, None
+
+
 def engine_conv(x: torch.Tensor, weight: torch.Tensor, bias, strides,
                 padding, cfg: ModuleQuantConfig,
                 key: Optional[PRNGKey] = None) -> torch.Tensor:
-    """NCHW conv2d through the fused engine: im2col (one strided copy,
-    features ordered (Cin, KH, KW) as in the JAX package) + one engine GEMM
-    against the OIHW weight.  The per-tensor iact scale is taken on the
-    im2col matrix, as the JAX package does.  The im2col's backward (the
-    col2im sum) comes from autograd."""
-    cout, cin, kh, kw = weight.shape
+    """NCHW conv2d through the fused engine (:class:`_EngineConv`): the
+    JAX package's im2col (features ordered (Cin, KH, KW)) + one engine
+    GEMM against the OIHW weight, with the per-tensor iact scale of the
+    im2col matrix; on the card an implicit GEMM computes the same."""
     if isinstance(strides, int):
         strides = (strides, strides)
-    (pt, pb), (pl, pr) = linen.conv_padding(padding, x.shape[-2:], (kh, kw),
-                                            strides)
-    xp = x.to(torch.float32)
-    if pt or pb or pl or pr:
-        xp = F.pad(xp, (pl, pr, pt, pb))
-    # (B, Cin, OH, OW, KH, KW) view → rows (b, oh, ow), features (c, kh, kw)
-    patches = xp.unfold(2, kh, strides[0]).unfold(3, kw, strides[1])
-    oh, ow = patches.shape[2], patches.shape[3]
-    col = patches.permute(0, 2, 3, 1, 4, 5).reshape(-1, cin * kh * kw)
-    w2d = weight.to(torch.float32).reshape(cout, cin * kh * kw).t()
-    out = patched_linear(col, w2d, cfg, _seed_of(key))
-    out = out.reshape(x.shape[0], oh, ow, cout).permute(0, 3, 1, 2)
-    out = out.to(x.dtype)
+    pads = linen.conv_padding(padding, x.shape[-2:], tuple(weight.shape[2:]),
+                              strides)
+    out = _EngineConv.apply(x, weight, _seed_of(key), tuple(strides),
+                            tuple(map(tuple, pads)), cfg.iact).to(x.dtype)
     if bias is not None:
         out = out + bias.to(out.dtype).reshape(1, -1, 1, 1)
     return out

@@ -14,7 +14,8 @@ from typing import Optional, Tuple
 import torch
 
 from fp8tpu_torch._device import resolve_device
-from fp8tpu_torch.kernels.qmatmul import div_exact
+from fp8tpu_torch.kernels.qmatmul import (div_exact, flush_amax,
+                                          fp8_payload)
 from fp8tpu_torch.numerics.formats import FORMATS
 
 KV_DTYPES = {
@@ -31,13 +32,14 @@ _FMT_OF = {v: k for k, v in KV_DTYPES.items()}
 def quantize_kv(x: torch.Tensor, fmt: str = "e4m3"):
     """Quantize (..., kv_heads, head_dim) vectors to fp8/int8 with one scale
     per head vector.  Returns (payload, f32 scales with trailing dim 1).
-    The clips keep the converts inside the payload's range."""
+    The clips keep the converts inside the payload's range; the amax and
+    NaN payloads are XLA's (``qmatmul.flush_amax``, ``fp8_payload``)."""
     if fmt == "bf16":
         scale = torch.ones(x.shape[:-1] + (1,), dtype=torch.float32,
                            device=x.device)
         return x.to(torch.bfloat16), scale
     xf = x.to(torch.float32)
-    amax = xf.abs().amax(dim=-1, keepdim=True)
+    amax = flush_amax(xf.abs().amax(dim=-1, keepdim=True))
     one = torch.ones_like(amax)
     if fmt == "int8":
         scale = torch.where(amax > 0, div_exact(amax, 127.0), one)
@@ -45,8 +47,7 @@ def quantize_kv(x: torch.Tensor, fmt: str = "e4m3"):
         return payload.to(torch.int8), scale
     top = FORMATS[fmt].max_normal
     scale = torch.where(amax > 0, div_exact(amax, top), one)
-    payload = torch.clip(xf / scale, -top, top)
-    return payload.to(KV_DTYPES[fmt]), scale
+    return fp8_payload(torch.clip(xf / scale, -top, top), fmt), scale
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:

@@ -169,11 +169,11 @@ def quantize_weights_int4(w: torch.Tensor,
     if group_size is not None:
         gs = group_size if K % group_size == 0 and K >= group_size else K
         wg = wf.reshape(K // gs, gs, N)
-        amax = wg.abs().amax(dim=1)                          # (G, N)
+        amax = qmatmul.flush_amax(wg.abs().amax(dim=1))      # (G, N)
         s = torch.where(amax > 0, div_exact(amax, 7.0), torch.ones_like(amax))
         q = torch.clip(torch.round(wg / s[:, None]), -8, 7).reshape(K, N)
     else:
-        amax = wf.abs().amax(dim=0)
+        amax = qmatmul.flush_amax(wf.abs().amax(dim=0))
         s = torch.where(amax > 0, div_exact(amax, 7.0), torch.ones_like(amax))
         q = torch.clip(torch.round(wf / s), -8, 7)
     return pack_int4(q), s

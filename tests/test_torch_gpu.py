@@ -159,6 +159,104 @@ def test_qdq_matmul_training_variants_match_plain(cuda, impl, fmt_x, mode_x,
         np.testing.assert_array_equal(_bits(xk), _bits(want_x))
 
 
+# Small ResNet-like conv geometries: (batch, Cin, H, Cout, kernel, stride,
+# pad), a 1x1 stride-2 downsample and a ragged one (Cin not a multiple of 8).
+CONV_GEOMETRIES = [(2, 64, 14, 32, 3, 1, 1), (2, 32, 14, 48, 3, 2, 1),
+                   (2, 64, 14, 128, 1, 2, 0), (2, 64, 7, 64, 1, 1, 0),
+                   (3, 20, 11, 37, 3, 2, 1)]
+
+
+@pytest.mark.parametrize("impl,fmt", [("bitexact", "e4m3"), ("hw", "e4m3"),
+                                      ("hw", "e5m2"), ("bitexact", None)])
+@pytest.mark.parametrize("conv", CONV_GEOMETRIES)
+def test_implicit_conv_matches_plain(cuda, conv, impl, fmt):
+    """The engine conv as K2's implicit GEMM (one activation and one
+    weight pre-pass, one GEMM) within the summation-order tolerance of the
+    exact product of the cast im2col and the weight, as its plain version
+    is."""
+    from chip_smoke import k2_conv_operands, k2_ratio, k2_reference
+    from fp8tpu_torch.numerics.scaling import per_tensor
+    b, cin, h, cout, k, s, p = conv
+    g = torch.Generator().manual_seed(cin + h)
+    x = torch.randn(b, cin, h, h, generator=g).relu().to(cuda)
+    w = (torch.randn(cout, cin, k, k, generator=g) / (cin * k * k) ** 0.5
+         ).to(cuda)
+    strides, pads = (s, s), ((p, p), (p, p))
+    scale = 1.0 if fmt is None else per_tensor(
+        qmatmul.gathered(x, (k, k), strides, pads), fmt)
+    args = (x, w, strides, pads, fmt, RNE, scale, 0, impl)
+    before = (qmatmul.launches, qmatmul.k2_launches["prepass"])
+    got = qmatmul.conv(*args)
+    assert (qmatmul.launches, qmatmul.k2_launches["prepass"]) == (
+        before[0] + 1, before[1] + 2)
+    want = qmatmul.conv_plain(*args)
+    assert got.shape == want.shape
+    exact, tol = k2_reference(*k2_conv_operands(*args))
+
+    def rows(t):
+        return t.permute(0, 2, 3, 1).reshape(-1, cout)
+
+    assert k2_ratio(rows(got), exact, tol) <= 1.0
+    assert k2_ratio(rows(want), exact, tol) <= 1.0
+
+
+@pytest.mark.parametrize("impl,fmt", [("bitexact", "e4m3"), ("hw", "e5m2"),
+                                      ("hw", "bfloat16")])
+def test_implicit_conv_identity_casts(cuda, impl, fmt):
+    """A 1x1 conv against the identity makes each output one exact product:
+    the NCHW output is the plain cast of x bit for bit (-0 reads +0)."""
+    g = torch.Generator().manual_seed(4)
+    x = (torch.randn(2, 16, 5, 5, generator=g)
+         * torch.exp(torch.empty(2, 16, 5, 5).uniform_(-20, 8, generator=g)))
+    x[0, 0, 0, :3] = torch.tensor([1e-40, -0.0, 6e4])
+    eye = torch.eye(16).reshape(16, 16, 1, 1)
+    scale = torch.tensor(3.7)
+    got = qmatmul.conv(x.to(cuda), eye.to(cuda), (1, 1), ((0, 0), (0, 0)),
+                       fmt, RNE, scale.to(cuda), 0, impl)
+    want = qmatmul.cast_operand(x, fmt, RNE, scale, impl, None) + 0.0
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+def test_qdq_matmul_reads_transposed_operands_in_place(cuda):
+    """Transposed views (the backward's g @ w^T and col^T @ g) go into the
+    pre-pass as they are, with no copy: the same bits as the contiguous
+    operands."""
+    g = torch.Generator().manual_seed(5)
+    for rows in (130, 128):    # an uncast (128, K) view goes to the GEMM
+        a = torch.randn(3000, rows, generator=g).to(cuda)
+        b = torch.randn(90, 3000, generator=g).to(cuda)
+        for fmt_x, fmt_w in ((None, None), ("e4m3", None), ("e5m2", "e4m3")):
+            args = (fmt_x, RNE, fmt_w, RNE, 2.0, 4.0)
+            got = qmatmul.qdq_matmul(a.t(), b.t(), *args)
+            want = qmatmul.qdq_matmul(a.t().contiguous(),
+                                      b.t().contiguous(), *args)
+            assert torch.equal(got, want)
+
+
+def test_engine_conv_gradients_on_the_card_match_cpu(cuda):
+    """The conv autograd Function on the card (implicit GEMM forward, two
+    uncast K2 GEMMs backward) against the CPU route, output and both
+    gradients, to the f32 summation order."""
+    from fp8tpu_torch.quant import hw_patch
+    cfg = tconfig.ModuleQuantConfig(
+        iact=tconfig.TensorQuantConfig("e4m3", "rne", "per-tensor",
+                                       cast_impl="hw"), patch_ops=True)
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn(2, 16, 9, 9, generator=g)
+    w = torch.randn(24, 16, 3, 3, generator=g) / 12
+    r = torch.randn(2, 24, 5, 5, generator=g)
+    runs = []
+    for device in ("cpu", "cuda"):
+        xd = x.to(device).detach().requires_grad_(True)
+        wd = w.to(device).detach().requires_grad_(True)
+        out = hw_patch.engine_conv(xd, wd, None, 2, [(1, 1), (1, 1)], cfg)
+        (out * r.to(device)).sum().backward()
+        runs.append([t.detach().cpu() for t in (out, xd.grad, wd.grad)])
+    for got, want in zip(runs[1], runs[0]):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
 def test_tiny_training_on_the_card_matches_cpu(cuda):
     """Two hybrid FP8 train steps of the tiny ResNet with hw patching, on
     the card and on the CPU from the same weights: 5 "hw" and 10 uncast K2

@@ -274,19 +274,20 @@ def test_qdq_matmul_unported_modes_raise():
 
 
 @pytest.mark.parametrize("m,n,k,sms,unsplit,want", [
-    (576, 64, 100352, 132, False, (29, 3472)),  # ResNet-50 stage-1 3x3 dW
+    (576, 64, 100352, 132, False, (53, 1920)),  # ResNet-50 stage-1 3x3 dW
     (576, 64, 100352, 132, True, (1, 100352)),  # the same, kept whole
-    (72, 40, 20000, 132, False, (38, 528)),
+    (72, 40, 20000, 132, False, (37, 544)),
     (100352, 64, 576, 132, False, (1, 576)),    # forward: tiles fill the card
-    (64, 64, 1000, 132, False, (1, 1008)),      # K too short to split
-    (4160, 4096, 8192, 8192, False, (1, 8192)),  # more tiles than counters
+    (64, 64, 1000, 132, False, (1, 1024)),      # K too short to split
+    (8320, 4096, 8192, 8192, False, (1, 8192)),  # more tiles than counters
 ])
 def test_k2_split_plan(m, n, k, sms, unsplit, want):
-    """K2's split of K (one plan with K3's, other caps): about two blocks
-    per SM, at most 64 ways, at least 512 rows a split."""
+    """K2's split of K over its 128 x 64 tiles (one plan with K3's, other
+    caps): about two blocks per SM, at most 64 ways, at least 512 rows a
+    split, a multiple of the 32-row slab."""
     splits, kper = qmatmul.k2_split(m, n, k, sms, unsplit)
     assert (splits, kper) == want
-    assert kper % 16 == 0 and (splits - 1) * kper < k <= splits * kper
+    assert kper % 32 == 0 and (splits - 1) * kper < k <= splits * kper
 
 
 def _engine_cfgs():
@@ -299,19 +300,28 @@ def _engine_cfgs():
     return j, t
 
 
-@pytest.mark.parametrize("ksize,strides,padding,bias,hw", [
-    (3, 1, [(1, 1), (1, 1)], False, 9),
-    (3, 2, [(1, 1), (1, 1)], False, 9),
-    (1, 2, "SAME", False, 8),
-    (3, 2, "SAME", True, 8),
-    (1, 1, "VALID", True, 7),
+@pytest.mark.parametrize("ksize,strides,padding,bias,hw,scheme,scaling", [
+    (3, 1, [(1, 1), (1, 1)], False, 9, "rne", "per-tensor"),
+    (3, 2, [(1, 1), (1, 1)], False, 9, "rne", "per-tensor"),
+    (1, 2, "SAME", False, 8, "rne", "per-tensor"),
+    (3, 2, "SAME", True, 8, "rne", "per-tensor"),
+    (1, 1, "VALID", True, 7, "rne", "per-tensor"),
+    # the conv Function's other routes: a 1x1 stride-2 conv on an odd
+    # size (the scale over every other row and column), a stochastic
+    # iact and a "mean" scale (the explicit im2col on every device)
+    (1, 2, [(0, 0), (0, 0)], False, 9, "rne", "per-tensor"),
+    (3, 1, [(1, 1), (1, 1)], False, 7, "stochastic", "per-tensor"),
+    (3, 2, "SAME", False, 8, "rne", "per-tensor-mean"),
 ])
-def test_engine_conv_matches_jax(ksize, strides, padding, bias, hw):
+def test_engine_conv_matches_jax(ksize, strides, padding, bias, hw, scheme,
+                                 scaling):
     rng = np.random.default_rng(2)
     x = rng.standard_normal((2, hw, hw, 4)).astype(np.float32)
     k = (rng.standard_normal((ksize, ksize, 4, 6)) / 3).astype(np.float32)
     b = rng.standard_normal(6).astype(np.float32) if bias else None
-    jcfg, tcfg = _engine_cfgs()
+    jcfg, tcfg = (c.ModuleQuantConfig(
+        iact=c.TensorQuantConfig("e4m3", scheme, scaling), patch_ops=True)
+        for c in (jconfig, tconfig))
     j = np.asarray(jhw.engine_conv(jnp.asarray(x), jnp.asarray(k),
                                    None if b is None else jnp.asarray(b),
                                    strides, padding, jcfg, interpret=True))
@@ -437,15 +447,19 @@ def test_engine_gradients_match_jax_grad(op, scheme, dtype, impl):
                   <= summation_bound(xq.T, r))
 
 
-@pytest.mark.parametrize("strides,padding", [(1, [(1, 1), (1, 1)]),
-                                             (2, "SAME")])
-def test_engine_conv_gradients_match_jax_grad(strides, padding):
-    """Through im2col: the port's col2im is autograd's unfold backward, the
-    JAX package's the VJP of conv_general_dilated_patches."""
+@pytest.mark.parametrize("strides,padding,ksize,scheme", [
+    (1, [(1, 1), (1, 1)], 3, "rne"), (2, "SAME", 3, "rne"),
+    (2, "SAME", 1, "rne"), (1, [(1, 1), (1, 1)], 3, "stochastic")])
+def test_engine_conv_gradients_match_jax_grad(strides, padding, ksize,
+                                              scheme):
+    """Through the conv autograd Function: it saves x and rebuilds and
+    re-quantizes the im2col in its backward (SR from key(0) on both
+    sides); the port's col2im is autograd's unfold backward, the JAX
+    package's the VJP of conv_general_dilated_patches."""
     rng = np.random.default_rng(13)
     x = rng.standard_normal((2, 9, 9, 4)).astype(np.float32)
-    k = (rng.standard_normal((3, 3, 4, 6)) / 3).astype(np.float32)
-    jcfg, tcfg = _grad_cfgs("rne", "e4m3", "hw")
+    k = (rng.standard_normal((ksize, ksize, 4, 6)) / 3).astype(np.float32)
+    jcfg, tcfg = _grad_cfgs(scheme, "e4m3", "hw")
     out_hw = 9 // strides + (9 % strides > 0) if strides > 1 else 9
     r = rng.standard_normal((2, out_hw, out_hw, 6)).astype(np.float32)
     jgx, jgk = jax.grad(lambda a, b: jnp.sum(jhw.engine_conv(
@@ -454,6 +468,7 @@ def test_engine_conv_gradients_match_jax_grad(strides, padding):
     tx = torch.from_numpy(x.transpose(0, 3, 1, 2).copy()).requires_grad_(True)
     tk = torch.from_numpy(k.transpose(3, 2, 0, 1).copy()).requires_grad_(True)
     out = thw.engine_conv(tx, tk, None, strides, padding, tcfg)
+    assert type(out.grad_fn).__name__ == "_EngineConvBackward"
     (out * torch.from_numpy(r.transpose(0, 3, 1, 2).copy())).sum().backward()
     gx = tx.grad.numpy().transpose(0, 2, 3, 1)
     gk = tk.grad.numpy().transpose(2, 3, 1, 0)

@@ -104,6 +104,84 @@ def test_quantize_kv_bit_equal(rng, fmt):
     np.testing.assert_array_equal(raw(ts), raw(js))
 
 
+# Rows whose amax or scale XLA flushes, and non-finite elements: the
+# quantizers flush a subnormal amax as XLA does (scale 1, zero payload),
+# keep the finite scale where XLA flushes amax / max to 0 (the JAX
+# package then stores +-max and NaN payloads), and give e5m2 NaNs XLA's
+# bits (0x7E / 0xFE).
+FLUSH_ROWS = {
+    "subnormal amax": [1e-39, 0.0, 0.0, 0.0],
+    "subnormal scale": [1e-37, -3e-38, 2e-38, 0.0],
+    "nan": [np.nan, 1.0, -2.0, 0.0],
+    "inf": [np.inf, 1.0, 0.0, -3.0],
+    "-inf": [-np.inf, 0.5, 0.0, 0.0],
+}
+FLUSH_QUANTIZERS = [("kv", "int8"), ("kv", "e4m3"), ("kv", "e5m2"),
+                    ("weights", "int8"), ("weights", "e4m3"),
+                    ("weights", "e5m2"), ("int4", None), ("int4", 2),
+                    ("int4_grouped", 2)]
+FLUSH_CASES = [(which, fmt, row) for which, fmt in FLUSH_QUANTIZERS
+               for row in FLUSH_ROWS
+               if row.startswith("subnormal") or fmt in ("e4m3", "e5m2")]
+
+
+def _quantize_both(which, fmt, x):
+    """(JAX payload, JAX scale, port payload, port scale) of one quantizer
+    on the column (or head vector) ``x``, beside a normal column."""
+    from fp8tpu.kernels import int4_matmul as j_int4
+    from fp8tpu.kernels import qmatmul as j_qmatmul
+    if which == "kv":
+        v = x.reshape(1, 1, 4)
+        with jax.disable_jit():
+            jp, js = j_quantize_kv(jnp.asarray(v), fmt)
+        tp, ts = quantize_kv(torch.from_numpy(v), fmt)
+        return jp, js, tp, ts
+    w = np.stack([x, np.float32([0.5, -1.0, 2.0, 3.0])], axis=1)
+    jw, tw = jnp.asarray(w), torch.from_numpy(w)
+    with jax.disable_jit():
+        if which == "weights":
+            jp, js = j_qmatmul.quantize_weights(jw, fmt)
+        elif which == "int4":
+            jp, js = jmodel.quantize_weights_int4(jw, fmt)
+        else:
+            jp, js = j_int4.quantize_weights_int4_grouped(jw, fmt)
+    if which == "weights":
+        tp, ts = qmatmul.quantize_weights(tw, fmt)
+    elif which == "int4":
+        tp, ts = tmodel.quantize_weights_int4(tw, fmt)
+    else:
+        tp, ts = int4_matmul.quantize_weights_int4_grouped(tw, fmt)
+    return jp, js, tp, ts
+
+
+@pytest.mark.parametrize("which,fmt,row", FLUSH_CASES)
+def test_quantizers_flush_like_xla(which, fmt, row):
+    """The three rows of the serving quantizers' flush fault against the
+    un-jitted JAX functions: byte-equal, except where XLA flushes a
+    normal amax's scale to 0, where the port keeps amax / max."""
+    x = np.float32(FLUSH_ROWS[row])
+    jp, js, tp, ts = _quantize_both(which, fmt, x)
+    js, ts_np = np.asarray(js, np.float32), ts.numpy()
+    flushed = (js == 0) & (ts_np != 0)
+    if row != "subnormal scale" or not flushed.any():
+        np.testing.assert_array_equal(raw(tp), raw(jp))
+        np.testing.assert_array_equal(raw(ts), raw(js))
+        return
+    # where XLA flushed the scale: the port's is positive and finite, and
+    # every other scale is bit-equal
+    assert np.isfinite(ts_np[flushed]).all() and (ts_np[flushed] > 0).all()
+    np.testing.assert_array_equal(ts_np[~flushed].view(np.uint32),
+                                  js[~flushed].view(np.uint32))
+    if which in ("kv", "weights"):
+        assert np.isfinite(tp.to(torch.float32).numpy()).all()
+        back = (tp.to(torch.float32) * ts).numpy().reshape(-1, 4) \
+            if which == "kv" else (tp.to(torch.float32) * ts)[:, 0].numpy()
+        # one payload step at the amax: 1/127 of it, or 2^-mantissa bits
+        step = 1e-37 * {"int8": 1 / 127, "e4m3": 2 ** -3,
+                        "e5m2": 2 ** -2}[fmt]
+        assert np.abs(back.reshape(-1) - x).max() <= step
+
+
 ARTIFACTS = [("e4m3", "bf16", 32), ("int8", "bf16", 32), ("int4", "bf16", 32),
              ("int4", "bf16", None), ("bf16", "bf16", 32),
              ("e5m2", "e4m3", 32), ("e4m3", "int8", 32)]

@@ -36,8 +36,11 @@ Phases, each printing its own lines; any failure exits non-zero:
 4. k3     the serving dequant-GEMM (K3) against its plain version: e4m3,
           e5m2 and int8 payloads, bf16 and f32 results, decode and prefill
           row counts at the full-width (K, N) of the serving linears and a
-          ragged pair, within the summation-order bound (plus one bf16
-          step for bf16 results).
+          ragged pair (the general kernel), within the summation-order
+          bound (plus one bf16 step for bf16 results); every launch of the
+          streaming loop (M in 1, 8, 9, 16, 17, 63, 64) also against the
+          f64 product within the random-walk bound over its promoted
+          chunks (stream_reference), and a second launch bit-equal.
    k4     the paged decode-attention kernel (K4) against its plain
           version at the full-width shapes (8 and 64 slots, 8 KV heads x 4
           query heads of 128, pages of 64 tokens, 8 and 16 pages a slot):
@@ -48,7 +51,7 @@ Phases, each printing its own lines; any failure exits non-zero:
           launch bit-equal to the first; one launch captured in a CUDA
           graph and replayed after the table and the lengths changed.
    k5     the int4 unpack-GEMM (K5) likewise, per-channel and group-128
-          scales.
+          scales (N = 331 on the general kernel).
    k6     the in-place ring store (K6), bit-exact for 1-, 2- and 4-byte
           types, aligned and unaligned rows, wrapping and negative indices,
           and one launch captured in a CUDA graph and replayed with a
@@ -67,7 +70,9 @@ Phases, each printing its own lines; any failure exits non-zero:
           bench_fp8_linear`` at the tool's shape (64 x 4096 @ 4096 x 11008,
           64 reps): the three e4m3 converts bit-identical and right on all
           256 bytes, every mode against the plain version within K3's
-          bound, warm and cold and a second launch bit-identical.
+          bound, warm and cold and a second launch bit-identical; then
+          every mode at the four serving shapes and the streaming loop's
+          row counts as in k3.
 5. main   ResNet-50 (full width, 1000 classes, random weights from a
           seed), batch 32 at 224x224: BN statistics from 2 train-mode
           passes, then quantize_model(e4m3, hw patching, BN folding,
@@ -373,14 +378,17 @@ K2_ORDER_C = 16.0
 K2_BLOCKS = 16
 
 
-def k2_reference(xq, wq):
+def k2_reference(xq, wq, edges=None):
     """(exact, tol): the f64 product of K2's cast operands, and the
     largest |f32 result - exact| allowed for any order of the f32 sums,
-    elementwise (see K2_ORDER_C)."""
+    elementwise (see K2_ORDER_C).  ``edges``: the K rows where the partial
+    sums are taken (default K2_BLOCKS equal blocks); the streaming loop
+    passes its promoted chunks."""
     import torch
     k = xq.shape[1]
-    nb = min(K2_BLOCKS, k)
-    edges = [k * i // nb for i in range(nb + 1)]
+    if edges is None:
+        nb = min(K2_BLOCKS, k)
+        edges = [k * i // nb for i in range(nb + 1)]
     x, w = xq.double(), wq.double()
     exact = torch.zeros(x.shape[0], w.shape[1], dtype=torch.float64,
                         device=x.device)
@@ -663,10 +671,15 @@ def k2_identity_casts():
 # -- phases k3, k5, k6 ---------------------------------------------------------
 
 # (K, N) of the serving linears at full width (d_model 4096, 32 heads / 8 KV
-# heads of 128, d_ff 11008): q/o, k/v, gate/up, down; then a ragged pair.
+# heads of 128, d_ff 11008): q/o, k/v, gate/up, down; then a ragged pair,
+# which the wrappers send to the general kernel.
 SERVE_KN = [(4096, 4096), (4096, 1024), (4096, 11008), (11008, 4096),
             (1001, 331)]
 SERVE_MS = (1, 8, 64, 100, 2048)
+# Row counts of the streaming loop's cases: each wgmma n (8, 16, 32, 64)
+# full and one row past the smaller.
+STREAM_MS = (1, 8, 9, 16, 17, 63, 64)
+GEMM_MS = tuple(sorted(set(SERVE_MS) | set(STREAM_MS)))
 
 
 def gemm_tolerance(xb, w_abs, col_scale, want, out_dtype):
@@ -686,16 +699,60 @@ def gemm_tolerance(xb, w_abs, col_scale, want, out_dtype):
     return tol
 
 
-def _gemm_case(rows, label, got, want, tol):
+def stream_reference(xb, wq, col_scale, kper, out_dtype):
+    """(exact, allowed |out - exact|) for the streaming loop's output
+    (x @ wq) * col_scale: the f64 product, the f32 sum held to
+    k2_reference's random-walk bound over the loop's promoted chunks
+    (``qmatmul.promotion_edges``: 512 K rows a chunk from each split's
+    start), then the scale's f32 product and, for bf16, the last rounding
+    (2^-8 of the value).  Unlike the worst case K 2^-24 sum|x w|, it fails
+    a dropped k16 step or chunk (trap 26)."""
+    import torch
+    from fp8tpu_torch.kernels.qmatmul import promotion_edges
+    k = xb.shape[1]
+    exact, tol = k2_reference(xb.float(), wq.float(),
+                              promotion_edges(k, kper))
+    s = torch.as_tensor(col_scale, dtype=torch.float64,
+                        device=exact.device)
+    exact = exact * s
+    rel = 2.0 ** -24 + (2.0 ** -8 if out_dtype == torch.bfloat16 else 0.0)
+    return exact, tol * s.abs() + rel * exact.abs() + 1e-30
+
+
+def _gemm_case(rows, label, got, want, tol, again=None, reference=None):
+    """One weight-GEMM case: the kernel within ``tol`` of the plain
+    version; for the streaming loop also a second launch bit-equal to the
+    first and the kernel within ``reference`` (exact, allowed) of the f64
+    product."""
     import torch
     err = (got.float() - want.float()).abs()
     ok = bool(torch.isfinite(got.float()).all()) and bool((err <= tol).all())
-    rows.append({"case": label, "max_abs_err": float(err.max()),
-                 "max_err_over_bound": float((err / tol).max()), "ok": ok})
+    row = {"case": label, "max_abs_err": float(err.max()),
+           "max_err_over_bound": float((err / tol).max()), "ok": ok}
+    if again is not None:
+        row["repeat_bits"] = bits_equal(again, got)
+        ok = ok and row["repeat_bits"] == 0
+    if reference is not None:
+        exact, allowed = reference
+        ratio = k2_ratio(got, exact, allowed)
+        row["err_over_f64_bound"] = ratio
+        ok = ok and ratio <= 1.0
+    row["ok"] = ok
+    rows.append(row)
     if not ok:
-        print(f"  FAIL {label}: max|err| {float(err.max()):.3e}, err/bound "
-              f"{float((err / tol).max()):.3e}")
+        print(f"  FAIL {label}: max|err| {row['max_abs_err']:.3e}, err/bound "
+              f"{row['max_err_over_bound']:.3e}, f64 "
+              f"{row.get('err_over_f64_bound', 0.0):.3e}, repeat bits "
+              f"{row.get('repeat_bits', 0)}")
     return ok
+
+
+def _gemm_summary(name, rows):
+    worst = max(r["max_err_over_bound"] for r in rows)
+    f64 = [r["err_over_f64_bound"] for r in rows if "err_over_f64_bound" in r]
+    print(f"{name}: {len(rows)} cases, {len(f64)} on the streaming loop; "
+          f"worst err/bound {worst:.3e}, worst err/f64 bound "
+          f"{max(f64):.3e}; {sum(not r['ok'] for r in rows)} failed")
 
 
 def phase_k3(record):
@@ -703,17 +760,21 @@ def phase_k3(record):
     from fp8tpu_torch.kernels import qmatmul
 
     gen = torch.Generator(device="cuda").manual_seed(3)
+    sms = qmatmul.sm_count(0)
     rows = []
     for k, n in SERVE_KN:
+        ms = GEMM_MS if k % 8 == 0 else SERVE_MS
         w = torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
         w[:, 0] = 0.0                                   # an all-zero column
         xs = {m: torch.randn(m, k, device="cuda", generator=gen
-                             ).to(torch.bfloat16) for m in SERVE_MS}
+                             ).to(torch.bfloat16) for m in ms}
         for fmt in ("e4m3", "e5m2", "int8"):
             w8, s = qmatmul.quantize_weights(w, fmt)
             s = s.reshape(-1)
             w_abs = w8.float().abs()
             for m, x in xs.items():
+                stream = qmatmul.streams(m, n, k, x, w8)
+                kper = qmatmul.stream_plan(m, n, k, sms).kper
                 for out_dtype in (torch.bfloat16, torch.float32):
                     before = qmatmul.dequant_launches
                     got = qmatmul.dequant_matmul(x, w8, s, out_dtype)
@@ -723,27 +784,38 @@ def phase_k3(record):
                     want = qmatmul.dequant_matmul_plain(x, w8, s, out_dtype)
                     tol = gemm_tolerance(x, w_abs, s.reshape(1, -1), want,
                                          out_dtype)
+                    again = ref = None
+                    if stream:
+                        again = qmatmul.dequant_matmul(x, w8, s, out_dtype)
+                        ref = stream_reference(x, w8.float(), s.reshape(1, -1),
+                                               kper, out_dtype)
                     _gemm_case(rows, f"k3 {fmt} M={m} K={k} N={n} "
-                               f"{str(out_dtype)[6:]}", got, want, tol)
+                               f"{str(out_dtype)[6:]} "
+                               f"{'stream' if stream else 'general'}",
+                               got, want, tol, again, ref)
     torch.cuda.synchronize()
     record["k3"] = rows
-    worst = max(r["max_err_over_bound"] for r in rows)
-    print(f"k3: {len(rows)} cases (e4m3/e5m2/int8 x bf16/f32 out x M in "
-          f"{SERVE_MS} x (K, N) in {SERVE_KN}); worst err/bound {worst:.3e}")
+    _gemm_summary(f"k3 (e4m3/e5m2/int8 x bf16/f32 out x M in {GEMM_MS} x "
+                  f"(K, N) in {SERVE_KN}, the ragged pair on the general "
+                  "kernel)", rows)
     if not all(r["ok"] for r in rows):
-        raise PhaseError("K3 disagrees with its plain version")
+        raise PhaseError("K3 disagrees with its plain version or the f64 "
+                         "product")
 
 
 def phase_k5(record):
     import torch
     from fp8tpu_torch.kernels import int4_matmul as k5
+    from fp8tpu_torch.kernels import qmatmul
 
     gen = torch.Generator(device="cuda").manual_seed(5)
+    sms = qmatmul.sm_count(0)
     rows = []
     for k, n in SERVE_KN[:4] + [(1024, 331)]:
+        ms = GEMM_MS if n % 16 == 0 else SERVE_MS
         w = torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
         xs = {m: torch.randn(m, k, device="cuda", generator=gen
-                             ).to(torch.bfloat16) for m in SERVE_MS}
+                             ).to(torch.bfloat16) for m in ms}
         for group in (None, 128):
             if group:
                 wp, s = k5.quantize_weights_int4_grouped(w, group)
@@ -756,8 +828,11 @@ def phase_k5(record):
                 col = s.reshape(1, -1)
             lo, hi = k5.unpack_int4(wp)
             wq = torch.stack([lo, hi], 1).reshape(k, n).to(torch.bfloat16)
-            w_abs = (wq * sb).float().abs()
+            wq = wq * sb                      # the kernel's bf16 weights
+            w_abs = wq.float().abs()
             for m, x in xs.items():
+                stream = qmatmul.streams(m, n, k, x, wp, s, group=group)
+                kper = qmatmul.stream_plan(m, n, k, sms, "int4").kper
                 for out_dtype in (torch.bfloat16, torch.float32):
                     before = k5.launches
                     got = k5.int4_matmul(x, wp, s, group, out_dtype)
@@ -766,15 +841,21 @@ def phase_k5(record):
                                          "launch")
                     want = k5.int4_matmul_plain(x, wp, s, group, out_dtype)
                     tol = gemm_tolerance(x, w_abs, col, want, out_dtype)
+                    again = ref = None
+                    if stream:
+                        again = k5.int4_matmul(x, wp, s, group, out_dtype)
+                        ref = stream_reference(x, wq, col, kper, out_dtype)
                     _gemm_case(rows, f"k5 group={group} M={m} K={k} N={n} "
-                               f"{str(out_dtype)[6:]}", got, want, tol)
+                               f"{str(out_dtype)[6:]} "
+                               f"{'stream' if stream else 'general'}",
+                               got, want, tol, again, ref)
     torch.cuda.synchronize()
     record["k5"] = rows
-    worst = max(r["max_err_over_bound"] for r in rows)
-    print(f"k5: {len(rows)} cases (per-channel / group 128 x bf16/f32 out x "
-          f"M in {SERVE_MS}); worst err/bound {worst:.3e}")
+    _gemm_summary(f"k5 (per-channel / group 128 x bf16/f32 out x M in "
+                  f"{GEMM_MS}, N = 331 on the general kernel)", rows)
     if not all(r["ok"] for r in rows):
-        raise PhaseError("K5 disagrees with its plain version")
+        raise PhaseError("K5 disagrees with its plain version or the f64 "
+                         "product")
 
 
 def phase_k6(record):
@@ -1238,7 +1319,38 @@ def phase_t2(record):
             counts[mode], row["max_abs_err"], r["cold_ms"], r["warm_ms"],
             plain_ms, max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations", library))
-    record["t2"] = {"rows": rows, "launches": counts,
+    # every mode at the serving linears' full widths and the streaming
+    # loop's row counts: the plain version, a second launch, the f64 product
+    from fp8tpu_torch.kernels import qmatmul
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    sms = qmatmul.sm_count(0)
+    cases = []
+    for k, n in SERVE_KN[:4]:
+        wf = torch.randn(k, n, device="cuda", generator=gen) * 0.02
+        ws_ = {"pl-bf16": wf.to(torch.bfloat16),
+               "e4m3": wf.to(torch.float8_e4m3fn)}
+        for m in STREAM_MS:
+            x = torch.randn(m, k, device="cuda", generator=gen
+                            ).to(torch.bfloat16)
+            for mode in t2.MODES:
+                w = ws_["pl-bf16" if mode == "pl-bf16" else "e4m3"]
+                got = t2.linear(x, w, mode, reps=1)
+                again = t2.linear(x, w, mode, reps=1)
+                want = t2.linear_plain(x, w, mode)
+                wv = t2.weight_values(w, mode)
+                tol = gemm_tolerance(x, wv.float().abs(), 1.0, want,
+                                     torch.bfloat16)
+                kper = qmatmul.stream_plan(
+                    m, n, k, sms, "bf16" if mode == "pl-bf16" else "w8").kper
+                _gemm_case(cases, f"t2 {mode} M={m} K={k} N={n}", got, want,
+                           tol, again, stream_reference(
+                               x, wv, 1.0, kper, torch.bfloat16))
+    _gemm_summary(f"t2 (4 modes x M in {STREAM_MS} x (K, N) in "
+                  f"{SERVE_KN[:4]})", cases)
+    if not all(r["ok"] for r in cases):
+        problems.append("T2 disagrees at the serving shapes (see the FAIL "
+                        "lines)")
+    record["t2"] = {"rows": rows, "cases": cases, "launches": counts,
                     "xla_fp8_ms": res["xla-fp8_ms"],
                     "xla_bf16_ms": res["xla-bf16_ms"]}
     torch.cuda.empty_cache()
@@ -2059,7 +2171,7 @@ def profile_decode_step(step, step_ms: float, steps: int = 1):
             continue
         ms = (getattr(e, "device_time", None) or e.cuda_time) / 1000.0 / steps
         low = e.name.lower()
-        if "w_gemm" in e.name:
+        if "w_gemm" in e.name or "ws::stream_kernel" in e.name:
             kind = "K3/K5 weight GEMM (hand-written)"
         elif "dyn_store_kernel" in e.name:
             kind = "K6 ring store (hand-written)"

@@ -8,10 +8,14 @@
 // order of the f32 sums differs from the plain version.
 //
 // Bound on an H100: the bytes of w8 at decode (M <= 64), the bf16
-// tensor-core rate at prefill.  The main loop, its tiling, the in-register
-// upcast and the split-K scheme are in w_gemm.cuh.
+// tensor-core rate at prefill.  Decode shapes run the streaming loop of
+// w_stream.cuh (a TMA ring of raw payload, each byte converted once in
+// registers into wgmma's A operand, x as its B operand); prefill and
+// shapes that loop does not take run the general kernel of w_gemm.cuh.
+// Both split K deterministically (split_k.cuh).
 
 #include "w8_policy.cuh"
+#include "w_stream.cuh"
 
 namespace {
 
@@ -20,8 +24,41 @@ using w8::E5M2;
 using w8::INT8;
 using w8::W8;
 
+// The streaming loop's policy: two bytes of one column at K rows k, k + 1
+// (low byte first) to one bf16x2 A register.
 template <int FMT>
-cudaError_t launch_fmt(const wg::Args& A, int out_f32, cudaStream_t stream) {
+struct S8 {
+    static constexpr int KIND = ws::BYTE8;
+    static constexpr bool GROUPED = false;
+
+    static __device__ __forceinline__ uint32_t cvt2(uint32_t two) {
+        if constexpr (FMT == w8::INT8) {
+            // 2^23 + (b ^ 0x80) is exact in f32; taking 2^23 + 128 away
+            // leaves the signed byte
+            const float lo = __uint_as_float(
+                0x4B000000u | ((two & 0xFFu) ^ 0x80u)) - 8388736.0f;
+            const float hi = __uint_as_float(
+                0x4B000000u | (((two >> 8) & 0xFFu) ^ 0x80u)) - 8388736.0f;
+            return ws::bf16x2_bits(lo, hi);
+        } else {
+            const float2 f = w8::upcast2<FMT>((unsigned short)two);
+            return ws::bf16x2_bits(f.x, f.y);
+        }
+    }
+};
+
+template <int FMT>
+cudaError_t launch_fmt(const wg::Args& A, const void* x, const void* w8,
+                       int out_f32, int stream_mt, cudaStream_t stream) {
+    if (stream_mt) {
+        ws::Launch L;
+        L.x = x; L.w = w8; L.col_scale = A.s; L.group_scale = nullptr;
+        L.out = A.out; L.ws = A.ws; L.counters = A.counters;
+        L.m = A.m; L.n = A.n; L.k = A.k;
+        L.splits = A.splits; L.kper = A.kper; L.group = 0;
+        L.out_f32 = out_f32;
+        return ws::launch<S8<FMT>>(L, stream_mt, stream);
+    }
     return out_f32 ? wg::launch<W8<FMT>, true>(A, stream)
                    : wg::launch<W8<FMT>, false>(A, stream);
 }
@@ -30,12 +67,13 @@ cudaError_t launch_fmt(const wg::Args& A, int out_f32, cudaStream_t stream) {
 
 // payload: 0 e4m3, 1 e5m2, 2 int8.  ws / counters are used when splits > 1:
 // ws holds splits * m * n floats, counters one zeroed int per output tile.
-// stream_path: take the streaming kernel (needs m <= 64, k % 8 == 0,
-// n % 16 == 0 and 16-byte aligned x and w8).
+// stream_mt: 0 the general kernel; 1 or 2 the streaming loop with that
+// many m64 tiles a block (qmatmul.py::stream_plan: m <= 64, k % 8 == 0,
+// n % 16 == 0, 16-byte aligned x and w8).
 extern "C" int fp8_dequant_matmul(const void* x, const void* w8,
                                   const void* scales, void* out, int m, int n,
                                   int k, int payload, int out_f32, int splits,
-                                  int kper, int stream_path, void* ws,
+                                  int kper, int stream_mt, void* ws,
                                   void* counters, void* stream) {
     wg::Args A;
     A.x = reinterpret_cast<const __nv_bfloat16*>(x);
@@ -48,16 +86,18 @@ extern "C" int fp8_dequant_matmul(const void* x, const void* w8,
     A.splits = splits; A.kper = kper; A.group = 0;
     A.vec_x = (k % 8 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
     A.vec_w = (n % 16 == 0) && (reinterpret_cast<uintptr_t>(w8) % 16 == 0);
-    A.stream_path = stream_path;
-    if (stream_path && !(A.vec_x && A.vec_w && m <= 64))
+    if (stream_mt && !(A.vec_x && A.vec_w && m <= 64))
         return (int)cudaErrorInvalidValue;
     if (splits < 1 || splits > wg::MAX_SPLITS)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
     switch (payload) {
-        case E4M3: return (int)launch_fmt<E4M3>(A, out_f32, st);
-        case E5M2: return (int)launch_fmt<E5M2>(A, out_f32, st);
-        case INT8: return (int)launch_fmt<INT8>(A, out_f32, st);
+        case E4M3:
+            return (int)launch_fmt<E4M3>(A, x, w8, out_f32, stream_mt, st);
+        case E5M2:
+            return (int)launch_fmt<E5M2>(A, x, w8, out_f32, stream_mt, st);
+        case INT8:
+            return (int)launch_fmt<INT8>(A, x, w8, out_f32, stream_mt, st);
     }
     return (int)cudaErrorInvalidValue;
 }

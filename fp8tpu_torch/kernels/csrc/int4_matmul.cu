@@ -12,9 +12,14 @@
 // that rounding is part of the function.
 //
 // Bound on an H100: the bytes of wp at decode, the bf16 tensor-core rate at
-// prefill.  Main loop, tiling and split-K: w_gemm.cuh.
+// prefill.  Decode shapes run the streaming loop of w_stream.cuh (a TMA
+// ring of packed bytes and grouped scales, the nibbles turned into wgmma's
+// A operand in registers with integer and bf16x2 operations, no float
+// round trip); prefill and what that loop does not take run the general
+// kernel of w_gemm.cuh.
 
 #include "w_gemm.cuh"
+#include "w_stream.cuh"
 
 namespace {
 
@@ -81,69 +86,27 @@ struct W4 {
                                                            int col) {
         return A.group > 0 ? 1.0f : A.s[col];
     }
+};
 
-    // -- the streaming kernel: a slab is 32 packed rows of 128 bytes --------
-    static constexpr int RAW_ROWS = wg::BK / 2;
-
-    static __device__ __forceinline__ void copy_in(unsigned char* raw,
-                                                   const wg::Args& A, int k0,
-                                                   int kend, int n0, int t) {
-        const unsigned char* w = reinterpret_cast<const unsigned char*>(A.w);
-        const int row = t >> 3, cc = (t & 7) * 16;
-        const bool ok = k0 + 2 * row < kend && n0 + cc < A.n;
-        wg::cp_async16(raw + row * wg::FBN + cc,
-                       ok ? w + (size_t)((k0 >> 1) + row) * A.n + n0 + cc : w,
-                       ok);
-    }
-
-    // Thread t unpacks packed row p = t / 8 at the columns
-    // 32 j + 4 (t % 8) .. + 3, j = 0..3.
-    static __device__ __forceinline__ void convert(const unsigned char* raw,
-                                                   const wg::Args& A, int k0,
-                                                   int n0, int t,
-                                                   uint32_t (*wp)[wg::FWS]) {
-        const int p = t >> 3, c = (t & 7) * 4;
-        const int k = k0 + 2 * p;
-        const float* srow = nullptr;
-        if (A.group > 0 && k < A.k)
-            srow = A.s + (size_t)(k / A.group) * A.n + n0;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const uint32_t four = *reinterpret_cast<const uint32_t*>(
-                raw + p * wg::FBN + j * 32 + c);
-            float4 s = make_float4(1.f, 1.f, 1.f, 1.f);
-            if (srow != nullptr && n0 + j * 32 + c < A.n)
-                s = *reinterpret_cast<const float4*>(srow + j * 32 + c);
-            const float sc[4] = {s.x, s.y, s.z, s.w};
-            uint32_t o[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const int byte = (four >> (8 * i)) & 0xFF;
-                float lo = (float)(((byte & 0xF) ^ 8) - 8);
-                float hi = (float)((int)(signed char)byte >> 4);
-                if (srow != nullptr) {
-                    const float sb = __bfloat162float(
-                        __float2bfloat16_rn(sc[i]));
-                    lo *= sb;
-                    hi *= sb;
-                }
-                o[i] = wg::pack_bf16(lo, hi);
-            }
-            *reinterpret_cast<uint4*>(&wp[p][j * 32 + c]) =
-                make_uint4(o[0], o[1], o[2], o[3]);
-        }
-    }
+// The streaming loop's policy (w_stream.cuh): each packed byte is one
+// bf16x2 A register, its nibbles sign-extended by bit operations; grouped
+// scales are TMA'd with the stage and multiplied in bf16x2.
+template <bool G>
+struct W4S {
+    static constexpr int KIND = ws::NIB4;
+    static constexpr bool GROUPED = G;
 };
 
 }  // namespace
 
 // group: K rows per scale group (even), 0 for per-column scales.  k is the
-// unpacked contraction length (even).  ws / counters / stream_path as in
-// K3; the streaming kernel also needs 16-byte aligned scales.
+// unpacked contraction length (even).  ws / counters / stream_mt as in K3;
+// the streaming loop also needs 16-byte aligned scales and a group that is
+// a multiple of 16 dividing or divided by 128.
 extern "C" int fp8_int4_matmul(const void* x, const void* wp,
                                const void* scales, void* out, int m, int n,
                                int k, int group, int out_f32, int splits,
-                               int kper, int stream_path, void* ws,
+                               int kper, int stream_mt, void* ws,
                                void* counters, void* stream) {
     wg::Args A;
     A.x = reinterpret_cast<const __nv_bfloat16*>(x);
@@ -156,13 +119,22 @@ extern "C" int fp8_int4_matmul(const void* x, const void* wp,
     A.splits = splits; A.kper = kper; A.group = group;
     A.vec_x = (k % 8 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
     A.vec_w = (n % 16 == 0) && (reinterpret_cast<uintptr_t>(wp) % 16 == 0);
-    A.stream_path = stream_path;
-    if (stream_path && !(A.vec_x && A.vec_w && m <= 64
-                         && reinterpret_cast<uintptr_t>(scales) % 16 == 0))
+    if (stream_mt && !(A.vec_x && A.vec_w && m <= 64
+                       && reinterpret_cast<uintptr_t>(scales) % 16 == 0))
         return (int)cudaErrorInvalidValue;
     if (splits < 1 || splits > wg::MAX_SPLITS)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+    if (stream_mt) {
+        ws::Launch L;
+        L.x = x; L.w = wp; L.out = out; L.ws = A.ws; L.counters = A.counters;
+        L.col_scale = group > 0 ? nullptr : A.s;
+        L.group_scale = group > 0 ? A.s : nullptr;
+        L.m = m; L.n = n; L.k = k; L.splits = splits; L.kper = kper;
+        L.group = group; L.out_f32 = out_f32;
+        return (int)(group > 0 ? ws::launch<W4S<true>>(L, stream_mt, st)
+                               : ws::launch<W4S<false>>(L, stream_mt, st));
+    }
     return (int)(out_f32 ? wg::launch<W4, true>(A, st)
                          : wg::launch<W4, false>(A, st));
 }

@@ -1,8 +1,8 @@
-// K3's payload policy on w_gemm.cuh (see dequant_matmul.cu): e4m3, e5m2 or
-// int8 bytes upcast to bf16 in registers by upcast2 (the hardware fp8
-// convert, then f16 -> f32).  Shared with the convert study T2
-// (fp8_linear_study.cu), whose policies derive from W8<E4M3> and change
-// only its convert, so both run one main loop.
+// K3's payload policy for the general kernel of w_gemm.cuh (see
+// dequant_matmul.cu): e4m3, e5m2 or int8 bytes upcast to bf16 in registers
+// by upcast2 (the hardware fp8 convert, then f16 -> f32).  upcast2 is also
+// the hardware convert of the streaming loop's policies (dequant_matmul.cu,
+// e4m3_convert.cuh).
 #pragma once
 
 #include <cuda_fp16.h>
@@ -82,48 +82,6 @@ struct W8 {
     static __device__ __forceinline__ float epilogue_scale(const wg::Args& A,
                                                            int col) {
         return A.s[col];
-    }
-
-    // -- the streaming kernel: a slab is 64 rows of 128 payload bytes -------
-    static constexpr int RAW_ROWS = wg::BK;
-
-    static __device__ __forceinline__ void copy_in(unsigned char* raw,
-                                                   const wg::Args& A, int k0,
-                                                   int kend, int n0, int t) {
-        const unsigned char* w = reinterpret_cast<const unsigned char*>(A.w);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            const int id = t + i * wg::FTHREADS;
-            const int row = id >> 3, cc = (id & 7) * 16;
-            const bool ok = k0 + row < kend && n0 + cc < A.n;
-            wg::cp_async16(raw + row * wg::FBN + cc,
-                           ok ? w + (size_t)(k0 + row) * A.n + n0 + cc : w,
-                           ok);
-        }
-    }
-
-    // Thread t pairs rows (2p, 2p + 1), p = t / 8, at the columns
-    // 32 j + 4 (t % 8) .. + 3, j = 0..3: 4-byte reads and 16-byte stores
-    // that are both conflict-free.
-    static __device__ __forceinline__ void convert(const unsigned char* raw,
-                                                   const wg::Args&, int, int,
-                                                   int t,
-                                                   uint32_t (*wp)[wg::FWS]) {
-        const int p = t >> 3, c = (t & 7) * 4;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const uint32_t a = *reinterpret_cast<const uint32_t*>(
-                raw + (2 * p) * wg::FBN + j * 32 + c);
-            const uint32_t b = *reinterpret_cast<const uint32_t*>(
-                raw + (2 * p + 1) * wg::FBN + j * 32 + c);
-            const float2 a01 = upcast2<FMT>((unsigned short)(a & 0xFFFF));
-            const float2 a23 = upcast2<FMT>((unsigned short)(a >> 16));
-            const float2 b01 = upcast2<FMT>((unsigned short)(b & 0xFFFF));
-            const float2 b23 = upcast2<FMT>((unsigned short)(b >> 16));
-            *reinterpret_cast<uint4*>(&wp[p][j * 32 + c]) = make_uint4(
-                wg::pack_bf16(a01.x, b01.x), wg::pack_bf16(a01.y, b01.y),
-                wg::pack_bf16(a23.x, b23.x), wg::pack_bf16(a23.y, b23.y));
-        }
     }
 };
 

@@ -1,0 +1,759 @@
+// The decode form (M <= 64) of the weight-streaming GEMMs K3
+// (dequant_matmul.cu), K5 (int4_matmul.cu) and T2 (fp8_linear_study.cu):
+//   out[M, N] = x[M, K] bf16 @ convert(W[K, N]) (* a scale per column)
+// with W in device memory as fp8 / int8 bytes, packed int4 or bf16.
+//
+// What bounds it on an H100: the bytes of W, each read once (45 MB for an
+// e4m3 4096 x 11008 projection: 13.5 us at 3.35 TB/s); the products are a
+// few GFLOP.  So the loop has to keep the memory system busy and do as
+// little else per weight byte as it can.  The design:
+//
+// * The operands are swapped: out^T = W^T x^T.  The converted weight is
+//   wgmma's A operand, in registers (m64: 64 output columns a tile), and
+//   x^T its B operand, read from shared memory as it lies (x's rows are
+//   contiguous along K, wgmma's K-major B) with n = M rounded up to 8,
+//   16, 32 or 64.  Every weight element is converted once, by one thread,
+//   straight from the raw stage into A fragments: no second pass through
+//   shared memory, no block-wide barrier.
+// * A block is one consumer warpgroup (MT m64 tiles: 64 MT output columns)
+//   and one producer warp, two blocks an SM.  The producer keeps a ring of
+//   stages in flight with TMA (cp.async.bulk.tensor over CUtensorMaps of
+//   the (K, N) payload, of x and, for grouped int4, of the scales); each
+//   stage completes on an mbarrier and the consumers release it with an
+//   arrive.  The ring has as many stages of 128 K rows (bf16: 64) as two
+//   blocks an SM leave room for, 3-8, so 32-192 KB of payload is in flight
+//   on an SM, at least Little's law's 32 KB (25 B/ns an SM times ~1.3 us).
+// * A thread owns 2 MT adjacent output columns (A rows g and g + 8 of
+//   m64 tile t are its columns 2t and 2t + 1), so it reads its payload
+//   bytes of a K row as one 2- or 4-byte word (bf16: 4 or 8) from a
+//   swizzled stage, conflict-free; the epilogue writes each accumulator
+//   row to its true column.  MT = 2 where N has enough 128-column tiles
+//   to fill the card, else 1 (N = 1024: 16 tiles of 64).
+// * The tensor cores accumulate at most PROMOTE = 512 K rows (the JAX
+//   kernel's tk tile); each chunk is then added into an f32 register sum
+//   with ordinary adds, since the tensor cores' own f32 accumulation
+//   truncates (PERF.md, trap 27).  The products are the exact bf16 x bf16
+//   products of x @ convert(W); only the order of the sums differs.
+// * Split-K over gridDim.z, deterministic (split_k.cuh): partials are
+//   added in split order by the tile's last block.  The kernel allocates
+//   nothing and never synchronises the host, so it can be captured in a
+//   CUDA graph.
+//
+// A payload policy P gives KIND (BYTE8, NIB4 or HALF16), GROUPED (int4
+// scales per K group, multiplied into the weights in bf16) and, for BYTE8,
+// cvt2(two bytes of one column at K rows k, k + 1) -> one bf16x2 register.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "split_k.cuh"
+
+namespace ws {
+
+enum Kind { BYTE8 = 0, NIB4 = 1, HALF16 = 2 };
+
+constexpr int CONSUMERS = 128;       // threads of a consumer warpgroup
+constexpr int PROMOTE = 512;         // K rows the tensor cores sum alone
+constexpr int MAX_SPLITS = 8;
+constexpr int MAX_STAGES = 8;
+constexpr int SMEM_LIMIT = 232448;
+
+// Shapes of one stage of payload policy P in a block of MT m64 tiles
+// (64 MT output columns) at n = NP.
+template <class P, int MT, int NP>
+struct Shape {
+    static constexpr int BK = P::KIND == HALF16 ? 64 : 128;  // K rows
+    static constexpr int KSTEPS = BK / 16;
+    static constexpr int ROWS = P::KIND == NIB4 ? BK / 2 : BK;
+    // the stage's payload: BOXES TMA boxes of RB-byte rows
+    static constexpr int RB = P::KIND == HALF16 ? 128 : 64 * MT;
+    static constexpr int BOXES = P::KIND == HALF16 ? MT : 1;
+    static constexpr int COLS = 64 * MT;                 // a block's
+    static constexpr int W_BYTES = BOXES * ROWS * RB;
+    static constexpr int X_BYTES = BK * NP * 2;          // BK/64 boxes
+    static constexpr int S_BYTES = P::GROUPED ? (BK / 16) * COLS * 4 : 0;
+    static constexpr int STAGE = W_BYTES + X_BYTES + S_BYTES;
+    static_assert(STAGE % 1024 == 0, "stages keep the 1024-byte alignment");
+    static constexpr int THREADS = CONSUMERS + 32;
+    static constexpr int BLOCKS = 2;                     // an SM
+    static constexpr int BUDGET = SMEM_LIMIT / BLOCKS - 4096;
+    static constexpr int STAGES =
+        BUDGET / STAGE > MAX_STAGES ? MAX_STAGES : BUDGET / STAGE;
+    static_assert(STAGES >= 2, "at least two stages");
+    static constexpr int SMEM = STAGES * STAGE + 1024 + 16 * STAGES;
+};
+
+struct Args {
+    const float* col_scale;  // (N,) f32, or null: no scale
+    void* out;               // (M, N) bf16 or f32
+    float* ws;               // (splits, M, N) partials, splits > 1 only
+    int* counters;           // one per column tile, zero between launches
+    int m, n, k;
+    int splits, kper;        // K rows a split, a whole number of stages
+    int group;               // grouped scales: K rows a group, else 0
+    int scale_rows;          // scale rows a stage (grouped)
+    int out_f32;
+};
+
+// -- device helpers ----------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                 :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+                 :: "r"(bar) : "memory");
+}
+
+// Until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+    uint32_t done;
+    do {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    } while (!done);
+}
+
+// One TMA tile (box) of a 2-d tensor map into shared memory; completes
+// ``bar``'s transaction bytes.  c0 is the inner (contiguous) coordinate.
+__device__ __forceinline__ void tma2d(uint32_t dst, const CUtensorMap* map,
+                                      int c0, int c1, uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
+        :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+           "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" :: : "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" :: : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Orders the compiler's use of registers that wgmma reads or writes
+// asynchronously against the fences and waits above.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// A K-major B operand in a 128-byte-swizzled tile (TMA's SWIZZLE_128B):
+// rows of 128 bytes, 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t desc_b(uint32_t addr) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32)
+           | (1ull << 62);
+}
+
+// D (64 x N, f32) (+)= A (64 x 16 bf16, registers) * B (16 x N bf16, shared
+// memory); scale_d = 0 starts a new sum.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<8>(float (&d)[4],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, "
+        "%12, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+        "%13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, "
+        "0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+        "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, "
+        "%35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+          "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+          "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(scale_d));
+}
+
+
+// -- converts ----------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t fma_bf16x2(uint32_t a, uint32_t b,
+                                               uint32_t c) {
+    uint32_t d;
+    asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+    return d;
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
+    __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);   // .x = lo (low half)
+    return *reinterpret_cast<uint32_t*>(&p);
+}
+
+// Two signed nibbles, in bits 0-3 (low half) and 16-19 (high half) of x, to
+// their exact bf16 values by bit operations: 0x4300 | (u ^ 8) is the bf16
+// of 128 + (u ^ 8), and subtracting 136 (one fma, exact) leaves the signed
+// value of u.
+__device__ __forceinline__ uint32_t nibbles_bf16x2(uint32_t x) {
+    return fma_bf16x2((x & 0x000F000Fu) ^ 0x43084308u, 0x3F803F80u,
+                      0xC308C308u);
+}
+
+// The scale: a nibble times a bf16 scale is exact in f32 (4 by 8
+// significant bits), so one fma with -0 (the product rounded once to bf16,
+// the sign of a zero product kept) gives the bits of the plain version's
+// bf16 multiply, subnormal scales included.
+__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t w, uint32_t s2) {
+    return fma_bf16x2(w, s2, 0x80008000u);
+}
+
+// Byte offset of byte c of row r of a TMA box whose rows are RB bytes and
+// whose swizzle spans RB bytes (128: SWIZZLE_128B, 64: SWIZZLE_64B): the
+// 16-byte piece index is XORed with address bits 7 and up.
+template <int RB>
+__device__ __forceinline__ int swz(int r, int c) {
+    const int off = r * RB + c;
+    return off ^ (((off >> 7) & (RB / 16 - 1)) << 4);
+}
+
+
+template <int MT>
+__device__ __forceinline__ uint32_t load_cols(const unsigned char* p) {
+    // the 2 MT payload bytes of a thread's columns in one row
+    if constexpr (MT == 2) return *reinterpret_cast<const uint32_t*>(p);
+    else return *reinterpret_cast<const uint16_t*>(p);
+}
+
+// A thread's raw payload words of one k16 step, loaded from the stage,
+// then converted into its A fragments.
+template <class P, int MT>
+struct Raw {
+    static constexpr int N =
+        P::KIND == BYTE8 ? 4 : P::KIND == NIB4 ? 2 : 4 * MT;
+    uint32_t w[N];
+};
+
+// Thread (warp w, lane g * 4 + q) owns the block's columns
+// c = 16 MT w + 2 MT g .. c + 2 MT - 1 and reads K rows 16 ks + 2q,
+// +1, +8, +9 (packed rows 8 ks + q and +4 for int4).
+template <class P, int MT, class S>
+__device__ __forceinline__ void load_step(const unsigned char* stage, int ks,
+                                          int w, int g, int q,
+                                          Raw<P, MT>& raw) {
+    const int c = 16 * MT * w + 2 * MT * g;
+    if constexpr (P::KIND == BYTE8) {
+        const int r = 16 * ks + 2 * q;
+        raw.w[0] = load_cols<MT>(stage + swz<S::RB>(r, c));
+        raw.w[1] = load_cols<MT>(stage + swz<S::RB>(r + 1, c));
+        raw.w[2] = load_cols<MT>(stage + swz<S::RB>(r + 8, c));
+        raw.w[3] = load_cols<MT>(stage + swz<S::RB>(r + 9, c));
+    } else if constexpr (P::KIND == NIB4) {
+        const int r = 8 * ks + q;
+        raw.w[0] = load_cols<MT>(stage + swz<S::RB>(r, c));
+        raw.w[1] = load_cols<MT>(stage + swz<S::RB>(r + 4, c));
+    } else {
+        // bf16: 4 MT bytes a row, in box c / 64 of 128-byte rows
+        const int r = 16 * ks + 2 * q;
+        const unsigned char* box = stage + (c >> 6) * (S::ROWS * 128);
+        const int cb = (c & 63) * 2;
+        const int rows[4] = {r, r + 1, r + 8, r + 9};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const unsigned char* p = box + swz<128>(rows[i], cb);
+            if constexpr (MT == 2) {
+                const uint2 u = *reinterpret_cast<const uint2*>(p);
+                raw.w[2 * i] = u.x;
+                raw.w[2 * i + 1] = u.y;
+            } else {
+                raw.w[i] = *reinterpret_cast<const uint32_t*>(p);
+            }
+        }
+    }
+}
+
+// The A fragments a[t] of m64 tile t from one step's raw words: the
+// fragment's rows g and g + 8 of tile t are the thread's columns 2t and
+// 2t + 1; registers 0 and 1 hold K rows (2q, 2q + 1), 2 and 3 rows
+// (2q + 8, 2q + 9).  sc: bf16x2 scale pairs of the thread's columns
+// (grouped int4).
+template <class P, int MT>
+__device__ __forceinline__ void convert_step(const Raw<P, MT>& raw,
+                                             const uint32_t (&sc)[2 * MT],
+                                             uint32_t (&a)[MT][4]) {
+    if constexpr (P::KIND == BYTE8) {
+#pragma unroll
+        for (int t = 0; t < MT; ++t) {
+            // (row k byte, row k + 1 byte) pairs of columns 2t and 2t + 1
+            const uint32_t sel = t == 0 ? 0x5140u : 0x7362u;
+            const uint32_t lo = __byte_perm(raw.w[0], raw.w[1], sel);
+            const uint32_t hi = __byte_perm(raw.w[2], raw.w[3], sel);
+            a[t][0] = P::cvt2(lo & 0xFFFFu);
+            a[t][1] = P::cvt2(lo >> 16);
+            a[t][2] = P::cvt2(hi & 0xFFFFu);
+            a[t][3] = P::cvt2(hi >> 16);
+        }
+    } else if constexpr (P::KIND == NIB4) {
+        const uint32_t p0 = raw.w[0], p4 = raw.w[1];
+        const uint32_t p0h = p0 >> 4, p4h = p4 >> 4;
+#pragma unroll
+        for (int i = 0; i < 2 * MT; ++i) {
+            // byte i's low nibble to bits 0-3, its high nibble to 16-19
+            const uint32_t sel = i | (i << 4) | ((4 + i) << 8)
+                                 | ((4 + i) << 12);
+            uint32_t v0 = nibbles_bf16x2(__byte_perm(p0, p0h, sel));
+            uint32_t v4 = nibbles_bf16x2(__byte_perm(p4, p4h, sel));
+            if constexpr (P::GROUPED) {
+                v0 = scale_bf16x2(v0, sc[i]);
+                v4 = scale_bf16x2(v4, sc[i]);
+            }
+            a[i >> 1][i & 1] = v0;
+            a[i >> 1][2 + (i & 1)] = v4;
+        }
+    } else {
+#pragma unroll
+        for (int t = 0; t < MT; ++t) {
+            const uint32_t r0 = raw.w[t], r1 = raw.w[MT + t];
+            const uint32_t r8 = raw.w[2 * MT + t], r9 = raw.w[3 * MT + t];
+            a[t][0] = __byte_perm(r0, r1, 0x5410);
+            a[t][1] = __byte_perm(r0, r1, 0x7632);
+            a[t][2] = __byte_perm(r8, r9, 0x5410);
+            a[t][3] = __byte_perm(r8, r9, 0x7632);
+        }
+    }
+}
+// -- the kernel --------------------------------------------------------------
+
+// Block (blockIdx.x, blockIdx.z): output columns COLS x .. + COLS - 1 over
+// split z's K rows.  Warps 0-3 consume, warp 4 produces.
+template <class P, int MT, int NP>
+__global__ void __launch_bounds__(Shape<P, MT, NP>::THREADS,
+                                  Shape<P, MT, NP>::BLOCKS)
+stream_kernel(const __grid_constant__ CUtensorMap tw,
+              const __grid_constant__ CUtensorMap tx,
+              const __grid_constant__ CUtensorMap ts, const Args A) {
+    using S = Shape<P, MT, NP>;
+    constexpr int ST = S::STAGES, CHUNK = PROMOTE / S::BK;
+    extern __shared__ unsigned char smem_raw[];
+    __shared__ int is_last;
+    unsigned char* smem = reinterpret_cast<unsigned char*>(
+        (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+    const uint32_t full = smem_u32(smem + ST * S::STAGE);   // ST barriers
+    const uint32_t empty = full + 8 * ST;                     // ST barriers
+
+    const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+    const int n0 = blockIdx.x * S::COLS;
+    const int kbeg = blockIdx.z * A.kper;
+    const int kend = min(A.k, kbeg + A.kper);
+    const int nst = (kend - kbeg + S::BK - 1) / S::BK;
+
+    if (t == 0) {
+        for (int s = 0; s < ST; ++s) {
+            mbar_init(full + 8 * s, 1);
+            mbar_init(empty + 8 * s, CONSUMERS);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (warp == 4) {
+        // the producer: one thread keeps the ring full
+        if (lane == 0) {
+            const int tx_bytes = S::W_BYTES + S::X_BYTES
+                + (P::GROUPED ? A.scale_rows * S::COLS * 4 : 0);
+            for (int st = 0; st < nst; ++st) {
+                const int s = st % ST;
+                if (st >= ST) mbar_wait(empty + 8 * s, (st / ST - 1) & 1);
+                const uint32_t bar = full + 8 * s;
+                const uint32_t dst = smem_u32(smem + s * S::STAGE);
+                const int k0 = kbeg + st * S::BK;
+                mbar_expect_tx(bar, tx_bytes);
+#pragma unroll
+                for (int b = 0; b < S::BOXES; ++b)
+                    tma2d(dst + b * S::ROWS * S::RB, &tw, n0 + 64 * b,
+                          P::KIND == NIB4 ? k0 / 2 : k0, bar);
+#pragma unroll
+                for (int j = 0; j < S::BK / 64; ++j)
+                    tma2d(dst + S::W_BYTES + j * NP * 128, &tx, k0 + 64 * j, 0,
+                          bar);
+                if constexpr (P::GROUPED)
+                    tma2d(dst + S::W_BYTES + S::X_BYTES, &ts, n0,
+                          k0 / A.group, bar);
+            }
+        }
+        return;
+    }
+
+    // the consumer warpgroup
+    const int g = lane >> 2, q = lane & 3;
+    float acc[MT][NP / 2], sum[MT][NP / 2];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int e = 0; e < NP / 2; ++e) acc[i][e] = sum[i][e] = 0.f;
+    uint32_t a[2][MT][4];
+    uint32_t sc[2 * MT];
+#pragma unroll
+    for (int i = 0; i < 2 * MT; ++i) sc[i] = 0;
+    // the thread's first column in the block
+    const int cc = 16 * MT * warp + 2 * MT * g;
+
+    for (int st = 0; st < nst; ++st) {
+        const int s = st % ST;
+        mbar_wait(full + 8 * s, (st / ST) & 1);
+        const unsigned char* stage = smem + s * S::STAGE;
+        const uint32_t xst = smem_u32(stage + S::W_BYTES);
+        const int fresh = st % CHUNK == 0;
+#pragma unroll
+        for (int ks = 0; ks < S::KSTEPS; ++ks) {
+            if constexpr (P::GROUPED) {
+                if (ks == 0 || (16 * ks) % A.group == 0) {
+                    const int row = A.group < S::BK ? 16 * ks / A.group : 0;
+                    const float* sp = reinterpret_cast<const float*>(
+                        stage + S::W_BYTES + S::X_BYTES) + row * S::COLS + cc;
+#pragma unroll
+                    for (int j = 0; j < 2 * MT; ++j)
+                        sc[j] = bf16x2_bits(sp[j], sp[j]);
+                }
+            }
+            Raw<P, MT> r;
+            load_step<P, MT, S>(stage, ks, warp, g, q, r);
+            convert_step<P, MT>(r, sc, a[ks & 1]);
+            wgmma_fence();
+            const uint64_t desc =
+                desc_b(xst + (ks >> 2) * NP * 128 + (ks & 3) * 32);
+#pragma unroll
+            for (int j = 0; j < MT; ++j)
+                wgmma_rs<NP>(acc[j], a[ks & 1][j], desc,
+                             (fresh && ks == 0) ? 0 : 1);
+            wgmma_commit();
+            // step ks - 1 is done, so its A registers may be written again
+            if (ks > 0) wgmma_wait<1>();
+        }
+        wgmma_wait<0>();
+#pragma unroll
+        for (int j = 0; j < MT; ++j) fence_regs(acc[j]);
+        mbar_arrive(empty + 8 * s);
+        if ((st + 1) % CHUNK == 0 || st + 1 == nst) {
+            // promote the chunk into the f32 sum
+#pragma unroll
+            for (int j = 0; j < MT; ++j)
+#pragma unroll
+                for (int e = 0; e < NP / 2; ++e)
+                    sum[j][e] = __fadd_rn(sum[j][e], acc[j][e]);
+        }
+    }
+
+    // The epilogue.  Accumulator element 4j + 2h + e of tile i is the
+    // thread's column cc + 2i + h and token 8j + 2q + e, so for each token
+    // the thread holds 2 MT adjacent columns.
+    constexpr int V = 2 * MT;
+    const int cb = n0 + cc;
+    const bool col_ok = cb < A.n;    // N % 16 == 0: all V columns or none
+    auto values = [&](int j, int e, float (&v)[V]) {
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+            v[2 * i] = sum[i][4 * j + e];
+            v[2 * i + 1] = sum[i][4 * j + 2 + e];
+        }
+    };
+    auto store_f32 = [&](float* p, const float (&v)[V]) {
+        if constexpr (V == 4)
+            *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2],
+                                                        v[3]);
+        else
+            *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+    };
+    if (A.splits > 1) {
+        const size_t plane = (size_t)A.m * A.n;
+        float* mine = A.ws + blockIdx.z * plane;
+#pragma unroll
+        for (int j = 0; j < NP / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int m = 8 * j + 2 * q + e;
+                if (m < A.m && col_ok) {
+                    float v[V];
+                    values(j, e, v);
+                    store_f32(mine + (size_t)m * A.n + cb, v);
+                }
+            }
+        if (!splitk::last_of_tile_bar<CONSUMERS>(A.counters, A.splits,
+                                                 &is_last))
+            return;
+        // the tile's last block: the partials in split order, all of a
+        // token's loads started before the first add
+#pragma unroll
+        for (int j = 0; j < NP / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int m = 8 * j + 2 * q + e;
+                if (!(m < A.m && col_ok)) continue;
+                float u[MAX_SPLITS][V];
+#pragma unroll
+                for (int z = 0; z < MAX_SPLITS; ++z) {
+                    if (z >= A.splits) break;
+                    const float* p = A.ws + z * plane + (size_t)m * A.n + cb;
+                    if constexpr (V == 4) {
+                        const float4 f =
+                            __ldcg(reinterpret_cast<const float4*>(p));
+                        u[z][0] = f.x; u[z][1] = f.y; u[z][2] = f.z;
+                        u[z][3] = f.w;
+                    } else {
+                        const float2 f =
+                            __ldcg(reinterpret_cast<const float2*>(p));
+                        u[z][0] = f.x; u[z][1] = f.y;
+                    }
+                }
+                float v[V];
+#pragma unroll
+                for (int i = 0; i < V; ++i) v[i] = u[0][i];
+#pragma unroll
+                for (int z = 1; z < MAX_SPLITS; ++z)
+                    if (z < A.splits)
+#pragma unroll
+                        for (int i = 0; i < V; ++i)
+                            v[i] = __fadd_rn(v[i], u[z][i]);
+#pragma unroll
+                for (int i = 0; i < MT; ++i) {
+                    sum[i][4 * j + e] = v[2 * i];
+                    sum[i][4 * j + 2 + e] = v[2 * i + 1];
+                }
+            }
+        splitk::release_tile(A.counters);
+    }
+    float scale[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+        scale[i] = (A.col_scale != nullptr && col_ok) ? A.col_scale[cb + i]
+                                                      : 1.0f;
+#pragma unroll
+    for (int j = 0; j < NP / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            const int m = 8 * j + 2 * q + e;
+            if (!(m < A.m && col_ok)) continue;
+            float v[V];
+            values(j, e, v);
+#pragma unroll
+            for (int i = 0; i < V; ++i) v[i] = __fmul_rn(v[i], scale[i]);
+            const size_t at = (size_t)m * A.n + cb;
+            if (A.out_f32) {
+                store_f32(reinterpret_cast<float*>(A.out) + at, v);
+            } else {
+                __nv_bfloat16* o =
+                    reinterpret_cast<__nv_bfloat16*>(A.out) + at;
+                if constexpr (V == 4)
+                    *reinterpret_cast<uint2*>(o) = make_uint2(
+                        bf16x2_bits(v[0], v[1]), bf16x2_bits(v[2], v[3]));
+                else
+                    *reinterpret_cast<uint32_t*>(o) = bf16x2_bits(v[0], v[1]);
+            }
+        }
+}
+
+// -- the host side -----------------------------------------------------------
+
+// cuTensorMapEncodeTiled from the driver through the runtime, so the
+// library needs no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+    static EncodeTiled fn = nullptr;
+    if (fn == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &found);
+#else
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found);
+#endif
+        if (found == cudaDriverEntryPointSuccess)
+            fn = reinterpret_cast<EncodeTiled>(p);
+    }
+    return fn;
+}
+
+// A row-major (rows, cols) tensor of ``type`` read in (box_rows, box_cols)
+// boxes; whatever lies outside the tensor reads as zeros.
+inline bool encode(CUtensorMap* map, CUtensorMapDataType type, int elt,
+                   const void* base, long long rows, long long cols,
+                   int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+    const EncodeTiled fn = encode_tiled();
+    if (fn == nullptr) return false;
+    const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+    const cuuint64_t strides[1] = {(cuuint64_t)(cols * elt)};
+    const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+    const cuuint32_t unit[2] = {1, 1};
+    return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
+              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+struct Launch {
+    const void* x;              // (m, k) bf16
+    const void* w;              // the payload: (k, n) bytes or bf16, or
+                                // (k / 2, n) packed int4
+    const float* col_scale;     // (n,) or null
+    const float* group_scale;   // (k / group, n) for grouped policies
+    void* out;
+    float* ws;
+    int* counters;
+    int m, n, k, splits, kper, group, out_f32;
+};
+
+template <class P, int MT, int NP>
+cudaError_t launch_tiles(const Launch& L, cudaStream_t stream) {
+    using S = Shape<P, MT, NP>;
+    static bool configured = false;     // per instance; the attribute sticks
+    if (!configured) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            stream_kernel<P, MT, NP>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+        if (err != cudaSuccess) return err;
+        configured = true;
+    }
+    CUtensorMap tw, tx, ts;
+    bool ok;
+    if constexpr (P::KIND == HALF16)
+        ok = encode(&tw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, L.w, L.k, L.n,
+                    S::ROWS, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+    else
+        ok = encode(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, L.w,
+                    P::KIND == NIB4 ? L.k / 2 : L.k, L.n, S::ROWS, S::RB,
+                    MT == 2 ? CU_TENSOR_MAP_SWIZZLE_128B
+                            : CU_TENSOR_MAP_SWIZZLE_64B);
+    ok = ok && encode(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, L.x, L.m, L.k,
+                      NP, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+    Args A;
+    A.col_scale = L.col_scale;
+    A.out = L.out;
+    A.ws = L.ws;
+    A.counters = L.counters;
+    A.m = L.m; A.n = L.n; A.k = L.k;
+    A.splits = L.splits; A.kper = L.kper;
+    A.group = L.group;
+    A.scale_rows = 0;
+    A.out_f32 = L.out_f32;
+    if constexpr (P::GROUPED) {
+        A.scale_rows = L.group < S::BK ? S::BK / L.group : 1;
+        ok = ok && encode(&ts, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                          L.group_scale, L.k / L.group, L.n, A.scale_rows,
+                          S::COLS, CU_TENSOR_MAP_SWIZZLE_NONE);
+    } else {
+        ts = tx;                        // unused
+    }
+    if (!ok) return cudaErrorInvalidValue;
+    dim3 grid((L.n + S::COLS - 1) / S::COLS, 1, L.splits);
+    stream_kernel<P, MT, NP><<<grid, S::THREADS, S::SMEM, stream>>>(
+        tw, tx, ts, A);
+    return cudaGetLastError();
+}
+
+template <class P, int MT>
+cudaError_t launch_np(const Launch& L, cudaStream_t stream) {
+    if (L.m <= 8) return launch_tiles<P, MT, 8>(L, stream);
+    if (L.m <= 16) return launch_tiles<P, MT, 16>(L, stream);
+    if (L.m <= 32) return launch_tiles<P, MT, 32>(L, stream);
+    return launch_tiles<P, MT, 64>(L, stream);
+}
+
+// The caller (kernels/qmatmul.py::stream_plan) has checked what the loop
+// takes: m <= 64, k % 8 == 0, n % 16 == 0, 16-byte aligned operands, kper
+// a multiple of the stage's K rows, splits <= MAX_SPLITS, grouped scales
+// with group % 16 == 0 dividing or divided by 128; ``mt`` is 1 or 2.
+template <class P>
+cudaError_t launch(const Launch& L, int mt, cudaStream_t stream) {
+    constexpr int BK = P::KIND == HALF16 ? 64 : 128;
+    if (L.m < 1 || L.m > 64 || L.k % 8 || L.n % 16 || L.splits < 1
+        || L.splits > MAX_SPLITS || L.kper % BK
+        || (L.splits - 1) * (long long)L.kper >= L.k
+        || (long long)L.splits * L.kper < L.k)
+        return cudaErrorInvalidValue;
+    if (P::GROUPED && (L.group <= 0 || L.group % 16
+                       || (BK % L.group && L.group % BK) || L.k % L.group))
+        return cudaErrorInvalidValue;
+    if (mt == 1) return launch_np<P, 1>(L, stream);
+    if (mt == 2) return launch_np<P, 2>(L, stream);
+    return cudaErrorInvalidValue;
+}
+
+}  // namespace ws

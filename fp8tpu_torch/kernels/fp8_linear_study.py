@@ -8,7 +8,8 @@ bf16 and no scale.  The modes differ only in the weight's convert:
 "pl-astype" (K3's hardware convert), "pl-bits" (the tool's integer
 pipeline), "pl-magic" (its select plus subnormal table) on e4m3 weights,
 and "pl-bf16" on bf16 weights with no convert.  The kernel is K3's
-streaming kernel with K3's tiles and split-K, launched once a rep.
+streaming loop (``csrc/w_stream.cuh``) with K3's plan, launched once a
+rep.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ from fp8tpu_torch._device import full_fp32
 
 from . import _build
 from .kexp_convert import convert, e4m3_bytes
-from .qmatmul import check_gemm_shape, sm_count, split_k, split_workspace
+from .qmatmul import (check_gemm_shape, sm_count, split_workspace,
+                      stream_plan, streams)
 
 MODES = ("pl-bf16", "pl-astype", "pl-bits", "pl-magic")
 
@@ -85,7 +87,7 @@ def rep_weights(w: torch.Tensor, reps: int, cold: bool) -> torch.Tensor:
 def _fn():
     fn = _build.load("fp8_linear_study").fp8_linear_study
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
-        + [ctypes.c_longlong] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+        + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
     return fn
 
@@ -108,17 +110,19 @@ def linear(x: torch.Tensor, w: torch.Tensor, mode: str, reps: int = 64,
     check_gemm_shape("linear", m, n, k)
     wd = w if mode == "pl-bf16" else e4m3_bytes(w)
     xb = x.to(torch.bfloat16).contiguous()
-    if not (m <= 64 and k % 8 == 0 and n % 16 == 0 and wd[0].is_contiguous()
-            and xb.data_ptr() % 16 == 0 and wd.data_ptr() % 16 == 0):
+    if not (wd[0].is_contiguous() and wd.stride(0) * wd.element_size() % 16
+            == 0 and streams(m, n, k, xb, wd)):
         raise ValueError("linear takes K3's streaming kernel: M <= 64, "
                          "K % 8 == 0, N % 16 == 0, contiguous 16-byte "
                          "aligned operands")
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    splits, kper = split_k(m, n, k, sm_count(x.device.index or 0), True)
-    ws, counters = split_workspace(x.device, splits, m, n)
+    plan = stream_plan(m, n, k, sm_count(x.device.index or 0),
+                       "bf16" if mode == "pl-bf16" else "w8")
+    ws, counters = split_workspace(x.device, plan.splits, m, n)
     err = _fn()(xb.data_ptr(), wd.data_ptr(), out.data_ptr(), m, n, k,
                 MODES.index(mode), reps, wd.stride(0) * wd.element_size(),
-                splits, kper, ws.data_ptr() if ws is not None else None,
+                plan.mt, plan.splits, plan.kper,
+                ws.data_ptr() if ws is not None else None,
                 counters.data_ptr(),
                 torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, f"fp8_linear_study kernel ({mode})")

@@ -22,7 +22,7 @@ from fp8tpu_torch._device import full_fp32
 
 from . import _build
 from .qmatmul import (check_gemm_shape, div_exact, flush_amax, sm_count,
-                      split_k, split_workspace, streams)
+                      split_k, split_workspace, stream_plan, streams)
 
 # Launches of the kernel since the last reset_launches().
 launches = 0
@@ -133,12 +133,16 @@ def int4_matmul(x: torch.Tensor, wp: torch.Tensor, scales: torch.Tensor,
     wp = wp.contiguous()
     s = scales.to(device=x.device, dtype=torch.float32).contiguous()
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    stream = streams(m, n, k, xb, wp, s)
-    splits, kper = split_k(m, n, k, sm_count(x.device.index or 0), stream)
+    sms = sm_count(x.device.index or 0)
+    if streams(m, n, k, xb, wp, s, group=group_size):
+        plan = stream_plan(m, n, k, sms, "int4")
+        mt, splits, kper = plan.mt, plan.splits, plan.kper
+    else:
+        mt, (splits, kper) = 0, split_k(m, n, k, sms)
     ws, counters = split_workspace(x.device, splits, m, n)
     err = _fn()(xb.data_ptr(), wp.data_ptr(), s.data_ptr(), out.data_ptr(),
                 m, n, k, group_size or 0, int(out_dtype == torch.float32),
-                splits, kper, int(stream),
+                splits, kper, mt,
                 ws.data_ptr() if ws is not None else None,
                 counters.data_ptr(),
                 torch.cuda.current_stream(x.device).cuda_stream)

@@ -33,14 +33,17 @@ K3 replaces ``fp8tpu/kernels/qmatmul.py::_dequant_matmul_kernel``:
 ``(x @ upcast(w8)) * s[N]`` with the payload upcast to bf16 in registers,
 f32 accumulation, the per-output-channel scale in the epilogue and one
 rounding to ``out_dtype``.  Every serving linear on a CUDA tensor is one
-launch of it.  :func:`quantize_weights` makes its payloads.
+launch of it.  :func:`quantize_weights` makes its payloads.  At decode
+(:func:`streams`: M <= 64, aligned operands) it runs the streaming loop
+(``csrc/w_stream.cuh``, planned by :func:`stream_plan`), which K5 and T2
+share; other shapes run the general kernel (``csrc/w_gemm.cuh``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import List, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -631,23 +634,72 @@ def sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def streams(m: int, n: int, k: int, *tensors: torch.Tensor) -> bool:
-    """Whether a weight GEMM takes the streaming kernel (the decode form:
-    cp.async stages, 128-column tiles): at most 64 rows, and every operand
-    readable in 16-byte pieces."""
-    return (m <= 64 and k % 8 == 0 and n % 16 == 0
+# The streaming loop: K rows a stage by payload kind (e4m3 / e5m2 / int8
+# bytes, packed int4, bf16), and the K rows its tensor cores sum before
+# the chunk is added into the f32 sum (the tensor cores' own sum
+# truncates, PERF.md's trap 27; the JAX kernel's tk).
+STREAM_BK = {"w8": 128, "int4": 128, "bf16": 64}
+STREAM_PROMOTE = 512
+
+
+def streams(m: int, n: int, k: int, *tensors: torch.Tensor,
+            group: Optional[int] = None) -> bool:
+    """Whether a weight GEMM takes the streaming loop (``csrc/w_stream.cuh``,
+    the decode form: a TMA ring, wgmma with the converted weight as A): at
+    most 64 rows, every operand readable by TMA (K % 8 == 0, N % 16 == 0,
+    16-byte aligned), and grouped int4 scales whose group is a multiple of
+    16 that divides, or is divided by, the loop's 128-row stage.  Every
+    other shape takes the general kernel."""
+    group_ok = not group or (group % 16 == 0 and (
+        STREAM_BK["int4"] % group == 0 or group % STREAM_BK["int4"] == 0))
+    return (m <= 64 and k % 8 == 0 and n % 16 == 0 and group_ok
             and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
+class StreamPlan(NamedTuple):
+    mt: int        # m64 tiles a block: 64 * mt output columns
+    bk: int        # K rows a stage
+    splits: int    # blocks sharing a column tile's K range
+    kper: int      # K rows a split, a whole number of stages
+
+
+def stream_mt(n: int, sms: int) -> int:
+    """m64 tiles a block of the streaming loop: two (128 columns) where
+    those column tiles, split at most 8 ways, fill the card; else one, so
+    that N = 1024 gives 16 tiles x 8 splits."""
+    return 2 if -(-n // 128) * 8 >= sms else 1
+
+
+def stream_plan(m: int, n: int, k: int, sms: int,
+                kind: str = "w8") -> StreamPlan:
+    """The streaming loop's launch for (M, K) @ (K, N) on ``sms`` SMs;
+    ``kind`` is "w8", "int4" or "bf16" (``STREAM_BK``)."""
+    bk = STREAM_BK[kind]
+    splits, kper = split_k(m, n, k, sms, True, bk)
+    return StreamPlan(stream_mt(n, sms), bk, splits, kper)
+
+
+def promotion_edges(k: int, kper: int,
+                    promote: int = STREAM_PROMOTE) -> List[int]:
+    """The K rows at which the streaming loop adds a tensor-core chunk into
+    its f32 sum: each split's range [z kper, (z + 1) kper) cut every
+    ``promote`` rows from its start.  Sorted, from 0 to k."""
+    edges = [0]
+    for kb in range(0, k, kper):
+        ke = min(k, kb + kper)
+        edges += list(range(kb + promote, ke, promote)) + [ke]
+    return edges
+
+
 def plan_splits(tiles: int, k: int, sms: int, cap: int, min_rows: int,
-                slab: int):
+                slab: int, per_sm: int = 2):
     """(splits, K rows per split) for a launch of ``tiles`` output tiles
     whose blocks may share a tile's K range (``split_k.cuh``): split when
-    the tiles alone give fewer than about two blocks per SM, at most
-    ``cap`` ways, at least ``min_rows`` rows a split, rows a multiple of
-    the kernel's K slab.  Never more tiles than tile counters."""
+    the tiles alone give fewer than about ``per_sm`` blocks per SM, at
+    most ``cap`` ways, at least ``min_rows`` rows a split, rows a multiple
+    of the kernel's K slab.  Never more tiles than tile counters."""
     splits = 1 if not 0 < tiles <= _N_COUNTERS else max(
-        1, min(cap, (2 * sms + tiles // 2) // tiles, k // min_rows))
+        1, min(cap, (per_sm * sms + tiles // 2) // tiles, k // min_rows))
     kper = max(slab, -(-k // (splits * slab)) * slab)
     return max(1, -(-k // kper)), kper
 
@@ -663,11 +715,16 @@ def k2_split(m: int, n: int, k: int, sms: int, unsplit: bool = False):
 
 def split_k(m: int, n: int, k: int, sms: int, stream: bool = False,
             bk: int = 64):
-    """(splits, K rows per split) for the weight-GEMM kernels (K3, K5): at
-    most 8 ways, at least 256 rows a split.  The streaming kernel's tiles
-    are 128 columns wide, the general kernel's 64."""
+    """(splits, K rows per split) for the weight-GEMM kernels (K3, K5, T2):
+    at most 8 ways, at least 256 rows a split, rows a multiple of ``bk``
+    (the kernel's K slab or stage).  The streaming loop's tiles are
+    64 * stream_mt columns wide, the general kernel's 64."""
     if stream:
-        tiles = -(-n // 128)
+        tiles = -(-n // (64 * stream_mt(n, sms)))
+        if m > 16 and sms // tiles >= 2:
+            # M x N f32 partials a split cost more than a second block on
+            # an SM gains (PERF.md §6): one block an SM
+            return plan_splits(tiles, k, sms, 8, 256, bk, 1)
     else:
         bm = 16 if m <= 16 else 64 if m <= 64 else 128
         tiles = -(-n // 64) * -(-m // bm)
@@ -723,13 +780,17 @@ def dequant_matmul(x: torch.Tensor, w8: torch.Tensor, scales: torch.Tensor,
     w8 = w8.contiguous()
     s = scales.to(device=x.device, dtype=torch.float32).reshape(-1).contiguous()
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    stream = streams(m, n, k, xb, w8)
-    splits, kper = split_k(m, n, k, sm_count(x.device.index or 0), stream)
+    sms = sm_count(x.device.index or 0)
+    if streams(m, n, k, xb, w8):
+        plan = stream_plan(m, n, k, sms)
+        mt, splits, kper = plan.mt, plan.splits, plan.kper
+    else:
+        mt, (splits, kper) = 0, split_k(m, n, k, sms)
     ws, counters = split_workspace(x.device, splits, m, n)
     err = _dequant_fn()(
         xb.data_ptr(), w8.data_ptr(), s.data_ptr(), out.data_ptr(), m, n, k,
         _PAYLOAD_IDS[w8.dtype], int(out_dtype == torch.float32), splits, kper,
-        int(stream), ws.data_ptr() if ws is not None else None,
+        mt, ws.data_ptr() if ws is not None else None,
         counters.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "dequant_matmul kernel")

@@ -310,9 +310,15 @@ def _product_bound(x, w_abs, col_scale, want):
             + 2.0 ** -7 * want.float().abs() + 1e-30)
 
 
+# M = 1 .. 64 with aligned operands run the streaming loop (each wgmma n
+# full and one row past it; N = 1024 takes 64-column tiles); the rest the
+# general kernel.
 @pytest.mark.parametrize("fmt", ["e4m3", "e5m2", "int8"])
 @pytest.mark.parametrize("m,k,n", [(8, 512, 256), (3, 200, 100),
-                                   (130, 1001, 331)])
+                                   (130, 1001, 331), (1, 4096, 1024),
+                                   (9, 640, 272), (16, 512, 4096),
+                                   (17, 1024, 256), (63, 384, 512),
+                                   (64, 2048, 1024)])
 def test_dequant_matmul_kernel_matches_plain(cuda, fmt, m, k, n):
     g = torch.Generator().manual_seed(0)
     x = torch.randn(m, k, generator=g).to(torch.bfloat16).to(cuda)
@@ -326,10 +332,14 @@ def test_dequant_matmul_kernel_matches_plain(cuda, fmt, m, k, n):
         want = qmatmul.dequant_matmul_plain(x, w8, s, out_dtype)
         bound = _product_bound(x, w8.float().abs(), s[None], want)
         assert bool(((got.float() - want.float()).abs() <= bound).all())
+        again = qmatmul.dequant_matmul(x, w8, s, out_dtype)
+        assert torch.equal(again.view(torch.uint8), got.view(torch.uint8))
 
 
 @pytest.mark.parametrize("group", [None, 64])
-@pytest.mark.parametrize("m,k,n", [(8, 512, 256), (70, 192, 41)])
+@pytest.mark.parametrize("m,k,n", [(8, 512, 256), (70, 192, 41),
+                                   (1, 1024, 1024), (9, 384, 272),
+                                   (17, 512, 4096), (64, 2048, 256)])
 def test_int4_matmul_kernel_matches_plain(cuda, group, m, k, n):
     g = torch.Generator().manual_seed(1)
     x = torch.randn(m, k, generator=g).to(torch.bfloat16).to(cuda)
@@ -350,6 +360,8 @@ def test_int4_matmul_kernel_matches_plain(cuda, group, m, k, n):
     want = int4_matmul.int4_matmul_plain(x, wp, s, group)
     bound = _product_bound(x, w_abs, col, want)
     assert bool(((got.float() - want.float()).abs() <= bound).all())
+    again = int4_matmul.int4_matmul(x, wp, s, group)
+    assert torch.equal(again.view(torch.uint8), got.view(torch.uint8))
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32])
@@ -573,7 +585,8 @@ def test_kexp_convert_kernel_converts_every_e4m3_byte(cuda, mode):
     np.testing.assert_array_equal(got[~nan], want[~nan])
 
 
-@pytest.mark.parametrize("m,k,n", [(64, 512, 512), (8, 256, 272)])
+@pytest.mark.parametrize("m,k,n", [(64, 512, 512), (8, 256, 272),
+                                   (17, 1024, 4096)])
 def test_fp8_linear_study_kernel_matches_plain(cuda, m, k, n):
     g = torch.Generator().manual_seed(4)
     x = torch.randn(m, k, generator=g).to(torch.bfloat16).to(cuda)

@@ -150,7 +150,7 @@ def test_dequant_matmul_checks_its_arguments():
     (4, 64, 100, 132, False, (1, 128)),         # K too short to split
     (8, 4096, 4096, 132, True, (8, 512)),       # streaming: 128-wide tiles
     (64, 11008, 4096, 132, True, (3, 1408)),
-    (64, 4096, 11008, 132, True, (8, 1408)),
+    (64, 4096, 11008, 132, True, (4, 2752)),    # M > 16: one block an SM
 ])
 def test_split_k_policy(m, n, k, sms, stream, want):
     splits, kper = qmatmul.split_k(m, n, k, sms, stream)

@@ -15,7 +15,14 @@ Phases, each printing its own lines; any failure exits non-zero:
           per-channel / broadcast / per-block scales, the golden boundary
           vector, f32 subnormals, and SR from explicit bits and from a salt;
           then scalar, per-channel, per-block and SR casts of a tensor
-          large enough that each thread of the capped grid loops three times.
+          large enough that each thread of the capped grid loops three
+          times; lengths 1, 3, 5, 4k + 1 and 8k + 7, each aligned (the
+          16-byte path) and 4 bytes past its allocation (the scalar path),
+          and a second launch of each, bit for bit; then every f32 bit
+          pattern (2^32, in chunks) through e4m3 and e5m2 RNE at scale 1
+          and 448/3.7 and e4m3 SR with a salt, against the plain version
+          on the card (NaN inputs, and any non-NaN disagreement, on the
+          CPU, which decides).
 3. k2     the fused fake-quant GEMM (K2: cast pre-passes and a bf16-split
           GEMM on the tensor cores) at ResNet-50 conv shapes, within the
           f32 summation-order tolerance of the exact product: the PTQ
@@ -46,10 +53,14 @@ Phases, each printing its own lines; any failure exits non-zero:
           query heads of 128, pages of 64 tokens, 8 and 16 pages a slot):
           int8, e4m3, e5m2 and bf16 pools, ragged lengths (0, one token, a
           mid-page end, a full pool), a shuffled page table with unmapped
-          (-1) entries, every layer of a 3-layer pool; m bit-equal where
-          the dots are exact, l and acc within the stated bound; a second
-          launch bit-equal to the first; one launch captured in a CUDA
-          graph and replayed after the table and the lengths changed.
+          (-1) entries, every layer of a 3-layer pool; G in 1, 2, 4, 8 with
+          every payload; 1, 8, 33, 64 and 132 slots (across the split
+          plan's edges); lengths 0, 1 and a chunk (16), four chunks and a
+          page (64), 128 and 512, each +- 1; m bit-equal where the dots are
+          exact, l and acc within the stated bound; a second launch
+          bit-equal to the first (1, 8, 33, 64 slots); one launch captured
+          in a CUDA graph and replayed after the table and the lengths
+          changed.
    k5     the int4 unpack-GEMM (K5) likewise, per-channel and group-128
           scales (N = 331 on the general kernel).
    k6     the in-place ring store (K6), bit-exact for 1-, 2- and 4-byte
@@ -115,7 +126,9 @@ Phases, each printing its own lines; any failure exits non-zero:
           "kernel" and "ringview" in turns.
 8. time   each kernel at its main path's shapes: kernel, plain version,
           bound, and a PyTorch yardstick where one exists; K1 bit-exact
-          at the largest residual_add operand; K2 as the engine conv at
+          at the largest residual_add operand (device time by CUDA-graph
+          replay, and the eager call event-timed) and summed over the 32
+          residual-add operands of one forward; K2 as the engine conv at
           four ResNet-50 convs and over all 52 convs of a forward (device
           times by CUDA-graph replay, both bounds: f32 SIMT and the bf16
           MMAs; yardsticks f32 torch.matmul on the cast im2col and f32
@@ -352,14 +365,113 @@ def phase_k1(record):
              dict(scale=torch.linspace(0.5, 40.0, 256, device=dev))),
             ("block=32", "e4m3", RoundMode.RNE, dict(block_size=32))):
         check(f"{n_big} elements {fmt} {label}", big, fmt, mode, False, **kw)
+    # Lengths around the 16-byte path's groups (n % 4 is the scalar tail), a
+    # view whose data starts 4 bytes past an allocation (the scalar path),
+    # and a second launch of each: the same bits.
+    vec_paths = {}
+    repeat_bad = 0
+    for n in K1_LENGTHS:
+        for off in (0, 1):
+            xs = big.reshape(-1)[:n + off][off:]
+            rbs = big_rb.reshape(-1)[:n + off][off:]
+            vec_paths[(n, off)] = cast_kernel.vector_path(
+                n, (xs.data_ptr(), rbs.data_ptr()))
+            for label, fmt, mode, kw in (
+                    ("e4m3 RNE", "e4m3", RoundMode.RNE, dict(scale=s37)),
+                    ("e4m3 SR bits", "e4m3", RoundMode.STOCHASTIC,
+                     dict(scale=s37, random_bits=rbs)),
+                    ("e5m2 SR salt", "e5m2", RoundMode.STOCHASTIC,
+                     dict(scale=s37, salt=0x9E3779B9)),
+                    ("e4m3 per-channel", "e4m3", RoundMode.RNE,
+                     dict(scale=torch.linspace(0.5, 40.0, n, device=dev)))):
+                check(f"n={n} offset={4 * off} B {label}", xs, fmt, mode,
+                      False, **kw)
+                a = cast_kernel.cuda_qdq(xs, fmt, mode, **kw)
+                b = cast_kernel.cuda_qdq(xs, fmt, mode, **kw)
+                repeat_bad += bits_equal(a, b)
+    if not any(vec_paths[(n, 0)] for n in K1_LENGTHS) \
+            or any(vec_paths[(n, 1)] for n in K1_LENGTHS):
+        failures.append(f"the 16-byte path was not chosen as expected: "
+                        f"{vec_paths}")
+    if repeat_bad:
+        failures.append(f"a second launch changed {repeat_bad} elements")
+    sweep = k1_sweep(cast_kernel, qdq_plain, RoundMode)
+    failures += sweep.pop("failures")
     record["k1"] = {"cases": cases, "mismatched_elements": mismatches,
+                    "repeat_mismatches": repeat_bad, "sweep": sweep,
                     "failures": failures[:50]}
-    print(f"k1: {cases} cases over {len(MODE_STRINGS)} mode strings, "
-          f"{mismatches} mismatched elements (bit-exact required)")
+    print(f"k1: {cases} cases over {len(MODE_STRINGS)} mode strings and "
+          f"lengths {K1_LENGTHS} (aligned and 4 bytes past an allocation), "
+          f"{mismatches} mismatched elements (bit-exact required); second "
+          f"launches: {repeat_bad} elements changed; every f32 bit pattern "
+          f"through {len(sweep['variants'])} variants: "
+          f"{sweep['kernel_mismatches']} mismatches, card plain vs CPU on "
+          f"{sweep['plain_card_vs_cpu']} non-NaN elements (the CPU decides)")
     if failures:
         for f in failures[:10]:
             print(f"  k1 FAIL {f}")
         raise PhaseError("K1 disagrees with its plain version")
+
+
+K1_LENGTHS = (1, 3, 5, 4 * 1001 + 1, 8 * 1001 + 7, 4 * 300007 + 1)
+K1_SWEEP_CHUNK = 1 << 26
+
+
+def k1_sweep(cast_kernel, qdq_plain, RoundMode):
+    """Every f32 bit pattern, 2^32 in chunks, through K1 for e4m3 and e5m2
+    RNE at scale 1 and at a calibrated scale that is not a power of two,
+    and e4m3 SR with a salt, against the plain version on the card.  A
+    non-NaN element where the two differ is computed again by the plain
+    version on the CPU, which decides; NaN inputs are checked on the CPU
+    only (the card's NaN payloads differ from the host's)."""
+    import torch
+    from fp8tpu_torch.numerics.cast import sr_bits_from_salt
+    dev = torch.device("cuda")
+    cal = torch.tensor(448.0 / 3.7, device=dev)
+    one = torch.tensor(1.0, device=dev)
+    salt = 0x9E3779B9
+    variants = [("e4m3 RNE scale 1", "e4m3", RoundMode.RNE, one, None),
+                ("e4m3 RNE scale 448/3.7", "e4m3", RoundMode.RNE, cal, None),
+                ("e5m2 RNE scale 1", "e5m2", RoundMode.RNE, one, None),
+                ("e5m2 RNE scale 448/3.7", "e5m2", RoundMode.RNE, cal, None),
+                ("e4m3 SR salt, scale 448/3.7", "e4m3",
+                 RoundMode.STOCHASTIC, cal, salt)]
+    out = {"variants": [v[0] for v in variants], "kernel_mismatches": 0,
+           "plain_card_vs_cpu": 0, "nan_inputs_checked": 0, "failures": []}
+    sr_cpu = sr_bits_from_salt(salt, K1_SWEEP_CHUNK)
+    for start in range(0, 1 << 32, K1_SWEEP_CHUNK):
+        u = torch.arange(start, start + K1_SWEEP_CHUNK, device=dev,
+                         dtype=torch.int64)
+        x = torch.where(u >= 1 << 31, u - (1 << 32), u).to(
+            torch.int32).view(torch.float32)
+        del u
+        nan = torch.isnan(x)
+        for label, fmt, mode, scale, sl in variants:
+            got = cast_kernel.cuda_qdq(x, fmt, mode, scale, salt=sl)
+            want = qdq_plain(x, fmt, mode, scale, salt=sl)
+            diff = (got.view(torch.int32) != want.view(torch.int32)) & ~nan
+            recheck = diff | nan
+            idx = recheck.nonzero().reshape(-1)
+            if idx.numel():
+                ic = idx.cpu()
+                kw = ({"random_bits": sr_cpu[ic]} if sl is not None else {})
+                cpu = qdq_plain(x[idx].cpu(), fmt, mode, scale.cpu(), **kw)
+                gi = got[idx].cpu().view(torch.int32)
+                wi = want[idx].cpu().view(torch.int32)
+                bad = int((gi != cpu.view(torch.int32)).sum())
+                out["plain_card_vs_cpu"] += int(
+                    ((wi != cpu.view(torch.int32)) & ~nan[idx].cpu()).sum())
+                out["nan_inputs_checked"] += int(nan[idx].sum())
+                if bad:
+                    out["kernel_mismatches"] += bad
+                    first = int(ic[(gi != cpu.view(torch.int32))][0])
+                    out["failures"].append(
+                        f"sweep {label}: {bad} elements of chunk "
+                        f"{start:#x} differ, first input bits "
+                        f"{start + first:#010x}")
+            del got, want, diff, recheck
+        del x, nan
+    return out
 
 
 # -- phase 3 ----------------------------------------------------------------
@@ -947,14 +1059,18 @@ def phase_k6(record):
 # -- phase k4 ------------------------------------------------------------------
 
 K4_KV, K4_G, K4_D, K4_PAGE, K4_LAYERS = 8, 4, 128, 64, 3
+K4_GROUPS = (1, 2, 4, 8)
+K4_SLOTS = (1, 8, 33, 64, 132)
+K4_LENS = [0, 1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 511, 512]
 KV_TORCH = {"int8": "int8", "e4m3": "float8_e4m3fn", "e5m2": "float8_e5m2",
             "bf16": "bfloat16"}
 
 
-def k4_case(gen, batch, max_pages, fmt, exact):
+def k4_case(gen, batch, max_pages, fmt, exact, g=K4_G, lens=None):
     """A pool of ``batch * max_pages`` pages behind a shuffled page table,
-    queries, and ragged lengths: 0, one token, a mid-page end, a page
-    boundary, a full pool, the rest random.  Entries of the table past a
+    ``g`` queries a kv head, and ragged lengths: ``lens`` where given (the
+    rest random), else 0, one token, a mid-page end, a page boundary, a
+    full pool, the rest random.  Entries of the table past a
     slot's length are -1 (as the engine leaves them), and slot 6's whole row
     is -1 although its length is not 0 (a retired slot that keeps decoding).
     ``exact``: q on a 1/8 grid and payloads on a grid coarse enough that
@@ -971,29 +1087,33 @@ def k4_case(gen, batch, max_pages, fmt, exact):
         pool = (torch.randint(-15, 16, shape, device=dev, generator=gen,
                               dtype=torch.int8).float() * 0.25).to(dtype)
     else:
-        pool = torch.cat([(torch.randn((64,) + shape[1:], device=dev,
-                                       generator=gen) * 3).to(dtype)
-                          for _ in range(P // 64)])
+        pool = torch.cat([(torch.randn((min(64, P - i),) + shape[1:],
+                                       device=dev, generator=gen) * 3
+                           ).to(dtype) for i in range(0, P, 64)])
     sc = torch.empty((P, 2, K4_LAYERS, R), device=dev).uniform_(
         0.004, 0.02, generator=gen)
     if exact:
-        q = (torch.randint(-16, 17, (batch, K4_KV * K4_G, K4_D), device=dev,
+        q = (torch.randint(-16, 17, (batch, K4_KV * g, K4_D), device=dev,
                            generator=gen).float() / 8).to(torch.bfloat16)
     else:
-        q = (torch.randn(batch, K4_KV * K4_G, K4_D, device=dev, generator=gen)
+        q = (torch.randn(batch, K4_KV * g, K4_D, device=dev, generator=gen)
              * 0.7).to(torch.bfloat16)
     full = max_pages * K4_PAGE
+    given = lens
     lens = torch.randint(1, full + 1, (batch,), device=dev, generator=gen,
                          dtype=torch.int32)
-    lens[:7] = torch.tensor([0, 1, K4_PAGE - 1, K4_PAGE, K4_PAGE + 3, full,
-                             K4_PAGE + 5], dtype=torch.int32)
+    if given is None:
+        given = [0, 1, K4_PAGE - 1, K4_PAGE, K4_PAGE + 3, full, K4_PAGE + 5]
+    given = given[:batch]
+    lens[:len(given)] = torch.tensor(given, dtype=torch.int32)
     table = torch.randperm(P, device=dev, generator=gen).to(torch.int32
                                                             ).reshape(batch,
                                                                       max_pages)
     mapped = torch.arange(max_pages, device=dev)[None] * K4_PAGE \
         < lens[:, None]
     table = torch.where(mapped, table, -1).to(torch.int32)
-    table[6] = -1
+    if batch > 6:
+        table[6] = -1
     return q, pool, sc, table, lens
 
 
@@ -1049,6 +1169,7 @@ def phase_k4(record):
 
     gen = torch.Generator(device="cuda").manual_seed(44)
     kw = dict(page_size=K4_PAGE, kv_heads=K4_KV)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
 
     def compare(label, args, layer, exact):
@@ -1106,11 +1227,29 @@ def phase_k4(record):
             args = k4_case(gen, 8, 8, fmt, exact)
             compare(f"B=8 MP=8 {fmt} {'exact-dot' if exact else 'gaussian'} "
                     f"data layer 1", args, 1, exact)
+    # every query group and payload; slot counts across the split plan's
+    # edges (1 slot: 8 splits; 8: 4; 33, 64, 132: one, past one wave at 132);
+    # lengths at 0, 1 and a chunk, a round of four chunks and a page, +- 1
+    for g in K4_GROUPS:
+        for fmt in KV_TORCH:
+            args = k4_case(gen, 8, 8, fmt, True, g=g)
+            compare(f"G={g} B=8 MP=8 {fmt} exact-dot data layer 2", args, 2,
+                    True)
+    for batch in K4_SLOTS:
+        args = k4_case(gen, batch, 8, "int8", True,
+                       lens=[444, 0, 1, 63, 64, 67, 512, 69])
+        compare(f"B={batch} MP=8 int8 exact-dot data layer 0 "
+                f"({k4.n_splits(batch, K4_KV, 8 * K4_PAGE, sms)} splits)",
+                args, 0, True)
+    args = k4_case(gen, len(K4_LENS), 8, "int8", True, lens=K4_LENS)
+    compare(f"lengths {K4_LENS} int8 exact-dot data layer 1", args, 1, True)
+    args = k4_case(gen, len(K4_LENS), 8, "e4m3", False, lens=K4_LENS)
+    compare(f"lengths {K4_LENS} e4m3 gaussian data layer 1", args, 1, False)
 
     # a second launch gives the same bits (the split partials are merged in a
     # fixed order), at the split shape (8 slots) and the unsplit one (64)
     repeat_ok = True
-    for batch in (8, 64):
+    for batch in (1, 8, 33, 64):
         args = k4_case(gen, batch, 8, "int8", False)
         first = k4.paged_decode_attention(*args, 2, **kw)
         for _ in range(3):
@@ -1145,11 +1284,13 @@ def phase_k4(record):
     worst = max(r["max_err_over_bound"] for r in rows)
     worst_l = max(r["l_err_over_bound"] for r in rows)
     print(f"k4: {len(rows)} cases (int8 / e4m3 x exact-dot / gaussian data x "
-          f"(B, MP) in {shapes} x 3 layers; e5m2 and bf16 at B=8 MP=8); m "
-          f"bit-equal on exact-dot data; worst acc err/bound {worst:.3e}, "
-          f"l err/bound {worst_l:.3e}; repeated launches bit-equal: "
-          f"{'ok' if repeat_ok else 'FAIL'}; CUDA-graph replay with a "
-          f"changed table and lengths: {'ok' if graph_ok else 'FAIL'}")
+          f"(B, MP) in {shapes} x 3 layers; e5m2 and bf16 at B=8 MP=8; G in "
+          f"{K4_GROUPS} x every payload; B in {K4_SLOTS}; lengths "
+          f"{K4_LENS}); m bit-equal on exact-dot data; worst acc err/bound "
+          f"{worst:.3e}, l err/bound {worst_l:.3e}; repeated launches "
+          f"bit-equal: {'ok' if repeat_ok else 'FAIL'}; CUDA-graph replay "
+          f"with a changed table and lengths: "
+          f"{'ok' if graph_ok else 'FAIL'}")
     if not (all(r["ok"] for r in rows) and repeat_ok and graph_ok):
         raise PhaseError("K4 disagrees with its plain version")
 
@@ -2498,7 +2639,11 @@ def phase_time(record, batch: int, launches):
     kernels = []
 
     # K1 at the largest residual_add operand, (batch, 256, 56, 56), held
-    # bit-exact against the plain version on the CPU.
+    # bit-exact against the plain version on the CPU: device time by
+    # CUDA-graph replay, and the eager call event-timed (the wrapper's host
+    # time included).  Then all 32 operands of one forward's 16 residual
+    # adds, summed against their bound.
+    from fp8tpu_torch.tools.bench_k1k4 import residual_shapes
     x = torch.randn(batch, 256, 56, 56, device="cuda", generator=gen)
     s = per_tensor(x, "e4m3")
     want = qdq_plain(x.cpu(), "e4m3", RoundMode.RNE, s.cpu())
@@ -2508,13 +2653,33 @@ def phase_time(record, batch: int, launches):
     if k1_bad:
         raise PhaseError(f"K1 at {tuple(x.shape)}: {k1_bad} elements differ "
                          "from the plain version")
-    k1_ms = cuda_ms(lambda: cast_kernel.cuda_qdq(x, "e4m3", RoundMode.RNE, s))
+    k1_ms = device_ms(lambda: cast_kernel.cuda_qdq(x, "e4m3", RoundMode.RNE,
+                                                   s))
+    k1_eager = cuda_ms(lambda: cast_kernel.cuda_qdq(x, "e4m3", RoundMode.RNE,
+                                                    s), iters=20, warmup=3)
     k1_plain = cuda_ms(lambda: qdq_plain(x, "e4m3", RoundMode.RNE, s),
                        iters=3, warmup=1)
     k1_bound = 8.0 * x.numel() / HBM_BYTES_PER_S * 1e3
-    print(f"time k1 cast e4m3 per-tensor {tuple(x.shape)}: kernel "
-          f"{k1_ms:.4f} ms, plain {k1_plain:.4f} ms, bound {k1_bound:.4f} ms "
-          f"(bytes), no PyTorch call computes this bit-exact cast")
+    del x
+    res_ms, res_elems = 0.0, 0
+    for shape in residual_shapes(batch):
+        xr = torch.randn(shape, device="cuda", generator=gen)
+        sr = per_tensor(xr, "e4m3")
+        res_ms += device_ms(lambda: cast_kernel.cuda_qdq(xr, "e4m3",
+                                                         RoundMode.RNE, sr))
+        res_elems += xr.numel()
+        del xr
+    res_bound = 8.0 * res_elems / HBM_BYTES_PER_S * 1e3
+    print(f"time k1 cast e4m3 per-tensor ({batch}, 256, 56, 56): kernel "
+          f"{k1_ms:.4f} ms on the device ({k1_eager:.4f} ms event-timed, the "
+          f"wrapper included), plain {k1_plain:.4f} ms, bound {k1_bound:.4f} "
+          f"ms (bytes), no PyTorch call computes this bit-exact cast; the 32 "
+          f"residual-add operands of one forward ({res_elems / 1e6:.1f} M "
+          f"elements): {res_ms:.4f} ms against {res_bound:.4f} ms")
+    record["time_k1"] = {"ms": k1_ms, "event_timed_ms": k1_eager,
+                         "plain_ms": k1_plain, "bound_ms": k1_bound,
+                         "residual_ms": res_ms, "residual_bound_ms": res_bound,
+                         "residual_elements": res_elems}
     kernels.append({
         "name": "cast_kernel", "route": "cuda",
         "source": "fp8tpu_torch/kernels/csrc/cast_kernel.cu",

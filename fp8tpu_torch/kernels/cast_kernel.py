@@ -5,6 +5,12 @@ Replaces ``fp8tpu/kernels/cast_kernel.py::_kernel_body``.  Every
 ``fake_quant`` and ``qdq`` call on a CUDA tensor is one launch of it.  The
 plain version is :func:`fp8tpu_torch.numerics.cast.qdq_plain`, which the
 wrapper never calls: a CUDA tensor launches the kernel or raises.
+
+The wrapper picks the kernel's path up front (:func:`vector_path`): 16-byte
+accesses where ``x``, the output and the bits are 16-byte aligned and the
+tensor has fewer than 2^31 elements, else one element a thread.  With the
+scale given as a CUDA tensor a call synchronises nothing and allocates only
+its output, so it can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -82,6 +88,14 @@ def scale_layout(scale, x: torch.Tensor):
     return full, 1, full.numel()
 
 
+def vector_path(n: int, ptrs, inner: int = 1, nscale: int = 1) -> bool:
+    """Whether the kernel takes its 16-byte path: every pointer in ``ptrs``
+    (None for an absent tensor) 16-byte aligned, and n, inner and nscale
+    below 2^31 (32-bit indices)."""
+    return (max(n, inner, nscale) < 2 ** 31
+            and all(p is None or p % 16 == 0 for p in ptrs))
+
+
 @functools.cache
 def _fn():
     lib = _build.load("cast_kernel")
@@ -89,7 +103,8 @@ def _fn():
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
                    ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_uint, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_uint, ctypes.c_int,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -118,10 +133,12 @@ def cuda_qdq(x: torch.Tensor, fmt_name: str, mode: RoundMode = RoundMode.RNE,
         rb_mode = 1
     elif salt is not None:
         rb_mode = 2
+    rptr = rbits.data_ptr() if rbits is not None else None
+    vec = vector_path(xf.numel(), (xf.data_ptr(), y.data_ptr(), rptr),
+                      inner, nscale)
     err = _fn()(code, xf.data_ptr(), y.data_ptr(), xf.numel(),
-                scales.data_ptr(), inner, nscale, block_size,
-                rbits.data_ptr() if rbits is not None else None, rb_mode,
-                (salt or 0) & 0xFFFFFFFF,
+                scales.data_ptr(), inner, nscale, block_size, rptr, rb_mode,
+                (salt or 0) & 0xFFFFFFFF, int(vec),
                 torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, f"cast kernel ({fmt_name}, {mode.value})")
     launches += 1

@@ -11,9 +11,21 @@
 // Subnormal f32 values: XLA flushes them in f32 arithmetic (DAZ on inputs,
 // FTZ on results), and the plain version reproduces that explicitly.  This
 // file does the same with explicit code (flush(), mul_ftz(), recip_ftz())
-// instead of compiler flags, so it is built without --use_fast_math and
-// without -ftz=true, and the multiplies use __fmul_rn so that they are
-// never contracted into an FMA.
+// or explicit instructions (mul.rn.ftz) instead of compiler flags, so it
+// is built without --use_fast_math and without -ftz=true, and the
+// multiplies use __fmul_rn so that they are never contracted into an FMA.
+//
+// Two routes to the same bits.  The emulation (HW = false) writes every
+// step at the bit level, NaN rules included: about 120 instructions an
+// element, most of them integer.  The hardware route (HW = true) runs the ends of the
+// pipeline on the hardware: mul.rn.ftz.f32 for the scale, cvt.rn.f16.f32
+// for the f32 -> f16 pattern and cvt.f32.f16 back, and a plain multiply
+// by 1/scale.  It gives the emulation's bits whenever the scaled value is
+// not NaN and 1/scale is finite with |1/scale| >= 2^-102 (fast_inv), so
+// that the last product is never an f32 subnormal; it reports a NaN in
+// ``bad``, and the caller then takes the emulation, which applies the
+// host's (x86) NaN rules.  tests/test_torch_k1_pipeline.py holds a torch
+// twin of the hardware route bit-equal to the plain version.
 #pragma once
 
 #include <cstdint>
@@ -172,6 +184,51 @@ __device__ __forceinline__ float f16_bits_to_f32(int h) {
   return __uint_as_float(bits);
 }
 
+// -- the ends of the pipeline, emulated or on the hardware -------------------
+
+__device__ __forceinline__ float mul_hw_ftz(float a, float b) {
+  float r;
+  asm("mul.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ int f16_hw(float f) {
+  unsigned short h;
+  asm("cvt.rn.f16.f32 %0, %1;" : "=h"(h) : "f"(f));
+  return h;
+}
+__device__ __forceinline__ float f32_of_f16_hw(int h) {
+  float f;
+  asm("cvt.f32.f16 %0, %1;" : "=f"(f) : "h"(static_cast<unsigned short>(h)));
+  return f;
+}
+
+// 1/scale with which the hardware route's last multiply is exact-equal to
+// mul_ftz: finite, and large enough that a product with any nonzero f16
+// value (>= 2^-24) is an f32 normal.
+__device__ __forceinline__ bool fast_inv(float inv) {
+  return fabsf(inv) >= 0x1p-102f && fabsf(inv) <= 3.40282347e38f;
+}
+
+// The f16 pattern of x * s.  HW: a NaN product sets ``bad`` (the pattern
+// is then meaningless); an f32 subnormal product, flushed or not, is ±0
+// in f16 either way.
+template <bool HW>
+__device__ __forceinline__ int scaled_f16(float x, float s, bool& bad) {
+  if constexpr (HW) {
+    const float r = mul_hw_ftz(x, s);
+    bad |= r != r;
+    return f16_hw(r);
+  } else {
+    return f32_to_f16_bits(mul_ftz(x, s));
+  }
+}
+// f16 pattern h (never NaN on the hardware route) times 1/scale.
+template <bool HW>
+__device__ __forceinline__ float descaled(int h, float inv) {
+  if constexpr (HW) return __fmul_rn(f32_of_f16_hw(h), inv);
+  else return mul_ftz(f16_bits_to_f32(h), inv);
+}
+
 template <int M, int F>
 __device__ __forceinline__ int nearest_incr(int rnmask, int rntie,
                                             bool positive) {
@@ -188,11 +245,11 @@ __device__ __forceinline__ int nearest_incr(int rnmask, int rntie,
 
 // -- format bodies -----------------------------------------------------------
 
-template <int M, bool DAZ>
+template <int M, bool DAZ, bool HW>
 __device__ __forceinline__ float cast_e5m2(float x, float s, float inv,
-                                           uint32_t rb) {
+                                           uint32_t rb, bool& bad) {
   using G = Geo<E5M2>;
-  int h = f32_to_f16_bits(mul_ftz(x, s));
+  int h = scaled_f16<HW>(x, s, bad);
   const int exp_field = h & 0x7C00;
   const bool can_round = (h & 0x7F00) <= G::can_round;
   const bool is_normal = exp_field <= 0x7800 && exp_field >= 0x0400;
@@ -216,14 +273,14 @@ __device__ __forceinline__ float cast_e5m2(float x, float s, float inv,
   if (apply) h += incr;
   if (DAZ && is_denorm) h = 0;
   h &= (0xFFFF << G::lshift) & 0xFFFF;
-  return mul_ftz(f16_bits_to_f32(h), inv);
+  return descaled<HW>(h, inv);
 }
 
-template <int F, int M>
+template <int F, int M, bool HW>
 __device__ __forceinline__ float cast_rebias(float x, float s, float inv,
-                                             uint32_t rb) {
+                                             uint32_t rb, bool& bad) {
   using G = Geo<F>;
-  const int h = f32_to_f16_bits(mul_ftz(x, s));
+  const int h = scaled_f16<HW>(x, s, bad);
   int exp = ((h >> 10) & 0x1F) - 15;
   const int sign = h & 0x8000;
   int mant = h & 0x03FF;
@@ -255,14 +312,14 @@ __device__ __forceinline__ float cast_rebias(float x, float s, float inv,
   if (!is_naninf && can_round) mant += incr;
   mant &= (0xFFFF << G::lshift) & 0xFFFF;
   const int out = (mant + (exp + 15) * 1024) | sign;
-  return mul_ftz(f16_bits_to_f32(out), inv);
+  return descaled<HW>(out, inv);
 }
 
-template <int M>
+template <int M, bool HW>
 __device__ __forceinline__ float cast_e4m3_v2(float x, float s, float inv,
-                                              uint32_t rb) {
+                                              uint32_t rb, bool& bad) {
   using G = Geo<E4M3>;
-  const int h = f32_to_f16_bits(mul_ftz(x, s));
+  const int h = scaled_f16<HW>(x, s, bad);
   int exp = ((h >> 10) & 0x1F) - 15;
   const int sign = h & 0x8000;
   int mant = h & 0x03FF;
@@ -287,7 +344,7 @@ __device__ __forceinline__ float cast_e4m3_v2(float x, float s, float inv,
   if (can_round && !is_naninf) mant += incr;
   mant &= 0xFF80;
   const int out = (mant + (exp + 15) * 1024) | sign;
-  return mul_ftz(f16_bits_to_f32(out), inv);
+  return descaled<HW>(out, inv);
 }
 
 template <int M>
@@ -300,12 +357,18 @@ __device__ __forceinline__ float cast_bf16(float x, uint32_t rb) {
   return __uint_as_float(u & 0xFFFF0000u);
 }
 
-template <int M, bool DAZ>
-__device__ __forceinline__ float cast_f16(float x, uint32_t rb) {
+template <int M, bool DAZ, bool HW>
+__device__ __forceinline__ float cast_f16(float x, uint32_t rb, bool& bad) {
   if (M == RNE) {
-    int bits = f32_to_f16_bits(x);
+    int bits;
+    if constexpr (HW) {
+      bad |= x != x;
+      bits = f16_hw(x);
+    } else {
+      bits = f32_to_f16_bits(x);
+    }
     if (DAZ && (bits & 0x7C00) == 0) bits = 0;
-    return f16_bits_to_f32(bits);
+    return HW ? f32_of_f16_hw(bits) : f16_bits_to_f32(bits);
   }
   const uint32_t u = __float_as_uint(x);
   const int exp = static_cast<int>((u >> 23) & 0xFF) - 127;
@@ -327,9 +390,10 @@ __device__ __forceinline__ float cast_f16(float x, uint32_t rb) {
   return f16_bits_to_f32(h & 0xFFFF);
 }
 
+template <bool HW>
 __device__ __forceinline__ float cast_e5m2_noinf(float x, float s,
-                                                 float inv) {
-  const int h = f32_to_f16_bits(mul_ftz(x, s));
+                                                 float inv, bool& bad) {
+  const int h = scaled_f16<HW>(x, s, bad);
   const bool naninf = (h & 0x7C00) == 0x7C00;
   const int tie = (h & 0x0100) == 0x0100;
   int enc = ((((h & 0x7C00) >> 10) + 1) << 10) | (h & 0x83FF);
@@ -341,7 +405,7 @@ __device__ __forceinline__ float cast_e5m2_noinf(float x, float s,
   const int dexp = ((((d & 0x7C00) >> 10) - 1) * 1024) & 0xFFFF;
   int out = (dexp | (d & 0x83FF)) & 0xFFFF;
   if (d == 0x8000) out = 0x7C00;
-  return mul_ftz(f16_bits_to_f32(out), inv);
+  return descaled<HW>(out, inv);
 }
 
 __device__ __forceinline__ float cast_e5m2_flex(float x) {
@@ -384,21 +448,56 @@ __device__ __forceinline__ float cast_fp4(float x, float s, float inv) {
   return mul_ftz(__uint_as_float(u2), inv);
 }
 
-// One element: ``s`` its scale, ``inv`` = recip_ftz(s), ``rb`` its 16
-// random bits (read only by STOCHASTIC instances and float16's non-RNE
-// path).
-template <int F, int M, bool DAZ>
-__device__ __forceinline__ float cast_elem(float x, float s, float inv,
-                                           uint32_t rb) {
-  if constexpr (F == E5M2) return cast_e5m2<M, DAZ>(x, s, inv, rb);
+// Formats whose hardware route exists (the rest are integer work already,
+// or fp4's few multiplies).
+template <int F, int M>
+__host__ __device__ constexpr bool has_hw_route() {
+  return F == E5M2 || F == E4M3 || F == E4M3_IEEE || F == E3M4
+      || F == E4M3_V2 || F == E5M2_NOINF || (F == F16 && M == RNE);
+}
+
+// One element on route HW: ``s`` its scale, ``inv`` = recip_ftz(s), ``rb``
+// its 16 random bits (read only by STOCHASTIC instances and float16's
+// non-RNE path).  HW needs fast_inv(inv) for formats that descale, and
+// sets ``bad`` where the emulation must redo the element.
+template <int F, int M, bool DAZ, bool HW>
+__device__ __forceinline__ float cast_route(float x, float s, float inv,
+                                            uint32_t rb, bool& bad) {
+  constexpr bool hw = HW && has_hw_route<F, M>();
+  if constexpr (F == E5M2) return cast_e5m2<M, DAZ, hw>(x, s, inv, rb, bad);
   else if constexpr (F == E4M3 || F == E4M3_IEEE || F == E3M4)
-    return cast_rebias<F, M>(x, s, inv, rb);
-  else if constexpr (F == E4M3_V2) return cast_e4m3_v2<M>(x, s, inv, rb);
+    return cast_rebias<F, M, hw>(x, s, inv, rb, bad);
+  else if constexpr (F == E4M3_V2)
+    return cast_e4m3_v2<M, hw>(x, s, inv, rb, bad);
   else if constexpr (F == FP4) return cast_fp4(x, s, inv);
   else if constexpr (F == BF16) return cast_bf16<M>(x, rb);
-  else if constexpr (F == F16) return cast_f16<M, DAZ>(x, rb);
-  else if constexpr (F == E5M2_NOINF) return cast_e5m2_noinf(x, s, inv);
+  else if constexpr (F == F16) return cast_f16<M, DAZ, hw>(x, rb, bad);
+  else if constexpr (F == E5M2_NOINF)
+    return cast_e5m2_noinf<hw>(x, s, inv, bad);
   else return cast_e5m2_flex(x);
+}
+
+// The emulation alone.
+template <int F, int M, bool DAZ>
+__device__ __forceinline__ float cast_emulated(float x, float s, float inv,
+                                               uint32_t rb) {
+  bool unused = false;
+  return cast_route<F, M, DAZ, false>(x, s, inv, rb, unused);
+}
+
+// One element: the hardware route where it gives the emulation's bits,
+// else the emulation.  ``fast`` = fast_inv(inv), decided once per scale.
+template <int F, int M, bool DAZ>
+__device__ __forceinline__ float cast_elem(float x, float s, float inv,
+                                           uint32_t rb, bool fast) {
+  if constexpr (has_hw_route<F, M>()) {
+    if (fast || F == F16) {
+      bool bad = false;
+      const float y = cast_route<F, M, DAZ, true>(x, s, inv, rb, bad);
+      if (!bad) return y;
+    }
+  }
+  return cast_emulated<F, M, DAZ>(x, s, inv, rb);
 }
 
 // Per-block scale from the block's absmax (numerics/cast.py::block_scales):
@@ -537,7 +636,7 @@ __device__ __forceinline__ float grid_code(int code, float x, float s,
                                            uint32_t rb) {
   switch (code) {
 #define FP8_CAST_CASE(F, M, D) \
-    case code_of(F, M, D): return cast_elem<F, M, D>(x, s, 1.0f, rb);
+    case code_of(F, M, D): return cast_elem<F, M, D>(x, s, 1.0f, rb, true);
     FP8_CAST_VARIANTS(FP8_CAST_CASE)
 #undef FP8_CAST_CASE
     case hw_code(E4M3, false): return hw_qdq<E4M3>(x, s, false);

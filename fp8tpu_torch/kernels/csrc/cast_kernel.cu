@@ -17,10 +17,28 @@
 // numerics/cast.py::sr_bits gives, so SR is bit-exact against the plain
 // torch version.
 //
-// Bound on the H100: bytes.  It reads 4 bytes and writes 4 bytes per
-// element (3.35 TB/s); its ~50-100 integer operations per element stay
-// under the SMs' integer rate.  Simple first design: a grid-stride loop,
-// one element per thread per step, no vector loads.
+// Bound on the H100: bytes, 4 read and 4 written per element at 3.35 TB/s,
+// once the work per element fits the SMs' issue rate: 0.62 SM cycles an
+// element at (32, 256, 56, 56) (132 SMs at 1.98 GHz), about 80 issued
+// instructions or 40 integer ones.  The first design (one element a thread
+// per step, 64-bit indices, the bit-level emulation of every step) ran at
+// 37% of HBM (165 µs at (32, 256, 56, 56) on an H100 80GB HBM3, 700 W).
+// Its loads and stores alone took 84 µs, its cast alone on data made in
+// registers 152 µs, a loop of 130 SASS instructions an element
+// (fp8tpu_torch/tools/k1_probe.py): it was bound by instruction issue, not
+// by bytes.  So:
+//
+// * the hardware route of cast.cuh (mul.rn.ftz, cvt.rn.f16.f32, cvt.f32.f16),
+//   with the host's NaN rules left to the emulation, taken for a group of
+//   elements only where the group holds a NaN product;
+// * 16-byte loads and streaming stores, two groups of 4 elements a thread
+//   in flight (64 KB a full SM), a contiguous range of groups a block,
+//   32-bit indices (the wrapper takes this path for n < 2^31 with 16-byte
+//   aligned x, y and bits); the ragged tail (n % 4) as scalars in the same
+//   launch; unaligned tensors take the scalar grid-stride kernel;
+// * the bits' source and the scale layout as template parameters, and a
+//   broadcast scale's index by multiply-shift division.
+
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -29,90 +47,268 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kGroups = 2;       // groups of 4 elements a thread has in flight
 
-__device__ __forceinline__ uint32_t rand_bits(const int* rbits, int rb_mode,
-                                              uint32_t salt, long long i) {
-  if (rb_mode == 1) return static_cast<uint32_t>(rbits[i]);
-  if (rb_mode == 2) return fp8::sr_hash(salt, static_cast<uint32_t>(i));
-  return 0u;
+enum Bits { NO_BITS = 0, TENSOR_BITS = 1, SALT_BITS = 2 };
+enum Scale { SCALAR = 0, BROADCAST = 1 };
+
+// floor(n / d) for n < 2^31: (n * m) >> shift, m = ceil(2^shift / d),
+// shift = 31 + ceil(log2 d) (Granlund and Montgomery, Theorem 4.2).
+struct FastDiv {
+  uint32_t d, m, shift;
+};
+
+FastDiv make_div(uint32_t d) {
+  uint32_t l = 0;
+  while ((1ull << l) < d) ++l;
+  const uint32_t shift = 31 + l;
+  const unsigned long long m = ((1ull << shift) + d - 1) / d;
+  return {d, static_cast<uint32_t>(m), shift};
 }
 
-template <int F, int M, bool D>
-__global__ void cast_kernel(const float* __restrict__ x,
-                            float* __restrict__ y, long long n,
-                            const float* __restrict__ scale, long long inner,
-                            long long nscale, int block_size,
-                            const int* __restrict__ rbits, int rb_mode,
-                            uint32_t salt) {
+__device__ __forceinline__ uint32_t div(uint32_t n, const FastDiv& f) {
+  return static_cast<uint32_t>(
+      (static_cast<unsigned long long>(n) * f.m) >> f.shift);
+}
+
+struct Layout {                  // element i reads scale[(i / inner) % nscale]
+  FastDiv inner, nscale;
+};
+
+template <int RB>
+__device__ __forceinline__ uint32_t rand_bits(const int* rbits, uint32_t salt,
+                                              long long i) {
+  if constexpr (RB == TENSOR_BITS) return static_cast<uint32_t>(rbits[i]);
+  else if constexpr (RB == SALT_BITS)
+    return fp8::sr_hash(salt, static_cast<uint32_t>(i));
+  else return 0u;
+}
+
+// The vector path: n < 2^31, x, y (and rbits) 16-byte aligned.  Block b
+// casts groups [b * per, min((b + 1) * per, n / 4)); block 0 also the
+// ragged tail.
+template <int F, int M, bool D, int RB, int SC>
+__global__ void __launch_bounds__(kThreads)
+cast_vec(const float* __restrict__ x, float* __restrict__ y, uint32_t n,
+         const float* __restrict__ scale, Layout lay, uint32_t per,
+         const int* __restrict__ rbits, uint32_t salt) {
+  const uint32_t ng = n / 4;
+  const uint32_t g0 = blockIdx.x * per;
+  const uint32_t g1 = min(g0 + per, ng);
+  float s = scale[0], inv = fp8::recip_ftz(s);
+  bool fast = fp8::fast_inv(inv);
+  auto scale_at = [&](uint32_t i) {
+    if constexpr (SC == BROADCAST) {
+      const uint32_t q = div(i, lay.inner);
+      s = scale[q - div(q, lay.nscale) * lay.nscale.d];
+      inv = fp8::recip_ftz(s);
+      fast = fp8::fast_inv(inv);
+    }
+  };
+  for (uint32_t g = g0 + threadIdx.x; g < g1; g += kGroups * kThreads) {
+    float4 v[kGroups];
+    int4 r[kGroups];
+#pragma unroll
+    for (int k = 0; k < kGroups; ++k) {
+      const uint32_t gk = g + k * kThreads;
+      if (gk < g1) {
+        v[k] = __ldg(reinterpret_cast<const float4*>(x) + gk);
+        if constexpr (RB == TENSOR_BITS)
+          r[k] = __ldg(reinterpret_cast<const int4*>(rbits) + gk);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kGroups; ++k) {
+      const uint32_t gk = g + k * kThreads;
+      if (gk >= g1) break;
+      const uint32_t i0 = 4 * gk;
+      float in[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
+      uint32_t rb[4] = {0u, 0u, 0u, 0u};
+      if constexpr (RB == TENSOR_BITS) {
+        rb[0] = r[k].x; rb[1] = r[k].y; rb[2] = r[k].z; rb[3] = r[k].w;
+      } else if constexpr (RB == SALT_BITS) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) rb[e] = fp8::sr_hash(salt, i0 + e);
+      }
+      float out[4];
+      bool bad = false;
+      if constexpr (fp8::has_hw_route<F, M>()) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          scale_at(i0 + e);
+          bad |= !(fast || F == fp8::F16);
+          out[e] = fp8::cast_route<F, M, D, true>(in[e], s, inv, rb[e], bad);
+        }
+      } else {
+        bad = true;
+      }
+      if (bad) {       // a NaN product, or a format without the route
+#pragma unroll 1
+        for (int e = 0; e < 4; ++e) {
+          scale_at(i0 + e);
+          out[e] = fp8::cast_elem<F, M, D>(in[e], s, inv, rb[e], fast);
+        }
+      }
+      __stcs(reinterpret_cast<float4*>(y) + gk,
+             make_float4(out[0], out[1], out[2], out[3]));
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x < n - 4 * ng) {
+    const uint32_t i = 4 * ng + threadIdx.x;
+    scale_at(i);
+    y[i] = fp8::cast_elem<F, M, D>(x[i], s, inv,
+                                   rand_bits<RB>(rbits, salt, i), fast);
+  }
+}
+
+// The scalar path: any alignment and size, one element a thread per step.
+template <int F, int M, bool D, int RB, int SC>
+__global__ void __launch_bounds__(kThreads)
+cast_scalar(const float* __restrict__ x, float* __restrict__ y, long long n,
+            const float* __restrict__ scale, long long inner,
+            long long nscale, const int* __restrict__ rbits, uint32_t salt) {
+  const long long nthreads = static_cast<long long>(gridDim.x) * blockDim.x;
+  float s = scale[0], inv = fp8::recip_ftz(s);
+  bool fast = fp8::fast_inv(inv);
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x
+                     + threadIdx.x; i < n; i += nthreads) {
+    if constexpr (SC == BROADCAST) {
+      s = scale[(i / inner) % nscale];
+      inv = fp8::recip_ftz(s);
+      fast = fp8::fast_inv(inv);
+    }
+    y[i] = fp8::cast_elem<F, M, D>(x[i], s, inv,
+                                   rand_bits<RB>(rbits, salt, i), fast);
+  }
+}
+
+// Per-block scales: one warp per block of block_size elements.
+template <int F, int M, bool D, int RB>
+__global__ void __launch_bounds__(kThreads)
+cast_blocked(const float* __restrict__ x, float* __restrict__ y, long long n,
+             int block_size, const int* __restrict__ rbits, uint32_t salt) {
   const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x
                       + threadIdx.x;
   const long long nthreads = static_cast<long long>(gridDim.x) * blockDim.x;
-  if (block_size > 0) {
-    const int lane = threadIdx.x & 31;
-    const long long nblocks = (n + block_size - 1) / block_size;
-    for (long long b = tid >> 5; b < nblocks; b += nthreads >> 5) {
-      const long long lo = b * block_size;
-      const long long hi = min(lo + block_size, n);
-      float amax = 0.0f;
-      for (long long i = lo + lane; i < hi; i += 32)
-        amax = fp8::nanmax(amax, fabsf(x[i]));
-      for (int off = 16; off > 0; off >>= 1)
-        amax = fp8::nanmax(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-      const float s = fp8::block_scale<F>(amax);
-      const float inv = fp8::recip_ftz(s);
-      for (long long i = lo + lane; i < hi; i += 32)
-        y[i] = fp8::cast_elem<F, M, D>(x[i], s, inv,
-                                       rand_bits(rbits, rb_mode, salt, i));
-    }
-    return;
-  }
-  if (nscale == 1) {
-    const float s = scale[0];
+  const int lane = threadIdx.x & 31;
+  const long long nblocks = (n + block_size - 1) / block_size;
+  for (long long b = tid >> 5; b < nblocks; b += nthreads >> 5) {
+    const long long lo = b * block_size;
+    const long long hi = min(lo + block_size, n);
+    float amax = 0.0f;
+    for (long long i = lo + lane; i < hi; i += 32)
+      amax = fp8::nanmax(amax, fabsf(x[i]));
+    for (int off = 16; off > 0; off >>= 1)
+      amax = fp8::nanmax(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+    const float s = fp8::block_scale<F>(amax);
     const float inv = fp8::recip_ftz(s);
-    for (long long i = tid; i < n; i += nthreads)
+    const bool fast = fp8::fast_inv(inv);
+    for (long long i = lo + lane; i < hi; i += 32)
       y[i] = fp8::cast_elem<F, M, D>(x[i], s, inv,
-                                     rand_bits(rbits, rb_mode, salt, i));
+                                     rand_bits<RB>(rbits, salt, i), fast);
+  }
+}
+
+unsigned grid_for(long long work) {
+  const long long cap = 64LL * fp8::sm_count();
+  long long blocks = (work + kThreads - 1) / kThreads;
+  if (blocks > cap) blocks = cap;
+  if (blocks < 1) blocks = 1;
+  return static_cast<unsigned>(blocks);
+}
+
+template <int F, int M, bool D, int RB, int SC>
+void launch_elementwise(const float* x, float* y, long long n,
+                        const float* scale, long long inner, long long nscale,
+                        bool vec, const int* rbits, uint32_t salt,
+                        cudaStream_t stream) {
+  if (!vec) {
+    cast_scalar<F, M, D, RB, SC><<<grid_for(n), kThreads, 0, stream>>>(
+        x, y, n, scale, inner, nscale, rbits, salt);
     return;
   }
-  for (long long i = tid; i < n; i += nthreads) {
-    const float s = scale[(i / inner) % nscale];
-    y[i] = fp8::cast_elem<F, M, D>(x[i], s, fp8::recip_ftz(s),
-                                   rand_bits(rbits, rb_mode, salt, i));
+  // Enough blocks for 8 an SM, each a contiguous run of groups that its
+  // threads walk kGroups * kThreads at a time.
+  const uint32_t ng = static_cast<uint32_t>(n / 4);
+  const uint32_t step = kGroups * kThreads;
+  const uint32_t cap = 8u * fp8::sm_count();
+  uint32_t blocks = (ng + step - 1) / step;
+  if (blocks > cap) blocks = cap;
+  if (blocks < 1) blocks = 1;
+  const uint32_t per = ((ng + blocks - 1) / blocks + step - 1) / step * step;
+  blocks = per ? (ng + per - 1) / per : 1;
+  if (blocks < 1) blocks = 1;
+  Layout lay{make_div(static_cast<uint32_t>(inner)),
+             make_div(static_cast<uint32_t>(nscale))};
+  cast_vec<F, M, D, RB, SC><<<blocks, kThreads, 0, stream>>>(
+      x, y, static_cast<uint32_t>(n), scale, lay, per, rbits, salt);
+}
+
+template <int F, int M, bool D, int RB>
+void launch_rb(const float* x, float* y, long long n, const float* scale,
+               long long inner, long long nscale, int block_size, bool vec,
+               const int* rbits, uint32_t salt, cudaStream_t stream) {
+  if (block_size > 0) {
+    const long long work = ((n + block_size - 1) / block_size) * 32;
+    cast_blocked<F, M, D, RB><<<grid_for(work), kThreads, 0, stream>>>(
+        x, y, n, block_size, rbits, salt);
+  } else if (nscale == 1) {
+    launch_elementwise<F, M, D, RB, SCALAR>(x, y, n, scale, inner, nscale,
+                                            vec, rbits, salt, stream);
+  } else {
+    launch_elementwise<F, M, D, RB, BROADCAST>(x, y, n, scale, inner, nscale,
+                                               vec, rbits, salt, stream);
   }
 }
 
 template <int F, int M, bool D>
 void launch(const float* x, float* y, long long n, const float* scale,
-            long long inner, long long nscale, int block_size,
+            long long inner, long long nscale, int block_size, bool vec,
             const int* rbits, int rb_mode, uint32_t salt,
             cudaStream_t stream) {
-  const long long work = block_size > 0
-      ? ((n + block_size - 1) / block_size) * 32 : n;
-  const long long cap = 64LL * fp8::sm_count();
-  long long blocks = (work + kThreads - 1) / kThreads;
-  if (blocks > cap) blocks = cap;
-  if (blocks < 1) blocks = 1;
-  cast_kernel<F, M, D><<<static_cast<unsigned>(blocks), kThreads, 0,
-                         stream>>>(x, y, n, scale, inner, nscale, block_size,
-                                   rbits, rb_mode, salt);
+  // Only the stochastic instances (and float16's non-RNE path, which is
+  // one) read bits.
+  if constexpr (M == fp8::STOCHASTIC) {
+    if (rb_mode == TENSOR_BITS) {
+      launch_rb<F, M, D, TENSOR_BITS>(x, y, n, scale, inner, nscale,
+                                      block_size, vec, rbits, salt, stream);
+      return;
+    }
+    if (rb_mode == SALT_BITS) {
+      launch_rb<F, M, D, SALT_BITS>(x, y, n, scale, inner, nscale,
+                                    block_size, vec, rbits, salt, stream);
+      return;
+    }
+  }
+  launch_rb<F, M, D, NO_BITS>(x, y, n, scale, inner, nscale, block_size, vec,
+                              rbits, salt, stream);
 }
 
 }  // namespace
 
 // y[i] = cast(x[i]) for the variant ``code`` (fp8::code_of).  rb_mode: 0 no
 // bits, 1 bits from ``rbits`` (int32, one per element), 2 hashed from
-// ``salt``.  Returns the launch's cudaError_t, or -1 for an unknown code.
+// ``salt``.  vec: 1 when n < 2^31 and x, y and rbits are 16-byte aligned
+// (the wrapper decides), for 16-byte accesses.  Returns the launch's
+// cudaError_t, or -1 for an unknown code.
 extern "C" int fp8_cast(int code, const float* x, float* y, long long n,
                         const float* scale, long long inner, long long nscale,
                         int block_size, const int* rbits, int rb_mode,
-                        unsigned int salt, void* stream) {
+                        unsigned int salt, int vec, void* stream) {
   if (n == 0) return 0;
+  if (vec && (n >= (1LL << 31) || inner >= (1LL << 31)
+              || nscale >= (1LL << 31)
+              || reinterpret_cast<uintptr_t>(x) % 16
+              || reinterpret_cast<uintptr_t>(y) % 16
+              || (rb_mode == TENSOR_BITS
+                  && reinterpret_cast<uintptr_t>(rbits) % 16)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (code) {
 #define FP8_LAUNCH_CASE(F, M, D)                                          \
     case fp8::code_of(F, M, D):                                           \
-      launch<F, M, D>(x, y, n, scale, inner, nscale, block_size, rbits,   \
-                      rb_mode, salt, s);                                  \
+      launch<F, M, D>(x, y, n, scale, inner, nscale, block_size, vec != 0,\
+                      rbits, rb_mode, salt, s);                           \
       break;
     FP8_CAST_VARIANTS(FP8_LAUNCH_CASE)
 #undef FP8_LAUNCH_CASE

@@ -48,9 +48,14 @@
 #include <stdint.h>
 
 #include "e4m3_convert.cuh"
+#include "mma_frag.cuh"
 #include "w_gemm.cuh"
 
 namespace {
+
+using frag::ldsm4;
+using frag::ldsm4_trans;
+using frag::movmatrix_trans;
 
 enum Mode {
     CONV_BF16 = 0, CONV_ASTYPE = 1, CONV_BITS = 2, DOT_BF16 = 3,
@@ -95,26 +100,6 @@ struct Params {
 template <class T>
 __device__ __forceinline__ int at(int row, int pc) {
     return row * T::ROW_BYTES + ((pc ^ (row & 7)) << 4);
-}
-
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
-    const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm4_trans(uint32_t (&r)[4], const void* p) {
-    const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
-    uint32_t y;
-    asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
-                 : "=r"(y) : "r"(x));
-    return y;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -111,7 +111,7 @@ __device__ __forceinline__ float grid_value(float v, float s, int code,
     return fp8::hw_qdq<fp8::E5M2>(v, s, false);
   } else {
     return fp8::cast_elem<CODE / 16, (CODE % 16) / 2, (CODE % 2) != 0>(
-        v, s, 1.0f, 0u);
+        v, s, 1.0f, 0u, true);
   }
 }
 

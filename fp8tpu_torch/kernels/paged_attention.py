@@ -41,7 +41,9 @@ _NEG = -1e30
 _PAYLOAD_IDS = {torch.float8_e4m3fn: 0, torch.float8_e5m2: 1, torch.int8: 2,
                 torch.bfloat16: 3}
 _GROUPS = (1, 2, 4, 8)
-TILE = 128                      # tokens a block scores at a time
+CHUNK = 16                      # tokens a warp takes at a time (one m tile)
+WARPS = 4                       # warps of a block, each its own recurrence
+BLOCKS_PER_SM = 2               # blocks an SM for the split plan
 MAX_SPLITS = 16
 
 # Launches of the kernel since the last reset_launches().
@@ -131,12 +133,28 @@ def paged_decode_attention_plain(q, pool, sc, page_table, lens, layer, *,
 
 
 def n_splits(batch: int, kv_heads: int, max_tokens: int, sms: int) -> int:
-    """Blocks that share one (slot, kv head)'s tokens: enough for about two
-    blocks per SM, no more than the slot has tiles, at most 16.  Decided
-    from shapes alone: the lengths stay on the device."""
+    """Blocks that share one (slot, kv head)'s tokens: as many as keep the
+    grid within one wave of BLOCKS_PER_SM blocks an SM, no more than the
+    slot has rounds of WARPS chunks, at most 16.  Decided from shapes
+    alone: the lengths stay on the device."""
     pairs = batch * kv_heads
-    tiles = -(-max_tokens // TILE)
-    return max(1, min(MAX_SPLITS, tiles, -(-2 * sms // pairs)))
+    rounds = -(-max_tokens // (WARPS * CHUNK))
+    return max(1, min(MAX_SPLITS, rounds, BLOCKS_PER_SM * sms // pairs))
+
+
+def token_ranges(length: int, splits: int):
+    """The kernel's plan for one (slot, kv head) of ``length`` tokens:
+    [(split, warp, first token, end)] for every chunk it reads.  The chunks
+    (CHUNK tokens, the last cut at ``length``) are dealt to the splits in
+    contiguous runs, and within a split to its warps in turn."""
+    nchunks = -(-length // CHUNK)
+    per = -(-nchunks // splits)
+    out = []
+    for z in range(splits):
+        for ch in range(z * per, min(nchunks, (z + 1) * per)):
+            out.append((z, (ch - z * per) % WARPS, ch * CHUNK,
+                        min(length, (ch + 1) * CHUNK)))
+    return out
 
 
 _COUNTERS = {}

@@ -1,7 +1,10 @@
 """Command-line studies of the port, each the counterpart of a JAX tool in
 ``tools/``: ``python -m fp8tpu_torch.tools.kexp_convert`` (T1) and
 ``python -m fp8tpu_torch.tools.bench_fp8_linear`` (T2).  They run on the
-card unless ``--device cpu`` is given, and raise without one."""
+card unless ``--device cpu`` is given, and raise without one.  Beside them,
+measurements that need a card: ``bench_wgemm.py`` and ``bench_k1k4.py``
+(kernel device times of two checkouts, in turns), ``k1_probe.py`` and
+``k4_probe.py`` (what bounds K1 and K4)."""
 
 from __future__ import annotations
 

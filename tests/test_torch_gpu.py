@@ -64,6 +64,22 @@ def test_cast_kernel_matches_plain(cuda):
     got = tcast.qdq_blocked(xc.to(cuda), "e4m3", block_size=128)
     want = tcast.qdq_blocked(xc, "e4m3", block_size=128)
     np.testing.assert_array_equal(_bits(got), _bits(want))
+    # lengths around the 16-byte path's groups of 4 (the scalar tail), and
+    # a view 4 bytes past its allocation (the scalar path); a second launch
+    # gives the same bits
+    xl, rl = torch.cat([xc] * 3).to(cuda), torch.cat([rbc] * 3).to(cuda)
+    for n in (1, 3, 5, 4 * 1001 + 1, 8 * 1001 + 7):
+        for off in (0, 1):
+            xv, rv = xl[off:off + n], rl[off:off + n]
+            for ms in ("E4M3_RNE", "E5M2_STOCHASTIC", "E4M3_V2_RNAZ"):
+                got = tcast.qdq_mode_string(xv, ms, scale=3.7, random_bits=rv)
+                again = tcast.qdq_mode_string(xv, ms, scale=3.7,
+                                              random_bits=rv)
+                want = tcast.qdq_mode_string(xv.cpu(), ms, scale=3.7,
+                                             random_bits=rv.cpu())
+                np.testing.assert_array_equal(_bits(got), _bits(want),
+                                              err_msg=f"{ms} n={n} {off}")
+                np.testing.assert_array_equal(_bits(got), _bits(again))
 
 
 def test_fake_quant_launches_the_cast_kernel(cuda):
@@ -386,7 +402,10 @@ def test_dyn_store_kernel_matches_plain(cuda, dtype, row):
                                  torch.float8_e5m2, torch.bfloat16])
 @pytest.mark.parametrize("batch,kv,g,d,page,mp", [(3, 2, 2, 16, 8, 4),
                                                   (9, 8, 4, 128, 64, 5),
-                                                  (2, 1, 8, 64, 16, 40)])
+                                                  (2, 1, 8, 64, 16, 40),
+                                                  (2, 8, 1, 128, 64, 8),
+                                                  (33, 8, 4, 128, 64, 8),
+                                                  (5, 2, 8, 48, 8, 12)])
 def test_paged_attention_kernel_matches_plain(cuda, fmt, batch, kv, g, d,
                                               page, mp):
     """K4 against its plain version on the CPU.  q lies on a 1/8 grid and

@@ -180,8 +180,9 @@ def test_wrapper_checks_shapes_and_counts_no_launch_on_cpu():
     with pytest.raises(ValueError, match="lens"):
         k4.paged_decode_attention(q, pool, sc, table, lens[:1], 0,
                                   page_size=PAGE, kv_heads=KV)
-    assert k4.n_splits(8, 8, 512, 132) == 4      # no more than the tiles
-    assert k4.n_splits(2, 8, 1024, 132) == 8
+    assert k4.n_splits(8, 8, 128, 132) == 2      # no more than the rounds
+    assert k4.n_splits(8, 8, 512, 132) == 4      # one wave of 2 an SM
+    assert k4.n_splits(2, 8, 1024, 132) == 16
     assert k4.n_splits(64, 8, 1024, 132) == 1    # enough pairs already
     assert k4.n_splits(1, 1, 128 * 64, 132) == k4.MAX_SPLITS
 

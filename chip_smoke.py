@@ -45,9 +45,12 @@ Phases, each printing its own lines; any failure exits non-zero:
           row counts at the full-width (K, N) of the serving linears and a
           ragged pair (the general kernel), within the summation-order
           bound (plus one bf16 step for bf16 results); every launch of the
-          streaming loop (M in 1, 8, 9, 16, 17, 63, 64) also against the
-          f64 product within the random-walk bound over its promoted
-          chunks (stream_reference), and a second launch bit-equal.
+          streaming loop, its decode form (M in 1, 8, 9, 16, 17, 63, 64) and
+          its prefill route (M in 65, 100, 128, 256, 512, 700, 2048), also
+          against the f64 product within the random-walk bound over its
+          promoted chunks (stream_reference), and a second launch
+          bit-equal; every one of the 256 codes of each payload through
+          both forms, value for value against the plain version.
    k4     the paged decode-attention kernel (K4) against its plain
           version at the full-width shapes (8 and 64 slots, 8 KV heads x 4
           query heads of 128, pages of 64 tokens, 8 and 16 pages a slot):
@@ -133,7 +136,11 @@ Phases, each printing its own lines; any failure exits non-zero:
           times by CUDA-graph replay, both bounds: f32 SIMT and the bf16
           MMAs; yardsticks f32 torch.matmul on the cast im2col and f32
           F.conv2d with TF32 off); K2's training variants at the first
-          stage's 3x3 conv (forward, dX, dW).
+          stage's 3x3 conv (forward, dX, dW); K3 and K5 at the serving
+          linears, M = 8, 64, 512 and 2048, K4 and K6 at the served shapes;
+          one paged prefill of 8 x 256 tokens (2048 rows a linear) with
+          e4m3 weights and with the bf16 twin's, wall clock and device
+          time, K3's share.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Details go to the JSON
@@ -789,9 +796,12 @@ SERVE_KN = [(4096, 4096), (4096, 1024), (4096, 11008), (11008, 4096),
             (1001, 331)]
 SERVE_MS = (1, 8, 64, 100, 2048)
 # Row counts of the streaming loop's cases: each wgmma n (8, 16, 32, 64)
-# full and one row past the smaller.
+# full and one row past the smaller; then its prefill route's (M > 64):
+# one row past decode, ragged and whole 128-token tiles, a split k/v, the
+# 512-token prefill and the 8 x 256-token paged one.
 STREAM_MS = (1, 8, 9, 16, 17, 63, 64)
-GEMM_MS = tuple(sorted(set(SERVE_MS) | set(STREAM_MS)))
+PREFILL_MS = (65, 100, 128, 256, 512, 700, 2048)
+GEMM_MS = tuple(sorted(set(SERVE_MS) | set(STREAM_MS) | set(PREFILL_MS)))
 
 
 def gemm_tolerance(xb, w_abs, col_scale, want, out_dtype):
@@ -831,11 +841,43 @@ def stream_reference(xb, wq, col_scale, kper, out_dtype):
     return exact, tol * s.abs() + rel * exact.abs() + 1e-30
 
 
+def loop_references(xb, wq, col_scale, kper):
+    """stream_reference for both result types from one f64 product:
+    {torch.float32: (exact, allowed), torch.bfloat16: (...)}."""
+    import torch
+    exact, tol = stream_reference(xb, wq, col_scale, kper, torch.float32)
+    return {torch.float32: (exact, tol),
+            torch.bfloat16: (exact, tol + 2.0 ** -8 * exact.abs())}
+
+
+def all_codes_case(rows, dtype, m, gen, fn, plain, label):
+    """Every payload code through the kernel: column c of a (256, 256)
+    payload holds code c in every row, x (M, 256) has one 1 a row, so each
+    output is one code's value times its column's scale, exact, and NaN
+    where the column holds a NaN or an inf (0 x inf).  Held to the plain
+    version value for value (NaN where it is NaN; -0 reads +0)."""
+    import torch
+    codes = torch.arange(256, device="cuda", dtype=torch.uint8)
+    w = codes.reshape(1, 256).expand(256, 256).contiguous().view(dtype)
+    s = torch.rand(256, device="cuda", generator=gen) + 0.5
+    x = torch.zeros(m, 256, device="cuda", dtype=torch.bfloat16)
+    x[torch.arange(m), torch.arange(m)] = 1.0
+    got, want = fn(x, w, s), plain(x, w, s)
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    bad = int((~same).sum())
+    rows.append({"case": label, "max_abs_err": 0.0 if not bad else math.inf,
+                 "max_err_over_bound": 0.0 if not bad else math.inf,
+                 "differing": bad, "ok": bad == 0})
+    if bad:
+        print(f"  FAIL {label}: {bad} of {got.numel()} outputs differ")
+    return bad == 0
+
+
 def _gemm_case(rows, label, got, want, tol, again=None, reference=None):
     """One weight-GEMM case: the kernel within ``tol`` of the plain
-    version; for the streaming loop also a second launch bit-equal to the
-    first and the kernel within ``reference`` (exact, allowed) of the f64
-    product."""
+    version; for the streaming loop (decode form or prefill route) also a
+    second launch bit-equal to the first and the kernel within
+    ``reference`` (exact, allowed) of the f64 product."""
     import torch
     err = (got.float() - want.float()).abs()
     ok = bool(torch.isfinite(got.float()).all()) and bool((err <= tol).all())
@@ -859,11 +901,12 @@ def _gemm_case(rows, label, got, want, tol, again=None, reference=None):
     return ok
 
 
-def _gemm_summary(name, rows):
+def _gemm_summary(name, rows, routes=None):
     worst = max(r["max_err_over_bound"] for r in rows)
     f64 = [r["err_over_f64_bound"] for r in rows if "err_over_f64_bound" in r]
-    print(f"{name}: {len(rows)} cases, {len(f64)} on the streaming loop; "
-          f"worst err/bound {worst:.3e}, worst err/f64 bound "
+    by_route = f" (launches by route {routes})" if routes else ""
+    print(f"{name}: {len(rows)} cases, {len(f64)} on the streaming loop"
+          f"{by_route}; worst err/bound {worst:.3e}, worst err/f64 bound "
           f"{max(f64):.3e}; {sum(not r['ok'] for r in rows)} failed")
 
 
@@ -874,6 +917,7 @@ def phase_k3(record):
     gen = torch.Generator(device="cuda").manual_seed(3)
     sms = qmatmul.sm_count(0)
     rows = []
+    qmatmul.reset_launches()
     for k, n in SERVE_KN:
         ms = GEMM_MS if k % 8 == 0 else SERVE_MS
         w = torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
@@ -885,31 +929,43 @@ def phase_k3(record):
             s = s.reshape(-1)
             w_abs = w8.float().abs()
             for m, x in xs.items():
-                stream = qmatmul.streams(m, n, k, x, w8)
-                kper = qmatmul.stream_plan(m, n, k, sms).kper
+                plan = qmatmul.weight_gemm_plan(m, n, k, sms, "w8", x, w8)
+                refs = None if plan.route == "general" else loop_references(
+                    x, w8.float(), s.reshape(1, -1), plan.kper)
                 for out_dtype in (torch.bfloat16, torch.float32):
                     before = qmatmul.dequant_launches
+                    on_route = qmatmul.dequant_routes[plan.route]
                     got = qmatmul.dequant_matmul(x, w8, s, out_dtype)
-                    if qmatmul.dequant_launches != before + 1:
+                    if qmatmul.dequant_launches != before + 1 or \
+                            qmatmul.dequant_routes[plan.route] != on_route + 1:
                         raise PhaseError("dequant_matmul did not count its "
-                                         "launch")
+                                         f"launch on the {plan.route} route")
                     want = qmatmul.dequant_matmul_plain(x, w8, s, out_dtype)
                     tol = gemm_tolerance(x, w_abs, s.reshape(1, -1), want,
                                          out_dtype)
                     again = ref = None
-                    if stream:
+                    if refs is not None:
                         again = qmatmul.dequant_matmul(x, w8, s, out_dtype)
-                        ref = stream_reference(x, w8.float(), s.reshape(1, -1),
-                                               kper, out_dtype)
+                        ref = refs[out_dtype]
                     _gemm_case(rows, f"k3 {fmt} M={m} K={k} N={n} "
-                               f"{str(out_dtype)[6:]} "
-                               f"{'stream' if stream else 'general'}",
+                               f"{str(out_dtype)[6:]} {plan.route}",
                                got, want, tol, again, ref)
+                del refs
+    for fmt, dtype in (("e4m3", torch.float8_e4m3fn),
+                       ("e5m2", torch.float8_e5m2), ("int8", torch.int8)):
+        for m in (8, 128):                       # decode form, prefill route
+            all_codes_case(
+                rows, dtype, m, gen,
+                lambda x, w, s: qmatmul.dequant_matmul(x, w, s, torch.float32),
+                lambda x, w, s: qmatmul.dequant_matmul_plain(
+                    x, w, s, torch.float32),
+                f"k3 {fmt} all 256 codes M={m}")
     torch.cuda.synchronize()
     record["k3"] = rows
     _gemm_summary(f"k3 (e4m3/e5m2/int8 x bf16/f32 out x M in {GEMM_MS} x "
                   f"(K, N) in {SERVE_KN}, the ragged pair on the general "
-                  "kernel)", rows)
+                  "kernel; every code of each payload)", rows,
+                  dict(qmatmul.dequant_routes))
     if not all(r["ok"] for r in rows):
         raise PhaseError("K3 disagrees with its plain version or the f64 "
                          "product")
@@ -923,6 +979,7 @@ def phase_k5(record):
     gen = torch.Generator(device="cuda").manual_seed(5)
     sms = qmatmul.sm_count(0)
     rows = []
+    k5.reset_launches()
     for k, n in SERVE_KN[:4] + [(1024, 331)]:
         ms = GEMM_MS if n % 16 == 0 else SERVE_MS
         w = torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
@@ -943,28 +1000,33 @@ def phase_k5(record):
             wq = wq * sb                      # the kernel's bf16 weights
             w_abs = wq.float().abs()
             for m, x in xs.items():
-                stream = qmatmul.streams(m, n, k, x, wp, s, group=group)
-                kper = qmatmul.stream_plan(m, n, k, sms, "int4").kper
+                plan = qmatmul.weight_gemm_plan(m, n, k, sms, "int4", x, wp, s,
+                                                group=group)
+                refs = None if plan.route == "general" else loop_references(
+                    x, wq, col, plan.kper)
                 for out_dtype in (torch.bfloat16, torch.float32):
                     before = k5.launches
+                    on_route = k5.routes[plan.route]
                     got = k5.int4_matmul(x, wp, s, group, out_dtype)
-                    if k5.launches != before + 1:
+                    if k5.launches != before + 1 or \
+                            k5.routes[plan.route] != on_route + 1:
                         raise PhaseError("int4_matmul did not count its "
-                                         "launch")
+                                         f"launch on the {plan.route} route")
                     want = k5.int4_matmul_plain(x, wp, s, group, out_dtype)
                     tol = gemm_tolerance(x, w_abs, col, want, out_dtype)
                     again = ref = None
-                    if stream:
+                    if refs is not None:
                         again = k5.int4_matmul(x, wp, s, group, out_dtype)
-                        ref = stream_reference(x, wq, col, kper, out_dtype)
+                        ref = refs[out_dtype]
                     _gemm_case(rows, f"k5 group={group} M={m} K={k} N={n} "
-                               f"{str(out_dtype)[6:]} "
-                               f"{'stream' if stream else 'general'}",
+                               f"{str(out_dtype)[6:]} {plan.route}",
                                got, want, tol, again, ref)
+                del refs
     torch.cuda.synchronize()
     record["k5"] = rows
     _gemm_summary(f"k5 (per-channel / group 128 x bf16/f32 out x M in "
-                  f"{GEMM_MS}, N = 331 on the general kernel)", rows)
+                  f"{GEMM_MS}, N = 331 on the general kernel)", rows,
+                  dict(k5.routes))
     if not all(r["ok"] for r in rows):
         raise PhaseError("K5 disagrees with its plain version or the f64 "
                          "product")
@@ -2019,6 +2081,8 @@ SERVE_SLOTS = 8                # slots of the served engine
 SERVE_SEQ = 512                # its ring size
 SERVE_NEW = 32                 # new tokens per request
 BENCH_BATCH, BENCH_CACHE, BENCH_WARM_POS, BENCH_STEPS = 64, 512, 444, 32
+PREFILL_TOKENS = 256           # the timed paged prefill: 8 prompts of 256
+PREFILL_ROWS = SERVE_SLOTS * PREFILL_TOKENS   # rows of each linear of it
 # Kernel-vs-plain logits over 4 decode steps, relative to max|logit|: the
 # two differ in f32 summation order only, which moves single bf16 steps
 # (2^-7 relative) of the activations; 7 linears in each of 16 layers carry
@@ -2123,9 +2187,13 @@ def phase_serve(record):
             _Counting(qmatmul, "dequant_matmul_plain", forbid=True), \
             _Counting(inplace, "dyn_store_plain", forbid=True):
         out, seconds, meta = run_server(params, scfg, 16)
-    launches = {"dequant_matmul": qmatmul.dequant_launches,
+    # K3's launches by route: the streaming loop's decode form (decode steps
+    # and prompts of at most 64 tokens a batch) and its prefill route
+    launches = {"dequant_matmul": qmatmul.dequant_routes["stream"],
+                "dequant_matmul_prefill": qmatmul.dequant_routes["prefill"],
                 "dyn_store": inplace.launches}
-    k3_per_step = (launches["dequant_matmul"] - 7 * L * pb.calls) / dc.steps
+    general = qmatmul.dequant_routes["general"]
+    k3_per_step = (qmatmul.dequant_launches - 7 * L * pb.calls) / dc.steps
     k6_per_step = launches["dyn_store"] / dc.steps
     again, seconds2, _ = run_server(params, scfg, 16)
     n_tok = sum(len(v) for v in out.values())
@@ -2149,6 +2217,10 @@ def phase_serve(record):
     if k3_per_step != 7 * L or k6_per_step != 2:
         problems.append(f"K3 / K6 launches per decode step {k3_per_step} / "
                         f"{k6_per_step}, expected {7 * L} / 2")
+    if launches["dequant_matmul_prefill"] == 0 or general:
+        problems.append(f"K3's prefill route launched "
+                        f"{launches['dequant_matmul_prefill']} times and the "
+                        f"general kernel {general} times on the served path")
     result["a"] = {"tokens": n_tok, "seconds": seconds, "seconds_2": seconds2,
                    "decode_steps": dc.steps, "chunks": dc.calls,
                    "prefills": pb.calls, "launches": launches,
@@ -2215,7 +2287,8 @@ def phase_serve(record):
             _Counting(engine_mod, "prefill_batch") as pb4, \
             _Counting(int4_matmul, "int4_matmul_plain", forbid=True):
         out4, sec4, _ = run_server(params4, scfg4, 8)
-    launches["int4_matmul"] = int4_matmul.launches
+    launches["int4_matmul"] = int4_matmul.routes["stream"]
+    launches["int4_matmul_prefill"] = int4_matmul.routes["prefill"]
     k5_per_step = (int4_matmul.launches - 28 * pb4.calls) / dc4.steps
     again4, _, _ = run_server(params4, scfg4, 8)
     print(f"serve (c): int4 weights (group 128), 4 layers: 8 requests x "
@@ -2225,6 +2298,9 @@ def phase_serve(record):
         problems.append("int4 serving: budgets or repeatability")
     if k5_per_step != 28:
         problems.append(f"{k5_per_step} K5 launches per step, expected 28")
+    if int4_matmul.routes["prefill"] == 0 or int4_matmul.routes["general"]:
+        problems.append(f"K5 launches by route {int4_matmul.routes}: the "
+                        "prefill route never ran, or the general kernel did")
     result["c"] = {"seconds": sec4, "launches": int4_matmul.launches,
                    "decode_steps": dc4.steps}
 
@@ -2414,7 +2490,9 @@ def phase_serve_paged(record):
             _Counting(k4, "paged_decode_attention_plain", forbid=True):
         out, seconds, eng = run_paged_server(params, scfg, reqs)
     launches = {"paged_decode_attention": k4.launches,
-                "dequant_matmul": qmatmul.dequant_launches}
+                "dequant_matmul": qmatmul.dequant_routes["stream"],
+                "dequant_matmul_prefill": qmatmul.dequant_routes["prefill"]}
+    general = qmatmul.dequant_routes["general"]
     k4_per_step = k4.launches / dc.steps
     k3_per_step = (qmatmul.dequant_launches - 7 * L * pb.calls) / dc.steps
     again, seconds2, _ = run_paged_server(
@@ -2448,6 +2526,11 @@ def phase_serve_paged(record):
     if k4_per_step != L or k3_per_step != 7 * L:
         problems.append(f"K4 / K3 launches per decode step {k4_per_step} / "
                         f"{k3_per_step}, expected {L} / {7 * L}")
+    if launches["dequant_matmul_prefill"] != 7 * L * pb.calls or general:
+        problems.append(f"K3 launches by route {launches} (general: "
+                        f"{general}): every linear of the {pb.calls} "
+                        "prefills (prompts of 144-176 tokens) should take "
+                        "the prefill route")
     if stats["max_ref"] < 2 or stats["shared"] < 2:
         problems.append("the prefix pages were not shared between slots")
     if stats["allocated"] >= no_cache:
@@ -2920,7 +3003,7 @@ def phase_time_serve(record, launches):
         w_stack, s_stack = params[key], params[key[:-1] + "s"]
         k, n = w_stack.shape[1:]
         w_bf16 = w_stack[:4].to(torch.bfloat16)          # pre-converted
-        for m in (SERVE_SLOTS, BENCH_BATCH, 512):
+        for m in (SERVE_SLOTS, BENCH_BATCH, 512, PREFILL_ROWS):
             x = torch.randn(m, k, device="cuda", generator=gen
                             ).to(torch.bfloat16)
             s = s_stack[0]
@@ -2935,7 +3018,7 @@ def phase_time_serve(record, launches):
                 lambda w: qmatmul.dequant_matmul_plain(x, w, s), w_stack),
                 iters=4, warmup=1)
             t_conv = device_ms(rotating(
-                lambda w: torch.matmul(x, w.to(torch.bfloat16)), w_stack))
+                lambda w: torch.matmul(x, w.to(torch.bfloat16)) * s, w_stack))
             t_pre = device_ms(rotating(lambda w: torch.matmul(x, w), w_bf16))
             b, by = bound(m, k, n, float(k) * n, 4.0 * n)
             rows.append({"kernel": "K3", "shape": label, "m": m, "k": k,
@@ -2947,9 +3030,9 @@ def phase_time_serve(record, launches):
             print(f"time k3 {label} M={m}: kernel {t_k:.4f} ms on the device "
                   f"({k * n / t_k / 1e6:.0f} GB/s of payload; {t_call:.4f} "
                   f"ms per eager call, host included), plain "
-                  f"{t_p:.4f} ms, bound {b:.4f} ms ({by}), x @ "
-                  f"w8.to(bf16) {t_conv:.4f} ms, torch.matmul on a bf16 "
-                  f"weight {t_pre:.4f} ms")
+                  f"{t_p:.4f} ms, bound {b:.4f} ms ({by}), (x @ "
+                  f"w8.to(bf16)) * s {t_conv:.4f} ms, torch.matmul on a "
+                  f"bf16 weight {t_pre:.4f} ms")
     head = next(r for r in rows if r["shape"].startswith("gate")
                 and r["m"] == SERVE_SLOTS)
     kernels.append({
@@ -2961,6 +3044,17 @@ def phase_time_serve(record, launches):
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
         "library_ms": head["library_convert_ms"]})
+    pre = next(r for r in rows if r["shape"].startswith("gate")
+               and r["m"] == PREFILL_ROWS)
+    kernels.append({
+        "name": "dequant_matmul_prefill", "route": "cuda",
+        "source": "fp8tpu_torch/kernels/csrc/w_stream.cuh",
+        "replaces": "fp8tpu/kernels/qmatmul.py:87",
+        "launches": launches["dequant_matmul_prefill"],
+        "max_abs_err": pre["max_abs_err"], "ms": pre["ms"],
+        "plain_ms": pre["plain_ms"], "bound_ms": pre["bound_ms"],
+        "bound_by": pre["bound_by"],
+        "library_ms": pre["library_convert_ms"]})
 
     rows5 = []
     for key, label in names.items():
@@ -2970,7 +3064,7 @@ def phase_time_serve(record, launches):
         lo, hi = int4_matmul.unpack_int4(w_stack)
         w_bf16 = torch.stack([lo, hi], 2).reshape(-1, k, n).to(torch.bfloat16)
         del lo, hi
-        for m in (SERVE_SLOTS, BENCH_BATCH, 512):
+        for m in (SERVE_SLOTS, BENCH_BATCH, 512, PREFILL_ROWS):
             x = torch.randn(m, k, device="cuda", generator=gen
                             ).to(torch.bfloat16)
             s = s_stack[0]
@@ -3005,6 +3099,17 @@ def phase_time_serve(record, launches):
         "plain_ms": head5["plain_ms"], "bound_ms": head5["bound_ms"],
         "bound_by": head5["bound_by"],
         "library_ms": head5["library_bf16_ms"]})
+    pre5 = next(r for r in rows5 if r["shape"].startswith("gate")
+                and r["m"] == PREFILL_ROWS)
+    kernels.append({
+        "name": "int4_matmul_prefill", "route": "cuda",
+        "source": "fp8tpu_torch/kernels/csrc/w_stream.cuh",
+        "replaces": "fp8tpu/kernels/int4_matmul.py:57",
+        "launches": launches["int4_matmul_prefill"],
+        "max_abs_err": pre5["max_abs_err"], "ms": pre5["ms"],
+        "plain_ms": pre5["plain_ms"], "bound_ms": pre5["bound_ms"],
+        "bound_by": pre5["bound_by"],
+        "library_ms": pre5["library_bf16_ms"]})
 
     rows6 = []
     cfg = serve_config()
@@ -3157,6 +3262,7 @@ def phase_time_paged(record, launches):
         del pool, sc
     head = rows[0]
     record.setdefault("time", {})["k4_shapes"] = rows
+    time_paged_prefill(record)
     return [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": "fp8tpu_torch/kernels/csrc/paged_attention.cu",
@@ -3165,6 +3271,82 @@ def phase_time_paged(record, launches):
         "max_abs_err": head["max_abs_err"], "ms": head["ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"]}]
+
+
+def time_paged_prefill(record):
+    """One paged prefill of 8 prompts of 256 tokens (prefill_batch_paged:
+    2048 rows a linear, 112 K3 launches on the prefill route), e4m3 weights
+    against the bf16 twin (its linears torch.mm on bf16 weights), both on
+    an int8 pool: wall clock (best of 3, host included) and a
+    torch.profiler breakdown of one call, K3's share of the device time."""
+    import torch
+    from fp8tpu_torch.kernels import qmatmul
+    from fp8tpu_torch.serve import (PagedKVCache, ServeConfig,
+                                    prefill_batch_paged, random_serve_params)
+
+    cfg = serve_config()
+    L, KV, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    B, T = SERVE_SLOTS, PREFILL_TOKENS
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    prompts = torch.randint(1, cfg.vocab_size, (B, T), device="cuda",
+                            generator=gen, dtype=torch.int32)
+    lengths = torch.full((B,), T, device="cuda", dtype=torch.int32)
+    slots = torch.arange(B, device="cuda", dtype=torch.int32)
+    zeros = torch.zeros(B, device="cuda")
+    zi = torch.zeros(B, device="cuda", dtype=torch.int32)
+    k3_group = "K3/K5 weight GEMM (hand-written)"
+    result, problems = {}, []
+    for fmt in ("e4m3", "bf16"):
+        params = STATE["e4m3"] if fmt == "e4m3" else random_serve_params(
+            cfg, "bf16", seed=0)
+        scfg = ServeConfig(model=cfg, weight_fmt=fmt, kv_fmt="int8",
+                           paged_decode_impl="kernel")
+        paged = PagedKVCache.create(B * T // PAGE, PAGE, L, B, T // PAGE, KV,
+                                    D, "int8")
+        paged.page_table = torch.arange(
+            B * T // PAGE, device="cuda", dtype=torch.int32).reshape(B, -1)
+
+        def run():
+            return prefill_batch_paged(params, paged, prompts, slots, lengths,
+                                       None, zeros, None, None, zi,
+                                       zi.clone(), scfg)
+
+        run()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        best = min(times) * 1e3
+        before = dict(qmatmul.dequant_routes)
+        run()
+        on_route = {k: qmatmul.dequant_routes[k] - before[k] for k in before}
+        prof = profile_decode_step(run, best)
+        k3_ms, k3_n = prof["groups"].get(k3_group, (0.0, 0))
+        result[fmt] = {"wall_ms": best, "wall_ms_all": times,
+                       "device_ms": prof["device_ms"], "k3_ms": k3_ms,
+                       "k3_launches": k3_n, "k3_by_route": on_route,
+                       "profile": prof}
+        print(f"time prefill (paged, {B} x {T} tokens, {B * T} rows a "
+              f"linear), {fmt} weights: {best:.3f} ms wall clock (best of "
+              f"3), {prof['device_ms']:.3f} ms of kernels in "
+              f"{prof['launches']} launches, busy share "
+              f"{prof['busy_share']:.3f}; K3 {k3_ms:.3f} ms in {k3_n} "
+              f"launches ({k3_ms / prof['device_ms']:.3f} of the device "
+              f"time; by route {on_route})")
+        for group, (ms_, n_) in prof["groups"].items():
+            print(f"    {ms_:8.3f} ms {n_:5d}x  {group}")
+        if fmt == "e4m3" and (k3_n != 7 * L or on_route["prefill"] != 7 * L):
+            problems.append(f"the paged prefill launched K3 {k3_n} times "
+                            f"(by route {on_route}), expected {7 * L} on the "
+                            "prefill route")
+        del params, paged
+        torch.cuda.empty_cache()
+    record.setdefault("time", {})["paged_prefill"] = result
+    if problems:
+        raise PhaseError("; ".join(problems))
 
 
 def main(argv=None) -> int:

@@ -8,11 +8,12 @@
 // order of the f32 sums differs from the plain version.
 //
 // Bound on an H100: the bytes of w8 at decode (M <= 64), the bf16
-// tensor-core rate at prefill.  Decode shapes run the streaming loop of
+// tensor-core rate at prefill.  Aligned shapes run the streaming loop of
 // w_stream.cuh (a TMA ring of raw payload, each byte converted once in
-// registers into wgmma's A operand, x as its B operand); prefill and
-// shapes that loop does not take run the general kernel of w_gemm.cuh.
-// Both split K deterministically (split_k.cuh).
+// registers into wgmma's A operand, x as its B operand): its decode form
+// at M <= 64, its prefill route (128 x 128 tiles on two warpgroups) above.
+// Shapes that TMA cannot address run the general kernel of w_gemm.cuh.
+// All split K deterministically (split_k.cuh).
 
 #include "w8_policy.cuh"
 #include "w_stream.cuh"
@@ -33,13 +34,13 @@ struct S8 {
 
     static __device__ __forceinline__ uint32_t cvt2(uint32_t two) {
         if constexpr (FMT == w8::INT8) {
-            // 2^23 + (b ^ 0x80) is exact in f32; taking 2^23 + 128 away
-            // leaves the signed byte
-            const float lo = __uint_as_float(
-                0x4B000000u | ((two & 0xFFu) ^ 0x80u)) - 8388736.0f;
-            const float hi = __uint_as_float(
-                0x4B000000u | (((two >> 8) & 0xFFu) ^ 0x80u)) - 8388736.0f;
-            return ws::bf16x2_bits(lo, hi);
+            // each byte v to its half: 0x4300 | (v & 127) is the bf16 of
+            // 128 + (v & 127), 0x4300 | (v & 128) that of 128 or 256 (v's
+            // sign), and one exact bf16x2 subtract leaves v
+            const uint32_t w = __byte_perm(two, 0, 0x4140);
+            return ws::fma_bf16x2((w & 0x00800080u) | 0x43004300u,
+                                  0xBF80BF80u,
+                                  (w & 0x007F007Fu) | 0x43004300u);
         } else {
             const float2 f = w8::upcast2<FMT>((unsigned short)two);
             return ws::bf16x2_bits(f.x, f.y);
@@ -49,15 +50,17 @@ struct S8 {
 
 template <int FMT>
 cudaError_t launch_fmt(const wg::Args& A, const void* x, const void* w8,
-                       int out_f32, int stream_mt, cudaStream_t stream) {
-    if (stream_mt) {
+                       int out_f32, int route, cudaStream_t stream) {
+    if (route) {
         ws::Launch L;
         L.x = x; L.w = w8; L.col_scale = A.s; L.group_scale = nullptr;
         L.out = A.out; L.ws = A.ws; L.counters = A.counters;
         L.m = A.m; L.n = A.n; L.k = A.k;
         L.splits = A.splits; L.kper = A.kper; L.group = 0;
         L.out_f32 = out_f32;
-        return ws::launch<S8<FMT>>(L, stream_mt, stream);
+        return route == ws::PREFILL_ROUTE
+            ? ws::launch_prefill<S8<FMT>>(L, stream)
+            : ws::launch<S8<FMT>>(L, route, stream);
     }
     return out_f32 ? wg::launch<W8<FMT>, true>(A, stream)
                    : wg::launch<W8<FMT>, false>(A, stream);
@@ -67,13 +70,14 @@ cudaError_t launch_fmt(const wg::Args& A, const void* x, const void* w8,
 
 // payload: 0 e4m3, 1 e5m2, 2 int8.  ws / counters are used when splits > 1:
 // ws holds splits * m * n floats, counters one zeroed int per output tile.
-// stream_mt: 0 the general kernel; 1 or 2 the streaming loop with that
-// many m64 tiles a block (qmatmul.py::stream_plan: m <= 64, k % 8 == 0,
-// n % 16 == 0, 16-byte aligned x and w8).
+// route: 0 the general kernel; 1 or 2 the streaming loop's decode form
+// with that many m64 tiles a block (qmatmul.py::stream_plan: m <= 64,
+// k % 8 == 0, n % 16 == 0, 16-byte aligned x and w8); 3 its prefill
+// route, the same conditions with m > 64 (qmatmul.py::prefill_plan).
 extern "C" int fp8_dequant_matmul(const void* x, const void* w8,
                                   const void* scales, void* out, int m, int n,
                                   int k, int payload, int out_f32, int splits,
-                                  int kper, int stream_mt, void* ws,
+                                  int kper, int route, void* ws,
                                   void* counters, void* stream) {
     wg::Args A;
     A.x = reinterpret_cast<const __nv_bfloat16*>(x);
@@ -86,18 +90,18 @@ extern "C" int fp8_dequant_matmul(const void* x, const void* w8,
     A.splits = splits; A.kper = kper; A.group = 0;
     A.vec_x = (k % 8 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
     A.vec_w = (n % 16 == 0) && (reinterpret_cast<uintptr_t>(w8) % 16 == 0);
-    if (stream_mt && !(A.vec_x && A.vec_w && m <= 64))
+    if (route && !(A.vec_x && A.vec_w))
         return (int)cudaErrorInvalidValue;
     if (splits < 1 || splits > wg::MAX_SPLITS)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
     switch (payload) {
         case E4M3:
-            return (int)launch_fmt<E4M3>(A, x, w8, out_f32, stream_mt, st);
+            return (int)launch_fmt<E4M3>(A, x, w8, out_f32, route, st);
         case E5M2:
-            return (int)launch_fmt<E5M2>(A, x, w8, out_f32, stream_mt, st);
+            return (int)launch_fmt<E5M2>(A, x, w8, out_f32, route, st);
         case INT8:
-            return (int)launch_fmt<INT8>(A, x, w8, out_f32, stream_mt, st);
+            return (int)launch_fmt<INT8>(A, x, w8, out_f32, route, st);
     }
     return (int)cudaErrorInvalidValue;
 }

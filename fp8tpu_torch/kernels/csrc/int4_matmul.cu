@@ -12,11 +12,11 @@
 // that rounding is part of the function.
 //
 // Bound on an H100: the bytes of wp at decode, the bf16 tensor-core rate at
-// prefill.  Decode shapes run the streaming loop of w_stream.cuh (a TMA
+// prefill.  Aligned shapes run the streaming loop of w_stream.cuh (a TMA
 // ring of packed bytes and grouped scales, the nibbles turned into wgmma's
 // A operand in registers with integer and bf16x2 operations, no float
-// round trip); prefill and what that loop does not take run the general
-// kernel of w_gemm.cuh.
+// round trip): its decode form at M <= 64, its prefill route above; what
+// TMA cannot address runs the general kernel of w_gemm.cuh.
 
 #include "w_gemm.cuh"
 #include "w_stream.cuh"
@@ -100,13 +100,13 @@ struct W4S {
 }  // namespace
 
 // group: K rows per scale group (even), 0 for per-column scales.  k is the
-// unpacked contraction length (even).  ws / counters / stream_mt as in K3;
-// the streaming loop also needs 16-byte aligned scales and a group that is
-// a multiple of 16 dividing or divided by 128.
+// unpacked contraction length (even).  ws / counters / route as in K3; the
+// streaming loop also needs 16-byte aligned scales and a group that is a
+// multiple of 16 dividing or divided by 128.
 extern "C" int fp8_int4_matmul(const void* x, const void* wp,
                                const void* scales, void* out, int m, int n,
                                int k, int group, int out_f32, int splits,
-                               int kper, int stream_mt, void* ws,
+                               int kper, int route, void* ws,
                                void* counters, void* stream) {
     wg::Args A;
     A.x = reinterpret_cast<const __nv_bfloat16*>(x);
@@ -119,21 +119,24 @@ extern "C" int fp8_int4_matmul(const void* x, const void* wp,
     A.splits = splits; A.kper = kper; A.group = group;
     A.vec_x = (k % 8 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
     A.vec_w = (n % 16 == 0) && (reinterpret_cast<uintptr_t>(wp) % 16 == 0);
-    if (stream_mt && !(A.vec_x && A.vec_w && m <= 64
-                       && reinterpret_cast<uintptr_t>(scales) % 16 == 0))
+    if (route && !(A.vec_x && A.vec_w
+                   && reinterpret_cast<uintptr_t>(scales) % 16 == 0))
         return (int)cudaErrorInvalidValue;
     if (splits < 1 || splits > wg::MAX_SPLITS)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-    if (stream_mt) {
+    if (route) {
         ws::Launch L;
         L.x = x; L.w = wp; L.out = out; L.ws = A.ws; L.counters = A.counters;
         L.col_scale = group > 0 ? nullptr : A.s;
         L.group_scale = group > 0 ? A.s : nullptr;
         L.m = m; L.n = n; L.k = k; L.splits = splits; L.kper = kper;
         L.group = group; L.out_f32 = out_f32;
-        return (int)(group > 0 ? ws::launch<W4S<true>>(L, stream_mt, st)
-                               : ws::launch<W4S<false>>(L, stream_mt, st));
+        if (route == ws::PREFILL_ROUTE)
+            return (int)(group > 0 ? ws::launch_prefill<W4S<true>>(L, st)
+                                   : ws::launch_prefill<W4S<false>>(L, st));
+        return (int)(group > 0 ? ws::launch<W4S<true>>(L, route, st)
+                               : ws::launch<W4S<false>>(L, route, st));
     }
     return (int)(out_f32 ? wg::launch<W4, true>(A, st)
                          : wg::launch<W4, false>(A, st));

@@ -15,10 +15,11 @@
 //   and held in registers across them.
 // * Ragged M, N and K are handled with predicates (zero fill), never with
 //   padded copies of the operands.
-// * Decode shapes (M <= 64, 16-byte aligned operands) take the streaming
-//   loop of w_stream.cuh instead (TMA ring, wgmma with the converted
-//   weight as the A operand); this kernel serves prefill and whatever that
-//   loop does not take.
+// * Shapes that TMA can address (K % 8 == 0, N % 16 == 0, 16-byte aligned
+//   operands) take the streaming loop of w_stream.cuh instead, decode and
+//   prefill (TMA ring, wgmma with the converted weight as the A operand);
+//   this kernel serves the rest (qmatmul.py::weight_gemm_plan decides
+//   before the launch).
 // * Split-K: when the output has fewer tiles than the card has SMs (decode
 //   with N = 1024), gridDim.z blocks share one tile's K range.  Each writes
 //   its f32 partial to a workspace; the block that arrives last at the

@@ -1,43 +1,61 @@
-// The decode form (M <= 64) of the weight-streaming GEMMs K3
-// (dequant_matmul.cu), K5 (int4_matmul.cu) and T2 (fp8_linear_study.cu):
+// The weight-streaming GEMMs K3 (dequant_matmul.cu), K5 (int4_matmul.cu)
+// and T2 (fp8_linear_study.cu), at decode (M <= 64) and, for K3 and K5, at
+// prefill (M > 64):
 //   out[M, N] = x[M, K] bf16 @ convert(W[K, N]) (* a scale per column)
 // with W in device memory as fp8 / int8 bytes, packed int4 or bf16.
 //
-// What bounds it on an H100: the bytes of W, each read once (45 MB for an
-// e4m3 4096 x 11008 projection: 13.5 us at 3.35 TB/s); the products are a
-// few GFLOP.  So the loop has to keep the memory system busy and do as
-// little else per weight byte as it can.  The design:
+// What bounds it on an H100: at decode the bytes of W, each read once (45
+// MB for an e4m3 4096 x 11008 projection: 13.5 us at 3.35 TB/s); the
+// products are a few GFLOP.  So the loop has to keep the memory system
+// busy and do as little else per weight byte as it can.  At prefill the
+// bf16 tensor-core rate (2 M N K / 989 TFLOP/s: 46.7 us for that
+// projection at M = 512).  The design:
 //
 // * The operands are swapped: out^T = W^T x^T.  The converted weight is
 //   wgmma's A operand, in registers (m64: 64 output columns a tile), and
 //   x^T its B operand, read from shared memory as it lies (x's rows are
 //   contiguous along K, wgmma's K-major B) with n = M rounded up to 8,
-//   16, 32 or 64.  Every weight element is converted once, by one thread,
-//   straight from the raw stage into A fragments: no second pass through
-//   shared memory, no block-wide barrier.
-// * A block is one consumer warpgroup (MT m64 tiles: 64 MT output columns)
-//   and one producer warp, two blocks an SM.  The producer keeps a ring of
-//   stages in flight with TMA (cp.async.bulk.tensor over CUtensorMaps of
-//   the (K, N) payload, of x and, for grouped int4, of the scales); each
-//   stage completes on an mbarrier and the consumers release it with an
-//   arrive.  The ring has as many stages of 128 K rows (bf16: 64) as two
-//   blocks an SM leave room for, 3-8, so 32-192 KB of payload is in flight
-//   on an SM, at least Little's law's 32 KB (25 B/ns an SM times ~1.3 us).
+//   16, 32 or 64 (decode) or 128 tokens of a token tile (prefill).  Every
+//   weight element is converted once a block, by one thread, straight
+//   from the raw stage into A fragments: no second pass through shared
+//   memory, no block-wide barrier.
+// * Decode: a block is one consumer warpgroup (MT m64 tiles: 64 MT output
+//   columns) and one producer warp, two blocks an SM.  The producer keeps
+//   a ring of stages in flight with TMA (cp.async.bulk.tensor over
+//   CUtensorMaps of the (K, N) payload, of x and, for grouped int4, of the
+//   scales); each stage completes on an mbarrier and the consumers release
+//   it with an arrive.  The ring has as many stages of 128 K rows (bf16:
+//   64) as two blocks an SM leave room for, 3-8, so 32-192 KB of payload
+//   is in flight on an SM, at least Little's law's 32 KB (25 B/ns an SM
+//   times ~1.3 us).
+// * Prefill (the prefill route, launch_prefill): a block is 128 output
+//   columns x 128 tokens, two consumer warpgroups on 64 columns each
+//   (MT = 1) sharing the stage's x tile, and the producer warp; one block
+//   an SM, four stages of 48 KB (int4: five).  The tile is set by the
+//   registers: promotion keeps a second f32 sum the size of the
+//   accumulator, and m64 x n128 is 64 + 64 registers a thread; n256 (or
+//   MT = 2 at n128) would need 256 and does not fit in 255.  Two
+//   warpgroups on other columns read one x tile, so a stage of 128 K rows
+//   moves 16 KB of payload and 32 KB of x for 2 M MACs.  The launch order
+//   walks the token tiles fastest, so the blocks that read one column
+//   tile's payload run together and it comes from device memory once, and
+//   x (4 MB at M = 512) stays in the 50 MB L2.
 // * A thread owns 2 MT adjacent output columns (A rows g and g + 8 of
 //   m64 tile t are its columns 2t and 2t + 1), so it reads its payload
 //   bytes of a K row as one 2- or 4-byte word (bf16: 4 or 8) from a
 //   swizzled stage, conflict-free; the epilogue writes each accumulator
-//   row to its true column.  MT = 2 where N has enough 128-column tiles
-//   to fill the card, else 1 (N = 1024: 16 tiles of 64).
+//   row to its true column.  Decode: MT = 2 where N has enough 128-column
+//   tiles to fill the card, else 1 (N = 1024: 16 tiles of 64).
 // * The tensor cores accumulate at most PROMOTE = 512 K rows (the JAX
 //   kernel's tk tile); each chunk is then added into an f32 register sum
 //   with ordinary adds, since the tensor cores' own f32 accumulation
 //   truncates (PERF.md, trap 27).  The products are the exact bf16 x bf16
 //   products of x @ convert(W); only the order of the sums differs.
 // * Split-K over gridDim.z, deterministic (split_k.cuh): partials are
-//   added in split order by the tile's last block.  The kernel allocates
-//   nothing and never synchronises the host, so it can be captured in a
-//   CUDA graph.
+//   added in split order by the tile's last block.  At prefill only
+//   outputs of fewer tiles than SMs split (qmatmul.py::prefill_plan: k/v
+//   at M = 512 is 32 tiles, 4 splits).  The kernel allocates nothing and
+//   never synchronises the host, so it can be captured in a CUDA graph.
 //
 // A payload policy P gives KIND (BYTE8, NIB4 or HALF16), GROUPED (int4
 // scales per K group, multiplied into the weights in bf16) and, for BYTE8,
@@ -49,49 +67,59 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_frag.cuh"
 #include "split_k.cuh"
 
 namespace ws {
 
 enum Kind { BYTE8 = 0, NIB4 = 1, HALF16 = 2 };
 
-constexpr int CONSUMERS = 128;       // threads of a consumer warpgroup
+constexpr int WARPGROUP = 128;       // threads of a consumer warpgroup
 constexpr int PROMOTE = 512;         // K rows the tensor cores sum alone
+constexpr int PREFILL_NP = 128;      // tokens a block of the prefill route
+constexpr int PREFILL_ROUTE = 3;     // the entry points' code for it
 constexpr int MAX_SPLITS = 8;
 constexpr int MAX_STAGES = 8;
 constexpr int SMEM_LIMIT = 232448;
 
-// Shapes of one stage of payload policy P in a block of MT m64 tiles
-// (64 MT output columns) at n = NP.
-template <class P, int MT, int NP>
+// Shapes of one stage of payload policy P in a block of WGS consumer
+// warpgroups of MT m64 tiles each (64 MT WGS output columns) at n = NP.
+template <class P, int MT, int NP, int WGS>
 struct Shape {
     static constexpr int BK = P::KIND == HALF16 ? 64 : 128;  // K rows
     static constexpr int KSTEPS = BK / 16;
     static constexpr int ROWS = P::KIND == NIB4 ? BK / 2 : BK;
+    static constexpr int COLS = 64 * MT * WGS;           // a block's
     // the stage's payload: BOXES TMA boxes of RB-byte rows
-    static constexpr int RB = P::KIND == HALF16 ? 128 : 64 * MT;
-    static constexpr int BOXES = P::KIND == HALF16 ? MT : 1;
-    static constexpr int COLS = 64 * MT;                 // a block's
+    static constexpr int RB = P::KIND == HALF16 ? 128 : COLS;
+    static constexpr int BOXES = P::KIND == HALF16 ? COLS / 64 : 1;
+    static_assert(RB <= 128, "a payload row spans at most one swizzle");
     static constexpr int W_BYTES = BOXES * ROWS * RB;
     static constexpr int X_BYTES = BK * NP * 2;          // BK/64 boxes
     static constexpr int S_BYTES = P::GROUPED ? (BK / 16) * COLS * 4 : 0;
     static constexpr int STAGE = W_BYTES + X_BYTES + S_BYTES;
     static_assert(STAGE % 1024 == 0, "stages keep the 1024-byte alignment");
+    static constexpr int CONSUMERS = WARPGROUP * WGS;
     static constexpr int THREADS = CONSUMERS + 32;
-    static constexpr int BLOCKS = 2;                     // an SM
+    static constexpr int BLOCKS = WGS == 1 ? 2 : 1;      // an SM
     static constexpr int BUDGET = SMEM_LIMIT / BLOCKS - 4096;
     static constexpr int STAGES =
         BUDGET / STAGE > MAX_STAGES ? MAX_STAGES : BUDGET / STAGE;
     static_assert(STAGES >= 2, "at least two stages");
     static constexpr int SMEM = STAGES * STAGE + 1024 + 16 * STAGES;
+    // a thread loads a whole stage's raw words at once (load_stage) except
+    // at MT = 2, NP = 64: 32 more registers beside 128 of f32 sums, two
+    // blocks an SM
+    static constexpr bool STAGE_LOADS = MT == 1 || NP <= 32;
 };
 
 struct Args {
     const float* col_scale;  // (N,) f32, or null: no scale
     void* out;               // (M, N) bf16 or f32
     float* ws;               // (splits, M, N) partials, splits > 1 only
-    int* counters;           // one per column tile, zero between launches
+    int* counters;           // one per output tile, zero between launches
     int m, n, k;
+    int mtiles;              // token tiles (of NP rows)
     int splits, kper;        // K rows a split, a whole number of stages
     int group;               // grouped scales: K rows a group, else 0
     int scale_rows;          // scale rows a stage (grouped)
@@ -246,6 +274,36 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
           "r"(scale_d));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(scale_d));
+}
 
 // -- converts ----------------------------------------------------------------
 
@@ -296,11 +354,13 @@ __device__ __forceinline__ uint32_t load_cols(const unsigned char* p) {
 }
 
 // A thread's raw payload words of one k16 step, loaded from the stage,
-// then converted into its A fragments.
+// then converted into its A fragments.  Bytes at MT = 1: two words, rows
+// (2q, 2q + 1) and (2q + 8, 2q + 9), each (row k col c, row k col c + 1,
+// row k + 1 col c, row k + 1 col c + 1), as ldmatrix.trans gives them.
 template <class P, int MT>
 struct Raw {
     static constexpr int N =
-        P::KIND == BYTE8 ? 4 : P::KIND == NIB4 ? 2 : 4 * MT;
+        P::KIND == BYTE8 ? (MT == 1 ? 2 : 4) : P::KIND == NIB4 ? 2 : 4 * MT;
     uint32_t w[N];
 };
 
@@ -313,6 +373,7 @@ __device__ __forceinline__ void load_step(const unsigned char* stage, int ks,
                                           Raw<P, MT>& raw) {
     const int c = 16 * MT * w + 2 * MT * g;
     if constexpr (P::KIND == BYTE8) {
+        static_assert(MT == 2, "bytes at MT = 1 come through ldmatrix");
         const int r = 16 * ks + 2 * q;
         raw.w[0] = load_cols<MT>(stage + swz<S::RB>(r, c));
         raw.w[1] = load_cols<MT>(stage + swz<S::RB>(r + 1, c));
@@ -342,6 +403,51 @@ __device__ __forceinline__ void load_step(const unsigned char* stage, int ks,
     }
 }
 
+// A thread's raw words of a whole stage, loaded once the stage has landed,
+// so that no load waits inside the chain of converts and wgmmas (where
+// S::STAGE_LOADS; else the loop loads them a step at a time).
+// Bytes at MT = 1 come through ldmatrix.trans: lane l names row 16 ks + l
+// of the warp's 16-byte column chunk, and matrix i of the four holds rows
+// (2q, 2q + 1) (i = 0) or (2q + 8, 2q + 9) (i = 1) of step ks, then of
+// step ks + 1, at the thread's columns 2g, 2g + 1: one instruction for
+// what takes eight 2-byte loads.  Packed int4 at MT = 1 likewise, one
+// matrix a step: its rows are the step's packed rows 0, 4, 1, 5, 2, 6,
+// 3, 7, so that matrix rows 2q and 2q + 1 are the packed rows q and
+// q + 4 the thread converts: one instruction for eight 2-byte loads.
+template <class P, int MT, class S>
+__device__ __forceinline__ void load_stage(const unsigned char* stage,
+                                           int w, int g, int q, int lane,
+                                           Raw<P, MT> (&raw)[S::KSTEPS]) {
+    if constexpr (P::KIND == BYTE8 && MT == 1) {
+#pragma unroll
+        for (int ks = 0; ks < S::KSTEPS; ks += 2) {
+            uint32_t v[4];
+            frag::ldsm4_trans(v, stage + swz<S::RB>(16 * ks + lane, 16 * w));
+            raw[ks].w[0] = v[0];
+            raw[ks].w[1] = v[1];
+            raw[ks + 1].w[0] = v[2];
+            raw[ks + 1].w[1] = v[3];
+        }
+    } else if constexpr (P::KIND == NIB4 && MT == 1) {
+        const int i = lane & 7;
+#pragma unroll
+        for (int ks = 0; ks < S::KSTEPS; ks += 4) {
+            uint32_t v[4];
+            const int row = 8 * (ks + (lane >> 3)) + (i >> 1) + 4 * (i & 1);
+            frag::ldsm4_trans(v, stage + swz<S::RB>(row, 16 * w));
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                raw[ks + j].w[0] = v[j] & 0xFFFFu;
+                raw[ks + j].w[1] = v[j] >> 16;
+            }
+        }
+    } else {
+#pragma unroll
+        for (int ks = 0; ks < S::KSTEPS; ++ks)
+            load_step<P, MT, S>(stage, ks, w, g, q, raw[ks]);
+    }
+}
+
 // The A fragments a[t] of m64 tile t from one step's raw words: the
 // fragment's rows g and g + 8 of tile t are the thread's columns 2t and
 // 2t + 1; registers 0 and 1 hold K rows (2q, 2q + 1), 2 and 3 rows
@@ -351,7 +457,15 @@ template <class P, int MT>
 __device__ __forceinline__ void convert_step(const Raw<P, MT>& raw,
                                              const uint32_t (&sc)[2 * MT],
                                              uint32_t (&a)[MT][4]) {
-    if constexpr (P::KIND == BYTE8) {
+    if constexpr (P::KIND == BYTE8 && MT == 1) {
+        // (row k, row k + 1) pairs of columns c and c + 1
+        const uint32_t lo = __byte_perm(raw.w[0], 0, 0x3120);
+        const uint32_t hi = __byte_perm(raw.w[1], 0, 0x3120);
+        a[0][0] = P::cvt2(lo & 0xFFFFu);
+        a[0][1] = P::cvt2(lo >> 16);
+        a[0][2] = P::cvt2(hi & 0xFFFFu);
+        a[0][3] = P::cvt2(hi >> 16);
+    } else if constexpr (P::KIND == BYTE8) {
 #pragma unroll
         for (int t = 0; t < MT; ++t) {
             // (row k byte, row k + 1 byte) pairs of columns 2t and 2t + 1
@@ -394,15 +508,17 @@ __device__ __forceinline__ void convert_step(const Raw<P, MT>& raw,
 }
 // -- the kernel --------------------------------------------------------------
 
-// Block (blockIdx.x, blockIdx.z): output columns COLS x .. + COLS - 1 over
-// split z's K rows.  Warps 0-3 consume, warp 4 produces.
-template <class P, int MT, int NP>
-__global__ void __launch_bounds__(Shape<P, MT, NP>::THREADS,
-                                  Shape<P, MT, NP>::BLOCKS)
+// Block (blockIdx.x, blockIdx.z): token tile x % mtiles (tokens NP of
+// them), column tile x / mtiles (COLS columns), over split z's K rows;
+// the token tiles of one column tile are neighbours in launch order.
+// Warps 0 .. 4 WGS - 1 consume, the last warp produces.
+template <class P, int MT, int NP, int WGS>
+__global__ void __launch_bounds__(Shape<P, MT, NP, WGS>::THREADS,
+                                  Shape<P, MT, NP, WGS>::BLOCKS)
 stream_kernel(const __grid_constant__ CUtensorMap tw,
               const __grid_constant__ CUtensorMap tx,
               const __grid_constant__ CUtensorMap ts, const Args A) {
-    using S = Shape<P, MT, NP>;
+    using S = Shape<P, MT, NP, WGS>;
     constexpr int ST = S::STAGES, CHUNK = PROMOTE / S::BK;
     extern __shared__ unsigned char smem_raw[];
     __shared__ int is_last;
@@ -412,7 +528,8 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
     const uint32_t empty = full + 8 * ST;                     // ST barriers
 
     const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-    const int n0 = blockIdx.x * S::COLS;
+    const int m0 = (blockIdx.x % A.mtiles) * NP;
+    const int n0 = (blockIdx.x / A.mtiles) * S::COLS;
     const int kbeg = blockIdx.z * A.kper;
     const int kend = min(A.k, kbeg + A.kper);
     const int nst = (kend - kbeg + S::BK - 1) / S::BK;
@@ -420,13 +537,13 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
     if (t == 0) {
         for (int s = 0; s < ST; ++s) {
             mbar_init(full + 8 * s, 1);
-            mbar_init(empty + 8 * s, CONSUMERS);
+            mbar_init(empty + 8 * s, S::CONSUMERS);
         }
         asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     __syncthreads();
 
-    if (warp == 4) {
+    if (warp == S::CONSUMERS / 32) {
         // the producer: one thread keeps the ring full
         if (lane == 0) {
             const int tx_bytes = S::W_BYTES + S::X_BYTES
@@ -444,8 +561,8 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
                           P::KIND == NIB4 ? k0 / 2 : k0, bar);
 #pragma unroll
                 for (int j = 0; j < S::BK / 64; ++j)
-                    tma2d(dst + S::W_BYTES + j * NP * 128, &tx, k0 + 64 * j, 0,
-                          bar);
+                    tma2d(dst + S::W_BYTES + j * NP * 128, &tx, k0 + 64 * j,
+                          m0, bar);
                 if constexpr (P::GROUPED)
                     tma2d(dst + S::W_BYTES + S::X_BYTES, &ts, n0,
                           k0 / A.group, bar);
@@ -454,7 +571,7 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
         return;
     }
 
-    // the consumer warpgroup
+    // the consumer warpgroups
     const int g = lane >> 2, q = lane & 3;
     float acc[MT][NP / 2], sum[MT][NP / 2];
 #pragma unroll
@@ -468,55 +585,64 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
     // the thread's first column in the block
     const int cc = 16 * MT * warp + 2 * MT * g;
 
-    for (int st = 0; st < nst; ++st) {
-        const int s = st % ST;
-        mbar_wait(full + 8 * s, (st / ST) & 1);
-        const unsigned char* stage = smem + s * S::STAGE;
-        const uint32_t xst = smem_u32(stage + S::W_BYTES);
-        const int fresh = st % CHUNK == 0;
+    // A chunk of CHUNK stages (PROMOTE K rows, fewer at a split's end) is
+    // summed by the tensor cores, then added into the f32 sum.  Each stage
+    // is released as soon as its wgmmas are done (holding it longer costs
+    // the decode form a stage of its shallow ring).
+    for (int c0 = 0; c0 < nst; c0 += CHUNK) {
+        for (int st = c0; st < min(nst, c0 + CHUNK); ++st) {
+            const int s = st % ST;
+            mbar_wait(full + 8 * s, (st / ST) & 1);
+            const unsigned char* stage = smem + s * S::STAGE;
+            const uint32_t xst = smem_u32(stage + S::W_BYTES);
+            Raw<P, MT> r[S::KSTEPS];
+            if constexpr (S::STAGE_LOADS)
+                load_stage<P, MT, S>(stage, warp, g, q, lane, r);
 #pragma unroll
-        for (int ks = 0; ks < S::KSTEPS; ++ks) {
-            if constexpr (P::GROUPED) {
-                if (ks == 0 || (16 * ks) % A.group == 0) {
-                    const int row = A.group < S::BK ? 16 * ks / A.group : 0;
-                    const float* sp = reinterpret_cast<const float*>(
-                        stage + S::W_BYTES + S::X_BYTES) + row * S::COLS + cc;
+            for (int ks = 0; ks < S::KSTEPS; ++ks) {
+                if constexpr (!S::STAGE_LOADS)
+                    load_step<P, MT, S>(stage, ks, warp, g, q, r[ks]);
+                if constexpr (P::GROUPED) {
+                    if (ks == 0 || (16 * ks) % A.group == 0) {
+                        const int row =
+                            A.group < S::BK ? 16 * ks / A.group : 0;
+                        const float* sp = reinterpret_cast<const float*>(
+                            stage + S::W_BYTES + S::X_BYTES)
+                            + row * S::COLS + cc;
 #pragma unroll
-                    for (int j = 0; j < 2 * MT; ++j)
-                        sc[j] = bf16x2_bits(sp[j], sp[j]);
+                        for (int j = 0; j < 2 * MT; ++j)
+                            sc[j] = bf16x2_bits(sp[j], sp[j]);
+                    }
                 }
-            }
-            Raw<P, MT> r;
-            load_step<P, MT, S>(stage, ks, warp, g, q, r);
-            convert_step<P, MT>(r, sc, a[ks & 1]);
-            wgmma_fence();
-            const uint64_t desc =
-                desc_b(xst + (ks >> 2) * NP * 128 + (ks & 3) * 32);
+                convert_step<P, MT>(r[ks], sc, a[ks & 1]);
+                wgmma_fence();
+                const uint64_t desc =
+                    desc_b(xst + (ks >> 2) * NP * 128 + (ks & 3) * 32);
 #pragma unroll
-            for (int j = 0; j < MT; ++j)
-                wgmma_rs<NP>(acc[j], a[ks & 1][j], desc,
-                             (fresh && ks == 0) ? 0 : 1);
-            wgmma_commit();
-            // step ks - 1 is done, so its A registers may be written again
-            if (ks > 0) wgmma_wait<1>();
+                for (int j = 0; j < MT; ++j)
+                    wgmma_rs<NP>(acc[j], a[ks & 1][j], desc,
+                                 (st == c0 && ks == 0) ? 0 : 1);
+                wgmma_commit();
+                // step ks - 1 is done, so its A registers may be written
+                // again
+                if (ks > 0) wgmma_wait<1>();
+            }
+            wgmma_wait<0>();
+            mbar_arrive(empty + 8 * s);
         }
-        wgmma_wait<0>();
+        // promote the chunk into the f32 sum
 #pragma unroll
         for (int j = 0; j < MT; ++j) fence_regs(acc[j]);
-        mbar_arrive(empty + 8 * s);
-        if ((st + 1) % CHUNK == 0 || st + 1 == nst) {
-            // promote the chunk into the f32 sum
 #pragma unroll
-            for (int j = 0; j < MT; ++j)
+        for (int j = 0; j < MT; ++j)
 #pragma unroll
-                for (int e = 0; e < NP / 2; ++e)
-                    sum[j][e] = __fadd_rn(sum[j][e], acc[j][e]);
-        }
+            for (int e = 0; e < NP / 2; ++e)
+                sum[j][e] = __fadd_rn(sum[j][e], acc[j][e]);
     }
 
     // The epilogue.  Accumulator element 4j + 2h + e of tile i is the
-    // thread's column cc + 2i + h and token 8j + 2q + e, so for each token
-    // the thread holds 2 MT adjacent columns.
+    // thread's column cc + 2i + h and token m0 + 8j + 2q + e, so for each
+    // token the thread holds 2 MT adjacent columns.
     constexpr int V = 2 * MT;
     const int cb = n0 + cc;
     const bool col_ok = cb < A.n;    // N % 16 == 0: all V columns or none
@@ -541,15 +667,15 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
         for (int j = 0; j < NP / 8; ++j)
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
-                const int m = 8 * j + 2 * q + e;
+                const int m = m0 + 8 * j + 2 * q + e;
                 if (m < A.m && col_ok) {
                     float v[V];
                     values(j, e, v);
                     store_f32(mine + (size_t)m * A.n + cb, v);
                 }
             }
-        if (!splitk::last_of_tile_bar<CONSUMERS>(A.counters, A.splits,
-                                                 &is_last))
+        if (!splitk::last_of_tile_bar<S::CONSUMERS>(A.counters, A.splits,
+                                                    &is_last))
             return;
         // the tile's last block: the partials in split order, all of a
         // token's loads started before the first add
@@ -557,7 +683,7 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
         for (int j = 0; j < NP / 8; ++j)
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
-                const int m = 8 * j + 2 * q + e;
+                const int m = m0 + 8 * j + 2 * q + e;
                 if (!(m < A.m && col_ok)) continue;
                 float u[MAX_SPLITS][V];
 #pragma unroll
@@ -601,7 +727,7 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
     for (int j = 0; j < NP / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-            const int m = 8 * j + 2 * q + e;
+            const int m = m0 + 8 * j + 2 * q + e;
             if (!(m < A.m && col_ok)) continue;
             float v[V];
             values(j, e, v);
@@ -680,13 +806,13 @@ struct Launch {
     int m, n, k, splits, kper, group, out_f32;
 };
 
-template <class P, int MT, int NP>
+template <class P, int MT, int NP, int WGS>
 cudaError_t launch_tiles(const Launch& L, cudaStream_t stream) {
-    using S = Shape<P, MT, NP>;
+    using S = Shape<P, MT, NP, WGS>;
     static bool configured = false;     // per instance; the attribute sticks
     if (!configured) {
         const cudaError_t err = cudaFuncSetAttribute(
-            stream_kernel<P, MT, NP>,
+            stream_kernel<P, MT, NP, WGS>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
         if (err != cudaSuccess) return err;
         configured = true;
@@ -699,8 +825,8 @@ cudaError_t launch_tiles(const Launch& L, cudaStream_t stream) {
     else
         ok = encode(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, L.w,
                     P::KIND == NIB4 ? L.k / 2 : L.k, L.n, S::ROWS, S::RB,
-                    MT == 2 ? CU_TENSOR_MAP_SWIZZLE_128B
-                            : CU_TENSOR_MAP_SWIZZLE_64B);
+                    S::RB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : CU_TENSOR_MAP_SWIZZLE_64B);
     ok = ok && encode(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, L.x, L.m, L.k,
                       NP, 64, CU_TENSOR_MAP_SWIZZLE_128B);
     Args A;
@@ -709,6 +835,7 @@ cudaError_t launch_tiles(const Launch& L, cudaStream_t stream) {
     A.ws = L.ws;
     A.counters = L.counters;
     A.m = L.m; A.n = L.n; A.k = L.k;
+    A.mtiles = (L.m + NP - 1) / NP;
     A.splits = L.splits; A.kper = L.kper;
     A.group = L.group;
     A.scale_rows = 0;
@@ -722,38 +849,57 @@ cudaError_t launch_tiles(const Launch& L, cudaStream_t stream) {
         ts = tx;                        // unused
     }
     if (!ok) return cudaErrorInvalidValue;
-    dim3 grid((L.n + S::COLS - 1) / S::COLS, 1, L.splits);
-    stream_kernel<P, MT, NP><<<grid, S::THREADS, S::SMEM, stream>>>(
+    const long long tiles =
+        (long long)A.mtiles * ((L.n + S::COLS - 1) / S::COLS);
+    if (tiles >= (1ll << 31)) return cudaErrorInvalidValue;
+    dim3 grid((unsigned)tiles, 1, L.splits);
+    stream_kernel<P, MT, NP, WGS><<<grid, S::THREADS, S::SMEM, stream>>>(
         tw, tx, ts, A);
     return cudaGetLastError();
 }
 
 template <class P, int MT>
 cudaError_t launch_np(const Launch& L, cudaStream_t stream) {
-    if (L.m <= 8) return launch_tiles<P, MT, 8>(L, stream);
-    if (L.m <= 16) return launch_tiles<P, MT, 16>(L, stream);
-    if (L.m <= 32) return launch_tiles<P, MT, 32>(L, stream);
-    return launch_tiles<P, MT, 64>(L, stream);
+    if (L.m <= 8) return launch_tiles<P, MT, 8, 1>(L, stream);
+    if (L.m <= 16) return launch_tiles<P, MT, 16, 1>(L, stream);
+    if (L.m <= 32) return launch_tiles<P, MT, 32, 1>(L, stream);
+    return launch_tiles<P, MT, 64, 1>(L, stream);
 }
 
-// The caller (kernels/qmatmul.py::stream_plan) has checked what the loop
-// takes: m <= 64, k % 8 == 0, n % 16 == 0, 16-byte aligned operands, kper
-// a multiple of the stage's K rows, splits <= MAX_SPLITS, grouped scales
-// with group % 16 == 0 dividing or divided by 128; ``mt`` is 1 or 2.
+// What the loop takes, checked by the caller (kernels/qmatmul.py::
+// streams / prefills and their plans) and again here: k % 8 == 0,
+// n % 16 == 0, 16-byte aligned operands, kper a multiple of the stage's K
+// rows, splits <= MAX_SPLITS, grouped scales with group % 16 == 0
+// dividing or divided by 128.
 template <class P>
-cudaError_t launch(const Launch& L, int mt, cudaStream_t stream) {
+bool loop_takes(const Launch& L) {
     constexpr int BK = P::KIND == HALF16 ? 64 : 128;
-    if (L.m < 1 || L.m > 64 || L.k % 8 || L.n % 16 || L.splits < 1
+    if (L.m < 1 || L.k % 8 || L.n % 16 || L.splits < 1
         || L.splits > MAX_SPLITS || L.kper % BK
         || (L.splits - 1) * (long long)L.kper >= L.k
         || (long long)L.splits * L.kper < L.k)
-        return cudaErrorInvalidValue;
-    if (P::GROUPED && (L.group <= 0 || L.group % 16
-                       || (BK % L.group && L.group % BK) || L.k % L.group))
-        return cudaErrorInvalidValue;
+        return false;
+    return !P::GROUPED || (L.group > 0 && L.group % 16 == 0
+                           && (BK % L.group == 0 || L.group % BK == 0)
+                           && L.k % L.group == 0);
+}
+
+// The decode form: m <= 64, ``mt`` (1 or 2) m64 tiles a block
+// (qmatmul.py::stream_plan).
+template <class P>
+cudaError_t launch(const Launch& L, int mt, cudaStream_t stream) {
+    if (L.m > 64 || !loop_takes<P>(L)) return cudaErrorInvalidValue;
     if (mt == 1) return launch_np<P, 1>(L, stream);
     if (mt == 2) return launch_np<P, 2>(L, stream);
     return cudaErrorInvalidValue;
+}
+
+// The prefill route: m > 64, blocks of 128 columns x PREFILL_NP tokens on
+// two consumer warpgroups (qmatmul.py::prefill_plan).
+template <class P>
+cudaError_t launch_prefill(const Launch& L, cudaStream_t stream) {
+    if (L.m <= 64 || !loop_takes<P>(L)) return cudaErrorInvalidValue;
+    return launch_tiles<P, 1, PREFILL_NP, 2>(L, stream);
 }
 
 }  // namespace ws

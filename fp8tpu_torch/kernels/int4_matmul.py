@@ -7,7 +7,9 @@ of a column of ``wp`` (K/2, N) holds ``w[2r]`` in the low nibble and
 apply in f32 in the epilogue; grouped scales (K/group, N) are rounded to
 bf16 and multiplied into the unpacked weights in bf16 before the dot, and
 that rounding is part of the function.  With ``weight_fmt="int4"`` every
-serving linear on a CUDA tensor is one launch of the kernel.
+serving linear on a CUDA tensor is one launch of the kernel, on the route
+``qmatmul.weight_gemm_plan`` picks (the streaming loop's decode form or
+prefill route, or the general kernel), as K3's.
 """
 
 from __future__ import annotations
@@ -22,15 +24,19 @@ from fp8tpu_torch._device import full_fp32
 
 from . import _build
 from .qmatmul import (check_gemm_shape, div_exact, flush_amax, sm_count,
-                      split_k, split_workspace, stream_plan, streams)
+                      split_workspace, weight_gemm_plan)
 
-# Launches of the kernel since the last reset_launches().
+# Launches of the kernel since the last reset_launches(), in all and by
+# route (as qmatmul.dequant_routes).
 launches = 0
+routes = {"stream": 0, "prefill": 0, "general": 0}
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
+    for key in routes:
+        routes[key] = 0
 
 
 def pack_int4(q: torch.Tensor) -> torch.Tensor:
@@ -133,19 +139,16 @@ def int4_matmul(x: torch.Tensor, wp: torch.Tensor, scales: torch.Tensor,
     wp = wp.contiguous()
     s = scales.to(device=x.device, dtype=torch.float32).contiguous()
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    sms = sm_count(x.device.index or 0)
-    if streams(m, n, k, xb, wp, s, group=group_size):
-        plan = stream_plan(m, n, k, sms, "int4")
-        mt, splits, kper = plan.mt, plan.splits, plan.kper
-    else:
-        mt, (splits, kper) = 0, split_k(m, n, k, sms)
-    ws, counters = split_workspace(x.device, splits, m, n)
+    plan = weight_gemm_plan(m, n, k, sm_count(x.device.index or 0), "int4",
+                            xb, wp, s, group=group_size)
+    ws, counters = split_workspace(x.device, plan.splits, m, n)
     err = _fn()(xb.data_ptr(), wp.data_ptr(), s.data_ptr(), out.data_ptr(),
                 m, n, k, group_size or 0, int(out_dtype == torch.float32),
-                splits, kper, mt,
+                plan.splits, plan.kper, plan.code,
                 ws.data_ptr() if ws is not None else None,
                 counters.data_ptr(),
                 torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "int4_matmul kernel")
     launches += 1
+    routes[plan.route] += 1
     return out.reshape(*lead, n)

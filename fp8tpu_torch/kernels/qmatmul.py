@@ -33,10 +33,13 @@ K3 replaces ``fp8tpu/kernels/qmatmul.py::_dequant_matmul_kernel``:
 ``(x @ upcast(w8)) * s[N]`` with the payload upcast to bf16 in registers,
 f32 accumulation, the per-output-channel scale in the epilogue and one
 rounding to ``out_dtype``.  Every serving linear on a CUDA tensor is one
-launch of it.  :func:`quantize_weights` makes its payloads.  At decode
-(:func:`streams`: M <= 64, aligned operands) it runs the streaming loop
-(``csrc/w_stream.cuh``, planned by :func:`stream_plan`), which K5 and T2
-share; other shapes run the general kernel (``csrc/w_gemm.cuh``).
+launch of it.  :func:`quantize_weights` makes its payloads.  Operands that
+TMA can read run the streaming loop (``csrc/w_stream.cuh``), which K5 and
+T2 share: its decode form at M <= 64 (:func:`streams`, planned by
+:func:`stream_plan`), its prefill route above (:func:`prefills`,
+:func:`prefill_plan`); other shapes run the general kernel
+(``csrc/w_gemm.cuh``).  :func:`weight_gemm_plan` decides, before the
+launch.
 """
 
 from __future__ import annotations
@@ -60,10 +63,12 @@ from .cast_kernel import FMT_IDS, variant_code
 # Launches of K2's GEMM and of K3 since the last reset_launches(); K2's
 # GEMMs also by variant ("bitexact" and "hw" casts, or "uncast": neither
 # operand cast), and K2's cast pre-passes ("prepass": one for each operand
-# that the GEMM does not read as it is).
+# that the GEMM does not read as it is); K3's also by route (the streaming
+# loop's decode form "stream", its "prefill" route, the "general" kernel).
 launches = 0
 k2_launches = {"bitexact": 0, "hw": 0, "uncast": 0, "prepass": 0}
 dequant_launches = 0
+dequant_routes = {"stream": 0, "prefill": 0, "general": 0}
 
 _MAX_ROWS = 65535 * 64  # the pre-pass's grid.y limit times its 64-row tile
 IMPLS = ("bitexact", "hw")
@@ -82,8 +87,9 @@ def reset_launches() -> None:
     global launches, dequant_launches
     launches = 0
     dequant_launches = 0
-    for variant in k2_launches:
-        k2_launches[variant] = 0
+    for counts in (k2_launches, dequant_routes):
+        for key in counts:
+            counts[key] = 0
 
 
 def _scale_vector(scale, n: int, device) -> torch.Tensor:
@@ -642,18 +648,40 @@ STREAM_BK = {"w8": 128, "int4": 128, "bf16": 64}
 STREAM_PROMOTE = 512
 
 
-def streams(m: int, n: int, k: int, *tensors: torch.Tensor,
-            group: Optional[int] = None) -> bool:
-    """Whether a weight GEMM takes the streaming loop (``csrc/w_stream.cuh``,
-    the decode form: a TMA ring, wgmma with the converted weight as A): at
-    most 64 rows, every operand readable by TMA (K % 8 == 0, N % 16 == 0,
-    16-byte aligned), and grouped int4 scales whose group is a multiple of
-    16 that divides, or is divided by, the loop's 128-row stage.  Every
-    other shape takes the general kernel."""
+# The streaming loop's prefill route (M > 64): blocks of PREFILL_COLS
+# output columns (two warpgroups of 64) x PREFILL_NP tokens, one an SM
+# (``csrc/w_stream.cuh::launch_prefill``), and the C entry points' code
+# for it (1 and 2 are the decode form's m64 tiles a block, 0 the general
+# kernel).
+PREFILL_NP = 128
+PREFILL_COLS = 128
+PREFILL_ROUTE = 3
+
+
+def _tma_ok(n: int, k: int, tensors, group: Optional[int]) -> bool:
+    """Every operand readable by the streaming loop's TMA (K % 8 == 0,
+    N % 16 == 0, 16-byte aligned), and grouped int4 scales whose group is
+    a multiple of 16 that divides, or is divided by, its 128-row stage."""
     group_ok = not group or (group % 16 == 0 and (
         STREAM_BK["int4"] % group == 0 or group % STREAM_BK["int4"] == 0))
-    return (m <= 64 and k % 8 == 0 and n % 16 == 0 and group_ok
+    return (k % 8 == 0 and n % 16 == 0 and group_ok
             and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def streams(m: int, n: int, k: int, *tensors: torch.Tensor,
+            group: Optional[int] = None) -> bool:
+    """Whether a weight GEMM takes the streaming loop's decode form
+    (``csrc/w_stream.cuh``: a TMA ring, wgmma with the converted weight as
+    A): at most 64 rows and operands TMA can read (``_tma_ok``)."""
+    return m <= 64 and _tma_ok(n, k, tensors, group)
+
+
+def prefills(m: int, n: int, k: int, *tensors: torch.Tensor,
+             group: Optional[int] = None) -> bool:
+    """Whether a weight GEMM takes the streaming loop's prefill route: more
+    than 64 rows and operands TMA can read.  What takes neither form takes
+    the general kernel (``csrc/w_gemm.cuh``)."""
+    return m > 64 and _tma_ok(n, k, tensors, group)
 
 
 class StreamPlan(NamedTuple):
@@ -677,6 +705,54 @@ def stream_plan(m: int, n: int, k: int, sms: int,
     bk = STREAM_BK[kind]
     splits, kper = split_k(m, n, k, sms, True, bk)
     return StreamPlan(stream_mt(n, sms), bk, splits, kper)
+
+
+class PrefillPlan(NamedTuple):
+    np: int        # tokens a block
+    bk: int        # K rows a stage
+    splits: int    # blocks sharing an output tile's K range
+    kper: int      # K rows a split, a whole number of stages
+
+
+def prefill_plan(m: int, n: int, k: int, sms: int,
+                 kind: str = "w8") -> PrefillPlan:
+    """The prefill route's launch for (M, K) @ (K, N) on ``sms`` SMs, one
+    block an SM.  An output of at least ``sms`` 128 x 128 tiles is not
+    split: its partials would cost more than the last wave's idle SMs.
+    Fewer tiles split K into the fewest ways (at most 8, at least one
+    512-row chunk each) that minimise the waves a split's share of K
+    takes: k/v at M = 512 (32 tiles) 4 ways, gate at M = 128 (86) 3."""
+    bk = STREAM_BK[kind]
+    tiles = -(-m // PREFILL_NP) * -(-n // PREFILL_COLS)
+    splits = 1
+    if tiles < sms:
+        ways = [s for s in range(1, 9) if s == 1 or k // s >= STREAM_PROMOTE]
+        splits = min(ways, key=lambda s: (-(-tiles * s // sms) / s, s))
+    kper = max(bk, -(-k // (splits * bk)) * bk)
+    return PrefillPlan(PREFILL_NP, bk, -(-k // kper), kper)
+
+
+class GemmPlan(NamedTuple):
+    route: str     # "stream", "prefill" or "general"
+    code: int      # the C entry points' route argument
+    splits: int
+    kper: int
+
+
+def weight_gemm_plan(m: int, n: int, k: int, sms: int, kind: str,
+                     *tensors: torch.Tensor,
+                     group: Optional[int] = None) -> GemmPlan:
+    """Which kernel K3 / K5 launch for these operands, decided up front
+    from the shape and the pointers: the streaming loop's decode form
+    (M <= 64), its prefill route (M > 64), or, where TMA cannot read an
+    operand, the general kernel; and its split of K."""
+    if streams(m, n, k, *tensors, group=group):
+        plan = stream_plan(m, n, k, sms, kind)
+        return GemmPlan("stream", plan.mt, plan.splits, plan.kper)
+    if prefills(m, n, k, *tensors, group=group):
+        plan = prefill_plan(m, n, k, sms, kind)
+        return GemmPlan("prefill", PREFILL_ROUTE, plan.splits, plan.kper)
+    return GemmPlan("general", 0, *split_k(m, n, k, sms))
 
 
 def promotion_edges(k: int, kper: int,
@@ -780,19 +856,16 @@ def dequant_matmul(x: torch.Tensor, w8: torch.Tensor, scales: torch.Tensor,
     w8 = w8.contiguous()
     s = scales.to(device=x.device, dtype=torch.float32).reshape(-1).contiguous()
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    sms = sm_count(x.device.index or 0)
-    if streams(m, n, k, xb, w8):
-        plan = stream_plan(m, n, k, sms)
-        mt, splits, kper = plan.mt, plan.splits, plan.kper
-    else:
-        mt, (splits, kper) = 0, split_k(m, n, k, sms)
-    ws, counters = split_workspace(x.device, splits, m, n)
+    plan = weight_gemm_plan(m, n, k, sm_count(x.device.index or 0), "w8",
+                            xb, w8)
+    ws, counters = split_workspace(x.device, plan.splits, m, n)
     err = _dequant_fn()(
         xb.data_ptr(), w8.data_ptr(), s.data_ptr(), out.data_ptr(), m, n, k,
-        _PAYLOAD_IDS[w8.dtype], int(out_dtype == torch.float32), splits, kper,
-        mt, ws.data_ptr() if ws is not None else None,
+        _PAYLOAD_IDS[w8.dtype], int(out_dtype == torch.float32), plan.splits,
+        plan.kper, plan.code, ws.data_ptr() if ws is not None else None,
         counters.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "dequant_matmul kernel")
     dequant_launches += 1
+    dequant_routes[plan.route] += 1
     return out

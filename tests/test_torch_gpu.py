@@ -327,14 +327,16 @@ def _product_bound(x, w_abs, col_scale, want):
 
 
 # M = 1 .. 64 with aligned operands run the streaming loop (each wgmma n
-# full and one row past it; N = 1024 takes 64-column tiles); the rest the
+# full and one row past it; N = 1024 takes 64-column tiles), M > 64 its
+# prefill route (a ragged token tile, split K, several tiles); the rest the
 # general kernel.
 @pytest.mark.parametrize("fmt", ["e4m3", "e5m2", "int8"])
 @pytest.mark.parametrize("m,k,n", [(8, 512, 256), (3, 200, 100),
                                    (130, 1001, 331), (1, 4096, 1024),
                                    (9, 640, 272), (16, 512, 4096),
                                    (17, 1024, 256), (63, 384, 512),
-                                   (64, 2048, 1024)])
+                                   (64, 2048, 1024), (65, 1280, 256),
+                                   (300, 2048, 1024), (1024, 512, 4096)])
 def test_dequant_matmul_kernel_matches_plain(cuda, fmt, m, k, n):
     g = torch.Generator().manual_seed(0)
     x = torch.randn(m, k, generator=g).to(torch.bfloat16).to(cuda)
@@ -355,7 +357,8 @@ def test_dequant_matmul_kernel_matches_plain(cuda, fmt, m, k, n):
 @pytest.mark.parametrize("group", [None, 64])
 @pytest.mark.parametrize("m,k,n", [(8, 512, 256), (70, 192, 41),
                                    (1, 1024, 1024), (9, 384, 272),
-                                   (17, 512, 4096), (64, 2048, 256)])
+                                   (17, 512, 4096), (64, 2048, 256),
+                                   (100, 1280, 256), (600, 1024, 2048)])
 def test_int4_matmul_kernel_matches_plain(cuda, group, m, k, n):
     g = torch.Generator().manual_seed(1)
     x = torch.randn(m, k, generator=g).to(torch.bfloat16).to(cuda)

@@ -133,9 +133,12 @@ def test_grouped_scale_twin_matches_the_plain_bf16_multiply():
 
 
 def test_int8_convert_twin_is_exact():
-    """S8<INT8>::cvt2: 2^23 + (b ^ 0x80) is exact in f32, and taking
-    2^23 + 128 away leaves the signed byte."""
+    """S8<INT8>::cvt2: 0x4300 | (b & 127) is the bf16 of 128 + (b & 127),
+    0x4300 | (b & 128) that of 128 or 256, and one bf16 fma (the first
+    times -1 plus the second, exact) leaves the signed byte."""
     b = torch.arange(256, dtype=torch.int64)
-    f = (torch.full_like(b, 0x4B000000) | (b ^ 0x80)).to(torch.int32).view(
-        torch.float32) - 8388736.0
-    assert torch.equal(f, b.to(torch.uint8).view(torch.int8).float())
+    pos = _from_bits(0x4300 | (b & 0x7F))
+    neg = _from_bits(0x4300 | (b & 0x80))
+    f = (neg.float() * -1.0 + pos.float()).to(torch.bfloat16)
+    assert torch.equal(_bf16_bits(f), _bf16_bits(
+        b.to(torch.uint8).view(torch.int8).to(torch.bfloat16)))

@@ -69,7 +69,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    k6     the in-place ring store (K6), bit-exact for 1-, 2- and 4-byte
           types, aligned and unaligned rows, wrapping and negative indices,
           and one launch captured in a CUDA graph and replayed with a
-          changed device index.
+          changed device index; then ring_store (both ring slabs and the
+          head's advance in one launch) against ring_store_plain at the
+          served ring at 8 and 64 slots, int8 and e4m3, heads 0, n - 1,
+          n + 3 and -1, and on a 64 MB row whose blocks run in several
+          waves: bytes, head and ticket; and 200 steps captured in one
+          CUDA graph and replayed, each with its own slab.
    t1     the convert study T1 through its entry point
           (``fp8tpu_torch.tools.kexp_convert``) at the tool's shapes: 512
           tiles of 512 x 128, 8 reps, the tool's seven modes and the full
@@ -79,7 +84,9 @@ Phases, each printing its own lines; any failure exits non-zero:
           plain version (fp8 conv modes bit-equal, the rest and every
           tile's fold within the f64 reference's random-walk bound), a
           second launch and the cold copies bit-identical to the first;
-          launches counted, no plain version called.
+          launches counted, no plain version called; the 65536 byte pairs
+          through the bits convert at each byte position, and the SASS
+          instructions a byte of the three converts (cuobjdump).
    t2     the convert study T2 through ``fp8tpu_torch.tools.
           bench_fp8_linear`` at the tool's shape (64 x 4096 @ 4096 x 11008,
           64 reps): the three e4m3 converts bit-identical and right on all
@@ -111,8 +118,9 @@ Phases, each printing its own lines; any failure exits non-zero:
           heads / 8 KV heads, d_ff 11008, vocabulary 32768, random e4m3
           weights from a seed, int8 KV ring): (a) a ServingEngine behind an
           EngineServer answers 16 requests of 32 new tokens, twice, with
-          K3 / K6 launches per decode step counted and no plain version
-          called; (b) 4 decode steps with the kernels against the same
+          K3 / K6 launches per decode step counted (one ring_store a
+          step) and no plain version called; (b) 4 decode steps with
+          the kernels against the same
           steps with the plain versions on the card; (c) the same server at
           4 layers with int4 weights (K5); (d) timed decode at batch 64 and
           near-full context for e4m3 + int8 KV and for the bf16 twin, with
@@ -137,7 +145,9 @@ Phases, each printing its own lines; any failure exits non-zero:
           MMAs; yardsticks f32 torch.matmul on the cast im2col and f32
           F.conv2d with TF32 off); K2's training variants at the first
           stage's 3x3 conv (forward, dX, dW); K3 and K5 at the serving
-          linears, M = 8, 64, 512 and 2048, K4 and K6 at the served shapes;
+          linears, M = 8, 64, 512 and 2048, K4 and K6 at the served shapes,
+          the ring write at 8 and 64 slots beside the four launches it
+          replaced and an empty kernel's launch;
           one paged prefill of 8 x 256 tokens (2048 rows a linear) with
           e4m3 weights and with the bf16 twin's, wall clock and device
           time, K3's share.
@@ -1109,13 +1119,119 @@ def phase_k6(record):
     cases += 1
     graph_ok = torch.equal(buf, ref)
     bad += int(not graph_ok)
-    record["k6"] = {"cases": cases, "failed": bad, "graph_replay": graph_ok}
+    del buf, ref, slab
+    ring = k6_ring_cases(raw, bytes_of)
+    record["k6"] = {"cases": cases, "failed": bad, "graph_replay": graph_ok,
+                    "ring_store": ring}
     print(f"k6: {cases} cases (int8, e4m3, bf16, f32; aligned and unaligned "
           f"rows; idx 0, n-1, n+3, -1; one CUDA-graph replay with a changed "
           f"device index: {'ok' if graph_ok else 'FAIL'}), {bad} failed "
           f"(bit-exact required)")
-    if bad:
+    print(f"k6 ring_store: {ring['cases']} cases (int8 and e4m3 rings of "
+          f"{SERVE_SEQ} rows at 8 and 64 slots, and a slab of "
+          f"{K6_WAVES_SLAB >> 20} MB, {ring['waves_blocks']} blocks; head 0, "
+          f"n-1, n+3, -1; {K6_GRAPH_STEPS} steps captured in one CUDA graph "
+          f"and replayed), {ring['failed']} failed (bytes, head and ticket "
+          f"equal to ring_store_plain required)")
+    if bad or ring["failed"]:
         raise PhaseError("K6 disagrees with its plain version")
+
+
+K6_GRAPH_STEPS = 200           # ring_store calls in one captured graph
+K6_WAVES_SLAB = 64 << 20       # a payload row that takes several waves
+
+
+def k6_ring_cases(raw, bytes_of):
+    """ring_store against ring_store_plain: bytes of both slabs, the head
+    and the ticket, at the served decoder's ring (16 layers, 8 KV heads of
+    128, 512 rows) at 8 and 64 slots with int8 and e4m3 payloads, heads 0,
+    n - 1, n + 3 and -1; then K6_GRAPH_STEPS consecutive calls, each with
+    a new slab, captured in one CUDA graph and replayed against the same
+    steps in plain; and a payload row so long that its blocks run in
+    several waves, where a block that read a moved head would write the
+    wrong row."""
+    import torch
+    from fp8tpu_torch.kernels import inplace
+
+    cfg = serve_config()
+    cases = bad = 0
+
+    def same(kv8, sc, head, ticket, kv8_p, sc_p, head_p):
+        return (torch.equal(bytes_of(kv8), bytes_of(kv8_p))
+                and torch.equal(bytes_of(sc), bytes_of(sc_p))
+                and int(head) == int(head_p) and int(ticket) == 0)
+
+    def i32(v):
+        return torch.tensor(v, device="cuda", dtype=torch.int32)
+
+    layouts = [((SERVE_SEQ, 2, cfg.n_layers, slots * cfg.n_kv_heads,
+                 cfg.head_dim), (SERVE_SEQ, 2, cfg.n_layers,
+                                 slots * cfg.n_kv_heads), dtype)
+               for slots in (SERVE_SLOTS, BENCH_BATCH)
+               for dtype in (torch.int8, torch.float8_e4m3fn)]
+    layouts.append(((4, K6_WAVES_SLAB), (4, 3), torch.int8))
+    for shape8, shapes, dtype in layouts:
+        n = shape8[0]
+        kv8, sc = raw(shape8, dtype), raw(shapes, torch.float32)
+        kv8_p, sc_p = kv8.clone(), sc.clone()
+        ticket = torch.zeros(1, device="cuda", dtype=torch.int32)
+        label = f"{tuple(shape8)} {str(dtype)[6:]}"
+        for h0 in (0, n - 1, n + 3, -1):
+            slab8, slabs = raw(shape8[1:], dtype), raw(shapes[1:],
+                                                       torch.float32)
+            head, head_p = i32(h0), i32(h0)
+            before = inplace.routes["ring_store"]
+            inplace.ring_store(kv8, slab8, sc, slabs, head, n, ticket)
+            inplace.ring_store_plain(kv8_p, slab8, sc_p, slabs, head_p, n)
+            cases += 1
+            if (inplace.routes["ring_store"] != before + 1
+                    or not same(kv8, sc, head, ticket, kv8_p, sc_p, head_p)):
+                bad += 1
+                print(f"  k6 ring_store FAIL {label} head={h0}: head "
+                      f"{int(head)} (plain {int(head_p)}), ticket "
+                      f"{int(ticket)}")
+        if n < K6_GRAPH_STEPS:
+            continue
+        # every replayed step writes its own slab: a lost or doubled
+        # advance leaves a row that differs from the plain sequence
+        slab8, slabs = raw(shape8[1:], dtype), raw(shapes[1:], torch.float32)
+        start = n - K6_GRAPH_STEPS // 2                 # wraps around
+        head = i32(start)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):                   # warm-up
+            inplace.ring_store(kv8, slab8, sc, slabs, head, n, ticket)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(K6_GRAPH_STEPS):
+                slab8.view(torch.uint8).add_(1)
+                slabs.add_(1.0)
+                inplace.ring_store(kv8, slab8, sc, slabs, head, n, ticket)
+        kv8.copy_(kv8_p)                  # both rings as they were
+        sc.copy_(sc_p)
+        head.fill_(start)
+        slab8_0, slabs_0 = slab8.clone(), slabs.clone()
+        graph.replay()
+        slab8.copy_(slab8_0)
+        slabs.copy_(slabs_0)
+        head_p = i32(start)
+        for _ in range(K6_GRAPH_STEPS):
+            slab8.view(torch.uint8).add_(1)
+            slabs.add_(1.0)
+            inplace.ring_store_plain(kv8_p, slab8, sc_p, slabs, head_p, n)
+        torch.cuda.synchronize()
+        cases += 1
+        if not same(kv8, sc, head, ticket, kv8_p, sc_p, head_p):
+            bad += 1
+            rows = int((bytes_of(kv8).reshape(n, -1)
+                        != bytes_of(kv8_p).reshape(n, -1)).any(1).sum())
+            print(f"  k6 ring_store FAIL {label}: {K6_GRAPH_STEPS} replayed "
+                  f"steps, head {int(head)} (plain {int(head_p)}), ticket "
+                  f"{int(ticket)}, {rows} rows differ")
+        del graph
+    blocks = -(-K6_WAVES_SLAB // (16 * 4 * 256))   # 4 pieces a thread
+    return {"cases": cases, "failed": bad, "waves_blocks": blocks}
 
 
 # -- phase k4 ------------------------------------------------------------------
@@ -1446,7 +1562,20 @@ def phase_t1(record):
             row["max_abs_err"], r["cold_ms"], r["warm_ms"], plain_ms,
             max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations", None))
-    record["t1"] = {"rows": rows, "launches": counts}
+    # the converts' SASS instructions a byte, and every byte pair through
+    # the bits convert at each byte position T1 uses
+    from fp8tpu_torch.tools import bench_t1k6
+    lib, sass = bench_t1k6.build_probe(os.path.dirname(os.path.abspath(
+        __file__)))
+    per_byte = bench_t1k6.sass_per_byte(sass)
+    pairs = bench_t1k6.pair_mismatches(lib)
+    print(f"t1 converts: SASS instructions a byte {per_byte}; bits convert "
+          f"over the 65536 byte pairs, mismatches by byte position {pairs}")
+    if any(pairs.values()):
+        problems.append(f"the bits convert differs from the tool on byte "
+                        f"pairs: {pairs}")
+    record["t1"] = {"rows": rows, "launches": counts,
+                    "sass_per_byte": per_byte, "pair_mismatches": pairs}
     if problems:
         raise PhaseError("; ".join(problems))
     return kernels
@@ -2185,16 +2314,18 @@ def phase_serve(record):
     with _Counting(engine_mod, "decode_chunk", steps_arg=6) as dc, \
             _Counting(engine_mod, "prefill_batch") as pb, \
             _Counting(qmatmul, "dequant_matmul_plain", forbid=True), \
+            _Counting(inplace, "ring_store_plain", forbid=True), \
             _Counting(inplace, "dyn_store_plain", forbid=True):
         out, seconds, meta = run_server(params, scfg, 16)
     # K3's launches by route: the streaming loop's decode form (decode steps
     # and prompts of at most 64 tokens a batch) and its prefill route
     launches = {"dequant_matmul": qmatmul.dequant_routes["stream"],
                 "dequant_matmul_prefill": qmatmul.dequant_routes["prefill"],
-                "dyn_store": inplace.launches}
+                "dyn_store": inplace.launches,
+                "ring_store": inplace.routes["ring_store"]}
     general = qmatmul.dequant_routes["general"]
     k3_per_step = (qmatmul.dequant_launches - 7 * L * pb.calls) / dc.steps
-    k6_per_step = launches["dyn_store"] / dc.steps
+    k6_per_step = launches["ring_store"] / dc.steps
     again, seconds2, _ = run_server(params, scfg, 16)
     n_tok = sum(len(v) for v in out.values())
     ttft = sorted(m_["ttft_s"] for m_ in meta.values())
@@ -2214,9 +2345,11 @@ def phase_serve(record):
         problems.append("a token is outside the vocabulary")
     if again != out:
         problems.append("a second run gave other tokens")
-    if k3_per_step != 7 * L or k6_per_step != 2:
+    if (k3_per_step != 7 * L or k6_per_step != 1
+            or launches["dyn_store"] != launches["ring_store"]):
         problems.append(f"K3 / K6 launches per decode step {k3_per_step} / "
-                        f"{k6_per_step}, expected {7 * L} / 2")
+                        f"{k6_per_step}, expected {7 * L} / 1 (ring_store), "
+                        f"K6 launches by route {inplace.routes}")
     if launches["dequant_matmul_prefill"] == 0 or general:
         problems.append(f"K3's prefill route launched "
                         f"{launches['dequant_matmul_prefill']} times and the "
@@ -2251,13 +2384,13 @@ def phase_serve(record):
     worst = 0.0
     for step in range(4):
         lk, ring_k = decode_step(params, ring_k, toks, pos, scfg)
-        orig = (qmatmul.dequant_matmul, inplace.dyn_store)
+        orig = (qmatmul.dequant_matmul, inplace.ring_store)
         qmatmul.dequant_matmul = qmatmul.dequant_matmul_plain
-        inplace.dyn_store = inplace.dyn_store_plain
+        inplace.ring_store = inplace.ring_store_plain
         try:
             lp, ring_p = decode_step(params, ring_p, toks, pos, scfg)
         finally:
-            qmatmul.dequant_matmul, inplace.dyn_store = orig
+            qmatmul.dequant_matmul, inplace.ring_store = orig
         err = float((lk - lp).abs().max() / lp.abs().max())
         worst = max(worst, err)
         if not bool(torch.isfinite(lk).all()):
@@ -3154,9 +3287,76 @@ def phase_time_serve(record, launches):
         "max_abs_err": head6["max_abs_err"], "ms": head6["ms"],
         "plain_ms": head6["plain_ms"], "bound_ms": head6["bound_ms"],
         "bound_by": "bytes", "library_ms": head6["library_ms"]})
+    ring6 = time_ring_write(gen)
+    head_r = ring6[0]
+    kernels.append({
+        "name": "ring_store", "route": "cuda",
+        "source": "fp8tpu_torch/kernels/csrc/inplace.cu",
+        "replaces": "fp8tpu/kernels/inplace.py:27",
+        "launches": launches["ring_store"],
+        "max_abs_err": head_r["max_abs_err"], "ms": head_r["ms"],
+        "plain_ms": head_r["plain_ms"], "bound_ms": head_r["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "launch_floor_ms": head_r["empty_launch_ms"]})
     record.setdefault("time", {}).update(
-        {"k3_shapes": rows, "k5_shapes": rows5, "k6_shapes": rows6})
+        {"k3_shapes": rows, "k5_shapes": rows5, "k6_shapes": rows6,
+         "k6_ring_write": ring6})
     return kernels
+
+
+def time_ring_write(gen):
+    """One decode step's ring write at the served (8-slot) and timed
+    (64-slot) ring: ring_store, its plain version, the four launches it
+    replaced (two dyn_store and the head's add and remainder), an empty
+    kernel's launch, all by CUDA-graph replay, and the byte bound; the
+    kernel's bytes and head against the plain version's."""
+    import torch
+    from fp8tpu_torch.kernels import inplace
+    from fp8tpu_torch.tools import bench_t1k6, device_ms
+
+    lib, _ = bench_t1k6.build_probe(os.path.dirname(os.path.abspath(
+        __file__)))
+    empty = bench_t1k6.empty_launch_ms(lib)
+    rows = []
+    for label, slots in (("served engine", SERVE_SLOTS),
+                         ("timed decode", BENCH_BATCH)):
+        kv8, slab8, sc, slabs = bench_t1k6.ring_slabs(gen, slots)
+        kv8_p, sc_p = kv8.clone(), sc.clone()
+        n = kv8.shape[0]
+        head = torch.tensor(n + 5, device="cuda", dtype=torch.int32)
+        head_p, ticket = head.clone(), torch.zeros(
+            1, device="cuda", dtype=torch.int32)
+        inplace.ring_store(kv8, slab8, sc, slabs, head, n, ticket)
+        inplace.ring_store_plain(kv8_p, slab8, sc_p, slabs, head_p, n)
+        err = max(float((kv8.to(torch.int16) - kv8_p.to(torch.int16)
+                         ).abs().max()),
+                  float((sc - sc_p).abs().max()),
+                  float(abs(int(head) - int(head_p))))
+        t_k = device_ms(lambda: inplace.ring_store(kv8, slab8, sc, slabs,
+                                                   head, n, ticket))
+        t_p = device_ms(lambda: inplace.ring_store_plain(
+            kv8_p, slab8, sc_p, slabs, head_p, n))
+        state = {"head": head_p.clone()}
+
+        def four():
+            inplace.dyn_store(kv8, slab8, state["head"])
+            inplace.dyn_store(sc, slabs, state["head"])
+            state["head"] = torch.remainder(state["head"] + 1, n)
+        t_4 = device_ms(four)
+        b = bench_t1k6.ring_write_bound_ms(slots)
+        rows.append({"kernel": "K6 ring_store", "what": label,
+                     "slots": slots, "ms": t_k, "plain_ms": t_p,
+                     "four_launches_ms": t_4, "empty_launch_ms": empty,
+                     "bound_ms": b, "bound_by": "bytes",
+                     "max_abs_err": err})
+        print(f"time k6 ring write, {label} ({slots} slots): ring_store "
+              f"{t_k:.5f} ms on the device, plain {t_p:.5f} ms, 2 x "
+              f"dyn_store + head ops {t_4:.5f} ms, an empty launch "
+              f"{empty:.5f} ms, bound {b:.5f} ms (bytes)")
+        if err:
+            raise PhaseError(f"K6 ring_store {label}: differs from plain")
+        del kv8, kv8_p, sc, sc_p
+    return rows
 
 
 def phase_time_paged(record, launches):

@@ -35,13 +35,23 @@
 //   are read with ldmatrix (as b16 pairs) and upcast in registers: for the
 //   scores a thread's four bytes (d = 4c .. 4c + 3) become the k pairs
 //   (2c, 2c + 1) and (2c + 8, 2c + 9), and q's B fragment is read in the
-//   same d order.  The full mode's ctx^T = k^T . p^T takes the A operand
-//   from an ldmatrix.trans of the staged e4m3 tile, a thread's two 16-bit
-//   words (tokens 2c, 2c + 1 at d = 2g, 2g + 1) re-paired by byte permutes,
-//   with ctx rows d = 2g and 2g + 1 in the fragment's rows g and g + 8;
+//   same d order.  The full modes' ctx^T = k^T . p^T takes the A operand
+//   from the scores' converted fragments, kept in registers (128 a
+//   thread): each 16 x 16 fragment's four 8 x 8 quarters are swapped
+//   across the diagonal and transposed by movmatrix, so ctx's rows come
+//   in q's d order;
 //   p^T's B operand is the score accumulator transposed by movmatrix.
 // * Merge: each block writes one (8, 128) partial; a second launch adds the
 //   partials in a fixed order, so two launches give the same bits.
+// * The bits modes are bound by instruction issue, not bytes: at the byte
+//   bound the card issues about 8 thread instructions a byte, and half as
+//   many on its integer units.  Their convert (e4m3_convert.cuh::
+//   bits_pair) takes two bytes a word, picked straight from the loaded
+//   word by its first prmt: 5.5 instructions a byte (a byte at a time
+//   takes 14), 2.5 of them on the integer units.  The full modes convert
+//   each element once, as the tool does: a bf16 copy of a stage in shared
+//   memory would need 128 KB beside the two 66 KB stages, past the 227 KB
+//   a block may have, so the converted tile stays in registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,7 +64,6 @@
 namespace {
 
 using frag::ldsm4;
-using frag::ldsm4_trans;
 using frag::movmatrix_trans;
 
 enum Mode {
@@ -85,6 +94,7 @@ struct Traits {
     static constexpr int PIECES = ROW_BYTES / 16;       // 16 B pieces a row
     static constexpr int TOK_W = ROWS / WARPS;          // tokens a warp
     static constexpr int MT = TOK_W / 16;               // m tiles a warp
+    static constexpr int KEEP = FULL ? MT : 1;          // tiles kept (cv)
 };
 
 struct Params {
@@ -139,8 +149,8 @@ __device__ __forceinline__ void conv_chunk(const unsigned char* st, bool head,
                 f[2 * e] = lo_f(w[e]);
                 f[2 * e + 1] = hi_f(w[e]);
             } else {
-                const uint32_t a = e4m3::cvt2<T::CVT>(w[e] & 0xFFFFu);
-                const uint32_t b = e4m3::cvt2<T::CVT>(w[e] >> 16);
+                const uint32_t a = e4m3::cvt_half<T::CVT, 0>(w[e]);
+                const uint32_t b = e4m3::cvt_half<T::CVT, 1>(w[e]);
                 f[4 * e] = lo_f(a);
                 f[4 * e + 1] = hi_f(a);
                 f[4 * e + 2] = lo_f(b);
@@ -158,9 +168,13 @@ __device__ __forceinline__ void conv_chunk(const unsigned char* st, bool head,
 
 // The scores of this warp's tokens, S^T = k . q^T: sc[mt] is the m16n8
 // accumulator of tokens tok0 + 16 mt .. + 15 (rows) by q rows (columns).
+// The full modes keep the converted tile: cv[mt][s] is the A fragment of
+// tokens 16 mt .. + 15 by the 16 d of piece s (in the d order of q's B
+// fragment), for ctx to take transposed.
 template <int MODE>
-__device__ __forceinline__ void scores(const unsigned char* st, int tok0,
-                                       float (&sc)[Traits<MODE>::MT][4]) {
+__device__ __forceinline__ void scores(
+        const unsigned char* st, int tok0, float (&sc)[Traits<MODE>::MT][4],
+        uint32_t (&cv)[Traits<MODE>::KEEP][8][4]) {
     using T = Traits<MODE>;
     const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
     const unsigned char* qs = st + CHUNK;
@@ -196,12 +210,17 @@ __device__ __forceinline__ void scores(const unsigned char* st, int tok0,
 #pragma unroll
                 for (int hh = 0; hh < 2; ++hh) {
                     const uint32_t a[4] = {
-                        e4m3::cvt2<T::CVT>(r[2 * hh] & 0xFFFFu),
-                        e4m3::cvt2<T::CVT>(r[2 * hh + 1] & 0xFFFFu),
-                        e4m3::cvt2<T::CVT>(r[2 * hh] >> 16),
-                        e4m3::cvt2<T::CVT>(r[2 * hh + 1] >> 16)};
+                        e4m3::cvt_half<T::CVT, 0>(r[2 * hh]),
+                        e4m3::cvt_half<T::CVT, 0>(r[2 * hh + 1]),
+                        e4m3::cvt_half<T::CVT, 1>(r[2 * hh]),
+                        e4m3::cvt_half<T::CVT, 1>(r[2 * hh + 1])};
                     wg::mma_bf16(sc[mt], a, b[2 * pp + hh][0],
                                  b[2 * pp + hh][1]);
+                    if constexpr (T::FULL) {
+#pragma unroll
+                        for (int e = 0; e < 4; ++e)
+                            cv[mt][2 * pp + hh][e] = a[e];
+                    }
                 }
             }
         }
@@ -268,7 +287,8 @@ __global__ void __launch_bounds__(THREADS) stream_kernel(const Params p) {
             conv_chunk<MODE>(st, h == 0, acc, part);
         } else {
             float sc[T::MT][4];
-            scores<MODE>(st, tok0, sc);
+            uint32_t cv[T::KEEP][8][4];
+            scores<MODE>(st, tok0, sc, cv);
 #pragma unroll
             for (int mt = 0; mt < T::MT; ++mt)
 #pragma unroll
@@ -304,29 +324,22 @@ __global__ void __launch_bounds__(THREADS) stream_kernel(const Params p) {
                     m0 = fmaxf(m0, mx[w][2 * c]);
                     m1 = fmaxf(m1, mx[w][2 * c + 1]);
                 }
-                const int mi = lane >> 3, mrow = (lane & 7) + 8 * (mi & 1);
 #pragma unroll
                 for (int kk = 0; kk < T::MT; ++kk) {
                     const uint32_t b0 = movmatrix_trans(wg::pack_bf16(
                         expf(sc[kk][0] - m0), expf(sc[kk][1] - m1)));
                     const uint32_t b1 = movmatrix_trans(wg::pack_bf16(
                         expf(sc[kk][2] - m0), expf(sc[kk][3] - m1)));
-                    const int row = tok0 + 16 * kk + mrow;
 #pragma unroll
-                    for (int md2 = 0; md2 < D / 32; ++md2) {
-                        uint32_t r[4];
-                        ldsm4_trans(r, st + at<T>(row, 2 * md2 + (mi >> 1)));
-#pragma unroll
-                        for (int hh = 0; hh < 2; ++hh) {
-                            const uint32_t x = e4m3::cvt2<T::CVT>(r[2 * hh] & 0xFFFFu);
-                            const uint32_t y = e4m3::cvt2<T::CVT>(r[2 * hh] >> 16);
-                            const uint32_t z = e4m3::cvt2<T::CVT>(r[2 * hh + 1] & 0xFFFFu);
-                            const uint32_t w = e4m3::cvt2<T::CVT>(r[2 * hh + 1] >> 16);
-                            const uint32_t a[4] = {
-                                __byte_perm(x, y, 0x5410), __byte_perm(x, y, 0x7632),
-                                __byte_perm(z, w, 0x5410), __byte_perm(z, w, 0x7632)};
-                            wg::mma_bf16(acc[2 * md2 + hh], a, b0, b1);
-                        }
+                    for (int s = 0; s < 8; ++s) {
+                        // the kept (tokens x d) fragment transposed: its
+                        // 8 x 8 quarters moved and each transposed
+                        const uint32_t a[4] = {
+                            movmatrix_trans(cv[kk][s][0]),
+                            movmatrix_trans(cv[kk][s][2]),
+                            movmatrix_trans(cv[kk][s][1]),
+                            movmatrix_trans(cv[kk][s][3])};
+                        wg::mma_bf16(acc[s], a, b0, b1);
                     }
                 }
             }
@@ -367,15 +380,17 @@ __global__ void __launch_bounds__(THREADS) stream_kernel(const Params p) {
                         + 8 * (e >> 1)] = acc[mt][e];
         }
     } else {
-        // ctx^T row 2g (+1 for e >= 2) of m tile md, q row 2c (+1 for odd
-        // e); the warps' shares added in warp order.
+        // ctx^T rows of piece s in q's B order: fragment row g holds d =
+        // 16 s + 4 (g / 2) + g % 2, row g + 8 (e >= 2) that + 2; q row 2c
+        // (+1 for odd e).  The warps' shares added in warp order.
         float* buf = reinterpret_cast<float*>(smem);
+        const int dg = 4 * (g >> 1) + (g & 1);
 #pragma unroll
-        for (int md = 0; md < D / 16; ++md)
+        for (int s = 0; s < D / 16; ++s)
 #pragma unroll
             for (int e = 0; e < 4; ++e)
-                buf[warp * OUT + (2 * c + (e & 1)) * D + 16 * md + 2 * g
-                    + (e >> 1)] = acc[md][e];
+                buf[warp * OUT + (2 * c + (e & 1)) * D + 16 * s + dg
+                    + 2 * (e >> 1)] = acc[s][e];
         __syncthreads();
         for (int e = t; e < OUT; e += THREADS) {
             float s = 0.f;

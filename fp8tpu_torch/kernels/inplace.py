@@ -1,5 +1,5 @@
-"""K6, the in-place dynamic row store (``csrc/inplace.cu``): its wrapper,
-launch count and plain version.
+"""K6, the in-place dynamic row store (``csrc/inplace.cu``): its wrappers,
+launch count and plain versions.
 
 Replaces ``fp8tpu/kernels/inplace.py::_store_kernel``: ``buf[idx mod n] =
 slab`` where ``idx`` lives in device memory.  The port mutates ``buf`` and
@@ -7,8 +7,12 @@ returns it (the JAX function consumes ``buf`` and returns the updated
 array).  The kernel reads the index itself, so a launch needs no host
 synchronisation and can be captured in a CUDA graph.  Every shape and
 every 1-, 2-, 4- or 8-byte type goes through the kernel on a CUDA tensor.
-The serving decoder's ring write is two launches per decode step (payload
-slab, scale slab).
+
+Two entry points launch the one kernel: :func:`dyn_store`, one (buf,
+slab) pair, and :func:`ring_store`, the serving ring's write of a decode
+step: the payload slab and the scale slab at row ``head``, and ``head``
+advanced to ``(head + 1) mod n`` in place, all in one launch (the JAX
+package makes two ``dyn_store`` calls and ``jnp.mod(head + 1, S)``).
 """
 
 from __future__ import annotations
@@ -19,15 +23,18 @@ import functools
 import torch
 
 from . import _build
-from .qmatmul import sm_count
 
-# Launches of the kernel since the last reset_launches().
+# Launches of the kernel since the last reset_launches(), in all and by
+# entry point.
 launches = 0
+routes = {"dyn_store": 0, "ring_store": 0}
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
+    for r in routes:
+        routes[r] = 0
 
 
 def _check(buf, slab):
@@ -54,14 +61,34 @@ def dyn_store_plain(buf: torch.Tensor, slab: torch.Tensor, idx):
     return buf
 
 
+def ring_store_plain(kv8: torch.Tensor, slab8: torch.Tensor,
+                     sc: torch.Tensor, slabs: torch.Tensor,
+                     head: torch.Tensor, n: int, ticket=None) -> None:
+    """The plain version of :func:`ring_store` (any device): two
+    :func:`dyn_store_plain` calls, then ``head = (head + 1) mod n`` in
+    place.  ``ticket`` is the kernel's and is not touched."""
+    dyn_store_plain(kv8, slab8, head)
+    dyn_store_plain(sc, slabs, head)
+    head.copy_(torch.remainder(head + 1, n))
+
+
 @functools.cache
 def _fn():
-    fn = _build.load("inplace").fp8_dyn_store
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_void_p]
+    fn = _build.load("inplace").fp8_ring_store
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong] * 2 \
+        + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+           ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _row(buf: torch.Tensor, slab: torch.Tensor) -> torch.Tensor:
+    _check(buf, slab)
+    return slab.to(device=buf.device, dtype=buf.dtype).contiguous()
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def dyn_store(buf: torch.Tensor, slab: torch.Tensor, idx) -> torch.Tensor:
@@ -73,14 +100,43 @@ def dyn_store(buf: torch.Tensor, slab: torch.Tensor, idx) -> torch.Tensor:
     global launches
     if not buf.is_cuda:
         return dyn_store_plain(buf, slab, idx)
-    _check(buf, slab)
-    row = slab.to(device=buf.device, dtype=buf.dtype).contiguous()
+    row = _row(buf, slab)
     i32 = torch.as_tensor(idx, device=buf.device).to(torch.int32).reshape(1)
-    n = buf.shape[0]
-    err = _fn()(buf.data_ptr(), row.data_ptr(), i32.data_ptr(), n,
-                row.numel() * row.element_size(),
-                4 * sm_count(buf.device.index or 0),
+    err = _fn()(buf.data_ptr(), row.data_ptr(), _nbytes(row), None, None, 0,
+                i32.data_ptr(), None, buf.shape[0],
                 torch.cuda.current_stream(buf.device).cuda_stream)
     _build.check(err, "dyn_store kernel")
     launches += 1
+    routes["dyn_store"] += 1
     return buf
+
+
+def ring_store(kv8: torch.Tensor, slab8: torch.Tensor, sc: torch.Tensor,
+               slabs: torch.Tensor, head: torch.Tensor, n: int,
+               ticket: torch.Tensor) -> None:
+    """One decode step's ring write: ``kv8[head mod n] = slab8``,
+    ``sc[head mod n] = slabs`` and ``head = (head + 1) mod n``, in place.
+    ``head`` is a one-element int32 tensor, ``ticket`` a zeroed one-element
+    int32 tensor that belongs to this ring (the blocks' count; the launch
+    puts it back to 0).  One K6 launch on CUDA tensors (capturable in a
+    CUDA graph: every replay advances ``head``), the plain version on the
+    CPU."""
+    global launches
+    if not kv8.is_cuda:
+        return ring_store_plain(kv8, slab8, sc, slabs, head, n)
+    if kv8.shape[0] != n or sc.shape[0] != n:
+        raise ValueError(f"ring_store: rings of {kv8.shape[0]} and "
+                         f"{sc.shape[0]} rows, n = {n}")
+    for t in (head, ticket):
+        if (t.dtype != torch.int32 or t.numel() != 1
+                or t.device != kv8.device):
+            raise ValueError("ring_store: head and ticket are one-element "
+                             "int32 tensors on the ring's device")
+    r8, rs = _row(kv8, slab8), _row(sc, slabs)
+    err = _fn()(kv8.data_ptr(), r8.data_ptr(), _nbytes(r8), sc.data_ptr(),
+                rs.data_ptr(), _nbytes(rs), head.data_ptr(),
+                ticket.data_ptr(), n,
+                torch.cuda.current_stream(kv8.device).cuda_stream)
+    _build.check(err, "ring_store kernel")
+    launches += 1
+    routes["ring_store"] += 1

@@ -71,6 +71,62 @@ def e4m3_bits_to_bf16(u8: torch.Tensor) -> torch.Tensor:
     return sign | bits
 
 
+def _prmt(a: torch.Tensor, b: int, sel: int) -> torch.Tensor:
+    """``__byte_perm(a, b, sel)`` on 32-bit values held in int64: output
+    byte i is byte ``sel >> 4i & 7`` of (a, b)."""
+    src = [(a >> (8 * i)) & 0xFF for i in range(4)] \
+        + [torch.full_like(a, (b >> (8 * i)) & 0xFF) for i in range(4)]
+    out = torch.zeros_like(a)
+    for i in range(4):
+        out = out | (src[(sel >> (4 * i)) & 7] << (8 * i))
+    return out
+
+
+def _mul_bf16x2(a: torch.Tensor, c: int) -> torch.Tensor:
+    """``mul.rn.bf16x2`` on 32-bit values held in int64, through f32: the
+    product of two bf16 values is exact in f32 (subnormals kept, as torch
+    keeps them on the CPU), then rounded to bf16 to nearest even."""
+    out = torch.zeros_like(a)
+    for sh in (0, 16):
+        x = ((((a >> sh) & 0xFFFF) << 16).to(torch.int32)).view(
+            torch.float32)
+        y = torch.tensor(((c >> sh) & 0xFFFF) << 16, dtype=torch.int64
+                         ).to(torch.int32).view(torch.float32)
+        u = (x * y).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        r = (u + 0x7FFF + ((u >> 16) & 1)) >> 16
+        out = out | ((r & 0xFFFF) << sh)
+    return out
+
+
+def _ge_bf16x2(a: torch.Tensor, c: int) -> torch.Tensor:
+    """``set.ge.u32.bf16x2``: 0xFFFF in each half where a's bf16 value is
+    at least c's (both non-negative here), else 0."""
+    out = torch.zeros_like(a)
+    for sh in (0, 16):
+        x = ((((a >> sh) & 0xFFFF) << 16).to(torch.int32)).view(
+            torch.float32)
+        y = torch.tensor(((c >> sh) & 0xFFFF) << 16, dtype=torch.int64
+                         ).to(torch.int32).view(torch.float32)
+        out = out | (torch.where(x >= y, 0xFFFF, 0) << sh)
+    return out
+
+
+def bits_pair_twin(w: torch.Tensor, lo: int = 0, hi: int = 1) -> torch.Tensor:
+    """The kernel's packed bits convert (``csrc/e4m3_convert.cuh::
+    bits_pair<lo, hi>``) step for step on 32-bit words held in int64:
+    bytes ``lo`` and ``hi`` of each word -> a bf16x2 word (byte ``lo`` in
+    the low half) as int64."""
+    m32 = 0xFFFFFFFF
+    x = _prmt(w.to(torch.int64), 0, 0x4040 | (hi << 8) | lo)
+    m4 = (x << 4) & 0x07F007F0
+    normal = m4 + 0x3C003C00
+    sub = _mul_bf16x2(m4, 0x7B807B80)
+    ge8 = _ge_bf16x2(m4, 0x00800080)
+    nan = _ge_bf16x2(m4, 0x07F007F0)
+    b = (normal & ge8) | (sub & ~ge8 & m32)
+    return ((b & ~nan & m32) | (0x7FC07FC0 & nan)) | ((x << 8) & 0x80008000)
+
+
 _SUB_TABLE = (0x0000, 0x3B00, 0x3B80, 0x3BC0, 0x3C00, 0x3C20, 0x3C40, 0x3C60)
 
 

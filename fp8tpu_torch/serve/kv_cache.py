@@ -63,21 +63,31 @@ class RingKVCache:
 
     One globally shared write head: decode step g writes EVERY slot's fresh
     k/v at physical row ``g mod S``, so a step's cache update is one
-    contiguous slab store (``kernels.inplace.dyn_store``) for the payload
-    and one for the scales.  A slot keeps its most recent S tokens.
-    Validity per slot is ``(head - 1 - row) mod S < min(position, S)``.
+    contiguous slab store for the payload and one for the scales, made
+    with the head's advance in one launch (``kernels.inplace.ring_store``).
+    A slot keeps its most recent S tokens.  Validity per slot is
+    ``(head - 1 - row) mod S < min(position, S)``.
 
       kv8 (S, 2, L, B*KV, D)  payloads, k at index 0, v at 1
       sc  (S, 2, L, B*KV)     f32 per-head-vector scales
       head ()                 int32 next write row, on the cache's device
+      ticket (1,)             int32, 0 between launches: ring_store's count
+                              of its blocks (made here when not given)
 
-    ``kv8`` and ``sc`` are updated in place by the decode and prefill
-    functions, which return this same object with a new ``head``.
+    ``kv8``, ``sc`` and ``head`` are updated in place by the decode and
+    prefill functions, which return this same object.  A caller that keeps
+    a head across a decode step keeps a clone of it.
     """
 
     kv8: torch.Tensor
     sc: torch.Tensor
     head: torch.Tensor
+    ticket: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.ticket is None:
+            self.ticket = torch.zeros(1, dtype=torch.int32,
+                                      device=self.head.device)
 
     @staticmethod
     def create(n_layers: int, n_slots: int, max_seq: int, kv_heads: int,

@@ -11,8 +11,8 @@ stay on the device.
 
 On a CUDA tensor every linear is one launch of a hand-written kernel
 (:func:`fp8_linear` -> K3 ``dequant_matmul``, :func:`int4_linear` -> K5
-``int4_matmul``), a decode step's ring write is two launches of K6
-``dyn_store``, and paged decode with ``paged_decode_impl="kernel"`` reads
+``int4_matmul``), a decode step's ring write (both slabs and the head's
+advance) is one launch of K6 ``ring_store``, and paged decode with ``paged_decode_impl="kernel"`` reads
 the pooled prefix through one launch of K4 ``paged_decode_attention`` per
 layer; on the CPU the same functions use the kernels' plain versions.  The
 other attention products, the tied LM head and the bf16-weight linear of
@@ -86,7 +86,7 @@ class ServeConfig:
     # K-group size for int4 weights (None: per-output-channel scales only).
     int4_group: Optional[int] = 128
     # Ring-write batching: 0 writes each step's row directly; W > 1 raises.
-    # (The ring write itself is always the dyn_store kernel on a CUDA ring
+    # (The ring write itself is always the ring_store kernel on a CUDA ring
     # and its plain version on the CPU: the JAX package's staging_impl has
     # no counterpart.)
     ring_flush: int = 0
@@ -590,12 +590,12 @@ def sample_tokens(logits: torch.Tensor, generator: Optional[torch.Generator],
 def _ring_write_step(ring: RingKVCache, slab8: torch.Tensor,
                      slabs: torch.Tensor) -> None:
     """One decode step's cache update: the (2, L, B*KV, D) payload slab and
-    the (2, L, B*KV) scale slab stored at the ring head (two launches of
-    the dyn_store kernel on a CUDA ring), then ``head = (head + 1) mod S``
-    as a device tensor."""
-    inplace.dyn_store(ring.kv8, slab8, ring.head)
-    inplace.dyn_store(ring.sc, slabs, ring.head)
-    ring.head = torch.remainder(ring.head + 1, ring.max_seq)
+    the (2, L, B*KV) scale slab stored at the ring head, and ``head =
+    (head + 1) mod S`` in place: one ring_store launch on a CUDA ring.
+    Everything that read the head this step (the valid mask) was computed
+    from it before, in stream order."""
+    inplace.ring_store(ring.kv8, slab8, ring.sc, slabs, ring.head,
+                       ring.max_seq, ring.ticket)
 
 
 def _steps_impl(params: Dict, ring: RingKVCache, tokens: torch.Tensor,

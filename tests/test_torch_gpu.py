@@ -401,6 +401,33 @@ def test_dyn_store_kernel_matches_plain(cuda, dtype, row):
         assert torch.equal(buf, ref)
 
 
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float8_e4m3fn])
+def test_ring_store_kernel_matches_plain(cuda, dtype):
+    """Both slabs and the head in one launch: bytes, head and ticket equal
+    to the plain version's, two steps from each start."""
+    g = torch.Generator().manual_seed(3)
+    n, row8, rows = 8, (2, 2, 4, 16), (2, 2, 4)
+    kv8 = torch.randint(-100, 100, (n,) + row8, generator=g).to(dtype)
+    sc = torch.rand((n,) + rows, generator=g)
+    kv8_g, sc_g = kv8.to(cuda), sc.to(cuda)
+    ticket = torch.zeros(1, dtype=torch.int32, device=cuda)
+    for idx in (0, n - 1, n + 3, -1):
+        head = torch.tensor(idx, dtype=torch.int32)
+        head_g = head.to(cuda)
+        for _ in range(2):
+            slab8 = torch.randint(-100, 100, row8, generator=g).to(dtype)
+            slabs = torch.rand(rows, generator=g)
+            before = inplace.launches
+            inplace.ring_store(kv8_g, slab8.to(cuda), sc_g, slabs.to(cuda),
+                               head_g, n, ticket)
+            assert inplace.launches == before + 1
+            inplace.ring_store_plain(kv8, slab8, sc, slabs, head, n)
+            assert torch.equal(kv8_g.cpu().view(torch.uint8),
+                               kv8.view(torch.uint8))
+            assert torch.equal(sc_g.cpu(), sc)
+            assert int(head_g) == int(head) and int(ticket) == 0
+
+
 @pytest.mark.parametrize("fmt", [torch.int8, torch.float8_e4m3fn,
                                  torch.float8_e5m2, torch.bfloat16])
 @pytest.mark.parametrize("batch,kv,g,d,page,mp", [(3, 2, 2, 16, 8, 4),
@@ -605,6 +632,22 @@ def test_kexp_convert_kernel_converts_every_e4m3_byte(cuda, mode):
     nan = np.isnan(want)
     assert (np.isnan(got) == nan).all()
     np.testing.assert_array_equal(got[~nan], want[~nan])
+
+
+def test_kexp_convert_bits_mode_converts_random_bytes(cuda):
+    """The packed bits convert through conv-bits on random bytes of every
+    sign, subnormals included (|value| < 1, so the f32 sums are exact):
+    out and fold bit-equal to the plain version."""
+    g = torch.Generator().manual_seed(4)
+    k = (torch.randint(0, 0x40, (4, 1, 512, 128), generator=g)
+         | (torch.randint(0, 2, (4, 1, 512, 128), generator=g) << 7)
+         ).to(torch.uint8)
+    q = torch.zeros(4, 1, 8, 128, dtype=torch.bfloat16)
+    out, fold = kexp_convert.stream(q.to(cuda), k.to(cuda), "conv-bits",
+                                    reps=2)
+    want, want_fold = kexp_convert.stream_plain(q, k, "conv-bits", reps=2)
+    np.testing.assert_array_equal(_bits(out), _bits(want))
+    np.testing.assert_array_equal(_bits(fold), _bits(want_fold))
 
 
 @pytest.mark.parametrize("m,k,n", [(64, 512, 512), (8, 256, 272),

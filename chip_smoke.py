@@ -2,7 +2,7 @@
 """Drive the fp8tpu_torch port on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py [--phases build,k1,k2,k3,k4,k5,k6,t1,t2,main,
-                                    train,serve,serve_paged,time]
+                                    train,serve,serve_paged,spec,time]
     python3 chip_smoke.py --phases build,k2_probe   # not in the default run
 
 Phases, each printing its own lines; any failure exits non-zero:
@@ -135,7 +135,29 @@ Phases, each printing its own lines; any failure exits non-zero:
           against "ringview"; (c) one request whose 900-token context
           exceeds the ring of ``serve``; (d) timed decode at batch 64 for
           "kernel" and "ringview" in turns.
-8. time   each kernel at its main path's shapes: kernel, plain version,
+8. spec   draft-and-verify speculation at full width (the target of
+          serve; a draft of 2 layers, d_model 512, 8 / 4 heads of 64, d_ff
+          2048, random e4m3 weights; k_spec 4): (a) score_tokens_paged at 8
+          slots (M = 40, K3's decode form; a padding row, ragged valid
+          counts) and 64 (M = 320, the prefill route), T = 5 at position
+          444, kernels against plain: logits, the written pool rows, no
+          write outside them, K3 launches by route; (b) score_tokens on a
+          one-slot ring: kernels against plain (five ring_store launches,
+          head, ticket, no stray row) and logits[:, t] against t + 1 decode
+          steps; (c) every draft K4 launch of one round (D = 64, G = 2)
+          against its plain version within k4_reference's bounds; (d) an
+          EngineServer over ServingEngine(paged, prefix cache with compute
+          reuse, draft, 4 rounds a dispatch) answers the 16 shared-prefix
+          requests with the independent draft (the counted run, with one
+          ring speculative_decode) and with a self-draft: tokens equal to
+          the plain paged engine's by the margin rule, acceptance printed;
+          (e) a scored admission of 8 x 256 tokens against its plain
+          version (pool bytes) and the dense prefill (first tokens); (f) one
+          dispatch of 4 self-draft rounds at 8 and 64 slots against a paged
+          decode chunk of as many tokens: wall clock, kernels, busy share;
+          then K3 at M = 40 and 320, K4 at the draft's head shape and K6 on
+          the one-slot ring: kernel, plain, bound, PyTorch call.
+9. time   each kernel at its main path's shapes: kernel, plain version,
           bound, and a PyTorch yardstick where one exists; K1 bit-exact
           at the largest residual_add operand (device time by CUDA-graph
           replay, and the eager call event-timed) and summed over the 32
@@ -612,7 +634,7 @@ def k2_conv_operands(x, weight, strides, pads, fmt, mode, scale, seed=0,
     col = qmatmul.im2col(x, tuple(weight.shape[2:]), strides, pads)[0]
     if fmt is not None:
         col = qmatmul.cast_operand(col, fmt, mode, scale, impl,
-                                   qmatmul.sr_salt(seed, 1, fmt, mode))
+                                   qmatmul.sr_key(seed, 1, fmt, mode))
     return col, weight.float().reshape(weight.shape[0], -1).t()
 
 
@@ -780,7 +802,7 @@ def k2_identity_casts():
                                      seed=123, impl=impl).cpu()
             want = qmatmul.cast_operand(
                 x.cpu(), fmt, mode, sx.cpu(), impl,
-                qmatmul.sr_salt(123, 1, fmt, mode)) + 0.0
+                qmatmul.sr_key(123, 1, fmt, mode)) + 0.0
             finite = torch.isfinite(want).all(1)
             bad = bits_equal(got[finite], want[finite])
             nan_rows = bool(torch.isnan(got[~finite]).all())
@@ -1295,7 +1317,7 @@ def k4_case(gen, batch, max_pages, fmt, exact, g=K4_G, lens=None):
     return q, pool, sc, table, lens
 
 
-def k4_reference(q, pool, sc, table, lens, layer):
+def k4_reference(q, pool, sc, table, lens, layer, kv=K4_KV, page=K4_PAGE):
     """K4's function computed a second way (all pages gathered, one softmax,
     no recurrence) and the bounds of |kernel - plain| that go with it.
 
@@ -1311,9 +1333,9 @@ def k4_reference(q, pool, sc, table, lens, layer):
     import torch
     from fp8tpu_torch._device import full_fp32
     B, KVG, D = q.shape
-    KV, G = K4_KV, KVG // K4_KV
+    KV, G = kv, KVG // kv
     MP = table.shape[1]
-    T = MP * K4_PAGE
+    T = MP * page
     safe = table.clamp(min=0).long()
     raw = pool.view(torch.uint8 if pool.element_size() == 1 else torch.int16)
     qh = q.float().reshape(B, KV, G, D)
@@ -1865,10 +1887,10 @@ def k2_operands(x, w, fmt_x, mode_x, fmt_w, mode_w, scale_x, scale_w, seed,
     sx, sw = qmatmul._scales(x, w, scale_x, scale_w)
     if fmt_x is not None:
         x = qmatmul.cast_operand(x, fmt_x, mode_x, sx[0], impl,
-                                 qmatmul.sr_salt(seed, 1, fmt_x, mode_x))
+                                 qmatmul.sr_key(seed, 1, fmt_x, mode_x))
     if fmt_w is not None:
         w = qmatmul.cast_operand(w, fmt_w, mode_w, sw.reshape(1, -1), impl,
-                                 qmatmul.sr_salt(seed, 2, fmt_w, mode_w))
+                                 qmatmul.sr_key(seed, 2, fmt_w, mode_w))
     return x, w
 
 
@@ -2841,6 +2863,751 @@ def phase_serve_paged(record):
         raise PhaseError("; ".join(problems))
     return launches
 
+# -- phase spec ------------------------------------------------------------------
+
+SPEC_K = 4                     # tokens drafted a round
+SPEC_RPD = 4                   # rounds a dispatch of the served engine
+SPEC_POS = 444                 # context of the verify passes and timed rounds
+SPEC_MP = 8                    # pages a slot in those pools (512 tokens)
+
+
+def draft_serve_config():
+    """The draft of the speculation path, at the widths of the JAX
+    package's speculation bench (tools/bench_spec.py): 2 layers, d_model
+    512, 8 heads / 4 KV heads of 64, d_ff 2048, the target's vocabulary."""
+    from fp8tpu_torch.models import DecoderConfig
+    return DecoderConfig(vocab_size=32768, d_model=512, n_layers=2,
+                         n_heads=8, n_kv_heads=4, d_ff=2048,
+                         max_seq_len=1024)
+
+
+def spec_pool(cfg, batch, gen, positions=SPEC_POS):
+    """A paged int8 pool of ``batch`` slots x SPEC_MP pages of 64 behind a
+    shuffled page table, random payloads and scales: the cached context of
+    ``positions`` tokens a slot."""
+    import torch
+    from fp8tpu_torch.serve import PagedKVCache
+    paged = PagedKVCache.create(batch * SPEC_MP, PAGE, cfg.n_layers, batch,
+                                SPEC_MP, cfg.n_kv_heads, cfg.head_dim, "int8")
+    paged.page_table = torch.randperm(
+        batch * SPEC_MP, device="cuda", generator=gen
+    ).to(torch.int32).reshape(batch, SPEC_MP)
+    paged.pool.copy_(torch.randint(-127, 128, paged.pool.shape, device="cuda",
+                                   generator=gen, dtype=torch.int8))
+    paged.sc.uniform_(0.004, 0.02, generator=gen)
+    pos = torch.full((batch,), positions, device="cuda", dtype=torch.int32)
+    return paged, pos
+
+
+def clone_pool(paged):
+    from fp8tpu_torch.serve import PagedKVCache
+    return PagedKVCache(pool=paged.pool.clone(), sc=paged.sc.clone(),
+                        page_table=paged.page_table.clone(),
+                        kv_heads=paged.kv_heads)
+
+
+def with_plain_kernels(fn):
+    """``fn()`` with K3, K4 and K6 replaced by their plain versions."""
+    from fp8tpu_torch.kernels import inplace, qmatmul
+    from fp8tpu_torch.kernels import paged_attention as k4
+    orig = (qmatmul.dequant_matmul, k4.paged_decode_attention,
+            inplace.ring_store)
+    qmatmul.dequant_matmul = qmatmul.dequant_matmul_plain
+    k4.paged_decode_attention = k4.paged_decode_attention_plain
+    inplace.ring_store = inplace.ring_store_plain
+    try:
+        return fn()
+    finally:
+        (qmatmul.dequant_matmul, k4.paged_decode_attention,
+         inplace.ring_store) = orig
+
+
+SPEC_LAYER_EQUAL = 0.25        # equal payload bytes in every layer (below)
+
+
+def layer_distance(a, sa, b, sb):
+    """Per layer (dim 2), how far two int8 caches written through other
+    summation orders lie apart: ``a`` / ``b`` are payloads (rows, 2, L,
+    ..., D) as the caches hold them, ``sa`` / ``sb`` their scales (the
+    payload's shape without D).  Returns one dict a layer: the share of
+    equal payload bytes, the largest payload difference in int8 steps, and
+    the largest difference of the dequantized values over the layer's
+    largest |value|.  Layer 0's k / v come from the embedding through one
+    K3 launch each, so they differ from the plain version's only where f32
+    summation order moves a bf16 rounding; deeper layers carry every
+    earlier layer's differences, which move few bytes far (a bf16 step of
+    the hidden state) but many by a step.  A row written to the wrong
+    place, or k and v swapped, moves the dequantized values by the
+    layer's own scale."""
+    import torch
+    n = a.shape[2]
+
+    def by_layer(t):
+        return t.transpose(0, 2).reshape(n, -1)
+
+    pa, pb = by_layer(a), by_layer(b)
+    da = by_layer(a.float() * sa.unsqueeze(-1))
+    db = by_layer(b.float() * sb.unsqueeze(-1))
+    out = []
+    for i in range(n):
+        steps = (pa[i].to(torch.int16) - pb[i].to(torch.int16)).abs()
+        out.append({"equal": float((pa[i] == pb[i]).float().mean()),
+                    "steps": int(steps.max()),
+                    "deq": float((da[i] - db[i]).abs().max()
+                                 / db[i].abs().max())})
+    return out
+
+
+def layer_problems(dist, what, layers=None):
+    """The gate on :func:`layer_distance` over its first ``layers`` (all
+    by default): layer 0 at least SERVE_RING_EQUAL equal, every other
+    layer at least SPEC_LAYER_EQUAL, and each layer's dequantized values
+    within the decode limit."""
+    bad = [f"layer {i}: {d}" for i, d in enumerate(dist[:layers])
+           if d["equal"] < (SERVE_RING_EQUAL if i == 0 else SPEC_LAYER_EQUAL)
+           or not d["deq"] <= SERVE_LOGIT_TOL]
+    return [f"{what}: {'; '.join(bad)}"] if bad else []
+
+
+def fmt_layers(dist) -> str:
+    """Equal shares, int8 steps and dequantized distances by layer."""
+    return ("equal [" + ", ".join(f"{d['equal']:.3f}" for d in dist)
+            + "], most int8 steps [" + ", ".join(str(d["steps"]) for d in dist)
+            + "], dequantized [" + ", ".join(f"{d['deq']:.2e}" for d in dist)
+            + "]")
+
+
+def rel_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+def near_tie(logits, tol=SERVE_LOGIT_TOL) -> bool:
+    """The margin rule: the top-2 margin lies inside the logit tolerance."""
+    top2 = logits.float().topk(2).values
+    return float(top2[0] - top2[1]) <= 2 * tol * float(logits.abs().max())
+
+
+def margin_agree(out, ref, prompts, params, scfg):
+    """Every token of ``out`` held to the margin rule by a teacher-forced
+    dense forward over its own list: each emitted token is the argmax of
+    its step's logits or lies within the band 2 SERVE_LOGIT_TOL max|logit|
+    of the top, at every step, past the first one where ``out`` parts from
+    ``ref`` too.  Returns ({uid: first index where the lists part, or
+    None}, the share of steps whose top-2 margin lies inside the band, and
+    {uid: steps whose token lies outside the band} with every list of the
+    wrong length among them, and the mean number of tokens inside the band
+    a step: the chance that a wrong token passes is about that over the
+    vocabulary)."""
+    import torch
+    from fp8tpu_torch.serve import full_logits
+    parts, bad, ties, steps, inside = {}, {}, 0, 0, 0
+    for uid, want in ref.items():
+        got = out.get(uid, [])
+        parts[uid] = next((i for i in range(min(len(got), len(want)))
+                           if got[i] != want[i]),
+                          None if len(got) == len(want) else
+                          min(len(got), len(want)))
+        if len(got) != len(want):
+            bad[uid] = f"{len(got)} tokens, not {len(want)}"
+            continue
+        n = len(prompts[uid])
+        seq = torch.tensor(prompts[uid] + got, device="cuda",
+                           dtype=torch.int32)
+        lg = full_logits(params, seq, scfg)[n - 1:-1].float()
+        top2 = lg.topk(2, dim=-1).values
+        band = 2 * SERVE_LOGIT_TOL * lg.abs().amax(-1)
+        picked = lg.gather(1, seq[n:, None].long())[:, 0]
+        off = torch.nonzero(top2[:, 0] - picked > band).flatten().tolist()
+        if off:
+            bad[uid] = off
+        ties += int((top2[:, 0] - top2[:, 1] <= band).sum())
+        inside += int((lg >= (top2[:, 0] - band)[:, None]).sum())
+        steps += len(got)
+    return parts, ties / max(steps, 1), bad, inside / max(steps, 1)
+
+
+def phase_spec(record):
+    """Draft-and-verify speculation at full width: the verify passes'
+    kernels against their plain versions, the draft's K4 launches at D =
+    64, the served engine with an independent draft and a self-draft, the
+    scored admission, and one timed dispatch at 8 and 64 slots."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from fp8tpu_torch.kernels import inplace, qmatmul
+    from fp8tpu_torch.kernels import paged_attention as k4
+    from fp8tpu_torch.serve import (EngineServer, RingKVCache, ServeConfig,
+                                    ServingEngine, decode_step,
+                                    decode_steps_paged, full_logits,
+                                    prefill_batch_paged, random_serve_params)
+    from fp8tpu_torch.serve import speculative as spec
+
+    cfg, dcfg = serve_config(), draft_serve_config()
+    L, KV, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    scfg = ServeConfig(model=cfg, weight_fmt="e4m3", kv_fmt="int8",
+                       paged_decode_impl="kernel")
+    dscfg = ServeConfig(model=dcfg, weight_fmt="e4m3", kv_fmt="int8",
+                        paged_decode_impl="kernel")
+    params = STATE.get("e4m3")
+    if params is None:
+        params = STATE["e4m3"] = random_serve_params(cfg, "e4m3", seed=0)
+    dparams = random_serve_params(dcfg, "e4m3", seed=1)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    T = SPEC_K + 1
+    result, problems = {}, []
+
+    # (a) score_tokens_paged, kernels against plain: 8 slots (M = 40, K3's
+    # decode form; one padding row, ragged valid counts) and 64 (M = 320,
+    # the prefill route).  Drops must leave every other pool byte as it was.
+    va = {}
+    for batch in (SERVE_SLOTS, BENCH_BATCH):
+        paged, pos = spec_pool(cfg, batch, gen)
+        toks = torch.randint(1, cfg.vocab_size, (batch, T), device="cuda",
+                             generator=gen, dtype=torch.int32)
+        valid = torch.full((batch,), T, device="cuda", dtype=torch.int32)
+        slots = torch.arange(batch, device="cuda", dtype=torch.int32)
+        if batch == SERVE_SLOTS:
+            valid[2], valid[4] = 3, 1
+            slots[-1] = batch                      # a padding row
+        before = paged.pool.clone()
+        plain = clone_pool(paged)
+        routes0 = dict(qmatmul.dequant_routes)
+        lk, paged = spec.score_tokens_paged(params, paged, toks, pos, scfg,
+                                            valid_t=valid, slots=slots)
+        routes = {k: qmatmul.dequant_routes[k] - routes0[k] for k in routes0}
+        lp, plain = with_plain_kernels(lambda: spec.score_tokens_paged(
+            params, plain, toks, pos, scfg, valid_t=valid, slots=slots))
+        # the positions each live row may write: pos .. pos + valid - 1
+        written = torch.zeros((paged.n_pages, PAGE), dtype=torch.bool,
+                              device="cuda")
+        for b in range(batch):
+            if int(slots[b]) >= batch:
+                continue
+            for t in range(int(valid[b])):
+                p = SPEC_POS + t
+                written[int(paged.page_table[int(slots[b]), p // PAGE]),
+                        p % PAGE] = True
+        shape = (paged.n_pages, 2, L, PAGE, KV, D)
+        changed = (paged.pool != before).reshape(shape).any(
+            dim=(1, 2, 4, 5))
+        stray = int((changed & ~written).sum())
+
+        def rows(c):
+            return (c.pool.reshape(shape).permute(0, 3, 1, 2, 4, 5)[written],
+                    c.sc.reshape(shape[:-1]).permute(0, 3, 1, 2, 4)[written])
+
+        dist = layer_distance(*rows(paged), *rows(plain))
+        same = float((paged.pool == plain.pool).float().mean())
+        live = slots < batch
+        err = rel_err(lk[live], lp[live])
+        want_route = "stream" if batch * T <= 64 else "prefill"
+        va[batch] = {"logits_rel_err": err, "pool_bytes_equal": same,
+                     "written_rows_by_layer": dist,
+                     "stray_writes": stray, "k3_routes": routes,
+                     "rows_written": int(written.sum())}
+        print(f"spec (a) score_tokens_paged, {batch} slots x T = {T} at "
+              f"position {SPEC_POS} (M = {batch * T}): kernels vs plain "
+              f"max|logit diff| / max|logit| {err:.3e}, pool bytes equal "
+              f"{same:.4f}; the {int(written.sum())} written rows by layer: "
+              f"{fmt_layers(dist)}; writes outside them {stray}; "
+              f"K3 launches by route {routes}")
+        if not err <= SERVE_LOGIT_TOL or not bool(torch.isfinite(lk).all()):
+            problems.append(f"score_tokens_paged at {batch} slots: logits "
+                            f"differ by {err}")
+        problems += layer_problems(
+            dist, f"score_tokens_paged at {batch} slots, written rows")
+        if same < SERVE_RING_EQUAL or stray:
+            problems.append(f"score_tokens_paged at {batch} slots: pool "
+                            f"bytes equal {same}, stray writes {stray}")
+        if routes[want_route] != 7 * L or sum(routes.values()) != 7 * L:
+            problems.append(f"score_tokens_paged at {batch} slots: K3 "
+                            f"launches by route {routes}, expected {7 * L} "
+                            f"on the {want_route} route")
+        del paged, plain, before
+    result["a"] = va
+
+    # (b) score_tokens on a one-slot ring (S = 512, head 300): kernels
+    # against plain (T ring_store launches), and the JAX property: logits[:,
+    # t] against t + 1 plain decode steps, both with the kernels.
+    S = SERVE_SEQ
+    ring = RingKVCache.create(L, 1, S, KV, D, "int8")
+    ring.kv8.copy_(torch.randint(-127, 128, ring.kv8.shape, device="cuda",
+                                 generator=gen, dtype=torch.int8))
+    ring.sc.uniform_(0.004, 0.02, generator=gen)
+    ring.head.fill_(300)
+
+    def ring_copy():
+        return RingKVCache(kv8=ring.kv8.clone(), sc=ring.sc.clone(),
+                           head=ring.head.clone())
+
+    toks = torch.randint(1, cfg.vocab_size, (1, T), device="cuda",
+                         generator=gen, dtype=torch.int32)
+    pos = torch.full((1,), SPEC_POS, device="cuda", dtype=torch.int32)
+    rk, rp, rs = ring_copy(), ring_copy(), ring_copy()
+    inplace.reset_launches()
+    lk, rk = spec.score_tokens(params, rk, toks, pos, scfg)
+    k6 = inplace.routes["ring_store"]
+    lp, rp = with_plain_kernels(lambda: spec.score_tokens(params, rp, toks,
+                                                          pos, scfg))
+    rows = [(300 + t) % S for t in range(T)]
+    dist = layer_distance(rk.kv8[rows], rk.sc[rows], rp.kv8[rows],
+                          rp.sc[rows])
+    same = float((rk.kv8 == rp.kv8).float().mean())
+    untouched = [r for r in range(S) if r not in rows]
+    stray = int((rk.kv8[untouched] != ring.kv8[untouched]).sum())
+    err = rel_err(lk, lp)
+    steps_err = 0.0
+    for t in range(T):
+        ls, rs = decode_step(params, rs, toks[:, t], pos + t, scfg)
+        steps_err = max(steps_err, rel_err(lk[:, t], ls))
+    heads = (int(rk.head), int(rp.head), int(rs.head))
+    ticket = int(rk.ticket[0])
+    print(f"spec (b) score_tokens on a one-slot ring of {S} rows, head 300, "
+          f"T = {T}: kernels vs plain {err:.3e}, ring bytes equal "
+          f"{same:.4f}, the written rows by layer: {fmt_layers(dist)}, "
+          f"bytes changed outside them {stray}, heads (kernels, "
+          f"plain, steps) {heads}, ticket {ticket}, {k6} ring_store "
+          f"launches; logits[:, t] vs t + 1 decode steps {steps_err:.3e}")
+    if max(err, steps_err) > SERVE_LOGIT_TOL:
+        problems.append(f"score_tokens: {err} vs plain, {steps_err} vs "
+                        "decode steps")
+    problems += layer_problems(dist, "score_tokens, written rows")
+    if same < SERVE_RING_EQUAL or stray \
+            or heads != ((300 + T) % S,) * 3 or ticket or k6 != T:
+        problems.append(f"score_tokens ring write: equal {same}, stray "
+                        f"{stray}, heads {heads}, ticket {ticket}, {k6} "
+                        "launches")
+    result["b"] = {"logits_rel_err": err, "vs_decode_steps": steps_err,
+                   "ring_bytes_equal": same,
+                   "written_rows_by_layer": dist, "heads": heads}
+    del ring, rk, rp, rs
+
+    # (c) one greedy round at 8 slots with the independent draft in
+    # "kernel" mode: every K4 launch of the draft (D = 64, G = 2) against
+    # its plain version within k4_reference's bounds.
+    checks = []
+    orig_k4 = k4.paged_decode_attention
+
+    def checked_k4(q, pool, sc, table, lens, layer, page_size, kv_heads):
+        out = orig_k4(q, pool, sc, table, lens, layer, page_size=page_size,
+                      kv_heads=kv_heads)
+        acc, m, l = out
+        acc_p, m_p, l_p = k4.paged_decode_attention_plain(
+            q, pool, sc, table, lens, layer, page_size=page_size,
+            kv_heads=kv_heads)
+        _, _, _, m_tol, l_tol, acc_tol = k4_reference(
+            q, pool, sc, table, lens, layer, kv=kv_heads, page=page_size)
+        checks.append({
+            "shape": tuple(q.shape), "kv_heads": kv_heads,
+            "ok": bool(((m - m_p).abs() <= m_tol).all()
+                       and ((l - l_p).abs() <= l_tol).all()
+                       and ((acc - acc_p).abs() <= acc_tol).all()),
+            "err_over_bound": float(((acc - acc_p).abs() / acc_tol).max())})
+        return out
+
+    tp, tpos = spec_pool(cfg, SERVE_SLOTS, gen)
+    dp, dpos = spec_pool(dcfg, SERVE_SLOTS, gen)
+    pend = torch.randint(1, cfg.vocab_size, (SERVE_SLOTS, 2), device="cuda",
+                         generator=gen, dtype=torch.int32)
+    pend_n = torch.ones(SERVE_SLOTS, device="cuda", dtype=torch.int32)
+    zeros = torch.zeros(SERVE_SLOTS, device="cuda")
+    k4.paged_decode_attention = checked_k4
+    try:
+        spec.spec_round(params, tp, dparams, dp, pend, pend_n, tpos, dpos,
+                        None, zeros, SPEC_K, scfg, dscfg, any_sampled=False)
+    finally:
+        k4.paged_decode_attention = orig_k4
+    bad = [c for c in checks if not c["ok"]]
+    worst = max((c["err_over_bound"] for c in checks), default=0.0)
+    print(f"spec (c) one round at {SERVE_SLOTS} slots: {len(checks)} draft K4 "
+          f"launches (queries {checks[0]['shape'] if checks else None}, "
+          f"{dcfg.n_kv_heads} KV heads, D = {dcfg.head_dim}, G = "
+          f"{dcfg.n_heads // dcfg.n_kv_heads}) each against plain within "
+          f"k4_reference's bounds: {len(checks) - len(bad)} pass, worst "
+          f"|acc diff| / bound {worst:.3f}")
+    if len(checks) != SPEC_K * dcfg.n_layers or bad:
+        problems.append(f"draft K4: {len(checks)} launches, {len(bad)} "
+                        "outside the bounds")
+    result["c"] = {"launches": len(checks), "worst_over_bound": worst}
+    del tp, dp
+
+    # (d) the served engine: 16 requests sharing a 128-token prefix on 8
+    # slots, 32 new tokens each, scored admission, 4 rounds a dispatch; the
+    # plain paged engine first, then the independent draft (the counted
+    # main path, with one ring speculative_decode), then the self-draft.
+    reqs = paged_requests(9, 16, cfg.vocab_size)
+    prompts = {r.uid: r.prompt for r in reqs}
+    ref, sec_ref, _ = run_paged_server(params, scfg, reqs)
+
+    def served(draft, draft_cfg):
+        eng = ServingEngine(params, scfg, n_slots=SERVE_SLOTS,
+                            max_seq=SERVE_SEQ, chunk_size=16, use_paged=True,
+                            page_size=PAGE, prefix_cache=True,
+                            prefix_compute_reuse=True, draft_params=draft,
+                            draft_cfg=draft_cfg, k_spec=SPEC_K,
+                            spec_rounds_per_dispatch=SPEC_RPD)
+        srv = EngineServer(eng).start()
+        t0 = time.perf_counter()
+        try:
+            futs = {r.uid: srv.submit(r)
+                    for r in paged_requests(9, 16, cfg.vocab_size)}
+            out = {uid: f.result(timeout=900) for uid, f in futs.items()}
+        finally:
+            srv.stop()
+        return out, time.perf_counter() - t0, eng
+
+    qmatmul.reset_launches()
+    k4.reset_launches()
+    inplace.reset_launches()
+    with _Counting(qmatmul, "dequant_matmul_plain", forbid=True), \
+            _Counting(k4, "paged_decode_attention_plain", forbid=True), \
+            _Counting(inplace, "ring_store_plain", forbid=True):
+        out_d, sec_d, eng_d = served(dparams, dscfg)
+        ring_out, ring_stats = spec.speculative_decode(
+            params, dparams, reqs[0].prompt, SERVE_NEW, scfg, dscfg,
+            k_spec=SPEC_K, max_seq=SERVE_SEQ)
+    launches = {"dequant_matmul": qmatmul.dequant_routes["stream"],
+                "dequant_matmul_prefill": qmatmul.dequant_routes["prefill"],
+                "dequant_matmul_general": qmatmul.dequant_routes["general"],
+                "paged_decode_attention": k4.launches,
+                "ring_store": inplace.routes["ring_store"]}
+    out_s, sec_s, eng_s = served(params, scfg)
+    n_tok = sum(len(v) for v in ref.values())
+    # the plain engine's own tokens through the same rule: the control
+    _, ties_ref, bad_ref, band_ref = margin_agree(ref, ref, prompts, params,
+                                                  scfg)
+    print(f"spec (d) the plain paged engine: 16 requests x {SERVE_NEW} "
+          f"tokens in {sec_ref:.2f} s; steps inside the margin band "
+          f"{ties_ref:.3f}, tokens inside the band a step {band_ref:.2f} of "
+          f"{cfg.vocab_size}, tokens outside it {bad_ref or 'none'}")
+    if bad_ref:
+        problems.append(f"the plain paged engine's tokens lie outside the "
+                        f"margin band: {bad_ref}")
+    engines = {}
+    for name, out, sec, eng in (("draft", out_d, sec_d, eng_d),
+                                ("self-draft", out_s, sec_s, eng_s)):
+        parts, ties, bad, band = margin_agree(out, ref, prompts, params,
+                                              scfg)
+        differ = sum(j is not None for j in parts.values())
+        acc = eng.spec_accepted / max(eng.spec_drafted, 1)
+        # tokens a slot's round emitted: all but the admission's first
+        per_round = (n_tok - len(out)) / max(eng.spec_drafted / SPEC_K, 1)
+        engines[name] = {"seconds": sec, "acceptance": acc,
+                         "rounds": eng.spec_rounds,
+                         "tokens_per_slot_round": per_round,
+                         "first_part": parts, "near_tie_share": ties,
+                         "tokens_in_band": band,
+                         "outside_band": bad,
+                         "prefix_tokens_reused": eng.prefix_tokens_reused}
+        print(f"spec (d) EngineServer over ServingEngine(paged, prefix cache "
+              f"with compute reuse, {name}, k_spec {SPEC_K}, {SPEC_RPD} "
+              f"rounds a dispatch): 16 requests x {SERVE_NEW} tokens in "
+              f"{sec:.2f} s ({n_tok / sec:.1f} tokens/s; the plain paged "
+              f"engine {sec_ref:.2f} s); acceptance {acc:.4f}, "
+              f"{eng.spec_rounds} rounds, {per_round:.2f} tokens a slot a "
+              f"round; {differ} of 16 token lists part from the plain "
+              f"engine's, at {[parts[u] for u in sorted(parts)]}; every "
+              f"token teacher-forced: steps inside the margin band "
+              f"{ties:.3f}, {band:.2f} tokens inside it a step, tokens "
+              f"outside it {bad or 'none'}; prefix "
+              f"tokens reused {eng.prefix_tokens_reused}")
+        if bad or len(out) != 16:
+            problems.append(f"the {name} engine emitted tokens outside the "
+                            f"margin band: {bad}")
+    print(f"spec (d) launches on the counted run (the draft engine and one "
+          f"ring speculative_decode of {len(ring_out)} tokens, acceptance "
+          f"{ring_stats.acceptance_rate:.4f}): {launches}; no plain version "
+          "called")
+    # a self-draft proposes the target's own greedy tokens; only near ties
+    # that the verify pass's other summation order flips are rejected, so a
+    # broken verify shows as an acceptance near the independent draft's
+    if engines["self-draft"]["acceptance"] < 0.5:
+        problems.append("the self-draft accepted fewer than half its "
+                        "drafts")
+    if not all(launches[k] for k in ("dequant_matmul",
+                                     "dequant_matmul_prefill",
+                                     "paged_decode_attention", "ring_store")):
+        problems.append(f"a kernel of the spec path never launched: "
+                        f"{launches}")
+    result["d"] = {"engines": engines, "plain_seconds": sec_ref,
+                   "plain_near_tie_share": ties_ref,
+                   "plain_tokens_in_band": band_ref,
+                   "launches": launches,
+                   "ring_acceptance": ring_stats.acceptance_rate}
+    del eng_d, eng_s
+
+    # (e) scored admission: 8 prompts of 256 tokens through
+    # prefill_scored_paged (kernels and plain) and prefill_batch_paged.
+    B, Tp = SERVE_SLOTS, PREFILL_TOKENS
+    prompts_t = torch.randint(1, cfg.vocab_size, (B, Tp), device="cuda",
+                              generator=gen, dtype=torch.int32)
+    lengths = torch.full((B,), Tp, device="cuda", dtype=torch.int32)
+    slots = torch.arange(B, device="cuda", dtype=torch.int32)
+    zi = torch.zeros(B, device="cuda", dtype=torch.int32)
+    zf = torch.zeros(B, device="cuda")
+
+    def admission_pool():
+        from fp8tpu_torch.serve import PagedKVCache
+        paged = PagedKVCache.create(B * Tp // PAGE, PAGE, L, B, Tp // PAGE,
+                                    KV, D, "int8")
+        paged.page_table = torch.arange(B * Tp // PAGE, device="cuda",
+                                        dtype=torch.int32).reshape(B, -1)
+        return paged
+
+    pk, pp, pd = admission_pool(), admission_pool(), admission_pool()
+    fk, pk, _, _ = spec.prefill_scored_paged(params, pk, prompts_t, slots, zi,
+                                             lengths, None, zf, zi, zi.clone(),
+                                             scfg)
+    fp, pp, _, _ = with_plain_kernels(lambda: spec.prefill_scored_paged(
+        params, pp, prompts_t, slots, zi, lengths, None, zf, zi, zi.clone(),
+        scfg))
+    fd, pd, _, _ = prefill_batch_paged(params, pd, prompts_t, slots, lengths,
+                                       None, zf, None, None, zi, zi.clone(),
+                                       scfg)
+    dist_p = layer_distance(pk.pool, pk.sc, pp.pool, pp.sc)
+    dist_d = layer_distance(pk.pool, pk.sc, pd.pool, pd.sc)
+    same_p = float((pk.pool == pp.pool).float().mean())
+    same_d = float((pk.pool == pd.pool).float().mean())
+    firsts_ok = True
+    for b in range(B):
+        if int(fk[b]) == int(fd[b]):
+            continue
+        firsts_ok &= near_tie(full_logits(params, prompts_t[b], scfg)[-1])
+    print(f"spec (e) scored admission of {B} x {Tp} tokens: first tokens "
+          f"equal to prefill_batch_paged's {int((fk == fd).sum())} / {B} "
+          f"(the rest at near ties: {firsts_ok}), to the plain versions' "
+          f"{int((fk == fp).sum())} / {B}; pool bytes equal to the plain "
+          f"versions' {same_p:.4f}, by layer: {fmt_layers(dist_p)}; to the "
+          f"dense prefill's {same_d:.4f} (it attends to bf16 K/V, the "
+          f"scored pass to the quantized pool), by layer: "
+          f"{fmt_layers(dist_d)}")
+    if not firsts_ok:
+        problems.append("scored admission: first tokens part from the "
+                        "dense prefill's away from a near tie")
+    problems += layer_problems(dist_p, "scored admission vs plain")
+    # layer 0's k / v come from the same embedding rows through the same
+    # K3 launches on both; deeper layers attend to int8 vs bf16 K/V
+    problems += layer_problems(dist_d, "scored admission vs dense prefill",
+                               layers=1)
+    result["e"] = {"pool_bytes_equal_plain": same_p,
+                   "pool_by_layer_plain": dist_p,
+                   "pool_bytes_equal_dense": same_d,
+                   "pool_by_layer_dense": dist_d,
+                   "firsts_equal_dense": int((fk == fd).sum())}
+    del pk, pp, pd
+
+    # (f) one spec_rounds dispatch (4 rounds, self-draft) at 8 and 64 slots
+    # against a plain paged decode chunk of the same number of tokens.
+    timing = {}
+    for batch in (SERVE_SLOTS, BENCH_BATCH):
+        tp, tpos = spec_pool(cfg, batch, gen)
+        dp, dpos = spec_pool(cfg, batch, gen)
+        dp.pool.copy_(tp.pool)
+        dp.sc.copy_(tp.sc)
+        dp.page_table = tp.page_table.clone()
+        pend = torch.randint(1, cfg.vocab_size, (batch, 2), device="cuda",
+                             generator=gen, dtype=torch.int32)
+        pend_n = torch.ones(batch, device="cuda", dtype=torch.int32)
+        temp = torch.zeros(batch, device="cuda")
+
+        def dispatch():
+            return spec.spec_rounds(params, tp, params, dp, pend, pend_n,
+                                    tpos, dpos, None, temp, SPEC_K, SPEC_RPD,
+                                    scfg, scfg, any_sampled=False)
+
+        out = dispatch()
+        emitted = int((out[1] + 1).sum()) // batch     # tokens a slot
+        steps = emitted
+
+        def plain_chunk():
+            return decode_steps_paged(params, tp, pend[:, 0], tpos, None,
+                                      temp, steps, scfg, greedy_only=True)
+
+        walls = {"spec": [], "plain": []}
+        torch.cuda.synchronize()
+        for which in ("spec", "plain", "plain", "spec"):
+            t0 = time.perf_counter()
+            (dispatch if which == "spec" else plain_chunk)()
+            torch.cuda.synchronize()
+            walls[which].append((time.perf_counter() - t0) * 1e3)
+        profs = {}
+        for which, fn in (("spec", dispatch), ("plain", plain_chunk)):
+            qmatmul.reset_launches()
+            k4.reset_launches()
+            profs[which] = profile_decode_step(fn, min(walls[which]))
+        timing[batch] = {"tokens_a_slot": emitted,
+                         "acceptance": float(out[1].float().mean() / SPEC_K),
+                         "wall_ms": walls, "profile": profs}
+        for which in ("spec", "plain"):
+            pr = profs[which]
+            print(f"spec (f) {which}: {batch} slots, {emitted} tokens a slot "
+                  f"({'one dispatch of ' + str(SPEC_RPD) + ' self-draft rounds' if which == 'spec' else 'a paged decode chunk in kernel mode'}): "
+                  f"{min(walls[which]):.3f} ms wall clock, "
+                  f"{pr['device_ms']:.3f} ms of kernels in {pr['launches']} "
+                  f"launches, device-busy share {pr['busy_share']:.3f}")
+            for group, (ms, n) in pr["groups"].items():
+                print(f"    {ms:8.3f} ms {n:5d}x  {group}")
+        del tp, dp
+        torch.cuda.empty_cache()
+    result["f"] = timing
+    record["spec"] = result
+    if problems:
+        raise PhaseError("; ".join(problems))
+    return launches
+
+
+def time_spec(record, launches):
+    """The spec path's kernels at its own shapes, device time by CUDA-graph
+    replay beside the plain version, the bound and a PyTorch call: K3 at M
+    = 40 (the 8-slot verify pass, decode form) and M = 320 (64 slots, the
+    prefill route) on the gate projection; K4 at the draft's head shape (D
+    = 64, G = 2, 8 slots x 444 tokens, int8); K6 writing one row of the
+    one-slot target ring.  Returns the kernels line's entries."""
+    import torch
+    from fp8tpu_torch.kernels import inplace, qmatmul
+    from fp8tpu_torch.kernels import paged_attention as k4
+    from fp8tpu_torch.tools import device_ms
+
+    params = STATE["e4m3"]
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    w_stack, s = params["gate8"], params["gates"][0]
+    k, n = w_stack.shape[1:]
+    state = {"i": 0}
+
+    def rotate():
+        state["i"] = (state["i"] + 1) % w_stack.shape[0]
+        return w_stack[state["i"]]
+
+    entries, rows = [], {}
+    for m, name, key in ((SERVE_SLOTS * (SPEC_K + 1), "dequant_matmul",
+                          "dequant_matmul"),
+                         (BENCH_BATCH * (SPEC_K + 1), "dequant_matmul_prefill",
+                          "dequant_matmul_prefill")):
+        x = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
+        err = float((qmatmul.dequant_matmul(x, w_stack[0], s).float()
+                     - qmatmul.dequant_matmul_plain(x, w_stack[0], s).float()
+                     ).abs().max())
+        t_k = device_ms(lambda: qmatmul.dequant_matmul(x, rotate(), s))
+        t_p = cuda_ms(lambda: qmatmul.dequant_matmul_plain(x, rotate(), s),
+                      iters=4, warmup=1)
+        t_l = device_ms(lambda: torch.matmul(x, rotate().to(torch.bfloat16))
+                        * s)
+        t_bytes = (2.0 * m * k + k * n + 4.0 * n + 2.0 * m * n) \
+            / HBM_BYTES_PER_S * 1e3
+        t_ops = 2.0 * m * n * k / BF16_TC_FLOPS * 1e3
+        rows[m] = {"ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+                   "bound_ms": max(t_bytes, t_ops), "max_abs_err": err}
+        print(f"time spec k3 gate {k}x{n} M={m}: kernel {t_k:.4f} ms on the "
+              f"device, plain {t_p:.4f} ms, bound {max(t_bytes, t_ops):.4f} "
+              f"ms, (x @ w8.to(bf16)) * s {t_l:.4f} ms")
+        entries.append({
+            "name": f"{name} (speculation, M = {m})", "route": "cuda",
+            "source": "fp8tpu_torch/kernels/csrc/w_stream.cuh",
+            "replaces": "fp8tpu/kernels/qmatmul.py:87",
+            "launches": launches[key], "max_abs_err": err, "ms": t_k,
+            "plain_ms": t_p, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "library_ms": t_l})
+
+    dcfg = draft_serve_config()
+    KV, G, D = dcfg.n_kv_heads, dcfg.n_heads // dcfg.n_kv_heads, dcfg.head_dim
+    paged, lens = spec_pool(dcfg, SERVE_SLOTS, gen)
+    q = (torch.randn(SERVE_SLOTS, KV * G, D, device="cuda", generator=gen)
+         * 0.7).to(torch.bfloat16)
+    kw = dict(page_size=PAGE, kv_heads=KV)
+    args = (q, paged.pool, paged.sc, paged.page_table, lens)
+    layer = {"i": 0}
+
+    def kern():
+        layer["i"] = (layer["i"] + 1) % dcfg.n_layers
+        return k4.paged_decode_attention(*args, layer["i"], **kw)
+
+    got = k4.paged_decode_attention(*args, 1, **kw)
+    want = k4.paged_decode_attention_plain(*args, 1, **kw)
+    err = float((got[0] - want[0]).abs().max())
+    t_k = device_ms(kern)
+    t_p = cuda_ms(lambda: k4.paged_decode_attention_plain(*args, 1, **kw),
+                  iters=3, warmup=1)
+    Tt = SPEC_MP * PAGE
+    safe = paged.page_table.long()
+    mask = (torch.arange(Tt, device="cuda")[None] < lens[:, None]
+            )[:, None, :].repeat_interleave(KV, 0)
+    B = SERVE_SLOTS
+
+    def library():
+        kk = paged.pool[safe, 0, 1].to(torch.bfloat16).reshape(B, Tt, KV, D)
+        vv = paged.pool[safe, 1, 1].to(torch.bfloat16).reshape(B, Tt, KV, D)
+        ks = paged.sc[safe, 0, 1].reshape(B, Tt, KV).permute(0, 2, 1)
+        vs = paged.sc[safe, 1, 1].reshape(B, Tt, KV).permute(0, 2, 1)
+        sc_ = torch.bmm(q.reshape(B * KV, G, D),
+                        kk.permute(0, 2, 3, 1).reshape(B * KV, D, Tt),
+                        out_dtype=torch.float32) * ks.reshape(B * KV, 1, Tt)
+        sc_ = torch.where(mask, sc_, -1e30)
+        mm = sc_.amax(-1)
+        p = torch.exp(sc_ - mm[..., None])
+        pv = (p * vs.reshape(B * KV, 1, Tt)).to(torch.bfloat16)
+        return torch.bmm(pv, vv.permute(0, 2, 1, 3).reshape(B * KV, Tt, D),
+                         out_dtype=torch.float32), mm, p.sum(-1)
+
+    t_l = device_ms(library)
+    tokens = int(lens.sum())
+    nbytes = (tokens * KV * (2 * D + 2 * 4) + paged.page_table.numel() * 4
+              + lens.numel() * 4 + q.numel() * 2 + B * KV * G * (D + 2) * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * 2 * tokens * KV * G * D / F32_SIMT_FLOPS * 1e3
+    print(f"time spec k4 draft head shape (D = {D}, G = {G}, {KV} KV heads, "
+          f"{B} slots x {SPEC_POS} tokens, int8): kernel {t_k:.5f} ms on the "
+          f"device, plain {t_p:.4f} ms, bound {max(t_bytes, t_ops):.5f} ms, "
+          f"gather + upcast + torch.bmm {t_l:.5f} ms")
+    entries.append({
+        "name": "paged_decode_attention (speculation draft, D = 64, G = 2)",
+        "route": "cuda",
+        "source": "fp8tpu_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "fp8tpu/kernels/paged_attention.py:55",
+        "launches": launches["paged_decode_attention"], "max_abs_err": err,
+        "ms": t_k, "plain_ms": t_p, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "operations" if t_ops > t_bytes else "bytes",
+        "library_ms": t_l})
+    del paged
+
+    cfg = serve_config()
+    kv8 = torch.zeros((SERVE_SEQ, 2, cfg.n_layers, cfg.n_kv_heads,
+                       cfg.head_dim), dtype=torch.int8, device="cuda")
+    sc = torch.ones(kv8.shape[:-1], device="cuda")
+    slab8 = torch.randint(-127, 128, kv8.shape[1:], device="cuda",
+                          generator=gen, dtype=torch.int8)
+    slabs = torch.rand(sc.shape[1:], device="cuda", generator=gen)
+    kv8_p, sc_p = kv8.clone(), sc.clone()
+    head = torch.tensor(7, device="cuda", dtype=torch.int32)
+    head_p = head.clone()
+    ticket = torch.zeros(1, device="cuda", dtype=torch.int32)
+    inplace.ring_store(kv8, slab8, sc, slabs, head, SERVE_SEQ, ticket)
+    inplace.ring_store_plain(kv8_p, slab8, sc_p, slabs, head_p, SERVE_SEQ)
+    err = max(float((kv8.short() - kv8_p.short()).abs().max()),
+              float((sc - sc_p).abs().max()), abs(int(head) - int(head_p)))
+    t_k = device_ms(lambda: inplace.ring_store(kv8, slab8, sc, slabs, head,
+                                               SERVE_SEQ, ticket))
+    t_p = device_ms(lambda: inplace.ring_store_plain(kv8_p, slab8, sc_p,
+                                                     slabs, head_p,
+                                                     SERVE_SEQ))
+    nbytes = slab8.numel() + 4 * slabs.numel()
+    b = 2.0 * nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"time spec k6 one row of the one-slot ring ({nbytes} bytes): "
+          f"ring_store {t_k:.5f} ms on the device, plain {t_p:.5f} ms, bound "
+          f"{b:.6f} ms (bytes)")
+    if err:
+        raise PhaseError("ring_store at the one-slot ring differs from plain")
+    entries.append({
+        "name": "ring_store (speculation on the ring, one slot)",
+        "route": "cuda", "source": "fp8tpu_torch/kernels/csrc/inplace.cu",
+        "replaces": "fp8tpu/kernels/inplace.py:27",
+        "launches": launches["ring_store"], "max_abs_err": err, "ms": t_k,
+        "plain_ms": t_p, "bound_ms": b, "bound_by": "bytes",
+        "library_ms": None})
+    record.setdefault("time", {})["spec"] = {"k3": rows}
+    return entries
+
+
 # -- phase 5 ----------------------------------------------------------------
 
 def phase_time(record, batch: int, launches):
@@ -3553,7 +4320,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,k1,k2,k3,k4,k5,k6,t1,t2,main,train,"
-                            "serve,serve_paged,time")
+                            "serve,serve_paged,spec,time")
     ap.add_argument("--out", default="chip_smoke_out/chip_smoke.json")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
@@ -3576,7 +4343,7 @@ def main(argv=None) -> int:
           f"{torch.version.cuda}")
     record = {"card": card, "phases": {}}
     launches = serve_launches = paged_launches = train_launches = None
-    kernels, study_kernels = [], []
+    kernels, study_kernels, spec_kernels = [], [], []
     ok = True
     for phase in phases:
         t0 = time.perf_counter()
@@ -3609,6 +4376,8 @@ def main(argv=None) -> int:
                 serve_launches = phase_serve(record)
             elif phase == "serve_paged":
                 paged_launches = phase_serve_paged(record)
+            elif phase == "spec":
+                spec_kernels = time_spec(record, phase_spec(record))
             elif phase == "time":
                 if None in (launches, serve_launches, paged_launches,
                             train_launches):
@@ -3636,8 +4405,9 @@ def main(argv=None) -> int:
     if not ok:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    if kernels or study_kernels:
-        print(json.dumps({"kernels": kernels + study_kernels}))
+    if kernels or study_kernels or spec_kernels:
+        print(json.dumps({"kernels": kernels + study_kernels
+                          + spec_kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

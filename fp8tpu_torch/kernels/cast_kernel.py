@@ -21,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from fp8tpu_torch.numerics.cast import require_hash_stream
 from fp8tpu_torch.numerics.formats import RoundMode
 
 from . import _build
@@ -117,6 +118,8 @@ def cuda_qdq(x: torch.Tensor, fmt_name: str, mode: RoundMode = RoundMode.RNE,
     :func:`~fp8tpu_torch.numerics.cast.qdq_plain`.  Float32 result of
     ``x``'s shape."""
     global launches
+    if salt is not None and random_bits is None:
+        require_hash_stream("cast kernel")
     if not x.is_cuda:
         raise ValueError("cuda_qdq takes a CUDA tensor")
     if block_size < 0:

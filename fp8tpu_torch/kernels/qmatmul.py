@@ -54,7 +54,8 @@ import torch.nn.functional as F
 from fp8tpu_torch._device import full_fp32
 from fp8tpu_torch.numerics import prng
 from fp8tpu_torch.numerics.cast import (_flush, _mul, _recip, cast_array,
-                                        hw_qdq, hw_sr, sr_bits_from_salt)
+                                        hw_qdq, hw_sr, require_hash_stream,
+                                        sr_bits)
 from fp8tpu_torch.numerics.formats import FORMATS, RoundMode
 
 from . import _build
@@ -129,24 +130,34 @@ def _hw_xla_ok(fmt_x, fmt_w) -> bool:
             and FORMATS[fmt_w].mant_bits <= 7)
 
 
-def sr_salt(seed: int, tag: int, fmt: Optional[str],
-            mode: RoundMode) -> Optional[int]:
-    """The SR salt of a stochastic operand (tag 1 for x, 2 for w); None
-    when the operand is uncast or rounds to nearest."""
+def sr_key(seed: int, tag: int, fmt: Optional[str],
+           mode: RoundMode) -> Optional[prng.PRNGKey]:
+    """The SR key of a stochastic operand (tag 1 for x, 2 for w), as the
+    JAX package folds it; None when the operand is uncast or rounds to
+    nearest."""
     if fmt is None or mode != RoundMode.STOCHASTIC:
         return None
-    return prng.salt_of(prng.fold_in(prng.fold_in(prng.key(0), seed), tag))
+    return prng.fold_in(prng.fold_in(prng.key(0), seed), tag)
+
+
+def sr_salt(seed: int, tag: int, fmt: Optional[str],
+            mode: RoundMode) -> Optional[int]:
+    """The salt of :func:`sr_key`'s stream, which the kernel hashes; None
+    when the operand is uncast or rounds to nearest."""
+    k = sr_key(seed, tag, fmt, mode)
+    return None if k is None else prng.salt_of(k)
 
 
 def _hw_native(fmt, impl) -> bool:
     return impl == "hw" and fmt in HW_KERNEL_FMTS
 
 
-def cast_operand(v, fmt, mode, scale, impl, salt, descale=True):
+def cast_operand(v, fmt, mode, scale, impl, key, descale=True):
     """One operand through the plain casts: K2's cast (``descale=False``
-    gives the scaled grid values, see :func:`grid_operand`)."""
-    rb = None if salt is None else sr_bits_from_salt(
-        salt, v.numel(), v.device)[:v.numel()].reshape(v.shape)
+    gives the scaled grid values, see :func:`grid_operand`).  ``key`` is
+    the operand's SR key (:func:`sr_key`: the stream ``sr_bits`` draws
+    under ``SR_BITS_IMPL``) or None."""
+    rb = None if key is None else sr_bits(key, v.shape, v.device)
     if _hw_native(fmt, impl):
         if mode == RoundMode.STOCHASTIC:
             return hw_sr(v, fmt, scale, rb, descale)
@@ -154,12 +165,12 @@ def cast_operand(v, fmt, mode, scale, impl, salt, descale=True):
     return cast_array(v, scale, rb, fmt, mode, descale=descale)
 
 
-def grid_operand(v, fmt, mode, scale, impl, salt):
+def grid_operand(v, fmt, mode, scale, impl, key):
     """The plain version of K2's cast pre-pass: the operand's scaled grid
     values, the cast with its last descale left out (uncast: ``v``)."""
     v = v.to(torch.float32)
     return v if fmt is None else cast_operand(v, fmt, mode, scale, impl,
-                                              salt, descale=False)
+                                              key, descale=False)
 
 
 def descale_kind(fmt, impl) -> int:
@@ -227,10 +238,10 @@ def plain(x, w, fmt_x: Optional[str] = "e4m3",
     wq = w.to(torch.float32)
     if fmt_x is not None:
         xq = cast_operand(xq, fmt_x, mode_x, sx[0], impl,
-                          sr_salt(seed, 1, fmt_x, mode_x))
+                          sr_key(seed, 1, fmt_x, mode_x))
     if fmt_w is not None:
         wq = cast_operand(wq, fmt_w, mode_w, sw.reshape(1, -1), impl,
-                          sr_salt(seed, 2, fmt_w, mode_w))
+                          sr_key(seed, 2, fmt_w, mode_w))
     with full_fp32():
         return torch.matmul(xq, wq)
 
@@ -247,11 +258,11 @@ def _hw_grid_matmul(x, w, fmt_x, mode_x, fmt_w, mode_w, scale_x, scale_w,
 
     def grid(v, fmt, mode, scale, tag):
         v = v.to(device=x.device, dtype=torch.float32)
-        salt = sr_salt(seed, tag, fmt, mode)
+        key = sr_key(seed, tag, fmt, mode)
         if _hw_native(fmt, "hw"):
-            return cast_operand(v, fmt, mode, scale, "hw", salt,
+            return cast_operand(v, fmt, mode, scale, "hw", key,
                                 descale=False)
-        return _mul(cast_operand(v, fmt, mode, scale, "hw", salt), scale)
+        return _mul(cast_operand(v, fmt, mode, scale, "hw", key), scale)
 
     xg = grid(x, fmt_x, mode_x, sx[0], 1)
     wg = grid(w, fmt_w, mode_w, sw, 2)
@@ -306,6 +317,8 @@ def _prepass(src, rows, cols, ld, view, sr_index, planes, code, scale,
     ic)."""
     if rows > _MAX_ROWS:
         raise ValueError(f"K2 pre-pass: {rows} rows exceed the kernel's grid")
+    if salt is not None:
+        require_hash_stream("K2 cast pre-pass")
     out = torch.empty((planes, rows, ld), dtype=torch.bfloat16,
                       device=src.device)
     err = _fns()[0](src.data_ptr(), rows, cols, *view, *sr_index,

@@ -211,6 +211,40 @@ class BatchNorm(Module):
             + self.bias.reshape(shape)
 
 
+class LayerNorm(Module):
+    """Layer normalisation over the last dim with Flax's semantics and
+    parameter names (``scale``, ``bias``): statistics in f32 at least, the
+    variance taken as ``max(E[x^2] - E[x]^2, 0)`` (Flax's fast variance),
+    ``y = (x - mean) * (rsqrt(var + epsilon) * scale) + bias``, and the
+    result in ``dtype``, or else in the type of ``x`` and the parameters
+    together."""
+
+    def __init__(self, features: int, epsilon: float = 1e-6,
+                 use_bias: bool = True, use_scale: bool = True, dtype=None):
+        super().__init__()
+        self.epsilon, self.dtype = epsilon, dtype
+        self.scale = nn.Parameter(torch.ones(features)) if use_scale \
+            else None
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias \
+            else None
+
+    def forward(self, x):
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean,
+                          min=0.0)
+        mul = torch.rsqrt(var + self.epsilon)
+        dtype = x.dtype
+        if self.scale is not None:
+            mul = mul * self.scale
+            dtype = torch.promote_types(dtype, self.scale.dtype)
+        y = (xf - mean) * mul
+        if self.bias is not None:
+            y = y + self.bias
+            dtype = torch.promote_types(dtype, self.bias.dtype)
+        return y.to(self.dtype or dtype)
+
+
 def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Redraw every Dense and Conv weight of ``module`` from ``generator``
     (normal, std 1/sqrt(fan_in)), so random models are reproducible."""

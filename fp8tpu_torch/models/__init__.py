@@ -11,8 +11,11 @@ from .resnet import (
     ResNetConfig,
     resnet18,
     resnet50,
+    resnext50_32x4d,
     tiny_resnet,
+    tiny_resnext,
     variables_from_flax,
+    wide_resnet50_2,
 )
 
 from .transformer import (
@@ -32,5 +35,6 @@ __all__ = [
     "apply_rope", "decoder", "rope_freqs", "tiny_config",
     "MLP", "RESNET_EXEMPT", "RESNET_OUTPUT_FUSED", "BasicBlock",
     "Bottleneck", "ResNet", "ResNetConfig", "mlp", "resnet18", "resnet50",
-    "tiny_resnet", "variables_from_flax",
+    "resnext50_32x4d", "tiny_resnet", "tiny_resnext", "variables_from_flax",
+    "wide_resnet50_2",
 ]

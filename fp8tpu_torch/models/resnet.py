@@ -150,12 +150,40 @@ def resnet50(num_classes: int = 1000, device="cuda",
                   device, generator)
 
 
+def resnext50_32x4d(num_classes: int = 1000, device="cuda",
+                    generator: Optional[torch.Generator] = None,
+                    **kw) -> ResNet:
+    """Grouped-bottleneck ResNeXt: 32 groups x 4-wide."""
+    return _build(ResNetConfig(stage_sizes=(3, 4, 6, 3), bottleneck=True,
+                               groups=32, base_width=4,
+                               num_classes=num_classes, **kw),
+                  device, generator)
+
+
+def wide_resnet50_2(num_classes: int = 1000, device="cuda",
+                    generator: Optional[torch.Generator] = None,
+                    **kw) -> ResNet:
+    """2x-wide bottleneck ResNet."""
+    return _build(ResNetConfig(stage_sizes=(3, 4, 6, 3), bottleneck=True,
+                               base_width=128, num_classes=num_classes, **kw),
+                  device, generator)
+
+
 def tiny_resnet(num_classes: int = 10, device="cuda",
                 generator: Optional[torch.Generator] = None, **kw) -> ResNet:
     """CIFAR-scale model for tests and examples."""
     return _build(ResNetConfig(stage_sizes=(1, 1), width=16,
                                num_classes=num_classes, small_images=True,
                                **kw),
+                  device, generator)
+
+
+def tiny_resnext(num_classes: int = 10, device="cuda",
+                 generator: Optional[torch.Generator] = None) -> ResNet:
+    """CIFAR-scale grouped bottleneck (4 groups x 8-wide)."""
+    return _build(ResNetConfig(stage_sizes=(1, 1), width=16, bottleneck=True,
+                               groups=4, base_width=32,
+                               num_classes=num_classes, small_images=True),
                   device, generator)
 
 

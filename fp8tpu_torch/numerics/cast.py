@@ -20,12 +20,19 @@ launch K1 for tensors on a CUDA device.
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence
 
 import torch
 
 from .formats import FORMATS, FPFormat, RoundMode, parse_mode_string
-from .prng import PRNGKey, salt_of
+from .prng import PRNGKey, salt_of, threefry_bits32
+
+# SR dither source, from the same variable as the JAX package: "hash" (the
+# counter hash of :func:`sr_bits_from_salt`, which the kernels compute from
+# a salt) or "threefry" (``jax.random.bits``, drawn here and handed to the
+# kernels as explicit bits).  Read at every call.
+SR_BITS_IMPL = os.environ.get("FP8TPU_SR_BITS", "hash")
 
 _M32 = 0xFFFFFFFF
 _F32_MIN_NORMAL = 2.0 ** -126
@@ -87,15 +94,30 @@ def sr_bits_from_salt(salt: int, n: int, device=None) -> torch.Tensor:
     return h >> 16
 
 
+def require_hash_stream(what: str) -> None:
+    """Raise unless SR bits are the counter hash: ``what`` hashes them from
+    a salt in the kernel, which cannot give the threefry stream."""
+    if SR_BITS_IMPL != "hash":
+        raise NotImplementedError(
+            f"{what}: SR bits hashed in the kernel from a salt, but "
+            f"FP8TPU_SR_BITS={SR_BITS_IMPL!r} asks for another stream; "
+            "pass the bits (numerics.cast.sr_bits) instead")
+
+
 def sr_bits(key: PRNGKey, shape: Sequence[int], device=None) -> torch.Tensor:
     """Counter-based random bits for stochastic rounding, deterministic in
     (key, element index); bit-equal to the JAX package for the same key
-    data."""
+    data under either :data:`SR_BITS_IMPL` (under "threefry": the low 16
+    bits of ``jax.random.bits``' uint32 words, which is what its uint16
+    draw keeps)."""
     n = 1
     for s in shape:
         n *= int(s)
-    return sr_bits_from_salt(salt_of(key), n, device)[:n].reshape(
-        tuple(shape))
+    if SR_BITS_IMPL == "threefry":
+        flat = threefry_bits32(key, n, device) & 0xFFFF
+    else:
+        flat = sr_bits_from_salt(salt_of(key), n, device)[:n]
+    return flat.reshape(tuple(shape))
 
 
 # -- fp32 <-> fp16 bit patterns -----------------------------------------------
@@ -577,6 +599,10 @@ def qdq_plain(x: torch.Tensor, fmt_name: str, mode: RoundMode = RoundMode.RNE,
 
 
 def _qdq(x, fmt_name, mode, scale, daz, key, random_bits, block_size=0):
+    if (SR_BITS_IMPL == "threefry" and mode == RoundMode.STOCHASTIC
+            and random_bits is None and key is not None):
+        # no kernel hashes threefry: the bits are drawn here
+        random_bits = sr_bits(key, x.shape, x.device)
     salt = _salt_for(mode, key, random_bits)
     if x.is_cuda:
         from fp8tpu_torch.kernels.cast_kernel import cuda_qdq

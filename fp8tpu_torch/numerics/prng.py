@@ -11,6 +11,8 @@ from __future__ import annotations
 
 from typing import List, Tuple
 
+import torch
+
 PRNGKey = Tuple[int, int]
 
 _M32 = 0xFFFFFFFF
@@ -30,6 +32,28 @@ def _threefry2x32(k0: int, k1: int, x0: int, x1: int) -> PRNGKey:
         x0 = (x0 + ks[(i + 1) % 3]) & _M32
         x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
     return x0, x1
+
+
+def threefry_bits32(k: PRNGKey, n: int, device=None) -> torch.Tensor:
+    """``jax.random.bits(k, (n,), uint32)`` as int64 values: element ``i``
+    hashes the 64-bit counter ``i`` as the word pair ``(i >> 32, i mod
+    2^32)`` and xors the two output words (the partitionable layout,
+    trap 24).  Counters of a row-major shape are its flat indices, so a
+    draw of any shape is this stream reshaped; a uint16 draw keeps the
+    LOW 16 bits of each word."""
+    i = torch.arange(max(n, 1), dtype=torch.int64, device=device)
+    k0, k1 = k[0] & _M32, k[1] & _M32
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = ((i >> 32) + ks[0]) & _M32
+    x1 = ((i & _M32) + ks[1]) & _M32
+    for r5 in range(5):
+        for r in _ROT[r5 % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = ((x1 << r) | (x1 >> (32 - r))) & _M32
+            x1 = x1 ^ x0
+        x0 = (x0 + ks[(r5 + 1) % 3]) & _M32
+        x1 = (x1 + ks[(r5 + 2) % 3] + r5 + 1) & _M32
+    return (x0 ^ x1)[:n]
 
 
 def key(seed: int) -> PRNGKey:

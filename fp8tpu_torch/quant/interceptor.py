@@ -50,6 +50,10 @@ def classify_module(module) -> LayerKind:
         return LayerKind.DENSE
     if isinstance(module, linen.Conv):
         return LayerKind.CONV
+    if isinstance(module, linen.Embed):
+        return LayerKind.EMBED
+    if isinstance(module, linen.LayerNorm):
+        return LayerKind.LAYERNORM
     return LayerKind.OTHER
 
 

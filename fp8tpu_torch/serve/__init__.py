@@ -1,6 +1,7 @@
 """FP8 serving: fp8-weight decoder, quantized KV cache (ring or paged pool
-with a prefix cache), continuous batching.  Speculation is not ported yet:
-its names are exported and raise NotImplementedError."""
+with a prefix cache), continuous batching, draft-and-verify speculation
+(single-sequence on the ring, batched under continuous batching on the
+paged pool)."""
 
 from .engine import Request, ServingEngine  # noqa: F401
 from .server import EngineServer  # noqa: F401

@@ -34,11 +34,23 @@ into free slots while decode continues for the rest.
   and cached pages without a holder stay resident until the pool runs dry,
   then evict least recently used first.
 
-Not ported yet, each raising NotImplementedError: batched speculation
-(``draft_params=``) and compute-level prefix reuse
-(``prefix_compute_reuse=True``).  ``run(on_token=)`` streams, ``cancel``
-retires a request early, ``finished_logprobs`` / ``finished_meta`` carry
-per-request side information; the threaded front end is
+  ``prefix_compute_reuse=True`` also skips recomputing the cached prefix:
+  admissions score only the uncached suffix against the shared pages
+  (``speculative.prefill_scored_paged``; the suffix starts on a page
+  boundary), cold requests the whole prompt the same way.
+* **Batched speculation** (``draft_params=``, paged only; ignored on the
+  ring, as in the JAX package).  A draft model's pool holds one table row
+  per slot; admission prefills the draft too.  A dispatch chains
+  ``spec_rounds_per_dispatch`` rounds (``speculative.spec_rounds``): draft
+  ``k_spec`` tokens for every slot, verify them in one multi-token pass,
+  advance each slot by its accepted count, all on the device.  The window
+  reserves ``rounds * (k_spec + 1)`` positions for the last dispatch's
+  writes; ``spec_rounds`` / ``spec_drafted`` / ``spec_accepted`` count.
+
+``run(on_token=)`` streams, ``cancel`` retires a request early,
+``finished_logprobs`` / ``finished_meta`` carry per-request side
+information (speculation rounds and the admission's first token carry no
+logprob); the threaded front end is
 :class:`fp8tpu_torch.serve.EngineServer`.
 """
 
@@ -55,8 +67,8 @@ import torch
 from fp8tpu_torch._device import resolve_device
 
 from .kv_cache import PagedKVCache, RingKVCache
-from .model import (ServeConfig, _check_cfg, decode_chunk, decode_chunk_paged,
-                    prefill_batch, prefill_batch_paged)
+from .model import (ServeConfig, _check_cfg, _scatter_slots, decode_chunk,
+                    decode_chunk_paged, prefill_batch, prefill_batch_paged)
 
 
 @dataclasses.dataclass
@@ -133,16 +145,10 @@ class ServingEngine:
                  page_size: int = 64, n_pages: Optional[int] = None,
                  depth: int = 2, prefix_cache: bool = False,
                  prefix_compute_reuse: bool = False,
-                 draft_params: Optional[Dict] = None, device="cuda"):
-        if draft_params is not None:
-            raise NotImplementedError(
-                "batched speculation (draft_params=, serve/speculative.py) "
-                "is not ported yet; it comes with the speculation slice")
-        if prefix_compute_reuse:
-            raise NotImplementedError(
-                "prefix_compute_reuse=True needs prefill_scored_paged "
-                "(serve/speculative.py), which is not ported yet; "
-                "prefix_cache=True alone shares the pages")
+                 draft_params: Optional[Dict] = None,
+                 draft_cfg: Optional[ServeConfig] = None,
+                 k_spec: int = 4, spec_rounds_per_dispatch: int = 1,
+                 device="cuda"):
         _check_cfg(cfg, params)
         self.device = resolve_device(device)
         m = cfg.model
@@ -187,11 +193,45 @@ class ServingEngine:
             # admission counters: private pages allocated, shared pages
             # mapped, and the most slots that held one page at once
             self.page_stats = {"allocated": 0, "shared": 0, "max_ref": 0}
+            # Compute-level reuse: admissions score only the uncached
+            # suffix against the shared pages; cold requests take the same
+            # path with a cached length of 0.
+            self.prefix_reuse = prefix_cache and prefix_compute_reuse
+            self.prefix_tokens_reused = 0
         else:
-            self.prefix_cache = False
+            self.prefix_cache = self.prefix_reuse = False
             self.cache = RingKVCache.create(
                 m.n_layers, n_slots, self.max_seq, m.n_kv_heads, m.head_dim,
                 cfg.kv_fmt, device=self.device)
+        # Batched speculation (paged only): pages address by logical
+        # position, so each slot advances by its own accepted count.
+        self.spec = use_paged and draft_params is not None
+        if self.spec:
+            if draft_cfg is None:
+                raise ValueError("draft_params needs draft_cfg")
+            _check_cfg(draft_cfg, draft_params)
+            dm = draft_cfg.model
+            max_pages = -(-self.max_seq // page_size)
+            self.draft_params, self.draft_cfg = draft_params, draft_cfg
+            self.k_spec = max(1, k_spec)
+            # rounds chained per dispatch: the dispatch's host cost spread
+            # over R * (K + 1) potential tokens
+            self.spec_rpd = max(1, spec_rounds_per_dispatch)
+            # the draft pool statically owns one table row per slot
+            self.dcache = PagedKVCache.create(
+                n_slots * max_pages, page_size, dm.n_layers, n_slots,
+                max_pages, dm.n_kv_heads, dm.head_dim, draft_cfg.kv_fmt,
+                device=self.device)
+            self.dcache.page_table = torch.arange(
+                n_slots * max_pages, dtype=torch.int32,
+                device=self.device).reshape(n_slots, max_pages)
+            self._pend = torch.zeros((n_slots, 2), dtype=torch.int32,
+                                     device=self.device)
+            self._pend_n = torch.ones((n_slots,), dtype=torch.int32,
+                                      device=self.device)
+            self._dpos = torch.zeros((n_slots,), dtype=torch.int32,
+                                     device=self.device)
+            self.spec_rounds = self.spec_drafted = self.spec_accepted = 0
         self.slots: List[Optional[_SlotState]] = [None] * n_slots
         self.queue: List[Request] = []
         self._on_token = None
@@ -218,15 +258,26 @@ class ServingEngine:
         self._inflight: deque = deque()
 
     # -- public API ------------------------------------------------------
+    def _reserve(self) -> int:
+        """Positions the last speculation dispatch may write past the
+        budget: rounds * (k_spec + 1); 0 without speculation."""
+        return self.spec_rpd * (self.k_spec + 1) if self.spec else 0
+
     def submit(self, req: Request):
-        if req.max_new_tokens > self.max_seq - 2:
+        # top-k / top-p requests are served in spec mode too: the same
+        # per-slot filter applies to the target and the draft law
+        reserve = self._reserve()
+        if req.max_new_tokens > self.max_seq - 2 - reserve:
             # a larger budget would leave _trim_prompt with a non-positive
             # keep length (prompt[-0:] keeps EVERYTHING, breaking the
             # prompt + budget <= max_seq window invariant)
             raise ValueError(
                 f"request {req.uid}: max_new_tokens={req.max_new_tokens} "
-                f"does not fit max_seq={self.max_seq}; the engine can serve "
-                f"at most {self.max_seq - 2} new tokens per request")
+                f"does not fit max_seq={self.max_seq}"
+                + (f" with the rounds*(k_spec+1)={reserve} verify reserve"
+                   if reserve else "")
+                + f"; the engine can serve at most "
+                  f"{self.max_seq - 2 - reserve} new tokens per request")
         if self.use_paged:
             prompt = self._trim_prompt(req)
             need_tokens = min(len(prompt) + req.max_new_tokens + 1,
@@ -301,7 +352,8 @@ class ServingEngine:
 
     # -- scheduler -------------------------------------------------------
     def _trim_prompt(self, req: Request) -> List[int]:
-        keep = max(1, self.max_seq - req.max_new_tokens - 1)
+        # spec mode reserves the last dispatch's R * (K + 1) writes
+        keep = max(1, self.max_seq - req.max_new_tokens - 1 - self._reserve())
         prompt = req.prompt[-keep:]
         return prompt if prompt else [0]   # empty: decode from BOS-like 0
 
@@ -429,6 +481,8 @@ class ServingEngine:
         return temps, top_k, top_p
 
     def _dispatch(self) -> bool:
+        if self.spec:
+            return self._dispatch_spec()
         chunk = self._pick_chunk()
         if chunk == 0:
             return False
@@ -452,10 +506,40 @@ class ServingEngine:
         self._inflight.append((_Readback(toks, lps), chunk, gens))
         return True
 
+    def _dispatch_spec(self) -> bool:
+        if not self._dispatchable():
+            return False
+        from .speculative import spec_rounds
+
+        temps, top_k, top_p = self._sampling_arrays()
+        self._sync_table()
+        (drafted, a, bonus, self._pend, self._pend_n, self._pos_dev,
+         self._dpos, self.cache, self.dcache) = spec_rounds(
+            self.params, self.cache, self.draft_params, self.dcache,
+            self._pend, self._pend_n, self._pos_dev, self._dpos,
+            self.generator, temps, self.k_spec, self.spec_rpd, self.cfg,
+            self.draft_cfg,
+            any_sampled=any(s is not None and s.temperature > 0
+                            for s in self.slots),
+            filtering=top_k is not None or top_p is not None,
+            top_k=top_k, top_p=top_p)
+        gens = []
+        for i in range(self.n_slots):
+            if self.slots[i] is not None:
+                # conservative: a dispatch emits at most R * (K + 1) tokens
+                self._pending[i] += self._reserve()
+                gens.append(self._gen[i])
+            else:
+                gens.append(-1)
+        self._inflight.append(("spec", _Readback(drafted, a, bonus), gens))
+        return True
+
     def _process(self, entry):
         """Reconcile one chunk's results: consume tokens per slot up to
         budget/EOS, retire finished slots.  Tokens from a generation that
         no longer matches (slot refilled since dispatch) are dropped."""
+        if entry[0] == "spec":
+            return self._process_spec(entry)
         readback, chunk, gens = entry
         toks, lps = readback.get()                  # (B, chunk) each
         for i in range(self.n_slots):
@@ -474,6 +558,42 @@ class ServingEngine:
                 if (st.remaining <= 0 or st.pos >= self.max_seq - 1
                         or (st.eos_id is not None and tok == st.eos_id)):
                     self._retire(i)
+                    break
+
+    def _process_spec(self, entry):
+        """Reconcile one speculation dispatch (R chained rounds): each live
+        slot emits, a round, its accepted drafts and the bonus token (1 to
+        K + 1 tokens); a slot retiring mid-dispatch drops the remaining
+        rounds' tokens (plain decode's within-chunk EOS break)."""
+        _, readback, gens = entry
+        drafted, a, bonus = readback.get()          # (R, B, K), (R, B) x 2
+        R = drafted.shape[0]
+        self.spec_rounds += R
+        for i in range(self.n_slots):
+            st = self.slots[i]
+            if st is None or gens[i] < 0 or gens[i] != self._gen[i]:
+                continue
+            self._pending[i] -= self._reserve()
+            for r in range(R):
+                n_acc = int(a[r, i])
+                self.spec_drafted += self.k_spec
+                self.spec_accepted += n_acc
+                emitted = [int(t) for t in drafted[r, i, :n_acc]]
+                emitted.append(int(bonus[r, i]))
+                retired = False
+                for tok in emitted:
+                    st.tokens.append(tok)
+                    if self._on_token is not None:
+                        self._on_token(st.uid, tok)
+                    st.pos += 1
+                    st.remaining -= 1
+                    if (st.remaining <= 0 or st.pos >= self.max_seq - 1
+                            or (st.eos_id is not None
+                                and tok == st.eos_id)):
+                        self._retire(i)
+                        retired = True
+                        break
+                if retired:
                     break
 
     def _admit(self):
@@ -498,6 +618,11 @@ class ServingEngine:
                 psz = self.cache.page_size
                 need = -(-need_tokens // psz)
                 shared = self._shared_prefix_pages(prompt)[:need]
+                if self.prefix_reuse:
+                    # the scored suffix must start ON a page boundary with
+                    # at least one token left to score, so a fully covered
+                    # prompt gives its last page back
+                    shared = shared[:(len(prompt) - 1) // psz]
                 # Pin shared pages BEFORE allocating: _alloc_pages evicts
                 # refcount-0 cached pages, which must not include pages
                 # just selected for this very admission.
@@ -545,14 +670,18 @@ class ServingEngine:
             tps[j] = req.top_p
             wstarts[j] = cover
         self._sync_table()
-        args = (self.params, self.cache, self._to_dev(prompts, torch.int32),
-                self._to_dev(slots, torch.int32),
-                self._to_dev(lengths, torch.int32), self.generator,
-                self._to_dev(temps, torch.float32),
-                self._to_dev(tks, torch.int32),
+        prompts_d = self._to_dev(prompts, torch.int32)
+        slots_d = self._to_dev(slots, torch.int32)
+        lengths_d = self._to_dev(lengths, torch.int32)
+        temps_d = self._to_dev(temps, torch.float32)
+        args = (self.params, self.cache, prompts_d, slots_d, lengths_d,
+                self.generator, temps_d, self._to_dev(tks, torch.int32),
                 self._to_dev(tps, torch.float32),
                 self._tokens_dev, self._pos_dev, self.cfg)
-        if self.use_paged:
+        if self.prefix_reuse:
+            first = self._admit_scored(batch, n, sp, slots_d, temps_d, tks,
+                                       tps)
+        elif self.use_paged:
             first, self.cache, self._tokens_dev, self._pos_dev = \
                 prefill_batch_paged(
                     *args, write_starts=self._to_dev(wstarts, torch.int32)
@@ -560,6 +689,20 @@ class ServingEngine:
         else:
             first, self.cache, self._tokens_dev, self._pos_dev = \
                 prefill_batch(*args)
+        if self.spec:
+            # prefill the draft pool too, and seed each admitted slot's
+            # pending tokens with its first sampled token
+            zeros = torch.zeros((self.n_slots,), dtype=torch.int32,
+                                device=self.device)
+            _, self.dcache, _, self._dpos = prefill_batch_paged(
+                self.draft_params, self.dcache, prompts_d, slots_d,
+                lengths_d, self.generator, temps_d, None, None, zeros,
+                self._dpos, self.draft_cfg)
+            self._pend = torch.stack(
+                [_scatter_slots(self._pend[:, j], slots_d, first)
+                 for j in range(2)], dim=1)
+            self._pend_n = _scatter_slots(self._pend_n, slots_d,
+                                          torch.ones_like(first))
         firsts = first.cpu().numpy()            # ONE readback per batch
         if self.prefix_cache:
             for i, _, prompt, _ in batch:
@@ -580,3 +723,30 @@ class ServingEngine:
             if (self.slots[i].remaining <= 0
                     or (req.eos_id is not None and tok == req.eos_id)):
                 self._retire(i)
+
+    def _admit_scored(self, batch, n, sp, slots_d, temps_d, tks, tps):
+        """Scored-suffix admission: each request's uncached suffix (its
+        prompt past the pages it shares) scored against those pages in one
+        ``prefill_scored_paged`` call.  Returns the first tokens (n,)."""
+        from .speculative import prefill_scored_paged
+
+        ssp = min(_bucket(max(len(p) - cl for _, _, p, cl in batch)), sp)
+        suffix = np.zeros((n, ssp), np.int32)
+        clens = np.zeros((n,), np.int32)
+        slens = np.zeros((n,), np.int32)
+        for j, (_, _, prompt, cl) in enumerate(batch):
+            suffix[j, :len(prompt) - cl] = prompt[cl:]
+            clens[j] = cl
+            slens[j] = len(prompt) - cl
+            self.prefix_tokens_reused += cl
+        filt = any(t > 0 for t in tks[:len(batch)]) \
+            or any(p < 1.0 for p in tps[:len(batch)])
+        first, self.cache, self._tokens_dev, self._pos_dev = \
+            prefill_scored_paged(
+                self.params, self.cache, self._to_dev(suffix, torch.int32),
+                slots_d, self._to_dev(clens, torch.int32),
+                self._to_dev(slens, torch.int32), self.generator, temps_d,
+                self._tokens_dev, self._pos_dev, self.cfg,
+                top_k=self._to_dev(tks, torch.int32) if filt else None,
+                top_p=self._to_dev(tps, torch.float32) if filt else None)
+        return first

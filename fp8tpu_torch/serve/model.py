@@ -656,15 +656,12 @@ def _steps_impl(params: Dict, ring: RingKVCache, tokens: torch.Tensor,
         logits = _lm_head(params, h)
         nxt = sample_tokens(logits, generator, temperature, top_k, top_p,
                             greedy_only)
-        outs.append(logits if want_logits
+        outs.append((logits, nxt) if want_logits
                     else (nxt, _chosen_logprob(logits, nxt)))
         toks, pos = nxt, pos + 1
 
-    if want_logits:
-        stacked = torch.stack(outs)
-    else:
-        stacked = (torch.stack([o[0] for o in outs]),
-                   torch.stack([o[1] for o in outs]))
+    stacked = (torch.stack([o[0] for o in outs]),
+               torch.stack([o[1] for o in outs]))
     return stacked, ring, toks, pos
 
 
@@ -711,7 +708,7 @@ def decode_step(params: Dict, ring: RingKVCache, tokens: torch.Tensor,
     One step of :func:`decode_steps` (shared implementation)."""
     temperature = torch.zeros(tokens.shape, dtype=torch.float32,
                               device=tokens.device)
-    logits, ring, _, _ = _steps_impl(
+    (logits, _), ring, _, _ = _steps_impl(
         params, ring, tokens, positions, None, temperature, 1, cfg,
         want_logits=True, greedy_only=True)
     return logits[0], ring
@@ -1148,7 +1145,7 @@ def _steps_impl_paged(params: Dict, paged: PagedKVCache, tokens: torch.Tensor,
         logits = _lm_head(params, h)
         nxt = sample_tokens(logits, generator, temperature, top_k, top_p,
                             greedy_only)
-        outs.append(logits if want_logits
+        outs.append((logits, nxt) if want_logits
                     else (nxt, _chosen_logprob(logits, nxt)))
         toks, pos = nxt, pos + 1
 
@@ -1167,11 +1164,8 @@ def _steps_impl_paged(params: Dict, paged: PagedKVCache, tokens: torch.Tensor,
             blks[:, 1].permute(1, 2, 0, 3),
             positions.to(torch.int32), valid)
 
-    if want_logits:
-        stacked = torch.stack(outs)
-    else:
-        stacked = (torch.stack([o[0] for o in outs]),
-                   torch.stack([o[1] for o in outs]))
+    stacked = (torch.stack([o[0] for o in outs]),
+               torch.stack([o[1] for o in outs]))
     return stacked, paged, toks, pos
 
 
@@ -1214,7 +1208,7 @@ def decode_step_paged(params: Dict, paged: PagedKVCache,
     """One paged decode step; returns (logits (B, V) f32, pool)."""
     temperature = torch.zeros(tokens.shape, dtype=torch.float32,
                               device=tokens.device)
-    logits, paged, _, _ = _steps_impl_paged(
+    (logits, _), paged, _, _ = _steps_impl_paged(
         params, paged, tokens, positions, None, temperature, 1, cfg,
         want_logits=True, greedy_only=True)
     return logits[0], paged

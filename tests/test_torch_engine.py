@@ -160,9 +160,15 @@ def test_engine_long_prompt_is_trimmed_to_the_window():
 
 
 def test_engine_unported_modes_raise():
+    """Speculation lives on the paged path: the ring engine ignores
+    ``draft_params`` (as the JAX engine does); ring_flush > 1 still
+    raises."""
     _, _, tcfg, tp, scfg = _setup()
-    with pytest.raises(NotImplementedError, match="speculation"):
-        ServingEngine(tp, scfg, draft_params=tp, device="cpu")
+    eng = ServingEngine(tp, scfg, draft_params=tp, draft_cfg=scfg,
+                        device="cpu")
+    assert eng.spec is False
+    assert set(eng.run([Request(uid=0, prompt=[1, 2], max_new_tokens=3)])) \
+        == {0}
     with pytest.raises(NotImplementedError, match="ring_flush"):
         ServingEngine(tp, dataclasses.replace(scfg, ring_flush=4),
                       device="cpu")

@@ -149,10 +149,10 @@ def test_qdq_matmul_training_variants_match_plain(cuda, impl, fmt_x, mode_x,
     assert qmatmul.launches == before + 1
     want = qmatmul.plain(*args, impl=impl)
     xq = x if fmt_x is None else qmatmul.cast_operand(
-        x, fmt_x, mode_x, args[6], impl, qmatmul.sr_salt(9, 1, fmt_x, mode_x))
+        x, fmt_x, mode_x, args[6], impl, qmatmul.sr_key(9, 1, fmt_x, mode_x))
     wq = w if fmt_w is None else qmatmul.cast_operand(
         w, fmt_w, mode_w, args[7].reshape(1, -1), impl,
-        qmatmul.sr_salt(9, 2, fmt_w, mode_w))
+        qmatmul.sr_key(9, 2, fmt_w, mode_w))
     # within the summation-order tolerance of the exact product, as the
     # plain version is; a split K also against the unsplit kernel
     from chip_smoke import k2_ratio, k2_reference
@@ -171,7 +171,7 @@ def test_qdq_matmul_training_variants_match_plain(cuda, impl, fmt_x, mode_x,
                                 seed=9, impl=impl)
         want_x = qmatmul.cast_operand(
             x.cpu(), fmt_x, mode_x, sx, impl,
-            qmatmul.sr_salt(9, 1, fmt_x, mode_x)) + 0.0
+            qmatmul.sr_key(9, 1, fmt_x, mode_x)) + 0.0
         np.testing.assert_array_equal(_bits(xk), _bits(want_x))
 
 
@@ -578,6 +578,116 @@ def test_sampling_requests_on_the_card(cuda):
     assert runs[0] == runs[1]
     assert [len(runs[0][i]) for i in range(3)] == [6, 4, 5]
     assert all(0 <= t < 128 for v in runs[0].values() for t in v)
+
+
+# -- speculation ------------------------------------------------------------------
+
+def _spec_model(d_model=128, heads=4, kv=2, seed=0):
+    from fp8tpu_torch.serve import ServeConfig, random_serve_params
+    cfg = tiny_config(n_layers=2, d_model=d_model, n_heads=heads,
+                      n_kv_heads=kv, d_ff=2 * d_model, vocab_size=128,
+                      max_seq_len=64)
+    return (random_serve_params(cfg, "e4m3", seed=seed, device="cpu"),
+            ServeConfig(model=cfg, kv_fmt="int8", paged_decode_impl="kernel"))
+
+
+def _spec_pool(cfg, batch, seed, device):
+    from fp8tpu_torch.serve import PagedKVCache
+    g = torch.Generator().manual_seed(seed)
+    paged = PagedKVCache.create(batch * 4, 8, cfg.n_layers, batch, 4,
+                                cfg.n_kv_heads, cfg.head_dim, "int8",
+                                device=device)
+    paged.pool.copy_(torch.randint(-127, 128, paged.pool.shape, generator=g,
+                                   dtype=torch.int8))
+    paged.sc.copy_(torch.rand(paged.sc.shape, generator=g) * 0.02 + 0.004)
+    paged.page_table = torch.randperm(batch * 4, generator=g).to(
+        torch.int32).reshape(batch, 4).to(device)
+    return paged
+
+
+def test_score_tokens_paged_kernels_match_plain(cuda):
+    """The paged verify pass on the card (K3 at M = B * T) against the same
+    pass on the CPU: logits within the decode tolerance, the written pool
+    rows equal, the padding row's writes dropped."""
+    from fp8tpu_torch.serve import speculative as spec
+    host, scfg = _spec_model()
+    toks = torch.randint(1, 128, (3, 5), generator=torch.Generator(
+        ).manual_seed(1), dtype=torch.int32)
+    pos = torch.tensor([20, 9, 3], dtype=torch.int32)
+    valid = torch.tensor([5, 2, 5], dtype=torch.int32)
+    slots = torch.tensor([1, 0, 3], dtype=torch.int32)     # row 2: padding
+    want_l, want = spec.score_tokens_paged(
+        host, _spec_pool(scfg.model, 3, 2, "cpu"), toks, pos, scfg,
+        valid_t=valid, slots=slots)
+    before = qmatmul.dequant_launches
+    params = {k: v.to(cuda) for k, v in host.items()}
+    start = _spec_pool(scfg.model, 3, 2, "cpu").pool
+    got_l, got = spec.score_tokens_paged(
+        params, _spec_pool(scfg.model, 3, 2, cuda), toks.to(cuda),
+        pos.to(cuda), scfg, valid_t=valid.to(cuda), slots=slots.to(cuda))
+    assert qmatmul.dequant_launches - before == 7 * scfg.model.n_layers
+    err = (got_l.cpu() - want_l)[:2].abs().max() / want_l[:2].abs().max()
+    assert float(err) <= 5e-2
+    same = (got.pool.cpu() == want.pool).float().mean()
+    assert float(same) >= 0.99
+    # positions written: 5 of row 0 and 2 of row 1; the padding row's and
+    # the masked tokens' rows went to the scratch page
+    m = scfg.model
+    changed = (got.pool.cpu() != start).reshape(
+        12, 2, m.n_layers, 8, m.n_kv_heads, m.head_dim).any(5).any(4).any(
+        2).any(1)
+    assert int(changed.sum()) == 7
+
+
+def test_rollback_on_a_cuda_ring(cuda):
+    """rollback moves the CUDA ring's own head tensor, with no copy, and a
+    verify pass after it writes where the head says."""
+    from fp8tpu_torch.serve import RingKVCache
+    from fp8tpu_torch.serve import speculative as spec
+    host, scfg = _spec_model()
+    params = {k: v.to(cuda) for k, v in host.items()}
+    m = scfg.model
+    ring = RingKVCache.create(m.n_layers, 1, 32, m.n_kv_heads, m.head_dim,
+                              "int8")
+    head, ptr = ring.head, ring.head.data_ptr()
+    k6 = inplace.routes["ring_store"]
+    _, ring = spec.score_tokens(params, ring, torch.tensor(
+        [[3, 4, 5, 6]], device=cuda, dtype=torch.int32),
+        torch.tensor([0], device=cuda, dtype=torch.int32), scfg)
+    assert inplace.routes["ring_store"] - k6 == 4 and int(ring.head) == 4
+    assert spec.rollback(ring, 3) is ring
+    assert ring.head is head and head.data_ptr() == ptr and int(head) == 1
+    assert int(ring.ticket[0]) == 0
+    spec.rollback(ring, 2)
+    assert int(head) == 31                       # wraps
+
+
+def test_spec_rounds_on_the_card_match_cpu(cuda):
+    """Two greedy speculation rounds (a draft of D = 16, G = 2 through K4)
+    on the card against the same call on the CPU: accepted counts, drafted
+    and bonus tokens equal, or parted at a near tie of the CPU's
+    verify logits."""
+    from fp8tpu_torch.serve import speculative as spec
+    host, scfg = _spec_model()
+    dhost, dscfg = _spec_model(d_model=64, heads=4, kv=2, seed=1)
+    carry = (torch.tensor([[9, 9], [30, 12]], dtype=torch.int32),
+             torch.tensor([1, 2], dtype=torch.int32),
+             torch.tensor([12, 7], dtype=torch.int32),
+             torch.tensor([12, 6], dtype=torch.int32))
+    zeros = torch.zeros(2)
+    want = spec.spec_rounds(host, _spec_pool(scfg.model, 2, 3, "cpu"), dhost,
+                            _spec_pool(dscfg.model, 2, 4, "cpu"), *carry,
+                            None, zeros, 4, 2, scfg, dscfg, any_sampled=False)
+    k4 = paged_attention.launches
+    got = spec.spec_rounds(
+        {k: v.to(cuda) for k, v in host.items()},
+        _spec_pool(scfg.model, 2, 3, cuda),
+        {k: v.to(cuda) for k, v in dhost.items()},
+        _spec_pool(dscfg.model, 2, 4, cuda), *(c.to(cuda) for c in carry),
+        None, zeros.to(cuda), 4, 2, scfg, dscfg, any_sampled=False)
+    assert paged_attention.launches - k4 == 2 * 4 * dscfg.model.n_layers
+    same = [torch.equal(g.cpu(), w) for g, w in zip(got[:7], want[:7])]
+    assert all(same), same
 
 
 # -- the convert studies T1 and T2 ---------------------------------------------

@@ -60,10 +60,10 @@ def test_prepass_then_descale_is_the_cast(impl, fmt, mode, scale):
     are the plain cast bit for bit, NaN, inf, -0 and f32 subnormals
     included; and a 1-plane format's grid values are exact in bf16."""
     v = _values()
-    salt = qmatmul.sr_salt(5, 1, fmt, mode)
+    key = qmatmul.sr_key(5, 1, fmt, mode)
     s = torch.tensor(scale)
-    want = qmatmul.cast_operand(v, fmt, mode, s, impl, salt)
-    grid = qmatmul.grid_operand(v, fmt, mode, s, impl, salt)
+    want = qmatmul.cast_operand(v, fmt, mode, s, impl, key)
+    grid = qmatmul.grid_operand(v, fmt, mode, s, impl, key)
     got = qmatmul.descale(grid, qmatmul.descale_kind(fmt, impl), s)
     assert torch.equal(_bits(got), _bits(want))
     hi, mid, lo = qmatmul.split_bf16(grid)

@@ -292,3 +292,85 @@ def test_scale_layout_indexes_like_broadcast(sshape):
 def test_cuda_qdq_refuses_cpu_tensors():
     with pytest.raises(ValueError):
         cast_kernel.cuda_qdq(torch.zeros(4), "e4m3")
+
+
+# -- FP8TPU_SR_BITS=threefry -----------------------------------------------------
+
+@pytest.fixture
+def threefry(monkeypatch):
+    """Both packages switched to the threefry SR stream (each reads its
+    ``SR_BITS_IMPL`` at call time)."""
+    monkeypatch.setattr(jcast, "SR_BITS_IMPL", "threefry")
+    monkeypatch.setattr(tcast, "SR_BITS_IMPL", "threefry")
+
+
+@pytest.mark.parametrize("seed,fold,shape", [(7, 3, (4, 64)), (0, 0, (1,)),
+                                             (12345, 2, (3, 5, 7))])
+def test_threefry_sr_bits_bit_equal(threefry, seed, fold, shape):
+    """jax.random.bits(key, shape, uint16) keeps the LOW 16 bits of the
+    uint32 draw; the hash stream's ``h >> 16`` is the high half."""
+    j = np.asarray(jcast.sr_bits(jax.random.fold_in(jax.random.key(seed),
+                                                    fold), shape))
+    t = tcast.sr_bits(prng.fold_in(prng.key(seed), fold), shape)
+    assert t.shape == j.shape
+    np.testing.assert_array_equal(t.numpy(), j.astype(np.int64))
+    hashed = tcast.sr_bits_from_salt(
+        prng.salt_of(prng.fold_in(prng.key(seed), fold)), j.size)
+    assert (hashed.numpy().reshape(j.shape) != j).mean() > 0.99
+
+
+@pytest.mark.parametrize("fmt", ["e5m2", "e4m3", "bfloat16", "float16"])
+def test_threefry_sr_casts_bit_equal(threefry, fmt):
+    x = _inputs(1000, seed=4)
+    SR = tformats.RoundMode.STOCHASTIC
+    jk, tk = jax.random.key(11), prng.key(11)
+    j = np.asarray(jcast.qdq(jnp.asarray(x), fmt,
+                             jformats.RoundMode.STOCHASTIC, 3.7, key=jk))
+    t = tcast.qdq(torch.from_numpy(x), fmt, SR, 3.7, key=tk).numpy()
+    np.testing.assert_array_equal(t.view(np.uint32), j.view(np.uint32))
+    j = np.asarray(jcast.qdq_blocked(jnp.asarray(x), fmt,
+                                     jformats.RoundMode.STOCHASTIC, 128,
+                                     key=jk))
+    t = tcast.qdq_blocked(torch.from_numpy(x), fmt, SR, 128, key=tk).numpy()
+    np.testing.assert_array_equal(t.view(np.uint32), j.view(np.uint32))
+
+
+@pytest.mark.parametrize("impl", ["bitexact", "hw"])
+def test_threefry_sr_fake_quant_and_k2_casts_bit_equal(threefry, impl):
+    from fp8tpu.quant import TensorQuantConfig as JTQ
+    from fp8tpu.quant import fakequant as jfq
+    from fp8tpu_torch.kernels import qmatmul
+    from fp8tpu_torch.quant import TensorQuantConfig as TTQ
+    from fp8tpu_torch.quant import fakequant as tfq
+
+    x = np.random.default_rng(2).standard_normal((6, 40)).astype(np.float32)
+    kw = dict(dtype="e5m2", scheme="stochastic", scaling="per-tensor",
+              cast_impl=impl)
+    j = np.asarray(jfq.fake_quant(jnp.asarray(x), JTQ(**kw),
+                                  jax.random.key(5)))
+    t = tfq.fake_quant(torch.from_numpy(x), TTQ(**kw), prng.key(5)).numpy()
+    np.testing.assert_array_equal(t.view(np.uint32), j.view(np.uint32))
+    # K2's plain casts draw the stream of fold_in(fold_in(key(0), seed), tag)
+    SR = tformats.RoundMode.STOCHASTIC
+    got = qmatmul.cast_operand(torch.from_numpy(x), "e4m3", SR,
+                               torch.tensor(2.5), impl,
+                               qmatmul.sr_key(99, 2, "e4m3", SR)).numpy()
+    rb = jcast.sr_bits(jax.random.fold_in(jax.random.fold_in(
+        jax.random.key(0), 99), 2), x.shape)
+    if impl == "hw":
+        want = np.asarray(jcast.hw_sr(jnp.asarray(x), "e4m3",
+                                      jnp.float32(2.5), rb))
+    else:
+        want = np.asarray(jcast.cast_array(jnp.asarray(x), 2.5, rb, "e4m3",
+                                           jformats.RoundMode.STOCHASTIC))
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_threefry_kernels_never_hash(threefry):
+    """K1 and K2 hash SR bits from a salt in the kernel; under threefry a
+    salt must raise rather than give the hash stream."""
+    SR = tformats.RoundMode.STOCHASTIC
+    with pytest.raises(NotImplementedError, match="threefry"):
+        cast_kernel.cuda_qdq(torch.ones(4), "e4m3", SR, salt=5)
+    with pytest.raises(NotImplementedError, match="threefry"):
+        tcast.require_hash_stream("K2 cast pre-pass")

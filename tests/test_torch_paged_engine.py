@@ -267,12 +267,16 @@ def test_active_holder_blocks_eviction(setup):
 # -- what waits -----------------------------------------------------------------------
 
 def test_unported_paged_modes_raise_and_ring_ignores_the_flag(setup):
+    """Compute-level prefix reuse and batched speculation are ported: the
+    paged engine takes both options (tests/test_torch_spec_engine.py holds
+    their outputs); the ring engine ignores the prefix cache."""
     _, _, _, tp, scfg = setup
-    with pytest.raises(NotImplementedError, match="prefix_compute_reuse"):
-        ServingEngine(tp, scfg, use_paged=True, prefix_cache=True,
-                      prefix_compute_reuse=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="speculation"):
-        ServingEngine(tp, scfg, use_paged=True, draft_params=tp, device="cpu")
+    eng = ServingEngine(tp, scfg, use_paged=True, prefix_cache=True,
+                        prefix_compute_reuse=True, device="cpu")
+    assert eng.prefix_reuse and eng.spec is False
+    eng = ServingEngine(tp, scfg, use_paged=True, draft_params=tp,
+                        draft_cfg=scfg, device="cpu")
+    assert eng.spec and eng.dcache.n_slots == eng.n_slots
     eng = ServingEngine(tp, scfg, n_slots=2, max_seq=96, use_paged=False,
                         prefix_cache=True, device="cpu")
     assert eng.prefix_cache is False

@@ -475,12 +475,3 @@ def test_unknown_impl_and_cpu_device_rules(setup, monkeypatch):
                                         np.zeros((1, 1), np.int32), 2)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
-
-
-@pytest.mark.parametrize("name", ["score_tokens", "greedy_verify",
-                                  "sample_verify", "draft_chunk",
-                                  "speculative_decode", "spec_rounds",
-                                  "prefill_scored_paged", "SpecStats"])
-def test_speculation_names_raise_not_implemented(name):
-    with pytest.raises(NotImplementedError, match="speculation"):
-        getattr(tspec, name)()

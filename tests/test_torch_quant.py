@@ -255,7 +255,7 @@ def test_qdq_matmul_hw_and_sr_match_jax(impl, fmt_x, mode_x, fmt_w, mode_w):
     wq = w if fmt_w is None else np.asarray(
         qmatmul.cast_operand(torch.from_numpy(w), fmt_w, mode_w,
                              torch.from_numpy(sw).reshape(1, -1), impl,
-                             qmatmul.sr_salt(12345, 2, fmt_w, mode_w)))
+                             qmatmul.sr_key(12345, 2, fmt_w, mode_w)))
     assert np.all(np.abs(t - j) <= 2 * summation_bound(xq, wq))
 
 
@@ -625,3 +625,116 @@ def test_merge_stats_matches(mode):
         for k in j[p]:
             np.testing.assert_allclose(float(t[p][k]), float(j[p][k]),
                                        rtol=1e-7)
+
+
+# -- Embed / LayerNorm classification, LayerNorm, the C-model loader ----------------
+
+def test_classify_embed_and_layernorm():
+    """linen.Embed is EMBED and linen.LayerNorm LAYERNORM, as flax's are."""
+    from fp8tpu_torch import linen
+    assert jint.classify_module(fnn.Embed(8, 4)) == jpolicy.LayerKind.EMBED
+    assert tint.classify_module(linen.Embed(8, 4)).value \
+        == tpolicy.LayerKind.EMBED.value == "embed"
+    assert jint.classify_module(fnn.LayerNorm()) \
+        == jpolicy.LayerKind.LAYERNORM
+    assert tint.classify_module(linen.LayerNorm(4)).value == "layernorm"
+
+
+def test_decoder_ptq_casts_the_embedding_like_jax():
+    """A tiny Decoder through quantized_apply with the default e4m3 policy:
+    the embedding table is cast bit-equal to the JAX side, and the logits
+    agree within the PTQ limit.  The decoder runs in f32: in bf16, XLA's
+    fusion elides roundings the port keeps (ROADMAP trap 15), and the fp8
+    casts turn those bf16 steps into fp8 steps."""
+    from fp8tpu.models import Decoder as JDecoder
+    from fp8tpu.models.transformer import tiny_config as j_tiny_config
+    from fp8tpu_torch.models import Decoder, tiny_config
+    kw = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+              vocab_size=256, max_seq_len=32, dtype="float32")
+    jm, tm = JDecoder(j_tiny_config(**kw)), Decoder(tiny_config(**kw))
+    tokens = np.random.default_rng(3).integers(0, 256, (2, 12)).astype(
+        np.int32)
+    v = jm.init(jax.random.key(0), jnp.asarray(tokens))
+    tm.load_state_dict(variables_from_flax(jax.tree.map(np.asarray, v)))
+    jp, tp = jpolicy.get_policy("e4m3"), tpolicy.get_policy("e4m3")
+    jtable = jint.build_module_table(jm, v, jnp.asarray(tokens))
+    ttable = tint.build_module_table(tm)
+    assert jtable["embed"] == jpolicy.LayerKind.EMBED
+    assert ttable["embed"] == tpolicy.LayerKind.EMBED
+    jq = jint.quantize_params(v, jp, jtable)
+    tq = tint.quantize_params(tm.state_dict(), tp, ttable)
+    want = np.asarray(jq["params"]["embed"]["embedding"])
+    got = tq["embed.embedding"].numpy()
+    assert (got != v["params"]["embed"]["embedding"]).any()   # it was cast
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    j = np.asarray(jint.quantized_apply(jm, jp, v, jnp.asarray(tokens)))
+    with torch.no_grad():
+        t = tint.quantized_apply(tm, tp, torch.from_numpy(tokens)).numpy()
+    np.testing.assert_allclose(t, j, rtol=0, atol=2e-3 * np.abs(j).max())
+
+
+@pytest.mark.parametrize("use_scale,use_bias", [(True, True), (False, True),
+                                                (True, False)])
+def test_layernorm_bit_equal(use_scale, use_bias):
+    """Rows whose statistics are exact (values on a 1/8 grid, variance a
+    power of 4) leave only elementwise ops, which must give the same
+    bits; Gaussian rows differ by XLA's rsqrt and summation order only."""
+    from fp8tpu_torch import linen
+    rng = np.random.default_rng(5)
+    n, f = 6, 64
+    mean = rng.integers(-40, 40, (n, 1)) / 8.0
+    half = 2.0 ** rng.integers(-3, 3, (n, 1))
+    sign = np.where(rng.permuted(np.arange(f)[None].repeat(n, 0), axis=1)
+                    < f // 2, 1.0, -1.0)
+    exact = (mean + sign * half).astype(np.float32)
+    gauss = (rng.standard_normal((n, f)) * 3 + 0.5).astype(np.float32)
+    jm = fnn.LayerNorm(epsilon=0.0, use_scale=use_scale, use_bias=use_bias)
+    v = jm.init(jax.random.key(0), exact)
+    v = jax.tree.map(lambda a: a + rng.standard_normal(a.shape).astype(
+        np.float32), v)
+    tm = linen.LayerNorm(f, epsilon=0.0, use_scale=use_scale,
+                         use_bias=use_bias)
+    tm.load_state_dict(variables_from_flax(jax.tree.map(np.asarray, v)))
+    assert set(tm.state_dict()) == {k for k, on in (("scale", use_scale),
+                                                    ("bias", use_bias)) if on}
+    with torch.no_grad():
+        got = tm(torch.from_numpy(exact)).numpy()
+        got_g = tm(torch.from_numpy(gauss)).numpy()
+    want = np.asarray(jax.jit(jm.apply)(v, exact))
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    want_g = np.asarray(jax.jit(jm.apply)(v, gauss))
+    np.testing.assert_allclose(got_g, want_g, rtol=0,
+                               atol=8 * 2.0 ** -23 * np.abs(want_g).max())
+    assert fnn.LayerNorm().epsilon == linen.LayerNorm(4).epsilon == 1e-6
+    with torch.no_grad():
+        bf = linen.LayerNorm(f, dtype=torch.bfloat16)(
+            torch.from_numpy(gauss))
+    assert bf.dtype == torch.bfloat16
+
+
+def test_cmodel_gemm_and_conv_equal_jax_package():
+    """The copied C-model loader builds native/cmodel.cpp into the port's
+    own build directory and gives the JAX package's results bit for bit."""
+    from fp8tpu import cmodel as jcm
+    from fp8tpu_torch import cmodel as tcm
+    if not tcm.available():
+        pytest.skip("no C++ compiler for native/cmodel.cpp")
+    assert "fp8tpu_torch" in tcm.build() and tcm.build() != jcm._LIB
+    rng = np.random.default_rng(9)
+    a = rng.standard_normal((70, 300)).astype(np.float32)
+    b = rng.standard_normal((300, 45)).astype(np.float32)
+    for kw in (dict(), dict(round_bf16=False, kchunk=64),
+               dict(a_trans=True, b_trans=True, alpha=0.5)):
+        aa = a.T.copy() if kw.get("a_trans") else a
+        bb = b.T.copy() if kw.get("b_trans") else b
+        np.testing.assert_array_equal(
+            tcm.gemm(aa, bb, **kw).view(np.uint32),
+            jcm.gemm(aa, bb, **kw).view(np.uint32))
+    x = rng.standard_normal((2, 9, 9, 5)).astype(np.float32)
+    w = rng.standard_normal((3, 3, 5, 7)).astype(np.float32)
+    np.testing.assert_array_equal(tcm.conv2d_fp(x, w, 2, 1),
+                                  jcm.conv2d_fp(x, w, 2, 1))
+    g = rng.standard_normal((2, 5, 5, 7)).astype(np.float32)
+    for t, j in zip(tcm.conv2d_vjp(x, w, g, 2, 1),
+                    jcm.conv2d_vjp(x, w, g, 2, 1)):
+        np.testing.assert_array_equal(t, j)

@@ -19,7 +19,8 @@ from fp8tpu.models.resnet import RESNET_EXEMPT
 from fp8tpu.models.resnet import tiny_resnet as j_tiny_resnet
 from fp8tpu.quant.policy import get_policy as jget_policy
 from fp8tpu_torch.kernels import cast_kernel, qmatmul
-from fp8tpu_torch.models import tiny_resnet, variables_from_flax
+from fp8tpu_torch.models import (resnext50_32x4d, tiny_resnet, tiny_resnext,
+                                 variables_from_flax, wide_resnet50_2)
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -111,6 +112,89 @@ def test_ptq_logits_match(name, flow):
     assert np.corrcoef(got.ravel(), ref.ravel())[0, 1] > 0.95
 
 
+@functools.lru_cache(maxsize=None)
+def _resnext():
+    from fp8tpu.models.resnet import tiny_resnext as j_tiny_resnext
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((4, 16, 16, 3)).astype(np.float32)
+    jm = j_tiny_resnext()
+    v = jax.jit(jm.init)(jax.random.key(3), x)
+    _, upd = jax.jit(lambda v, x: jm.apply(v, x, train=True,
+                                           mutable=["batch_stats"]))(v, x)
+    v = {**v, "batch_stats": upd["batch_stats"]}
+    tm = tiny_resnext(device="cpu")
+    tm.load_state_dict(variables_from_flax(jax.tree.map(np.asarray, v)))
+    tm.eval()
+    return jm, v, tm, x, torch.from_numpy(x.transpose(0, 3, 1, 2).copy())
+
+
+@pytest.mark.parametrize("hw", [False, True], ids=["e4m3", "e4m3-hw-patched"])
+def test_tiny_resnext_ptq_logits_match(hw):
+    """The grouped bottleneck through PTQ: logits within the PTQ limit of
+    the JAX package's, quantized weights bit-equal; with hw patching the
+    grouped conv stays unpatched on both sides and the others take K2."""
+    from fp8tpu_torch.quant import hw_patch as thw
+    jm, v, tm, x, xt = _resnext()
+    grouped = [m for m in tm.modules()
+               if getattr(m, "feature_group_count", 1) > 1]
+    assert len(grouped) == 2          # one 3x3 conv in each stage's block
+    assert all(m.feature_group_count == 4 and not thw.conv_patchable(m)
+               for m in grouped)
+    jkw, tkw = {}, {}
+    if hw:
+        jkw["policy"] = jget_policy("e4m3").with_hw_patching()
+        tkw["policy"] = fp8tpu_torch.get_policy("e4m3").with_hw_patching()
+    jq = fp8tpu.quantize_model(jm, v, (x,), dtype="e4m3",
+                               list_exempt_layers=RESNET_EXEMPT, **jkw)
+    tq = fp8tpu_torch.quantize_model(tm, (xt,), dtype="e4m3",
+                                     list_exempt_layers=RESNET_EXEMPT,
+                                     device="cpu", **tkw)
+    want = np.asarray(jq(x))
+    k2 = qmatmul.launches
+    with torch.no_grad():
+        got = tq(xt).numpy()
+    assert qmatmul.launches == k2            # the CPU path launches nothing
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=PTQ_RTOL * np.abs(want).max())
+    jw = variables_from_flax(jax.tree.map(np.asarray, jq.variables))
+    for k, w in jw.items():
+        if k.endswith("weight") and "bn" not in k:
+            np.testing.assert_array_equal(
+                tq.variables[k].numpy().view(np.uint32),
+                w.numpy().view(np.uint32), err_msg=k)
+
+
+@pytest.mark.parametrize("name", ["resnext50_32x4d", "wide_resnet50_2"])
+def test_full_size_constructors_match_jax_shapes(name):
+    """The full-size ResNeXt and wide ResNet have the JAX package's
+    parameters, shape for shape (the JAX side traced, not materialised)."""
+    import fp8tpu.models.resnet as jres
+    jm = getattr(jres, name)()
+    shapes = jax.eval_shape(jm.init, jax.random.key(0),
+                            jax.ShapeDtypeStruct((1, 64, 64, 3), np.float32))
+    want = {}
+
+    def walk(tree, path):
+        for k, sub in tree.items():
+            if isinstance(sub, dict):
+                walk(sub, path + (k,))
+            else:
+                want[path + (k,)] = tuple(sub.shape)
+
+    walk(shapes["params"], ())
+    walk(shapes["batch_stats"], ())
+    tm = {"resnext50_32x4d": resnext50_32x4d,
+          "wide_resnet50_2": wide_resnet50_2}[name](device="cpu")
+    got = {k: tuple(t.shape) for k, t in tm.state_dict().items()}
+    assert len(got) == len(want)
+    assert sum(int(np.prod(s)) for s in got.values()) \
+        == sum(int(np.prod(s)) for s in want.values())
+    conv = [(k, s) for k, s in want.items() if k[-1] == "kernel"
+            and len(s) == 4]
+    for path, (kh, kw, cin, cout) in conv:
+        assert got[".".join(path[:-1] + ("weight",))] == (cout, cin, kh, kw)
+
+
 def test_cpu_path_launches_no_kernel():
     _, _, tm, _, xt = _models()
     k1, k2 = cast_kernel.launches, qmatmul.launches
@@ -164,7 +248,9 @@ def test_port_imports_nothing_of_jax_or_fp8tpu():
             "fp8tpu_torch/kernels/fp8_linear_study.py",
             "fp8tpu_torch/tools/__init__.py",
             "fp8tpu_torch/tools/kexp_convert.py",
-            "fp8tpu_torch/tools/bench_fp8_linear.py"} <= names
+            "fp8tpu_torch/tools/bench_fp8_linear.py",
+            "fp8tpu_torch/cmodel.py", "fp8tpu_torch/linen.py",
+            "fp8tpu_torch/models/resnet.py"} <= names
     for path in files:
         bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
         assert not bad, f"{path.relative_to(REPO)} imports {bad}"

@@ -1,6 +1,9 @@
 """The port's package surface against the JAX package's: every public
-name that ``fp8tpu``, ``fp8tpu.numerics`` and ``fp8tpu.kernels`` export,
-``fp8tpu_torch`` and its counterparts export too."""
+name that ``fp8tpu``, ``fp8tpu.numerics``, ``fp8tpu.kernels``,
+``fp8tpu.quant``, ``fp8tpu.training``, ``fp8tpu.models`` and
+``fp8tpu.serve`` export, ``fp8tpu_torch`` and its counterparts export too,
+except the names of modules still to be ported, which are listed here and
+must be exactly the missing ones."""
 
 import types
 
@@ -8,10 +11,18 @@ import pytest
 
 import fp8tpu
 import fp8tpu.kernels
+import fp8tpu.models
 import fp8tpu.numerics
+import fp8tpu.quant
+import fp8tpu.serve
+import fp8tpu.training
 import fp8tpu_torch
 import fp8tpu_torch.kernels
+import fp8tpu_torch.models
 import fp8tpu_torch.numerics
+import fp8tpu_torch.quant
+import fp8tpu_torch.serve
+import fp8tpu_torch.training
 
 # JAX names that the port exports under another name, and why.
 # ``pallas_qdq(x, fmt, mode, scale, daz, seed, block_size, interpret)``
@@ -20,6 +31,31 @@ import fp8tpu_torch.numerics
 # and raises on a CPU tensor, so a ``pallas_qdq`` alias would accept the
 # JAX call and mean something else.  It is exported as ``cuda_qdq``.
 RENAMED = {"pallas_qdq": "cuda_qdq"}
+
+# Names of modules not ported yet (ROADMAP §1): each slice that ports one
+# removes its names here, and the test fails while this set and the missing
+# names differ in either direction.
+NOT_YET_PORTED = {
+    # §1 item 3, MoE serving
+    "models": {"MoEMLP", "moe_aux_loss"},
+    # §1 item 6, training/opt8.py
+    "training": {"adamw_8bit", "scale_by_adam_8bit", "state_bytes"},
+    # §1 item 10, slice 4: quant/awq.py, models/bert.py, models/vision.py
+    "quant": {"awq_calibrate_decoder", "awq_equalize", "collect_awq_stats"},
+}
+NOT_YET_PORTED["models"] |= {
+    "BERT_OUTPUT_FUSED", "BERT_QA_EXEMPT", "BertConfig", "BertEncoder",
+    "BertForQA", "bert_base_config", "bert_large_config", "tiny_bert",
+    "DENSENET_EXEMPT", "DenseNet", "DenseNetConfig", "INCEPTION_EXEMPT",
+    "Inception", "InceptionConfig", "MBCONV_EXEMPT", "MBConvConfig",
+    "MBConvNet", "MOBILENET_EXEMPT", "MobileNet", "MobileNetConfig",
+    "SHUFFLENET_EXEMPT", "SQUEEZENET_EXEMPT", "ShuffleNet",
+    "ShuffleNetConfig", "SqueezeNet", "SqueezeNetConfig", "VGG", "VGGConfig",
+    "VGG_EXEMPT", "VIT_EXEMPT", "ViT", "ViTConfig", "densenet",
+    "efficientnet_b0", "inception", "mobilenet", "mobilenet_v2",
+    "mobilenet_v3", "shufflenet", "squeezenet", "tiny_densenet",
+    "tiny_inception", "tiny_mbconv", "tiny_mobilenet", "tiny_shufflenet",
+    "tiny_squeezenet", "tiny_vgg", "tiny_vit", "vgg11", "vit_b16"}
 
 
 def public_names(module) -> set:
@@ -34,12 +70,20 @@ def public_names(module) -> set:
     (fp8tpu, fp8tpu_torch),
     (fp8tpu.numerics, fp8tpu_torch.numerics),
     (fp8tpu.kernels, fp8tpu_torch.kernels),
-], ids=["package", "numerics", "kernels"])
+    (fp8tpu.quant, fp8tpu_torch.quant),
+    (fp8tpu.training, fp8tpu_torch.training),
+    (fp8tpu.models, fp8tpu_torch.models),
+    (fp8tpu.serve, fp8tpu_torch.serve),
+], ids=["package", "numerics", "kernels", "quant", "training", "models",
+        "serve"])
 def test_port_exports_the_jax_names(jax_mod, torch_mod):
+    later = NOT_YET_PORTED.get(jax_mod.__name__.rpartition(".")[2], set())
     want = {RENAMED.get(n, n) for n in public_names(jax_mod)}
-    missing = sorted(want - public_names(torch_mod))
-    assert not missing, f"{torch_mod.__name__} lacks {missing}"
-    for name in want:
+    missing = want - public_names(torch_mod)
+    assert missing == later, (
+        f"{torch_mod.__name__} lacks {sorted(missing - later)}; listed as "
+        f"not yet ported but exported: {sorted(later - missing)}")
+    for name in want - later:
         assert getattr(torch_mod, name) is not None
 
 

@@ -2,7 +2,8 @@
 """Drive the fp8tpu_torch port on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py [--phases build,k1,k2,k3,k4,k5,k6,t1,t2,main,
-                                    train,serve,serve_paged,spec,time]
+                                    train,serve,serve_paged,spec,moe,flush,
+                                    time]
     python3 chip_smoke.py --phases build,k2_probe   # not in the default run
 
 Phases, each printing its own lines; any failure exits non-zero:
@@ -157,7 +158,31 @@ Phases, each printing its own lines; any failure exits non-zero:
           decode chunk of as many tokens: wall clock, kernels, busy share;
           then K3 at M = 40 and 320, K4 at the draft's head shape and K6 on
           the one-slot ring: kernel, plain, bound, PyTorch call.
-9. time   each kernel at its main path's shapes: kernel, plain version,
+9. moe    MoE serving at the JAX package's MoE config (vocabulary 32768,
+          d_model 2048, 12 layers, 16 / 8 heads of 128, d_ff 5504, 8
+          experts, top-2; random e4m3 weights, each expert its own draw,
+          int8 KV; nothing cut): (a) every K3 launch of one MoE FFN at M =
+          8, 64 and 2048 against plain within K3's bounds; (b) 4 decode
+          steps on the ring, the paged pool in "kernel" mode and in
+          "ringview" against the plain kernels (logits, the written cache
+          bytes, routing flips only at near ties); (c) the same on int4
+          experts (K5, grouped scales) on the ring; (d) 16 requests
+          through an EngineServer on 8 slots, every token teacher-forced
+          inside the margin band of the plain kernels' run; (e) launches:
+          K3 12 x (4 + 16) a step, K4 12 a paged step, K6 1 a ring step;
+          (f) one timed batch-64 decode step beside the dense serve
+          step and the byte bound; then K3 (expert up, M = 8 and 2048),
+          K5, K4 at G = 2 and K6 on the MoE ring: kernel, plain, bound,
+          PyTorch call.
+10. flush batched ring writes (ring_flush = W) at the serve config: K6's
+          W-row store against ring_store_plain(rows=W) bit for bit (W 2, 8,
+          16; aligned and wrapping starts; guard bytes around the ring
+          untouched); a 32-step chunk at batch 64 with ring_flush = 8 (4
+          ring_store launches) against the plain kernels and against
+          ring_flush = 0 (logits before a slot parts, parting only at near
+          ties, the written ring rows); the chunk's time against
+          ring_flush = 0; the W-row store's own time.
+11. time   each kernel at its main path's shapes: kernel, plain version,
           bound, and a PyTorch yardstick where one exists; K1 bit-exact
           at the largest residual_add operand (device time by CUDA-graph
           replay, and the eager call event-timed) and summed over the 32
@@ -2545,7 +2570,7 @@ def profile_decode_step(step, step_ms: float, steps: int = 1):
         low = e.name.lower()
         if "w_gemm" in e.name or "ws::stream_kernel" in e.name:
             kind = "K3/K5 weight GEMM (hand-written)"
-        elif "dyn_store_kernel" in e.name:
+        elif "ring_store_kernel" in e.name:
             kind = "K6 ring store (hand-written)"
         elif "paged_attention_kernel" in e.name:
             kind = "K4 paged attention (hand-written)"
@@ -2907,19 +2932,20 @@ def clone_pool(paged):
 
 
 def with_plain_kernels(fn):
-    """``fn()`` with K3, K4 and K6 replaced by their plain versions."""
-    from fp8tpu_torch.kernels import inplace, qmatmul
+    """``fn()`` with K3, K4, K5 and K6 replaced by their plain versions."""
+    from fp8tpu_torch.kernels import inplace, int4_matmul, qmatmul
     from fp8tpu_torch.kernels import paged_attention as k4
     orig = (qmatmul.dequant_matmul, k4.paged_decode_attention,
-            inplace.ring_store)
+            inplace.ring_store, int4_matmul.int4_matmul)
     qmatmul.dequant_matmul = qmatmul.dequant_matmul_plain
     k4.paged_decode_attention = k4.paged_decode_attention_plain
     inplace.ring_store = inplace.ring_store_plain
+    int4_matmul.int4_matmul = int4_matmul.int4_matmul_plain
     try:
         return fn()
     finally:
         (qmatmul.dequant_matmul, k4.paged_decode_attention,
-         inplace.ring_store) = orig
+         inplace.ring_store, int4_matmul.int4_matmul) = orig
 
 
 SPEC_LAYER_EQUAL = 0.25        # equal payload bytes in every layer (below)
@@ -3608,6 +3634,1015 @@ def time_spec(record, launches):
     return entries
 
 
+# -- phase moe -------------------------------------------------------------------
+
+MOE_MS = (8, 64, PREFILL_ROWS)     # rows of the expert launches held one by one
+MOE_STEPS = 4                      # decode steps held against plain
+MOE_PROFILE_STEPS = 8              # steps of the timed batch-64 chunk
+
+
+def moe_config():
+    """The JAX package's MoE decode config (tools/bench_extras.py:270-275):
+    vocabulary 32768, d_model 2048, 12 layers, 16 heads / 8 KV heads of
+    128, d_ff 5504, 8 experts, top-2, max_seq 1024; nothing is cut (about
+    2.45 GB of e4m3 weights: 2.17 GB of experts)."""
+    from fp8tpu_torch.models import DecoderConfig
+    return DecoderConfig(vocab_size=32768, d_model=2048, n_layers=12,
+                         n_heads=16, n_kv_heads=8, d_ff=5504,
+                         max_seq_len=1024, n_experts=8, moe_top_k=2)
+
+
+class _Recording:
+    """Keep the arguments and the result of every call of ``module.name``
+    while the context is open."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def shim(*a, **kw):
+            out = self.orig(*a, **kw)
+            self.calls.append((a, kw, out))
+            return out
+
+        setattr(self.module, self.name, shim)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+class _Routing:
+    """Record the top-k experts every MoE FFN call picks for each of its
+    tokens (and the router probabilities), while the context is open: the
+    kernel and plain runs of one decode step are compared call by call."""
+
+    def __init__(self):
+        from fp8tpu_torch.serve import model as smodel
+        self.smodel, self.calls = smodel, []
+
+    def __enter__(self):
+        import torch
+        self.orig = self.smodel._moe_ffn
+
+        def shim(x, xs, mcfg, linear):
+            xt = x.reshape(-1, x.shape[-1])
+            probs = torch.softmax(self.smodel._dot_f32(
+                xt.to(torch.float32), xs["router"]), dim=-1)
+            top = torch.sort(probs, dim=-1, descending=True, stable=True)
+            self.calls.append((top.indices[:, :mcfg.moe_top_k]
+                               .sort(-1).values, top.values))
+            return self.orig(x, xs, mcfg, linear)
+
+        self.smodel._moe_ffn = shim
+        return self
+
+    def __exit__(self, *exc):
+        self.smodel._moe_ffn = self.orig
+
+
+def routing_flips(got, want, k):
+    """Tokens whose expert choice differs between two runs of the same
+    calls (one call a layer): {token: (layer, near tie)}, the first one a
+    token; a near tie is a choice whose k-th and (k+1)-th probabilities
+    (of the reference run) lie within SERVE_LOGIT_TOL of the k-th."""
+    flips = {}
+    for layer, ((gi, _), (wi, wp)) in enumerate(zip(got.calls, want.calls)):
+        for t in (gi != wi).any(-1).nonzero().flatten().tolist():
+            if t not in flips:
+                gap = float(wp[t, k - 1] - wp[t, k])
+                flips[t] = (layer,
+                            gap <= SERVE_LOGIT_TOL * float(wp[t, k - 1]))
+    return flips
+
+
+def step_rows(cache, pos0, steps, kv_heads, live, h0=None):
+    """The head vectors a run of ``steps`` decode steps wrote, for the
+    (step, slot) pairs ``live`` (steps, B) marks: payloads (R, 2, L, KV, D)
+    and scales (R, 2, L, KV), the layout ``layer_distance`` reads.  Step i
+    of slot b wrote position pos0[b] + i: ring row (h0 + i) mod S of a
+    ring, the slot's mapped page of a pool."""
+    import torch
+    B = pos0.shape[0]
+    dev = pos0.device
+    i = torch.arange(steps, device=dev)[:, None]
+    kv = torch.arange(kv_heads, device=dev)
+    if h0 is not None:                          # a ring
+        rows = ((h0 + i) % cache.kv8.shape[0])[..., None]     # (steps, 1, 1)
+        cols = (torch.arange(B, device=dev)[:, None] * kv_heads + kv)[None]
+        pay, sc = cache.kv8[rows, :, :, cols], cache.sc[rows, :, :, cols]
+    else:                                       # a paged pool
+        p = pos0.long()[None] + i                               # (steps, B)
+        page = cache.page_table.long()[torch.arange(B, device=dev)[None],
+                                       p // cache.page_size][..., None]
+        rows = (p % cache.page_size)[..., None] * kv_heads + kv
+        pay, sc = cache.pool[page, :, :, rows], cache.sc[page, :, :, rows]
+    # (steps, B, KV, 2, L, ...) -> the live pairs, (R, 2, L, KV, ...)
+    return pay[live].permute(0, 2, 3, 1, 4), sc[live].permute(0, 2, 3, 1)
+
+
+def cache_checks(what, a, b, pos0, steps, kv_heads, live, h0=None,
+                 whole_gate=True):
+    """The gates on the caches of a kernel run ``a`` and a reference run
+    ``b``: the rows the compared steps wrote, layer by layer
+    (``layer_problems``), over the (step, slot) pairs ``live``; and, with
+    ``whole_gate``, payload bytes of the whole cache at least
+    SERVE_RING_EQUAL equal (as serve (b) holds 4 steps; over a 32-step
+    chunk the deep layers' bf16 steps alone take it below that, see
+    phase_flush).  Returns (whole-cache share, per-layer distances,
+    problems)."""
+    pa, pb = (a.kv8, b.kv8) if h0 is not None else (a.pool, b.pool)
+    whole = float((pa == pb).float().mean())
+    ra, sa = step_rows(a, pos0, steps, kv_heads, live, h0)
+    rb, sb = step_rows(b, pos0, steps, kv_heads, live, h0)
+    dist = layer_distance(ra, sa, rb, sb)
+    problems = layer_problems(dist, what)
+    if whole_gate and whole < SERVE_RING_EQUAL:
+        problems.append(f"{what}: cache payload bytes equal {whole}")
+    return whole, dist, problems
+
+
+def replay_in_band(params, scfg, prompt, tokens, steps):
+    """The steps of ``tokens`` (emitted after ``prompt``) whose token lies
+    outside the margin band of a teacher-forced replay of the engine's own
+    path: a prefill, then one decode step a token on a one-slot ring.  An
+    MoE token off the dense forward's band (``margin_agree``) is held to
+    this: a routing choice at a near tie can fall one way in the engine's
+    decode path and the other in the dense forward, and then moves the
+    logits past the band; the replay takes the engine's path."""
+    import torch
+    from fp8tpu_torch.serve import RingKVCache, decode_step, prefill
+    cfg = scfg.model
+    ring = RingKVCache.create(cfg.n_layers, 1, SERVE_SEQ, cfg.n_kv_heads,
+                              cfg.head_dim, scfg.kv_fmt)
+    n = len(prompt)
+    pad = torch.tensor(prompt + [0] * (64 - n % 64), device="cuda",
+                       dtype=torch.int32)
+    logits, ring = prefill(params, ring, pad, 0, n, scfg)
+    off = []
+    for j in range(max(steps) + 1):
+        if j:
+            lg, ring = decode_step(params, ring, torch.tensor(
+                [tokens[j - 1]], device="cuda", dtype=torch.int32),
+                torch.tensor([n + j - 1], device="cuda", dtype=torch.int32),
+                scfg)
+            logits = lg[0]
+        if j in steps:
+            lg = logits.float()
+            band = 2 * SERVE_LOGIT_TOL * float(lg.abs().max())
+            if float(lg.max() - lg[tokens[j]]) > band:
+                off.append(j)
+    return off
+
+
+def moe_launch_cases(params, cfg, scfg, int4, gen, rows):
+    """Every K3 (K5 for int4) launch of one serving MoE FFN at M in MOE_MS
+    against its plain version on its own operands, within K3's bounds
+    (gemm_tolerance, and stream_reference over the loop's promoted chunks,
+    K = 5504 ending in a partial chunk); returns launches by M."""
+    import torch
+    from fp8tpu_torch.kernels import int4_matmul as k5
+    from fp8tpu_torch.kernels import qmatmul
+    from fp8tpu_torch.serve import model as smodel
+    sms = qmatmul.sm_count(0)
+    xs = smodel._layer_xs(params, 0)
+    linear = smodel._make_linear(scfg)
+    counts = {}
+    module, name = ((k5, "int4_matmul") if int4
+                    else (qmatmul, "dequant_matmul"))
+    for m in MOE_MS:
+        x = torch.randn(m, cfg.d_model, device="cuda", generator=gen
+                        ).to(torch.bfloat16)
+        with _Recording(module, name) as rec:
+            smodel._moe_ffn(x, xs, cfg, linear)
+        counts[m] = len(rec.calls)
+        for i, (a, kw, got) in enumerate(rec.calls):
+            if int4:
+                xx, wp, s, group, out_dtype = a
+                k, n = 2 * wp.shape[0], wp.shape[1]
+                want = k5.int4_matmul_plain(xx, wp, s, group, out_dtype)
+                lo, hi = k5.unpack_int4(wp)
+                wq = torch.stack([lo, hi], 1).reshape(k, n).to(torch.bfloat16)
+                wq = wq * s.to(torch.bfloat16).repeat_interleave(group, 0)
+                col = torch.ones(1, n, device="cuda")
+                plan = qmatmul.weight_gemm_plan(m, n, k, sms, "int4", xx, wp,
+                                                s, group=group)
+            else:
+                xx, w8, s, out_dtype = a
+                k, n = w8.shape
+                want = qmatmul.dequant_matmul_plain(xx, w8, s, out_dtype)
+                wq, col = w8.float(), s.reshape(1, -1)
+                plan = qmatmul.weight_gemm_plan(m, n, k, sms, "w8", xx, w8)
+            tol = gemm_tolerance(xx, wq.float().abs(), col, want, out_dtype)
+            ref = None if plan.route == "general" else stream_reference(
+                xx, wq, col, plan.kper, out_dtype)
+            _gemm_case(rows, f"moe {'k5' if int4 else 'k3'} expert "
+                       f"{i // 2} {'down' if i % 2 else 'up'} "
+                       f"M={m} K={k} N={n} {plan.route}", got, want, tol,
+                       reference=ref)
+            del ref
+        del rec
+    return counts
+
+
+def moe_steps_vs_plain(step, state, clone, steps=MOE_STEPS):
+    """``steps`` decode steps of ``step(state, toks, pos)`` (returning
+    (logits, state)) with the kernels and with their plain versions on the
+    card, from one state, both fed the kernel run's greedy tokens.  Returns
+    (worst logit distance over the slots whose routing agreed, the flips
+    (slot: (step, layer, near tie)), the final kernel and plain states,
+    the (steps, B) mask of the steps each slot ran before its first flip,
+    the starting positions)."""
+    import torch
+    st_k, toks, pos = state
+    st_p = clone(st_k)
+    pos0 = pos.clone()
+    worst, flips = 0.0, {}
+    for i in range(steps):
+        with _Routing() as rk:
+            lk, st_k = step(st_k, toks, pos)
+        with _Routing() as rp:
+            lp, st_p = with_plain_kernels(lambda: step(st_p, toks, pos))
+        for t, (layer, tie) in routing_flips(
+                rk, rp, moe_config().moe_top_k).items():
+            flips.setdefault(t, (i, layer, tie))
+        live = torch.tensor([t not in flips for t in range(lk.shape[0])],
+                            device="cuda")
+        if live.any():
+            d = (lk - lp).abs().amax(-1)[live].max()
+            worst = max(worst, float(d / lp[live].abs().max()))
+        if not bool(torch.isfinite(lk).all()):
+            worst = math.inf
+        toks, pos = lk.argmax(-1).to(torch.int32), pos + 1
+    live = torch.tensor([[t not in flips or i < flips[t][0]
+                          for t in range(toks.shape[0])]
+                         for i in range(steps)], device="cuda")
+    return worst, flips, st_k, st_p, live, pos0
+
+
+def phase_moe(record):
+    """MoE serving at the JAX package's MoE config: (a) every expert launch
+    of one MoE FFN at M = 8, 64, 2048 against plain; (b) 4 decode steps on
+    the ring, the paged pool in "kernel" mode and in "ringview" against the
+    plain kernels; (c) the same on int4 experts (K5, grouped scales), on
+    the ring; (d) 16 requests through the EngineServer, every token inside
+    the margin band; (e) launch counts; (f) one timed batch-64 decode
+    step."""
+    import dataclasses
+    import torch
+    from fp8tpu_torch.kernels import inplace, int4_matmul, qmatmul
+    from fp8tpu_torch.kernels import paged_attention as k4
+    from fp8tpu_torch.serve import (EngineServer, PagedKVCache, RingKVCache,
+                                    ServeConfig, ServingEngine, decode_step,
+                                    decode_step_paged, decode_steps,
+                                    prefill_batch, prefill_batch_paged,
+                                    random_serve_params)
+    from fp8tpu_torch.serve import engine as engine_mod
+
+    cfg = moe_config()
+    L, KV, D, E = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, cfg.n_experts
+    per_step = L * (4 + 2 * E)                      # K3 launches a step
+    scfg = ServeConfig(model=cfg, weight_fmt="e4m3", kv_fmt="int8")
+    t0 = time.perf_counter()
+    params = STATE["moe"] = random_serve_params(cfg, "e4m3", seed=20)
+    torch.cuda.synchronize()
+    nbytes = {k: v.numel() * v.element_size() for k, v in params.items()}
+    experts = sum(v for k, v in nbytes.items() if k.startswith("e"))
+    print(f"moe: random e4m3 artifact (vocabulary {cfg.vocab_size}, "
+          f"d_model {cfg.d_model}, {L} layers, {cfg.n_heads} / {KV} heads of "
+          f"{D}, d_ff {cfg.d_ff}, {E} experts, top-{cfg.moe_top_k}) made in "
+          f"{time.perf_counter() - t0:.1f} s: "
+          f"{sum(nbytes.values()) / 1e9:.3f} GB, experts "
+          f"{experts / 1e9:.3f} GB ({L} layers x {E} experts, each its own "
+          f"draw), bf16 embedding {nbytes['embed'] / 1e6:.0f} MB")
+    result, problems = {"weight_bytes": sum(nbytes.values())}, []
+    gen = torch.Generator(device="cuda").manual_seed(21)
+
+    # (a) every K3 launch of one MoE FFN, one by one.
+    rows = []
+    counts = moe_launch_cases(params, cfg, scfg, False, gen, rows)
+    worst = max(r["max_err_over_bound"] for r in rows)
+    f64 = max(r.get("err_over_f64_bound", 0.0) for r in rows)
+    print(f"moe (a): one MoE FFN at M in {MOE_MS}: K3 launches {counts} "
+          f"(expected {2 * E} each), each against plain: worst err/bound "
+          f"{worst:.3e}, worst err/f64 bound {f64:.3e}; "
+          f"{sum(not r['ok'] for r in rows)} failed")
+    if any(c != 2 * E for c in counts.values()) or not all(
+            r["ok"] for r in rows):
+        problems.append(f"MoE FFN K3 launches: {counts}, "
+                        f"{sum(not r['ok'] for r in rows)} outside K3's "
+                        "bounds")
+    result["a"] = rows
+
+    # (b) 4 decode steps on the ring, the paged pool in "kernel" mode and
+    # in "ringview", kernels against plain.
+    def ring_state(prm, sc_):
+        g = torch.Generator(device="cuda").manual_seed(22)
+        ring = RingKVCache.create(L, SERVE_SLOTS, SERVE_SEQ, KV, D, "int8")
+        prompts = torch.randint(1, cfg.vocab_size, (SERVE_SLOTS, 32),
+                                device="cuda", generator=g, dtype=torch.int32)
+        lengths = torch.randint(8, 33, (SERVE_SLOTS,), device="cuda",
+                                generator=g, dtype=torch.int32)
+        zi = torch.zeros(SERVE_SLOTS, device="cuda", dtype=torch.int32)
+        _, ring, toks, pos = prefill_batch(
+            prm, ring, prompts, torch.arange(
+                SERVE_SLOTS, device="cuda", dtype=torch.int32), lengths,
+            None, torch.zeros(SERVE_SLOTS, device="cuda"), None, None, zi,
+            zi.clone(), sc_)
+        return ring, toks, pos
+
+    def ring_clone(r):
+        return RingKVCache(r.kv8.clone(), r.sc.clone(), r.head.clone())
+
+    def pool_state():
+        g = torch.Generator(device="cuda").manual_seed(23)
+        paged = PagedKVCache.create(SERVE_SLOTS * 8, PAGE, L, SERVE_SLOTS, 8,
+                                    KV, D, "int8")
+        paged.page_table = torch.randperm(
+            SERVE_SLOTS * 8, device="cuda", generator=g
+        ).to(torch.int32).reshape(SERVE_SLOTS, 8)
+        prompts = torch.randint(1, cfg.vocab_size, (SERVE_SLOTS, 256),
+                                device="cuda", generator=g, dtype=torch.int32)
+        lengths = torch.randint(70, 257, (SERVE_SLOTS,), device="cuda",
+                                generator=g, dtype=torch.int32)
+        zi = torch.zeros(SERVE_SLOTS, device="cuda", dtype=torch.int32)
+        _, paged, toks, pos = prefill_batch_paged(
+            params, paged, prompts, torch.arange(
+                SERVE_SLOTS, device="cuda", dtype=torch.int32), lengths,
+            None, torch.zeros(SERVE_SLOTS, device="cuda"), None, None, zi,
+            zi.clone(), scfg)
+        return paged, toks, pos
+
+    kcfg = dataclasses.replace(scfg, paged_decode_impl="kernel")
+    rcfg = dataclasses.replace(scfg, paged_decode_impl="ringview")
+    paths = {
+        "ring": (lambda st, t, p: decode_step(params, st, t, p, scfg),
+                 lambda: ring_state(params, scfg), ring_clone),
+        "paged kernel": (lambda st, t, p: decode_step_paged(params, st, t, p,
+                                                            kcfg),
+                         pool_state, clone_pool),
+        "paged ringview": (lambda st, t, p: decode_step_paged(params, st, t,
+                                                              p, rcfg),
+                           pool_state, clone_pool),
+    }
+    result["b"] = {}
+    for name, (step, make, clone) in paths.items():
+        state = make()
+        h0 = int(state[0].head) if name == "ring" else None
+        qmatmul.reset_launches()
+        k4.reset_launches()
+        inplace.reset_launches()
+        worst, flips, st_k, st_p, live, pos0 = moe_steps_vs_plain(
+            step, state, clone)
+        k3 = qmatmul.dequant_launches / MOE_STEPS
+        k4_n, k6_n = k4.launches / MOE_STEPS, inplace.launches / MOE_STEPS
+        same, dist, bad = cache_checks(f"MoE {name}", st_k, st_p, pos0,
+                                       MOE_STEPS, KV, live, h0)
+        off_tie = {t: f for t, f in flips.items() if not f[2]}
+        print(f"moe (b) {name}: {MOE_STEPS} decode steps at "
+              f"{SERVE_SLOTS} slots, kernels vs plain on the card: "
+              f"max|logit diff| / max|logit| {worst:.3e} (tolerance "
+              f"{SERVE_LOGIT_TOL}), cache payload bytes equal {same:.4f} "
+              f"(at least {SERVE_RING_EQUAL}); the rows the steps wrote, "
+              f"by layer: {fmt_layers(dist)}; routing flips (slot: step, "
+              f"layer, near tie) {flips or 'none'}; per step K3 {k3:.1f}, "
+              f"K4 {k4_n:.1f}, K6 {k6_n:.1f}")
+        problems += bad
+        if worst > SERVE_LOGIT_TOL or off_tie:
+            problems.append(f"MoE {name}: logits {worst}, routing flips off "
+                            f"a near tie {off_tie}")
+        want = {"ring": (per_step, 0, 1), "paged kernel": (per_step, L, 0),
+                "paged ringview": (per_step, 0, 0)}[name]
+        if (k3, k4_n, k6_n) != want:
+            problems.append(f"MoE {name}: K3 / K4 / K6 launches a step "
+                            f"{(k3, k4_n, k6_n)}, expected {want}")
+        result["b"][name] = {"max_rel_logit_diff": worst,
+                             "payload_bytes_equal": same,
+                             "written_rows_by_layer": dist,
+                             "routing_flips": flips,
+                             "launches_per_step": [k3, k4_n, k6_n]}
+        if name == "paged kernel":
+            STATE["moe_pool"] = st_k
+            k4_launches = k4.launches
+        del state, st_k, st_p
+
+    # (c) int4 experts (K5, grouped scales): every launch of one MoE FFN,
+    # and 4 ring decode steps against plain.  Scales of a trained size
+    # (dequantized weights of std ~0.02, as the e4m3 draw).
+    params4 = random_serve_params(cfg, "int4", seed=24)
+    for k in [k for k in params4 if k.endswith("s") and k != "embed_s"]:
+        params4[k] = params4[k] * 0.005
+    scfg4 = ServeConfig(model=cfg, weight_fmt="int4", kv_fmt="int8")
+    rows4 = []
+    counts4 = moe_launch_cases(params4, cfg, scfg4, True, gen, rows4)
+    state = ring_state(params4, scfg4)
+    h0 = int(state[0].head)
+    int4_matmul.reset_launches()
+    worst4, flips4, st_k, st_p, live, pos0 = moe_steps_vs_plain(
+        lambda st, t, p: decode_step(params4, st, t, p, scfg4), state,
+        ring_clone)
+    k5_launches = int4_matmul.launches
+    same4, dist4, bad4 = cache_checks("MoE int4 ring", st_k, st_p, pos0,
+                                      MOE_STEPS, KV, live, h0)
+    print(f"moe (c): int4 experts (groups of 128: G = "
+          f"{params4['eups'].shape[2]} up, {params4['edowns'].shape[2]} "
+          f"down): one MoE FFN's K5 launches {counts4}, worst err/bound "
+          f"{max((r['max_err_over_bound'] for r in rows4), default=0):.3e}, "
+          f"f64 {max((r.get('err_over_f64_bound', 0) for r in rows4), default=0):.3e}, "
+          f"{sum(not r['ok'] for r in rows4)} failed; {MOE_STEPS} ring "
+          f"decode steps vs plain: {worst4:.3e}, ring bytes equal "
+          f"{same4:.4f}, the rows the steps wrote by layer: "
+          f"{fmt_layers(dist4)}; routing flips {flips4 or 'none'}; "
+          f"{k5_launches / MOE_STEPS:.1f} K5 launches a step")
+    if (any(c != 2 * E for c in counts4.values())
+            or not all(r["ok"] for r in rows4) or worst4 > SERVE_LOGIT_TOL
+            or bad4 or any(not f[2] for f in flips4.values())
+            or k5_launches != per_step * MOE_STEPS):
+        problems.append(f"MoE int4: launches {counts4} / {k5_launches}, "
+                        f"logits {worst4}, ring bytes {same4}, flips "
+                        f"{flips4}")
+    result["c"] = {"rows": rows4, "max_rel_logit_diff": worst4,
+                   "ring_bytes_equal": same4, "written_rows_by_layer": dist4,
+                   "routing_flips": flips4}
+    STATE["moe_int4"] = params4
+    del st_k, st_p
+
+    # (d) the served main path: 16 requests through the EngineServer on 8
+    # slots, counted; then the same requests with the plain kernels, and
+    # every token of the kernel run teacher-forced inside the margin band.
+    reqs = serve_requests(25, 16, cfg.vocab_size)
+    prompts = {r.uid: r.prompt for r in reqs}
+
+    def serve_moe():
+        eng = ServingEngine(params, scfg, n_slots=SERVE_SLOTS,
+                            max_seq=SERVE_SEQ, chunk_size=16)
+        srv = EngineServer(eng).start()
+        t = time.perf_counter()
+        try:
+            futs = {r.uid: srv.submit(dataclasses.replace(r)) for r in reqs}
+            out = {u: f.result(timeout=600) for u, f in futs.items()}
+        finally:
+            srv.stop()
+        return out, time.perf_counter() - t
+
+    qmatmul.reset_launches()
+    inplace.reset_launches()
+    with _Counting(engine_mod, "decode_chunk", steps_arg=6) as dc, \
+            _Counting(engine_mod, "prefill_batch") as pb, \
+            _Counting(qmatmul, "dequant_matmul_plain", forbid=True), \
+            _Counting(inplace, "ring_store_plain", forbid=True):
+        out, seconds = serve_moe()
+    launches = {"moe_dequant_matmul": qmatmul.dequant_routes["stream"],
+                "moe_dequant_matmul_prefill": qmatmul.dequant_routes["prefill"],
+                "moe_ring_store": inplace.routes["ring_store"],
+                "moe_int4_matmul": k5_launches,
+                "moe_paged_decode_attention": k4_launches}
+    k3_step = (qmatmul.dequant_launches - per_step * pb.calls) / dc.steps
+    k6_step = inplace.routes["ring_store"] / dc.steps
+    ref, seconds_p = with_plain_kernels(serve_moe)
+    parts, ties, dense_off, band = margin_agree(out, ref, prompts, params,
+                                                scfg)
+    bad = {u: s if isinstance(s, str) else replay_in_band(
+        params, scfg, prompts[u], out[u], s) for u, s in dense_off.items()}
+    bad = {u: s for u, s in bad.items() if s}
+    n_tok = sum(len(v) for v in out.values())
+    print(f"moe (d): 16 requests x {SERVE_NEW} tokens through EngineServer "
+          f"({SERVE_SLOTS} slots, ring {SERVE_SEQ}, chunks of 16): {n_tok} "
+          f"tokens in {seconds:.2f} s ({n_tok / seconds:.1f} tokens/s; the "
+          f"plain kernels' run {seconds_p:.2f} s); {dc.steps} decode steps in "
+          f"{dc.calls} chunks, {pb.calls} prefills; against the plain run: "
+          f"lists parting {sum(j is not None for j in parts.values())} of 16, "
+          f"steps inside the margin band {ties:.3f}, tokens inside the band "
+          f"a step {band:.2f}; tokens outside the dense forward's band "
+          f"{dense_off or 'none'}, of them outside the band of a replay of "
+          f"the engine's path {bad or 'none'}")
+    print(f"moe (e): launches {launches}: K3 {k3_step:.1f} and K6 "
+          f"{k6_step:.1f} a ring decode step (expected {per_step} = {L} x (4 "
+          f"+ 2 x {E}) and 1), K4 {L} a paged step (b), K5 {per_step} a "
+          f"step on int4 experts (c); no plain version called")
+    if any(len(v) != SERVE_NEW for v in out.values()) or len(out) != 16:
+        problems.append("an MoE request did not finish with its budget")
+    if bad:
+        problems.append(f"MoE engine tokens outside the margin band: {bad}")
+    if k3_step != per_step or k6_step != 1 or qmatmul.dequant_routes[
+            "general"]:
+        problems.append(f"MoE engine: K3 / K6 a step {k3_step} / {k6_step}, "
+                        f"routes {dict(qmatmul.dequant_routes)}")
+    result["d"] = {"tokens": n_tok, "seconds": seconds,
+                   "plain_seconds": seconds_p, "decode_steps": dc.steps,
+                   "prefills": pb.calls, "first_part": parts,
+                   "near_tie_share": ties, "tokens_in_band": band,
+                   "outside_dense_band": dense_off, "outside_band": bad,
+                   "launches": launches,
+                   "k3_per_step": k3_step, "k6_per_step": k6_step}
+
+    # (f) one timed decode step at batch 64, position 444, ring of 512:
+    # wall clock of an 8-step chunk, and a profile of one step.
+    ring = RingKVCache.create(L, BENCH_BATCH, BENCH_CACHE, KV, D, "int8")
+    ring.kv8.copy_(torch.randint(-127, 128, ring.kv8.shape, device="cuda",
+                                 generator=gen, dtype=torch.int8))
+    ring.sc.uniform_(0.004, 0.02, generator=gen)
+    ring.head.fill_(BENCH_WARM_POS)
+    toks = torch.randint(1, cfg.vocab_size, (BENCH_BATCH,), device="cuda",
+                         generator=gen, dtype=torch.int32)
+    pos = torch.full((BENCH_BATCH,), BENCH_WARM_POS, device="cuda",
+                     dtype=torch.int32)
+    temp = torch.zeros(BENCH_BATCH, device="cuda")
+
+    def chunk(n):
+        out_, _ = decode_steps(params, ring, toks, pos, None, temp, n, scfg,
+                               greedy_only=True)
+        return out_
+
+    chunk(2)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t = time.perf_counter()
+        int(chunk(MOE_PROFILE_STEPS).sum())
+        walls.append((time.perf_counter() - t) / MOE_PROFILE_STEPS * 1e3)
+    prof = profile_decode_step(lambda: chunk(1), min(walls))
+    k3_ms = prof["groups"].get("K3/K5 weight GEMM (hand-written)",
+                               (0.0, 0))[0]
+    kv_bytes = BENCH_BATCH * BENCH_WARM_POS * L * 2 * KV * (D + 4)
+    bound = (sum(nbytes.values()) + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    dense = record.get("serve", {}).get("d", {}).get("fp8")
+    dense_txt = (f"{dense['step_ms']:.3f} ms wall, "
+                 f"{dense['profile']['device_ms']:.3f} ms of kernels "
+                 f"(busy {dense['profile']['busy_share']:.3f})"
+                 if dense else "not run in this call (the serve phase)")
+    print(f"moe (f): one decode step at batch {BENCH_BATCH}, position "
+          f"{BENCH_WARM_POS}, ring {BENCH_CACHE}: {min(walls):.3f} ms wall "
+          f"(chunks of {MOE_PROFILE_STEPS}: {[round(w, 3) for w in walls]}), "
+          f"{prof['device_ms']:.3f} ms of kernels in {prof['launches']} "
+          f"launches, device-busy share {prof['busy_share']:.3f}, K3 "
+          f"{k3_ms:.3f} ms ({k3_ms / prof['device_ms']:.3f} of the kernels); "
+          f"byte bound {bound:.3f} ms ({(sum(nbytes.values()) + kv_bytes) / 1e9:.3f} "
+          f"GB: weights and the KV read); the dense serve config's step: "
+          f"{dense_txt}")
+    for group, (ms, n) in prof["groups"].items():
+        print(f"    {ms:8.3f} ms {n:5d}x  {group}")
+    result["f"] = {"wall_ms": walls, "profile": prof, "k3_ms": k3_ms,
+                   "bound_ms": bound}
+    del ring
+    record["moe"] = result
+    torch.cuda.empty_cache()
+    if problems:
+        raise PhaseError("; ".join(problems))
+    return launches
+
+
+def time_moe(record, launches):
+    """The MoE path's kernels at its own shapes, beside the plain version,
+    the bound and a PyTorch call: K3 on the expert up projection (2048 x
+    5504) at M = 8 (decode form) and M = 2048 (prefill route), rotating
+    over the 96 expert stacks so a launch finds its weights in device
+    memory; K5 on the int4 expert (groups of 128); K4 at G = 2 on the (b)
+    pool; K6 one row of the MoE ring at 8 slots.  Returns the kernels
+    line's entries."""
+    import torch
+    from fp8tpu_torch.kernels import inplace, int4_matmul, qmatmul
+    from fp8tpu_torch.kernels import paged_attention as k4
+    from fp8tpu_torch.tools import device_ms
+
+    cfg = moe_config()
+    params, params4 = STATE["moe"], STATE["moe_int4"]
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    entries, rows = [], []
+    w_stack = params["eup8"].reshape(-1, *params["eup8"].shape[2:])
+    s_stack = params["eups"].reshape(-1, params["eups"].shape[-1])
+    k, n = w_stack.shape[1:]
+
+    def rotating(fn, count):
+        state = {"i": 0}
+
+        def call():
+            state["i"] = (state["i"] + 1) % count
+            return fn(state["i"])
+        return call
+
+    for m, name, key in ((SERVE_SLOTS, "dequant_matmul (MoE experts)",
+                          "moe_dequant_matmul"),
+                         (PREFILL_ROWS, "dequant_matmul_prefill (MoE "
+                          "experts)", "moe_dequant_matmul_prefill")):
+        x = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
+        got = qmatmul.dequant_matmul(x, w_stack[0], s_stack[0])
+        want = qmatmul.dequant_matmul_plain(x, w_stack[0], s_stack[0])
+        err = float((got.float() - want.float()).abs().max())
+        t_k = device_ms(rotating(lambda i: qmatmul.dequant_matmul(
+            x, w_stack[i], s_stack[i]), w_stack.shape[0]))
+        t_p = cuda_ms(rotating(lambda i: qmatmul.dequant_matmul_plain(
+            x, w_stack[i], s_stack[i]), w_stack.shape[0]), iters=4, warmup=1)
+        t_l = device_ms(rotating(lambda i: torch.matmul(
+            x, w_stack[i].to(torch.bfloat16)) * s_stack[i],
+            w_stack.shape[0]))
+        t_bytes = (2.0 * m * k + k * n + 4.0 * n + 2.0 * m * n) \
+            / HBM_BYTES_PER_S * 1e3
+        t_ops = 2.0 * m * n * k / BF16_TC_FLOPS * 1e3
+        b, by = max(t_bytes, t_ops), ("operations" if t_ops > t_bytes
+                                      else "bytes")
+        rows.append({"kernel": "K3", "m": m, "k": k, "n": n, "ms": t_k,
+                     "plain_ms": t_p, "library_ms": t_l, "bound_ms": b,
+                     "bound_by": by, "max_abs_err": err})
+        print(f"time moe k3 expert up {k}x{n} M={m}: kernel {t_k:.4f} ms on "
+              f"the device ({k * n / t_k / 1e6:.0f} GB/s of payload), plain "
+              f"{t_p:.4f} ms, bound {b:.4f} ms ({by}), (x @ w8.to(bf16)) * "
+              f"s {t_l:.4f} ms")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "fp8tpu_torch/kernels/csrc/dequant_matmul.cu",
+            "replaces": "fp8tpu/kernels/qmatmul.py:87",
+            "launches": launches[key], "max_abs_err": err, "ms": t_k,
+            "plain_ms": t_p, "bound_ms": b, "bound_by": by,
+            "library_ms": t_l})
+
+    # K5 on the int4 expert up projection at the served slots
+    w4 = params4["eup8"].reshape(-1, *params4["eup8"].shape[2:])
+    s4 = params4["eups"].reshape(-1, *params4["eups"].shape[2:])
+    group = k // s4.shape[1]
+    x = torch.randn(SERVE_SLOTS, k, device="cuda", generator=gen
+                    ).to(torch.bfloat16)
+    got = int4_matmul.int4_matmul(x, w4[0], s4[0], group)
+    want = int4_matmul.int4_matmul_plain(x, w4[0], s4[0], group)
+    err = float((got.float() - want.float()).abs().max())
+    t_k = device_ms(rotating(lambda i: int4_matmul.int4_matmul(
+        x, w4[i], s4[i], group), w4.shape[0]))
+    t_p = cuda_ms(rotating(lambda i: int4_matmul.int4_matmul_plain(
+        x, w4[i], s4[i], group), w4.shape[0]), iters=4, warmup=1)
+    lo, hi = int4_matmul.unpack_int4(w4[:4])
+    w_bf16 = torch.stack([lo, hi], 2).reshape(4, k, n).to(torch.bfloat16)
+    t_l = device_ms(rotating(lambda i: torch.matmul(x, w_bf16[i]), 4))
+    b = (2.0 * SERVE_SLOTS * k + k * n / 2.0 + 4.0 * s4[0].numel()
+         + 2.0 * SERVE_SLOTS * n) / HBM_BYTES_PER_S * 1e3
+    print(f"time moe k5 int4 expert up {k}x{n} group {group} M={SERVE_SLOTS}:"
+          f" kernel {t_k:.4f} ms on the device, plain {t_p:.4f} ms, bound "
+          f"{b:.4f} ms (bytes), torch.matmul on a pre-unpacked bf16 weight "
+          f"{t_l:.4f} ms")
+    rows.append({"kernel": "K5", "m": SERVE_SLOTS, "k": k, "n": n,
+                 "group": group, "ms": t_k, "plain_ms": t_p,
+                 "library_ms": t_l, "bound_ms": b, "max_abs_err": err})
+    entries.append({
+        "name": "int4_matmul (MoE experts)", "route": "cuda",
+        "source": "fp8tpu_torch/kernels/csrc/int4_matmul.cu",
+        "replaces": "fp8tpu/kernels/int4_matmul.py:57",
+        "launches": launches["moe_int4_matmul"], "max_abs_err": err,
+        "ms": t_k, "plain_ms": t_p, "bound_ms": b, "bound_by": "bytes",
+        "library_ms": t_l})
+    del w_bf16
+
+    # K4 at G = 2 on the pool of (b), one layer a launch in turn
+    paged = STATE.pop("moe_pool")
+    KV, D, L = cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
+    G = cfg.n_heads // KV
+    B = paged.n_slots
+    lens = torch.full((B,), 200, device="cuda", dtype=torch.int32)
+    q = (torch.randn(B, KV * G, D, device="cuda", generator=gen) * 0.7
+         ).to(torch.bfloat16)
+    kw = dict(page_size=paged.page_size, kv_heads=KV)
+    got = k4.paged_decode_attention(q, paged.pool, paged.sc, paged.page_table,
+                                    lens, L - 1, **kw)
+    want = k4.paged_decode_attention_plain(q, paged.pool, paged.sc,
+                                           paged.page_table, lens, L - 1, **kw)
+    err = float((got[0] - want[0]).abs().max())
+    t_k = device_ms(rotating(lambda i: k4.paged_decode_attention(
+        q, paged.pool, paged.sc, paged.page_table, lens, i, **kw), L))
+    t_p = cuda_ms(lambda: k4.paged_decode_attention_plain(
+        q, paged.pool, paged.sc, paged.page_table, lens, L - 1, **kw), iters=3,
+        warmup=1)
+    tokens = int(lens.sum())
+    nb = (tokens * KV * (2 * D + 2 * 4) + paged.page_table.numel() * 4
+          + B * 4 + q.numel() * 2 + B * KV * G * (D + 2) * 4)
+    t_bytes = nb / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * 2 * tokens * KV * G * D / F32_SIMT_FLOPS * 1e3
+    b, by = max(t_bytes, t_ops), ("operations" if t_ops > t_bytes
+                                  else "bytes")
+    print(f"time moe k4 G={G}: {B} slots x 200 tokens, int8 pool, one layer: "
+          f"kernel {t_k:.5f} ms on the device, plain {t_p:.4f} ms, bound "
+          f"{b:.5f} ms ({by}); no one PyTorch call computes it")
+    rows.append({"kernel": "K4", "batch": B, "tokens": tokens, "ms": t_k,
+                 "plain_ms": t_p, "bound_ms": b, "bound_by": by,
+                 "max_abs_err": err})
+    entries.append({
+        "name": "paged_decode_attention (MoE, G = 2)", "route": "cuda",
+        "source": "fp8tpu_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "fp8tpu/kernels/paged_attention.py:55",
+        "launches": launches["moe_paged_decode_attention"],
+        "max_abs_err": err, "ms": t_k, "plain_ms": t_p, "bound_ms": b,
+        "bound_by": by, "library_ms": None})
+    del paged
+
+    # K6: one decode step's row of the MoE ring at the served slots
+    bk = SERVE_SLOTS * KV
+    kv8 = torch.zeros((SERVE_SEQ, 2, L, bk, D), dtype=torch.int8,
+                      device="cuda")
+    sc = torch.ones((SERVE_SEQ, 2, L, bk), device="cuda")
+    kv8_p, sc_p = kv8.clone(), sc.clone()
+    slab8 = torch.randint(-127, 128, kv8.shape[1:], device="cuda",
+                          generator=gen, dtype=torch.int8)
+    slabs = torch.rand(sc.shape[1:], device="cuda", generator=gen)
+    head = torch.tensor(SERVE_SEQ - 1, device="cuda", dtype=torch.int32)
+    head_p = head.clone()
+    ticket = torch.zeros(1, device="cuda", dtype=torch.int32)
+    inplace.ring_store(kv8, slab8, sc, slabs, head, SERVE_SEQ, ticket)
+    inplace.ring_store_plain(kv8_p, slab8, sc_p, slabs, head_p, SERVE_SEQ)
+    err = float(max((kv8.to(torch.int16) - kv8_p.to(torch.int16)).abs().max(),
+                    (sc - sc_p).abs().max(), abs(int(head) - int(head_p))))
+    t_k = device_ms(lambda: inplace.ring_store(kv8, slab8, sc, slabs, head,
+                                               SERVE_SEQ, ticket))
+    t_p = device_ms(lambda: inplace.ring_store_plain(kv8_p, slab8, sc_p,
+                                                     slabs, head_p,
+                                                     SERVE_SEQ))
+    b = 2.0 * (slab8.numel() + 4 * slabs.numel()) / HBM_BYTES_PER_S * 1e3
+    print(f"time moe k6 one row of the MoE ring ({SERVE_SLOTS} slots): "
+          f"ring_store {t_k:.5f} ms on the device, plain {t_p:.5f} ms, bound "
+          f"{b:.5f} ms (bytes)")
+    if err:
+        raise PhaseError("ring_store at the MoE ring differs from plain")
+    rows.append({"kernel": "K6", "ms": t_k, "plain_ms": t_p, "bound_ms": b,
+                 "max_abs_err": err})
+    entries.append({
+        "name": "ring_store (MoE ring)", "route": "cuda",
+        "source": "fp8tpu_torch/kernels/csrc/inplace.cu",
+        "replaces": "fp8tpu/kernels/inplace.py:27",
+        "launches": launches["moe_ring_store"], "max_abs_err": err,
+        "ms": t_k, "plain_ms": t_p, "bound_ms": b, "bound_by": "bytes",
+        "library_ms": None})
+    record.setdefault("time", {})["moe"] = rows
+    STATE.pop("moe")
+    STATE.pop("moe_int4")
+    torch.cuda.empty_cache()
+    return entries
+
+
+# -- phase flush ---------------------------------------------------------------
+
+FLUSH_W = 8                    # the batched ring write of the timed chunk
+FLUSH_STEPS = 32               # its chunk: 4 flushes
+
+
+def phase_flush(record):
+    """Batched ring writes (ring_flush = W) at the dense serve config: K6's
+    W-row store against ring_store_plain(rows=W) bit for bit; a start that
+    wraps, with no byte outside the ring; a 32-step chunk at batch 64 with
+    ring_flush = 8 against the plain kernels and against ring_flush = 0;
+    the chunk's time against ring_flush = 0."""
+    import dataclasses
+    import torch
+    from fp8tpu_torch.kernels import inplace, qmatmul
+    from fp8tpu_torch.serve import RingKVCache, ServeConfig, random_serve_params
+    from fp8tpu_torch.serve import model as smodel
+    from fp8tpu_torch.tools import device_ms
+
+    cfg = serve_config()
+    L, KV, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    params = STATE.get("e4m3")
+    if params is None:
+        params = STATE["e4m3"] = random_serve_params(cfg, "e4m3", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    result, problems = {}, []
+
+    def raw(shape, dtype):
+        n = 1
+        for d in shape:
+            n *= d
+        size = torch.empty((), dtype=dtype).element_size()
+        return torch.randint(0, 256, (n * size,), device="cuda",
+                             dtype=torch.uint8, generator=gen
+                             ).view(dtype).reshape(shape)
+
+    # (a) W rows of both slabs at the served ring, 64 slots, bit for bit,
+    # inside a storage with guard bytes on both sides of each ring.
+    n = SERVE_SEQ
+    bk = BENCH_BATCH * KV
+    row8, rows_s = (2, L, bk, D), (2, L, bk)
+    guard = 4096
+    cases = bad = 0
+    for dtype in (torch.int8, torch.float8_e4m3fn):
+        store8 = raw((n * 2 * L * bk * D + 2 * guard,), torch.uint8)
+        stores = raw((n * 2 * L * bk + 2 * guard // 4,), torch.float32)
+        kv8 = store8[guard:-guard].view(dtype).reshape((n,) + row8)
+        sc = stores[guard // 4:-(guard // 4)].reshape((n,) + rows_s)
+        ref8, refs = store8.clone(), stores.clone()
+        kv8_p = ref8[guard:-guard].view(dtype).reshape((n,) + row8)
+        sc_p = refs[guard // 4:-(guard // 4)].reshape((n,) + rows_s)
+        ticket = torch.zeros(1, device="cuda", dtype=torch.int32)
+        for w in (2, 8, 16):
+            for h0 in (0, w, n - w, n - 1, n + 3, -1):
+                slab8, slabs = raw((w,) + row8, dtype), raw((w,) + rows_s,
+                                                            torch.float32)
+                head = torch.tensor(h0, device="cuda", dtype=torch.int32)
+                head_p = head.clone()
+                before = inplace.routes["ring_store"]
+                inplace.ring_store(kv8, slab8, sc, slabs, head, n, ticket,
+                                   rows=w)
+                inplace.ring_store_plain(kv8_p, slab8, sc_p, slabs, head_p,
+                                         n, rows=w)
+                cases += 1
+                launched = inplace.routes["ring_store"] == before + 1
+                same = (torch.equal(store8, ref8)
+                        and torch.equal(stores.view(torch.int32),
+                                        refs.view(torch.int32)))
+                if not (launched and same and int(ticket) == 0
+                        and int(head) == int(head_p) == (h0 + w) % n):
+                    bad += 1
+                    print(f"  flush FAIL {str(dtype)[6:]} W={w} head={h0}: "
+                          f"one launch {launched}, bytes equal {same}, head "
+                          f"{int(head)} (plain {int(head_p)}), ticket "
+                          f"{int(ticket)}")
+        del store8, stores, ref8, refs
+    print(f"flush (a): K6's W-row store at the served ring ({n} rows, "
+          f"{BENCH_BATCH} slots, int8 and e4m3), W in 2, 8, 16, heads 0, W, "
+          f"n - W and the wrapping n - 1, n + 3, -1: {cases} cases, {bad} "
+          f"failed (both slabs and the guard bytes around the ring bit-equal "
+          f"to ring_store_plain(rows=W), head advanced by W, ticket back at "
+          f"0)")
+    if bad:
+        problems.append(f"K6's W-row store: {bad} of {cases} cases differ "
+                        "from plain")
+    result["a"] = {"cases": cases, "failed": bad}
+
+    # (b) a 32-step chunk at batch 64, position 440 (W-aligned) of a warm
+    # ring: ring_flush = 8 with the kernels (counted); the same steps with
+    # the plain kernels and with ring_flush = 0, both fed the counted run's
+    # greedy tokens (as serve (b) feeds its steps), for logits and ring
+    # bytes; and ring_flush = 0 on its own greedy tokens, for the margin
+    # rule.
+    fcfg = ServeConfig(model=cfg, weight_fmt="e4m3", kv_fmt="int8",
+                       ring_flush=FLUSH_W)
+    zcfg = dataclasses.replace(fcfg, ring_flush=0)
+    start = BENCH_WARM_POS - BENCH_WARM_POS % FLUSH_W
+    ring0 = RingKVCache.create(L, BENCH_BATCH, BENCH_CACHE, KV, D, "int8")
+    ring0.kv8.copy_(torch.randint(-127, 128, ring0.kv8.shape, device="cuda",
+                                  generator=gen, dtype=torch.int8))
+    ring0.sc.uniform_(0.004, 0.02, generator=gen)
+    ring0.head.fill_(start)
+    toks0 = torch.randint(1, cfg.vocab_size, (BENCH_BATCH,), device="cuda",
+                          generator=gen, dtype=torch.int32)
+    pos0 = torch.full((BENCH_BATCH,), start, device="cuda",
+                      dtype=torch.int32)
+    temp = torch.zeros(BENCH_BATCH, device="cuda")
+
+    def clone(r):
+        return RingKVCache(r.kv8.clone(), r.sc.clone(), r.head.clone())
+
+    @torch.no_grad()
+    def run(scfg, forced=None):
+        """The chunk from ring0's state: (logits, tokens, ring); with
+        ``forced`` (steps, B), step i's sampled tokens are forced[i]."""
+        orig = smodel.sample_tokens
+        if forced is not None:
+            feed = iter(forced)
+            smodel.sample_tokens = lambda *a, **kw: next(feed)
+        try:
+            (lg, tk), ring, _, _ = smodel._steps_impl(
+                params, clone(ring0), toks0, pos0, None, temp, FLUSH_STEPS,
+                scfg, True, greedy_only=True)
+        finally:
+            smodel.sample_tokens = orig
+        return lg, tk, ring
+
+    qmatmul.reset_launches()
+    inplace.reset_launches()
+    with _Counting(inplace, "ring_store_plain", forbid=True), \
+            _Counting(qmatmul, "dequant_matmul_plain", forbid=True):
+        lk, tk, rk = run(fcfg)
+    torch.cuda.synchronize()
+    flush_launches = {"ring_store": inplace.routes["ring_store"],
+                      "dequant_matmul": qmatmul.dequant_launches}
+    refs = {"plain": with_plain_kernels(lambda: run(fcfg, tk)),
+            "ring_flush 0": run(zcfg, tk)}
+    l0, t0_, r0 = run(zcfg)
+    all_steps = torch.ones(FLUSH_STEPS, BENCH_BATCH, dtype=torch.bool,
+                           device="cuda")
+    checks = {}
+    for what, (lb, _, rb) in refs.items():
+        worst = float(((lk - lb).abs().amax(-1).amax(-1)
+                       / lb.abs().amax(-1).amax(-1)).max())
+        checks[what] = (worst,) + cache_checks(
+            f"ring_flush chunk vs {what}", rk, rb, pos0, FLUSH_STEPS, KV,
+            all_steps, start, whole_gate=False)
+    # (The whole ring is not gated at 0.99 here: 32 of its 512 rows are
+    # written, 26x serve (b)'s share, and the deep layers of those rows
+    # differ by bf16 steps of the hidden state (layer 15 ~0.37 equal, as
+    # the spec phase measures); the rows are gated layer by layer.)
+    # the margin rule against ring_flush = 0's own greedy tokens: where a
+    # slot's tokens part, ring_flush = 0's step is a near tie
+    same = torch.cumprod((tk == t0_).to(torch.int32), 0).bool()
+    parts = {}
+    for b in (~same).any(0).nonzero().flatten().tolist():
+        j = int((~same[:, b]).nonzero()[0])
+        parts[b] = (j, near_tie(l0[j, b]))
+    heads = (int(rk.head), int(refs["plain"][2].head),
+             int(refs["ring_flush 0"][2].head), int(r0.head))
+    worst_p, same_p = checks["plain"][0], checks["plain"][1]
+    print(f"flush (b): {FLUSH_STEPS} greedy steps at batch {BENCH_BATCH} "
+          f"from position {start}, ring_flush = {FLUSH_W}: ring_store "
+          f"launches {flush_launches['ring_store']} (in place of "
+          f"{FLUSH_STEPS}), K3 {flush_launches['dequant_matmul']}; fed its "
+          f"tokens, the plain kernels: max|logit diff| / max|logit| "
+          f"{worst_p:.3e} (tolerance {SERVE_LOGIT_TOL}), ring payload bytes "
+          f"equal {same_p:.4f}, the rows the chunk wrote by layer: "
+          f"{fmt_layers(checks['plain'][2])}; "
+          f"ring_flush = 0: {checks['ring_flush 0'][0]:.3e}, ring bytes "
+          f"equal {checks['ring_flush 0'][1]:.4f}, by layer "
+          f"{fmt_layers(checks['ring_flush 0'][2])}; on its own greedy "
+          f"tokens ring_flush = 0 parts from it in {len(parts)} of "
+          f"{BENCH_BATCH} slots, all at near ties: "
+          f"{all(t for _, t in parts.values())}; heads {heads}")
+    if flush_launches["ring_store"] != FLUSH_STEPS // FLUSH_W:
+        problems.append(f"{flush_launches['ring_store']} ring_store launches "
+                        f"for {FLUSH_STEPS} steps at W = {FLUSH_W}")
+    for what, (worst, _, _, bad) in checks.items():
+        problems += bad
+        if worst > SERVE_LOGIT_TOL:
+            problems.append(f"ring_flush chunk vs {what}: logits {worst}")
+    if not all(t for _, t in parts.values()):
+        problems.append(f"tokens part from ring_flush = 0 off a near tie: "
+                        f"{parts}")
+    if len(set(heads)) != 1 or heads[0] != (start + FLUSH_STEPS) % n:
+        problems.append(f"heads after the chunk {heads}")
+    result["b"] = {"launches": flush_launches,
+                   "checks": {k: v[:3] for k, v in checks.items()},
+                   "parts_flush0": parts}
+    del lk, l0, rk, r0, refs
+
+    # (c) the chunk's time: ring_flush = 8 and 0 in turns, wall clock of
+    # 32 steps and the device time of an 8-step chunk (one flush)
+    def chunk(scfg, steps):
+        ring = clone(ring0)
+        return lambda: smodel.decode_steps(params, ring, toks0, pos0, None,
+                                           temp, steps, scfg,
+                                           greedy_only=True)[0]
+
+    walls = {8: [], 0: []}
+    for w in (8, 0):
+        chunk({8: fcfg, 0: zcfg}[w], FLUSH_W)()
+    torch.cuda.synchronize()
+    for w in (8, 0, 0, 8):
+        fn = chunk({8: fcfg, 0: zcfg}[w], FLUSH_STEPS)
+        t = time.perf_counter()
+        int(fn().sum())
+        walls[w].append((time.perf_counter() - t) * 1e3)
+    profs = {w: profile_decode_step(chunk({8: fcfg, 0: zcfg}[w], FLUSH_W),
+                                    min(walls[w]) / FLUSH_STEPS, FLUSH_W)
+             for w in (8, 0)}
+    print(f"flush (c): {FLUSH_STEPS}-step chunk at batch {BENCH_BATCH}: "
+          f"ring_flush = {FLUSH_W} {min(walls[8]):.2f} ms wall "
+          f"({[round(x, 2) for x in walls[8]]}), ring_flush = 0 "
+          f"{min(walls[0]):.2f} ms ({[round(x, 2) for x in walls[0]]}); "
+          f"device ms a step over an {FLUSH_W}-step chunk (one flush): "
+          f"{profs[8]['device_ms']:.3f} against {profs[0]['device_ms']:.3f}, "
+          f"K6 {profs[8]['groups'].get('K6 ring store (hand-written)', (0.0, 0))[0]:.4f} "
+          f"against {profs[0]['groups'].get('K6 ring store (hand-written)', (0.0, 0))[0]:.4f}")
+    result["c"] = {"wall_ms": walls, "profile": profs}
+    del ring0
+
+    # the W-row store's own time at the timed ring, 64 slots
+    kv8 = torch.zeros((n, 2, L, bk, D), dtype=torch.int8, device="cuda")
+    sc = torch.ones((n, 2, L, bk), device="cuda")
+    kv8_p, sc_p = kv8.clone(), sc.clone()
+    slab8 = raw((FLUSH_W, 2, L, bk, D), torch.int8)
+    slabs = torch.rand((FLUSH_W, 2, L, bk), device="cuda", generator=gen)
+    head = torch.tensor(start, device="cuda", dtype=torch.int32)
+    head_p = head.clone()
+    ticket = torch.zeros(1, device="cuda", dtype=torch.int32)
+    inplace.ring_store(kv8, slab8, sc, slabs, head, n, ticket, rows=FLUSH_W)
+    inplace.ring_store_plain(kv8_p, slab8, sc_p, slabs, head_p, n,
+                             rows=FLUSH_W)
+    err = float(max((kv8.to(torch.int16) - kv8_p.to(torch.int16)).abs().max(),
+                    (sc - sc_p).abs().max(), abs(int(head) - int(head_p))))
+    t_k = device_ms(lambda: inplace.ring_store(kv8, slab8, sc, slabs, head, n,
+                                               ticket, rows=FLUSH_W))
+    t_p = device_ms(lambda: inplace.ring_store_plain(
+        kv8_p, slab8, sc_p, slabs, head_p, n, rows=FLUSH_W))
+    t_1 = device_ms(lambda: inplace.ring_store(kv8, slab8[0], sc, slabs[0],
+                                               head, n, ticket))
+    nbytes = slab8.numel() + 4 * slabs.numel()
+    b = 2.0 * nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"time flush k6 W = {FLUSH_W} rows at {BENCH_BATCH} slots "
+          f"({nbytes / 1e6:.2f} MB): ring_store {t_k:.5f} ms on the device, "
+          f"plain {t_p:.5f} ms, bound {b:.5f} ms (bytes); one row "
+          f"{t_1:.5f} ms ({FLUSH_W} of them {FLUSH_W * t_1:.5f})")
+    if err:
+        problems.append("the timed W-row store differs from plain")
+    result["k6"] = {"ms": t_k, "plain_ms": t_p, "bound_ms": b,
+                    "one_row_ms": t_1, "max_abs_err": err}
+    record["flush"] = result
+    del kv8, kv8_p, sc, sc_p
+    torch.cuda.empty_cache()
+    if problems:
+        raise PhaseError("; ".join(problems))
+    return [{"name": f"ring_store (W-row flush, ring_flush = {FLUSH_W})",
+             "route": "cuda",
+             "source": "fp8tpu_torch/kernels/csrc/inplace.cu",
+             "replaces": "fp8tpu/kernels/inplace.py:27",
+             "launches": flush_launches["ring_store"], "max_abs_err": err,
+             "ms": t_k, "plain_ms": t_p, "bound_ms": b, "bound_by": "bytes",
+             "library_ms": None}]
+
+
 # -- phase 5 ----------------------------------------------------------------
 
 def phase_time(record, batch: int, launches):
@@ -4290,12 +5325,18 @@ def time_paged_prefill(record):
         before = dict(qmatmul.dequant_routes)
         run()
         on_route = {k: qmatmul.dequant_routes[k] - before[k] for k in before}
-        prof = profile_decode_step(run, best)
-        k3_ms, k3_n = prof["groups"].get(k3_group, (0.0, 0))
+        # torch.profiler has dropped kernel records of a profile (one run:
+        # ~25 of ~1636, two of them K3), so a profile whose K3 count differs
+        # from the wrappers' is taken again, up to three times
+        for attempt in range(1, 4):
+            prof = profile_decode_step(run, best)
+            k3_ms, k3_n = prof["groups"].get(k3_group, (0.0, 0))
+            if k3_n == sum(on_route.values()):
+                break
         result[fmt] = {"wall_ms": best, "wall_ms_all": times,
                        "device_ms": prof["device_ms"], "k3_ms": k3_ms,
                        "k3_launches": k3_n, "k3_by_route": on_route,
-                       "profile": prof}
+                       "profile": prof, "profiles_taken": attempt}
         print(f"time prefill (paged, {B} x {T} tokens, {B * T} rows a "
               f"linear), {fmt} weights: {best:.3f} ms wall clock (best of "
               f"3), {prof['device_ms']:.3f} ms of kernels in "
@@ -4320,7 +5361,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,k1,k2,k3,k4,k5,k6,t1,t2,main,train,"
-                            "serve,serve_paged,spec,time")
+                            "serve,serve_paged,spec,moe,flush,time")
     ap.add_argument("--out", default="chip_smoke_out/chip_smoke.json")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
@@ -4343,7 +5384,7 @@ def main(argv=None) -> int:
           f"{torch.version.cuda}")
     record = {"card": card, "phases": {}}
     launches = serve_launches = paged_launches = train_launches = None
-    kernels, study_kernels, spec_kernels = [], [], []
+    kernels, study_kernels, spec_kernels, moe_kernels = [], [], [], []
     ok = True
     for phase in phases:
         t0 = time.perf_counter()
@@ -4378,6 +5419,10 @@ def main(argv=None) -> int:
                 paged_launches = phase_serve_paged(record)
             elif phase == "spec":
                 spec_kernels = time_spec(record, phase_spec(record))
+            elif phase == "moe":
+                moe_kernels += time_moe(record, phase_moe(record))
+            elif phase == "flush":
+                moe_kernels += phase_flush(record)
             elif phase == "time":
                 if None in (launches, serve_launches, paged_launches,
                             train_launches):
@@ -4405,9 +5450,9 @@ def main(argv=None) -> int:
     if not ok:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    if kernels or study_kernels or spec_kernels:
+    if kernels or study_kernels or spec_kernels or moe_kernels:
         print(json.dumps({"kernels": kernels + study_kernels
-                          + spec_kernels}))
+                          + spec_kernels + moe_kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,10 @@
 // non-negative row, as jnp's % does.
 //
 // The serving ring's write is one launch: the payload slab and the scale
-// slab at row head, and head = (head + 1) mod n in place.  Thread 0 of each
+// slab at row head, and head = (head + 1) mod n in place.  A batched ring
+// write (ring_flush = W) stores W consecutive rows of each slab the same
+// way: slab row w lands at row (head + w) mod n, so a start near the end
+// wraps and no byte lands outside the ring, and head = (head + W) mod n.  Thread 0 of each
 // block is the block's only reader of head: it reads head, then takes a
 // ticket (a release atomicAdd on a word of the ring's own, so its read is
 // done before the ticket counts), and the block that draws the last ticket
@@ -39,12 +42,14 @@ struct Pair {
     unsigned char* buf;
     const unsigned char* slab;
     long long row_bytes;
+    long long bytes;           // rows x row_bytes: the whole slab
     long long nvec;            // 16-byte pieces (0 where not aligned)
 };
 
 // Piece i, in the order a's 16-byte pieces, b's, then a's bytes past its
-// pieces, then b's: where it comes from, where its row starts, and its
-// width.
+// pieces, then b's: where it comes from, its offset in the slab, and its
+// width.  A 16-byte piece never straddles two rows: pieces exist only
+// where row_bytes is a multiple of 16.
 struct Piece {
     unsigned char* buf;
     const unsigned char* src;
@@ -55,7 +60,7 @@ struct Piece {
 
 __device__ __forceinline__ Piece piece(const Pair& a, const Pair& b,
                                        long long i) {
-    const long long tail_a = a.row_bytes - 16 * a.nvec;
+    const long long tail_a = a.bytes - 16 * a.nvec;
     if (i < a.nvec) return {a.buf, a.slab, a.row_bytes, 16 * i, true};
     i -= a.nvec;
     if (i < b.nvec) return {b.buf, b.slab, b.row_bytes, 16 * i, true};
@@ -67,7 +72,7 @@ __device__ __forceinline__ Piece piece(const Pair& a, const Pair& b,
 
 __global__ void __launch_bounds__(THREADS)
 ring_store_kernel(Pair a, Pair b, int* idx, unsigned* ticket, int n,
-                  long long total) {
+                  int rows, long long total) {
     __shared__ int row;
     const long long i0 = (long long)blockIdx.x * THREADS * PER + threadIdx.x;
     uint4 v[PER];
@@ -100,7 +105,14 @@ ring_store_kernel(Pair a, Pair b, int* idx, unsigned* ticket, int n,
         const long long i = i0 + k * THREADS;
         if (i >= total) break;
         const Piece q = piece(a, b, i);
-        unsigned char* dst = q.buf + (long long)r * q.row_bytes + q.off;
+        long long dr = r, off = q.off;
+        if (rows > 1) {            // slab row w goes to row (r + w) mod n
+            const long long w = q.off / q.row_bytes;
+            off -= w * q.row_bytes;
+            dr += w;
+            if (dr >= n) dr -= n;
+        }
+        unsigned char* dst = q.buf + dr * q.row_bytes + off;
         if (q.vec) {
             *reinterpret_cast<uint4*>(dst) = v[k];
         } else {
@@ -109,44 +121,48 @@ ring_store_kernel(Pair a, Pair b, int* idx, unsigned* ticket, int n,
     }
     if (threadIdx.x == 0 && ticket != nullptr && drawn == gridDim.x - 1) {
         __threadfence();
-        *idx = r + 1 == n ? 0 : r + 1;
+        *idx = (int)(((long long)r + rows) % n);
         *ticket = 0;
     }
 }
 
-Pair pair_of(void* buf, const void* slab, long long row_bytes) {
+Pair pair_of(void* buf, const void* slab, long long row_bytes, int rows) {
     Pair p;
     p.buf = reinterpret_cast<unsigned char*>(buf);
     p.slab = reinterpret_cast<const unsigned char*>(slab);
     p.row_bytes = row_bytes;
+    p.bytes = row_bytes * rows;
     p.nvec = ((reinterpret_cast<uintptr_t>(buf) | (uintptr_t)row_bytes
                | reinterpret_cast<uintptr_t>(slab)) & 15) == 0
-        ? row_bytes / 16 : 0;
+        ? p.bytes / 16 : 0;
     return p;
 }
 
 }  // namespace
 
-// buf_b / slab_b may be null with row_bytes_b 0 (one pair).  ticket null:
-// idx is only read; else idx is advanced to (idx + 1) mod n by the launch
-// (ticket: a zeroed int32 of the caller's, back at 0 when the launch ends).
+// buf_b / slab_b may be null with row_bytes_b 0 (one pair).  Each slab is
+// ``rows`` rows (1 <= rows <= n), stored at rows idx .. idx + rows - 1 mod
+// n.  ticket null: idx is only read; else idx is advanced to (idx + rows)
+// mod n by the launch (ticket: a zeroed int32 of the caller's, back at 0
+// when the launch ends).
 extern "C" int fp8_ring_store(void* buf_a, const void* slab_a,
                               long long row_bytes_a, void* buf_b,
                               const void* slab_b, long long row_bytes_b,
-                              void* idx, void* ticket, long long n,
+                              void* idx, void* ticket, long long n, int rows,
                               void* stream) {
-    if (n <= 0 || n > 0x7FFFFFFFLL || row_bytes_a < 0 || row_bytes_b < 0)
+    if (n <= 0 || n > 0x7FFFFFFFLL || row_bytes_a < 0 || row_bytes_b < 0
+        || rows < 1 || rows > n)
         return (int)cudaErrorInvalidValue;
-    const Pair a = pair_of(buf_a, slab_a, row_bytes_a);
-    const Pair b = pair_of(buf_b, slab_b, row_bytes_b);
-    const long long total = a.nvec + b.nvec + (row_bytes_a - 16 * a.nvec)
-        + (row_bytes_b - 16 * b.nvec);
+    const Pair a = pair_of(buf_a, slab_a, row_bytes_a, rows);
+    const Pair b = pair_of(buf_b, slab_b, row_bytes_b, rows);
+    const long long total = a.nvec + b.nvec + (a.bytes - 16 * a.nvec)
+        + (b.bytes - 16 * b.nvec);
     long long blocks = (total + THREADS * PER - 1) / (THREADS * PER);
     if (blocks < 1) blocks = 1;
     if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
     ring_store_kernel<<<(unsigned)blocks, THREADS, 0,
                         reinterpret_cast<cudaStream_t>(stream)>>>(
         a, b, reinterpret_cast<int*>(idx), reinterpret_cast<unsigned*>(ticket),
-        (int)n, total);
+        (int)n, rows, total);
     return (int)cudaGetLastError();
 }

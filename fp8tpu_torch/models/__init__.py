@@ -23,16 +23,19 @@ from .transformer import (
     Decoder,
     DecoderConfig,
     DecoderLayer,
+    MoEMLP,
     RMSNorm,
     apply_rope,
     decoder,
+    moe_aux_loss,
     rope_freqs,
     tiny_config,
 )
 
 __all__ = [
-    "Attention", "Decoder", "DecoderConfig", "DecoderLayer", "RMSNorm",
-    "apply_rope", "decoder", "rope_freqs", "tiny_config",
+    "Attention", "Decoder", "DecoderConfig", "DecoderLayer", "MoEMLP",
+    "RMSNorm", "apply_rope", "decoder", "moe_aux_loss", "rope_freqs",
+    "tiny_config",
     "MLP", "RESNET_EXEMPT", "RESNET_OUTPUT_FUSED", "BasicBlock",
     "Bottleneck", "ResNet", "ResNetConfig", "mlp", "resnet18", "resnet50",
     "resnext50_32x4d", "tiny_resnet", "tiny_resnext", "variables_from_flax",

@@ -9,8 +9,8 @@ give the JAX package's Flax paths (``layer_0/attn/q_proj``);
 
 This is the emulation form (parameters in f32, computation in
 ``cfg.dtype``).  The serving form with real fp8 payloads and the
-hand-written kernels is :mod:`fp8tpu_torch.serve`.  The mixture-of-experts
-FFN (``n_experts > 0``) is not ported yet and raises.
+hand-written kernels is :mod:`fp8tpu_torch.serve`.  With ``n_experts > 0``
+each layer's FFN is the mixture-of-experts :class:`MoEMLP`.
 """
 
 from __future__ import annotations
@@ -20,11 +20,13 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from fp8tpu_torch._device import resolve_device
+from fp8tpu_torch._device import full_fp32, resolve_device
 from fp8tpu_torch.linen import Dense, Embed, Module, init_params
 from fp8tpu_torch.ops.wrappers import BatchMatmul
+from fp8tpu_torch.parallel.moe import top_k_routing
 
 from .resnet import variables_from_flax  # noqa: F401  (same leaf rules)
 
@@ -140,21 +142,64 @@ class MLP(Module):
         return self.down_proj(gate * torch.sigmoid(gate) * self.up_proj(x))
 
 
+class MoEMLP(Module):
+    """Mixture-of-experts FFN (GShard-style capacity-bounded top-k
+    routing; ``fp8tpu_torch.parallel.moe`` holds the routing).  The expert
+    contractions go through :class:`BatchMatmul` modules named
+    ``experts_up`` / ``experts_down``, so the quantization interceptor
+    covers them with the batchmatmul-input policy.  Each call records the
+    router's aux load-balancing loss as ``aux_loss`` (the Flax module sows
+    it into ``intermediates``); :func:`moe_aux_loss` collects it."""
+
+    def __init__(self, cfg: DecoderConfig):
+        super().__init__()
+        self.cfg = cfg
+        E, Dm, F_ = cfg.n_experts, cfg.d_model, cfg.d_ff
+        self.router = Dense(Dm, E, use_bias=False, dtype=torch.float32)
+        self.up = nn.Parameter(torch.randn(E, Dm, F_) * Dm ** -0.5)
+        self.down = nn.Parameter(torch.randn(E, F_, Dm) * F_ ** -0.5)
+        self.experts_up = BatchMatmul()
+        self.experts_down = BatchMatmul()
+        self.aux_loss: Optional[torch.Tensor] = None
+
+    def forward(self, x):
+        cfg = self.cfg
+        dt = cfg.tdtype()
+        B, S, Dm = x.shape
+        E, k = cfg.n_experts, cfg.moe_top_k
+        T = B * S
+        xt = x.reshape(T, Dm)
+        capacity = max(int(cfg.moe_capacity_factor * k * T / E), k)
+
+        logits = self.router(xt.to(torch.float32))
+        dispatch, combine, aux = top_k_routing(logits, k, capacity)
+        self.aux_loss = aux
+
+        with full_fp32():
+            xe = torch.einsum("tec,td->ecd", dispatch,
+                              xt.to(torch.float32)).to(dt)
+            h = self.experts_up(xe, self.up.to(dt))
+            h = F.gelu(h.to(torch.float32), approximate="tanh").to(dt)
+            ye = self.experts_down(h, self.down.to(dt))
+            y = torch.einsum("ecd,tec->td", ye.to(torch.float32), combine)
+        return y.reshape(B, S, Dm).to(x.dtype)
+
+
 class DecoderLayer(Module):
     def __init__(self, cfg: DecoderConfig):
         super().__init__()
-        if cfg.n_experts > 0:
-            raise NotImplementedError(
-                "the mixture-of-experts FFN (MoEMLP, moe_aux_loss) is not "
-                "ported yet; it comes with MoE serving")
         self.attn_norm = RMSNorm(cfg.d_model, cfg.norm_eps)
         self.attn = Attention(cfg)
         self.mlp_norm = RMSNorm(cfg.d_model, cfg.norm_eps)
-        self.mlp = MLP(cfg)
+        if cfg.n_experts > 0:
+            self.moe = MoEMLP(cfg)
+        else:
+            self.mlp = MLP(cfg)
 
     def forward(self, x, positions, mask):
         h = x + self.attn(self.attn_norm(x), positions, mask)
-        return h + self.mlp(self.mlp_norm(h))
+        ffn = self.moe if hasattr(self, "moe") else self.mlp
+        return h + ffn(self.mlp_norm(h))
 
 
 class Decoder(Module):
@@ -190,10 +235,26 @@ class Decoder(Module):
         return logits.to(torch.float32)
 
 
+def moe_aux_loss(model: nn.Module) -> torch.Tensor:
+    """Mean of the Switch load-balancing losses that the :class:`MoEMLP`
+    layers of ``model`` recorded in their last call (about 1 when the
+    router is perfectly balanced; 0 for a model without experts).
+
+    Add ``aux_weight * moe_aux_loss(model)`` to the task loss after a
+    forward: without it, capacity-bounded routing collapses onto a few
+    experts and drops the rest's tokens."""
+    leaves = [m.aux_loss.to(torch.float32) for m in model.modules()
+              if isinstance(m, MoEMLP) and m.aux_loss is not None]
+    if not leaves:
+        return torch.zeros((), dtype=torch.float32)
+    return torch.stack(leaves).mean()
+
+
 def decoder(cfg: DecoderConfig, device="cuda",
             generator: Optional[torch.Generator] = None) -> Decoder:
     """A Decoder on ``device`` (the card unless the caller asks for the
-    CPU), its Dense weights redrawn from ``generator`` when one is given."""
+    CPU), its Dense weights (and expert stacks) redrawn from ``generator``
+    when one is given."""
     dev = resolve_device(device)
     model = Decoder(cfg)
     if generator is not None:
@@ -201,6 +262,12 @@ def decoder(cfg: DecoderConfig, device="cuda",
         with torch.no_grad():
             model.embed.embedding.normal_(
                 0.0, 1.0 / math.sqrt(cfg.d_model), generator=generator)
+            for m in model.modules():
+                if isinstance(m, MoEMLP):
+                    m.up.normal_(0.0, cfg.d_model ** -0.5,
+                                 generator=generator)
+                    m.down.normal_(0.0, cfg.d_ff ** -0.5,
+                                   generator=generator)
     return model.to(dev)
 
 

@@ -1,4 +1,5 @@
-"""FP8 serving: fp8-weight decoder, quantized KV cache (ring or paged pool
+"""FP8 serving: fp8-weight decoder (dense or mixture-of-experts),
+quantized KV cache (ring, with optional batched ring writes, or paged pool
 with a prefix cache), continuous batching, draft-and-verify speculation
 (single-sequence on the ring, batched under continuous batching on the
 paged pool)."""

@@ -149,7 +149,7 @@ class ServingEngine:
                  draft_cfg: Optional[ServeConfig] = None,
                  k_spec: int = 4, spec_rounds_per_dispatch: int = 1,
                  device="cuda"):
-        _check_cfg(cfg, params)
+        _check_cfg(cfg)
         self.device = resolve_device(device)
         m = cfg.model
         self.params = params
@@ -209,7 +209,7 @@ class ServingEngine:
         if self.spec:
             if draft_cfg is None:
                 raise ValueError("draft_params needs draft_cfg")
-            _check_cfg(draft_cfg, draft_params)
+            _check_cfg(draft_cfg)
             dm = draft_cfg.model
             max_pages = -(-self.max_seq // page_size)
             self.draft_params, self.draft_cfg = draft_params, draft_cfg
@@ -367,11 +367,17 @@ class ServingEngine:
     def _pick_chunk(self) -> int:
         """Power-of-two chunk covering the LONGEST remaining budget (capped
         at chunk_size).  Slots finishing earlier are parked on the device;
-        their surplus tokens are discarded at reconciliation."""
+        their surplus tokens are discarded at reconciliation.  On the ring
+        with ring_flush = W > 1, chunks round up to a multiple of W (the
+        head only advances by W: ring_flush=6 gives 6, 12, 24, ...)."""
         tgt = max((self._rem_est(i) for i in range(self.n_slots)), default=0)
         if tgt <= 0:
             return 0
-        return min(_pow2ceil(tgt), _pow2ceil(self.chunk_size))
+        chunk = min(_pow2ceil(tgt), _pow2ceil(self.chunk_size))
+        w = self.cfg.ring_flush
+        if w and w > 1 and not self.use_paged:
+            chunk = -(-max(chunk, w) // w) * w
+        return chunk
 
     def _retire(self, i: int):
         st = self.slots[i]

@@ -11,20 +11,23 @@ stay on the device.
 
 On a CUDA tensor every linear is one launch of a hand-written kernel
 (:func:`fp8_linear` -> K3 ``dequant_matmul``, :func:`int4_linear` -> K5
-``int4_matmul``), a decode step's ring write (both slabs and the head's
-advance) is one launch of K6 ``ring_store``, and paged decode with ``paged_decode_impl="kernel"`` reads
-the pooled prefix through one launch of K4 ``paged_decode_attention`` per
-layer; on the CPU the same functions use the kernels' plain versions.  The
-other attention products, the tied LM head and the bf16-weight linear of
-the bf16 twin are PyTorch matmuls, as they are XLA dots in the JAX package.
+``int4_matmul``; an MoE layer's experts are one launch each per stack), a
+decode step's ring write (both slabs and the head's advance) is one launch
+of K6 ``ring_store`` (with ``ring_flush = W``, one launch every W steps
+that stores W rows), and paged decode with ``paged_decode_impl="kernel"``
+reads the pooled prefix through one launch of K4 ``paged_decode_attention``
+per layer; on the CPU the same functions use the kernels' plain versions.
+The other attention products, the router, the tied LM head and the
+bf16-weight linear of the bf16 twin are PyTorch matmuls, as they are XLA
+dots in the JAX package.
 
 Layout is the JAX package's: parameters stacked per layer, weights
-``(L, K, N)``.  Where the JAX functions return a new cache, these update
-``ring.kv8`` / ``ring.sc`` (``paged.pool`` / ``paged.sc``) in place and
-return the same cache object.
+``(L, K, N)``, expert stacks ``(L, E, K, N)``.  Where the JAX functions
+return a new cache, these update ``ring.kv8`` / ``ring.sc`` (``paged.pool``
+/ ``paged.sc``) in place and return the same cache object.
 
-Not ported yet, each raising NotImplementedError: MoE expert stacks,
-``ring_flush > 1`` and ``matmul_impl="direct"`` (W8A8).
+Not ported yet, raising NotImplementedError: ``matmul_impl="direct"``
+(W8A8).
 
 Design notes:
 
@@ -64,9 +67,6 @@ _FP8_DTYPES = {"e4m3": torch.float8_e4m3fn, "e5m2": torch.float8_e5m2,
 _NEG = -1e30  # finite mask value keeps exp() NaN-free for empty slots
 
 _LATER = {
-    "moe": "MoE expert stacks (_moe_ffn) are not ported yet; they come with "
-           "MoE serving",
-    "ring_flush": "ring_flush > 1 (batched ring writes) is not ported yet",
     "direct": 'matmul_impl="direct" (W8A8 on fp8 tensor cores) is not '
               "ported yet",
 }
@@ -85,10 +85,12 @@ class ServeConfig:
     embed_fmt: str = "bf16"
     # K-group size for int4 weights (None: per-output-channel scales only).
     int4_group: Optional[int] = 128
-    # Ring-write batching: 0 writes each step's row directly; W > 1 raises.
-    # (The ring write itself is always the ring_store kernel on a CUDA ring
-    # and its plain version on the CPU: the JAX package's staging_impl has
-    # no counterpart.)
+    # Ring-write batching: 0 writes each step's row directly; W > 1 keeps
+    # the chunk's fresh k/v in a W-row side buffer and flushes it into the
+    # ring every W steps (decode chunks and max_seq must be multiples of
+    # W).  (The ring write itself is always the ring_store kernel on a CUDA
+    # ring and its plain version on the CPU: the JAX package's
+    # staging_impl has no counterpart.)
     ring_flush: int = 0
     # Paged-decode chunk strategy.  "ringview" (default, as in the JAX
     # package): gather the chunk's snapshot of the mapped pages into the
@@ -104,19 +106,15 @@ class ServeConfig:
 PAGED_DECODE_IMPLS = ("ringview", "kernel", "side", "side-eager", "scatter")
 
 
-def _check_cfg(cfg: ServeConfig, params: Optional[Dict] = None) -> None:
+def _check_cfg(cfg: ServeConfig) -> None:
     if cfg.matmul_impl == "direct":
         raise NotImplementedError(_LATER["direct"])
     if cfg.matmul_impl != "convert":
         raise ValueError(f"unknown matmul_impl {cfg.matmul_impl!r}")
-    if cfg.ring_flush and cfg.ring_flush > 1:
-        raise NotImplementedError(_LATER["ring_flush"])
     if cfg.paged_decode_impl not in PAGED_DECODE_IMPLS:
         raise ValueError(f"unknown paged_decode_impl "
                          f"{cfg.paged_decode_impl!r}; one of "
                          f"{PAGED_DECODE_IMPLS}")
-    if cfg.model.n_experts > 0 or (params is not None and "router" in params):
-        raise NotImplementedError(_LATER["moe"])
 
 
 def _dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -244,10 +242,12 @@ def _rms(x, scale, eps):
 _ATTN_KEYS = ("attn_norm", "q8", "qs", "k8", "ks", "v8", "vs", "o8", "os")
 _DENSE_MLP_KEYS = ("mlp_norm", "gate8", "gates", "up8", "ups",
                    "down8", "downs")
+_MOE_KEYS = ("mlp_norm", "router", "eup8", "eups", "edown8", "edowns")
 _LINEARS = {"q_proj": ("q8", "qs"), "k_proj": ("k8", "ks"),
             "v_proj": ("v8", "vs"), "o_proj": ("o8", "os")}
 _MLP_LINEARS = {"gate_proj": ("gate8", "gates"), "up_proj": ("up8", "ups"),
                 "down_proj": ("down8", "downs")}
+_EXPERT_STACKS = {"up": ("eup8", "eups"), "down": ("edown8", "edowns")}
 
 
 def convert_decoder_params(variables: Dict[str, torch.Tensor],
@@ -257,9 +257,13 @@ def convert_decoder_params(variables: Dict[str, torch.Tensor],
     """Quantize trained Decoder parameters into the serving artifact:
     stacked per-layer payloads + scales.  ``variables`` is the state_dict
     of :class:`fp8tpu_torch.models.Decoder` (Dense weights (out, in));
-    the artifact's weights are (L, K, N) as in the JAX package."""
-    if cfg.n_experts > 0 or any(".moe." in k for k in variables):
-        raise NotImplementedError(_LATER["moe"])
+    the artifact's weights are (L, K, N) as in the JAX package.  An MoE
+    decoder's layers carry the router as bf16 (L, Dm, E) and the expert
+    stacks quantized per expert and output channel: ``eup8`` (L, E, Dm, F)
+    with ``eups`` (L, E, F), ``edown8`` (L, E, F, Dm) with ``edowns`` (L,
+    E, Dm); int4 stacks are nibble-packed along K with (L, E, G, N)
+    grouped scales."""
+    moe = any(k.startswith("layer_0.moe.") for k in variables)
 
     def q(w):  # (K, N)
         if fmt == "bf16":
@@ -271,19 +275,36 @@ def convert_decoder_params(variables: Dict[str, torch.Tensor],
         payload, s = quantize_weights(w, fmt, axis=-1)
         return payload, s.reshape(-1)
 
-    layers = {k: [] for k in _ATTN_KEYS + _DENSE_MLP_KEYS}
+    layers = {k: [] for k in _ATTN_KEYS
+              + (_MOE_KEYS if moe else _DENSE_MLP_KEYS)}
     payload_dtype = None
+
+    def add(tag8, tags, w):
+        """Quantize a (K, N) weight, or each expert of an (E, K, N) stack."""
+        nonlocal payload_dtype
+        qs = [q(we) for we in (w if w.ndim == 3 else w[None])]
+        payload_dtype = qs[0][0].dtype
+        p8 = torch.stack([bits(p) for p, _ in qs])
+        scales = torch.stack([s for _, s in qs])
+        layers[tag8].append(p8 if w.ndim == 3 else p8[0])
+        layers[tags].append(scales if w.ndim == 3 else scales[0])
+
     for i in range(cfg.n_layers):
         pre = f"layer_{i}."
         layers["attn_norm"].append(variables[pre + "attn_norm.scale"])
         layers["mlp_norm"].append(variables[pre + "mlp_norm.scale"])
-        for block, table in (("attn", _LINEARS), ("mlp", _MLP_LINEARS)):
+        tables = (("attn", _LINEARS),) if moe else \
+            (("attn", _LINEARS), ("mlp", _MLP_LINEARS))
+        for block, table in tables:
             for name, (tag8, tags) in table.items():
                 w = variables[f"{pre}{block}.{name}.weight"].detach()
-                payload, s = q(w.t())
-                payload_dtype = payload.dtype
-                layers[tag8].append(bits(payload))
-                layers[tags].append(s)
+                add(tag8, tags, w.t())
+        if moe:
+            layers["router"].append(
+                variables[pre + "moe.router.weight"].detach().t()
+                .to(torch.bfloat16))
+            for name, (tag8, tags) in _EXPERT_STACKS.items():
+                add(tag8, tags, variables[pre + "moe." + name].detach())
     out = {}
     for k, v in layers.items():
         stacked = torch.stack([t.detach() for t in v])
@@ -305,36 +326,42 @@ def random_serve_params(cfg: DecoderConfig, fmt: str = "e4m3",
     """Random serving parameters built DIRECTLY in the target dtype on
     ``device``, from a generator seeded with ``seed``: for runs of models
     whose f32 form would not be worth materialising.  Weight streaming
-    cost is value-independent."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError(_LATER["moe"])
+    cost is value-independent.  An MoE config (``n_experts > 0``) gets a
+    bf16 router and expert stacks in which every expert has its own draw
+    and its own memory (the JAX function broadcasts one draw over the
+    experts; a shared payload would sit in the card's L2 and flatter every
+    timing)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    L, Dm, FF = cfg.n_layers, cfg.d_model, cfg.d_ff
+    L, Dm, FF, E = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.n_experts
     HD, KVD = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    lead = (L, E) if E > 0 else (L,)
 
     def normal(shape):
         return torch.randn(shape, dtype=torch.bfloat16, device=dev,
                            generator=gen) * 0.02
 
-    def w(k, n):
+    def w(k, n, lead=(L,)):
         if fmt == "int4":
-            return torch.randint(0, 256, (L, k // 2, n), dtype=torch.uint8,
-                                 device=dev, generator=gen)
+            return torch.randint(0, 256, lead + (k // 2, n),
+                                 dtype=torch.uint8, device=dev, generator=gen)
         if fmt == "int8":
-            return torch.randint(-127, 128, (L, k, n), dtype=torch.int8,
+            return torch.randint(-127, 128, lead + (k, n), dtype=torch.int8,
                                  device=dev, generator=gen)
         dt = torch.bfloat16 if fmt == "bf16" else _FP8_DTYPES[fmt]
-        # one layer at a time: the bf16 draw is twice the payload's size
-        return torch.stack([bits(normal((k, n)).to(dt))
-                            for _ in range(L)]).view(dt)
+        # one (k, n) matrix at a time: the bf16 draw is twice the payload's
+        # size
+        out = torch.empty(lead + (k, n), dtype=dt, device=dev)
+        for mat in out.reshape(-1, k, n):
+            bits(mat).copy_(bits(normal((k, n)).to(dt)))
+        return out
 
-    def sc(k, n):
+    def sc(k, n, lead=(L,)):
         # int4 production scales are grouped (G, N) per layer
         if fmt == "int4":
             g = k // 128 if (k % 128 == 0 and k >= 128) else 1
-            return torch.ones((L, g, n), dtype=torch.float32, device=dev)
-        return torch.ones((L, n), dtype=torch.float32, device=dev)
+            return torch.ones(lead + (g, n), dtype=torch.float32, device=dev)
+        return torch.ones(lead + (n,), dtype=torch.float32, device=dev)
 
     out = {
         "attn_norm": torch.ones((L, Dm), dtype=torch.float32, device=dev),
@@ -343,12 +370,18 @@ def random_serve_params(cfg: DecoderConfig, fmt: str = "e4m3",
         "k8": w(Dm, KVD), "ks": sc(Dm, KVD),
         "v8": w(Dm, KVD), "vs": sc(Dm, KVD),
         "o8": w(HD, Dm), "os": sc(HD, Dm),
-        "gate8": w(Dm, FF), "gates": sc(Dm, FF),
-        "up8": w(Dm, FF), "ups": sc(Dm, FF),
-        "down8": w(FF, Dm), "downs": sc(FF, Dm),
-        "embed": normal((cfg.vocab_size, Dm)),
-        "final_norm": torch.ones((Dm,), dtype=torch.float32, device=dev),
     }
+    if E > 0:
+        out["router"] = torch.randn((L, Dm, E), dtype=torch.bfloat16,
+                                    device=dev, generator=gen) * Dm ** -0.5
+        out.update({"eup8": w(Dm, FF, lead), "eups": sc(Dm, FF, lead),
+                    "edown8": w(FF, Dm, lead), "edowns": sc(FF, Dm, lead)})
+    else:
+        out.update({"gate8": w(Dm, FF), "gates": sc(Dm, FF),
+                    "up8": w(Dm, FF), "ups": sc(Dm, FF),
+                    "down8": w(FF, Dm), "downs": sc(FF, Dm)})
+    out["embed"] = normal((cfg.vocab_size, Dm))
+    out["final_norm"] = torch.ones((Dm,), dtype=torch.float32, device=dev)
     if embed_fmt != "bf16":
         if embed_fmt == "int8":
             out["embed"] = torch.randint(
@@ -381,11 +414,9 @@ def _tensor_from_array(arr, device) -> torch.Tensor:
 
 def serve_params_from_jax(jparams: Dict, device="cuda") -> Dict:
     """The JAX package's serving artifact (the dict its
-    ``convert_decoder_params`` returns, as numpy / ml_dtypes arrays) as the
-    port's tensors, leaf for leaf, in the same layout."""
+    ``convert_decoder_params`` returns, dense or MoE, as numpy / ml_dtypes
+    arrays) as the port's tensors, leaf for leaf, in the same layout."""
     dev = resolve_device(device)
-    if "router" in jparams:
-        raise NotImplementedError(_LATER["moe"])
     return {k: _tensor_from_array(v, dev) for k, v in jparams.items()}
 
 
@@ -416,13 +447,51 @@ def _make_linear(cfg: ServeConfig):
 
 
 def _layer_xs(params, li: int):
-    """Layer ``li``'s parameters: views into the stacked artifact."""
-    return {k: params[k][li] for k in _ATTN_KEYS + _DENSE_MLP_KEYS}
+    """Layer ``li``'s parameters, views into the stacked artifact: the
+    attention keys plus either the dense SwiGLU keys or (an MoE artifact)
+    the router and expert keys."""
+    keys = _ATTN_KEYS + (_MOE_KEYS if "router" in params
+                         else _DENSE_MLP_KEYS)
+    return {k: params[k][li] for k in keys}
+
+
+def _moe_ffn(x, xs, mcfg: DecoderConfig, linear):
+    """Serving-form MoE FFN: every expert on every token, combined with the
+    exact top-k router probabilities (not renormalised), as the JAX
+    package's ``_moe_ffn`` does; at decode batch sizes every expert's
+    payload streams from device memory either way.
+
+    Router logits in f32 (IEEE, not TF32: a flipped choice near a tie
+    changes a token's whole FFN output), softmax, top-k by a stable
+    descending sort (ties go to the lower expert index, as
+    ``jax.lax.top_k`` does).  Each expert's up and down linear is one call
+    of ``linear`` on the expert's contiguous (K, N) slice: one K3 (K5 for
+    int4) launch per expert per stack on a CUDA tensor.  tanh-GELU in f32,
+    the combine in f32, one rounding to x's dtype.  x: (..., Dm) bf16."""
+    shp = x.shape
+    xt = x.reshape(-1, shp[-1])                               # (T, Dm)
+    logits = _dot_f32(xt.to(torch.float32), xs["router"])     # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    E = probs.shape[-1]
+    gv, gi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = min(mcfg.moe_top_k, E)
+    gates = torch.zeros_like(probs).scatter_(-1, gi[:, :k], gv[:, :k])
+    y = None
+    for e in range(E):
+        he = linear(xt, xs["eup8"][e], xs["eups"][e])         # (T, F)
+        he = F.gelu(he.to(torch.float32), approximate="tanh").to(xt.dtype)
+        ye = linear(he, xs["edown8"][e], xs["edowns"][e]).to(torch.float32)
+        part = ye * gates[:, e, None]
+        y = part if y is None else y + part
+    return y.reshape(shp).to(x.dtype)
 
 
 def _ffn_block(h, xs, mcfg: DecoderConfig, linear):
-    """Post-attention dense SwiGLU FFN with residual."""
+    """Post-attention FFN with residual: dense SwiGLU, or MoE when the
+    layer carries router / expert payloads."""
     x = _rms(h, xs["mlp_norm"], mcfg.norm_eps)
+    if "router" in xs:
+        return h + _moe_ffn(x, xs, mcfg, linear)
     act = F.silu(linear(x, xs["gate8"], xs["gates"]).to(torch.float32)
                  ).to(x.dtype) * linear(x, xs["up8"], xs["ups"])
     return h + linear(act, xs["down8"], xs["downs"])
@@ -588,42 +657,71 @@ def sample_tokens(logits: torch.Tensor, generator: Optional[torch.Generator],
 
 
 def _ring_write_step(ring: RingKVCache, slab8: torch.Tensor,
-                     slabs: torch.Tensor) -> None:
+                     slabs: torch.Tensor, rows: int = 1) -> None:
     """One decode step's cache update: the (2, L, B*KV, D) payload slab and
     the (2, L, B*KV) scale slab stored at the ring head, and ``head =
     (head + 1) mod S`` in place: one ring_store launch on a CUDA ring.
-    Everything that read the head this step (the valid mask) was computed
-    from it before, in stream order."""
+    With ``rows`` = W the slabs carry a leading axis of W steps (the side
+    buffer of a batched ring write), stored at rows ``head .. head + W -
+    1`` and ``head`` advanced by W, still one launch.  Everything that read
+    the head (the valid mask) was computed from it before, in stream
+    order."""
     inplace.ring_store(ring.kv8, slab8, ring.sc, slabs, ring.head,
-                       ring.max_seq, ring.ticket)
+                       ring.max_seq, ring.ticket, rows=rows)
+
+
+def _flush_rows(cfg: ServeConfig, n_steps: int, S: int) -> int:
+    """W, the rows of one batched ring write (``ring_flush``), or 1 where
+    each step writes its own row; the JAX package's alignment contract:
+    the head only advances by W, so chunks and the ring are multiples of
+    it.  A one-step call writes its row directly, as in the JAX package."""
+    W = cfg.ring_flush
+    if not W or W <= 1 or n_steps <= 1:
+        return 1
+    if n_steps % W != 0:
+        raise ValueError(f"ring_flush={W} needs decode chunks divisible by "
+                         f"it (got n_steps={n_steps})")
+    if S % W != 0:
+        raise ValueError(f"ring_flush={W} needs max_seq % W == 0 (got {S})")
+    return W
 
 
 def _steps_impl(params: Dict, ring: RingKVCache, tokens: torch.Tensor,
                 positions: torch.Tensor, generator, temperature: torch.Tensor,
                 n_steps: int, cfg: ServeConfig, want_logits: bool,
                 top_k=None, top_p=None, greedy_only: bool = False):
-    _check_cfg(cfg, params)
+    """The ring decode loop.  With ``ring_flush`` = W > 1 (the JAX
+    package's ``_steps_impl_sideflush``) the steps collect their fresh k/v
+    in a (W, 2, L, B*KV, D) side buffer that every later step of the W
+    attends to (rows j < w of step w), and every W steps one K6 launch
+    flushes the W rows at the head and advances it by W; the ring holds
+    ``pos - w`` tokens of each slot meanwhile."""
+    _check_cfg(cfg)
     mcfg = cfg.model
     H, KV, D, L = mcfg.n_heads, mcfg.n_kv_heads, mcfg.head_dim, mcfg.n_layers
     B = tokens.shape[0]
     S = ring.max_seq
     BK = B * KV
     dev = tokens.device
+    W = _flush_rows(cfg, n_steps, S)
     linear = _make_linear(cfg)
     inv_freq = rope_freqs(mcfg, dev)
-    # One step's fresh k/v of every layer; reused by every step of the
-    # chunk (launches are ordered on the stream).
-    slab8 = torch.empty((2, L, BK, D), dtype=ring.kv8.dtype, device=dev)
-    slabs = torch.empty((2, L, BK), dtype=torch.float32, device=dev)
-    slab_bits = bits(slab8)
+    # The fresh k/v of every layer for W steps (one step without batched
+    # writes); reused by every W steps of the chunk (launches are ordered
+    # on the stream).  Rows not yet written are masked, so their first
+    # values only need to be finite.
+    side8 = torch.zeros((W, 2, L, BK, D), dtype=ring.kv8.dtype, device=dev)
+    side_sc = torch.ones((W, 2, L, BK), dtype=torch.float32, device=dev)
+    side_bits = bits(side8)
 
     toks, pos = tokens.to(torch.int32), positions.to(torch.int32)
     outs = []
-    for _ in range(n_steps):
+    for step in range(n_steps):
+        w = step % W                        # this step's side-buffer row
         h = _embed_lookup(params, toks)
         ang = pos[:, None].to(torch.float32) * inv_freq
         cos, sin = torch.cos(ang)[:, None], torch.sin(ang)[:, None]
-        lens = torch.clamp(pos, max=S)
+        lens = torch.clamp(pos - w, 0, S)   # the ring holds pos - w tokens
         mask = ring_valid_mask(ring.head, lens, S)
 
         for li in range(L):
@@ -637,20 +735,27 @@ def _steps_impl(params: Dict, ring: RingKVCache, tokens: torch.Tensor,
             kq8, kqs = quantize_kv(k, cfg.kv_fmt)
             vq8, vqs = quantize_kv(v, cfg.kv_fmt)
 
-            # every layer attends to the ring as it was BEFORE this step;
-            # the fresh token enters as score_self
+            # every layer attends to the ring as it was BEFORE this step
+            # (and, batching writes, to the side rows before w); the fresh
+            # token enters as score_self
+            side = {} if W == 1 else dict(
+                sk8=side8[:, 0, li], sks=side_sc[:, 0, li],
+                sv8=side8[:, 1, li], svs=side_sc[:, 1, li], w=w)
             ctx = _attend_ring(q, kq8, kqs[..., 0], vq8, vqs[..., 0],
                                ring.kv8[:, 0, li], ring.sc[:, 0, li],
                                ring.kv8[:, 1, li], ring.sc[:, 1, li],
-                               ring.head, lens, mcfg, valid_mask=mask)
+                               ring.head, lens, mcfg, valid_mask=mask, **side)
             h = h + linear(ctx, xs["o8"], xs["os"])
             h = _ffn_block(h, xs, mcfg, linear)
-            slab_bits[0, li] = bits(kq8).reshape(BK, D)
-            slab_bits[1, li] = bits(vq8).reshape(BK, D)
-            slabs[0, li] = kqs.reshape(BK)
-            slabs[1, li] = vqs.reshape(BK)
+            side_bits[w, 0, li] = bits(kq8).reshape(BK, D)
+            side_bits[w, 1, li] = bits(vq8).reshape(BK, D)
+            side_sc[w, 0, li] = kqs.reshape(BK)
+            side_sc[w, 1, li] = vqs.reshape(BK)
 
-        _ring_write_step(ring, slab8, slabs)
+        if W == 1:
+            _ring_write_step(ring, side8[0], side_sc[0])
+        elif w == W - 1:
+            _ring_write_step(ring, side8, side_sc, rows=W)
 
         h = _rms(h, params["final_norm"], mcfg.norm_eps)
         logits = _lm_head(params, h)
@@ -731,7 +836,7 @@ def _dense_forward(params, toks: torch.Tensor, cfg: ServeConfig):
     """Dense causal forward over (N, Sp) right-padded prompts, the shared
     prefill body.  Returns (h (N, Sp, Dm) bf16 pre-final-norm,
     pk8 (L, N, Sp, KV, D), pks (L, N, Sp, KV), pv8, pvs)."""
-    _check_cfg(cfg, params)
+    _check_cfg(cfg)
     mcfg = cfg.model
     H, KV, D = mcfg.n_heads, mcfg.n_kv_heads, mcfg.head_dim
     N, Sp = toks.shape
@@ -865,7 +970,7 @@ def full_logits(params: Dict, tokens: torch.Tensor, cfg: ServeConfig
     """Teacher-forcing forward over the SERVING artifact: (S,) tokens ->
     (S, V) f32 logits with dense causal attention over the QUANTIZED k/v
     the decode cache would hold (no cache writes)."""
-    _check_cfg(cfg, params)
+    _check_cfg(cfg)
     mcfg = cfg.model
     H, KV, D = mcfg.n_heads, mcfg.n_kv_heads, mcfg.head_dim
     Sp = tokens.shape[0]
@@ -1043,7 +1148,7 @@ def _steps_impl_paged(params: Dict, paged: PagedKVCache, tokens: torch.Tensor,
     for the NEXT chunk.  "side-eager" writes the pool every step; "scatter"
     writes the pool and the snapshot every step and carries no side
     buffer."""
-    _check_cfg(cfg, params)
+    _check_cfg(cfg)
     mcfg = cfg.model
     H, KV, D, L = mcfg.n_heads, mcfg.n_kv_heads, mcfg.head_dim, mcfg.n_layers
     B = tokens.shape[0]

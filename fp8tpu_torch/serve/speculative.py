@@ -131,7 +131,7 @@ def score_tokens(params: Dict, ring: RingKVCache, tokens: torch.Tensor,
     t + 1 plain decode steps give.  The ring's validity window shrinks to
     ``S - T`` rows, so rows rolled back after this pass never alias into
     the mask once a slot's position exceeds the ring size."""
-    _check_cfg(cfg, params)
+    _check_cfg(cfg)
     mcfg = cfg.model
     KV, D, L = mcfg.n_kv_heads, mcfg.head_dim, mcfg.n_layers
     B, T = tokens.shape
@@ -233,7 +233,7 @@ def score_tokens_paged(params: Dict, paged, tokens: torch.Tensor,
     rollback: the caller advances each slot's position by its own accepted
     count, and rejected rows are invisible to the position mask until they
     are written again."""
-    _check_cfg(cfg, params)
+    _check_cfg(cfg)
     mcfg = cfg.model
     KV, D, L = mcfg.n_kv_heads, mcfg.head_dim, mcfg.n_layers
     B, T = tokens.shape

@@ -161,17 +161,20 @@ def test_engine_long_prompt_is_trimmed_to_the_window():
 
 def test_engine_unported_modes_raise():
     """Speculation lives on the paged path: the ring engine ignores
-    ``draft_params`` (as the JAX engine does); ring_flush > 1 still
-    raises."""
+    ``draft_params`` (as the JAX engine does); the ring engine with
+    ring_flush=4 (which raised before batched ring writes were ported) now
+    answers the request, in chunks of 4."""
     _, _, tcfg, tp, scfg = _setup()
     eng = ServingEngine(tp, scfg, draft_params=tp, draft_cfg=scfg,
                         device="cpu")
     assert eng.spec is False
     assert set(eng.run([Request(uid=0, prompt=[1, 2], max_new_tokens=3)])) \
         == {0}
-    with pytest.raises(NotImplementedError, match="ring_flush"):
-        ServingEngine(tp, dataclasses.replace(scfg, ring_flush=4),
-                      device="cpu")
+    flush = ServingEngine(tp, dataclasses.replace(scfg, ring_flush=4),
+                          device="cpu")
+    out = flush.run([Request(uid=0, prompt=[1, 2], max_new_tokens=3)])
+    assert set(out) == {0} and len(out[0]) == 3
+    assert int(flush.cache.head) % 4 == 0
 
 
 def test_engine_defaults_to_cuda(monkeypatch):

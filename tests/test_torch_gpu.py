@@ -428,6 +428,70 @@ def test_ring_store_kernel_matches_plain(cuda, dtype):
             assert int(head_g) == int(head) and int(ticket) == 0
 
 
+@pytest.mark.parametrize("rows", [2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float8_e4m3fn])
+def test_ring_store_w_rows_matches_plain(cuda, dtype, rows):
+    """The batched ring write: W rows of both slabs in one launch, bit for
+    bit against the plain version, the head advanced by W and the ticket
+    back at 0, from aligned starts and from starts that wrap (n - 1, and
+    past the ring), with no byte written outside it."""
+    g = torch.Generator().manual_seed(5)
+    n, row8, rows_s = 16, (2, 2, 4, 16), (2, 2, 4)
+    guard = 64                          # bytes past the ring, kept as they are
+    store8 = torch.randint(-100, 100, (n * 256 + guard,), generator=g
+                           ).to(torch.int8).view(torch.uint8)
+    store_g = store8.to(cuda)
+    kv8 = store8[:n * 256].view(dtype).reshape((n,) + row8)
+    kv8_g = store_g[:n * 256].view(dtype).reshape((n,) + row8)
+    sc = torch.rand((n,) + rows_s, generator=g)
+    sc_g = sc.to(cuda)
+    ticket = torch.zeros(1, dtype=torch.int32, device=cuda)
+    for idx in (0, rows, n - 1, n + 3, -1):
+        head = torch.tensor(idx, dtype=torch.int32)
+        head_g = head.to(cuda)
+        slab8 = torch.randint(-100, 100, (rows,) + row8, generator=g
+                              ).to(dtype)
+        slabs = torch.rand((rows,) + rows_s, generator=g)
+        before = inplace.launches
+        inplace.ring_store(kv8_g, slab8.to(cuda), sc_g, slabs.to(cuda),
+                           head_g, n, ticket, rows=rows)
+        assert inplace.launches == before + 1
+        inplace.ring_store_plain(kv8, slab8, sc, slabs, head, n, rows=rows)
+        assert torch.equal(store_g.cpu(), store8)
+        assert torch.equal(sc_g.cpu(), sc)
+        assert int(head_g) == int(head) == (idx + rows) % n
+        assert int(ticket) == 0
+
+
+def test_moe_ffn_kernels_match_plain(cuda):
+    """One serving MoE FFN at a width the streaming loop takes (K = 256 and
+    K = 688, a partial promotion chunk): 2E K3 launches against the same
+    call with K3's plain version, on the card."""
+    from fp8tpu_torch.serve import ServeConfig, random_serve_params
+    from fp8tpu_torch.serve import model as smodel
+    cfg = tiny_config(n_layers=1, d_model=256, n_heads=4, n_kv_heads=2,
+                      d_ff=688, vocab_size=128, max_seq_len=64,
+                      n_experts=4, moe_top_k=2)
+    scfg = ServeConfig(model=cfg, weight_fmt="e4m3", kv_fmt="int8")
+    params = random_serve_params(cfg, "e4m3", seed=1, device="cuda")
+    xs = smodel._layer_xs(params, 0)
+    x = torch.randn(8, 256, generator=torch.Generator(device="cuda")
+                    .manual_seed(2), device="cuda").to(torch.bfloat16)
+    linear = smodel._make_linear(scfg)
+    before = qmatmul.dequant_launches
+    got = smodel._moe_ffn(x, xs, cfg, linear)
+    assert qmatmul.dequant_launches == before + 2 * cfg.n_experts
+    orig = qmatmul.dequant_matmul
+    qmatmul.dequant_matmul = qmatmul.dequant_matmul_plain
+    try:
+        want = smodel._moe_ffn(x, xs, cfg, linear)
+    finally:
+        qmatmul.dequant_matmul = orig
+    assert got.dtype == want.dtype == torch.bfloat16
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 2 ** -6 * float(want.float().abs().max()), err
+
+
 @pytest.mark.parametrize("fmt", [torch.int8, torch.float8_e4m3fn,
                                  torch.float8_e5m2, torch.bfloat16])
 @pytest.mark.parametrize("batch,kv,g,d,page,mp", [(3, 2, 2, 16, 8, 4),

@@ -557,20 +557,30 @@ def test_chosen_logprob_matches_jax(rng):
 # -- what waits, and the device rules ------------------------------------------
 
 def test_unported_options_raise_not_implemented():
+    """W8A8 still raises; ring_flush > 1 and MoE artifacts, which raised
+    before they were ported, now serve: a one-step call with ring_flush
+    writes its row directly (as the JAX package does), and a random MoE
+    artifact decodes."""
     _, tcfg, _, _ = _models()
     _, tp = _artifact("e4m3")
     ring = RingKVCache.create(2, 1, S, 2, 16, "int8", device="cpu")
     tok = torch.zeros(1, dtype=torch.int32)
-    for kw, msg in ((dict(matmul_impl="direct"), "W8A8"),
-                    (dict(ring_flush=4), "ring_flush")):
-        cfg = ServeConfig(model=tcfg, kv_fmt="int8", **kw)
-        with pytest.raises(NotImplementedError, match=msg):
-            decode_step(tp, ring, tok, tok, cfg)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        random_serve_params(tiny_config(n_experts=4, **TINY), device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        decode_step({**tp, "router": tok}, ring, tok, tok,
-                    ServeConfig(model=tcfg, kv_fmt="int8"))
+    with pytest.raises(NotImplementedError, match="W8A8"):
+        decode_step(tp, ring, tok, tok, ServeConfig(
+            model=tcfg, kv_fmt="int8", matmul_impl="direct"))
+    want, _ = decode_step(tp, RingKVCache.create(2, 1, S, 2, 16, "int8",
+                                                 device="cpu"), tok, tok,
+                          ServeConfig(model=tcfg, kv_fmt="int8"))
+    got, ring = decode_step(tp, ring, tok, tok, ServeConfig(
+        model=tcfg, kv_fmt="int8", ring_flush=4))
+    assert torch.equal(got, want) and int(ring.head) == 1
+    mcfg = tiny_config(n_experts=4, **TINY)
+    mp = random_serve_params(mcfg, device="cpu")
+    assert "router" in mp and tuple(mp["eup8"].shape) == (2, 4, 64, 128)
+    logits, _ = decode_step(mp, RingKVCache.create(2, 1, S, 2, 16, "int8",
+                                                   device="cpu"), tok, tok,
+                            ServeConfig(model=mcfg, kv_fmt="int8"))
+    assert logits.shape == (1, 128) and bool(torch.isfinite(logits).all())
 
 
 def test_cpu_path_launches_no_kernel_and_defaults_to_cuda(monkeypatch):

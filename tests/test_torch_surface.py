@@ -1,9 +1,9 @@
 """The port's package surface against the JAX package's: every public
 name that ``fp8tpu``, ``fp8tpu.numerics``, ``fp8tpu.kernels``,
-``fp8tpu.quant``, ``fp8tpu.training``, ``fp8tpu.models`` and
-``fp8tpu.serve`` export, ``fp8tpu_torch`` and its counterparts export too,
-except the names of modules still to be ported, which are listed here and
-must be exactly the missing ones."""
+``fp8tpu.quant``, ``fp8tpu.training``, ``fp8tpu.models``, ``fp8tpu.serve``
+and ``fp8tpu.parallel`` export, ``fp8tpu_torch`` and its counterparts
+export too, except the names of modules still to be ported, which are
+listed here and must be exactly the missing ones."""
 
 import types
 
@@ -13,6 +13,7 @@ import fp8tpu
 import fp8tpu.kernels
 import fp8tpu.models
 import fp8tpu.numerics
+import fp8tpu.parallel
 import fp8tpu.quant
 import fp8tpu.serve
 import fp8tpu.training
@@ -20,6 +21,7 @@ import fp8tpu_torch
 import fp8tpu_torch.kernels
 import fp8tpu_torch.models
 import fp8tpu_torch.numerics
+import fp8tpu_torch.parallel
 import fp8tpu_torch.quant
 import fp8tpu_torch.serve
 import fp8tpu_torch.training
@@ -36,12 +38,19 @@ RENAMED = {"pallas_qdq": "cuda_qdq"}
 # removes its names here, and the test fails while this set and the missing
 # names differ in either direction.
 NOT_YET_PORTED = {
-    # §1 item 3, MoE serving
-    "models": {"MoEMLP", "moe_aux_loss"},
+    "models": set(),
     # §1 item 6, training/opt8.py
     "training": {"adamw_8bit", "scale_by_adam_8bit", "state_bytes"},
     # §1 item 10, slice 4: quant/awq.py, models/bert.py, models/vision.py
     "quant": {"awq_calibrate_decoder", "awq_equalize", "collect_awq_stats"},
+    # §1 item 10, slice 4: parallel/ (the MoE layer is ported, meshless)
+    "parallel": {
+        "DECODER_PARAM_RULES", "KV_CACHE_SPEC", "KV_SCALE_SPEC",
+        "MOE_PARAM_RULES", "SERVE_PARAM_RULES", "batch_sharding",
+        "make_mesh", "make_pp_mesh", "pipeline_apply", "replicated",
+        "shard_params", "shard_tree", "stack_stage_params",
+        "stage_param_sharding", "wire_all_reduce", "wire_all_reduce_tree",
+        "wire_bytes_per_element"},
 }
 NOT_YET_PORTED["models"] |= {
     "BERT_OUTPUT_FUSED", "BERT_QA_EXEMPT", "BertConfig", "BertEncoder",
@@ -74,8 +83,9 @@ def public_names(module) -> set:
     (fp8tpu.training, fp8tpu_torch.training),
     (fp8tpu.models, fp8tpu_torch.models),
     (fp8tpu.serve, fp8tpu_torch.serve),
+    (fp8tpu.parallel, fp8tpu_torch.parallel),
 ], ids=["package", "numerics", "kernels", "quant", "training", "models",
-        "serve"])
+        "serve", "parallel"])
 def test_port_exports_the_jax_names(jax_mod, torch_mod):
     later = NOT_YET_PORTED.get(jax_mod.__name__.rpartition(".")[2], set())
     want = {RENAMED.get(n, n) for n in public_names(jax_mod)}

@@ -85,8 +85,16 @@ def test_rope_matches():
 
 
 def test_moe_decoder_waits_and_device_defaults_to_cuda(monkeypatch):
-    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
-        Decoder(tiny_config(n_experts=4, **TINY))
+    """An MoE Decoder (which raised before MoE was ported) builds MoEMLP
+    layers and runs; the device rules hold."""
+    from fp8tpu_torch.models import MoEMLP, moe_aux_loss
+    moe = decoder(tiny_config(n_experts=4, **TINY), device="cpu",
+                  generator=torch.Generator().manual_seed(0))
+    assert isinstance(moe.layer_0.moe, MoEMLP)
+    with torch.no_grad():
+        out = moe(torch.zeros(1, 4, dtype=torch.int64))
+    assert out.shape == (1, 4, 128) and bool(torch.isfinite(out).all())
+    assert float(moe_aux_loss(moe)) > 0
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         decoder(tiny_config(**TINY))

@@ -3,8 +3,12 @@
 
     python3 chip_smoke.py [--phases build,k1,k2,k3,k4,k5,k6,t1,t2,main,
                                     train,serve,serve_paged,spec,moe,flush,
-                                    time]
+                                    time,w8a8,deploy]
     python3 chip_smoke.py --phases build,k2_probe   # not in the default run
+    python3 chip_smoke.py --phases build,w8a8_probe # nor these four
+    python3 chip_smoke.py --phases build,w8a8k
+    python3 chip_smoke.py --phases build,k4_layers
+    python3 chip_smoke.py --phases build,profile_probe
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -198,6 +202,48 @@ Phases, each printing its own lines; any failure exits non-zero:
           one paged prefill of 8 x 256 tokens (2048 rows a linear) with
           e4m3 weights and with the bf16 twin's, wall clock and device
           time, K3's share.
+
+12. w8a8   W8A8 serving (``matmul_impl="direct"``) at full width: (a) P2
+          (the per-row activation quantizer) bit for bit against its plain
+          version on the CPU: edge rows (zero, bf16 subnormals, +-bf16 max
+          and -0, +-inf, NaN, the tiny-amax row, ties) and random rows at
+          M in 1-2048 x K in 4096, 11008, 2048, 5504 and a ragged 1001, a
+          second launch bit for bit; (b) P1 (the fp8 x fp8 GEMM) at the
+          four dense and two expert shapes x 12 row counts, e4m3 and e5m2
+          weights, against plain (summation order plus a bf16 step), the
+          f64 product over its promotion edges and a second launch, one-sign
+          terms over K = 11008, every (activation, weight) code pair
+          through both tiles; (d) K3 with a row scale (int8 direct) on the
+          same checks; (e) decode steps at batch 64 on the ring and the
+          paged pool ("kernel"), e4m3 and int8 weights: one step with
+          every layer started from the plain run's input to it (every
+          layer's written rows >= 0.99 equal, its output within 5e-2, each
+          K4 launch on its own operands); 4 free-running steps, every P2 /
+          P1 / K3 launch of the first on its own operands, the logits
+          against the drift of an exact-sum plain order (W8A8 is chaotic),
+          launches a step; one MoE step with routing flips counted; (f) 16
+          requests through the EngineServer twice (equal tokens), every
+          token equal to a replay of its admission in the engine's own
+          order; then P1, P2, K3 and ``torch._scaled_mm`` timed at M = 8,
+          64, 512, 2048 on the gate and k/v projections over 8 weight
+          copies, a batch-64 decode step and an 8 x 256 paged prefill,
+          convert and direct in turns.
+   w8a8_probe  (asked for by name) P1's product over K = 11008 of one-sign
+          terms at chunks of 32 to all of K: the measurement behind
+          W8A8_PROMOTE.  w8a8k (by name): (a)-(d) alone.  k4_layers (by
+          name): K4 swapped alone between kernel and plain on a paged
+          step, and its launches against f64.  profile_probe (by name):
+          torch.profiler's device records of the 8 x 256 prefill matched
+          to the host's launch calls, without and with the lead-in every
+          profile opens with.
+13. deploy the deployment path at full width: a float Decoder (f32, 11.9
+          GB, random from a seed), 32 x 256 calibration tokens,
+          awq_calibrate_decoder (e4m3): the float logits before and after
+          the fold, every site no worse than identity; the artifact through
+          disk (about 3 GB under chip_smoke_out/, removed) and back, byte
+          for byte; an EngineServer with direct linears on it answers 16
+          requests, each token equal to the replay in the engine's order;
+          then int4 (groups of 128, K5) from memory, held to the band.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Details go to the JSON
@@ -1853,11 +1899,13 @@ def profile_forward(qm, x, forward_ms: float):
     from torch.profiler import ProfilerActivity, profile
     with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
                                               ProfilerActivity.CUDA]) as p:
+        profile_lead_in()
         qm(x)
         torch.cuda.synchronize()
     by_name = {}
     for e in p.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                LEAD_KERNEL in e.name:
             continue
         us = getattr(e, "device_time", None) or e.cuda_time
         t, n = by_name.get(e.name, (0.0, 0))
@@ -2172,6 +2220,7 @@ def profile_train_step(run, step_ms: float):
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as p:
+            profile_lead_in()
             run()
             torch.cuda.synchronize()
     finally:
@@ -2201,7 +2250,8 @@ def profile_train_step(run, step_ms: float):
 
     for e in sorted((e for e in events
                      if e.device_type == torch.autograd.DeviceType.CUDA
-                     and not getattr(e, "is_user_annotation", False)),
+                     and not getattr(e, "is_user_annotation", False)
+                     and LEAD_KERNEL not in e.name),
                     key=lambda e: e.time_range.start):
         ms = (getattr(e, "device_time", None) or e.cuda_time) / 1000.0
         if "k2_prepass" in e.name:
@@ -2549,40 +2599,79 @@ def phase_serve(record):
     return launches
 
 
-def profile_decode_step(step, step_ms: float, steps: int = 1):
-    """Device time of one decode step by kind of kernel (torch.profiler);
-    fails if the profiler saw no device time.  ``step`` runs ``steps``
-    decode steps (one chunk, where work done once per chunk must be shared
-    out); times and launch counts are per step."""
+# torch.profiler can lose the device records of the first launches of its
+# window (20-odd in one 8 x 256 prefill profile: the first K3 among them;
+# phase_profile_probe): a profile opens with a lead-in of spin kernels,
+# waits, then runs the work; the lead-in's records are left out.
+PROFILE_LEAD_LAUNCHES = 64
+PROFILE_LEAD_S = 0.05
+LEAD_KERNEL = "spin_kernel"    # torch.cuda._sleep's kernel
+
+
+def kernel_kind(name: str) -> str:
+    """The group of a device event's name in the profiles' breakdowns."""
+    low = name.lower()
+    if "w8a8_gemm_kernel" in name:
+        return "P1 fp8 x fp8 GEMM (hand-written)"
+    if "quantize_rows_kernel" in name:
+        return "P2 row quantizer (hand-written)"
+    if "w_gemm" in name or "ws::stream_kernel" in name:
+        return "K3/K5 weight GEMM (hand-written)"
+    if "ring_store_kernel" in name:
+        return "K6 ring store (hand-written)"
+    if "paged_attention_kernel" in name:
+        return "K4 paged attention (hand-written)"
+    if any(w in low for w in ("gemm", "cutlass", "xmma", "gemv", "cublas",
+                              "nvjet")):
+        return "library matmuls (attention, LM head, bf16 linears)"
+    if "copy" in low or "memcpy" in low:
+        return "copies and casts (KV upcast to bf16, slabs, dtype casts)"
+    if "reduce" in low or "softmax" in low or "argmax" in low:
+        return "reductions (rms mean, amax, sums, argmax)"
+    return "elementwise and other"
+
+
+def profile_lead_in():
+    """The opening of a profile window: PROFILE_LEAD_LAUNCHES short spin
+    kernels (LEAD_KERNEL), the device drained, a PROFILE_LEAD_S wait."""
+    import torch
+    for _ in range(PROFILE_LEAD_LAUNCHES):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    time.sleep(PROFILE_LEAD_S)
+
+
+def open_profile(step, lead: bool = True):
+    """``step()`` once under torch.profiler (CPU and CUDA activities), after
+    one call outside it; with ``lead``, the window opens with
+    ``profile_lead_in``.  Returns the profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as p:
+        if lead:
+            profile_lead_in()
         step()
         torch.cuda.synchronize()
+    return p
+
+
+def profile_decode_step(step, step_ms: float, steps: int = 1):
+    """Device time of one decode step by kind of kernel (torch.profiler);
+    fails if the profiler saw no device time.  ``step`` runs ``steps``
+    decode steps (one chunk, where work done once per chunk must be shared
+    out); times and launch counts are per step."""
+    import torch
+    p = open_profile(step)
     groups, names = {}, {}
     for e in p.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                LEAD_KERNEL in e.name:
             continue
         ms = (getattr(e, "device_time", None) or e.cuda_time) / 1000.0 / steps
-        low = e.name.lower()
-        if "w_gemm" in e.name or "ws::stream_kernel" in e.name:
-            kind = "K3/K5 weight GEMM (hand-written)"
-        elif "ring_store_kernel" in e.name:
-            kind = "K6 ring store (hand-written)"
-        elif "paged_attention_kernel" in e.name:
-            kind = "K4 paged attention (hand-written)"
-        elif any(w in low for w in ("gemm", "cutlass", "xmma", "gemv",
-                                    "cublas", "nvjet")):
-            kind = "library matmuls (attention, LM head, bf16 linears)"
-        elif "copy" in low or "memcpy" in low:
-            kind = "copies and casts (KV upcast to bf16, slabs, dtype casts)"
-        elif "reduce" in low or "softmax" in low or "argmax" in low:
-            kind = "reductions (rms mean, amax, sums, argmax)"
-        else:
-            kind = "elementwise and other"
+        kind = kernel_kind(e.name)
         t, n = groups.get(kind, (0.0, 0))
         groups[kind] = (t + ms, n + 1)
         t, n = names.get(e.name, (0.0, 0))
@@ -2932,20 +3021,75 @@ def clone_pool(paged):
 
 
 def with_plain_kernels(fn):
-    """``fn()`` with K3, K4, K5 and K6 replaced by their plain versions."""
+    """``fn()`` with K3, K4, K5, K6, P1 and P2 replaced by their plain
+    versions."""
     from fp8tpu_torch.kernels import inplace, int4_matmul, qmatmul
     from fp8tpu_torch.kernels import paged_attention as k4
     orig = (qmatmul.dequant_matmul, k4.paged_decode_attention,
-            inplace.ring_store, int4_matmul.int4_matmul)
+            inplace.ring_store, int4_matmul.int4_matmul,
+            qmatmul.w8a8_matmul, qmatmul.quantize_rows)
     qmatmul.dequant_matmul = qmatmul.dequant_matmul_plain
     k4.paged_decode_attention = k4.paged_decode_attention_plain
     inplace.ring_store = inplace.ring_store_plain
     int4_matmul.int4_matmul = int4_matmul.int4_matmul_plain
+    qmatmul.w8a8_matmul = qmatmul.w8a8_matmul_plain
+    qmatmul.quantize_rows = qmatmul.quantize_rows_plain
     try:
         return fn()
     finally:
         (qmatmul.dequant_matmul, k4.paged_decode_attention,
-         inplace.ring_store, int4_matmul.int4_matmul) = orig
+         inplace.ring_store, int4_matmul.int4_matmul,
+         qmatmul.w8a8_matmul, qmatmul.quantize_rows) = orig
+
+
+def with_plain_but_k4(fn):
+    """``fn()`` with the plain versions of with_plain_kernels, K4 (the
+    paged attention kernel) excepted."""
+    from fp8tpu_torch.kernels import paged_attention as k4
+    kernel = k4.paged_decode_attention
+
+    def inner():
+        k4.paged_decode_attention = kernel
+        return fn()
+    return with_plain_kernels(inner)
+
+
+class _CheckedK4:
+    """While the context is open, every K4 launch is held against its plain
+    version on the same operands within k4_reference's bounds: one dict a
+    launch in ``checks``."""
+
+    def __init__(self, checks):
+        self.checks = checks
+
+    def __enter__(self):
+        from fp8tpu_torch.kernels import paged_attention as k4
+        self.k4, self.orig = k4, k4.paged_decode_attention
+        orig, checks = self.orig, self.checks
+
+        def checked(q, pool, sc, table, lens, layer, page_size, kv_heads):
+            out = orig(q, pool, sc, table, lens, layer, page_size=page_size,
+                       kv_heads=kv_heads)
+            acc, m, l = out
+            acc_p, m_p, l_p = k4.paged_decode_attention_plain(
+                q, pool, sc, table, lens, layer, page_size=page_size,
+                kv_heads=kv_heads)
+            _, _, _, m_tol, l_tol, acc_tol = k4_reference(
+                q, pool, sc, table, lens, layer, kv=kv_heads, page=page_size)
+            checks.append({
+                "shape": tuple(q.shape), "kv_heads": kv_heads,
+                "ok": bool(((m - m_p).abs() <= m_tol).all()
+                           and ((l - l_p).abs() <= l_tol).all()
+                           and ((acc - acc_p).abs() <= acc_tol).all()),
+                "err_over_bound": float(((acc - acc_p).abs()
+                                         / acc_tol).max())})
+            return out
+
+        k4.paged_decode_attention = checked
+        return self
+
+    def __exit__(self, *exc):
+        self.k4.paged_decode_attention = self.orig
 
 
 SPEC_LAYER_EQUAL = 0.25        # equal payload bytes in every layer (below)
@@ -3212,37 +3356,15 @@ def phase_spec(record):
     # "kernel" mode: every K4 launch of the draft (D = 64, G = 2) against
     # its plain version within k4_reference's bounds.
     checks = []
-    orig_k4 = k4.paged_decode_attention
-
-    def checked_k4(q, pool, sc, table, lens, layer, page_size, kv_heads):
-        out = orig_k4(q, pool, sc, table, lens, layer, page_size=page_size,
-                      kv_heads=kv_heads)
-        acc, m, l = out
-        acc_p, m_p, l_p = k4.paged_decode_attention_plain(
-            q, pool, sc, table, lens, layer, page_size=page_size,
-            kv_heads=kv_heads)
-        _, _, _, m_tol, l_tol, acc_tol = k4_reference(
-            q, pool, sc, table, lens, layer, kv=kv_heads, page=page_size)
-        checks.append({
-            "shape": tuple(q.shape), "kv_heads": kv_heads,
-            "ok": bool(((m - m_p).abs() <= m_tol).all()
-                       and ((l - l_p).abs() <= l_tol).all()
-                       and ((acc - acc_p).abs() <= acc_tol).all()),
-            "err_over_bound": float(((acc - acc_p).abs() / acc_tol).max())})
-        return out
-
     tp, tpos = spec_pool(cfg, SERVE_SLOTS, gen)
     dp, dpos = spec_pool(dcfg, SERVE_SLOTS, gen)
     pend = torch.randint(1, cfg.vocab_size, (SERVE_SLOTS, 2), device="cuda",
                          generator=gen, dtype=torch.int32)
     pend_n = torch.ones(SERVE_SLOTS, device="cuda", dtype=torch.int32)
     zeros = torch.zeros(SERVE_SLOTS, device="cuda")
-    k4.paged_decode_attention = checked_k4
-    try:
+    with _CheckedK4(checks):
         spec.spec_round(params, tp, dparams, dp, pend, pend_n, tpos, dpos,
                         None, zeros, SPEC_K, scfg, dscfg, any_sampled=False)
-    finally:
-        k4.paged_decode_attention = orig_k4
     bad = [c for c in checks if not c["ok"]]
     worst = max((c["err_over_bound"] for c in checks), default=0.0)
     print(f"spec (c) one round at {SERVE_SLOTS} slots: {len(checks)} draft K4 "
@@ -4194,6 +4316,31 @@ def phase_moe(record):
     return launches
 
 
+def k4_library(q, paged, lens, layer, kv_heads):
+    """K4's (acc, m, l) by library calls: the slots' pages gathered, upcast
+    and scaled to f32, the score and context products as torch.matmul
+    (IEEE f32), masked past ``lens``."""
+    import torch
+    from fp8tpu_torch._device import full_fp32
+    B, KVG, D = q.shape
+    KV, G, P = kv_heads, KVG // kv_heads, paged.page_size
+    pages = paged.page_table.clamp(min=0).long()            # (B, MP)
+    T = pages.shape[1] * P
+    kv = paged.pool[pages, :, layer].to(torch.float32)      # (B, MP, 2, P KV, D)
+    sc = paged.sc[pages, :, layer]                          # (B, MP, 2, P KV)
+    kv = (kv * sc[..., None]).reshape(B, -1, 2, P, KV, D)
+    kv = kv.permute(0, 2, 4, 1, 3, 5).reshape(B, 2, KV, T, D)
+    qh = q.to(torch.float32).reshape(B, KV, G, D)
+    with full_fp32():
+        s = torch.matmul(qh, kv[:, 0].transpose(-1, -2))    # (B, KV, G, T)
+        valid = torch.arange(T, device=q.device)[None] < lens[:, None]
+        s = torch.where(valid[:, None, None], s, -math.inf)
+        m = s.amax(-1)
+        p = torch.exp(s - m[..., None])
+        acc = torch.matmul(p, kv[:, 1])
+    return acc.reshape(B, KVG, D), m.reshape(B, KVG), p.sum(-1).reshape(B, KVG)
+
+
 def time_moe(record, launches):
     """The MoE path's kernels at its own shapes, beside the plain version,
     the bound and a PyTorch call: K3 on the expert up projection (2048 x
@@ -4318,19 +4465,23 @@ def time_moe(record, launches):
     t_ops = 2.0 * 2 * tokens * KV * G * D / F32_SIMT_FLOPS * 1e3
     b, by = max(t_bytes, t_ops), ("operations" if t_ops > t_bytes
                                   else "bytes")
+    lib = k4_library(q, paged, lens, L - 1, KV)
+    lib_err = float((lib[0] - want[0]).abs().max())
+    t_l = device_ms(lambda: k4_library(q, paged, lens, L - 1, KV))
     print(f"time moe k4 G={G}: {B} slots x 200 tokens, int8 pool, one layer: "
           f"kernel {t_k:.5f} ms on the device, plain {t_p:.4f} ms, bound "
-          f"{b:.5f} ms ({by}); no one PyTorch call computes it")
+          f"{b:.5f} ms ({by}); gather + upcast + torch.matmul {t_l:.5f} ms "
+          f"(|acc - plain| {lib_err:.3e})")
     rows.append({"kernel": "K4", "batch": B, "tokens": tokens, "ms": t_k,
                  "plain_ms": t_p, "bound_ms": b, "bound_by": by,
-                 "max_abs_err": err})
+                 "library_ms": t_l, "max_abs_err": err})
     entries.append({
         "name": "paged_decode_attention (MoE, G = 2)", "route": "cuda",
         "source": "fp8tpu_torch/kernels/csrc/paged_attention.cu",
         "replaces": "fp8tpu/kernels/paged_attention.py:55",
         "launches": launches["moe_paged_decode_attention"],
         "max_abs_err": err, "ms": t_k, "plain_ms": t_p, "bound_ms": b,
-        "bound_by": by, "library_ms": None})
+        "bound_by": by, "library_ms": t_l})
     del paged
 
     # K6: one decode step's row of the MoE ring at the served slots
@@ -4374,6 +4525,1209 @@ def time_moe(record, launches):
     STATE.pop("moe_int4")
     torch.cuda.empty_cache()
     return entries
+
+
+# -- phase w8a8 ----------------------------------------------------------------
+
+FP8_TC_FLOPS = 1979e12         # H100 SXM dense fp8 tensor-core rate
+# The W8A8 shapes: the four dense serving linears (q/o, k/v, gate/up, down)
+# and the MoE config's expert up and down.
+W8A8_KN = [(4096, 4096), (4096, 1024), (4096, 11008), (11008, 4096),
+           (2048, 5504), (5504, 2048)]
+W8A8_MS = (1, 8, 9, 16, 17, 63, 64, 65, 128, 512, 700, 2048)
+P2_MS = (1, 8, 64, 512, 2048)
+P2_KS = (4096, 11008, 2048, 5504, 1001)
+# Above this many rows the plain version and the f64 product are taken on
+# the first W8A8_COLS output columns (8 column tiles, every row tile): the
+# full-output f32 and f64 products of 84 launches would take minutes.
+W8A8_SLICE_M = 512
+W8A8_COLS = 1024
+W8A8_STEPS = 4                 # decode steps held against plain
+W8A8_PROBE = (344, 64, 16, 8, 4, 2, 1)   # k32 steps a chunk (344: all of K)
+
+
+def p2_edge_rows(k: int):
+    """Rows of bf16 (R, k) at the edges of P2's rules: a zero row, rows of
+    bf16 subnormals (flushed: scale 1, codes 0), +-bf16 max with -0, +inf
+    and -inf rows, a NaN row, a row whose amax lies below 448 2^-126 (the
+    tiny-amax row: the port keeps the subnormal scale), a row of values
+    around the e4m3 rounding ties, and a normal row."""
+    import torch
+    rows = torch.zeros(9, k)
+    rows[1, ::3] = 2.0 ** -130
+    rows[1, 1::3] = -(2.0 ** -133)
+    rows[2, 0], rows[2, 1], rows[2, 2] = 3.3895313892515355e38, -0.0, \
+        -3.3895313892515355e38
+    rows[2, 3:] = torch.linspace(-1e38, 1e38, k - 3)
+    rows[3, :] = 1.0
+    rows[3, 5] = math.inf
+    rows[4, :] = -2.0
+    rows[4, 7] = -math.inf
+    rows[5, :] = 0.5
+    rows[5, 9] = math.nan
+    rows[6, :4] = torch.tensor([1e-37, -3e-38, 0.0, 5e-38])
+    rows[7, :] = torch.arange(k) * (448.0 / k) + 0.0625
+    rows[8, :] = torch.linspace(-3.0, 3.0, k)
+    return rows.to(torch.bfloat16)
+
+
+def p2_case(rows, label, x, fmt="e4m3"):
+    """P2 on the card against its plain version on the CPU (the host's NaN
+    rules decide): codes and scales bit for bit, and a second launch."""
+    import torch
+    from fp8tpu_torch.kernels import qmatmul
+    q, s = qmatmul.quantize_rows(x, fmt)
+    q2, s2 = qmatmul.quantize_rows(x, fmt)
+    wq, ws = qmatmul.quantize_rows_plain(x.cpu(), fmt)
+    codes = int((q.view(torch.uint8).cpu() != wq.view(torch.uint8)).sum())
+    scales = int((s.cpu().view(torch.int32) != ws.view(torch.int32)).sum())
+    again = int((q2.view(torch.uint8) != q.view(torch.uint8)).sum()) \
+        + int((s2.view(torch.int32) != s.view(torch.int32)).sum())
+    ok = codes == 0 and scales == 0 and again == 0
+    rows.append({"case": label, "codes_differing": codes,
+                 "scales_differing": scales, "repeat_differing": again,
+                 "max_abs_err": 0.0 if ok else math.inf,
+                 "max_err_over_bound": 0.0 if ok else math.inf, "ok": ok})
+    if not ok:
+        print(f"  FAIL {label}: {codes} codes, {scales} scales differ from "
+              f"plain, {again} from a second launch")
+    return q, s
+
+
+def w8a8_tolerance(xq, xs, w8, s, want):
+    """|kernel - plain| allowed for P1: both f32 sums of exact products carry
+    at most K 2^-24 of sum|x w| (summation order), times xs s; a bf16
+    result may land one bf16 step away."""
+    import torch
+    from fp8tpu_torch._device import full_fp32
+    k = xq.shape[1]
+    with full_fp32():
+        mag = torch.matmul(xq.float().abs(), w8.float().abs())
+    scale = (xs.reshape(-1, 1) * s.reshape(1, -1)).abs()
+    tol = 2.0 * k * 2.0 ** -24 * mag * scale + 1e-30
+    if want.dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * want.float().abs()
+    return tol
+
+
+def w8a8_reference(xq, xs, w8, s, edges, out_dtype):
+    """(exact, allowed |out - exact|) for P1's output: the f64 product of the
+    codes within k2_reference's random-walk bound over P1's promotion
+    edges, then the scales' f32 products and, for bf16, the last
+    rounding."""
+    import torch
+    exact, tol = k2_reference(xq.float(), w8.float(), edges)
+    scale = xs.double().reshape(-1, 1) * s.double().reshape(1, -1)
+    exact = exact * scale
+    rel = 3 * 2.0 ** -24 + (2.0 ** -8 if out_dtype == torch.bfloat16 else 0)
+    return exact, tol * scale.abs() + rel * exact.abs() + 1e-30
+
+
+def w8a8_gemm_case(rows, label, got, again, xq, xs, w8, s, edges, cols):
+    """One P1 (or int8 K3) launch against its plain version, the f64
+    product over its promotion edges and a second launch (bit for bit);
+    the first two on the first ``cols`` columns."""
+    import torch
+    from fp8tpu_torch.kernels import qmatmul
+    wc, sc = w8[:, :cols], s[:cols]
+    want = qmatmul.w8a8_matmul_plain(xq, xs, wc, sc, got.dtype)
+    tol = w8a8_tolerance(xq, xs, wc, sc, want)
+    ref = w8a8_reference(xq, xs, wc, sc, edges, got.dtype)
+    return _gemm_case(rows, label, got[:, :cols], want, tol, None, ref) and \
+        _repeat_ok(rows, got, again)
+
+
+def _repeat_ok(rows, got, again):
+    bad = bits_equal(again, got)
+    rows[-1]["repeat_bits"] = bad
+    if bad:
+        rows[-1]["ok"] = False
+        print(f"  FAIL {rows[-1]['case']}: a second launch differs in {bad} "
+              "elements")
+    return bad == 0
+
+
+def w8a8_pair_codes(rows, w_dtype, m_block, label):
+    """Every (activation code, weight code) pair through P1: xq (256, 32)
+    holds code i in row i's first column, w8 (32, 256) code j in column
+    j's first row, zeros elsewhere, unit scales; so out[i, j] is the one
+    product code_i code_j, exact, NaN where either is NaN (or 0 x inf).
+    Value for value against the plain version (NaN where it is NaN), in
+    launches of ``m_block`` rows (64: the decode tiles, 256: prefill)."""
+    import torch
+    from fp8tpu_torch.kernels import qmatmul
+    codes = torch.arange(256, device="cuda", dtype=torch.uint8)
+    xq = torch.zeros(256, 32, device="cuda", dtype=torch.uint8)
+    xq[:, 0] = codes
+    xq = xq.view(torch.float8_e4m3fn)
+    w8 = torch.zeros(32, 256, device="cuda", dtype=torch.uint8)
+    w8[0] = codes
+    w8 = w8.view(w_dtype)
+    ones = torch.ones(256, device="cuda")
+    got = torch.cat([qmatmul.w8a8_matmul(xq[i:i + m_block].contiguous(),
+                                         ones[:m_block], w8, ones,
+                                         torch.float32)
+                     for i in range(0, 256, m_block)])
+    want = qmatmul.w8a8_matmul_plain(xq, ones, w8, ones, torch.float32)
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    bad = int((~same).sum())
+    rows.append({"case": label, "differing": bad,
+                 "max_abs_err": 0.0 if not bad else math.inf,
+                 "max_err_over_bound": 0.0 if not bad else math.inf,
+                 "ok": bad == 0})
+    if bad:
+        print(f"  FAIL {label}: {bad} of 65536 pairs differ")
+
+
+def w8a8_kernel_checks(record):
+    """(a) P2 against plain; (b) P1 at the W8A8 shapes and row counts, e4m3
+    and e5m2 weights; (c) every code pair; (d) K3 with a row scale (int8
+    direct) at the same shapes."""
+    import torch
+    from fp8tpu_torch.kernels import qmatmul
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    sms = qmatmul.sm_count(0)
+    result, problems = {}, []
+
+    # (a) P2
+    rows = []
+    for k in (4096, 1001):
+        x = p2_edge_rows(k).cuda()
+        p2_case(rows, f"p2 edge rows K={k}", x)
+        p2_case(rows, f"p2 edge rows K={k} e5m2", x, "e5m2")
+        tiny = qmatmul.quantize_rows_plain(x[6:7].cpu())
+    for m in P2_MS:
+        for k in P2_KS:
+            x = (torch.randn(m, k, device="cuda", generator=gen)
+                 * torch.rand(m, 1, device="cuda", generator=gen) * 8
+                 ).to(torch.bfloat16)
+            p2_case(rows, f"p2 M={m} K={k}", x)
+    result["p2"] = rows
+    print(f"w8a8 (a) P2: {len(rows)} cases (edge rows: zero, bf16 "
+          f"subnormals, +-bf16 max and -0, +-inf, NaN, tiny amax, ties; "
+          f"random rows at M in {P2_MS} x K in {P2_KS}), codes and scales "
+          f"against plain on the CPU and a second launch bit for bit: "
+          f"{sum(not r['ok'] for r in rows)} failed; the tiny-amax row's "
+          f"scale {float(tiny[1]):.6e} (kept subnormal), codes "
+          f"{tiny[0].view(torch.uint8)[0, :4].tolist()}")
+    if not all(r["ok"] for r in rows):
+        problems.append("P2 differs from its plain version")
+
+    # (b) P1 and (d) K3 with a row scale
+    rows, rows3 = [], []
+    qmatmul.reset_launches()
+    for k, n in W8A8_KN:
+        w = torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
+        w[:, 0] = 0.0                                   # an all-zero column
+        payloads = {f: tuple(t.reshape(-1) if i else t for i, t in enumerate(
+            qmatmul.quantize_weights(w, f))) for f in ("e4m3", "e5m2", "int8")}
+        del w
+        for m in W8A8_MS:
+            x = torch.randn(m, k, device="cuda", generator=gen
+                            ).to(torch.bfloat16)
+            xq, xs = qmatmul.quantize_rows(x)
+            xs = xs.reshape(-1)
+            cols = n if m < W8A8_SLICE_M else min(n, W8A8_COLS)
+            rows_, splits, kper = qmatmul.w8a8_plan(m, n, k, sms)
+            edges = qmatmul.w8a8_edges(k, kper)
+            for fmt in ("e4m3", "e5m2"):
+                w8, s = payloads[fmt]
+                dtypes = (torch.bfloat16, torch.float32) if m in (8, 2048) \
+                    else (torch.bfloat16,)
+                for out_dtype in dtypes:
+                    got = qmatmul.w8a8_matmul(xq, xs, w8, s, out_dtype)
+                    again = qmatmul.w8a8_matmul(xq, xs, w8, s, out_dtype)
+                    w8a8_gemm_case(
+                        rows, f"p1 {fmt} M={m} K={k} N={n} "
+                        f"{str(out_dtype)[6:]} tile {rows_} splits {splits}",
+                        got, again, xq, xs, w8, s, edges, cols)
+            w8, s = payloads["int8"]
+            xc = xq.to(torch.bfloat16)
+            plan = qmatmul.weight_gemm_plan(m, n, k, sms, "w8", xc, w8)
+            got = qmatmul.dequant_matmul(xc, w8, s, torch.bfloat16, xs)
+            again = qmatmul.dequant_matmul(xc, w8, s, torch.bfloat16, xs)
+            edges3 = None if plan.route == "general" else \
+                qmatmul.promotion_edges(k, plan.kper)
+            w8a8_gemm_case(rows3, f"k3 int8 row-scaled M={m} K={k} N={n} "
+                           f"{plan.route}", got, again, xq, xs, w8, s,
+                           edges3, cols)
+        del payloads
+    # one-sign terms over the long K of the down projection: where the
+    # tensor cores' truncation adds up (w8a8_probe measures it)
+    k, n, m = 11008, 4096, 64
+    xq, w8 = probe_operands(gen, m, k, n)
+    xs = torch.rand(m, device="cuda", generator=gen) + 0.5
+    s = torch.rand(n, device="cuda", generator=gen) + 0.5
+    _, _, kper = qmatmul.w8a8_plan(m, n, k, sms)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = qmatmul.w8a8_matmul(xq, xs, w8, s, out_dtype)
+        again = qmatmul.w8a8_matmul(xq, xs, w8, s, out_dtype)
+        w8a8_gemm_case(rows, f"p1 one-sign M={m} K={k} N={n} "
+                       f"{str(out_dtype)[6:]}", got, again, xq, xs, w8, s,
+                       qmatmul.w8a8_edges(k, kper), n)
+    p1_launches = qmatmul.w8a8_launches
+    for w_dtype, fmt in ((torch.float8_e4m3fn, "e4m3"),
+                         (torch.float8_e5m2, "e5m2")):
+        for mb in (64, 256):
+            w8a8_pair_codes(rows, w_dtype, mb, f"p1 every e4m3 x {fmt} code "
+                            f"pair, launches of {mb} rows")
+    torch.cuda.synchronize()
+    result["p1"], result["k3_row_scale"] = rows, rows3
+    for name, rs in (("P1", rows), ("K3 row-scaled (int8)", rows3)):
+        worst = max(r["max_err_over_bound"] for r in rs)
+        f64 = max(r.get("err_over_f64_bound", 0.0) for r in rs)
+        print(f"w8a8 ({'b' if name == 'P1' else 'd'}) {name}: {len(rs)} "
+              f"cases (M in {W8A8_MS} x (K, N) in {W8A8_KN}"
+              f"{', e4m3 / e5m2 weights, one-sign K = 11008, every code pair' if name == 'P1' else ''}; "
+              f"M >= {W8A8_SLICE_M} held on the first {W8A8_COLS} columns): "
+              f"worst err/bound {worst:.3e}, worst err/f64 bound {f64:.3e}; "
+              f"{sum(not r['ok'] for r in rs)} failed")
+        if not all(r["ok"] for r in rs):
+            problems.append(f"{name} disagrees with its plain version, the "
+                            "f64 product or a second launch")
+    print(f"w8a8: P1 launches {p1_launches}, K3 row-scaled launches by route "
+          f"{dict(qmatmul.dequant_routes)}")
+    if qmatmul.dequant_launches != 2 * len(W8A8_KN) * len(W8A8_MS):
+        problems.append("dequant_matmul did not count its row-scaled "
+                        "launches")
+    record["w8a8_kernels"] = result
+    if problems:
+        raise PhaseError("; ".join(problems))
+
+
+def probe_operands(gen, m, k, n):
+    """Positive e4m3 codes of log-uniform magnitude (2^-6 to 2^8): products
+    of 2^-12 to 2^16 whose f32 sums over K lose bits in every order, so a
+    sum the tensor cores keep in fewer bits than f32 shows against the
+    random-walk bound (codes of one binade would sum exactly)."""
+    import torch
+
+    def codes(rows, cols):
+        e = torch.rand(rows, cols, device="cuda", generator=gen) * 14 - 6
+        return torch.exp2(e).to(torch.float8_e4m3fn)
+    return codes(m, k), codes(k, n)
+
+
+def phase_w8a8_probe(record):
+    """P1's product over K = 11008 of terms of one sign (probe_operands) at
+    several tensor-core chunk lengths, unsplit (M = 2048, N = 4096: 512
+    tiles): the measurement behind W8A8_PROMOTE."""
+    import torch
+    from fp8tpu_torch.kernels import qmatmul
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    m, k, n = 2048, 11008, 4096
+    xq, w8 = probe_operands(gen, m, k, n)
+    ones_m = torch.ones(m, device="cuda")
+    ones_n = torch.ones(n, device="cuda")
+    _, splits, kper = qmatmul.w8a8_plan(m, n, k, qmatmul.sm_count(0))
+    if splits != 1:
+        raise PhaseError(f"the probe's shape splits K ({splits})")
+    cols = 512
+    exact = None
+    rows = []
+    for promote in W8A8_PROBE:
+        got = qmatmul.w8a8_matmul(xq, ones_m, w8, ones_n, torch.float32,
+                                  promote=promote)[:, :cols]
+        edges = qmatmul.w8a8_edges(k, kper, promote)
+        ex, tol = k2_reference(xq.float(), w8[:, :cols].float(), edges)
+        rel = (got.double() - ex) / ex
+        rows.append({"promote_steps": promote, "chunk": 32 * promote,
+                     "err_over_tol": k2_ratio(got, ex, tol),
+                     "mean_rel_err": float(rel.mean()),
+                     "max_abs_rel_err": float(rel.abs().max())})
+        print(f"w8a8_probe chunk {32 * promote} (M={m} K={k} N={n}, first "
+              f"{cols} columns, positive codes 2^-6..2^8): |err| / tolerance "
+              f"{rows[-1]['err_over_tol']:.3e}, mean relative error "
+              f"{rows[-1]['mean_rel_err']:.3e}, max |relative error| "
+              f"{rows[-1]['max_abs_rel_err']:.3e}")
+        del ex, tol
+    record["w8a8_probe"] = {"rows": rows,
+                            "w8a8_promote": qmatmul.W8A8_PROMOTE}
+    used = [r for r in rows if r["promote_steps"] == qmatmul.W8A8_PROMOTE]
+    if not used or used[0]["err_over_tol"] > 1.0:
+        raise PhaseError("P1's chunk length does not keep the long sum "
+                         "within the tolerance")
+
+
+W8A8_TIME_MS = (8, 64, 512, 2048)
+
+
+def phase_w8a8(record):
+    """W8A8 serving (matmul_impl="direct") at full width: (a)-(d) the
+    kernels (w8a8_kernel_checks); (e) decode steps at batch 64 on the ring
+    and the paged pool in "kernel" mode, e4m3 and int8 weights, int8 KV,
+    direct against the plain versions: one step with every layer started
+    from the plain run's input to it (forced_step), every layer held; 4
+    free-running steps, their launches held on their own operands; and one
+    MoE step with routing flips counted; (f) 16 requests through the
+    EngineServer, every token equal to a replay of its admission in the
+    engine's own order (replay_engine).  Returns the main path's launches
+    (f)."""
+    import dataclasses
+    import torch
+    from fp8tpu_torch.kernels import inplace, qmatmul
+    from fp8tpu_torch.kernels import paged_attention as k4
+    from fp8tpu_torch.serve import (PagedKVCache, RingKVCache, ServeConfig,
+                                    decode_step, decode_step_paged,
+                                    prefill_batch, prefill_batch_paged,
+                                    random_serve_params)
+    from fp8tpu_torch.serve import engine as engine_mod
+
+    w8a8_kernel_checks(record)
+    cfg = serve_config()
+    L, KV, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    B = BENCH_BATCH
+    result, problems = {}, []
+    if "e4m3" not in STATE:
+        STATE["e4m3"] = random_serve_params(cfg, "e4m3", seed=0)
+    params = {"e4m3": STATE["e4m3"],
+              "int8": random_serve_params(cfg, "int8", seed=32)}
+
+    def ring_state(prm, scfg, slots=B, mcfg=cfg):
+        g = torch.Generator(device="cuda").manual_seed(33)
+        ring = RingKVCache.create(mcfg.n_layers, slots, SERVE_SEQ,
+                                  mcfg.n_kv_heads, mcfg.head_dim, "int8")
+        prompts = torch.randint(1, mcfg.vocab_size, (slots, 32),
+                                device="cuda", generator=g, dtype=torch.int32)
+        lengths = torch.randint(8, 33, (slots,), device="cuda", generator=g,
+                                dtype=torch.int32)
+        zi = torch.zeros(slots, device="cuda", dtype=torch.int32)
+        _, ring, toks, pos = prefill_batch(
+            prm, ring, prompts, torch.arange(slots, device="cuda",
+                                             dtype=torch.int32), lengths,
+            None, torch.zeros(slots, device="cuda"), None, None, zi,
+            zi.clone(), scfg)
+        return ring, toks, pos
+
+    def ring_clone(r):
+        return RingKVCache(r.kv8.clone(), r.sc.clone(), r.head.clone())
+
+    def pool_state(prm, scfg):
+        g = torch.Generator(device="cuda").manual_seed(34)
+        paged = PagedKVCache.create(B * 4, PAGE, L, B, 4, KV, D, "int8")
+        paged.page_table = torch.randperm(
+            B * 4, device="cuda", generator=g).to(torch.int32).reshape(B, 4)
+        prompts = torch.randint(1, cfg.vocab_size, (B, 128), device="cuda",
+                                generator=g, dtype=torch.int32)
+        lengths = torch.randint(70, 129, (B,), device="cuda", generator=g,
+                                dtype=torch.int32)
+        zi = torch.zeros(B, device="cuda", dtype=torch.int32)
+        _, paged, toks, pos = prefill_batch_paged(
+            prm, paged, prompts, torch.arange(B, device="cuda",
+                                              dtype=torch.int32), lengths,
+            None, torch.zeros(B, device="cuda"), None, None, zi, zi.clone(),
+            scfg)
+        return paged, toks, pos
+
+    # (e) decode steps, direct against plain.  W8A8 is discontinuous: two
+    # f32 summation orders of one model drift apart from layer to layer
+    # (trap 49), so each layer is held from a common input (forced_step),
+    # the kernels launch by launch along the path, and the free-running
+    # steps' logits to the drift of a second plain order (exact sums,
+    # with_exact_plain) from the plain one.
+    result["e"] = {}
+    for fmt in ("e4m3", "int8"):
+        prm = params[fmt]
+        scfg = ServeConfig(model=cfg, weight_fmt=fmt, kv_fmt="int8",
+                           matmul_impl="direct")
+        kcfg = dataclasses.replace(scfg, paged_decode_impl="kernel")
+        for name, step, make, clone in (
+                ("ring", lambda st, t, p, prm=prm, c=scfg: decode_step(
+                    prm, st, t, p, c), lambda: ring_state(prm, scfg),
+                 ring_clone),
+                ("paged kernel", lambda st, t, p, prm=prm, c=kcfg:
+                 decode_step_paged(prm, st, t, p, c),
+                 lambda: pool_state(prm, kcfg), clone_pool)):
+            state = make()
+            h0 = int(state[0].head) if name == "ring" else None
+            k4_checks = []
+            f_err, f_dist = forced_step(
+                step, state, clone, KV, h0, k4_checks,
+                with_plain_kernels if name == "ring" else with_plain_but_k4)
+            f_bad = [i for i, (e, d) in enumerate(zip(f_err, f_dist))
+                     if not (e <= SERVE_LOGIT_TOL
+                             and d["equal"] >= SERVE_RING_EQUAL
+                             and d["deq"] <= SERVE_LOGIT_TOL)]
+            k4_bad = [c for c in k4_checks if not c["ok"]]
+            print(f"w8a8 (e) {fmt} weights, {name}: one step with every layer "
+                  f"started from the plain run's input to it"
+                  f"{'' if name == 'ring' else ' (K4 kernel in both)'}: "
+                  f"layer outputs "
+                  f"max|diff| / max|out| [{', '.join(f'{e:.2e}' for e in f_err)}]"
+                  f" (at most {SERVE_LOGIT_TOL}); the rows it wrote, by "
+                  f"layer: {fmt_layers(f_dist)} (each layer at least "
+                  f"{SERVE_RING_EQUAL} equal); K4 launches against plain "
+                  f"{len(k4_checks) - len(k4_bad)} of {len(k4_checks)} "
+                  f"within k4_reference's bounds, worst |acc diff| / bound "
+                  f"{max((c['err_over_bound'] for c in k4_checks), default=0.0):.3f}")
+            if f_bad or len(f_err) != L or k4_bad or \
+                    len(k4_checks) != (L if name != "ring" else 0):
+                problems.append(f"direct {fmt} {name}, layers forced: layers "
+                                f"off {f_bad} of {len(f_err)}, K4 launches "
+                                f"{len(k4_checks)}, off {len(k4_bad)}")
+            qmatmul.reset_launches()
+            k4.reset_launches()
+            inplace.reset_launches()
+            rows = []
+            d_k, d_x, st_k, st_p, st_x, pos0 = direct_steps(
+                step, state, clone, W8A8_STEPS, rows)
+            per_step = tuple(c / W8A8_STEPS for c in (
+                qmatmul.quantize_launches, qmatmul.w8a8_launches,
+                qmatmul.dequant_launches, k4.launches, inplace.launches))
+            live = torch.ones(W8A8_STEPS, B, dtype=torch.bool, device="cuda")
+            same, dist, _ = cache_checks(f"direct {fmt} {name}", st_k, st_p,
+                                         pos0, W8A8_STEPS, KV, live, h0,
+                                         whole_gate=False)
+            same_x, dist_x, _ = cache_checks(f"exact {fmt} {name}", st_x,
+                                             st_p, pos0, W8A8_STEPS, KV,
+                                             live, h0, whole_gate=False)
+            want = (7 * L, 7 * L if fmt == "e4m3" else 0,
+                    0 if fmt == "e4m3" else 7 * L,
+                    L if name != "ring" else 0, 1 if name == "ring" else 0)
+            worst = max(r["max_err_over_bound"] for r in rows)
+            f64 = max(r.get("err_over_f64_bound", 0.0) for r in rows)
+            print(f"w8a8 (e) {fmt} weights, {name}: {W8A8_STEPS} decode steps "
+                  f"at batch {B}: the first step's {len(rows)} P2 / P1 / K3 "
+                  f"launches on their own operands: worst err/bound "
+                  f"{worst:.3e}, err/f64 bound {f64:.3e}, "
+                  f"{sum(not r['ok'] for r in rows)} failed; max|logit diff| "
+                  f"/ max|logit|: kernels vs plain {d_k:.3e}, exact-sum plain "
+                  f"vs plain {d_x:.3e} (kernels held to 3x that, or "
+                  f"{SERVE_LOGIT_TOL}); cache bytes equal {same:.4f} (exact "
+                  f"{same_x:.4f}); the rows the steps wrote, by layer, "
+                  f"kernels vs plain: {fmt_layers(dist)}; exact vs plain: "
+                  f"{fmt_layers(dist_x)}; a step P2 / P1 / K3 / K4 / K6 "
+                  f"{per_step} (expected {want})")
+            if not all(r["ok"] for r in rows):
+                problems.append(f"direct {fmt} {name}: a launch of the step "
+                                "is outside its bounds")
+            if not d_k <= max(3 * d_x, SERVE_LOGIT_TOL) or \
+                    dist[0]["equal"] < SERVE_RING_EQUAL:
+                problems.append(f"direct {fmt} {name}: logits {d_k} against "
+                                f"the orders' drift {d_x}, layer 0 rows "
+                                f"equal {dist[0]['equal']}")
+            if per_step != want:
+                problems.append(f"direct {fmt} {name}: launches a step "
+                                f"{per_step}, expected {want}")
+            result["e"][f"{fmt} {name}"] = {
+                "forced_layer_rel_err": f_err,
+                "forced_written_rows_by_layer": f_dist,
+                "forced_k4_launches": k4_checks,
+                "launch_rows": rows, "max_rel_logit_diff": d_k,
+                "exact_order_drift": d_x, "cache_bytes_equal": same,
+                "written_rows_by_layer": dist,
+                "exact_written_rows_by_layer": dist_x,
+                "launches_per_step": per_step}
+            del state, st_k, st_p, st_x
+    del params["int8"]
+
+    # one MoE decode step with direct linears: each expert quantizes its
+    # own input
+    mcfg = moe_config()
+    mparams = STATE.get("moe") or random_serve_params(mcfg, "e4m3", seed=20)
+    mscfg = ServeConfig(model=mcfg, weight_fmt="e4m3", kv_fmt="int8",
+                        matmul_impl="direct")
+    mstate = ring_state(mparams, mscfg, SERVE_SLOTS, mcfg)
+    qmatmul.reset_launches()
+    worst, flips, st_k, st_p, live, pos0 = moe_steps_vs_plain(
+        lambda st, t, p: decode_step(mparams, st, t, p, mscfg), mstate,
+        ring_clone, 1)
+    off_tie = {t: f for t, f in flips.items() if not f[2]}
+    per = mcfg.n_layers * (4 + 2 * mcfg.n_experts)
+    print(f"w8a8 (e) MoE, one decode step at {SERVE_SLOTS} slots, direct vs "
+          f"plain: {worst:.3e} of max|logit|, routing flips (slot: step, "
+          f"layer, near tie) {flips or 'none'}; P2 / P1 launches "
+          f"{qmatmul.quantize_launches} / {qmatmul.w8a8_launches} (expected "
+          f"{per} each)")
+    if worst > SERVE_LOGIT_TOL or off_tie or qmatmul.w8a8_launches != per:
+        problems.append(f"direct MoE step: logits {worst}, flips off a near "
+                        f"tie {off_tie}, P1 launches {qmatmul.w8a8_launches}")
+    result["e"]["moe"] = {"max_rel_logit_diff": worst, "routing_flips": flips}
+    del st_k, st_p, mparams, mstate
+
+    # (f) the served main path with direct linears, twice (the kernels are
+    # deterministic), every token held to the teacher-forced band
+    scfg = ServeConfig(model=cfg, weight_fmt="e4m3", kv_fmt="int8",
+                       matmul_impl="direct")
+    prompts = {r.uid: r.prompt for r in serve_requests(7, 16, cfg.vocab_size)}
+    qmatmul.reset_launches()
+    inplace.reset_launches()
+    with _Counting(engine_mod, "decode_chunk", steps_arg=6) as dc, \
+            _Counting(engine_mod, "prefill_batch") as pb, \
+            _Admissions(engine_mod) as adm, \
+            _Counting(qmatmul, "w8a8_matmul_plain", forbid=True), \
+            _Counting(qmatmul, "quantize_rows_plain", forbid=True), \
+            _Counting(qmatmul, "dequant_matmul_plain", forbid=True), \
+            _Counting(inplace, "ring_store_plain", forbid=True):
+        out, seconds, _ = run_server(params["e4m3"], scfg, 16)
+    launches = {"quantize_rows": qmatmul.quantize_launches,
+                "w8a8_matmul": qmatmul.w8a8_routes["decode"],
+                "w8a8_matmul_prefill": qmatmul.w8a8_routes["prefill"]}
+    p1_step = (qmatmul.w8a8_launches - 7 * L * pb.calls) / dc.steps
+    again, _, _ = run_server(params["e4m3"], scfg, 16)
+    bad, steps = replay_engine(params["e4m3"], scfg, adm.calls, prompts, out)
+    n_tok = sum(len(v) for v in out.values())
+    print(f"w8a8 (f): 16 requests x {SERVE_NEW} tokens through EngineServer "
+          f"with direct linears ({SERVE_SLOTS} slots): {n_tok} tokens in "
+          f"{seconds:.2f} s; {dc.steps} decode steps, {pb.calls} prefills; "
+          f"launches {launches}, P1 {p1_step:.1f} a decode step (expected "
+          f"{7 * L}); a second run's tokens equal: {again == out}; the "
+          f"replay of each admission in the engine's order: {steps} tokens "
+          f"compared, tokens that differ {bad or 'none'}")
+    if bad or steps != n_tok or again != out or len(out) != 16 or any(
+            len(v) != SERVE_NEW for v in out.values()):
+        problems.append(f"direct engine: tokens unlike the replay's {bad} "
+                        f"({steps} of {n_tok} compared), second run equal "
+                        f"{again == out}")
+    if p1_step != 7 * L or qmatmul.dequant_launches:
+        problems.append(f"direct engine: P1 {p1_step} a step, K3 "
+                        f"{qmatmul.dequant_launches}")
+    result["f"] = {"tokens": n_tok, "seconds": seconds, "launches": launches,
+                   "repeat_equal": again == out, "replayed_tokens": steps,
+                   "unlike_replay": {str(k): v for k, v in bad.items()}}
+    record["w8a8"] = result
+    torch.cuda.empty_cache()
+    if problems:
+        raise PhaseError("; ".join(problems))
+    return launches
+
+
+def w8a8_plain_exact(xq, xs, w8, s, out_dtype=None):
+    """P1's function with the exact sum: the codes' products and sums in
+    f64 (exact: a product of two e4m3 / e5m2 codes spans 2^-34 to 2^32,
+    so K <= 2^16 terms fit f64's 53 bits), rounded once to f32; then
+    ``acc * (xs * s)`` as the plain version.  A second summation order of
+    the same model."""
+    import torch
+    acc = (xq.double() @ w8.double()).float()
+    scale = xs.reshape(-1, 1).float() * s.reshape(1, -1).float()
+    return (acc * scale).to(out_dtype or torch.bfloat16)
+
+
+def dequant_plain_exact(x, w8, scales, out_dtype=None, row_scale=None):
+    """K3's function (with its row scale) on exact f64 sums, as above."""
+    import torch
+    acc = (x.to(torch.bfloat16).double() @ w8.double()).float()
+    s = scales.reshape(1, -1).float()
+    if row_scale is not None:
+        s = row_scale.reshape(-1, 1).float() * s
+    return (acc * s).to(out_dtype or torch.bfloat16)
+
+
+def with_exact_plain(fn):
+    """``fn()`` with the plain versions, P1's and K3's summing exactly."""
+    from fp8tpu_torch.kernels import qmatmul
+    orig = (qmatmul.w8a8_matmul_plain, qmatmul.dequant_matmul_plain)
+    qmatmul.w8a8_matmul_plain = w8a8_plain_exact
+    qmatmul.dequant_matmul_plain = dequant_plain_exact
+    try:
+        return with_plain_kernels(fn)
+    finally:
+        qmatmul.w8a8_matmul_plain, qmatmul.dequant_matmul_plain = orig
+
+
+class _ForcedLayers:
+    """While the context is open, every ``_ffn_block`` call of the serving
+    model (one a layer, where the layer's output is made) keeps that
+    output; given ``outs``, another run's outputs in call order, it hands
+    those on instead, so each layer of this run starts from the other
+    run's input to it and no layer's difference reaches the next."""
+
+    def __init__(self, outs=None):
+        from fp8tpu_torch.serve import model as smodel
+        self.smodel, self.given, self.outs = smodel, outs, []
+
+    def __enter__(self):
+        self.orig = self.smodel._ffn_block
+
+        def shim(h, xs, mcfg, linear):
+            out = self.orig(h, xs, mcfg, linear)
+            self.outs.append(out.clone())
+            return out if self.given is None else \
+                self.given[len(self.outs) - 1]
+
+        self.smodel._ffn_block = shim
+        return self
+
+    def __exit__(self, *exc):
+        self.smodel._ffn_block = self.orig
+
+
+def forced_step(step, state, clone, kv_heads, h0, k4_checks,
+                reference=with_plain_kernels):
+    """One decode step of ``step(state, toks, pos)`` under ``reference``
+    (the plain versions), then with the kernels, every layer of the kernel
+    run started from the reference run's input to it (``_ForcedLayers``).
+    A layer's k / v then come from the same input through P2 and P1 in
+    another order, as layer 0's always do, and its output differs only by
+    what the layer's own launches do.  K4's launches of the kernel run are
+    held on their own operands (``_CheckedK4``, into ``k4_checks``); a
+    paged step's reference keeps K4's kernel (``with_plain_but_k4``), so
+    the layers are held apart from K4's order of summation, which on an
+    ill-conditioned draw moves the softmax by percent (phase_k4_layers).
+    Returns (each layer's max|output diff| / max|output|, the written rows'
+    per-layer distances)."""
+    import torch
+    st, toks, pos = state
+    with _ForcedLayers() as ref:
+        _, st_p = reference(lambda: step(clone(st), toks, pos))
+    with _ForcedLayers(ref.outs) as got, _CheckedK4(k4_checks):
+        _, st_k = step(clone(st), toks, pos)
+    errs = [rel_err(g, w) for g, w in zip(got.outs, ref.outs)]
+    live = torch.ones(1, pos.shape[0], dtype=torch.bool, device="cuda")
+    _, dist, _ = cache_checks("forced", st_k, st_p, pos, 1, kv_heads, live,
+                              h0, whole_gate=False)
+    return errs, dist
+
+
+def direct_launch_cases(rows, p2, p1, k3):
+    """The recorded P2, P1 and K3 launches of one decode step, each on its
+    own operands: P2 bit for bit against plain on the CPU, P1 and the
+    row-scaled K3 within the plain version's bound and the f64 product's
+    over their promotion edges."""
+    import torch
+    from fp8tpu_torch.kernels import qmatmul
+    sms = qmatmul.sm_count(0)
+    for i, (a, kw, (q, s)) in enumerate(p2.calls):
+        wq, ws = qmatmul.quantize_rows_plain(a[0].cpu())
+        bad = int((q.view(torch.uint8).cpu() != wq.view(torch.uint8)).sum()
+                  + (s.cpu().view(torch.int32) != ws.view(torch.int32)).sum())
+        rows.append({"case": f"p2 launch {i}", "differing": bad,
+                     "max_abs_err": 0.0 if not bad else math.inf,
+                     "max_err_over_bound": 0.0 if not bad else math.inf,
+                     "ok": bad == 0})
+    for i, (a, kw, got) in enumerate(p1.calls):
+        xq, xs, w8, s = a[:4]
+        m, k = xq.shape
+        _, _, kper = qmatmul.w8a8_plan(m, w8.shape[1], k, sms)
+        w8a8_gemm_case(rows, f"p1 launch {i}", got, got, xq, xs, w8, s,
+                       qmatmul.w8a8_edges(k, kper), w8.shape[1])
+    for i, (a, kw, got) in enumerate(k3.calls):
+        x, w8, s = a[:3]
+        xs = kw.get("row_scale", a[4] if len(a) > 4 else None)
+        m, k = x.shape
+        plan = qmatmul.weight_gemm_plan(m, w8.shape[1], k, sms, "w8", x, w8)
+        edges = None if plan.route == "general" else \
+            qmatmul.promotion_edges(k, plan.kper)
+        w8a8_gemm_case(rows, f"k3 row-scaled launch {i}", got, got,
+                       x.to(torch.float8_e4m3fn), xs, w8, s, edges,
+                       w8.shape[1])
+
+
+def direct_steps(step, state, clone, steps, rows):
+    """``steps`` decode steps of ``step(state, toks, pos)`` with the kernels,
+    the plain versions and the exact-sum plain versions from one state,
+    all fed the kernel run's greedy tokens; the first kernel step's P2 /
+    P1 / K3 launches held on their own operands (``rows``).  Returns
+    (kernels vs plain, exact vs plain: the worst max|logit diff| /
+    max|logit| over the steps, the three final states, the starting
+    positions)."""
+    import torch
+    from fp8tpu_torch.kernels import qmatmul
+    st_k, toks, pos = state
+    st_p, st_x = clone(st_k), clone(st_k)
+    pos0 = pos.clone()
+    d_k = d_x = 0.0
+    for i in range(steps):
+        if i == 0:
+            with _Recording(qmatmul, "quantize_rows") as p2, \
+                    _Recording(qmatmul, "w8a8_matmul") as p1, \
+                    _Recording(qmatmul, "dequant_matmul") as k3:
+                lk, st_k = step(st_k, toks, pos)
+            direct_launch_cases(rows, p2, p1, k3)
+            del p2, p1, k3
+        else:
+            lk, st_k = step(st_k, toks, pos)
+        lp, st_p = with_plain_kernels(lambda: step(st_p, toks, pos))
+        lx, st_x = with_exact_plain(lambda: step(st_x, toks, pos))
+        top = float(lp.abs().max())
+        if not bool(torch.isfinite(lk).all()):
+            d_k = math.inf
+        d_k = max(d_k, float((lk - lp).abs().max()) / top)
+        d_x = max(d_x, float((lx - lp).abs().max()) / top)
+        toks, pos = lk.argmax(-1).to(torch.int32), pos + 1
+    return d_k, d_x, st_k, st_p, st_x, pos0
+
+
+class _Admissions:
+    """Keep the batch of every ``prefill_batch`` call of ``module`` while the
+    context is open: (prompts, slots, lengths, the ring head as the call
+    found it).  The engine's ring head moves on with every decode step, so
+    it is copied at the call, in stream order."""
+
+    def __init__(self, module):
+        self.module, self.calls = module, []
+
+    def __enter__(self):
+        self.orig = self.module.prefill_batch
+
+        def shim(params, ring, prompts, slots, lengths, *a, **kw):
+            self.calls.append((prompts.clone(), slots.clone(),
+                               lengths.clone(), ring.head.clone()))
+            return self.orig(params, ring, prompts, slots, lengths, *a, **kw)
+
+        self.module.prefill_batch = shim
+        return self
+
+    def __exit__(self, *exc):
+        self.module.prefill_batch = self.orig
+
+
+def replay_engine(params, scfg, admissions, prompts, out):
+    """Every token ``out`` holds (a ring engine's greedy answers, SERVE_SLOTS
+    slots) against a replay of each request in the engine's own summation
+    order.  For each admission the engine made (``_Admissions``): its
+    requests, told apart by their prompts, are prefilled in the rows and
+    slots and at the (rows, length bucket) shape of the engine's call, from
+    prompts built from the requests, on a fresh ring whose head is the
+    engine's at that call; then one ``decode_chunk`` step at a time over
+    the same slots, fed the engine's own tokens.  Every launch has the
+    engine's shape and no kernel of the path mixes rows (P1, P2, the
+    norms, the LM head) or slots (the ring attention), so each slot's
+    numbers are the engine's bit for bit and its argmax must be the
+    engine's token: a token that came from the wrong slot, position, ring
+    row or prompt shows.  Returns ({uid: (step, engine token, replay
+    token) of the first difference, or what went wrong}, steps
+    compared)."""
+    import torch
+    from fp8tpu_torch.serve import RingKVCache, decode_chunk, prefill_batch
+    cfg = scfg.model
+    B = SERVE_SLOTS
+    bad, seen, steps = {}, set(), 0
+    for prompts_d, slots_d, lengths_d, head in admissions:
+        n, sp = prompts_d.shape
+        rows = []                               # (row, slot, uid)
+        for j, (row, slot, ln) in enumerate(zip(prompts_d.tolist(),
+                                                slots_d.tolist(),
+                                                lengths_d.tolist())):
+            if slot >= B:                       # a padding row of the bucket
+                continue
+            uid = next((u for u, p in prompts.items()
+                        if p == row[:ln] and not any(row[ln:])), None)
+            if uid is None or uid in seen:
+                bad[("admission row", j)] = f"slot {slot}: prompt of no " \
+                    "request, or of one admitted twice"
+                continue
+            seen.add(uid)
+            rows.append((j, slot, uid))
+        pr = torch.zeros((n, sp), dtype=torch.int32)
+        sl = torch.full((n,), B, dtype=torch.int32)
+        ln = torch.zeros((n,), dtype=torch.int32)
+        for j, slot, uid in rows:
+            pr[j, :len(prompts[uid])] = torch.tensor(prompts[uid])
+            sl[j], ln[j] = slot, len(prompts[uid])
+        ring = RingKVCache.create(cfg.n_layers, B, SERVE_SEQ, cfg.n_kv_heads,
+                                  cfg.head_dim, scfg.kv_fmt)
+        ring.head.copy_(head)
+        zi = torch.zeros(B, device="cuda", dtype=torch.int32)
+        first, ring, _, pos = prefill_batch(
+            params, ring, pr.cuda(), sl.cuda(), ln.cuda(), None,
+            torch.zeros(n, device="cuda"),
+            torch.zeros(n, device="cuda", dtype=torch.int32),
+            torch.ones(n, device="cuda"), zi, zi.clone(), scfg)
+        got = [first[[j for j, _, _ in rows]]]
+        temps = torch.zeros(B, device="cuda")
+        for t in range(1, SERVE_NEW):
+            toks = [0] * B
+            for _, slot, uid in rows:
+                toks[slot] = out[uid][t - 1]
+            o, _, ring, _, pos = decode_chunk(
+                params, ring, torch.tensor(toks, device="cuda",
+                                           dtype=torch.int32),
+                pos, None, temps, 1, scfg, greedy_only=True)
+            got.append(o[[slot for _, slot, _ in rows], 0])
+        got = torch.stack(got, 1).tolist()      # (requests, SERVE_NEW)
+        for (_, _, uid), g in zip(rows, got):
+            steps += len(g)
+            diff = next((t for t in range(SERVE_NEW) if g[t] != out[uid][t]),
+                        None)
+            if diff is not None:
+                bad[uid] = (diff, out[uid][diff], g[diff])
+        del ring
+    for uid in set(out) - seen:
+        bad[uid] = "never admitted"
+    return bad, steps
+
+
+W8A8_COPIES = 8                # weights a timed GEMM turns over
+
+
+def rotating(weights, fn):
+    """A call of ``fn(w, s)`` on the next of ``weights`` each time."""
+    state = {"i": -1}
+
+    def call():
+        state["i"] = (state["i"] + 1) % len(weights)
+        return fn(*weights[state["i"]])
+    return call
+
+
+def time_w8a8(record, launches):
+    """P1, P2, K3 (convert) and torch._scaled_mm at M in W8A8_TIME_MS on the
+    gate projection (4096 x 11008) and k/v (4096 x 1024), by CUDA-graph
+    replay, the GEMMs turning over W8A8_COPIES weights; one batch-64
+    decode step and one 8 x 256 paged prefill, direct against convert in
+    turns.  Returns the kernels line's entries."""
+    import torch
+    from fp8tpu_torch.kernels import qmatmul
+    from fp8tpu_torch.tools import device_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(36)
+    rows, entries = [], []
+    for (k, n), proj in (((4096, 11008), "gate"), ((4096, 1024), "k/v")):
+        # W8A8_COPIES weights, a launch on each in turn: the timed launch
+        # streams its weight from device memory, not from the 50 MB L2
+        w8s, w5s = [], []
+        for _ in range(W8A8_COPIES):
+            w = torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
+            w8, s = qmatmul.quantize_weights(w, "e4m3")
+            w5, s5 = qmatmul.quantize_weights(w, "e5m2")
+            w8s.append((w8, s.reshape(-1)))
+            w5s.append((w5, s5.reshape(-1)))
+            del w
+        # column-major copies, for torch._scaled_mm only
+        cms = {"e4m3": [(w.t().contiguous().t(), s) for w, s in w8s],
+               "e5m2": [(w.t().contiguous().t(), s) for w, s in w5s]}
+        w8, s = w8s[0]
+        for m in W8A8_TIME_MS:
+            x = torch.randn(m, k, device="cuda", generator=gen
+                            ).to(torch.bfloat16)
+            xq, xs = qmatmul.quantize_rows(x)
+            xs = xs.reshape(-1)
+            got = qmatmul.w8a8_matmul(xq, xs, w8, s)
+            want = qmatmul.w8a8_matmul_plain(xq, xs, w8, s)
+            err = float((got.float() - want.float()).abs().max())
+            qw = qmatmul.quantize_rows_plain(x)
+            p2_err = float((xq.float() - qw[0].float()).abs().max())
+            t_p1 = device_ms(rotating(w8s, lambda w, s_: qmatmul.w8a8_matmul(
+                xq, xs, w, s_)))
+            t_p1_e5 = device_ms(rotating(w5s, lambda w, s_:
+                                         qmatmul.w8a8_matmul(xq, xs, w, s_)))
+            t_p2 = device_ms(lambda: qmatmul.quantize_rows(x))
+            t_k3 = device_ms(rotating(w8s, lambda w, s_:
+                                      qmatmul.dequant_matmul(x, w, s_)))
+            t_p1_plain = cuda_ms(lambda: qmatmul.w8a8_matmul_plain(
+                xq, xs, w8, s), iters=3, warmup=1)
+            t_p2_plain = cuda_ms(lambda: qmatmul.quantize_rows_plain(x),
+                                 iters=3, warmup=1)
+            lib = {}
+            for label, ws in cms.items():
+                try:
+                    lib[label] = device_ms(rotating(ws, lambda w, s_:
+                                                    torch._scaled_mm(
+                        xq, w, scale_a=xs.reshape(-1, 1),
+                        scale_b=s_.reshape(1, -1), out_dtype=torch.bfloat16)))
+                except Exception as e:      # recorded, not hidden
+                    lib[label] = f"refused: {type(e).__name__}: {e}"[:160]
+            t_bytes = (m * k + k * n + 4.0 * (m + n) + 2.0 * m * n) \
+                / HBM_BYTES_PER_S * 1e3
+            t_ops = 2.0 * m * n * k / FP8_TC_FLOPS * 1e3
+            b1, by1 = max(t_bytes, t_ops), ("operations" if t_ops > t_bytes
+                                            else "bytes")
+            b2 = (3.0 * m * k + 4.0 * m) / HBM_BYTES_PER_S * 1e3
+            k3_bytes = (2.0 * m * k + k * n + 4.0 * n + 2.0 * m * n) \
+                / HBM_BYTES_PER_S * 1e3
+            b3 = max(k3_bytes, 2.0 * m * n * k / BF16_TC_FLOPS * 1e3)
+            row = {"proj": proj, "m": m, "k": k, "n": n, "p1_ms": t_p1,
+                   "p1_e5m2_ms": t_p1_e5, "p1_plain_ms": t_p1_plain,
+                   "p1_bound_ms": b1, "p1_bound_by": by1, "p1_err": err,
+                   "p2_ms": t_p2, "p2_plain_ms": t_p2_plain,
+                   "p2_bound_ms": b2, "p2_err": p2_err,
+                   "k3_convert_ms": t_k3, "k3_bound_ms": b3,
+                   "scaled_mm_ms": lib, "weight_copies": W8A8_COPIES}
+            rows.append(row)
+            print(f"time w8a8 {proj} {k}x{n} M={m}: P1 {t_p1:.4f} ms (e5m2 "
+                  f"{t_p1_e5:.4f}; plain {t_p1_plain:.4f}, bound {b1:.4f} "
+                  f"{by1}), P2 {t_p2:.4f} ms (plain {t_p2_plain:.4f}, bound "
+                  f"{b2:.4f} bytes), K3 convert {t_k3:.4f} ms (bound "
+                  f"{b3:.4f}), torch._scaled_mm {lib}")
+        del w8s, w5s, cms, w8
+    torch.cuda.empty_cache()
+
+    def pick(proj, m):
+        return next(r for r in rows if r["proj"] == proj and r["m"] == m)
+
+    for name, key, r in (
+            ("w8a8_matmul (gate, M = 8)", "w8a8_matmul", pick("gate", 8)),
+            ("w8a8_matmul_prefill (gate, M = 2048)", "w8a8_matmul_prefill",
+             pick("gate", 2048))):
+        lib = r["scaled_mm_ms"]["e4m3"]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "fp8tpu_torch/kernels/csrc/w8a8.cu",
+            "replaces": "fp8tpu/serve/model.py:115 (an XLA dot, no TPU "
+                        "kernel)",
+            "launches": launches[key], "max_abs_err": r["p1_err"],
+            "ms": r["p1_ms"], "plain_ms": r["p1_plain_ms"],
+            "bound_ms": r["p1_bound_ms"], "bound_by": r["p1_bound_by"],
+            "library_ms": lib if isinstance(lib, float) else None})
+    r = pick("gate", 8)
+    entries.append({
+        "name": "quantize_rows (M = 8, K = 4096)", "route": "cuda",
+        "source": "fp8tpu_torch/kernels/csrc/w8a8.cu",
+        "replaces": "fp8tpu/serve/model.py:201 (XLA ops, no TPU kernel)",
+        "launches": launches["quantize_rows"], "max_abs_err": r["p2_err"],
+        "ms": r["p2_ms"], "plain_ms": r["p2_plain_ms"],
+        "bound_ms": r["p2_bound_ms"], "bound_by": "bytes",
+        "library_ms": None})
+    result = {"kernels": rows}
+    result["decode"] = time_direct_step()
+    result["prefill"] = time_direct_prefill()
+    record.setdefault("time", {})["w8a8"] = result
+    return entries
+
+
+def wrapper_counts(run):
+    """{profile group: launches} of one ``run()`` of the hand-written
+    kernels, as their wrappers count them (each adds one where it launches
+    its kernel)."""
+    from fp8tpu_torch.kernels import inplace, int4_matmul, qmatmul
+    from fp8tpu_torch.kernels import paged_attention as k4
+    counters = (
+        ("K3/K5 weight GEMM (hand-written)",
+         lambda: qmatmul.dequant_launches + int4_matmul.launches),
+        ("P1 fp8 x fp8 GEMM (hand-written)", lambda: qmatmul.w8a8_launches),
+        ("P2 row quantizer (hand-written)",
+         lambda: qmatmul.quantize_launches),
+        ("K4 paged attention (hand-written)", lambda: k4.launches),
+        ("K6 ring store (hand-written)", lambda: inplace.launches))
+    before = [c() for _, c in counters]
+    run()
+    return {g: c() - b for (g, c), b in zip(counters, before)}
+
+
+def counted_profile(run, best, want):
+    """profile_decode_step of ``run``, taken again (up to three times) while
+    its records of a hand-written kernel differ in number from ``want``
+    ({group: launches}, from wrapper_counts); fails when none of the three
+    holds them all.  Returns (profile, attempts)."""
+    for attempt in range(1, 4):
+        prof = profile_decode_step(run, best)
+        got = {g: prof["groups"].get(g, (0.0, 0))[1] for g in want}
+        if got == want:
+            return prof, attempt
+    raise PhaseError(f"torch.profiler recorded {got} launches of the "
+                     f"hand-written kernels where the wrappers counted {want} "
+                     "(3 profiles)")
+
+
+def time_direct_step():
+    """One batch-64 decode step at position 444 (ring of 512, int8 KV),
+    e4m3 weights, convert and direct in turns: wall clock of an 8-step
+    chunk (best of 3) and a torch.profiler breakdown of one step."""
+    import torch
+    from fp8tpu_torch.serve import RingKVCache, ServeConfig, decode_steps
+    cfg = serve_config()
+    L, KV, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    params = STATE["e4m3"]
+    ring = RingKVCache.create(L, BENCH_BATCH, BENCH_CACHE, KV, D, "int8")
+    ring.kv8.copy_(torch.randint(-127, 128, ring.kv8.shape, device="cuda",
+                                 generator=gen, dtype=torch.int8))
+    ring.sc.uniform_(0.004, 0.02, generator=gen)
+    toks = torch.randint(1, cfg.vocab_size, (BENCH_BATCH,), device="cuda",
+                         generator=gen, dtype=torch.int32)
+    pos = torch.full((BENCH_BATCH,), BENCH_WARM_POS, device="cuda",
+                     dtype=torch.int32)
+    temp = torch.zeros(BENCH_BATCH, device="cuda")
+    out = {}
+    for impl in ("convert", "direct", "direct", "convert"):
+        scfg = ServeConfig(model=cfg, weight_fmt="e4m3", kv_fmt="int8",
+                           matmul_impl=impl)
+
+        def chunk(n):
+            ring.head.fill_(BENCH_WARM_POS)
+            o, _ = decode_steps(params, ring, toks, pos, None, temp, n, scfg,
+                                greedy_only=True)
+            return o
+
+        chunk(2)
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(3):
+            t = time.perf_counter()
+            int(chunk(8).sum())
+            walls.append((time.perf_counter() - t) / 8 * 1e3)
+        want = wrapper_counts(lambda: chunk(1))
+        prof, tries = counted_profile(lambda: chunk(1), min(walls), want)
+        out.setdefault(impl, []).append({"wall_ms": walls, "profile": prof,
+                                         "profiles_taken": tries})
+        print(f"time w8a8 decode step, batch {BENCH_BATCH}, {impl}: "
+              f"{min(walls):.3f} ms wall (chunks of 8: "
+              f"{[round(w, 3) for w in walls]}), {prof['device_ms']:.3f} ms "
+              f"of kernels in {prof['launches']} launches, busy share "
+              f"{prof['busy_share']:.3f} (profiles taken {tries})")
+        for group, (ms_, n_) in prof["groups"].items():
+            print(f"    {ms_:8.3f} ms {n_:5d}x  {group}")
+    del ring
+    return out
+
+
+def time_direct_prefill():
+    """One paged prefill of 8 x 256 tokens (2048 rows a linear), e4m3
+    weights, convert and direct in turns: wall clock (best of 3) and a
+    profile of one call."""
+    import torch
+    from fp8tpu_torch.serve import ServeConfig
+    cfg = serve_config()
+    B, T = SERVE_SLOTS, PREFILL_TOKENS
+    params = STATE["e4m3"]
+    out = {}
+    for impl in ("convert", "direct", "direct", "convert"):
+        scfg = ServeConfig(model=cfg, weight_fmt="e4m3", kv_fmt="int8",
+                           paged_decode_impl="kernel", matmul_impl=impl)
+        run = prefill_runner(params, scfg, 38)
+        run()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        want = wrapper_counts(run)
+        prof, tries = counted_profile(run, min(times), want)
+        out.setdefault(impl, []).append({"wall_ms": times, "profile": prof,
+                                         "profiles_taken": tries})
+        print(f"time w8a8 paged prefill {B} x {T}, {impl}: {min(times):.3f} "
+              f"ms wall (best of 3), {prof['device_ms']:.3f} ms of kernels "
+              f"in {prof['launches']} launches, busy share "
+              f"{prof['busy_share']:.3f} (profiles taken {tries})")
+        for group, (ms_, n_) in prof["groups"].items():
+            print(f"    {ms_:8.3f} ms {n_:5d}x  {group}")
+        del run
+    return out
+
+
+# -- phase deploy ----------------------------------------------------------------
+
+DEPLOY_DIR = "chip_smoke_out/deploy_artifact"
+DEPLOY_LOGIT_TOL = 1e-3        # the fold against the float model, of max|logit|
+
+
+def phase_deploy(record):
+    """The deployment path at full width: a float Decoder (serve_config's
+    widths, f32, random from a seed), calibration tokens from
+    fp8tpu_torch.data, awq_calibrate_decoder (e4m3), the artifact through
+    disk (save_serve_artifact / load_serve_artifact, byte for byte), an
+    EngineServer with direct linears on the loaded artifact; then the same
+    calibration for int4 (groups of 128, K5) served from memory."""
+    import dataclasses
+    import shutil
+    import torch
+    from fp8tpu_torch._device import full_fp32
+    from fp8tpu_torch.data import induction_tokens
+    from fp8tpu_torch.models import decoder
+    from fp8tpu_torch.quant import awq_calibrate_decoder
+    from fp8tpu_torch.serve import ServeConfig, convert_decoder_params
+    from fp8tpu_torch.serve import engine as engine_mod
+    from fp8tpu_torch.utils import load_serve_artifact, save_serve_artifact
+
+    cfg = serve_config()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    result, problems = {}, []
+    t0 = time.perf_counter()
+    model = decoder(cfg32, generator=torch.Generator().manual_seed(40))
+    variables = {k: v.detach() for k, v in model.state_dict().items()}
+    nbytes = sum(v.numel() * v.element_size() for v in variables.values())
+    # markov_tokens would need a (V, V, V) transition table at V = 32768;
+    # the induction corpus covers the whole vocabulary
+    tokens = torch.from_numpy(induction_tokens(32, 256, vocab=cfg.vocab_size,
+                                               seed=41)).cuda()
+    print(f"deploy: float decoder ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, f32) {nbytes / 1e9:.2f} GB made in "
+          f"{time.perf_counter() - t0:.1f} s; 32 x 256 calibration tokens")
+    probe = tokens[:2]
+    with torch.no_grad(), full_fp32():
+        base = model(probe)
+    prompts = {r.uid: r.prompt for r in serve_requests(7, 16, cfg.vocab_size)}
+    for fmt in ("e4m3", "int4"):
+        t0 = time.perf_counter()
+        eq, info = awq_calibrate_decoder(model, variables, cfg32, tokens,
+                                         fmt=fmt, int4_group=128)
+        t_awq = time.perf_counter() - t0
+        with torch.no_grad(), full_fp32():
+            after = torch.func.functional_call(model, eq, (probe,))
+        rel = float((after - base).abs().max() / base.abs().max())
+        alphas = {li: {s: r["alpha"] for s, r in sites.items()}
+                  for li, sites in info.items()}
+        worse = [(li, s) for li, sites in info.items()
+                 for s, r in sites.items()
+                 if r["err"] > r["err_identity"]]
+        print(f"deploy {fmt}: awq_calibrate_decoder in {t_awq:.1f} s; the "
+              f"float model before and after the fold on 2 x 256 tokens: "
+              f"max|diff| / max|logit| {rel:.3e} (at most "
+              f"{DEPLOY_LOGIT_TOL}); sites whose error exceeds identity's "
+              f"{worse or 'none'}; alphas {alphas}")
+        if rel > DEPLOY_LOGIT_TOL or worse:
+            problems.append(f"deploy {fmt}: fold moved the float logits by "
+                            f"{rel}, sites worse than identity {worse}")
+        del after
+        art = convert_decoder_params(eq, cfg, fmt, int4_group=128)
+        del eq
+        scfg = ServeConfig(model=cfg, weight_fmt=fmt, kv_fmt="int8",
+                           matmul_impl="direct")
+        entry = {"awq_seconds": t_awq, "fold_rel_logit_diff": rel,
+                 "alphas": alphas, "worse_than_identity": worse}
+        if fmt == "e4m3":
+            here = os.path.dirname(os.path.abspath(__file__))
+            path = os.path.join(here, DEPLOY_DIR)
+            shutil.rmtree(path, ignore_errors=True)
+            try:
+                t0 = time.perf_counter()
+                save_serve_artifact(path, art, scfg)
+                t_save = time.perf_counter() - t0
+                size = sum(os.path.getsize(os.path.join(path, f))
+                           for f in os.listdir(path))
+                t0 = time.perf_counter()
+                loaded, lcfg = load_serve_artifact(path)
+                t_load = time.perf_counter() - t0
+            finally:
+                shutil.rmtree(path, ignore_errors=True)
+            differ = sorted(k for k in art if k not in loaded or not (
+                loaded[k].dtype == art[k].dtype
+                and loaded[k].shape == art[k].shape
+                and torch.equal(loaded[k].contiguous().view(torch.uint8),
+                                art[k].contiguous().view(torch.uint8))))
+            print(f"deploy e4m3: artifact of {len(art)} arrays, "
+                  f"{size / 1e9:.3f} GB on disk, saved in {t_save:.1f} s, "
+                  f"loaded in {t_load:.1f} s; arrays that differ from "
+                  f"memory {differ or 'none'}, config equal "
+                  f"{lcfg == scfg}")
+            if differ or lcfg != scfg or set(loaded) != set(art):
+                problems.append(f"the loaded artifact differs: {differ}")
+            entry.update(artifact_bytes=size, save_seconds=t_save,
+                         load_seconds=t_load, differing=differ)
+            art = loaded
+        with _Admissions(engine_mod) as adm:
+            out, seconds, _ = run_server(art, scfg, 16)
+        n_tok = sum(len(v) for v in out.values())
+        if fmt == "e4m3":           # direct: the engine's own order replayed
+            bad, steps = replay_engine(art, scfg, adm.calls, prompts, out)
+            how = (f"the replay of each admission in the engine's order: "
+                   f"{steps} tokens compared, tokens that differ")
+            bad = {str(k): v for k, v in bad.items()}
+            if steps != n_tok:
+                bad["compared"] = steps
+        else:                       # int4 takes K5 whatever matmul_impl says
+            _, drift, bad, band = margin_agree(out, out, prompts, art, scfg)
+            how = (f"against the teacher-forced dense forward: steps inside "
+                   f"the margin band {drift:.3e}, tokens inside the band a "
+                   f"step {band:.2f}, tokens outside it")
+        print(f"deploy {fmt}: EngineServer ({'direct' if fmt == 'e4m3' else 'K5'}"
+              f" linears, int8 KV) answered 16 requests, {n_tok} tokens in "
+              f"{seconds:.2f} s; {how} {bad or 'none'}")
+        if bad or any(len(v) != SERVE_NEW for v in out.values()):
+            problems.append(f"deploy {fmt}: tokens off their check {bad}")
+        entry.update(tokens=n_tok, seconds=seconds, off_check=bad)
+        result[fmt] = entry
+        del art
+        torch.cuda.empty_cache()
+    del model, variables
+    torch.cuda.empty_cache()
+    record["deploy"] = result
+    if problems:
+        raise PhaseError("; ".join(problems))
 
 
 # -- phase flush ---------------------------------------------------------------
@@ -5275,27 +6629,48 @@ def phase_time_paged(record, launches):
         "bound_by": head["bound_by"], "library_ms": head["library_ms"]}]
 
 
-def time_paged_prefill(record):
-    """One paged prefill of 8 prompts of 256 tokens (prefill_batch_paged:
-    2048 rows a linear, 112 K3 launches on the prefill route), e4m3 weights
-    against the bf16 twin (its linears torch.mm on bf16 weights), both on
-    an int8 pool: wall clock (best of 3, host included) and a
-    torch.profiler breakdown of one call, K3's share of the device time."""
+def prefill_runner(params, scfg, seed: int):
+    """``run()``: one paged prefill of SERVE_SLOTS prompts of PREFILL_TOKENS
+    random tokens (``prefill_batch_paged``, PREFILL_ROWS rows a linear)
+    into a fresh int8 pool that holds them exactly, the prompts made from
+    ``seed``."""
     import torch
-    from fp8tpu_torch.kernels import qmatmul
-    from fp8tpu_torch.serve import (PagedKVCache, ServeConfig,
-                                    prefill_batch_paged, random_serve_params)
-
-    cfg = serve_config()
-    L, KV, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    from fp8tpu_torch.serve import PagedKVCache, prefill_batch_paged
+    cfg = scfg.model
     B, T = SERVE_SLOTS, PREFILL_TOKENS
-    gen = torch.Generator(device="cuda").manual_seed(15)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     prompts = torch.randint(1, cfg.vocab_size, (B, T), device="cuda",
                             generator=gen, dtype=torch.int32)
     lengths = torch.full((B,), T, device="cuda", dtype=torch.int32)
     slots = torch.arange(B, device="cuda", dtype=torch.int32)
     zeros = torch.zeros(B, device="cuda")
     zi = torch.zeros(B, device="cuda", dtype=torch.int32)
+    paged = PagedKVCache.create(B * T // PAGE, PAGE, cfg.n_layers, B, T // PAGE,
+                                cfg.n_kv_heads, cfg.head_dim, "int8")
+    paged.page_table = torch.arange(
+        B * T // PAGE, device="cuda", dtype=torch.int32).reshape(B, -1)
+
+    def run():
+        return prefill_batch_paged(params, paged, prompts, slots, lengths,
+                                   None, zeros, None, None, zi, zi.clone(),
+                                   scfg)
+    return run
+
+
+def time_paged_prefill(record):
+    """One paged prefill of 8 prompts of 256 tokens (prefill_batch_paged:
+    2048 rows a linear, 112 K3 launches on the prefill route), e4m3 weights
+    against the bf16 twin (its linears torch.mm on bf16 weights), both on
+    an int8 pool: wall clock (best of 3, host included) and a
+    torch.profiler breakdown of one call, K3's share of the device time.
+    The profile must hold every K3 launch the wrappers counted."""
+    import torch
+    from fp8tpu_torch.kernels import qmatmul
+    from fp8tpu_torch.serve import ServeConfig, random_serve_params
+
+    cfg = serve_config()
+    L = cfg.n_layers
+    B, T = SERVE_SLOTS, PREFILL_TOKENS
     k3_group = "K3/K5 weight GEMM (hand-written)"
     result, problems = {}, []
     for fmt in ("e4m3", "bf16"):
@@ -5303,16 +6678,7 @@ def time_paged_prefill(record):
             cfg, "bf16", seed=0)
         scfg = ServeConfig(model=cfg, weight_fmt=fmt, kv_fmt="int8",
                            paged_decode_impl="kernel")
-        paged = PagedKVCache.create(B * T // PAGE, PAGE, L, B, T // PAGE, KV,
-                                    D, "int8")
-        paged.page_table = torch.arange(
-            B * T // PAGE, device="cuda", dtype=torch.int32).reshape(B, -1)
-
-        def run():
-            return prefill_batch_paged(params, paged, prompts, slots, lengths,
-                                       None, zeros, None, None, zi,
-                                       zi.clone(), scfg)
-
+        run = prefill_runner(params, scfg, 15)
         run()
         torch.cuda.synchronize()
         times = []
@@ -5323,16 +6689,10 @@ def time_paged_prefill(record):
             times.append(time.perf_counter() - t)
         best = min(times) * 1e3
         before = dict(qmatmul.dequant_routes)
-        run()
+        want = wrapper_counts(run)
         on_route = {k: qmatmul.dequant_routes[k] - before[k] for k in before}
-        # torch.profiler has dropped kernel records of a profile (one run:
-        # ~25 of ~1636, two of them K3), so a profile whose K3 count differs
-        # from the wrappers' is taken again, up to three times
-        for attempt in range(1, 4):
-            prof = profile_decode_step(run, best)
-            k3_ms, k3_n = prof["groups"].get(k3_group, (0.0, 0))
-            if k3_n == sum(on_route.values()):
-                break
+        prof, attempt = counted_profile(run, best, want)
+        k3_ms, k3_n = prof["groups"].get(k3_group, (0.0, 0))
         result[fmt] = {"wall_ms": best, "wall_ms_all": times,
                        "device_ms": prof["device_ms"], "k3_ms": k3_ms,
                        "k3_launches": k3_n, "k3_by_route": on_route,
@@ -5343,25 +6703,229 @@ def time_paged_prefill(record):
               f"{prof['launches']} launches, busy share "
               f"{prof['busy_share']:.3f}; K3 {k3_ms:.3f} ms in {k3_n} "
               f"launches ({k3_ms / prof['device_ms']:.3f} of the device "
-              f"time; by route {on_route})")
+              f"time; by route {on_route}; profiles taken {attempt})")
         for group, (ms_, n_) in prof["groups"].items():
             print(f"    {ms_:8.3f} ms {n_:5d}x  {group}")
         if fmt == "e4m3" and (k3_n != 7 * L or on_route["prefill"] != 7 * L):
             problems.append(f"the paged prefill launched K3 {k3_n} times "
                             f"(by route {on_route}), expected {7 * L} on the "
                             "prefill route")
-        del params, paged
+        del params, run
         torch.cuda.empty_cache()
     record.setdefault("time", {})["paged_prefill"] = result
     if problems:
         raise PhaseError("; ".join(problems))
 
 
+def k4_launch_exactness(q, pool, sc, table, lens, layer, kv, page, got):
+    """One K4 launch's outputs ``got`` (acc, m, l) against its plain version
+    on the same operands: the shares of (slot, query head) whose m, l and
+    whole acc row are bit-equal; the share of valid scores q . k whose f32
+    sum (IEEE) differs from the f64 one; how the softmax sits (the share
+    of heads whose largest weight is at least 0.999, and the median
+    largest weight); the scores' f32 rounding bound (k4_reference's s_tol:
+    2 D 2^-24 max_t sum_d |q_d k_td| ks_t, an absolute error of the score,
+    so a relative one of every weight p = exp(s - m)), its median and
+    largest; and the normalised context acc / l of the kernel and of the
+    plain version against the f64 one, max|diff| over max|f64| per row,
+    the worst row."""
+    import torch
+    from fp8tpu_torch._device import full_fp32
+    from fp8tpu_torch.kernels import paged_attention as k4
+    acc, m, l = got
+    acc_p, m_p, l_p = k4.paged_decode_attention_plain(
+        q, pool, sc, table, lens, layer, page_size=page, kv_heads=kv)
+    _, _, _, s_tol, _, _ = k4_reference(q, pool, sc, table, lens, layer,
+                                        kv=kv, page=page)
+    B, KVG, D = q.shape
+    T = table.shape[1] * page
+    safe = table.clamp(min=0).long()
+    k = pool[safe, 0, layer].reshape(B, T, kv, D).double()
+    v = pool[safe, 1, layer].reshape(B, T, kv, D).double()
+    ks = sc[safe, 0, layer].reshape(B, T, kv).permute(0, 2, 1)[:, :, None]
+    vs = sc[safe, 1, layer].reshape(B, T, kv).permute(0, 2, 1)[:, :, None]
+    qh = q.float().reshape(B, kv, KVG // kv, D)
+    with full_fp32():
+        s32 = torch.einsum("bkgd,btkd->bkgt", qh, k.float())
+    s64 = torch.einsum("bkgd,btkd->bkgt", qh.double(), k)
+    valid = (torch.arange(T, device=q.device)[None] < lens[:, None]
+             )[:, None, None, :].expand_as(s64)
+    w = torch.softmax(torch.where(valid, s64 * ks.double(), -math.inf), -1)
+    ctx64 = torch.einsum("bkgt,btkd->bkgd", w * vs.double(), v
+                         ).reshape(B, KVG, D)
+    top = w.amax(-1).flatten()
+
+    def off(a, b):
+        c = (a.double() / b.double()[..., None])
+        return float(((c - ctx64).abs().amax(-1)
+                      / ctx64.abs().amax(-1).clamp_min(1e-30)).max())
+    return {"m_equal": float((m == m_p).float().mean()),
+            "l_equal": float((l == l_p).float().mean()),
+            "acc_rows_equal": float((acc == acc_p).all(-1).float().mean()),
+            "scores_inexact_in_f32": float((s32.double() != s64)[valid]
+                                           .float().mean()),
+            "peaked_heads": float((top >= 0.999).float().mean()),
+            "median_top_weight": float(top.median()),
+            "s_tol_median": float(s_tol.median()),
+            "s_tol_max": float(s_tol.max()),
+            "kernel_vs_f64": off(acc, l), "plain_vs_f64": off(acc_p, l_p)}
+
+
+def phase_k4_layers(record):
+    """Which kernel moves the deeper layers of a full-width paged decode
+    step (64 slots, int8 pool, "kernel" mode), and why on one draw of
+    weights and not on another.  One step with every kernel, with every
+    plain version, with the kernels but K4's plain version, and with the
+    plain versions but K4's kernel; for e4m3 weights direct and convert
+    and int8 weights direct: each run's logit distance to the all-plain run
+    and the rows it wrote, layer by layer (the first four).  Then the
+    kernel run's K4 launches against their plain versions on their own
+    operands (k4_launch_exactness): bit-equal shares, the scores' f32
+    rounding, how peaked the softmax is, and both versions against f64;
+    layer 0 and the least equal layer."""
+    import torch
+    from fp8tpu_torch.kernels import paged_attention as k4
+    from fp8tpu_torch.serve import (PagedKVCache, ServeConfig,
+                                    decode_step_paged, prefill_batch_paged,
+                                    random_serve_params)
+
+    cfg = serve_config()
+    L, KV, D, B = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, BENCH_BATCH
+    kernel = k4.paged_decode_attention
+    result = {}
+
+    def k4_plain(f):
+        k4.paged_decode_attention = k4.paged_decode_attention_plain
+        try:
+            return f()
+        finally:
+            k4.paged_decode_attention = kernel
+
+    for fmt, impl, seed in (("e4m3", "direct", 0), ("int8", "direct", 32),
+                            ("e4m3", "convert", 0)):
+        params = STATE["e4m3"] if fmt == "e4m3" and "e4m3" in STATE else \
+            random_serve_params(cfg, fmt, seed=seed)
+        scfg = ServeConfig(model=cfg, weight_fmt=fmt, kv_fmt="int8",
+                           matmul_impl=impl, paged_decode_impl="kernel")
+        g = torch.Generator(device="cuda").manual_seed(34)
+        paged = PagedKVCache.create(B * 4, PAGE, L, B, 4, KV, D, "int8")
+        paged.page_table = torch.randperm(
+            B * 4, device="cuda", generator=g).to(torch.int32).reshape(B, 4)
+        prompts = torch.randint(1, cfg.vocab_size, (B, 128), device="cuda",
+                                generator=g, dtype=torch.int32)
+        lengths = torch.randint(70, 129, (B,), device="cuda", generator=g,
+                                dtype=torch.int32)
+        zi = torch.zeros(B, device="cuda", dtype=torch.int32)
+        _, paged, toks, pos = prefill_batch_paged(
+            params, paged, prompts, torch.arange(B, device="cuda",
+                                                 dtype=torch.int32),
+            lengths, None, torch.zeros(B, device="cuda"), None, None, zi,
+            zi.clone(), scfg)
+        runs = {}
+        for name, wrap in (("kernels", lambda f: f()),
+                           ("plain", with_plain_kernels),
+                           ("kernels, K4 plain", k4_plain),
+                           ("plain, K4 kernel", with_plain_but_k4)):
+            st = clone_pool(paged)
+            with _Recording(k4, "paged_decode_attention") as rec:
+                runs[name] = wrap(lambda: decode_step_paged(params, st, toks,
+                                                            pos, scfg))
+            if name == "kernels":
+                launches = rec.calls
+        live = torch.ones(1, B, dtype=torch.bool, device="cuda")
+        lp, sp = runs["plain"]
+        entry = {}
+        for name in ("kernels", "kernels, K4 plain", "plain, K4 kernel"):
+            lg, st = runs[name]
+            _, dist, _ = cache_checks(name, st, sp, pos, 1, KV, live,
+                                      whole_gate=False)
+            rel = rel_err(lg, lp)
+            entry[name] = {"rel_logit_diff": rel, "layers": dist[:4]}
+            print(f"k4_layers {fmt} {impl}, {name} vs plain: logits "
+                  f"{rel:.3e}; {fmt_layers(dist[:4])}", flush=True)
+        ex = [k4_launch_exactness(*a[:6], kw["kv_heads"], kw["page_size"],
+                                  out) for a, kw, out in launches]
+        worst = min(range(len(ex)), key=lambda i: ex[i]["acc_rows_equal"])
+        entry["k4_launches"] = ex
+        print(f"k4_layers {fmt} {impl}: K4 against plain on its own "
+              f"operands, layer 0 {ex[0]}; least equal, layer {worst} "
+              f"{ex[worst]}", flush=True)
+        result[f"{fmt} {impl}"] = entry
+        del params, paged, runs, launches
+        torch.cuda.empty_cache()
+    record["k4_layers"] = result
+
+
+PROBE_TRIES = 8                # profiles a setting
+LAUNCH_APIS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+               "cuLaunchKernelEx")
+
+
+def phase_profile_probe(record):
+    """Why a torch.profiler profile of the 8 x 256 paged prefill (e4m3, K3
+    on its prefill route) can hold fewer kernel records than the wrappers
+    launched.  Each profile's raw kineto events are read: the host's launch
+    calls (cudaLaunchKernel and kin) are matched to the device records by
+    correlation id, and a launch with no device record is listed by its
+    place among the launches (the lead-in's excluded).  PROBE_TRIES
+    profiles without the lead-in of ``open_profile`` and as many with it."""
+    import torch
+    from fp8tpu_torch.kernels import qmatmul
+    from fp8tpu_torch.serve import ServeConfig, random_serve_params
+
+    cfg = serve_config()
+    if "e4m3" not in STATE:
+        STATE["e4m3"] = random_serve_params(cfg, "e4m3", seed=0)
+    scfg = ServeConfig(model=cfg, weight_fmt="e4m3", kv_fmt="int8",
+                       paged_decode_impl="kernel")
+    run = prefill_runner(STATE["e4m3"], scfg, 15)
+    run()
+    before = qmatmul.dequant_launches
+    run()
+    torch.cuda.synchronize()
+    k3_want = qmatmul.dequant_launches - before
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = []
+    for lead in (False, True):
+        for i in range(PROBE_TRIES):
+            p = open_profile(run, lead)
+            raw = list(p.profiler.kineto_results.events())
+            kern = {e.correlation_id(): e for e in raw
+                    if e.device_type() == cuda}
+            calls = sorted((e for e in raw if e.name() in LAUNCH_APIS),
+                           key=lambda e: e.start_ns())
+            if lead:        # the lead-in's launches and what recorded them
+                calls = calls[PROFILE_LEAD_LAUNCHES:]
+            k3 = sum(kernel_kind(e.name()).startswith("K3")
+                     for e in kern.values())
+            missing = [j for j, e in enumerate(calls)
+                       if e.correlation_id() not in kern]
+            row = {"lead_in": lead, "try": i, "k3_records": k3,
+                   "launch_calls": len(calls),
+                   "device_records": len(kern),
+                   "launches_without_record": missing}
+            rows.append(row)
+            print(f"profile_probe lead-in {lead}, profile {i}: K3 records "
+                  f"{k3} of {k3_want}; {len(calls)} host launch calls of the "
+                  f"work, {len(missing)} without a device record"
+                  + (f" (launches {missing[0]}-{missing[-1]})" if missing
+                     else ""), flush=True)
+            del p, raw, kern, calls
+    record["profile_probe"] = {"k3_launches": k3_want, "profiles": rows}
+    bad = [r for r in rows if r["lead_in"] and r["launches_without_record"]]
+    del run
+    torch.cuda.empty_cache()
+    if bad:
+        raise PhaseError(f"{len(bad)} profiles with the lead-in lost device "
+                         "records")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,k1,k2,k3,k4,k5,k6,t1,t2,main,train,"
-                            "serve,serve_paged,spec,moe,flush,time")
+                            "serve,serve_paged,spec,moe,flush,time,w8a8,"
+                            "deploy")
     ap.add_argument("--out", default="chip_smoke_out/chip_smoke.json")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
@@ -5397,6 +6961,14 @@ def main(argv=None) -> int:
                 phase_k2(record)
             elif phase == "k2_probe":
                 phase_k2_probe(record)
+            elif phase == "w8a8_probe":
+                phase_w8a8_probe(record)
+            elif phase == "w8a8k":
+                w8a8_kernel_checks(record)
+            elif phase == "profile_probe":
+                phase_profile_probe(record)
+            elif phase == "k4_layers":
+                phase_k4_layers(record)
             elif phase == "k3":
                 phase_k3(record)
             elif phase == "k4":
@@ -5423,6 +6995,10 @@ def main(argv=None) -> int:
                 moe_kernels += time_moe(record, phase_moe(record))
             elif phase == "flush":
                 moe_kernels += phase_flush(record)
+            elif phase == "w8a8":
+                moe_kernels += time_w8a8(record, phase_w8a8(record))
+            elif phase == "deploy":
+                phase_deploy(record)
             elif phase == "time":
                 if None in (launches, serve_launches, paged_launches,
                             train_launches):

@@ -23,7 +23,8 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("cast_kernel", "qmatmul", "dequant_matmul", "int4_matmul",
-           "inplace", "paged_attention", "kexp_convert", "fp8_linear_study")
+           "inplace", "paged_attention", "kexp_convert", "fp8_linear_study",
+           "w8a8")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,4 +1,5 @@
 // K3, the serving linear:  out = (x @ upcast(w8)) * s[N]
+// (with row scales, W8A8's int8 route: (x @ upcast(w8)) * (rs[M] * s[N]))
 //
 // Replaces fp8tpu/kernels/qmatmul.py::_dequant_matmul_kernel.  x is (M, K)
 // bf16, w8 a (K, N) payload of e4m3, e5m2 or int8 bytes, s one f32 scale
@@ -54,6 +55,7 @@ cudaError_t launch_fmt(const wg::Args& A, const void* x, const void* w8,
     if (route) {
         ws::Launch L;
         L.x = x; L.w = w8; L.col_scale = A.s; L.group_scale = nullptr;
+        L.row_scale = A.rs;
         L.out = A.out; L.ws = A.ws; L.counters = A.counters;
         L.m = A.m; L.n = A.n; L.k = A.k;
         L.splits = A.splits; L.kper = A.kper; L.group = 0;
@@ -70,6 +72,9 @@ cudaError_t launch_fmt(const wg::Args& A, const void* x, const void* w8,
 
 // payload: 0 e4m3, 1 e5m2, 2 int8.  ws / counters are used when splits > 1:
 // ws holds splits * m * n floats, counters one zeroed int per output tile.
+// row_scales: null, or one f32 a row of x, multiplied into the column
+// scale before the product (the W8A8 route of int8 weights, whose x holds
+// e4m3 activation codes as bf16: every product is still exact).
 // route: 0 the general kernel; 1 or 2 the streaming loop's decode form
 // with that many m64 tiles a block (qmatmul.py::stream_plan: m <= 64,
 // k % 8 == 0, n % 16 == 0, 16-byte aligned x and w8); 3 its prefill
@@ -78,8 +83,10 @@ extern "C" int fp8_dequant_matmul(const void* x, const void* w8,
                                   const void* scales, void* out, int m, int n,
                                   int k, int payload, int out_f32, int splits,
                                   int kper, int route, void* ws,
-                                  void* counters, void* stream) {
+                                  void* counters, const void* row_scales,
+                                  void* stream) {
     wg::Args A;
+    A.rs = reinterpret_cast<const float*>(row_scales);
     A.x = reinterpret_cast<const __nv_bfloat16*>(x);
     A.w = w8;
     A.s = reinterpret_cast<const float*>(scales);

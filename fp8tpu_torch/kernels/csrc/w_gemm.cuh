@@ -46,6 +46,7 @@ struct Args {
     const __nv_bfloat16* x;    // (M, K) row-major
     const void* w;             // payload, row-major, N columns
     const float* s;            // (N,) or (K/group, N) scales
+    const float* rs = nullptr; // (M,) row scales (W8A8), or null
     void* out;                 // (M, N) bf16 or f32
     float* ws;                 // (splits, M, N) partials, splits > 1 only
     int* counters;             // one per output tile, zero between launches
@@ -88,7 +89,8 @@ __device__ __forceinline__ void epilogue(const Args& A, float (&acc)[MT][NT][4],
                                          int row0, int col0, int* is_last) {
     const int t = threadIdx.x, lane = t & 31;
     const int g = lane >> 2, q = lane & 3;
-    // fn(v0, v1, index of v0, whether v1's column exists)
+    // fn(v0, v1, index of v0, row, column of v0, whether v1's column
+    // exists)
     auto for_each = [&](auto&& fn) {
 #pragma unroll
         for (int i = 0; i < MT; ++i)
@@ -100,19 +102,20 @@ __device__ __forceinline__ void epilogue(const Args& A, float (&acc)[MT][NT][4],
                     const int col = col0 + j * 8 + q * 2;
                     if (row < A.m && col < A.n)
                         fn(acc[i][j][2 * h], acc[i][j][2 * h + 1],
-                           (size_t)row * A.n + col, col, col + 1 < A.n);
+                           (size_t)row * A.n + col, row, col,
+                           col + 1 < A.n);
                 }
     };
 
     if (A.splits > 1) {
         const size_t plane = (size_t)A.m * A.n;
         float* mine = A.ws + blockIdx.z * plane;
-        for_each([&](float& v0, float& v1, size_t at, int, bool two) {
+        for_each([&](float& v0, float& v1, size_t at, int, int, bool two) {
             mine[at] = v0;
             if (two) mine[at + 1] = v1;
         });
         if (!splitk::last_of_tile(A.counters, A.splits, is_last)) return;
-        for_each([&](float& v0, float& v1, size_t at, int, bool two) {
+        for_each([&](float& v0, float& v1, size_t at, int, int, bool two) {
             float2 part[MAX_SPLITS];
 #pragma unroll
             for (int z = 0; z < MAX_SPLITS; ++z) {
@@ -134,9 +137,16 @@ __device__ __forceinline__ void epilogue(const Args& A, float (&acc)[MT][NT][4],
         });
         splitk::release_tile(A.counters);
     }
-    for_each([&](float& v0, float& v1, size_t at, int col, bool two) {
-        const float r0 = v0 * W::epilogue_scale(A, col);
-        const float r1 = two ? v1 * W::epilogue_scale(A, col + 1) : 0.f;
+    for_each([&](float& v0, float& v1, size_t at, int row, int col,
+                 bool two) {
+        float s0 = W::epilogue_scale(A, col);
+        float s1 = two ? W::epilogue_scale(A, col + 1) : 0.f;
+        if (A.rs != nullptr) {      // W8A8: acc * (xs[m] * s[n])
+            s0 = __fmul_rn(A.rs[row], s0);
+            s1 = __fmul_rn(A.rs[row], s1);
+        }
+        const float r0 = v0 * s0;
+        const float r1 = two ? v1 * s1 : 0.f;
         store_out(A.out, OUT_F32, at, r0);
         if (two) store_out(A.out, OUT_F32, at + 1, r1);
     });

@@ -115,6 +115,7 @@ struct Shape {
 
 struct Args {
     const float* col_scale;  // (N,) f32, or null: no scale
+    const float* row_scale;  // (M,) f32, or null: no scale (W8A8, K3 only)
     void* out;               // (M, N) bf16 or f32
     float* ws;               // (splits, M, N) partials, splits > 1 only
     int* counters;           // one per output tile, zero between launches
@@ -731,8 +732,16 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
             if (!(m < A.m && col_ok)) continue;
             float v[V];
             values(j, e, v);
+            if (A.row_scale != nullptr) {
+                // the W8A8 epilogue: acc * (xs[m] * s[n]), the JAX order
+                const float rs = A.row_scale[m];
 #pragma unroll
-            for (int i = 0; i < V; ++i) v[i] = __fmul_rn(v[i], scale[i]);
+                for (int i = 0; i < V; ++i)
+                    v[i] = __fmul_rn(v[i], __fmul_rn(rs, scale[i]));
+            } else {
+#pragma unroll
+                for (int i = 0; i < V; ++i) v[i] = __fmul_rn(v[i], scale[i]);
+            }
             const size_t at = (size_t)m * A.n + cb;
             if (A.out_f32) {
                 store_f32(reinterpret_cast<float*>(A.out) + at, v);
@@ -799,6 +808,7 @@ struct Launch {
     const void* w;              // the payload: (k, n) bytes or bf16, or
                                 // (k / 2, n) packed int4
     const float* col_scale;     // (n,) or null
+    const float* row_scale = nullptr;   // (m,) or null
     const float* group_scale;   // (k / group, n) for grouped policies
     void* out;
     float* ws;
@@ -831,6 +841,7 @@ cudaError_t launch_tiles(const Launch& L, cudaStream_t stream) {
                       NP, 64, CU_TENSOR_MAP_SWIZZLE_128B);
     Args A;
     A.col_scale = L.col_scale;
+    A.row_scale = L.row_scale;
     A.out = L.out;
     A.ws = L.ws;
     A.counters = L.counters;

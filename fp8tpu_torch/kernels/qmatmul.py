@@ -1,6 +1,7 @@
-"""K2, the fused fake-quant GEMM (``csrc/qmatmul.cu``), and K3, the serving
-dequant-GEMM (``csrc/dequant_matmul.cu``): wrappers, launch counts and
-plain versions.
+"""K2, the fused fake-quant GEMM (``csrc/qmatmul.cu``), K3, the serving
+dequant-GEMM (``csrc/dequant_matmul.cu``), and the W8A8 serving linear's
+P1 and P2 (``csrc/w8a8.cu``): wrappers, launch counts and plain
+versions.
 
 K2 replaces ``fp8tpu/kernels/qmatmul.py::_qdq_matmul_kernel``:
 ``qdq(x; sx) @ qdq(w; sw[N])`` with f32-accurate sums, each operand cast
@@ -33,13 +34,19 @@ K3 replaces ``fp8tpu/kernels/qmatmul.py::_dequant_matmul_kernel``:
 ``(x @ upcast(w8)) * s[N]`` with the payload upcast to bf16 in registers,
 f32 accumulation, the per-output-channel scale in the epilogue and one
 rounding to ``out_dtype``.  Every serving linear on a CUDA tensor is one
-launch of it.  :func:`quantize_weights` makes its payloads.  Operands that
+launch of it (W8A8's int8 route passes a per-row scale too).
+:func:`quantize_weights` makes its payloads.  Operands that
 TMA can read run the streaming loop (``csrc/w_stream.cuh``), which K5 and
 T2 share: its decode form at M <= 64 (:func:`streams`, planned by
 :func:`stream_plan`), its prefill route above (:func:`prefills`,
 :func:`prefill_plan`); other shapes run the general kernel
 (``csrc/w_gemm.cuh``).  :func:`weight_gemm_plan` decides, before the
 launch.
+
+P1 and P2 have no TPU counterpart (the JAX package's
+``matmul_impl="direct"`` is XLA ops): :func:`quantize_rows` quantizes an
+activation per row to e4m3, :func:`w8a8_matmul` contracts the codes with
+an e4m3 / e5m2 weight on the fp8 tensor cores.
 """
 
 from __future__ import annotations
@@ -85,10 +92,9 @@ K2_PROMOTE = 4
 
 
 def reset_launches() -> None:
-    global launches, dequant_launches
-    launches = 0
-    dequant_launches = 0
-    for counts in (k2_launches, dequant_routes):
+    global launches, dequant_launches, quantize_launches, w8a8_launches
+    launches = dequant_launches = quantize_launches = w8a8_launches = 0
+    for counts in (k2_launches, dequant_routes, w8a8_routes):
         for key in counts:
             counts[key] = 0
 
@@ -637,15 +643,27 @@ def _check_dequant(x, w8, scales, out_dtype):
                          f"{out_dtype}")
 
 
-def dequant_matmul_plain(x, w8, scales, out_dtype=torch.bfloat16):
+def _check_row_scale(x, row_scale):
+    if row_scale is not None and row_scale.numel() != x.shape[0]:
+        raise ValueError(f"dequant_matmul needs one row scale per row of x "
+                         f"({x.shape[0]}), got {tuple(row_scale.shape)}")
+
+
+def dequant_matmul_plain(x, w8, scales, out_dtype=torch.bfloat16,
+                         row_scale=None):
     """The plain version of K3 (any device): x rounded to bf16, an f32
     contraction against the upcast payload, the scale in f32, one rounding
-    to ``out_dtype``."""
+    to ``out_dtype``.  With ``row_scale`` (M,) the product is scaled by
+    ``row_scale[m] * scales[n]``, in that order (W8A8's int8 route)."""
     _check_dequant(x, w8, scales, out_dtype)
+    _check_row_scale(x, row_scale)
     xb = x.to(torch.bfloat16).to(torch.float32)
     with full_fp32():
         out = torch.matmul(xb, w8.to(torch.float32))
-    return (out * scales.reshape(1, -1).to(torch.float32)).to(out_dtype)
+    s = scales.reshape(1, -1).to(torch.float32)
+    if row_scale is not None:
+        s = row_scale.reshape(-1, 1).to(torch.float32) * s
+    return (out * s).to(out_dtype)
 
 
 @functools.cache
@@ -841,7 +859,7 @@ def split_workspace(device, splits: int, m: int, n: int):
 def _dequant_fn():
     fn = _build.load("dequant_matmul").fp8_dequant_matmul
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
-        + [ctypes.c_void_p] * 3
+        + [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
     return fn
 
@@ -853,15 +871,20 @@ def check_gemm_shape(what: str, m: int, n: int, k: int) -> None:
 
 
 def dequant_matmul(x: torch.Tensor, w8: torch.Tensor, scales: torch.Tensor,
-                   out_dtype=torch.bfloat16) -> torch.Tensor:
+                   out_dtype=torch.bfloat16,
+                   row_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x @ dequant(w8)``: x (M, K) bf16 or f32 (rounded to bf16), w8 (K, N)
     e4m3 / e5m2 / int8 from :func:`quantize_weights`, ``scales`` one f32
-    per output column.  K3 on a CUDA tensor, the plain version on the
-    CPU."""
+    per output column; ``row_scale`` (M,) f32 or None multiplies into the
+    column scale first (W8A8's int8 route: x holds e4m3 codes, exact in
+    bf16).  K3 on a CUDA tensor, the plain version on the CPU."""
     global dequant_launches
     if not x.is_cuda:
-        return dequant_matmul_plain(x, w8, scales, out_dtype)
+        return dequant_matmul_plain(x, w8, scales, out_dtype, row_scale)
     _check_dequant(x, w8, scales, out_dtype)
+    _check_row_scale(x, row_scale)
+    rs = None if row_scale is None else row_scale.to(
+        device=x.device, dtype=torch.float32).reshape(-1).contiguous()
     m, k = x.shape
     n = w8.shape[1]
     check_gemm_shape("dequant_matmul", m, n, k)
@@ -876,9 +899,184 @@ def dequant_matmul(x: torch.Tensor, w8: torch.Tensor, scales: torch.Tensor,
         xb.data_ptr(), w8.data_ptr(), s.data_ptr(), out.data_ptr(), m, n, k,
         _PAYLOAD_IDS[w8.dtype], int(out_dtype == torch.float32), plan.splits,
         plan.kper, plan.code, ws.data_ptr() if ws is not None else None,
-        counters.data_ptr(),
+        counters.data_ptr(), rs.data_ptr() if rs is not None else None,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "dequant_matmul kernel")
     dequant_launches += 1
     dequant_routes[plan.route] += 1
+    return out
+
+
+# -- P1 / P2: the W8A8 serving linear (no TPU counterpart) --------------------
+#
+# The JAX package's matmul_impl="direct" (fp8tpu/serve/model.py::fp8_linear,
+# ::_quantize_act) is XLA ops: a per-row e4m3 quantizer of the activation and
+# an fp8 x fp8 dot with f32 accumulation, scaled by xs * s.  The port's
+# kernels (``csrc/w8a8.cu``): P2 ``quantize_rows``, one block a row, and P1
+# ``w8a8_matmul``, mma.sync.m16n8k32 on the fp8 tensor cores with the weight
+# transposed in registers.  int8 weights have no fp8 partner on the tensor
+# cores: they take K3 (``dequant_matmul(..., row_scale=)``) on the e4m3 codes
+# as bf16, which is exact.
+
+W8A8_FMTS = {torch.float8_e4m3fn: 0, torch.float8_e5m2: 1}
+W8A8_BK = 128         # K rows a stage of P1 (four k32 steps)
+W8A8_BN = 128         # output columns a block of P1
+W8A8_MAX_SPLITS = 16
+# k32 steps the tensor cores sum before P1 adds the chunk into its f32 sum
+# (the fp8 tensor cores' own sum truncates; chip_smoke.py's w8a8_probe
+# measures the choice).
+W8A8_PROMOTE = 16
+
+# Launches of P2 and of P1 since the last reset_launches(); P1's also by
+# tile: "decode" (M <= 64, four warps) and "prefill" (eight warps).
+quantize_launches = 0
+w8a8_launches = 0
+w8a8_routes = {"decode": 0, "prefill": 0}
+
+
+def quantize_rows_plain(x: torch.Tensor, fmt: str = "e4m3"):
+    """The plain version of P2 (any device): ``(q, s)`` with one f32 scale a
+    row of x (..., K), ``s = amax / max_normal`` (1 for an all-zero row)
+    and ``q = fmt(clip(x / s))``.  XLA's rules: the amax flushed (a row of
+    f32 subnormals takes scale 1), x flushed before the divide, a correctly
+    rounded divide.  One rule is the port's own: a row whose amax lies in
+    (0, max_normal 2^-126) keeps its subnormal scale (``flush_amax``), where
+    XLA flushes the quotient to 0 and stores +-max and NaN codes."""
+    top = FORMATS[fmt].max_normal
+    xf = x.to(torch.float32)
+    amax = flush_amax(xf.abs().amax(dim=-1, keepdim=True))
+    s = torch.where(amax > 0, div_exact(amax, top), torch.ones_like(amax))
+    return fp8_payload(torch.clip(_flush(xf) / s, -top, top), fmt), s
+
+
+@functools.cache
+def _quantize_fn():
+    fn = _build.load("w8a8").fp8_quantize_rows
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def quantize_rows(x: torch.Tensor, fmt: str = "e4m3"):
+    """Per-row activation quantization, the W8A8 route's producer: x (..., K)
+    -> (q (..., K) fp8, s (..., 1) f32).  P2 on a CUDA tensor (bf16 x, one
+    launch), the plain version on the CPU."""
+    global quantize_launches
+    if not x.is_cuda:
+        return quantize_rows_plain(x, fmt)
+    if fmt not in ("e4m3", "e5m2"):
+        raise ValueError(f"quantize_rows writes e4m3 or e5m2, got {fmt!r}")
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"quantize_rows takes bf16 on the card, got "
+                         f"{x.dtype}")
+    k = x.shape[-1]
+    m = x.numel() // max(k, 1)
+    if m < 1 or k < 1 or m >= 2 ** 31:
+        raise ValueError(f"quantize_rows shape {tuple(x.shape)} is outside "
+                         "the kernel's grid")
+    xc = x.contiguous()
+    q = torch.empty(x.shape, dtype=FP8_DTYPES[fmt], device=x.device)
+    s = torch.empty((*x.shape[:-1], 1), dtype=torch.float32, device=x.device)
+    err = _quantize_fn()(xc.data_ptr(), q.data_ptr(), s.data_ptr(), m, k,
+                         0 if fmt == "e4m3" else 1,
+                         torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "quantize_rows kernel")
+    quantize_launches += 1
+    return q, s
+
+
+def _check_w8a8(xq, xs, w8, s, out_dtype):
+    if xq.ndim != 2 or w8.ndim != 2 or xq.shape[1] != w8.shape[0]:
+        raise ValueError(f"w8a8_matmul needs (M, K) @ (K, N), got "
+                         f"{tuple(xq.shape)} @ {tuple(w8.shape)}")
+    if xs.numel() != xq.shape[0] or s.numel() != w8.shape[1]:
+        raise ValueError(f"w8a8_matmul needs one scale a row ({xq.shape[0]}) "
+                         f"and a column ({w8.shape[1]}), got "
+                         f"{tuple(xs.shape)} and {tuple(s.shape)}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"w8a8_matmul out_dtype must be bf16 or f32, got "
+                         f"{out_dtype}")
+
+
+def w8a8_matmul_plain(xq, xs, w8, s, out_dtype=torch.bfloat16):
+    """The plain version of P1 (any device): the codes as f32, an IEEE f32
+    contraction (never TF32), ``acc * (xs * s)`` in that order, one
+    rounding to ``out_dtype``.  Takes any payload the JAX dot takes (e4m3,
+    e5m2, int8, bf16): every product of two codes is exact in f32."""
+    _check_w8a8(xq, xs, w8, s, out_dtype)
+    with full_fp32():
+        acc = torch.matmul(xq.to(torch.float32), w8.to(torch.float32))
+    scale = xs.reshape(-1, 1).to(torch.float32) \
+        * s.reshape(1, -1).to(torch.float32)
+    return (acc * scale).to(out_dtype)
+
+
+def w8a8_plan(m: int, n: int, k: int, sms: int):
+    """(tile rows, splits, K rows a split) of a P1 launch: 16, 32 or 64 rows
+    (four warps) up to M = 64, 128 (eight warps) above; K split when the
+    output tiles give fewer than about 4 blocks an SM (2 for the tile of
+    eight warps), at most 16 ways, at least 256 rows a split."""
+    rows = 16 if m <= 16 else 32 if m <= 32 else 64 if m <= 64 else 128
+    tiles = -(-n // W8A8_BN) * -(-m // rows)
+    splits, kper = plan_splits(tiles, k, sms, W8A8_MAX_SPLITS, 256, W8A8_BK,
+                               4 if rows <= 64 else 2)
+    return rows, splits, kper
+
+
+def w8a8_edges(k: int, kper: int, promote: int = W8A8_PROMOTE) -> List[int]:
+    """The K rows at which P1 adds a tensor-core chunk into its f32 sum."""
+    return promotion_edges(k, kper, promote * 32)
+
+
+@functools.cache
+def _w8a8_fn():
+    fn = _build.load("w8a8").fp8_w8a8_gemm
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 \
+        + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def w8a8_matmul(xq: torch.Tensor, xs: torch.Tensor, w8: torch.Tensor,
+                s: torch.Tensor, out_dtype=torch.bfloat16,
+                promote: Optional[int] = None) -> torch.Tensor:
+    """``(xq @ w8) * (xs * s)``: xq (M, K) e4m3 codes with xs (M,) f32 row
+    scales from :func:`quantize_rows`, w8 (K, N) e4m3 / e5m2 payload (the
+    serving artifact's layout) with s (N,) f32 column scales.  P1 on a
+    CUDA tensor: K % 32 == 0, N % 16 == 0 and 16-byte aligned operands, or
+    it raises; ``promote`` (k32 steps a tensor-core chunk, default
+    W8A8_PROMOTE) is there for the accumulation probe.  The plain version
+    on the CPU."""
+    global w8a8_launches
+    if not xq.is_cuda:
+        return w8a8_matmul_plain(xq, xs, w8, s, out_dtype)
+    _check_w8a8(xq, xs, w8, s, out_dtype)
+    if xq.dtype != torch.float8_e4m3fn or w8.dtype not in W8A8_FMTS:
+        raise ValueError(f"w8a8_matmul takes e4m3 activations and e4m3 / "
+                         f"e5m2 weights, got {xq.dtype} x {w8.dtype}")
+    m, k = xq.shape
+    n = w8.shape[1]
+    check_gemm_shape("w8a8_matmul", m, n, k)
+    if k % 32 or n % 16:
+        raise ValueError(f"w8a8_matmul needs K % 32 == 0 and N % 16 == 0, "
+                         f"got K = {k}, N = {n}")
+    xq, w8 = xq.contiguous(), w8.contiguous()
+    if xq.data_ptr() % 16 or w8.data_ptr() % 16:
+        raise ValueError("w8a8_matmul needs 16-byte aligned operands")
+    xs = xs.to(device=xq.device, dtype=torch.float32).reshape(-1).contiguous()
+    s = s.to(device=xq.device, dtype=torch.float32).reshape(-1).contiguous()
+    out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
+    rows, splits, kper = w8a8_plan(m, n, k, sm_count(xq.device.index or 0))
+    ws, counters = split_workspace(xq.device, splits, m, n)
+    err = _w8a8_fn()(
+        xq.data_ptr(), w8.data_ptr(), xs.data_ptr(), s.data_ptr(),
+        out.data_ptr(), m, n, k, W8A8_FMTS[w8.dtype],
+        int(out_dtype == torch.float32), rows, splits, kper,
+        W8A8_PROMOTE if promote is None else int(promote),
+        ws.data_ptr() if ws is not None else None, counters.data_ptr(),
+        torch.cuda.current_stream(xq.device).cuda_stream)
+    _build.check(err, "w8a8_matmul kernel")
+    w8a8_launches += 1
+    w8a8_routes["decode" if rows <= 64 else "prefill"] += 1
     return out

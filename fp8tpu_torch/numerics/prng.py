@@ -9,6 +9,7 @@ happens on the host, and only the final 32-bit salt reaches a kernel.
 
 from __future__ import annotations
 
+import math
 from typing import List, Tuple
 
 import torch
@@ -109,3 +110,31 @@ def randint(k: PRNGKey, minval: int, maxval: int) -> int:
 def salt_of(k: PRNGKey) -> int:
     """The 32-bit salt that seeds :func:`~fp8tpu_torch.numerics.cast.sr_bits`."""
     return ((k[0] * 0x9E3779B9) & _M32) ^ k[-1]
+
+
+def permutation(k: PRNGKey, n: int, device=None) -> torch.Tensor:
+    """``jax.random.permutation(k, n)`` as int64: ``ceil(3 ln n / ln(2^32 -
+    1))`` rounds of ``k, sub = split(k)`` and a *stable* sort of the
+    elements by 32 bits of ``sub`` each (jax's ``_shuffle``).  The keys
+    are int64 values of uint32 words (torch has no uint32 arithmetic), so
+    the order, ties included, is the uint32 sort's."""
+    x = torch.arange(n, dtype=torch.int64, device=device)
+    rounds = math.ceil(3 * math.log(max(1, n)) / math.log(2 ** 32 - 1))
+    for _ in range(rounds):
+        k, sub = split(k)
+        order = torch.sort(threefry_bits32(sub, n, device), stable=True
+                           ).indices
+        x = x[order]
+    return x
+
+
+def choice(k: PRNGKey, n: int, size: int, replace: bool = False,
+           device=None) -> torch.Tensor:
+    """``jax.random.choice(k, n, (size,), replace=False)``: the first
+    ``size`` elements of :func:`permutation`."""
+    if replace:
+        raise NotImplementedError("choice with replacement is not ported")
+    if size > n:
+        raise ValueError(f"Cannot take a larger sample (size {size}) than "
+                         f"population (size {n}) when 'replace=False'")
+    return permutation(k, n, device)[:size]

@@ -11,7 +11,11 @@ stay on the device.
 
 On a CUDA tensor every linear is one launch of a hand-written kernel
 (:func:`fp8_linear` -> K3 ``dequant_matmul``, :func:`int4_linear` -> K5
-``int4_matmul``; an MoE layer's experts are one launch each per stack), a
+``int4_matmul``; an MoE layer's experts are one launch each per stack);
+with ``matmul_impl="direct"`` (W8A8) an fp8 / int8 linear is two: P2
+``quantize_rows`` quantizes its input per row to e4m3, then P1
+``w8a8_matmul`` (e4m3 / e5m2 weights, fp8 tensor cores) or K3 with a row
+scale (int8 weights, on the e4m3 codes as bf16) contracts it.  A
 decode step's ring write (both slabs and the head's advance) is one launch
 of K6 ``ring_store`` (with ``ring_flush = W``, one launch every W steps
 that stores W rows), and paged decode with ``paged_decode_impl="kernel"``
@@ -19,15 +23,13 @@ reads the pooled prefix through one launch of K4 ``paged_decode_attention``
 per layer; on the CPU the same functions use the kernels' plain versions.
 The other attention products, the router, the tied LM head and the
 bf16-weight linear of the bf16 twin are PyTorch matmuls, as they are XLA
-dots in the JAX package.
+dots in the JAX package.  Each linear quantizes its own input (q, k and v
+each launch P2: 7 launches a dense layer, as many as its linears).
 
 Layout is the JAX package's: parameters stacked per layer, weights
 ``(L, K, N)``, expert stacks ``(L, E, K, N)``.  Where the JAX functions
 return a new cache, these update ``ring.kv8`` / ``ring.sc`` (``paged.pool``
 / ``paged.sc``) in place and return the same cache object.
-
-Not ported yet, raising NotImplementedError: ``matmul_impl="direct"``
-(W8A8).
 
 Design notes:
 
@@ -57,7 +59,6 @@ from fp8tpu_torch.kernels import qmatmul
 from fp8tpu_torch.kernels.int4_matmul import pack_int4
 from fp8tpu_torch.kernels.qmatmul import div_exact, quantize_weights
 from fp8tpu_torch.models.transformer import DecoderConfig, rope_freqs
-from fp8tpu_torch.numerics.formats import FORMATS
 
 from .kv_cache import (KV_DTYPES, PagedKVCache, RingKVCache, bits,
                        quantize_kv)
@@ -66,19 +67,14 @@ _FP8_DTYPES = {"e4m3": torch.float8_e4m3fn, "e5m2": torch.float8_e5m2,
                "int8": torch.int8}
 _NEG = -1e30  # finite mask value keeps exp() NaN-free for empty slots
 
-_LATER = {
-    "direct": 'matmul_impl="direct" (W8A8 on fp8 tensor cores) is not '
-              "ported yet",
-}
-
-
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     model: DecoderConfig
     weight_fmt: str = "e4m3"
     kv_fmt: str = "e4m3"
-    # 'convert': dequantize weights in registers (W8A16), the ported path.
-    # 'direct' : fp8 operands straight to the tensor cores (W8A8); raises.
+    # 'convert': dequantize weights in registers (W8A16).
+    # 'direct' : per-row e4m3 activations, fp8 operands straight to the
+    #            tensor cores (W8A8).
     matmul_impl: str = "convert"
     # Embedding / tied LM head storage: "bf16", or an fp8 / int8 format with
     # per-row scales.
@@ -106,10 +102,11 @@ class ServeConfig:
 PAGED_DECODE_IMPLS = ("ringview", "kernel", "side", "side-eager", "scatter")
 
 
+MATMUL_IMPLS = ("convert", "direct")
+
+
 def _check_cfg(cfg: ServeConfig) -> None:
-    if cfg.matmul_impl == "direct":
-        raise NotImplementedError(_LATER["direct"])
-    if cfg.matmul_impl != "convert":
+    if cfg.matmul_impl not in MATMUL_IMPLS:
         raise ValueError(f"unknown matmul_impl {cfg.matmul_impl!r}")
     if cfg.paged_decode_impl not in PAGED_DECODE_IMPLS:
         raise ValueError(f"unknown paged_decode_impl "
@@ -139,13 +136,31 @@ def fp8_linear(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor,
     x: (..., K) bf16; w8: (K, N) e4m3 / e5m2 / int8 (one launch of K3 on a
     CUDA tensor) or bf16 (a library matmul: the bf16 twin); scale: (1, N)
     or (N,) f32.  f32 accumulation, the scale in f32, one rounding to
-    x's dtype."""
-    if impl == "direct":
-        raise NotImplementedError(_LATER["direct"])
+    x's dtype.
+
+    ``impl="direct"`` (W8A8): x quantized per row to e4m3 (P2), then the
+    codes contracted with f32 accumulation and scaled by ``xs * s``: P1 for
+    e4m3 / e5m2 weights, K3 with a row scale for int8 (the codes as bf16,
+    exact), a library matmul of the codes as bf16 for the bf16 twin."""
+    if impl not in MATMUL_IMPLS:
+        raise ValueError(f"unknown matmul_impl {impl!r}")
     if x.dtype != torch.bfloat16:
         raise ValueError(f"fp8_linear takes bf16 activations, got {x.dtype}")
     lead, n = x.shape[:-1], w8.shape[1]
     x2 = x.reshape(-1, x.shape[-1])
+    if impl == "direct":
+        xq, xs = _quantize_act(x2)
+        if w8.dtype == torch.bfloat16:
+            out = (_dot_f32(xq.to(torch.bfloat16), w8)
+                   * (xs * scale.reshape(1, -1))).to(x.dtype)
+        elif w8.dtype == torch.int8:
+            out = qmatmul.dequant_matmul(xq.to(torch.bfloat16), w8,
+                                         scale.reshape(-1), x.dtype,
+                                         row_scale=xs.reshape(-1))
+        else:
+            out = qmatmul.w8a8_matmul(xq, xs.reshape(-1), w8,
+                                      scale.reshape(-1), x.dtype)
+        return out.reshape(*lead, n)
     if w8.dtype == torch.bfloat16:
         out = (_dot_f32(x2, w8) * scale.reshape(1, -1)).to(x.dtype)
     else:
@@ -204,13 +219,11 @@ def int4_linear(x: torch.Tensor, wp: torch.Tensor,
 
 
 def _quantize_act(x: torch.Tensor, fmt: str = "e4m3"):
-    """Per-row activation quantization (the W8A8 route's producer)."""
-    top = FORMATS[fmt].max_normal
-    xf = x.to(torch.float32)
-    amax = xf.abs().amax(dim=-1, keepdim=True)
-    s = torch.where(amax > 0, div_exact(amax, top), torch.ones_like(amax))
-    q = torch.clip(xf / s, -top, top).to(_FP8_DTYPES[fmt])
-    return q, s
+    """Per-row activation quantization (the W8A8 route's producer): (q, s)
+    with s (..., 1) f32.  One launch of P2 on a CUDA tensor
+    (:func:`fp8tpu_torch.kernels.qmatmul.quantize_rows`), its plain version
+    on the CPU."""
+    return qmatmul.quantize_rows(x, fmt)
 
 
 def _embed_lookup(params, toks):

@@ -870,3 +870,73 @@ def test_convert_studies_reject_what_they_do_not_take(cuda):
     w = torch.zeros(64, 32, dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError, match="streaming kernel"):
         fp8_linear_study.linear(x, w, "pl-bits")
+
+
+# -- P1 / P2: the W8A8 serving linear ------------------------------------------
+
+@pytest.mark.parametrize("m,k", [(1, 4096), (64, 11008), (700, 1001)])
+def test_quantize_rows_kernel_matches_plain(cuda, m, k):
+    """P2 against its plain version on the CPU, codes and scales bit for
+    bit, with a zero row, a row of bf16 subnormals, +-inf, a NaN and the
+    tiny-amax row (k = 1001 takes the scalar path)."""
+    gen = torch.Generator().manual_seed(m)
+    x = torch.randn(m, k, generator=gen) * 5
+    if m > 8:
+        x[1] = 0.0
+        x[2] = 2.0 ** -130
+        x[3, 5], x[4, 7], x[5, 9] = float("inf"), float("-inf"), float("nan")
+        x[6] = 0.0
+        x[6, :3] = torch.tensor([1e-37, -3e-38, 5e-38])
+    xb = x.to(torch.bfloat16)
+    before = qmatmul.quantize_launches
+    q, s = qmatmul.quantize_rows(xb.to(cuda))
+    assert qmatmul.quantize_launches == before + 1
+    wq, ws = qmatmul.quantize_rows_plain(xb)
+    np.testing.assert_array_equal(q.view(torch.uint8).cpu().numpy(),
+                                  wq.view(torch.uint8).numpy())
+    np.testing.assert_array_equal(s.cpu().view(torch.int32).numpy(),
+                                  ws.view(torch.int32).numpy())
+
+
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+@pytest.mark.parametrize("m,k,n", [(1, 4096, 1024), (9, 2048, 5504),
+                                   (65, 4096, 1024), (700, 512, 272)])
+def test_w8a8_kernel_matches_plain(cuda, fmt, m, k, n):
+    """P1 against its plain version on the card: within the f32
+    summation-order bound plus one bf16 step, a second launch bit for bit;
+    a ragged K raises."""
+    gen = torch.Generator(device=cuda).manual_seed(k + m)
+    x = torch.randn(m, k, device=cuda, generator=gen).to(torch.bfloat16)
+    w8, s = qmatmul.quantize_weights(
+        torch.randn(k, n, device=cuda, generator=gen) / k ** 0.5, fmt)
+    xq, xs = qmatmul.quantize_rows(x)
+    before = qmatmul.w8a8_launches
+    got = qmatmul.w8a8_matmul(xq, xs.reshape(-1), w8, s.reshape(-1))
+    again = qmatmul.w8a8_matmul(xq, xs.reshape(-1), w8, s.reshape(-1))
+    assert qmatmul.w8a8_launches == before + 2
+    want = qmatmul.w8a8_matmul_plain(xq, xs.reshape(-1), w8, s.reshape(-1))
+    mag = xq.float().abs() @ w8.float().abs()
+    tol = 2 * k * 2.0 ** -24 * mag * xs * s.reshape(1, -1) \
+        + 2.0 ** -7 * want.float().abs()
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    with pytest.raises(ValueError, match="K % 32"):
+        qmatmul.w8a8_matmul(xq[:, :k - 16].contiguous(), xs.reshape(-1),
+                            w8[:k - 16], s.reshape(-1))
+
+
+def test_direct_decode_step_on_the_card_launches_p1_and_p2(cuda):
+    """A tiny decoder's decode step with matmul_impl="direct": one P2 and
+    one P1 launch a linear, logits within the plain path's reach."""
+    from fp8tpu_torch.serve import (RingKVCache, ServeConfig, decode_step,
+                                    random_serve_params)
+    cfg = tiny_config(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2,
+                      d_ff=512, vocab_size=512, max_seq_len=64)
+    params = random_serve_params(cfg, "e4m3", seed=3)
+    scfg = ServeConfig(model=cfg, kv_fmt="int8", matmul_impl="direct")
+    ring = RingKVCache.create(2, 4, 64, 2, 64, "int8")
+    tok = torch.arange(4, device=cuda, dtype=torch.int32)
+    qmatmul.reset_launches()
+    logits, _ = decode_step(params, ring, tok, tok, scfg)
+    assert (qmatmul.quantize_launches, qmatmul.w8a8_launches) == (14, 14)
+    assert bool(torch.isfinite(logits).all())

@@ -557,17 +557,28 @@ def test_chosen_logprob_matches_jax(rng):
 # -- what waits, and the device rules ------------------------------------------
 
 def test_unported_options_raise_not_implemented():
-    """W8A8 still raises; ring_flush > 1 and MoE artifacts, which raised
-    before they were ported, now serve: a one-step call with ring_flush
-    writes its row directly (as the JAX package does), and a random MoE
-    artifact decodes."""
-    _, tcfg, _, _ = _models()
-    _, tp = _artifact("e4m3")
+    """Every option that raised before it was ported now serves: W8A8
+    (matmul_impl="direct") decodes within the tolerance of the un-jitted
+    JAX function, ring_flush > 1 in a one-step call writes its row directly
+    (as the JAX package does), and a random MoE artifact decodes; an
+    unknown matmul_impl raises."""
+    jcfg, tcfg, _, _ = _models()
+    jp, tp = _artifact("e4m3")
     ring = RingKVCache.create(2, 1, S, 2, 16, "int8", device="cpu")
     tok = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="W8A8"):
+    direct, ring = decode_step(tp, ring, tok, tok, ServeConfig(
+        model=tcfg, kv_fmt="int8", matmul_impl="direct"))
+    with jax.disable_jit():
+        jdirect, _ = jmodel.decode_step(
+            jp, JRing.create(2, 1, S, 2, 16, "int8"), jnp.zeros(1, jnp.int32),
+            jnp.zeros(1, jnp.int32), JServeConfig(
+                model=jcfg, kv_fmt="int8", matmul_impl="direct"))
+    assert np.abs(direct.numpy() - np.asarray(jdirect)).max() \
+        <= EAGER_TOL * np.abs(np.asarray(jdirect)).max()
+    with pytest.raises(ValueError, match="matmul_impl"):
         decode_step(tp, ring, tok, tok, ServeConfig(
-            model=tcfg, kv_fmt="int8", matmul_impl="direct"))
+            model=tcfg, kv_fmt="int8", matmul_impl="w4a4"))
+    ring = RingKVCache.create(2, 1, S, 2, 16, "int8", device="cpu")
     want, _ = decode_step(tp, RingKVCache.create(2, 1, S, 2, 16, "int8",
                                                  device="cpu"), tok, tok,
                           ServeConfig(model=tcfg, kv_fmt="int8"))

@@ -1,15 +1,17 @@
 """The port's package surface against the JAX package's: every public
 name that ``fp8tpu``, ``fp8tpu.numerics``, ``fp8tpu.kernels``,
-``fp8tpu.quant``, ``fp8tpu.training``, ``fp8tpu.models``, ``fp8tpu.serve``
-and ``fp8tpu.parallel`` export, ``fp8tpu_torch`` and its counterparts
-export too, except the names of modules still to be ported, which are
-listed here and must be exactly the missing ones."""
+``fp8tpu.quant``, ``fp8tpu.training``, ``fp8tpu.models``, ``fp8tpu.serve``,
+``fp8tpu.parallel``, ``fp8tpu.utils`` and ``fp8tpu.data`` export,
+``fp8tpu_torch`` and its counterparts export too, except the names of
+modules still to be ported, which are listed here and must be exactly the
+missing ones."""
 
 import types
 
 import pytest
 
 import fp8tpu
+import fp8tpu.data
 import fp8tpu.kernels
 import fp8tpu.models
 import fp8tpu.numerics
@@ -17,7 +19,9 @@ import fp8tpu.parallel
 import fp8tpu.quant
 import fp8tpu.serve
 import fp8tpu.training
+import fp8tpu.utils
 import fp8tpu_torch
+import fp8tpu_torch.data
 import fp8tpu_torch.kernels
 import fp8tpu_torch.models
 import fp8tpu_torch.numerics
@@ -25,6 +29,7 @@ import fp8tpu_torch.parallel
 import fp8tpu_torch.quant
 import fp8tpu_torch.serve
 import fp8tpu_torch.training
+import fp8tpu_torch.utils
 
 # JAX names that the port exports under another name, and why.
 # ``pallas_qdq(x, fmt, mode, scale, daz, seed, block_size, interpret)``
@@ -41,8 +46,14 @@ NOT_YET_PORTED = {
     "models": set(),
     # §1 item 6, training/opt8.py
     "training": {"adamw_8bit", "scale_by_adam_8bit", "state_bytes"},
-    # §1 item 10, slice 4: quant/awq.py, models/bert.py, models/vision.py
-    "quant": {"awq_calibrate_decoder", "awq_equalize", "collect_awq_stats"},
+    "quant": set(),
+    # §1 item 8: utils/bindump.py, stats.py, metrics.py, profiling.py
+    "utils": {"BindumpSchedule", "TensorDumpHelper", "bindump_tensor",
+              "bindump_tree", "MetricLogger", "SmoothedValue", "accuracy",
+              "all_reduce_mean", "Timer", "annotate", "benchmark", "trace",
+              "log2_histogram", "stats_window_enabled", "tensor_stats",
+              "tree_stats"},
+    "data": set(),
     # §1 item 10, slice 4: parallel/ (the MoE layer is ported, meshless)
     "parallel": {
         "DECODER_PARAM_RULES", "KV_CACHE_SPEC", "KV_SCALE_SPEC",
@@ -84,8 +95,10 @@ def public_names(module) -> set:
     (fp8tpu.models, fp8tpu_torch.models),
     (fp8tpu.serve, fp8tpu_torch.serve),
     (fp8tpu.parallel, fp8tpu_torch.parallel),
+    (fp8tpu.utils, fp8tpu_torch.utils),
+    (fp8tpu.data, fp8tpu_torch.data),
 ], ids=["package", "numerics", "kernels", "quant", "training", "models",
-        "serve", "parallel"])
+        "serve", "parallel", "utils", "data"])
 def test_port_exports_the_jax_names(jax_mod, torch_mod):
     later = NOT_YET_PORTED.get(jax_mod.__name__.rpartition(".")[2], set())
     want = {RENAMED.get(n, n) for n in public_names(jax_mod)}

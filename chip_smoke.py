@@ -5,8 +5,10 @@
                                     train,serve,serve_paged,spec,moe,flush,
                                     time,w8a8,deploy]
     python3 chip_smoke.py --phases build,k2_probe   # not in the default run
-    python3 chip_smoke.py --phases build,w8a8_probe # nor these four
+    python3 chip_smoke.py --phases build,w8a8_probe # nor these six
     python3 chip_smoke.py --phases build,w8a8k
+    python3 chip_smoke.py --phases build,w8a8_time
+    python3 chip_smoke.py --phases build,w8a8_p1probe
     python3 chip_smoke.py --phases build,k4_layers
     python3 chip_smoke.py --phases build,profile_probe
 
@@ -212,13 +214,18 @@ Phases, each printing its own lines; any failure exits non-zero:
           four dense and two expert shapes x 12 row counts, e4m3 and e5m2
           weights, against plain (summation order plus a bf16 step), the
           f64 product over its promotion edges and a second launch, one-sign
-          terms over K = 11008, every (activation, weight) code pair
-          through both tiles; (d) K3 with a row scale (int8 direct) on the
-          same checks; (e) decode steps at batch 64 on the ring and the
-          paged pool ("kernel"), e4m3 and int8 weights: one step with
-          every layer started from the plain run's input to it (every
-          layer's written rows >= 0.99 equal, its output within 5e-2, each
-          K4 launch on its own operands); 4 free-running steps, every P2 /
+          terms over K = 11008, N not a multiple of 128 on both forms,
+          every (activation, weight) code pair through both forms; (c)
+          P1's f32 sums against cuBLASLt's fp8 GEMM (torch._scaled_mm),
+          bit for bit; (d) K3
+          with a row scale (int8 direct) on the same checks; (e) decode
+          steps at batch 64 on the ring and the paged pool ("kernel"),
+          e4m3 and int8 weights: one step with every layer started from
+          the plain run's input to it (every layer's written rows >= 0.99
+          equal, its output within 5e-2 of its max, e4m3 within
+          W8A8_FP8_LAYER_TOL = 7.5e-2 beside cuBLASLt's fp8 GEMM in P1's
+          place as a control; each K4 launch on its own operands); 4
+          free-running steps, every P2 /
           P1 / K3 launch of the first on its own operands, the logits
           against the drift of an exact-sum plain order (W8A8 is chaotic),
           launches a step; one MoE step with routing flips counted; (f) 16
@@ -230,7 +237,13 @@ Phases, each printing its own lines; any failure exits non-zero:
           convert and direct in turns.
    w8a8_probe  (asked for by name) P1's product over K = 11008 of one-sign
           terms at chunks of 32 to all of K: the measurement behind
-          W8A8_PROMOTE.  w8a8k (by name): (a)-(d) alone.  k4_layers (by
+          W8A8_PROMOTE; and the bits the fp8 tensor cores keep below a
+          step's largest addend, behind W8A8_TC_BITS.  w8a8k (by name):
+          (a)-(d) alone.  w8a8_time (by name): the kernel timing alone.
+          w8a8_p1probe (by name): P1's time at chunks of 1 to 32 k32
+          steps and K = 1024-8192, and a decode step's layers against the
+          f32 plain version at each chunk: the measurement behind
+          W8A8_PROMOTE's cost.  k4_layers (by
           name): K4 swapped alone between kernel and plain on a paged
           step, and its launches against f64.  profile_probe (by name):
           torch.profiler's device records of the 8 x 256 prefill matched
@@ -372,10 +385,15 @@ def phase_build(record):
     report = _build.build_all()
     seconds = time.perf_counter() - t0
     for name, r in report.items():
-        regs = [ln.strip() for ln in r["log"].splitlines()
+        lines = r["log"].splitlines()
+        regs = [ln.strip() for ln in lines
                 if "registers" in ln or "spill" in ln]
         print(f"build {name}: {r['seconds']:.1f} s")
         for ln in regs[:4]:
+            print(f"  ptxas {ln}")
+        # ptxas draining the wgmmas itself (C7517) costs the loop its
+        # overlap: show it
+        for ln in [ln.strip() for ln in lines if "C7517" in ln][:4]:
             print(f"  ptxas {ln}")
         record.setdefault("build", {})[name] = r
     print(f"build: all kernels ready in {seconds:.1f} s")
@@ -2611,7 +2629,7 @@ LEAD_KERNEL = "spin_kernel"    # torch.cuda._sleep's kernel
 def kernel_kind(name: str) -> str:
     """The group of a device event's name in the profiles' breakdowns."""
     low = name.lower()
-    if "w8a8_gemm_kernel" in name:
+    if "P1Fp8" in name:               # ws::stream_kernel<P1Fp8<...>, ...>
         return "P1 fp8 x fp8 GEMM (hand-written)"
     if "quantize_rows_kernel" in name:
         return "P2 row quantizer (hand-written)"
@@ -4543,6 +4561,17 @@ P2_KS = (4096, 11008, 2048, 5504, 1001)
 W8A8_SLICE_M = 512
 W8A8_COLS = 1024
 W8A8_STEPS = 4                 # decode steps held against plain
+# forced_step's limit on an e4m3 direct layer's output (the int8 route's
+# is SERVE_LOGIT_TOL): fp8 tensor-core sums keep 13 bits below a k32 step's
+# largest addend, and W8A8 turns such differences into whole e4m3 code
+# flips (trap 49), so on these draws a sound fp8 GEMM's layers (P1 at chunks
+# of 1, 2 or 4 k32 steps, cuBLASLt's fp8 GEMM) lie up to 6.0e-2 of
+# max|out| from the f32 plain version, and the f32-grade exact-sum order up
+# to 3.3e-2 (PERF.md §6, PR 14).  Each run prints the cuBLASLt control.
+W8A8_FP8_LAYER_TOL = 7.5e-2
+# N not a multiple of 128 (a block's last column tile partly outside N):
+# (M, K, N) on both forms
+W8A8_RAGGED = ((8, 4096, 272), (700, 4096, 272), (65, 2048, 48))
 W8A8_PROBE = (344, 64, 16, 8, 4, 2, 1)   # k32 steps a chunk (344: all of K)
 
 
@@ -4610,29 +4639,61 @@ def w8a8_tolerance(xq, xs, w8, s, want):
     return tol
 
 
-def w8a8_reference(xq, xs, w8, s, edges, out_dtype):
+# The fp8 tensor cores' sum (P1's wgmma): each k32 step aligns its 33
+# addends (the running chunk and 32 exact products) to the largest one's
+# exponent and keeps W8A8_TC_BITS bits below it, dropping the rest
+# (w8a8_probe measures the bits), so a step's result is off by less than
+# 32 units of 2^(e_max - W8A8_TC_BITS): 2^(5 - W8A8_TC_BITS) of its largest
+# addend, at most that of |the chunk so far| + sum |the step's products|.
+W8A8_TC_BITS = 13
+
+
+def fp8_chunk_bound(xq, wq, edges):
+    """The allowance for the fp8 tensor cores' own sums: over every k32 step
+    of every chunk between promotion ``edges``, 2^(5 - W8A8_TC_BITS)
+    (|the chunk's exact sum before the step| + sum |the step's
+    products|), in f64."""
+    import torch
+    x, w = xq.double(), wq.double()
+    bound = torch.zeros(x.shape[0], w.shape[1], dtype=torch.float64,
+                        device=x.device)
+    for a, b in zip(edges, edges[1:]):
+        run = torch.zeros_like(bound)
+        for k0 in range(a, b, 32):
+            xa, wa = x[:, k0:min(b, k0 + 32)], w[k0:min(b, k0 + 32)]
+            bound += run.abs() + xa.abs() @ wa.abs()
+            run += xa @ wa
+    return bound * 2.0 ** (5 - W8A8_TC_BITS)
+
+
+def w8a8_reference(xq, xs, w8, s, edges, out_dtype, fp8_sum=False):
     """(exact, allowed |out - exact|) for P1's output: the f64 product of the
     codes within k2_reference's random-walk bound over P1's promotion
-    edges, then the scales' f32 products and, for bf16, the last
-    rounding."""
+    edges (plus, for ``fp8_sum``, the fp8 tensor cores' own sums,
+    fp8_chunk_bound), then the scales' f32 products and, for bf16, the last
+    rounding.  The int8 route (K3's bf16 tensor cores) keeps f32-grade
+    sums: no ``fp8_sum``."""
     import torch
     exact, tol = k2_reference(xq.float(), w8.float(), edges)
+    if fp8_sum:
+        tol = tol + fp8_chunk_bound(xq.float(), w8.float(), edges)
     scale = xs.double().reshape(-1, 1) * s.double().reshape(1, -1)
     exact = exact * scale
     rel = 3 * 2.0 ** -24 + (2.0 ** -8 if out_dtype == torch.bfloat16 else 0)
     return exact, tol * scale.abs() + rel * exact.abs() + 1e-30
 
 
-def w8a8_gemm_case(rows, label, got, again, xq, xs, w8, s, edges, cols):
-    """One P1 (or int8 K3) launch against its plain version, the f64
-    product over its promotion edges and a second launch (bit for bit);
-    the first two on the first ``cols`` columns."""
+def w8a8_gemm_case(rows, label, got, again, xq, xs, w8, s, edges, cols,
+                   fp8_sum=True):
+    """One P1 (or, with ``fp8_sum`` False, int8 K3) launch against its
+    plain version, the f64 product over its promotion edges and a second
+    launch (bit for bit); the first two on the first ``cols`` columns."""
     import torch
     from fp8tpu_torch.kernels import qmatmul
     wc, sc = w8[:, :cols], s[:cols]
     want = qmatmul.w8a8_matmul_plain(xq, xs, wc, sc, got.dtype)
     tol = w8a8_tolerance(xq, xs, wc, sc, want)
-    ref = w8a8_reference(xq, xs, wc, sc, edges, got.dtype)
+    ref = w8a8_reference(xq, xs, wc, sc, edges, got.dtype, fp8_sum)
     return _gemm_case(rows, label, got[:, :cols], want, tol, None, ref) and \
         _repeat_ok(rows, got, again)
 
@@ -4728,8 +4789,8 @@ def w8a8_kernel_checks(record):
             xq, xs = qmatmul.quantize_rows(x)
             xs = xs.reshape(-1)
             cols = n if m < W8A8_SLICE_M else min(n, W8A8_COLS)
-            rows_, splits, kper = qmatmul.w8a8_plan(m, n, k, sms)
-            edges = qmatmul.w8a8_edges(k, kper)
+            p1plan = qmatmul.w8a8_plan(m, n, k, sms)
+            edges = qmatmul.w8a8_edges(k, p1plan.kper)
             for fmt in ("e4m3", "e5m2"):
                 w8, s = payloads[fmt]
                 dtypes = (torch.bfloat16, torch.float32) if m in (8, 2048) \
@@ -4739,7 +4800,8 @@ def w8a8_kernel_checks(record):
                     again = qmatmul.w8a8_matmul(xq, xs, w8, s, out_dtype)
                     w8a8_gemm_case(
                         rows, f"p1 {fmt} M={m} K={k} N={n} "
-                        f"{str(out_dtype)[6:]} tile {rows_} splits {splits}",
+                        f"{str(out_dtype)[6:]} {p1plan.route} "
+                        f"{p1plan.code} splits {p1plan.splits}",
                         got, again, xq, xs, w8, s, edges, cols)
             w8, s = payloads["int8"]
             xc = xq.to(torch.bfloat16)
@@ -4750,7 +4812,7 @@ def w8a8_kernel_checks(record):
                 qmatmul.promotion_edges(k, plan.kper)
             w8a8_gemm_case(rows3, f"k3 int8 row-scaled M={m} K={k} N={n} "
                            f"{plan.route}", got, again, xq, xs, w8, s,
-                           edges3, cols)
+                           edges3, cols, fp8_sum=False)
         del payloads
     # one-sign terms over the long K of the down projection: where the
     # tensor cores' truncation adds up (w8a8_probe measures it)
@@ -4758,14 +4820,40 @@ def w8a8_kernel_checks(record):
     xq, w8 = probe_operands(gen, m, k, n)
     xs = torch.rand(m, device="cuda", generator=gen) + 0.5
     s = torch.rand(n, device="cuda", generator=gen) + 0.5
-    _, _, kper = qmatmul.w8a8_plan(m, n, k, sms)
+    kper = qmatmul.w8a8_plan(m, n, k, sms).kper
     for out_dtype in (torch.float32, torch.bfloat16):
         got = qmatmul.w8a8_matmul(xq, xs, w8, s, out_dtype)
         again = qmatmul.w8a8_matmul(xq, xs, w8, s, out_dtype)
         w8a8_gemm_case(rows, f"p1 one-sign M={m} K={k} N={n} "
                        f"{str(out_dtype)[6:]}", got, again, xq, xs, w8, s,
                        qmatmul.w8a8_edges(k, kper), n)
+    for m, k, n in W8A8_RAGGED:
+        w = torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
+        x = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
+        xq, xs = qmatmul.quantize_rows(x)
+        xs = xs.reshape(-1)
+        p1plan = qmatmul.w8a8_plan(m, n, k, sms)
+        edges = qmatmul.w8a8_edges(k, p1plan.kper)
+        for fmt in ("e4m3", "e5m2"):
+            w8, s = qmatmul.quantize_weights(w, fmt)
+            s = s.reshape(-1)
+            for out_dtype in (torch.bfloat16, torch.float32):
+                got = qmatmul.w8a8_matmul(xq, xs, w8, s, out_dtype)
+                again = qmatmul.w8a8_matmul(xq, xs, w8, s, out_dtype)
+                w8a8_gemm_case(
+                    rows, f"p1 ragged N {fmt} M={m} K={k} N={n} "
+                    f"{str(out_dtype)[6:]} {p1plan.route}", got, again, xq,
+                    xs, w8, s, edges, n)
     p1_launches = qmatmul.w8a8_launches
+    vendor = []
+    vendor_sums(vendor, gen)
+    print(f"w8a8 (c) P1's f32 sums against cuBLASLt's fp8 GEMM "
+          f"(torch._scaled_mm, a yardstick) at {len(vendor)} shapes: "
+          f"{sum(r['differing'] for r in vendor)} of "
+          f"{sum(r['elements'] for r in vendor)} differ")
+    result["p1_vendor_sums"] = vendor
+    if not all(r["ok"] for r in vendor):
+        problems.append("P1's f32 sums differ from cuBLASLt's fp8 GEMM")
     for w_dtype, fmt in ((torch.float8_e4m3fn, "e4m3"),
                          (torch.float8_e5m2, "e5m2")):
         for mb in (64, 256):
@@ -4778,7 +4866,7 @@ def w8a8_kernel_checks(record):
         f64 = max(r.get("err_over_f64_bound", 0.0) for r in rs)
         print(f"w8a8 ({'b' if name == 'P1' else 'd'}) {name}: {len(rs)} "
               f"cases (M in {W8A8_MS} x (K, N) in {W8A8_KN}"
-              f"{', e4m3 / e5m2 weights, one-sign K = 11008, every code pair' if name == 'P1' else ''}; "
+              f"{', e4m3 / e5m2 weights, one-sign K = 11008, ragged N, every code pair' if name == 'P1' else ''}; "
               f"M >= {W8A8_SLICE_M} held on the first {W8A8_COLS} columns): "
               f"worst err/bound {worst:.3e}, worst err/f64 bound {f64:.3e}; "
               f"{sum(not r['ok'] for r in rs)} failed")
@@ -4808,48 +4896,154 @@ def probe_operands(gen, m, k, n):
     return codes(m, k), codes(k, n)
 
 
+def tc_kept_bits():
+    """How many bits below the largest addend a k32 fp8 wgmma keeps: one
+    product of 2^16 and 31 of 2^(16 - gap) (gap 9 .. 25) in one step, the
+    same 31 (32) products added in a second step to a chunk of 2^16, and
+    31 products of -1.5 2^(16 - gap) in one step (which way the dropped
+    bits go); {gap: (kept share alone, into the chunk, of the negative
+    terms)}, a share 1.0 where the small terms survive whole, 0.0 where
+    they vanish."""
+    import torch
+    from fp8tpu_torch.kernels import qmatmul
+    gaps = list(range(9, 26))
+    m, n = len(gaps), 16
+    out = {}
+    for acc, mult in ((False, 1.0), (True, 1.0), (False, -1.5)):
+        k = 64 if acc else 32
+        x = torch.zeros(m, k)
+        w = torch.ones(k, n)
+        for r, gap in enumerate(gaps):
+            x[r, 0] = 256.0
+            x[r, 32 if acc else 1:k] = mult * 2.0 ** (16 - gap)
+        w[0] = 256.0
+        xq = x.to(torch.float8_e4m3fn).cuda()
+        w8 = w.to(torch.float8_e4m3fn).cuda()
+        got = qmatmul.w8a8_matmul(xq, torch.ones(m, device="cuda"), w8,
+                                  torch.ones(n, device="cuda"),
+                                  torch.float32).double().cpu()
+        small = (xq.cpu().double()[:, 1:] @ w8.cpu().double()[1:, :1])[:, 0]
+        kept = (got[:, 0] - 2.0 ** 16) / small
+        for r, gap in enumerate(gaps):
+            out.setdefault(gap, []).append(float(kept[r]))
+    return {g: tuple(v) for g, v in out.items()}
+
+
 def phase_w8a8_probe(record):
     """P1's product over K = 11008 of terms of one sign (probe_operands) at
     several tensor-core chunk lengths, unsplit (M = 2048, N = 4096: 512
-    tiles): the measurement behind W8A8_PROMOTE."""
+    tiles): the measurement behind W8A8_PROMOTE; and the bits the fp8
+    tensor cores keep (tc_kept_bits), the measurement behind
+    W8A8_TC_BITS."""
     import torch
     from fp8tpu_torch.kernels import qmatmul
+    kept = tc_kept_bits()
+    whole = [g for g, v in kept.items() if min(v[:2]) == 1.0]
+    bits = max(whole) if whole else 0
+    for g, (alone, into, neg) in kept.items():
+        print(f"w8a8_probe kept bits: 31 products 2^-{g} of the largest "
+              f"addend: share kept {alone:.4f} in one step, {into:.4f} "
+              f"added to a chunk; of -1.5 2^-{g} each {neg:.4f}")
+    print(f"w8a8_probe: the fp8 tensor cores keep whole every term within "
+          f"{bits} bits of the largest addend (bound assumes "
+          f"{W8A8_TC_BITS})")
     gen = torch.Generator(device="cuda").manual_seed(31)
     m, k, n = 2048, 11008, 4096
     xq, w8 = probe_operands(gen, m, k, n)
     ones_m = torch.ones(m, device="cuda")
     ones_n = torch.ones(n, device="cuda")
-    _, splits, kper = qmatmul.w8a8_plan(m, n, k, qmatmul.sm_count(0))
-    if splits != 1:
-        raise PhaseError(f"the probe's shape splits K ({splits})")
+    plan = qmatmul.w8a8_plan(m, n, k, qmatmul.sm_count(0))
+    kper = plan.kper
+    if plan.splits != 1:
+        raise PhaseError(f"the probe's shape splits K ({plan.splits})")
     cols = 512
-    exact = None
     rows = []
     for promote in W8A8_PROBE:
         got = qmatmul.w8a8_matmul(xq, ones_m, w8, ones_n, torch.float32,
                                   promote=promote)[:, :cols]
         edges = qmatmul.w8a8_edges(k, kper, promote)
         ex, tol = k2_reference(xq.float(), w8[:, :cols].float(), edges)
+        tc = fp8_chunk_bound(xq.float(), w8[:, :cols].float(), edges)
         rel = (got.double() - ex) / ex
         rows.append({"promote_steps": promote, "chunk": 32 * promote,
-                     "err_over_tol": k2_ratio(got, ex, tol),
+                     "err_over_tol": k2_ratio(got, ex, tol + tc),
+                     "err_over_f32_walk": k2_ratio(got, ex, tol),
                      "mean_rel_err": float(rel.mean()),
                      "max_abs_rel_err": float(rel.abs().max())})
         print(f"w8a8_probe chunk {32 * promote} (M={m} K={k} N={n}, first "
-              f"{cols} columns, positive codes 2^-6..2^8): |err| / tolerance "
-              f"{rows[-1]['err_over_tol']:.3e}, mean relative error "
-              f"{rows[-1]['mean_rel_err']:.3e}, max |relative error| "
-              f"{rows[-1]['max_abs_rel_err']:.3e}")
-        del ex, tol
-    record["w8a8_probe"] = {"rows": rows,
+              f"{cols} columns, positive codes 2^-6..2^8): |err| / "
+              f"tolerance {rows[-1]['err_over_tol']:.3e} (over the f32 "
+              f"walk alone {rows[-1]['err_over_f32_walk']:.3e}), mean "
+              f"relative error {rows[-1]['mean_rel_err']:.3e}, max "
+              f"|relative error| {rows[-1]['max_abs_rel_err']:.3e}")
+        del ex, tol, tc
+    record["w8a8_probe"] = {"rows": rows, "kept": kept, "kept_bits": bits,
+                            "w8a8_tc_bits": W8A8_TC_BITS,
                             "w8a8_promote": qmatmul.W8A8_PROMOTE}
     used = [r for r in rows if r["promote_steps"] == qmatmul.W8A8_PROMOTE]
     if not used or used[0]["err_over_tol"] > 1.0:
         raise PhaseError("P1's chunk length does not keep the long sum "
                          "within the tolerance")
+    if bits < W8A8_TC_BITS:
+        raise PhaseError(f"the fp8 tensor cores keep {bits} bits, fewer "
+                         f"than the bound's {W8A8_TC_BITS}")
 
 
 W8A8_TIME_MS = (8, 64, 512, 2048)
+
+
+def w8a8_ring_state(prm, scfg, slots=None):
+    """A ring of ``slots`` (default BENCH_BATCH) slots after a prefill of
+    random prompts of 8-32 tokens (seed 33): (ring, next tokens,
+    positions), the state of the w8a8 phase's ring decode steps."""
+    import torch
+    from fp8tpu_torch.serve import RingKVCache, prefill_batch
+    cfg = scfg.model
+    slots = slots or BENCH_BATCH
+    g = torch.Generator(device="cuda").manual_seed(33)
+    ring = RingKVCache.create(cfg.n_layers, slots, SERVE_SEQ,
+                              cfg.n_kv_heads, cfg.head_dim, "int8")
+    prompts = torch.randint(1, cfg.vocab_size, (slots, 32), device="cuda",
+                            generator=g, dtype=torch.int32)
+    lengths = torch.randint(8, 33, (slots,), device="cuda", generator=g,
+                            dtype=torch.int32)
+    zi = torch.zeros(slots, device="cuda", dtype=torch.int32)
+    _, ring, toks, pos = prefill_batch(
+        prm, ring, prompts, torch.arange(slots, device="cuda",
+                                         dtype=torch.int32), lengths,
+        None, torch.zeros(slots, device="cuda"), None, None, zi,
+        zi.clone(), scfg)
+    return ring, toks, pos
+
+
+def clone_ring(r):
+    from fp8tpu_torch.serve import RingKVCache
+    return RingKVCache(r.kv8.clone(), r.sc.clone(), r.head.clone())
+
+
+def w8a8_pool_state(prm, scfg):
+    """A paged pool of BENCH_BATCH slots of 4 pages (a random page table)
+    after a prefill of random prompts of 70-128 tokens (seed 34)."""
+    import torch
+    from fp8tpu_torch.serve import PagedKVCache, prefill_batch_paged
+    cfg = scfg.model
+    B = BENCH_BATCH
+    g = torch.Generator(device="cuda").manual_seed(34)
+    paged = PagedKVCache.create(B * 4, PAGE, cfg.n_layers, B, 4,
+                                cfg.n_kv_heads, cfg.head_dim, "int8")
+    paged.page_table = torch.randperm(
+        B * 4, device="cuda", generator=g).to(torch.int32).reshape(B, 4)
+    prompts = torch.randint(1, cfg.vocab_size, (B, 128), device="cuda",
+                            generator=g, dtype=torch.int32)
+    lengths = torch.randint(70, 129, (B,), device="cuda", generator=g,
+                            dtype=torch.int32)
+    zi = torch.zeros(B, device="cuda", dtype=torch.int32)
+    _, paged, toks, pos = prefill_batch_paged(
+        prm, paged, prompts, torch.arange(B, device="cuda",
+                                          dtype=torch.int32), lengths,
+        None, torch.zeros(B, device="cuda"), None, None, zi, zi.clone(),
+        scfg)
+    return paged, toks, pos
 
 
 def phase_w8a8(record):
@@ -4867,57 +5061,19 @@ def phase_w8a8(record):
     import torch
     from fp8tpu_torch.kernels import inplace, qmatmul
     from fp8tpu_torch.kernels import paged_attention as k4
-    from fp8tpu_torch.serve import (PagedKVCache, RingKVCache, ServeConfig,
-                                    decode_step, decode_step_paged,
-                                    prefill_batch, prefill_batch_paged,
-                                    random_serve_params)
+    from fp8tpu_torch.serve import (ServeConfig, decode_step,
+                                    decode_step_paged, random_serve_params)
     from fp8tpu_torch.serve import engine as engine_mod
 
     w8a8_kernel_checks(record)
     cfg = serve_config()
-    L, KV, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    L, KV = cfg.n_layers, cfg.n_kv_heads
     B = BENCH_BATCH
     result, problems = {}, []
     if "e4m3" not in STATE:
         STATE["e4m3"] = random_serve_params(cfg, "e4m3", seed=0)
     params = {"e4m3": STATE["e4m3"],
               "int8": random_serve_params(cfg, "int8", seed=32)}
-
-    def ring_state(prm, scfg, slots=B, mcfg=cfg):
-        g = torch.Generator(device="cuda").manual_seed(33)
-        ring = RingKVCache.create(mcfg.n_layers, slots, SERVE_SEQ,
-                                  mcfg.n_kv_heads, mcfg.head_dim, "int8")
-        prompts = torch.randint(1, mcfg.vocab_size, (slots, 32),
-                                device="cuda", generator=g, dtype=torch.int32)
-        lengths = torch.randint(8, 33, (slots,), device="cuda", generator=g,
-                                dtype=torch.int32)
-        zi = torch.zeros(slots, device="cuda", dtype=torch.int32)
-        _, ring, toks, pos = prefill_batch(
-            prm, ring, prompts, torch.arange(slots, device="cuda",
-                                             dtype=torch.int32), lengths,
-            None, torch.zeros(slots, device="cuda"), None, None, zi,
-            zi.clone(), scfg)
-        return ring, toks, pos
-
-    def ring_clone(r):
-        return RingKVCache(r.kv8.clone(), r.sc.clone(), r.head.clone())
-
-    def pool_state(prm, scfg):
-        g = torch.Generator(device="cuda").manual_seed(34)
-        paged = PagedKVCache.create(B * 4, PAGE, L, B, 4, KV, D, "int8")
-        paged.page_table = torch.randperm(
-            B * 4, device="cuda", generator=g).to(torch.int32).reshape(B, 4)
-        prompts = torch.randint(1, cfg.vocab_size, (B, 128), device="cuda",
-                                generator=g, dtype=torch.int32)
-        lengths = torch.randint(70, 129, (B,), device="cuda", generator=g,
-                                dtype=torch.int32)
-        zi = torch.zeros(B, device="cuda", dtype=torch.int32)
-        _, paged, toks, pos = prefill_batch_paged(
-            prm, paged, prompts, torch.arange(B, device="cuda",
-                                              dtype=torch.int32), lengths,
-            None, torch.zeros(B, device="cuda"), None, None, zi, zi.clone(),
-            scfg)
-        return paged, toks, pos
 
     # (e) decode steps, direct against plain.  W8A8 is discontinuous: two
     # f32 summation orders of one model drift apart from layer to layer
@@ -4933,28 +5089,44 @@ def phase_w8a8(record):
         kcfg = dataclasses.replace(scfg, paged_decode_impl="kernel")
         for name, step, make, clone in (
                 ("ring", lambda st, t, p, prm=prm, c=scfg: decode_step(
-                    prm, st, t, p, c), lambda: ring_state(prm, scfg),
-                 ring_clone),
+                    prm, st, t, p, c), lambda: w8a8_ring_state(prm, scfg),
+                 clone_ring),
                 ("paged kernel", lambda st, t, p, prm=prm, c=kcfg:
                  decode_step_paged(prm, st, t, p, c),
-                 lambda: pool_state(prm, kcfg), clone_pool)):
+                 lambda: w8a8_pool_state(prm, kcfg), clone_pool)):
             state = make()
             h0 = int(state[0].head) if name == "ring" else None
             k4_checks = []
-            f_err, f_dist = forced_step(
-                step, state, clone, KV, h0, k4_checks,
-                with_plain_kernels if name == "ring" else with_plain_but_k4)
+            reference = with_plain_kernels if name == "ring" \
+                else with_plain_but_k4
+            f_err, f_dist = forced_step(step, state, clone, KV, h0,
+                                        k4_checks, reference)
+            layer_tol, ctrl = SERVE_LOGIT_TOL, None
+            if fmt == "e4m3":
+                # the control: cuBLASLt's fp8 GEMM in P1's place, held to
+                # nothing, against the same f32 plain reference
+                layer_tol = W8A8_FP8_LAYER_TOL
+                orig = qmatmul.w8a8_matmul
+                qmatmul.w8a8_matmul = scaled_mm_p1
+                try:
+                    ctrl, _ = forced_step(step, state, clone, KV, h0, [],
+                                          reference)
+                finally:
+                    qmatmul.w8a8_matmul = orig
             f_bad = [i for i, (e, d) in enumerate(zip(f_err, f_dist))
-                     if not (e <= SERVE_LOGIT_TOL
+                     if not (e <= layer_tol
                              and d["equal"] >= SERVE_RING_EQUAL
                              and d["deq"] <= SERVE_LOGIT_TOL)]
             k4_bad = [c for c in k4_checks if not c["ok"]]
+            ctrl_txt = "" if ctrl is None else \
+                "; cuBLASLt's fp8 GEMM in P1's place [" + ", ".join(
+                    f"{e:.2e}" for e in ctrl) + "]"
             print(f"w8a8 (e) {fmt} weights, {name}: one step with every layer "
                   f"started from the plain run's input to it"
                   f"{'' if name == 'ring' else ' (K4 kernel in both)'}: "
                   f"layer outputs "
                   f"max|diff| / max|out| [{', '.join(f'{e:.2e}' for e in f_err)}]"
-                  f" (at most {SERVE_LOGIT_TOL}); the rows it wrote, by "
+                  f" (at most {layer_tol}{ctrl_txt}); the rows it wrote, by "
                   f"layer: {fmt_layers(f_dist)} (each layer at least "
                   f"{SERVE_RING_EQUAL} equal); K4 launches against plain "
                   f"{len(k4_checks) - len(k4_bad)} of {len(k4_checks)} "
@@ -5010,7 +5182,8 @@ def phase_w8a8(record):
                 problems.append(f"direct {fmt} {name}: launches a step "
                                 f"{per_step}, expected {want}")
             result["e"][f"{fmt} {name}"] = {
-                "forced_layer_rel_err": f_err,
+                "forced_layer_rel_err": f_err, "forced_layer_tol": layer_tol,
+                "forced_control_cublaslt": ctrl,
                 "forced_written_rows_by_layer": f_dist,
                 "forced_k4_launches": k4_checks,
                 "launch_rows": rows, "max_rel_logit_diff": d_k,
@@ -5027,11 +5200,11 @@ def phase_w8a8(record):
     mparams = STATE.get("moe") or random_serve_params(mcfg, "e4m3", seed=20)
     mscfg = ServeConfig(model=mcfg, weight_fmt="e4m3", kv_fmt="int8",
                         matmul_impl="direct")
-    mstate = ring_state(mparams, mscfg, SERVE_SLOTS, mcfg)
+    mstate = w8a8_ring_state(mparams, mscfg, SERVE_SLOTS)
     qmatmul.reset_launches()
     worst, flips, st_k, st_p, live, pos0 = moe_steps_vs_plain(
         lambda st, t, p: decode_step(mparams, st, t, p, mscfg), mstate,
-        ring_clone, 1)
+        clone_ring, 1)
     off_tie = {t: f for t, f in flips.items() if not f[2]}
     per = mcfg.n_layers * (4 + 2 * mcfg.n_experts)
     print(f"w8a8 (e) MoE, one decode step at {SERVE_SLOTS} slots, direct vs "
@@ -5199,7 +5372,7 @@ def direct_launch_cases(rows, p2, p1, k3):
     for i, (a, kw, got) in enumerate(p1.calls):
         xq, xs, w8, s = a[:4]
         m, k = xq.shape
-        _, _, kper = qmatmul.w8a8_plan(m, w8.shape[1], k, sms)
+        kper = qmatmul.w8a8_plan(m, w8.shape[1], k, sms).kper
         w8a8_gemm_case(rows, f"p1 launch {i}", got, got, xq, xs, w8, s,
                        qmatmul.w8a8_edges(k, kper), w8.shape[1])
     for i, (a, kw, got) in enumerate(k3.calls):
@@ -5211,7 +5384,7 @@ def direct_launch_cases(rows, p2, p1, k3):
             qmatmul.promotion_edges(k, plan.kper)
         w8a8_gemm_case(rows, f"k3 row-scaled launch {i}", got, got,
                        x.to(torch.float8_e4m3fn), xs, w8, s, edges,
-                       w8.shape[1])
+                       w8.shape[1], fp8_sum=False)
 
 
 def direct_steps(step, state, clone, steps, rows):
@@ -5362,18 +5535,19 @@ def rotating(weights, fn):
     return call
 
 
-def time_w8a8(record, launches):
-    """P1, P2, K3 (convert) and torch._scaled_mm at M in W8A8_TIME_MS on the
-    gate projection (4096 x 11008) and k/v (4096 x 1024), by CUDA-graph
-    replay, the GEMMs turning over W8A8_COPIES weights; one batch-64
-    decode step and one 8 x 256 paged prefill, direct against convert in
-    turns.  Returns the kernels line's entries."""
+def time_w8a8_kernels(record):
+    """P1, P2, K3 (convert and int8 row-scaled) and torch._scaled_mm at M in
+    W8A8_TIME_MS on the gate projection (4096 x 11008) and k/v (4096 x
+    1024), P2 also at (2048, 11008), by CUDA-graph replay, the GEMMs
+    turning over W8A8_COPIES weights.  Returns the rows.  A parent commit
+    is timed by its own script in the same call, in turns (the verify
+    notes give the command)."""
     import torch
     from fp8tpu_torch.kernels import qmatmul
     from fp8tpu_torch.tools import device_ms
 
     gen = torch.Generator(device="cuda").manual_seed(36)
-    rows, entries = [], []
+    rows = []
     for (k, n), proj in (((4096, 11008), "gate"), ((4096, 1024), "k/v")):
         # W8A8_COPIES weights, a launch on each in turn: the timed launch
         # streams its weight from device memory, not from the 50 MB L2
@@ -5406,19 +5580,24 @@ def time_w8a8(record, launches):
             t_p2 = device_ms(lambda: qmatmul.quantize_rows(x))
             t_k3 = device_ms(rotating(w8s, lambda w, s_:
                                       qmatmul.dequant_matmul(x, w, s_)))
+            xs3 = xs.clone()
+            t_k3_rs = device_ms(rotating(w8s, lambda w, s_:
+                                         qmatmul.dequant_matmul(
+                                             xq.to(torch.bfloat16), w, s_,
+                                             torch.bfloat16, xs3)))
             t_p1_plain = cuda_ms(lambda: qmatmul.w8a8_matmul_plain(
                 xq, xs, w8, s), iters=3, warmup=1)
             t_p2_plain = cuda_ms(lambda: qmatmul.quantize_rows_plain(x),
                                  iters=3, warmup=1)
-            lib = {}
+            lib_ms = {}
             for label, ws in cms.items():
                 try:
-                    lib[label] = device_ms(rotating(ws, lambda w, s_:
-                                                    torch._scaled_mm(
+                    lib_ms[label] = device_ms(rotating(ws, lambda w, s_:
+                                                       torch._scaled_mm(
                         xq, w, scale_a=xs.reshape(-1, 1),
                         scale_b=s_.reshape(1, -1), out_dtype=torch.bfloat16)))
                 except Exception as e:      # recorded, not hidden
-                    lib[label] = f"refused: {type(e).__name__}: {e}"[:160]
+                    lib_ms[label] = f"refused: {type(e).__name__}: {e}"[:160]
             t_bytes = (m * k + k * n + 4.0 * (m + n) + 2.0 * m * n) \
                 / HBM_BYTES_PER_S * 1e3
             t_ops = 2.0 * m * n * k / FP8_TC_FLOPS * 1e3
@@ -5434,15 +5613,198 @@ def time_w8a8(record, launches):
                    "p2_ms": t_p2, "p2_plain_ms": t_p2_plain,
                    "p2_bound_ms": b2, "p2_err": p2_err,
                    "k3_convert_ms": t_k3, "k3_bound_ms": b3,
-                   "scaled_mm_ms": lib, "weight_copies": W8A8_COPIES}
+                   "k3_row_scaled_ms": t_k3_rs,
+                   "scaled_mm_ms": lib_ms, "weight_copies": W8A8_COPIES}
             rows.append(row)
             print(f"time w8a8 {proj} {k}x{n} M={m}: P1 {t_p1:.4f} ms (e5m2 "
                   f"{t_p1_e5:.4f}; plain {t_p1_plain:.4f}, bound {b1:.4f} "
                   f"{by1}), P2 {t_p2:.4f} ms (plain {t_p2_plain:.4f}, bound "
-                  f"{b2:.4f} bytes), K3 convert {t_k3:.4f} ms (bound "
-                  f"{b3:.4f}), torch._scaled_mm {lib}")
+                  f"{b2:.4f} bytes), K3 "
+                  f"convert {t_k3:.4f} ms (bound {b3:.4f}), K3 int8 "
+                  f"row-scaled {t_k3_rs:.4f} ms, torch._scaled_mm {lib_ms}",
+                  flush=True)
         del w8s, w5s, cms, w8
+    # P2 on the widest serving row (the down projection's input)
+    for m, k in ((2048, 11008),):
+        x = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
+        t_p2 = device_ms(lambda: qmatmul.quantize_rows(x))
+        b2 = (3.0 * m * k + 4.0 * m) / HBM_BYTES_PER_S * 1e3
+        rows.append({"proj": "p2 only", "m": m, "k": k, "p2_ms": t_p2,
+                     "p2_bound_ms": b2})
+        print(f"time w8a8 P2 ({m}, {k}): {t_p2:.4f} ms (bound {b2:.4f} "
+              f"bytes)", flush=True)
+    record.setdefault("time", {})["w8a8_kernels"] = rows
     torch.cuda.empty_cache()
+    return rows
+
+
+def scaled_mm_p1(xq, xs, w8, s, out_dtype=None, promote=None):
+    """P1's function by torch._scaled_mm (cuBLASLt's fp8 GEMM, row-wise
+    scales, e4m3 weights copied column-major): the forced step's control,
+    used nowhere in the port."""
+    import torch
+    return torch._scaled_mm(xq, w8.t().contiguous().t(),
+                            scale_a=xs.reshape(-1, 1).float(),
+                            scale_b=s.reshape(1, -1).float(),
+                            out_dtype=out_dtype or torch.bfloat16)
+
+
+def vendor_sums(rows, gen, ms=(1, 8, 64, 65, 512)):
+    """P1's f32 sums (unit scales, e4m3 weights) against cuBLASLt's fp8
+    GEMM (torch._scaled_mm, tensor-wise unit scales) at the W8A8 shapes,
+    element by element: both sum on the fp8 tensor cores, 13 bits below a
+    step's largest addend, in chunks of 128 K rows promoted in f32."""
+    import torch
+    from fp8tpu_torch.kernels import qmatmul
+    one = torch.ones((), device="cuda")
+    for k, n in W8A8_KN:
+        w8, _ = qmatmul.quantize_weights(
+            torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5)
+        wc = w8.t().contiguous().t()
+        for m in ms:
+            x = torch.randn(m, k, device="cuda", generator=gen
+                            ).to(torch.bfloat16)
+            xq, _ = qmatmul.quantize_rows(x)
+            got = qmatmul.w8a8_matmul(xq, torch.ones(m, device="cuda"), w8,
+                                      torch.ones(n, device="cuda"),
+                                      torch.float32)
+            want = torch._scaled_mm(xq, wc, scale_a=one, scale_b=one,
+                                    out_dtype=torch.float32)
+            bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+            rows.append({"case": f"p1 f32 sums vs cuBLASLt M={m} K={k} "
+                                 f"N={n}", "differing": bad,
+                         "elements": m * n,
+                         "max_abs_err": float((got - want).abs().max()),
+                         "max_err_over_bound": 0.0 if not bad else math.inf,
+                         "ok": bad == 0})
+            if bad:
+                print(f"  FAIL {rows[-1]['case']}: {bad} of {m * n} sums "
+                      "differ")
+
+
+W8A8_CHUNKS = (1, 2, 4)           # k32 steps a chunk, w8a8_p1probe's
+
+
+def w8a8_forced_layers(record, chunks=W8A8_CHUNKS):
+    """What P1's chunk length does to a direct decode step (batch 64, e4m3
+    weights, the ring and the paged pool): forced_step against the f32
+    plain version (the w8a8 phase's gate) with P1 summing in chunks of
+    each of ``chunks`` k32 steps, and two controls in P1's place:
+    cuBLASLt's fp8 GEMM (scaled_mm_p1: the fp8 tensor cores' sums) and the
+    exact-sum plain product (f32-grade sums in another order)."""
+    import dataclasses
+    from fp8tpu_torch.kernels import qmatmul
+    from fp8tpu_torch.serve import (ServeConfig, decode_step,
+                                    decode_step_paged, random_serve_params)
+    cfg = serve_config()
+    if "e4m3" not in STATE:
+        STATE["e4m3"] = random_serve_params(cfg, "e4m3", seed=0)
+    prm = STATE["e4m3"]
+    scfg = ServeConfig(model=cfg, weight_fmt="e4m3", kv_fmt="int8",
+                       matmul_impl="direct")
+    kcfg = dataclasses.replace(scfg, paged_decode_impl="kernel")
+    rows = []
+    for name, step, make, clone, ref in (
+            ("ring", lambda st, t, p: decode_step(prm, st, t, p, scfg),
+             lambda: w8a8_ring_state(prm, scfg), clone_ring,
+             with_plain_kernels),
+            ("paged kernel",
+             lambda st, t, p: decode_step_paged(prm, st, t, p, kcfg),
+             lambda: w8a8_pool_state(prm, kcfg), clone_pool,
+             with_plain_but_k4)):
+        state = make()
+        h0 = int(state[0].head) if name == "ring" else None
+        orig = qmatmul.W8A8_PROMOTE, qmatmul.w8a8_matmul
+        controls = {"cuBLASLt": scaled_mm_p1, "exact": w8a8_plain_exact}
+        for chunk in (*chunks, *controls):
+            try:
+                if chunk in controls:
+                    qmatmul.w8a8_matmul = controls[chunk]
+                else:
+                    qmatmul.W8A8_PROMOTE = chunk
+                errs, dist = forced_step(step, state, clone,
+                                         cfg.n_kv_heads, h0, [], ref)
+            finally:
+                qmatmul.W8A8_PROMOTE, qmatmul.w8a8_matmul = orig
+            label = {"cuBLASLt": "cuBLASLt's fp8 GEMM",
+                     "exact": "exact-sum plain"}.get(
+                chunk, f"P1 at chunks of {chunk} k32 steps")
+            rows.append({"cache": name, "chunk": chunk, "layer_out": errs,
+                         "equal": [d["equal"] for d in dist]})
+            print(f"w8a8_p1probe forced step, {name}, {label}: layer "
+                  f"outputs max|diff| / max|out| [{', '.join(f'{e:.2e}' for e in errs)}] "
+                  f"(max {max(errs):.3e}); written rows equal min "
+                  f"{min(d['equal'] for d in dist):.4f}", flush=True)
+        del state
+    record.setdefault("w8a8_p1probe", {})["forced"] = rows
+
+
+def phase_w8a8_p1probe(record):
+    """What P1's chunk length (k32 steps the fp8 tensor cores sum before
+    the f32 promotion) costs and buys: its time (CUDA-graph replay, e4m3,
+    W8A8_COPIES weights) on the gate and k/v at M = 8, 64 (the decode
+    form) and 512, 2048 (the prefill route) at chunks of W8A8_CHUNKS, and
+    of 8, 16, 32 on the gate at M = 2048; the prefill route at K = 1024 ..
+    8192 beside K3 (a tile's fixed cost beside its cost a stage); and a
+    decode step's layers at each chunk (w8a8_forced_layers)."""
+    import torch
+    from fp8tpu_torch.kernels import qmatmul
+    from fp8tpu_torch.tools import device_ms
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    rows = []
+
+    def copies(k, n):
+        out = []
+        for _ in range(W8A8_COPIES):
+            w8, s = qmatmul.quantize_weights(
+                torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5)
+            out.append((w8, s.reshape(-1)))
+        return out
+
+    for (k, n), proj in (((4096, 11008), "gate"), ((4096, 1024), "k/v")):
+        ws_ = copies(k, n)
+        for m in W8A8_TIME_MS:
+            x = torch.randn(m, k, device="cuda", generator=gen
+                            ).to(torch.bfloat16)
+            xq, xs = qmatmul.quantize_rows(x)
+            xs = xs.reshape(-1)
+            more = (8, 16, 32) if proj == "gate" and m == 2048 else ()
+            for chunk in (*W8A8_CHUNKS, *more):
+                t = device_ms(rotating(ws_, lambda w, s_: qmatmul.w8a8_matmul(
+                    xq, xs, w, s_, promote=chunk)))
+                rows.append({"proj": proj, "m": m, "k": k, "n": n,
+                             "promote": chunk, "p1_ms": t})
+                print(f"w8a8_p1probe P1 {proj} M={m} K={k} N={n} chunk "
+                      f"{chunk} k32 steps: {t:.4f} ms "
+                      f"({2.0 * m * n * k / t / 1e9:.1f} TFLOP/s)",
+                      flush=True)
+        del ws_
+    m, n = 2048, 11008
+    for k in (1024, 2048, 8192):
+        ws_ = copies(k, n)
+        x = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
+        xq, xs = qmatmul.quantize_rows(x)
+        xs = xs.reshape(-1)
+        t = device_ms(rotating(ws_, lambda w, s_: qmatmul.w8a8_matmul(
+            xq, xs, w, s_)))
+        t3 = device_ms(rotating(ws_, lambda w, s_: qmatmul.dequant_matmul(
+            x, w, s_)))
+        rows.append({"k": k, "p1_ms": t, "k3_ms": t3})
+        print(f"w8a8_p1probe M={m} K={k} N={n}: P1 {t:.4f} ms, K3 "
+              f"{t3:.4f} ms", flush=True)
+        del ws_
+    record.setdefault("w8a8_p1probe", {})["times"] = rows
+    torch.cuda.empty_cache()
+    w8a8_forced_layers(record)
+
+
+def time_w8a8(record, launches):
+    """time_w8a8_kernels, then one batch-64 decode step and one 8 x 256
+    paged prefill, direct against convert in turns.  Returns the kernels
+    line's entries."""
+    import torch
+    rows = time_w8a8_kernels(record)
+    entries = []
 
     def pick(proj, m):
         return next(r for r in rows if r["proj"] == proj and r["m"] == m)
@@ -6965,6 +7327,10 @@ def main(argv=None) -> int:
                 phase_w8a8_probe(record)
             elif phase == "w8a8k":
                 w8a8_kernel_checks(record)
+            elif phase == "w8a8_time":
+                time_w8a8_kernels(record)
+            elif phase == "w8a8_p1probe":
+                phase_w8a8_p1probe(record)
             elif phase == "profile_probe":
                 phase_profile_probe(record)
             elif phase == "k4_layers":

@@ -25,6 +25,10 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("cast_kernel", "qmatmul", "dequant_matmul", "int4_matmul",
            "inplace", "paged_attention", "kexp_convert", "fp8_linear_study",
            "w8a8")
+# Libraries built from another's source with more flags, at first use only
+# (not in build_all's default): {name: (source, flags)}.  w8a8_probe is P1
+# with tensor-core chunks inside a stage, for the accumulation probes.
+VARIANTS = {"w8a8_probe": ("w8a8", ("-DP1_CHUNK_PROBE",))}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,13 +45,20 @@ def nvcc_path() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
+def _source(name: str):
+    """(the .cu file, the nvcc flags) of library ``name``."""
+    src, extra = VARIANTS.get(name, (name, ()))
+    return CSRC / f"{src}.cu", (*NVCC_FLAGS, *extra)
+
+
 def lib_path(name: str) -> Path:
+    cu, flags = _source(name)
     h = hashlib.sha256()
     for src in sorted(CSRC.iterdir()):
-        if src.name == f"{name}.cu" or src.suffix == ".cuh":
+        if src == cu or src.suffix == ".cuh":
             h.update(src.name.encode())
             h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -63,7 +74,8 @@ def build_all(names: Sequence[str] = SOURCES) -> Dict[str, dict]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cu, flags = _source(name)
+        cmd = [nvcc_path(), *flags, "-o", str(tmp), str(cu)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -82,7 +94,8 @@ def build_all(names: Sequence[str] = SOURCES) -> Dict[str, dict]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built if needed."""
+    """The loaded library ``name`` (``csrc/<name>.cu`` or a VARIANTS
+    entry), built if needed."""
     lib = _LIBS.get(name)
     if lib is None:
         path = lib_path(name)

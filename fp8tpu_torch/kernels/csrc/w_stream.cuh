@@ -1,8 +1,10 @@
-// The weight-streaming GEMMs K3 (dequant_matmul.cu), K5 (int4_matmul.cu)
-// and T2 (fp8_linear_study.cu), at decode (M <= 64) and, for K3 and K5, at
-// prefill (M > 64):
+// The weight-streaming GEMMs K3 (dequant_matmul.cu), K5 (int4_matmul.cu),
+// T2 (fp8_linear_study.cu) and P1 (w8a8.cu), at decode (M <= 64) and, for
+// K3, K5 and P1, at prefill (M > 64):
 //   out[M, N] = x[M, K] bf16 @ convert(W[K, N]) (* a scale per column)
-// with W in device memory as fp8 / int8 bytes, packed int4 or bf16.
+// with W in device memory as fp8 / int8 bytes, packed int4 or bf16; for P1
+// x is e4m3 codes and W e4m3 / e5m2 bytes, multiplied on the fp8 tensor
+// cores without a convert (the FP8 kind, below).
 //
 // What bounds it on an H100: at decode the bytes of W, each read once (45
 // MB for an e4m3 4096 x 11008 projection: 13.5 us at 3.35 TB/s); the
@@ -57,9 +59,23 @@
 //   at M = 512 is 32 tiles, 4 splits).  The kernel allocates nothing and
 //   never synchronises the host, so it can be captured in a CUDA graph.
 //
-// A payload policy P gives KIND (BYTE8, NIB4 or HALF16), GROUPED (int4
-// scales per K group, multiplied into the weights in bf16) and, for BYTE8,
-// cvt2(two bytes of one column at K rows k, k + 1) -> one bf16x2 register.
+// * FP8 (P1): wgmma.m64nNk32 with the weight bytes as the register A
+//   operand and x's e4m3 bytes as the K-major B (a 128-byte TMA row is one
+//   stage's 128 K rows, so a stage's x is BK NP bytes).  The PTX ISA has no
+//   transpose for 8-bit shared-memory operands and the artifact holds W with
+//   N contiguous, so the weight can only be A: ldmatrix.trans gathers a
+//   thread's two columns of four K rows and two byte permutes a register
+//   make the fragment (fp8_loads, fp8_frags).  The fp8 tensor cores keep
+//   13 bits below a k32 step's largest addend and drop the rest toward
+//   zero (chip_smoke.py's w8a8_probe; DeepSeek-V3 §3.3.2 reports about
+//   14), so the chunk promoted into the f32 sum is the wrapper's
+//   (qmatmul.py::W8A8_PROMOTE): whole stages at runtime, or SUB k32 steps
+//   inside a stage for the probe.
+//
+// A payload policy P gives KIND (BYTE8, NIB4, HALF16 or FP8), GROUPED (int4
+// scales per K group, multiplied into the weights in bf16), for BYTE8
+// cvt2(two bytes of one column at K rows k, k + 1) -> one bf16x2 register,
+// and for FP8 E5M2 (the weight's format) and SUB.
 #pragma once
 
 #include <cuda.h>
@@ -72,7 +88,7 @@
 
 namespace ws {
 
-enum Kind { BYTE8 = 0, NIB4 = 1, HALF16 = 2 };
+enum Kind { BYTE8 = 0, NIB4 = 1, HALF16 = 2, FP8 = 3 };
 
 constexpr int WARPGROUP = 128;       // threads of a consumer warpgroup
 constexpr int PROMOTE = 512;         // K rows the tensor cores sum alone
@@ -87,7 +103,8 @@ constexpr int SMEM_LIMIT = 232448;
 template <class P, int MT, int NP, int WGS>
 struct Shape {
     static constexpr int BK = P::KIND == HALF16 ? 64 : 128;  // K rows
-    static constexpr int KSTEPS = BK / 16;
+    static constexpr int KSTEP = P::KIND == FP8 ? 32 : 16;  // K rows a wgmma
+    static constexpr int KSTEPS = BK / KSTEP;
     static constexpr int ROWS = P::KIND == NIB4 ? BK / 2 : BK;
     static constexpr int COLS = 64 * MT * WGS;           // a block's
     // the stage's payload: BOXES TMA boxes of RB-byte rows
@@ -95,7 +112,10 @@ struct Shape {
     static constexpr int BOXES = P::KIND == HALF16 ? COLS / 64 : 1;
     static_assert(RB <= 128, "a payload row spans at most one swizzle");
     static constexpr int W_BYTES = BOXES * ROWS * RB;
-    static constexpr int X_BYTES = BK * NP * 2;          // BK/64 boxes
+    // x's boxes of 128-byte rows: BK / 64 of bf16, one of e4m3
+    static constexpr int X_BOX_K = P::KIND == FP8 ? 128 : 64;
+    static constexpr int X_BOXES = BK / X_BOX_K;
+    static constexpr int X_BYTES = X_BOXES * NP * 128;
     static constexpr int S_BYTES = P::GROUPED ? (BK / 16) * COLS * 4 : 0;
     static constexpr int STAGE = W_BYTES + X_BYTES + S_BYTES;
     static_assert(STAGE % 1024 == 0, "stages keep the 1024-byte alignment");
@@ -115,7 +135,7 @@ struct Shape {
 
 struct Args {
     const float* col_scale;  // (N,) f32, or null: no scale
-    const float* row_scale;  // (M,) f32, or null: no scale (W8A8, K3 only)
+    const float* row_scale;  // (M,) f32, or null: no scale (W8A8: K3, P1)
     void* out;               // (M, N) bf16 or f32
     float* ws;               // (splits, M, N) partials, splits > 1 only
     int* counters;           // one per output tile, zero between launches
@@ -125,6 +145,7 @@ struct Args {
     int group;               // grouped scales: K rows a group, else 0
     int scale_rows;          // scale rows a stage (grouped)
     int out_f32;
+    int chunk;               // stages a promoted chunk (FP8 only)
 };
 
 // -- device helpers ----------------------------------------------------------
@@ -199,111 +220,82 @@ __device__ __forceinline__ uint64_t desc_b(uint32_t addr) {
            | (1ull << 62);
 }
 
-// D (64 x N, f32) (+)= A (64 x 16 bf16, registers) * B (16 x N bf16, shared
-// memory); scale_d = 0 starts a new sum.
-template <int N>
+// The operand lists of wgmma with A in registers, by N (the accumulator's
+// N / 2 registers, then A's four, the B descriptor and scale_d).
+#define WS_D4 "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+#define WS_D8 WS_D4, "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+#define WS_D16 WS_D8, "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+    "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define WS_D32 WS_D16, "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+    "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+    "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+    "+f"(d[30]), "+f"(d[31])
+#define WS_D64 WS_D32, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+    "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), \
+    "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), \
+    "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), \
+    "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+    "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), \
+    "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define WS_IN "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), \
+    "r"(scale_d)
+#define WS_RS(OP, TAIL, P, DREGS, REST, DOPS) \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n" \
+                 "wgmma.mma_async.sync.aligned." OP " " DREGS ", " REST \
+                 ", p, " TAIL ";\n}\n" : DOPS : WS_IN)
+#define WS_RS8(OP, TAIL) WS_RS(OP, TAIL, "%9", "{%0, %1, %2, %3}", \
+    "{%4, %5, %6, %7}, %8", WS_D4)
+#define WS_RS16(OP, TAIL) WS_RS(OP, TAIL, "%13", \
+    "{%0, %1, %2, %3, %4, %5, %6, %7}", "{%8, %9, %10, %11}, %12", WS_D8)
+#define WS_RS32(OP, TAIL) WS_RS(OP, TAIL, "%21", \
+    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+    "%15}", "{%16, %17, %18, %19}, %20", WS_D16)
+#define WS_RS64(OP, TAIL) WS_RS(OP, TAIL, "%37", \
+    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+    "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+    "%28, %29, %30, %31}", "{%32, %33, %34, %35}, %36", WS_D32)
+#define WS_RS128(OP, TAIL) WS_RS(OP, TAIL, "%69", \
+    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+    "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+    "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, " \
+    "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, " \
+    "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}", \
+    "{%64, %65, %66, %67}, %68", WS_D64)
+// bf16 (T = 0): m64nNk16, A 64 x 16 bf16; fp8 (T = 1: e4m3, 2: e5m2
+// weights): m64nNk32, A 64 x 32 bytes, B always e4m3 (the PTX ISA takes no
+// transpose arguments for 8-bit types).
+#define WS_RS_T(MAC, NS) \
+    if constexpr (T == 0) MAC("m64n" NS "k16.f32.bf16.bf16", "1, 1, 0"); \
+    else if constexpr (T == 1) MAC("m64n" NS "k32.f32.e4m3.e4m3", "1, 1"); \
+    else MAC("m64n" NS "k32.f32.e5m2.e4m3", "1, 1");
+
+// D (64 x N, f32) (+)= A (64 x K, registers) * B (K x N, shared memory);
+// scale_d = 0 starts a new sum.
+template <int N, int T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4],
-                                         uint64_t desc, int scale_d);
-
-template <>
-__device__ __forceinline__ void wgmma_rs<8>(float (&d)[4],
-                                            const uint32_t (&a)[4],
-                                            uint64_t desc, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-          "r"(scale_d));
+                                         uint64_t desc, int scale_d) {
+    if constexpr (N == 8) { WS_RS_T(WS_RS8, "8") }
+    else if constexpr (N == 16) { WS_RS_T(WS_RS16, "16") }
+    else if constexpr (N == 32) { WS_RS_T(WS_RS32, "32") }
+    else if constexpr (N == 64) { WS_RS_T(WS_RS64, "64") }
+    else { static_assert(N == 128, "n = 8, 16, 32, 64 or 128");
+           WS_RS_T(WS_RS128, "128") }
 }
 
-template <>
-__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8],
-                                             const uint32_t (&a)[4],
-                                             uint64_t desc, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, "
-        "%12, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-          "r"(scale_d));
+// The wgmma type of policy P (WS_RS_T's T).
+template <class P>
+__host__ __device__ constexpr int mma_type() {
+    if constexpr (P::KIND == FP8) return P::E5M2 ? 2 : 1;
+    else return 0;
 }
 
-template <>
-__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
-                                             const uint32_t (&a)[4],
-                                             uint64_t desc, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
-        "%13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, "
-        "0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-          "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-          "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t desc, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
-        "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, "
-        "%35}, %36, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
-          "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-          "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-          "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t desc, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-        "%60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-          "r"(scale_d));
+// k32 steps a tensor-core chunk inside a stage: an FP8 policy's SUB, else
+// the stage's KSTEPS (chunks of whole stages).
+template <class P, int KSTEPS>
+__host__ __device__ constexpr int sub_steps() {
+    if constexpr (P::KIND == FP8) return P::SUB;
+    else return KSTEPS;
 }
 
 // -- converts ----------------------------------------------------------------
@@ -358,6 +350,7 @@ __device__ __forceinline__ uint32_t load_cols(const unsigned char* p) {
 // then converted into its A fragments.  Bytes at MT = 1: two words, rows
 // (2q, 2q + 1) and (2q + 8, 2q + 9), each (row k col c, row k col c + 1,
 // row k + 1 col c, row k + 1 col c + 1), as ldmatrix.trans gives them.
+// fp8 at any MT: four ldmatrix.trans words a tile (fp8_loads).
 template <class P, int MT>
 struct Raw {
     static constexpr int N =
@@ -365,15 +358,71 @@ struct Raw {
     uint32_t w[N];
 };
 
+// fp8: the stage's K row that lane ``lane`` addresses for ldmatrix.trans.
+// ldmatrix.trans (b16 elements: columns c, c + 1 of one K row) gives thread
+// (g, q) rows 2q and 2q + 1 of each matrix at columns 2g, 2g + 1.  Matrix
+// i of the four holds, as those rows, K rows 16 (i >> 1) + 4q + 2h + (0,
+// 1) with h = (i & 1) ^ (q >> 1): with the matrices i and i ^ 1 a thread
+// has all four of its K rows 4q .. 4q + 3, and each matrix's eight rows
+// are eight distinct rows mod 8, which the 64- and 128-byte swizzles put
+// on distinct banks.  (h = i & 1 alone would put rows 0 and 8 of matrix 0
+// on one bank.)
+__device__ __forceinline__ int fp8_lane_row(int lane) {
+    const int i = lane >> 3, r = lane & 7;
+    return 16 * (i >> 1) + 4 * (r >> 1) + 2 * ((i & 1) ^ (r >> 2)) + (r & 1);
+}
+
+// fp8: k32 step ks's raw words of the thread's MT tiles; tile t is the
+// 16 columns at byte 16 MT w + 16 t of the stage's rows.
+template <int MT, class S>
+__device__ __forceinline__ void fp8_loads(const unsigned char* stage, int ks,
+                                          int w, int lane,
+                                          uint32_t (&raw)[4 * MT]) {
+    const int row = 32 * ks + fp8_lane_row(lane);
+#pragma unroll
+    for (int t = 0; t < MT; ++t) {
+        uint32_t v[4];
+        frag::ldsm4_trans(v, stage + swz<S::RB>(row, 16 * MT * w + 16 * t));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) raw[4 * t + i] = v[i];
+    }
+}
+
+// fp8: A fragments from fp8_loads' words.  Register 0 (1) of the
+// .m64nNk32 8-bit A layout holds K rows 4q .. 4q + 3 of A row g (g + 8),
+// the thread's column 2g (2g + 1) of the tile; registers 2 and 3 the same
+// 16 K rows on.  A word holds (row k col c, row k col c + 1, row k + 1
+// col c, row k + 1 col c + 1) of its two K rows, and of words 0 and 1
+// (2 and 3) one holds rows 4q, 4q + 1, the other 4q + 2, 4q + 3, so one
+// permute of the pair gives a register: ``lo`` / ``hi`` select columns
+// c / c + 1 (0x6420 / 0x7531 where word 0 holds rows 4q, 4q + 1, else
+// 0x2064 / 0x3175; no sign mode is needed, trap 37).
+template <int MT>
+__device__ __forceinline__ void fp8_frags(const uint32_t (&raw)[4 * MT],
+                                          uint32_t lo, uint32_t hi,
+                                          uint32_t (&a)[MT][4]) {
+#pragma unroll
+    for (int t = 0; t < MT; ++t) {
+        a[t][0] = __byte_perm(raw[4 * t], raw[4 * t + 1], lo);
+        a[t][1] = __byte_perm(raw[4 * t], raw[4 * t + 1], hi);
+        a[t][2] = __byte_perm(raw[4 * t + 2], raw[4 * t + 3], lo);
+        a[t][3] = __byte_perm(raw[4 * t + 2], raw[4 * t + 3], hi);
+    }
+}
+
 // Thread (warp w, lane g * 4 + q) owns the block's columns
 // c = 16 MT w + 2 MT g .. c + 2 MT - 1 and reads K rows 16 ks + 2q,
-// +1, +8, +9 (packed rows 8 ks + q and +4 for int4).
+// +1, +8, +9 (packed rows 8 ks + q and +4 for int4).  fp8: columns
+// 16 MT w + 16 t + 2g, + 1 of tile t, K rows 32 ks + 4q .. + 3 and
+// + 16 .. + 19.
 template <class P, int MT, class S>
 __device__ __forceinline__ void load_step(const unsigned char* stage, int ks,
                                           int w, int g, int q,
                                           Raw<P, MT>& raw) {
     const int c = 16 * MT * w + 2 * MT * g;
-    if constexpr (P::KIND == BYTE8) {
+    if constexpr (P::KIND == FP8) {
+        fp8_loads<MT, S>(stage, ks, w, 4 * g + q, raw.w);
+    } else if constexpr (P::KIND == BYTE8) {
         static_assert(MT == 2, "bytes at MT = 1 come through ldmatrix");
         const int r = 16 * ks + 2 * q;
         raw.w[0] = load_cols<MT>(stage + swz<S::RB>(r, c));
@@ -419,7 +468,11 @@ template <class P, int MT, class S>
 __device__ __forceinline__ void load_stage(const unsigned char* stage,
                                            int w, int g, int q, int lane,
                                            Raw<P, MT> (&raw)[S::KSTEPS]) {
-    if constexpr (P::KIND == BYTE8 && MT == 1) {
+    if constexpr (P::KIND == FP8) {
+#pragma unroll
+        for (int ks = 0; ks < S::KSTEPS; ++ks)
+            fp8_loads<MT, S>(stage, ks, w, lane, raw[ks].w);
+    } else if constexpr (P::KIND == BYTE8 && MT == 1) {
 #pragma unroll
         for (int ks = 0; ks < S::KSTEPS; ks += 2) {
             uint32_t v[4];
@@ -561,9 +614,9 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
                     tma2d(dst + b * S::ROWS * S::RB, &tw, n0 + 64 * b,
                           P::KIND == NIB4 ? k0 / 2 : k0, bar);
 #pragma unroll
-                for (int j = 0; j < S::BK / 64; ++j)
-                    tma2d(dst + S::W_BYTES + j * NP * 128, &tx, k0 + 64 * j,
-                          m0, bar);
+                for (int j = 0; j < S::X_BOXES; ++j)
+                    tma2d(dst + S::W_BYTES + j * NP * 128, &tx,
+                          k0 + S::X_BOX_K * j, m0, bar);
                 if constexpr (P::GROUPED)
                     tma2d(dst + S::W_BYTES + S::X_BYTES, &ts, n0,
                           k0 / A.group, bar);
@@ -573,25 +626,38 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
     }
 
     // the consumer warpgroups
+    constexpr bool F8 = P::KIND == FP8;
+    // fp8 at SUB < KSTEPS (the accumulation probe): the tensor cores' chunk
+    // is SUB k32 steps, promoted inside the stage
+    constexpr int SUB = sub_steps<P, S::KSTEPS>();
+    constexpr bool SUBSTAGE = SUB < S::KSTEPS;
+    static_assert(S::KSTEPS % SUB == 0, "SUB divides a stage's steps");
+    const int chunk = F8 ? A.chunk : CHUNK;     // stages a promoted chunk
     const int g = lane >> 2, q = lane & 3;
+    uint32_t a[2][MT][4];
+    uint32_t sc[2 * MT];
+#pragma unroll
+    for (int i = 0; i < 2 * MT; ++i) sc[i] = 0;
+    // fp8_frags' selectors: which of a pair of words holds rows 4q, 4q + 1
+    const uint32_t sel_lo = (q >> 1) ? 0x2064u : 0x6420u;
+    const uint32_t sel_hi = (q >> 1) ? 0x3175u : 0x7531u;
+    // the thread's first column in the block; fp8 tile i lies 16 i on
+    // (TSTEP), the other kinds' 2 i, so those write 2 MT adjacent columns
+    constexpr int TSTEP = F8 ? 16 : 2;
+    const int cc = 16 * MT * warp + (F8 ? 2 : 2 * MT) * g;
     float acc[MT][NP / 2], sum[MT][NP / 2];
 #pragma unroll
     for (int i = 0; i < MT; ++i)
 #pragma unroll
         for (int e = 0; e < NP / 2; ++e) acc[i][e] = sum[i][e] = 0.f;
-    uint32_t a[2][MT][4];
-    uint32_t sc[2 * MT];
-#pragma unroll
-    for (int i = 0; i < 2 * MT; ++i) sc[i] = 0;
-    // the thread's first column in the block
-    const int cc = 16 * MT * warp + 2 * MT * g;
 
-    // A chunk of CHUNK stages (PROMOTE K rows, fewer at a split's end) is
-    // summed by the tensor cores, then added into the f32 sum.  Each stage
-    // is released as soon as its wgmmas are done (holding it longer costs
-    // the decode form a stage of its shallow ring).
-    for (int c0 = 0; c0 < nst; c0 += CHUNK) {
-        for (int st = c0; st < min(nst, c0 + CHUNK); ++st) {
+    // A chunk of ``chunk`` stages (PROMOTE K rows for the bf16 kinds,
+    // fewer at a split's end) is summed by the tensor cores, then added
+    // into the f32 sum.  Each stage is released as soon as its wgmmas
+    // are done (holding it longer costs the decode form a stage of its
+    // shallow ring).
+    for (int c0 = 0; c0 < nst; c0 += chunk) {
+        for (int st = c0; st < min(nst, c0 + chunk); ++st) {
             const int s = st % ST;
             mbar_wait(full + 8 * s, (st / ST) & 1);
             const unsigned char* stage = smem + s * S::STAGE;
@@ -615,38 +681,64 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
                             sc[j] = bf16x2_bits(sp[j], sp[j]);
                     }
                 }
-                convert_step<P, MT>(r[ks], sc, a[ks & 1]);
+                if constexpr (F8)
+                    fp8_frags<MT>(r[ks].w, sel_lo, sel_hi, a[ks & 1]);
+                else
+                    convert_step<P, MT>(r[ks], sc, a[ks & 1]);
                 wgmma_fence();
+                // 32 bytes of x's 128-byte rows a step
                 const uint64_t desc =
                     desc_b(xst + (ks >> 2) * NP * 128 + (ks & 3) * 32);
+                const bool fresh = SUBSTAGE ? ks % SUB == 0
+                                            : (st == c0 && ks == 0);
 #pragma unroll
                 for (int j = 0; j < MT; ++j)
-                    wgmma_rs<NP>(acc[j], a[ks & 1][j], desc,
-                                 (st == c0 && ks == 0) ? 0 : 1);
+                    wgmma_rs<NP, mma_type<P>()>(acc[j], a[ks & 1][j], desc,
+                                                fresh ? 0 : 1);
                 wgmma_commit();
-                // step ks - 1 is done, so its A registers may be written
-                // again
-                if (ks > 0) wgmma_wait<1>();
+                if (SUBSTAGE && ks % SUB == SUB - 1) {
+                    // (ks is unrolled: no runtime condition in the loop)
+                    wgmma_wait<0>();
+#pragma unroll
+                    for (int j = 0; j < MT; ++j) fence_regs(acc[j]);
+#pragma unroll
+                    for (int j = 0; j < MT; ++j)
+#pragma unroll
+                        for (int e = 0; e < NP / 2; ++e)
+                            sum[j][e] = __fadd_rn(sum[j][e], acc[j][e]);
+                } else if (ks > 0) {
+                    // step ks - 1 is done, so its A registers may be
+                    // written again
+                    wgmma_wait<1>();
+                }
             }
             wgmma_wait<0>();
             mbar_arrive(empty + 8 * s);
         }
-        // promote the chunk into the f32 sum
+        if constexpr (!SUBSTAGE) {
+            // promote the chunk into the f32 sum
 #pragma unroll
-        for (int j = 0; j < MT; ++j) fence_regs(acc[j]);
+            for (int j = 0; j < MT; ++j) fence_regs(acc[j]);
 #pragma unroll
-        for (int j = 0; j < MT; ++j)
+            for (int j = 0; j < MT; ++j)
 #pragma unroll
-            for (int e = 0; e < NP / 2; ++e)
-                sum[j][e] = __fadd_rn(sum[j][e], acc[j][e]);
+                for (int e = 0; e < NP / 2; ++e)
+                    sum[j][e] = __fadd_rn(sum[j][e], acc[j][e]);
+        }
     }
 
     // The epilogue.  Accumulator element 4j + 2h + e of tile i is the
-    // thread's column cc + 2i + h and token m0 + 8j + 2q + e, so for each
-    // token the thread holds 2 MT adjacent columns.
+    // thread's column cc + TSTEP i + h and token m0 + 8j + 2q + e.  Its V
+    // values of a token are NG groups of GV adjacent columns: one group of
+    // 2 MT (cc ..), or for fp8 MT groups of 2 (cc + 16 i ..).
     constexpr int V = 2 * MT;
+    constexpr int NG = TSTEP == 2 ? 1 : MT, GV = V / NG;
     const int cb = n0 + cc;
-    const bool col_ok = cb < A.n;    // N % 16 == 0: all V columns or none
+    bool col_ok[NG];     // N % 16 == 0: all of a group's columns or none
+#pragma unroll
+    for (int i = 0; i < NG; ++i) col_ok[i] = cb + 16 * i < A.n;
+    // the column of value i
+    auto col_of = [&](int i) { return cb + 16 * (i / GV) + i % GV; };
     auto values = [&](int j, int e, float (&v)[V]) {
 #pragma unroll
         for (int i = 0; i < MT; ++i) {
@@ -654,12 +746,24 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
             v[2 * i + 1] = sum[i][4 * j + 2 + e];
         }
     };
-    auto store_f32 = [&](float* p, const float (&v)[V]) {
-        if constexpr (V == 4)
-            *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2],
-                                                        v[3]);
+    // group gi of v to p, GV f32 / bf16 values
+    auto store_f32 = [&](float* p, const float (&v)[V], int gi) {
+        const float* u = v + GV * gi;
+        if constexpr (GV == 4)
+            *reinterpret_cast<float4*>(p) = make_float4(u[0], u[1], u[2],
+                                                        u[3]);
         else
-            *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+            *reinterpret_cast<float2*>(p) = make_float2(u[0], u[1]);
+    };
+    auto load_f32 = [&](const float* p, float (&v)[V], int gi) {
+        float* u = v + GV * gi;
+        if constexpr (GV == 4) {
+            const float4 f = __ldcg(reinterpret_cast<const float4*>(p));
+            u[0] = f.x; u[1] = f.y; u[2] = f.z; u[3] = f.w;
+        } else {
+            const float2 f = __ldcg(reinterpret_cast<const float2*>(p));
+            u[0] = f.x; u[1] = f.y;
+        }
     };
     if (A.splits > 1) {
         const size_t plane = (size_t)A.m * A.n;
@@ -669,11 +773,14 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
                 const int m = m0 + 8 * j + 2 * q + e;
-                if (m < A.m && col_ok) {
-                    float v[V];
-                    values(j, e, v);
-                    store_f32(mine + (size_t)m * A.n + cb, v);
-                }
+                if (m >= A.m) continue;
+                float v[V];
+                values(j, e, v);
+#pragma unroll
+                for (int gi = 0; gi < NG; ++gi)
+                    if (col_ok[gi])
+                        store_f32(mine + (size_t)m * A.n + col_of(GV * gi),
+                                  v, gi);
             }
         if (!splitk::last_of_tile_bar<S::CONSUMERS>(A.counters, A.splits,
                                                     &is_last))
@@ -685,22 +792,16 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
                 const int m = m0 + 8 * j + 2 * q + e;
-                if (!(m < A.m && col_ok)) continue;
+                if (m >= A.m) continue;
                 float u[MAX_SPLITS][V];
 #pragma unroll
                 for (int z = 0; z < MAX_SPLITS; ++z) {
                     if (z >= A.splits) break;
-                    const float* p = A.ws + z * plane + (size_t)m * A.n + cb;
-                    if constexpr (V == 4) {
-                        const float4 f =
-                            __ldcg(reinterpret_cast<const float4*>(p));
-                        u[z][0] = f.x; u[z][1] = f.y; u[z][2] = f.z;
-                        u[z][3] = f.w;
-                    } else {
-                        const float2 f =
-                            __ldcg(reinterpret_cast<const float2*>(p));
-                        u[z][0] = f.x; u[z][1] = f.y;
-                    }
+#pragma unroll
+                    for (int gi = 0; gi < NG; ++gi)
+                        if (col_ok[gi])
+                            load_f32(A.ws + z * plane + (size_t)m * A.n
+                                     + col_of(GV * gi), u[z], gi);
                 }
                 float v[V];
 #pragma unroll
@@ -722,14 +823,14 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
     float scale[V];
 #pragma unroll
     for (int i = 0; i < V; ++i)
-        scale[i] = (A.col_scale != nullptr && col_ok) ? A.col_scale[cb + i]
-                                                      : 1.0f;
+        scale[i] = (A.col_scale != nullptr && col_ok[i / GV])
+                       ? A.col_scale[col_of(i)] : 1.0f;
 #pragma unroll
     for (int j = 0; j < NP / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
             const int m = m0 + 8 * j + 2 * q + e;
-            if (!(m < A.m && col_ok)) continue;
+            if (m >= A.m) continue;
             float v[V];
             values(j, e, v);
             if (A.row_scale != nullptr) {
@@ -740,19 +841,27 @@ stream_kernel(const __grid_constant__ CUtensorMap tw,
                     v[i] = __fmul_rn(v[i], __fmul_rn(rs, scale[i]));
             } else {
 #pragma unroll
-                for (int i = 0; i < V; ++i) v[i] = __fmul_rn(v[i], scale[i]);
+                for (int i = 0; i < V; ++i)
+                    v[i] = __fmul_rn(v[i], scale[i]);
             }
-            const size_t at = (size_t)m * A.n + cb;
-            if (A.out_f32) {
-                store_f32(reinterpret_cast<float*>(A.out) + at, v);
-            } else {
-                __nv_bfloat16* o =
-                    reinterpret_cast<__nv_bfloat16*>(A.out) + at;
-                if constexpr (V == 4)
-                    *reinterpret_cast<uint2*>(o) = make_uint2(
-                        bf16x2_bits(v[0], v[1]), bf16x2_bits(v[2], v[3]));
-                else
-                    *reinterpret_cast<uint32_t*>(o) = bf16x2_bits(v[0], v[1]);
+#pragma unroll
+            for (int gi = 0; gi < NG; ++gi) {
+                if (!col_ok[gi]) continue;
+                const size_t at = (size_t)m * A.n + col_of(GV * gi);
+                if (A.out_f32) {
+                    store_f32(reinterpret_cast<float*>(A.out) + at, v, gi);
+                } else {
+                    const float* u = v + GV * gi;
+                    __nv_bfloat16* o =
+                        reinterpret_cast<__nv_bfloat16*>(A.out) + at;
+                    if constexpr (GV == 4)
+                        *reinterpret_cast<uint2*>(o) = make_uint2(
+                            bf16x2_bits(u[0], u[1]),
+                            bf16x2_bits(u[2], u[3]));
+                    else
+                        *reinterpret_cast<uint32_t*>(o) =
+                            bf16x2_bits(u[0], u[1]);
+                }
             }
         }
 }
@@ -804,7 +913,7 @@ inline bool encode(CUtensorMap* map, CUtensorMapDataType type, int elt,
 }
 
 struct Launch {
-    const void* x;              // (m, k) bf16
+    const void* x;              // (m, k) bf16 (FP8: e4m3 bytes)
     const void* w;              // the payload: (k, n) bytes or bf16, or
                                 // (k / 2, n) packed int4
     const float* col_scale;     // (n,) or null
@@ -814,6 +923,7 @@ struct Launch {
     float* ws;
     int* counters;
     int m, n, k, splits, kper, group, out_f32;
+    int chunk = 0;              // FP8: stages a promoted chunk (>= 1)
 };
 
 template <class P, int MT, int NP, int WGS>
@@ -837,8 +947,12 @@ cudaError_t launch_tiles(const Launch& L, cudaStream_t stream) {
                     P::KIND == NIB4 ? L.k / 2 : L.k, L.n, S::ROWS, S::RB,
                     S::RB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                                  : CU_TENSOR_MAP_SWIZZLE_64B);
-    ok = ok && encode(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, L.x, L.m, L.k,
-                      NP, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+    if constexpr (P::KIND == FP8)
+        ok = ok && encode(&tx, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, L.x, L.m,
+                          L.k, NP, 128, CU_TENSOR_MAP_SWIZZLE_128B);
+    else
+        ok = ok && encode(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, L.x, L.m,
+                          L.k, NP, 64, CU_TENSOR_MAP_SWIZZLE_128B);
     Args A;
     A.col_scale = L.col_scale;
     A.row_scale = L.row_scale;
@@ -851,6 +965,8 @@ cudaError_t launch_tiles(const Launch& L, cudaStream_t stream) {
     A.group = L.group;
     A.scale_rows = 0;
     A.out_f32 = L.out_f32;
+    A.chunk = L.chunk;
+    if (P::KIND == FP8 && A.chunk < 1) return cudaErrorInvalidValue;
     if constexpr (P::GROUPED) {
         A.scale_rows = L.group < S::BK ? S::BK / L.group : 1;
         ok = ok && encode(&ts, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
@@ -878,15 +994,15 @@ cudaError_t launch_np(const Launch& L, cudaStream_t stream) {
 }
 
 // What the loop takes, checked by the caller (kernels/qmatmul.py::
-// streams / prefills and their plans) and again here: k % 8 == 0,
-// n % 16 == 0, 16-byte aligned operands, kper a multiple of the stage's K
-// rows, splits <= MAX_SPLITS, grouped scales with group % 16 == 0
-// dividing or divided by 128.
+// streams / prefills and their plans, w8a8_matmul) and again here:
+// k % 8 == 0 (FP8: k % 32 == 0), n % 16 == 0, 16-byte aligned operands,
+// kper a multiple of the stage's K rows, splits <= MAX_SPLITS, grouped
+// scales with group % 16 == 0 dividing or divided by 128.
 template <class P>
 bool loop_takes(const Launch& L) {
     constexpr int BK = P::KIND == HALF16 ? 64 : 128;
-    if (L.m < 1 || L.k % 8 || L.n % 16 || L.splits < 1
-        || L.splits > MAX_SPLITS || L.kper % BK
+    if (L.m < 1 || L.k % (P::KIND == FP8 ? 32 : 8) || L.n % 16
+        || L.splits < 1 || L.splits > MAX_SPLITS || L.kper % BK
         || (L.splits - 1) * (long long)L.kper >= L.k
         || (long long)L.splits * L.kper < L.k)
         return false;

@@ -912,23 +912,26 @@ def dequant_matmul(x: torch.Tensor, w8: torch.Tensor, scales: torch.Tensor,
 # The JAX package's matmul_impl="direct" (fp8tpu/serve/model.py::fp8_linear,
 # ::_quantize_act) is XLA ops: a per-row e4m3 quantizer of the activation and
 # an fp8 x fp8 dot with f32 accumulation, scaled by xs * s.  The port's
-# kernels (``csrc/w8a8.cu``): P2 ``quantize_rows``, one block a row, and P1
-# ``w8a8_matmul``, mma.sync.m16n8k32 on the fp8 tensor cores with the weight
-# transposed in registers.  int8 weights have no fp8 partner on the tensor
-# cores: they take K3 (``dequant_matmul(..., row_scale=)``) on the e4m3 codes
-# as bf16, which is exact.
+# kernels (``csrc/w8a8.cu``): P2 ``quantize_rows``, one pass over each row
+# held in registers, and P1 ``w8a8_matmul``, the streaming loop's FP8 kind
+# (``csrc/w_stream.cuh``: wgmma.m64nNk32 on the fp8 tensor cores, the weight
+# bytes as the register A operand, xq as the K-major B from the TMA stage).
+# int8 weights have no fp8 partner on the tensor cores: they take K3
+# (``dequant_matmul(..., row_scale=)``) on the e4m3 codes as bf16, which is
+# exact.
 
 W8A8_FMTS = {torch.float8_e4m3fn: 0, torch.float8_e5m2: 1}
-W8A8_BK = 128         # K rows a stage of P1 (four k32 steps)
-W8A8_BN = 128         # output columns a block of P1
-W8A8_MAX_SPLITS = 16
-# k32 steps the tensor cores sum before P1 adds the chunk into its f32 sum
-# (the fp8 tensor cores' own sum truncates; chip_smoke.py's w8a8_probe
-# measures the choice).
-W8A8_PROMOTE = 16
+# k32 steps the fp8 tensor cores sum before P1 adds the chunk into its f32
+# sum (their own sum keeps 13 bits below a step's largest addend;
+# chip_smoke.py's w8a8_probe and w8a8_p1probe measure the choice): a
+# multiple of 4 (whole stages of 128 K rows) or, for the probes, 1 or 2
+# with e4m3 weights (the w8a8_probe library, built at first use).
+W8A8_PROMOTE = 4
+W8A8_STAGE_STEPS = STREAM_BK["w8"] // 32
 
 # Launches of P2 and of P1 since the last reset_launches(); P1's also by
-# tile: "decode" (M <= 64, four warps) and "prefill" (eight warps).
+# form: "decode" (M <= 64, the streaming loop's decode form) and "prefill"
+# (its prefill route).
 quantize_launches = 0
 w8a8_launches = 0
 w8a8_routes = {"decode": 0, "prefill": 0}
@@ -1012,26 +1015,28 @@ def w8a8_matmul_plain(xq, xs, w8, s, out_dtype=torch.bfloat16):
     return (acc * scale).to(out_dtype)
 
 
-def w8a8_plan(m: int, n: int, k: int, sms: int):
-    """(tile rows, splits, K rows a split) of a P1 launch: 16, 32 or 64 rows
-    (four warps) up to M = 64, 128 (eight warps) above; K split when the
-    output tiles give fewer than about 4 blocks an SM (2 for the tile of
-    eight warps), at most 16 ways, at least 256 rows a split."""
-    rows = 16 if m <= 16 else 32 if m <= 32 else 64 if m <= 64 else 128
-    tiles = -(-n // W8A8_BN) * -(-m // rows)
-    splits, kper = plan_splits(tiles, k, sms, W8A8_MAX_SPLITS, 256, W8A8_BK,
-                               4 if rows <= 64 else 2)
-    return rows, splits, kper
+def w8a8_plan(m: int, n: int, k: int, sms: int) -> GemmPlan:
+    """P1's launch, the streaming loop's plans at K3's e4m3 stage (128 K
+    rows): the decode form at M <= 64 (``stream_plan``: code = m64 tiles a
+    block), the prefill route above (``prefill_plan``); no general
+    kernel (``w8a8_matmul`` raises on what TMA cannot read)."""
+    if m <= 64:
+        plan = stream_plan(m, n, k, sms, "w8")
+        return GemmPlan("stream", plan.mt, plan.splits, plan.kper)
+    plan = prefill_plan(m, n, k, sms, "w8")
+    return GemmPlan("prefill", PREFILL_ROUTE, plan.splits, plan.kper)
 
 
-def w8a8_edges(k: int, kper: int, promote: int = W8A8_PROMOTE) -> List[int]:
-    """The K rows at which P1 adds a tensor-core chunk into its f32 sum."""
-    return promotion_edges(k, kper, promote * 32)
+def w8a8_edges(k: int, kper: int,
+               promote: Optional[int] = None) -> List[int]:
+    """The K rows at which P1 adds a tensor-core chunk of ``promote`` k32
+    steps (default W8A8_PROMOTE) into its f32 sum."""
+    return promotion_edges(k, kper, 32 * (promote or W8A8_PROMOTE))
 
 
 @functools.cache
-def _w8a8_fn():
-    fn = _build.load("w8a8").fp8_w8a8_gemm
+def _w8a8_fn(probe: bool = False):
+    fn = _build.load("w8a8_probe" if probe else "w8a8").fp8_w8a8_gemm
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 \
         + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
@@ -1046,7 +1051,8 @@ def w8a8_matmul(xq: torch.Tensor, xs: torch.Tensor, w8: torch.Tensor,
     serving artifact's layout) with s (N,) f32 column scales.  P1 on a
     CUDA tensor: K % 32 == 0, N % 16 == 0 and 16-byte aligned operands, or
     it raises; ``promote`` (k32 steps a tensor-core chunk, default
-    W8A8_PROMOTE) is there for the accumulation probe.  The plain version
+    W8A8_PROMOTE: a multiple of 4, or 1 or 2 with e4m3 weights from the
+    probes' build) is there for the accumulation probes.  The plain version
     on the CPU."""
     global w8a8_launches
     if not xq.is_cuda:
@@ -1064,19 +1070,25 @@ def w8a8_matmul(xq: torch.Tensor, xs: torch.Tensor, w8: torch.Tensor,
     xq, w8 = xq.contiguous(), w8.contiguous()
     if xq.data_ptr() % 16 or w8.data_ptr() % 16:
         raise ValueError("w8a8_matmul needs 16-byte aligned operands")
+    promote = W8A8_PROMOTE if promote is None else int(promote)
+    probe = promote in (1, 2)
+    if promote < 1 or (promote % W8A8_STAGE_STEPS and not (
+            probe and w8.dtype == torch.float8_e4m3fn)):
+        raise ValueError(f"w8a8_matmul promotes whole stages ({promote} k32 "
+                         "steps); chunks of 1 or 2 steps only with e4m3 "
+                         "weights")
     xs = xs.to(device=xq.device, dtype=torch.float32).reshape(-1).contiguous()
     s = s.to(device=xq.device, dtype=torch.float32).reshape(-1).contiguous()
     out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
-    rows, splits, kper = w8a8_plan(m, n, k, sm_count(xq.device.index or 0))
-    ws, counters = split_workspace(xq.device, splits, m, n)
-    err = _w8a8_fn()(
+    plan = w8a8_plan(m, n, k, sm_count(xq.device.index or 0))
+    ws, counters = split_workspace(xq.device, plan.splits, m, n)
+    err = _w8a8_fn(probe)(
         xq.data_ptr(), w8.data_ptr(), xs.data_ptr(), s.data_ptr(),
         out.data_ptr(), m, n, k, W8A8_FMTS[w8.dtype],
-        int(out_dtype == torch.float32), rows, splits, kper,
-        W8A8_PROMOTE if promote is None else int(promote),
-        ws.data_ptr() if ws is not None else None, counters.data_ptr(),
-        torch.cuda.current_stream(xq.device).cuda_stream)
+        int(out_dtype == torch.float32), plan.code, plan.splits, plan.kper,
+        promote, ws.data_ptr() if ws is not None else None,
+        counters.data_ptr(), torch.cuda.current_stream(xq.device).cuda_stream)
     _build.check(err, "w8a8_matmul kernel")
     w8a8_launches += 1
-    w8a8_routes["decode" if rows <= 64 else "prefill"] += 1
+    w8a8_routes["decode" if plan.route == "stream" else "prefill"] += 1
     return out

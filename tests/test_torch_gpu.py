@@ -874,11 +874,16 @@ def test_convert_studies_reject_what_they_do_not_take(cuda):
 
 # -- P1 / P2: the W8A8 serving linear ------------------------------------------
 
-@pytest.mark.parametrize("m,k", [(1, 4096), (64, 11008), (700, 1001)])
+@pytest.mark.parametrize("m,k", [(1, 4096), (64, 11008), (700, 1001),
+                                 (2048, 4096), (8, 11008), (300, 5504),
+                                 (5, 40000), (33, 1000)])
 def test_quantize_rows_kernel_matches_plain(cuda, m, k):
     """P2 against its plain version on the CPU, codes and scales bit for
     bit, with a zero row, a row of bf16 subnormals, +-inf, a NaN and the
-    tiny-amax row (k = 1001 takes the scalar path)."""
+    tiny-amax row, and a second launch bit for bit: rows held in registers
+    (K = 4096, 5504, 11008 at several M), a row wider than the registers
+    hold (K = 40000) and ragged ones (K = 1001, 1000 at an odd offset) on
+    the looped path."""
     gen = torch.Generator().manual_seed(m)
     x = torch.randn(m, k, generator=gen) * 5
     if m > 8:
@@ -888,38 +893,91 @@ def test_quantize_rows_kernel_matches_plain(cuda, m, k):
         x[6] = 0.0
         x[6, :3] = torch.tensor([1e-37, -3e-38, 5e-38])
     xb = x.to(torch.bfloat16)
+    xc = xb.to(cuda)
+    if k == 1000:       # rows 8-byte aligned only: the scalar accesses
+        xc = torch.empty(m * k + 4, dtype=torch.bfloat16,
+                         device=cuda)[4:].view(m, k)
+        xc.copy_(xb)
     before = qmatmul.quantize_launches
-    q, s = qmatmul.quantize_rows(xb.to(cuda))
-    assert qmatmul.quantize_launches == before + 1
+    q, s = qmatmul.quantize_rows(xc)
+    q2, s2 = qmatmul.quantize_rows(xc)
+    assert qmatmul.quantize_launches == before + 2
     wq, ws = qmatmul.quantize_rows_plain(xb)
     np.testing.assert_array_equal(q.view(torch.uint8).cpu().numpy(),
                                   wq.view(torch.uint8).numpy())
     np.testing.assert_array_equal(s.cpu().view(torch.int32).numpy(),
                                   ws.view(torch.int32).numpy())
+    assert torch.equal(q2.view(torch.uint8), q.view(torch.uint8))
+    assert torch.equal(s2.view(torch.int32), s.view(torch.int32))
 
 
+# P1's shapes: both forms of the streaming loop (decode at M <= 64, the
+# prefill route above) on the dense k/v and the MoE expert shapes, split and
+# unsplit K; then N not a multiple of 128 (a block's last column tile
+# partly outside N, TMA's weight box past the edge), on both forms.
+W8A8_GPU_SHAPES = [
+    (m, k, n) for m in (1, 8, 64, 65, 130, 2047)
+    for k, n in ((4096, 1024), (2048, 5504), (5504, 2048))] + [
+    (9, 2048, 5504), (700, 512, 272)] + [
+    (m, k, n) for m in (8, 65, 700) for k, n in ((4096, 272), (2048, 48))]
+
+
+def _fp8_sum_allowance(xq, w8, edges):
+    """What the fp8 tensor cores' own sums may add to P1's error before its
+    scales (their model, chip_smoke.py's fp8_chunk_bound, measured by its
+    w8a8_probe): each k32 step keeps 13 bits below its largest addend, so
+    it is off by less than 2^-8 (|the chunk so far| + sum |its products|);
+    chunks between P1's promotion ``edges``."""
+    x, w = xq.double(), w8.double()
+    bound = torch.zeros(x.shape[0], w.shape[1], dtype=torch.float64,
+                        device=x.device)
+    for a, b in zip(edges, edges[1:]):
+        run = torch.zeros_like(bound)
+        for k0 in range(a, b, 32):
+            xa, wa = x[:, k0:k0 + 32], w[k0:k0 + 32]
+            bound += run.abs() + xa.abs() @ wa.abs()
+            run += xa @ wa
+    return (bound * 2.0 ** -8).float()
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
-@pytest.mark.parametrize("m,k,n", [(1, 4096, 1024), (9, 2048, 5504),
-                                   (65, 4096, 1024), (700, 512, 272)])
-def test_w8a8_kernel_matches_plain(cuda, fmt, m, k, n):
-    """P1 against its plain version on the card: within the f32
-    summation-order bound plus one bf16 step, a second launch bit for bit;
-    a ragged K raises."""
+@pytest.mark.parametrize("m,k,n", W8A8_GPU_SHAPES)
+def test_w8a8_kernel_matches_plain(cuda, m, k, n, fmt, out_dtype):
+    """P1 against its plain version on the card (W8A8_GPU_SHAPES): within
+    the f32 summation-order bound plus, where it writes bf16, one bf16
+    step, or where it writes f32, the fp8 tensor cores' allowance (and
+    its f32 values not rounded to bf16); a second launch bit for bit, the
+    launch counted by form; a ragged K raises."""
     gen = torch.Generator(device=cuda).manual_seed(k + m)
     x = torch.randn(m, k, device=cuda, generator=gen).to(torch.bfloat16)
     w8, s = qmatmul.quantize_weights(
         torch.randn(k, n, device=cuda, generator=gen) / k ** 0.5, fmt)
     xq, xs = qmatmul.quantize_rows(x)
     before = qmatmul.w8a8_launches
-    got = qmatmul.w8a8_matmul(xq, xs.reshape(-1), w8, s.reshape(-1))
-    again = qmatmul.w8a8_matmul(xq, xs.reshape(-1), w8, s.reshape(-1))
+    form = "decode" if m <= 64 else "prefill"
+    routes = qmatmul.w8a8_routes[form]
+    got = qmatmul.w8a8_matmul(xq, xs.reshape(-1), w8, s.reshape(-1),
+                              out_dtype)
+    again = qmatmul.w8a8_matmul(xq, xs.reshape(-1), w8, s.reshape(-1),
+                                out_dtype)
     assert qmatmul.w8a8_launches == before + 2
-    want = qmatmul.w8a8_matmul_plain(xq, xs.reshape(-1), w8, s.reshape(-1))
+    assert qmatmul.w8a8_routes[form] == routes + 2
+    want = qmatmul.w8a8_matmul_plain(xq, xs.reshape(-1), w8, s.reshape(-1),
+                                     out_dtype)
     mag = xq.float().abs() @ w8.float().abs()
-    tol = 2 * k * 2.0 ** -24 * mag * xs * s.reshape(1, -1) \
-        + 2.0 ** -7 * want.float().abs()
+    scale = xs * s.reshape(1, -1)
+    tol = 2 * k * 2.0 ** -24 * mag * scale
+    if out_dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * want.float().abs()
+    else:
+        plan = qmatmul.w8a8_plan(m, n, k, qmatmul.sm_count(cuda.index or 0))
+        tol = tol + _fp8_sum_allowance(
+            xq, w8, qmatmul.w8a8_edges(k, plan.kper)) * scale
+        assert float((got == got.to(torch.bfloat16).float()).float()
+                     .mean()) < 0.5
     assert bool(((got.float() - want.float()).abs() <= tol).all())
-    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    assert torch.equal(got.view(torch.uint8), again.view(torch.uint8))
     with pytest.raises(ValueError, match="K % 32"):
         qmatmul.w8a8_matmul(xq[:, :k - 16].contiguous(), xs.reshape(-1),
                             w8[:k - 16], s.reshape(-1))

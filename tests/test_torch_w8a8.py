@@ -217,20 +217,116 @@ def test_direct_linear_bit_equal_where_sums_are_exact(rng, fmt):
 @pytest.mark.parametrize("k,n", [(4096, 1024), (4096, 11008), (11008, 4096),
                                  (5504, 2048), (64, 48)])
 def test_w8a8_plan_covers_k_in_whole_stages(m, k, n):
-    """P1's launch plan: the row tile by M, at most 16 splits of whole
-    128-row stages that cover K exactly once, and promotion edges every 512
-    rows from each split's start."""
-    rows, splits, kper = qmatmul.w8a8_plan(m, n, k, 132)
-    assert rows == (16 if m <= 16 else 32 if m <= 32 else 64 if m <= 64
-                    else 128)
-    assert 1 <= splits <= qmatmul.W8A8_MAX_SPLITS
-    assert kper % qmatmul.W8A8_BK == 0
-    assert (splits - 1) * kper < k <= splits * kper
-    edges = qmatmul.w8a8_edges(k, kper)
+    """P1's launch plan on the streaming loop: the decode form (m64 tiles
+    a block by N) up to M = 64, the prefill route above; at most 8 splits
+    of whole 128-row stages that cover K exactly once, each split's K
+    range promoted every W8A8_PROMOTE k32 steps from its start."""
+    plan = qmatmul.w8a8_plan(m, n, k, 132)
+    if m <= 64:
+        assert plan.route == "stream"
+        assert plan.code == qmatmul.stream_mt(n, 132)
+    else:
+        assert (plan.route, plan.code) == ("prefill", qmatmul.PREFILL_ROUTE)
+    assert 1 <= plan.splits <= 8
+    assert plan.kper % (32 * qmatmul.W8A8_STAGE_STEPS) == 0
+    assert (plan.splits - 1) * plan.kper < k <= plan.splits * plan.kper
+    chunk = 32 * qmatmul.W8A8_PROMOTE
+    assert qmatmul.W8A8_PROMOTE % qmatmul.W8A8_STAGE_STEPS == 0
+    edges = qmatmul.w8a8_edges(k, plan.kper)
     assert edges[0] == 0 and edges[-1] == k and edges == sorted(set(edges))
-    assert all(b - a <= 32 * qmatmul.W8A8_PROMOTE
-               for a, b in zip(edges, edges[1:]))
-    assert set(range(0, k, kper)) <= set(edges)
+    starts = list(range(0, k, plan.kper))
+    assert set(starts) <= set(edges)
+    for a, b in zip(edges, edges[1:]):
+        start = max(z for z in starts if z <= a)
+        assert b - a <= chunk and (a - start) % chunk == 0
+        assert b - a == chunk or b == min(k, start + plan.kper)
+
+
+# -- P1's A fragments: a model of w_stream.cuh's fp8_loads / fp8_frags -------
+
+def _swz(rb: int, r: int, c: int) -> int:
+    """w_stream.cuh::swz: byte c of row r of a TMA box of rb-byte rows."""
+    off = r * rb + c
+    return off ^ (((off >> 7) & (rb // 16 - 1)) << 4)
+
+
+def _fp8_lane_row(lane: int) -> int:
+    """w_stream.cuh::fp8_lane_row."""
+    i, r = lane >> 3, lane & 7
+    return 16 * (i >> 1) + 4 * (r >> 1) + 2 * ((i & 1) ^ (r >> 2)) + (r & 1)
+
+
+def _ldsm4_trans(smem: np.ndarray, addrs):
+    """ldmatrix.sync.aligned.m8n8.x4.trans.b16: lanes 8i .. 8i + 7 give
+    the rows of matrix i; thread t's register i holds the b16 elements
+    (row 2 (t % 4), col t // 4) (low half) and (row 2 (t % 4) + 1, same
+    col) (high half)."""
+    regs = np.zeros((32, 4), np.int64)
+    for i in range(4):
+        rows = [smem[addrs[8 * i + r]:addrs[8 * i + r] + 16].astype(np.int64)
+                for r in range(8)]
+        for t in range(32):
+            q, g = t % 4, t // 4
+            lo = rows[2 * q][2 * g:2 * g + 2]
+            hi = rows[2 * q + 1][2 * g:2 * g + 2]
+            regs[t, i] = lo[0] | lo[1] << 8 | hi[0] << 16 | hi[1] << 24
+    return regs
+
+
+def _byte_perm(x: int, y: int, sel: int) -> int:
+    b = [(x >> 8 * i) & 0xFF for i in range(4)] \
+        + [(y >> 8 * i) & 0xFF for i in range(4)]
+    return sum(b[(sel >> 4 * n) & 7] << 8 * n for n in range(4))
+
+
+@pytest.mark.parametrize("mt,rb,warps", [(1, 64, 4), (2, 128, 4),
+                                         (1, 128, 8)])
+def test_w8a8_a_fragments_are_the_ptx_k32_layout(mt, rb, warps):
+    """P1's A operand straight from a raw payload stage (the decode form at
+    MT = 1 and 2, and the prefill route's two warpgroups at MT = 1): for
+    random stages of 128 K rows x rb columns in TMA's swizzled layout,
+    ldmatrix.trans at fp8_lane_row's rows and fp8_frags' two permutes a
+    register give every thread the bytes of the PTX .m64nNk32 8-bit A
+    layout (register j, byte b of lane (g, q) in warp w of its warpgroup:
+    A row 16 w + g + 8 (j & 1), K column 4q + b + 16 (j >> 1)), where A
+    row g (g + 8) of tile t is the block's column 16 MT w + 16 t + 2g
+    (+ 1): each (column, K row) byte of the stage lands in exactly one
+    (thread, register, byte) and equals the numpy transpose.  And each
+    8-row phase of an ldmatrix hits 8 distinct 16-byte bank groups."""
+    rng = np.random.default_rng(mt * 1000 + rb + warps)
+    for _ in range(2):
+        w = rng.integers(0, 256, (128, rb), dtype=np.uint8)
+        smem = np.zeros(128 * rb, np.uint8)
+        for r in range(128):
+            for c in range(rb):
+                smem[_swz(rb, r, c)] = w[r, c]
+        seen = np.zeros((rb, 128), np.int64)
+        for warp in range(warps):
+            for ks in range(4):
+                for t in range(mt):
+                    addrs = [_swz(rb, 32 * ks + _fp8_lane_row(lane),
+                                  16 * mt * warp + 16 * t)
+                             for lane in range(32)]
+                    for i in range(4):
+                        phase = addrs[8 * i:8 * i + 8]
+                        groups = {(a % 128) // 16 for a in phase}
+                        assert len(groups) == 8, "bank conflict"
+                    v = _ldsm4_trans(smem, addrs)
+                    for lane in range(32):
+                        g, q = lane >> 2, lane & 3
+                        lo = 0x2064 if q >> 1 else 0x6420
+                        hi = 0x3175 if q >> 1 else 0x7531
+                        a = [_byte_perm(v[lane, 0], v[lane, 1], lo),
+                             _byte_perm(v[lane, 0], v[lane, 1], hi),
+                             _byte_perm(v[lane, 2], v[lane, 3], lo),
+                             _byte_perm(v[lane, 2], v[lane, 3], hi)]
+                        for j in range(4):
+                            col = 16 * mt * warp + 16 * t + 2 * g + (j & 1)
+                            for b in range(4):
+                                kr = 32 * ks + 4 * q + b + 16 * (j >> 1)
+                                assert (a[j] >> 8 * b) & 0xFF == w.T[col, kr]
+                                seen[col, kr] += 1
+        np.testing.assert_array_equal(seen, np.ones_like(seen))
 
 
 def test_w8a8_plain_rejects_bad_shapes_and_keeps_the_scale_order():

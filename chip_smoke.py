@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the fp8tpu_torch port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py [--phases build,k1,k2,k3,k4,k5,k6,t1,t2,main,
-                                    train,serve,serve_paged,spec,moe,flush,
-                                    time,w8a8,deploy]
+    python3 chip_smoke.py [--phases build,k1,k2,k3,k4,k5,k6,t1,t2,p3,main,
+                                    train,train_lm,serve,serve_paged,spec,
+                                    moe,flush,time,w8a8,deploy]
     python3 chip_smoke.py --phases build,k2_probe   # not in the default run
     python3 chip_smoke.py --phases build,w8a8_probe # nor these six
     python3 chip_smoke.py --phases build,w8a8k
@@ -101,6 +101,16 @@ Phases, each printing its own lines; any failure exits non-zero:
           bound, warm and cold and a second launch bit-identical; then
           every mode at the four serving shapes and the streaming loop's
           row counts as in k3.
+   p3     the 8-bit AdamW leaf update (P3) against its plain version, bit
+          for bit (the parameter or update, payload bytes, scales), on
+          the card and on the CPU: 1, 255, 257 and (300, 257) elements, the
+          store mode, a zero block, gradients whose squares are f32
+          subnormals, wide gradients, a Dense weight through its (in, out)
+          view; every leaf of the large decoder and a (4096, 11008) leaf
+          on the card; then its time on that leaf and on one step's 110
+          leaves of the large decoder, beside the byte bound, the plain
+          version and torch.optim.AdamW(fused=True) (f32 moments: another
+          function, a yardstick only).
 5. main   ResNet-50 (full width, 1000 classes, random weights from a
           seed), batch 32 at 224x224: BN statistics from 2 train-mode
           passes, then quantize_model(e4m3, hw patching, BN folding,
@@ -121,6 +131,27 @@ Phases, each printing its own lines; any failure exits non-zero:
           versions, the plain pass repeated (bit-identical) and the f32 /
           f64 spread with the casts on and off; a torch.profiler breakdown
           of one step; a forced overflow that must be a true skip.
+   train_lm  decoder FP8 training as examples/train_fp8.py runs it
+          (hybrid-gemm, fp16 master, emb e4m3, adamw_8bit) at the JAX
+          package's large preset (12 layers, d_model 768, 12 / 4 heads,
+          d_ff 2304, vocabulary 256; 82.8M parameters, random from a seed),
+          batch 32 x 256 tokens of mixed_lm_corpus: 1 warm-up and 4 timed
+          steps with P3 (one a leaf) and K1 (the embedding's requant)
+          launches counted and no plain version called; ms/step, tokens/s,
+          peak memory, the optimizer's state bytes against AdamW's f32
+          moments; one step's P3 launches against the plain version on
+          their own operands; a profile of one step; a forced overflow
+          (state and count untouched); the state through a checkpoint on
+          disk and back; the same steps with remat (equal losses, peak
+          memory); hybrid with hw patching at 2 layers and batch 8 (every
+          K2 launch of one step's gradients against k2_reference, the
+          loss against K2's plain version).  Each step's count of
+          elements with v = 0 and m != 0 (ROADMAP trap 67) and of e4m3
+          NaN codes in v; on the checked step each leaf's largest |g|,
+          largest v scale and NaN codes before and after its launch.
+          train_lm_control (by name): the same steps from the same seed
+          with the 8-bit AdamW and with torch.optim.AdamW's f32 moments
+          (not the port's path: the control behind trap 67).
 6. serve  the serving decoder at full width (16 layers, d_model 4096, 32
           heads / 8 KV heads, d_ff 11008, vocabulary 32768, random e4m3
           weights from a seed, int8 KV ring): (a) a ServingEngine behind an
@@ -2214,13 +2245,26 @@ def phase_train(record, batch: int):
     return launches
 
 
-def profile_train_step(run, step_ms: float):
+# Hand-written kernels of a train step other than K2, by a piece of their
+# kernel's name: their time keeps its own part in a train profile.
+TRAIN_KERNEL_PARTS = (("adam8_kernel", "P3 8-bit AdamW update (hand-written)"),
+                      ("cast_vec", "K1 cast kernel (hand-written)"),
+                      ("cast_scalar", "K1 cast kernel (hand-written)"),
+                      ("cast_blocked", "K1 cast kernel (hand-written)"))
+
+
+def own_part(name: str):
+    return next((part for key, part in TRAIN_KERNEL_PARTS if key in name),
+                None)
+
+
+def profile_train_step(run, step_ms: float, tag: str = "train"):
     """Device time of one train step by part, from torch.profiler: K2 by
     variant (the forward's implicit-GEMM launches, the backward's dX and
-    dW, the pre-passes), the fake-quant casts and the BatchNorm forwards
-    (kernels whose launching op lies inside a range the profiled run opens
-    around them), then the rest by kernel name.  Fails if the profiler saw
-    no device time."""
+    dW, the pre-passes), P3 and K1, the fake-quant casts and the BatchNorm
+    forwards (kernels whose launching op lies inside a range the profiled
+    run opens around them), then the rest by kernel name.  Fails if the
+    profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     from fp8tpu_torch import linen
@@ -2254,8 +2298,8 @@ def profile_train_step(run, step_ms: float):
         if "multi_tensor" in low:
             return "optimizer"
         if any(t in low for t in ("gemm", "cutlass", "cudnn", "xmma",
-                                  "conv", "wgrad", "dgrad")):
-            return "library conv / GEMM (stem conv, fc)"
+                                  "conv", "wgrad", "dgrad", "nvjet")):
+            return "library conv / GEMM (ResNet stem and fc; decoder Dense)"
         if "reduce" in low:
             return "other reductions"
         return "other elementwise"
@@ -2272,7 +2316,9 @@ def profile_train_step(run, step_ms: float):
                      and LEAD_KERNEL not in e.name),
                     key=lambda e: e.time_range.start):
         ms = (getattr(e, "device_time", None) or e.cuda_time) / 1000.0
-        if "k2_prepass" in e.name:
+        if own_part(e.name):
+            add(own_part(e.name), ms)
+        elif "k2_prepass" in e.name:
             add("K2 pre-passes (casts, bf16 planes)", ms)
         elif "k2_gemm<" in e.name:
             # template arguments (A planes, B planes, how A is read): the
@@ -2299,17 +2345,19 @@ def profile_train_step(run, step_ms: float):
         if label is None:
             continue
         for kern in getattr(e, "kernels", None) or []:
+            if own_part(kern.name):
+                continue
             ms = kern.duration / 1000.0
             add(label, ms)
             add(category(kern.name), -ms, -1)
             moved += 1
     if not moved:
-        print("train profile: no kernel could be traced to its range; casts "
+        print(f"{tag} profile: no kernel could be traced to its range; casts "
               "and BatchNorm stay in the elementwise and reduction parts")
     busy = sum(t for t, _ in parts.values())
     if not busy > 0:
         raise PhaseError("torch.profiler recorded no device time")
-    print(f"train profile: one step, {busy:.2f} ms of kernels on the device "
+    print(f"{tag} profile: one step, {busy:.2f} ms of kernels on the device "
           f"against {step_ms:.2f} ms per step (busy share "
           f"{busy / step_ms:.3f}):")
     for part, (t, n) in sorted(parts.items(), key=lambda kv: -kv[1][0]):
@@ -2317,6 +2365,658 @@ def profile_train_step(run, step_ms: float):
     return {"device_ms": busy, "step_ms": step_ms,
             "parts": {k: {"ms": t, "count": n}
                       for k, (t, n) in parts.items()}}
+
+
+# -- phases p3 and train_lm: decoder FP8 training with the 8-bit AdamW ---------
+
+# The JAX package's "large" decoder (tools/accuracy_gates.py:56-58, the
+# 82.8M-parameter model of ACCURACY_BUDGET.json): 12 layers, d_model 768,
+# 12 / 4 heads, d_ff 2304, vocabulary 256, sequences of 256 tokens, batch
+# 32 (tools/gemm_recipe.py:21); bf16 compute, f32 parameters.
+LM = dict(vocab_size=256, d_model=768, n_layers=12, n_heads=12, n_kv_heads=4,
+          d_ff=2304, max_seq_len=256)
+LM_BATCH = 32
+LM_STEPS = 4                   # timed steps, after one warm-up step
+LM_LR = 1e-3                   # adamw_8bit (the large preset's lr)
+LM_REMAT_ATOL = 4e-3           # remat vs not: a bf16 step (tests/test_remat.py)
+LM_HW_LAYERS = 2               # the hw-patched run's depth
+LM_HW_BATCH = 8                # and batch (its engine runs a GEMM a slice)
+LM_LOSS_RTOL = 1e-5            # PERF.md §2's 3-step gate
+BENCH_GATE = (4096, 11008)     # bench.py's CFG, the gate projection
+
+
+def p3_bytes(n: int) -> float:
+    """Bytes P3 must move on a leaf of n f32 elements: p, g, both payloads
+    and both scales read once; p, the payloads and the scales written
+    once."""
+    nb = -(-n // 256)
+    return 12.0 * n + 4.0 * nb * 256 + 16.0 * nb
+
+
+def lm_shapes():
+    """(name, shape, Dense?) of every parameter of the large decoder, from a
+    model on the meta device."""
+    import torch
+    from fp8tpu_torch.linen import Dense
+    from fp8tpu_torch.models.transformer import Decoder, DecoderConfig
+    with torch.device("meta"):
+        model = Decoder(DecoderConfig(**LM))
+    dense = {n for n, m in model.named_modules() if isinstance(m, Dense)}
+    return [(n, tuple(p.shape), n.rpartition(".")[0] in dense)
+            for n, p in model.named_parameters()]
+
+
+def p3_case(gen, shape, lo=-18.0, hi=0.0, warm=3, zero_block=False):
+    """A leaf (p, g) and its 8-bit state ``warm`` steps in (made by the
+    kernel, so the state is what a run carries), on the card."""
+    import torch
+    from fp8tpu_torch.kernels import adam8
+    n = math.prod(shape)
+    nb = -(-n // adam8.BLOCK)
+    st = [torch.zeros((nb, 256), dtype=torch.int8, device="cuda"),
+          torch.zeros(nb, device="cuda"),
+          torch.zeros((nb, 256), dtype=torch.float8_e4m3fn, device="cuda"),
+          torch.zeros(nb, device="cuda")]
+
+    def grad():
+        g = torch.randn(shape, device="cuda", generator=gen) * torch.exp(
+            torch.empty(shape, device="cuda").uniform_(lo, hi, generator=gen))
+        if zero_block:
+            g.view(-1)[:256] = 0.0
+        return g
+
+    for c in range(1, warm + 1):
+        args = adam8.Adam8Args(0.9, 0.999, 1e-8,
+                               *adam8.bias_corrections(0.9, 0.999, c))
+        adam8.adam8_update(torch.empty(shape, device="cuda"), grad(), *st,
+                           args, "store")
+    p = torch.randn(shape, device="cuda", generator=gen)
+    return p, grad(), st
+
+
+def p3_against_plain(p, g, st, args, mode, view=False, cpu=False):
+    """Launch P3 on copies of (p, g, state) and the plain version on others
+    (on the card, and with ``cpu`` also on the CPU): the number of
+    differing bytes of p and of each state tensor, each plain run against
+    the kernel.  ``view``: True updates the transposed view (P3's strided
+    walk), "unaligned" copies p and g 4 bytes past a 16-byte boundary (the
+    strided walk over one row); else P3 takes 16-byte loads."""
+    import torch
+    from fp8tpu_torch.kernels import adam8
+    pk, gk, sk = p.clone(), g.clone(), [t.clone() for t in st]
+    runs = [("card", "cuda")] + ([("cpu", "cpu")] if cpu else [])
+    if view == "unaligned":
+        def shifted(t):
+            buf = torch.empty(t.numel() + 1, device=t.device)
+            return buf[1:].view(t.shape).copy_(t)
+        pk, gk = shifted(pk), shifted(gk)
+    elif view:
+        pk, gk = pk.t(), gk.t()
+    adam8.adam8_update(pk, gk, *sk, args, mode)
+    out = {}
+    for label, dev in runs:
+        pp, gp = p.to(dev).clone(), g.to(dev).clone()
+        sp = [t.to(dev).clone() for t in st]
+        if view is True:
+            pp, gp = pp.t(), gp.t()
+        adam8.adam8_update_plain(pp, gp, *sp, args, mode)
+        out[label] = [bytes_differ(pk, pp)] + [
+            bytes_differ(a, b) for a, b in zip(sk, sp)]
+    return out
+
+
+def bytes_differ(a, b) -> int:
+    """Number of differing bytes of two tensors of one dtype and shape (on
+    any devices)."""
+    import torch
+    a = a.detach().contiguous().reshape(-1).view(torch.uint8)
+    b = b.detach().contiguous().reshape(-1).view(torch.uint8).to(a.device)
+    return int((a != b).sum())
+
+
+def phase_p3(record):
+    """P3 (the 8-bit AdamW leaf update) against its plain version, bit for
+    bit: odd sizes, a zero block, subnormal-range gradients, the weight
+    decay with and without a mask, the store mode, a Dense weight updated
+    through its transposed view, every leaf of the large decoder and one
+    (4096, 11008) leaf; then its time on the gate leaf and on one step's
+    leaves of the large decoder, beside the byte bound, the plain version
+    and, as a yardstick of another function, torch.optim.AdamW(fused=True)
+    on the same leaves."""
+    import torch
+    from fp8tpu_torch.kernels import adam8
+    from fp8tpu_torch.tools import device_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    args = adam8.Adam8Args(0.9, 0.999, 1e-8,
+                           *adam8.bias_corrections(0.9, 0.999, 4),
+                           weight_decay=1e-4, neg_lr=-LM_LR)
+    cases = [("1 element", (1,), {}, "apply", False),
+             ("255", (255,), {}, "apply_decay", False),
+             ("257", (257,), {}, "apply", False),
+             ("(300, 257)", (300, 257), {}, "apply_decay", False),
+             ("(7, 11, 3) store", (7, 11, 3), {}, "store", False),
+             ("a zero block", (1024,), {"zero_block": True}, "apply_decay",
+              False),
+             ("subnormal g*g", (4096,), {"lo": -60.0, "hi": -40.0},
+              "apply_decay", False),
+             ("wide g", (4096,), {"lo": -40.0, "hi": 20.0}, "apply", False),
+             ("Dense (768, 2304) via (in, out) view", (2304, 768), {},
+              "apply_decay", True),
+             ("(300, 257) unaligned", (300, 257), {}, "apply_decay",
+              "unaligned")]
+    problems, rows = [], []
+    for label, shape, kw, mode, view in cases:
+        p, g, st = p3_case(gen, shape, **kw)
+        got = p3_against_plain(p, g, st, args, mode, view, cpu=True)
+        bad = {k: sum(v) for k, v in got.items()}
+        rows.append({"case": label, "differing_bits": got})
+        print(f"p3 {label} ({mode}): differing bytes against plain on "
+              f"the card / CPU: {bad['card']} / {bad['cpu']}")
+        if any(bad.values()):
+            problems.append(f"{label}: {got}")
+    # every leaf of the large decoder (Dense weights through their view),
+    # masked decay (norm scales undecayed), and the gate leaf
+    leaves = lm_shapes()
+    worst = 0
+    for name, shape, dense in leaves + [("bench.py gate", BENCH_GATE,
+                                         False)]:
+        p, g, st = p3_case(gen, shape, warm=1)
+        mode = "apply" if name.endswith(".scale") else "apply_decay"
+        got = p3_against_plain(p, g, st, args, mode, view=dense)
+        worst = max(worst, sum(got["card"]))
+        if sum(got["card"]):
+            problems.append(f"leaf {name}: {got}")
+    print(f"p3: all {len(leaves)} leaves of the large decoder and the "
+          f"{BENCH_GATE} leaf against the plain version on the card: "
+          f"{worst} differing bytes at most (0 required)")
+
+    # times: the gate leaf, and one step's leaves of the large decoder
+    timed = {}
+    p, g, st = p3_case(gen, BENCH_GATE, warm=1)
+    n = p.numel()
+    timed["gate"] = {
+        "n": n, "ms": device_ms(lambda: adam8.adam8_update(
+            p, g, *st, args, "apply_decay"), iters=4, replays=3),
+        "plain_ms": cuda_ms(lambda: adam8.adam8_update_plain(
+            p, g, *st, args, "apply_decay"), iters=2, warmup=1),
+        "bound_ms": p3_bytes(n) / HBM_BYTES_PER_S * 1e3}
+    fused = torch.optim.AdamW([p.clone().requires_grad_(True)], lr=LM_LR,
+                              fused=True, capturable=True)
+    fused.param_groups[0]["params"][0].grad = g.clone()
+    fused.step()
+    timed["gate"]["fused_adamw_ms"] = device_ms(fused.step, iters=4,
+                                                replays=3)
+    del p, g, st, fused
+    leaf_state = [(*p3_case(gen, shape, warm=1), dense)
+                  for _, shape, dense in leaves]
+
+    def step_all():
+        for p, g, st, dense in leaf_state:
+            adam8.adam8_update(p.t() if dense else p, g.t() if dense else g,
+                               *st, args, "apply_decay")
+
+    def plain_all():
+        for p, g, st, dense in leaf_state:
+            adam8.adam8_update_plain(p.t() if dense else p,
+                                     g.t() if dense else g, *st, args,
+                                     "apply_decay")
+
+    ps = [x[0].clone().requires_grad_(True) for x in leaf_state]
+    for q, x in zip(ps, leaf_state):
+        q.grad = x[1].clone()
+    fused = torch.optim.AdamW(ps, lr=LM_LR, fused=True, capturable=True)
+    fused.step()
+    n = sum(x[0].numel() for x in leaf_state)
+    timed["large_step"] = {
+        "n": n, "leaves": len(leaf_state),
+        "ms": device_ms(step_all, iters=2, replays=3),
+        "plain_ms": cuda_ms(plain_all, iters=1, warmup=1),
+        "bound_ms": sum(p3_bytes(x[0].numel()) for x in leaf_state)
+        / HBM_BYTES_PER_S * 1e3,
+        "fused_adamw_ms": device_ms(fused.step, iters=2, replays=3)}
+    # the transposed view's cost: the same leaves read contiguously
+    timed["large_step"]["ms_no_views"] = device_ms(lambda: [
+        adam8.adam8_update(p, g, *st, args, "apply_decay")
+        for p, g, st, _ in leaf_state], iters=2, replays=3)
+    del leaf_state, ps, fused
+    for k, t in timed.items():
+        print(f"time p3 {k} ({t['n']} elements): kernel {t['ms']:.4f} ms, "
+              f"plain {t['plain_ms']:.4f} ms, bytes bound {t['bound_ms']:.4f}"
+              f" ms ({t['bound_ms'] / t['ms']:.3f} of it); yardstick "
+              f"torch.optim.AdamW(fused=True), f32 moments, another function:"
+              f" {t['fused_adamw_ms']:.4f} ms"
+              + (f"; leaves read contiguously {t['ms_no_views']:.4f} ms"
+                 if "ms_no_views" in t else ""))
+    record["p3"] = {"cases": rows, "leaves_worst": worst, "time": timed}
+    if problems:
+        raise PhaseError("; ".join(problems[:6]))
+    t = timed["large_step"]
+    return [{"name": "adam8_update (P3, 8-bit AdamW leaf update; times: "
+                     "one step's 110 leaves of the large decoder)",
+             "route": "cuda", "source": "fp8tpu_torch/kernels/csrc/adam8.cu",
+             "replaces": "fp8tpu/training/opt8.py:104 (XLA ops, no TPU "
+                         "kernel)",
+             "launches": None, "max_abs_err": 0.0, "ms": t["ms"],
+             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+             "bound_by": "bytes", "library_ms": None}]
+
+
+def lm_loss(model):
+    """Next-token cross entropy of the decoder on batch[:, :-1] -> batch[:,
+    1:] (the JAX package's lm_loss), plus the poison of a (tokens, poison)
+    batch, which a forced overflow sets to NaN."""
+    import torch.nn.functional as F
+
+    def loss_fn(apply_fn, params, batch):
+        toks, poison = batch if isinstance(batch, tuple) else (batch, None)
+        logits = apply_fn(params, toks[:, :-1])
+        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               toks[:, 1:].reshape(-1))
+        return loss if poison is None else loss * poison
+    return loss_fn
+
+
+def lm_trainer(n_layers=LM["n_layers"], remat=False, algo="hybrid-gemm",
+               emb="e4m3", hw=False, seed=0):
+    """examples/train_fp8.py's setup on the card: a random decoder from a
+    seed, initialize(training_algo, master fp16, emb_fmt), adamw_8bit,
+    make_train_step with loss scale 2^12."""
+    import dataclasses
+    import torch
+    import fp8tpu_torch as ft
+    from fp8tpu_torch.models import decoder
+    from fp8tpu_torch.models.transformer import DecoderConfig
+    from fp8tpu_torch.training import (adamw_8bit, init_train_state,
+                                       make_train_step)
+    cfg = DecoderConfig(**{**LM, "n_layers": n_layers, "remat": remat})
+    model = decoder(cfg, generator=torch.Generator().manual_seed(seed))
+    emu = ft.initialize(model, training_algo=algo, master_fmt="fp16",
+                        emb_fmt=emb)
+    if hw:
+        emu = dataclasses.replace(emu, policy=emu.policy.with_hw_patching())
+    params = dict(model.named_parameters())
+    opt = adamw_8bit(params, LM_LR, module_table=emu.module_table)
+    return (model, emu, params, opt,
+            make_train_step(emu, lm_loss(model), loss_scale=2.0 ** 12),
+            init_train_state(opt, 2.0 ** 12))
+
+
+def lm_batches(n: int, seed: int = 0):
+    import torch
+    from fp8tpu_torch.data.synthetic import mixed_lm_corpus
+    toks = mixed_lm_corpus(n * LM_BATCH, LM["max_seq_len"], LM["vocab_size"],
+                           seed=seed)
+    return [torch.from_numpy(toks[i * LM_BATCH:(i + 1) * LM_BATCH]).long()
+            .to("cuda") for i in range(n)]
+
+
+def lm_run(step, params, state, batches, key, opt=None):
+    """The steps, timed: (params, state, losses, seconds a step, per step
+    the launches of P3 and K1 and, with the 8-bit ``opt``, its
+    :func:`v_underflow` and :func:`nan_codes` counts)."""
+    import torch
+    from fp8tpu_torch.kernels import adam8, cast_kernel
+    from fp8tpu_torch.numerics import prng
+    losses, times, per_step = [], [], []
+    for i, b in enumerate(batches):
+        p0, k0 = adam8.launches, cast_kernel.launches
+        t = time.perf_counter()
+        params, state, loss = step(params, state, b, prng.fold_in(key, i))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(float(loss))
+        per_step.append({"launches": {"adam8": adam8.launches - p0,
+                                      "cast_kernel": cast_kernel.launches
+                                      - k0},
+                         "v_underflow": None if opt is None
+                         else v_underflow(opt),
+                         "v_nan": None if opt is None else sum(
+                             nan_codes(st["v"].payload)
+                             for st in opt.state.values())})
+    return params, state, losses, times, per_step
+
+
+def nan_codes(payload) -> int:
+    """e4m3 NaN codes (0x7F / 0xFF) in a payload."""
+    import torch
+    return int(((payload.view(torch.uint8) & 0x7F) == 0x7F).sum())
+
+
+def v_underflow(opt) -> int:
+    """Elements whose 8-bit second moment is 0 while the first is not: each
+    takes an update of lr * m / eps (the 8-bit AdamW's blow-up, ROADMAP
+    trap 67)."""
+    import torch
+    return sum(int((((st["v"].payload.view(torch.uint8) & 0x7F) == 0)
+                    & (st["m"].payload != 0)).sum())
+               for st in opt.state.values())
+
+
+def phase_train_lm(record):
+    """Decoder FP8 training as examples/train_fp8.py runs it
+    (--training-algo hybrid-gemm --master-fmt fp16 --opt8 --emb-fmt e4m3)
+    at the large preset's full width."""
+    import torch
+    from fp8tpu_torch.kernels import adam8, cast_kernel
+    from fp8tpu_torch.numerics import cast as cast_mod
+    from fp8tpu_torch.numerics import prng
+    from fp8tpu_torch.training import LossScaleState, opt8, state_bytes
+    from fp8tpu_torch.utils import (MetricLogger, restore_checkpoint,
+                                    save_checkpoint)
+
+    problems = []
+    key = prng.key(1)
+    batches = lm_batches(1 + LM_STEPS)
+    tokens = LM_BATCH * (LM["max_seq_len"] - 1)
+    model, emu, params, opt, step, state = lm_trainer()
+    n_params = sum(p.numel() for p in params.values())
+    leaves = len(params)
+
+    # The main path: 1 warm-up and LM_STEPS timed steps, counted, with no
+    # plain version of P3 or K1 allowed.
+    adam8.reset_launches()
+    cast_kernel.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _Counting(adam8, "adam8_update_plain", forbid=True), \
+            _Counting(cast_mod, "qdq_plain", forbid=True):
+        params, state, losses, times, per_step = lm_run(
+            step, params, state, batches, key, opt)
+    launches = {"adam8_update": adam8.launches,
+                "cast_kernel": cast_kernel.launches}
+    peak = torch.cuda.max_memory_allocated()
+    after_run = {n: p.detach().clone() for n, p in params.items()}
+    ms = 1000.0 * sum(times[1:]) / LM_STEPS
+    log = MetricLogger()
+    for loss, t in zip(losses[1:], times[1:]):
+        log.update(loss=loss, tokens_per_s=tokens / t)
+    opt8_bytes = state_bytes(opt)
+    adamw_bytes = sum(8 * p.numel() + 4 for p in params.values())
+    print(f"train_lm: decoder {LM['n_layers']} layers, d_model "
+          f"{LM['d_model']}, {n_params} parameters, hybrid-gemm, fp16 "
+          f"master, emb e4m3, adamw_8bit; batch {LM_BATCH} x "
+          f"{LM['max_seq_len'] - 1} tokens: {ms:.2f} ms/step, "
+          f"{tokens / (ms / 1e3):.1f} tokens/s (warm-up "
+          f"{1000 * times[0]:.1f} ms; steps "
+          f"{', '.join(f'{1000 * t:.2f}' for t in times[1:])} ms); peak "
+          f"device memory {peak / 2 ** 30:.3f} GiB")
+    print(f"train_lm: optimizer state {opt8_bytes} bytes (8-bit) against "
+          f"{adamw_bytes} for torch.optim.AdamW's f32 moments and steps "
+          f"({adamw_bytes / opt8_bytes:.2f}x)")
+    print(f"train_lm: launches per step {[p['launches'] for p in per_step]}"
+          f"; losses {', '.join(f'{v:.4f}' for v in losses)}; elements "
+          f"with v = 0 and m != 0 after each step "
+          f"{[p['v_underflow'] for p in per_step]}, e4m3 NaN codes in v "
+          f"{[p['v_nan'] for p in per_step]}; no plain version "
+          f"called; MetricLogger: {log}")
+    want = {"adam8": leaves, "cast_kernel": 1}
+    if any(p["launches"] != want for p in per_step):
+        problems.append(f"launches per step {per_step}, expected {want}")
+    if not all(map(math.isfinite, losses)):
+        problems.append(f"losses not finite: {losses}")
+    if state[1] != LossScaleState(2.0 ** 12, 1 + LM_STEPS):
+        problems.append(f"loss scale {state[1]}: the steps were to be clean")
+
+    # remat: the same steps from the same weights, each layer recomputed
+    # in the backward
+    del model, emu, params, opt, step, state
+    torch.cuda.empty_cache()
+    _, _, rparams, ropt, rstep, rstate = lm_trainer(remat=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rparams, rstate, rlosses, rtimes, _ = lm_run(rstep, rparams, rstate,
+                                                 batches, key)
+    rpeak = torch.cuda.max_memory_allocated()
+    far = sum(int((~torch.isclose(rparams[n].detach(), after_run[n], rtol=0,
+                                   atol=LM_REMAT_ATOL, equal_nan=True))
+                   .sum()) for n in rparams)
+    rms = 1000.0 * sum(rtimes[1:]) / LM_STEPS
+    same = [a == b or (math.isnan(a) and math.isnan(b))
+            for a, b in zip(rlosses, losses)]
+    print(f"train_lm: remat: losses {'equal' if all(same) else rlosses}, "
+          f"{far} parameters further than {LM_REMAT_ATOL} from the main "
+          f"run's (0 required); {rms:.2f} ms/step, peak device memory "
+          f"{rpeak / 2 ** 30:.3f} GiB against {peak / 2 ** 30:.3f}")
+    if not all(same) or far:
+        problems.append(f"remat: losses {rlosses} vs {losses}, {far} "
+                        "parameters apart")
+    del rparams, ropt, rstep, rstate, after_run
+    torch.cuda.empty_cache()
+
+    # From a fresh trainer (the same seed): one step profiled, one step
+    # with every P3 launch held against the plain version on the card on
+    # the launch's own operands, a forced overflow, the checkpoint.
+    model, emu, params, opt, step, state = lm_trainer()
+    breakdown = profile_train_step(
+        lambda: step(params, state, batches[1], prng.fold_in(key, 60)),
+        ms, tag="train_lm")
+    checked, on_card, leaf_stats = [], [], []
+    launch = opt8.adam8_update
+    nan_before = sum(nan_codes(st["v"].payload) for st in opt.state.values())
+
+    def checking(p, g, mq, ms_, vq, vs, args, mode="apply"):
+        ins = [p.contiguous().clone(), g.contiguous().clone()] + [
+            t.clone() for t in (mq, ms_, vq, vs)]
+        launch(p, g, mq, ms_, vq, vs, args, mode)
+        got = [p, mq, ms_, vq, vs]
+        leaf_stats.append({
+            "name": opt.names[len(leaf_stats)],
+            "g_absmax": float(g.abs().max()),
+            "g_nonfinite": int((~torch.isfinite(g)).sum()),
+            "v_scale_max": [float(ins[5].max()), float(vs.max())],
+            "v_nan": [nan_codes(ins[4]), nan_codes(vq)]})
+
+        def against(ref):
+            adam8.adam8_update_plain(*ref, args, mode)
+            return sum(bytes_differ(a, b)
+                       for a, b in zip(got, ref[:1] + ref[2:]))
+
+        on_card.append(against([t.clone() for t in ins]))
+        # The plain version on the card makes its NaNs by the device's
+        # rules (inf / inf is 0x7FFFFFFF there); P3 follows the host's
+        # (trap 10), so the plain version on the CPU decides.
+        checked.append(against([t.cpu() for t in ins]) if on_card[-1]
+                       else 0)
+
+    opt8.adam8_update = checking
+    try:
+        params, state, loss = step(params, state, batches[2],
+                                   prng.fold_in(key, 50))
+        torch.cuda.synchronize()
+    finally:
+        opt8.adam8_update = launch
+    print(f"train_lm: one step's {len(checked)} P3 launches (loss "
+          f"{float(loss):.4f}) against the plain version on their own "
+          f"operands: {sum(on_card)} differing bytes on the card, of "
+          f"which {sum(checked)} against the plain version on the CPU, "
+          f"which decides (0 required)")
+    # Where the step's NaN codes come from: the trainer's state before it
+    # (this trainer took one step, the profiled one) and each leaf's
+    # gradient and v scale.
+    top = sorted(leaf_stats, key=lambda r: -r["g_absmax"])[:3]
+    nan_leaves = [r for r in leaf_stats if r["v_nan"] != [0, 0]]
+    print(f"train_lm: the checked step (the trainer's second): e4m3 NaN "
+          f"codes in v before it {nan_before}; largest |g| "
+          + ", ".join(f"{r['name']} {r['g_absmax']:.6g}" for r in top)
+          + f"; non-finite g {sum(r['g_nonfinite'] for r in leaf_stats)}"
+          + f"; largest v scale before / after "
+          f"{max(r['v_scale_max'][0] for r in leaf_stats):.6g} / "
+          f"{max(r['v_scale_max'][1] for r in leaf_stats):.6g}; leaves with "
+          f"NaN codes (before, after): "
+          + (", ".join(f"{r['name']} {r['v_nan']} (|g| "
+                       f"{r['g_absmax']:.6g}, v scale {r['v_scale_max']})"
+                       for r in nan_leaves) or "none"))
+    if len(checked) != leaves or sum(checked):
+        problems.append(f"P3 on the main path: {len(checked)} launches, "
+                        f"{sum(checked)} differing bytes")
+
+    # A forced overflow: parameters, moments and count untouched, the
+    # scale halved.
+    before = {n: p.detach().clone() for n, p in params.items()}
+    moments = {n: [t.clone() for w in ("m", "v") for t in opt.state[p][w]]
+               for n, p in params.items()}
+    count, s0 = opt.count, state[1]
+    poison = torch.tensor(float("nan"), device="cuda")
+    params, state, bad = step(params, state, (batches[0], poison),
+                              prng.fold_in(key, 70))
+    moved = sum(bytes_differ(p, before[n]) for n, p in params.items())
+    moved_m = sum(bytes_differ(a, b) for n, p in params.items()
+                  for a, b in zip([t for w in ("m", "v")
+                                   for t in opt.state[p][w]], moments[n]))
+    print(f"train_lm: forced overflow: loss {float(bad)}, scale {s0.scale} "
+          f"-> {state[1].scale}, bytes changed: parameters {moved}, 8-bit "
+          f"moments {moved_m}; count {count} -> {opt.count}")
+    if moved or moved_m or opt.count != count or state[1] != \
+            LossScaleState(s0.scale / 2, 0):
+        problems.append("the overflow step was not a true skip")
+    del before, moments
+
+    # The checkpoint: this state through disk and back into another
+    # trainer, bit for bit.
+    ck = os.path.join("chip_smoke_out", "lm_checkpoint")
+    save_checkpoint(ck, opt.count, params, (opt, state[1]),
+                    policy=emu.policy)
+    size = os.path.getsize(os.path.join(ck, f"state_{opt.count}.npz"))
+    _, _, fresh, fopt, _, _ = lm_trainer(seed=1)
+    res = restore_checkpoint(ck, opt.count, {
+        "params": fresh, "opt_state": (fopt, LossScaleState(1.0))})
+    out, policy = res["state"], res["meta"]["policy"]
+    bad_ck = sum(bytes_differ(out["params"][n], p)
+                 for n, p in params.items())
+    bad_ck += sum(bytes_differ(a, b)
+                  for n, p in params.items()
+                  for w in ("m", "v")
+                  for a, b in zip(opt.state[p][w],
+                                  fopt.state[fresh[n]][w]))
+    print(f"train_lm: checkpoint round trip ({size / 2 ** 20:.1f} MiB): "
+          f"{bad_ck} differing bytes, count {fopt.count}, loss scale "
+          f"{out['opt_state'][1]}, policy equal {policy == emu.policy}")
+    if (bad_ck or fopt.count != opt.count or out["opt_state"][1] != state[1]
+            or policy != emu.policy):
+        problems.append("the checkpoint did not restore bit for bit")
+    import shutil
+    shutil.rmtree(ck, ignore_errors=True)
+    del fresh, fopt, out, res, model, emu, params, opt, step, state
+    torch.cuda.empty_cache()
+
+    hw = lm_hw_patched(batches[0][:LM_HW_BATCH], key)
+    record["train_lm"] = {
+        "config": LM, "batch": LM_BATCH, "parameters": n_params,
+        "ms_per_step": ms, "tokens_per_s": tokens / (ms / 1e3),
+        "step_ms": [1000 * t for t in times], "peak_bytes": peak,
+        "state_bytes_opt8": opt8_bytes, "state_bytes_adamw": adamw_bytes,
+        "per_step": per_step, "launches": launches, "losses": losses,
+        "p3_checked": checked, "p3_leaves": leaf_stats,
+        "p3_checked_on_card": on_card,
+        "profile": breakdown,
+        "remat": {"losses": rlosses, "params_apart": far,
+                  "ms_per_step": rms, "peak_bytes": rpeak},
+        "hw": hw, "metric_logger": str(log)}
+    problems += hw.pop("problems")
+    if problems:
+        raise PhaseError("; ".join(problems))
+    return launches
+
+
+def phase_train_lm_control(record):
+    """A control, not the port's path: train_lm's steps from the same seed
+    with the 8-bit AdamW and with torch.optim.AdamW's f32 moments in its
+    place (ROADMAP trap 67)."""
+    import torch
+    from fp8tpu_torch.numerics import prng
+    from fp8tpu_torch.training import init_train_state
+    key = prng.key(1)
+    batches = lm_batches(1 + LM_STEPS)
+    _, _, params, opt, step, state = lm_trainer()
+    _, _, losses, _, per_step = lm_run(step, params, state, batches, key,
+                                       opt)
+    del params, opt, step, state
+    torch.cuda.empty_cache()
+    _, _, cparams, _, cstep, _ = lm_trainer()
+    copt = torch.optim.AdamW(cparams.values(), lr=LM_LR, weight_decay=1e-4)
+    _, _, closses, _, _ = lm_run(cstep, cparams, init_train_state(
+        copt, 2.0 ** 12), batches, key)
+    del cparams, copt, cstep
+    torch.cuda.empty_cache()
+    print(f"train_lm_control: losses with the 8-bit AdamW "
+          f"{', '.join(f'{v:.4f}' for v in losses)} (elements with v = 0 "
+          f"and m != 0 {[p['v_underflow'] for p in per_step]}, e4m3 NaN "
+          f"codes in v {[p['v_nan'] for p in per_step]}); with "
+          f"torch.optim.AdamW (f32 moments) "
+          f"{', '.join(f'{v:.4f}' for v in closses)}")
+    record["train_lm_control"] = {"opt8_losses": losses,
+                                  "opt8_per_step": per_step,
+                                  "adamw_f32_losses": closses}
+
+
+def lm_hw_patched(batch, key):
+    """hybrid with hw patching at LM_HW_LAYERS layers and the batch given
+    (LM_HW_BATCH sequences on the main path): the attention
+    BatchMatmuls go through the engine one slice at a time.  The e4m3
+    forward takes K2's hw route outside the kernel (both operands exact in
+    bf16, as the JAX package's ``_hw_xla_ok``), the backward two uncast K2
+    GEMMs a slice; one step counted by variant, every K2 launch of one
+    step's gradients held to k2_reference, and the step's loss against the
+    same step with K2's plain version (f32, and f64 sums)."""
+    import torch
+    from fp8tpu_torch.kernels import qmatmul
+    from fp8tpu_torch.numerics import prng
+    from fp8tpu_torch.training import step_grads
+
+    problems = []
+    model, emu, params, opt, step, state = lm_trainer(
+        n_layers=LM_HW_LAYERS, algo="hybrid", emb=None, hw=True)
+    qmatmul.reset_launches()
+    with _Counting(qmatmul, "plain", forbid=True):
+        k0 = dict(qmatmul.k2_launches)
+        t = time.perf_counter()
+        params, state, loss = step(params, state, batch, prng.fold_in(key, 0))
+        torch.cuda.synchronize()
+        hw_ms = 1000 * (time.perf_counter() - t)
+    counts = {v: qmatmul.k2_launches[v] - k0[v] for v in k0}
+    slices = 2 * LM_HW_LAYERS * batch.shape[0] * LM["n_heads"]
+    print(f"train_lm hw: hybrid with hw patching, {LM_HW_LAYERS} layers: "
+          f"{hw_ms:.1f} ms for one step (with the first launches); K2 "
+          f"launches {counts} ({slices} BatchMatmul slices); loss "
+          f"{float(loss):.5f}")
+    if counts["uncast"] != 2 * slices or counts["bitexact"] or counts["hw"]:
+        problems.append(f"hw-patched step: K2 launches {counts}, expected "
+                        f"{2 * slices} uncast")
+    launch, checked, losses = qmatmul._launch, [], {}
+
+    def checking(*args, impl="bitexact", unsplit=False):
+        out = launch(*args, impl=impl, unsplit=unsplit)
+        checked.append(k2_launch_error(out, args, impl))
+        return out
+
+    gkey = prng.fold_in(key, 100)
+    for name, fn in (("kernel", checking), ("plain", qmatmul.plain),
+                     ("plain_f64", k2_plain_f64)):
+        qmatmul._launch = fn
+        try:
+            losses[name] = float(step_grads(emu, lm_loss(model), params,
+                                            batch, gkey, 2.0 ** 12)[0])
+        finally:
+            qmatmul._launch = launch
+    spread = abs(losses["plain"] - losses["plain_f64"])
+    gap = abs(losses["kernel"] - losses["plain"])
+    limit = max(LM_LOSS_RTOL * abs(losses["plain"]), 3 * spread)
+    print(f"train_lm hw: one step's {len(checked)} K2 launches against the "
+          f"exact product of their own operands: worst |err| / tolerance "
+          f"{max(checked, default=0.0):.3e} (at most 1); loss kernels {losses['kernel']:.7f}"
+          f", plain {losses['plain']:.7f}, plain f64 sums "
+          f"{losses['plain_f64']:.7f}: |kernels - plain| {gap:.3e} (at most "
+          f"{limit:.3e}: 1e-5 relative, or 3x the f32 / f64 spread)")
+    if len(checked) != 2 * slices or max(checked, default=0.0) > 1.0:
+        problems.append(f"hw-patched step: {len(checked)} K2 launches "
+                        f"checked, worst {max(checked, default=0.0)} of the bound")
+    if gap > limit:
+        problems.append(f"hw-patched step loss {losses}")
+    return {"ms_first_step": hw_ms, "k2_launches": counts,
+            "launch_err_over_bound_max": max(checked, default=0.0),
+            "losses": losses,
+            "problems": problems}
 
 
 # -- phase serve -----------------------------------------------------------------
@@ -7285,9 +7985,9 @@ def phase_profile_probe(record):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="build,k1,k2,k3,k4,k5,k6,t1,t2,main,train,"
-                            "serve,serve_paged,spec,moe,flush,time,w8a8,"
-                            "deploy")
+                    default="build,k1,k2,k3,k4,k5,k6,t1,t2,p3,main,train,"
+                            "train_lm,serve,serve_paged,spec,moe,flush,time,"
+                            "w8a8,deploy")
     ap.add_argument("--out", default="chip_smoke_out/chip_smoke.json")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
@@ -7310,7 +8010,9 @@ def main(argv=None) -> int:
           f"{torch.version.cuda}")
     record = {"card": card, "phases": {}}
     launches = serve_launches = paged_launches = train_launches = None
+    lm_launches = None
     kernels, study_kernels, spec_kernels, moe_kernels = [], [], [], []
+    p3_kernels = []
     ok = True
     for phase in phases:
         t0 = time.perf_counter()
@@ -7351,6 +8053,12 @@ def main(argv=None) -> int:
                 launches = phase_main(record, BATCH)
             elif phase == "train":
                 train_launches = phase_train(record, BATCH)
+            elif phase == "p3":
+                p3_kernels = phase_p3(record)
+            elif phase == "train_lm":
+                lm_launches = phase_train_lm(record)
+            elif phase == "train_lm_control":
+                phase_train_lm_control(record)
             elif phase == "serve":
                 serve_launches = phase_serve(record)
             elif phase == "serve_paged":
@@ -7392,9 +8100,11 @@ def main(argv=None) -> int:
     if not ok:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    if kernels or study_kernels or spec_kernels or moe_kernels:
+    for row in p3_kernels:     # launches on the decoder's training path
+        row["launches"] = (lm_launches or {}).get("adam8_update", 0)
+    if kernels or study_kernels or spec_kernels or moe_kernels or p3_kernels:
         print(json.dumps({"kernels": kernels + study_kernels
-                          + spec_kernels + moe_kernels}))
+                          + spec_kernels + moe_kernels + p3_kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

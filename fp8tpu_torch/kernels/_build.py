@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("cast_kernel", "qmatmul", "dequant_matmul", "int4_matmul",
            "inplace", "paged_attention", "kexp_convert", "fp8_linear_study",
-           "w8a8")
+           "w8a8", "adam8")
 # Libraries built from another's source with more flags, at first use only
 # (not in build_all's default): {name: (source, flags)}.  w8a8_probe is P1
 # with tensor-core chunks inside a stage, for the accumulation probes.

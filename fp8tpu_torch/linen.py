@@ -74,6 +74,43 @@ def _wrap(interceptor, next_fun, context):
     return lambda *a, **kw: interceptor(next_fun, a, kw, context)
 
 
+@contextlib.contextmanager
+def _interceptors(state: Tuple):
+    token = _ACTIVE.set(state)
+    try:
+        yield
+    finally:
+        _ACTIVE.reset(token)
+
+
+def remat(module: nn.Module, *args):
+    """``module(*args)`` with its activations recomputed in the backward
+    instead of kept (``flax.linen.remat``), through
+    ``torch.utils.checkpoint``.  The recompute runs during the backward,
+    after :func:`intercept_methods` and ``functional_call`` have exited, so
+    it is given back the interceptors (and with them the SR keys) and the
+    parameter tensors that are active now; without them it would
+    recompute another function (the module's own, unquantized weights,
+    no casts) and train on its activations without a word."""
+    from torch.func import functional_call
+    from torch.utils.checkpoint import checkpoint
+
+    def bound(name):
+        obj = module
+        for part in name.split("."):
+            obj = getattr(obj, part)
+        return obj
+
+    names = [n for n, _ in module.named_parameters()] \
+        + [n for n, _ in module.named_buffers()]
+    tensors = {n: bound(n) for n in names}
+    state = _ACTIVE.get()
+    return checkpoint(
+        lambda *a: functional_call(module, tensors, a), *args,
+        use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(), _interceptors(state)))
+
+
 # -- layers --------------------------------------------------------------------
 
 PaddingLike = Union[str, int, Sequence[int], Sequence[Tuple[int, int]]]

@@ -15,6 +15,7 @@ from .resnet import (
     tiny_resnet,
     tiny_resnext,
     variables_from_flax,
+    variables_to_flax,
     wide_resnet50_2,
 )
 
@@ -39,5 +40,5 @@ __all__ = [
     "MLP", "RESNET_EXEMPT", "RESNET_OUTPUT_FUSED", "BasicBlock",
     "Bottleneck", "ResNet", "ResNetConfig", "mlp", "resnet18", "resnet50",
     "resnext50_32x4d", "tiny_resnet", "tiny_resnext", "variables_from_flax",
-    "wide_resnet50_2",
+    "variables_to_flax", "wide_resnet50_2",
 ]

@@ -220,3 +220,34 @@ def variables_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
     for collection in ("params", "batch_stats"):
         walk(variables.get(collection, {}), ())
     return out
+
+
+def variables_to_flax(state_dict: Dict[str, torch.Tensor],
+                      module_table: Dict) -> Dict:
+    """Flax variables of the same model from a state_dict, the inverse of
+    :func:`variables_from_flax`: with the model's module table
+    (``quant.interceptor.build_module_table``), Dense and conv weights
+    become (in, out) and HWIO kernels, other weights ``scale``, and
+    BatchNorm's running statistics its ``batch_stats``.  The tensors keep
+    their dtype and device."""
+    from fp8tpu_torch.quant.interceptor import to_flax_layout
+    from fp8tpu_torch.quant.policy import LayerKind
+    out: Dict = {}
+    for name, t in state_dict.items():
+        path, _, leaf = name.rpartition(".")
+        parts = path.split(".") if path else []
+        kind = module_table.get("/".join(parts))
+        collection = "params"
+        if leaf == "num_batches_tracked":
+            continue
+        if leaf == "weight" and kind in (LayerKind.DENSE, LayerKind.CONV):
+            leaf, t = "kernel", to_flax_layout(t, kind).contiguous()
+        elif leaf in ("running_mean", "running_var"):
+            collection, leaf = "batch_stats", leaf[len("running_"):]
+        elif leaf == "weight":
+            leaf = "scale"
+        node = out.setdefault(collection, {})
+        for part in parts:
+            node = node.setdefault(part, {})
+        node[leaf] = t
+    return out

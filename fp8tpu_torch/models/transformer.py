@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fp8tpu_torch._device import full_fp32, resolve_device
-from fp8tpu_torch.linen import Dense, Embed, Module, init_params
+from fp8tpu_torch.linen import Dense, Embed, Module, init_params, remat
 from fp8tpu_torch.ops.wrappers import BatchMatmul
 from fp8tpu_torch.parallel.moe import top_k_routing
 
@@ -44,7 +44,7 @@ class DecoderConfig:
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
     tie_embeddings: bool = True
-    remat: bool = False        # a training-memory option; no effect here
+    remat: bool = False        # recompute each layer in the backward
     n_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
@@ -226,7 +226,11 @@ class Decoder(Module):
                           device=tokens.device).tril()[None, None]
         h = self.embed(tokens)
         for i in range(cfg.n_layers):
-            h = getattr(self, f"layer_{i}")(h, positions, mask)
+            layer = getattr(self, f"layer_{i}")
+            if cfg.remat and torch.is_grad_enabled():
+                h = remat(layer, h, positions, mask)
+            else:
+                h = layer(h, positions, mask)
         h = self.final_norm(h)
         if cfg.tie_embeddings:
             logits = self.embed.attend(h.to(cfg.tdtype()))

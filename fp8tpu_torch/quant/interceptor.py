@@ -62,13 +62,15 @@ def module_key(path: str) -> int:
     return zlib.crc32(path.encode()) & 0x7FFFFFFF
 
 
-def _in_jax_layout(fn, a: torch.Tensor, cfg: Optional[TensorQuantConfig]):
+def _in_jax_layout(fn, a: torch.Tensor, cfg: Optional[TensorQuantConfig],
+                   nchw: bool = True):
     """``fn(a)`` for a cast whose result depends on the layout, computed in
     the JAX package's layout: an NCHW activation is cast as NHWC, so SR
     bits (keyed by the row-major index) and per-channel, fine-grained or
-    per-block scales land on the same elements.  Per-tensor RNE casts run
-    as they are."""
-    if (a.ndim != 4 or cfg is None or cfg.is_int
+    per-block scales land on the same elements.  Per-tensor RNE casts, and
+    4-D tensors that are not NCHW (``nchw=False``: a BatchMatmul's
+    operands, already in the JAX layout), run as they are."""
+    if (not nchw or a.ndim != 4 or cfg is None or cfg.is_int
             or (not cfg.is_stochastic
                 and cfg.scaling in ("none", "per-tensor"))):
         return fn(a)
@@ -79,20 +81,20 @@ class _GradCast(torch.autograd.Function):
     """Identity forward; quantizes the cotangent on the way back."""
 
     @staticmethod
-    def forward(ctx, x, cfg, key):
-        ctx.cfg, ctx.key = cfg, key
+    def forward(ctx, x, cfg, key, nchw):
+        ctx.cfg, ctx.key, ctx.nchw = cfg, key, nchw
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
         q = _in_jax_layout(lambda t: quantize_grad(t, ctx.cfg, ctx.key),
-                           g, ctx.cfg)
-        return q.to(g.dtype), None, None
+                           g, ctx.cfg, ctx.nchw)
+        return q.to(g.dtype), None, None, None
 
 
 def grad_cast(x: torch.Tensor, cfg: Optional[TensorQuantConfig],
-              key: Optional[PRNGKey]) -> torch.Tensor:
-    return _GradCast.apply(x, cfg, key)
+              key: Optional[PRNGKey], nchw: bool = True) -> torch.Tensor:
+    return _GradCast.apply(x, cfg, key, nchw)
 
 
 def _is_float(x) -> bool:
@@ -140,9 +142,14 @@ def make_quant_interceptor(
             return None if key is None else fold_in(key,
                                                     module_key(path) ^ tag)
 
+        # A BatchMatmul's 4-D operands ((B, H, S, D) in the decoder's
+        # attention) are in the JAX layout already; other 4-D activations
+        # are NCHW.
+        nchw = kind != LayerKind.BATCH_MATMUL
+
         def cast(a, tcfg, tag):
             return _in_jax_layout(
-                lambda t: fake_quant(t, tcfg, mod_key(tag)), a, tcfg)
+                lambda t: fake_quant(t, tcfg, mod_key(tag)), a, tcfg, nchw)
 
         if stats_sink is not None:
             rec = stats_sink.setdefault(path, {"kind": kind.value})
@@ -194,7 +201,7 @@ def make_quant_interceptor(
                 args = _map_float_args(lambda a: cast(a, cfg.iact, 1), args)
         if cfg is not None and cfg.igrad is not None:
             args = _map_float_args(
-                lambda a: grad_cast(a, cfg.igrad, mod_key(2)), args)
+                lambda a: grad_cast(a, cfg.igrad, mod_key(2), nchw), args)
 
         if patched_conv:
             from .hw_patch import engine_conv
@@ -221,7 +228,7 @@ def make_quant_interceptor(
 
         if cfg is not None and _is_float(out):
             if cfg.ograd is not None:
-                out = grad_cast(out, cfg.ograd, mod_key(3))
+                out = grad_cast(out, cfg.ograd, mod_key(3), nchw)
             if cfg.oact is not None:
                 out = cast(out, cfg.oact, 4)
         return out

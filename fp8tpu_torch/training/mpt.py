@@ -18,7 +18,9 @@ so SR streams (keyed by ``path/leaf`` and the row-major index) and
 scales are the JAX package's.  The optimizer updates the tensors in
 place.  ``optax.sgd(lr, momentum)`` is ``torch.optim.SGD(lr, momentum,
 dampening=0)``; ``optax.adamw`` is ``torch.optim.AdamW`` with the same
-hyperparameters.
+hyperparameters; the JAX package's ``adamw_8bit`` is
+:func:`fp8tpu_torch.training.adamw_8bit` (given the emulator's module
+table, so that its moments keep the JAX package's layout).
 """
 
 from __future__ import annotations

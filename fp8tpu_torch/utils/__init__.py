@@ -1,9 +1,13 @@
-"""Checkpointing and the serving artifact on disk (``checkpoint``).
+"""Observability and state on disk: stats telemetry (``stats``),
+``bindump``, checkpointing and the serving artifact (``checkpoint``),
+``metrics`` and ``profiling``."""
 
-The JAX package's ``fp8tpu.utils`` also holds stats telemetry
-(``stats``), ``bindump``, ``metrics`` and ``profiling``: not ported yet
-(ROADMAP §1 item 8)."""
-
+from .bindump import (  # noqa: F401
+    BindumpSchedule,
+    TensorDumpHelper,
+    bindump_tensor,
+    bindump_tree,
+)
 from .checkpoint import (  # noqa: F401
     load_serve_artifact,
     policy_from_json,
@@ -11,4 +15,17 @@ from .checkpoint import (  # noqa: F401
     restore_checkpoint,
     save_checkpoint,
     save_serve_artifact,
+)
+from .metrics import (  # noqa: F401
+    MetricLogger,
+    SmoothedValue,
+    accuracy,
+    all_reduce_mean,
+)
+from .profiling import Timer, annotate, benchmark, trace  # noqa: F401
+from .stats import (  # noqa: F401
+    log2_histogram,
+    stats_window_enabled,
+    tensor_stats,
+    tree_stats,
 )

@@ -99,13 +99,41 @@ def policy_from_json(s: str) -> QuantPolicy:
 
 # -- trees of tensors --------------------------------------------------------
 
+def _fields(tree):
+    """[(".name", value)] of a NamedTuple or dataclass node, as JAX names
+    the attributes of a registered node; None for another node."""
+    if hasattr(tree, "_fields"):
+        return [(f".{f}", getattr(tree, f)) for f in tree._fields]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [(f".{f.name}", _jax_scalar(getattr(tree, f.name)))
+                for f in dataclasses.fields(tree)]
+    return None
+
+
+def _jax_scalar(v):
+    """A Python scalar of a dataclass carry (``LossScaleState``) as the JAX
+    package holds it: an f32 or int32 array."""
+    if isinstance(v, bool) or not isinstance(v, (int, float)):
+        return v
+    return np.float32(v) if isinstance(v, float) else np.int32(v)
+
+
 def _flatten(tree, prefix=()):
-    """[(path, leaf)] of nested dicts / lists / tuples, dict keys in sorted
-    order as JAX flattens them."""
+    """[(path, leaf)] of nested dicts / lists / tuples / NamedTuples /
+    dataclasses, dict keys in sorted order as JAX flattens them; an
+    optimizer with a ``chain_state`` (the 8-bit AdamW) as that state."""
+    if hasattr(tree, "chain_state"):
+        return _flatten(tree.chain_state(), prefix)
     if isinstance(tree, dict):
         out = []
         for k in sorted(tree, key=str):
             out += _flatten(tree[k], prefix + (str(k),))
+        return out
+    fields = _fields(tree)
+    if fields is not None:
+        out = []
+        for name, v in fields:
+            out += _flatten(v, prefix + (name,))
         return out
     if isinstance(tree, (list, tuple)):
         out = []
@@ -134,6 +162,10 @@ def _dtype_name(v) -> str:
 
 
 def _tensor(raw: np.ndarray, shape, dtype: torch.dtype, device):
+    if raw.dtype.kind == "V":
+        # the JAX package's npz fallback writes ml_dtypes leaves (fp8)
+        # as opaque one-byte records
+        raw = raw.view(np.uint8)
     t = torch.from_numpy(np.ascontiguousarray(raw))
     if dtype in _RAW and t.dtype == torch.uint8:
         t = t.view(dtype)                 # bytes-stored extension dtype
@@ -148,7 +180,12 @@ def save_checkpoint(directory: str, step: int, params,
     """Save a training / serving checkpoint: ``meta.json`` (step, policy,
     extra) and ``state_<step>.npz`` with ``params`` (a state_dict, or any
     nest of dicts / lists of tensors) and ``opt_state`` under those two
-    names, in the JAX package's npz format."""
+    names, in the JAX package's npz format.  ``opt_state`` may be
+    :func:`~fp8tpu_torch.training.init_train_state`'s ``(optimizer,
+    LossScaleState)`` with the 8-bit AdamW: it is written under the keys
+    the JAX package writes for the chain state of its ``adamw_8bit`` and
+    its ``LossScaleState`` (``opt_state/0/0/.m/<leaf>/.payload``, ...,
+    ``opt_state/1/.scale``)."""
     directory = os.path.abspath(directory)
     os.makedirs(directory, exist_ok=True)
     meta = {"step": step}
@@ -171,7 +208,9 @@ def restore_checkpoint(directory: str, step: int, template) -> Dict:
     """Restore ``{"state": state, "meta": meta}``.  ``template`` has the
     target structure (``{"params": state_dict, ...}``, as the JAX package
     takes a pytree); each leaf comes back as a tensor of the template
-    leaf's dtype on its device (a non-tensor leaf: on the CPU)."""
+    leaf's dtype on its device (a non-tensor leaf: on the CPU), a
+    dataclass (``LossScaleState``) with its fields read back, and an 8-bit
+    AdamW optimizer loaded in place and returned."""
     directory = os.path.abspath(directory)
     with open(os.path.join(directory, "meta.json")) as f:
         meta = json.load(f)
@@ -180,8 +219,20 @@ def restore_checkpoint(directory: str, step: int, template) -> Dict:
     data = np.load(os.path.join(directory, f"state_{step}.npz"))
 
     def restore(tree, prefix):
+        if hasattr(tree, "chain_state"):
+            tree.load_chain_state(restore(tree.chain_state(), prefix))
+            return tree
         if isinstance(tree, dict):
             return {k: restore(v, prefix + (str(k),)) for k, v in tree.items()}
+        fields = _fields(tree)
+        if fields is not None:
+            got = {n[1:]: restore(v, prefix + (n,)) for n, v in fields}
+            if hasattr(tree, "_fields"):
+                return type(tree)(**got)
+            return dataclasses.replace(tree, **{
+                n: type(getattr(tree, n))(v.item())
+                if isinstance(getattr(tree, n), (int, float)) else v
+                for n, v in got.items()})
         if isinstance(tree, (list, tuple)):
             return type(tree)(restore(v, prefix + (str(i),))
                               for i, v in enumerate(tree))

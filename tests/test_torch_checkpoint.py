@@ -206,3 +206,200 @@ def test_load_serve_artifact_defaults_to_cuda(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         load_serve_artifact(str(tmp_path))
     assert dataclasses.fields(ServeConfig)[0].name == "model"
+
+
+# -- the 8-bit optimizer's train state --------------------------------------------
+
+def _opt8_states(rng):
+    """The same 8-bit AdamW train state two steps in, in both packages: the
+    JAX package's ``(optax chain state, LossScaleState)`` from
+    ``init_train_state`` and the port's ``(optimizer, LossScaleState)``,
+    with equal moments (the port's update is the JAX package's un-jitted
+    one bit for bit).  A flat dict of leaves keeps the keys equal."""
+    import optax
+    from fp8tpu.training import adamw_8bit as j_adamw_8bit
+    from fp8tpu.training import mpt as jmpt
+    from fp8tpu_torch.training import LossScaleState, adamw_8bit, \
+        init_train_state
+    shapes = {"dense.weight": (40, 30), "bias": (7,)}
+    params = {k: rng.standard_normal(s).astype(np.float32)
+              for k, s in shapes.items()}
+    grads = [{k: rng.standard_normal(s).astype(np.float32)
+              for k, s in shapes.items()} for _ in range(2)]
+    jopt = j_adamw_8bit(1e-3)
+    with jax.disable_jit():
+        jp = jax.tree.map(jnp.asarray, params)
+        jstate = jmpt.init_train_state(jopt, jp)
+        inner = jstate[0]
+        for g in grads:
+            u, inner = jopt.update(jax.tree.map(jnp.asarray, g), inner, jp)
+            jp = optax.apply_updates(jp, u)
+    jstate = (inner, jmpt.LossScaleState(scale=jnp.float32(2048.0),
+                                          good_steps=jnp.int32(3)))
+    tp = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    opt = adamw_8bit(tp, 1e-3)
+    for g in grads:
+        for k, p in tp.items():
+            p.grad = torch.from_numpy(g[k])
+        opt.step()
+    tstate = init_train_state(opt)
+    tstate = (opt, LossScaleState(2048.0, 3))
+    return tp, jp, tstate, jstate
+
+
+def _assert_opt8_equal(jstate, tstate):
+    """Every leaf of the two states byte for byte: fp8 payloads compared as
+    bytes (the JAX package's restore gives them back as uint8)."""
+    from fp8tpu_torch.utils.checkpoint import _flatten, _stored
+    want = dict(jax.tree_util.tree_flatten_with_path(jstate)[0])
+    got = dict(_flatten(tstate))
+
+    def raw(v):
+        return np.ascontiguousarray(_stored(v)).reshape(-1).view(np.uint8)
+
+    names = {"/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                      for k in kp): v for kp, v in want.items()}
+    assert set(names) == set(got)
+    for name, v in names.items():
+        np.testing.assert_array_equal(raw(np.asarray(v)), raw(got[name]),
+                                      err_msg=name)
+
+
+def test_opt8_train_state_port_to_jax_and_back(rng, tmp_path, npz_jax):
+    """An 8-bit AdamW train state written by the port restores in the JAX
+    package under its own keys, byte for byte, and the JAX package's file
+    restores into the port's optimizer, byte for byte, with the count and
+    the loss-scale carry."""
+    from fp8tpu_torch.training import LossScaleState, adamw_8bit
+    tp, jp, tstate, jstate = _opt8_states(rng)
+    _assert_opt8_equal(jstate, tstate)
+    save_checkpoint(str(tmp_path / "port"), 2, tp, opt_state=tstate)
+    jkeys = set(np.load(tmp_path / "port" / "state_2.npz").files)
+    jckpt.save_checkpoint(str(tmp_path / "jax"), 2, jp, opt_state=jstate)
+    assert jkeys == set(np.load(tmp_path / "jax" / "state_2.npz").files)
+    assert "opt_state/0/0/.v/dense.weight/.payload" in jkeys
+    assert "opt_state/1/.good_steps" in jkeys
+    back = jckpt.restore_checkpoint(str(tmp_path / "port"), 2, {
+        "params": jp, "opt_state": jstate})["state"]["opt_state"]
+    _assert_opt8_equal(back, tstate)
+
+    fresh = {k: torch.zeros_like(v) for k, v in tp.items()}
+    opt = adamw_8bit(fresh, 1e-3)
+    out = restore_checkpoint(str(tmp_path / "jax"), 2, {
+        "params": fresh, "opt_state": (opt, LossScaleState(1.0))})["state"]
+    assert out["opt_state"][0] is opt and opt.count == 2
+    assert out["opt_state"][1] == LossScaleState(2048.0, 3)
+    _assert_opt8_equal(jstate, out["opt_state"])
+    for k in tp:
+        np.testing.assert_array_equal(out["params"][k].numpy(),
+                                      tp[k].numpy())
+
+
+def test_opt8_state_carried_from_jax_flax_tree():
+    """``Adam8W.load_chain_state`` (with a module table) carries a JAX
+    state over Flax variables (nested dicts of Flax paths, Dense kernels
+    (in, out)) into the port's optimizer over the model's tensors, byte
+    for byte; the Dense moments stay in the JAX package's (in, out)
+    order."""
+    from fp8tpu.models.mlp import MLP as JMLP
+    from fp8tpu.training import adamw_8bit as j_adamw_8bit
+    from fp8tpu_torch.models import mlp as t_mlp
+    from fp8tpu_torch.models import variables_from_flax
+    from fp8tpu_torch.quant.interceptor import build_module_table
+    from fp8tpu_torch.training import adamw_8bit
+    x = np.random.default_rng(1).standard_normal((8, 16)).astype(np.float32)
+    jm = JMLP(features=(32,), num_classes=4)
+    v = jm.init(jax.random.key(0), x)
+    jopt = j_adamw_8bit(1e-3)
+    g = jax.tree.map(lambda a: jnp.asarray(np.random.default_rng(2)
+                                           .standard_normal(a.shape)
+                                           .astype(np.float32)), v)
+    with jax.disable_jit():
+        _, inner = jopt.update(g, jopt.init(v), v)
+    tm = t_mlp(16, (32,), 4, device="cpu")
+    tm.load_state_dict(variables_from_flax(jax.tree.map(np.asarray, v)))
+    params = dict(tm.named_parameters())
+    opt = adamw_8bit(params, 1e-3, module_table=build_module_table(tm))
+    opt.load_chain_state(jax.tree.map(np.asarray, inner))
+    assert opt.count == 1
+    for name, p in params.items():
+        node = inner[0].m["params"]
+        path, _, leaf = name.rpartition(".")
+        for part in path.split(".") + [
+                "kernel" if leaf == "weight" else leaf]:
+            node = node[part]
+        np.testing.assert_array_equal(opt.state[p]["m"].payload.numpy(),
+                                      np.asarray(node.payload))
+
+
+def test_opt8_decoder_checkpoint_port_to_jax_and_back(tmp_path, npz_jax):
+    """examples/train_fp8.py's checkpoint of a decoder (Flax variables, the
+    ``adamw_8bit`` chain state keyed by Flax paths, the loss-scale carry):
+    the port writes it under the JAX package's keys from its model and
+    optimizer (``variables_to_flax``, the optimizer built with the module
+    table), the JAX package restores it byte for byte, and the JAX
+    package's file restores into a fresh port model and optimizer."""
+    from fp8tpu.models.transformer import Decoder as JDecoder
+    from fp8tpu.models.transformer import DecoderConfig as JConfig
+    from fp8tpu.training import adamw_8bit as j_adamw_8bit
+    from fp8tpu.training import mpt as jmpt
+    from fp8tpu_torch.models import (variables_from_flax,
+                                     variables_to_flax)
+    from fp8tpu_torch.models.transformer import Decoder as TDecoder
+    from fp8tpu_torch.models.transformer import DecoderConfig as TConfig
+    from fp8tpu_torch.quant.interceptor import build_module_table
+    from fp8tpu_torch.training import LossScaleState, adamw_8bit
+    cfg = dict(vocab_size=64, d_model=32, n_layers=1, n_heads=4,
+               n_kv_heads=2, d_ff=64, max_seq_len=16, dtype="float32")
+    toks = np.zeros((1, 8), np.int32)
+    v = JDecoder(JConfig(**cfg)).init(jax.random.key(0), toks)
+    jopt = j_adamw_8bit(1e-3)
+    rng = np.random.default_rng(3)
+    with jax.disable_jit():
+        inner = jopt.init(v)
+        for _ in range(2):
+            g = jax.tree.map(lambda a: jnp.asarray(rng.standard_normal(
+                a.shape).astype(np.float32)), v)
+            _, inner = jopt.update(g, inner, v)
+    jstate = (inner, jmpt.LossScaleState(scale=jnp.float32(2048.0),
+                                          good_steps=jnp.int32(3)))
+
+    def port_model():
+        tm = TDecoder(TConfig(**cfg))
+        table = build_module_table(tm)
+        params = dict(tm.named_parameters())
+        return tm, table, params, adamw_8bit(params, 1e-3,
+                                             module_table=table)
+
+    tm, table, params, opt = port_model()
+    tm.load_state_dict(variables_from_flax(jax.tree.map(np.asarray, v)))
+    opt.load_chain_state(jax.tree.map(np.asarray, inner))
+    tstate = (opt, LossScaleState(2048.0, 3))
+    _assert_opt8_equal(jstate, tstate)
+
+    save_checkpoint(str(tmp_path / "port"), 2,
+                    variables_to_flax(params, table), opt_state=tstate)
+    jckpt.save_checkpoint(str(tmp_path / "jax"), 2, v, opt_state=jstate)
+    keys = set(np.load(tmp_path / "port" / "state_2.npz").files)
+    assert keys == set(np.load(tmp_path / "jax" / "state_2.npz").files)
+    assert ("opt_state/0/0/.m/params/layer_0/attn/q_proj/kernel/.payload"
+            in keys)
+    assert "params/params/layer_0/attn/q_proj/kernel" in keys
+    back = jckpt.restore_checkpoint(str(tmp_path / "port"), 2, {
+        "params": v, "opt_state": jstate})["state"]
+    _assert_opt8_equal(back["opt_state"], tstate)
+    for (kp, a), b in zip(jax.tree_util.tree_flatten_with_path(v)[0],
+                          jax.tree_util.tree_leaves(back["params"])):
+        np.testing.assert_array_equal(np.asarray(b), np.asarray(a),
+                                      err_msg=str(kp))
+
+    tm2, table2, params2, opt2 = port_model()
+    out = restore_checkpoint(str(tmp_path / "jax"), 2, {
+        "params": variables_to_flax(params2, table2),
+        "opt_state": (opt2, LossScaleState(1.0))})["state"]
+    assert out["opt_state"][0] is opt2 and opt2.count == 2
+    assert out["opt_state"][1] == LossScaleState(2048.0, 3)
+    _assert_opt8_equal(jstate, out["opt_state"])
+    tm2.load_state_dict(variables_from_flax(out["params"]))
+    for k, t in tm2.state_dict().items():
+        torch.testing.assert_close(t, tm.state_dict()[k], rtol=0, atol=0)

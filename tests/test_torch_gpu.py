@@ -998,3 +998,101 @@ def test_direct_decode_step_on_the_card_launches_p1_and_p2(cuda):
     logits, _ = decode_step(params, ring, tok, tok, scfg)
     assert (qmatmul.quantize_launches, qmatmul.w8a8_launches) == (14, 14)
     assert bool(torch.isfinite(logits).all())
+
+
+def _adam8_case(rng, shape, lo=-18.0, hi=0.0):
+    """A leaf, its gradient and a moment state three steps in, made on the
+    CPU by the plain version (scales and payloads of every kind)."""
+    from fp8tpu_torch.kernels import adam8
+    p = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    nb = -(-p.numel() // adam8.BLOCK)
+    mq = torch.zeros((nb, adam8.BLOCK), dtype=torch.int8)
+    ms = torch.zeros(nb)
+    vq = torch.zeros((nb, adam8.BLOCK), dtype=torch.float8_e4m3fn)
+    vs = torch.zeros(nb)
+    for c in range(1, 4):
+        g = torch.from_numpy((rng.standard_normal(shape) * np.exp(
+            rng.uniform(lo, hi, shape))).astype(np.float32))
+        args = adam8.Adam8Args(0.9, 0.999, 1e-8,
+                               *adam8.bias_corrections(0.9, 0.999, c))
+        adam8.adam8_update_plain(torch.empty_like(g), g, mq, ms, vq, vs,
+                                 args, "store")
+    g = torch.from_numpy((rng.standard_normal(shape) * np.exp(
+        rng.uniform(lo, hi, shape))).astype(np.float32))
+    return p, g, [mq, ms, vq, vs]
+
+
+def _unaligned(t, dev):
+    """``t`` on ``dev`` 4 bytes past a 16-byte boundary (P3 walks it as one
+    strided row)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+    return buf[1:].view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("shape,mode,view,lo", [
+    ((300, 257), "apply_decay", False, -18.0),
+    ((1,), "apply", False, -18.0),
+    ((257,), "store", False, -18.0),
+    ((64, 768), "apply_decay", True, -18.0),    # a Dense weight, (in, out)
+    ((2048,), "apply", False, -60.0),           # subnormal g * g
+    ((1000,), "apply_decay", "unaligned", -18.0),
+], ids=["ragged-decay", "one", "store", "transposed-view", "subnormal",
+        "unaligned"])
+def test_adam8_kernel_matches_plain(cuda, shape, mode, view, lo):
+    """P3 against its plain version: the parameter (or update), the payload
+    bytes and the scales, bit for bit, on both of its walks (16-byte loads;
+    4-byte loads through strides, of a transposed view or of an unaligned
+    leaf as one row)."""
+    from fp8tpu_torch.kernels import adam8
+    rng = np.random.default_rng(11)
+    p, g, st = _adam8_case(rng, shape, lo=lo)
+    args = adam8.Adam8Args(0.9, 0.999, 1e-8,
+                           *adam8.bias_corrections(0.9, 0.999, 4),
+                           weight_decay=1e-4, neg_lr=-1e-3)
+    pc, gc = p.clone(), g.clone()
+    stc = [t.clone() for t in st]
+    pk, gk = p.to(cuda), g.to(cuda)
+    stk = [t.to(cuda) for t in st]
+    if view == "unaligned":
+        pk, gk = _unaligned(p, cuda), _unaligned(g, cuda)
+    elif view:
+        pc, gc, pk, gk = pc.t(), gc.t(), pk.t(), gk.t()
+    adam8.adam8_update_plain(pc, gc, *stc, args, mode)
+    before = adam8.launches
+    adam8.adam8_update(pk, gk, *stk, args, mode)
+    torch.cuda.synchronize()
+    assert adam8.launches == before + 1
+    np.testing.assert_array_equal(_bits(pk), _bits(pc))
+    for got, want in zip(stk, stc):
+        np.testing.assert_array_equal(
+            got.cpu().view(torch.uint8).numpy() if got.element_size() == 1
+            else _bits(got),
+            want.view(torch.uint8).numpy() if want.element_size() == 1
+            else _bits(want))
+
+
+def test_adamw_8bit_steps_on_the_card(cuda):
+    """adamw_8bit over CUDA tensors launches P3 once a leaf a step and
+    leaves the parameters the plain version's, bit for bit."""
+    from fp8tpu_torch.kernels import adam8
+    from fp8tpu_torch.training import adamw_8bit
+    rng = np.random.default_rng(3)
+    init = {"w": rng.standard_normal((96, 40)).astype(np.float32),
+            "b": rng.standard_normal(40).astype(np.float32)}
+    runs = {}
+    for dev in ("cpu", cuda):
+        params = {k: torch.from_numpy(v.copy()).to(dev)
+                  for k, v in init.items()}
+        opt = adamw_8bit(params, 1e-3, mask={"w": True, "b": False})
+        gr = np.random.default_rng(4)
+        before = adam8.launches
+        for _ in range(3):
+            for p in params.values():
+                p.grad = torch.from_numpy(gr.standard_normal(
+                    tuple(p.shape)).astype(np.float32)).to(dev)
+            opt.step()
+        runs[str(dev)] = (params, adam8.launches - before)
+    assert runs["cuda"][1] == 6 and runs["cpu"][1] == 0
+    for k in init:
+        np.testing.assert_array_equal(_bits(runs["cuda"][0][k]),
+                                      _bits(runs["cpu"][0][k]))

@@ -250,7 +250,16 @@ def test_port_imports_nothing_of_jax_or_fp8tpu():
             "fp8tpu_torch/tools/kexp_convert.py",
             "fp8tpu_torch/tools/bench_fp8_linear.py",
             "fp8tpu_torch/cmodel.py", "fp8tpu_torch/linen.py",
-            "fp8tpu_torch/models/resnet.py"} <= names
+            "fp8tpu_torch/models/resnet.py",
+            "fp8tpu_torch/kernels/adam8.py",
+            "fp8tpu_torch/training/opt8.py",
+            "fp8tpu_torch/numerics/blockquant.py",
+            "fp8tpu_torch/utils/__init__.py",
+            "fp8tpu_torch/utils/checkpoint.py",
+            "fp8tpu_torch/utils/metrics.py",
+            "fp8tpu_torch/utils/stats.py",
+            "fp8tpu_torch/utils/profiling.py",
+            "fp8tpu_torch/utils/bindump.py"} <= names
     for path in files:
         bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
         assert not bad, f"{path.relative_to(REPO)} imports {bad}"

@@ -44,15 +44,11 @@ RENAMED = {"pallas_qdq": "cuda_qdq"}
 # names differ in either direction.
 NOT_YET_PORTED = {
     "models": set(),
-    # §1 item 6, training/opt8.py
-    "training": {"adamw_8bit", "scale_by_adam_8bit", "state_bytes"},
+    "training": set(),
     "quant": set(),
-    # §1 item 8: utils/bindump.py, stats.py, metrics.py, profiling.py
-    "utils": {"BindumpSchedule", "TensorDumpHelper", "bindump_tensor",
-              "bindump_tree", "MetricLogger", "SmoothedValue", "accuracy",
-              "all_reduce_mean", "Timer", "annotate", "benchmark", "trace",
-              "log2_histogram", "stats_window_enabled", "tensor_stats",
-              "tree_stats"},
+    # utils/metrics.py's beam_search_spans and squad_em_f1 are not exported
+    # by fp8tpu.utils; they wait for the SQuAD models
+    "utils": set(),
     "data": set(),
     # §1 item 10, slice 4: parallel/ (the MoE layer is ported, meshless)
     "parallel": {

@@ -101,16 +101,27 @@ Phases, each printing its own lines; any failure exits non-zero:
           bound, warm and cold and a second launch bit-identical; then
           every mode at the four serving shapes and the streaming loop's
           row counts as in k3.
-   p3     the 8-bit AdamW leaf update (P3) against its plain version, bit
+   p3     the 8-bit AdamW update (P3) against its plain version, bit
           for bit (the parameter or update, payload bytes, scales), on
-          the card and on the CPU: 1, 255, 257 and (300, 257) elements, the
-          store mode, a zero block, gradients whose squares are f32
-          subnormals, wide gradients, a Dense weight through its (in, out)
-          view; every leaf of the large decoder and a (4096, 11008) leaf
-          on the card; then its time on that leaf and on one step's 110
-          leaves of the large decoder, beside the byte bound, the plain
-          version and torch.optim.AdamW(fused=True) (f32 moments: another
-          function, a yardstick only).
+          the card and on the CPU, each case's walk and blocks of each
+          route counted: 1, 255, 257 and (300, 257) elements, the store
+          mode, a zero block, gradients whose squares are f32 subnormals,
+          wide gradients, Dense weights through their (in, out) view (the
+          tile walk, and a view it does not take), an unaligned leaf;
+          blocks forced onto the slow route by their data (NaN or inf g,
+          |g| or |p| over the fast route's limits, a subnormal old scale,
+          a NaN code) beside fast ones; every leaf of the large decoder
+          and a (4096, 11008) leaf on the card, and the decoder's 110
+          leaves in one grouped launch; the fast route's divides (the
+          bias corrections of counts 1-10, 78 block scales) and its e4m3
+          convert over every f32 input, and its divide by every bias
+          correction of a b1 0.9 / b2 0.999 run over every significand;
+          then its time on that leaf and on
+          one step's 110 leaves (one grouped launch, a launch a leaf,
+          contiguous), beside the byte bound, the plain version and
+          torch.optim.AdamW(fused=True) (f32 moments: another function, a
+          yardstick only); with --p3-parent DIR the parent tree's P3 in
+          turns.
 5. main   ResNet-50 (full width, 1000 classes, random weights from a
           seed), batch 32 at 224x224: BN statistics from 2 train-mode
           passes, then quantize_model(e4m3, hw patching, BN folding,
@@ -136,11 +147,11 @@ Phases, each printing its own lines; any failure exits non-zero:
           package's large preset (12 layers, d_model 768, 12 / 4 heads,
           d_ff 2304, vocabulary 256; 82.8M parameters, random from a seed),
           batch 32 x 256 tokens of mixed_lm_corpus: 1 warm-up and 4 timed
-          steps with P3 (one a leaf) and K1 (the embedding's requant)
-          launches counted and no plain version called; ms/step, tokens/s,
-          peak memory, the optimizer's state bytes against AdamW's f32
-          moments; one step's P3 launches against the plain version on
-          their own operands; a profile of one step; a forced overflow
+          steps with P3 (one grouped launch a step over the 110 leaves)
+          and K1 (the embedding's requant) launches counted and no plain
+          version called; ms/step, tokens/s, peak memory, the optimizer's
+          state bytes against AdamW's f32 moments; one step's P3 launch
+          with every leaf against the plain version on its own operands; a profile of one step; a forced overflow
           (state and count untouched); the state through a checkpoint on
           disk and back; the same steps with remat (equal losses, peak
           memory); hybrid with hw patching at 2 layers and batch 8 (every
@@ -2247,7 +2258,7 @@ def phase_train(record, batch: int):
 
 # Hand-written kernels of a train step other than K2, by a piece of their
 # kernel's name: their time keeps its own part in a train profile.
-TRAIN_KERNEL_PARTS = (("adam8_kernel", "P3 8-bit AdamW update (hand-written)"),
+TRAIN_KERNEL_PARTS = (("adam8_", "P3 8-bit AdamW update (hand-written)"),
                       ("cast_vec", "K1 cast kernel (hand-written)"),
                       ("cast_scalar", "K1 cast kernel (hand-written)"),
                       ("cast_blocked", "K1 cast kernel (hand-written)"))
@@ -2434,27 +2445,34 @@ def p3_case(gen, shape, lo=-18.0, hi=0.0, warm=3, zero_block=False):
     return p, grad(), st
 
 
-def p3_against_plain(p, g, st, args, mode, view=False, cpu=False):
-    """Launch P3 on copies of (p, g, state) and the plain version on others
-    (on the card, and with ``cpu`` also on the CPU): the number of
-    differing bytes of p and of each state tensor, each plain run against
-    the kernel.  ``view``: True updates the transposed view (P3's strided
-    walk), "unaligned" copies p and g 4 bytes past a 16-byte boundary (the
-    strided walk over one row); else P3 takes 16-byte loads."""
+def p3_views(p, g, view):
+    """(p, g) as P3 is to take them: ``view`` True the transposed view (a
+    Dense weight in (in, out) order), "unaligned" copies 4 bytes past a
+    16-byte boundary (the strided walk over one row), else as they are."""
     import torch
-    from fp8tpu_torch.kernels import adam8
-    pk, gk, sk = p.clone(), g.clone(), [t.clone() for t in st]
-    runs = [("card", "cuda")] + ([("cpu", "cpu")] if cpu else [])
     if view == "unaligned":
         def shifted(t):
             buf = torch.empty(t.numel() + 1, device=t.device)
             return buf[1:].view(t.shape).copy_(t)
-        pk, gk = shifted(pk), shifted(gk)
-    elif view:
-        pk, gk = pk.t(), gk.t()
-    adam8.adam8_update(pk, gk, *sk, args, mode)
-    out = {}
-    for label, dev in runs:
+        return shifted(p), shifted(g)
+    if view:
+        return p.t(), g.t()
+    return p, g
+
+
+def p3_against_plain(p, g, st, args, mode, view=False, cpu=False):
+    """Launch P3 on copies of (p, g, state) and the plain version on others
+    (on the card, and with ``cpu`` also on the CPU): the number of
+    differing bytes of p and of each state tensor, each plain run against
+    the kernel, the walk, and the blocks of each route [fast, slow]."""
+    import torch
+    from fp8tpu_torch.kernels import adam8
+    pk, gk = p3_views(p.clone(), g.clone(), view)
+    sk = [t.clone() for t in st]
+    routes = torch.zeros(2, dtype=torch.int64, device="cuda")
+    adam8.adam8_update(pk, gk, *sk, args, mode, routes=routes)
+    out = {"walk": adam8.walk_of(pk, gk), "routes": routes.tolist()}
+    for label, dev in [("card", "cuda")] + ([("cpu", "cpu")] if cpu else []):
         pp, gp = p.to(dev).clone(), g.to(dev).clone()
         sp = [t.to(dev).clone() for t in st]
         if view is True:
@@ -2474,15 +2492,125 @@ def bytes_differ(a, b) -> int:
     return int((a != b).sum())
 
 
-def phase_p3(record):
-    """P3 (the 8-bit AdamW leaf update) against its plain version, bit for
-    bit: odd sizes, a zero block, subnormal-range gradients, the weight
-    decay with and without a mask, the store mode, a Dense weight updated
-    through its transposed view, every leaf of the large decoder and one
-    (4096, 11008) leaf; then its time on the gate leaf and on one step's
-    leaves of the large decoder, beside the byte bound, the plain version
-    and, as a yardstick of another function, torch.optim.AdamW(fused=True)
-    on the same leaves."""
+def p3_forced(gen, kind):
+    """A (4096,) leaf three steps in whose second block is made to take
+    P3's slow route by ``kind`` (every other block takes the fast one)."""
+    import torch
+    p, g, st = p3_case(gen, (4096,))
+    if kind == "NaN g":
+        g[300] = float("nan")
+    elif kind == "inf g":
+        g[300] = -float("inf")
+    elif kind == "|g| over 2^60":
+        g[300] = 2.0 ** 61
+    elif kind == "|p| over 2^100":
+        p[300] = -(2.0 ** 101)
+    elif kind == "subnormal old scale":
+        st[1][1] = 1e-40
+    elif kind == "NaN code in old v":
+        st[2].view(torch.uint8)[1, 44] = 0x7F
+    else:
+        raise ValueError(kind)
+    return p, g, st
+
+
+# The fast route's divides and convert over every f32 input: the bias
+# corrections of these counts (b1 0.9, b2 0.999) and block scales spread
+# over the route's range.
+P3_PROBE_COUNTS = range(1, 11)
+P3_PROBE_SCALES = tuple(m * 2.0 ** e for e in range(-86, 121, 8)
+                        for m in (1.0, 1.3787811, 1.9999999))
+
+
+def p3_run_divisors(b1=0.9, b2=0.999):
+    """Every distinct f32 bias correction (bc1 and bc2) that a run with
+    ``b1``, ``b2`` takes below 1, from count 1 up to the count where both
+    round to 1."""
+    from fp8tpu_torch.kernels import adam8
+    seen, count = set(), 1
+    while True:
+        bcs = adam8.bias_corrections(b1, b2, count)
+        seen.update(bc for bc in bcs if bc < 1.0)
+        if min(bcs) == 1.0:
+            return sorted(seen), count
+        count += 1
+
+
+def p3_probes():
+    """(rows, problems): each probe of ``adam8.probe`` with its inputs
+    taken and differing (0 differing required)."""
+    from fp8tpu_torch.kernels import adam8
+    rows, problems = [], []
+    jobs = [("quot_bc", bc, f"bc{i + 1} of count {c}")
+            for c in P3_PROBE_COUNTS
+            for i, bc in enumerate(adam8.bias_corrections(0.9, 0.999, c))]
+    jobs += [(kind, s, f"block scale {s!r}") for s in P3_PROBE_SCALES
+             for kind in ("int8_code", "e4m3_code")]
+    jobs.append(("e4m3_convert", 1.0, "every f32"))
+    jobs.append(("flush", 1.0, "every f32 but NaNs"))
+    divs, last = p3_run_divisors()
+    jobs.append(("quot_bc_significands", divs,
+                 f"every bc1 / bc2 of counts 1-{last} ({len(divs)} "
+                 f"distinct)"))
+    for kind, s, label in jobs:
+        taken, bad, first = adam8.probe(kind, s)
+        rows.append({"probe": kind, "divisor": s if isinstance(s, float)
+                     else len(s), "label": label, "taken": taken,
+                     "differ": bad, "first": first})
+        if bad:
+            d = s if isinstance(s, float) else s[first[0]]
+            problems.append(f"probe {kind} {label}: {bad} of {taken} differ"
+                            f" (first 0x{first[1]:08x} by {d!r})")
+    return rows, problems
+
+
+def p3_parent(tree):
+    """The parent tree's P3 (its ``csrc/adam8.cu``, one leaf a launch),
+    built with the port's flags into chip_smoke_out/: a function of (p, g,
+    state, args, mode) launching it as the parent's wrapper did."""
+    import ctypes
+    import torch
+    from fp8tpu_torch.kernels import _build
+    src = os.path.join(tree, "fp8tpu_torch", "kernels", "csrc", "adam8.cu")
+    out = os.path.abspath(os.path.join("chip_smoke_out",
+                                       "libadam8_parent.so"))
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", out, src],
+                   check=True, capture_output=True)
+    fn = ctypes.CDLL(out).adam8_update
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 4 \
+        + [ctypes.c_float] * 9 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    modes = {"apply": 0, "apply_decay": 1, "store": 2}
+
+    def launch(p, g, st, args, mode):
+        n = p.numel()
+        cols, s0, s1 = ((n, 0, 1) if p.is_contiguous()
+                        else (p.shape[1], p.stride(0), p.stride(1)))
+        err = fn(p.data_ptr(), g.data_ptr(), *(t.data_ptr() for t in st),
+                 n, cols, s0, s1, *args.f32(), modes[mode],
+                 torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "the parent's adam8_update")
+    return launch
+
+
+def phase_p3(record, parent=None):
+    """P3 (the 8-bit AdamW update) against its plain version, bit for bit:
+    odd sizes, a zero block, subnormal-range gradients, the weight decay
+    with and without a mask, the store mode, a Dense weight through its
+    transposed view (the tile walk) and through one the tile does not
+    take, an unaligned leaf; blocks forced onto the slow route by their
+    data (NaN or inf g, |g| or |p| over the fast route's limits, a
+    subnormal old scale, a NaN code) beside fast ones; every leaf of the
+    large decoder and one (4096, 11008) leaf; the large decoder's leaves in
+    one grouped launch.  Then the fast route's divides and convert over
+    every f32 input, and its divide by every bias correction of a run over
+    every significand (``p3_probes``), and P3's time on the gate leaf and on
+    one step's 110 leaves of the large decoder (one grouped launch, a
+    launch a leaf, the leaves read contiguously), beside the byte bound,
+    the plain version and, as a yardstick of another function,
+    torch.optim.AdamW(fused=True); with ``parent`` (a tree holding the
+    parent commit), the parent's P3 on the same leaves in turns."""
     import torch
     from fp8tpu_torch.kernels import adam8
     from fp8tpu_torch.tools import device_ms
@@ -2491,77 +2619,144 @@ def phase_p3(record):
     args = adam8.Adam8Args(0.9, 0.999, 1e-8,
                            *adam8.bias_corrections(0.9, 0.999, 4),
                            weight_decay=1e-4, neg_lr=-LM_LR)
-    cases = [("1 element", (1,), {}, "apply", False),
-             ("255", (255,), {}, "apply_decay", False),
-             ("257", (257,), {}, "apply", False),
-             ("(300, 257)", (300, 257), {}, "apply_decay", False),
-             ("(7, 11, 3) store", (7, 11, 3), {}, "store", False),
+    # (label, shape, p3_case keywords, mode, view, walk, slow blocks)
+    cases = [("1 element", (1,), {}, "apply", False, "vector", 0),
+             ("255", (255,), {}, "apply_decay", False, "vector", 0),
+             ("257", (257,), {}, "apply", False, "vector", 0),
+             ("(300, 257)", (300, 257), {}, "apply_decay", False, "vector",
+              0),
+             ("(7, 11, 3) store", (7, 11, 3), {}, "store", False, "vector",
+              0),
              ("a zero block", (1024,), {"zero_block": True}, "apply_decay",
-              False),
+              False, "vector", 0),
              ("subnormal g*g", (4096,), {"lo": -60.0, "hi": -40.0},
-              "apply_decay", False),
-             ("wide g", (4096,), {"lo": -40.0, "hi": 20.0}, "apply", False),
+              "apply_decay", False, "vector", 0),
+             ("wide g", (4096,), {"lo": -40.0, "hi": 20.0}, "apply", False,
+              "vector", None),
              ("Dense (768, 2304) via (in, out) view", (2304, 768), {},
-              "apply_decay", True),
+              "apply_decay", True, "tile", 0),
              ("(300, 257) unaligned", (300, 257), {}, "apply_decay",
-              "unaligned")]
+              "unaligned", "strided", 0),
+             ("Dense (300, 64) via view, rows not of 256", (300, 64), {},
+              "apply_decay", True, "strided", 0),
+             ("Dense (256, 96) via view, tile store", (256, 96), {},
+              "store", True, "tile", 0)]
     problems, rows = [], []
-    for label, shape, kw, mode, view in cases:
+    for label, shape, kw, mode, view, walk, slow in cases:
         p, g, st = p3_case(gen, shape, **kw)
         got = p3_against_plain(p, g, st, args, mode, view, cpu=True)
-        bad = {k: sum(v) for k, v in got.items()}
-        rows.append({"case": label, "differing_bits": got})
-        print(f"p3 {label} ({mode}): differing bytes against plain on "
-              f"the card / CPU: {bad['card']} / {bad['cpu']}")
-        if any(bad.values()):
+        rows.append({"case": label, **got})
+        bad = {k: sum(got[k]) for k in ("card", "cpu")}
+        print(f"p3 {label} ({mode}, {got['walk']} walk, blocks fast / slow "
+              f"{got['routes']}): differing bytes against plain on the card "
+              f"/ CPU: {bad['card']} / {bad['cpu']}")
+        if any(bad.values()) or got["walk"] != walk or (
+                slow is not None and got["routes"][1] != slow):
             problems.append(f"{label}: {got}")
+    for kind in ("NaN g", "inf g", "|g| over 2^60", "|p| over 2^100",
+                 "subnormal old scale", "NaN code in old v"):
+        p, g, st = p3_forced(gen, kind)
+        got = p3_against_plain(p, g, st, args, "apply_decay", cpu=True)
+        rows.append({"case": f"forced slow: {kind}", **got})
+        # the CPU decides a NaN's sign (trap 10): the card's plain version
+        # writes the device's NaN
+        print(f"p3 forced slow block: {kind}: blocks fast / slow "
+              f"{got['routes']}, differing bytes against plain on the card /"
+              f" CPU: {sum(got['card'])} / {sum(got['cpu'])}")
+        if sum(got["cpu"]) or got["routes"] != [15, 1]:
+            problems.append(f"forced slow {kind}: {got}")
+
     # every leaf of the large decoder (Dense weights through their view),
     # masked decay (norm scales undecayed), and the gate leaf
     leaves = lm_shapes()
-    worst = 0
+    worst, walks = 0, {}
     for name, shape, dense in leaves + [("bench.py gate", BENCH_GATE,
                                          False)]:
         p, g, st = p3_case(gen, shape, warm=1)
         mode = "apply" if name.endswith(".scale") else "apply_decay"
         got = p3_against_plain(p, g, st, args, mode, view=dense)
+        walks[got["walk"]] = walks.get(got["walk"], 0) + 1
         worst = max(worst, sum(got["card"]))
         if sum(got["card"]):
             problems.append(f"leaf {name}: {got}")
     print(f"p3: all {len(leaves)} leaves of the large decoder and the "
           f"{BENCH_GATE} leaf against the plain version on the card: "
-          f"{worst} differing bytes at most (0 required)")
+          f"{worst} differing bytes at most (0 required); walks {walks}")
+
+    # the large decoder's leaves in one grouped launch, against plain
+    leaf_state = [(*p3_case(gen, shape, warm=1), dense,
+                   "apply" if name.endswith(".scale") else "apply_decay")
+                  for name, shape, dense in leaves]
+
+    def grouped(state):
+        return [adam8.Leaf(*p3_views(p, g, dense), *st, mode=mode)
+                for p, g, st, dense, mode in state]
+
+    copies = [(p.clone(), g.clone(), [t.clone() for t in st], dense, mode)
+              for p, g, st, dense, mode in leaf_state]
+    routes = torch.zeros(2, dtype=torch.int64, device="cuda")
+    adam8.reset_launches()
+    adam8.adam8_update_many(grouped(copies), args, routes=routes)
+    group_launches = (adam8.launches, adam8.leaves_covered)
+    group_bad = 0
+    for (p, g, st, dense, mode), (pk, _, sk, _, _) in zip(leaf_state,
+                                                          copies):
+        pp, gp = p3_views(p.clone(), g.clone(), dense)
+        sp = [t.clone() for t in st]
+        adam8.adam8_update_plain(pp, gp, *sp, args, mode)
+        group_bad += bytes_differ(pk, pp.t() if dense else pp) + sum(
+            bytes_differ(a, b) for a, b in zip(sk, sp))
+    print(f"p3: the large decoder's {len(leaves)} leaves in one grouped "
+          f"launch (launches, leaves covered {group_launches}; blocks fast /"
+          f" slow {routes.tolist()}): {group_bad} differing bytes against "
+          f"the plain version on the card (0 required)")
+    if group_bad or group_launches != (1, len(leaves)):
+        problems.append(f"grouped launch: {group_bad} bytes, "
+                        f"{group_launches}")
+    del copies
+
+    probe_rows, probe_problems = p3_probes()
+    problems += probe_problems
+    print(f"p3: {len(probe_rows) - 1} probes of the fast route over every "
+          f"f32 input (bc1 / bc2 of counts {P3_PROBE_COUNTS.start}-"
+          f"{P3_PROBE_COUNTS.stop - 1}, {len(P3_PROBE_SCALES)} block scales "
+          f"in [2^-86, 2^121), the convert, the flush) and one over every "
+          f"significand ({probe_rows[-1]['label']}): "
+          f"{sum(r['differ'] for r in probe_rows)} differing of "
+          f"{sum(r['taken'] for r in probe_rows)} inputs taken (0 required)")
 
     # times: the gate leaf, and one step's leaves of the large decoder
     timed = {}
-    p, g, st = p3_case(gen, BENCH_GATE, warm=1)
-    n = p.numel()
+    gp, gg, gst = p3_case(gen, BENCH_GATE, warm=1)
+    n = gp.numel()
     timed["gate"] = {
         "n": n, "ms": device_ms(lambda: adam8.adam8_update(
-            p, g, *st, args, "apply_decay"), iters=4, replays=3),
+            gp, gg, *gst, args, "apply_decay"), iters=4, replays=3),
         "plain_ms": cuda_ms(lambda: adam8.adam8_update_plain(
-            p, g, *st, args, "apply_decay"), iters=2, warmup=1),
+            gp, gg, *gst, args, "apply_decay"), iters=2, warmup=1),
         "bound_ms": p3_bytes(n) / HBM_BYTES_PER_S * 1e3}
-    fused = torch.optim.AdamW([p.clone().requires_grad_(True)], lr=LM_LR,
+    fused = torch.optim.AdamW([gp.clone().requires_grad_(True)], lr=LM_LR,
                               fused=True, capturable=True)
-    fused.param_groups[0]["params"][0].grad = g.clone()
+    fused.param_groups[0]["params"][0].grad = gg.clone()
     fused.step()
     timed["gate"]["fused_adamw_ms"] = device_ms(fused.step, iters=4,
                                                 replays=3)
-    del p, g, st, fused
-    leaf_state = [(*p3_case(gen, shape, warm=1), dense)
-                  for _, shape, dense in leaves]
+    del fused
+    table = adam8.leaf_table(grouped(leaf_state))
 
     def step_all():
-        for p, g, st, dense in leaf_state:
-            adam8.adam8_update(p.t() if dense else p, g.t() if dense else g,
-                               *st, args, "apply_decay")
+        adam8.adam8_update_many(grouped(leaf_state), args, table)
+
+    def per_leaf():
+        for lf in grouped(leaf_state):
+            adam8.adam8_update(*lf[:6], args, lf.mode)
 
     def plain_all():
-        for p, g, st, dense in leaf_state:
-            adam8.adam8_update_plain(p.t() if dense else p,
-                                     g.t() if dense else g, *st, args,
-                                     "apply_decay")
+        for lf in grouped(leaf_state):
+            adam8.adam8_update_plain(*lf[:6], args, lf.mode)
 
+    flat = [(p, g, st, False, mode) for p, g, st, _, mode in leaf_state]
+    flat_table = adam8.leaf_table(grouped(flat))
     ps = [x[0].clone().requires_grad_(True) for x in leaf_state]
     for q, x in zip(ps, leaf_state):
         q.grad = x[1].clone()
@@ -2571,29 +2766,54 @@ def phase_p3(record):
     timed["large_step"] = {
         "n": n, "leaves": len(leaf_state),
         "ms": device_ms(step_all, iters=2, replays=3),
+        "ms_launch_a_leaf": device_ms(per_leaf, iters=2, replays=3),
+        "ms_no_views": device_ms(lambda: adam8.adam8_update_many(
+            grouped(flat), args, flat_table), iters=2, replays=3),
         "plain_ms": cuda_ms(plain_all, iters=1, warmup=1),
         "bound_ms": sum(p3_bytes(x[0].numel()) for x in leaf_state)
         / HBM_BYTES_PER_S * 1e3,
         "fused_adamw_ms": device_ms(fused.step, iters=2, replays=3)}
-    # the transposed view's cost: the same leaves read contiguously
-    timed["large_step"]["ms_no_views"] = device_ms(lambda: [
-        adam8.adam8_update(p, g, *st, args, "apply_decay")
-        for p, g, st, _ in leaf_state], iters=2, replays=3)
-    del leaf_state, ps, fused
+    del ps, fused
     for k, t in timed.items():
         print(f"time p3 {k} ({t['n']} elements): kernel {t['ms']:.4f} ms, "
               f"plain {t['plain_ms']:.4f} ms, bytes bound {t['bound_ms']:.4f}"
               f" ms ({t['bound_ms'] / t['ms']:.3f} of it); yardstick "
               f"torch.optim.AdamW(fused=True), f32 moments, another function:"
               f" {t['fused_adamw_ms']:.4f} ms"
-              + (f"; leaves read contiguously {t['ms_no_views']:.4f} ms"
+              + (f"; a launch a leaf {t['ms_launch_a_leaf']:.4f} ms; leaves "
+                 f"read contiguously {t['ms_no_views']:.4f} ms"
                  if "ms_no_views" in t else ""))
-    record["p3"] = {"cases": rows, "leaves_worst": worst, "time": timed}
+    if parent:
+        # parent, change, change, parent: the gate leaf and the 110 leaves
+        # through their views (the parent a launch a leaf)
+        old = p3_parent(parent)
+        turns = []
+        for who in ("parent", "change", "change", "parent"):
+            if who == "parent":
+                gate = device_ms(lambda: old(gp, gg, gst, args,
+                                             "apply_decay"),
+                                 iters=4, replays=3)
+                step = device_ms(lambda: [
+                    old(*lf[:2], lf[2:6], args, lf.mode)
+                    for lf in grouped(leaf_state)], iters=2, replays=3)
+            else:
+                gate = device_ms(lambda: adam8.adam8_update(
+                    gp, gg, *gst, args, "apply_decay"), iters=4, replays=3)
+                step = device_ms(step_all, iters=2, replays=3)
+            turns.append({"who": who, "gate_ms": gate, "large_step_ms": step})
+            print(f"time p3 in turns: {who}: gate leaf {gate:.4f} ms, "
+                  f"110 leaves through views {step:.4f} ms")
+        timed["turns"] = turns
+    del leaf_state, flat, gp, gg, gst
+    record["p3"] = {"cases": rows, "leaves_worst": worst, "walks": walks,
+                    "grouped_bad": group_bad, "probes": probe_rows,
+                    "time": timed}
     if problems:
         raise PhaseError("; ".join(problems[:6]))
     t = timed["large_step"]
-    return [{"name": "adam8_update (P3, 8-bit AdamW leaf update; times: "
-                     "one step's 110 leaves of the large decoder)",
+    return [{"name": "adam8_update (P3, 8-bit AdamW update; times: one "
+                     "step's 110 leaves of the large decoder, one grouped "
+                     "launch)",
              "route": "cuda", "source": "fp8tpu_torch/kernels/csrc/adam8.cu",
              "replaces": "fp8tpu/training/opt8.py:104 (XLA ops, no TPU "
                          "kernel)",
@@ -2660,13 +2880,16 @@ def lm_run(step, params, state, batches, key, opt=None):
     from fp8tpu_torch.numerics import prng
     losses, times, per_step = [], [], []
     for i, b in enumerate(batches):
-        p0, k0 = adam8.launches, cast_kernel.launches
+        p0, l0 = adam8.launches, adam8.leaves_covered
+        k0 = cast_kernel.launches
         t = time.perf_counter()
         params, state, loss = step(params, state, b, prng.fold_in(key, i))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
         losses.append(float(loss))
         per_step.append({"launches": {"adam8": adam8.launches - p0,
+                                      "adam8_leaves": adam8.leaves_covered
+                                      - l0,
                                       "cast_kernel": cast_kernel.launches
                                       - k0},
                          "v_underflow": None if opt is None
@@ -2724,6 +2947,7 @@ def phase_train_lm(record):
         params, state, losses, times, per_step = lm_run(
             step, params, state, batches, key, opt)
     launches = {"adam8_update": adam8.launches,
+                "adam8_leaves": adam8.leaves_covered,
                 "cast_kernel": cast_kernel.launches}
     peak = torch.cuda.max_memory_allocated()
     after_run = {n: p.detach().clone() for n, p in params.items()}
@@ -2750,7 +2974,8 @@ def phase_train_lm(record):
           f"{[p['v_underflow'] for p in per_step]}, e4m3 NaN codes in v "
           f"{[p['v_nan'] for p in per_step]}; no plain version "
           f"called; MetricLogger: {log}")
-    want = {"adam8": leaves, "cast_kernel": 1}
+    # one grouped P3 launch a step covers every leaf
+    want = {"adam8": 1, "adam8_leaves": leaves, "cast_kernel": 1}
     if any(p["launches"] != want for p in per_step):
         problems.append(f"launches per step {per_step}, expected {want}")
     if not all(map(math.isfinite, losses)):
@@ -2791,46 +3016,54 @@ def phase_train_lm(record):
     breakdown = profile_train_step(
         lambda: step(params, state, batches[1], prng.fold_in(key, 60)),
         ms, tag="train_lm")
-    checked, on_card, leaf_stats = [], [], []
-    launch = opt8.adam8_update
+    checked, on_card, leaf_stats, grouped = [], [], [], []
+    launch = opt8.adam8_update_many
     nan_before = sum(nan_codes(st["v"].payload) for st in opt.state.values())
 
-    def checking(p, g, mq, ms_, vq, vs, args, mode="apply"):
-        ins = [p.contiguous().clone(), g.contiguous().clone()] + [
-            t.clone() for t in (mq, ms_, vq, vs)]
-        launch(p, g, mq, ms_, vq, vs, args, mode)
-        got = [p, mq, ms_, vq, vs]
-        leaf_stats.append({
-            "name": opt.names[len(leaf_stats)],
-            "g_absmax": float(g.abs().max()),
-            "g_nonfinite": int((~torch.isfinite(g)).sum()),
-            "v_scale_max": [float(ins[5].max()), float(vs.max())],
-            "v_nan": [nan_codes(ins[4]), nan_codes(vq)]})
+    def checking(leaves_, args, table=None, routes=None):
+        # every leaf of the step's grouped launch against the plain version
+        # on its own operands
+        ins = [[lf.p.contiguous().clone(), lf.g.contiguous().clone()]
+               + [t.clone() for t in lf[2:6]] for lf in leaves_]
+        before = (adam8.launches, adam8.leaves_covered)
+        out = launch(leaves_, args, table, routes)
+        grouped.append((adam8.launches - before[0],
+                        adam8.leaves_covered - before[1]))
+        for lf, leaf_in in zip(leaves_, ins):
+            got = [lf.p, *lf[2:6]]
+            leaf_stats.append({
+                "name": opt.names[len(leaf_stats)],
+                "g_absmax": float(lf.g.abs().max()),
+                "g_nonfinite": int((~torch.isfinite(lf.g)).sum()),
+                "v_scale_max": [float(leaf_in[5].max()), float(lf.vs.max())],
+                "v_nan": [nan_codes(leaf_in[4]), nan_codes(lf.vq)]})
 
-        def against(ref):
-            adam8.adam8_update_plain(*ref, args, mode)
-            return sum(bytes_differ(a, b)
-                       for a, b in zip(got, ref[:1] + ref[2:]))
+            def against(ref):
+                adam8.adam8_update_plain(*ref, args, lf.mode)
+                return sum(bytes_differ(a, b)
+                           for a, b in zip(got, ref[:1] + ref[2:]))
 
-        on_card.append(against([t.clone() for t in ins]))
-        # The plain version on the card makes its NaNs by the device's
-        # rules (inf / inf is 0x7FFFFFFF there); P3 follows the host's
-        # (trap 10), so the plain version on the CPU decides.
-        checked.append(against([t.cpu() for t in ins]) if on_card[-1]
-                       else 0)
+            on_card.append(against([t.clone() for t in leaf_in]))
+            # The plain version on the card makes its NaNs by the device's
+            # rules (inf / inf is 0x7FFFFFFF there); P3 follows the host's
+            # (trap 10), so the plain version on the CPU decides.
+            checked.append(against([t.cpu() for t in leaf_in]) if on_card[-1]
+                           else 0)
+        return out
 
-    opt8.adam8_update = checking
+    opt8.adam8_update_many = checking
     try:
         params, state, loss = step(params, state, batches[2],
                                    prng.fold_in(key, 50))
         torch.cuda.synchronize()
     finally:
-        opt8.adam8_update = launch
-    print(f"train_lm: one step's {len(checked)} P3 launches (loss "
-          f"{float(loss):.4f}) against the plain version on their own "
-          f"operands: {sum(on_card)} differing bytes on the card, of "
-          f"which {sum(checked)} against the plain version on the CPU, "
-          f"which decides (0 required)")
+        opt8.adam8_update_many = launch
+    print(f"train_lm: one step's P3 launches (launches, leaves covered) "
+          f"{grouped} (loss {float(loss):.4f}), each of its {len(checked)} "
+          f"leaves against the plain version on its own operands: "
+          f"{sum(on_card)} differing bytes on the card, of which "
+          f"{sum(checked)} against the plain version on the CPU, which "
+          f"decides (0 required)")
     # Where the step's NaN codes come from: the trainer's state before it
     # (this trainer took one step, the profiled one) and each leaf's
     # gradient and v scale.
@@ -2847,9 +3080,11 @@ def phase_train_lm(record):
           + (", ".join(f"{r['name']} {r['v_nan']} (|g| "
                        f"{r['g_absmax']:.6g}, v scale {r['v_scale_max']})"
                        for r in nan_leaves) or "none"))
-    if len(checked) != leaves or sum(checked):
-        problems.append(f"P3 on the main path: {len(checked)} launches, "
-                        f"{sum(checked)} differing bytes")
+    if (grouped != [(1, leaves)] or len(checked) != leaves
+            or sum(checked)):
+        problems.append(f"P3 on the main path: launches {grouped}, "
+                        f"{len(checked)} leaves checked, {sum(checked)} "
+                        f"differing bytes")
 
     # A forced overflow: parameters, moments and count untouched, the
     # scale halved.
@@ -2908,6 +3143,7 @@ def phase_train_lm(record):
         "state_bytes_opt8": opt8_bytes, "state_bytes_adamw": adamw_bytes,
         "per_step": per_step, "launches": launches, "losses": losses,
         "p3_checked": checked, "p3_leaves": leaf_stats,
+        "p3_checked_launches": grouped,
         "p3_checked_on_card": on_card,
         "profile": breakdown,
         "remat": {"losses": rlosses, "params_apart": far,
@@ -7989,6 +8225,9 @@ def main(argv=None) -> int:
                             "train_lm,serve,serve_paged,spec,moe,flush,time,"
                             "w8a8,deploy")
     ap.add_argument("--out", default="chip_smoke_out/chip_smoke.json")
+    ap.add_argument("--p3-parent", default=None,
+                    help="a tree holding the parent commit: the p3 phase "
+                         "times its P3 in turns with this one")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -8054,7 +8293,7 @@ def main(argv=None) -> int:
             elif phase == "train":
                 train_launches = phase_train(record, BATCH)
             elif phase == "p3":
-                p3_kernels = phase_p3(record)
+                p3_kernels = phase_p3(record, args.p3_parent)
             elif phase == "train_lm":
                 lm_launches = phase_train_lm(record)
             elif phase == "train_lm_control":

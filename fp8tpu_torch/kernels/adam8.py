@@ -1,4 +1,5 @@
-"""P3: one parameter leaf's whole 8-bit AdamW update (``csrc/adam8.cu``).
+"""P3: the whole 8-bit AdamW update of a parameter leaf, or of every leaf
+of a step in one launch (``csrc/adam8.cu``).
 
 P3 has no TPU counterpart.  In the JAX package the 8-bit optimizer
 (``fp8tpu/training/opt8.py``) is XLA ops that fuse into the jitted train
@@ -6,7 +7,7 @@ step: dequantize the int8 first and e4m3 second moments, the Adam update
 in f32, requantize per block of 256 (``numerics/blockquant.py``), then
 optax's ``add_decayed_weights``, ``scale_by_learning_rate`` and
 ``apply_updates``.  Run eagerly that is about 20 elementwise launches a
-leaf, each a pass over the state; P3 is one pass.
+leaf, each a pass over the state; P3 is one pass over all leaves.
 
 On a leaf of n elements, with its moments ``(nblocks, block)`` payloads
 and ``(nblocks,)`` f32 scales (flat in the leaf's order, zero-padded):
@@ -21,21 +22,30 @@ and ``(nblocks,)`` f32 scales (flat in the leaf's order, zero-padded):
 All in f32 with XLA's rounding: no fused multiply-adds, correctly rounded
 divides and square roots, f32 subnormals flushed on every input and
 result (DAZ/FTZ), the bias corrections ``bc1 = 1 - b1**count`` and
-``bc2`` computed on the host and passed in.  On a CPU tensor the wrapper
-runs the plain version below; on a CUDA tensor it launches the kernel or
-raises.
+``bc2`` computed on the host and passed in.  On CPU tensors the wrappers
+run the plain version below; on CUDA tensors they launch the kernel or
+raise.
 
 A leaf may be given as a 2-D strided view (a Dense weight stored (out,
 in) and updated in the JAX package's (in, out) order, so that its blocks
 hold the same elements as the JAX package's): the kernel reads and
-writes ``p`` and ``g`` through the view's strides.
+writes ``p`` and ``g`` through the view.  How it walks a leaf
+(:func:`walk_of`): "vector" (an aligned contiguous leaf), "tile" (a
+transposed view with a multiple of 32 rows of a multiple of 256 elements:
+staged through shared memory so that every load reads whole 128-byte
+pieces of the storage's rows) or "strided" (anything else).  Each block of 256 takes the kernel's fast route or its slow one by
+its data; both give the plain version's bits.
+
+:func:`adam8_update` is one leaf a launch (the functional
+``scale_by_adam_8bit``); :func:`adam8_update_many` every leaf of a
+:func:`leaf_table` in one launch (``Adam8W.step``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -45,15 +55,21 @@ from fp8tpu_torch.numerics.cast import _flush
 from . import _build
 
 BLOCK = 256                 # elements a block; one warp a block in P3
+UNIT = 32                   # blocks a CTA takes
+TILE_COLS = 32              # storage columns of a staged tile
 MODES = {"apply": 0, "apply_decay": 1, "store": 2}
+WALKS = {"vector": 0, "strided": 1, "tile": 2}
 
-# Launches of P3 since the last reset_launches().
+# Launches of P3 since the last reset_launches(), and the leaves they
+# covered.
 launches = 0
+leaves_covered = 0
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, leaves_covered
     launches = 0
+    leaves_covered = 0
 
 
 class Adam8Args(NamedTuple):
@@ -112,12 +128,30 @@ def _div(a, b):
     return _flush(_flush(a) / _flush(b))
 
 
+def _round_root(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root of f32 ``x``, given ``r``
+    within one f32 step of it.  The midpoints between ``r`` and its
+    neighbours have 25 significant bits, so their squares (at most 50
+    bits) are exact in f64 and can never equal ``x`` (24 bits): two
+    compares pick the neighbour whose half-step interval holds the root.
+    NaNs and infinities pass as they are."""
+    up = torch.nextafter(r, torch.full_like(r, float("inf")))
+    down = torch.nextafter(r, torch.zeros_like(r))
+    xd, rd = x.double(), r.double()
+    hi = (rd + up.double()) * 0.5
+    lo = (rd + down.double()) * 0.5
+    r = torch.where(hi * hi < xd, up, r)
+    return torch.where(lo * lo > xd, down, r)
+
+
 def _sqrt(x: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded f32 square root: through f64 (rounding the f64
-    root to f32 is exact rounding of the real root).  torch's own f32
-    ``sqrt`` is not correctly rounded, neither on the card nor in the
-    CPU's vectorised loop."""
-    return _flush(torch.sqrt(_flush(x).double()).float())
+    """Correctly rounded f32 square root, by construction: the f64 root
+    rounded to f32 (within one f32 step whatever the f64 root's own last
+    bit), then :func:`_round_root`.  torch's f32 ``sqrt`` is not correctly
+    rounded, neither on the card nor in the CPU's vectorised loop, and its
+    f64 ``sqrt`` on the CPU is not always either."""
+    x = _flush(x)
+    return _flush(_round_root(x, torch.sqrt(x.double()).float()))
 
 
 def adam_moments(gf: torch.Tensor, mq, ms, vq, vs, args: Adam8Args):
@@ -164,38 +198,87 @@ def adam8_update_plain(p: torch.Tensor, g: torch.Tensor, mq, ms, vq, vs,
 
 # -- the kernel -----------------------------------------------------------------
 
+class Leaf(NamedTuple):
+    """One leaf of an update: ``p`` and ``g`` (views allowed), its moments'
+    payloads and scales, and its mode (a key of :data:`MODES`)."""
+
+    p: torch.Tensor
+    g: torch.Tensor
+    mq: torch.Tensor
+    ms: torch.Tensor
+    vq: torch.Tensor
+    vs: torch.Tensor
+    mode: str = "apply"
+
+
 @functools.cache
-def _fn():
-    fn = _build.load("adam8").adam8_update
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 4 \
-        + [ctypes.c_float] * 9 + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _lib():
+    lib = _build.load("adam8")
+    lib.adam8_update.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                 ctypes.c_void_p, ctypes.c_longlong,
+                                 ctypes.c_int] + [ctypes.c_float] * 9 \
+        + [ctypes.c_void_p, ctypes.c_void_p]
+    lib.adam8_probe.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                                ctypes.c_void_p, ctypes.c_void_p]
+    for fn in (lib.adam8_update, lib.adam8_probe):
+        fn.restype = ctypes.c_int
+    return lib
 
 
-def _geometry(p: torch.Tensor):
-    """(cols, s0, s1) of the element order P3 walks: flat for a contiguous
-    tensor, the view's (rows, cols) order for a 2-D strided view."""
+def _on_cpu(leaves: Sequence[Leaf]) -> bool:
+    """True if every tensor of ``leaves`` lies on the CPU, False if every
+    one lies on one CUDA device; anything else raises, so that a CUDA
+    tensor never reaches the plain version."""
+    devices = {t.device for lf in leaves for t in lf[:6]}
+    if len(devices) == 1:
+        (device,) = devices
+        if device.type in ("cpu", "cuda"):
+            return device.type == "cpu"
+    raise ValueError(f"P3 needs every tensor of its leaves on the CPU or on "
+                     f"one CUDA device, got {sorted(map(str, devices))}")
+
+
+def _aligned(*ts: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+def _geometry(leaf: Leaf):
+    """(walk, cols, s0, s1) of the element order P3 walks (see the module
+    docstring): element i of the leaf at ``(i // cols) * s0 + (i % cols)
+    * s1``."""
+    p, g = leaf.p, leaf.g
+    n = max(p.numel(), 1)
     if p.is_contiguous():
-        return max(p.numel(), 1), 0, 1
+        if _aligned(p, g, leaf.mq, leaf.vq):
+            return WALKS["vector"], n, 0, 1
+        return WALKS["strided"], n, n, 1        # unaligned: one row
     if p.ndim != 2:
         raise ValueError(f"adam8_update takes a contiguous leaf or a 2-D "
                          f"view, got shape {tuple(p.shape)} strides "
                          f"{p.stride()}")
-    return p.shape[1], p.stride(0), p.stride(1)
+    (rows, cols), (s0, s1) = p.shape, p.stride()
+    if (s0 == 1 and cols % BLOCK == 0 and rows % TILE_COLS == 0
+            and s1 % 4 == 0 and _aligned(p, g, leaf.mq, leaf.vq)):
+        return WALKS["tile"], cols, s0, s1
+    return WALKS["strided"], cols, s0, s1
 
 
-def adam8_update(p: torch.Tensor, g: torch.Tensor, mq: torch.Tensor,
-                 ms: torch.Tensor, vq: torch.Tensor, vs: torch.Tensor,
-                 args: Adam8Args, mode: str = "apply") -> None:
-    """One leaf's 8-bit AdamW update in place (see the module docstring):
-    P3 on CUDA tensors (f32 ``p`` and ``g`` of one shape and strides,
-    ``mq`` int8 and ``vq`` e4m3 (nblocks, 256) contiguous, f32 scales),
-    the plain version on CPU tensors."""
-    global launches
-    if not p.is_cuda:
-        adam8_update_plain(p, g, mq, ms, vq, vs, args, mode)
-        return
+def walk_of(p: torch.Tensor, g: Optional[torch.Tensor] = None) -> str:
+    """The walk P3 takes over a leaf ``p`` (with gradient ``g`` of its
+    layout; aligned moments assumed)."""
+    g = p if g is None else g
+    code = _geometry(Leaf(p, g, p, p, p, p))[0]
+    return next(k for k, v in WALKS.items() if v == code)
+
+
+def _units(n: int, walk: int, cols: int) -> int:
+    if walk == WALKS["tile"]:
+        return (n // cols // TILE_COLS) * (cols // BLOCK)
+    return -(-(-(-n // BLOCK)) // UNIT)
+
+
+def _check(leaf: Leaf) -> None:
+    p, g, mq, ms, vq, vs, mode = leaf
     n = p.numel()
     nb = -(-n // BLOCK)
     if p.dtype != torch.float32 or g.dtype != torch.float32:
@@ -210,13 +293,163 @@ def adam8_update(p: torch.Tensor, g: torch.Tensor, mq: torch.Tensor,
             or not all(t.is_contiguous() for t in (mq, ms, vq, vs))):
         raise ValueError(f"adam8_update needs int8 / e4m3 ({nb}, {BLOCK}) "
                          "payloads and f32 scales, contiguous")
-    if not all(t.device == p.device for t in (g, mq, ms, vq, vs)):
-        raise ValueError("adam8_update needs every tensor on one device")
-    if n == 0:
-        return
-    cols, s0, s1 = _geometry(p)
-    err = _fn()(p.data_ptr(), g.data_ptr(), mq.data_ptr(), ms.data_ptr(),
-                vq.data_ptr(), vs.data_ptr(), n, cols, s0, s1, *args.f32(),
-                MODES[mode], torch.cuda.current_stream(p.device).cuda_stream)
+    if mode not in MODES:
+        raise ValueError(f"adam8_update: unknown mode {mode!r}")
+
+
+def _row(leaf: Leaf, first_unit: int):
+    """(the kernel's Leaf as 12 int64, the leaf's units, takes the tile?)
+    of a checked leaf of at least one element."""
+    _check(leaf)
+    n = leaf.p.numel()
+    walk, cols, s0, s1 = _geometry(leaf)
+    row = [t.data_ptr() for t in leaf[:6]] + [
+        n, cols, s0, s1, first_unit, walk | (MODES[leaf.mode] << 32)]
+    return row, _units(n, walk, cols), walk == WALKS["tile"]
+
+
+def _routes_ptr(routes: Optional[torch.Tensor]) -> Optional[int]:
+    """``routes``: None, or a (2,) int64 CUDA tensor to which the launch
+    adds its blocks of the fast and of the slow route."""
+    if routes is None:
+        return None
+    if (routes.dtype != torch.int64 or tuple(routes.shape) != (2,)
+            or not routes.is_cuda or not routes.is_contiguous()):
+        raise ValueError("routes must be a contiguous (2,) int64 CUDA tensor")
+    return routes.data_ptr()
+
+
+def _launch(device: torch.device, table: Optional[int], nleaves: int,
+            one, units: int, tiles: bool, args: Adam8Args,
+            routes: Optional[torch.Tensor]) -> None:
+    """One launch of P3 over a device ``table`` of ``nleaves`` leaves, or
+    (``table`` None, ``nleaves`` 1) over the leaf ``one`` (12 int64 on the
+    host)."""
+    global launches, leaves_covered
+    err = _lib().adam8_update(
+        table, nleaves, None if one is None else (ctypes.c_longlong * 12)(
+            *one), units, int(tiles), *args.f32(), _routes_ptr(routes),
+        torch.cuda.current_stream(device).cuda_stream)
     _build.check(err, "adam8_update kernel")
     launches += 1
+    leaves_covered += nleaves
+
+
+def adam8_update(p: torch.Tensor, g: torch.Tensor, mq: torch.Tensor,
+                 ms: torch.Tensor, vq: torch.Tensor, vs: torch.Tensor,
+                 args: Adam8Args, mode: str = "apply",
+                 routes: Optional[torch.Tensor] = None) -> None:
+    """One leaf's 8-bit AdamW update in place (see the module docstring):
+    P3 on CUDA tensors (f32 ``p`` and ``g`` of one shape and strides,
+    ``mq`` int8 and ``vq`` e4m3 (nblocks, 256) contiguous, f32 scales),
+    the plain version on CPU tensors."""
+    leaf = Leaf(p, g, mq, ms, vq, vs, mode)
+    if _on_cpu([leaf]):
+        adam8_update_plain(p, g, mq, ms, vq, vs, args, mode)
+        return
+    if p.numel() == 0:
+        _check(leaf)
+        return
+    row, units, tiles = _row(leaf, 0)
+    _launch(p.device, None, 1, row, units, tiles, args, routes)
+
+
+class LeafTable(NamedTuple):
+    """The kernel's table of a list of leaves (12 int64 a leaf: the six
+    pointers, n, cols, s0, s1, the leaf's first CTA unit, walk | mode <<
+    32), on the leaves' device; ``key`` is what it was built from, so that
+    :func:`leaf_table` rebuilds it only when a pointer or a shape
+    changes."""
+
+    key: tuple
+    table: Optional[torch.Tensor]    # (nleaves, 12) int64, the leaves' device
+    units: int
+    tiles: bool
+
+
+def _key(leaves: Sequence[Leaf]) -> tuple:
+    return tuple((lf.p.data_ptr(), lf.g.data_ptr(), lf.mq.data_ptr(),
+                  lf.ms.data_ptr(), lf.vq.data_ptr(), lf.vs.data_ptr(),
+                  tuple(lf.p.shape), lf.p.stride(), lf.mode)
+                 for lf in leaves if lf.p.numel())
+
+
+def leaf_table(leaves: Sequence[Leaf],
+               old: Optional[LeafTable] = None) -> LeafTable:
+    """The table of ``leaves`` (checked), or ``old`` if it was
+    built from the same pointers, shapes, strides and modes.  A new table
+    goes to the card by an asynchronous copy from pinned memory on the
+    current stream."""
+    key = _key(leaves)
+    if old is not None and old.key == key:
+        return old
+    on_cpu = _on_cpu(leaves) if leaves else True
+    rows, units, tiles = [], 0, False
+    for lf in leaves:
+        if lf.p.numel() == 0:
+            _check(lf)
+            continue
+        row, n_units, tile = _row(lf, units)
+        rows.append(row)
+        units += n_units
+        tiles = tiles or tile
+    table = None
+    if rows:
+        table = torch.tensor(rows, dtype=torch.int64)
+        if not on_cpu:
+            table = table.pin_memory().to(leaves[0].p.device,
+                                          non_blocking=True)
+    return LeafTable(key, table, units, tiles)
+
+
+def adam8_update_many(leaves: Sequence[Leaf], args: Adam8Args,
+                      table: Optional[LeafTable] = None,
+                      routes: Optional[torch.Tensor] = None) -> Optional[
+                          LeafTable]:
+    """Every leaf's update (each a :class:`Leaf`, its own mode) with one
+    set of scalars: one launch of P3 over all of them on CUDA tensors
+    (``table``, from :func:`leaf_table`, is rebuilt if it does not match
+    the leaves; the table used is returned), the plain version leaf by
+    leaf on CPU tensors (None is returned).  Every tensor of every leaf
+    must lie on the CPU, or all on one CUDA device."""
+    if not leaves:
+        return table
+    if _on_cpu(leaves):
+        for lf in leaves:
+            adam8_update_plain(*lf[:6], args, lf.mode)
+        return None
+    table = leaf_table(leaves, table)
+    if table.table is not None:
+        _launch(leaves[0].p.device, table.table.data_ptr(),
+                table.table.shape[0], None, table.units, table.tiles, args,
+                routes)
+    return table
+
+
+# -- probes of the fast route ---------------------------------------------------
+
+PROBES = {"quot_bc": 0, "int8_code": 1, "e4m3_code": 2, "e4m3_convert": 3,
+          "flush": 4, "quot_bc_significands": 5}
+
+
+def probe(kind: str, divisors=1.0):
+    """One probe of the kernel's fast route against its slow route's
+    functions (``csrc/adam8.cu::probe_kernel``), for each of ``divisors``
+    (a float or a sequence of floats) over every f32 bit pattern:
+    "quot_bc" the divide by a bias correction bit for bit, "int8_code" /
+    "e4m3_code" the codes of a quotient by a block scale, "e4m3_convert"
+    the convert, "flush" the one-instruction flush;
+    "quot_bc_significands" the divide by a bias correction over every f32
+    of magnitude in [1, 2), which stands for every dividend it takes.
+    Returns (inputs taken, inputs that differ, the first that differs as
+    (divisor index, bit pattern), or None)."""
+    divs = torch.tensor(divisors, dtype=torch.float32,
+                        device="cuda").reshape(-1)
+    out = torch.tensor([0, 0, 1 << 62], dtype=torch.int64, device="cuda")
+    err = _lib().adam8_probe(PROBES[kind], divs.data_ptr(), divs.numel(),
+                             out.data_ptr(),
+                             torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "adam8_probe kernel")
+    taken, bad, first = (int(x) for x in out.cpu())
+    return taken, bad, None if first == 1 << 62 else (first >> 32,
+                                                       first & 0xFFFFFFFF)

@@ -16,6 +16,14 @@ clip before the convert (an fp8 convert of an out-of-range value differs
 between torch and XLA), ``torch.round`` (half to even, as ``jnp.round``)
 for int8, and f32 subnormals flushed where XLA flushes them (DAZ on
 every input of a float op, FTZ on its result).
+
+A NaN's bits are made explicitly where torch's own depend on the tensor:
+an f32 block's amax is the largest magnitude's bits (a NaN above inf),
+``max(amax, 1e-30)`` keeps the amax's NaN (torch's vectorised
+``maximum`` returns 0xFFFFFFFF, its scalar loop the operand), and an fp8
+NaN code dequantizes to XLA's NaN, 0x7FC00000 with the code's sign
+(torch's convert gives 0x7FF00000).  The 8-bit AdamW kernel
+(``kernels/csrc/adam8.cu``) takes the same bits.
 """
 
 from __future__ import annotations
@@ -50,10 +58,22 @@ def _fp8(y: torch.Tensor, fmt: str) -> torch.Tensor:
 
 
 def block_scale(amax: torch.Tensor, fmt: str) -> torch.Tensor:
-    """``max(amax, 1e-30) / grid_max`` in f32, as XLA computes it."""
-    floor = torch.full_like(amax, 1e-30)
-    return _div(torch.maximum(_flush(amax), floor),
-                torch.full_like(amax, GRID_MAX[fmt]))
+    """``max(amax, 1e-30) / grid_max`` in f32, as XLA computes it (a NaN
+    amax kept as it is)."""
+    a = _flush(amax)
+    floor = torch.full_like(a, 1e-30)
+    return _div(torch.where(torch.isnan(a), a, torch.maximum(a, floor)),
+                torch.full_like(a, GRID_MAX[fmt]))
+
+
+def _absmax(x: torch.Tensor) -> torch.Tensor:
+    """Each block's largest |x|; of f32 blocks as the largest magnitude's
+    bits (exact, and the NaN with the largest payload where there is
+    one)."""
+    if x.dtype != torch.float32:
+        return x.abs().amax(dim=-1)
+    return (x.view(torch.int32) & 0x7FFFFFFF).amax(dim=-1).view(
+        torch.float32)
 
 
 def quant_blocks(x: torch.Tensor, fmt: str):
@@ -64,7 +84,7 @@ def quant_blocks(x: torch.Tensor, fmt: str):
     None]``.  ``fmt`` is one of "int8", "e4m3", "e5m2" and "bf16"; bf16 is
     the identity payload with unit scales.
     """
-    amax = x.abs().amax(dim=-1)
+    amax = _absmax(x)
     if fmt == "bf16":
         return x.to(torch.bfloat16), torch.ones_like(amax,
                                                      dtype=torch.float32)
@@ -78,5 +98,12 @@ def quant_blocks(x: torch.Tensor, fmt: str):
 
 
 def dequant_blocks(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """Inverse of :func:`quant_blocks` (f32)."""
-    return _flush(q.to(torch.float32) * _flush(scale)[..., None])
+    """Inverse of :func:`quant_blocks` (f32); an fp8 NaN code gives XLA's
+    NaN."""
+    x = q.to(torch.float32)
+    if q.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+        nan = torch.tensor([0x7FC00000, -0x00400000], dtype=torch.int32)
+        nan = nan.view(torch.float32).to(x.device)
+        x = torch.where(torch.isnan(x), torch.where(torch.signbit(x),
+                                                    nan[1], nan[0]), x)
+    return _flush(x * _flush(scale)[..., None])

@@ -22,7 +22,8 @@ zero-padded ``(nblocks, block)`` payload and ``(nblocks,)`` f32 scales):
   ``scale_by_learning_rate`` (not ``torch.optim.AdamW``'s order), so the
   parameters are the JAX package's bit for bit: ``u = adam(g)``, ``u = u +
   wd * p`` (masked), ``p = p + (-lr) * u``.  One launch of P3
-  (``kernels/adam8.py``) a leaf does all of it on the card.
+  (``kernels/adam8.py::adam8_update_many``) a step does all of it for
+  every leaf on the card.
 
 The bias corrections ``1 - b**count`` are computed on the host in f32, and
 the learning rate (a float, or a schedule of the count) is read on the
@@ -36,8 +37,8 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
-from fp8tpu_torch.kernels.adam8 import (Adam8Args, adam8_update,
-                                        bias_corrections)
+from fp8tpu_torch.kernels.adam8 import (Adam8Args, Leaf, adam8_update,
+                                        adam8_update_many, bias_corrections)
 from fp8tpu_torch.quant.interceptor import from_flax_layout, to_flax_layout
 from fp8tpu_torch.quant.policy import LayerKind
 
@@ -175,6 +176,7 @@ class Adam8W(torch.optim.Optimizer):
         for n, p in named:
             self.state[p]["m"] = _zeros(p, block, torch.int8)
             self.state[p]["v"] = _zeros(p, block, torch.float8_e4m3fn)
+        self._table = None      # P3's leaf table, kept while it matches
 
     @property
     def count(self) -> int:
@@ -203,14 +205,18 @@ class Adam8W(torch.optim.Optimizer):
         b1, b2 = group["b1"], group["b2"]
         args = Adam8Args(b1, b2, group["eps"], *bias_corrections(b1, b2, new),
                          weight_decay=group["weight_decay"], neg_lr=neg_lr)
+        leaves, copies = [], []
         for name, p in zip(self.names, group["params"]):
             g = p.grad if p.grad is not None else torch.zeros_like(p)
             pv, gv = self._layout(name, p), self._layout(name, g)
             st = self.state[p]
-            adam8_update(pv, gv, *st["m"], *st["v"], args,
-                         mode="apply_decay" if self.decay[name] else "apply")
+            leaves.append(Leaf(pv, gv, *st["m"], *st["v"], mode=(
+                "apply_decay" if self.decay[name] else "apply")))
             if pv.data_ptr() != p.data_ptr():
-                p.copy_(from_flax_layout(pv, self.kinds[name]))
+                copies.append((p, pv, self.kinds[name]))
+        self._table = adam8_update_many(leaves, args, self._table)
+        for p, pv, kind in copies:
+            p.copy_(from_flax_layout(pv, kind))
         group["count"] = new
         return loss
 

@@ -64,3 +64,42 @@ def test_zero_block_dequantizes_to_zeros_and_tables_agree():
     assert torch.equal(tbq.dequant_blocks(q, s), torch.zeros(3, 256))
     assert tbq.GRID_MAX == jbq.GRID_MAX
     assert set(tbq.WIRE_DTYPES) == set(jbq.WIRE_DTYPES)
+
+
+@pytest.mark.parametrize("fmt", ["int8", "e4m3", "e5m2"])
+@pytest.mark.parametrize("nblocks", [2, 16, 64])
+def test_nan_blocks_bit_equal_to_unjitted_jax(fmt, nblocks):
+    """Blocks holding NaNs (a quiet NaN, one with a payload, a negative
+    one): scales, codes and dequantized values as the JAX package's, with
+    as many blocks as torch's vectorised loops take (its ``maximum``
+    returns 0xFFFFFFFF there, the operand's NaN in its scalar loop)."""
+    x = np.random.default_rng(nblocks).standard_normal(
+        (nblocks, 256)).astype(np.float32)
+    bits = x.view(np.uint32)
+    x[1, 7] = np.nan
+    bits[1, 9] = 0x7FC01234
+    bits[nblocks - 1, 0] = 0xFFC00000
+    with jax.disable_jit():
+        jq, js = jbq.quant_blocks(jnp.asarray(x), fmt)
+        jd = jbq.dequant_blocks(jq, js)
+    tq, ts = tbq.quant_blocks(torch.from_numpy(x), fmt)
+    np.testing.assert_array_equal(_bytes(tq), _bytes(jq))
+    np.testing.assert_array_equal(_bytes(ts), _bytes(js))
+    np.testing.assert_array_equal(_bytes(tbq.dequant_blocks(tq, ts)),
+                                  _bytes(jd))
+
+
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+def test_nan_codes_dequantize_to_xla_nans(fmt):
+    """Every fp8 code, NaN codes of both signs included, dequantized bit for
+    bit as the JAX package does (0x7FC00000 with the code's sign, where
+    torch's own convert gives 0x7FF00000)."""
+    codes = np.arange(256, dtype=np.uint8).reshape(1, 256)
+    scale = np.array([0.75], np.float32)
+    jdt = {"e4m3": jnp.float8_e4m3fn, "e5m2": jnp.float8_e5m2}[fmt]
+    with jax.disable_jit():
+        jd = jbq.dequant_blocks(jnp.asarray(codes).view(jdt),
+                                jnp.asarray(scale))
+    td = tbq.dequant_blocks(torch.from_numpy(codes).view(
+        tbq.WIRE_DTYPES[fmt]), torch.from_numpy(scale))
+    np.testing.assert_array_equal(_bytes(td), _bytes(jd))

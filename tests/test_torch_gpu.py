@@ -1071,9 +1071,146 @@ def test_adam8_kernel_matches_plain(cuda, shape, mode, view, lo):
             else _bits(want))
 
 
+def _adam8_bytes(t):
+    t = t.detach().cpu().contiguous()
+    return t.view(torch.uint8).numpy() if t.element_size() == 1 \
+        else t.view(torch.int32).numpy()
+
+
+def _forced(kind, p, g, st):
+    """Make the second block of a (4096,) case take P3's slow route."""
+    if kind == "nan-g":
+        g[300] = float("nan")
+    elif kind == "inf-g":
+        g[300] = float("inf")
+    elif kind == "big-g":
+        g[300] = -(2.0 ** 61)
+    elif kind == "big-p":
+        p[300] = 2.0 ** 101
+    elif kind == "subnormal-scale":
+        st[3][1] = 3e-39
+    elif kind == "nan-code":
+        st[2].view(torch.uint8)[1, 7] = 0xFF
+
+
+@pytest.mark.parametrize("kind,slow", [
+    ("fast", 0), ("nan-g", 1), ("inf-g", 1), ("big-g", 1), ("big-p", 1),
+    ("subnormal-scale", 1), ("nan-code", 1)])
+def test_adam8_routes_forced_by_data(cuda, kind, slow):
+    """Each block of P3 takes its fast or its slow route by its data: a
+    NaN or inf gradient, |g| over 2^60, |p| over 2^100, a subnormal old
+    scale or a NaN / negative v code sends its block to the slow route;
+    either way the bits are the plain version's on the CPU."""
+    from fp8tpu_torch.kernels import adam8
+    rng = np.random.default_rng(21)
+    p, g, st = _adam8_case(rng, (4096,))
+    _forced(kind, p, g, st)
+    args = adam8.Adam8Args(0.9, 0.999, 1e-8,
+                           *adam8.bias_corrections(0.9, 0.999, 4),
+                           weight_decay=1e-4, neg_lr=-1e-3)
+    pk, gk, stk = p.to(cuda), g.to(cuda), [t.to(cuda) for t in st]
+    routes = torch.zeros(2, dtype=torch.int64, device=cuda)
+    adam8.adam8_update(pk, gk, *stk, args, "apply_decay", routes=routes)
+    adam8.adam8_update_plain(p, g, *st, args, "apply_decay")
+    assert routes.tolist() == [16 - slow, slow]
+    for got, want in zip([pk] + stk, [p] + st):
+        np.testing.assert_array_equal(_adam8_bytes(got), _adam8_bytes(want))
+
+
+def _adam8_leaves(rng, dev):
+    """A table of every kind of leaf (CPU copies and ``dev`` ones): walks
+    vector, tile (a Dense weight's view, store mode too), strided (a view
+    with rows not of 256, an unaligned leaf), masked and unmasked decay."""
+    from fp8tpu_torch.kernels import adam8
+    spec = [((1,), "apply", None), ((257,), "apply_decay", None),
+            ((7, 11, 3), "store", None), ((512, 64), "apply_decay", "t"),
+            ((256, 96), "store", "t"), ((300, 64), "apply", "t"),
+            ((1000,), "apply_decay", "unaligned")]
+    cpu, card = [], []
+    for shape, mode, view in spec:
+        p, g, st = _adam8_case(rng, shape)
+        pk, gk = p.to(dev), g.to(dev)
+        if view == "unaligned":
+            pk, gk = _unaligned(p, dev), _unaligned(g, dev)
+        elif view:
+            p, g, pk, gk = p.t(), g.t(), pk.t(), gk.t()
+        cpu.append(adam8.Leaf(p, g, *st, mode=mode))
+        card.append(adam8.Leaf(pk, gk, *[t.to(dev) for t in st], mode=mode))
+    return cpu, card
+
+
+def test_adam8_update_many_matches_plain(cuda):
+    """Every kind of leaf in one grouped launch: each leaf's parameter
+    (through its view), payloads and scales equal to the plain version's
+    leaf by leaf; the walks the table chose; one launch counted, covering
+    every leaf; a second call with the same table reuses it."""
+    from fp8tpu_torch.kernels import adam8
+    cpu, card = _adam8_leaves(np.random.default_rng(23), cuda)
+    assert [adam8.walk_of(lf.p, lf.g) for lf in card] == [
+        "vector", "vector", "vector", "tile", "tile", "strided", "strided"]
+    args = adam8.Adam8Args(0.9, 0.999, 1e-8,
+                           *adam8.bias_corrections(0.9, 0.999, 4),
+                           weight_decay=1e-4, neg_lr=-1e-3)
+    before = (adam8.launches, adam8.leaves_covered)
+    table = adam8.adam8_update_many(card, args)
+    torch.cuda.synchronize()
+    assert (adam8.launches - before[0],
+            adam8.leaves_covered - before[1]) == (1, len(card))
+    for lf in cpu:
+        adam8.adam8_update_plain(*lf[:6], args, lf.mode)
+    for got, want in zip(card, cpu):
+        for a, b in zip(got[:1] + got[2:6], want[:1] + want[2:6]):
+            np.testing.assert_array_equal(_adam8_bytes(a), _adam8_bytes(b))
+    assert adam8.leaf_table(card, table) is table
+
+
+@pytest.mark.parametrize("cpu_first", [True, False], ids=["cpu-first",
+                                                          "card-first"])
+def test_adam8_update_many_refuses_mixed_devices(cuda, cpu_first):
+    """A table with a CPU leaf and a card leaf raises before any update:
+    the card's tensors never reach the plain version, nor the CPU's the
+    kernel."""
+    from fp8tpu_torch.kernels import adam8
+    cpu, card = _adam8_leaves(np.random.default_rng(31), cuda)
+    args = adam8.Adam8Args(0.9, 0.999, 1e-8,
+                           *adam8.bias_corrections(0.9, 0.999, 4),
+                           weight_decay=1e-4, neg_lr=-1e-3)
+    before = [_adam8_bytes(t) for t in cpu[1][:6] + card[0][:6]]
+    launches = adam8.launches
+    with pytest.raises(ValueError, match="one CUDA device"):
+        adam8.adam8_update_many([cpu[1], card[0]] if cpu_first
+                                else [card[0], cpu[1]], args)
+    torch.cuda.synchronize()
+    assert adam8.launches == launches
+    for a, t in zip(before, cpu[1][:6] + card[0][:6]):
+        np.testing.assert_array_equal(a, _adam8_bytes(t))
+
+
+@pytest.mark.parametrize("shape,mode", [((768, 2304), "apply_decay"),
+                                        ((2304, 768), "apply"),
+                                        ((256, 768), "store")],
+                         ids=["down", "gate", "kv-store"])
+def test_adam8_tile_walk_matches_plain(cuda, shape, mode):
+    """The tile walk (a Dense weight (out, in) updated through its (in, out)
+    view, staged through shared memory) at the large decoder's shapes."""
+    from fp8tpu_torch.kernels import adam8
+    rng = np.random.default_rng(29)
+    p, g, st = _adam8_case(rng, shape)
+    pk, gk = p.to(cuda).t(), g.to(cuda).t()
+    stk = [t.to(cuda) for t in st]
+    assert adam8.walk_of(pk, gk) == "tile"
+    args = adam8.Adam8Args(0.9, 0.999, 1e-8,
+                           *adam8.bias_corrections(0.9, 0.999, 4),
+                           weight_decay=1e-4, neg_lr=-1e-3)
+    adam8.adam8_update(pk, gk, *stk, args, mode)
+    adam8.adam8_update_plain(p.t(), g.t(), *st, args, mode)
+    for got, want in zip([pk] + stk, [p.t()] + st):
+        np.testing.assert_array_equal(_adam8_bytes(got), _adam8_bytes(want))
+
+
 def test_adamw_8bit_steps_on_the_card(cuda):
-    """adamw_8bit over CUDA tensors launches P3 once a leaf a step and
-    leaves the parameters the plain version's, bit for bit."""
+    """adamw_8bit over CUDA tensors launches P3 once a step, covering every
+    leaf, and leaves the parameters the plain version's, bit for bit."""
     from fp8tpu_torch.kernels import adam8
     from fp8tpu_torch.training import adamw_8bit
     rng = np.random.default_rng(3)
@@ -1085,14 +1222,15 @@ def test_adamw_8bit_steps_on_the_card(cuda):
                   for k, v in init.items()}
         opt = adamw_8bit(params, 1e-3, mask={"w": True, "b": False})
         gr = np.random.default_rng(4)
-        before = adam8.launches
+        before = (adam8.launches, adam8.leaves_covered)
         for _ in range(3):
             for p in params.values():
                 p.grad = torch.from_numpy(gr.standard_normal(
                     tuple(p.shape)).astype(np.float32)).to(dev)
             opt.step()
-        runs[str(dev)] = (params, adam8.launches - before)
-    assert runs["cuda"][1] == 6 and runs["cpu"][1] == 0
+        runs[str(dev)] = (params, (adam8.launches - before[0],
+                                   adam8.leaves_covered - before[1]))
+    assert runs["cuda"][1] == (3, 6) and runs["cpu"][1] == (0, 0)
     for k in init:
         np.testing.assert_array_equal(_bits(runs["cuda"][0][k]),
                                       _bits(runs["cpu"][0][k]))

@@ -77,11 +77,79 @@ def _assert_step_equal(ju, js, tu, ts):
             np.testing.assert_array_equal(_u32(tm.scale), _u32(jm.scale))
 
 
+def _first_difference(k, step, g, old, ju, js, tu, ts):
+    """None where step ``step`` of leaf ``k`` is the JAX package's bit for
+    bit, else a report of its first differing element: where, its
+    gradient, its block's old codes and scales (the port's state before
+    the step), the count, and both results there."""
+    first = {}
+    d = np.flatnonzero(_u32(tu[k]).reshape(-1) != _u32(ju[k]).reshape(-1))
+    if d.size:
+        first["update"] = int(d[0])
+    for which in ("m", "v"):
+        jm, tm = getattr(js, which)[k], getattr(ts, which)[k]
+        d = np.flatnonzero(_u8(tm.payload).reshape(-1)
+                           != _u8(jm.payload).reshape(-1))
+        if d.size:
+            first[f"{which} code"] = int(d[0])
+        d = np.flatnonzero(_u32(tm.scale) != _u32(jm.scale))
+        if d.size:
+            first[f"{which} scale"] = int(d[0]) * 256
+    if not first:
+        return None
+    i = min(first.values())
+    b = i // 256
+    gf = g[k].reshape(-1)
+    gi = gf[i] if i < gf.size else np.float32(0)
+
+    def state(st, label):
+        return ", ".join(
+            f"{label} {w} code 0x{_u8(getattr(st, w)[k].payload).reshape(-1)[i]:02x}"
+            f" scale {float(np.asarray(getattr(st, w)[k].scale)[b])!r}"
+            f" (0x{_u32(getattr(st, w)[k].scale)[b]:08x})" for w in "mv")
+
+    def upd(u):
+        flat = np.asarray(u[k]).reshape(-1)
+        return (f"{float(flat[i])!r} (0x{_u32(flat)[i]:08x})"
+                if i < flat.size else "padding")
+
+    return (f"leaf {k}, step {step} (count {int(ts.count)}): first "
+            f"difference at element {i} (block {b}) in {sorted(first)}; "
+            f"g {float(gi)!r} (0x{np.float32(gi).view(np.uint32):08x}); "
+            f"{state(old, 'old')}; port: update {upd(tu)}, "
+            f"{state(ts, 'new')}; JAX: update {upd(ju)}, "
+            f"{state(js, 'new')}")
+
+
 def test_scale_by_adam_8bit_bit_equal_to_unjitted_jax():
     """5 updates of a (300, 257) leaf and an odd-shaped one: updates,
-    payload bytes and scales bit for bit at every step."""
-    for ju, js, tu, ts in _run_unjitted(5):
+    payload bytes and scales bit for bit at every step.  On a failure the
+    message holds the first differing element's inputs."""
+    old = to.scale_by_adam_8bit().init(
+        _t({k: np.zeros(s, np.float32) for k, s in SHAPES.items()}))
+    for step, (ju, js, tu, ts) in enumerate(_run_unjitted(5), 1):
+        for k in SHAPES:
+            report = _first_difference(k, step, _grads()[step - 1], old, ju,
+                                       js, tu, ts)
+            assert report is None, report
         _assert_step_equal(ju, js, tu, ts)
+        old = ts
+
+
+def test_first_difference_reports_the_inputs():
+    """The failure report of the bit-equality test: a code planted one
+    byte off is found, with its element, gradient, old state and count."""
+    ju, js, tu, ts = _run_unjitted(1)[0]
+    old = to.scale_by_adam_8bit().init(
+        _t({k: np.zeros(s, np.float32) for k, s in SHAPES.items()}))
+    assert _first_difference("a", 1, _grads()[0], old, ju, js, tu,
+                             ts) is None
+    ts.m["a"].payload.view(-1)[300] += 1
+    report = _first_difference("a", 1, _grads()[0], old, ju, js, tu, ts)
+    g = float(_grads()[0]["a"].reshape(-1)[300])
+    for part in ("element 300 (block 1)", "['m code']", "count 1",
+                 f"g {g!r}", "old m code 0x00 scale 0.0", "JAX: update"):
+        assert part in report, (part, report)
 
 
 def test_plain_f32_sqrt_breaks_parity(monkeypatch):

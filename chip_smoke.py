@@ -120,8 +120,8 @@ Phases, each printing its own lines; any failure exits non-zero:
           one step's 110 leaves (one grouped launch, a launch a leaf,
           contiguous), beside the byte bound, the plain version and
           torch.optim.AdamW(fused=True) (f32 moments: another function, a
-          yardstick only); with --p3-parent DIR the parent tree's P3 in
-          turns.
+          yardstick only).  A parent tree's P3 is timed in turns by
+          this phase run with --package-tree DIR.
 5. main   ResNet-50 (full width, 1000 classes, random weights from a
           seed), batch 32 at 224x224: BN statistics from 2 train-mode
           passes, then quantize_model(e4m3, hw patching, BN folding,
@@ -438,7 +438,38 @@ def phase_build(record):
         for ln in [ln.strip() for ln in lines if "C7517" in ln][:4]:
             print(f"  ptxas {ln}")
         record.setdefault("build", {})[name] = r
+        if name == "dequant_matmul":
+            # W8A8's int8 route: every instance's registers and spills
+            for fn, regs_, spills in ptxas_entries(r["log"]):
+                if "Int8" in fn or "S8<2>" in fn:
+                    print(f"  ptxas int8 route: {regs_} registers, {spills} "
+                          f"bytes of spill stores: {fn[:150]}")
     print(f"build: all kernels ready in {seconds:.1f} s")
+
+
+def ptxas_entries(log):
+    """[(kernel, registers, bytes of spill stores)] from ``nvcc -Xptxas
+    -v``'s log, names demangled where c++filt is found."""
+    import re
+    import shutil
+    out, fn, spill = [], None, 0
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn is not None:
+            out.append((fn, int(m.group(1)), spill))
+            fn = None
+    filt = shutil.which("c++filt")
+    if filt and out:
+        names = subprocess.run([filt], input="\n".join(f for f, _, _ in out),
+                               capture_output=True, text=True).stdout
+        out = [(n, r, s) for n, (_, r, s) in zip(names.splitlines(), out)]
+    return out
 
 
 # -- phase 2 ----------------------------------------------------------------
@@ -2564,37 +2595,7 @@ def p3_probes():
     return rows, problems
 
 
-def p3_parent(tree):
-    """The parent tree's P3 (its ``csrc/adam8.cu``, one leaf a launch),
-    built with the port's flags into chip_smoke_out/: a function of (p, g,
-    state, args, mode) launching it as the parent's wrapper did."""
-    import ctypes
-    import torch
-    from fp8tpu_torch.kernels import _build
-    src = os.path.join(tree, "fp8tpu_torch", "kernels", "csrc", "adam8.cu")
-    out = os.path.abspath(os.path.join("chip_smoke_out",
-                                       "libadam8_parent.so"))
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", out, src],
-                   check=True, capture_output=True)
-    fn = ctypes.CDLL(out).adam8_update
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 4 \
-        + [ctypes.c_float] * 9 + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    modes = {"apply": 0, "apply_decay": 1, "store": 2}
-
-    def launch(p, g, st, args, mode):
-        n = p.numel()
-        cols, s0, s1 = ((n, 0, 1) if p.is_contiguous()
-                        else (p.shape[1], p.stride(0), p.stride(1)))
-        err = fn(p.data_ptr(), g.data_ptr(), *(t.data_ptr() for t in st),
-                 n, cols, s0, s1, *args.f32(), modes[mode],
-                 torch.cuda.current_stream().cuda_stream)
-        _build.check(err, "the parent's adam8_update")
-    return launch
-
-
-def phase_p3(record, parent=None):
+def phase_p3(record):
     """P3 (the 8-bit AdamW update) against its plain version, bit for bit:
     odd sizes, a zero block, subnormal-range gradients, the weight decay
     with and without a mask, the store mode, a Dense weight through its
@@ -2783,27 +2784,6 @@ def phase_p3(record, parent=None):
               + (f"; a launch a leaf {t['ms_launch_a_leaf']:.4f} ms; leaves "
                  f"read contiguously {t['ms_no_views']:.4f} ms"
                  if "ms_no_views" in t else ""))
-    if parent:
-        # parent, change, change, parent: the gate leaf and the 110 leaves
-        # through their views (the parent a launch a leaf)
-        old = p3_parent(parent)
-        turns = []
-        for who in ("parent", "change", "change", "parent"):
-            if who == "parent":
-                gate = device_ms(lambda: old(gp, gg, gst, args,
-                                             "apply_decay"),
-                                 iters=4, replays=3)
-                step = device_ms(lambda: [
-                    old(*lf[:2], lf[2:6], args, lf.mode)
-                    for lf in grouped(leaf_state)], iters=2, replays=3)
-            else:
-                gate = device_ms(lambda: adam8.adam8_update(
-                    gp, gg, *gst, args, "apply_decay"), iters=4, replays=3)
-                step = device_ms(step_all, iters=2, replays=3)
-            turns.append({"who": who, "gate_ms": gate, "large_step_ms": step})
-            print(f"time p3 in turns: {who}: gate leaf {gate:.4f} ms, "
-                  f"110 leaves through views {step:.4f} ms")
-        timed["turns"] = turns
     del leaf_state, flat, gp, gg, gst
     record["p3"] = {"cases": rows, "leaves_worst": worst, "walks": walks,
                     "grouped_bad": group_bad, "probes": probe_rows,
@@ -5508,6 +5488,9 @@ W8A8_FP8_LAYER_TOL = 7.5e-2
 # N not a multiple of 128 (a block's last column tile partly outside N):
 # (M, K, N) on both forms
 W8A8_RAGGED = ((8, 4096, 272), (700, 4096, 272), (65, 2048, 48))
+# K3's int8 route on shapes TMA cannot read (K % 8 != 0): the general
+# kernel (w_gemm.cuh) on f16 codes, both of its row tiles
+W8A8_GENERAL = ((8, 1001, 272), (100, 1001, 48))
 W8A8_PROBE = (344, 64, 16, 8, 4, 2, 1)   # k32 steps a chunk (344: all of K)
 
 
@@ -5536,18 +5519,25 @@ def p2_edge_rows(k: int):
     return rows.to(torch.bfloat16)
 
 
-def p2_case(rows, label, x, fmt="e4m3"):
+def p2_case(rows, label, x, fmt="e4m3", codes_dtype=None):
     """P2 on the card against its plain version on the CPU (the host's NaN
-    rules decide): codes and scales bit for bit, and a second launch."""
+    rules decide): codes and scales bit for bit, and a second launch; with
+    ``codes_dtype`` (the codes' f16 values) also against the byte output's
+    values on the card (``qmatmul.codes_as``)."""
     import torch
     from fp8tpu_torch.kernels import qmatmul
-    q, s = qmatmul.quantize_rows(x, fmt)
-    q2, s2 = qmatmul.quantize_rows(x, fmt)
-    wq, ws = qmatmul.quantize_rows_plain(x.cpu(), fmt)
+    q, s = qmatmul.quantize_rows(x, fmt, codes_dtype)
+    q2, s2 = qmatmul.quantize_rows(x, fmt, codes_dtype)
+    wq, ws = qmatmul.quantize_rows_plain(x.cpu(), fmt, codes_dtype)
     codes = int((q.view(torch.uint8).cpu() != wq.view(torch.uint8)).sum())
     scales = int((s.cpu().view(torch.int32) != ws.view(torch.int32)).sum())
     again = int((q2.view(torch.uint8) != q.view(torch.uint8)).sum()) \
         + int((s2.view(torch.int32) != s.view(torch.int32)).sum())
+    if codes_dtype is not None:
+        qb, sb = qmatmul.quantize_rows(x, fmt)
+        wide = qmatmul.codes_as(qb, codes_dtype)
+        codes += int((q.view(torch.uint8) != wide.view(torch.uint8)).sum())
+        scales += int((s.view(torch.int32) != sb.view(torch.int32)).sum())
     ok = codes == 0 and scales == 0 and again == 0
     rows.append({"case": label, "codes_differing": codes,
                  "scales_differing": scales, "repeat_differing": again,
@@ -5555,8 +5545,52 @@ def p2_case(rows, label, x, fmt="e4m3"):
                  "max_err_over_bound": 0.0 if ok else math.inf, "ok": ok})
     if not ok:
         print(f"  FAIL {label}: {codes} codes, {scales} scales differ from "
-              f"plain, {again} from a second launch")
+              f"plain (or the byte output), {again} from a second launch")
     return q, s
+
+
+# quot_probe's dividends: exponents of a against divisors of magnitude
+# [0.57, 1.15): quotients around e4m3's subnormal steps (2^-10 is half the
+# least code), its normal codes, and past the clip (448)
+QUOT_A_EXPS = (-11, -10, -9, -5, 0, 3, 7, 8)
+
+
+def p2_divisors():
+    """Every scale significand a P2 row can take: s = RN(amax / 448) with
+    amax a bf16, here the 128 significands of amax in [256, 512).  Another
+    exponent of amax scales s by a power of two, and quot_fast's steps with
+    it while nothing underflows (the fast path's rows), so these stand for
+    every scale of the fast path."""
+    import torch
+    from fp8tpu_torch.kernels import qmatmul
+    amax = (256.0 + 2.0 * torch.arange(128, dtype=torch.float32))
+    return qmatmul.div_exact(amax, 448.0)
+
+
+def quot_fast_probe(rows):
+    """P2's fast divide against the correctly rounded divide and its codes
+    against cast.cuh's path, over every f32 significand of a at each of
+    QUOT_A_EXPS against every divisor of p2_divisors (1.07e9 pairs an
+    exponent).  Returns (pairs, differing quotients and codes, differing
+    (a, s) pairs found)."""
+    from fp8tpu_torch.kernels import qmatmul
+    divs = p2_divisors().tolist()
+    pairs = bad = 0
+    found = []
+    for e in QUOT_A_EXPS:
+        q, c, f = qmatmul.quot_probe(divs, e)
+        pairs += len(divs) << 23
+        bad += q + c
+        found += f
+        rows.append({"case": f"p2 quot_fast a exponent {e}",
+                     "quotients_differing": q, "codes_differing": c,
+                     "max_abs_err": 0.0 if q + c == 0 else math.inf,
+                     "max_err_over_bound": 0.0 if q + c == 0 else math.inf,
+                     "ok": q + c == 0})
+        if q + c:
+            print(f"  FAIL p2 quot_fast a exponent {e}: {q} quotients, "
+                  f"{c} codes differ")
+    return pairs, bad, found[:16]
 
 
 def w8a8_tolerance(xq, xs, w8, s, want):
@@ -5676,10 +5710,102 @@ def w8a8_pair_codes(rows, w_dtype, m_block, label):
         print(f"  FAIL {label}: {bad} of 65536 pairs differ")
 
 
+def k3_int8_case(rows, label, xh, xq, xs, w8, s, cols):
+    """One launch of K3's int8 route (P2's f16 codes ``xh`` of the e4m3
+    codes ``xq``, int8 weights) and a second, as w8a8_gemm_case holds
+    them: the plain version, the f64 product over its promotion edges (the
+    general kernel's own blocks where TMA cannot read the operands), a
+    second launch bit for bit."""
+    import torch
+    from fp8tpu_torch.kernels import qmatmul
+    m, k = xh.shape
+    n = w8.shape[1]
+    plan = qmatmul.weight_gemm_plan(m, n, k, qmatmul.sm_count(0), "w8", xh,
+                                    w8)
+    got = qmatmul.dequant_matmul(xh, w8, s, torch.bfloat16, xs)
+    again = qmatmul.dequant_matmul(xh, w8, s, torch.bfloat16, xs)
+    edges = None if plan.route == "general" else \
+        qmatmul.promotion_edges(k, plan.kper)
+    return w8a8_gemm_case(rows, f"{label} {plan.route} {plan.code} splits "
+                          f"{plan.splits}", got, again, xq, xs, w8, s, edges,
+                          cols, fp8_sum=False)
+
+
+def k3_int8_pair_codes(rows, m_block):
+    """Every (activation code, weight byte) pair through K3's int8 route:
+    x (256, 32) holds code i's f16 value in row i's first column (as P2
+    writes it: codes_as), w8 (32, 256) int8 byte j in column j's first row,
+    zeros elsewhere, unit scales; out[i, j] is the one exact product, NaN
+    where the code is NaN.  Value for value against the plain version, in
+    launches of ``m_block`` rows (64: the decode form, 256: prefill)."""
+    import torch
+    from fp8tpu_torch.kernels import qmatmul
+    codes = torch.arange(256, device="cuda", dtype=torch.uint8)
+    xq = torch.zeros(256, 32, device="cuda", dtype=torch.uint8)
+    xq[:, 0] = codes
+    xq = xq.view(torch.float8_e4m3fn)
+    xh = qmatmul.codes_as(xq, torch.float16)
+    w8 = torch.zeros(32, 256, device="cuda", dtype=torch.uint8)
+    w8[0] = codes
+    w8 = w8.view(torch.int8)
+    ones = torch.ones(256, device="cuda")
+    got = torch.cat([qmatmul.dequant_matmul(xh[i:i + m_block].contiguous(),
+                                            w8, ones, torch.float32,
+                                            ones[:m_block])
+                     for i in range(0, 256, m_block)])
+    want = qmatmul.dequant_matmul_plain(xh, w8, ones, torch.float32, ones)
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    bad = int((~same).sum())
+    rows.append({"case": f"k3 int8 route every (e4m3 code, int8 byte) pair, "
+                         f"launches of {m_block} rows", "differing": bad,
+                 "max_abs_err": 0.0 if not bad else math.inf,
+                 "max_err_over_bound": 0.0 if not bad else math.inf,
+                 "ok": bad == 0})
+    if bad:
+        print(f"  FAIL {rows[-1]['case']}: {bad} of 65536 pairs differ")
+
+
+def tc_kept_bits_16(kind):
+    """tc_kept_bits for K3's int8 route on the 16-bit tensor cores (wgmma
+    k16, kind "f16": f16 codes, "bf16": bf16 x on the int8 convert): one
+    product of 2^14 (256 x 64) and 15 of 2^(14 - gap) (gap 9 .. 25) in one
+    k16 step, the same 15 (16) added in a second step to a chunk of 2^14,
+    and 15 products of -1.5 2^(14 - gap) in one step; {gap: (kept share
+    alone, into the chunk, of the negative terms)}."""
+    import torch
+    from fp8tpu_torch.kernels import qmatmul
+    dtype = torch.float16 if kind == "f16" else torch.bfloat16
+    gaps = list(range(9, 26))
+    m, n = len(gaps), 16
+    out = {}
+    for acc, mult in ((False, 1.0), (True, 1.0), (False, -1.5)):
+        k = 32
+        x = torch.zeros(m, k)
+        w = torch.ones(k, n, dtype=torch.int8)
+        for r, gap in enumerate(gaps):
+            x[r, 0] = 256.0
+            x[r, 16 if acc else 1:k if acc else 16] = mult * 2.0 ** (14 - gap)
+        if not acc:
+            w[16:] = 0
+        w[0] = 64
+        xd = x.to(dtype).cuda()
+        got = qmatmul.dequant_matmul(
+            xd, w.cuda(), torch.ones(n, device="cuda"), torch.float32,
+            torch.ones(m, device="cuda")).double().cpu()
+        small = (xd.cpu().double()[:, 1:] @ w.double()[1:, :1])[:, 0]
+        kept = (got[:, 0] - 2.0 ** 14) / small
+        for r, gap in enumerate(gaps):
+            out.setdefault(gap, []).append(float(kept[r]))
+    return {g: tuple(v) for g, v in out.items()}
+
+
 def w8a8_kernel_checks(record):
-    """(a) P2 against plain; (b) P1 at the W8A8 shapes and row counts, e4m3
-    and e5m2 weights; (c) every code pair; (d) K3 with a row scale (int8
-    direct) at the same shapes."""
+    """(a) P2 against plain (bytes and f16 codes) and its fast divide
+    over every significand (quot_fast_probe); (b) P1 at the W8A8 shapes
+    and row counts, e4m3 and e5m2 weights; (c) every code pair, P1's sums
+    against cuBLASLt's; (d) K3's int8 route on P2's f16 codes (int8
+    direct) at the same shapes, ragged ones, the general kernel, every
+    (code, byte) pair, and the 16-bit tensor cores' kept bits."""
     import torch
     from fp8tpu_torch.kernels import qmatmul
     gen = torch.Generator(device="cuda").manual_seed(30)
@@ -5692,6 +5818,8 @@ def w8a8_kernel_checks(record):
         x = p2_edge_rows(k).cuda()
         p2_case(rows, f"p2 edge rows K={k}", x)
         p2_case(rows, f"p2 edge rows K={k} e5m2", x, "e5m2")
+        p2_case(rows, f"p2 edge rows K={k} f16 codes", x,
+                codes_dtype=torch.float16)
         tiny = qmatmul.quantize_rows_plain(x[6:7].cpu())
     for m in P2_MS:
         for k in P2_KS:
@@ -5699,16 +5827,33 @@ def w8a8_kernel_checks(record):
                  * torch.rand(m, 1, device="cuda", generator=gen) * 8
                  ).to(torch.bfloat16)
             p2_case(rows, f"p2 M={m} K={k}", x)
+            p2_case(rows, f"p2 M={m} K={k} f16 codes", x,
+                    codes_dtype=torch.float16)
     result["p2"] = rows
     print(f"w8a8 (a) P2: {len(rows)} cases (edge rows: zero, bf16 "
           f"subnormals, +-bf16 max and -0, +-inf, NaN, tiny amax, ties; "
-          f"random rows at M in {P2_MS} x K in {P2_KS}), codes and scales "
-          f"against plain on the CPU and a second launch bit for bit: "
-          f"{sum(not r['ok'] for r in rows)} failed; the tiny-amax row's "
-          f"scale {float(tiny[1]):.6e} (kept subnormal), codes "
-          f"{tiny[0].view(torch.uint8)[0, :4].tolist()}")
+          f"random rows at M in {P2_MS} x K in {P2_KS}; e4m3 bytes and f16 "
+          f"codes), codes and scales against plain on the CPU, f16 codes "
+          f"against the byte output on the card, and a second launch "
+          f"bit for bit: {sum(not r['ok'] for r in rows)} failed; the "
+          f"tiny-amax row's scale {float(tiny[1]):.6e} (kept subnormal), "
+          f"codes {tiny[0].view(torch.uint8)[0, :4].tolist()}")
     if not all(r["ok"] for r in rows):
         problems.append("P2 differs from its plain version")
+    probe_rows = []
+    pairs, bad, found = quot_fast_probe(probe_rows)
+    result["p2_quot_probe"] = {"rows": probe_rows, "pairs": pairs,
+                               "found": found}
+    print(f"w8a8 (a) P2's fast divide (quot_fast, two corrections) over "
+          f"every f32 significand of a at exponents {QUOT_A_EXPS} against "
+          f"every scale significand a row can take (128): {pairs} pairs, "
+          f"{bad} differing quotients and codes against the correctly "
+          f"rounded divide and cast.cuh's path (0 required)"
+          + (f"; first pairs (a, s bits) "
+             f"{[(hex(a), hex(s)) for a, s in found[:4]]}" if found else ""))
+    if bad:
+        problems.append(f"P2's fast divide differs in {bad} quotients or "
+                        "codes")
 
     # (b) P1 and (d) K3 with a row scale
     rows, rows3 = [], []
@@ -5740,15 +5885,9 @@ def w8a8_kernel_checks(record):
                         f"{p1plan.code} splits {p1plan.splits}",
                         got, again, xq, xs, w8, s, edges, cols)
             w8, s = payloads["int8"]
-            xc = xq.to(torch.bfloat16)
-            plan = qmatmul.weight_gemm_plan(m, n, k, sms, "w8", xc, w8)
-            got = qmatmul.dequant_matmul(xc, w8, s, torch.bfloat16, xs)
-            again = qmatmul.dequant_matmul(xc, w8, s, torch.bfloat16, xs)
-            edges3 = None if plan.route == "general" else \
-                qmatmul.promotion_edges(k, plan.kper)
-            w8a8_gemm_case(rows3, f"k3 int8 row-scaled M={m} K={k} N={n} "
-                           f"{plan.route}", got, again, xq, xs, w8, s,
-                           edges3, cols, fp8_sum=False)
+            xh, _ = qmatmul.quantize_rows(x, codes_dtype=torch.float16)
+            k3_int8_case(rows3, f"k3 int8 route M={m} K={k} N={n}", xh, xq,
+                         xs, w8, s, cols)
         del payloads
     # one-sign terms over the long K of the down projection: where the
     # tensor cores' truncation adds up (w8a8_probe measures it)
@@ -5763,11 +5902,17 @@ def w8a8_kernel_checks(record):
         w8a8_gemm_case(rows, f"p1 one-sign M={m} K={k} N={n} "
                        f"{str(out_dtype)[6:]}", got, again, xq, xs, w8, s,
                        qmatmul.w8a8_edges(k, kper), n)
-    for m, k, n in W8A8_RAGGED:
+    for m, k, n in W8A8_RAGGED + W8A8_GENERAL:
         w = torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
         x = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
         xq, xs = qmatmul.quantize_rows(x)
         xs = xs.reshape(-1)
+        w8, s = qmatmul.quantize_weights(w, "int8")
+        xh, _ = qmatmul.quantize_rows(x, codes_dtype=torch.float16)
+        k3_int8_case(rows3, f"k3 int8 route ragged M={m} K={k} N={n}", xh,
+                     xq, xs, w8, s.reshape(-1), n)
+        if k % 32:
+            continue                    # P1 takes K % 32 == 0 only
         p1plan = qmatmul.w8a8_plan(m, n, k, sms)
         edges = qmatmul.w8a8_edges(k, p1plan.kper)
         for fmt in ("e4m3", "e5m2"):
@@ -5795,14 +5940,32 @@ def w8a8_kernel_checks(record):
         for mb in (64, 256):
             w8a8_pair_codes(rows, w_dtype, mb, f"p1 every e4m3 x {fmt} code "
                             f"pair, launches of {mb} rows")
+    for mb in (64, 256):
+        k3_int8_pair_codes(rows3, mb)
+    kept = {kind: tc_kept_bits_16(kind) for kind in ("f16", "bf16")}
+    bits16 = {}
+    for kind, kk in kept.items():
+        whole = [g for g, v in kk.items() if min(v[:2]) == 1.0]
+        bits16[kind] = max(whole) if whole else 0
+        print(f"w8a8 (d) the {kind} tensor cores' k16 sum (tc_kept_bits_16"
+              f"): terms within {bits16[kind]} bits of the largest addend "
+              f"kept whole; share kept by gap (alone, into a chunk, "
+              f"negative): " + ", ".join(
+                  f"{g}: ({v[0]:.3f}, {v[1]:.3f}, {v[2]:.3f})"
+                  for g, v in kk.items() if g >= 20))
+    result["k3_int8_kept_bits"] = {"bits": bits16, "shares": kept}
+    if bits16["f16"] < bits16["bf16"]:
+        problems.append(f"the f16 tensor cores keep {bits16['f16']} bits, "
+                        f"fewer than bf16's {bits16['bf16']}: the int8 "
+                        "route's promotion must follow")
     torch.cuda.synchronize()
     result["p1"], result["k3_row_scale"] = rows, rows3
-    for name, rs in (("P1", rows), ("K3 row-scaled (int8)", rows3)):
+    for name, rs in (("P1", rows), ("K3's int8 route (f16 codes)", rows3)):
         worst = max(r["max_err_over_bound"] for r in rs)
         f64 = max(r.get("err_over_f64_bound", 0.0) for r in rs)
         print(f"w8a8 ({'b' if name == 'P1' else 'd'}) {name}: {len(rs)} "
               f"cases (M in {W8A8_MS} x (K, N) in {W8A8_KN}"
-              f"{', e4m3 / e5m2 weights, one-sign K = 11008, ragged N, every code pair' if name == 'P1' else ''}; "
+              f"{', e4m3 / e5m2 weights, one-sign K = 11008, ragged N, every code pair' if name == 'P1' else ', ragged N, the general kernel, every (code, byte) pair'}; "
               f"M >= {W8A8_SLICE_M} held on the first {W8A8_COLS} columns): "
               f"worst err/bound {worst:.3e}, worst err/f64 bound {f64:.3e}; "
               f"{sum(not r['ok'] for r in rs)} failed")
@@ -5811,7 +5974,9 @@ def w8a8_kernel_checks(record):
                             "f64 product or a second launch")
     print(f"w8a8: P1 launches {p1_launches}, K3 row-scaled launches by route "
           f"{dict(qmatmul.dequant_routes)}")
-    if qmatmul.dequant_launches != 2 * len(W8A8_KN) * len(W8A8_MS):
+    if qmatmul.dequant_launches != 2 * len(W8A8_KN) * len(W8A8_MS) \
+            + 2 * len(W8A8_RAGGED + W8A8_GENERAL) + 256 // 64 + 256 // 256 \
+            + 2 * 3:
         problems.append("dequant_matmul did not count its row-scaled "
                         "launches")
     record["w8a8_kernels"] = result
@@ -5868,9 +6033,10 @@ def tc_kept_bits():
 def phase_w8a8_probe(record):
     """P1's product over K = 11008 of terms of one sign (probe_operands) at
     several tensor-core chunk lengths, unsplit (M = 2048, N = 4096: 512
-    tiles): the measurement behind W8A8_PROMOTE; and the bits the fp8
+    tiles): the measurement behind W8A8_PROMOTE; the bits the fp8
     tensor cores keep (tc_kept_bits), the measurement behind
-    W8A8_TC_BITS."""
+    W8A8_TC_BITS; and K3's int8 route's one-sign sum over the same K on
+    the f16 and the bf16 tensor cores (k3_int8_sum_probe)."""
     import torch
     from fp8tpu_torch.kernels import qmatmul
     kept = tc_kept_bits()
@@ -5915,7 +6081,8 @@ def phase_w8a8_probe(record):
         del ex, tol, tc
     record["w8a8_probe"] = {"rows": rows, "kept": kept, "kept_bits": bits,
                             "w8a8_tc_bits": W8A8_TC_BITS,
-                            "w8a8_promote": qmatmul.W8A8_PROMOTE}
+                            "w8a8_promote": qmatmul.W8A8_PROMOTE,
+                            "k3_int8": k3_int8_sum_probe(gen)}
     used = [r for r in rows if r["promote_steps"] == qmatmul.W8A8_PROMOTE]
     if not used or used[0]["err_over_tol"] > 1.0:
         raise PhaseError("P1's chunk length does not keep the long sum "
@@ -5923,6 +6090,41 @@ def phase_w8a8_probe(record):
     if bits < W8A8_TC_BITS:
         raise PhaseError(f"the fp8 tensor cores keep {bits} bits, fewer "
                          f"than the bound's {W8A8_TC_BITS}")
+
+
+def k3_int8_sum_probe(gen, m=2048, k=11008, n=4096, cols=512):
+    """K3's int8 route over K = 11008 of terms of one sign, on the f16
+    tensor cores (P2's f16 codes) beside the bf16 ones (the same codes as
+    bf16 x, K3's bf16 int8 convert): positive e4m3 codes of log-uniform
+    magnitude against int8 bytes 1-127, unit scales, f32 out, held to the
+    f64 product's random-walk bound over the promotion edges (512 rows).
+    Returns {kind: (err / bound, mean relative error, max |relative
+    error|)}."""
+    import torch
+    from fp8tpu_torch.kernels import qmatmul
+    xq, _ = probe_operands(gen, m, k, 1)
+    w8 = torch.randint(1, 128, (k, n), device="cuda", generator=gen,
+                       dtype=torch.int8)
+    ones_m = torch.ones(m, device="cuda")
+    ones_n = torch.ones(n, device="cuda")
+    plan = qmatmul.weight_gemm_plan(m, n, k, qmatmul.sm_count(0), "w8",
+                                    xq, w8)
+    edges = qmatmul.promotion_edges(k, plan.kper)
+    ex, tol = k2_reference(xq.float(), w8[:, :cols].float(), edges)
+    out = {}
+    for kind, dtype in (("f16", torch.float16), ("bf16", torch.bfloat16)):
+        got = qmatmul.dequant_matmul(xq.to(dtype), w8, ones_n,
+                                     torch.float32, ones_m)[:, :cols]
+        rel = (got.double() - ex) / ex
+        out[kind] = (k2_ratio(got, ex, tol), float(rel.mean()),
+                     float(rel.abs().max()))
+        print(f"w8a8_probe K3's int8 route on {kind} (M={m} K={k} N={n}, "
+              f"first {cols} columns, positive codes x bytes 1-127, "
+              f"promoted every {qmatmul.STREAM_PROMOTE} rows): |err| / "
+              f"f32 walk {out[kind][0]:.3e}, mean relative error "
+              f"{out[kind][1]:.3e}, max |relative error| "
+              f"{out[kind][2]:.3e}", flush=True)
+    return out
 
 
 W8A8_TIME_MS = (8, 64, 512, 2048)
@@ -6006,10 +6208,7 @@ def phase_w8a8(record):
     L, KV = cfg.n_layers, cfg.n_kv_heads
     B = BENCH_BATCH
     result, problems = {}, []
-    if "e4m3" not in STATE:
-        STATE["e4m3"] = random_serve_params(cfg, "e4m3", seed=0)
-    params = {"e4m3": STATE["e4m3"],
-              "int8": random_serve_params(cfg, "int8", seed=32)}
+    params = {fmt: serve_params_of(fmt) for fmt in ("e4m3", "int8")}
 
     # (e) decode steps, direct against plain.  W8A8 is discontinuous: two
     # f32 summation orders of one model drift apart from layer to layer
@@ -6128,7 +6327,6 @@ def phase_w8a8(record):
                 "exact_written_rows_by_layer": dist_x,
                 "launches_per_step": per_step}
             del state, st_k, st_p, st_x
-    del params["int8"]
 
     # one MoE decode step with direct linears: each expert quantizes its
     # own input
@@ -6194,6 +6392,41 @@ def phase_w8a8(record):
     result["f"] = {"tokens": n_tok, "seconds": seconds, "launches": launches,
                    "repeat_equal": again == out, "replayed_tokens": steps,
                    "unlike_replay": {str(k): v for k, v in bad.items()}}
+
+    # (f) with int8 weights: K3's int8 route on P2's f16 codes, every
+    # token against the replay
+    scfg8 = dataclasses.replace(scfg, weight_fmt="int8")
+    qmatmul.reset_launches()
+    with _Counting(engine_mod, "decode_chunk", steps_arg=6) as dc, \
+            _Counting(engine_mod, "prefill_batch") as pb, \
+            _Admissions(engine_mod) as adm, \
+            _Counting(qmatmul, "quantize_rows_plain", forbid=True), \
+            _Counting(qmatmul, "dequant_matmul_plain", forbid=True), \
+            _Counting(inplace, "ring_store_plain", forbid=True):
+        out8, seconds8, _ = run_server(params["int8"], scfg8, 16)
+    launches["dequant_matmul_int8"] = qmatmul.dequant_routes["stream"]
+    launches["dequant_matmul_int8_prefill"] = qmatmul.dequant_routes["prefill"]
+    routes8 = dict(qmatmul.dequant_routes)
+    counts8 = (qmatmul.quantize_launches, qmatmul.w8a8_launches)
+    k3_step = (qmatmul.dequant_launches - 7 * L * pb.calls) / dc.steps
+    f16_codes = qmatmul.quantize_launches == qmatmul.dequant_launches
+    bad8, steps8 = replay_engine(params["int8"], scfg8, adm.calls, prompts,
+                                 out8)
+    n_tok8 = sum(len(v) for v in out8.values())
+    print(f"w8a8 (f) int8 weights: {n_tok8} tokens in {seconds8:.2f} s; "
+          f"{dc.steps} decode steps, {pb.calls} prefills; K3 int8 route "
+          f"launches by route {routes8}, {k3_step:.1f} a decode step "
+          f"(expected {7 * L}), P2 / P1 {counts8}; the replay: {steps8} "
+          f"tokens compared, tokens that differ {bad8 or 'none'}")
+    if bad8 or steps8 != n_tok8 or len(out8) != 16:
+        problems.append(f"direct int8 engine: tokens unlike the replay's "
+                        f"{bad8} ({steps8} of {n_tok8} compared)")
+    if k3_step != 7 * L or counts8[1] or not f16_codes:
+        problems.append(f"direct int8 engine: K3 {k3_step} a step, P2 / P1 "
+                        f"{counts8} against K3 {routes8}")
+    result["f_int8"] = {"tokens": n_tok8, "seconds": seconds8,
+                        "replayed_tokens": steps8,
+                        "unlike_replay": {str(k): v for k, v in bad8.items()}}
     record["w8a8"] = result
     torch.cuda.empty_cache()
     if problems:
@@ -6298,7 +6531,7 @@ def direct_launch_cases(rows, p2, p1, k3):
     from fp8tpu_torch.kernels import qmatmul
     sms = qmatmul.sm_count(0)
     for i, (a, kw, (q, s)) in enumerate(p2.calls):
-        wq, ws = qmatmul.quantize_rows_plain(a[0].cpu())
+        wq, ws = qmatmul.quantize_rows_plain(a[0].cpu(), *a[1:], **kw)
         bad = int((q.view(torch.uint8).cpu() != wq.view(torch.uint8)).sum()
                   + (s.cpu().view(torch.int32) != ws.view(torch.int32)).sum())
         rows.append({"case": f"p2 launch {i}", "differing": bad,
@@ -6471,30 +6704,128 @@ def rotating(weights, fn):
     return call
 
 
+def codes_route():
+    """Whether the loaded package's P2 writes the codes in the GEMM's type
+    (``quantize_rows(..., codes_dtype=)``) and its int8 direct linear is
+    two launches; a parent tree's package (``--package-tree``) may not."""
+    import inspect
+    from fp8tpu_torch.kernels import qmatmul
+    return "codes_dtype" in inspect.signature(qmatmul.quantize_rows).parameters
+
+
+def weight_copies(gen, k, n, fmt, copies=W8A8_COPIES):
+    """``copies`` random (k, n) weights quantized to ``fmt``: [(payload,
+    scales (n,))]."""
+    import torch
+    from fp8tpu_torch.kernels import qmatmul
+    out = []
+    for _ in range(copies):
+        w = torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
+        w8, s = qmatmul.quantize_weights(w, fmt)
+        out.append((w8, s.reshape(-1)))
+        del w
+    return out
+
+
+def int8_route_bound(m, n, k):
+    """(ms, "bytes" or "operations"): K3's int8 route on 2-byte codes: the
+    weight, x's codes, both scales and the bf16 output at 3.35 TB/s, or
+    2 M N K at the bf16 / f16 tensor-core rate."""
+    t_bytes = (k * n + 2.0 * m * k + 4.0 * (m + n) + 2.0 * m * n) \
+        / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * m * n * k / BF16_TC_FLOPS * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def time_int8_route(gen, k, n, proj):
+    """W8A8's int8 route on int8 weights (W8A8_COPIES of them, turned over:
+    cold, trap 27) at M in W8A8_TIME_MS, its launches apart and together,
+    by CUDA-graph replay: P2, the convert of its codes to bf16 (the
+    parent's route) and K3 row-scaled on them; the whole direct linear as
+    serve.model.fp8_linear makes it.  Where P2 writes codes (codes_route),
+    also P2 with f16 codes, K3's int8 route on them, and the two end to
+    end."""
+    import torch
+    from fp8tpu_torch.kernels import qmatmul
+    from fp8tpu_torch.serve import model as smodel
+    from fp8tpu_torch.tools import device_ms
+    w8s = weight_copies(gen, k, n, "int8")
+    w8, s = w8s[0]
+    codes = codes_route()
+    rows = []
+    for m in W8A8_TIME_MS:
+        x = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
+        xq, xs = qmatmul.quantize_rows(x)
+        xs = xs.reshape(-1)
+        xb = xq.to(torch.bfloat16)
+        want = qmatmul.dequant_matmul_plain(xb, w8, s, torch.bfloat16, xs)
+        row = {"proj": proj, "m": m, "k": k, "n": n,
+               "weights": "int8", "weight_copies": W8A8_COPIES}
+        row["p2_ms"] = device_ms(lambda: qmatmul.quantize_rows(x))
+        row["convert_ms"] = device_ms(lambda: xq.to(torch.bfloat16))
+        row["k3_bf16_ms"] = device_ms(rotating(
+            w8s, lambda w, s_: qmatmul.dequant_matmul(
+                xb, w, s_, torch.bfloat16, xs)))
+        row["linear_ms"] = device_ms(rotating(
+            w8s, lambda w, s_: smodel.fp8_linear(x, w, s_, "direct")))
+        got = smodel.fp8_linear(x, w8, s, "direct")
+        row["err"] = float((got.float() - want.float()).abs().max())
+        row["plain_ms"] = cuda_ms(lambda: qmatmul.dequant_matmul_plain(
+            xb, w8, s, torch.bfloat16, xs), iters=3, warmup=1)
+        row["bound_ms"], row["bound_by"] = int8_route_bound(m, n, k)
+        row["p2_bound_ms"] = (3.0 * m * k + 4.0 * m) / HBM_BYTES_PER_S * 1e3
+        text = (f"P2 {row['p2_ms']:.4f}, convert {row['convert_ms']:.4f}, "
+                f"K3 on bf16 codes {row['k3_bf16_ms']:.4f}")
+        if codes:
+            xh, _ = qmatmul.quantize_rows(x, codes_dtype=torch.float16)
+            row["p2_f16_ms"] = device_ms(lambda: qmatmul.quantize_rows(
+                x, codes_dtype=torch.float16))
+            row["k3_f16_ms"] = device_ms(rotating(
+                w8s, lambda w, s_: qmatmul.dequant_matmul(
+                    xh, w, s_, torch.bfloat16, xs)))
+
+            def pair(w, s_):
+                q, r = qmatmul.quantize_rows(x, codes_dtype=torch.float16)
+                return qmatmul.dequant_matmul(q, w, s_, torch.bfloat16,
+                                              r.reshape(-1))
+            row["pair_f16_ms"] = device_ms(rotating(w8s, pair))
+            row["p2_bound_ms"] = (4.0 * m * k + 4.0 * m) / HBM_BYTES_PER_S \
+                * 1e3
+            text += (f"; P2 with f16 codes {row['p2_f16_ms']:.4f}, K3 on "
+                     f"them {row['k3_f16_ms']:.4f}, P2 + K3 "
+                     f"{row['pair_f16_ms']:.4f}")
+        rows.append(row)
+        print(f"time w8a8 int8 route {proj} {k}x{n} M={m}, int8 weights: "
+              f"{text}; the direct linear {row['linear_ms']:.4f} ms (bound "
+              f"{row['bound_ms']:.4f} {row['bound_by']}, plain "
+              f"{row['plain_ms']:.4f}, max|err| {row['err']:.3e})",
+              flush=True)
+    return rows
+
+
+W8A8_ROUTE_SHAPES = (((4096, 11008), "gate"), ((4096, 1024), "k/v"),
+                     ((2048, 5504), "moe up"))
+
+
 def time_w8a8_kernels(record):
-    """P1, P2, K3 (convert and int8 row-scaled) and torch._scaled_mm at M in
-    W8A8_TIME_MS on the gate projection (4096 x 11008) and k/v (4096 x
-    1024), P2 also at (2048, 11008), by CUDA-graph replay, the GEMMs
-    turning over W8A8_COPIES weights.  Returns the rows.  A parent commit
-    is timed by its own script in the same call, in turns (the verify
-    notes give the command)."""
+    """P1, P2, K3 convert and torch._scaled_mm at M in W8A8_TIME_MS on the
+    gate projection (4096 x 11008) and k/v (4096 x 1024), P2 also at
+    (2048, 11008), by CUDA-graph replay, the GEMMs turning over
+    W8A8_COPIES weights; then the int8 route on int8 weights there and at
+    the MoE expert's up projection (time_int8_route).  Returns the rows.
+    A parent tree is timed by this script with ``--package-tree`` in the
+    same call, in turns (the verify notes give the command)."""
     import torch
     from fp8tpu_torch.kernels import qmatmul
     from fp8tpu_torch.tools import device_ms
 
     gen = torch.Generator(device="cuda").manual_seed(36)
     rows = []
-    for (k, n), proj in (((4096, 11008), "gate"), ((4096, 1024), "k/v")):
+    for (k, n), proj in W8A8_ROUTE_SHAPES[:2]:
         # W8A8_COPIES weights, a launch on each in turn: the timed launch
         # streams its weight from device memory, not from the 50 MB L2
-        w8s, w5s = [], []
-        for _ in range(W8A8_COPIES):
-            w = torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
-            w8, s = qmatmul.quantize_weights(w, "e4m3")
-            w5, s5 = qmatmul.quantize_weights(w, "e5m2")
-            w8s.append((w8, s.reshape(-1)))
-            w5s.append((w5, s5.reshape(-1)))
-            del w
+        w8s = weight_copies(gen, k, n, "e4m3")
+        w5s = weight_copies(gen, k, n, "e5m2")
         # column-major copies, for torch._scaled_mm only
         cms = {"e4m3": [(w.t().contiguous().t(), s) for w, s in w8s],
                "e5m2": [(w.t().contiguous().t(), s) for w, s in w5s]}
@@ -6516,11 +6847,6 @@ def time_w8a8_kernels(record):
             t_p2 = device_ms(lambda: qmatmul.quantize_rows(x))
             t_k3 = device_ms(rotating(w8s, lambda w, s_:
                                       qmatmul.dequant_matmul(x, w, s_)))
-            xs3 = xs.clone()
-            t_k3_rs = device_ms(rotating(w8s, lambda w, s_:
-                                         qmatmul.dequant_matmul(
-                                             xq.to(torch.bfloat16), w, s_,
-                                             torch.bfloat16, xs3)))
             t_p1_plain = cuda_ms(lambda: qmatmul.w8a8_matmul_plain(
                 xq, xs, w8, s), iters=3, warmup=1)
             t_p2_plain = cuda_ms(lambda: qmatmul.quantize_rows_plain(x),
@@ -6549,26 +6875,31 @@ def time_w8a8_kernels(record):
                    "p2_ms": t_p2, "p2_plain_ms": t_p2_plain,
                    "p2_bound_ms": b2, "p2_err": p2_err,
                    "k3_convert_ms": t_k3, "k3_bound_ms": b3,
-                   "k3_row_scaled_ms": t_k3_rs,
                    "scaled_mm_ms": lib_ms, "weight_copies": W8A8_COPIES}
             rows.append(row)
             print(f"time w8a8 {proj} {k}x{n} M={m}: P1 {t_p1:.4f} ms (e5m2 "
                   f"{t_p1_e5:.4f}; plain {t_p1_plain:.4f}, bound {b1:.4f} "
                   f"{by1}), P2 {t_p2:.4f} ms (plain {t_p2_plain:.4f}, bound "
-                  f"{b2:.4f} bytes), K3 "
-                  f"convert {t_k3:.4f} ms (bound {b3:.4f}), K3 int8 "
-                  f"row-scaled {t_k3_rs:.4f} ms, torch._scaled_mm {lib_ms}",
+                  f"{b2:.4f} bytes), K3 convert {t_k3:.4f} ms (bound "
+                  f"{b3:.4f}) on e4m3 weights, torch._scaled_mm {lib_ms}",
                   flush=True)
         del w8s, w5s, cms, w8
     # P2 on the widest serving row (the down projection's input)
-    for m, k in ((2048, 11008),):
+    for m, k in ((8, 4096), (2048, 4096), (2048, 11008)):
         x = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
         t_p2 = device_ms(lambda: qmatmul.quantize_rows(x))
         b2 = (3.0 * m * k + 4.0 * m) / HBM_BYTES_PER_S * 1e3
-        rows.append({"proj": "p2 only", "m": m, "k": k, "p2_ms": t_p2,
-                     "p2_bound_ms": b2})
+        row = {"proj": "p2 only", "m": m, "k": k, "p2_ms": t_p2,
+               "p2_bound_ms": b2}
+        if codes_route():
+            row["p2_f16_ms"] = device_ms(lambda: qmatmul.quantize_rows(
+                x, codes_dtype=torch.float16))
+        rows.append(row)
         print(f"time w8a8 P2 ({m}, {k}): {t_p2:.4f} ms (bound {b2:.4f} "
-              f"bytes)", flush=True)
+              f"bytes){'' if 'p2_f16_ms' not in row else f', f16 codes ' + format(row['p2_f16_ms'], '.4f') + ' ms'}",
+              flush=True)
+    for (k, n), proj in W8A8_ROUTE_SHAPES:
+        rows += time_int8_route(gen, k, n, proj)
     record.setdefault("time", {})["w8a8_kernels"] = rows
     torch.cuda.empty_cache()
     return rows
@@ -6743,7 +7074,8 @@ def time_w8a8(record, launches):
     entries = []
 
     def pick(proj, m):
-        return next(r for r in rows if r["proj"] == proj and r["m"] == m)
+        return next(r for r in rows if r["proj"] == proj and r["m"] == m
+                    and "weights" not in r)
 
     for name, key, r in (
             ("w8a8_matmul (gate, M = 8)", "w8a8_matmul", pick("gate", 8)),
@@ -6759,6 +7091,22 @@ def time_w8a8(record, launches):
             "ms": r["p1_ms"], "plain_ms": r["p1_plain_ms"],
             "bound_ms": r["p1_bound_ms"], "bound_by": r["p1_bound_by"],
             "library_ms": lib if isinstance(lib, float) else None})
+    for name, key, m in (
+            ("dequant_matmul int8 route (gate, M = 8)", "dequant_matmul_int8",
+             8),
+            ("dequant_matmul int8 route prefill (gate, M = 2048)",
+             "dequant_matmul_int8_prefill", 2048)):
+        r = next(r for r in rows if r["proj"] == "gate" and r["m"] == m
+                 and r.get("weights") == "int8")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "fp8tpu_torch/kernels/csrc/dequant_matmul.cu",
+            "replaces": "fp8tpu/serve/model.py:115 (an XLA dot, no TPU "
+                        "kernel)",
+            "launches": launches[key], "max_abs_err": r["err"],
+            "ms": r["k3_f16_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None})
     r = pick("gate", 8)
     entries.append({
         "name": "quantize_rows (M = 8, K = 4096)", "route": "cuda",
@@ -6772,7 +7120,33 @@ def time_w8a8(record, launches):
     result["decode"] = time_direct_step()
     result["prefill"] = time_direct_prefill()
     record.setdefault("time", {})["w8a8"] = result
+    STATE.pop("int8", None)
+    two_launches(result)
     return entries
+
+
+def two_launches(result):
+    """Each profile of a direct-int8 step or prefill holds 7 L P2 and 7 L K3
+    launches and as many launches in all as the direct-e4m3 one (P2, P1):
+    no convert launch lies between P2 and K3."""
+    L = serve_config().n_layers
+    problems = []
+    for part in ("decode", "prefill"):
+        base = result[part]["e4m3 direct"][0]["profile"]["launches"]
+        for run in result[part]["int8 direct"]:
+            prof = run["profile"]
+            counts = {g: prof["groups"].get(g, (0.0, 0))[1] for g in (
+                "P2 row quantizer (hand-written)",
+                "K3/K5 weight GEMM (hand-written)")}
+            if set(counts.values()) != {7 * L} or prof["launches"] != base:
+                problems.append(f"{part}: {counts}, {prof['launches']} "
+                                f"launches against direct e4m3's {base}")
+    print(f"time w8a8: the direct-int8 profiles hold 7 L = {7 * L} P2 and "
+          f"K3 launches and no launch more than direct e4m3's: "
+          f"{'yes' if not problems else problems}")
+    if problems:
+        raise PhaseError("a direct-int8 linear is not two launches: "
+                         + "; ".join(problems))
 
 
 def wrapper_counts(run):
@@ -6809,16 +7183,30 @@ def counted_profile(run, best, want):
                      "(3 profiles)")
 
 
-def time_direct_step():
-    """One batch-64 decode step at position 444 (ring of 512, int8 KV),
-    e4m3 weights, convert and direct in turns: wall clock of an 8-step
-    chunk (best of 3) and a torch.profiler breakdown of one step."""
+DIRECT_SEEDS = {"e4m3": 0, "int8": 32}     # random_serve_params' seeds
+
+
+def serve_params_of(fmt):
+    """The serve cell's random parameters with ``fmt`` weights, kept in
+    STATE (e4m3 from seed 0, int8 from seed 32)."""
+    from fp8tpu_torch.serve import random_serve_params
+    if fmt not in STATE:
+        STATE[fmt] = random_serve_params(serve_config(), fmt,
+                                         seed=DIRECT_SEEDS[fmt])
+    return STATE[fmt]
+
+
+def time_direct_step(fmts=("e4m3", "int8")):
+    """One batch-64 decode step at position 444 (ring of 512, int8 KV), for
+    each of ``fmts`` weights convert and direct in turns (convert, direct,
+    direct, convert): wall clock of an 8-step chunk (best of 3) and a
+    torch.profiler breakdown of one step.  Returns {"<fmt> <impl>":
+    [runs]}."""
     import torch
     from fp8tpu_torch.serve import RingKVCache, ServeConfig, decode_steps
     cfg = serve_config()
     L, KV, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
     gen = torch.Generator(device="cuda").manual_seed(37)
-    params = STATE["e4m3"]
     ring = RingKVCache.create(L, BENCH_BATCH, BENCH_CACHE, KV, D, "int8")
     ring.kv8.copy_(torch.randint(-127, 128, ring.kv8.shape, device="cuda",
                                  generator=gen, dtype=torch.int8))
@@ -6829,71 +7217,77 @@ def time_direct_step():
                      dtype=torch.int32)
     temp = torch.zeros(BENCH_BATCH, device="cuda")
     out = {}
-    for impl in ("convert", "direct", "direct", "convert"):
-        scfg = ServeConfig(model=cfg, weight_fmt="e4m3", kv_fmt="int8",
-                           matmul_impl=impl)
+    for fmt in fmts:
+        params = serve_params_of(fmt)
+        for impl in ("convert", "direct", "direct", "convert"):
+            scfg = ServeConfig(model=cfg, weight_fmt=fmt, kv_fmt="int8",
+                               matmul_impl=impl)
 
-        def chunk(n):
-            ring.head.fill_(BENCH_WARM_POS)
-            o, _ = decode_steps(params, ring, toks, pos, None, temp, n, scfg,
-                                greedy_only=True)
-            return o
+            def chunk(n):
+                ring.head.fill_(BENCH_WARM_POS)
+                o, _ = decode_steps(params, ring, toks, pos, None, temp, n,
+                                    scfg, greedy_only=True)
+                return o
 
-        chunk(2)
-        torch.cuda.synchronize()
-        walls = []
-        for _ in range(3):
-            t = time.perf_counter()
-            int(chunk(8).sum())
-            walls.append((time.perf_counter() - t) / 8 * 1e3)
-        want = wrapper_counts(lambda: chunk(1))
-        prof, tries = counted_profile(lambda: chunk(1), min(walls), want)
-        out.setdefault(impl, []).append({"wall_ms": walls, "profile": prof,
-                                         "profiles_taken": tries})
-        print(f"time w8a8 decode step, batch {BENCH_BATCH}, {impl}: "
-              f"{min(walls):.3f} ms wall (chunks of 8: "
-              f"{[round(w, 3) for w in walls]}), {prof['device_ms']:.3f} ms "
-              f"of kernels in {prof['launches']} launches, busy share "
-              f"{prof['busy_share']:.3f} (profiles taken {tries})")
-        for group, (ms_, n_) in prof["groups"].items():
-            print(f"    {ms_:8.3f} ms {n_:5d}x  {group}")
+            chunk(2)
+            torch.cuda.synchronize()
+            walls = []
+            for _ in range(3):
+                t = time.perf_counter()
+                int(chunk(8).sum())
+                walls.append((time.perf_counter() - t) / 8 * 1e3)
+            want = wrapper_counts(lambda: chunk(1))
+            prof, tries = counted_profile(lambda: chunk(1), min(walls), want)
+            out.setdefault(f"{fmt} {impl}", []).append({
+                "wall_ms": walls, "profile": prof, "profiles_taken": tries,
+                "wrapper_counts": want})
+            print(f"time w8a8 decode step, batch {BENCH_BATCH}, {fmt} "
+                  f"weights, {impl}: {min(walls):.3f} ms wall (chunks of 8: "
+                  f"{[round(w, 3) for w in walls]}), {prof['device_ms']:.3f} "
+                  f"ms of kernels in {prof['launches']} launches, busy share "
+                  f"{prof['busy_share']:.3f} (profiles taken {tries})")
+            for group, (ms_, n_) in prof["groups"].items():
+                print(f"    {ms_:8.3f} ms {n_:5d}x  {group}")
     del ring
     return out
 
 
-def time_direct_prefill():
-    """One paged prefill of 8 x 256 tokens (2048 rows a linear), e4m3
-    weights, convert and direct in turns: wall clock (best of 3) and a
-    profile of one call."""
+def time_direct_prefill(fmts=("e4m3", "int8")):
+    """One paged prefill of 8 x 256 tokens (2048 rows a linear), for each of
+    ``fmts`` weights convert and direct in turns: wall clock (best of 3)
+    and a profile of one call."""
     import torch
     from fp8tpu_torch.serve import ServeConfig
     cfg = serve_config()
     B, T = SERVE_SLOTS, PREFILL_TOKENS
-    params = STATE["e4m3"]
     out = {}
-    for impl in ("convert", "direct", "direct", "convert"):
-        scfg = ServeConfig(model=cfg, weight_fmt="e4m3", kv_fmt="int8",
-                           paged_decode_impl="kernel", matmul_impl=impl)
-        run = prefill_runner(params, scfg, 38)
-        run()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(3):
-            t = time.perf_counter()
+    for fmt in fmts:
+        params = serve_params_of(fmt)
+        for impl in ("convert", "direct", "direct", "convert"):
+            scfg = ServeConfig(model=cfg, weight_fmt=fmt, kv_fmt="int8",
+                               paged_decode_impl="kernel", matmul_impl=impl)
+            run = prefill_runner(params, scfg, 38)
             run()
             torch.cuda.synchronize()
-            times.append((time.perf_counter() - t) * 1e3)
-        want = wrapper_counts(run)
-        prof, tries = counted_profile(run, min(times), want)
-        out.setdefault(impl, []).append({"wall_ms": times, "profile": prof,
-                                         "profiles_taken": tries})
-        print(f"time w8a8 paged prefill {B} x {T}, {impl}: {min(times):.3f} "
-              f"ms wall (best of 3), {prof['device_ms']:.3f} ms of kernels "
-              f"in {prof['launches']} launches, busy share "
-              f"{prof['busy_share']:.3f} (profiles taken {tries})")
-        for group, (ms_, n_) in prof["groups"].items():
-            print(f"    {ms_:8.3f} ms {n_:5d}x  {group}")
-        del run
+            times = []
+            for _ in range(3):
+                t = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            want = wrapper_counts(run)
+            prof, tries = counted_profile(run, min(times), want)
+            out.setdefault(f"{fmt} {impl}", []).append({
+                "wall_ms": times, "profile": prof, "profiles_taken": tries,
+                "wrapper_counts": want})
+            print(f"time w8a8 paged prefill {B} x {T}, {fmt} weights, "
+                  f"{impl}: {min(times):.3f} ms wall (best of 3), "
+                  f"{prof['device_ms']:.3f} ms of kernels in "
+                  f"{prof['launches']} launches, busy share "
+                  f"{prof['busy_share']:.3f} (profiles taken {tries})")
+            for group, (ms_, n_) in prof["groups"].items():
+                print(f"    {ms_:8.3f} ms {n_:5d}x  {group}")
+            del run
     return out
 
 
@@ -8225,9 +8619,11 @@ def main(argv=None) -> int:
                             "train_lm,serve,serve_paged,spec,moe,flush,time,"
                             "w8a8,deploy")
     ap.add_argument("--out", default="chip_smoke_out/chip_smoke.json")
-    ap.add_argument("--p3-parent", default=None,
-                    help="a tree holding the parent commit: the p3 phase "
-                         "times its P3 in turns with this one")
+    ap.add_argument("--package-tree", default=None,
+                    help="import fp8tpu_torch from this tree (a git archive "
+                         "of another commit) rather than from beside the "
+                         "script: timing phases then measure that commit's "
+                         "kernels with this script, for turns in one call")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -8235,7 +8631,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.path.abspath(args.package_tree) if args.package_tree
+                    else os.path.dirname(os.path.abspath(__file__)))
     try:
         import fp8tpu_torch  # noqa: F401
     except ImportError as e:
@@ -8246,7 +8643,8 @@ def main(argv=None) -> int:
     from fp8tpu_torch.tools import card_line
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
-          f"{torch.version.cuda}")
+          f"{torch.version.cuda}; fp8tpu_torch from "
+          f"{os.path.dirname(os.path.dirname(fp8tpu_torch.__file__))}")
     record = {"card": card, "phases": {}}
     launches = serve_launches = paged_launches = train_launches = None
     lm_launches = None
@@ -8270,6 +8668,12 @@ def main(argv=None) -> int:
                 w8a8_kernel_checks(record)
             elif phase == "w8a8_time":
                 time_w8a8_kernels(record)
+            elif phase == "w8a8_steps":
+                steps = {"decode": time_direct_step(),
+                         "prefill": time_direct_prefill()}
+                record.setdefault("time", {})["w8a8_steps"] = steps
+                if codes_route():
+                    two_launches(steps)
             elif phase == "w8a8_p1probe":
                 phase_w8a8_p1probe(record)
             elif phase == "profile_probe":
@@ -8293,7 +8697,7 @@ def main(argv=None) -> int:
             elif phase == "train":
                 train_launches = phase_train(record, BATCH)
             elif phase == "p3":
-                p3_kernels = phase_p3(record, args.p3_parent)
+                p3_kernels = phase_p3(record)
             elif phase == "train_lm":
                 lm_launches = phase_train_lm(record)
             elif phase == "train_lm_control":

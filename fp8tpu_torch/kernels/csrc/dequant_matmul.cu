@@ -1,5 +1,6 @@
 // K3, the serving linear:  out = (x @ upcast(w8)) * s[N]
-// (with row scales, W8A8's int8 route: (x @ upcast(w8)) * (rs[M] * s[N]))
+// (with row scales, W8A8's int8 route: (x @ upcast(w8)) * (rs[M] * s[N]),
+// x the e4m3 activation codes' exact f16 values that P2 writes)
 //
 // Replaces fp8tpu/kernels/qmatmul.py::_dequant_matmul_kernel.  x is (M, K)
 // bf16, w8 a (K, N) payload of e4m3, e5m2 or int8 bytes, s one f32 scale
@@ -15,6 +16,16 @@
 // at M <= 64, its prefill route (128 x 128 tiles on two warpgroups) above.
 // Shapes that TMA cannot address run the general kernel of w_gemm.cuh.
 // All split K deterministically (split_k.cuh).
+//
+// W8A8's int8 route (payload I8_F16) is its own policy of the streaming
+// loop: x holds P2's f16 codes, the int8 bytes become f16 by a magic
+// number (w_stream.cuh's F16), the MMA is wgmma .f32.f16.f16.  Every code
+// and byte is exact in f16 and every product exact in f32, as in bf16, but
+// the convert is 1.5 instructions an element where bf16's is 2.25 (and
+// its bf16 fma is slow: the bf16 route was 0.43 ms at the gate's prefill,
+// this one 0.32), and P2 hands the GEMM its codes with no convert launch
+// between them.
+// The general kernel takes f16 x on mma.sync (W8F16).
 
 #include "w8_policy.cuh"
 #include "w_stream.cuh"
@@ -32,6 +43,7 @@ template <int FMT>
 struct S8 {
     static constexpr int KIND = ws::BYTE8;
     static constexpr bool GROUPED = false;
+    static constexpr bool F16 = false;
 
     static __device__ __forceinline__ uint32_t cvt2(uint32_t two) {
         if constexpr (FMT == w8::INT8) {
@@ -49,9 +61,30 @@ struct S8 {
     }
 };
 
+// W8A8's int8 route: f16 x, int8 bytes to f16 fragments (w_stream.cuh)
+struct Int8F16 {
+    static constexpr int KIND = ws::BYTE8;
+    static constexpr bool GROUPED = false;
+    static constexpr bool F16 = true;
+};
+
+// The streaming loop's policy and the general kernel's of a payload
+template <int FMT>
+struct Policies {
+    using Stream = S8<FMT>;
+    using General = W8<FMT>;
+};
+template <>
+struct Policies<w8::I8_F16> {
+    using Stream = Int8F16;
+    using General = w8::W8F16;
+};
+
 template <int FMT>
 cudaError_t launch_fmt(const wg::Args& A, const void* x, const void* w8,
                        int out_f32, int route, cudaStream_t stream) {
+    using SP = typename Policies<FMT>::Stream;
+    using GP = typename Policies<FMT>::General;
     if (route) {
         ws::Launch L;
         L.x = x; L.w = w8; L.col_scale = A.s; L.group_scale = nullptr;
@@ -61,20 +94,23 @@ cudaError_t launch_fmt(const wg::Args& A, const void* x, const void* w8,
         L.splits = A.splits; L.kper = A.kper; L.group = 0;
         L.out_f32 = out_f32;
         return route == ws::PREFILL_ROUTE
-            ? ws::launch_prefill<S8<FMT>>(L, stream)
-            : ws::launch<S8<FMT>>(L, route, stream);
+            ? ws::launch_prefill<SP>(L, stream)
+            : ws::launch<SP>(L, route, stream);
     }
-    return out_f32 ? wg::launch<W8<FMT>, true>(A, stream)
-                   : wg::launch<W8<FMT>, false>(A, stream);
+    return out_f32 ? wg::launch<GP, true>(A, stream)
+                   : wg::launch<GP, false>(A, stream);
 }
 
 }  // namespace
 
-// payload: 0 e4m3, 1 e5m2, 2 int8.  ws / counters are used when splits > 1:
+// payload: 0 e4m3, 1 e5m2, 2 int8, 3 int8 with x f16 (W8A8's int8 route:
+// x holds P2's f16 codes, row_scales its scales).  ws / counters are used
+// when splits > 1:
 // ws holds splits * m * n floats, counters one zeroed int per output tile.
 // row_scales: null, or one f32 a row of x, multiplied into the column
 // scale before the product (the W8A8 route of int8 weights, whose x holds
-// e4m3 activation codes as bf16: every product is still exact).
+// e4m3 activation codes as f16, or as bf16 with payload 2: every product
+// is still exact).
 // route: 0 the general kernel; 1 or 2 the streaming loop's decode form
 // with that many m64 tiles a block (qmatmul.py::stream_plan: m <= 64,
 // k % 8 == 0, n % 16 == 0, 16-byte aligned x and w8); 3 its prefill
@@ -109,6 +145,8 @@ extern "C" int fp8_dequant_matmul(const void* x, const void* w8,
             return (int)launch_fmt<E5M2>(A, x, w8, out_f32, route, st);
         case INT8:
             return (int)launch_fmt<INT8>(A, x, w8, out_f32, route, st);
+        case w8::I8_F16:
+            return (int)launch_fmt<w8::I8_F16>(A, x, w8, out_f32, route, st);
     }
     return (int)cudaErrorInvalidValue;
 }

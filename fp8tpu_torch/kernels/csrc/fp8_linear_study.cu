@@ -39,6 +39,7 @@ template <int CONV>
 struct Bits {
     static constexpr int KIND = ws::BYTE8;
     static constexpr bool GROUPED = false;
+    static constexpr bool F16 = false;
 
     static __device__ __forceinline__ uint32_t cvt2(uint32_t two) {
         return e4m3::cvt2<CONV>(two);
@@ -49,6 +50,7 @@ struct Bits {
 struct Bf16 {
     static constexpr int KIND = ws::HALF16;
     static constexpr bool GROUPED = false;
+    static constexpr bool F16 = false;
 };
 
 template <class P>

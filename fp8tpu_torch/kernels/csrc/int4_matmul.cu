@@ -24,6 +24,7 @@
 namespace {
 
 struct W4 {
+    static constexpr bool F16 = false;      // bf16 x and weight pairs
     // Thread t owns packed row k0/2 + t/4 (K rows k0 + 2p, k0 + 2p + 1) and
     // the 16 columns from n0 + 16 * (t % 4).
     struct Regs { uint4 a; };
@@ -95,6 +96,7 @@ template <bool G>
 struct W4S {
     static constexpr int KIND = ws::NIB4;
     static constexpr bool GROUPED = G;
+    static constexpr bool F16 = false;
 };
 
 }  // namespace

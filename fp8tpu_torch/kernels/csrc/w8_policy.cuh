@@ -12,7 +12,8 @@
 
 namespace w8 {
 
-enum Payload { E4M3 = 0, E5M2 = 1, INT8 = 2 };
+// I8_F16: int8 bytes against f16 x (W8A8's int8 route, W8F16)
+enum Payload { E4M3 = 0, E5M2 = 1, INT8 = 2, I8_F16 = 3 };
 
 template <int FMT>
 __device__ __forceinline__ float2 upcast2(unsigned short two) {
@@ -29,6 +30,7 @@ __device__ __forceinline__ float2 upcast2(unsigned short two) {
 
 template <int FMT>
 struct W8 {
+    static constexpr bool F16 = false;      // bf16 x and weight pairs
     // Thread t owns K rows (k0 + 2p, k0 + 2p + 1), p = t / 4, and the 16
     // columns from n0 + 16 * (t % 4).
     struct Regs { uint4 a, b; };
@@ -82,6 +84,40 @@ struct W8 {
     static __device__ __forceinline__ float epilogue_scale(const wg::Args& A,
                                                            int col) {
         return A.s[col];
+    }
+};
+
+// int8 bytes as f16 pairs against f16 x (mma.sync f16: W8A8's int8 route
+// on shapes TMA cannot read); every int8 value is exact in f16.
+struct W8F16 : W8<INT8> {
+    static constexpr bool F16 = true;
+
+    static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+        const __half2 h = __floats2half2_rn(lo, hi);    // .x = lo
+        return *reinterpret_cast<const uint32_t*>(&h);
+    }
+
+    static __device__ __forceinline__ void stash(const Regs& r,
+                                                 const wg::Args&, int, int,
+                                                 int t,
+                                                 uint32_t (*wp)[wg::WS]) {
+        const unsigned short* a =
+            reinterpret_cast<const unsigned short*>(&r.a);
+        const unsigned short* b =
+            reinterpret_cast<const unsigned short*>(&r.b);
+        uint32_t* dst = &wp[t >> 2][16 * (t & 3)];
+#pragma unroll
+        for (int e = 0; e < 8; e += 2) {
+            uint4 o;
+            float2 lo = upcast2<INT8>(a[e]), hi = upcast2<INT8>(b[e]);
+            o.x = pack(lo.x, hi.x);
+            o.y = pack(lo.y, hi.y);
+            lo = upcast2<INT8>(a[e + 1]);
+            hi = upcast2<INT8>(b[e + 1]);
+            o.z = pack(lo.x, hi.x);
+            o.w = pack(lo.y, hi.y);
+            *reinterpret_cast<uint4*>(dst + 2 * e) = o;
+        }
     }
 };
 

@@ -7,8 +7,12 @@
 //
 // P2, quantize_rows:  xq[m, :] = fp8(clip(x[m, :] / s[m])),
 //                     s[m] = amax_m > 0 ? amax_m / max_normal : 1
-// x (M, K) bf16, xq (M, K) e4m3 (or e5m2) bytes, s (M,) f32.  Bound: its
-// bytes, 3 K bytes a row.  One pass: each row is loaded once into
+// x (M, K) bf16, xq (M, K) e4m3 (or e5m2) bytes, s (M,) f32; or xq the
+// codes' exact values as f16, written where the byte would be:
+// the codes in the type the int8 route's GEMM reads (K3's int8 route,
+// dequant_matmul.cu), so that no convert launch lies between the two.
+// Bound: its bytes, 3 K bytes a row (4 K with 2-byte codes).  One pass:
+// each row is loaded once into
 // registers with 16-byte loads (8 bf16 a chunk, at most Q_MAX_CHUNKS a
 // thread), its amax taken as the largest magnitude's bits by a warp
 // reduction (and, where a row spans several warps, one exchange through
@@ -26,7 +30,11 @@
 // row without NaNs with a finite scale of at least 2^-60 (every row of a
 // served model) takes a fast path with the same results: no NaN or
 // infinity can occur in it, and each element's divide is a product and two
-// fmas (quot_fast).  Others take cast.cuh's rules element by element.  One
+// corrections of two fmas each (quot_fast), correctly rounded for every
+// divisor.  Others take cast.cuh's rules element by element.  A code's
+// f16 value is the hardware convert of two codes (cvt.rn.f16x2.e4m3x2);
+// a NaN code's is the sign and the quiet NaN 0x7E00, as XLA's convert
+// writes it.  One
 // rule is the port's own: a row whose amax lies in (0, max_normal 2^-126)
 // keeps its subnormal scale, where XLA flushes the quotient to 0 and stores
 // +-max and NaN codes (ROADMAP §3).
@@ -61,6 +69,7 @@
 // gridDim.z, deterministic (split_k.cuh).  No allocation, no host
 // synchronisation: a launch can be captured in a CUDA graph.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -129,16 +138,21 @@ __device__ __forceinline__ uint2 chunk_codes(const uint4& v, float sc) {
 // The fast path, for a row without NaNs whose scale lies in [2^-60,
 // FLT_MAX] (so no element is infinite either): the same codes with less
 // work an element.
-// |x| / s rounded once by Markstein's correction of a product with
-// y = RN(1 / s): q0 = RN(a y) lies within an ulp of a / s, r = a - s q0 is
-// exact (one fma), and RN(q0 + r y) = RN(a / s) wherever the quotient is
-// at least 2^-20 (no step underflows there: a >= 2^-80); smaller
-// quotients, and those of bf16 subnormals (a flushed divide's zeros), take
-// the code 0 either way.  Then the clip, cast.cuh's RNE onto the grid and
-// the convert of |x|'s quotient; the sign goes onto the code.
+// |x| / s rounded once from y = RN(1 / s): q0 = RN(a y), then two
+// corrections q' = RN(q + RN(a - s q) y), as P3's divides (adam8.cu's
+// header has the proof): q0 lies within 2 ulp of a / s, the first
+// correction makes it faithful, and from a faithful quotient the second
+// is Markstein's theorem (the remainder a - s q exact, RN(q + r y) =
+// RN(a / s)).  One correction needs q0 faithful, which RN(a y) is not for
+// every divisor (trap 73).  No step underflows wherever the quotient is at
+// least 2^-20 (a >= 2^-80); smaller quotients, and those of bf16
+// subnormals (a flushed divide's zeros), take the code 0 either way.
+// Then the clip, cast.cuh's RNE onto the grid and the convert of |x|'s
+// quotient; the sign goes onto the code.
 __device__ __forceinline__ float quot_fast(float a, float s, float y) {
     const float q0 = __fmul_rn(a, y);
-    return __fmaf_rn(__fmaf_rn(-q0, s, a), y, q0);
+    const float q1 = __fmaf_rn(__fmaf_rn(-q0, s, a), y, q0);
+    return __fmaf_rn(__fmaf_rn(-q1, s, a), y, q1);
 }
 
 // the two codes of a word's two bf16, in its low 16 bits
@@ -165,24 +179,77 @@ __device__ __forceinline__ uint2 chunk_codes_fast(const uint4& v, float s,
                           | (codes2_fast<F>(v.w, s, y) << 16));
 }
 
+// What P2 writes a code as: its byte, or its exact value as f16.
+enum Codes : int { Q_BYTES = 0, Q_F16 = 1 };
+
+// Two codes (the low one in bits 0-7) as an f16x2 word of their values, by
+// the hardware convert (no NaN code).
+template <int F>
+__device__ __forceinline__ uint32_t widen2(uint32_t two) {
+    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+        (__nv_fp8x2_storage_t)(two & 0xFFFFu),
+        F == fp8::E4M3 ? __NV_E4M3 : __NV_E5M2);
+    return (uint32_t)h.x | ((uint32_t)h.y << 16);
+}
+
+// One code's f16 value, a NaN code as XLA's convert writes it (the code's
+// sign on the quiet NaN).
+template <int F>
+__device__ __forceinline__ uint16_t widen1(uint32_t code) {
+    const bool nan = F == fp8::E4M3 ? (code & 0x7Fu) == 0x7Fu
+                                    : (code & 0x7Fu) > 0x7Cu;
+    if (nan) return (uint16_t)(((code & 0x80u) << 8) | 0x7E00u);
+    return (uint16_t)(widen2<F>(code) & 0xFFFFu);
+}
+
+// Stores the 8 codes of a chunk (``c``: byte 0 the first) at element i of
+// row ``out``; ``nan`` where a code may be a NaN (the slow path).
+template <int F, int OUT>
+__device__ __forceinline__ void store_chunk(void* out, int i, uint2 c,
+                                           bool nan) {
+    if constexpr (OUT == Q_BYTES) {
+        *reinterpret_cast<uint2*>(reinterpret_cast<uint8_t*>(out) + i) = c;
+    } else {
+        uint32_t w[4];
+        if (nan) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const uint32_t two = (e < 2 ? c.x : c.y) >> (16 * (e & 1));
+                w[e] = widen1<F>(two & 0xFFu)
+                       | ((uint32_t)widen1<F>((two >> 8) & 0xFFu) << 16);
+            }
+        } else {
+            w[0] = widen2<F>(c.x);
+            w[1] = widen2<F>(c.x >> 16);
+            w[2] = widen2<F>(c.y);
+            w[3] = widen2<F>(c.y >> 16);
+        }
+        *reinterpret_cast<uint4*>(reinterpret_cast<uint16_t*>(out) + i) =
+            make_uint4(w[0], w[1], w[2], w[3]);
+    }
+}
+
 // Rows of ``gw`` warps (1, 2, 4 or 8), Q_WARPS / gw rows a block.  C > 0:
 // the register path, C chunks of 8 bf16 a thread (k % 8 == 0, x 16-byte
-// and q 8-byte aligned, k <= 8 C 32 gw).  C == 0: the looped path, gw = 8
-// (one row a block), vec choosing 16-byte or scalar accesses.  The amax is
-// the largest magnitude's bits (for a row with NaNs of several payloads
-// the largest payload, where a float max keeps the first it meets).
-template <int F, int C>
+// and q 8-byte (2-byte codes: 16-byte) aligned, k <= 8 C 32 gw).  C == 0:
+// the looped path, gw = 8 (one row a block), vec choosing 16-byte or
+// scalar accesses.  The amax is the largest magnitude's bits (for a row
+// with NaNs of several payloads the largest payload, where a float max
+// keeps the first it meets).
+template <int F, int C, int OUT>
 __global__ void __launch_bounds__(Q_THREADS)
 quantize_rows_kernel(const __nv_bfloat16* __restrict__ x,
-                     uint8_t* __restrict__ q, float* __restrict__ s, int m,
+                     void* __restrict__ q, float* __restrict__ s, int m,
                      int k, int gw, int vec) {
     __shared__ uint32_t red[Q_WARPS];
+    constexpr int QB = OUT == Q_BYTES ? 1 : 2;      // bytes a code
     const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
     const long long row = (long long)blockIdx.x * (Q_WARPS / gw) + warp / gw;
     const int tr = (warp % gw) * 32 + lane, nt = 32 * gw;
     const bool live = row < m;
     const __nv_bfloat16* in = x + (live ? row : 0) * (size_t)k;
-    uint8_t* out = q + (live ? row : 0) * (size_t)k;
+    void* out = reinterpret_cast<uint8_t*>(q)
+                + (live ? row : 0) * (size_t)k * QB;
     const uint16_t* bits = reinterpret_cast<const uint16_t*>(in);
 
     uint32_t lo = 0u, hi = 0u;
@@ -225,33 +292,40 @@ quantize_rows_kernel(const __nv_bfloat16* __restrict__ x,
             for (int c = 0; c < C; ++c) {
                 const int i = 8 * (c * nt + tr);
                 if (i < k)
-                    *reinterpret_cast<uint2*>(out + i) =
-                        chunk_codes_fast<F>(v[c], sc, y);
+                    store_chunk<F, OUT>(out, i,
+                                        chunk_codes_fast<F>(v[c], sc, y),
+                                        false);
             }
         } else {
 #pragma unroll
             for (int c = 0; c < C; ++c) {
                 const int i = 8 * (c * nt + tr);
                 if (i < k)
-                    *reinterpret_cast<uint2*>(out + i) =
-                        chunk_codes<F>(v[c], sc);
+                    store_chunk<F, OUT>(out, i, chunk_codes<F>(v[c], sc),
+                                        true);
             }
         }
     } else if (vec) {
         for (int i = 8 * tr; i < k; i += 8 * nt) {
             const uint4 u = *reinterpret_cast<const uint4*>(in + i);
-            *reinterpret_cast<uint2*>(out + i) =
-                fast ? chunk_codes_fast<F>(u, sc, y) : chunk_codes<F>(u, sc);
+            store_chunk<F, OUT>(out, i,
+                                fast ? chunk_codes_fast<F>(u, sc, y)
+                                     : chunk_codes<F>(u, sc), !fast);
         }
     } else {
-        for (int i = tr; i < k; i += nt)
-            out[i] = to_code<F>(div_row(fp8::flush(__bfloat162float(in[i])),
-                                        sc));
+        for (int i = tr; i < k; i += nt) {
+            const uint8_t code = to_code<F>(
+                div_row(fp8::flush(__bfloat162float(in[i])), sc));
+            if constexpr (OUT == Q_BYTES)
+                reinterpret_cast<uint8_t*>(out)[i] = code;
+            else
+                reinterpret_cast<uint16_t*>(out)[i] = widen1<F>(code);
+        }
     }
 }
 
-template <int F>
-cudaError_t quantize_launch(const __nv_bfloat16* x, uint8_t* q, float* s,
+template <int F, int OUT>
+cudaError_t quantize_launch(const __nv_bfloat16* x, void* q, float* s,
                             int m, int k, bool vec, cudaStream_t st) {
     const long long chunks = k / 8;
     int gw = Q_WARPS, c = 0;
@@ -269,13 +343,62 @@ cudaError_t quantize_launch(const __nv_bfloat16* x, uint8_t* q, float* s,
     if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
     const dim3 grid((unsigned)blocks);
     switch (c) {
-#define Q_CASE(C) case C: quantize_rows_kernel<F, C><<<grid, Q_THREADS, 0, \
-                      st>>>(x, q, s, m, k, gw, vec); break;
+#define Q_CASE(C) case C: quantize_rows_kernel<F, C, OUT><<<grid, Q_THREADS, \
+                      0, st>>>(x, q, s, m, k, gw, vec); break;
         Q_CASE(0) Q_CASE(1) Q_CASE(2) Q_CASE(4) Q_CASE(8)
 #undef Q_CASE
         default: return cudaErrorInvalidValue;
     }
     return cudaGetLastError();
+}
+
+template <int F>
+cudaError_t quantize_codes(const __nv_bfloat16* x, void* q, float* s, int m,
+                           int k, int codes, bool vec, cudaStream_t st) {
+    switch (codes) {
+        case Q_BYTES:
+            return quantize_launch<F, Q_BYTES>(x, q, s, m, k, vec, st);
+        case Q_F16:
+            return quantize_launch<F, Q_F16>(x, q, s, m, k, vec, st);
+    }
+    return cudaErrorInvalidValue;
+}
+
+// The probe of quot_fast (chip_smoke.py's w8a8 phase): for every f32
+// significand of a (2^23 values, exponent ``a_exp``) and each divisor s of
+// ``div`` (with y = RN(1 / s)), quot_fast's quotient against __fdiv_rn,
+// and the e4m3 code
+// of |a| / s on the fast path's rules against cast.cuh's path (to_code of
+// div_row).  counts[0] += differing quotients, counts[1] += differing
+// codes; the first 16 pairs (a, s bits) of differing quotients go to
+// ``pairs``, counts[2] counting them.
+__global__ void quot_probe_kernel(const float* __restrict__ div, int nd,
+                                  int a_exp, unsigned long long* counts,
+                                  uint32_t* pairs) {
+    const float s = div[blockIdx.y];
+    const float y = __frcp_rn(s);
+    constexpr float top = fp8::Hw<fp8::E4M3>::top;
+    unsigned dq = 0, dc = 0;
+    for (uint32_t m = blockIdx.x * blockDim.x + threadIdx.x; m < (1u << 23);
+         m += gridDim.x * blockDim.x) {
+        const float a = __uint_as_float(((uint32_t)(a_exp + 127) << 23) | m);
+        const float q = quot_fast(a, s, y);
+        const float want = __fdiv_rn(a, s);
+        if (__float_as_uint(q) != __float_as_uint(want)) {
+            ++dq;
+            const unsigned slot = (unsigned)atomicAdd(counts + 2, 1ull);
+            if (slot < 16) {
+                pairs[2 * slot] = __float_as_uint(a);
+                pairs[2 * slot + 1] = __float_as_uint(s);
+            }
+        }
+        const uint32_t fast = __nv_cvt_float_to_fp8(
+            fp8::round_grid<fp8::E4M3>(fminf(q, top)), __NV_SATFINITE,
+            __NV_E4M3);
+        if (fast != to_code<fp8::E4M3>(div_row(a, s))) ++dc;
+    }
+    if (dq) atomicAdd(counts, (unsigned long long)dq);
+    if (dc) atomicAdd(counts + 1, (unsigned long long)dc);
 }
 
 // -- P1 ----------------------------------------------------------------------
@@ -287,6 +410,7 @@ template <bool E5, int SUB_>
 struct P1Fp8 {
     static constexpr int KIND = ws::FP8;
     static constexpr bool GROUPED = false;
+    static constexpr bool F16 = false;
     static constexpr bool E5M2 = E5;
     static constexpr int SUB = SUB_;
 };
@@ -317,21 +441,37 @@ cudaError_t p1_launch(const ws::Launch& L, int route, int sub,
 
 }  // namespace
 
-// P2.  fmt: 0 e4m3, 1 e5m2.  x (m, k) bf16, q (m, k) bytes, s (m,) f32.
+// P2.  fmt: 0 e4m3, 1 e5m2.  x (m, k) bf16, s (m,) f32, q (m, k): codes 0
+// the codes' bytes, 1 their values as f16.
 extern "C" int fp8_quantize_rows(const void* x, void* q, void* s, int m,
-                                 int k, int fmt, void* stream) {
+                                 int k, int fmt, int codes, void* stream) {
     if (m < 1 || k < 1) return (int)cudaErrorInvalidValue;
     const bool vec = k % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0
-                     && reinterpret_cast<uintptr_t>(q) % 8 == 0;
+                     && reinterpret_cast<uintptr_t>(q) % (codes ? 16 : 8)
+                        == 0;
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
     const auto* xb = reinterpret_cast<const __nv_bfloat16*>(x);
-    auto* qb = reinterpret_cast<uint8_t*>(q);
     auto* sf = reinterpret_cast<float*>(s);
     if (fmt == 0)
-        return (int)quantize_launch<fp8::E4M3>(xb, qb, sf, m, k, vec, st);
+        return (int)quantize_codes<fp8::E4M3>(xb, q, sf, m, k, codes, vec, st);
     if (fmt == 1)
-        return (int)quantize_launch<fp8::E5M2>(xb, qb, sf, m, k, vec, st);
+        return (int)quantize_codes<fp8::E5M2>(xb, q, sf, m, k, codes, vec, st);
     return (int)cudaErrorInvalidValue;
+}
+
+// quot_fast's probe (quot_probe_kernel): divisors div (nd,) f32 normal,
+// a's exponent a_exp; counts (3,) u64 and pairs (32,) u32 zeroed by the
+// caller.
+extern "C" int fp8_quot_probe(const void* div, int nd, int a_exp,
+                              void* counts, void* pairs, void* stream) {
+    if (nd < 1 || nd > 65535 || a_exp < -126 || a_exp > 127)
+        return (int)cudaErrorInvalidValue;
+    quot_probe_kernel<<<dim3(256, nd), 256, 0,
+                        reinterpret_cast<cudaStream_t>(stream)>>>(
+        reinterpret_cast<const float*>(div), nd, a_exp,
+        reinterpret_cast<unsigned long long*>(counts),
+        reinterpret_cast<uint32_t*>(pairs));
+    return (int)cudaGetLastError();
 }
 
 // P1.  w_fmt: 0 e4m3, 1 e5m2.  k % 32 == 0, n % 16 == 0, 16-byte aligned

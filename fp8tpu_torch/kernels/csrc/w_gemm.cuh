@@ -43,7 +43,7 @@ constexpr int XS = BK + 8;     // bf16 per row of the x tile (conflict-free)
 constexpr int WS = BN + 8;     // words per row of the packed W tile
 
 struct Args {
-    const __nv_bfloat16* x;    // (M, K) row-major
+    const __nv_bfloat16* x;    // (M, K) row-major (f16 bits for W8F16)
     const void* w;             // payload, row-major, N columns
     const float* s;            // (N,) or (K/group, N) scales
     const float* rs = nullptr; // (M,) row scales (W8A8), or null
@@ -65,6 +65,15 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
     asm volatile(
         "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_f16(float (&c)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
         "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
         : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
@@ -153,6 +162,8 @@ __device__ __forceinline__ void epilogue(const Args& A, float (&acc)[MT][NT][4],
 }
 
 // W is a policy with
+//   F16                                            f16 x and weight pairs
+//                                                  (mma.sync f16), else bf16
 //   struct Regs;                                   one thread's payload
 //   static void fetch(Regs&, const Args&, int k0, int kend, int n0, int t);
 //   static void stash(const Regs&, const Args&, int k0, int n0, int t,
@@ -253,7 +264,12 @@ w_gemm_kernel(const Args A) {
                 const uint32_t b0 = wp[kk / 2 + q][c];
                 const uint32_t b1 = wp[kk / 2 + 4 + q][c];
 #pragma unroll
-                for (int i = 0; i < MT; ++i) mma_bf16(acc[i][j], a[i], b0, b1);
+                for (int i = 0; i < MT; ++i) {
+                    if constexpr (W::F16)
+                        mma_f16(acc[i][j], a[i], b0, b1);
+                    else
+                        mma_bf16(acc[i][j], a[i], b0, b1);
+                }
             }
         }
         __syncthreads();

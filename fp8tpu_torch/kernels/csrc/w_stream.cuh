@@ -72,10 +72,22 @@
 //   (qmatmul.py::W8A8_PROMOTE): whole stages at runtime, or SUB k32 steps
 //   inside a stage for the probe.
 //
+// * F16 (K3's int8 route, W8A8): x is the e4m3 activation codes' exact f16
+//   values (P2 writes them), read by TMA in bf16's 2-byte boxes, and the
+//   int8 weight bytes become f16 A fragments by a magic number:
+//   0x6400 | (v ^ 0x80) is the f16 of 1024 + (v + 128), exact in f16's 11
+//   significant bits, and one f16x2 subtract of 1152 leaves v (one prmt,
+//   one lop3 and one subtract a register of two: int8_f16).  The
+//   MMA is wgmma .f32.f16.f16 at the bf16 rate; every code and byte is
+//   exact in f16 and every product exact in f32, so the sums are f32-grade
+//   as bf16's.
+//
 // A payload policy P gives KIND (BYTE8, NIB4, HALF16 or FP8), GROUPED (int4
-// scales per K group, multiplied into the weights in bf16), for BYTE8
-// cvt2(two bytes of one column at K rows k, k + 1) -> one bf16x2 register,
-// and for FP8 E5M2 (the weight's format) and SUB.
+// scales per K group, multiplied into the weights in bf16), F16 (true:
+// f16 x and int8 bytes to f16 fragments, K3's int8 route; false: bf16 x
+// or fp8 codes), for BYTE8 with F16 false cvt2(two bytes of one column at
+// K rows k, k + 1) -> one bf16x2 register, and for FP8 E5M2 (the
+// weight's format) and SUB.
 #pragma once
 
 #include <cuda.h>
@@ -261,11 +273,12 @@ __device__ __forceinline__ uint64_t desc_b(uint32_t addr) {
     "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, " \
     "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}", \
     "{%64, %65, %66, %67}, %68", WS_D64)
-// bf16 (T = 0): m64nNk16, A 64 x 16 bf16; fp8 (T = 1: e4m3, 2: e5m2
-// weights): m64nNk32, A 64 x 32 bytes, B always e4m3 (the PTX ISA takes no
-// transpose arguments for 8-bit types).
+// bf16 (T = 0) and f16 (T = 3): m64nNk16, A 64 x 16; fp8 (T = 1: e4m3,
+// 2: e5m2 weights): m64nNk32, A 64 x 32 bytes, B always e4m3 (the PTX ISA
+// takes no transpose arguments for 8-bit types).
 #define WS_RS_T(MAC, NS) \
     if constexpr (T == 0) MAC("m64n" NS "k16.f32.bf16.bf16", "1, 1, 0"); \
+    else if constexpr (T == 3) MAC("m64n" NS "k16.f32.f16.f16", "1, 1, 0"); \
     else if constexpr (T == 1) MAC("m64n" NS "k32.f32.e4m3.e4m3", "1, 1"); \
     else MAC("m64n" NS "k32.f32.e5m2.e4m3", "1, 1");
 
@@ -287,6 +300,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
 template <class P>
 __host__ __device__ constexpr int mma_type() {
     if constexpr (P::KIND == FP8) return P::E5M2 ? 2 : 1;
+    else if constexpr (P::F16) return 3;
     else return 0;
 }
 
@@ -310,6 +324,28 @@ __device__ __forceinline__ uint32_t fma_bf16x2(uint32_t a, uint32_t b,
 __device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
     __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);   // .x = lo (low half)
     return *reinterpret_cast<uint32_t*>(&p);
+}
+
+__device__ __forceinline__ uint32_t sub_f16x2(uint32_t a, uint32_t b) {
+    uint32_t d;
+    asm("sub.f16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+    return d;
+}
+
+// int8 to f16: byte v flipped by 0x80 (v + 128), under 0x64 in the high
+// byte of its half, is the f16 of 1024 + (v + 128); the subtract of
+// I8F16_BIAS (1152 in both halves) is exact and leaves v.
+constexpr uint32_t I8F16_BIAS = 0x64806480u;
+
+// The int8 bytes that selector ``sel`` picks from (x, y) into bytes 0 and
+// 2 (bytes 1 and 3 are dropped) as an f16x2 register: one prmt, one lop3
+// (the mask, the flip and the 0x64 at once), one subtract.  (Flipping a
+// whole word first and taking 0x64 from a second prmt operand is fewer
+// instructions, and slower at the prefill route: PERF.md §6.)
+__device__ __forceinline__ uint32_t int8_f16(uint32_t x, uint32_t y,
+                                             uint32_t sel) {
+    return sub_f16x2((__byte_perm(x, y, sel) & 0x00FF00FFu) ^ 0x64806480u,
+                     I8F16_BIAS);
 }
 
 // Two signed nibbles, in bits 0-3 (low half) and 16-19 (high half) of x, to
@@ -511,7 +547,28 @@ template <class P, int MT>
 __device__ __forceinline__ void convert_step(const Raw<P, MT>& raw,
                                              const uint32_t (&sc)[2 * MT],
                                              uint32_t (&a)[MT][4]) {
-    if constexpr (P::KIND == BYTE8 && MT == 1) {
+    if constexpr (P::F16 && MT == 1) {
+        // int8 to f16: a word holds (row k col c, row k col c + 1, row
+        // k + 1 col c, row k + 1 col c + 1); bytes 0, 2 are column c's pair
+        a[0][0] = int8_f16(raw.w[0], 0u, 0x3230u);
+        a[0][1] = int8_f16(raw.w[0], 0u, 0x3331u);
+        a[0][2] = int8_f16(raw.w[1], 0u, 0x3230u);
+        a[0][3] = int8_f16(raw.w[1], 0u, 0x3331u);
+    } else if constexpr (P::F16) {
+        // int8 to f16 at MT = 2: words of one K row's four columns; the
+        // pair of column j is byte j of rows k and k + 1
+#pragma unroll
+        for (int t = 0; t < MT; ++t) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const uint32_t j = 2 * t + h;
+                const uint32_t sel = j | (j << 4) | ((4 + j) << 8)
+                                     | ((4 + j) << 12);
+                a[t][h] = int8_f16(raw.w[0], raw.w[1], sel);
+                a[t][2 + h] = int8_f16(raw.w[2], raw.w[3], sel);
+            }
+        }
+    } else if constexpr (P::KIND == BYTE8 && MT == 1) {
         // (row k, row k + 1) pairs of columns c and c + 1
         const uint32_t lo = __byte_perm(raw.w[0], 0, 0x3120);
         const uint32_t hi = __byte_perm(raw.w[1], 0, 0x3120);
@@ -913,7 +970,7 @@ inline bool encode(CUtensorMap* map, CUtensorMapDataType type, int elt,
 }
 
 struct Launch {
-    const void* x;              // (m, k) bf16 (FP8: e4m3 bytes)
+    const void* x;              // (m, k) bf16 (FP8: e4m3 bytes; F16: f16)
     const void* w;              // the payload: (k, n) bytes or bf16, or
                                 // (k / 2, n) packed int4
     const float* col_scale;     // (n,) or null
@@ -951,8 +1008,10 @@ cudaError_t launch_tiles(const Launch& L, cudaStream_t stream) {
         ok = ok && encode(&tx, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, L.x, L.m,
                           L.k, NP, 128, CU_TENSOR_MAP_SWIZZLE_128B);
     else
-        ok = ok && encode(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, L.x, L.m,
-                          L.k, NP, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+        ok = ok && encode(&tx, P::F16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                          2, L.x, L.m, L.k, NP, 64,
+                          CU_TENSOR_MAP_SWIZZLE_128B);
     Args A;
     A.col_scale = L.col_scale;
     A.row_scale = L.row_scale;

@@ -46,7 +46,9 @@ launch.
 P1 and P2 have no TPU counterpart (the JAX package's
 ``matmul_impl="direct"`` is XLA ops): :func:`quantize_rows` quantizes an
 activation per row to e4m3, :func:`w8a8_matmul` contracts the codes with
-an e4m3 / e5m2 weight on the fp8 tensor cores.
+an e4m3 / e5m2 weight on the fp8 tensor cores.  For int8 weights P2
+writes the codes' exact f16 values and K3 contracts them on its int8
+route (f16 tensor cores, no convert launch between the two).
 """
 
 from __future__ import annotations
@@ -573,6 +575,9 @@ def conv(x, weight, strides, pads, fmt_x, mode_x, scale_x, seed=0,
 
 FP8_DTYPES = {"e4m3": torch.float8_e4m3fn, "e5m2": torch.float8_e5m2}
 _PAYLOAD_IDS = {torch.float8_e4m3fn: 0, torch.float8_e5m2: 1, torch.int8: 2}
+# csrc/dequant_matmul.cu's payload code of int8 weights against f16 x (the
+# int8 route of W8A8: x holds P2's f16 codes)
+_INT8_F16_ID = 3
 
 
 def div_exact(a: torch.Tensor, c: float) -> torch.Tensor:
@@ -632,6 +637,9 @@ def _check_dequant(x, w8, scales, out_dtype):
     if x.ndim != 2 or w8.ndim != 2 or x.shape[1] != w8.shape[0]:
         raise ValueError(f"dequant_matmul needs (M, K) @ (K, N), got "
                          f"{tuple(x.shape)} @ {tuple(w8.shape)}")
+    if x.dtype == torch.float16 and w8.dtype != torch.int8:
+        raise ValueError(f"dequant_matmul takes f16 x (W8A8's codes) with "
+                         f"int8 weights only, got {w8.dtype}")
     if w8.dtype not in _PAYLOAD_IDS:
         raise ValueError(f"dequant_matmul payload must be e4m3, e5m2 or "
                          f"int8, got {w8.dtype}")
@@ -651,13 +659,15 @@ def _check_row_scale(x, row_scale):
 
 def dequant_matmul_plain(x, w8, scales, out_dtype=torch.bfloat16,
                          row_scale=None):
-    """The plain version of K3 (any device): x rounded to bf16, an f32
-    contraction against the upcast payload, the scale in f32, one rounding
-    to ``out_dtype``.  With ``row_scale`` (M,) the product is scaled by
-    ``row_scale[m] * scales[n]``, in that order (W8A8's int8 route)."""
+    """The plain version of K3 (any device): x rounded to bf16 (f16 x, W8A8's
+    codes, taken as it is), an f32 contraction against the upcast payload,
+    the scale in f32, one rounding to ``out_dtype``.  With ``row_scale``
+    (M,) the product is scaled by ``row_scale[m] * scales[n]``, in that
+    order (W8A8's int8 route)."""
     _check_dequant(x, w8, scales, out_dtype)
     _check_row_scale(x, row_scale)
-    xb = x.to(torch.bfloat16).to(torch.float32)
+    xb = (x if x.dtype == torch.float16 else x.to(torch.bfloat16)).to(
+        torch.float32)
     with full_fp32():
         out = torch.matmul(xb, w8.to(torch.float32))
     s = scales.reshape(1, -1).to(torch.float32)
@@ -876,8 +886,11 @@ def dequant_matmul(x: torch.Tensor, w8: torch.Tensor, scales: torch.Tensor,
     """``x @ dequant(w8)``: x (M, K) bf16 or f32 (rounded to bf16), w8 (K, N)
     e4m3 / e5m2 / int8 from :func:`quantize_weights`, ``scales`` one f32
     per output column; ``row_scale`` (M,) f32 or None multiplies into the
-    column scale first (W8A8's int8 route: x holds e4m3 codes, exact in
-    bf16).  K3 on a CUDA tensor, the plain version on the CPU."""
+    column scale first.  f16 x is reserved for W8A8's int8 route and taken
+    as it is, not rounded: it holds the e4m3 codes' f16 values from
+    ``quantize_rows(..., codes_dtype=torch.float16)``, w8 must be int8
+    (f16 x with e4m3 / e5m2 weights raises), and the two are contracted on
+    the f16 tensor cores (every code, byte and product exact).  K3 on a CUDA tensor, the plain version on the CPU."""
     global dequant_launches
     if not x.is_cuda:
         return dequant_matmul_plain(x, w8, scales, out_dtype, row_scale)
@@ -888,7 +901,8 @@ def dequant_matmul(x: torch.Tensor, w8: torch.Tensor, scales: torch.Tensor,
     m, k = x.shape
     n = w8.shape[1]
     check_gemm_shape("dequant_matmul", m, n, k)
-    xb = x.to(torch.bfloat16).contiguous()
+    f16 = x.dtype == torch.float16
+    xb = (x if f16 else x.to(torch.bfloat16)).contiguous()
     w8 = w8.contiguous()
     s = scales.to(device=x.device, dtype=torch.float32).reshape(-1).contiguous()
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
@@ -897,7 +911,8 @@ def dequant_matmul(x: torch.Tensor, w8: torch.Tensor, scales: torch.Tensor,
     ws, counters = split_workspace(x.device, plan.splits, m, n)
     err = _dequant_fn()(
         xb.data_ptr(), w8.data_ptr(), s.data_ptr(), out.data_ptr(), m, n, k,
-        _PAYLOAD_IDS[w8.dtype], int(out_dtype == torch.float32), plan.splits,
+        _INT8_F16_ID if f16 else _PAYLOAD_IDS[w8.dtype],
+        int(out_dtype == torch.float32), plan.splits,
         plan.kper, plan.code, ws.data_ptr() if ws is not None else None,
         counters.data_ptr(), rs.data_ptr() if rs is not None else None,
         torch.cuda.current_stream(x.device).cuda_stream)
@@ -916,9 +931,10 @@ def dequant_matmul(x: torch.Tensor, w8: torch.Tensor, scales: torch.Tensor,
 # held in registers, and P1 ``w8a8_matmul``, the streaming loop's FP8 kind
 # (``csrc/w_stream.cuh``: wgmma.m64nNk32 on the fp8 tensor cores, the weight
 # bytes as the register A operand, xq as the K-major B from the TMA stage).
-# int8 weights have no fp8 partner on the tensor cores: they take K3
-# (``dequant_matmul(..., row_scale=)``) on the e4m3 codes as bf16, which is
-# exact.
+# int8 weights have no fp8 partner on the tensor cores: P2 writes the
+# codes' exact f16 values (``codes_dtype=torch.float16``) and K3's int8
+# route (``dequant_matmul(..., row_scale=)``) contracts them on the f16
+# tensor cores, every product exact.
 
 W8A8_FMTS = {torch.float8_e4m3fn: 0, torch.float8_e5m2: 1}
 # k32 steps the fp8 tensor cores sum before P1 adds the chunk into its f32
@@ -937,37 +953,72 @@ w8a8_launches = 0
 w8a8_routes = {"decode": 0, "prefill": 0}
 
 
-def quantize_rows_plain(x: torch.Tensor, fmt: str = "e4m3"):
+# What P2 writes a code as: its byte (the fp8 dtype), or its exact value
+# as f16 (the int8 route's GEMM reads it); the C entry's code
+CODES_DTYPES = {None: 0, torch.float16: 1}
+# A NaN code's f16 value as XLA's convert writes it: the sign on the quiet
+# NaN (as int16 bits: positive, negative)
+_NAN_BITS = (0x7E00, 0xFE00 - 0x10000)
+
+
+def codes_as(q: torch.Tensor, codes_dtype) -> torch.Tensor:
+    """The fp8 codes ``q`` as their exact values in ``codes_dtype`` (f16),
+    a NaN code as the JAX package's convert gives it (its sign on the quiet
+    NaN); ``q`` itself for None."""
+    if codes_dtype is None:
+        return q
+    v = q.to(torch.float32).to(codes_dtype)
+    pos, neg = _NAN_BITS
+    nan = torch.where(q.view(torch.uint8) >= 0x80,
+                      torch.tensor(neg, dtype=torch.int16, device=q.device),
+                      torch.tensor(pos, dtype=torch.int16, device=q.device))
+    return torch.where(torch.isnan(v), nan.view(codes_dtype), v)
+
+
+def _check_codes(codes_dtype):
+    if codes_dtype not in CODES_DTYPES:
+        raise ValueError(f"quantize_rows writes codes as fp8 bytes (None) "
+                         f"or float16, got {codes_dtype}")
+
+
+def quantize_rows_plain(x: torch.Tensor, fmt: str = "e4m3",
+                        codes_dtype=None):
     """The plain version of P2 (any device): ``(q, s)`` with one f32 scale a
     row of x (..., K), ``s = amax / max_normal`` (1 for an all-zero row)
-    and ``q = fmt(clip(x / s))``.  XLA's rules: the amax flushed (a row of
-    f32 subnormals takes scale 1), x flushed before the divide, a correctly
+    and ``q = fmt(clip(x / s))``, or its values in ``codes_dtype``
+    (``codes_as``).  XLA's rules: the amax flushed (a row of f32
+    subnormals takes scale 1), x flushed before the divide, a correctly
     rounded divide.  One rule is the port's own: a row whose amax lies in
     (0, max_normal 2^-126) keeps its subnormal scale (``flush_amax``), where
     XLA flushes the quotient to 0 and stores +-max and NaN codes."""
+    _check_codes(codes_dtype)
     top = FORMATS[fmt].max_normal
     xf = x.to(torch.float32)
     amax = flush_amax(xf.abs().amax(dim=-1, keepdim=True))
     s = torch.where(amax > 0, div_exact(amax, top), torch.ones_like(amax))
-    return fp8_payload(torch.clip(_flush(xf) / s, -top, top), fmt), s
+    q = fp8_payload(torch.clip(_flush(xf) / s, -top, top), fmt)
+    return codes_as(q, codes_dtype), s
 
 
 @functools.cache
 def _quantize_fn():
     fn = _build.load("w8a8").fp8_quantize_rows
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def quantize_rows(x: torch.Tensor, fmt: str = "e4m3"):
+def quantize_rows(x: torch.Tensor, fmt: str = "e4m3", codes_dtype=None):
     """Per-row activation quantization, the W8A8 route's producer: x (..., K)
-    -> (q (..., K) fp8, s (..., 1) f32).  P2 on a CUDA tensor (bf16 x, one
-    launch), the plain version on the CPU."""
+    -> (q (..., K), s (..., 1) f32), q the fp8 codes, or with
+    ``codes_dtype=torch.float16`` their exact f16 values, written in the
+    same pass (what the int8 route's GEMM reads).  P2 on a CUDA tensor (bf16 x, one launch), the plain version on
+    the CPU."""
     global quantize_launches
+    _check_codes(codes_dtype)
     if not x.is_cuda:
-        return quantize_rows_plain(x, fmt)
+        return quantize_rows_plain(x, fmt, codes_dtype)
     if fmt not in ("e4m3", "e5m2"):
         raise ValueError(f"quantize_rows writes e4m3 or e5m2, got {fmt!r}")
     if x.dtype != torch.bfloat16:
@@ -979,14 +1030,40 @@ def quantize_rows(x: torch.Tensor, fmt: str = "e4m3"):
         raise ValueError(f"quantize_rows shape {tuple(x.shape)} is outside "
                          "the kernel's grid")
     xc = x.contiguous()
-    q = torch.empty(x.shape, dtype=FP8_DTYPES[fmt], device=x.device)
+    q = torch.empty(x.shape, dtype=codes_dtype or FP8_DTYPES[fmt],
+                    device=x.device)
     s = torch.empty((*x.shape[:-1], 1), dtype=torch.float32, device=x.device)
     err = _quantize_fn()(xc.data_ptr(), q.data_ptr(), s.data_ptr(), m, k,
-                         0 if fmt == "e4m3" else 1,
+                         0 if fmt == "e4m3" else 1, CODES_DTYPES[codes_dtype],
                          torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "quantize_rows kernel")
     quantize_launches += 1
     return q, s
+
+
+def quot_probe(divisors, a_exp: int):
+    """P2's fast divide (``csrc/w8a8.cu::quot_fast``) on the card against
+    the correctly rounded divide, for every f32 significand of a dividend
+    of exponent ``a_exp`` and each of ``divisors`` (normal f32).  Also the
+    e4m3 codes of
+    the quotients on the fast path's rules against cast.cuh's.  Returns
+    (quotients that differ, codes that differ, up to 16 differing (a, s)
+    as f32 bit patterns)."""
+    fn = _build.load("w8a8").fp8_quot_probe
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    div = torch.tensor(divisors, dtype=torch.float32,
+                       device="cuda").reshape(-1)
+    counts = torch.zeros(3, dtype=torch.int64, device="cuda")
+    pairs = torch.zeros(32, dtype=torch.int32, device="cuda")
+    err = fn(div.data_ptr(), div.numel(), a_exp, counts.data_ptr(),
+             pairs.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "quot_probe kernel")
+    quot, code, found = (int(c) for c in counts.cpu())
+    bits = pairs.cpu().tolist()
+    return quot, code, [(bits[2 * i] & 0xFFFFFFFF, bits[2 * i + 1]
+                         & 0xFFFFFFFF) for i in range(min(found, 16))]
 
 
 def _check_w8a8(xq, xs, w8, s, out_dtype):

@@ -14,8 +14,9 @@ On a CUDA tensor every linear is one launch of a hand-written kernel
 ``int4_matmul``; an MoE layer's experts are one launch each per stack);
 with ``matmul_impl="direct"`` (W8A8) an fp8 / int8 linear is two: P2
 ``quantize_rows`` quantizes its input per row to e4m3, then P1
-``w8a8_matmul`` (e4m3 / e5m2 weights, fp8 tensor cores) or K3 with a row
-scale (int8 weights, on the e4m3 codes as bf16) contracts it.  A
+``w8a8_matmul`` (e4m3 / e5m2 weights, fp8 tensor cores) or K3's int8
+route with a row scale (int8 weights, on the codes' f16 values that P2
+writes, f16 tensor cores) contracts it.  A
 decode step's ring write (both slabs and the head's advance) is one launch
 of K6 ``ring_store`` (with ``ring_flush = W``, one launch every W steps
 that stores W rows), and paged decode with ``paged_decode_impl="kernel"``
@@ -140,8 +141,9 @@ def fp8_linear(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor,
 
     ``impl="direct"`` (W8A8): x quantized per row to e4m3 (P2), then the
     codes contracted with f32 accumulation and scaled by ``xs * s``: P1 for
-    e4m3 / e5m2 weights, K3 with a row scale for int8 (the codes as bf16,
-    exact), a library matmul of the codes as bf16 for the bf16 twin."""
+    e4m3 / e5m2 weights, K3's int8 route with a row scale for int8 (P2
+    writes the codes' f16 values, exact, which K3 reads: two launches), a
+    library matmul of the codes as bf16 for the bf16 twin."""
     if impl not in MATMUL_IMPLS:
         raise ValueError(f"unknown matmul_impl {impl!r}")
     if x.dtype != torch.bfloat16:
@@ -149,14 +151,15 @@ def fp8_linear(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor,
     lead, n = x.shape[:-1], w8.shape[1]
     x2 = x.reshape(-1, x.shape[-1])
     if impl == "direct":
+        if w8.dtype == torch.int8:
+            xq, xs = _quantize_act(x2, codes_dtype=torch.float16)
+            out = qmatmul.dequant_matmul(xq, w8, scale.reshape(-1), x.dtype,
+                                         row_scale=xs.reshape(-1))
+            return out.reshape(*lead, n)
         xq, xs = _quantize_act(x2)
         if w8.dtype == torch.bfloat16:
             out = (_dot_f32(xq.to(torch.bfloat16), w8)
                    * (xs * scale.reshape(1, -1))).to(x.dtype)
-        elif w8.dtype == torch.int8:
-            out = qmatmul.dequant_matmul(xq.to(torch.bfloat16), w8,
-                                         scale.reshape(-1), x.dtype,
-                                         row_scale=xs.reshape(-1))
         else:
             out = qmatmul.w8a8_matmul(xq, xs.reshape(-1), w8,
                                       scale.reshape(-1), x.dtype)
@@ -218,12 +221,13 @@ def int4_linear(x: torch.Tensor, wp: torch.Tensor,
     return (out * scale.reshape(-1)).to(x.dtype)
 
 
-def _quantize_act(x: torch.Tensor, fmt: str = "e4m3"):
+def _quantize_act(x: torch.Tensor, fmt: str = "e4m3", codes_dtype=None):
     """Per-row activation quantization (the W8A8 route's producer): (q, s)
-    with s (..., 1) f32.  One launch of P2 on a CUDA tensor
+    with s (..., 1) f32, q the codes or (``codes_dtype``) their values.
+    One launch of P2 on a CUDA tensor
     (:func:`fp8tpu_torch.kernels.qmatmul.quantize_rows`), its plain version
     on the CPU."""
-    return qmatmul.quantize_rows(x, fmt)
+    return qmatmul.quantize_rows(x, fmt, codes_dtype)
 
 
 def _embed_lookup(params, toks):

@@ -983,6 +983,146 @@ def test_w8a8_kernel_matches_plain(cuda, m, k, n, fmt, out_dtype):
                             w8[:k - 16], s.reshape(-1))
 
 
+def _edge_rows(x):
+    """x (m, k) f32 with, from row 1 on where there are rows, a zero row,
+    bf16 subnormals, +-inf, a NaN and the tiny-amax row."""
+    if x.shape[0] > 8:
+        x[1] = 0.0
+        x[2] = 2.0 ** -130
+        x[3, 5], x[4, 7], x[5, 9] = float("inf"), float("-inf"), float("nan")
+        x[6] = 0.0
+        x[6, :3] = torch.tensor([1e-37, -3e-38, 5e-38])
+    return x
+
+
+@pytest.mark.parametrize("m,k", [(1, 4096), (64, 11008), (700, 1001),
+                                 (2048, 4096), (5, 40000), (33, 1000)])
+def test_quantize_rows_codes_match_the_bytes(cuda, m, k):
+    """P2 writing the codes' values as f16 (the int8 route's input):
+    bit for bit its own byte output's values (``codes_as``: a NaN code the
+    sign on the quiet NaN) on the card and the plain version on the CPU,
+    the same scales, a second launch bit for bit; the register path, the
+    looped path (K = 40000), ragged rows (K = 1001) and rows at an odd
+    offset (K = 1000: scalar accesses)."""
+    gen = torch.Generator().manual_seed(m + k)
+    xb = _edge_rows(torch.randn(m, k, generator=gen) * 5).to(torch.bfloat16)
+    xc = xb.to(cuda)
+    if k == 1000:
+        xc = torch.empty(m * k + 4, dtype=torch.bfloat16,
+                         device=cuda)[4:].view(m, k)
+        xc.copy_(xb)
+    codes_dtype = torch.float16
+    before = qmatmul.quantize_launches
+    q, s = qmatmul.quantize_rows(xc, codes_dtype=codes_dtype)
+    q2, s2 = qmatmul.quantize_rows(xc, codes_dtype=codes_dtype)
+    qb, sb = qmatmul.quantize_rows(xc)
+    assert qmatmul.quantize_launches == before + 3
+    assert q.dtype == codes_dtype and q.shape == xc.shape
+    wide = qmatmul.codes_as(qb, codes_dtype)
+    assert torch.equal(q.view(torch.int16), wide.view(torch.int16))
+    assert torch.equal(s.view(torch.int32), sb.view(torch.int32))
+    wq, ws = qmatmul.quantize_rows_plain(xb, codes_dtype=codes_dtype)
+    np.testing.assert_array_equal(q.view(torch.int16).cpu().numpy(),
+                                  wq.view(torch.int16).numpy())
+    np.testing.assert_array_equal(s.cpu().view(torch.int32).numpy(),
+                                  ws.view(torch.int32).numpy())
+    assert torch.equal(q2.view(torch.int16), q.view(torch.int16))
+    assert torch.equal(s2.view(torch.int32), s.view(torch.int32))
+
+
+# K3's int8 route: the decode form (M <= 64) and the prefill route on the
+# dense and MoE shapes, N not a multiple of 128 on both, and the general
+# kernel where TMA cannot read the operands (K % 8 != 0)
+K3_INT8_SHAPES = [
+    (m, k, n) for m in (1, 8, 64, 65, 2047)
+    for k, n in ((4096, 1024), (2048, 5504))] + [
+    (m, k, n) for m in (8, 700) for k, n in ((4096, 272), (2048, 48))] + [
+    (9, 1001, 272), (130, 1001, 48)]
+
+
+@pytest.mark.parametrize("m,k,n", K3_INT8_SHAPES)
+def test_k3_int8_route_matches_plain(cuda, m, k, n):
+    """K3's int8 route (P2's f16 codes against int8 weights, the f16
+    tensor cores) against its plain version: within the f32 summation-order
+    bound plus one bf16 step, a second launch bit for bit, counted by
+    route; the same sums as the plain version's where they are exact."""
+    gen = torch.Generator(device=cuda).manual_seed(k + m + n)
+    x = torch.randn(m, k, device=cuda, generator=gen).to(torch.bfloat16)
+    w8, s = qmatmul.quantize_weights(
+        torch.randn(k, n, device=cuda, generator=gen) / k ** 0.5, "int8")
+    s = s.reshape(-1)
+    xh, xs = qmatmul.quantize_rows(x, codes_dtype=torch.float16)
+    xs = xs.reshape(-1)
+    plan = qmatmul.weight_gemm_plan(m, n, k, qmatmul.sm_count(
+        cuda.index or 0), "w8", xh, w8)
+    before = qmatmul.dequant_routes[plan.route]
+    got = qmatmul.dequant_matmul(xh, w8, s, torch.bfloat16, xs)
+    again = qmatmul.dequant_matmul(xh, w8, s, torch.bfloat16, xs)
+    assert qmatmul.dequant_routes[plan.route] == before + 2
+    assert (plan.route == "general") == (k % 8 != 0)
+    want = qmatmul.dequant_matmul_plain(xh, w8, s, torch.bfloat16, xs)
+    tol = _product_bound(xh, w8.float().abs(), xs.reshape(-1, 1) * s, want)
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+
+
+def test_k3_int8_route_every_code_byte_pair(cuda):
+    """Every (e4m3 code, int8 byte) pair through K3's int8 route, value for
+    value (NaN where the code is NaN), in launches of 64 rows (the decode
+    form) and of 256 (the prefill route): x (256, 32) holds code i's f16
+    value in row i's first column, w8 (32, 256) byte j in column j's first
+    row, zeros elsewhere, unit scales."""
+    codes = torch.arange(256, device=cuda, dtype=torch.uint8)
+    xq = torch.zeros(256, 32, device=cuda, dtype=torch.uint8)
+    xq[:, 0] = codes
+    xh = qmatmul.codes_as(xq.view(torch.float8_e4m3fn), torch.float16)
+    w8 = torch.zeros(32, 256, device=cuda, dtype=torch.uint8)
+    w8[0] = codes
+    w8 = w8.view(torch.int8)
+    ones = torch.ones(256, device=cuda)
+    want = qmatmul.dequant_matmul_plain(xh, w8, ones, torch.float32, ones)
+    for mb in (64, 256):
+        got = torch.cat([qmatmul.dequant_matmul(
+            xh[i:i + mb].contiguous(), w8, ones, torch.float32, ones[:mb])
+            for i in range(0, 256, mb)])
+        same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+        assert bool(same.all()), mb
+        assert int(torch.isnan(got).sum()) == 2 * 256
+
+
+def test_k3_takes_f16_x_with_int8_weights_only(cuda):
+    xh = torch.zeros(8, 64, dtype=torch.float16, device=cuda)
+    w8 = torch.zeros(64, 32, dtype=torch.float8_e4m3fn, device=cuda)
+    with pytest.raises(ValueError, match="int8 weights only"):
+        qmatmul.dequant_matmul(xh, w8, torch.ones(32, device=cuda))
+
+
+def test_direct_int8_decode_step_is_two_launches_a_linear(cuda):
+    """A tiny decoder's decode step with int8 weights and
+    matmul_impl="direct": one P2 (f16 codes) and one K3 launch a linear and
+    no P1; logits close to the plain path's on the CPU."""
+    from fp8tpu_torch.serve import (RingKVCache, ServeConfig, decode_step,
+                                    random_serve_params)
+    cfg = tiny_config(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2,
+                      d_ff=512, vocab_size=512, max_seq_len=64)
+    params = random_serve_params(cfg, "int8", seed=3)
+    scfg = ServeConfig(model=cfg, weight_fmt="int8", kv_fmt="int8",
+                       matmul_impl="direct")
+    tok = torch.arange(4, device=cuda, dtype=torch.int32)
+    ring = RingKVCache.create(2, 4, 64, 2, 64, "int8")
+    qmatmul.reset_launches()
+    logits, _ = decode_step(params, ring, tok, tok, scfg)
+    assert (qmatmul.quantize_launches, qmatmul.dequant_launches,
+            qmatmul.w8a8_launches) == (14, 14, 0)
+    cpu = {k: v.cpu() if isinstance(v, torch.Tensor) else v
+           for k, v in params.items()}
+    ring_c = RingKVCache.create(2, 4, 64, 2, 64, "int8", device="cpu")
+    want, _ = decode_step(cpu, ring_c, tok.cpu(), tok.cpu(), scfg)
+    top = float(want.abs().max())
+    assert float((logits.float().cpu() - want.float()).abs().max()) \
+        <= 4e-2 * top
+
+
 def test_direct_decode_step_on_the_card_launches_p1_and_p2(cuda):
     """A tiny decoder's decode step with matmul_impl="direct": one P2 and
     one P1 launch a linear, logits within the plain path's reach."""

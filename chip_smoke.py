@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--phases build,k1,k2,k3,k4,k5,k6,t1,t2,p3,main,
                                     train,train_lm,serve,serve_paged,spec,
-                                    moe,flush,time,w8a8,deploy]
+                                    moe,flush,time,w8a8,deploy,sparse,
+                                    examples]
     python3 chip_smoke.py --phases build,k2_probe   # not in the default run
     python3 chip_smoke.py --phases build,w8a8_probe # nor these six
     python3 chip_smoke.py --phases build,w8a8k
@@ -299,6 +300,34 @@ Phases, each printing its own lines; any failure exits non-zero:
           for byte; an EngineServer with direct linears on it answers 16
           requests, each token equal to the replay in the engine's order;
           then int4 (groups of 128, K5) from memory, held to the band.
+
+14. sparse the sparsity engine at full width (fp8tpu_torch.sparse): (a)
+          sparsify_weight at 0.5 on a refresh step on the serve config's
+          gate weight (4096 x 11008 f32): the randint draws, the sampled
+          threshold and the pruned weight bit-equal to the CPU run, the
+          sparsity within 0.01 of 0.5; (b) sparsify_outgrad at 0.5 on an
+          (8192, 4096) gradient: the uniform draws bit-equal to the CPU,
+          the threshold within SPARSE_THRESHOLD_RTOL of the CPU's, the
+          output from a given alpha bit-equal, its mean within 4 standard
+          errors of the input's; (c) fake_quant_sparse of the pruned weight
+          as a COO tensor (e4m3 RNE none / per-tensor, SR): one K1 launch
+          each, values bit-equal to the plain cast on the CPU and to the
+          dense fake_quant at the stored positions, indices untouched; (d)
+          SparseLinear 4096 -> 11008 on 2048 tokens, forward and backward,
+          against f64 within the f32 summation-order bound, the mask
+          gradient on the window; (e) K1 against the port's golden and the
+          native twin over tests/test_native_ref.py's 16 modes and inputs.
+15. examples  each script of fp8tpu_torch.examples through main(argv) on
+          the card in a torch.profiler window: train_fp8 at the large
+          preset's width (batch 8 x 256, --opt8 --emb-fmt e4m3, 3 steps:
+          one P3 and one K1 launch a step), serve_llm at d_model 4096 / 16
+          layers (e4m3 weights, int8 KV, 8 slots, 8 requests of 32 tokens)
+          on the ring (K3, K6) and paged with the prefix cache (K3, K4:
+          --paged walks the pages), serve_http at its defaults and with
+          --paged (two requests over 127.0.0.1 each; K3 with K6, then K4),
+          eval_ppl --train 20, resnet_ptq (ResNet-50, 64 images), resnet_qat
+          (4 steps): the launches each must make, counted by the wrappers
+          and found in the profile, wall seconds and rates.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Details go to the JSON
@@ -8612,12 +8641,484 @@ def phase_profile_probe(record):
                          "records")
 
 
+# -- phase sparse --------------------------------------------------------------
+
+SPARSE_GATE = (4096, 11008)        # the serve config's gate weight, f32
+SPARSE_GRAD = (8192, 4096)         # 32 x 256 tokens at d_model 4096
+SPARSE_THRESHOLD_RTOL = 1e-5       # tests/test_torch_sparse.py's
+SPARSE_LINEAR_TOKENS = 2048
+# tests/test_native_ref.py's deterministic mode strings
+NATIVE_MODES = (
+    "E5M2_RNE", "E5M2_RTZ", "E5M2_RNAZ", "E5M2_RNTZ", "E5M2_RPINF",
+    "E5M2_RNINF", "E5M2_DAZ_RNE", "E4M3_RNE", "E4M3_IEEE_RNE", "E3M4_RNE",
+    "FP4_NEAREST", "BFLOAT16_RNE", "FLOAT16_RNE", "FLOAT16_DAZ_RNE",
+    "E5M2_NOINF_RNE", "E5M2_FLEX_RNE")
+
+
+def native_ref_inputs(mode: str):
+    """tests/test_native_ref.py's inputs for ``mode`` (its rng seeded 0)."""
+    import numpy as np
+    span = {"E5M2": 57344.0, "E4M3": 448.0, "E4M3_IEEE": 240.0,
+            "E3M4": 30.0, "FP4": 1.0, "E5M2_NOINF": 57344.0,
+            "E5M2_FLEX": 57344.0}.get(mode.rsplit("_", 1)[0], 1e4)
+    rng = np.random.default_rng(0)
+    return np.concatenate([
+        rng.normal(0, span / 8, 4096), rng.normal(0, span * 2, 512),
+        rng.normal(0, 1e-3, 512),
+        np.array([0.0, -0.0, np.inf, -np.inf, np.nan, span]),
+    ]).astype(np.float32)
+
+
+def differ_by_class(got, want) -> int:
+    """Elements that differ: f32 bits, or NaN against not-NaN."""
+    import numpy as np
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    nan = np.isnan(want)
+    return int((np.isnan(got) != nan).sum()
+               + (got[~nan].view(np.uint32) != want[~nan].view(np.uint32))
+               .sum())
+
+
+def sum_order_bound(a, b):
+    """K 2^-24 (|a| @ |b|): the worst case of an f32 sum of K products
+    against the exact one, elementwise, for ``a @ b`` (f64 operands)."""
+    return a.shape[-1] * 2.0 ** -24 * (a.abs() @ b.abs())
+
+
+# The statistical limit of an f32 product, in units of 2^-24 times the
+# root sum of squares of each output's K products (sqrt(K) rms|ab|).
+# Zero-mean products summed in f32 err about sqrt(K / 6) such units (26
+# at K = 4096, some 150 at the worst of 10^7 outputs); TF32 operands
+# (10-bit mantissas) err some 2^13 times more.  Set between the two, it
+# fails a product that TF32 computed, which the worst-case bound does not.
+SUM_ORDER_STAT_C = 1024.0
+
+
+def sum_order_stat(a, b):
+    """2^-24 sqrt((a*a) @ (b*b)), elementwise, for ``a @ b`` (f64)."""
+    return 2.0 ** -24 * ((a * a) @ (b * b)).sqrt()
+
+
+def phase_sparse(record):
+    """The sparsity engine on the card at full width, against its run on
+    the CPU: sparsify_weight on the gate weight, sparsify_outgrad on a
+    decoder's output gradient, fake_quant_sparse of the pruned weight as a
+    COO tensor through K1, SparseLinear's forward and backward against
+    f64, and K1 against the framework-free references."""
+    import numpy as np
+    import torch
+    from fp8tpu_torch.kernels import cast_kernel
+    from fp8tpu_torch.numerics import cast as tcast
+    from fp8tpu_torch.numerics import golden, native_ref, prng
+    from fp8tpu_torch.quant.config import TensorQuantConfig
+    from fp8tpu_torch.quant.fakequant import fake_quant, fake_quant_sparse
+    from fp8tpu_torch.sparse import (SparseConfig, SparseLinear, SparseState,
+                                     sparsify_outgrad, sparsify_weight,
+                                     sparsity_of, stochastic_prune,
+                                     stochastic_prune_threshold,
+                                     weight_mask_step)
+    problems, out = [], {}
+    gen = torch.Generator().manual_seed(18)
+
+    def state(step, w_alpha=65504.0, g_alpha=65504.0, device="cpu"):
+        f32 = dict(dtype=torch.float32, device=device)
+        return SparseState(torch.tensor(w_alpha, **f32),
+                           torch.tensor(g_alpha, **f32),
+                           torch.tensor(step, dtype=torch.int32,
+                                        device=device))
+
+    # (a) weight pruning on a refresh step
+    w = torch.randn(SPARSE_GATE, generator=gen) / SPARSE_GATE[0] ** 0.5
+    cfg = SparseConfig(weight=True, weight_sparsity=0.5, alpha_window=50)
+    key = prng.key(5)
+    n_samp = int(w.numel() * cfg.sample_factor)
+    draws = prng.randint(key, 0, w.numel(), (n_samp,), device="cuda")
+    draws_diff = int((draws.cpu() != prng.randint(key, 0, w.numel(),
+                                                  (n_samp,))).sum())
+    wc = w.cuda()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    pruned, alpha = sparsify_weight(wc, cfg, state(50, device="cuda"), key)
+    torch.cuda.synchronize()
+    w_ms = 1000 * (time.perf_counter() - t)
+    pruned_cpu, alpha_cpu = sparsify_weight(w, cfg, state(50), key)
+    reached = float(sparsity_of(pruned))
+    w_diff = bits_equal(pruned.cpu(), pruned_cpu)
+    a_diff = bits_equal(alpha.cpu().reshape(1), alpha_cpu.reshape(1))
+    out["weight"] = {"shape": SPARSE_GATE, "samples": n_samp,
+                     "randint_differ": draws_diff,
+                     "alpha": float(alpha), "alpha_differ": a_diff,
+                     "pruned_differ": w_diff, "sparsity": reached,
+                     "card_ms": w_ms}
+    print(f"sparse: sparsify_weight {SPARSE_GATE} at 0.5 (refresh step): "
+          f"{n_samp} randint draws, {draws_diff} differ from the CPU; "
+          f"alpha {float(alpha):.6g} ({a_diff} bits differ), pruned "
+          f"weight {w_diff} differ, sparsity {reached:.4f}; {w_ms:.1f} ms "
+          "on the card")
+    if draws_diff or a_diff or w_diff:
+        problems.append("sparsify_weight differs from the CPU")
+    if abs(reached - 0.5) > 0.01:
+        problems.append(f"sparsity {reached} is not within 0.01 of 0.5")
+
+    # (b) output-gradient pruning, unbiased
+    g = torch.randn(SPARSE_GRAD, generator=gen) * 1e-3
+    gcfg = SparseConfig(outgrad=True, outgrad_sparsity=0.5, alpha_window=50)
+    gkey = prng.key(6)
+    u_card = prng.uniform(gkey, SPARSE_GRAD, device="cuda")
+    u_diff = bits_equal(u_card.cpu(), prng.uniform(gkey, SPARSE_GRAD))
+    del u_card
+    gc = g.cuda()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    y, ga = sparsify_outgrad(gc, gcfg, state(50, device="cuda"), gkey)
+    torch.cuda.synchronize()
+    g_ms = 1000 * (time.perf_counter() - t)
+    # the CPU's refresh-step alpha (sparsify_outgrad's threshold), alone
+    ga_cpu = stochastic_prune_threshold(g, gcfg.outgrad_sparsity)
+    rel = abs(float(ga) - float(ga_cpu)) / float(ga_cpu)
+    # the output from the CPU's alpha, on both sides
+    y_card = stochastic_prune(gc, ga_cpu.cuda(), gkey)
+    y_diff = bits_equal(y_card.cpu(), stochastic_prune(g, ga_cpu, gkey))
+    d = (y.double() - gc.double()).flatten()
+    se = float(d.std()) / d.numel() ** 0.5
+    bias = abs(float(d.mean()))
+    g_sp = float(sparsity_of(y))
+    out["outgrad"] = {"shape": SPARSE_GRAD, "uniform_differ": u_diff,
+                      "alpha": float(ga), "alpha_cpu": float(ga_cpu),
+                      "alpha_rel": rel, "output_differ": y_diff,
+                      "mean_bias": bias, "standard_error": se,
+                      "sparsity": g_sp, "card_ms": g_ms}
+    print(f"sparse: sparsify_outgrad {SPARSE_GRAD} at 0.5: uniform draws "
+          f"{u_diff} differ from the CPU; alpha {float(ga):.6g} against "
+          f"{float(ga_cpu):.6g} on the CPU ({rel:.2e} relative, limit "
+          f"{SPARSE_THRESHOLD_RTOL:g}); output from the CPU's alpha "
+          f"{y_diff} differ; mean shift {bias:.3e} = "
+          f"{bias / se:.2f} standard errors; sparsity {g_sp:.4f}; "
+          f"{g_ms:.1f} ms on the card")
+    if u_diff or y_diff or rel > SPARSE_THRESHOLD_RTOL or bias > 4 * se:
+        problems.append("sparsify_outgrad differs from the CPU or is biased")
+    del y, y_card, gc, d
+
+    # (c) the pruned weight as a COO tensor through K1
+    coo = pruned.to_sparse_coo().coalesce()
+    coo_cpu = pruned_cpu.to_sparse_coo().coalesce()
+    out["coo"] = {"nnz": int(coo._nnz())}
+    for label, c, k in (("none", TensorQuantConfig("e4m3", "rne"), None),
+                        ("per-tensor", TensorQuantConfig(
+                            "e4m3", "rne", scaling="per-tensor"), None),
+                        ("sr", TensorQuantConfig("e4m3", "stochastic"),
+                         prng.key(7))):
+        k0 = cast_kernel.launches
+        q = fake_quant_sparse(coo, c, k)
+        torch.cuda.synchronize()
+        launched = cast_kernel.launches - k0
+        plain = fake_quant_sparse(coo_cpu, c, k)
+        v_diff = bits_equal(q.values().cpu(), plain.values())
+        idx_same = bool(torch.equal(q.indices().cpu(), coo_cpu.indices()))
+        dense_diff = None
+        if k is None:
+            dense = fake_quant(pruned, c)
+            i = q.indices()
+            dense_diff = bits_equal(dense[i[0], i[1]], q.values())
+        out["coo"][label] = {"k1_launches": launched,
+                             "values_differ": v_diff,
+                             "indices_equal": idx_same,
+                             "dense_differ": dense_diff}
+        print(f"sparse: fake_quant_sparse e4m3 {label} of {coo._nnz()} "
+              f"values: {launched} K1 launch, {v_diff} differ from the "
+              f"plain cast on the CPU, indices equal {idx_same}, against "
+              f"the dense fake_quant {dense_diff}")
+        if launched != 1 or v_diff or not idx_same or dense_diff:
+            problems.append(f"fake_quant_sparse {label} is wrong")
+    del coo, coo_cpu, pruned, pruned_cpu
+
+    # (d) SparseLinear forward and backward against f64
+    lin = SparseLinear(SPARSE_GATE[0], SPARSE_GATE[1]).cuda()
+    with torch.no_grad():
+        lin.weight.copy_(wc.t())
+        lin.threshold.copy_(torch.linspace(0.0, 0.03, SPARSE_GATE[1]))
+        lin.bias.copy_(torch.linspace(-0.1, 0.1, SPARSE_GATE[1]))
+    x = torch.randn(SPARSE_LINEAR_TOKENS, SPARSE_GATE[0], device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(3))
+    ct = torch.randn(SPARSE_LINEAR_TOKENS, SPARSE_GATE[1], device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(4))
+    x.requires_grad_(True)
+    ref = SparseLinear(SPARSE_GATE[0], SPARSE_GATE[1]).cuda().double()
+    ref.load_state_dict({k: v.double() for k, v in lin.state_dict().items()})
+    xr = x.detach().double().requires_grad_(True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    yl = lin(x)
+    (yl * ct).sum().backward()
+    torch.cuda.synchronize()
+    lin_ms = 1000 * (time.perf_counter() - t)
+    yr = ref(xr)
+    (yr * ct.double()).sum().backward()
+    wm = ref.weight.detach() * (ref.weight.detach().abs()
+                                - ref.threshold.detach()[:, None] > 0)
+    operands = {"y": (xr.detach(), wm.t()), "dx": (ct.double(), wm),
+                "dw": (ct.double().t(), xr.detach())}
+    results = {"y": (yl, yr), "dx": (x.grad, xr.grad),
+               "dw": (lin.weight.grad, ref.weight.grad)}
+    lin_rows, stat_rows = {}, {}
+    for name, (a, b) in operands.items():
+        got, want = results[name]
+        # dw is that product times the mask and its surrogate's term
+        # (mask + 2|w| at most, and more roundings): 4x, as before
+        k = 4.0 if name == "dw" else 1.0
+        err = (got.detach().double() - want).abs()
+        ratio = float((err / (k * sum_order_bound(a, b) + 1e-300)).max())
+        stat = float((err / (k * sum_order_stat(a, b) + 1e-300)).max())
+        lin_rows[name], stat_rows[name] = ratio, stat
+        if not ratio <= 1.0:
+            problems.append(f"SparseLinear {name} outside the f32 bound")
+        if not stat <= SUM_ORDER_STAT_C:
+            problems.append(f"SparseLinear {name} outside the statistical "
+                            f"f32 limit ({stat:.1f} > {SUM_ORDER_STAT_C})")
+    # the statistical limit's power: the forward product on TF32 operands
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yt = x.detach() @ wm.float().t() + lin.bias.detach()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    tf32_stat = float(((yt.double() - yr.detach()).abs()
+                       / (sum_order_stat(*operands["y"]) + 1e-300)).max())
+    if not tf32_stat > SUM_ORDER_STAT_C:
+        problems.append(f"the statistical limit passes a TF32 product "
+                        f"({tf32_stat:.1f})")
+    del yt
+    tg = (lin.threshold.grad.double() - ref.threshold.grad).abs().max()
+    t_scale = float(ref.threshold.grad.abs().max())
+    lin_rows["threshold_rel"] = float(tg) / max(t_scale, 1e-30)
+    probe = torch.tensor([-2.0, -1.0, -0.7, -0.4, -0.2, 0.0, 0.2, 0.3999,
+                          0.4, 0.4001, 0.7, 1.0, 1.0001, 2.0])
+    pc = probe.cuda().requires_grad_(True)
+    weight_mask_step(pc).sum().backward()
+    window = torch.where(probe.abs() > 1.0, 0.0, torch.where(
+        probe.abs() > 0.4, 0.4, 2.0 - 4.0 * probe.abs()))
+    win_diff = bits_equal(pc.grad.cpu(), window)
+    out["sparse_linear"] = {"tokens": SPARSE_LINEAR_TOKENS,
+                            "bound_ratio": lin_rows,
+                            "stat_ratio": stat_rows, "tf32_stat": tf32_stat,
+                            "window_differ": win_diff, "card_ms": lin_ms}
+    print(f"sparse: SparseLinear {SPARSE_GATE[0]} -> {SPARSE_GATE[1]} on "
+          f"{SPARSE_LINEAR_TOKENS} tokens, forward and backward "
+          f"{lin_ms:.1f} ms: against f64, worst share of the f32 bound "
+          + ", ".join(f"{k} {v:.3f}" for k, v in lin_rows.items())
+          + "; worst in units of the statistical limit's 2^-24 sqrt(K) "
+          "rms|ab| " + ", ".join(f"{k} {v:.1f}" for k, v in stat_rows.items())
+          + f" (limit {SUM_ORDER_STAT_C:.0f}; a TF32 forward {tf32_stat:.1f})"
+          + f"; the mask gradient's window at 14 points: {win_diff} differ")
+    if win_diff or lin_rows["threshold_rel"] > 1e-3:
+        problems.append("SparseLinear's mask gradient does not follow the "
+                        "window")
+    del lin, ref, x, xr, ct, yl, yr, wc
+
+    # (e) K1 against golden and the native twin
+    native = native_ref.available()
+    refs = {}
+    for mode in NATIVE_MODES:
+        xs = native_ref_inputs(mode)
+        k0 = cast_kernel.launches
+        got = tcast.qdq_mode_string(torch.from_numpy(xs).cuda(), mode).cpu()
+        launched = cast_kernel.launches - k0
+        want = golden.cast_mode_string(xs, mode)
+        row = {"k1_launches": launched,
+               "vs_golden": differ_by_class(got.numpy(), want),
+               "native_vs_golden": differ_by_class(
+                   native_ref.cast(xs, mode), want) if native else None}
+        refs[mode] = row
+        if launched != 1 or row["vs_golden"] or row["native_vs_golden"]:
+            problems.append(f"K1 / golden / native differ on {mode}")
+    out["k1_references"] = refs
+    print(f"sparse: K1 on the card against golden over the "
+          f"{len(NATIVE_MODES)} deterministic mode strings: "
+          f"{sum(r['vs_golden'] for r in refs.values())} elements differ; "
+          f"the native twin {'built' if native else 'NOT BUILT'}, "
+          f"{sum(r['native_vs_golden'] or 0 for r in refs.values())} differ")
+    if not native:
+        problems.append("the native twin did not build")
+    record["sparse"] = out
+    if problems:
+        raise PhaseError("; ".join(problems))
+
+
+# -- phase examples ------------------------------------------------------------
+
+EXAMPLE_KERNELS = {
+    "K1": ("cast_vec", "cast_scalar", "cast_blocked"),
+    "K3/K5": ("ws::stream_kernel", "w_gemm"),
+    "K4": ("paged_attention_kernel",),
+    "K6": ("ring_store_kernel",),
+    "P3": ("adam8_",),
+}
+# (script, argv, kernels that must launch)
+EXAMPLE_RUNS = (
+    ("train_fp8", ["--d-model", "768", "--n-layers", "12", "--batch-size",
+                   "8", "--seq-len", "256", "--opt8", "--emb-fmt", "e4m3",
+                   "--steps", "3"], ("K1", "P3")),
+    ("serve_llm", ["--d-model", "4096", "--n-layers", "16", "--weight-fmt",
+                   "e4m3", "--kv-fmt", "int8", "--slots", "8", "--requests",
+                   "8", "--max-new-tokens", "32"], ("K3/K5", "K6")),
+    ("serve_llm", ["--d-model", "4096", "--n-layers", "16", "--weight-fmt",
+                   "e4m3", "--kv-fmt", "int8", "--slots", "8", "--requests",
+                   "8", "--max-new-tokens", "32", "--paged",
+                   "--prefix-cache"], ("K3/K5", "K4")),
+    ("serve_http", [], ("K3/K5", "K6")),
+    ("serve_http", ["--paged"], ("K3/K5", "K4")),
+    ("eval_ppl", ["--train", "20"], ("K1",)),
+    ("resnet_ptq", ["--model", "resnet50", "--batch-size", "32",
+                    "--num-samples", "64"], ("K1",)),
+    ("resnet_qat", ["--epochs", "1", "--steps-per-epoch", "4"], ("K1",)),
+)
+
+
+def profiled_kernels(prof):
+    """{kernel: device records} of a closed profile, by EXAMPLE_KERNELS's
+    name keys.  Reads the profiler's raw records: building its Python
+    event tree for a train run's ~10^5 launches took most of the phase
+    (28.6 s of train_fp8's 33.7 s on an H100)."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    raw = getattr(prof.profiler, "kineto_results", None)
+    events = ((e.name(), e.device_type()) for e in raw.events()) \
+        if raw is not None else ((e.name, e.device_type)
+                                 for e in prof.events())
+    recorded = dict.fromkeys(EXAMPLE_KERNELS, 0)
+    for name, device in events:
+        if device != cuda:
+            continue
+        for k, keys in EXAMPLE_KERNELS.items():
+            if any(key in name for key in keys):
+                recorded[k] += 1
+    return recorded
+
+
+def example_counts():
+    """{kernel: launches so far} as the wrappers count them."""
+    from fp8tpu_torch.kernels import (adam8, cast_kernel, inplace,
+                                      int4_matmul, qmatmul)
+    from fp8tpu_torch.kernels import paged_attention as k4
+    return {"K1": cast_kernel.launches,
+            "K3/K5": qmatmul.dequant_launches + int4_matmul.launches,
+            "K4": k4.launches, "K6": inplace.launches, "P3": adam8.launches}
+
+
+def http_requests(port: int):
+    """Two requests over 127.0.0.1: (tokens, ...)."""
+    import urllib.request
+    got = []
+    for i in range(2):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/generate",
+            data=json.dumps({"prompt": [1 + i, 2, 3],
+                             "max_new_tokens": 16}).encode(),
+            headers={"Content-Type": "application/json"})
+        got.append(json.loads(urllib.request.urlopen(req, timeout=600)
+                              .read())["tokens"])
+    return got
+
+
+def example_rate(name, res, seconds):
+    """(rate, unit) of a script's run."""
+    if name == "train_fp8":
+        return max(res["tokens_per_s"][1:] or res["tokens_per_s"]), "tokens/s"
+    if name == "serve_llm":
+        return res["tokens_per_s"], "tokens/s"
+    if name == "serve_http":
+        return sum(len(t) for t in res["until"]) / seconds, "tokens/s (wall)"
+    if name == "eval_ppl":
+        return res["tokens_per_s"]["train"], "tokens/s (training)"
+    if name == "resnet_ptq":
+        return res["images"] / res["seconds"]["e4m3"], "images/s"
+    if name == "resnet_qat":
+        return max(res["images_per_s"][1:]), "images/s"
+    return None, ""
+
+
+def phase_examples(record):
+    """Each script of ``fp8tpu_torch.examples`` in-process through
+    ``main(argv)`` on the card, inside a torch.profiler window: the
+    kernels it must launch (wrapper counts and profiled device records),
+    its wall seconds and rate, and its output's checks."""
+    import importlib
+    import math
+    import socket
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    problems, rows = [], []
+    for name, argv, want in EXAMPLE_RUNS:
+        mod = importlib.import_module(f"fp8tpu_torch.examples.{name}")
+        kw = {}
+        if name == "serve_http":
+            s = socket.socket()
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+            s.close()
+            argv = argv + ["--port", str(port)]
+            kw["until"] = http_requests
+        before = example_counts()
+        t_open = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            profile_lead_in()
+            t0 = time.perf_counter()
+            res = mod.main(argv, **kw)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        counts = {k: v - before[k] for k, v in example_counts().items()}
+        recorded = profiled_kernels(prof)
+        profile_s = time.perf_counter() - t_open - seconds
+        rate, unit = example_rate(name, res, seconds)
+        row = {"script": name, "argv": argv, "seconds": seconds,
+               "profile_s": profile_s,
+               "launches": counts, "profiled": recorded, "rate": rate,
+               "unit": unit, "lines": res["lines"]}
+        missing = [k for k in want if not counts[k] or not recorded[k]]
+        checks = []
+        if name == "train_fp8":
+            steps = len(res["losses"])
+            checks = [all(math.isfinite(v) for v in res["losses"]),
+                      counts["P3"] == steps, counts["K1"] == steps]
+            row["losses"] = res["losses"]
+        elif name == "serve_llm":
+            checks = [len(res["tokens"]) == 8,
+                      all(len(v) == 32 for v in res["tokens"].values())]
+        elif name == "serve_http":
+            checks = [[len(t) for t in res["until"]] == [16, 16]]
+        elif name == "eval_ppl":
+            checks = [all(math.isfinite(v) for v in res["ppl"].values())]
+            row["ppl"] = res["ppl"]
+            row["tokens_per_s"] = res["tokens_per_s"]
+        elif name == "resnet_ptq":
+            checks = [all(bool(torch.isfinite(t).all())
+                          for t in res["logits"].values())]
+            row["top1"] = res["top1"]
+        elif name == "resnet_qat":
+            checks = [all(math.isfinite(v) for v in res["losses"])]
+        rows.append(row)
+        rate_s = f", {rate:.1f} {unit}" if rate else ""
+        print(f"examples: {name} {' '.join(argv)}: {seconds:.1f} s{rate_s} "
+              f"(the profiler {profile_s:.1f} s more); "
+              f"launches {counts}; profiled {recorded}"
+              + (f"; MISSING {missing}" if missing else "")
+              + ("" if all(checks) else f"; checks {checks}"))
+        if missing or not all(checks):
+            problems.append(f"{name}: kernels {missing} did not launch"
+                            if missing else f"{name}: output checks failed")
+        del res, prof
+        torch.cuda.empty_cache()
+    record["examples"] = rows
+    if problems:
+        raise PhaseError("; ".join(problems))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,k1,k2,k3,k4,k5,k6,t1,t2,p3,main,train,"
                             "train_lm,serve,serve_paged,spec,moe,flush,time,"
-                            "w8a8,deploy")
+                            "w8a8,deploy,sparse,examples")
     ap.add_argument("--out", default="chip_smoke_out/chip_smoke.json")
     ap.add_argument("--package-tree", default=None,
                     help="import fp8tpu_torch from this tree (a git archive "
@@ -8716,6 +9217,10 @@ def main(argv=None) -> int:
                 moe_kernels += time_w8a8(record, phase_w8a8(record))
             elif phase == "deploy":
                 phase_deploy(record)
+            elif phase == "sparse":
+                phase_sparse(record)
+            elif phase == "examples":
+                phase_examples(record)
             elif phase == "time":
                 if None in (launches, serve_launches, paged_launches,
                             train_launches):

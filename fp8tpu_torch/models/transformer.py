@@ -258,9 +258,12 @@ def decoder(cfg: DecoderConfig, device="cuda",
             generator: Optional[torch.Generator] = None) -> Decoder:
     """A Decoder on ``device`` (the card unless the caller asks for the
     CPU), its Dense weights (and expert stacks) redrawn from ``generator``
-    when one is given."""
+    when one is given.  It is built and drawn where the generator lives,
+    so a generator on the card makes a full-width model without an f32
+    copy on the host."""
     dev = resolve_device(device)
-    model = Decoder(cfg)
+    with torch.device(generator.device if generator is not None else "cpu"):
+        model = Decoder(cfg)
     if generator is not None:
         init_params(model, generator)
         with torch.no_grad():

@@ -76,25 +76,24 @@ def split(k: PRNGKey, num: int = 2) -> List[PRNGKey]:
     return [_threefry2x32(k[0], k[1], 0, i) for i in range(num)]
 
 
-def _bits32(k: PRNGKey) -> int:
-    """``jax.random.bits(k, (), uint32)``: counter (0, 0), words xored."""
-    b0, b1 = _threefry2x32(k[0], k[1], 0, 0)
-    return b0 ^ b1
-
-
-def _rem(a: int, b: int) -> int:
+def _rem(a, b: int):
     return a % b if b else a       # XLA's unsigned remainder by zero
 
 
-def randint(k: PRNGKey, minval: int, maxval: int) -> int:
-    """One int32 from ``jax.random.randint(k, (), minval, maxval,
-    jnp.int32)``: two 32-bit draws from the two halves of ``split(k)``,
-    folded into the span with uint32 arithmetic."""
+def randint(k: PRNGKey, minval: int, maxval: int, shape=(), device=None):
+    """``jax.random.randint(k, shape, minval, maxval, jnp.int32)``: two
+    32-bit draws of ``shape`` from the two halves of ``split(k)``, folded
+    into the span with uint32 arithmetic (in int64 with masks).  The
+    values come back as an int64 tensor of ``shape`` on ``device``, or as
+    one Python int when ``shape`` is ``()``."""
+    shape = tuple(shape) if isinstance(shape, (tuple, list)) else (shape,)
+    n = math.prod(shape)
     lo, hi = -2 ** 31, 2 ** 31 - 1
     out_of_range = maxval > hi
     minval, maxval = min(max(minval, lo), hi), min(max(maxval, lo), hi)
     k1, k2 = split(k)
-    higher, lower = _bits32(k1), _bits32(k2)
+    higher = threefry_bits32(k1, n, device)
+    lower = threefry_bits32(k2, n, device)
     span = (maxval - minval) & _M32
     if maxval <= minval:
         span = 1
@@ -104,7 +103,40 @@ def randint(k: PRNGKey, minval: int, maxval: int) -> int:
     mult = _rem((mult * mult) & _M32, span)
     offset = (_rem(higher, span) * mult + _rem(lower, span)) & _M32
     out = (minval + _rem(offset, span)) & _M32
-    return out - 2 ** 32 if out > hi else out
+    out = torch.where(out > hi, out - 2 ** 32, out).reshape(shape)
+    return int(out) if shape == () else out
+
+
+def _fma_f32(a: torch.Tensor, b: float, c: float) -> torch.Tensor:
+    """``fma(a, b, c)`` of f32 values, rounded once to f32 (XLA fuses the
+    jitted ``floats * span + minval`` into one).  The product is exact in
+    f64 and the sum is ``s + e`` exactly (TwoSum); rounding it to odd in
+    f64 (``s``, or its odd neighbour toward ``e`` when ``e != 0`` and
+    ``s`` is even) and then to f32 rounds the exact sum once, as f64 has
+    more than 24 + 2 bits."""
+    p = a.double() * b
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    s = torch.where((e != 0) & even, torch.nextafter(s, s + e), s)
+    return s.float()
+
+
+def uniform(k: PRNGKey, shape=(), minval: float = 0.0, maxval: float = 1.0,
+            device=None) -> torch.Tensor:
+    """``jax.random.uniform(k, shape, jnp.float32, minval, maxval)``: the
+    top 23 bits of each 32-bit draw as the mantissa of a float in [1, 2),
+    less 1, then ``fma(., maxval - minval, minval)`` and ``max(minval,
+    .)``, in f32 as the jitted JAX function computes them."""
+    shape = tuple(shape) if isinstance(shape, (tuple, list)) else (shape,)
+    bits = (threefry_bits32(k, math.prod(shape), device) >> 9) | 0x3F800000
+    floats = bits.to(torch.int32).view(torch.float32) - 1.0
+    lo = float(torch.tensor(minval, dtype=torch.float32))
+    span = float(torch.tensor(maxval, dtype=torch.float32)
+                 - torch.tensor(lo, dtype=torch.float32))
+    out = floats if (lo, span) == (0.0, 1.0) else _fma_f32(floats, span, lo)
+    return torch.clamp_min(out, lo).reshape(shape)
 
 
 def salt_of(k: PRNGKey) -> int:

@@ -110,3 +110,30 @@ def quantize_grad(g: torch.Tensor, cfg: Optional[TensorQuantConfig],
     if cfg is None:
         return g
     return _quantize_impl(g, cfg, key)
+
+
+def fake_quant_sparse(x: torch.Tensor, cfg: TensorQuantConfig,
+                      key: Optional[PRNGKey] = None) -> torch.Tensor:
+    """Fake-quantize a sparse tensor by casting its stored values only.
+
+    The reference's FPEmuOp special-cases torch sparse COO tensors by
+    quantizing ``tensor._values()`` and rebuilding the sparse tensor
+    (pytquant/cpp/fpemu.py:46-58).  Here a COO tensor is coalesced (its
+    values in row-major order of their indices, as a BCOO array's ``data``
+    in the JAX package), its values go through :func:`fake_quant` (one K1
+    launch on a CUDA tensor) with none or per-tensor scaling (the values
+    carry no channel structure), and the result has the same indices and
+    shape.  Dense tensors fall through to :func:`fake_quant`.
+    """
+    if x.layout != torch.sparse_coo:
+        return fake_quant(x, cfg, key)
+    if cfg.scaling not in ("none", "per-tensor"):
+        raise ValueError(
+            f"sparse fake-quant supports none/per-tensor scaling, "
+            f"got {cfg.scaling!r} (matching the reference, which "
+            "applies one scale to the COO values)")
+    x = x.coalesce()
+    return torch.sparse_coo_tensor(x.indices(),
+                                   fake_quant(x.values(), cfg, key),
+                                   x.shape, is_coalesced=True,
+                                   check_invariants=False)

@@ -44,6 +44,7 @@ a BatchMatmul's cotangent cast as an NCHW activation (the port did that
 until this check found it: the SR bits then land on other elements).
 """
 
+import contextlib
 import dataclasses
 import functools
 
@@ -262,19 +263,11 @@ FORCED = {
 }
 
 
-@functools.lru_cache(maxsize=None)
-def _jax_first_step(algo, hw, dtype):
-    """The gradient half of the JAX package's first train step, jitted:
-    (variables, loss, gradients by the port's names, and the arguments and
-    output of every Dense / BatchMatmul / Embed call through the quant
-    interceptor, in call order)."""
-    toks = _tokens()
-    jm = JDecoder(JConfig(**_cfg(dtype)))
-    v = jm.init(jax.random.key(0), toks[:, :-1])
-    emu = jmpt.initialize(jm, v, (toks[:, :-1],), training_algo=algo)
-    if hw:
-        emu = dataclasses.replace(emu, policy=emu.policy.with_hw_patching())
-    paths, calls = [], []
+@contextlib.contextmanager
+def _jax_recording(paths, calls):
+    """Within, the JAX package's quant interceptor appends the path of
+    every Dense / BatchMatmul / Embed call to ``paths`` and its arguments
+    and output to ``calls`` (under jit, as traced values)."""
     make = jmpt.make_quant_interceptor
 
     def recording(policy, key=None, **kw):
@@ -289,6 +282,67 @@ def _jax_first_step(algo, hw, dtype):
                 calls.append((args, out))
             return out
         return interceptor
+
+    jmpt.make_quant_interceptor = recording
+    try:
+        yield
+    finally:
+        jmpt.make_quant_interceptor = make
+
+
+@contextlib.contextmanager
+def _fed_jax_calls(queue, call_err=None):
+    """Within, each Dense / BatchMatmul / Embed call of the port takes the
+    arguments of the next (path, args, output) record of the JAX run in
+    ``queue`` and passes on that record's output; the port's own output
+    keeps the gradient.  ``call_err``, a one-element list, takes the worst
+    relative gap between the two outputs."""
+    make = tmpt.make_quant_interceptor
+
+    def like(x, t):
+        return torch.from_numpy(np.array(x, np.float32)).to(t.dtype)
+
+    def forcing(policy, key=None, **kw):
+        quant = make(policy, key=key, **kw)
+
+        def interceptor(next_fun, args, kwargs, context):
+            if type(context.module).__name__ not in FORCED_MODULES:
+                return quant(next_fun, args, kwargs, context)
+            path, jargs, jout = queue.pop(0)
+            assert path == context.path
+            args = tuple(a + (like(j, a) - a).detach()
+                         if a.is_floating_point() else a
+                         for a, j in zip(args, jargs))
+            out = quant(next_fun, args, kwargs, context)
+            want = like(jout, out)
+            if call_err is not None:
+                call_err[0] = max(call_err[0], float(
+                    (out.detach().float() - want.float()).abs().max()
+                    / want.float().abs().max()))
+            return out + (want - out).detach()
+        return interceptor
+
+    tmpt.make_quant_interceptor = forcing
+    try:
+        yield
+    finally:
+        tmpt.make_quant_interceptor = make
+    assert not queue
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_first_step(algo, hw, dtype):
+    """The gradient half of the JAX package's first train step, jitted:
+    (variables, loss, gradients by the port's names, and the arguments and
+    output of every Dense / BatchMatmul / Embed call through the quant
+    interceptor, in call order)."""
+    toks = _tokens()
+    jm = JDecoder(JConfig(**_cfg(dtype)))
+    v = jm.init(jax.random.key(0), toks[:, :-1])
+    emu = jmpt.initialize(jm, v, (toks[:, :-1],), training_algo=algo)
+    if hw:
+        emu = dataclasses.replace(emu, policy=emu.policy.with_hw_patching())
+    paths, calls = [], []
 
     def grads_of(params, batch, key):
         kf, kg, _ = jax.random.split(key, 3)
@@ -306,12 +360,9 @@ def _jax_first_step(algo, hw, dtype):
         return loss / SCALE, jax.tree.map(
             lambda g: (g / SCALE).astype(g.dtype), grads), rec
 
-    jmpt.make_quant_interceptor = recording
-    try:
+    with _jax_recording(paths, calls):
         loss, grads, rec = jax.jit(grads_of)(
             v, jnp.asarray(toks), jax.random.fold_in(jax.random.key(1), 0))
-    finally:
-        jmpt.make_quant_interceptor = make
     rec = [(path, jax.tree.map(np.asarray, a), np.asarray(o))
            for path, (a, o) in zip(paths[-len(rec):], rec)]
     return (jax.tree.map(np.asarray, v), float(loss),
@@ -332,41 +383,12 @@ def _forced_errors(case):
         emu = dataclasses.replace(emu, policy=emu.policy.with_hw_patching())
     params = {k: p.detach().clone().requires_grad_(True)
               for k, p in tm.named_parameters()}
-    queue, call_err = list(rec), [0.0]
-
-    def like(x, t):
-        return torch.from_numpy(np.array(x, np.float32)).to(t.dtype)
-
-    make = tmpt.make_quant_interceptor
-
-    def forcing(policy, key=None, **kw):
-        quant = make(policy, key=key, **kw)
-
-        def interceptor(next_fun, args, kwargs, context):
-            if type(context.module).__name__ not in FORCED_MODULES:
-                return quant(next_fun, args, kwargs, context)
-            path, jargs, jout = queue.pop(0)
-            assert path == context.path
-            args = tuple(a + (like(j, a) - a).detach()
-                         if a.is_floating_point() else a
-                         for a, j in zip(args, jargs))
-            out = quant(next_fun, args, kwargs, context)
-            want = like(jout, out)
-            call_err[0] = max(call_err[0], float(
-                (out.detach().float() - want.float()).abs().max()
-                / want.float().abs().max()))
-            return out + (want - out).detach()
-        return interceptor
-
-    tmpt.make_quant_interceptor = forcing
-    try:
+    call_err = [0.0]
+    with _fed_jax_calls(list(rec), call_err):
         loss, grads = tmpt.step_grads(
             emu, _torch_xent(tm, False), params,
             torch.from_numpy(_tokens()).long(),
             prng.fold_in(prng.key(1), 0), SCALE)
-    finally:
-        tmpt.make_quant_interceptor = make
-    assert not queue
     grad_err = max(float((grads[k].float() - g.float()).norm()
                          / g.float().norm()) for k, g in jgrads.items())
     return abs(float(loss) - jloss) / jloss, call_err[0], grad_err
@@ -409,6 +431,77 @@ def test_forced_check_fails_on_planted_fault(fault, monkeypatch):
             or grad > lim["grad"]), (loss, call, grad)
 
 
+EMB_CFG = dict(vocab_size=256, d_model=64, n_layers=4, n_heads=4,
+               n_kv_heads=2, d_ff=128, max_seq_len=32, dtype="float32")
+
+
+def _emb_setup(draw):
+    """The 4-layer decoder of the e4m3-embedding tests, its Dense weights
+    drawn by ``linen.init_params`` from a generator seeded with ``draw``
+    (not the global RNG: the draw must not depend on which tests ran
+    before in the process), its embedding at the large preset's init
+    scale: (tokens, port emulator, port params, JAX variables, JAX
+    emulator, both packages' e4m3-requantized params)."""
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, 256, (2, 33)).astype(np.int32)
+    tm = linen.init_params(TDecoder(TConfig(**EMB_CFG)),
+                           torch.Generator().manual_seed(draw))
+    with torch.no_grad():
+        tm.embed.embedding.copy_(torch.from_numpy(
+            rng.standard_normal((256, 64)).astype(np.float32) * 768 ** -0.5))
+    temu = tmpt.initialize(tm, training_algo="hybrid-gemm", device="cpu")
+    params = {k: p.detach().clone() for k, p in tm.named_parameters()}
+    v = jax.tree.map(lambda t: jnp.asarray(t.numpy()),
+                     variables_to_flax(params, temu.module_table))
+    jm = JDecoder(JConfig(**EMB_CFG))
+    emu = jmpt.initialize(jm, v, (toks[:, :-1],), training_algo="hybrid-gemm")
+    vq = jax.jit(lambda p: jmpt.master_requant(
+        p, emu.module_table, jax.random.key(3), "fp16", "e4m3"))(v)
+    pq = tmpt.master_requant(params, temu.module_table, prng.key(3),
+                             "fp16", "e4m3")
+    return toks, temu, params, v, emu, vq, pq
+
+
+def _emb_jgrad(emu, toks, record=None):
+    """The JAX package's jitted embedding gradient of the loss; with
+    ``record``, a list, also the (path, arguments, output) of every Dense
+    / BatchMatmul / Embed call, appended to it in call order."""
+    paths, calls = [], []
+
+    def loss_of(p):
+        calls.clear()
+        logits = emu.apply_quantized(p, toks[:, :-1], key=jax.random.key(2))
+        return optax.softmax_cross_entropy_with_integer_labels(
+            logits, toks[:, 1:]).mean(), list(calls)
+
+    @jax.jit
+    def jgrad(params):
+        (_, rec), g = jax.value_and_grad(loss_of, has_aux=True)(params)
+        return g["params"]["embed"]["embedding"], rec
+
+    def run(params):
+        with _jax_recording(paths, calls):
+            g, rec = jgrad(params)
+        if record is not None:
+            record.extend((path, jax.tree.map(np.asarray, a), np.asarray(o))
+                          for path, (a, o) in zip(paths[-len(rec):], rec))
+        return np.asarray(g)
+    return run
+
+
+def _emb_tgrad(temu, toks, params, forced=None):
+    """The port's embedding gradient of the loss; with ``forced``, a JAX
+    record of ``_emb_jgrad``, fed the JAX calls (``_fed_jax_calls``)."""
+    p = {k: t.clone().requires_grad_(True) for k, t in params.items()}
+    with (_fed_jax_calls(list(forced)) if forced is not None
+          else contextlib.nullcontext()):
+        loss = F.cross_entropy(
+            temu.apply_quantized(p, torch.from_numpy(toks[:, :-1]).long(),
+                                 key=prng.key(2)).reshape(-1, 256),
+            torch.from_numpy(toks[:, 1:]).long().reshape(-1))
+        return torch.autograd.grad(loss, p["embed.embedding"])[0].numpy()
+
+
 def test_e4m3_embedding_requant_explodes_its_gradient_in_both_packages():
     """Why the large decoder's 8-bit AdamW takes NaN codes at its second
     step on the card (ROADMAP trap 67): ``emb_fmt="e4m3"``'s row-wise
@@ -417,55 +510,56 @@ def test_e4m3_embedding_requant_explodes_its_gradient_in_both_packages():
     into e4m3's flush range, zeroing most rows, and each RMSNorm then
     divides those tokens' gradients by their tiny norms, layer after
     layer.  The JAX package does the same: at 4 layers the embedding's
-    largest gradient grows 1.2e10-fold in both packages, to the same
-    value (measured 0.2205 to 2.7435e9 in both); at 12 layers its square
-    overflows f32."""
-    cfg = dict(vocab_size=256, d_model=64, n_layers=4, n_heads=4,
-               n_kv_heads=2, d_ff=128, max_seq_len=32, dtype="float32")
-    rng = np.random.default_rng(5)
-    toks = rng.integers(0, 256, (2, 33)).astype(np.int32)
-    tm = TDecoder(TConfig(**cfg))
-    with torch.no_grad():
-        tm.embed.embedding.copy_(torch.from_numpy(
-            rng.standard_normal((256, 64)).astype(np.float32) * 768 ** -0.5))
-    temu = tmpt.initialize(tm, training_algo="hybrid-gemm", device="cpu")
-    params = {k: p.detach().clone() for k, p in tm.named_parameters()}
-    v = jax.tree.map(lambda t: jnp.asarray(t.numpy()),
-                     variables_to_flax(params, temu.module_table))
-    jm = JDecoder(JConfig(**cfg))
-    emu = jmpt.initialize(jm, v, (toks[:, :-1],), training_algo="hybrid-gemm")
-
-    @jax.jit
-    def jgrad(params):
-        def loss_of(p):
-            logits = emu.apply_quantized(p, toks[:, :-1],
-                                         key=jax.random.key(2))
-            return optax.softmax_cross_entropy_with_integer_labels(
-                logits, toks[:, 1:]).mean()
-        return jax.grad(loss_of)(params)["params"]["embed"]["embedding"]
-
-    vq = jax.jit(lambda p: jmpt.master_requant(
-        p, emu.module_table, jax.random.key(3), "fp16", "e4m3"))(v)
-    pq = tmpt.master_requant(params, temu.module_table, prng.key(3),
-                             "fp16", "e4m3")
+    largest gradient grows 2.2e10-fold in both packages, to the same
+    value (measured 0.2321 to 5.1128e9 in both; printed with -s); at 12
+    layers its square overflows f32.  "The same value" holds free-running
+    for this draw of the Dense weights (draw 0), not for every draw: see
+    ``test_e4m3_embedding_gradient_fed_the_jax_calls_is_jax_s``."""
+    toks, temu, params, v, emu, vq, pq = _emb_setup(0)
     emb = pq["embed.embedding"]
     np.testing.assert_array_equal(
         emb.numpy(), np.asarray(vq["params"]["embed"]["embedding"]))
     assert int((emb.abs().amax(1) == 0).sum()) >= 128
 
-    def tgrad(p):
-        p = {k: t.clone().requires_grad_(True) for k, t in p.items()}
-        loss = F.cross_entropy(
-            temu.apply_quantized(p, torch.from_numpy(toks[:, :-1]).long(),
-                                 key=prng.key(2)).reshape(-1, 256),
-            torch.from_numpy(toks[:, 1:]).long().reshape(-1))
-        return float(torch.autograd.grad(
-            loss, p["embed.embedding"])[0].abs().max())
-
-    before = (float(jnp.abs(jgrad(v)).max()), tgrad(params))
-    after = (float(jnp.abs(jgrad(vq)).max()), tgrad(pq))
+    jgrad = _emb_jgrad(emu, toks)
+    before = (float(np.abs(jgrad(v)).max()),
+              float(np.abs(_emb_tgrad(temu, toks, params)).max()))
+    after = (float(np.abs(jgrad(vq)).max()),
+             float(np.abs(_emb_tgrad(temu, toks, pq)).max()))
+    print(f"largest embedding gradient (JAX, port): before {before}, "
+          f"after {after}")
     assert after[0] > 1e8 * before[0] and after[1] > 1e8 * before[1]
     assert abs(after[1] - after[0]) <= 1e-3 * after[0], (before, after)
+
+
+def test_e4m3_embedding_gradient_fed_the_jax_calls_is_jax_s():
+    """The exploded embedding gradient is the same function of the same
+    casts in both packages, also for the one draw of the Dense weights in
+    200 where the free-running runs part: fed the JAX run's arguments and
+    outputs at every Dense, BatchMatmul and Embed call, the port's
+    gradient for draw 55 equals the JAX package's up to summation order
+    (measured 2.4e-8 relative L2; held to 1e-6).  Free-running, draw 0
+    agrees to 1e-7 (the test above), and so do 199 of draws 0-199 to 3e-5;
+    draw 55 does not (6.5% on the largest element, 0.148 relative L2;
+    printed with -s).  There a one-ulp difference of summation order puts
+    one element of layer 2's down_proj input at 7.7500005 of its e4m3
+    grid in the port and at 7.749995 in the JAX package, one either side
+    of the tie between 7.5 and 8; that one code, 6.5% of its element, is
+    then divided by the tiny norms of the backward like every other
+    (ROADMAP trap 82)."""
+    toks, temu, _, _, emu, vq, pq = _emb_setup(55)
+    record = []
+    jg = _emb_jgrad(emu, toks, record)(vq)
+    free = _emb_tgrad(temu, toks, pq)
+    forced = _emb_tgrad(temu, toks, pq, forced=record)
+    rel = [float(np.linalg.norm(t - jg) / np.linalg.norm(jg))
+           for t in (free, forced)]
+    gap = abs(float(np.abs(free).max()) / float(np.abs(jg).max()) - 1)
+    print(f"draw 55: largest embedding gradient {np.abs(jg).max():.6g}"
+          f" (JAX); free-running {gap:.3g} apart, relative L2 {rel[0]:.3g};"
+          f" fed the JAX calls {rel[1]:.3g}")
+    assert float(np.abs(jg).max()) > 1e9
+    assert rel[1] <= 1e-6, rel
 
 
 def test_remat_is_bit_equal_and_needs_the_interceptor(monkeypatch):

@@ -1,0 +1,290 @@
+"""The port's ResNet scripts (``fp8tpu_torch.examples.resnet_ptq`` and
+``resnet_qat``) at tiny sizes on ``--device cpu``, handed the JAX script's
+own initial weights and held to the JAX script's numbers (the other
+scripts: tests/test_torch_examples.py):
+
+- resnet_ptq on ``tiny``: fp32 and quantized logits within 2e-3 of
+  max|logit| of the JAX script's (BN statistics touched in both).
+- resnet_qat: 2 steps, losses, parameters and updates within PERF.md
+  §2's whole-whitelist training limits (QAT_TOL; why there), a planted
+  run without an update failing them, and the quantized eval forward
+  within the PTQ limit.
+"""
+
+import argparse
+import functools
+import json
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import optax
+import torch
+
+from fp8tpu_torch.examples import resnet_ptq, resnet_qat
+from fp8tpu_torch.models import variables_from_flax
+from test_torch_examples import CPU, PTQ_TOL, _jax_script, _np
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's port runs.  Tier-1 runs six
+    pytest-xdist workers on the machine's cores, and torch's thread pool
+    in each then oversubscribes them: a port script's many small ops ran
+    up to 12 times slower than alone, and slowed the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_ptq():
+    """examples/resnet_ptq.py on ``tiny`` with 64 samples: the initial
+    variables, and the first batch's fp32 and e4m3 logits."""
+    import fp8tpu
+    from fp8tpu.models.resnet import RESNET_EXEMPT
+    script = _jax_script("resnet_ptq")
+    args = argparse.Namespace(imagenet_dir=None, data_npz=None,
+                              model="tiny", num_samples=64, num_classes=10)
+    model = script.get_model("tiny", 10)
+    x, _ = script.load_data(args)
+    # jitted as the script jits its applies (init too: eager, it took 10 s)
+    v0 = jax.jit(model.init)(jax.random.key(2), x[:2])
+    variables = v0
+    for i in range(3):
+        _, upd = model.apply(variables, x[i * 8:(i + 1) * 8], train=True,
+                             mutable=["batch_stats"])
+        variables = {**variables, "batch_stats": upd["batch_stats"]}
+    base = np.asarray(jax.jit(model.apply)(variables, x[:32]))
+    qm = fp8tpu.quantize_model(
+        model, variables, (x[:2],), dtype="e4m3", fuse_bn=True,
+        inference_model=script.get_model("tiny", 10,
+                                         norm_mode="scale_shift"),
+        calibration_batches=[x[:32], x[32:64]],
+        list_exempt_layers=RESNET_EXEMPT)
+    jq = jax.jit(lambda v, xb: qm.apply(xb, variables=v))
+    return _np(v0), base, np.asarray(jq(qm.variables, x[:32]))
+
+
+def test_resnet_ptq_matches_the_jax_script():
+    v0, base, qlogits = _jax_ptq()
+    out = resnet_ptq.main(["--num-samples", "64"] + CPU, variables=v0)
+    for name, want in (("fp32", base), ("e4m3", qlogits)):
+        got = out["logits"][name].numpy()
+        assert np.abs(got - want).max() <= PTQ_TOL * np.abs(want).max(), name
+    assert out["lines"][0].startswith("baseline fp32 top-1: ")
+    assert out["lines"][1].startswith("e4m3     PTQ top-1: ")
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--model", "tiny_vit"], "item 4"),
+    (["--imagenet_dir", "/nonexistent"], "item 4")])
+def test_resnet_ptq_waiting_flags_raise(flags, match):
+    with pytest.raises(NotImplementedError, match=match):
+        resnet_ptq.main(flags + CPU)
+
+
+@pytest.mark.parametrize("bottleneck,groups,base_width", [
+    (False, 1, 64), (True, 2, 32)])
+def test_convert_resnet_matches_the_jax_tool(bottleneck, groups,
+                                             base_width):
+    """The port's copy of tools/convert_torch.py::convert_resnet gives the
+    tool's arrays, bit for bit, on tests/test_convert_torch.py's
+    torchvision-named model, and rejects a wrong architecture."""
+    import test_convert_torch as jconv
+    from fp8tpu.models.resnet import ResNetConfig as JConfig
+    from fp8tpu_torch.models.resnet import ResNetConfig
+    from fp8tpu_torch.tools.convert_torch import convert_resnet
+    torch.manual_seed(0)
+    tm = jconv.TResNet((1, 1), width=16, num_classes=10,
+                       bottleneck=bottleneck, groups=groups,
+                       base_width=base_width).eval()
+    with torch.no_grad():
+        jconv._randomize_bn_stats(tm)
+    kw = dict(stage_sizes=(1, 1), width=16, num_classes=10,
+              bottleneck=bottleneck, groups=groups, base_width=base_width)
+    want = jconv.convert_resnet(tm.state_dict(), JConfig(**kw))
+    got = convert_resnet(tm.state_dict(), ResNetConfig(**kw))
+    flat = jax.tree_util.tree_flatten_with_path
+    assert [p for p, _ in flat(got)[0]] == [p for p, _ in flat(want)[0]]
+    for (p, a), (_, b) in zip(flat(got)[0], flat(want)[0]):
+        np.testing.assert_array_equal(a, b, err_msg=str(p))
+    with pytest.raises((KeyError, ValueError)):
+        convert_resnet(tm.state_dict(), ResNetConfig(
+            **{**kw, "stage_sizes": (1,)}))
+
+
+def test_resnet_ptq_torch_ckpt(tmp_path):
+    """``--torch_ckpt``: a torchvision-named ResNet-18 saved with
+    torch.save is evaluated in place of the random weights (no BN touch):
+    its fp32 logits are the torchvision-style module's own.  The images
+    come through ``--data_npz`` at 64 x 64, which a ResNet-18 takes as it
+    takes 224 x 224 (its global pool), at a twelfth of the cost."""
+    import test_convert_torch as jconv
+    from fp8tpu_torch.data import pattern_images
+    torch.manual_seed(0)
+    tm = jconv.TResNet((2, 2, 2, 2), width=64, num_classes=10).eval()
+    with torch.no_grad():
+        jconv._randomize_bn_stats(tm)
+    path = tmp_path / "resnet18.pt"
+    torch.save({"state_dict": tm.state_dict()}, path)
+    x, y = pattern_images(8, size=64, n_classes=8, seed=0)
+    np.savez(tmp_path / "images.npz", x=x, y=y)
+    out = resnet_ptq.main(["--model", "resnet18", "--batch-size", "8",
+                           "--num-calibration-batches", "1", "--data_npz",
+                           str(tmp_path / "images.npz"), "--torch_ckpt",
+                           str(path)] + CPU)
+    assert out["lines"][0] == f"loaded pretrained torch checkpoint {path}"
+    with torch.no_grad():
+        want = tm(torch.from_numpy(x.transpose(0, 3, 1, 2).copy())).numpy()
+    got = out["logits"]["fp32"].numpy()
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+QAT_STEPS = 2
+# The QAT policy casts every conv input and residual add per tensor to
+# e4m3; in train mode the batch statistics' summation order moves BN
+# outputs by an ulp and the casts turn some into e4m3 steps (ROADMAP trap
+# 66), as in the whole-whitelist decoder recipes, so the step is held to
+# their limits (PERF.md §2): measured losses 9.3e-5 relative, parameters
+# 2.7e-4.  The quantized eval forward of the same weights (running
+# statistics) is held to PTQ_TOL in test_resnet_qat_eval_forward_matches.
+# Two SGD steps at lr 1e-3 move a parameter by about 3e-3 of its
+# gradient, well inside the parameter limit, so the updates (parameters
+# after less before) are held to the row's update limits too: 0.25
+# relative L2 and 97% of their signs equal (measured 1.3e-2 and 99.4%);
+# a run that never steps reads 1.0 and 0.01% there, and passes the loss
+# and parameter limits (1.8e-3 and 1.2e-3:
+# test_resnet_qat_without_an_update_fails).
+QAT_TOL = dict(loss=2e-2, param=1e-2, update=0.25, sign=0.97)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_qat():
+    """examples/resnet_qat.py's train step, 2 steps at batch 16."""
+    from fp8tpu.data import pattern_images
+    from fp8tpu.models.resnet import RESNET_EXEMPT, ResNet, ResNetConfig
+    from fp8tpu.quant.interceptor import build_module_table, quantized_apply
+    from fp8tpu.quant.policy import get_policy
+    xs, ys = pattern_images(1024, size=32, n_classes=8, seed=0)
+    model = ResNet(ResNetConfig(stage_sizes=(1, 1), width=16, num_classes=8,
+                                small_images=True))
+    x, y = jnp.asarray(xs), jnp.asarray(ys)
+    v0 = jax.jit(model.init)(jax.random.key(2), x[:2])
+    policy = get_policy("e4m3").with_exempt(*RESNET_EXEMPT)
+    table = build_module_table(model, v0, x[:2])
+    opt = optax.sgd(1e-3, momentum=0.9)
+
+    def loss_fn(params, v, xb, yb):
+        out, upd = quantized_apply(model, policy, {**v, "params": params},
+                                   xb, train=True, module_table=table,
+                                   mutable=["batch_stats"])
+        return optax.softmax_cross_entropy_with_integer_labels(
+            out, yb).mean(), upd["batch_stats"]
+
+    @jax.jit        # as the script jits its train step
+    def train_step(v, state, xb, yb):
+        (loss, bs), g = jax.value_and_grad(loss_fn, has_aux=True)(
+            v["params"], v, xb, yb)
+        upd, state = opt.update(g, state, v["params"])
+        return ({"params": optax.apply_updates(v["params"], upd),
+                 "batch_stats": bs}, state, loss)
+
+    v, state, losses = v0, opt.init(v0["params"]), []
+    for step in range(QAT_STEPS):
+        i = (step * 16) % (x.shape[0] - 16)
+        v, state, loss = train_step(v, state, x[i:i + 16], y[i:i + 16])
+        losses.append(float(loss))
+    return _np(v0), _np(v), losses
+
+
+def _qat_errors():
+    """The script's QAT_STEPS steps against the JAX script's: (worst
+    relative loss gap, worst parameter or statistic gap, the updates'
+    relative L2 distance, the share of update signs equal, the script's
+    printed lines)."""
+    v0, v2, jlosses = _jax_qat()
+    out = resnet_qat.main(["--epochs", "1", "--steps-per-epoch",
+                           str(QAT_STEPS), "--batch-size", "16"] + CPU,
+                          variables=v0)
+    loss_err = np.abs(np.array(out["losses"]) - jlosses) / np.abs(jlosses)
+    before, want = variables_from_flax(v0), variables_from_flax(v2)
+    param_err = max(float(np.abs(t.numpy() - want[k].numpy()).max())
+                    for k, t in out["model"].state_dict().items())
+    num = den = 0.0
+    same = total = 0
+    for k, p in out["model"].named_parameters():
+        dj = (want[k] - before[k]).double()
+        dt = (p.detach() - before[k]).double()
+        num += float(((dt - dj) ** 2).sum())
+        den += float((dj ** 2).sum())
+        same += int((torch.sign(dt) == torch.sign(dj)).sum())
+        total += dj.numel()
+    errs = (float(loss_err.max()), param_err, (num / den) ** 0.5,
+            same / total)
+    print("qat: losses {:.2e}, parameters {:.2e}, updates {:.2e} relative "
+          "L2, {:.4f} of signs equal".format(*errs))
+    return errs + (out["lines"],)
+
+
+def test_resnet_qat_matches_the_jax_script():
+    loss, param, update, sign, lines = _qat_errors()
+    assert loss <= QAT_TOL["loss"]
+    assert param <= QAT_TOL["param"]
+    assert update <= QAT_TOL["update"]
+    assert sign >= QAT_TOL["sign"]
+    assert lines[0].startswith("epoch 0: loss: ")
+
+
+def test_resnet_qat_without_an_update_fails(monkeypatch):
+    """A planted fault, a script whose optimizer never steps: its losses
+    and parameters stay inside their limits, its updates do not."""
+    monkeypatch.setattr(torch.optim.SGD, "step",
+                        lambda self, closure=None: None)
+    loss, param, update, sign, _ = _qat_errors()
+    assert loss <= QAT_TOL["loss"] and param <= QAT_TOL["param"]
+    assert update > QAT_TOL["update"] and sign < QAT_TOL["sign"]
+
+
+def test_resnet_qat_eval_forward_matches():
+    """The script's quantized eval forward (``qat_apply(x[:64])``) on the
+    initial weights, against the JAX script's."""
+    from fp8tpu.data import pattern_images
+    from fp8tpu.models.resnet import RESNET_EXEMPT, ResNet, ResNetConfig
+    from fp8tpu.quant.interceptor import build_module_table, quantized_apply
+    from fp8tpu.quant.policy import get_policy
+    v0, _, _ = _jax_qat()
+    xs, _ = pattern_images(1024, size=32, n_classes=8, seed=0)
+    model = ResNet(ResNetConfig(stage_sizes=(1, 1), width=16, num_classes=8,
+                                small_images=True))
+    x = jnp.asarray(xs[:64])
+    want = np.asarray(quantized_apply(
+        model, get_policy("e4m3").with_exempt(*RESNET_EXEMPT), v0, x,
+        module_table=build_module_table(model, v0, x[:2])))
+    out = resnet_qat.main(["--epochs", "0"] + CPU, variables=v0)
+    got = out["eval"](torch.from_numpy(np.ascontiguousarray(
+        xs[:64].transpose(0, 3, 1, 2)))).numpy()
+    assert np.abs(got - want).max() <= PTQ_TOL * np.abs(want).max()
+
+
+def test_resnet_qat_checkpoint(tmp_path):
+    from fp8tpu_torch.utils import restore_checkpoint
+    out = resnet_qat.main(["--epochs", "1", "--steps-per-epoch", "1",
+                           "--batch-size", "8", "--checkpoint-dir",
+                           str(tmp_path)] + CPU)
+    with open(tmp_path / "meta.json") as f:
+        meta = json.load(f)
+    assert meta["step"] == 0 and "policy" in meta
+    files = set(np.load(tmp_path / "state_0.npz").files)
+    assert "params/params/fc/kernel" in files
+    assert "params/batch_stats/norm1/bn/mean" in files
+    assert "opt_state/trace/fc.weight" in files
+    back = restore_checkpoint(str(tmp_path), 0, {"params": {
+        "params": {"fc": {"bias": torch.zeros(8)}}}})["state"]
+    assert torch.equal(back["params"]["params"]["fc"]["bias"],
+                       out["model"].fc.bias.detach())
+
+

@@ -1374,3 +1374,73 @@ def test_adamw_8bit_steps_on_the_card(cuda):
     for k in init:
         np.testing.assert_array_equal(_bits(runs["cuda"][0][k]),
                                       _bits(runs["cpu"][0][k]))
+
+
+# -- the sparsity engine and the shaped PRNG draws ---------------------------
+
+# tests/test_torch_sparse.py's THRESHOLD_RTOL: the stochastic-pruning
+# threshold goes through erf / exp / log and a long f32 sum, whose last
+# bits differ between implementations.
+SPARSE_THRESHOLD_RTOL = 1e-5
+
+
+def test_uniform_and_randint_on_cuda_equal_the_cpu(cuda):
+    from fp8tpu_torch.numerics import prng
+    for seed in (0, 7):
+        k = prng.fold_in(prng.key(seed), 3)
+        for shape in ((1,), (1000,), (64, 257)):
+            for lo, hi in ((0.0, 1.0), (-2.0, 3.5)):
+                a = prng.uniform(k, shape, lo, hi, device=cuda)
+                assert a.is_cuda
+                np.testing.assert_array_equal(
+                    _bits(a), _bits(prng.uniform(k, shape, lo, hi)))
+            for lo, hi in ((0, 2048), (-5, 10 ** 6), (0, 2 ** 31 - 1)):
+                a = prng.randint(k, lo, hi, shape, device=cuda)
+                assert a.is_cuda
+                assert torch.equal(a.cpu(), prng.randint(k, lo, hi, shape))
+
+
+@pytest.mark.parametrize("cfg", [("e4m3", "rne", "none"),
+                                 ("e4m3", "rne", "per-tensor"),
+                                 ("e4m3", "stochastic", "none")])
+def test_fake_quant_sparse_on_cuda_is_k1(cfg, cuda):
+    from fp8tpu_torch.numerics import prng
+    dtype, scheme, scaling = cfg
+    rng = np.random.default_rng(1)
+    x = rng.normal(0, 3, (300, 257)).astype(np.float32)
+    x[rng.random(x.shape) < 0.6] = 0.0
+    sp = torch.from_numpy(x).to_sparse_coo()
+    c = tconfig.TensorQuantConfig(dtype, scheme, scaling=scaling)
+    key = prng.key(4) if scheme == "stochastic" else None
+    before = cast_kernel.launches
+    got = tfq.fake_quant_sparse(sp.to(cuda), c, key)
+    assert cast_kernel.launches == before + 1
+    want = tfq.fake_quant_sparse(sp, c, key)
+    assert torch.equal(got.indices().cpu(), want.indices())
+    np.testing.assert_array_equal(_bits(got.values()), _bits(want.values()))
+
+
+def test_stochastic_prune_threshold_on_cuda(cuda):
+    from fp8tpu_torch.sparse import (sparsify_weight, stochastic_prune,
+                                     stochastic_prune_threshold,
+                                     SparseConfig, SparseState)
+    from fp8tpu_torch.numerics import prng
+    g = torch.from_numpy(np.random.default_rng(2).normal(
+        0, 1e-2, (512, 1024)).astype(np.float32))
+    for sparsity in (0.3, 0.5, 0.9):
+        want = float(stochastic_prune_threshold(g, sparsity))
+        got = float(stochastic_prune_threshold(g.to(cuda), sparsity))
+        assert abs(got - want) <= SPARSE_THRESHOLD_RTOL * want
+    alpha = torch.tensor(0.004)
+    np.testing.assert_array_equal(
+        _bits(stochastic_prune(g.to(cuda), alpha.to(cuda), prng.key(1))),
+        _bits(stochastic_prune(g, alpha, prng.key(1))))
+    cfg = SparseConfig(weight=True, weight_sparsity=0.5, alpha_window=10)
+    st = SparseState.create()
+    st.step = torch.tensor(10, dtype=torch.int32)
+    a, aa = sparsify_weight(g, cfg, st, prng.key(3))
+    st_c = SparseState(st.weight_alpha.to(cuda), st.outgrad_alpha.to(cuda),
+                       st.step.to(cuda))
+    b, ba = sparsify_weight(g.to(cuda), cfg, st_c, prng.key(3))
+    assert _bits(ba).tolist() == _bits(aa).tolist()
+    np.testing.assert_array_equal(_bits(b), _bits(a))

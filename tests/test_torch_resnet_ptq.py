@@ -259,7 +259,21 @@ def test_port_imports_nothing_of_jax_or_fp8tpu():
             "fp8tpu_torch/utils/metrics.py",
             "fp8tpu_torch/utils/stats.py",
             "fp8tpu_torch/utils/profiling.py",
-            "fp8tpu_torch/utils/bindump.py"} <= names
+            "fp8tpu_torch/utils/bindump.py",
+            "fp8tpu_torch/sparse/__init__.py",
+            "fp8tpu_torch/sparse/prune.py",
+            "fp8tpu_torch/sparse/adaptive.py",
+            "fp8tpu_torch/numerics/golden.py",
+            "fp8tpu_torch/numerics/native_ref.py",
+            "fp8tpu_torch/examples/__init__.py",
+            "fp8tpu_torch/examples/_common.py",
+            "fp8tpu_torch/examples/train_fp8.py",
+            "fp8tpu_torch/examples/serve_llm.py",
+            "fp8tpu_torch/examples/serve_http.py",
+            "fp8tpu_torch/examples/eval_ppl.py",
+            "fp8tpu_torch/examples/resnet_ptq.py",
+            "fp8tpu_torch/examples/resnet_qat.py",
+            "fp8tpu_torch/tools/convert_torch.py"} <= names
     for path in files:
         bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
         assert not bad, f"{path.relative_to(REPO)} imports {bad}"

@@ -1,7 +1,8 @@
 """The port's package surface against the JAX package's: every public
 name that ``fp8tpu``, ``fp8tpu.numerics``, ``fp8tpu.kernels``,
 ``fp8tpu.quant``, ``fp8tpu.training``, ``fp8tpu.models``, ``fp8tpu.serve``,
-``fp8tpu.parallel``, ``fp8tpu.utils`` and ``fp8tpu.data`` export,
+``fp8tpu.parallel``, ``fp8tpu.utils``, ``fp8tpu.data`` and
+``fp8tpu.sparse`` export,
 ``fp8tpu_torch`` and its counterparts export too, except the names of
 modules still to be ported, which are listed here and must be exactly the
 missing ones."""
@@ -18,6 +19,7 @@ import fp8tpu.numerics
 import fp8tpu.parallel
 import fp8tpu.quant
 import fp8tpu.serve
+import fp8tpu.sparse
 import fp8tpu.training
 import fp8tpu.utils
 import fp8tpu_torch
@@ -28,6 +30,7 @@ import fp8tpu_torch.numerics
 import fp8tpu_torch.parallel
 import fp8tpu_torch.quant
 import fp8tpu_torch.serve
+import fp8tpu_torch.sparse
 import fp8tpu_torch.training
 import fp8tpu_torch.utils
 
@@ -93,8 +96,9 @@ def public_names(module) -> set:
     (fp8tpu.parallel, fp8tpu_torch.parallel),
     (fp8tpu.utils, fp8tpu_torch.utils),
     (fp8tpu.data, fp8tpu_torch.data),
+    (fp8tpu.sparse, fp8tpu_torch.sparse),
 ], ids=["package", "numerics", "kernels", "quant", "training", "models",
-        "serve", "parallel", "utils", "data"])
+        "serve", "parallel", "utils", "data", "sparse"])
 def test_port_exports_the_jax_names(jax_mod, torch_mod):
     later = NOT_YET_PORTED.get(jax_mod.__name__.rpartition(".")[2], set())
     want = {RENAMED.get(n, n) for n in public_names(jax_mod)}

@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--phases build,k1,k2,k3,k4,k5,k6,t1,t2,p3,main,
                                     train,train_lm,serve,serve_paged,spec,
                                     moe,flush,time,w8a8,deploy,sparse,
-                                    examples]
+                                    vision,bert,examples]
     python3 chip_smoke.py --phases build,k2_probe   # not in the default run
     python3 chip_smoke.py --phases build,w8a8_probe # nor these six
     python3 chip_smoke.py --phases build,w8a8k
@@ -317,7 +317,33 @@ Phases, each printing its own lines; any failure exits non-zero:
           against f64 within the f32 summation-order bound, the mask
           gradient on the window; (e) K1 against the port's golden and the
           native twin over tests/test_native_ref.py's 16 modes and inputs.
-15. examples  each script of fp8tpu_torch.examples through main(argv) on
+15. vision ViT-B/16 (86M parameters, random from a seed) e4m3 PTQ with hw
+          patching and its exempt list at batch 32 x 224^2, nothing cut:
+          hw patching reaches none of its modules (Dense and the attention
+          einsums are outside the engine, as in the JAX package), so a
+          forward is one K1 launch a quantized Dense and no K2; K2 is timed
+          and checked at its fc1 shape (6304 x 768 x 3072).  Then the nine
+          conv families at their full-width constructors (vgg11,
+          mobilenet, inception, densenet, shufflenet, squeezenet,
+          mobilenet_v2, mobilenet_v3, efficientnet_b0), batch 8 x 224^2,
+          BN statistics from two train passes and folded into the
+          scale-shift twin (SqueezeNet is norm-free), calibrated: K2
+          launches a forward equal to the non-exempt dense convs of the
+          model's table (two pre-passes each), the engine never on a
+          grouped conv, every K2 launch of one forward against
+          k2_reference, correlation with fp32 > 0.95.
+   bert   BERT-base QA (vocabulary 30522, 12 layers at d 768, random from a
+          seed at BERT's std 0.02, bert.INIT_STD) at 8 x 384 tokens, hybrid
+          PTQ with BERT_QA_EXEMPT and BERT_OUTPUT_FUSED, as
+          bert_squad_ptq.py runs it (K1 casts) and
+          with hw patching (K2 on each of the 12 x 96 x 2 (batch, head)
+          slices of the BatchMatmuls): ms a batch, sequences/s, launches,
+          start logits' correlation with fp32 > 0.95, layer 0's 192 K2
+          launches against k2_reference, the 48 BatchMatmul casts moved
+          from K1 into K2; then K2 timed at a score slice (384 x 64 x 384);
+          the control: the casts' correlation of the model drawn at
+          1/sqrt(fan_in), printed and not gated.
+16. examples  each script of fp8tpu_torch.examples through main(argv) on
           the card in a torch.profiler window: train_fp8 at the large
           preset's width (batch 8 x 256, --opt8 --emb-fmt e4m3, 3 steps:
           one P3 and one K1 launch a step), serve_llm at d_model 4096 / 16
@@ -325,8 +351,10 @@ Phases, each printing its own lines; any failure exits non-zero:
           on the ring (K3, K6) and paged with the prefix cache (K3, K4:
           --paged walks the pages), serve_http at its defaults and with
           --paged (two requests over 127.0.0.1 each; K3 with K6, then K4),
-          eval_ppl --train 20, resnet_ptq (ResNet-50, 64 images), resnet_qat
-          (4 steps): the launches each must make, counted by the wrappers
+          eval_ppl --train 20, resnet_ptq (ResNet-50, 64 images; tiny_vit),
+          resnet_qat (4 steps), launch_sweep (tiny_vit, tiny_mobilenet,
+          resnet18, e4m3), bert_squad_ptq at its defaults, bert_qa_finetune
+          (5 steps): the launches each must make, counted by the wrappers
           and found in the profile, wall seconds and rates.
 
 The last lines are the kernels' JSON record, the card's name and power
@@ -8944,6 +8972,410 @@ def phase_sparse(record):
         raise PhaseError("; ".join(problems))
 
 
+# -- phases vision and bert -----------------------------------------------------
+
+VIT_BATCH = 32                 # ViT-B/16 images a batch
+VISION_BATCH = 8               # the conv families' images a batch
+IMAGE = 224                    # the images' height and width
+# (constructor, exempt list, folds BatchNorm): the nine conv families of
+# fp8tpu_torch.models.vision at their full-width constructors
+VISION_FAMILIES = (
+    ("vgg11", "VGG_EXEMPT", True), ("mobilenet", "MOBILENET_EXEMPT", True),
+    ("inception", "INCEPTION_EXEMPT", True),
+    ("densenet", "DENSENET_EXEMPT", True),
+    ("shufflenet", "SHUFFLENET_EXEMPT", True),
+    ("squeezenet", "SQUEEZENET_EXEMPT", False),
+    ("mobilenet_v2", "MBCONV_EXEMPT", True),
+    ("mobilenet_v3", "MBCONV_EXEMPT", True),
+    ("efficientnet_b0", "MBCONV_EXEMPT", True))
+BERT_BATCH, BERT_SEQ = 8, 384  # SQuAD's max_seq_length
+PTQ_CORR = 0.95                # the JAX package's PTQ gate
+
+
+def grouped_convs(model):
+    """Paths of the grouped (depthwise included) convs, which hw patching
+    leaves off the engine."""
+    from fp8tpu_torch import linen
+    return {n.replace(".", "/") for n, m in model.named_modules()
+            if isinstance(m, linen.Conv) and m.feature_group_count != 1}
+
+
+def launch_counts():
+    from fp8tpu_torch.kernels import cast_kernel, qmatmul
+    return {"K1": cast_kernel.launches, "K2": qmatmul.launches,
+            "K2_prepass": qmatmul.k2_launches["prepass"]}
+
+
+def launch_delta(before):
+    return {k: v - before[k] for k, v in launch_counts().items()}
+
+
+class _CheckedK2:
+    """While open, the first ``limit`` K2 launches (GEMMs and engine
+    convs) are each held against the exact product of their own cast
+    operands (k2_reference): ``ratios`` takes |err| / tolerance."""
+
+    def __init__(self, limit=None):
+        self.limit, self.ratios = limit, []
+
+    def _take(self):
+        return self.limit is None or len(self.ratios) < self.limit
+
+    def __enter__(self):
+        from fp8tpu_torch.kernels import qmatmul
+        self.launch, self.conv = qmatmul._launch, qmatmul.conv
+
+        def launch(*args, impl="bitexact", **kw):
+            out = self.launch(*args, impl=impl, **kw)
+            if self._take():
+                self.ratios.append(k2_launch_error(out, args, impl))
+            return out
+
+        def conv(*args):
+            out = self.conv(*args)
+            if self._take():
+                self.ratios.append(k2_ratio(conv_rows(out), *k2_reference(
+                    *k2_conv_operands(*args))))
+            return out
+
+        qmatmul._launch, qmatmul.conv = launch, conv
+        return self
+
+    def __exit__(self, *exc):
+        from fp8tpu_torch.kernels import qmatmul
+        qmatmul._launch, qmatmul.conv = self.launch, self.conv
+
+
+def corr(a, b) -> float:
+    import torch
+    return float(torch.corrcoef(torch.stack(
+        [a.flatten().double(), b.flatten().double()]))[0, 1])
+
+
+def timed_forwards(fn, n=3):
+    """ms of each of ``n`` calls of ``fn``, the card drained around each."""
+    import torch
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1000.0 * (time.perf_counter() - t))
+    return times
+
+
+def time_k2_gemm(label, xq, w, fmt_w, launches):
+    """K2 at one GEMM shape of a path, ``qdq(x) @ w`` with x cast e4m3 at
+    its per-tensor scale (and w at its own when ``fmt_w``): device time
+    by CUDA-graph replay, the plain version, the bound (bytes over HBM or
+    3 bf16 MMAs a product at the dense rate, the larger), f32
+    torch.matmul on the cast operands (TF32 off), and the launch against
+    k2_reference: a row of the kernels record."""
+    import torch
+    from fp8tpu_torch._device import full_fp32
+    from fp8tpu_torch.kernels import qmatmul
+    from fp8tpu_torch.numerics.formats import RoundMode
+    from fp8tpu_torch.numerics.scaling import per_tensor
+    from fp8tpu_torch.tools import device_ms
+    rne = RoundMode.RNE
+    m, k = xq.shape
+    n = w.shape[1]
+    sx = per_tensor(xq, "e4m3")
+    sw = per_tensor(w, "e4m3") if fmt_w else 1.0
+    args = (xq, w, "e4m3", rne, fmt_w, rne, sx, sw)
+    got = qmatmul.qdq_matmul(*args)
+    want = qmatmul.plain(*args)
+    a, b = k2_operands(*args, 0, "bitexact")
+    ratio = k2_ratio(got, *k2_reference(a, b))
+
+    def library():
+        with full_fp32():
+            return torch.matmul(a, b)
+
+    t_k = device_ms(lambda: qmatmul.qdq_matmul(*args))
+    t_p = cuda_ms(lambda: qmatmul.plain(*args), iters=3, warmup=1)
+    t_l = device_ms(library)
+    flops = 2.0 * m * n * k
+    t_bytes = 4.0 * (m * k + k * n + m * n) / HBM_BYTES_PER_S * 1e3
+    t_mma = 3 * flops / BF16_TC_FLOPS * 1e3
+    err = float((got - want).abs().max())
+    print(f"time k2 {label} M={m} K={k} N={n} (x e4m3, w {fmt_w}): kernel "
+          f"{t_k:.4f} ms ({flops / t_k / 1e9:.2f} TFLOP/s), plain {t_p:.4f} "
+          f"ms, bound {max(t_bytes, t_mma):.4f} ms (bytes {t_bytes:.4f}, 3 "
+          f"bf16 MMAs {t_mma:.4f}), f32 torch.matmul on the cast operands "
+          f"{t_l:.4f} ms; |kernel - plain| {err:.3e}, |err| / tolerance "
+          f"{ratio:.3e}")
+    if ratio > 1.0:
+        raise PhaseError(f"K2 at {label} is {ratio} of k2_reference's bound")
+    return {"name": f"qdq_matmul at {label} ({m}x{k}x{n})", "route": "cuda",
+            "source": "fp8tpu_torch/kernels/csrc/qmatmul.cu",
+            "replaces": "fp8tpu/kernels/qmatmul.py:193",
+            "launches": launches, "max_abs_err": err, "ms": t_k,
+            "plain_ms": t_p, "bound_ms": max(t_bytes, t_mma),
+            "bound_by": "operations" if t_mma >= t_bytes else "bytes",
+            "library_ms": t_l, "err_over_tol": ratio}
+
+
+def phase_vision(record):
+    """ViT-B/16 e4m3 PTQ with hw patching at batch 32 x 224^2, and the nine
+    conv families at their full-width constructors, batch 8 x 224^2:
+    launches a forward against what the model's table predicts, K2 never
+    on a grouped conv, every K2 launch of one forward against the exact
+    product of its operands, correlation with the fp32 forward."""
+    import torch
+    import fp8tpu_torch as ft
+    from fp8tpu_torch.kernels import qmatmul
+    from fp8tpu_torch.models import vision
+    from fp8tpu_torch.numerics import cast as cast_mod
+    from fp8tpu_torch.quant import hw_patch
+    from fp8tpu_torch.quant.policy import LayerKind
+
+    policy = ft.get_policy("e4m3", training=False).with_hw_patching()
+    problems, rows, profiles = [], [], {}
+    cgen = torch.Generator(device="cuda").manual_seed(7)
+
+    def run(name, model, batch, exempt, has_bn, ctor=None):
+        x = torch.randn(batch, 3, IMAGE, IMAGE, device="cuda", generator=cgen)
+        calib = torch.randn(batch, 3, IMAGE, IMAGE, device="cuda",
+                            generator=cgen)
+        with torch.no_grad():
+            if has_bn:                  # BN statistics from train passes
+                model.train()
+                model(calib)
+                model(x)
+            model.eval()
+            ref = model(x)
+        infer = ctor(device="cuda", norm_mode="scale_shift") if has_bn \
+            else None
+        pol = policy.with_exempt(*exempt)
+        t0 = time.perf_counter()
+        qm = ft.quantize_model(model, (x,), policy=policy, fuse_bn=has_bn,
+                               inference_model=infer,
+                               calibration_batches=[calib],
+                               list_exempt_layers=exempt, device="cuda")
+        torch.cuda.synchronize()
+        quantize_s = time.perf_counter() - t0
+        dense, grouped = hw_patch.engine_convs(qm.model, pol), \
+            grouped_convs(qm.model)
+        dense_modules = sum(
+            1 for p, k in qm.module_table.items()
+            if k == LayerKind.DENSE and pol.resolve(p, k) is not None)
+        routed = set()
+        paths = {id(m): n.replace(".", "/")
+                 for n, m in qm.model.named_modules()}
+        patchable = hw_patch.conv_patchable
+
+        def spy(module):
+            ok = patchable(module)
+            if ok:
+                routed.add(paths[id(module)])
+            return ok
+
+        with torch.no_grad(), _Counting(qmatmul, "plain", forbid=True), \
+                _Counting(qmatmul, "conv_plain", forbid=True), \
+                _Counting(cast_mod, "qdq_plain", forbid=True):
+            hw_patch.conv_patchable = spy
+            try:
+                before = launch_counts()
+                out = qm(x)
+                torch.cuda.synchronize()
+                per_fwd = launch_delta(before)
+            finally:
+                hw_patch.conv_patchable = patchable
+            with _CheckedK2() as checked:
+                qm(x)
+            ms = timed_forwards(lambda: qm(x))
+        c = corr(out, ref)
+        finite = bool(torch.isfinite(out).all())
+        worst = max(checked.ratios, default=0.0)
+        if name in ("vit_b16", "densenet"):
+            with torch.no_grad():
+                profiles[name] = profile_forward(qm, x, min(ms))
+        row = {"model": name, "batch": batch, "quantize_model_s": quantize_s,
+               "ms_per_batch": ms, "images_per_s": batch / (min(ms) / 1e3),
+               "launches_per_forward": per_fwd, "engine_convs": len(dense),
+               "grouped_convs": len(grouped), "dense_modules": dense_modules,
+               "k2_checked": len(checked.ratios), "k2_worst": worst,
+               "corr_vs_fp32": c, "finite": finite}
+        print(f"vision: {name} batch {batch}: quantize_model "
+              f"{quantize_s:.2f} s, {min(ms):.2f} ms/batch "
+              f"({', '.join(f'{t:.2f}' for t in ms)}), "
+              f"{row['images_per_s']:.1f} images/s; launches a forward "
+              f"{per_fwd} ({len(dense)} engine convs, {len(grouped)} grouped "
+              f"convs off the engine, {dense_modules} quantized Dense); "
+              f"{len(checked.ratios)} K2 launches within "
+              f"{worst:.3e} of k2_reference's bound; corr vs fp32 {c:.5f}")
+        bad = []
+        if not finite or c <= PTQ_CORR:
+            bad.append(f"correlation {c} (finite {finite})")
+        if per_fwd["K2"] != len(dense) or \
+                per_fwd["K2_prepass"] != 2 * len(dense):
+            bad.append(f"{per_fwd} K2 launches for {len(dense)} engine convs")
+        if routed != dense or routed & grouped:
+            bad.append(f"engine convs {sorted(routed ^ dense)[:4]} differ "
+                       "from the table's")
+        if len(checked.ratios) != len(dense) or worst > 1.0:
+            bad.append(f"{len(checked.ratios)} K2 launches checked, worst "
+                       f"{worst} of the bound")
+        problems.extend(f"{name}: {b}" for b in bad)
+        rows.append(row)
+        return qm, x
+
+    # ViT-B/16: hw patching reaches no module of it (its Dense layers and
+    # its attention einsums are outside the engine in the JAX package, as
+    # in the reference), so its forward is K1 on every quantized Dense
+    # input and K2 nowhere; K2 is timed at its fc1 shape below.
+    vit = vision.vit_b16(device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(0))
+    captured = {}
+    hook = vit.blk0_fc1.register_forward_pre_hook(
+        lambda mod, a: captured.setdefault("x", a[0].detach()))
+    qm, x = run("vit_b16", vit, VIT_BATCH, vision.VIT_EXEMPT, False)
+    hook.remove()
+    vit_row = rows[-1]
+    if vit_row["launches_per_forward"]["K1"] != vit_row["dense_modules"]:
+        problems.append(f"vit_b16: {vit_row['launches_per_forward']} K1 "
+                        f"launches for {vit_row['dense_modules']} Dense")
+    xf = captured["x"]
+    fc1 = time_k2_gemm("ViT-B/16 fc1", xf.reshape(-1, xf.shape[-1]),
+                       qm.variables["blk0_fc1.weight"].t().contiguous(),
+                       None, 0)
+    del qm, x, vit, captured
+    torch.cuda.empty_cache()
+    for i, (name, exempt, has_bn) in enumerate(VISION_FAMILIES):
+        ctor = getattr(vision, name)
+        model = ctor(device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(10 + i))
+        run(name, model, VISION_BATCH, getattr(vision, exempt), has_bn, ctor)
+        del model
+        torch.cuda.empty_cache()
+    record["vision"] = {"models": rows, "k2_vit_fc1": fc1,
+                        "profiles": profiles}
+    if problems:
+        raise PhaseError("; ".join(problems))
+    return [fc1]
+
+
+def phase_bert(record):
+    """BERT-base QA (bert_base_config, random weights from a seed) at 8 x
+    384 tokens, hybrid PTQ with the reference's recipe, as
+    bert_squad_ptq.py runs it (K1 casts) and with hw patching (K2 on
+    every (batch, head) slice of both BatchMatmuls): launches, ms, one
+    layer's K2 launches against k2_reference, start logits against fp32;
+    then K2 at a slice's shape."""
+    import torch
+    import fp8tpu_torch as ft
+    from fp8tpu_torch.kernels import qmatmul
+    from fp8tpu_torch.models import bert
+    from fp8tpu_torch.numerics import cast as cast_mod
+    from fp8tpu_torch.quant import hw_patch
+
+    cfg = bert.bert_base_config()
+    model = bert.bert_for_qa(cfg, "cuda", torch.Generator(
+        device="cuda").manual_seed(0))
+    cgen = torch.Generator(device="cuda").manual_seed(3)
+    ids = torch.randint(0, cfg.vocab_size, (BERT_BATCH, BERT_SEQ),
+                        device="cuda", generator=cgen)
+    mask = torch.ones_like(ids)
+    mask[1, BERT_SEQ * 3 // 4:] = 0      # a padded sequence
+    with torch.no_grad():
+        ref = model(ids, mask)
+    slices = cfg.n_layers * BERT_BATCH * cfg.n_heads * 2
+    problems, runs = [], {}
+    captured = {}
+    for hw in (False, True):
+        policy = ft.get_policy("hybrid", training=False)
+        if hw:
+            policy = policy.with_hw_patching()
+        t0 = time.perf_counter()
+        qm = ft.quantize_model(model, (ids[:1], mask[:1]), policy=policy,
+                               calibration_batches=[(ids, mask)],
+                               list_exempt_layers=bert.BERT_QA_EXEMPT,
+                               list_layers_output_fused=bert.BERT_OUTPUT_FUSED,
+                               device="cuda")
+        torch.cuda.synchronize()
+        quantize_s = time.perf_counter() - t0
+        with torch.no_grad(), _Counting(qmatmul, "plain", forbid=True), \
+                _Counting(cast_mod, "qdq_plain", forbid=True):
+            before = launch_counts()
+            out = qm(ids, mask)
+            torch.cuda.synchronize()
+            per_fwd = launch_delta(before)
+            engine = hw_patch.patched_matmul
+
+            def first(a, b, *rest):
+                captured.setdefault("slice", (a, b))
+                return engine(a, b, *rest)
+
+            with _CheckedK2(limit=2 * BERT_BATCH * cfg.n_heads) as checked:
+                hw_patch.patched_matmul = first
+                try:
+                    qm(ids, mask)
+                finally:
+                    hw_patch.patched_matmul = engine
+            ms = timed_forwards(lambda: qm(ids, mask))
+        c = corr(out[0], ref[0])
+        finite = all(bool(torch.isfinite(t).all()) for t in out)
+        worst = max(checked.ratios, default=0.0)
+        tag = "hw" if hw else "casts"
+        with torch.no_grad():
+            profile = profile_forward(lambda _: qm(ids, mask), None, min(ms))
+        runs[tag] = {"quantize_model_s": quantize_s, "ms_per_batch": ms,
+                     "profile": profile,
+                     "sequences_per_s": BERT_BATCH / (min(ms) / 1e3),
+                     "launches_per_forward": per_fwd,
+                     "k2_checked": len(checked.ratios), "k2_worst": worst,
+                     "corr_start_vs_fp32": c, "finite": finite}
+        print(f"bert: BERT-base QA {BERT_BATCH} x {BERT_SEQ}, hybrid"
+              f"{' + hw patching' if hw else ''}: quantize_model "
+              f"{quantize_s:.2f} s, {min(ms):.2f} ms/batch "
+              f"({', '.join(f'{t:.2f}' for t in ms)}), "
+              f"{runs[tag]['sequences_per_s']:.1f} sequences/s; launches a "
+              f"forward {per_fwd}; layer 0's {len(checked.ratios)} K2 "
+              f"launches within {worst:.3e} of k2_reference's bound; start "
+              f"logits corr vs fp32 {c:.5f}")
+        want = slices if hw else 0
+        if per_fwd["K2"] != want or per_fwd["K2_prepass"] != 2 * want:
+            problems.append(f"{tag}: {per_fwd}, expected {want} K2 GEMMs")
+        if hw and (len(checked.ratios) != 2 * BERT_BATCH * cfg.n_heads
+                   or worst > 1.0):
+            problems.append(f"{len(checked.ratios)} K2 launches checked, "
+                            f"worst {worst} of the bound")
+        if not finite or c <= PTQ_CORR:
+            problems.append(f"{tag}: correlation {c} (finite {finite})")
+        del qm, out
+    # the engine takes both operands of the 24 BatchMatmuls off K1
+    k1_moved = runs["casts"]["launches_per_forward"]["K1"] \
+        - runs["hw"]["launches_per_forward"]["K1"]
+    if k1_moved != 2 * 2 * cfg.n_layers:
+        problems.append(f"hw patching moved {k1_moved} K1 casts, expected "
+                        f"{4 * cfg.n_layers}")
+    a, b = captured["slice"]
+    row = time_k2_gemm("a BERT-base score slice", a.contiguous().float(),
+                       b.contiguous().float(), "e4m3", slices)
+    # the control: the same recipe on a model drawn at the layers' own
+    # std 1/sqrt(fan_in) rather than BERT's 0.02, not gated: it
+    # decorrelates by depth, whatever the kernels
+    del model
+    torch.manual_seed(0)
+    control = bert.bert_for_qa(cfg, "cuda")
+    qm = ft.quantize_model(control, (ids[:1], mask[:1]), dtype="hybrid",
+                           list_exempt_layers=bert.BERT_QA_EXEMPT,
+                           list_layers_output_fused=bert.BERT_OUTPUT_FUSED,
+                           device="cuda")
+    with torch.no_grad():
+        c_ctl = corr(qm(ids, mask)[0], control(ids, mask)[0])
+    print(f"bert: control, the model drawn at 1/sqrt(fan_in): start logits "
+          f"corr vs fp32 {c_ctl:.5f} (not gated)")
+    record["bert"] = {"runs": runs, "k2_slice": row, "k1_moved": k1_moved,
+                      "control_corr_fan_in_init": c_ctl}
+    if problems:
+        raise PhaseError("; ".join(problems))
+    return [row]
+
+
 # -- phase examples ------------------------------------------------------------
 
 EXAMPLE_KERNELS = {
@@ -8971,6 +9403,12 @@ EXAMPLE_RUNS = (
     ("resnet_ptq", ["--model", "resnet50", "--batch-size", "32",
                     "--num-samples", "64"], ("K1",)),
     ("resnet_qat", ["--epochs", "1", "--steps-per-epoch", "4"], ("K1",)),
+    ("resnet_ptq", ["--model", "tiny_vit"], ("K1",)),
+    ("launch_sweep", ["--models", "tiny_vit", "tiny_mobilenet", "resnet18",
+                      "--dtypes", "e4m3"], ("K1",)),
+    ("bert_squad_ptq", [], ("K1",)),
+    # the training casts are torch ops (no K1), as in resnet_qat's steps
+    ("bert_qa_finetune", ["--steps", "5"], ()),
 )
 
 
@@ -9034,6 +9472,10 @@ def example_rate(name, res, seconds):
         return res["images"] / res["seconds"]["e4m3"], "images/s"
     if name == "resnet_qat":
         return max(res["images_per_s"][1:]), "images/s"
+    if name == "bert_squad_ptq":
+        return res["sequences"] / seconds, "sequences/s (wall, both passes)"
+    if name == "bert_qa_finetune":
+        return max(res["sequences_per_s"][1:]), "sequences/s (training)"
     return None, ""
 
 
@@ -9094,8 +9536,22 @@ def phase_examples(record):
             checks = [all(bool(torch.isfinite(t).all())
                           for t in res["logits"].values())]
             row["top1"] = res["top1"]
-        elif name == "resnet_qat":
-            checks = [all(math.isfinite(v) for v in res["losses"])]
+        elif name in ("resnet_qat", "bert_qa_finetune"):
+            checks = [all(math.isfinite(v) for v in res["losses"]),
+                      len(res["losses"]) == (5 if name == "bert_qa_finetune"
+                                             else 4)]
+            row["losses"] = res["losses"]
+        elif name == "launch_sweep":
+            checks = [[(r["model"], r["dtype"]) for r in res["rows"]]
+                      == [(m, "e4m3") for m in argv[1:4]],
+                      all(bool(torch.isfinite(r["first_logits"]).all())
+                          for r in res["rows"])]
+            row["rows"] = [{k: v for k, v in r.items()
+                            if k != "first_logits"} for r in res["rows"]]
+        elif name == "bert_squad_ptq":
+            checks = [all(bool(torch.isfinite(t).all())
+                          for pair in res["logits"].values() for t in pair)]
+            row["em"], row["drift"] = res["em"], res["drift"]
         rows.append(row)
         rate_s = f", {rate:.1f} {unit}" if rate else ""
         print(f"examples: {name} {' '.join(argv)}: {seconds:.1f} s{rate_s} "
@@ -9118,7 +9574,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="build,k1,k2,k3,k4,k5,k6,t1,t2,p3,main,train,"
                             "train_lm,serve,serve_paged,spec,moe,flush,time,"
-                            "w8a8,deploy,sparse,examples")
+                            "w8a8,deploy,sparse,vision,bert,examples")
     ap.add_argument("--out", default="chip_smoke_out/chip_smoke.json")
     ap.add_argument("--package-tree", default=None,
                     help="import fp8tpu_torch from this tree (a git archive "
@@ -9150,7 +9606,7 @@ def main(argv=None) -> int:
     launches = serve_launches = paged_launches = train_launches = None
     lm_launches = None
     kernels, study_kernels, spec_kernels, moe_kernels = [], [], [], []
-    p3_kernels = []
+    p3_kernels, model_kernels = [], []
     ok = True
     for phase in phases:
         t0 = time.perf_counter()
@@ -9219,6 +9675,10 @@ def main(argv=None) -> int:
                 phase_deploy(record)
             elif phase == "sparse":
                 phase_sparse(record)
+            elif phase == "vision":
+                model_kernels += phase_vision(record)
+            elif phase == "bert":
+                model_kernels += phase_bert(record)
             elif phase == "examples":
                 phase_examples(record)
             elif phase == "time":
@@ -9250,9 +9710,11 @@ def main(argv=None) -> int:
         return 1
     for row in p3_kernels:     # launches on the decoder's training path
         row["launches"] = (lm_launches or {}).get("adam8_update", 0)
-    if kernels or study_kernels or spec_kernels or moe_kernels or p3_kernels:
+    if kernels or study_kernels or spec_kernels or moe_kernels or p3_kernels \
+            or model_kernels:
         print(json.dumps({"kernels": kernels + study_kernels
-                          + spec_kernels + moe_kernels + p3_kernels}))
+                          + spec_kernels + moe_kernels + p3_kernels
+                          + model_kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,5 +15,5 @@ from .synthetic import (  # noqa: F401
 )
 
 # Real-dataset pipelines (ImageNet folder trees, SQuAD JSON) live in
-# .imagenet / .squad — imported lazily so PIL stays optional.  They are
-# ported with the models that read them (slice 4).
+# .imagenet / .squad, imported by name; .imagenet imports PIL only inside
+# the functions that decode images.

@@ -8,6 +8,9 @@ printed lines, plus ``--device`` (the card unless ``--device cpu``).
     python -m fp8tpu_torch.examples.eval_ppl --train 200
     python -m fp8tpu_torch.examples.resnet_ptq --model resnet50
     python -m fp8tpu_torch.examples.resnet_qat --epochs 1
+    python -m fp8tpu_torch.examples.launch_sweep --models tiny_vit
+    python -m fp8tpu_torch.examples.bert_squad_ptq
+    python -m fp8tpu_torch.examples.bert_qa_finetune --steps 5
 
 Each module's ``main(argv=None, variables=None) -> dict`` returns what it
 prints.  ``variables`` is a Flax-layout tree of numpy arrays (the JAX

@@ -11,7 +11,6 @@ import torch
 from fp8tpu_torch._device import resolve_device
 
 # Where a flag of a JAX script waits for a module the port does not have.
-VISION = "the vision families and the ImageNet loader (ROADMAP §1 item 4)"
 PARALLEL = "parallel/ (ROADMAP §1 item 6)"
 
 

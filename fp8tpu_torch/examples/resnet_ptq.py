@@ -8,20 +8,27 @@ examples/inference/classifier/imagenet_test.py):
 
 Runs on synthetic data by default (learnable class-conditional patterns,
 ``fp8tpu_torch.data.pattern_images``); ``--data_npz`` takes {x: (N, H, W,
-C), y: (N,)} arrays.  On the card the casts run on K1.
+C), y: (N,)} arrays and ``--imagenet_dir`` an ImageFolder tree through the
+reference's val transform (``fp8tpu_torch.data.imagenet``).  On the card
+the casts run on K1.
 
     python -m fp8tpu_torch.examples.resnet_ptq --model resnet50 --sweep
+    python -m fp8tpu_torch.examples.resnet_ptq --model tiny_vit
 
+Besides the ResNets, ``--model`` takes the vision families' ``tiny_*``
+models (``models.vision``), each with its exempt list; a family with
+BatchNorm is folded into its ``norm_mode="scale_shift"`` twin (the JAX
+script builds that twin with BatchNorm, so its fold fails for them),
+the norm-free SqueezeNet and the LayerNorm ViT are quantized unfolded.
 ``--torch_ckpt`` loads a pretrained torchvision ResNet state_dict
 (``tools.convert_torch.convert_resnet``) in place of the random weights.
-The vision ``tiny_*`` families and ``--imagenet_dir`` wait for the vision
-models and the ImageNet loader, and raise.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import time
 from typing import Dict, Optional
 
@@ -30,9 +37,10 @@ import torch
 
 from fp8tpu_torch import quantize_model
 from fp8tpu_torch._device import resolve_device
-from fp8tpu_torch.examples._common import (VISION, Clock, Log,
-                                           add_device_flag, from_flax)
-from fp8tpu_torch.linen import init_params
+from fp8tpu_torch.examples._common import (Clock, Log, add_device_flag,
+                                           from_flax)
+from fp8tpu_torch.linen import BatchNorm, init_params
+from fp8tpu_torch.models import vision
 from fp8tpu_torch.models.resnet import RESNET_EXEMPT, ResNet, ResNetConfig
 from fp8tpu_torch.utils import MetricLogger, accuracy
 
@@ -49,32 +57,60 @@ RESNETS = {
                                  bottleneck=True, groups=4, base_width=32,
                                  small_images=True),
 }
-VISION_MODELS = ("tiny_vgg", "tiny_mobilenet", "tiny_inception",
-                 "tiny_densenet", "tiny_shufflenet", "tiny_squeezenet",
-                 "tiny_mbconv", "tiny_mbconv_hs", "tiny_vit")
+# name: (constructor, exempt list)
+VISION_MODELS = {
+    "tiny_vgg": (vision.tiny_vgg, vision.VGG_EXEMPT),
+    "tiny_mobilenet": (vision.tiny_mobilenet, vision.MOBILENET_EXEMPT),
+    "tiny_inception": (vision.tiny_inception, vision.INCEPTION_EXEMPT),
+    "tiny_densenet": (vision.tiny_densenet, vision.DENSENET_EXEMPT),
+    "tiny_shufflenet": (vision.tiny_shufflenet, vision.SHUFFLENET_EXEMPT),
+    "tiny_squeezenet": (vision.tiny_squeezenet, vision.SQUEEZENET_EXEMPT),
+    "tiny_mbconv": (vision.tiny_mbconv, vision.MBCONV_EXEMPT),
+    "tiny_mbconv_hs": (functools.partial(vision.tiny_mbconv,
+                                         act="hardswish"),
+                       vision.MBCONV_EXEMPT),
+    "tiny_vit": (vision.tiny_vit, vision.VIT_EXEMPT),
+}
+MODEL_EXEMPT = {**{name: RESNET_EXEMPT for name in RESNETS},
+                **{name: v[1] for name, v in VISION_MODELS.items()}}
 
 
 def get_model(name: str, num_classes: int, norm_mode: str = "bn",
-              device="cuda", seed: Optional[int] = None) -> ResNet:
-    """The script's ResNet ``name`` on ``device``, its conv and Dense
-    weights drawn from ``seed`` when one is given."""
+              device="cuda", seed: Optional[int] = None) -> torch.nn.Module:
+    """The script's model ``name`` on ``device``, its conv and Dense
+    weights (and ViT's positional embedding) drawn from ``seed`` when one
+    is given."""
+    dev = resolve_device(device)
+    gen = None if seed is None else torch.Generator(dev).manual_seed(seed)
     if name in VISION_MODELS:
-        raise NotImplementedError(f"--model {name} needs {VISION}")
+        # only a family with BatchNorm is asked for its scale-shift twin
+        kw = {} if norm_mode == "bn" else {"norm_mode": norm_mode}
+        return VISION_MODELS[name][0](num_classes, device=dev,
+                                      generator=gen, **kw)
     cfg = dataclasses.replace(RESNETS[name], num_classes=num_classes,
                               norm_mode=norm_mode)
-    dev = resolve_device(device)
     with torch.device(dev):
         model = ResNet(cfg)
-    if seed is not None:
-        init_params(model, torch.Generator(dev).manual_seed(seed))
+    if gen is not None:
+        init_params(model, gen)
     return model
+
+
+def has_batchnorm(model: torch.nn.Module) -> bool:
+    return any(isinstance(m, BatchNorm) for m in model.modules())
 
 
 def load_data(args, device):
     """(images NCHW f32, labels) on ``device``."""
     if args.imagenet_dir:
-        raise NotImplementedError(f"--imagenet_dir needs {VISION}")
-    if args.data_npz:
+        # a real ImageFolder tree through the reference's val transform
+        # (Resize 256 -> CenterCrop 224 -> normalize, imagenet_test.py:95-99)
+        from fp8tpu_torch.data.imagenet import imagenet_val_batches
+        xs, ys = zip(*imagenet_val_batches(args.imagenet_dir,
+                                           batch_size=args.batch_size,
+                                           limit=args.num_samples))
+        x, y = np.concatenate(xs).astype(np.float32), np.concatenate(ys)
+    elif args.data_npz:
         d = np.load(args.data_npz)
         x, y = d["x"].astype(np.float32), d["y"]
     else:
@@ -105,9 +141,7 @@ def evaluate(apply_fn, x, y, batch: int, log: MetricLogger):
 def parse(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--model", default="tiny",
-                   choices=["tiny", "resnet18", "resnet50",
-                            "resnext50_32x4d", "wide_resnet50_2",
-                            "tiny_resnext", *VISION_MODELS])
+                   choices=[*RESNETS, *VISION_MODELS])
     p.add_argument("--dtype", default="e4m3",
                    choices=["e4m3", "e3m4", "hybrid", "e5m2"])
     p.add_argument("--batch-size", type=int, default=32)
@@ -143,12 +177,15 @@ def main(argv=None, variables: Optional[Dict] = None) -> Dict:
         log_line(f"loaded pretrained torch checkpoint {args.torch_ckpt}")
     else:
         model = from_flax(model, variables)
-        # Touch BN stats so folding is meaningful.
-        model.train()
-        with torch.no_grad():
-            for i in range(3):
-                model(x[i * 8:(i + 1) * 8])
+        # Touch BN stats so folding is meaningful (norm-free families have
+        # none).
+        if has_batchnorm(model):
+            model.train()
+            with torch.no_grad():
+                for i in range(3):
+                    model(x[i * 8:(i + 1) * 8])
     model.eval()
+    has_bn = has_batchnorm(model)
 
     log = MetricLogger()
     with Clock(device) as clock:
@@ -161,14 +198,16 @@ def main(argv=None, variables: Optional[Dict] = None) -> Dict:
     for dtype in dtypes:
         t0 = time.time()
         infer_model = get_model(args.model, args.num_classes,
-                                norm_mode="scale_shift", device=device)
+                                norm_mode="scale_shift", device=device) \
+            if has_bn else None
         calib = [x[i * args.batch_size:(i + 1) * args.batch_size]
                  for i in range(args.num_calibration_batches)]
         calib = [c for c in calib if c.shape[0] > 0]  # short datasets
-        qm = quantize_model(model, (x[:2],), dtype=dtype, fuse_bn=True,
+        qm = quantize_model(model, (x[:2],), dtype=dtype, fuse_bn=has_bn,
                             inference_model=infer_model,
                             calibration_batches=calib,
-                            list_exempt_layers=RESNET_EXEMPT, device=device)
+                            list_exempt_layers=MODEL_EXEMPT[args.model],
+                            device=device)
         with Clock(device) as clock:
             top1, logits = evaluate(qm, x, y, args.batch_size, log)
         log_line(f"{dtype:8s} PTQ top-1: {top1:.2f} "

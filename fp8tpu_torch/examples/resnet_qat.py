@@ -7,7 +7,10 @@ quantized evaluation each epoch and a checkpoint with the policy
 
     python -m fp8tpu_torch.examples.resnet_qat --epochs 2
 
-``--imagenet_dir`` waits for the ImageNet loader and raises.
+``--imagenet_dir`` trains on an ImageFolder tree instead of the synthetic
+patterns: 1024 images drawn in a shuffled order, each through the
+reference's random-resized-crop + flip transform
+(``fp8tpu_torch.data.imagenet``), as the JAX script draws them.
 """
 
 from __future__ import annotations
@@ -21,8 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from fp8tpu_torch._device import resolve_device
-from fp8tpu_torch.examples._common import (VISION, Log, add_device_flag,
-                                           from_flax, sync)
+from fp8tpu_torch.examples._common import (Log, add_device_flag, from_flax,
+                                           sync)
 from fp8tpu_torch.linen import init_params
 from fp8tpu_torch.models import variables_to_flax
 from fp8tpu_torch.models.resnet import RESNET_EXEMPT, ResNet, ResNetConfig
@@ -41,7 +44,8 @@ def parse(argv=None):
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--imagenet_dir", default=None,
-                   help="real ImageFolder train tree (class-per-folder)")
+                   help="real ImageFolder train tree (class-per-folder); "
+                        "random-resized-crop + flip transform")
     p.add_argument("--num-classes", type=int, default=8)
     add_device_flag(p)
     return p.parse_args(argv)
@@ -50,15 +54,25 @@ def parse(argv=None):
 def main(argv=None, variables: Optional[Dict] = None) -> Dict:
     args = parse(argv)
     device = resolve_device(args.device)
-    if args.imagenet_dir:
-        raise NotImplementedError(f"--imagenet_dir needs {VISION}")
     log_line = Log()
-    # learnable class-conditional patterns: QAT top-1 is a real signal
-    from fp8tpu_torch.data import pattern_images
-    xs, ys = pattern_images(1024, size=32, n_classes=args.num_classes,
-                            seed=0)
-    cfg = ResNetConfig(stage_sizes=(1, 1), width=16,
-                       num_classes=args.num_classes, small_images=True)
+    if args.imagenet_dir:
+        from fp8tpu_torch.data.imagenet import (list_image_folder,
+                                                load_image_train)
+        paths, labels, classes = list_image_folder(args.imagenet_dir)
+        rng = np.random.default_rng(0)
+        # shuffle before truncating: the listing is class-sorted
+        order = rng.permutation(len(paths))[:1024]
+        xs = np.stack([load_image_train(paths[i], rng) for i in order])
+        ys = np.asarray([labels[i] for i in order], np.int32)
+        cfg = ResNetConfig(stage_sizes=(1, 1), width=16,
+                           num_classes=len(classes), small_images=False)
+    else:
+        # learnable class-conditional patterns: QAT top-1 is a real signal
+        from fp8tpu_torch.data import pattern_images
+        xs, ys = pattern_images(1024, size=32, n_classes=args.num_classes,
+                                seed=0)
+        cfg = ResNetConfig(stage_sizes=(1, 1), width=16,
+                           num_classes=args.num_classes, small_images=True)
     with torch.device(device):
         model = ResNet(cfg)
     init_params(model, torch.Generator(device).manual_seed(2))

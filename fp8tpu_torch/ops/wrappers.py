@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from fp8tpu_torch._device import full_fp32
 from fp8tpu_torch.linen import Module
 
 
@@ -13,21 +14,24 @@ class Matmul(Module):
     """y = a @ b."""
 
     def forward(self, a, b):
-        return torch.matmul(a, b)
+        with full_fp32():
+            return torch.matmul(a, b)
 
 
 class AddMatmul(Module):
     """y = inp + a @ b."""
 
     def forward(self, inp, a, b):
-        return inp + torch.matmul(a, b)
+        with full_fp32():
+            return inp + torch.matmul(a, b)
 
 
 class BatchMatmul(Module):
     """Batched matmul; policy quantizes inputs only."""
 
     def forward(self, a, b):
-        return torch.matmul(a, b)
+        with full_fp32():
+            return torch.matmul(a, b)
 
 
 class EltwiseAdd(Module):

@@ -124,6 +124,27 @@ def conv_patchable(module) -> bool:
     return not isinstance(pad, str) or pad.upper() in ("SAME", "VALID")
 
 
+def engine_ok(cfg: Optional[ModuleQuantConfig]) -> bool:
+    """Whether a module resolved to ``cfg`` runs its contraction on the
+    fused engine: hw patching is on and the activation's scale is one the
+    engine takes (per tensor, or none); per-channel and fine-grained iact
+    configs stay on the unpatched path."""
+    return (cfg is not None and cfg.patch_ops
+            and (cfg.iact is None
+                 or cfg.iact.scaling in ("none", "per-tensor")))
+
+
+def engine_convs(model: torch.nn.Module, policy) -> set:
+    """Paths of the convs of ``model`` that ``policy`` runs on the fused
+    engine, one K2 launch a call on the card: ``conv_patchable`` and
+    resolved to an :func:`engine_ok` config."""
+    from .policy import LayerKind
+    return {path for path, m in ((n.replace(".", "/"), m)
+                                 for n, m in model.named_modules())
+            if conv_patchable(m)
+            and engine_ok(policy.resolve(path, LayerKind.CONV))}
+
+
 def _implicit_ok(cfg_t: Optional[TensorQuantConfig]) -> bool:
     """Whether the conv's activation cast commutes with im2col, so that K2
     can cast the activation once and gather its im2col: an elementwise

@@ -176,11 +176,8 @@ def make_quant_interceptor(
                             _fold(rec, f"{pre}_absmax", a.abs().amax(dims),
                                   torch.maximum)
 
-        # The engine's operand scale is per-tensor, so per-channel and
-        # fine-grained iact configs stay on the unpatched path.
-        engine_ok = (cfg is not None and cfg.patch_ops and not kwargs
-                     and (cfg.iact is None
-                          or cfg.iact.scaling in ("none", "per-tensor")))
+        from .hw_patch import engine_ok as _engine_ok
+        engine_ok = not kwargs and _engine_ok(cfg)
         patched = engine_ok and kind in (LayerKind.MATMUL,
                                          LayerKind.BATCH_MATMUL)
         patched_conv = False

@@ -1,14 +1,26 @@
-"""torchvision ResNet state_dicts -> the port's ResNet: a copy of the
-ResNet half of the JAX package's ``tools/convert_torch.py`` (NumPy only).
+"""Foreign torch state_dicts -> the port's models: a copy of the JAX
+package's ``tools/convert_torch.py`` (the mappings are NumPy only).
 
-:func:`convert_resnet` maps a torchvision ResNet state_dict (resnet18 /
-34 / 50 / 101, resnext, wide_resnet: anything built from BasicBlock /
-Bottleneck with the ``layer{L}.{B}.conv{i} / bn{i} / downsample`` naming)
-onto Flax-layout variables of ``ResNet(cfg)`` with ``norm_mode='bn'``,
-exactly as the JAX package's function does;
-``models.variables_from_flax`` then gives the port's state_dict.  This is
-the reference's imagenet_test.py pretrained-load path
-(``examples.resnet_ptq --torch_ckpt``).
+- :func:`convert_resnet` maps a torchvision ResNet state_dict (resnet18 /
+  34 / 50 / 101, resnext, wide_resnet: anything built from BasicBlock /
+  Bottleneck with the ``layer{L}.{B}.conv{i} / bn{i} / downsample``
+  naming) onto Flax-layout variables of ``ResNet(cfg)`` with
+  ``norm_mode='bn'``;
+- :func:`convert_bert_qa` an HF ``BertForQuestionAnswering`` (or
+  ``BertModel`` + qa head) state_dict onto ``BertForQA(cfg)``;
+- :func:`convert_vit` a torchvision ``VisionTransformer`` (vit_b_16-class)
+  state_dict onto ``ViT(cfg)``,
+
+each exactly as the JAX package's function does, failing on keys it did
+not consume (a wrong architecture); ``models.variables_from_flax`` then
+gives the port's state_dict.  This is the reference's pretrained-load path
+(imagenet_test.py:152-165, run_squad.py's ``--model_name_or_path``;
+``examples.resnet_ptq --torch_ckpt``).  As a command it writes the
+variables as a checkpoint of the port (``utils.save_checkpoint``, the JAX
+package's npz format):
+
+    python -m fp8tpu_torch.tools.convert_torch resnet50 in.pth out_dir
+    (kinds: resnet18 | resnet50 | bert_qa | vit_b16)
 """
 
 from __future__ import annotations
@@ -93,3 +105,154 @@ def convert_resnet(state_dict, cfg) -> dict:
         raise ValueError(f"unconsumed torch keys (architecture mismatch?): "
                          f"{left[:8]}{'...' if len(left) > 8 else ''}")
     return {"params": params, "batch_stats": stats}
+
+
+# HF BertForQuestionAnswering key prefix → the Flax module path pieces
+_BERT_LAYER_MAP = (
+    ("attention.self.query", ("attention", "query")),
+    ("attention.self.key", ("attention", "key")),
+    ("attention.self.value", ("attention", "value")),
+    ("attention.output.dense", ("attention", "output_dense")),
+    ("intermediate.dense", ("intermediate",)),
+    ("output.dense", ("output",)),
+)
+_BERT_LAYER_NORMS = (
+    ("attention.output.LayerNorm", "attn_norm"),
+    ("output.LayerNorm", "ffn_norm"),
+)
+
+
+def convert_bert_qa(state_dict, cfg) -> dict:
+    """HF BertForQuestionAnswering (or BertModel + qa head) state_dict →
+    the port's ``BertForQA(cfg)`` variables (Flax layout)."""
+    sd = _Taken(state_dict)
+    bert = {}
+
+    def ln(dst_name, src):
+        return {"scale": _np(sd(f"{src}.weight")),
+                "bias": _np(sd(f"{src}.bias"))}
+
+    emb = "bert.embeddings"
+    bert["word_embed"] = {
+        "embedding": _np(sd(f"{emb}.word_embeddings.weight"))}
+    bert["pos_embed"] = {
+        "embedding": _np(sd(f"{emb}.position_embeddings.weight"))}
+    bert["type_embed"] = {
+        "embedding": _np(sd(f"{emb}.token_type_embeddings.weight"))}
+    bert["embed_norm"] = ln("embed_norm", f"{emb}.LayerNorm")
+
+    for i in range(cfg.n_layers):
+        lp = f"bert.encoder.layer.{i}"
+        layer = {}
+        for src, path in _BERT_LAYER_MAP:
+            node = layer
+            for part in path[:-1]:
+                node = node.setdefault(part, {})
+            node[path[-1]] = {"kernel": _dense(sd(f"{lp}.{src}.weight")),
+                              "bias": _np(sd(f"{lp}.{src}.bias"))}
+        for src, dst in _BERT_LAYER_NORMS:
+            layer[dst] = ln(dst, f"{lp}.{src}")
+        bert[f"layer_{i}"] = layer
+
+    params = {"bert": bert,
+              "qa_outputs": {"kernel": _dense(sd("qa_outputs.weight")),
+                             "bias": _np(sd("qa_outputs.bias"))}}
+    left = sd.leftovers(ignore=("position_ids", "bert.pooler"))
+    if left:
+        raise ValueError(f"unconsumed torch keys (architecture mismatch?): "
+                         f"{left[:8]}{'...' if len(left) > 8 else ''}")
+    return {"params": params}
+
+
+def convert_vit(state_dict, cfg) -> dict:
+    """torchvision ``VisionTransformer`` state_dict → the port's
+    :class:`fp8tpu_torch.models.vision.ViT` variables (Flax layout).
+
+    Naming follows torchvision's vision_transformer.py: ``conv_proj``,
+    ``class_token``, ``encoder.pos_embedding``,
+    ``encoder.layers.encoder_layer_{i}.{ln_1,self_attention,ln_2,mlp}``
+    (the MLP is a Sequential — linears at .0/.3), ``encoder.ln``,
+    ``heads.head``.  The fused ``in_proj_weight`` is split into the
+    q/k/v Dense kernels (rows [0:D]/[D:2D]/[2D:3D], transposed to
+    flax (in, out))."""
+    sd = _Taken(state_dict)
+    D = cfg.d_model
+    params = {
+        "patch_embed": {"kernel": _conv(sd("conv_proj.weight")),
+                        "bias": _np(sd("conv_proj.bias"))},
+        "cls_token": _np(sd("class_token")),
+        "pos_embed": _np(sd("encoder.pos_embedding")),
+    }
+
+    def ln(src):
+        return {"scale": _np(sd(f"{src}.weight")),
+                "bias": _np(sd(f"{src}.bias"))}
+
+    for i in range(cfg.n_layers):
+        lp = f"encoder.layers.encoder_layer_{i}"
+        w = _np(sd(f"{lp}.self_attention.in_proj_weight"))
+        b = _np(sd(f"{lp}.self_attention.in_proj_bias"))
+        for j, nm in enumerate(("q", "k", "v")):
+            params[f"blk{i}_{nm}"] = {
+                "kernel": np.ascontiguousarray(w[j * D:(j + 1) * D].T),
+                "bias": b[j * D:(j + 1) * D]}
+        params[f"blk{i}_proj"] = {
+            "kernel": _dense(sd(f"{lp}.self_attention.out_proj.weight")),
+            "bias": _np(sd(f"{lp}.self_attention.out_proj.bias"))}
+        params[f"blk{i}_ln1"] = ln(f"{lp}.ln_1")
+        params[f"blk{i}_ln2"] = ln(f"{lp}.ln_2")
+        params[f"blk{i}_fc1"] = {"kernel": _dense(sd(f"{lp}.mlp.0.weight")),
+                                 "bias": _np(sd(f"{lp}.mlp.0.bias"))}
+        params[f"blk{i}_fc2"] = {"kernel": _dense(sd(f"{lp}.mlp.3.weight")),
+                                 "bias": _np(sd(f"{lp}.mlp.3.bias"))}
+
+    params["ln_f"] = ln("encoder.ln")
+    params["classifier"] = {"kernel": _dense(sd("heads.head.weight")),
+                            "bias": _np(sd("heads.head.bias"))}
+    left = sd.leftovers()
+    if left:
+        raise ValueError(f"unconsumed torch keys (architecture mismatch?): "
+                         f"{left[:8]}{'...' if len(left) > 8 else ''}")
+    return {"params": params}
+
+
+def main(argv=None) -> str:
+    """``kind src out``: convert the torch checkpoint ``src`` and write it
+    to the checkpoint directory ``out`` at step 0."""
+    import sys
+
+    import torch
+
+    from fp8tpu_torch.models.bert import bert_base_config
+    from fp8tpu_torch.models.resnet import ResNetConfig
+    from fp8tpu_torch.models.vision import ViTConfig
+    from fp8tpu_torch.utils import save_checkpoint
+
+    kind, src, out = (sys.argv[1:] if argv is None else argv)[:3]
+    blob = torch.load(src, map_location="cpu", weights_only=True)
+    sd = blob.get("state_dict", blob) if isinstance(blob, dict) else blob
+    if kind in ("resnet18", "resnet50"):
+        cfg = (ResNetConfig(stage_sizes=(2, 2, 2, 2)) if kind == "resnet18"
+               else ResNetConfig(stage_sizes=(3, 4, 6, 3), bottleneck=True))
+        variables = convert_resnet(sd, cfg)
+    elif kind == "bert_qa":
+        variables = convert_bert_qa(sd, bert_base_config())
+    elif kind == "vit_b16":
+        variables = convert_vit(sd, ViTConfig())
+    else:
+        raise SystemExit(f"unknown kind {kind!r} "
+                         "(resnet18 | resnet50 | bert_qa | vit_b16)")
+    save_checkpoint(out, 0, variables)
+
+    def leaves(tree):
+        for v in tree.values():
+            yield from leaves(v) if isinstance(v, dict) else (v,)
+
+    n = sum(int(np.prod(v.shape)) for v in leaves(variables))
+    line = f"converted {kind}: {n/1e6:.1f}M params -> {out}"
+    print(line)
+    return line
+
+
+if __name__ == "__main__":
+    main()

@@ -3,8 +3,9 @@
 Windowed medians (``SmoothedValue``), an iteration logger with throughput
 (``MetricLogger``) and top-k accuracy, after the reference's example
 utilities; the cross-process mean goes through ``torch.distributed`` when
-a process group is up, and is the identity otherwise.  (The SQuAD span
-metrics of the JAX module wait for the SQuAD models.)
+a process group is up, and is the identity otherwise.  The SQuAD span
+metrics (``beam_search_spans``, ``squad_em_f1``) are NumPy, copies of the
+JAX module's; they take arrays or tensors.
 """
 
 from __future__ import annotations
@@ -116,3 +117,73 @@ def all_reduce_mean(value, group=None):
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     t /= dist.get_world_size(group)
     return t
+
+
+def _host(a) -> np.ndarray:
+    """An array or a tensor (on any device) as a NumPy array."""
+    if torch.is_tensor(a):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def beam_search_spans(start_logits, end_logits, n_best: int = 20,
+                      max_answer_len: int = 30):
+    """N-best span selection — the decode step of the reference's
+    run_qa_beam_search_no_trainer.py: take the top-k start and end
+    logits, score every valid (start <= end, length-bounded) pair by
+    summed logits, and return the best span per example.
+
+    start_logits/end_logits: (B, S) arrays.  Returns (starts, ends)
+    int arrays of shape (B,).
+    """
+    sl = _host(start_logits)
+    el = _host(end_logits)
+    B, S = sl.shape
+    k = min(n_best, S)
+    top_s = np.argpartition(-sl, k - 1, axis=1)[:, :k]
+    top_e = np.argpartition(-el, k - 1, axis=1)[:, :k]
+    starts = np.zeros(B, np.int64)
+    ends = np.zeros(B, np.int64)
+    for b in range(B):
+        best = -np.inf
+        for s in top_s[b]:
+            for e in top_e[b]:
+                if e < s or e - s + 1 > max_answer_len:
+                    continue
+                score = sl[b, s] + el[b, e]
+                if score > best:
+                    best = score
+                    starts[b], ends[b] = s, e
+        if not np.isfinite(best):          # no valid pair: greedy fallback
+            starts[b] = int(np.argmax(sl[b]))
+            ends[b] = max(int(np.argmax(el[b])), starts[b])
+    return starts, ends
+
+
+def squad_em_f1(pred_starts, pred_ends, gold_starts, gold_ends):
+    """SQuAD-style span metrics: exact match and token-overlap F1.
+
+    The reference computes these through the HF ``squad`` metric over
+    decoded answer strings (run_squad.py; run_qa_no_trainer.py) — at the
+    span level the definition is: EM = both endpoints equal; F1 = the
+    harmonic mean of precision/recall of the predicted token range
+    against the gold range.  Inputs are int arrays of shape (N,).
+
+    Returns dict(exact_match=%, f1=%).
+    """
+    ps, pe, gs, ge = map(_host, (pred_starts, pred_ends, gold_starts,
+                                 gold_ends))
+    # normalize reversed spans
+    ps, pe = np.minimum(ps, pe), np.maximum(ps, pe)
+    gs, ge = np.minimum(gs, ge), np.maximum(gs, ge)
+
+    em = (ps == gs) & (pe == ge)
+    inter = np.maximum(0, np.minimum(pe, ge) - np.maximum(ps, gs) + 1)
+    plen = pe - ps + 1
+    glen = ge - gs + 1
+    prec = inter / plen
+    rec = inter / glen
+    f1 = np.where(inter > 0, 2 * prec * rec / np.maximum(prec + rec, 1e-9),
+                  0.0)
+    return {"exact_match": float(em.mean() * 100),
+            "f1": float(f1.mean() * 100)}

@@ -15,7 +15,13 @@ through ``main(..., variables=)`` and held to the JAX script's numbers:
 - eval_ppl ``--train 0``: the unquantized and e4m3 ppl within PPL_RTOL of
   the JAX script's; with f32 compute the e4m3 model's logits within
   PERF.md §2's PTQ limit (2e-3 of max|logit|).
-- resnet_ptq and resnet_qat: tests/test_torch_examples_resnet.py.
+- bert_squad_ptq: the synthetic tokens bit-equal to the JAX script's, fp32
+  start / end logits within 1e-5 and hybrid ones within PTQ_TOL of their
+  max, the EM figures and the drift (mean |Δ start-logit|) the JAX
+  script's within that gap.
+- resnet_ptq, resnet_qat and launch_sweep:
+  tests/test_torch_examples_resnet.py; bert_qa_finetune:
+  tests/test_torch_bert.py.
 
 Without a CUDA device and without ``--device cpu`` each script raises.
 """
@@ -39,8 +45,10 @@ import jax.numpy as jnp
 import optax
 import torch
 
-from fp8tpu_torch.examples import (eval_ppl, resnet_ptq, resnet_qat,
-                                   serve_http, serve_llm, train_fp8)
+from fp8tpu_torch.examples import (bert_qa_finetune, bert_squad_ptq,
+                                   eval_ppl, launch_sweep, resnet_ptq,
+                                   resnet_qat, serve_http, serve_llm,
+                                   train_fp8)
 from fp8tpu_torch.models import variables_from_flax
 from fp8tpu_torch.numerics import prng
 from fp8tpu_torch.serve import full_logits
@@ -74,6 +82,44 @@ def _jax_script(name):
 
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
+
+
+# The module kinds whose calls a quantized forward is fed (the JAX run's
+# recorded calls, by class name in both packages).
+FED = ("Dense", "BatchMatmul", "EltwiseAdd", "LayerNorm", "Embed")
+
+
+def _fed_jax_calls(monkeypatch, queue, call_err):
+    """From here on, each call of a FED module in a quantized forward of
+    ``fp8tpu_torch.api`` takes the arguments of the next (path, args,
+    output) record of the JAX run in ``queue`` and passes on that record's
+    output; ``call_err``, a one-element list, takes the worst gap of the
+    two outputs relative to the JAX output's max.  So a free-running gap
+    that per-tensor scales amplify (one ulp of a tensor's largest element
+    moves every element of its cast) is told from a fault of a call."""
+    import fp8tpu_torch.api as api
+    make = api.make_quant_interceptor
+
+    def forcing(policy, **kw):
+        quant = make(policy, **kw)
+
+        def interceptor(next_fun, args, kwargs, context):
+            if type(context.module).__name__ not in FED:
+                return quant(next_fun, args, kwargs, context)
+            path, jargs, jout = queue.pop(0)
+            assert path == context.path, (path, context.path)
+            args = tuple(torch.from_numpy(np.asarray(j)).to(
+                a.dtype if torch.is_tensor(a) else None)
+                for a, j in zip(args, jargs))
+            out = quant(next_fun, args, kwargs, context)
+            want = torch.from_numpy(np.asarray(jout)).to(out.dtype)
+            call_err[0] = max(call_err[0], float(
+                (out.float() - want.float()).abs().max()
+                / want.float().abs().max()))
+            return want
+        return interceptor
+
+    monkeypatch.setattr(api, "make_quant_interceptor", forcing)
 
 
 # -- train_fp8 ------------------------------------------------------------
@@ -415,10 +461,91 @@ def test_eval_ppl_trains_and_reads_a_checkpoint(tmp_path):
     assert back["ppl"] == out["ppl"]
 
 
+# -- bert_squad_ptq --------------------------------------------------------
+
+SQUAD = ["--num_samples", "16", "--seq_len", "64"]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_squad():
+    """examples/bert_squad_ptq.py with SQUAD's flags: the initial
+    variables, the tokens, both logits, EM figures and the drift."""
+    import fp8tpu
+    from fp8tpu.models.bert import (BERT_OUTPUT_FUSED, BERT_QA_EXEMPT,
+                                    BertForQA, tiny_bert)
+    script = _jax_script("bert_squad_ptq")
+    cfg = tiny_bert(n_layers=2)
+    model = BertForQA(cfg)
+    ids = jax.random.randint(jax.random.key(0), (16, 64), 0, cfg.vocab_size,
+                             jnp.int32)
+    mask = jnp.ones_like(ids)
+    start = jax.random.randint(jax.random.key(1), (16,), 0, 64)
+    end = start + 1
+    v = jax.jit(model.init)(jax.random.key(2), ids[:1], mask[:1])
+    s0, e0 = jax.jit(model.apply)(v, ids, mask)
+    qm = fp8tpu.quantize_model(
+        model, v, (ids[:1], mask[:1]), dtype="hybrid",
+        calibration_batches=[(ids[:16], mask[:16])],
+        list_exempt_layers=BERT_QA_EXEMPT,
+        list_layers_output_fused=BERT_OUTPUT_FUSED)
+    calls = []
+
+    def spy(next_fun, args, kwargs, context):
+        out = next_fun(*args, **kwargs)
+        if context.method_name == "__call__" and \
+                type(context.module).__name__ in FED:
+            calls.append(("/".join(context.module.path),
+                          [np.asarray(a) for a in args], np.asarray(out)))
+        return out
+
+    import flax.linen as nn
+    with nn.intercept_methods(spy):         # un-jitted, to record the calls
+        s1, e1 = qm.apply(ids, mask)
+    js1, _ = jax.jit(qm.apply)(ids, mask)
+    print("bert_squad_ptq: the JAX script's hybrid start logits jitted vs "
+          f"un-jitted {float(jnp.abs(js1 - s1).max() / jnp.abs(s1).max()):.3e}"
+          " of max|logit|")
+    em = {"fp32": script.exact_match(s0, e0, start, end),
+          "hybrid": script.exact_match(s1, e1, start, end)}
+    return (_np(v), np.asarray(ids), _np({"fp32": (s0, e0),
+                                           "hybrid": (s1, e1)}), em,
+            float(jnp.mean(jnp.abs(s1 - s0))), calls)
+
+
+def test_bert_squad_ptq_matches_the_jax_script(monkeypatch):
+    """The fp32 logits (which no call feeding touches) within 1e-5 of their
+    max.  Free running, the hybrid forward parts by per-tensor scales
+    (_fed_jax_calls; the JAX script jitted parts from itself un-jitted
+    alike, and the test prints by how much), so it is held call by call
+    against the un-jitted JAX forward, each call of every Dense,
+    BatchMatmul, residual add, LayerNorm and Embed fed the JAX call's
+    arguments, within PTQ_TOL; fed, the logits, EM figures and drift are
+    that forward's."""
+    v, ids, logits, em, drift, calls = _jax_squad()
+    args = bert_squad_ptq.parse(SQUAD + CPU)
+    got_ids = bert_squad_ptq.load_inputs(args, 1024, "cpu")[0]
+    np.testing.assert_array_equal(got_ids.numpy(), ids)
+    queue, err = list(calls), [0.0]
+    _fed_jax_calls(monkeypatch, queue, err)
+    out = bert_squad_ptq.main(SQUAD + CPU, variables=v)
+    for got, want in zip(out["logits"]["fp32"], logits["fp32"]):
+        assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+    assert not queue
+    print(f"bert_squad_ptq: fed calls within {err[0]:.3e} of their max")
+    assert err[0] <= PTQ_TOL, err[0]
+    for got, want in zip(out["logits"]["hybrid"], logits["hybrid"]):
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert out["em"] == em
+    assert abs(out["drift"] - drift) <= 1e-5 * np.abs(logits["fp32"][0]).max()
+    assert out["lines"][0].startswith("fp32 EM ")
+
+
 # -- the device flag ------------------------------------------------------
 
 @pytest.mark.parametrize("script", [train_fp8, serve_llm, serve_http,
-                                    eval_ppl, resnet_ptq, resnet_qat],
+                                    eval_ppl, resnet_ptq, resnet_qat,
+                                    launch_sweep, bert_squad_ptq,
+                                    bert_qa_finetune],
                          ids=lambda m: m.__name__.rsplit(".", 1)[1])
 def test_scripts_need_a_card_or_device_cpu(script, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -430,7 +557,10 @@ def test_flags_mirror_the_jax_scripts():
     """Each port script takes every flag of its JAX script (and --device)."""
     for name, mod in (("train_fp8", train_fp8), ("serve_llm", serve_llm),
                       ("eval_ppl", eval_ppl), ("resnet_ptq", resnet_ptq),
-                      ("resnet_qat", resnet_qat), ("serve_http", serve_http)):
+                      ("resnet_qat", resnet_qat), ("serve_http", serve_http),
+                      ("launch_sweep", launch_sweep),
+                      ("bert_squad_ptq", bert_squad_ptq),
+                      ("bert_qa_finetune", bert_qa_finetune)):
         with open(os.path.join(REPO, "examples", f"{name}.py")) as f:
             src = f.read()
         want = set(re.findall(r"add_argument\(\s*\"(--[\w-]+)\"", src))

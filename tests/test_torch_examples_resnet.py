@@ -1,10 +1,17 @@
-"""The port's ResNet scripts (``fp8tpu_torch.examples.resnet_ptq`` and
-``resnet_qat``) at tiny sizes on ``--device cpu``, handed the JAX script's
-own initial weights and held to the JAX script's numbers (the other
-scripts: tests/test_torch_examples.py):
+"""The port's ResNet and vision scripts (``fp8tpu_torch.examples.
+resnet_ptq``, ``resnet_qat`` and ``launch_sweep``) at tiny sizes on
+``--device cpu``, handed the JAX script's own initial weights and held to
+the JAX script's numbers (the other scripts: tests/test_torch_examples.py):
 
 - resnet_ptq on ``tiny``: fp32 and quantized logits within 2e-3 of
-  max|logit| of the JAX script's (BN statistics touched in both).
+  max|logit| of the JAX script's (BN statistics touched in both); on
+  ``tiny_vgg`` likewise (folded into its scale-shift twin, which the JAX
+  script's own maker cannot build); on ``tiny_vit`` fp32 logits within
+  1e-5 and the e4m3 forward call by call (each Dense fed the JAX call's
+  input, within 2e-3), since per-tensor scales amplify summation order.
+- ``--imagenet_dir`` on a PNG tree: resnet_ptq's images bit-equal to the
+  JAX script's, and both scripts run on it.
+- launch_sweep: the rows of the JAX sweep, quantized logits within 2e-3.
 - resnet_qat: 2 steps, losses, parameters and updates within PERF.md
   §2's whole-whitelist training limits (QAT_TOL; why there), a planted
   run without an update failing them, and the quantized eval forward
@@ -25,7 +32,9 @@ import torch
 
 from fp8tpu_torch.examples import resnet_ptq, resnet_qat
 from fp8tpu_torch.models import variables_from_flax
-from test_torch_examples import CPU, PTQ_TOL, _jax_script, _np
+from test_data_loaders import image_tree  # noqa: F401 (a fixture)
+from test_torch_examples import (CPU, FED, PTQ_TOL, _fed_jax_calls,
+                                 _jax_script, _np)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -79,12 +88,202 @@ def test_resnet_ptq_matches_the_jax_script():
     assert out["lines"][1].startswith("e4m3     PTQ top-1: ")
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--model", "tiny_vit"], "item 4"),
-    (["--imagenet_dir", "/nonexistent"], "item 4")])
-def test_resnet_ptq_waiting_flags_raise(flags, match):
-    with pytest.raises(NotImplementedError, match=match):
-        resnet_ptq.main(flags + CPU)
+@pytest.mark.parametrize("flags,error", [
+    (["--model", "tiny_vit"], None),
+    (["--imagenet_dir", "/nonexistent"], FileNotFoundError)])
+def test_resnet_ptq_waiting_flags_raise(flags, error):
+    """The flags that raised NotImplementedError until the vision families
+    and the ImageNet loader were ported now run: a ViT is quantized, and a
+    missing ImageNet tree is an error of the loader."""
+    if error is None:
+        out = resnet_ptq.main(flags + ["--num-samples", "32"] + CPU)
+        assert set(out["logits"]) == {"fp32", "e4m3"}
+    else:
+        with pytest.raises(error):
+            resnet_ptq.main(flags + CPU)
+
+
+# -- the vision families, --imagenet_dir and launch_sweep ---------------------
+
+def _jax_vision(name, norm_mode=None):
+    """The JAX package's ``name`` (resnet_ptq's maker), built with
+    ``norm_mode`` when given."""
+    import dataclasses as dc
+    import fp8tpu.models as J
+    from fp8tpu.models.resnet import tiny_resnext
+    maker = {"tiny_mbconv_hs": functools.partial(J.tiny_mbconv,
+                                                 act="hardswish"),
+             "tiny_resnext": tiny_resnext}.get(name) or getattr(J, name)
+    model = maker(10)
+    if norm_mode is not None:
+        model = type(model)(dc.replace(model.cfg, norm_mode=norm_mode))
+    return model
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_ptq_vision(name):
+    """examples/resnet_ptq.py's flow on ``name`` with 64 samples: the
+    initial variables, the first batch's fp32 and e4m3 logits, and the
+    (path, args, output) of every Dense call of the two quantized batches
+    (un-jitted: jit gives the same bits here).  For a family with
+    BatchNorm the inference model is built with ``norm_mode=
+    "scale_shift"`` (the JAX script's maker ignores norm_mode, so its own
+    fold fails for these families)."""
+    import flax.linen as nn
+    import fp8tpu
+    script = _jax_script("resnet_ptq")
+    args = argparse.Namespace(imagenet_dir=None, data_npz=None, model=name,
+                              num_samples=64, num_classes=10)
+    model = _jax_vision(name)
+    x, _ = script.load_data(args)
+    v0 = jax.jit(model.init)(jax.random.key(2), x[:2])
+    variables = v0
+    has_bn = "batch_stats" in variables
+    if has_bn:
+        for i in range(3):
+            _, upd = model.apply(variables, x[i * 8:(i + 1) * 8], train=True,
+                                 mutable=["batch_stats"])
+            variables = {**variables, "batch_stats": upd["batch_stats"]}
+    base = np.asarray(jax.jit(model.apply)(variables, x[:32]))
+    qm = fp8tpu.quantize_model(
+        model, variables, (x[:2],), dtype="e4m3", fuse_bn=has_bn,
+        inference_model=_jax_vision(name, "scale_shift") if has_bn else None,
+        calibration_batches=[x[:32], x[32:64]],
+        list_exempt_layers=resnet_ptq.MODEL_EXEMPT[name])
+    jq = jax.jit(lambda v, xb: qm.apply(xb, variables=v))
+    calls = []
+
+    def spy(next_fun, args, kwargs, context):
+        out = next_fun(*args, **kwargs)
+        if context.method_name == "__call__" and \
+                type(context.module).__name__ in FED:
+            calls.append(("/".join(context.module.path),
+                          [np.asarray(a) for a in args], np.asarray(out)))
+        return out
+
+    with nn.intercept_methods(spy):
+        for i in (0, 32):
+            qm.apply(x[i:i + 32])
+    return _np(v0), base, np.asarray(jq(qm.variables, x[:32])), calls
+
+
+def test_resnet_ptq_conv_family_matches_the_jax_script():
+    """tiny_vgg through resnet_ptq (BN touched, folded into its
+    scale-shift twin, calibrated): fp32 and e4m3 logits within PTQ_TOL of
+    max|logit| of the JAX flow's."""
+    v0, base, qlogits, _ = _jax_ptq_vision("tiny_vgg")
+    out = resnet_ptq.main(["--model", "tiny_vgg", "--num-samples", "64"]
+                          + CPU, variables=v0)
+    for kind, want in (("fp32", base), ("e4m3", qlogits)):
+        got = out["logits"][kind].numpy()
+        err = np.abs(got - want).max() / np.abs(want).max()
+        assert err <= PTQ_TOL, (kind, err)
+    assert out["lines"][1].startswith("e4m3     PTQ top-1: ")
+
+
+# ViT's attention products are f32 sums in torch's order, not XLA's: one
+# ulp moves the largest element of a context tensor, and with it the
+# per-tensor "max" scale of the next Dense's e4m3 cast and every element
+# of that cast.  Free running, the e4m3 logits part by about 1e-2 of
+# max|logit| and more while the fp32 ones agree to 1e-5; so the script's
+# e4m3 forward is
+# held call by call (test_torch_examples._fed_jax_calls): each Dense is
+# fed the JAX call's input and its output (cast, product) held to
+# PTQ_TOL, the JAX output passed on.
+def test_resnet_ptq_vit_matches_the_jax_script(monkeypatch):
+    """The fp32 forward (which no call feeding touches) within 1e-5 of
+    max|logit|; the e4m3 forward fed call by call."""
+    v0, base, qlogits, calls = _jax_ptq_vision("tiny_vit")
+    queue, err = list(calls), [0.0]
+    _fed_jax_calls(monkeypatch, queue, err)
+    out = resnet_ptq.main(["--model", "tiny_vit", "--num-samples", "64"]
+                          + CPU, variables=v0)
+    got = out["logits"]["fp32"].numpy()
+    assert np.abs(got - base).max() <= 1e-5 * np.abs(base).max()
+    assert not queue
+    print(f"tiny_vit: fed Dense calls within {err[0]:.3e} of their max")
+    assert err[0] <= PTQ_TOL, err[0]
+    np.testing.assert_array_equal(out["logits"]["e4m3"].numpy(), qlogits)
+
+
+def test_imagenet_dir(image_tree):
+    """``--imagenet_dir``: resnet_ptq's images are the JAX script's, bit
+    for bit, and both scripts run on the tree (resnet_qat with its
+    random-resized crops, one class a folder)."""
+    args = resnet_ptq.parse(["--imagenet_dir", image_tree, "--batch-size",
+                             "4", "--num-samples", "6"] + CPU)
+    x, y = resnet_ptq.load_data(args, torch.device("cpu"))
+    jx, jy = _jax_script("resnet_ptq").load_data(args)
+    np.testing.assert_array_equal(x.numpy().transpose(0, 2, 3, 1),
+                                  np.asarray(jx))
+    np.testing.assert_array_equal(y.numpy(), np.asarray(jy))
+    out = resnet_ptq.main(["--imagenet_dir", image_tree, "--model",
+                           "tiny_squeezenet", "--batch-size", "2",
+                           "--num-samples", "6",
+                           "--num-calibration-batches", "1"] + CPU)
+    assert all(bool(torch.isfinite(t).all()) for t in out["logits"].values())
+    qat = resnet_qat.main(["--imagenet_dir", image_tree, "--epochs", "1",
+                           "--steps-per-epoch", "1", "--batch-size",
+                           "2"] + CPU)
+    assert qat["model"].fc.weight.shape[0] == 2
+    assert all(np.isfinite(qat["losses"]))
+
+
+SWEEP = ["--models", "tiny_vit", "tiny_mobilenet", "--dtypes", "e4m3",
+         "--num_samples", "32"]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_sweep():
+    """examples/launch_sweep.py with SWEEP's flags: per model the initial
+    variables, the fp32 and quantized top-1 and the first 64 quantized
+    logits."""
+    import os
+    import sys
+    import fp8tpu
+    from test_torch_examples import REPO
+    ptq = _jax_script("resnet_ptq")
+    examples = os.path.join(REPO, "examples")
+    if examples not in sys.path:       # the sweep imports resnet_ptq
+        sys.path.insert(0, examples)
+    sweep = _jax_script("launch_sweep")
+    rows, variables = [], {}
+    for name in ("tiny_vit", "tiny_mobilenet"):
+        margs = argparse.Namespace(model=name, data_npz=None,
+                                   imagenet_dir=None, num_samples=32,
+                                   num_classes=10)
+        x, y = ptq.load_data(margs)
+        model = _jax_vision(name)
+        v = jax.jit(model.init)(jax.random.key(0), x[:1])
+        variables[name] = _np(v)
+        base = sweep.evaluate(lambda xb: jax.jit(model.apply)(v, xb), x, y)
+        calib = [x[i * 8:(i + 1) * 8] for i in range(4)]
+        qm = fp8tpu.quantize_model(
+            model, v, (x[:1],), dtype="e4m3", calibration_batches=calib,
+            list_exempt_layers=resnet_ptq.MODEL_EXEMPT[name])
+        qapply = jax.jit(qm.apply)
+        top1 = sweep.evaluate(qapply, x, y)
+        rows.append((name, base, top1, np.asarray(qapply(x[:32]))))
+    return variables, rows
+
+
+def test_launch_sweep_matches_the_jax_sweep():
+    """The sweep's rows against the JAX sweep's at tiny sizes: the same
+    models and dtypes, the quantized logits within PTQ_TOL of max|logit|,
+    the top-1 figures within one image of 32."""
+    from fp8tpu_torch.examples import launch_sweep
+    variables, want = _jax_sweep()
+    out = launch_sweep.main(SWEEP + CPU, variables=variables)
+    assert [(r["model"], r["dtype"]) for r in out["rows"]] == [
+        ("tiny_vit", "e4m3"), ("tiny_mobilenet", "e4m3")]
+    assert out["lines"][0].split() == ["model", "dtype", "fp32", "top1",
+                                       "quant", "top1", "Δ", "sec"]
+    for row, (name, base, top1, logits) in zip(out["rows"], want):
+        got = row["first_logits"].numpy()
+        err = np.abs(got - logits).max() / np.abs(logits).max()
+        assert err <= PTQ_TOL, (name, err)
+        assert abs(row["fp32_top1"] - base) <= 100 / 32 + 1e-9, name
+        assert abs(row["top1"] - top1) <= 100 / 32 + 1e-9, name
 
 
 @pytest.mark.parametrize("bottleneck,groups,base_width", [

@@ -1444,3 +1444,92 @@ def test_stochastic_prune_threshold_on_cuda(cuda):
     b, ba = sparsify_weight(g.to(cuda), cfg, st_c, prng.key(3))
     assert _bits(ba).tolist() == _bits(aa).tolist()
     np.testing.assert_array_equal(_bits(b), _bits(a))
+
+
+# -- the vision families and BERT on the card (chip_smoke's vision and bert
+# phases at full width) -----------------------------------------------------
+
+def _engine_convs(model, policy):
+    """Paths of the non-exempt dense convs hw patching sends to K2, and of
+    the grouped ones it must not."""
+    from fp8tpu_torch.linen import Conv
+    from fp8tpu_torch.quant.hw_patch import engine_convs
+    return engine_convs(model, policy), {
+        n.replace(".", "/") for n, m in model.named_modules()
+        if isinstance(m, Conv) and m.feature_group_count != 1}
+
+
+def _corr(a, b):
+    return float(np.corrcoef(a.ravel(), b.ravel())[0, 1])
+
+
+@pytest.mark.parametrize("name", ["tiny_vgg", "tiny_mobilenet",
+                                  "tiny_inception", "tiny_densenet",
+                                  "tiny_shufflenet", "tiny_squeezenet",
+                                  "tiny_mbconv", "tiny_vit"])
+def test_vision_family_on_the_card(cuda, name):
+    """e4m3 PTQ with hw patching on the card: one K2 GEMM (and two
+    pre-passes) a forward for each non-exempt dense conv and none for a
+    grouped one, K1 on every quantized Dense input of ViT; the logits
+    against the CPU run of the same quantized model (per-tensor scales
+    turn summation-order ulps into e4m3 steps, so the card is held by
+    correlation, > 0.999, and within 5e-2 of max|logit|)."""
+    from fp8tpu_torch.models import vision
+    model = getattr(vision, name)(8, device="cpu",
+                                  generator=torch.Generator().manual_seed(0))
+    model.eval()
+    exempt = {"tiny_vgg": vision.VGG_EXEMPT,
+              "tiny_vit": vision.VIT_EXEMPT}.get(name, ("conv_stem",
+                                                        "classifier"))
+    x = torch.randn(2, 3, 32, 32, generator=torch.Generator().manual_seed(1))
+    policy = fp8tpu_torch.get_policy("e4m3", training=False) \
+        .with_hw_patching()
+    dense, grouped = _engine_convs(model, policy.with_exempt(*exempt))
+    runs, counts = [], {}
+    for device in ("cpu", "cuda"):
+        qm = fp8tpu_torch.quantize_model(model, (x,), policy=policy,
+                                         list_exempt_layers=exempt,
+                                         device=device)
+        k1, k2 = cast_kernel.launches, qmatmul.launches
+        pre = qmatmul.k2_launches["prepass"]
+        with torch.no_grad():
+            runs.append(qm(x).cpu().numpy())
+        counts = {"K1": cast_kernel.launches - k1,
+                  "K2": qmatmul.launches - k2,
+                  "prepass": qmatmul.k2_launches["prepass"] - pre}
+    assert counts["K2"] == len(dense) and counts["prepass"] == 2 * len(dense)
+    if name == "tiny_vit":
+        assert counts["K1"] == 12 and not dense
+    if name in ("tiny_mobilenet", "tiny_shufflenet", "tiny_mbconv"):
+        assert grouped
+    assert _corr(runs[1], runs[0]) > 0.999
+    assert np.abs(runs[1] - runs[0]).max() <= 5e-2 * np.abs(runs[0]).max()
+
+
+def test_bert_hw_patching_on_the_card(cuda):
+    """tiny BERT's hybrid recipe with hw patching on the card: one K2 GEMM
+    a (batch, head) slice of both BatchMatmuls, none elsewhere; the start
+    logits against the CPU run by correlation, > 0.99 (measured 0.9984:
+    per-tensor scales of every Dense, add and product input turn
+    summation-order ulps into e4m3 steps, as in the CPU tests)."""
+    from fp8tpu_torch.models import bert
+    cfg = bert.tiny_bert()
+    model = bert.bert_for_qa(cfg, "cpu", torch.Generator().manual_seed(0))
+    ids = torch.randint(0, cfg.vocab_size, (2, 32),
+                        generator=torch.Generator().manual_seed(1))
+    mask = torch.ones_like(ids)
+    mask[1, 24:] = 0
+    policy = fp8tpu_torch.get_policy("hybrid", training=False) \
+        .with_hw_patching()
+    runs = []
+    for device in ("cpu", "cuda"):
+        qm = fp8tpu_torch.quantize_model(
+            model, (ids, mask), policy=policy,
+            list_exempt_layers=bert.BERT_QA_EXEMPT,
+            list_layers_output_fused=bert.BERT_OUTPUT_FUSED, device=device)
+        k2 = qmatmul.launches
+        with torch.no_grad():
+            runs.append(qm(ids, mask)[0].cpu().numpy())
+        launched = qmatmul.launches - k2
+    assert launched == 2 * cfg.n_layers * 2 * cfg.n_heads
+    assert _corr(runs[1], runs[0]) > 0.99

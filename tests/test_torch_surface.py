@@ -49,8 +49,6 @@ NOT_YET_PORTED = {
     "models": set(),
     "training": set(),
     "quant": set(),
-    # utils/metrics.py's beam_search_spans and squad_em_f1 are not exported
-    # by fp8tpu.utils; they wait for the SQuAD models
     "utils": set(),
     "data": set(),
     # §1 item 10, slice 4: parallel/ (the MoE layer is ported, meshless)
@@ -62,19 +60,6 @@ NOT_YET_PORTED = {
         "stage_param_sharding", "wire_all_reduce", "wire_all_reduce_tree",
         "wire_bytes_per_element"},
 }
-NOT_YET_PORTED["models"] |= {
-    "BERT_OUTPUT_FUSED", "BERT_QA_EXEMPT", "BertConfig", "BertEncoder",
-    "BertForQA", "bert_base_config", "bert_large_config", "tiny_bert",
-    "DENSENET_EXEMPT", "DenseNet", "DenseNetConfig", "INCEPTION_EXEMPT",
-    "Inception", "InceptionConfig", "MBCONV_EXEMPT", "MBConvConfig",
-    "MBConvNet", "MOBILENET_EXEMPT", "MobileNet", "MobileNetConfig",
-    "SHUFFLENET_EXEMPT", "SQUEEZENET_EXEMPT", "ShuffleNet",
-    "ShuffleNetConfig", "SqueezeNet", "SqueezeNetConfig", "VGG", "VGGConfig",
-    "VGG_EXEMPT", "VIT_EXEMPT", "ViT", "ViTConfig", "densenet",
-    "efficientnet_b0", "inception", "mobilenet", "mobilenet_v2",
-    "mobilenet_v3", "shufflenet", "squeezenet", "tiny_densenet",
-    "tiny_inception", "tiny_mbconv", "tiny_mobilenet", "tiny_shufflenet",
-    "tiny_squeezenet", "tiny_vgg", "tiny_vit", "vgg11", "vit_b16"}
 
 
 def public_names(module) -> set:

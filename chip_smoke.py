@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--phases build,k1,k2,k3,k4,k5,k6,t1,t2,p3,main,
                                     train,train_lm,serve,serve_paged,spec,
                                     moe,flush,time,w8a8,deploy,sparse,
-                                    vision,bert,examples]
+                                    vision,bert,examples,parallel]
     python3 chip_smoke.py --phases build,k2_probe   # not in the default run
     python3 chip_smoke.py --phases build,w8a8_probe # nor these six
     python3 chip_smoke.py --phases build,w8a8k
@@ -356,6 +356,23 @@ Phases, each printing its own lines; any failure exits non-zero:
           resnet18, e4m3), bert_squad_ptq at its defaults, bert_qa_finetune
           (5 steps): the launches each must make, counted by the wrappers
           and found in the profile, wall seconds and rates.
+17. parallel  fp8tpu_torch.parallel over NCCL in a world of one (the card
+          holds one H100): tp_mlp_block at the flagship MLP (64 rows, d_model
+          4096, d_ff 11008, e4m3 weights, bf16 x, 4 overlap chunks) through
+          K3, its five launches counted (1 up, 4 down) with no plain
+          version called, each against dequant_matmul_plain within K3's
+          bound on its own operands, and a torch.profiler trace's layout of
+          the K3 and NCCL kernels by stream; wire_all_reduce_tree (e4m3)
+          over a gradient tree of the train_lm preset's 110 leaves (82.8M
+          elements), bit-equal to the same call on the CPU over gloo, timed;
+          the train_lm trainer's data-parallel step (BatchShard, the loss
+          as the global batch's share) for train_lm's 5 steps, parameters
+          bit-equal to the non-parallel step's, K1 and P3 launches counted;
+          pipeline_apply at one stage (a 4096-wide quantized stage, K1
+          casts, 4 microbatches) and moe_ffn over a one-rank mesh, outputs
+          and gradients bit-equal to the plain composition and to
+          mesh=None; then K3 at the TP shapes: kernel, plain, bound,
+          PyTorch call.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Details go to the JSON
@@ -2874,11 +2891,27 @@ def lm_loss(model):
     return loss_fn
 
 
+def lm_share_loss(global_tokens: int):
+    """The data-parallel form of lm_loss (examples/train_fp8.py's): this
+    rank's tokens' summed cross entropy over the global batch's count."""
+    import torch
+    import torch.nn.functional as F
+
+    def loss_fn(apply_fn, params, batch):
+        logits = apply_fn(params, batch[:, :-1])
+        return F.cross_entropy(
+            logits.reshape(-1, logits.shape[-1]), batch[:, 1:].reshape(-1),
+            reduction="sum") / torch.tensor(float(global_tokens),
+                                            device=logits.device)
+    return loss_fn
+
+
 def lm_trainer(n_layers=LM["n_layers"], remat=False, algo="hybrid-gemm",
-               emb="e4m3", hw=False, seed=0):
+               emb="e4m3", hw=False, seed=0, shard=None):
     """examples/train_fp8.py's setup on the card: a random decoder from a
     seed, initialize(training_algo, master fp16, emb_fmt), adamw_8bit,
-    make_train_step with loss scale 2^12."""
+    make_train_step with loss scale 2^12; with a BatchShard, the script's
+    data-parallel step (each rank's batch is its rows of LM_BATCH)."""
     import dataclasses
     import torch
     import fp8tpu_torch as ft
@@ -2894,8 +2927,10 @@ def lm_trainer(n_layers=LM["n_layers"], remat=False, algo="hybrid-gemm",
         emu = dataclasses.replace(emu, policy=emu.policy.with_hw_patching())
     params = dict(model.named_parameters())
     opt = adamw_8bit(params, LM_LR, module_table=emu.module_table)
+    loss = (lm_loss(model) if shard is None
+            else lm_share_loss(LM_BATCH * (LM["max_seq_len"] - 1)))
     return (model, emu, params, opt,
-            make_train_step(emu, lm_loss(model), loss_scale=2.0 ** 12),
+            make_train_step(emu, loss, loss_scale=2.0 ** 12, shard=shard),
             init_train_state(opt, 2.0 ** 12))
 
 
@@ -7376,7 +7411,8 @@ def phase_deploy(record):
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     result, problems = {}, []
     t0 = time.perf_counter()
-    model = decoder(cfg32, generator=torch.Generator().manual_seed(40))
+    # drawn on the card: an f32 draw of 11.9 GB on the host took 45 s
+    model = decoder(cfg32, generator=torch.Generator("cuda").manual_seed(40))
     variables = {k: v.detach() for k, v in model.state_dict().items()}
     nbytes = sum(v.numel() * v.element_size() for v in variables.values())
     # markov_tokens would need a (V, V, V) transition table at V = 32768;
@@ -9569,12 +9605,428 @@ def phase_examples(record):
         raise PhaseError("; ".join(problems))
 
 
+# -- phase parallel: fp8tpu_torch.parallel over NCCL, a world of one ---------
+
+# bench.py's flagship MLP: the serving decoder's d_model and d_ff, 64 rows.
+TP_MLP = dict(rows=64, d_model=4096, d_ff=11008, chunks=4)
+PP_WIDTH, PP_ROWS, PP_MICRO = 4096, 64, 4     # the pipeline's stage and batch
+# moe_ffn at the MoE cell's expert layer (moe_config: d_model 2048, 8
+# experts of d_ff 5504, top-2) on 512 tokens: capacity 160 a expert
+MOE_PAR = dict(tokens=512, d_model=2048, d_ff=5504, experts=8)
+
+
+def k3_bound(m, k, n, out_bytes):
+    """(ms, "bytes" | "operations") a K3 launch needs at least: x (bf16),
+    the payload (a byte an element), the scales and the output moved once,
+    or its multiply-adds at the dense bf16 tensor-core rate."""
+    t_bytes = (2.0 * m * k + k * n + 4.0 * n + out_bytes * m * n) \
+        / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * m * n * k / BF16_TC_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("operations" if t_ops > t_bytes
+                                 else "bytes")
+
+
+def tp_k3_row(label, x, w8, s, out_dtype, launches, err):
+    """K3 at one TP shape: kernel (CUDA-graph replay), plain version, bound,
+    and torch.matmul on the payload converted to bf16 times the scale."""
+    import torch
+    from fp8tpu_torch.kernels import qmatmul
+    from fp8tpu_torch.tools import device_ms
+    m, k = x.shape
+    n = w8.shape[1]
+    t_k = device_ms(lambda: qmatmul.dequant_matmul(x, w8, s, out_dtype))
+    t_p = cuda_ms(lambda: qmatmul.dequant_matmul_plain(x, w8, s, out_dtype),
+                  iters=3, warmup=1)
+    t_l = device_ms(lambda: (torch.matmul(x, w8.to(torch.bfloat16))
+                             * s).to(out_dtype))
+    b, by = k3_bound(m, k, n, torch.empty((), dtype=out_dtype).element_size())
+    print(f"parallel: K3 {label} {m}x{k}x{n} -> {out_dtype}: kernel "
+          f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {b:.4f} ms ({by}), "
+          f"(x @ w8.to(bf16)) * s {t_l:.4f} ms; launches on the path "
+          f"{launches}, max |kernel - plain| {err:.3e}")
+    return {"name": f"dequant_matmul ({label}, {m}x{k}x{n})",
+            "route": "cuda",
+            "source": "fp8tpu_torch/kernels/csrc/dequant_matmul.cu",
+            "replaces": "fp8tpu/kernels/qmatmul.py:87",
+            "launches": launches, "max_abs_err": err, "ms": t_k,
+            "plain_ms": t_p, "bound_ms": b, "bound_by": by,
+            "library_ms": t_l}
+
+
+def tp_layout(prof):
+    """The device records of one tp_mlp_block call in start order: (kind,
+    stream, start us, end us) for K3 and NCCL kernels, and the other
+    kernels counted."""
+    import torch
+    rows, other = [], 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                LEAD_KERNEL in e.name:
+            continue
+        start = e.time_range.start
+        end = e.time_range.end
+        stream = getattr(e, "device_resource_id", None)
+        if kernel_kind(e.name).startswith("K3/K5"):
+            rows.append(("K3", stream, start, end))
+        elif "nccl" in e.name.lower():
+            rows.append(("NCCL", stream, start, end))
+        else:
+            other += 1
+    return sorted(rows, key=lambda r: r[2]), other
+
+
+def parallel_tp(out, problems):
+    """tp_mlp_block at TP_MLP through K3 on a one-rank model axis."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    from fp8tpu_torch.kernels import qmatmul
+    from fp8tpu_torch.parallel import (chunk_columns, make_mesh, tp_matmul,
+                                       tp_mlp_block)
+    m, k, ff, chunks = (TP_MLP[n] for n in ("rows", "d_model", "d_ff",
+                                            "chunks"))
+    gen = torch.Generator("cuda").manual_seed(20)
+    x = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
+    up8, up_s = qmatmul.quantize_weights(
+        torch.randn(k, ff, device="cuda", generator=gen) * k ** -0.5, "e4m3")
+    down8, down_s = qmatmul.quantize_weights(
+        torch.randn(ff, k, device="cuda", generator=gen) * ff ** -0.5, "e4m3")
+    up_s, down_s = up_s.reshape(-1), down_s.reshape(-1)
+    # the down weight laid out by chunk once, as a served weight would be:
+    # each chunk's K3 launch reads its (ff, k / chunks) block in place
+    down_c = chunk_columns(down8, chunks)
+    mesh = make_mesh(model=1)
+
+    def run():
+        return tp_mlp_block(x, up8, up_s, down_c, down_s, mesh,
+                            overlap_chunks=chunks)
+
+    # The main path: counts from 0, every K3 launch's operands kept, no
+    # plain version allowed, and the order in which the host issues the K3
+    # launches and the collectives.
+    seen, issued = [], []
+    real, real_ar = tp_matmul.dequant_matmul, dist.all_reduce
+
+    def keeping(xa, w, s, out_dtype=torch.bfloat16, row_scale=None):
+        y = real(xa, w, s, out_dtype=out_dtype, row_scale=row_scale)
+        seen.append((xa, w, s, out_dtype, y))
+        issued.append("K3")
+        return y
+
+    def all_reduce(*a, **kw):
+        issued.append("all_reduce" + ("(async)" if kw.get("async_op")
+                                      else ""))
+        return real_ar(*a, **kw)
+
+    qmatmul.reset_launches()
+    tp_matmul.dequant_matmul, dist.all_reduce = keeping, all_reduce
+    try:
+        with _Counting(qmatmul, "dequant_matmul_plain", forbid=True):
+            y = run()
+        torch.cuda.synchronize()
+    finally:
+        tp_matmul.dequant_matmul, dist.all_reduce = real, real_ar
+    launches = qmatmul.dequant_launches
+    # no chunk of the down weight was copied: each down launch read a
+    # contiguous view of the chunk stack
+    base = down_c.untyped_storage().data_ptr()
+    in_place = [w.is_contiguous() and w.untyped_storage().data_ptr() == base
+                for _, w, _, _, _ in seen[1:]]
+    worst = {"up": 0.0, "down": 0.0}
+    errs = {"up": 0.0, "down": 0.0}
+    for i, (xa, w, s, od, got) in enumerate(seen):
+        want = qmatmul.dequant_matmul_plain(xa, w, s, od)
+        tol = gemm_tolerance(xa, w.float().abs(), s.reshape(1, -1), want, od)
+        d = (got.float() - want.float()).abs()
+        part = "up" if i == 0 else "down"
+        worst[part] = max(worst[part], float((d / tol).max()))
+        errs[part] = max(errs[part], float(d.max()))
+    # the block against the plain composition from the same x
+    h = F.silu(qmatmul.dequant_matmul_plain(x, up8, up_s).float()).to(
+        torch.bfloat16)
+    csz = k // chunks
+    plain = torch.cat([qmatmul.dequant_matmul_plain(
+        h, down8[:, c * csz:(c + 1) * csz], down_s[c * csz:(c + 1) * csz],
+        torch.float32) for c in range(chunks)], 1).to(torch.bfloat16)
+    block = float((y.float() - plain.float()).abs().max()
+                  / plain.float().abs().max())
+    print(f"parallel: tp_mlp_block {m} x {k} -> {ff} -> {k} (e4m3, bf16 x, "
+          f"{chunks} chunks): K3 launches {launches} (1 up + {chunks} "
+          f"down required), no plain version called; each launch against "
+          f"dequant_matmul_plain on its own operands: worst |err| / K3's "
+          f"bound up {worst['up']:.3e}, down {worst['down']:.3e} (<= 1 "
+          f"required); the block against the plain composition "
+          f"{block:.3e} of max|y|; finite {bool(torch.isfinite(y).all())}; "
+          f"down launches reading their chunk in place {sum(in_place)} of "
+          f"{len(in_place)} (all required)")
+    if not all(in_place):
+        problems.append("tp_mlp_block: a down chunk was copied")
+    if launches != 1 + chunks or len(seen) != 1 + chunks:
+        problems.append(f"tp_mlp_block: {launches} K3 launches")
+    if max(worst.values()) > 1.0:
+        problems.append(f"tp_mlp_block: a K3 launch at {worst} of its "
+                        "bound")
+    if not bool(torch.isfinite(y).all()) or block > 2e-2:
+        problems.append(f"tp_mlp_block against the plain block {block}")
+
+    # The host issues each chunk's all_reduce (async) right after its K3
+    # launch, before the next chunk's.
+    want_order = ["K3"] + ["K3", "all_reduce(async)"] * chunks
+    print(f"parallel: the host's issue order {issued} "
+          f"({'as' if issued == want_order else 'NOT as'} required: up, "
+          f"then each chunk's K3 launch followed by its all_reduce)")
+    if issued != want_order:
+        problems.append(f"tp_mlp_block issued {issued}")
+    # The device's layout of one call: K3 on the compute stream, NCCL's
+    # kernels (if any) on its own stream after their chunk's K3 launch.
+    prof = open_profile(run)
+    layout, other = tp_layout(prof)
+    k3 = [r for r in layout if r[0] == "K3"]
+    nccl = [r for r in layout if r[0] == "NCCL"]
+    host = [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CPU
+            and ("allreduce" in e.name.lower().replace("_", "")
+                 and "nccl" in e.name.lower())]
+    t0 = layout[0][2] if layout else 0.0
+    print(f"parallel: tp_mlp_block's trace: "
+          + ", ".join(f"{kd}@{st}[{s - t0:.1f}-{e - t0:.1f} us]"
+                      for kd, st, s, e in layout)
+          + f"; {other} other kernels; host all_reduce records {len(host)}")
+    world = dist.get_world_size()
+    laid = all(nccl[c][1] != k3[c + 1][1] and nccl[c][2] >= k3[c + 1][3]
+               for c in range(min(len(nccl), chunks)))
+    print(f"parallel: {len(nccl)} NCCL kernels in a world of {world} "
+          + ("(a one-rank all_reduce runs no kernel: NCCL returns it as a "
+             "no-op, so the layout has only the K3 launches)"
+             if world == 1 and not nccl else
+             f"each on a stream of its own after its chunk's K3 launch: "
+             f"{'yes' if laid and len(nccl) == chunks else 'no'}"))
+    if len(k3) != 1 + chunks:
+        problems.append(f"the trace holds {len(k3)} K3 launches")
+    if len(host) != chunks:
+        problems.append(f"the trace holds {len(host)} host all_reduce "
+                        "records")
+    if (world > 1 or nccl) and not (laid and len(nccl) == chunks):
+        problems.append("the NCCL kernels are not laid out one a chunk "
+                        "after its K3 launch on their own stream")
+    out["tp"] = {"launches": launches, "worst_over_bound": worst,
+                 "block_rel": block, "issued": issued,
+                 "layout": [list(r) for r in layout],
+                 "other_kernels": other, "host_all_reduce": len(host)}
+    rows = [tp_k3_row("tp_mlp_block up", x, up8, up_s, torch.bfloat16, 1,
+                      errs["up"])]
+    hc = seen[1][0]
+    rows.append(tp_k3_row("tp_mlp_block down chunk", hc, down_c[0],
+                          down_s[:csz], torch.float32, chunks, errs["down"]))
+    return rows
+
+
+def parallel_wire(out, problems):
+    """wire_all_reduce_tree over the train_lm preset's gradient tree on the
+    card (NCCL) against the same call on the CPU (a gloo group), timed."""
+    import torch
+    import torch.distributed as dist
+    from fp8tpu_torch.parallel import wire_all_reduce_tree
+    gen = torch.Generator("cuda").manual_seed(21)
+    tree = {}
+    for i, (name, shape, _) in enumerate(lm_shapes()):
+        # each leaf its own magnitude, 1e-4 .. 1e1, as gradients of layers
+        scale = 10.0 ** (-4 + 5 * ((i * 37) % 110) / 110)
+        tree[name] = torch.randn(shape, device="cuda", generator=gen) * scale
+    n = sum(t.numel() for t in tree.values())
+    got = wire_all_reduce_tree(tree, None, "e4m3")
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: wire_all_reduce_tree(tree, None, "e4m3"), iters=5,
+                 warmup=1)
+    gloo = dist.new_group([0], backend="gloo")
+    want = wire_all_reduce_tree({k: v.cpu() for k, v in tree.items()}, gloo,
+                                "e4m3")
+    bad = sum(bytes_differ(got[k].cpu(), want[k]) for k in tree)
+    print(f"parallel: wire_all_reduce_tree (e4m3, blocks of 512) over the "
+          f"train_lm preset's {len(tree)} leaves ({n} elements): {ms:.3f} "
+          f"ms a call on the card ({4.0 * n / ms / 1e6:.1f} GB/s of f32 "
+          f"gradient); {bad} bytes differ from the CPU's (gloo) result (0 "
+          f"required)")
+    if bad:
+        problems.append(f"wire_all_reduce_tree: {bad} bytes off the CPU's")
+    out["wire"] = {"elements": n, "leaves": len(tree), "ms": ms,
+                   "bytes_differ": bad}
+
+
+def parallel_dp(out, problems):
+    """The train_lm trainer's data-parallel step (world of one) against the
+    non-parallel step over train_lm's batches: parameters bit-equal."""
+    import torch
+    from fp8tpu_torch.kernels import adam8, cast_kernel
+    from fp8tpu_torch.numerics import prng
+    from fp8tpu_torch.parallel import BatchShard, make_mesh
+    key = prng.key(1)
+    batches = lm_batches(1 + LM_STEPS)
+    runs = {}
+    for dp in (False, True):
+        shard = BatchShard.of(make_mesh(data=1).group("data")) if dp \
+            else None
+        _, _, params, opt, step, state = lm_trainer(shard=shard)
+        adam8.reset_launches()
+        cast_kernel.reset_launches()
+        params, state, losses, times, _ = lm_run(step, params, state,
+                                                 batches, key)
+        runs[dp] = ({n: p.detach().clone() for n, p in params.items()},
+                    losses, state[1], times,
+                    {"adam8_update": adam8.launches,
+                     "cast_kernel": cast_kernel.launches})
+        del params, opt, step, state
+        torch.cuda.empty_cache()
+    (p0, l0, s0, t0, _), (p1, l1, s1, t1, launches) = runs[False], runs[True]
+    bad = sum(bytes_differ(p1[n], p0[n]) for n in p0)
+    ms0 = 1000.0 * sum(t0[1:]) / LM_STEPS
+    ms1 = 1000.0 * sum(t1[1:]) / LM_STEPS
+    print(f"parallel: train_lm's {len(batches)} steps with the "
+          f"data-parallel step (world of one): losses "
+          f"{'equal' if l1 == l0 else (l1, l0)}, loss scale {s1} / {s0}, "
+          f"{bad} parameter bytes differ from the non-parallel step's (0 "
+          f"required); launches {launches} ({len(batches)} each "
+          f"required); {ms1:.2f} ms/step against {ms0:.2f}")
+    if bad or l1 != l0 or s1 != s0:
+        problems.append(f"the data-parallel step: {bad} bytes, losses "
+                        f"{l1} vs {l0}")
+    if launches != {"adam8_update": len(batches),
+                    "cast_kernel": len(batches)}:
+        problems.append(f"the data-parallel step's launches {launches}")
+    out["dp"] = {"bytes_differ": bad, "losses": l1, "launches": launches,
+                 "ms_per_step": ms1, "ms_per_step_single": ms0}
+
+
+def pp_stage(params, x):
+    """The quantized stage of tests/test_pipeline_moe.py at PP_WIDTH: e4m3
+    per-tensor casts (K1) of both weights and the input, tanh GELU."""
+    import torch
+    import torch.nn.functional as F
+    from fp8tpu_torch._device import full_fp32
+    from fp8tpu_torch.quant.config import TensorQuantConfig
+    from fp8tpu_torch.quant.fakequant import fake_quant
+    cfg = TensorQuantConfig(dtype="e4m3", scheme="rne",
+                            scaling="per-tensor-max")
+    with full_fp32():
+        h = F.gelu(fake_quant(x, cfg) @ fake_quant(params["w1"], cfg),
+                   approximate="tanh")
+        return x + h @ fake_quant(params["w2"], cfg)
+
+
+def parallel_pp_moe(out, problems):
+    """pipeline_apply at one stage and moe_ffn over a one-rank mesh, each
+    against its plain counterpart, outputs and gradients."""
+    import torch
+    from fp8tpu_torch.kernels import cast_kernel
+    from fp8tpu_torch.numerics import cast as cast_mod
+    from fp8tpu_torch._device import full_fp32
+    from fp8tpu_torch.parallel import (make_mesh, make_pp_mesh, moe_ffn,
+                                       pipeline_apply,
+                                       quantize_expert_weights, top_k_routing)
+    gen = torch.Generator("cuda").manual_seed(22)
+    d = PP_WIDTH
+
+    def leaves():
+        return {"w1": (torch.randn(1, d, d, device="cuda", generator=g0)
+                       * d ** -0.5).requires_grad_(True),
+                "w2": (torch.randn(1, d, d, device="cuda", generator=g0)
+                       * d ** -0.5).requires_grad_(True)}
+
+    g0 = torch.Generator("cuda").manual_seed(23)
+    pp_params = leaves()
+    g0.manual_seed(23)
+    plain_params = leaves()
+    x = torch.randn(PP_ROWS, d, device="cuda", generator=gen)
+    cast_kernel.reset_launches()
+    with _Counting(cast_mod, "qdq_plain", forbid=True):
+        y = pipeline_apply(pp_stage, pp_params, x, make_pp_mesh(1, 1),
+                           n_microbatches=PP_MICRO)
+        torch.cuda.synchronize()
+    k1 = cast_kernel.launches
+    (y ** 2).mean().backward()
+    mbs = x.reshape(PP_MICRO, -1, d)
+    stage0 = {k: v[0] for k, v in plain_params.items()}
+    ref = torch.cat([pp_stage(stage0, mb) for mb in mbs])
+    (ref ** 2).mean().backward()
+    pp_bad = bytes_differ(y, ref) + sum(
+        bytes_differ(pp_params[k].grad, plain_params[k].grad)
+        for k in pp_params)
+    # one of the path's K1 casts against the plain cast on the CPU
+    from fp8tpu_torch.numerics.formats import RoundMode
+    from fp8tpu_torch.numerics.scaling import per_tensor
+    s = per_tensor(mbs[0], "e4m3")
+    k1_bad = bytes_differ(
+        cast_kernel.cuda_qdq(mbs[0], "e4m3", RoundMode.RNE, s).cpu(),
+        cast_mod.qdq_plain(mbs[0].cpu(), "e4m3", RoundMode.RNE, s.cpu()))
+    print(f"parallel: pipeline_apply, 1 stage of {d} x {d} (e4m3 casts), "
+          f"{PP_ROWS} rows in {PP_MICRO} microbatches: K1 launches {k1} "
+          f"({3 * PP_MICRO} required), no plain cast; output and gradients "
+          f"against the stage run microbatch by microbatch: {pp_bad} bytes "
+          f"differ (0 required); a stage input's K1 cast against the plain "
+          f"cast on the CPU: {k1_bad} bytes differ (0 required)")
+    if pp_bad or k1_bad or k1 != 3 * PP_MICRO:
+        problems.append(f"pipeline_apply: {pp_bad} / {k1_bad} bytes, {k1} "
+                        "K1 launches")
+
+    t, dm, dff, e = (MOE_PAR[n] for n in ("tokens", "d_model", "d_ff",
+                                          "experts"))
+    xm = torch.randn(t, dm, device="cuda", generator=gen)
+    gate = torch.randn(dm, e, device="cuda", generator=gen) * dm ** -0.5
+    up8, up_s = quantize_expert_weights(
+        torch.randn(e, dm, dff, device="cuda", generator=gen) * dm ** -0.5)
+    down8, down_s = quantize_expert_weights(
+        torch.randn(e, dff, dm, device="cuda", generator=gen) * dff ** -0.5)
+    cap = max(int(1.25 * 2 * t / e), 2)        # moe_ffn's capacity
+    with torch.no_grad(), full_fp32():
+        filled = int(top_k_routing(xm @ gate, 2, cap)[0].sum())
+    res = []
+    for mesh in (None, make_mesh(model=1)):
+        leaves_ = [a.clone().requires_grad_(True)
+                   for a in (xm, gate, up_s, down_s)]
+        ym, aux = moe_ffn(leaves_[0], leaves_[1], up8, leaves_[2], down8,
+                          leaves_[3], mesh=mesh)
+        ((ym ** 2).sum() + 0.01 * aux).backward()
+        res.append([ym.detach(), aux.detach()] + [a.grad for a in leaves_])
+    moe_bad = sum(bytes_differ(a, b) for a, b in zip(*res))
+    print(f"parallel: moe_ffn over a one-rank mesh ({t} tokens, d_model "
+          f"{dm}, {e} experts of d_ff {dff}, top-2, e4m3; {filled} of "
+          f"{e * cap} expert slots filled): "
+          f"output, aux and gradients against mesh=None: {moe_bad} bytes "
+          f"differ (0 required)")
+    if moe_bad:
+        problems.append(f"moe_ffn over a mesh: {moe_bad} bytes")
+    out["pp_moe"] = {"pp_bytes": pp_bad, "k1_launches": k1,
+                     "k1_bytes": k1_bad, "moe_bytes": moe_bad,
+                     "moe_slots_filled": filled}
+
+
+def phase_parallel(record):
+    """fp8tpu_torch.parallel over NCCL in a world of one: returns the K3
+    rows of the kernels record."""
+    import torch.distributed as dist
+    from fp8tpu_torch.parallel import init_world
+    init_world("cuda")
+    out, problems = {}, []
+    try:
+        rows = parallel_tp(out, problems)
+        parallel_wire(out, problems)
+        parallel_dp(out, problems)
+        parallel_pp_moe(out, problems)
+    finally:
+        dist.destroy_process_group()
+    record["parallel"] = out
+    if problems:
+        raise PhaseError("; ".join(problems))
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,k1,k2,k3,k4,k5,k6,t1,t2,p3,main,train,"
                             "train_lm,serve,serve_paged,spec,moe,flush,time,"
-                            "w8a8,deploy,sparse,vision,bert,examples")
+                            "w8a8,deploy,sparse,vision,bert,examples,"
+                            "parallel")
     ap.add_argument("--out", default="chip_smoke_out/chip_smoke.json")
     ap.add_argument("--package-tree", default=None,
                     help="import fp8tpu_torch from this tree (a git archive "
@@ -9681,6 +10133,8 @@ def main(argv=None) -> int:
                 model_kernels += phase_bert(record)
             elif phase == "examples":
                 phase_examples(record)
+            elif phase == "parallel":
+                model_kernels += phase_parallel(record)
             elif phase == "time":
                 if None in (launches, serve_launches, paged_launches,
                             train_launches):

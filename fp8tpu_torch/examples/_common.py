@@ -10,18 +10,22 @@ import torch
 
 from fp8tpu_torch._device import resolve_device
 
-# Where a flag of a JAX script waits for a module the port does not have.
-PARALLEL = "parallel/ (ROADMAP §1 item 6)"
+# Where a flag of a JAX script waits for a part the port does not have.
+PARALLEL = ("tensor parallelism inside the models (ROADMAP §1 item 7); "
+            "data parallelism runs with --data-parallel")
 
 
 class Log:
-    """Prints lines and keeps them, for ``main``'s result."""
+    """Prints lines (unless ``quiet``: a data-parallel rank other than 0)
+    and keeps them, for ``main``'s result."""
 
-    def __init__(self):
+    def __init__(self, quiet: bool = False):
         self.lines: List[str] = []
+        self.quiet = quiet
 
     def __call__(self, line: str) -> None:
-        print(line, flush=True)
+        if not self.quiet:
+            print(line, flush=True)
         self.lines.append(line)
 
 

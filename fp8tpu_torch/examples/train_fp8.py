@@ -11,17 +11,31 @@ examples/training/resnet/main_amp.py flow):
     python -m fp8tpu_torch.examples.train_fp8 --device cpu --steps 3
 
 Batches are ``randint(fold_in(key(0), step), (batch, seq), 0, vocab)``,
-bit-equal to the JAX script's.  Data and model parallelism (>1) wait for
-``parallel/`` and raise.
+bit-equal to the JAX script's.
+
+``--data-parallel N`` runs as N processes, one a card (NCCL), or on the CPU
+(gloo) with ``--device cpu``::
+
+    python -m torch.distributed.run --nproc-per-node 2 \
+        -m fp8tpu_torch.examples.train_fp8 --data-parallel 2 --device cpu
+
+Every rank draws the global batch and trains on its rows; the step is the
+global step (``training.make_train_step(shard=...)``: global per-tensor
+scales and SR bits, the loss over the global batch, gradients summed
+before the wtgrad casts), so every rank holds the same parameters.  Rank 0
+logs and checkpoints.  Model parallelism (>1) and MoE under data
+parallelism wait for tensor parallelism inside the models and raise.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from fp8tpu_torch import initialize
@@ -88,15 +102,50 @@ def batch_of(key, step: int, args, vocab: int, device):
                         (args.batch_size, args.seq_len), device=device)
 
 
-def loss_of(model, moe: bool):
+def loss_of(model, moe: bool, global_tokens: Optional[int] = None):
+    """The script's loss: the mean cross entropy, or with ``global_tokens``
+    (data parallelism) this rank's tokens' sum over the global count, its
+    share of the global batch's mean."""
     def loss_fn(apply_fn, params, batch):
         logits = apply_fn(params, batch[:, :-1])
-        ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                             batch[:, 1:].reshape(-1))
+        logits, labels = logits.reshape(-1, logits.shape[-1]), \
+            batch[:, 1:].reshape(-1)
+        if global_tokens is not None:
+            # a tensor divisor: one correctly rounded divide (trap 80)
+            return F.cross_entropy(logits, labels, reduction="sum") / \
+                torch.tensor(float(global_tokens), device=logits.device)
+        ce = F.cross_entropy(logits, labels)
         # Switch-style load balancing: without it capacity routing
         # collapses onto a few experts and silently drops tokens.
         return ce + 0.01 * moe_aux_loss(model) if moe else ce
     return loss_fn
+
+
+def data_parallel(args, device):
+    """(this rank's ``BatchShard``, its rank) for ``--data-parallel N``:
+    the world must be N processes (torchrun's), raising before any process
+    group is made when it is not; (None, 0) for N = 1."""
+    n = args.data_parallel
+    if n == 1:
+        return None, 0
+    if args.n_experts:
+        raise NotImplementedError(
+            "--data-parallel with --n-experts: capacity routing over the "
+            "global batch needs " + PARALLEL)
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", 1)))
+    if world != n:
+        raise ValueError(
+            f"--data-parallel {n} runs as {n} processes (this world has "
+            f"{world}): python -m torch.distributed.run --nproc-per-node "
+            f"{n} -m fp8tpu_torch.examples.train_fp8 --data-parallel {n}")
+    if args.batch_size % n:
+        raise ValueError(f"--batch-size {args.batch_size} does not split "
+                         f"over {n} ranks")
+    from fp8tpu_torch.parallel import BatchShard, init_world, make_mesh
+    init_world(device)
+    shard = BatchShard.of(make_mesh(data=n).group("data"))
+    return shard, shard.index
 
 
 def _adamw_tree(opt: torch.optim.AdamW, params: Dict):
@@ -121,11 +170,13 @@ def _load_adamw(opt: torch.optim.AdamW, tree, params: Dict):
 
 def main(argv=None, variables: Optional[Dict] = None) -> Dict:
     args = parse(argv)
-    if args.data_parallel > 1 or args.model_parallel > 1:
-        raise NotImplementedError(
-            "--data-parallel / --model-parallel > 1 need " + PARALLEL)
+    if args.model_parallel > 1:
+        raise NotImplementedError("--model-parallel > 1 needs " + PARALLEL)
     device = resolve_device(args.device)
-    log_line = Log()
+    shard, rank = data_parallel(args, device)
+    if shard is not None and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    log_line = Log(quiet=rank != 0)
     cfg = config(args)
     model = from_flax(random_decoder(cfg, device, seed=0), variables)
 
@@ -139,7 +190,12 @@ def main(argv=None, variables: Optional[Dict] = None) -> Dict:
     else:
         optimizer = torch.optim.AdamW(params.values(), lr=args.lr,
                                       weight_decay=1e-4)
-    step_fn = make_train_step(emulator, loss_of(model, args.n_experts > 0))
+    rows = args.batch_size // args.data_parallel
+    step_fn = make_train_step(
+        emulator, loss_of(model, args.n_experts > 0,
+                          None if shard is None
+                          else args.batch_size * (args.seq_len - 1)),
+        shard=shard)
     opt_state = init_train_state(optimizer)
 
     start_step = 0
@@ -162,6 +218,8 @@ def main(argv=None, variables: Optional[Dict] = None) -> Dict:
     losses, step_s = [], []
     for step in range(start_step, args.steps):
         batch = batch_of(key, step, args, cfg.vocab_size, device)
+        if shard is not None:
+            batch = batch[rank * rows:(rank + 1) * rows]
         sync(device)
         t0 = time.perf_counter()
         params, opt_state, loss = step_fn(params, opt_state, batch,
@@ -169,10 +227,12 @@ def main(argv=None, variables: Optional[Dict] = None) -> Dict:
         loss = float(loss)
         step_s.append(time.perf_counter() - t0)
         losses.append(loss)
-        log.update(loss=loss, tokens_per_s=batch.numel() / step_s[-1])
+        log.update(loss=loss, tokens_per_s=args.batch_size * args.seq_len
+                   / step_s[-1])
         if step % 10 == 0:
             log_line(f"step {step}: {log}")
-        if args.checkpoint_dir and step and step % CHECKPOINT_EVERY == 0:
+        if (args.checkpoint_dir and step and step % CHECKPOINT_EVERY == 0
+                and rank == 0):
             inner = optimizer if args.opt8 else _adamw_tree(optimizer, params)
             save_checkpoint(args.checkpoint_dir, step,
                             variables_to_flax(params, emulator.module_table),

@@ -94,6 +94,15 @@ def sr_bits_from_salt(salt: int, n: int, device=None) -> torch.Tensor:
     return h >> 16
 
 
+def salt_at(salt: int, offset: int) -> int:
+    """The salt whose stream starts where ``salt``'s stream is at element
+    ``offset``: the hash adds ``idx * 0xCC9E2D51`` to the salt mod 2^32, so
+    element ``offset + i`` of one is element ``i`` of the other (a batch
+    shard's SR bits are the global tensor's at its offset, with no change
+    to a kernel that hashes from a salt)."""
+    return (salt + offset * 0xCC9E2D51) & _M32
+
+
 def require_hash_stream(what: str) -> None:
     """Raise unless SR bits are the counter hash: ``what`` hashes them from
     a salt in the kernel, which cannot give the threefry stream."""
@@ -104,19 +113,22 @@ def require_hash_stream(what: str) -> None:
             "pass the bits (numerics.cast.sr_bits) instead")
 
 
-def sr_bits(key: PRNGKey, shape: Sequence[int], device=None) -> torch.Tensor:
+def sr_bits(key: PRNGKey, shape: Sequence[int], device=None,
+            offset: int = 0) -> torch.Tensor:
     """Counter-based random bits for stochastic rounding, deterministic in
     (key, element index); bit-equal to the JAX package for the same key
     data under either :data:`SR_BITS_IMPL` (under "threefry": the low 16
     bits of ``jax.random.bits``' uint32 words, which is what its uint16
-    draw keeps)."""
+    draw keeps).  ``offset``: the bits of the elements ``offset ..`` of a
+    larger tensor (a batch shard's, at its row-major offset)."""
     n = 1
     for s in shape:
         n *= int(s)
     if SR_BITS_IMPL == "threefry":
-        flat = threefry_bits32(key, n, device) & 0xFFFF
+        flat = threefry_bits32(key, n, device, offset) & 0xFFFF
     else:
-        flat = sr_bits_from_salt(salt_of(key), n, device)[:n]
+        flat = sr_bits_from_salt(salt_at(salt_of(key), offset), n,
+                                 device)[:n]
     return flat.reshape(tuple(shape))
 
 
@@ -540,13 +552,14 @@ def hw_sr(x, fmt_name: str, scale, rb, descale: bool = True) -> torch.Tensor:
 
 # -- entry points ---------------------------------------------------------------
 
-def _salt_for(mode, key, random_bits) -> Optional[int]:
-    """The SR salt when the bits come from ``key``; None otherwise."""
+def _salt_for(mode, key, random_bits, offset: int = 0) -> Optional[int]:
+    """The SR salt when the bits come from ``key`` (at element ``offset``
+    of its stream); None otherwise."""
     if mode != RoundMode.STOCHASTIC or random_bits is not None:
         return None
     if key is None:
         raise ValueError("stochastic rounding requires key or random_bits")
-    return salt_of(key)
+    return salt_at(salt_of(key), offset)
 
 
 def block_scales(x: torch.Tensor, block_size: int, fmt: FPFormat | str):
@@ -598,12 +611,13 @@ def qdq_plain(x: torch.Tensor, fmt_name: str, mode: RoundMode = RoundMode.RNE,
     return out.reshape(-1)[:n].reshape(x.shape)
 
 
-def _qdq(x, fmt_name, mode, scale, daz, key, random_bits, block_size=0):
+def _qdq(x, fmt_name, mode, scale, daz, key, random_bits, block_size=0,
+         offset=0):
     if (SR_BITS_IMPL == "threefry" and mode == RoundMode.STOCHASTIC
             and random_bits is None and key is not None):
         # no kernel hashes threefry: the bits are drawn here
-        random_bits = sr_bits(key, x.shape, x.device)
-    salt = _salt_for(mode, key, random_bits)
+        random_bits = sr_bits(key, x.shape, x.device, offset)
+    salt = _salt_for(mode, key, random_bits, offset)
     if x.is_cuda:
         from fp8tpu_torch.kernels.cast_kernel import cuda_qdq
         return cuda_qdq(x, fmt_name, mode, scale, daz, random_bits, salt,
@@ -620,16 +634,20 @@ def qdq(
     daz: bool = False,
     key: Optional[PRNGKey] = None,
     random_bits: Optional[torch.Tensor] = None,
+    offset: int = 0,
 ) -> torch.Tensor:
     """Quantize-dequantize ``x`` onto the ``fmt`` value grid.
 
     ``scale`` is a scalar or a tensor broadcastable to ``x``.  Stochastic
     rounding needs ``key`` or integer ``random_bits`` (uint16 values)
-    shaped like ``x``.  Returns float32 of ``x``'s shape: the plain
-    pipeline on the CPU, the cast kernel on a CUDA device.
+    shaped like ``x``; ``offset`` takes ``key``'s bits from that element of
+    its stream on (``x`` a piece of a larger tensor).  Returns float32 of
+    ``x``'s shape: the plain pipeline on the CPU, the cast kernel on a CUDA
+    device.
     """
     fmt_name = fmt if isinstance(fmt, str) else fmt.name
-    return _qdq(x, fmt_name, mode, scale, daz, key, random_bits)
+    return _qdq(x, fmt_name, mode, scale, daz, key, random_bits,
+                offset=offset)
 
 
 def qdq_mode_string(

@@ -53,14 +53,24 @@ def _mean_scale(mean: torch.Tensor, fmt: FPFormat, eps: float):
     return torch.clamp(scale, min=1.0)
 
 
-def per_tensor(x: torch.Tensor, fmt, method: str = "max") -> torch.Tensor:
+def per_tensor(x: torch.Tensor, fmt, method: str = "max",
+               shard=None) -> torch.Tensor:
+    """One scale for ``x``; with ``shard`` (a ``parallel.data.BatchShard``)
+    ``x`` is a rank's rows of a batch and the scale is the global
+    tensor's: its amax (or sum) reduced over the shard's group."""
     fmt = _fmt(fmt)
     xf = x.to(torch.float32)
     if method == "max":
         # max|x| in one reduction (NaN-propagating, like amax of abs)
-        return _max_scale(torch.linalg.vector_norm(xf, float("inf")), fmt)
+        amax = torch.linalg.vector_norm(xf, float("inf"))
+        return _max_scale(amax if shard is None else shard.max(amax), fmt)
     if method == "mean":
-        return _mean_scale(xf.abs().mean(), fmt, _MEAN_EPS_TENSOR)
+        if shard is None:
+            return _mean_scale(xf.abs().mean(), fmt, _MEAN_EPS_TENSOR)
+        total = torch.tensor(float(xf.numel() * shard.count),
+                             device=xf.device)
+        return _mean_scale(shard.sum(xf.abs().sum()) / total, fmt,
+                           _MEAN_EPS_TENSOR)
     raise ValueError(f"unknown scaling method {method!r}")
 
 

@@ -5,9 +5,14 @@ it.
 
 Expert weights are fp8 (or int8) payloads with per-(expert,
 output-channel) scales, as in the serving artifact.  The JAX package
-shards the expert axis over a mesh and lets GSPMD insert the all-to-alls;
-here ``mesh`` must be None: expert parallelism over NCCL comes with the
-port's ``parallel/`` package (slice 4).
+shards the expert axis over a mesh and lets GSPMD insert the collectives.
+Here, given a mesh, each rank of its ``axis`` group runs its E/T experts:
+routing and the dispatch einsum run replicated, each rank takes its
+experts' rows, and its expert outputs are gathered into the full (E, C, D)
+tensor before the combine, which then runs as without a mesh.  The
+gather's backward takes the rank's rows of the (replicated) cotangent and
+the row slice's backward gathers them, so outputs and gradients are the
+mesh-less ones, bit for bit.
 """
 
 from __future__ import annotations
@@ -15,10 +20,13 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from fp8tpu_torch._device import full_fp32
 from fp8tpu_torch.kernels.qmatmul import quantize_weights
+
+from .mesh import gather_rows
 
 
 def quantize_expert_weights(w: torch.Tensor, fmt: str = "e4m3"):
@@ -74,6 +82,38 @@ def top_k_routing(logits: torch.Tensor, top_k: int, capacity: int
     return dispatch, combine, aux
 
 
+class _ExpertRows(torch.autograd.Function):
+    """Forward: this rank's expert rows of a replicated (E, ...) tensor.
+    Backward: every rank's row cotangents gathered into the full one (the
+    same on every rank)."""
+
+    @staticmethod
+    def forward(ctx, t, group, rank, n):
+        ctx.group = group
+        rows = t.shape[0] // n
+        return t[rank * rows:(rank + 1) * rows]
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_rows(g, ctx.group), None, None, None
+
+
+class _GatherExperts(torch.autograd.Function):
+    """Forward: every rank's expert rows gathered into the full (E, ...)
+    tensor.  Backward: this rank's rows of the cotangent, which every rank
+    holds whole (what follows the gather runs replicated)."""
+
+    @staticmethod
+    def forward(ctx, t, group, rank):
+        ctx.rank, ctx.rows = rank, t.shape[0]
+        return gather_rows(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        r, rows = ctx.rank, ctx.rows
+        return g[r * rows:(r + 1) * rows], None, None
+
+
 def moe_ffn(x: torch.Tensor, gate_kernel: torch.Tensor,
             up8: torch.Tensor, up_s: torch.Tensor,
             down8: torch.Tensor, down_s: torch.Tensor,
@@ -87,11 +127,14 @@ def moe_ffn(x: torch.Tensor, gate_kernel: torch.Tensor,
     :func:`quantize_expert_weights` ((E, D, F) and (E, F, D) stacks).  The
     contractions run in f32 (IEEE, not TF32), the GELU is the tanh form
     (``jax.nn.gelu``'s default).  Returns (y (T, D) in x's dtype,
-    aux_loss)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "moe_ffn over a mesh (expert parallelism) is not ported yet; it "
-            "comes with the port's parallel/ package (slice 4)")
+    aux_loss).
+
+    With ``mesh`` (a :class:`~fp8tpu_torch.parallel.mesh.Mesh`), x and
+    gate_kernel are replicated over ``axis`` and the expert stacks are
+    sharded over it: each rank passes its E/T rows (experts r*E/T first,
+    the shard ``shard_params`` gives under ``MOE_PARAM_RULES``) and
+    computes those experts only; the result and its gradients equal the
+    mesh-less call's."""
     T, D = x.shape
     E = gate_kernel.shape[1]
     capacity = max(int(capacity_factor * top_k * T / E), top_k)
@@ -101,10 +144,20 @@ def moe_ffn(x: torch.Tensor, gate_kernel: torch.Tensor,
         logits = xf @ gate_kernel.to(torch.float32)
         dispatch, combine, aux = top_k_routing(logits, top_k, capacity)
         xe = torch.einsum("tec,td->ecd", dispatch, xf)
+        if mesh is not None:
+            group = mesh.group(axis)
+            rank, n = dist.get_rank(group), dist.get_world_size(group)
+            for w in (up8, up_s, down8, down_s):
+                if w.shape[0] * n != E:
+                    raise ValueError(f"an expert stack of {w.shape[0]} rows "
+                                     f"for {E} experts over {n} ranks")
+            xe = _ExpertRows.apply(xe, group, rank, n)
         h = torch.einsum("ecd,edf->ecf", xe,
                          _dequant(up8, up_s, torch.float32))
         h = F.gelu(h, approximate="tanh")
         ye = torch.einsum("ecf,efd->ecd", h,
                           _dequant(down8, down_s, torch.float32))
+        if mesh is not None:
+            ye = _GatherExperts.apply(ye, group, rank)
         y = torch.einsum("ecd,tec->td", ye, combine)
     return y.to(x.dtype), aux

@@ -4,6 +4,11 @@
 call; on a CUDA tensor the cast is one launch of the cast kernel (K1).
 The backward pass is straight-through: gradient-stream quantization is
 applied explicitly per the igrad/ograd/wtgrad role configs.
+
+``shard`` (a ``parallel.data.BatchShard``) marks ``x`` as one rank's rows
+of a data-parallel batch: a per-tensor scale is then the global tensor's
+and SR draws the global tensor's bits at the rank's offset, so the cast
+is the rank's share of the unsharded cast.
 """
 
 from __future__ import annotations
@@ -27,12 +32,16 @@ def _hw_eligible(cfg: TensorQuantConfig) -> bool:
             and cfg.scaling != "per-block")
 
 
-def _scale(x: torch.Tensor, cfg: TensorQuantConfig):
+def _scale(x: torch.Tensor, cfg: TensorQuantConfig, shard=None):
     fmt = FORMATS[cfg.dtype]
     if cfg.scaling == "none":
         return 1.0
     if cfg.scaling == "per-tensor":
-        return _scaling.per_tensor(x, fmt, cfg.method)
+        return _scaling.per_tensor(x, fmt, cfg.method, shard)
+    if shard is not None:
+        raise NotImplementedError(
+            f"{cfg.scaling} scaling of a batch shard (data parallelism "
+            "takes none or per-tensor scales)")
     if cfg.scaling == "per-channel":
         return _scaling.per_channel(x, fmt, cfg.method, cfg.channel_axis)
     if cfg.scaling == "fine-grained":
@@ -41,43 +50,49 @@ def _scale(x: torch.Tensor, cfg: TensorQuantConfig):
 
 
 def _quantize_impl(x: torch.Tensor, cfg: TensorQuantConfig,
-                   key: Optional[PRNGKey]) -> torch.Tensor:
+                   key: Optional[PRNGKey], shard=None) -> torch.Tensor:
+    if shard is not None and (cfg.is_int or cfg.scaling == "per-block"):
+        raise NotImplementedError(
+            f"{cfg.mode_string()} with {cfg.scaling} scaling of a batch "
+            "shard")
     if cfg.is_int:
         return _integer.qdq_int(x, bits=cfg.bits)
     if cfg.is_stochastic and key is None:
         raise ValueError(f"{cfg.mode_string()} needs a PRNG key for "
                          "stochastic rounding")
+    offset = 0 if shard is None else shard.offset(x.numel())
     if _hw_eligible(cfg):
-        scale = _scale(x, cfg)
+        scale = _scale(x, cfg, shard)
         if cfg.scheme == "stochastic":
             return _cast.hw_sr(x, cfg.dtype, scale,
-                               _cast.sr_bits(key, x.shape, x.device))
+                               _cast.sr_bits(key, x.shape, x.device, offset))
         return _cast.hw_qdq(x, cfg.dtype, scale)
     fmt = FORMATS[cfg.dtype]
     key = key if cfg.is_stochastic else None
     if cfg.scaling == "per-block":
         return _cast.qdq_blocked(x, fmt, cfg.round_mode, cfg.block_size,
                                  cfg.daz, key=key)
-    return _cast.qdq(x, fmt, cfg.round_mode, _scale(x, cfg), cfg.daz,
-                     key=key)
+    return _cast.qdq(x, fmt, cfg.round_mode, _scale(x, cfg, shard), cfg.daz,
+                     key=key, offset=offset)
 
 
 class _FakeQuant(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, cfg, key):
-        return _quantize_impl(x, cfg, key).to(x.dtype)
+    def forward(ctx, x, cfg, key, shard):
+        return _quantize_impl(x, cfg, key, shard).to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None, None
+        return g, None, None, None
 
 
 def fake_quant(x: torch.Tensor, cfg: TensorQuantConfig,
-               key: Optional[PRNGKey] = None) -> torch.Tensor:
+               key: Optional[PRNGKey] = None, shard=None) -> torch.Tensor:
     """Fake-quantize ``x`` per ``cfg``; straight-through gradient.  Output
     dtype equals input dtype (fp8-grid values are exact in bf16 and f32
-    alike)."""
-    return _FakeQuant.apply(x, cfg, key)
+    alike).  ``shard``: ``x`` is a rank's rows of a data-parallel batch
+    (module docstring)."""
+    return _FakeQuant.apply(x, cfg, key, shard)
 
 
 class _FixedScale(torch.autograd.Function):
@@ -105,11 +120,11 @@ def fake_quant_with_scale(x: torch.Tensor, cfg: TensorQuantConfig, scale,
 
 
 def quantize_grad(g: torch.Tensor, cfg: Optional[TensorQuantConfig],
-                  key: Optional[PRNGKey] = None) -> torch.Tensor:
+                  key: Optional[PRNGKey] = None, shard=None) -> torch.Tensor:
     """Quantize a gradient stream; no-op when ``cfg`` is None."""
     if cfg is None:
         return g
-    return _quantize_impl(g, cfg, key)
+    return _quantize_impl(g, cfg, key, shard)
 
 
 def fake_quant_sparse(x: torch.Tensor, cfg: TensorQuantConfig,

@@ -34,11 +34,19 @@ def _fmt_args(cfg: Optional[TensorQuantConfig]):
     return cfg.dtype, cfg.round_mode
 
 
-def _operand_scale(x, cfg: Optional[TensorQuantConfig]):
-    """Per-tensor engine scale with fake_quant's scaling grammar."""
+def _operand_scale(x, cfg: Optional[TensorQuantConfig], shard=None):
+    """Per-tensor engine scale with fake_quant's scaling grammar (the global
+    batch's with a ``parallel.data.BatchShard``)."""
     if cfg is None or cfg.scaling == "none":
         return 1.0
-    return _scaling.per_tensor(x, FORMATS[cfg.dtype], cfg.method)
+    return _scaling.per_tensor(x, FORMATS[cfg.dtype], cfg.method, shard)
+
+
+def _check_shard(cfg: Optional[TensorQuantConfig], shard) -> None:
+    if shard is not None and cfg is not None and cfg.is_stochastic:
+        raise NotImplementedError(
+            "a stochastic engine operand of a batch shard (the engine's SR "
+            "stream has no offset)")
 
 
 def _impl_of(cfg_t: Optional[TensorQuantConfig]) -> str:
@@ -52,7 +60,7 @@ def _seed_of(key: Optional[PRNGKey]) -> int:
     return 0 if key is None else prng.randint(key, 0, 2 ** 31 - 1)
 
 
-def _requant(x, cfg_t: Optional[TensorQuantConfig]):
+def _requant(x, cfg_t: Optional[TensorQuantConfig], shard=None):
     """The quantized operand for the backward, re-derived from the saved
     one: the reference's hooks quantize in place, so its backward consumes
     quantized values.  RNE reproduces the forward's cast; stochastic
@@ -62,7 +70,8 @@ def _requant(x, cfg_t: Optional[TensorQuantConfig]):
     x = x.to(torch.float32)
     if cfg_t is None:
         return x
-    return fake_quant(x, cfg_t, prng.key(0) if cfg_t.is_stochastic else None)
+    return fake_quant(x, cfg_t, prng.key(0) if cfg_t.is_stochastic else None,
+                      shard)
 
 
 def _uncast(a, b):
@@ -72,17 +81,22 @@ def _uncast(a, b):
 class _EngineMatmul(torch.autograd.Function):
     """``qdq(a) @ qdq(b)``, each operand cast per its config (None leaves
     it uncast); backward ``g @ bq.T`` and ``aq.T @ g`` over the
-    re-quantized saved operands."""
+    re-quantized saved operands.  ``shard`` (a ``parallel.data.
+    BatchShard`` or None) is that of both operands: their per-tensor scales
+    are then the global batch's."""
 
     @staticmethod
-    def forward(ctx, a, b, seed, cfg_a, cfg_b):
+    def forward(ctx, a, b, seed, cfg_a, cfg_b, shard):
+        for cfg_t in (cfg_a, cfg_b):
+            _check_shard(cfg_t, shard)
         ctx.save_for_backward(a, b)
-        ctx.cfgs = cfg_a, cfg_b
+        ctx.cfgs, ctx.shard = (cfg_a, cfg_b), shard
         fmt_a, mode_a = _fmt_args(cfg_a)
         fmt_b, mode_b = _fmt_args(cfg_b)
         return qdq_matmul(a, b, fmt_x=fmt_a, mode_x=mode_a, fmt_w=fmt_b,
-                          mode_w=mode_b, scale_x=_operand_scale(a, cfg_a),
-                          scale_w=_operand_scale(b, cfg_b), seed=seed,
+                          mode_w=mode_b,
+                          scale_x=_operand_scale(a, cfg_a, shard),
+                          scale_w=_operand_scale(b, cfg_b, shard), seed=seed,
                           impl=_impl_of(cfg_a)).to(a.dtype)
 
     @staticmethod
@@ -90,19 +104,20 @@ class _EngineMatmul(torch.autograd.Function):
         a, b = ctx.saved_tensors
         cfg_a, cfg_b = ctx.cfgs
         gf = g.to(torch.float32)
-        da = _uncast(gf, _requant(b, cfg_b).t()) \
+        da = _uncast(gf, _requant(b, cfg_b, ctx.shard).t()) \
             if ctx.needs_input_grad[0] else None
-        db = _uncast(_requant(a, cfg_a).t(), gf) \
+        db = _uncast(_requant(a, cfg_a, ctx.shard).t(), gf) \
             if ctx.needs_input_grad[1] else None
         return (None if da is None else da.to(a.dtype),
-                None if db is None else db.to(b.dtype), None, None, None)
+                None if db is None else db.to(b.dtype), None, None, None,
+                None)
 
 
 def patched_matmul(a: torch.Tensor, b: torch.Tensor, cfg: ModuleQuantConfig,
-                   seed: int = 0) -> torch.Tensor:
+                   seed: int = 0, shard=None) -> torch.Tensor:
     """2-D ``qdq(a) @ qdq(b)`` through the fused engine; both operands use
     the module's ``iact`` role."""
-    return _EngineMatmul.apply(a, b, seed, cfg.iact, cfg.iact)
+    return _EngineMatmul.apply(a, b, seed, cfg.iact, cfg.iact, shard)
 
 
 def patched_linear(x: torch.Tensor, w: torch.Tensor, cfg: ModuleQuantConfig,
@@ -110,7 +125,7 @@ def patched_linear(x: torch.Tensor, w: torch.Tensor, cfg: ModuleQuantConfig,
     """2-D ``qdq(x) @ w`` through the fused engine: the activation is cast
     per ``iact`` in the kernel; the weight passes uncast because
     quantize_params already applied the ``wt`` role."""
-    return _EngineMatmul.apply(x, w, seed, cfg.iact, None)
+    return _EngineMatmul.apply(x, w, seed, cfg.iact, None, None)
 
 
 def conv_patchable(module) -> bool:
@@ -167,23 +182,24 @@ class _EngineConv(torch.autograd.Function):
     transposed operands in place, then autograd's col2im."""
 
     @staticmethod
-    def forward(ctx, x, weight, seed, strides, pads, cfg_t):
+    def forward(ctx, x, weight, seed, strides, pads, cfg_t, shard):
+        _check_shard(cfg_t, shard)
         ctx.save_for_backward(x, weight)
         ctx.geometry = strides, pads
-        ctx.cfg = cfg_t
+        ctx.cfg, ctx.shard = cfg_t, shard
         fmt, mode = _fmt_args(cfg_t)
         impl = _impl_of(cfg_t)
         ksize = tuple(weight.shape[2:])
         if x.is_cuda and _implicit_ok(cfg_t):
             scale = _operand_scale(qmatmul.gathered(x, ksize, strides, pads),
-                                   cfg_t)
+                                   cfg_t, shard)
             return qmatmul.conv(x, weight, strides, pads, fmt, mode, scale,
                                 seed, impl)
         col, oh, ow = qmatmul.im2col(x, ksize, strides, pads)
         cout = weight.shape[0]
         w2d = weight.to(torch.float32).reshape(cout, -1).t()
         out = qdq_matmul(col, w2d, fmt_x=fmt, mode_x=mode, fmt_w=None,
-                         scale_x=_operand_scale(col, cfg_t), seed=seed,
+                         scale_x=_operand_scale(col, cfg_t, shard), seed=seed,
                          impl=impl)
         return out.reshape(x.shape[0], oh, ow, cout).permute(0, 3, 1, 2)
 
@@ -203,15 +219,15 @@ class _EngineConv(torch.autograd.Function):
             dcol = _uncast(gf, w_rows)
             dx = torch.autograd.grad(col, xr, dcol)[0].to(x.dtype)
         if ctx.needs_input_grad[1]:
-            colq = _requant(col.detach(), ctx.cfg)
+            colq = _requant(col.detach(), ctx.cfg, ctx.shard)
             dw = _uncast(colq.t(), gf).t().reshape(weight.shape).to(
                 weight.dtype)
-        return dx, dw, None, None, None, None
+        return dx, dw, None, None, None, None, None
 
 
 def engine_conv(x: torch.Tensor, weight: torch.Tensor, bias, strides,
                 padding, cfg: ModuleQuantConfig,
-                key: Optional[PRNGKey] = None) -> torch.Tensor:
+                key: Optional[PRNGKey] = None, shard=None) -> torch.Tensor:
     """NCHW conv2d through the fused engine (:class:`_EngineConv`): the
     JAX package's im2col (features ordered (Cin, KH, KW)) + one engine
     GEMM against the OIHW weight, with the per-tensor iact scale of the
@@ -221,21 +237,27 @@ def engine_conv(x: torch.Tensor, weight: torch.Tensor, bias, strides,
     pads = linen.conv_padding(padding, x.shape[-2:], tuple(weight.shape[2:]),
                               strides)
     out = _EngineConv.apply(x, weight, _seed_of(key), tuple(strides),
-                            tuple(map(tuple, pads)), cfg.iact).to(x.dtype)
+                            tuple(map(tuple, pads)), cfg.iact,
+                            shard).to(x.dtype)
     if bias is not None:
         out = out + bias.to(out.dtype).reshape(1, -1, 1, 1)
     return out
 
 
 def engine_matmul(a: torch.Tensor, b: torch.Tensor, cfg: ModuleQuantConfig,
-                  key: Optional[PRNGKey] = None) -> torch.Tensor:
+                  key: Optional[PRNGKey] = None, shard=None) -> torch.Tensor:
     """Shape-polymorphic entry: 2-D direct; batched ``a`` against a 2-D
-    ``b`` by flattening; batched x batched one engine GEMM per slice."""
+    ``b`` by flattening; batched x batched one engine GEMM per slice.  With
+    ``shard`` (the interceptor's operands are a rank's rows of a
+    data-parallel batch) a 2-D operand's per-tensor max is the global
+    operand's (a max, unlike an SR offset, does not depend on the layout,
+    and of a replicated operand it is its own); a batched x batched slice
+    lies whole on one rank and keeps its own scale."""
     seed = _seed_of(key)
     if a.ndim == 2 and b.ndim == 2:
-        return patched_matmul(a, b, cfg, seed)
+        return patched_matmul(a, b, cfg, seed, shard)
     if b.ndim == 2:
-        out = patched_matmul(a.reshape(-1, a.shape[-1]), b, cfg, seed)
+        out = patched_matmul(a.reshape(-1, a.shape[-1]), b, cfg, seed, shard)
         return out.reshape(*a.shape[:-1], b.shape[-1])
     batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
     af = a.expand(*batch, *a.shape[-2:]).reshape(-1, *a.shape[-2:])

@@ -81,20 +81,22 @@ class _GradCast(torch.autograd.Function):
     """Identity forward; quantizes the cotangent on the way back."""
 
     @staticmethod
-    def forward(ctx, x, cfg, key, nchw):
-        ctx.cfg, ctx.key, ctx.nchw = cfg, key, nchw
+    def forward(ctx, x, cfg, key, nchw, shard):
+        ctx.cfg, ctx.key, ctx.nchw, ctx.shard = cfg, key, nchw, shard
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        q = _in_jax_layout(lambda t: quantize_grad(t, ctx.cfg, ctx.key),
-                           g, ctx.cfg, ctx.nchw)
-        return q.to(g.dtype), None, None, None
+        q = _in_jax_layout(
+            lambda t: quantize_grad(t, ctx.cfg, ctx.key, ctx.shard),
+            g, ctx.cfg, ctx.nchw)
+        return q.to(g.dtype), None, None, None, None
 
 
 def grad_cast(x: torch.Tensor, cfg: Optional[TensorQuantConfig],
-              key: Optional[PRNGKey], nchw: bool = True) -> torch.Tensor:
-    return _GradCast.apply(x, cfg, key, nchw)
+              key: Optional[PRNGKey], nchw: bool = True,
+              shard=None) -> torch.Tensor:
+    return _GradCast.apply(x, cfg, key, nchw, shard)
 
 
 def _is_float(x) -> bool:
@@ -122,6 +124,7 @@ def make_quant_interceptor(
     stats_sink: Optional[Dict[str, Dict[str, Any]]] = None,
     classify: Callable[[Any], LayerKind] = classify_module,
     per_channel_stats: bool = False,
+    shard=None,
 ):
     """Build an interceptor applying ``policy``.
 
@@ -129,6 +132,11 @@ def make_quant_interceptor(
     ``stats_sink`` if given, per-module activation min/max/absmax are
                    recorded into it (the calibration sweep).
     ``per_channel_stats`` also records per-channel min/max/absmax.
+    ``shard``      a ``parallel.data.BatchShard``: the model runs on one
+                   rank's rows of a data-parallel batch, and every
+                   activation and gradient cast is the rank's share of the
+                   global batch's (scales and SR bits); every activation
+                   the casts see must lead with the batch dimension.
     """
 
     def interceptor(next_fun, args, kwargs, context):
@@ -149,7 +157,8 @@ def make_quant_interceptor(
 
         def cast(a, tcfg, tag):
             return _in_jax_layout(
-                lambda t: fake_quant(t, tcfg, mod_key(tag)), a, tcfg, nchw)
+                lambda t: fake_quant(t, tcfg, mod_key(tag), shard), a, tcfg,
+                nchw)
 
         if stats_sink is not None:
             rec = stats_sink.setdefault(path, {"kind": kind.value})
@@ -198,21 +207,23 @@ def make_quant_interceptor(
                 args = _map_float_args(lambda a: cast(a, cfg.iact, 1), args)
         if cfg is not None and cfg.igrad is not None:
             args = _map_float_args(
-                lambda a: grad_cast(a, cfg.igrad, mod_key(2), nchw), args)
+                lambda a: grad_cast(a, cfg.igrad, mod_key(2), nchw, shard),
+                args)
 
         if patched_conv:
             from .hw_patch import engine_conv
             out = engine_conv(args[0], module.weight,
                               module.bias if module.use_bias else None,
                               module.strides, module.padding, cfg,
-                              mod_key(5))
+                              mod_key(5), shard)
         elif patched:
             from .hw_patch import engine_matmul
             if len(args) == 3:          # AddMatmul(inp, a, b)
                 out = args[0] + engine_matmul(args[1], args[2], cfg,
-                                              mod_key(5))
+                                              mod_key(5), shard)
             else:                       # Matmul / BatchMatmul (a, b)
-                out = engine_matmul(args[0], args[1], cfg, mod_key(5))
+                out = engine_matmul(args[0], args[1], cfg, mod_key(5),
+                                    shard)
         else:
             out = next_fun(*args, **kwargs)
 
@@ -225,7 +236,7 @@ def make_quant_interceptor(
 
         if cfg is not None and _is_float(out):
             if cfg.ograd is not None:
-                out = grad_cast(out, cfg.ograd, mod_key(3), nchw)
+                out = grad_cast(out, cfg.ograd, mod_key(3), nchw, shard)
             if cfg.oact is not None:
                 out = cast(out, cfg.oact, 4)
         return out

@@ -141,14 +141,18 @@ class MPTEmulator:
             self, policy=self.policy.with_exempt(*patterns))
 
     def apply_quantized(self, params: Params, *args,
-                        key: Optional[PRNGKey] = None, **kwargs):
+                        key: Optional[PRNGKey] = None, shard=None,
+                        **kwargs):
         """Forward with weight, activation and gradient-stream casts; the
-        gradient reaches ``params`` straight through the weight casts."""
+        gradient reaches ``params`` straight through the weight casts.
+        ``shard``: the arguments are a rank's rows of a data-parallel batch
+        (``make_quant_interceptor``)."""
         params = quantize_params(
             params, self.policy, self.module_table,
             prng.fold_in(key, 1) if key is not None else None)
         with linen.intercept_methods(
-                make_quant_interceptor(self.policy, key=key), self.model):
+                make_quant_interceptor(self.policy, key=key, shard=shard),
+                self.model):
             return functional_call(self.model, params, args, kwargs)
 
     def quantize_grads(self, grads: Params, key: PRNGKey) -> Params:
@@ -212,22 +216,33 @@ def init_train_state(optimizer: torch.optim.Optimizer,
 
 def step_grads(emulator: MPTEmulator, loss_fn: Callable[..., torch.Tensor],
                params: Params, batch, key: PRNGKey,
-               scale: Optional[float] = None):
+               scale: Optional[float] = None, shard=None):
     """The gradient half of a train step with ``key``: ``(loss, grads)`` of
     ``loss_fn`` through the quantized forward, the loss multiplied by
-    ``scale`` for the backward, the wtgrad casts, then both unscaled."""
+    ``scale`` for the backward, the wtgrad casts, then both unscaled.
+
+    With ``shard`` (a ``parallel.data.BatchShard``) ``batch`` is this
+    rank's rows of the global batch, and ``loss_fn`` must return the rank's
+    share of the global loss (its rows' sum over the global count): the
+    activation and gradient casts take the global batch's scales and SR
+    bits, the raw gradients and the loss are summed over the shard's group,
+    and only then do the wtgrad casts run, so every rank holds the global
+    step's gradients."""
     kf, kg, _ = prng.split(key, 3)
     names = list(params)
     loss = loss_fn(lambda v, *a, **kw: emulator.apply_quantized(
-        v, *a, key=kf, **kw), params, batch)
+        v, *a, key=kf, shard=shard, **kw), params, batch)
     if scale is not None:
         loss = loss * scale
     grads = torch.autograd.grad(loss, [params[n] for n in names],
                                 allow_unused=True)
-    grads = emulator.quantize_grads(
-        {n: torch.zeros_like(params[n]) if g is None else g
-         for n, g in zip(names, grads)}, kg)
+    grads = {n: torch.zeros_like(params[n]) if g is None else g
+             for n, g in zip(names, grads)}
     loss = loss.detach()
+    if shard is not None:
+        grads = shard.sum_grads(grads)
+        loss = shard.sum(loss)
+    grads = emulator.quantize_grads(grads, kg)
     if scale is not None:
         loss = loss / scale
         grads = {n: (g / torch.full_like(g, scale)).to(g.dtype)
@@ -242,6 +257,7 @@ def make_train_step(
     growth_interval: int = 2000,
     max_scale: float = 2.0 ** 24,
     min_scale: float = 1.0,
+    shard=None,
 ):
     """A train step running the whole MPT pipeline.
 
@@ -255,7 +271,11 @@ def make_train_step(
     the cast gradient streams see values above their flush thresholds;
     gradients are unscaled after the wtgrad casts.  On a non-finite
     gradient the step is a true skip: parameters, optimizer moments and
-    step count stay as they were, and the scale halves."""
+    step count stay as they were, and the scale halves.
+
+    ``shard``: data parallelism as the global step (:func:`step_grads`);
+    every rank then holds the same gradients, so the finite check, the
+    update and the loss scale agree on all ranks."""
     use_scale = loss_scale is not None
 
     def step(params: Params, opt_state, batch, key: PRNGKey):
@@ -269,7 +289,7 @@ def make_train_step(
                 f"opt_state; pass the same loss_scale to both")
         optimizer, ls = opt_state if use_scale else (opt_state, None)
         loss, grads = step_grads(emulator, loss_fn, params, batch, key,
-                                 None if ls is None else ls.scale)
+                                 None if ls is None else ls.scale, shard)
         # The one host read of the step: torch.optim updates its moments
         # and step count in place, so whether the update happens at all
         # must be known before optimizer.step() runs.

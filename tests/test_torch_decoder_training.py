@@ -410,11 +410,11 @@ def test_first_step_forced_against_jax(case):
 
 PLANTED = {
     "gradient-casts-dropped": (interceptor_mod, "grad_cast",
-                               lambda x, cfg, key, nchw=True: x),
+                               lambda x, cfg, key, nchw=True, shard=None: x),
     "wtgrad-casts-dropped": (tmpt, "quantize_wtgrads",
                              lambda grads, *a: grads),
     "engine-uncast": (hw_patch, "patched_matmul",
-                      lambda a, b, cfg, seed=0: a @ b),
+                      lambda a, b, cfg, seed=0, shard=None: a @ b),
     "bmm-cotangent-as-nchw": (
         interceptor_mod, "_in_jax_layout",
         lambda fn, a, cfg, nchw=True, _f=interceptor_mod._in_jax_layout:

@@ -219,7 +219,12 @@ def test_train_fp8_checkpoint_restores_the_state(opt8, tmp_path,
 
 
 def test_train_fp8_flags_without_a_port_raise():
-    with pytest.raises(NotImplementedError, match="item 6"):
+    """Tensor parallelism inside the models is not ported (ROADMAP §1 item
+    7); data parallelism is, and needs a world of its size (one process
+    here: tests/test_torch_parallel_dp.py runs it)."""
+    with pytest.raises(NotImplementedError, match="item 7"):
+        train_fp8.main(TRAIN + CPU + ["--model-parallel", "2"])
+    with pytest.raises(ValueError, match="nproc-per-node 2"):
         train_fp8.main(TRAIN + CPU + ["--data-parallel", "2"])
 
 

@@ -95,9 +95,7 @@ def test_moe_ffn_matches_jax(rng, capacity_factor):
     jy = np.asarray(jy)
     assert np.abs(ty.numpy() - jy).max() <= 1e-5 * np.abs(jy).max()
     np.testing.assert_allclose(float(ta), float(ja), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tmoe.moe_ffn(torch.from_numpy(x), torch.from_numpy(gate), *t_up,
-                     *t_down, mesh=object())
+    # over a mesh (expert parallelism): tests/test_torch_parallel.py
 
 
 # -- the decoder's MoEMLP ---------------------------------------------------------

@@ -51,14 +51,7 @@ NOT_YET_PORTED = {
     "quant": set(),
     "utils": set(),
     "data": set(),
-    # §1 item 10, slice 4: parallel/ (the MoE layer is ported, meshless)
-    "parallel": {
-        "DECODER_PARAM_RULES", "KV_CACHE_SPEC", "KV_SCALE_SPEC",
-        "MOE_PARAM_RULES", "SERVE_PARAM_RULES", "batch_sharding",
-        "make_mesh", "make_pp_mesh", "pipeline_apply", "replicated",
-        "shard_params", "shard_tree", "stack_stage_params",
-        "stage_param_sharding", "wire_all_reduce", "wire_all_reduce_tree",
-        "wire_bytes_per_element"},
+    "parallel": set(),
 }
 
 

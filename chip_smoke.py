@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--phases build,k1,k2,k3,k4,k5,k6,t1,t2,p3,main,
                                     train,train_lm,serve,serve_paged,spec,
                                     moe,flush,time,w8a8,deploy,sparse,
-                                    vision,bert,examples,parallel]
+                                    vision,bert,examples,parallel,tp]
     python3 chip_smoke.py --phases build,k2_probe   # not in the default run
     python3 chip_smoke.py --phases build,w8a8_probe # nor these six
     python3 chip_smoke.py --phases build,w8a8k
@@ -373,6 +373,27 @@ Phases, each printing its own lines; any failure exits non-zero:
           and gradients bit-equal to the plain composition and to
           mesh=None; then K3 at the TP shapes: kernel, plain, bound,
           PyTorch call.
+18. tp    tensor parallelism inside the decoder over NCCL in a world of
+          one, at bench.py's CFG width (16 layers, d_model 4096, 32 / 8
+          heads, d_ff 11008, vocabulary 32768): (a) quantized_apply(mesh=)
+          of the emulation Decoder's TP form (e4m3 PTQ, bf16, 2.95 B
+          parameters from a seed, 4 x 128 tokens) on a data 1 x model 1
+          mesh, its K1 launches counted with no plain cast, its weights
+          bit-equal to the unsharded quantize_params, its logits within
+          2e-3 of max|logit| of the unsharded forward, K1 at the path's
+          largest shape (the embedding's per-row cast) bit for bit against
+          the plain version (on the card; its first 2048 rows on the CPU),
+          both forwards' wall and device ms; (b) the ring engine behind an
+          EngineServer and the self-draft paged engine (K4's page walk)
+          over the mesh, tokens equal to the unsharded engines', one
+          sharded decode step's K3 launches within K3's bounds
+          (gemm_tolerance, stream_reference), its K6 ring write bit-equal
+          to ring_store_plain, one paged step's K4 launches within
+          k4_reference's, a decode step's wall and device ms beside the
+          unsharded one's; (c) K3 at the model-4 and model-8 shard shapes
+          of q / gate (column, bf16 out) and o / down (row, f32 out) and
+          K4 on KV / 4 and KV / 8 heads, against their plain versions and
+          timed beside the unsharded launches.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Details go to the JSON
@@ -6574,8 +6595,8 @@ class _ForcedLayers:
     def __enter__(self):
         self.orig = self.smodel._ffn_block
 
-        def shim(h, xs, mcfg, linear):
-            out = self.orig(h, xs, mcfg, linear)
+        def shim(h, xs, mcfg, linear, tp=None):
+            out = self.orig(h, xs, mcfg, linear, tp)
             self.outs.append(out.clone())
             return out if self.given is None else \
                 self.given[len(self.outs) - 1]
@@ -9626,7 +9647,7 @@ def k3_bound(m, k, n, out_bytes):
                                  else "bytes")
 
 
-def tp_k3_row(label, x, w8, s, out_dtype, launches, err):
+def tp_k3_row(label, x, w8, s, out_dtype, launches, err, phase="parallel"):
     """K3 at one TP shape: kernel (CUDA-graph replay), plain version, bound,
     and torch.matmul on the payload converted to bf16 times the scale."""
     import torch
@@ -9640,7 +9661,7 @@ def tp_k3_row(label, x, w8, s, out_dtype, launches, err):
     t_l = device_ms(lambda: (torch.matmul(x, w8.to(torch.bfloat16))
                              * s).to(out_dtype))
     b, by = k3_bound(m, k, n, torch.empty((), dtype=out_dtype).element_size())
-    print(f"parallel: K3 {label} {m}x{k}x{n} -> {out_dtype}: kernel "
+    print(f"{phase}: K3 {label} {m}x{k}x{n} -> {out_dtype}: kernel "
           f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {b:.4f} ms ({by}), "
           f"(x @ w8.to(bf16)) * s {t_l:.4f} ms; launches on the path "
           f"{launches}, max |kernel - plain| {err:.3e}")
@@ -10020,13 +10041,578 @@ def phase_parallel(record):
     return rows
 
 
+# -- phase tp: tensor parallelism inside the decoder, a world of one ----------
+
+TP_PTQ_TOKENS = (4, 128)       # 7a's batch: 4 sequences of 128 tokens
+TP_LOGIT_TOL = 2e-3            # 7a against the unsharded forward, of max|logit|
+TP_REQUESTS, TP_NEW = 8, 16    # 7b: requests through each engine, new tokens
+TP_SPLITS = (4, 8)             # model axes whose shard shapes (c) runs
+TP_M = SERVE_SLOTS             # rows of (c)'s K3 launches: a decode step
+TP_K4_POS = 444                # (c)'s K4 context (SPEC_POS)
+
+
+def tp_config():
+    """bench.py's CFG: the serve cell's widths (16 layers, d_model 4096,
+    32 / 8 heads, d_ff 11008, vocabulary 32768); the emulation Decoder of
+    7a in bf16 has about 2.95 B parameters."""
+    return serve_config()
+
+
+def _tp_requests():
+    import dataclasses
+    return [dataclasses.replace(r, max_new_tokens=TP_NEW)
+            for r in serve_requests(21, TP_REQUESTS, tp_config().vocab_size)]
+
+
+def tp_ptq(out, problems, mesh):
+    """7a: the TP quantized_apply (e4m3 PTQ) on a data 1 x model 1 mesh
+    against the unsharded one: weights bit for bit, logits within
+    TP_LOGIT_TOL; K1's launches on the path counted, and K1 at the path's
+    largest shape (the embedding's per-row cast) against its plain
+    version.  Returns the K1 row of the kernels record."""
+    import torch
+    from fp8tpu_torch.kernels import cast_kernel
+    from fp8tpu_torch.models.transformer import Decoder, decoder
+    from fp8tpu_torch.numerics import cast as cast_mod
+    from fp8tpu_torch.numerics.formats import RoundMode
+    from fp8tpu_torch.numerics.scaling import per_channel
+    from fp8tpu_torch.parallel import DECODER_PARAM_RULES, local_shards
+    from fp8tpu_torch.quant import interceptor as icp
+    from fp8tpu_torch.quant.policy import e4m3_inference_policy
+    from fp8tpu_torch.tools import device_ms
+    cfg = tp_config()
+    pol = e4m3_inference_policy()
+    gen = torch.Generator("cuda").manual_seed(21)
+    t0 = time.perf_counter()
+    full = decoder(cfg, "cuda", gen)
+    sd = {k: v.detach() for k, v in full.state_dict().items()}
+    n_params = sum(v.numel() for v in sd.values())
+    table = icp.build_module_table(full)
+    with torch.device("meta"):
+        tpm = Decoder(cfg, mesh=mesh)
+    local = local_shards(sd, mesh, DECODER_PARAM_RULES, table)
+    shards = icp.weight_shards(tpm, mesh)
+    b, s = TP_PTQ_TOKENS
+    toks = torch.randint(0, cfg.vocab_size, (b, s), device="cuda",
+                         generator=gen)
+    torch.cuda.synchronize()
+    made = time.perf_counter() - t0
+
+    # the main path: counts from 0, no plain cast allowed
+    cast_kernel.reset_launches()
+    with torch.no_grad(), _Counting(cast_mod, "qdq_plain", forbid=True):
+        t = time.perf_counter()
+        got = icp.quantized_apply(tpm, pol, toks, params=local, mesh=mesh)
+        torch.cuda.synchronize()
+        tp_s = time.perf_counter() - t
+    k1 = cast_kernel.launches
+    with torch.no_grad():
+        t = time.perf_counter()
+        want = icp.quantized_apply(full, pol, toks, params=sd)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t
+        rel = float((got - want).abs().max() / want.abs().max())
+        differ = int((got != want).sum())
+        # the weights, one at a time: the TP casts (shards and their
+        # groups) against the unsharded quantize_params
+        wbad = 0
+        for name, tensor in local.items():
+            a = icp.quantize_params({name: tensor}, pol, table, None, shards)
+            w = icp.quantize_params({name: sd[name]}, pol, table)
+            wbad += bytes_differ(a[name], w[name])
+            del a, w
+    # wall (a warm call) and device ms of both forwards
+    with torch.no_grad():
+        prof, wall = {}, {}
+        for label, fn in (("tp", lambda: icp.quantized_apply(
+                tpm, pol, toks, params=local, mesh=mesh)),
+                          ("unsharded", lambda: icp.quantized_apply(
+                              full, pol, toks, params=sd))):
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall[label] = (time.perf_counter() - t) * 1e3
+            p = open_profile(fn)
+            prof[label] = sum(
+                (getattr(e, "device_time", None) or e.cuda_time) / 1e3
+                for e in p.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and LEAD_KERNEL not in e.name)
+    print(f"tp (a): the e4m3 PTQ forward of the emulation Decoder ({n_params / 1e9:.3f} B "
+          f"parameters from a seed, made in {made:.1f} s; {b} x {s} tokens) "
+          f"on a data 1 x model 1 mesh: K1 launches {k1} (weights and "
+          f"activations), no plain cast; weights against the unsharded "
+          f"quantize_params: {wbad} bytes differ (0 required); logits "
+          f"against the unsharded forward {rel:.3e} of max|logit| (limit "
+          f"{TP_LOGIT_TOL}), {differ} of {got.numel()} differ; wall "
+          f"{tp_s * 1e3:.1f} ms (first call) against {plain_s * 1e3:.1f} ms, "
+          f"warm {wall['tp']:.1f} ms against {wall['unsharded']:.1f} ms, "
+          f"device {prof['tp']:.2f} ms against {prof['unsharded']:.2f} ms")
+    if wbad or not rel <= TP_LOGIT_TOL or not bool(torch.isfinite(got).all()):
+        problems.append(f"the TP PTQ forward: {wbad} weight bytes, logits "
+                        f"{rel} of max")
+    if k1 == 0:
+        problems.append("the TP PTQ forward launched no K1")
+
+    # K1 at the path's largest shape: the embedding's per-row e4m3 cast,
+    # against the plain version on the card, and its first 2048 rows on the
+    # CPU, which decides
+    emb = sd["embed.embedding"]
+    sc = per_channel(emb, "e4m3", "max", 0)
+    k_out = cast_kernel.cuda_qdq(emb, "e4m3", RoundMode.RNE, sc)
+    p_out = cast_mod.qdq_plain(emb, "e4m3", RoundMode.RNE, sc)
+    bad = bits_equal(k_out, p_out)
+    rows = slice(0, 2048)
+    cpu = cast_mod.qdq_plain(emb[rows].cpu(), "e4m3", RoundMode.RNE,
+                             sc[rows].cpu())
+    bad_cpu = bits_equal(k_out[rows].cpu(), cpu)
+    err = float((k_out - p_out).abs().max())
+    t_k = device_ms(lambda: cast_kernel.cuda_qdq(emb, "e4m3", RoundMode.RNE,
+                                                 sc), iters=4, replays=3)
+    t_p = cuda_ms(lambda: cast_mod.qdq_plain(emb, "e4m3", RoundMode.RNE, sc),
+                  iters=2, warmup=1)
+    bound = (8.0 * emb.numel() + 4.0 * sc.numel()) / HBM_BYTES_PER_S * 1e3
+    print(f"tp (a): K1 at the path's largest shape {tuple(emb.shape)} "
+          f"(e4m3, per-row scales): {bad} elements differ from the plain "
+          f"version on the card, {bad_cpu} of its first 2048 rows from the "
+          f"plain version on the CPU (0 required); kernel {t_k:.4f} ms, "
+          f"plain {t_p:.4f} ms, bound {bound:.4f} ms (bytes), no PyTorch "
+          f"call computes this cast")
+    if bad or bad_cpu:
+        problems.append(f"K1 at the embedding: {bad} / {bad_cpu} elements")
+    out["ptq"] = {"parameters": n_params, "k1_launches": k1,
+                  "weight_bytes_differ": wbad, "logit_rel": rel,
+                  "logits_differ": differ, "wall_ms": tp_s * 1e3,
+                  "wall_ms_unsharded": plain_s * 1e3,
+                  "warm_wall_ms": wall["tp"],
+                  "warm_wall_ms_unsharded": wall["unsharded"],
+                  "device_ms": prof["tp"],
+                  "device_ms_unsharded": prof["unsharded"],
+                  "k1_largest": {"shape": list(emb.shape), "bad": bad,
+                                 "bad_cpu": bad_cpu, "ms": t_k,
+                                 "plain_ms": t_p, "bound_ms": bound}}
+    del full, sd, local, tpm, got, want, emb, sc, k_out, p_out
+    torch.cuda.empty_cache()
+    return {"name": "cast_kernel (TP PTQ forward, embedding 32768 x 4096 "
+                    "per-row e4m3)",
+            "route": "cuda",
+            "source": "fp8tpu_torch/kernels/csrc/cast_kernel.cu",
+            "replaces": "fp8tpu/kernels/cast_kernel.py:45",
+            "launches": k1, "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": None}
+
+
+def _tp_engine(params, scfg, mesh, spec=False, server=False):
+    """Answer _tp_requests() through a ServingEngine (self-draft paged with
+    spec, the ring otherwise), over ``mesh`` or unsharded, behind an
+    EngineServer with ``server``: ({uid: tokens}, seconds, the engine)."""
+    from fp8tpu_torch.serve import EngineServer, ServingEngine
+    kw = dict(use_paged=True, page_size=PAGE, draft_params=params,
+              draft_cfg=scfg, k_spec=3) if spec else {}
+    eng = ServingEngine(params, scfg, n_slots=SERVE_SLOTS, max_seq=SERVE_SEQ,
+                        chunk_size=16, mesh=mesh, **kw)
+    t0 = time.perf_counter()
+    if not server:
+        return eng.run(_tp_requests()), time.perf_counter() - t0, eng
+    srv = EngineServer(eng).start()
+    try:
+        futs = {r.uid: srv.submit(r) for r in _tp_requests()}
+        res = {uid: f.result(timeout=600) for uid, f in futs.items()}
+    finally:
+        srv.stop()
+    return res, time.perf_counter() - t0, eng
+
+
+def _tp_held_k3(calls, sms):
+    """Every recorded K3 launch against its plain version (gemm_tolerance)
+    and the f64 product over the loop's promoted chunks
+    (stream_reference): (launches, worst err / bound, max |err|)."""
+    import torch
+    from fp8tpu_torch.kernels import qmatmul
+    worst, err = 0.0, 0.0
+    for a, kw, got in calls:
+        x, w8, s, od = a
+        m, k = x.shape
+        n = w8.shape[1]
+        want = qmatmul.dequant_matmul_plain(x, w8, s, od)
+        col = s.reshape(1, -1)
+        tol = gemm_tolerance(x, w8.float().abs(), col, want, od)
+        d = (got.float() - want.float()).abs()
+        worst = max(worst, float((d / tol).max()))
+        err = max(err, float(d.max()))
+        plan = qmatmul.weight_gemm_plan(m, n, k, sms, "w8", x, w8)
+        if plan.route != "general":
+            exact, allowed = stream_reference(x, w8.float(), col, plan.kper,
+                                              od)
+            worst = max(worst, k2_ratio(got, exact, allowed))
+    return len(calls), worst, err
+
+
+def tp_serve(out, problems, mesh):
+    """7b: the ring engine behind an EngineServer and the self-draft paged
+    engine (K4's page walk) over the mesh against the unsharded engines;
+    one sharded decode step's K3 and K6 launches (ring) and K4 launches
+    (paged) against their plain versions; a sharded decode step's wall and
+    device ms beside the unsharded one's.  Returns the path's launches."""
+    import dataclasses
+    import torch
+    from fp8tpu_torch.kernels import inplace, qmatmul
+    from fp8tpu_torch.kernels import paged_attention as k4
+    from fp8tpu_torch.serve import (PagedKVCache, RingKVCache, ServeConfig,
+                                    decode_step, decode_step_paged,
+                                    decode_steps, prefill_batch,
+                                    prefill_batch_paged, random_serve_params,
+                                    shard_serve_params)
+    from fp8tpu_torch.serve.model import local_heads
+    cfg = tp_config()
+    L = cfg.n_layers
+    scfg = ServeConfig(model=cfg, weight_fmt="e4m3", kv_fmt="int8")
+    kcfg = dataclasses.replace(scfg, paged_decode_impl="kernel")
+    params = STATE.get("e4m3") or random_serve_params(cfg, "e4m3", seed=0)
+    sp = shard_serve_params(params, scfg, mesh)
+
+    # the main path: counts from 0, no plain version allowed
+    for mod in (qmatmul, inplace, k4):
+        mod.reset_launches()
+    forbid = [_Counting(qmatmul, "dequant_matmul_plain", forbid=True),
+              _Counting(inplace, "ring_store_plain", forbid=True),
+              _Counting(k4, "paged_decode_attention_plain", forbid=True)]
+    for c in forbid:
+        c.__enter__()
+    try:
+        ring_tp, ring_s, _ = _tp_engine(sp, scfg, mesh, server=True)
+        spec_tp, spec_s, eng = _tp_engine(sp, kcfg, mesh, spec=True)
+        torch.cuda.synchronize()
+    finally:
+        for c in forbid:
+            c.__exit__()
+    launches = {"dequant_matmul": qmatmul.dequant_launches,
+                "ring_store": inplace.routes["ring_store"],
+                "paged_decode_attention": k4.launches}
+    acc, drafted = eng.spec_accepted, eng.spec_drafted
+    ring_ref, ring_rs, _ = _tp_engine(params, scfg, None, server=True)
+    spec_ref, spec_rs, ref_eng = _tp_engine(params, kcfg, None, spec=True)
+    # warm runs of the sharded engines, for their seconds
+    _, ring_s, _ = _tp_engine(sp, scfg, mesh, server=True)
+    _, spec_s, _ = _tp_engine(sp, kcfg, mesh, spec=True)
+    ok_ring, ok_spec = ring_tp == ring_ref, spec_tp == spec_ref
+    print(f"tp (b): {TP_REQUESTS} requests x {TP_NEW} tokens through the "
+          f"ring engine behind an EngineServer over the mesh: tokens "
+          f"{'equal to' if ok_ring else 'NOT equal to'} the unsharded "
+          f"engine's ({ring_s:.2f} s against {ring_rs:.2f} s, each after a "
+          f"run of its own); the "
+          f"self-draft paged engine (K4, k_spec 3) over the mesh: tokens "
+          f"{'equal to' if ok_spec else 'NOT equal to'} the unsharded "
+          f"one's, {acc} of {drafted} drafts accepted (unsharded "
+          f"{ref_eng.spec_accepted} of {ref_eng.spec_drafted}) "
+          f"({spec_s:.2f} s against {spec_rs:.2f} s); launches {launches}, "
+          f"no plain version called")
+    if not (ok_ring and ok_spec):
+        problems.append("a sharded engine's tokens differ from the "
+                        "unsharded engine's")
+    if (acc, drafted) != (ref_eng.spec_accepted, ref_eng.spec_drafted):
+        problems.append("the sharded self-draft's acceptance differs")
+    if not all(launches.values()):
+        problems.append(f"a kernel of the serving path never launched: "
+                        f"{launches}")
+
+    # one sharded decode step, each launch held against its plain version
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    B, kvl = SERVE_SLOTS, local_heads(sp, cfg)[1]
+    prompts = torch.randint(1, cfg.vocab_size, (B, 32), device="cuda",
+                            generator=gen, dtype=torch.int32)
+    lengths = torch.randint(8, 33, (B,), device="cuda", generator=gen,
+                            dtype=torch.int32)
+    slots = torch.arange(B, device="cuda", dtype=torch.int32)
+    zeros_f = torch.zeros(B, device="cuda")
+    zeros_i = torch.zeros(B, device="cuda", dtype=torch.int32)
+    ring = RingKVCache.create(L, B, SERVE_SEQ, kvl, cfg.head_dim, "int8")
+    _, ring, toks, pos = prefill_batch(sp, ring, prompts, slots, lengths,
+                                       None, zeros_f, None, None, zeros_i,
+                                       zeros_i, scfg)
+    before = RingKVCache(ring.kv8.clone(), ring.sc.clone(), ring.head.clone())
+    with _Recording(qmatmul, "dequant_matmul") as rk3, \
+            _Recording(inplace, "ring_store") as rk6:
+        decode_step(sp, ring, toks, pos, scfg)
+        torch.cuda.synchronize()
+    n3, worst3, err3 = _tp_held_k3(rk3.calls, qmatmul.sm_count(0))
+    (_, slab8, _, slabs, _, S, _), kw6, _ = rk6.calls[0]
+    inplace.ring_store_plain(before.kv8, slab8, before.sc, slabs,
+                             before.head, S, rows=kw6.get("rows", 1))
+    bad6 = (bytes_differ(ring.kv8, before.kv8)
+            + bytes_differ(ring.sc, before.sc)
+            + int(int(ring.head) != int(before.head)))
+    MP = SERVE_SEQ // PAGE
+    paged = PagedKVCache.create(B * MP, PAGE, L, B, MP, kvl, cfg.head_dim,
+                                "int8")
+    paged.page_table = torch.arange(B * MP, device="cuda", dtype=torch.int32
+                                    ).reshape(B, MP)
+    _, paged, ptoks, ppos = prefill_batch_paged(
+        sp, paged, prompts, slots, lengths, None, zeros_f, None, None,
+        zeros_i, zeros_i, kcfg)
+    checks = []
+    with _CheckedK4(checks):
+        decode_step_paged(sp, paged, ptoks, ppos, kcfg)
+        torch.cuda.synchronize()
+    bad4 = sum(not c["ok"] for c in checks)
+    worst4 = max(c["err_over_bound"] for c in checks)
+    print(f"tp (b): one sharded ring decode step: {n3} K3 launches ({7 * L} "
+          f"required: 5 column-parallel and 2 row-parallel with f32 output "
+          f"a layer), worst err / K3's bound {worst3:.3e} (<= 1 required); "
+          f"the K6 ring write against ring_store_plain: {bad6} bytes differ "
+          f"(0 required); one sharded paged step: {len(checks)} K4 launches "
+          f"on {kvl} KV heads a slot, {bad4} outside k4_reference's bounds, "
+          f"worst acc err / bound {worst4:.3e}")
+    if n3 != 7 * L or worst3 > 1.0 or bad6 or bad4 or len(checks) != L:
+        problems.append(f"a sharded decode step's launches: K3 {n3} / "
+                        f"{worst3}, K6 {bad6}, K4 {len(checks)} / {bad4}")
+
+    # a decode step's wall and device ms, sharded and not (batch 8, chunks
+    # of one step from the prefilled ring)
+    steps = {}
+    temp = torch.zeros(B, device="cuda")
+    for label, prm in (("tp", sp), ("unsharded", params)):
+        r = RingKVCache(ring.kv8.clone(), ring.sc.clone(), ring.head.clone())
+
+        def one(prm=prm, r=r):
+            return decode_steps(prm, r, toks, pos, None, temp, 1, scfg,
+                                greedy_only=True)
+
+        one()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(8):
+            one()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) / 8 * 1e3
+        steps[label] = profile_decode_step(one, ms)
+    print(f"tp (b): a decode step at batch {B} (ring): sharded "
+          f"{steps['tp']['step_ms']:.2f} ms wall, "
+          f"{steps['tp']['device_ms']:.2f} ms of kernels in "
+          f"{steps['tp']['launches']} launches; unsharded "
+          f"{steps['unsharded']['step_ms']:.2f} ms wall, "
+          f"{steps['unsharded']['device_ms']:.2f} ms in "
+          f"{steps['unsharded']['launches']} launches")
+    out["serve"] = {"ring_equal": ok_ring, "spec_equal": ok_spec,
+                    "spec_accepted": acc, "spec_drafted": drafted,
+                    "seconds": [ring_s, ring_rs, spec_s, spec_rs],
+                    "launches": launches, "k3_step": [n3, worst3, err3],
+                    "k6_step_bytes": bad6, "k4_step": checks,
+                    "step": {k: {kk: v[kk] for kk in ("step_ms", "device_ms",
+                                                      "launches")}
+                             for k, v in steps.items()}}
+    del sp, ring, before, paged
+    torch.cuda.empty_cache()
+    return launches, err3, params
+
+
+def tp_shapes(out, problems, launches, params):
+    """(c) K3 at the shard shapes of a model-4 and a model-8 split of the
+    serve cell (column shards of q / gate / up, bf16 out; row shards of o /
+    down with f32 out and unit scales, as the row-parallel linear runs
+    them) and K4 on KV / T heads, each against its plain version and timed
+    by graph replay beside the unsharded launch.  Returns kernels rows."""
+    import torch
+    from fp8tpu_torch.kernels import paged_attention as k4
+    from fp8tpu_torch.kernels import qmatmul
+    from fp8tpu_torch.tools import device_ms
+    cfg = tp_config()
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    x_of = {}
+    rows, worst = [], 0.0
+    sms = qmatmul.sm_count(0)
+    cases = []
+    for T in (1,) + TP_SPLITS:
+        for key, kind in (("q8", "col"), ("gate8", "col"), ("o8", "row"),
+                          ("down8", "row")):
+            w = params[key][0]
+            k, n = w.shape
+            w = w[:, :n // T] if kind == "col" else w[:k // T]
+            w = w.contiguous()
+            cases.append((T, key, kind, w))
+    for T, key, kind, w in cases:
+        k, n = w.shape
+        if k not in x_of:
+            x_of[k] = torch.randn(TP_M, k, device="cuda", generator=gen
+                                  ).to(torch.bfloat16)
+        x = x_of[k]
+        if kind == "col":
+            s = params[key.replace("8", "s")][0][:n].contiguous()
+            od = torch.bfloat16
+        else:
+            s = torch.ones(n, device="cuda")
+            od = torch.float32
+        got = qmatmul.dequant_matmul(x, w, s, od)
+        n_, w_, e_ = _tp_held_k3([((x, w, s, od), {}, got)], sms)
+        worst = max(worst, w_)
+        label = (f"{'unsharded' if T == 1 else f'model {T}'} {kind} "
+                 f"{key[:-1]}")
+        rows.append(tp_k3_row(label, x, w, s, od,
+                              launches["dequant_matmul"], e_, "tp (c)"))
+    print(f"tp (c): K3 at {len(cases)} shapes (unsharded and the model 4 / "
+          f"8 shards of q, gate, o, down at M = {TP_M}): worst err / K3's "
+          f"bound {worst:.3e} (<= 1 required)")
+    if worst > 1.0:
+        problems.append(f"K3 at a shard shape: {worst} of its bound")
+    # K4 on KV / T heads: 8 slots at position TP_K4_POS, int8 pool
+    D, KV, G = cfg.head_dim, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    MP = SERVE_SEQ // PAGE
+    lens = torch.full((SERVE_SLOTS,), TP_K4_POS, device="cuda",
+                      dtype=torch.int32)
+    table = torch.arange(SERVE_SLOTS * MP, device="cuda", dtype=torch.int32
+                         ).reshape(SERVE_SLOTS, MP)
+    k4_rows = []
+    for T in (1,) + TP_SPLITS:
+        kv = KV // T
+        pool = torch.randint(-127, 128, (SERVE_SLOTS * MP, 2, 1, PAGE * kv,
+                                         D), device="cuda", generator=gen,
+                             dtype=torch.int8)
+        sc = torch.empty(pool.shape[:-1], device="cuda").uniform_(
+            0.004, 0.02, generator=gen)
+        q = (torch.randn(SERVE_SLOTS, kv * G, D, device="cuda", generator=gen)
+             * 0.7).to(torch.bfloat16)
+        args = (q, pool, sc, table, lens, 0)
+        kw = dict(page_size=PAGE, kv_heads=kv)
+        acc, m, l = k4.paged_decode_attention(*args, **kw)
+        acc_p, m_p, l_p = k4.paged_decode_attention_plain(*args, **kw)
+        _, _, _, m_tol, l_tol, acc_tol = k4_reference(*args, kv=kv,
+                                                      page=PAGE)
+        ok = bool(((m - m_p).abs() <= m_tol).all()
+                  and ((l - l_p).abs() <= l_tol).all()
+                  and ((acc - acc_p).abs() <= acc_tol).all())
+        err = float((acc - acc_p).abs().max())
+        t_k = device_ms(lambda: k4.paged_decode_attention(*args, **kw))
+        t_p = cuda_ms(lambda: k4.paged_decode_attention_plain(*args, **kw),
+                      iters=3, warmup=1)
+        tokens = int(lens.sum())
+        nbytes = (tokens * kv * (2 * D + 2 * 4) + table.numel() * 4
+                  + lens.numel() * 4 + q.numel() * 2
+                  + SERVE_SLOTS * kv * G * (D + 2) * 4)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2.0 * 2 * tokens * kv * G * D / F32_SIMT_FLOPS * 1e3
+        safe, Tt, B = table.long(), MP * PAGE, SERVE_SLOTS
+        mask = (torch.arange(Tt, device="cuda")[None] < lens[:, None]
+                )[:, None, :].repeat_interleave(kv, 0)
+
+        def library():
+            kk = pool[safe, 0, 0].to(torch.bfloat16).reshape(B, Tt, kv, D)
+            vv = pool[safe, 1, 0].to(torch.bfloat16).reshape(B, Tt, kv, D)
+            ks = sc[safe, 0, 0].reshape(B, Tt, kv).permute(0, 2, 1)
+            vs = sc[safe, 1, 0].reshape(B, Tt, kv).permute(0, 2, 1)
+            s_ = torch.bmm(q.reshape(B * kv, G, D),
+                           kk.permute(0, 2, 3, 1).reshape(B * kv, D, Tt),
+                           out_dtype=torch.float32) * ks.reshape(B * kv, 1,
+                                                                 Tt)
+            s_ = torch.where(mask, s_, -1e30)
+            mm = s_.amax(-1)
+            p = torch.exp(s_ - mm[..., None])
+            pv = (p * vs.reshape(B * kv, 1, Tt)).to(torch.bfloat16)
+            return torch.bmm(pv, vv.permute(0, 2, 1, 3).reshape(B * kv, Tt,
+                                                                D),
+                             out_dtype=torch.float32), mm, p.sum(-1)
+
+        t_l = device_ms(library)
+        label = "unsharded" if T == 1 else f"model {T}"
+        print(f"tp (c): K4 {label}: {kv} KV heads x {G} queries of {D}, "
+              f"{SERVE_SLOTS} slots x {TP_K4_POS} tokens (int8): within "
+              f"k4_reference's bounds {ok}, kernel {t_k:.5f} ms, plain "
+              f"{t_p:.4f} ms, bound {max(t_bytes, t_ops):.5f} ms, gather + "
+              f"upcast + torch.bmm {t_l:.5f} ms")
+        if not ok:
+            problems.append(f"K4 on {kv} KV heads outside its bounds")
+        k4_rows.append({
+            "name": f"paged_decode_attention (TP {label}, {kv} KV heads)",
+            "route": "cuda",
+            "source": "fp8tpu_torch/kernels/csrc/paged_attention.cu",
+            "replaces": "fp8tpu/kernels/paged_attention.py:55",
+            "launches": launches["paged_decode_attention"],
+            "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "library_ms": t_l})
+        del pool, sc, q
+    out["shapes"] = {"k3_worst_over_bound": worst,
+                     "k3": [{k: r[k] for k in ("name", "ms", "plain_ms",
+                                               "bound_ms", "library_ms")}
+                            for r in rows],
+                     "k4": [{k: r[k] for k in ("name", "ms", "plain_ms",
+                                               "bound_ms", "library_ms")}
+                            for r in k4_rows]}
+    return rows + k4_rows
+
+
+def tp_k6_row(launches, kv_heads):
+    """K6's ring write of a sharded decode step (8 slots, the rank's KV
+    heads, int8): kernel and plain timed, bytes bound."""
+    import torch
+    from fp8tpu_torch.kernels import inplace
+    from fp8tpu_torch.tools import device_ms
+    cfg = tp_config()
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    bk = SERVE_SLOTS * kv_heads
+    kv8 = torch.zeros((SERVE_SEQ, 2, cfg.n_layers, bk, cfg.head_dim),
+                      dtype=torch.int8, device="cuda")
+    sc = torch.ones(kv8.shape[:-1], device="cuda")
+    slab8 = torch.randint(-127, 128, kv8.shape[1:], device="cuda",
+                          generator=gen, dtype=torch.int8)
+    slabs = torch.rand(sc.shape[1:], device="cuda", generator=gen)
+    kv8_p, sc_p = kv8.clone(), sc.clone()
+    head = torch.tensor(7, device="cuda", dtype=torch.int32)
+    head_p = head.clone()
+    ticket = torch.zeros(1, device="cuda", dtype=torch.int32)
+    inplace.ring_store(kv8, slab8, sc, slabs, head, SERVE_SEQ, ticket)
+    inplace.ring_store_plain(kv8_p, slab8, sc_p, slabs, head_p, SERVE_SEQ)
+    err = max(float((kv8.short() - kv8_p.short()).abs().max()),
+              float((sc - sc_p).abs().max()), abs(int(head) - int(head_p)))
+    t_k = device_ms(lambda: inplace.ring_store(kv8, slab8, sc, slabs, head,
+                                               SERVE_SEQ, ticket))
+    t_p = device_ms(lambda: inplace.ring_store_plain(kv8_p, slab8, sc_p,
+                                                     slabs, head_p,
+                                                     SERVE_SEQ))
+    nbytes = slab8.numel() + 4 * slabs.numel()
+    b = 2.0 * nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"tp (b): K6 ring write of a sharded step ({kv_heads} KV heads a "
+          f"slot, {nbytes} bytes): kernel {t_k:.5f} ms, plain {t_p:.5f} ms, "
+          f"bound {b:.6f} ms (bytes), max |kernel - plain| {err}")
+    return {"name": f"ring_store (TP ring, {kv_heads} KV heads a slot)",
+            "route": "cuda", "source": "fp8tpu_torch/kernels/csrc/inplace.cu",
+            "replaces": "fp8tpu/kernels/inplace.py:27",
+            "launches": launches["ring_store"], "max_abs_err": err,
+            "ms": t_k, "plain_ms": t_p, "bound_ms": b, "bound_by": "bytes",
+            "library_ms": None}, err
+
+
+def phase_tp(record):
+    """Tensor parallelism inside the decoder over NCCL in a world of one:
+    7a's PTQ forward (K1), 7b's engines (K3, K4, K6), K3 and K4 at the
+    shard shapes.  Returns the kernels record's rows."""
+    import torch.distributed as dist
+    from fp8tpu_torch.parallel import init_world, make_mesh
+    init_world("cuda")
+    out, problems = {}, []
+    try:
+        mesh = make_mesh(data=1, model=1)
+        rows = [tp_ptq(out, problems, mesh)]
+        launches, _, params = tp_serve(out, problems, mesh)
+        k6, k6_err = tp_k6_row(launches, tp_config().n_kv_heads)
+        if k6_err:
+            problems.append("K6 at the TP ring differs from plain")
+        rows += tp_shapes(out, problems, launches, params) + [k6]
+    finally:
+        dist.destroy_process_group()
+    record["tp"] = out
+    if problems:
+        raise PhaseError("; ".join(problems))
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,k1,k2,k3,k4,k5,k6,t1,t2,p3,main,train,"
                             "train_lm,serve,serve_paged,spec,moe,flush,time,"
                             "w8a8,deploy,sparse,vision,bert,examples,"
-                            "parallel")
+                            "parallel,tp")
     ap.add_argument("--out", default="chip_smoke_out/chip_smoke.json")
     ap.add_argument("--package-tree", default=None,
                     help="import fp8tpu_torch from this tree (a git archive "
@@ -10135,6 +10721,8 @@ def main(argv=None) -> int:
                 phase_examples(record)
             elif phase == "parallel":
                 model_kernels += phase_parallel(record)
+            elif phase == "tp":
+                model_kernels += phase_tp(record)
             elif phase == "time":
                 if None in (launches, serve_launches, paged_launches,
                             train_launches):

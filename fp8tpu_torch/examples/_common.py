@@ -11,8 +11,8 @@ import torch
 from fp8tpu_torch._device import resolve_device
 
 # Where a flag of a JAX script waits for a part the port does not have.
-PARALLEL = ("tensor parallelism inside the models (ROADMAP §1 item 7); "
-            "data parallelism runs with --data-parallel")
+PARALLEL = ("tensor-parallel training (ROADMAP §1 item 7c); data "
+            "parallelism runs with --data-parallel")
 
 
 class Log:

@@ -131,7 +131,8 @@ def data_parallel(args, device):
     if args.n_experts:
         raise NotImplementedError(
             "--data-parallel with --n-experts: capacity routing over the "
-            "global batch needs " + PARALLEL)
+            "global batch needs the MoE decoder under MOE_PARAM_RULES "
+            "(ROADMAP §1 item 7d)")
     world = (dist.get_world_size() if dist.is_initialized()
              else int(os.environ.get("WORLD_SIZE", 1)))
     if world != n:

@@ -11,6 +11,22 @@ This is the emulation form (parameters in f32, computation in
 ``cfg.dtype``).  The serving form with real fp8 payloads and the
 hand-written kernels is :mod:`fp8tpu_torch.serve`.  With ``n_experts > 0``
 each layer's FFN is the mixture-of-experts :class:`MoEMLP`.
+
+``Decoder(cfg, mesh=)`` is the tensor-parallel form over the mesh's
+``model`` group (the global program GSPMD runs from
+``DECODER_PARAM_RULES`` in the JAX package, its collectives written
+out): each rank holds its shard of every parameter the rules split
+(``parallel.sharding.local_shards``), q / k / v, gate / up and an untied
+``lm_head`` are column-parallel (:class:`ColumnDense`), ``o_proj`` and
+``down_proj`` row-parallel (:class:`RowDense`, summed over the group),
+the embedding vocabulary-sharded (:class:`VocabEmbed`).  Attention runs
+on the rank's heads; where the group does not split whole KV heads, k / v
+are gathered first, and where it does not split whole query heads the
+attention runs whole on every rank.  A rule that ``_shrink_spec`` repairs
+to replication leaves that layer whole.  Modules carry the split of
+their operands for the quantization interceptor: ``tp_in`` / ``tp_out``,
+the dimension of the input / output split over the model group (None:
+replicated), and ``tp_weight``, the Flax-layout dimension of the weight.
 """
 
 from __future__ import annotations
@@ -20,12 +36,14 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from fp8tpu_torch._device import full_fp32, resolve_device
 from fp8tpu_torch.linen import Dense, Embed, Module, init_params, remat
 from fp8tpu_torch.ops.wrappers import BatchMatmul
+from fp8tpu_torch.parallel.mesh import gather_last
 from fp8tpu_torch.parallel.moe import top_k_routing
 
 from .resnet import variables_from_flax  # noqa: F401  (same leaf rules)
@@ -76,6 +94,145 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+# -- tensor parallelism over the mesh's model group -------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TPLayout:
+    """Which layers of a decoder the rules split over the model group of
+    ``mesh`` (from the full shapes, repaired as ``_shrink_spec`` repairs
+    them), the group and this rank's place in it."""
+
+    group: object
+    size: int
+    index: int
+    embed: bool        # vocabulary rows
+    q: bool            # q_proj's columns
+    kv: bool           # k_proj's / v_proj's columns
+    o: bool            # o_proj's rows
+    gate_up: bool      # gate_proj's / up_proj's columns
+    down: bool         # down_proj's rows
+    lm_head: bool      # an untied lm_head's columns
+
+    @classmethod
+    def of(cls, cfg: "DecoderConfig", mesh) -> "TPLayout":
+        from fp8tpu_torch.parallel.sharding import (DECODER_PARAM_RULES,
+                                                    split_dim)
+        if cfg.n_experts > 0:
+            raise NotImplementedError(
+                "the MoE decoder under a tensor-parallel mesh "
+                "(MOE_PARAM_RULES): ROADMAP §1 item 7d")
+        dm, hd, kvd = cfg.d_model, cfg.n_heads * cfg.head_dim, \
+            cfg.n_kv_heads * cfg.head_dim
+
+        def split(path, shape, dim):
+            return split_dim(path, shape, mesh, DECODER_PARAM_RULES) == dim
+
+        return cls(
+            mesh.group("model"), mesh.shape["model"], mesh.index("model"),
+            embed=split("embed/embedding", (cfg.vocab_size, dm), 0),
+            q=split("layer_0/attn/q_proj/kernel", (dm, hd), 1),
+            kv=split("layer_0/attn/k_proj/kernel", (dm, kvd), 1),
+            o=split("layer_0/attn/o_proj/kernel", (hd, dm), 0),
+            gate_up=split("layer_0/mlp/gate_proj/kernel", (dm, cfg.d_ff), 1),
+            down=split("layer_0/mlp/down_proj/kernel", (cfg.d_ff, dm), 0),
+            lm_head=split("lm_head/kernel", (dm, cfg.vocab_size), 1))
+
+    def block(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the last dimension of a replicated ``t``."""
+        n = t.shape[-1] // self.size
+        return t[..., self.index * n:(self.index + 1) * n]
+
+    def sum(self, t: torch.Tensor, dtype) -> torch.Tensor:
+        """The sum over the group of every rank's ``t`` in f32 (a
+        row-parallel product's f32 partials, or a lookup's one nonzero
+        addend), rounded once to ``dtype``."""
+        out = t.to(torch.float32)
+        dist.all_reduce(out, group=self.group)
+        return out.to(dtype)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        return gather_last(t, self.group)
+
+
+def _relayout(t: torch.Tensor, split: bool, want: bool,
+              tp: Optional[TPLayout]) -> torch.Tensor:
+    """A last dimension held split (``split``) or whole, as the consumer
+    wants it (``want``)."""
+    if split == want:
+        return t
+    return tp.gather(t) if split else tp.block(t)
+
+
+class ColumnDense(Dense):
+    """A column-parallel Dense: this rank's output columns, (out/T, in);
+    no collective (the output stays split)."""
+
+    tp_in, tp_out, tp_weight = None, -1, 1
+
+
+class RowDense(Dense):
+    """A row-parallel Dense: this rank's input rows, (out, in/T); the
+    partial products, each an f32 sum of exact products of the layer's
+    type, are summed over the model group in f32 and rounded once to the
+    layer's type (the unsharded product up to the f32 order), then the
+    bias is added once.  A group of one holds the whole product, computed
+    in the layer's type as the unsharded Dense computes it."""
+
+    tp_in, tp_out, tp_weight = -1, None, 0
+
+    def __init__(self, in_features: int, features: int, tp: TPLayout,
+                 use_bias: bool = True, dtype=None):
+        super().__init__(in_features, features, use_bias, dtype)
+        self.tp = tp
+
+    def forward(self, x):
+        w, b = self.weight, self.bias
+        dt = self.dtype or x.dtype
+        x, w = x.to(dt), w.to(dt)
+        if self.tp.size > 1:
+            x, w = x.to(torch.float32), w.to(torch.float32)
+        with full_fp32():
+            part = F.linear(x, w)
+        out = self.tp.sum(part, dt)
+        return out if b is None else out + b.to(out.dtype)
+
+
+class VocabEmbed(Embed):
+    """A vocabulary-sharded embedding: rows ``index * V/T ..`` of the
+    table.  A lookup takes the rank's rows (zero elsewhere) and sums over
+    the model group; ``attend`` (the tied LM head) gathers the rank's
+    vocabulary columns."""
+
+    tp_in, tp_out, tp_weight = None, None, 0
+
+    def __init__(self, num_embeddings: int, features: int, tp: TPLayout,
+                 dtype=None):
+        super().__init__(num_embeddings // tp.size, features, dtype)
+        self.tp = tp
+
+    def forward(self, tokens):
+        n = self.embedding.shape[0]
+        local = tokens - self.tp.index * n
+        mine = (local >= 0) & (local < n)
+        rows = self._table()[torch.where(mine, local, 0)]
+        rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+        return self.tp.sum(rows, rows.dtype)
+
+    def attend(self, query):
+        return self.tp.gather(super().attend(query))
+
+
+def _dense(tp: Optional[TPLayout], split: bool, kind: str, i: int, o: int,
+           dt):
+    """A Dense of (in ``i``, out ``o``), column- or row-parallel when
+    ``split``."""
+    if tp is None or not split:
+        return Dense(i, o, use_bias=False, dtype=dt)
+    if kind == "column":
+        return ColumnDense(i, o // tp.size, use_bias=False, dtype=dt)
+    return RowDense(i // tp.size, o, tp, use_bias=False, dtype=dt)
+
+
 class RMSNorm(Module):
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -88,26 +245,49 @@ class RMSNorm(Module):
 
 
 class Attention(Module):
-    def __init__(self, cfg: DecoderConfig):
+    def __init__(self, cfg: DecoderConfig, tp: Optional[TPLayout] = None):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.tp = cfg, tp
         dt = cfg.tdtype()
         H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        self.q_proj = Dense(cfg.d_model, H * D, use_bias=False, dtype=dt)
-        self.k_proj = Dense(cfg.d_model, KV * D, use_bias=False, dtype=dt)
-        self.v_proj = Dense(cfg.d_model, KV * D, use_bias=False, dtype=dt)
+        T = 1 if tp is None else tp.size
+        # the rank's query heads (all of them where the group does not
+        # split whole query heads); their KV heads are the rank's own where
+        # it splits whole KV heads, else gathered
+        self.heads_local = tp is not None and tp.q and H % T == 0
+        self.kv_local = self.heads_local and tp.kv and KV % T == 0
+        self.q_proj = _dense(tp, tp is not None and tp.q, "column",
+                             cfg.d_model, H * D, dt)
+        self.k_proj = _dense(tp, tp is not None and tp.kv, "column",
+                             cfg.d_model, KV * D, dt)
+        self.v_proj = _dense(tp, tp is not None and tp.kv, "column",
+                             cfg.d_model, KV * D, dt)
         self.attn_scores_matmul = BatchMatmul()
         self.attn_context_matmul = BatchMatmul()
-        self.o_proj = Dense(H * D, cfg.d_model, use_bias=False, dtype=dt)
+        for bmm in (self.attn_scores_matmul, self.attn_context_matmul):
+            bmm.tp_in = bmm.tp_out = 1 if self.heads_local else None
+        self.o_proj = _dense(tp, tp is not None and tp.o, "row",
+                             H * D, cfg.d_model, dt)
+
+    def _kv(self, t, S):
+        """k or v as (B, S, heads, D) for the rank's query heads (before
+        the GQA repeat where the KV heads are the rank's own)."""
+        cfg, tp = self.cfg, self.tp
+        B = t.shape[0]
+        if tp is not None and tp.kv and not self.kv_local:
+            t = tp.gather(t)
+        return t.reshape(B, S, -1, cfg.head_dim)
 
     def forward(self, x, positions, mask):
-        cfg = self.cfg
+        cfg, tp = self.cfg, self.tp
         dt = cfg.tdtype()
         B, S, _ = x.shape
         H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        q = self.q_proj(x).reshape(B, S, H, D)
-        k = self.k_proj(x).reshape(B, S, KV, D)
-        v = self.v_proj(x).reshape(B, S, KV, D)
+        q = self.q_proj(x)
+        if tp is not None and tp.q and not self.heads_local:
+            q = tp.gather(q)
+        q = q.reshape(B, S, -1, D)
+        k, v = self._kv(self.k_proj(x), S), self._kv(self.v_proj(x), S)
 
         inv_freq = rope_freqs(cfg, x.device)
         q = apply_rope(q, positions, inv_freq)
@@ -115,6 +295,11 @@ class Attention(Module):
         if KV != H:
             k = k.repeat_interleave(H // KV, dim=2)
             v = v.repeat_interleave(H // KV, dim=2)
+        if self.heads_local and not self.kv_local:
+            n = H // tp.size
+            k = k[:, :, tp.index * n:(tp.index + 1) * n]
+            v = v[:, :, tp.index * n:(tp.index + 1) * n]
+        H = q.shape[2]
 
         qh = q.permute(0, 2, 1, 3)                # (B,H,S,D)
         kh = k.permute(0, 2, 3, 1)                # (B,H,D,S)
@@ -126,20 +311,27 @@ class Attention(Module):
         vh = v.permute(0, 2, 1, 3)                # (B,H,S,D)
         ctx = self.attn_context_matmul(probs, vh)
         ctx = ctx.permute(0, 2, 1, 3).reshape(B, S, H * D)
-        return self.o_proj(ctx)
+        return self.o_proj(_relayout(ctx, self.heads_local,
+                                     tp is not None and tp.o, tp))
 
 
 class MLP(Module):
-    def __init__(self, cfg: DecoderConfig):
+    def __init__(self, cfg: DecoderConfig, tp: Optional[TPLayout] = None):
         super().__init__()
         dt = cfg.tdtype()
-        self.gate_proj = Dense(cfg.d_model, cfg.d_ff, use_bias=False, dtype=dt)
-        self.up_proj = Dense(cfg.d_model, cfg.d_ff, use_bias=False, dtype=dt)
-        self.down_proj = Dense(cfg.d_ff, cfg.d_model, use_bias=False, dtype=dt)
+        self.tp = tp
+        cols = tp is not None and tp.gate_up
+        self.gate_proj = _dense(tp, cols, "column", cfg.d_model, cfg.d_ff, dt)
+        self.up_proj = _dense(tp, cols, "column", cfg.d_model, cfg.d_ff, dt)
+        self.down_proj = _dense(tp, tp is not None and tp.down, "row",
+                                cfg.d_ff, cfg.d_model, dt)
 
     def forward(self, x):
+        tp = self.tp
         gate = self.gate_proj(x)
-        return self.down_proj(gate * torch.sigmoid(gate) * self.up_proj(x))
+        act = gate * torch.sigmoid(gate) * self.up_proj(x)
+        return self.down_proj(_relayout(act, tp is not None and tp.gate_up,
+                                        tp is not None and tp.down, tp))
 
 
 class MoEMLP(Module):
@@ -186,15 +378,15 @@ class MoEMLP(Module):
 
 
 class DecoderLayer(Module):
-    def __init__(self, cfg: DecoderConfig):
+    def __init__(self, cfg: DecoderConfig, tp: Optional[TPLayout] = None):
         super().__init__()
         self.attn_norm = RMSNorm(cfg.d_model, cfg.norm_eps)
-        self.attn = Attention(cfg)
+        self.attn = Attention(cfg, tp)
         self.mlp_norm = RMSNorm(cfg.d_model, cfg.norm_eps)
         if cfg.n_experts > 0:
             self.moe = MoEMLP(cfg)
         else:
-            self.mlp = MLP(cfg)
+            self.mlp = MLP(cfg, tp)
 
     def forward(self, x, positions, mask):
         h = x + self.attn(self.attn_norm(x), positions, mask)
@@ -203,19 +395,29 @@ class DecoderLayer(Module):
 
 
 class Decoder(Module):
-    """Causal decoder LM.  ``forward`` returns logits (B, S, V) in f32."""
+    """Causal decoder LM.  ``forward`` returns logits (B, S, V) in f32.
 
-    def __init__(self, cfg: DecoderConfig):
+    With ``mesh`` (a ``parallel.Mesh`` with its process groups) it is the
+    tensor-parallel form over the mesh's model group (module docstring):
+    its parameters are this rank's shards, and every rank of a model group
+    returns the same whole logits of its own rows of the batch."""
+
+    def __init__(self, cfg: DecoderConfig, mesh=None):
         super().__init__()
         self.cfg = cfg
+        tp = self.tp = None if mesh is None else TPLayout.of(cfg, mesh)
         dt = cfg.tdtype()
-        self.embed = Embed(cfg.vocab_size, cfg.d_model, dtype=dt)
+        if tp is not None and tp.embed:
+            self.embed = VocabEmbed(cfg.vocab_size, cfg.d_model, tp,
+                                    dtype=dt)
+        else:
+            self.embed = Embed(cfg.vocab_size, cfg.d_model, dtype=dt)
         for i in range(cfg.n_layers):
-            self.add_module(f"layer_{i}", DecoderLayer(cfg))
+            self.add_module(f"layer_{i}", DecoderLayer(cfg, tp))
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps)
         if not cfg.tie_embeddings:
-            self.lm_head = Dense(cfg.d_model, cfg.vocab_size, use_bias=False,
-                                 dtype=dt)
+            self.lm_head = _dense(tp, tp is not None and tp.lm_head,
+                                  "column", cfg.d_model, cfg.vocab_size, dt)
 
     def forward(self, tokens, positions: Optional[torch.Tensor] = None):
         cfg = self.cfg
@@ -236,6 +438,8 @@ class Decoder(Module):
             logits = self.embed.attend(h.to(cfg.tdtype()))
         else:
             logits = self.lm_head(h)
+            if self.tp is not None and self.tp.lm_head:
+                logits = self.tp.gather(logits)
         return logits.to(torch.float32)
 
 

@@ -14,11 +14,15 @@ def _qrange(bits: int):
     return -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
 
 
-def qdq_int(x: torch.Tensor, bits: int = 8) -> torch.Tensor:
-    """Asymmetric min-max fake-quant, per tensor."""
+def qdq_int(x: torch.Tensor, bits: int = 8, shard=None) -> torch.Tensor:
+    """Asymmetric min-max fake-quant, per tensor.  With ``shard`` (a
+    ``parallel.data.BatchShard``) ``x`` is a rank's rows and the min and
+    max are the whole tensor's."""
     xf = x.to(torch.float32)
     q_min, q_max = _qrange(bits)
     min_val, max_val = xf.amin(), xf.amax()
+    if shard is not None:
+        min_val, max_val = -shard.max(-min_val), shard.max(max_val)
     scale = (max_val - min_val) / (q_max - q_min)
     # Guard the degenerate constant-tensor case.
     scale = torch.where(scale > 0, scale, torch.ones_like(scale))

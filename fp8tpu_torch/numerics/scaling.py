@@ -22,6 +22,8 @@ a reciprocal times the scalar, two roundings where XLA has one.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .formats import FORMATS, FPFormat
@@ -75,16 +77,32 @@ def per_tensor(x: torch.Tensor, fmt, method: str = "max",
 
 
 def per_channel(x: torch.Tensor, fmt, method: str = "max",
-                axis: int = 0) -> torch.Tensor:
-    """One scale per slice of ``axis``, shaped for broadcasting."""
+                axis: int = 0, shard=None) -> torch.Tensor:
+    """One scale per slice of ``axis``, shaped for broadcasting.  With
+    ``shard`` (a ``parallel.data.TensorShard`` or ``BatchShard``) ``x`` is a
+    rank's block of a split tensor and each slice's scale is the whole
+    slice's: its amax (or sum) is reduced over the groups that split the
+    reduced dimensions (none where only ``axis`` is split)."""
     fmt = _fmt(fmt)
     axis = axis % x.ndim
     reduce_axes = tuple(i for i in range(x.ndim) if i != axis)
+    if shard is not None and hasattr(shard, "reducing"):
+        shard = shard.reducing(reduce_axes, x.ndim)
+    elif shard is not None and 0 not in reduce_axes:
+        shard = None                      # a batch shard's rows, per row
     ax = x.to(torch.float32).abs()
     if method == "max":
-        scale = _max_scale(ax.amax(dim=reduce_axes), fmt)
+        amax = ax.amax(dim=reduce_axes)
+        scale = _max_scale(amax if shard is None else shard.max(amax), fmt)
     elif method == "mean":
-        scale = _mean_scale(ax.mean(dim=reduce_axes), fmt, _MEAN_EPS_CHANNEL)
+        if shard is None:
+            mean = ax.mean(dim=reduce_axes)
+        else:
+            total = torch.tensor(
+                float(math.prod(x.shape[i] for i in reduce_axes)
+                      * shard.count), device=x.device)
+            mean = shard.sum(ax.sum(dim=reduce_axes)) / total
+        scale = _mean_scale(mean, fmt, _MEAN_EPS_CHANNEL)
     else:
         raise ValueError(f"unknown scaling method {method!r}")
     shape = [1] * x.ndim

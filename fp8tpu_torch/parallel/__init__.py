@@ -4,13 +4,19 @@ counterpart of ``fp8tpu.parallel``, whose names it all exports.  Each
 collective that GSPMD inserts in the JAX package is issued here by hand,
 so that a sharded run computes the global program."""
 
-from .data import BatchShard  # noqa: F401
+from .data import BatchShard, TensorShard  # noqa: F401
 from .grad_comm import (  # noqa: F401
     wire_all_reduce,
     wire_all_reduce_tree,
     wire_bytes_per_element,
 )
-from .mesh import Mesh, init_world, make_mesh, make_pp_mesh  # noqa: F401
+from .mesh import (  # noqa: F401
+    Mesh,
+    gather_last,
+    init_world,
+    make_mesh,
+    make_pp_mesh,
+)
 from .moe import (  # noqa: F401
     moe_ffn,
     quantize_expert_weights,
@@ -30,9 +36,11 @@ from .sharding import (  # noqa: F401
     NamedSharding,
     PartitionSpec,
     batch_sharding,
+    local_shards,
     replicated,
     shard_params,
     shard_tree,
+    split_dim,
 )
 from .tp_matmul import (  # noqa: F401
     chunk_columns,

@@ -16,12 +16,18 @@ step to be the global one:
   the global count.
 
 Weights are replicated and their casts need none of this.
+
+Tensor parallelism splits activations and weights over the mesh's model
+group as well: :class:`TensorShard` marks a tensor split over the data
+group, the model group or both, so that its casts reduce over the groups
+that split it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -46,8 +52,9 @@ class BatchShard:
         return self.index * numel
 
     def max(self, a: torch.Tensor) -> torch.Tensor:
-        """The largest of the ranks' ``a`` (a 0-d f32), NaN when any rank's
-        is NaN (MAX reductions do not promise to carry a NaN)."""
+        """The largest of the ranks' ``a`` (f32, element by element: a 0-d
+        amax or a per-channel one), NaN where any rank's is NaN (MAX
+        reductions do not promise to carry a NaN)."""
         nan = torch.isnan(a)
         both = torch.stack([torch.where(nan, torch.zeros_like(a), a),
                             nan.to(a.dtype)])
@@ -74,3 +81,60 @@ class BatchShard:
             out[n] = flat[at:at + g.numel()].reshape(g.shape).to(g.dtype)
             at += g.numel()
         return out
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorShard:
+    """A rank's block of a tensor split over the data group (its rows,
+    dimension 0: ``data``), over the model group (dimension ``model_dim``:
+    ``model``), or over both; either part may be None.  Both parts are
+    :class:`BatchShard` s of their groups.
+
+    The casts read it as they read a :class:`BatchShard`: ``max`` and
+    ``sum`` reduce over the product of the groups, so a per-tensor scale
+    is the whole tensor's.  :meth:`reducing` keeps the parts that a
+    per-channel reduction over some dimensions has to cross (a column
+    shard of a Dense kernel scaled per input row needs the model group's
+    MAX of each row; a row shard needs none).  Stochastic rounding of a
+    model-split tensor is not ported: the JAX layout's offsets of a column
+    block are not one contiguous range (ROADMAP §1 item 7c)."""
+
+    data: Optional[BatchShard] = None
+    model: Optional[BatchShard] = None
+    model_dim: int = -1
+
+    @property
+    def parts(self) -> Tuple[BatchShard, ...]:
+        return tuple(p for p in (self.data, self.model) if p is not None)
+
+    @property
+    def count(self) -> int:
+        return math.prod(p.count for p in self.parts)
+
+    def offset(self, numel: int) -> int:
+        if self.model is not None:
+            raise NotImplementedError(
+                "stochastic rounding of a tensor split over the model group "
+                "(its JAX-layout offsets are not contiguous): ROADMAP §1 "
+                "item 7c")
+        return 0 if self.data is None else self.data.offset(numel)
+
+    def max(self, a: torch.Tensor) -> torch.Tensor:
+        for p in self.parts:
+            a = p.max(a)
+        return a
+
+    def sum(self, a: torch.Tensor) -> torch.Tensor:
+        for p in self.parts:
+            a = p.sum(a)
+        return a
+
+    def reducing(self, dims, ndim: int) -> Optional["TensorShard"]:
+        """The parts whose split dimension is among ``dims`` (of a tensor of
+        ``ndim`` dimensions), or None when there is none."""
+        dims = {d % ndim for d in dims}
+        data = self.data if 0 in dims else None
+        model = self.model if self.model_dim % ndim in dims else None
+        if data is None and model is None:
+            return None
+        return TensorShard(data, model, self.model_dim)

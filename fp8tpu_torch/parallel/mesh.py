@@ -45,9 +45,21 @@ def gather_rows(t: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
+def gather_last(t: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``t`` of ``group`` concatenated along the last
+    dimension, in rank order (the column blocks of a column-parallel
+    product put back together)."""
+    n = dist.get_world_size(group)
+    out = gather_rows(t.movedim(-1, 0), group)
+    out = out.reshape((n,) + (t.shape[-1],) + tuple(t.shape[:-1]))
+    return out.movedim(0, -1).movedim(0, -1).reshape(
+        tuple(t.shape[:-1]) + (n * t.shape[-1],))
+
+
 def init_world(device=None, rank: Optional[int] = None,
                world_size: Optional[int] = None,
-               init_method: Optional[str] = None) -> torch.device:
+               init_method: Optional[str] = None,
+               timeout: Optional[float] = None) -> torch.device:
     """Join (or create) the default process group and return this rank's
     device.
 
@@ -57,6 +69,8 @@ def init_world(device=None, rank: Optional[int] = None,
     ``init_method`` default to torchrun's ``RANK`` / ``WORLD_SIZE`` and
     ``env://`` (``MASTER_ADDR`` / ``MASTER_PORT``); a process started
     without them is a world of one on ``tcp://localhost:<free port>``.
+    ``timeout`` (seconds) bounds every collective of the world, so that a
+    rank that waits on a peer that never comes fails instead of hanging.
     """
     dev = resolve_device("cuda" if device is None else device)
     if dev.type == "cuda":
@@ -73,6 +87,9 @@ def init_world(device=None, rank: Optional[int] = None,
         init_method = ("env://" if "MASTER_ADDR" in os.environ
                        else f"tcp://localhost:{free_port()}")
     kw = {"device_id": dev} if dev.type == "cuda" else {}
+    if timeout is not None:
+        import datetime
+        kw["timeout"] = datetime.timedelta(seconds=timeout)
     dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
                             init_method=init_method, rank=rank,
                             world_size=world_size, **kw)

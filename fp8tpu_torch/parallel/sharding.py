@@ -225,6 +225,50 @@ def shard_params(params, mesh: Mesh, rules=DECODER_PARAM_RULES,
                     for keys, t in _walk(params))
 
 
+def split_dim(path: str, shape, mesh: Mesh, rules,
+              axis: str = "model") -> Optional[int]:
+    """The dimension of a leaf of ``shape`` (the full, unsharded shape,
+    in the layout ``rules`` speak of) that ``rules`` split over ``axis``
+    once repaired for divisibility, or None where it replicates."""
+    spec = _leaf_spec(path, tuple(shape), mesh, rules)
+    dims = [d for d, part in enumerate(spec)
+            if part == axis or (isinstance(part, tuple) and axis in part)]
+    return dims[0] if dims else None
+
+
+def _block(t, spec: PartitionSpec, mesh: Mesh):
+    """This rank's block of ``t`` under ``spec``: each split dimension cut
+    into the product of its axes' sizes, the block at this rank's
+    coordinates (the first axis outermost)."""
+    for d, part in enumerate(spec):
+        if part is None:
+            continue
+        axes = part if isinstance(part, tuple) else (part,)
+        n, i = 1, 0
+        for ax in axes:
+            n, i = n * mesh.shape[ax], i * mesh.shape[ax] + mesh.index(ax)
+        size = t.shape[d] // n
+        t = t.narrow(d, i * size, size)
+    return t.contiguous()
+
+
+def local_shards(tree, mesh: Mesh, rules,
+                 module_table: Optional[Dict] = None):
+    """This rank's shard of every leaf of ``tree`` as :func:`shard_tree`
+    places it (the ``to_local()`` of :func:`shard_params`, taken without
+    DTensors): a flat torch state_dict given its ``module_table`` (the
+    tensor-parallel models of ``models.transformer`` load these), or a
+    dict of tensors in the Flax layout (the serving artifact's).  Every
+    rank passes the same full tensors."""
+    shardings = shard_tree(tree, mesh, rules, module_table)
+    if module_table is not None:
+        return {n: _block(t, shardings[n].spec, mesh)
+                for n, t in tree.items()}
+    flat = dict(_walk(shardings))
+    return _rebuild((keys, _block(t, flat[keys].spec, mesh))
+                    for keys, t in _walk(tree))
+
+
 def batch_sharding(mesh: Mesh, seq_parallel: bool = False) -> NamedSharding:
     """Input batch (B, S, ...): batch over (host, data) (data parallelism
     spans hosts), optionally the sequence over seq."""

@@ -8,7 +8,12 @@ applied explicitly per the igrad/ograd/wtgrad role configs.
 ``shard`` (a ``parallel.data.BatchShard``) marks ``x`` as one rank's rows
 of a data-parallel batch: a per-tensor scale is then the global tensor's
 and SR draws the global tensor's bits at the rank's offset, so the cast
-is the rank's share of the unsharded cast.
+is the rank's share of the unsharded cast.  A ``parallel.data.
+TensorShard`` marks a block split over the data group, the model group
+or both (tensor parallelism): per-tensor and per-channel scales reduce
+over the groups that split the reduced dimensions; fine-grained,
+per-block and integer scaling and stochastic rounding of a model-split
+tensor raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -38,29 +43,52 @@ def _scale(x: torch.Tensor, cfg: TensorQuantConfig, shard=None):
         return 1.0
     if cfg.scaling == "per-tensor":
         return _scaling.per_tensor(x, fmt, cfg.method, shard)
-    if shard is not None:
-        raise NotImplementedError(
-            f"{cfg.scaling} scaling of a batch shard (data parallelism "
-            "takes none or per-tensor scales)")
     if cfg.scaling == "per-channel":
-        return _scaling.per_channel(x, fmt, cfg.method, cfg.channel_axis)
+        return _scaling.per_channel(x, fmt, cfg.method, cfg.channel_axis,
+                                    shard)
     if cfg.scaling == "fine-grained":
+        # its groups lie inside dimension 0's slices: a block of rows
+        # holds whole groups
+        _local_rows_only(shard, "fine-grained scaling")
         return _scaling.fine_grained(x, fmt, cfg.group_size, cfg.method)
     raise ValueError(f"unknown scaling {cfg.scaling!r}")
 
 
+def _model_split(shard) -> bool:
+    return getattr(shard, "model", None) is not None
+
+
+def _local_rows_only(shard, what: str) -> None:
+    """``what`` is computed on a rank's block as it is only where the block
+    is whole rows (a data shard); a model-split tensor raises."""
+    if _model_split(shard):
+        raise NotImplementedError(
+            f"{what} of a tensor split over the model group (tensor "
+            "parallelism takes none, per-tensor or per-channel scales)")
+
+
 def _quantize_impl(x: torch.Tensor, cfg: TensorQuantConfig,
                    key: Optional[PRNGKey], shard=None) -> torch.Tensor:
-    if shard is not None and (cfg.is_int or cfg.scaling == "per-block"):
-        raise NotImplementedError(
-            f"{cfg.mode_string()} with {cfg.scaling} scaling of a batch "
-            "shard")
     if cfg.is_int:
-        return _integer.qdq_int(x, bits=cfg.bits)
+        if shard is None:
+            return _integer.qdq_int(x, bits=cfg.bits)
+        _local_rows_only(shard, "integer quantization")
+        return _integer.qdq_int(x, bits=cfg.bits, shard=shard)
     if cfg.is_stochastic and key is None:
         raise ValueError(f"{cfg.mode_string()} needs a PRNG key for "
                          "stochastic rounding")
-    offset = 0 if shard is None else shard.offset(x.numel())
+    offset = 0
+    if shard is not None and cfg.is_stochastic:
+        offset = shard.offset(x.numel())
+    if shard is not None and cfg.scaling == "per-block":
+        # blocks over the flattened tensor: a rank's rows hold whole blocks
+        # of the global tensor only when they start on a block edge
+        _local_rows_only(shard, "per-block scaling")
+        if x.numel() % cfg.block_size:
+            raise NotImplementedError(
+                f"per-block scaling of a batch shard of {x.numel()} "
+                f"elements, not a multiple of its block of "
+                f"{cfg.block_size}")
     if _hw_eligible(cfg):
         scale = _scale(x, cfg, shard)
         if cfg.scheme == "stochastic":

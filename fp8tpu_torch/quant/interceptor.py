@@ -125,6 +125,7 @@ def make_quant_interceptor(
     classify: Callable[[Any], LayerKind] = classify_module,
     per_channel_stats: bool = False,
     shard=None,
+    mesh=None,
 ):
     """Build an interceptor applying ``policy``.
 
@@ -137,7 +138,36 @@ def make_quant_interceptor(
                    activation and gradient cast is the rank's share of the
                    global batch's (scales and SR bits); every activation
                    the casts see must lead with the batch dimension.
+    ``mesh``       a ``parallel.Mesh``: the model is the tensor-parallel
+                   form of ``models.transformer`` on one rank, its rows
+                   of the batch split over the mesh's data group.  Each
+                   cast's operand is split as its module says (``tp_in``
+                   / ``tp_out``: the dimension split over the model
+                   group), so a per-tensor scale is the whole tensor's:
+                   a column-parallel input reduces over the data group,
+                   a row-parallel input or a BatchMatmul operand on the
+                   rank's heads over data x model.  Forward only: a
+                   training policy, a calibration sweep and hw-patched
+                   engine calls raise (ROADMAP §1 item 7c).
     """
+    if mesh is not None:
+        if shard is not None:
+            raise ValueError("pass a mesh or a batch shard, not both")
+        if policy.is_training or stats_sink is not None:
+            raise NotImplementedError(
+                "tensor-parallel training and calibration under a mesh: "
+                "ROADMAP §1 item 7c")
+        from fp8tpu_torch.parallel.data import BatchShard, TensorShard
+        data = BatchShard.of(mesh.group("data"))
+        model = BatchShard.of(mesh.group("model"))
+
+    def split_as(dim):
+        """The shard of an operand split over the model group along
+        ``dim`` (None: replicated over it)."""
+        if mesh is None:
+            return shard
+        return TensorShard(data, None if dim is None else model,
+                           -1 if dim is None else dim)
 
     def interceptor(next_fun, args, kwargs, context):
         module, path = context.module, context.path
@@ -145,6 +175,8 @@ def make_quant_interceptor(
         cfg = policy.resolve(path, kind)
         if cfg is None and stats_sink is None:
             return next_fun(*args, **kwargs)
+        in_shard = split_as(getattr(module, "tp_in", None))
+        out_shard = split_as(getattr(module, "tp_out", None))
 
         def mod_key(tag: int):
             return None if key is None else fold_in(key,
@@ -155,9 +187,9 @@ def make_quant_interceptor(
         # are NCHW.
         nchw = kind != LayerKind.BATCH_MATMUL
 
-        def cast(a, tcfg, tag):
+        def cast(a, tcfg, tag, sh):
             return _in_jax_layout(
-                lambda t: fake_quant(t, tcfg, mod_key(tag), shard), a, tcfg,
+                lambda t: fake_quant(t, tcfg, mod_key(tag), sh), a, tcfg,
                 nchw)
 
         if stats_sink is not None:
@@ -194,17 +226,22 @@ def make_quant_interceptor(
             from .hw_patch import conv_patchable
             patched_conv = conv_patchable(module)
         patched = patched or patched_conv
+        if patched and mesh is not None:
+            raise NotImplementedError(
+                f"a hw-patched engine call ({path}) under a tensor-parallel "
+                "mesh: ROADMAP §1 item 7c")
         # On the patched path the engine casts the two contraction operands
         # itself; only other inputs (AddMatmul's addend) get the iact cast.
         if cfg is not None and cfg.iact is not None:
             if patched:
                 ncontr = len(args) - 2
                 args = tuple(
-                    cast(a, cfg.iact, 1)
+                    cast(a, cfg.iact, 1, shard)
                     if (i < ncontr and _is_float(a)) else a
                     for i, a in enumerate(args))
             else:
-                args = _map_float_args(lambda a: cast(a, cfg.iact, 1), args)
+                args = _map_float_args(
+                    lambda a: cast(a, cfg.iact, 1, in_shard), args)
         if cfg is not None and cfg.igrad is not None:
             args = _map_float_args(
                 lambda a: grad_cast(a, cfg.igrad, mod_key(2), nchw, shard),
@@ -238,7 +275,7 @@ def make_quant_interceptor(
             if cfg.ograd is not None:
                 out = grad_cast(out, cfg.ograd, mod_key(3), nchw, shard)
             if cfg.oact is not None:
-                out = cast(out, cfg.oact, 4)
+                out = cast(out, cfg.oact, 4, out_shard)
         return out
 
     return interceptor
@@ -276,17 +313,38 @@ def from_flax_layout(t: torch.Tensor, kind: Optional[LayerKind]):
     return t
 
 
+def weight_shards(model: torch.nn.Module, mesh) -> Dict[str, Any]:
+    """The ``parallel.data.TensorShard`` of every weight that ``model`` (a
+    tensor-parallel ``models.transformer`` form) holds split over the
+    mesh's model group, by state_dict name, in the Flax layout
+    (``tp_weight``); replicated weights have none."""
+    from fp8tpu_torch.parallel.data import BatchShard, TensorShard
+    model_part = BatchShard.of(mesh.group("model"))
+    out = {}
+    for name, m in model.named_modules():
+        dim = getattr(m, "tp_weight", None)
+        if dim is None:
+            continue
+        leaf = "embedding" if isinstance(m, linen.Embed) else "weight"
+        out[f"{name}.{leaf}"] = TensorShard(None, model_part, dim)
+    return out
+
+
 def quantize_params(
     params: Dict[str, torch.Tensor],
     policy: QuantPolicy,
     module_table: Dict[str, LayerKind],
     key: Optional[PRNGKey] = None,
+    shards: Optional[Dict[str, Any]] = None,
 ) -> Dict[str, torch.Tensor]:
     """Fake-quantize the weights of a state_dict per policy; biases are
     never quantized.  Each weight is cast in its Flax layout, so
     ``channel_axis`` means what it means in the JAX package.  The casts are
     straight-through: a loss through the quantized weights reaches the
-    weights passed in."""
+    weights passed in.  ``shards`` (:func:`weight_shards`) marks the
+    weights that are a rank's shard of a tensor-parallel model: their
+    scales are the whole weight's."""
+    shards = shards or {}
     out = {}
     for name, leaf in params.items():
         path, _, leaf_name = name.rpartition(".")
@@ -297,7 +355,8 @@ def quantize_params(
                 and leaf_name in _WEIGHT_NAMES):
             k = fold_in(key, module_key(path)) if key is not None else None
             leaf = from_flax_layout(
-                fake_quant(to_flax_layout(leaf, kind), cfg.wt, k), kind)
+                fake_quant(to_flax_layout(leaf, kind), cfg.wt, k,
+                           shards.get(name)), kind)
         out[name] = leaf
     return out
 
@@ -310,17 +369,27 @@ def quantized_apply(
     key: Optional[PRNGKey] = None,
     quantize_weights: bool = True,
     module_table: Optional[Dict[str, LayerKind]] = None,
+    mesh=None,
     **kwargs,
 ):
     """One-shot quantized forward of ``model`` (or of ``params`` in its
-    structure): weights and activations per policy."""
+    structure): weights and activations per policy.  With ``mesh``,
+    ``model`` is the tensor-parallel form on this rank (``models.
+    Decoder(cfg, mesh=mesh)``), ``params`` its shards and the arguments
+    its rows of the batch: every cast is this rank's share of the
+    unsharded cast (:func:`make_quant_interceptor`)."""
+    if mesh is not None and getattr(model, "tp", None) is None:
+        raise ValueError("a mesh needs the model's tensor-parallel form "
+                         "(built with the same mesh)")
     if module_table is None:
         module_table = build_module_table(model)
     if params is None:
         params = model.state_dict()
     if quantize_weights:
         wkey = fold_in(key, 0xE0) if key is not None else None
-        params = quantize_params(params, policy, module_table, wkey)
-    with linen.intercept_methods(make_quant_interceptor(policy, key=key),
-                                 model):
+        params = quantize_params(
+            params, policy, module_table, wkey,
+            None if mesh is None else weight_shards(model, mesh))
+    with linen.intercept_methods(
+            make_quant_interceptor(policy, key=key, mesh=mesh), model):
         return functional_call(model, params, args, kwargs)

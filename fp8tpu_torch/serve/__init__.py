@@ -40,4 +40,5 @@ from .model import (  # noqa: F401
     random_serve_params,
     ring_from_jax,
     serve_params_from_jax,
+    shard_serve_params,
 )

@@ -67,8 +67,10 @@ import torch
 from fp8tpu_torch._device import resolve_device
 
 from .kv_cache import PagedKVCache, RingKVCache
-from .model import (ServeConfig, _check_cfg, _scatter_slots, decode_chunk,
-                    decode_chunk_paged, prefill_batch, prefill_batch_paged)
+from .model import (ServeConfig, ShardedServeParams, _check_cfg,
+                    _scatter_slots, decode_chunk, decode_chunk_paged,
+                    local_heads, prefill_batch, prefill_batch_paged,
+                    shard_serve_params)
 
 
 @dataclasses.dataclass
@@ -134,10 +136,28 @@ class _Readback:
         return [h.numpy() for h in self.host]
 
 
+def _shard_of(params, cfg: ServeConfig, mesh) -> ShardedServeParams:
+    """``params`` as this rank's shard over ``mesh``: a whole artifact is
+    sharded, a shard is taken as it is."""
+    if isinstance(params, ShardedServeParams):
+        return params
+    return shard_serve_params(params, cfg, mesh)
+
+
 class ServingEngine:
     """Continuous batching over ``n_slots`` concurrent sequences.  Runs on
     ``device`` (the card unless the caller passes ``"cpu"``); ``params``
-    must live there."""
+    must live there.
+
+    ``mesh`` (a ``parallel.Mesh`` with its process groups): tensor-parallel
+    serving over the mesh's model group.  ``params`` (and ``draft_params``)
+    are the whole artifact, which every rank passes and shards
+    (``serve.model.shard_serve_params``), or this rank's shard; the caches
+    hold the rank's KV heads.  Every rank runs this same host scheduler
+    over the same requests: each branch it takes reads only values that
+    are equal on every rank (the gathered logits' samples, drawn with the
+    same seed), so every rank returns the same outputs.  The data axis
+    replicates, as the serving rules name none."""
 
     def __init__(self, params: Dict, cfg: ServeConfig, n_slots: int = 8,
                  max_seq: Optional[int] = None, seed: int = 0,
@@ -148,11 +168,21 @@ class ServingEngine:
                  draft_params: Optional[Dict] = None,
                  draft_cfg: Optional[ServeConfig] = None,
                  k_spec: int = 4, spec_rounds_per_dispatch: int = 1,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         _check_cfg(cfg)
         self.device = resolve_device(device)
         m = cfg.model
+        if mesh is not None:
+            params = _shard_of(params, cfg, mesh)
+            if draft_params is not None:
+                if draft_cfg is None:
+                    raise ValueError("draft_params needs draft_cfg")
+                draft_params = _shard_of(draft_params, draft_cfg, mesh)
+        self.mesh = mesh
         self.params = params
+        # the KV heads this rank caches (its own under a mesh that splits
+        # whole KV heads)
+        kv_heads = local_heads(params, m)[1]
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_seq = max_seq or m.max_seq_len
@@ -171,7 +201,7 @@ class ServingEngine:
                 n_pages = n_slots * max_pages
             self.cache = PagedKVCache.create(
                 n_pages, page_size, m.n_layers, n_slots, max_pages,
-                m.n_kv_heads, m.head_dim, cfg.kv_fmt, device=self.device)
+                kv_heads, m.head_dim, cfg.kv_fmt, device=self.device)
             self.free_pages: List[int] = list(range(n_pages))
             self._slot_pages: List[List[int]] = [[] for _ in range(n_slots)]
             # The page table lives on the host: admissions and retirements
@@ -201,7 +231,7 @@ class ServingEngine:
         else:
             self.prefix_cache = self.prefix_reuse = False
             self.cache = RingKVCache.create(
-                m.n_layers, n_slots, self.max_seq, m.n_kv_heads, m.head_dim,
+                m.n_layers, n_slots, self.max_seq, kv_heads, m.head_dim,
                 cfg.kv_fmt, device=self.device)
         # Batched speculation (paged only): pages address by logical
         # position, so each slot advances by its own accepted count.
@@ -220,7 +250,8 @@ class ServingEngine:
             # the draft pool statically owns one table row per slot
             self.dcache = PagedKVCache.create(
                 n_slots * max_pages, page_size, dm.n_layers, n_slots,
-                max_pages, dm.n_kv_heads, dm.head_dim, draft_cfg.kv_fmt,
+                max_pages, local_heads(draft_params, dm)[1], dm.head_dim,
+                draft_cfg.kv_fmt,
                 device=self.device)
             self.dcache.page_table = torch.arange(
                 n_slots * max_pages, dtype=torch.int32,

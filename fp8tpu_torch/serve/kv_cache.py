@@ -4,6 +4,11 @@ payloads).
 Keys and values are stored as real fp8 or int8 payloads with one f32 scale
 per (token, kv-head): the scale factors out of the attention dots
 (q.(k.s) = (q.k).s).  The caches are preallocated and updated in place.
+
+Under tensor-parallel serving a rank's caches hold the KV heads it attends
+with (``serve.model.local_heads``: its own where the mesh's model group
+splits whole KV heads, else all of them); the page table and the engine's
+page allocator are the same on every rank.
 """
 
 from __future__ import annotations

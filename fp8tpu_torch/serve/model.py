@@ -40,16 +40,32 @@ Design notes:
   attend to the ring BEFORE the step's row is written.
 * Every slot has its own position (continuous batching); masking is
   ``(head - 1 - row) mod S < min(position, S)``.
+
+Tensor parallelism (:func:`shard_serve_params`): each rank of a mesh's
+model group holds its shard of the artifact under ``SERVE_PARAM_RULES``
+and runs the global program that GSPMD runs in the JAX package.  q / k /
+v / gate / up are column-parallel (one K3 launch on the rank's columns);
+o / down row-parallel, GSPMD's order: the rank's f32 partial (a K3 launch
+with f32 output and unit scales), the sum over the group, then the
+column scale and one rounding to bf16.  The embedding is
+vocabulary-sharded and the tied LM head's logits are gathered before
+sampling, so every rank samples the same whole logits with the same
+generator.  Attention runs on the rank's KV heads where the group splits
+them whole (the caches hold those heads); otherwise the caches hold every
+head, as ``_shrink_spec`` repairs ``KV_CACHE_SPEC``, and q / k / v are
+gathered first.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from fp8tpu_torch._device import full_fp32, resolve_device
@@ -60,6 +76,7 @@ from fp8tpu_torch.kernels import qmatmul
 from fp8tpu_torch.kernels.int4_matmul import pack_int4
 from fp8tpu_torch.kernels.qmatmul import div_exact, quantize_weights
 from fp8tpu_torch.models.transformer import DecoderConfig, rope_freqs
+from fp8tpu_torch.parallel.mesh import gather_last
 
 from .kv_cache import (KV_DTYPES, PagedKVCache, RingKVCache, bits,
                        quantize_kv)
@@ -230,24 +247,181 @@ def _quantize_act(x: torch.Tensor, fmt: str = "e4m3", codes_dtype=None):
     return qmatmul.quantize_rows(x, fmt, codes_dtype)
 
 
+# -- tensor parallelism over a mesh's model group ---------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ServeTP:
+    """How a serving artifact is split over a mesh's model group (from
+    ``SERVE_PARAM_RULES`` on the full shapes), the group and this rank's
+    place in it.  ``heads_local``: the group splits whole KV heads, and the
+    rank attends with its own heads and caches only those."""
+
+    group: object
+    size: int
+    index: int
+    embed: bool          # vocabulary rows of the table
+    q: bool              # q8's columns
+    kv: bool             # k8's / v8's columns
+    o: bool              # o8's rows
+    ffn: bool            # gate8's / up8's columns
+    down: bool           # down8's rows
+    heads_local: bool
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        dist.all_reduce(t, group=self.group)
+        return t
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        return gather_last(t, self.group)
+
+    def block(self, t: torch.Tensor) -> torch.Tensor:
+        n = t.shape[-1] // self.size
+        return t[..., self.index * n:(self.index + 1) * n]
+
+
+class ShardedServeParams(dict):
+    """A rank's shard of a serving artifact (a dict of its tensors, as the
+    artifact is) with its :class:`ServeTP` as ``tp``."""
+
+    def __init__(self, tensors: Dict, tp: ServeTP):
+        super().__init__(tensors)
+        self.tp = tp
+
+
+def _tp(params) -> Optional[ServeTP]:
+    return getattr(params, "tp", None)
+
+
+def shard_serve_params(params: Dict, cfg: ServeConfig, mesh
+                       ) -> ShardedServeParams:
+    """This rank's shard of the serving artifact ``params`` (every rank
+    passes the same whole artifact) for tensor-parallel serving over the
+    mesh's model group, as ``shard_tree(params, mesh, SERVE_PARAM_RULES)``
+    places it; the data axis replicates (the serving rules name none).
+    W8A8's ``direct`` linears, int4 payloads and MoE expert stacks are
+    not ported under a mesh and raise (ROADMAP §1 item 7f)."""
+    from fp8tpu_torch.parallel.sharding import (SERVE_PARAM_RULES,
+                                                local_shards, shard_tree)
+    _check_cfg(cfg)
+    if isinstance(params, ShardedServeParams):
+        raise ValueError("params are a shard already")
+    for what, bad in (("matmul_impl='direct' (W8A8)",
+                       cfg.matmul_impl == "direct"),
+                      ("int4 weights", cfg.weight_fmt == "int4"
+                       or params["q8"].dtype == torch.uint8),
+                      ("MoE expert stacks", "router" in params)):
+        if bad:
+            raise NotImplementedError(
+                f"{what} under a tensor-parallel mesh: ROADMAP §1 item 7f")
+    specs = shard_tree(params, mesh, SERVE_PARAM_RULES)
+
+    def split(name, dim):
+        return specs[name].spec[dim] == "model"
+
+    m = cfg.model
+    T = mesh.shape["model"]
+    kv = split("k8", 2)
+    tp = ServeTP(mesh.group("model"), T, mesh.index("model"),
+                 embed=split("embed", 0), q=split("q8", 2), kv=kv,
+                 o=split("o8", 1), ffn=split("gate8", 2),
+                 down=split("down8", 1),
+                 heads_local=kv and split("q8", 2) and m.n_kv_heads % T == 0)
+    return ShardedServeParams(local_shards(params, mesh, SERVE_PARAM_RULES),
+                              tp)
+
+
+def local_heads(params, mcfg: DecoderConfig) -> Tuple[int, int]:
+    """(query heads, KV heads) a rank attends with and caches: its own
+    under a mesh that splits whole KV heads, else all of them."""
+    tp = _tp(params)
+    if tp is None or not tp.heads_local:
+        return mcfg.n_heads, mcfg.n_kv_heads
+    return mcfg.n_heads // tp.size, mcfg.n_kv_heads // tp.size
+
+
+def _qkv(x, xs, linear, tp: Optional[ServeTP], lead, D: int):
+    """q, k, v of the heads this rank attends with: (*lead, heads, D) each;
+    column-parallel products gathered where the rank attends with every
+    head."""
+    q = linear(x, xs["q8"], xs["qs"])
+    k = linear(x, xs["k8"], xs["ks"])
+    v = linear(x, xs["v8"], xs["vs"])
+    if tp is not None and not tp.heads_local:
+        q = tp.gather(q) if tp.q else q
+        k, v = (tp.gather(k), tp.gather(v)) if tp.kv else (k, v)
+    return (q.reshape(*lead, -1, D), k.reshape(*lead, -1, D),
+            v.reshape(*lead, -1, D))
+
+
+@functools.lru_cache(maxsize=None)
+def _unit_scales(n: int, device) -> torch.Tensor:
+    return torch.ones(n, dtype=torch.float32, device=device)
+
+
+def _row_linear(x, w8, scale, tp: ServeTP):
+    """A row-parallel linear in GSPMD's order: this rank's f32 partial
+    ``x @ w8`` (one K3 launch with f32 output and unit scales on a CUDA
+    tensor), summed over the group, then the column scale in f32 and one
+    rounding to x's dtype (the JAX ``fp8_linear`` on its sharded
+    contraction)."""
+    lead, n = x.shape[:-1], w8.shape[1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if w8.dtype == torch.bfloat16:
+        part = _dot_f32(x2, w8)
+    else:
+        part = qmatmul.dequant_matmul(x2, w8, _unit_scales(n, x.device),
+                                      torch.float32)
+    out = tp.sum(part) * scale.reshape(1, -1)
+    return out.to(x.dtype).reshape(*lead, n)
+
+
+def _out_proj(ctx, xs, linear, tp: Optional[ServeTP]):
+    """o_proj of the attention context (the rank's heads, or all of
+    them)."""
+    if tp is None:
+        return linear(ctx, xs["o8"], xs["os"])
+    if not tp.o:
+        ctx = tp.gather(ctx) if tp.heads_local else ctx
+        return linear(ctx, xs["o8"], xs["os"])
+    return _row_linear(ctx if tp.heads_local else tp.block(ctx), xs["o8"],
+                       xs["os"], tp)
+
+
 def _embed_lookup(params, toks):
     e = params["embed"]
-    rows = bits(e)[toks].view(e.dtype).to(torch.bfloat16)
+    tp = _tp(params)
+    if tp is None or not tp.embed:
+        rows = bits(e)[toks].view(e.dtype).to(torch.bfloat16)
+        if "embed_s" in params:
+            return rows * params["embed_s"][toks][..., None].to(
+                torch.bfloat16)
+        return rows
+    # the rank's rows of the vocabulary, zero elsewhere, summed over the
+    # group in f32 (one nonzero addend: exact)
+    n = e.shape[0]
+    local = toks - tp.index * n
+    mine = (local >= 0) & (local < n)
+    rows = bits(e)[torch.where(mine, local, 0)].view(e.dtype).to(
+        torch.bfloat16)
     if "embed_s" in params:
-        return rows * params["embed_s"][toks][..., None].to(torch.bfloat16)
-    return rows
+        rows = rows * params["embed_s"][toks][..., None].to(torch.bfloat16)
+    rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+    return tp.sum(rows.to(torch.float32)).to(torch.bfloat16)
 
 
 def _lm_head(params, h):
     """Tied LM head: contract on the table's feature axis directly; f32
-    logits."""
+    logits (gathered over the model group from its vocabulary shards)."""
     e = params["embed"]
     if e.dtype != torch.bfloat16:
         e = e.to(torch.bfloat16)
     logits = _dot_f32(h, e.t())
+    tp = _tp(params)
+    split = tp is not None and tp.embed
     if "embed_s" in params:
-        logits = logits * params["embed_s"][None, :]
-    return logits
+        es = params["embed_s"]
+        logits = logits * (tp.block(es) if split else es)[None, :]
+    return tp.gather(logits) if split else logits
 
 
 def _rms(x, scale, eps):
@@ -457,7 +631,12 @@ def paged_from_jax(pool, sc, page_table, kv_heads: int,
         kv_heads=int(kv_heads))
 
 
-def _make_linear(cfg: ServeConfig):
+def _make_linear(cfg: ServeConfig, params=None):
+    if _tp(params) is not None and (cfg.weight_fmt == "int4"
+                                    or cfg.matmul_impl == "direct"):
+        raise NotImplementedError(
+            "int4 weights and matmul_impl='direct' under a tensor-parallel "
+            "mesh: ROADMAP §1 item 7f")
     if cfg.weight_fmt == "int4":
         return lambda x, w, s: int4_linear(x, w, s)
     return lambda x, w, s: fp8_linear(x, w, s, cfg.matmul_impl)
@@ -503,14 +682,22 @@ def _moe_ffn(x, xs, mcfg: DecoderConfig, linear):
     return y.reshape(shp).to(x.dtype)
 
 
-def _ffn_block(h, xs, mcfg: DecoderConfig, linear):
+def _ffn_block(h, xs, mcfg: DecoderConfig, linear,
+               tp: Optional[ServeTP] = None):
     """Post-attention FFN with residual: dense SwiGLU, or MoE when the
-    layer carries router / expert payloads."""
+    layer carries router / expert payloads.  Under ``tp`` gate / up are
+    the rank's columns and down the rank's rows (summed over the
+    group)."""
     x = _rms(h, xs["mlp_norm"], mcfg.norm_eps)
     if "router" in xs:
         return h + _moe_ffn(x, xs, mcfg, linear)
     act = F.silu(linear(x, xs["gate8"], xs["gates"]).to(torch.float32)
                  ).to(x.dtype) * linear(x, xs["up8"], xs["ups"])
+    if tp is not None and tp.down:
+        act = act if tp.ffn else tp.block(act)
+        return h + _row_linear(act, xs["down8"], xs["downs"], tp)
+    if tp is not None and tp.ffn:
+        act = tp.gather(act)
     return h + linear(act, xs["down8"], xs["downs"])
 
 
@@ -715,13 +902,14 @@ def _steps_impl(params: Dict, ring: RingKVCache, tokens: torch.Tensor,
     ``pos - w`` tokens of each slot meanwhile."""
     _check_cfg(cfg)
     mcfg = cfg.model
-    H, KV, D, L = mcfg.n_heads, mcfg.n_kv_heads, mcfg.head_dim, mcfg.n_layers
+    (H, KV), D, L = local_heads(params, mcfg), mcfg.head_dim, mcfg.n_layers
+    tp = _tp(params)
     B = tokens.shape[0]
     S = ring.max_seq
     BK = B * KV
     dev = tokens.device
     W = _flush_rows(cfg, n_steps, S)
-    linear = _make_linear(cfg)
+    linear = _make_linear(cfg, params)
     inv_freq = rope_freqs(mcfg, dev)
     # The fresh k/v of every layer for W steps (one step without batched
     # writes); reused by every W steps of the chunk (launches are ordered
@@ -744,9 +932,7 @@ def _steps_impl(params: Dict, ring: RingKVCache, tokens: torch.Tensor,
         for li in range(L):
             xs = _layer_xs(params, li)
             x = _rms(h, xs["attn_norm"], mcfg.norm_eps)
-            q = linear(x, xs["q8"], xs["qs"]).reshape(B, H, D)
-            k = linear(x, xs["k8"], xs["ks"]).reshape(B, KV, D)
-            v = linear(x, xs["v8"], xs["vs"]).reshape(B, KV, D)
+            q, k, v = _qkv(x, xs, linear, tp, (B,), D)
             q, k = _rope(q, cos, sin), _rope(k, cos, sin)
 
             kq8, kqs = quantize_kv(k, cfg.kv_fmt)
@@ -762,8 +948,8 @@ def _steps_impl(params: Dict, ring: RingKVCache, tokens: torch.Tensor,
                                ring.kv8[:, 0, li], ring.sc[:, 0, li],
                                ring.kv8[:, 1, li], ring.sc[:, 1, li],
                                ring.head, lens, mcfg, valid_mask=mask, **side)
-            h = h + linear(ctx, xs["o8"], xs["os"])
-            h = _ffn_block(h, xs, mcfg, linear)
+            h = h + _out_proj(ctx, xs, linear, tp)
+            h = _ffn_block(h, xs, mcfg, linear, tp)
             side_bits[w, 0, li] = bits(kq8).reshape(BK, D)
             side_bits[w, 1, li] = bits(vq8).reshape(BK, D)
             side_sc[w, 0, li] = kqs.reshape(BK)
@@ -855,11 +1041,12 @@ def _dense_forward(params, toks: torch.Tensor, cfg: ServeConfig):
     pk8 (L, N, Sp, KV, D), pks (L, N, Sp, KV), pv8, pvs)."""
     _check_cfg(cfg)
     mcfg = cfg.model
-    H, KV, D = mcfg.n_heads, mcfg.n_kv_heads, mcfg.head_dim
+    (H, KV), D = local_heads(params, mcfg), mcfg.head_dim
+    tp = _tp(params)
     N, Sp = toks.shape
     G = H // KV
     dev = toks.device
-    linear = _make_linear(cfg)
+    linear = _make_linear(cfg, params)
 
     h = _embed_lookup(params, toks).to(torch.bfloat16)      # (N, Sp, Dm)
     pos = torch.arange(Sp, device=dev)
@@ -871,9 +1058,7 @@ def _dense_forward(params, toks: torch.Tensor, cfg: ServeConfig):
     for li in range(mcfg.n_layers):
         xs = _layer_xs(params, li)
         x = _rms(h, xs["attn_norm"], mcfg.norm_eps)
-        q = linear(x, xs["q8"], xs["qs"]).reshape(N, Sp, H, D)
-        k = linear(x, xs["k8"], xs["ks"]).reshape(N, Sp, KV, D)
-        v = linear(x, xs["v8"], xs["vs"]).reshape(N, Sp, KV, D)
+        q, k, v = _qkv(x, xs, linear, tp, (N, Sp), D)
         q, k = _rope(q, cos, sin), _rope(k, cos, sin)
 
         kq8, kqs = quantize_kv(k, cfg.kv_fmt)
@@ -885,8 +1070,8 @@ def _dense_forward(params, toks: torch.Tensor, cfg: ServeConfig):
             q.reshape(N, Sp, KV, G, D).to(torch.float32),
             k.to(torch.float32), v.to(torch.float32), causal)
         ctx = ctx.reshape(N, Sp, H * D).to(torch.bfloat16)
-        h = h + linear(ctx, xs["o8"], xs["os"])
-        h = _ffn_block(h, xs, mcfg, linear)
+        h = h + _out_proj(ctx, xs, linear, tp)
+        h = _ffn_block(h, xs, mcfg, linear, tp)
         pk8.append(bits(kq8))
         pks.append(kqs[..., 0])
         pv8.append(bits(vq8))
@@ -989,11 +1174,12 @@ def full_logits(params: Dict, tokens: torch.Tensor, cfg: ServeConfig
     the decode cache would hold (no cache writes)."""
     _check_cfg(cfg)
     mcfg = cfg.model
-    H, KV, D = mcfg.n_heads, mcfg.n_kv_heads, mcfg.head_dim
+    (H, KV), D = local_heads(params, mcfg), mcfg.head_dim
+    tp = _tp(params)
     Sp = tokens.shape[0]
     G = H // KV
     dev = tokens.device
-    linear = _make_linear(cfg)
+    linear = _make_linear(cfg, params)
 
     h = _embed_lookup(params, tokens).to(torch.bfloat16)
     pos = torch.arange(Sp, device=dev)
@@ -1004,9 +1190,7 @@ def full_logits(params: Dict, tokens: torch.Tensor, cfg: ServeConfig
     for li in range(mcfg.n_layers):
         xs = _layer_xs(params, li)
         x = _rms(h, xs["attn_norm"], mcfg.norm_eps)
-        q = linear(x, xs["q8"], xs["qs"]).reshape(Sp, H, D)
-        k = linear(x, xs["k8"], xs["ks"]).reshape(Sp, KV, D)
-        v = linear(x, xs["v8"], xs["vs"]).reshape(Sp, KV, D)
+        q, k, v = _qkv(x, xs, linear, tp, (Sp,), D)
         q, k = _rope(q, cos, sin), _rope(k, cos, sin)
 
         kq8, kqs = quantize_kv(k, cfg.kv_fmt)
@@ -1017,8 +1201,8 @@ def full_logits(params: Dict, tokens: torch.Tensor, cfg: ServeConfig
         ctx = _causal_attention(
             q.reshape(Sp, KV, G, D).to(torch.float32), kd, vd, causal)
         ctx = ctx.reshape(Sp, H * D).to(torch.bfloat16)
-        h = h + linear(ctx, xs["o8"], xs["os"])
-        h = _ffn_block(h, xs, mcfg, linear)
+        h = h + _out_proj(ctx, xs, linear, tp)
+        h = _ffn_block(h, xs, mcfg, linear, tp)
 
     h = _rms(h, params["final_norm"], mcfg.norm_eps)
     return _lm_head(params, h)
@@ -1167,11 +1351,12 @@ def _steps_impl_paged(params: Dict, paged: PagedKVCache, tokens: torch.Tensor,
     buffer."""
     _check_cfg(cfg)
     mcfg = cfg.model
-    H, KV, D, L = mcfg.n_heads, mcfg.n_kv_heads, mcfg.head_dim, mcfg.n_layers
+    (H, KV), D, L = local_heads(params, mcfg), mcfg.head_dim, mcfg.n_layers
+    tp = _tp(params)
     B = tokens.shape[0]
     BK = B * KV
     dev = tokens.device
-    linear = _make_linear(cfg)
+    linear = _make_linear(cfg, params)
     inv_freq = rope_freqs(mcfg, dev)
     page = paged.page_size
     W = n_steps
@@ -1222,9 +1407,7 @@ def _steps_impl_paged(params: Dict, paged: PagedKVCache, tokens: torch.Tensor,
         for li in range(L):
             xs = _layer_xs(params, li)
             x = _rms(h, xs["attn_norm"], mcfg.norm_eps)
-            q = linear(x, xs["q8"], xs["qs"]).reshape(B, H, D)
-            k = linear(x, xs["k8"], xs["ks"]).reshape(B, KV, D)
-            v = linear(x, xs["v8"], xs["vs"]).reshape(B, KV, D)
+            q, k, v = _qkv(x, xs, linear, tp, (B,), D)
             q, k = _rope(q, cos, sin), _rope(k, cos, sin)
 
             kq8, kqs = quantize_kv(k, cfg.kv_fmt)
@@ -1245,8 +1428,8 @@ def _steps_impl_paged(params: Dict, paged: PagedKVCache, tokens: torch.Tensor,
                 ctx = _attend_paged(*fresh, kvp[:, :, 0, li], scp[:, :, 0, li],
                                     kvp[:, :, 1, li], scp[:, :, 1, li],
                                     lens0, page, mcfg, **side)
-            h = h + linear(ctx, xs["o8"], xs["os"])
-            h = _ffn_block(h, xs, mcfg, linear)
+            h = h + _out_proj(ctx, xs, linear, tp)
+            h = _ffn_block(h, xs, mcfg, linear, tp)
             # the step's own row of the side buffer is masked (j < w) while
             # the step runs, so it can be filled layer by layer
             side_bits[row, 0, li] = bits(kq8).reshape(BK, D)

@@ -28,6 +28,14 @@ class EngineServer:
     """Single-scheduler-thread async wrapper around :class:`ServingEngine`."""
 
     def __init__(self, engine: ServingEngine):
+        mesh = getattr(engine, "mesh", None)
+        if mesh is not None and mesh.shape["model"] > 1:
+            # requests arrive at each rank's thread at its own times, and
+            # ranks that admit differently hang each other's collectives
+            raise ValueError(
+                "an EngineServer drives an engine of one rank a model group; "
+                "ranks of a larger group run ServingEngine.run on the same "
+                "requests")
         self.engine = engine
         self._cv = threading.Condition()
         self._incoming: List[Request] = []

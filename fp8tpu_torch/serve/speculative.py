@@ -50,28 +50,26 @@ from fp8tpu_torch.models.transformer import rope_freqs
 from .kv_cache import RingKVCache, bits, quantize_kv
 from .model import (_CANDIDATES, _NEG, ServeConfig, _categorical, _check_cfg,
                     _dot_f32, _embed_lookup, _ffn_block, _layer_xs, _lm_head,
-                    _make_linear, _paged_scatter, _ring_write_step, _rms,
-                    _rope, _scaled_query, _scatter_slots, _steps_impl,
-                    _steps_impl_paged, prefill, ring_valid_mask,
-                    sample_tokens)
+                    _make_linear, _out_proj, _paged_scatter, _qkv,
+                    _ring_write_step, _rms, _rope, _scaled_query,
+                    _scatter_slots, _steps_impl, _steps_impl_paged, _tp,
+                    local_heads, prefill, ring_valid_mask, sample_tokens)
 
 
 # ---------------------------------------------------------------------------
 # Multi-token scoring (the verify forward)
 # ---------------------------------------------------------------------------
 
-def _block_qkv(h, xs, cos, sin, cfg: ServeConfig, linear):
+def _block_qkv(h, xs, cos, sin, cfg: ServeConfig, linear, params):
     """One layer's fresh projections for a (B, T) block: rotated q (B, T,
     H, D), the quantized k / v (B, T, KV, D) with scales (B, T, KV), and
     q / sqrt(D) as (B, KV, T * G, D), kv-head-major like the caches'
-    columns."""
+    columns (the heads this rank attends with, under a mesh)."""
     mcfg = cfg.model
-    H, KV, D = mcfg.n_heads, mcfg.n_kv_heads, mcfg.head_dim
+    (H, KV), D = local_heads(params, mcfg), mcfg.head_dim
     B, T = h.shape[:2]
     x = _rms(h, xs["attn_norm"], mcfg.norm_eps)
-    q = linear(x, xs["q8"], xs["qs"]).reshape(B, T, H, D)
-    k = linear(x, xs["k8"], xs["ks"]).reshape(B, T, KV, D)
-    v = linear(x, xs["v8"], xs["vs"]).reshape(B, T, KV, D)
+    q, k, v = _qkv(x, xs, linear, _tp(params), (B, T), D)
     q, k = _rope(q, cos, sin), _rope(k, cos, sin)
     kq8, kqs = quantize_kv(k, cfg.kv_fmt)
     vq8, vqs = quantize_kv(v, cfg.kv_fmt)
@@ -133,12 +131,12 @@ def score_tokens(params: Dict, ring: RingKVCache, tokens: torch.Tensor,
     the mask once a slot's position exceeds the ring size."""
     _check_cfg(cfg)
     mcfg = cfg.model
-    KV, D, L = mcfg.n_kv_heads, mcfg.head_dim, mcfg.n_layers
+    KV, D, L = local_heads(params, mcfg)[1], mcfg.head_dim, mcfg.n_layers
     B, T = tokens.shape
     S = ring.max_seq
     BK = B * KV
     dev = tokens.device
-    linear = _make_linear(cfg)
+    linear = _make_linear(cfg, params)
     cos, sin = _block_rope(positions, T, mcfg, dev)
     # the prefix mask is the same for every t of the block; T rows are kept
     # out of the window for the block in flight
@@ -153,7 +151,8 @@ def score_tokens(params: Dict, ring: RingKVCache, tokens: torch.Tensor,
     slab_bits = bits(slab8)
     for li in range(L):
         xs = _layer_xs(params, li)
-        qg, kq8, kqs, vq8, vqs = _block_qkv(h, xs, cos, sin, cfg, linear)
+        qg, kq8, kqs, vq8, vqs = _block_qkv(h, xs, cos, sin, cfg, linear,
+                                            params)
         rk8, rks = ring.kv8[:, 0, li], ring.sc[:, 0, li]   # (S,BK,D),(S,BK)
         rv8, rvs = ring.kv8[:, 1, li], ring.sc[:, 1, li]
         scores = _dot_f32(qg.reshape(BK, -1, D),
@@ -170,8 +169,8 @@ def score_tokens(params: Dict, ring: RingKVCache, tokens: torch.Tensor,
                             ).reshape(B, KV, T, -1, D)
 
         ctx = _combine(scores, sscores, pv, vq8, vqs, B, KV, T)
-        h = h + linear(ctx, xs["o8"], xs["os"])
-        h = _ffn_block(h, xs, mcfg, linear)
+        h = h + _out_proj(ctx, xs, linear, _tp(params))
+        h = _ffn_block(h, xs, mcfg, linear, _tp(params))
         # rows-first: slab t holds token t of every slot, column b*KV + kv
         slab_bits[:, 0, li] = bits(kq8).permute(1, 0, 2, 3).reshape(T, BK, D)
         slab_bits[:, 1, li] = bits(vq8).permute(1, 0, 2, 3).reshape(T, BK, D)
@@ -235,10 +234,10 @@ def score_tokens_paged(params: Dict, paged, tokens: torch.Tensor,
     are written again."""
     _check_cfg(cfg)
     mcfg = cfg.model
-    KV, D, L = mcfg.n_kv_heads, mcfg.head_dim, mcfg.n_layers
+    KV, D, L = local_heads(params, mcfg)[1], mcfg.head_dim, mcfg.n_layers
     B, T = tokens.shape
     dev = tokens.device
-    linear = _make_linear(cfg)
+    linear = _make_linear(cfg, params)
     page = paged.page_size
     if valid_t is None:
         valid_t = torch.full((B,), T, dtype=torch.int32, device=dev)
@@ -266,7 +265,8 @@ def score_tokens_paged(params: Dict, paged, tokens: torch.Tensor,
     fresh = []
     for li in range(L):
         xs = _layer_xs(params, li)
-        qg, kq8, kqs, vq8, vqs = _block_qkv(h, xs, cos, sin, cfg, linear)
+        qg, kq8, kqs, vq8, vqs = _block_qkv(h, xs, cos, sin, cfg, linear,
+                                            params)
         # (B, MP, page*KV, D) is (B, S, KV, D) with the token-major rows split
         kp = kv_pages[:, :, 0, li].reshape(B, S, KV, D)
         vp = kv_pages[:, :, 1, li].reshape(B, S, KV, D)
@@ -287,8 +287,8 @@ def score_tokens_paged(params: Dict, paged, tokens: torch.Tensor,
             ).reshape(B, KV, T, -1, D)
 
         ctx = _combine(scores, sscores, pv, vq8, vqs, B, KV, T)
-        h = h + linear(ctx, xs["o8"], xs["os"])
-        h = _ffn_block(h, xs, mcfg, linear)
+        h = h + _out_proj(ctx, xs, linear, _tp(params))
+        h = _ffn_block(h, xs, mcfg, linear, _tp(params))
         fresh.append((bits(kq8), kqs, bits(vq8), vqs))
 
     dt = paged.pool.dtype
@@ -653,9 +653,11 @@ def speculative_decode(params: Dict, draft_params: Dict, prompt, n_new: int,
     def dev_i32(values):
         return torch.tensor(values, dtype=torch.int32, device=dev)
 
-    ring = RingKVCache.create(mcfg.n_layers, 1, S, mcfg.n_kv_heads,
-                              mcfg.head_dim, cfg.kv_fmt, device=dev)
-    dring = RingKVCache.create(dmcfg.n_layers, 1, S, dmcfg.n_kv_heads,
+    ring = RingKVCache.create(mcfg.n_layers, 1, S,
+                              local_heads(params, mcfg)[1], mcfg.head_dim,
+                              cfg.kv_fmt, device=dev)
+    dring = RingKVCache.create(dmcfg.n_layers, 1, S,
+                               local_heads(draft_params, dmcfg)[1],
                                dmcfg.head_dim, dcfg.kv_fmt, device=dev)
     ptoks = dev_i32(prompt)
     logits0, ring = prefill(params, ring, ptoks, 0, len(prompt), cfg)

@@ -1533,3 +1533,123 @@ def test_bert_hw_patching_on_the_card(cuda):
         launched = qmatmul.launches - k2
     assert launched == 2 * cfg.n_layers * 2 * cfg.n_heads
     assert _corr(runs[1], runs[0]) > 0.99
+
+
+# -- tensor parallelism inside the decoder, a world of one over NCCL ---------
+
+@pytest.fixture
+def world1(cuda):
+    """A one-rank NCCL world (the card is one H100) and its data 1 x model
+    1 mesh; the world stays up for the file's later tests."""
+    from fp8tpu_torch.parallel import init_world, make_mesh
+    init_world("cuda")
+    return make_mesh(data=1, model=1)
+
+
+def test_tp_ptq_forward_on_the_card_matches_the_unsharded_one(world1):
+    """The TP form of the tiny decoder under e4m3 PTQ on a one-rank mesh:
+    K1 launches, weights and logits bit-equal to the unsharded forward (a
+    group of one holds every product whole)."""
+    from fp8tpu_torch.models.transformer import Decoder, decoder
+    from fp8tpu_torch.parallel import DECODER_PARAM_RULES, local_shards
+    from fp8tpu_torch.quant import interceptor as icp
+    from fp8tpu_torch.quant.policy import e4m3_inference_policy
+    cfg = tiny_config(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
+                      d_ff=256, vocab_size=256, max_seq_len=64)
+    full = decoder(cfg, "cuda", torch.Generator("cuda").manual_seed(0))
+    sd = {k: v.detach() for k, v in full.state_dict().items()}
+    tpm = Decoder(cfg, mesh=world1).cuda()
+    local = local_shards(sd, world1, DECODER_PARAM_RULES,
+                         icp.build_module_table(full))
+    toks = torch.randint(0, 256, (4, 32), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(1))
+    pol = e4m3_inference_policy()
+    before = cast_kernel.launches
+    with torch.no_grad():
+        got = icp.quantized_apply(tpm, pol, toks, params=local, mesh=world1)
+        launched = cast_kernel.launches - before
+        want = icp.quantized_apply(full, pol, toks, params=sd)
+    assert launched > 0
+    assert torch.equal(got, want)
+
+
+def test_tp_engines_on_the_card_match_the_unsharded_ones(world1):
+    """The ring engine and the self-draft paged engine (K4's page walk)
+    over a one-rank mesh: K3, K4 and K6 launched, the unsharded engines'
+    tokens and speculation counts."""
+    import dataclasses
+    from fp8tpu_torch.kernels import paged_attention as k4
+    from fp8tpu_torch.serve import (Request, ServeConfig, ServingEngine,
+                                    random_serve_params)
+    cfg = tiny_config(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
+                      d_ff=256, vocab_size=128, max_seq_len=64)
+    scfg = ServeConfig(model=cfg, kv_fmt="int8")
+    kcfg = dataclasses.replace(scfg, paged_decode_impl="kernel")
+    params = random_serve_params(cfg, "e4m3")
+    reqs = lambda: [Request(uid=i, prompt=[3 + i, 5, 8], max_new_tokens=6)
+                    for i in range(3)]
+    counts = lambda: (qmatmul.dequant_launches, k4.launches,
+                      inplace.launches)
+    for c, kw in ((scfg, {}), (kcfg, dict(use_paged=True, page_size=16,
+                                          draft_params=params, draft_cfg=kcfg,
+                                          k_spec=3))):
+        before = counts()
+        eng = ServingEngine(params, c, n_slots=2, max_seq=64, mesh=world1,
+                            **kw)
+        got = eng.run(reqs())
+        k3, k4n, k6 = (b - a for a, b in zip(before, counts()))
+        ref = ServingEngine(params, c, n_slots=2, max_seq=64, **kw)
+        assert got == ref.run(reqs())
+        assert k3 > 0 and (k4n > 0 if kw else k6 > 0)
+        if kw:
+            assert (eng.spec_accepted, eng.spec_drafted) == \
+                (ref.spec_accepted, ref.spec_drafted)
+
+
+@pytest.mark.parametrize("split", [4, 8])
+def test_k3_and_k4_at_the_serve_cell_shard_shapes(cuda, split):
+    """K3 at a model-4 / model-8 split of the serve cell: a gate column
+    shard (bf16 out) and a down row shard (f32 out, unit scales, as the
+    row-parallel linear runs it) at decode M = 8; K4 on 8 / split KV heads.
+    Each against its plain version."""
+    from fp8tpu_torch.kernels import paged_attention as k4
+    g = torch.Generator().manual_seed(split)
+    x = torch.randn(8, 4096, generator=g).to(torch.bfloat16).to(cuda)
+    w8, s = qmatmul.quantize_weights(
+        (torch.randn(4096, 11008 // split, generator=g) * 0.02).to(cuda),
+        "e4m3")
+    s = s.reshape(-1)
+    got = qmatmul.dequant_matmul(x, w8, s)
+    want = qmatmul.dequant_matmul_plain(x, w8, s)
+    assert bool(((got.float() - want.float()).abs()
+                 <= _product_bound(x, w8.float().abs(), s[None],
+                                   want)).all())
+    h = torch.randn(8, 11008 // split, generator=g).to(torch.bfloat16
+                                                         ).to(cuda)
+    d8, _ = qmatmul.quantize_weights(
+        (torch.randn(11008 // split, 4096, generator=g) * 0.02).to(cuda),
+        "e4m3")
+    ones = torch.ones(4096, device=cuda)
+    got = qmatmul.dequant_matmul(h, d8, ones, torch.float32)
+    want = qmatmul.dequant_matmul_plain(h, d8, ones, torch.float32)
+    assert bool(((got - want).abs()
+                 <= _product_bound(h, d8.float().abs(), ones[None],
+                                   want)).all())
+    kv, G, D, page, mp = 8 // split, 4, 128, 64, 8
+    pool = torch.randint(-127, 128, (8 * mp, 2, 1, page * kv, D),
+                         generator=g, dtype=torch.int8).to(cuda)
+    sc = (torch.rand(pool.shape[:-1], generator=g) * 0.02 + 0.004).to(cuda)
+    q = (torch.randn(8, kv * G, D, generator=g) * 0.7).to(
+        torch.bfloat16).to(cuda)
+    table = torch.arange(8 * mp, dtype=torch.int32, device=cuda
+                         ).reshape(8, mp)
+    lens = torch.full((8,), 444, dtype=torch.int32, device=cuda)
+    args = (q, pool, sc, table, lens, 0)
+    acc, m, l = k4.paged_decode_attention(*args, page_size=page,
+                                          kv_heads=kv)
+    acc_p, m_p, l_p = k4.paged_decode_attention_plain(*args, page_size=page,
+                                                      kv_heads=kv)
+    assert float((m - m_p).abs().max()) <= 1e-3 * float(m_p.abs().max())
+    assert float((l - l_p).abs().max()) <= 1e-3 * float(l_p.abs().max())
+    assert float((acc - acc_p).abs().max()) <= 2e-2 * float(
+        acc_p.abs().max())

@@ -249,6 +249,7 @@ def test_port_imports_nothing_of_jax_or_fp8tpu():
             "fp8tpu_torch/tools/__init__.py",
             "fp8tpu_torch/tools/kexp_convert.py",
             "fp8tpu_torch/tools/bench_fp8_linear.py",
+            "fp8tpu_torch/tools/bench_tp.py",
             "fp8tpu_torch/cmodel.py", "fp8tpu_torch/linen.py",
             "fp8tpu_torch/models/resnet.py",
             "fp8tpu_torch/kernels/adam8.py",

@@ -2249,7 +2249,7 @@ def phase_train(record, batch: int):
     # GEMMs; pre-passes over the forward's activation and weight, dX's g
     # and weight and dW's g (dW reads the transposed im2col as it is)
     want = {"bitexact": 0, "hw": 52, "uncast": 104, "prepass": 260,
-            "cast_kernel": 0}
+            "prepass_block": 0, "cast_kernel": 0}
     if any(p != want for p in per_step):
         problems.append(f"launches per step {per_step}, expected {want}")
     if not all(map(math.isfinite, losses)):
@@ -10582,10 +10582,420 @@ def tp_k6_row(launches, kv_heads):
             "library_ms": None}, err
 
 
+# (d) the model-parallel FP8 training step (ROADMAP 7c) in the world of one
+TP_TRAIN_BATCH = 8             # sequences of LM's 256 tokens a step
+TP_TRAIN_STEPS = 3
+TP_SR_SALT = 0x2545F491        # K1's block route checks: an SR salt
+TP_P3_LEAF = (768, 2304)       # the large preset's gate kernel, Flax layout
+TP_P3_SPLIT = 4                # its column shards (model 4)
+
+
+def _train_state(params, opt, state):
+    """Parameters, 8-bit moment bytes and scales, count and loss scale of a
+    trainer, cloned."""
+    return ({n: p.detach().clone() for n, p in params.items()},
+            {n: [t.clone() for w in ("m", "v") for t in opt.state[p][w]]
+             for n, p in params.items()}, opt.count, state[1])
+
+
+def tp_train(out, problems, mesh):
+    """(d) ``train_fp8 --training-algo hybrid-gemm --master-fmt fp16 --opt8
+    --emb-fmt e4m3`` at the large preset's width (82.8M parameters, batch
+    TP_TRAIN_BATCH x 256) over the data 1 x seq 1 x model 1 mesh for
+    TP_TRAIN_STEPS steps against the plain step (no mesh): parameters,
+    moment bytes, scales, losses and loss scales bit-equal; K1's and P3's
+    launches counted, their plain versions forbidden.  Then hybrid with hw
+    patching at LM_HW_LAYERS layers and batch LM_HW_BATCH over the mesh:
+    the loss equal to the plain hw-patched step's, every K2 launch of the
+    step within k2_reference.  Returns the main path's launches."""
+    import torch
+    from fp8tpu_torch.kernels import adam8, cast_kernel, qmatmul
+    from fp8tpu_torch.models.transformer import DecoderConfig
+    from fp8tpu_torch.numerics import cast as cast_mod
+    from fp8tpu_torch.numerics import prng
+    from fp8tpu_torch.tools.bench_tp import lm_tokens, run_steps, trainer
+    from fp8tpu_torch.training.mpt import lm_batch
+    dev = torch.device("cuda")
+    cfg = DecoderConfig(**LM)
+    toks = [lm_tokens(cfg, TP_TRAIN_BATCH, i, dev)
+            for i in range(TP_TRAIN_STEPS)]
+    key = prng.key(1)
+    runs, launches = {}, {}
+    for label, m in (("mesh", mesh), ("plain", None)):
+        emu, params, opt, step, state = trainer(cfg, dev, m)
+        adam8.reset_launches()
+        cast_kernel.reset_launches()
+        with _Counting(adam8, "adam8_update_plain", forbid=True), \
+                _Counting(cast_mod, "qdq_plain", forbid=True):
+            params, state, losses, secs = run_steps(
+                step, params, state, [lm_batch(t, m) for t in toks], key,
+                torch.cuda.synchronize)
+        if label == "mesh":
+            launches = {"cast_kernel": cast_kernel.launches,
+                        "cast_kernel_block": cast_kernel.block_launches,
+                        "adam8_update": adam8.launches,
+                        "adam8_split": adam8.split_launches}
+        runs[label] = (_train_state(params, opt, state), losses, secs)
+        del emu, params, opt, step, state
+        torch.cuda.empty_cache()
+    (pm, mm, cm, sm), lm_, tm = runs["mesh"]
+    (pp, mp, cp, sp), lp, tpl = runs["plain"]
+    bad = sum(bytes_differ(pm[n], pp[n]) for n in pp)
+    bad_m = sum(bytes_differ(a, b) for n in mp for a, b in zip(mm[n], mp[n]))
+    same = lm_ == lp and cm == cp and sm == sp
+    print(f"tp (d): the model-parallel step over data 1 x seq 1 x model 1, "
+          f"large preset ({sum(t.numel() for t in pp.values())} parameters)"
+          f", batch {TP_TRAIN_BATCH} x {LM['max_seq_len'] - 1}, "
+          f"{TP_TRAIN_STEPS} steps: losses {lm_} (plain {lp}), loss scale "
+          f"{sm} (plain {sp}); differing bytes: parameters {bad}, 8-bit "
+          f"moments and scales {bad_m} (0 required); wall ms a step "
+          f"{[round(1e3 * t, 2) for t in tm]} against plain "
+          f"{[round(1e3 * t, 2) for t in tpl]}; launches {launches}")
+    if bad or bad_m or not same:
+        problems.append(f"the one-rank model-parallel step is not the plain "
+                        f"step: {bad} / {bad_m} bytes, losses {lm_} / {lp}")
+    if not launches["cast_kernel"] or not launches["adam8_update"]:
+        problems.append(f"the model-parallel step's launches {launches}")
+    del runs, pm, mm, pp, mp
+    torch.cuda.empty_cache()
+
+    # hybrid with hw patching over the mesh, LM_HW_LAYERS layers
+    hcfg = DecoderConfig(**{**LM, "n_layers": LM_HW_LAYERS})
+    batch = lm_tokens(hcfg, LM_HW_BATCH, 9, dev)
+    hw_loss, checked = {}, []
+    launch = qmatmul._launch
+
+    def checking(*args, impl="bitexact", unsplit=False):
+        got = launch(*args, impl=impl, unsplit=unsplit)
+        checked.append(k2_launch_error(got, args, impl))
+        return got
+
+    for label, m in (("mesh", mesh), ("plain", None)):
+        _, params, _, step, state = trainer(hcfg, dev, m, algo="hybrid",
+                                            emb=None, hw=True)
+        k0 = dict(qmatmul.k2_launches)
+        if label == "mesh":
+            qmatmul._launch = checking
+        try:
+            with _Counting(qmatmul, "plain", forbid=True):
+                _, _, loss = step(params, state, lm_batch(batch, m),
+                                  prng.fold_in(key, 7))
+        finally:
+            qmatmul._launch = launch
+        hw_loss[label] = float(loss)
+        if label == "mesh":
+            k2 = {v: qmatmul.k2_launches[v] - k0[v] for v in k0}
+            launches["qdq_matmul_prepass_block"] = k2["prepass_block"]
+        del params, step, state
+    slices = 2 * LM_HW_LAYERS * LM_HW_BATCH * LM["n_heads"]
+    worst = max(checked, default=0.0)
+    print(f"tp (d): hybrid with hw patching over the mesh, {LM_HW_LAYERS} "
+          f"layers, batch {LM_HW_BATCH}: loss {hw_loss['mesh']:.7f} (plain "
+          f"{hw_loss['plain']:.7f}); K2 launches {k2} ({slices} BatchMatmul "
+          f"slices), each against k2_reference: worst {worst:.3e} of the "
+          f"bound (<= 1 required)")
+    if (hw_loss["mesh"] != hw_loss["plain"] or len(checked) != 2 * slices
+            or worst > 1.0):
+        problems.append(f"hw-patched model-parallel step: losses {hw_loss}, "
+                        f"{len(checked)} K2 launches, worst {worst}")
+    out["train"] = {"losses": lm_, "plain_losses": lp, "loss_scale": str(sm),
+                    "bytes_differ": bad + bad_m, "step_ms": [1e3 * t
+                                                             for t in tm],
+                    "plain_step_ms": [1e3 * t for t in tpl],
+                    "launches": launches, "hw_losses": hw_loss,
+                    "hw_k2": k2, "hw_k2_worst": worst}
+    return launches
+
+
+def tp_k1_block_row(out, problems, launches):
+    """K1's block route (e5m2 SR, hashing each element's global index)
+    against its plain version, bit for bit: a column quarter of the
+    (2048, 2304) gate-output gradient, a seq half of an (8, 256, 768)
+    activation, and a contiguous row block (also bit-equal to the salt_at
+    route).  The column block timed.  Returns its kernels row."""
+    import torch
+    from fp8tpu_torch.kernels import cast_kernel
+    from fp8tpu_torch.numerics.cast import qdq_plain, salt_at
+    from fp8tpu_torch.numerics.formats import RoundMode
+    from fp8tpu_torch.parallel.data import Block
+    from fp8tpu_torch.tools import device_ms
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    sr = RoundMode.STOCHASTIC
+    cases = (("column", (2048, 576), Block((2048, 2304), (0, 576))),
+             ("seq", (8, 128, 768), Block((8, 256, 768), (0, 128, 0))),
+             ("contiguous", (4, 256, 768), Block((8, 256, 768), (4, 0, 0))))
+    rows, timed, checks = {}, None, 0
+    for name, shape, blk in cases:
+        x = torch.randn(shape, device="cuda", generator=gen) * 3.0
+        # on the card: a graph replay copies nothing from the host
+        scale = 57344.0 / x.abs().max()
+        b0 = cast_kernel.block_launches
+        got = cast_kernel.cuda_qdq(x, "e5m2", sr, scale, salt=TP_SR_SALT,
+                                   block=blk)
+        routed = cast_kernel.block_launches - b0
+        checks += routed
+        want = qdq_plain(x, "e5m2", sr, scale, salt=TP_SR_SALT, block=blk)
+        bad = bytes_differ(got, want)
+        row = {"shape": shape, "global": blk.shape, "start": blk.start,
+               "bytes_differ": bad, "block_launches": routed}
+        if name == "contiguous":
+            off = blk.contiguous_offset(shape)
+            row["salt_at_differ"] = bytes_differ(got, cast_kernel.cuda_qdq(
+                x, "e5m2", sr, scale,
+                salt=salt_at(TP_SR_SALT, off)))
+            bad += row["salt_at_differ"]
+        if bad or routed != 1:
+            problems.append(f"K1's block route ({name}): {row}")
+        rows[name] = row
+        if name == "column":
+            n = x.numel()
+            timed = {
+                "ms": device_ms(lambda: cast_kernel.cuda_qdq(
+                    x, "e5m2", sr, scale, salt=TP_SR_SALT, block=blk)),
+                "plain_ms": cuda_ms(lambda: qdq_plain(
+                    x, "e5m2", sr, scale, salt=TP_SR_SALT, block=blk),
+                    iters=3, warmup=1),
+                "bound_ms": 8.0 * n / HBM_BYTES_PER_S * 1e3}
+        del x, got, want
+    print(f"tp (d): K1's block route against its plain version: "
+          + "; ".join(f"{k} {v['shape']} of {v['global']} at {v['start']}: "
+                      f"{v['bytes_differ']} differing bytes"
+                      + (f", {v['salt_at_differ']} against the salt_at route"
+                         if "salt_at_differ" in v else "")
+                      for k, v in rows.items())
+          + f" (0 required); the column block: kernel {timed['ms']:.5f} ms, "
+          f"plain {timed['plain_ms']:.4f} ms, bytes bound "
+          f"{timed['bound_ms']:.5f} ms")
+    out["k1_block"] = {"cases": rows, "time": timed}
+    return {"name": "fp8_cast_block (K1's block route: e5m2 SR of a column "
+                    "quarter of the (2048, 2304) gate-output gradient, each "
+                    "element's bits at its global index; off the one-card "
+                    "main path, where a world of one holds every tensor "
+                    "whole: check_launches are this check's)",
+            "route": "cuda",
+            "source": "fp8tpu_torch/kernels/csrc/cast_kernel.cu",
+            "replaces": "fp8tpu/kernels/cast_kernel.py:45",
+            "launches": launches["cast_kernel_block"],
+            "check_launches": checks, "max_abs_err": 0.0,
+            "ms": timed["ms"], "plain_ms": timed["plain_ms"],
+            "bound_ms": timed["bound_ms"], "bound_by": "bytes",
+            "library_ms": None}
+
+
+def tp_k2_block_row(out, problems, launches):
+    """K2's pre-pass block route (a stochastic engine operand that ranks
+    split: e5m2 SR bits at each element's global index) through an
+    identity, where each output is one exact product (as
+    k2_identity_casts), on the bit pipeline and the hw route: bit for bit
+    against its plain version and against the block of the whole
+    operand's K2 call.  A seq half of one (256, 64) attention slice of the
+    large preset and a column quarter of the (2048, 2304) gate output; the
+    column block on the bit pipeline timed.  Returns its kernels row."""
+    import torch
+    from fp8tpu_torch.kernels import qmatmul
+    from fp8tpu_torch.numerics.formats import RoundMode
+    from fp8tpu_torch.parallel.data import Block
+    from fp8tpu_torch.tools import device_ms
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    sr, rne = RoundMode.STOCHASTIC, RoundMode.RNE
+    cases = (("seq", (128, 64), Block((256, 64), (128, 0))),
+             ("column", (2048, 576), Block((2048, 2304), (0, 1152))))
+    rows, timed, checks = {}, None, 0
+    for name, shape, blk in cases:
+        whole = torch.randn(blk.shape, device="cuda", generator=gen) * 3.0
+        r0, c0 = blk.start
+        x = whole[r0:r0 + shape[0], c0:c0 + shape[1]].contiguous()
+        sx = 57344.0 / whole.abs().max()
+        eye = torch.eye(shape[1], device="cuda")
+        for impl in ("bitexact", "hw"):
+            def call(t=x, e=eye, b=blk):
+                return qmatmul.qdq_matmul(t, e, "e5m2", sr, None, rne, sx,
+                                          seed=TP_SR_SALT, impl=impl,
+                                          block_x=b)
+            b0 = qmatmul.k2_launches["prepass_block"]
+            got = call()
+            routed = qmatmul.k2_launches["prepass_block"] - b0
+            checks += routed
+            want = qmatmul.plain(x, eye, "e5m2", sr, None, rne, sx,
+                                 seed=TP_SR_SALT, impl=impl,
+                                 block_x=blk) + 0.0
+            full = qmatmul.qdq_matmul(
+                whole, torch.eye(blk.shape[1], device="cuda"), "e5m2", sr,
+                None, rne, sx, seed=TP_SR_SALT, impl=impl)[
+                r0:r0 + shape[0], c0:c0 + shape[1]]
+            row = {"shape": shape, "global": blk.shape, "start": blk.start,
+                   "plain_differ": bits_equal(got + 0.0, want),
+                   "whole_differ": bits_equal(got + 0.0, full + 0.0),
+                   "block_prepasses": routed}
+            if row["plain_differ"] or row["whole_differ"] or routed != 1:
+                problems.append(f"K2's pre-pass block route ({name}, "
+                                f"{impl}): {row}")
+            rows[f"{name}/{impl}"] = row
+            if name == "column" and impl == "bitexact":
+                # x and I read once, the product written once; one bf16
+                # MMA product a term (x's grid values and I are exact in
+                # bf16)
+                m, k = shape
+                t_bytes = 4.0 * (2 * m * k + k * k) / HBM_BYTES_PER_S * 1e3
+                t_ops = 2.0 * m * k * k / BF16_TC_FLOPS * 1e3
+                timed = {"ms": device_ms(call),
+                         "plain_ms": cuda_ms(lambda: qmatmul.plain(
+                             x, eye, "e5m2", sr, None, rne, sx,
+                             seed=TP_SR_SALT, block_x=blk), iters=3,
+                             warmup=1),
+                         "bound_ms": max(t_bytes, t_ops),
+                         "bound_by": ("operations" if t_ops > t_bytes
+                                      else "bytes")}
+        del whole, x, eye
+    print(f"tp (d): K2's pre-pass block route through an identity: "
+          + "; ".join(f"{k} {v['shape']} of {v['global']} at {v['start']}: "
+                      f"{v['plain_differ']} elements differ from plain, "
+                      f"{v['whole_differ']} from the whole operand's call"
+                      for k, v in rows.items())
+          + f" (0 required); the column block: kernel {timed['ms']:.5f} ms "
+          f"(pre-pass and GEMM), plain {timed['plain_ms']:.4f} ms, bound "
+          f"{timed['bound_ms']:.5f} ms ({timed['bound_by']})")
+    out["k2_block"] = {"cases": rows, "time": timed}
+    return {"name": "qdq_matmul block pre-pass (K2's pre-pass block route: "
+                    "e5m2 SR of a column quarter of the (2048, 2304) gate "
+                    "output through a (576, 576) identity, each element's "
+                    "bits at its global index; off the one-card main path, "
+                    "where a world of one holds every operand whole: "
+                    "check_launches are this check's)",
+            "route": "cuda", "source": "fp8tpu_torch/kernels/csrc/qmatmul.cu",
+            "replaces": "fp8tpu/kernels/qmatmul.py:193",
+            "launches": launches["qdq_matmul_prepass_block"],
+            "check_launches": checks, "max_abs_err": 0.0,
+            "ms": timed["ms"], "plain_ms": timed["plain_ms"],
+            "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
+            "library_ms": None}
+
+
+def tp_p3_split_row(out, problems, launches):
+    """P3's split-block route on the column shards (model TP_P3_SPLIT) of
+    the (768, 2304) gate kernel, each in the layout the optimizer keeps (a
+    (576, 768) torch leaf read as its Flax (768, 576) view): every shard's
+    partial block absmax, their MAX (the all-reduce), then each shard's
+    quantization by the whole leaf's block scales and update, against
+    one-pass P3 on the whole leaf (parameters, the shard's codes, every
+    block's scales) and against the route's plain version, bit for bit.
+    One shard's two passes timed.  Returns its kernels row."""
+    import torch
+    from fp8tpu_torch.kernels import adam8
+    from fp8tpu_torch.parallel.data import Block
+    from fp8tpu_torch.tools import device_ms
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    K, N = TP_P3_LEAF
+    w = N // TP_P3_SPLIT
+    nb = -(-K * N // 256)
+
+    def args_of(count):
+        return adam8.Adam8Args(0.9, 0.999, 1e-8,
+                               *adam8.bias_corrections(0.9, 0.999, count),
+                               weight_decay=1e-4, neg_lr=-1e-3)
+
+    p = torch.randn(K, N, device="cuda", generator=gen) * 0.02
+    st = [torch.zeros(nb, 256, dtype=torch.int8, device="cuda"),
+          torch.zeros(nb, device="cuda"),
+          torch.zeros(nb, 256, dtype=torch.float8_e4m3fn, device="cuda"),
+          torch.zeros(nb, device="cuda")]
+    g1 = torch.randn(K, N, device="cuda", generator=gen) * 1e-2
+    adam8.adam8_update(p, g1, *st, args_of(1), "apply_decay")
+    g2 = torch.randn(K, N, device="cuda", generator=gen) * 1e-2
+    args = args_of(2)
+    ref_p, ref = p.clone(), [t.clone() for t in st]
+    adam8.adam8_update(ref_p, g2, *ref, args, "apply_decay")
+
+    def shards(device):
+        out_ = []
+        for r in range(TP_P3_SPLIT):
+            blk = Block((K, N), (0, r * w))
+            idx = blk.index((K, w), "cuda")
+            pt = p[:, r * w:(r + 1) * w].t().contiguous().to(device)
+            gt = g2[:, r * w:(r + 1) * w].t().contiguous().to(device)
+            out_.append((adam8.SplitLeaf(
+                pt.t(), gt.t(), st[0].reshape(-1)[idx].to(device),
+                st[1].clone().to(device), st[2].reshape(-1)[idx].to(device),
+                st[3].clone().to(device), 0, r * w, N, "apply_decay"), idx))
+        return out_
+
+    def split_step(leaves, amax_fn, apply_fn, device):
+        amax = torch.zeros((2, nb), dtype=torch.int32, device=device)
+        for lf, _ in leaves:
+            part = torch.zeros_like(amax)
+            amax_fn(lf, args, part)
+            amax = torch.maximum(amax, part)
+        for lf, _ in leaves:
+            apply_fn(lf, args, amax)
+
+    s0 = adam8.split_launches
+    kern = shards("cuda")
+    split_step(kern, adam8.adam8_split_amax, adam8.adam8_split_apply, "cuda")
+    split_n = adam8.split_launches - s0
+    plain = shards("cpu")
+    split_step(plain, adam8.adam8_split_amax_plain,
+               adam8.adam8_split_apply_plain, "cpu")
+    bad_one = bad_plain = 0
+    for r, ((lk, idx), (lp, _)) in enumerate(zip(kern, plain)):
+        got = [lk.p, lk.mq, lk.ms, lk.vq, lk.vs]
+        bad_one += sum(bytes_differ(a, b) for a, b in zip(got, [
+            ref_p[:, r * w:(r + 1) * w], ref[0].reshape(-1)[idx], ref[1],
+            ref[2].reshape(-1)[idx], ref[3]]))
+        bad_plain += sum(bytes_differ(a, b) for a, b in zip(
+            got, [lp.p, lp.mq, lp.ms, lp.vq, lp.vs]))
+    lk = kern[0][0]
+    amax = torch.zeros((2, nb), dtype=torch.int32, device="cuda")
+
+    def route():
+        amax.zero_()
+        adam8.adam8_split_amax(lk, args, amax)
+        adam8.adam8_split_apply(lk, args, amax)
+
+    def plain_route():
+        amax.zero_()
+        adam8.adam8_split_amax_plain(lk, args, amax)
+        adam8.adam8_split_apply_plain(lk, args, amax)
+
+    n = K * w
+    timed = {"ms": device_ms(route, iters=4, replays=3),
+             "plain_ms": cuda_ms(plain_route, iters=2, warmup=1),
+             # p, g, the codes and every block's scales and absmax slots,
+             # each read once; p, the codes and the scales written once
+             "bound_ms": (16.0 * n + 24.0 * nb) / HBM_BYTES_PER_S * 1e3}
+    print(f"tp (d): P3's split-block route, {TP_P3_SPLIT} column shards of "
+          f"the {TP_P3_LEAF} gate kernel ({split_n} launches): against "
+          f"one-pass P3 on the whole leaf {bad_one} differing bytes, "
+          f"against its plain version {bad_plain} (0 required); one shard "
+          f"({n} elements, {nb} blocks): kernel {timed['ms']:.5f} ms for "
+          f"both passes, plain {timed['plain_ms']:.4f} ms, bytes bound "
+          f"{timed['bound_ms']:.5f} ms")
+    if bad_one or bad_plain or split_n != 2 * TP_P3_SPLIT:
+        problems.append(f"P3's split-block route: {bad_one} / {bad_plain} "
+                        f"bytes, {split_n} launches")
+    out["p3_split"] = {"bytes_differ_one_pass": bad_one,
+                       "bytes_differ_plain": bad_plain, "time": timed}
+    return {"name": "adam8_split (P3's split-block route: a column quarter "
+                    "of the (768, 2304) gate kernel, partial block absmax "
+                    "then the update by the whole leaf's scales, both "
+                    "passes; off the one-card main path, where a world of "
+                    "one holds every leaf whole: check_launches are this "
+                    "check's)",
+            "route": "cuda", "source": "fp8tpu_torch/kernels/csrc/adam8.cu",
+            "replaces": "fp8tpu/training/opt8.py:104 (XLA ops, no TPU "
+                        "kernel)",
+            "launches": launches["adam8_split"], "check_launches": split_n,
+            "max_abs_err": 0.0,
+            "ms": timed["ms"], "plain_ms": timed["plain_ms"],
+            "bound_ms": timed["bound_ms"], "bound_by": "bytes",
+            "library_ms": None}
+
+
 def phase_tp(record):
     """Tensor parallelism inside the decoder over NCCL in a world of one:
     7a's PTQ forward (K1), 7b's engines (K3, K4, K6), K3 and K4 at the
-    shard shapes.  Returns the kernels record's rows."""
+    shard shapes, 7c's model-parallel training step (K1, P3; K2 with hw
+    patching) and the block routes of K1 and P3.  Returns the kernels
+    record's rows."""
     import torch.distributed as dist
     from fp8tpu_torch.parallel import init_world, make_mesh
     init_world("cuda")
@@ -10598,6 +11008,12 @@ def phase_tp(record):
         if k6_err:
             problems.append("K6 at the TP ring differs from plain")
         rows += tp_shapes(out, problems, launches, params) + [k6]
+        del params
+        mesh = make_mesh(data=1, seq=1, model=1)
+        train = tp_train(out, problems, mesh)
+        rows += [tp_k1_block_row(out, problems, train),
+                 tp_k2_block_row(out, problems, train),
+                 tp_p3_split_row(out, problems, train)]
     finally:
         dist.destroy_process_group()
     record["tp"] = out

@@ -11,8 +11,8 @@ import torch
 from fp8tpu_torch._device import resolve_device
 
 # Where a flag of a JAX script waits for a part the port does not have.
-PARALLEL = ("tensor-parallel training (ROADMAP §1 item 7c); data "
-            "parallelism runs with --data-parallel")
+MOE_PARALLEL = ("capacity routing over the global batch needs the MoE "
+                "decoder under MOE_PARAM_RULES (ROADMAP §1 item 7d)")
 
 
 class Log:

@@ -23,8 +23,24 @@ Every rank draws the global batch and trains on its rows; the step is the
 global step (``training.make_train_step(shard=...)``: global per-tensor
 scales and SR bits, the loss over the global batch, gradients summed
 before the wtgrad casts), so every rank holds the same parameters.  Rank 0
-logs and checkpoints.  Model parallelism (>1) and MoE under data
-parallelism wait for tensor parallelism inside the models and raise.
+logs and checkpoints.
+
+``--model-parallel N`` (alone, or with ``--data-parallel M``: M x N
+processes) splits the decoder over a (data, model) mesh by
+``DECODER_PARAM_RULES``, as the JAX script's ``make_mesh(data=, model=)``
+does: each rank holds its shards of the parameters and of the optimizer
+state, and the step is the global step (``initialize(mesh=)``)::
+
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m fp8tpu_torch.examples.train_fp8 --data-parallel 2 \
+        --model-parallel 2 --device cpu
+
+A checkpoint of such a run holds the global tree, as the JAX script's
+does, and restores into a run of any layout.  Sequence parallelism is
+reached through the API (``make_mesh(seq=)``,
+``training.mpt.lm_batch``), as the JAX script has no flag for it.  MoE
+under a mesh waits for the MoE decoder under ``MOE_PARAM_RULES`` and
+raises.
 """
 
 from __future__ import annotations
@@ -40,15 +56,17 @@ import torch.nn.functional as F
 
 from fp8tpu_torch import initialize
 from fp8tpu_torch._device import resolve_device
-from fp8tpu_torch.examples._common import (PARALLEL, Log, add_device_flag,
-                                           from_flax, random_decoder, sync)
+from fp8tpu_torch.examples._common import (MOE_PARALLEL, Log,
+                                           add_device_flag, from_flax,
+                                           random_decoder, sync)
 from fp8tpu_torch.models import variables_from_flax, variables_to_flax
 from fp8tpu_torch.models.transformer import DecoderConfig, moe_aux_loss
 from fp8tpu_torch.numerics import prng
 from fp8tpu_torch.training import (adamw_8bit, init_train_state,
                                    make_train_step)
-from fp8tpu_torch.utils import (MetricLogger, restore_checkpoint,
-                                save_checkpoint)
+from fp8tpu_torch.training.mpt import lm_batch, lm_loss
+from fp8tpu_torch.utils import (MetricLogger, global_params, local_params,
+                                restore_checkpoint, save_checkpoint)
 
 
 CHECKPOINT_EVERY = 25     # steps between checkpoints, as the JAX script
@@ -122,31 +140,38 @@ def loss_of(model, moe: bool, global_tokens: Optional[int] = None):
 
 
 def data_parallel(args, device):
-    """(this rank's ``BatchShard``, its rank) for ``--data-parallel N``:
-    the world must be N processes (torchrun's), raising before any process
-    group is made when it is not; (None, 0) for N = 1."""
-    n = args.data_parallel
+    """(this rank's ``BatchShard`` or None, its ``Mesh`` or None, its rank)
+    for ``--data-parallel M`` and ``--model-parallel N``: the world must be
+    M x N processes (torchrun's), raising before any process group is made
+    when it is not; a ``BatchShard`` for data parallelism alone (PR 20's
+    step), a (data, model) mesh with N > 1; (None, None, 0) for one
+    process."""
+    dp, mp = args.data_parallel, args.model_parallel
+    n = dp * mp
     if n == 1:
-        return None, 0
+        return None, None, 0
     if args.n_experts:
         raise NotImplementedError(
-            "--data-parallel with --n-experts: capacity routing over the "
-            "global batch needs the MoE decoder under MOE_PARAM_RULES "
-            "(ROADMAP §1 item 7d)")
+            "--data-parallel / --model-parallel with --n-experts: "
+            + MOE_PARALLEL)
     world = (dist.get_world_size() if dist.is_initialized()
              else int(os.environ.get("WORLD_SIZE", 1)))
+    flags = f"--data-parallel {dp}" + (
+        f" --model-parallel {mp}" if mp > 1 else "")
     if world != n:
         raise ValueError(
-            f"--data-parallel {n} runs as {n} processes (this world has "
-            f"{world}): python -m torch.distributed.run --nproc-per-node "
-            f"{n} -m fp8tpu_torch.examples.train_fp8 --data-parallel {n}")
-    if args.batch_size % n:
+            f"{flags} runs as {n} processes (this world has {world}): "
+            f"python -m torch.distributed.run --nproc-per-node {n} -m "
+            f"fp8tpu_torch.examples.train_fp8 {flags}")
+    if args.batch_size % dp:
         raise ValueError(f"--batch-size {args.batch_size} does not split "
-                         f"over {n} ranks")
+                         f"over {dp} ranks")
     from fp8tpu_torch.parallel import BatchShard, init_world, make_mesh
     init_world(device)
-    shard = BatchShard.of(make_mesh(data=n).group("data"))
-    return shard, shard.index
+    if mp == 1:
+        shard = BatchShard.of(make_mesh(data=n).group("data"))
+        return shard, None, shard.index
+    return None, make_mesh(data=dp, model=mp), dist.get_rank()
 
 
 def _adamw_tree(opt: torch.optim.AdamW, params: Dict):
@@ -169,49 +194,117 @@ def _load_adamw(opt: torch.optim.AdamW, tree, params: Dict):
                         "step": tree["count"][n].to(torch.float32)}
 
 
+def tp_model(model, mesh):
+    """The tensor-parallel form of ``model`` over ``mesh``, holding this
+    rank's shards of its parameters (``parallel.local_shards``)."""
+    from fp8tpu_torch.models.transformer import Decoder
+    from fp8tpu_torch.parallel import DECODER_PARAM_RULES, local_shards
+    from fp8tpu_torch.quant.interceptor import build_module_table
+    dev = next(model.parameters()).device
+    with torch.device(dev):
+        tpm = Decoder(model.cfg, mesh=mesh)
+    tpm.load_state_dict(local_shards(
+        {k: v.detach() for k, v in model.state_dict().items()}, mesh,
+        DECODER_PARAM_RULES, build_module_table(model)))
+    return tpm
+
+
+def _opt_tree(args, optimizer, params, emulator):
+    """The optimizer's part of a checkpoint: the global tree under a mesh
+    (collective: every rank calls it)."""
+    if args.opt8:
+        return (optimizer if emulator.mesh is None
+                else optimizer.global_chain_state())
+    tree = _adamw_tree(optimizer, params)
+    if emulator.mesh is not None:
+        for k in ("mu", "nu"):
+            tree[k] = global_params(tree[k], emulator.shards,
+                                    emulator.module_table)
+    return tree
+
+
+def _params_tree(params, emulator):
+    if emulator.mesh is None:
+        return params
+    return global_params(params, emulator.shards, emulator.module_table)
+
+
+def save(args, step, params, optimizer, opt_state, emulator, rank):
+    """A checkpoint of the global state, written by rank 0 (every rank
+    takes part in gathering it under a mesh)."""
+    tree = _params_tree(params, emulator)
+    inner = _opt_tree(args, optimizer, params, emulator)
+    if rank == 0:
+        save_checkpoint(args.checkpoint_dir, step,
+                        variables_to_flax(tree, emulator.module_table),
+                        (inner, opt_state[1]), policy=emulator.policy)
+
+
+def resume(args, params, optimizer, opt_state, emulator):
+    """The state of ``args.resume_step`` loaded into this rank's
+    parameters and optimizer (its blocks of the global tree under a
+    mesh); returns (opt_state, step)."""
+    inner = _opt_tree(args, optimizer, params, emulator)
+    out = restore_checkpoint(args.checkpoint_dir, args.resume_step, {
+        "params": variables_to_flax(_params_tree(params, emulator),
+                                    emulator.module_table),
+        "opt_state": (inner, opt_state[1])})
+    full = variables_from_flax(out["state"]["params"])
+    if emulator.mesh is not None:
+        full = local_params(full, emulator.shards, emulator.module_table)
+    with torch.no_grad():
+        for n, t in full.items():
+            params[n].copy_(t)
+    got = out["state"]["opt_state"][0]
+    if not args.opt8:
+        if emulator.mesh is not None:
+            for k in ("mu", "nu"):
+                got[k] = local_params(got[k], emulator.shards,
+                                      emulator.module_table)
+        _load_adamw(optimizer, got, params)
+    elif emulator.mesh is not None:
+        optimizer.load_global_chain_state(got)
+    return (optimizer, out["state"]["opt_state"][1]), out["meta"]["step"]
+
+
 def main(argv=None, variables: Optional[Dict] = None) -> Dict:
     args = parse(argv)
-    if args.model_parallel > 1:
-        raise NotImplementedError("--model-parallel > 1 needs " + PARALLEL)
     device = resolve_device(args.device)
-    shard, rank = data_parallel(args, device)
-    if shard is not None and device.type == "cuda":
+    shard, mesh, rank = data_parallel(args, device)
+    if (shard is not None or mesh is not None) and device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
     log_line = Log(quiet=rank != 0)
     cfg = config(args)
     model = from_flax(random_decoder(cfg, device, seed=0), variables)
+    if mesh is not None:
+        model = tp_model(model, mesh)
 
     emulator = initialize(model, training_algo=args.training_algo,
                           master_fmt=args.master_fmt, emb_fmt=args.emb_fmt,
-                          device=device)
+                          device=device, mesh=mesh)
     params = dict(model.named_parameters())
     if args.opt8:
         optimizer = adamw_8bit(params, args.lr,       # int8 / e4m3 moments
-                               module_table=emulator.module_table)
+                               module_table=emulator.module_table,
+                               shards=emulator.shards)
     else:
         optimizer = torch.optim.AdamW(params.values(), lr=args.lr,
                                       weight_decay=1e-4)
     rows = args.batch_size // args.data_parallel
-    step_fn = make_train_step(
-        emulator, loss_of(model, args.n_experts > 0,
-                          None if shard is None
-                          else args.batch_size * (args.seq_len - 1)),
-        shard=shard)
+    if mesh is not None:
+        step_fn = make_train_step(emulator, lm_loss)
+    else:
+        step_fn = make_train_step(
+            emulator, loss_of(model, args.n_experts > 0,
+                              None if shard is None
+                              else args.batch_size * (args.seq_len - 1)),
+            shard=shard)
     opt_state = init_train_state(optimizer)
 
     start_step = 0
     if args.checkpoint_dir and args.resume_step is not None:
-        inner = optimizer if args.opt8 else _adamw_tree(optimizer, params)
-        out = restore_checkpoint(args.checkpoint_dir, args.resume_step, {
-            "params": variables_to_flax(params, emulator.module_table),
-            "opt_state": (inner, opt_state[1])})
-        with torch.no_grad():
-            for n, t in variables_from_flax(out["state"]["params"]).items():
-                params[n].copy_(t)
-        if not args.opt8:
-            _load_adamw(optimizer, out["state"]["opt_state"][0], params)
-        opt_state = (optimizer, out["state"]["opt_state"][1])
-        start_step = out["meta"]["step"]
+        opt_state, start_step = resume(args, params, optimizer, opt_state,
+                                       emulator)
         log_line(f"resumed from step {start_step}")
 
     key = prng.key(0)
@@ -221,6 +314,8 @@ def main(argv=None, variables: Optional[Dict] = None) -> Dict:
         batch = batch_of(key, step, args, cfg.vocab_size, device)
         if shard is not None:
             batch = batch[rank * rows:(rank + 1) * rows]
+        elif mesh is not None:
+            batch = lm_batch(batch, mesh)
         sync(device)
         t0 = time.perf_counter()
         params, opt_state, loss = step_fn(params, opt_state, batch,
@@ -232,12 +327,8 @@ def main(argv=None, variables: Optional[Dict] = None) -> Dict:
                    / step_s[-1])
         if step % 10 == 0:
             log_line(f"step {step}: {log}")
-        if (args.checkpoint_dir and step and step % CHECKPOINT_EVERY == 0
-                and rank == 0):
-            inner = optimizer if args.opt8 else _adamw_tree(optimizer, params)
-            save_checkpoint(args.checkpoint_dir, step,
-                            variables_to_flax(params, emulator.module_table),
-                            (inner, opt_state[1]), policy=emulator.policy)
+        if args.checkpoint_dir and step and step % CHECKPOINT_EVERY == 0:
+            save(args, step, params, optimizer, opt_state, emulator, rank)
     log_line(f"final: {log}")
     tokens = args.batch_size * args.seq_len
     return {"lines": log_line.lines, "losses": losses, "step_s": step_s,

@@ -39,6 +39,18 @@ its data; both give the plain version's bits.
 :func:`adam8_update` is one leaf a launch (the functional
 ``scale_by_adam_8bit``); :func:`adam8_update_many` every leaf of a
 :func:`leaf_table` in one launch (``Adam8W.step``).
+
+The split-block route (:func:`adam8_split_amax`, :func:`adam8_split_apply`)
+takes a tensor-parallel rank's block of a leaf whose moment blocks cross
+ranks (a column shard of a Dense kernel: the blocks are 256 elements of
+the global flat leaf in the JAX package's layout).  The rank stores its
+own elements' codes and every block's scale; a block's new scale is the
+MAX over the ranks of their partial absmax, so the update is two
+launches with one all-reduce between them: the partial absmax of the
+updated moments (as magnitude bits, whose integer max is the plain
+version's amax), then the quantization by the reduced blocks' scales and
+the update itself.  The padding of a last block belongs to no rank and
+adds nothing to its absmax.
 """
 
 from __future__ import annotations
@@ -49,7 +61,8 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-from fp8tpu_torch.numerics.blockquant import dequant_blocks, quant_blocks
+from fp8tpu_torch.numerics.blockquant import (block_scale, dequant_blocks,
+                                              quant_blocks, quant_given)
 from fp8tpu_torch.numerics.cast import _flush
 
 from . import _build
@@ -61,15 +74,17 @@ MODES = {"apply": 0, "apply_decay": 1, "store": 2}
 WALKS = {"vector": 0, "strided": 1, "tile": 2}
 
 # Launches of P3 since the last reset_launches(), and the leaves they
-# covered.
+# covered; the split-block route's launches apart.
 launches = 0
 leaves_covered = 0
+split_launches = 0
 
 
 def reset_launches() -> None:
-    global launches, leaves_covered
+    global launches, leaves_covered, split_launches
     launches = 0
     leaves_covered = 0
+    split_launches = 0
 
 
 class Adam8Args(NamedTuple):
@@ -220,7 +235,10 @@ def _lib():
         + [ctypes.c_void_p, ctypes.c_void_p]
     lib.adam8_probe.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                                 ctypes.c_void_p, ctypes.c_void_p]
-    for fn in (lib.adam8_update, lib.adam8_probe):
+    lib.adam8_split.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 \
+        + [ctypes.c_longlong] * 8 + [ctypes.c_int] \
+        + [ctypes.c_float] * 9 + [ctypes.c_void_p]
+    for fn in (lib.adam8_update, lib.adam8_probe, lib.adam8_split):
         fn.restype = ctypes.c_int
     return lib
 
@@ -424,6 +442,156 @@ def adam8_update_many(leaves: Sequence[Leaf], args: Adam8Args,
                 table.table.shape[0], None, table.units, table.tiles, args,
                 routes)
     return table
+
+
+# -- the split-block route ----------------------------------------------------
+
+class SplitLeaf(NamedTuple):
+    """A rank's block of a leaf whose moment blocks cross ranks: ``p`` and
+    ``g`` the local 2-D view (f32, views allowed, one shape and strides),
+    ``mq`` / ``vq`` the codes of its elements (the view's row-major order,
+    int8 / e4m3), ``ms`` / ``vs`` every block's scale of the global leaf;
+    element (r, c) of the view is global flat index (r0 + r) N + c0 + c of
+    a leaf N wide."""
+
+    p: torch.Tensor
+    g: torch.Tensor
+    mq: torch.Tensor
+    ms: torch.Tensor
+    vq: torch.Tensor
+    vs: torch.Tensor
+    r0: int
+    c0: int
+    N: int
+    mode: str = "apply"
+
+
+def split_blocks(leaf: SplitLeaf) -> torch.Tensor:
+    """The global block of each local element (int64, the view's order)."""
+    rows, cols = leaf.p.shape
+    r = torch.arange(rows, device=leaf.p.device)[:, None] + leaf.r0
+    c = torch.arange(cols, device=leaf.p.device)[None, :] + leaf.c0
+    return ((r * leaf.N + c) // BLOCK).reshape(-1)
+
+
+def _split_moments(leaf: SplitLeaf, args: Adam8Args):
+    """(m, v, block of each element) of a split leaf's step, as f32 (the
+    plain version: :func:`adam_moments`' arithmetic element by element,
+    each with its block's old scale)."""
+    b1, omb1, b2, omb2, _, _, _, _, _ = args.f32()
+    blk = split_blocks(leaf)
+    gf = leaf.g.to(torch.float32).reshape(-1)
+    dm = dequant_blocks(leaf.mq.reshape(-1, 1), leaf.ms[blk]).reshape(-1)
+    dv = dequant_blocks(leaf.vq.reshape(-1, 1), leaf.vs[blk]).reshape(-1)
+    m = _add(_mul(b1, dm), _mul(omb1, gf))
+    v = _add(_mul(b2, dv), _mul(_mul(omb2, gf), gf))
+    return m, v, blk
+
+
+def _bits_amax(x: torch.Tensor, blk: torch.Tensor, nb: int) -> torch.Tensor:
+    bits = (x.contiguous().view(torch.int32) & 0x7FFFFFFF).to(torch.int64)
+    out = torch.zeros(nb, dtype=torch.int64, device=x.device)
+    return out.scatter_reduce_(0, blk, bits, "amax").to(torch.int32)
+
+
+def _split_check(leaf: SplitLeaf, amax: torch.Tensor) -> int:
+    p, g, mq, ms, vq, vs = leaf[:6]
+    nb = ms.numel()
+    if (p.ndim != 2 or g.shape != p.shape or g.stride() != p.stride()
+            or mq.numel() != p.numel() or vq.numel() != p.numel()
+            or vs.numel() != nb or tuple(amax.shape) != (2, nb)
+            or amax.dtype != torch.int32 or not amax.is_contiguous()
+            or not all(t.is_contiguous() for t in (mq, ms, vq, vs))):
+        raise ValueError("a split leaf needs a 2-D view p / g, one code a "
+                         "local element, every block's scale, and an "
+                         "int32 (2, nblocks) contiguous amax")
+    if leaf.mode not in MODES:
+        raise ValueError(f"adam8_split: unknown mode {leaf.mode!r}")
+    return nb
+
+
+def _split_launch(which: int, leaf: SplitLeaf, amax: torch.Tensor,
+                  args: Adam8Args, ms_old, vs_old) -> None:
+    global split_launches
+    p = leaf.p
+    if p.dtype != torch.float32 or leaf.g.dtype != torch.float32:
+        raise ValueError("adam8_split takes f32 p and g on the card")
+    err = _lib().adam8_split(
+        which, p.data_ptr(), leaf.g.data_ptr(), leaf.mq.data_ptr(),
+        leaf.vq.data_ptr(), leaf.ms.data_ptr(), leaf.vs.data_ptr(),
+        ms_old.data_ptr(), vs_old.data_ptr(), amax.data_ptr(), p.numel(),
+        p.shape[1], p.stride(0), p.stride(1), leaf.N, leaf.r0, leaf.c0,
+        leaf.ms.numel(), MODES[leaf.mode], *args.f32(),
+        torch.cuda.current_stream(p.device).cuda_stream)
+    _build.check(err, "adam8_split kernel")
+    split_launches += 1
+
+
+def adam8_split_amax_plain(leaf: SplitLeaf, args: Adam8Args,
+                           amax: torch.Tensor) -> None:
+    """The plain version of the split-block route's first pass (any
+    device): ``amax`` (int32 (2, nblocks)) takes the max of itself and of
+    the magnitude bits of each block's local updated moments (m's row,
+    then v's)."""
+    m, v, blk = _split_moments(leaf, args)
+    nb = leaf.ms.numel()
+    amax[0] = torch.maximum(amax[0], _bits_amax(m, blk, nb))
+    amax[1] = torch.maximum(amax[1], _bits_amax(v, blk, nb))
+
+
+def adam8_split_apply_plain(leaf: SplitLeaf, args: Adam8Args,
+                            amax: torch.Tensor) -> None:
+    """The plain version of the second pass (any device): every block's
+    new scales from the reduced ``amax`` (``max(amax, 1e-30) / 127`` and
+    ``/ 448``), the local codes by them, and the update of ``p`` by
+    ``leaf.mode``, in place."""
+    m, v, blk = _split_moments(leaf, args)
+    _, _, _, _, eps, bc1, bc2, wd, neg_lr = args.f32()
+    sm = block_scale(amax[0].view(torch.float32), "int8")
+    sv = block_scale(amax[1].view(torch.float32), "e4m3")
+    upd = _div(_div(m, torch.full_like(m, bc1)),
+               _add(_sqrt(_div(v, torch.full_like(v, bc2))), eps))
+    leaf.mq.copy_(quant_given(m, sm[blk], "int8").reshape(leaf.mq.shape))
+    leaf.vq.copy_(quant_given(v, sv[blk], "e4m3").reshape(leaf.vq.shape))
+    leaf.ms.copy_(sm)
+    leaf.vs.copy_(sv)
+    p = leaf.p
+    u = upd.reshape(p.shape)
+    if leaf.mode == "store":
+        p.copy_(u)
+    else:
+        if leaf.mode == "apply_decay":
+            u = _add(u, _mul(wd, p))
+        p.copy_(_add(p, _mul(neg_lr, u)).to(p.dtype))
+
+
+def adam8_split_amax(leaf: SplitLeaf, args: Adam8Args,
+                     amax: torch.Tensor) -> None:
+    """The first pass of the split-block route: ``amax`` (int32 (2,
+    nblocks), zeros) takes the max of the magnitude bits of each block's
+    local updated moments (m's row, then v's).  P3's route on CUDA
+    tensors, :func:`adam8_split_amax_plain` on CPU tensors."""
+    _split_check(leaf, amax)
+    if leaf.p.numel() == 0:
+        return
+    if not leaf.p.is_cuda:
+        adam8_split_amax_plain(leaf, args, amax)
+        return
+    _split_launch(0, leaf, amax, args, leaf.ms, leaf.vs)
+
+
+def adam8_split_apply(leaf: SplitLeaf, args: Adam8Args,
+                      amax: torch.Tensor) -> None:
+    """The second pass: the blocks' scales from the reduced ``amax``, the
+    local codes by them and the update of ``p``, in place.  P3's route on
+    CUDA tensors, :func:`adam8_split_apply_plain` on CPU tensors."""
+    _split_check(leaf, amax)
+    if leaf.p.numel() == 0:
+        return
+    if not leaf.p.is_cuda:
+        adam8_split_apply_plain(leaf, args, amax)
+        return
+    _split_launch(1, leaf, amax, args, leaf.ms.clone(), leaf.vs.clone())
 
 
 # -- probes of the fast route ---------------------------------------------------

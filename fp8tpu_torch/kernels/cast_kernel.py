@@ -2,7 +2,9 @@
 and plain version.
 
 Replaces ``fp8tpu/kernels/cast_kernel.py::_kernel_body``.  Every
-``fake_quant`` and ``qdq`` call on a CUDA tensor is one launch of it.  The
+``fake_quant`` and ``qdq`` call on a CUDA tensor is one launch of it (on
+its block route where SR bits hash the global indices of a column or
+sequence block of a split tensor, ``fp8_cast_block``).  The
 plain version is :func:`fp8tpu_torch.numerics.cast.qdq_plain`, which the
 wrapper never calls: a CUDA tensor launches the kernel or raises.
 
@@ -33,13 +35,16 @@ MODE_IDS = {RoundMode.RNE: 0, RoundMode.STOCHASTIC: 1, RoundMode.RNAZ: 2,
             RoundMode.RNTZ: 3, RoundMode.RPINF: 4, RoundMode.RNINF: 5,
             RoundMode.RTZ: 6}
 
-# Launches of the kernel since the last reset_launches().
+# Launches of the kernel since the last reset_launches(), and of them
+# those of its block route.
 launches = 0
+block_launches = 0
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, block_launches
     launches = 0
+    block_launches = 0
 
 
 def variant_code(fmt_name: str, mode: RoundMode, daz: bool = False) -> int:
@@ -97,33 +102,67 @@ def vector_path(n: int, ptrs, inner: int = 1, nscale: int = 1) -> bool:
             and all(p is None or p % 16 == 0 for p in ptrs))
 
 
+_ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+         ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_int,
+         ctypes.c_void_p]
+
+
 @functools.cache
 def _fn():
     lib = _build.load("cast_kernel")
     fn = lib.fp8_cast
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_uint, ctypes.c_int,
-                   ctypes.c_void_p]
+    fn.argtypes = _ARGS
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _block_fn():
+    fn = _build.load("cast_kernel").fp8_cast_block
+    fn.argtypes = _ARGS[:-1] + [ctypes.c_longlong * 7, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def block_args(block, shape):
+    """The block route's 7 arguments for a ``parallel.data.Block`` of a
+    tensor of ``shape``: its runs (``Block.segments``, at most three)
+    padded to three, as (L1, L2, G1, G2, s0, s1, s2), the global extents
+    and starts mod 2^32 (the hash takes a 32-bit index, and the index's
+    sums and products wrap alike).  Raises on more than three runs (a
+    tensor split over data, seq and model with a leading unsplit
+    dimension cannot arise: data splits dimension 0)."""
+    runs = block.segments(shape)
+    if len(runs) > 3:
+        raise ValueError(f"a block of {len(runs)} runs; K1 takes three")
+    runs = [(1, 1, 0)] * (3 - len(runs)) + list(runs)
+    (_, _, s0), (l1, g1, s1), (l2, g2, s2) = runs
+    m = 0xFFFFFFFF
+    return (l1, l2, g1 & m, g2 & m, s0 & m, s1 & m, s2 & m)
 
 
 def cuda_qdq(x: torch.Tensor, fmt_name: str, mode: RoundMode = RoundMode.RNE,
              scale=1.0, daz: bool = False,
              random_bits: Optional[torch.Tensor] = None,
-             salt: Optional[int] = None, block_size: int = 0) -> torch.Tensor:
+             salt: Optional[int] = None, block_size: int = 0,
+             block=None) -> torch.Tensor:
     """One launch of K1 on a CUDA tensor; the arguments of
-    :func:`~fp8tpu_torch.numerics.cast.qdq_plain`.  Float32 result of
-    ``x``'s shape."""
-    global launches
+    :func:`~fp8tpu_torch.numerics.cast.qdq_plain`.  With ``block`` the
+    kernel's block route: it hashes each element's global index, which it
+    computes from the block's runs (:func:`block_args`).  Float32 result
+    of ``x``'s shape."""
+    global launches, block_launches
     if salt is not None and random_bits is None:
         require_hash_stream("cast kernel")
     if not x.is_cuda:
         raise ValueError("cuda_qdq takes a CUDA tensor")
     if block_size < 0:
         raise ValueError(f"block_size {block_size} < 0")
+    if block is not None and (salt is None or random_bits is not None
+                              or block_size):
+        raise ValueError("the block route hashes its bits from a salt, "
+                         "with no per-block scales")
     code = variant_code(fmt_name, mode, daz)
     xf = x.to(torch.float32).contiguous()
     y = torch.empty_like(xf)
@@ -139,10 +178,16 @@ def cuda_qdq(x: torch.Tensor, fmt_name: str, mode: RoundMode = RoundMode.RNE,
     rptr = rbits.data_ptr() if rbits is not None else None
     vec = vector_path(xf.numel(), (xf.data_ptr(), y.data_ptr(), rptr),
                       inner, nscale)
-    err = _fn()(code, xf.data_ptr(), y.data_ptr(), xf.numel(),
-                scales.data_ptr(), inner, nscale, block_size, rptr, rb_mode,
-                (salt or 0) & 0xFFFFFFFF, int(vec),
-                torch.cuda.current_stream(x.device).cuda_stream)
+    args = (code, xf.data_ptr(), y.data_ptr(), xf.numel(), scales.data_ptr(),
+            inner, nscale, block_size, rptr, rb_mode,
+            (salt or 0) & 0xFFFFFFFF, int(vec))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if block is None:
+        err = _fn()(*args, stream)
+    else:
+        err = _block_fn()(*args, (ctypes.c_longlong * 7)(
+            *block_args(block, x.shape)), stream)
+        block_launches += 1
     _build.check(err, f"cast kernel ({fmt_name}, {mode.value})")
     launches += 1
     return y

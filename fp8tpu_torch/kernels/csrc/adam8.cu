@@ -803,6 +803,126 @@ __global__ void probe_kernel(int kind, const float* __restrict__ divisors,
     }
 }
 
+// -- the split-block route: a rank's block of a leaf whose moment blocks
+// cross ranks (a column shard of a tensor-parallel Dense kernel) ----------
+//
+// The moments' blocks are 256 elements of the GLOBAL flat leaf (the JAX
+// package's layout), so a block of a column shard holds elements of every
+// model rank, and its new scale is the max over the ranks of their partial
+// absmax.  Two passes, with one MAX all-reduce of the partial absmax bits
+// between them on the host: SPLIT_AMAX computes each local element's new
+// m and v, maxes their magnitudes' bits (the order of a max never
+// matters; a NaN above +inf, as warp_amax) over the lanes of a warp that
+// share a block (a warp's 32 elements fall in one to three blocks, in
+// runs of lanes: the global index grows with the local one), and the
+// first lane of each run atomically maxes them into its block's slot;
+// SPLIT_APPLY computes them again, quantizes them by the blocks' scales
+// from the reduced absmax, and applies the update.  The rank's codes are
+// its own elements', in the local view's row-major order; it holds every
+// block's scale.  Element (r, c) of the local (rows, cols) view is global
+// index (r0 + r) N + c0 + c of a leaf N wide.  The arithmetic is the slow
+// route's, op for op (slow_block), one element a thread.
+
+enum SplitPass : int { SPLIT_AMAX = 0, SPLIT_APPLY = 1 };
+
+struct SplitLeaf {
+    float* p;
+    const float* g;
+    int8_t* mq;
+    uint8_t* vq;
+    float* ms;                  // written by SPLIT_APPLY (every block's)
+    float* vs;
+    const float* ms_old;        // the scales before the step
+    const float* vs_old;
+    unsigned* amax;             // 2 nb: m's blocks, then v's
+    long long n, cols, s0, s1, N, r0, c0, nb;
+    int mode;
+};
+
+__device__ __forceinline__ void split_moments(const SplitLeaf& L, long long i,
+                                              const Args& a, long long& blk,
+                                              float& g, float& m, float& v) {
+    const long long r = i / L.cols, c = i - r * L.cols;
+    blk = ((L.r0 + r) * L.N + L.c0 + c) >> 8;
+    g = L.g[r * L.s0 + c * L.s1];
+    const float sm = fp8::flush(L.ms_old[blk]), sv = fp8::flush(L.vs_old[blk]);
+    const float dm = fp8::mul_ftz((float)L.mq[i], sm);
+    const float dv = fp8::mul_ftz(e4m3_value_nan(L.vq[i]), sv);
+    m = add_ftz(fp8::mul_ftz(a.b1, dm), fp8::mul_ftz(a.omb1, g));
+    v = add_ftz(fp8::mul_ftz(a.b2, dv),
+                fp8::mul_ftz(fp8::mul_ftz(a.omb2, g), g));
+}
+
+// SPLIT_AMAX over one warp's elements i0 .. i0 + 31 (i0 a multiple of 32,
+// the lanes past n idle): each block's max over its run of lanes, one
+// atomicMax a run and moment.
+__device__ __forceinline__ void split_amax_warp(const SplitLeaf& L,
+                                                const Args& a, long long i0) {
+    const int lane = threadIdx.x & 31;
+    const long long i = i0 + lane;
+    long long blk = -1 - lane;          // an idle lane shares no block
+    unsigned bm = 0u, bv = 0u;
+    if (i < L.n) {
+        float g, m, v;
+        split_moments(L, i, a, blk, g, m, v);
+        bm = __float_as_uint(m) & 0x7FFFFFFFu;
+        bv = __float_as_uint(v) & 0x7FFFFFFFu;
+    }
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+        const long long ob = __shfl_down_sync(0xFFFFFFFFu, blk, off);
+        const unsigned om = __shfl_down_sync(0xFFFFFFFFu, bm, off);
+        const unsigned ov = __shfl_down_sync(0xFFFFFFFFu, bv, off);
+        if (lane + off < 32 && ob == blk) {
+            bm = max(bm, om);
+            bv = max(bv, ov);
+        }
+    }
+    const long long prev = __shfl_up_sync(0xFFFFFFFFu, blk, 1);
+    if (blk >= 0 && (lane == 0 || prev != blk)) {
+        atomicMax(L.amax + blk, bm);
+        atomicMax(L.amax + L.nb + blk, bv);
+    }
+}
+
+__global__ void __launch_bounds__(THREADS)
+split_kernel(SplitLeaf L, Args a, int pass) {
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    const long long t0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (pass == SPLIT_AMAX) {
+        // warp-uniform trips: every lane of a warp takes each shuffle
+        for (long long i0 = t0 & ~31LL; i0 < L.n; i0 += stride)
+            split_amax_warp(L, a, i0);
+        return;
+    }
+    for (long long b = t0; b < L.nb; b += stride) {
+        L.ms[b] = block_scale(__uint_as_float(L.amax[b]), 127.0f);
+        L.vs[b] = block_scale(__uint_as_float(L.amax[L.nb + b]), 448.0f);
+    }
+    for (long long i = t0; i < L.n; i += stride) {
+        long long blk;
+        float g, m, v;
+        split_moments(L, i, a, blk, g, m, v);
+        const float sm2 = block_scale(__uint_as_float(L.amax[blk]), 127.0f);
+        const float sv2 = block_scale(__uint_as_float(L.amax[L.nb + blk]),
+                                      448.0f);
+        L.mq[i] = int8_code(fp8::div_ftz(m, sm2));
+        L.vq[i] = e4m3_code(fp8::div_ftz(v, sv2));
+        const float u = fp8::div_ftz(
+            fp8::div_ftz(m, a.bc1),
+            add_ftz(sqrt_ftz(fp8::div_ftz(v, a.bc2)), a.eps));
+        const long long r = i / L.cols, c = i - r * L.cols;
+        float* pp = L.p + r * L.s0 + c * L.s1;
+        if (L.mode == 2) {
+            *pp = u;
+        } else {
+            const float d = L.mode == 1
+                ? add_ftz(u, fp8::mul_ftz(a.wd, *pp)) : u;
+            *pp = add_ftz(*pp, fp8::mul_ftz(a.neg_lr, d));
+        }
+    }
+}
+
 Args make_args(float b1, float omb1, float b2, float omb2, float eps,
                float bc1, float bc2, float wd, float neg_lr) {
     return Args{b1, omb1, b2, omb2, eps, bc1, bc2, wd, neg_lr};
@@ -855,5 +975,40 @@ extern "C" int adam8_probe(int kind, const void* divisors, int ndiv,
                    reinterpret_cast<cudaStream_t>(stream)>>>(
         kind, reinterpret_cast<const float*>(divisors), ndiv,
         reinterpret_cast<unsigned long long*>(out));
+    return (int)cudaGetLastError();
+}
+
+// The split-block route (see split_kernel): ``pass`` 0 maxes the partial
+// absmax bits of the local elements' new moments into ``amax`` (2 nb
+// uint32, zeroed by the caller, m's then v's), 1 quantizes them by the
+// blocks' scales from the reduced ``amax`` (writing every block's scale
+// into ms / vs, read from ms_old / vs_old, which must not alias them) and
+// applies the update to p (mode 0, 1 or 2 as adam8_update).  p and g: the
+// local (n / cols, cols) view, element (r, c) at r s0 + c s1; mq, vq: n
+// codes; r0, c0, N place the view in the global leaf (N wide, nb blocks).
+extern "C" int adam8_split(int pass, void* p, const void* g, void* mq,
+                           void* vq, void* ms, void* vs, const void* ms_old,
+                           const void* vs_old, void* amax, long long n,
+                           long long cols, long long s0, long long s1,
+                           long long N, long long r0, long long c0,
+                           long long nb, int mode, float b1, float omb1,
+                           float b2, float omb2, float eps, float bc1,
+                           float bc2, float wd, float neg_lr, void* stream) {
+    if (pass < 0 || pass > 1 || mode < 0 || mode > 2 || n < 1 || cols < 1
+        || n % cols || nb < 1 || N < 1)
+        return (int)cudaErrorInvalidValue;
+    SplitLeaf L{reinterpret_cast<float*>(p), reinterpret_cast<const float*>(g),
+                reinterpret_cast<int8_t*>(mq), reinterpret_cast<uint8_t*>(vq),
+                reinterpret_cast<float*>(ms), reinterpret_cast<float*>(vs),
+                reinterpret_cast<const float*>(ms_old),
+                reinterpret_cast<const float*>(vs_old),
+                reinterpret_cast<unsigned*>(amax), n, cols, s0, s1, N, r0,
+                c0, nb, mode};
+    long long blocks = (n + THREADS - 1) / THREADS;
+    const long long cap = 8LL * fp8::sm_count();
+    if (blocks > cap) blocks = cap;
+    split_kernel<<<(unsigned)blocks, THREADS, 0,
+                   reinterpret_cast<cudaStream_t>(stream)>>>(
+        L, make_args(b1, omb1, b2, omb2, eps, bc1, bc2, wd, neg_lr), pass);
     return (int)cudaGetLastError();
 }

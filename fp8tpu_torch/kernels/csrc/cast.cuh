@@ -147,6 +147,32 @@ __device__ __forceinline__ uint32_t sr_hash(uint32_t salt, uint32_t idx) {
   return h >> 16;
 }
 
+// A block of a larger row-major tensor as runs (parallel/data.py::Block.
+// segments, padded to three): local flat index i = (i0 L1 + i1) L2 + i2 is
+// the global index ((s0 + i0) G1 + s1 + i1) G2 + s2 + i2, mod 2^32 as
+// sr_hash takes it.  Built from the 7 values (L1, L2, G1, G2, s0, s1, s2)
+// of kernels/cast_kernel.py::block_args.
+struct BlockRuns {
+  long long L1, L2;
+  uint32_t g1, g2, s0, s1, s2;
+};
+
+inline BlockRuns block_runs(const long long* a) {
+  return BlockRuns{a[0], a[1], static_cast<uint32_t>(a[2]),
+                   static_cast<uint32_t>(a[3]), static_cast<uint32_t>(a[4]),
+                   static_cast<uint32_t>(a[5]), static_cast<uint32_t>(a[6])};
+}
+
+__device__ __forceinline__ uint32_t block_index(long long i,
+                                                const BlockRuns& b) {
+  const long long q = i / b.L2;
+  const uint32_t i2 = static_cast<uint32_t>(i - q * b.L2);
+  const long long i0 = q / b.L1;
+  const uint32_t i1 = static_cast<uint32_t>(q - i0 * b.L1);
+  return ((b.s0 + static_cast<uint32_t>(i0)) * b.g1 + b.s1 + i1) * b.g2
+         + b.s2 + i2;
+}
+
 // -- fp32 <-> fp16 bit patterns ----------------------------------------------
 
 __device__ __forceinline__ int f32_to_f16_bits(float f) {

@@ -15,7 +15,14 @@
 // Stochastic rounding: bits come from a tensor, or are hashed here from a
 // 32-bit salt and the element's flat index (sr_hash), the same bits that
 // numerics/cast.py::sr_bits gives, so SR is bit-exact against the plain
-// torch version.
+// torch version.  The block route (fp8_cast_block) casts a rank's block of
+// a larger tensor split over data, sequence and model (a column block, a
+// sequence chunk): it hashes each element's index in the global tensor,
+// computed here from the block's runs (local extents L1, L2, global
+// extents G1, G2, starts s0, s1, s2; element (i0, i1, i2) of the block is
+// global ((s0 + i0) G1 + s1 + i1) G2 + s2 + i2, mod 2^32 as the hash takes
+// it).  A contiguous block, s1 = s2 = 0 with L = G, is the salt's stream
+// at offset s0 G1 G2: the SALT_BITS route's bits.
 //
 // Bound on the H100: bytes, 4 read and 4 written per element at 3.35 TB/s,
 // once the work per element fits the SMs' issue rate: 0.62 SM cycles an
@@ -49,7 +56,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kGroups = 2;       // groups of 4 elements a thread has in flight
 
-enum Bits { NO_BITS = 0, TENSOR_BITS = 1, SALT_BITS = 2 };
+enum Bits { NO_BITS = 0, TENSOR_BITS = 1, SALT_BITS = 2, BLOCK_SALT = 3 };
 enum Scale { SCALAR = 0, BROADCAST = 1 };
 
 // floor(n / d) for n < 2^31: (n * m) >> shift, m = ceil(2^shift / d),
@@ -75,12 +82,35 @@ struct Layout {                  // element i reads scale[(i / inner) % nscale]
   FastDiv inner, nscale;
 };
 
-template <int RB>
+// A block of a larger tensor (see the header, fp8::BlockRuns): local
+// element i is (i0, i1, i2) with i = (i0 L1 + i1) L2 + i2.
+struct BlockIdx {
+  FastDiv l2, l1;                // the vector path's divisions (i < 2^31)
+  fp8::BlockRuns r;              // the scalar path's
+};
+
+__device__ __forceinline__ uint32_t global_index(uint32_t i,
+                                                 const BlockIdx& b) {
+  const uint32_t q = div(i, b.l2);
+  const uint32_t i2 = i - q * b.l2.d;
+  const uint32_t i0 = div(q, b.l1);
+  const uint32_t i1 = q - i0 * b.l1.d;
+  return ((b.r.s0 + i0) * b.r.g1 + b.r.s1 + i1) * b.r.g2 + b.r.s2 + i2;
+}
+
+__device__ __forceinline__ uint32_t global_index(long long i,
+                                                 const BlockIdx& b) {
+  return fp8::block_index(i, b.r);
+}
+
+template <int RB, typename I>
 __device__ __forceinline__ uint32_t rand_bits(const int* rbits, uint32_t salt,
-                                              long long i) {
+                                              I i, const BlockIdx& blk) {
   if constexpr (RB == TENSOR_BITS) return static_cast<uint32_t>(rbits[i]);
   else if constexpr (RB == SALT_BITS)
     return fp8::sr_hash(salt, static_cast<uint32_t>(i));
+  else if constexpr (RB == BLOCK_SALT)
+    return fp8::sr_hash(salt, global_index(i, blk));
   else return 0u;
 }
 
@@ -91,7 +121,7 @@ template <int F, int M, bool D, int RB, int SC>
 __global__ void __launch_bounds__(kThreads)
 cast_vec(const float* __restrict__ x, float* __restrict__ y, uint32_t n,
          const float* __restrict__ scale, Layout lay, uint32_t per,
-         const int* __restrict__ rbits, uint32_t salt) {
+         const int* __restrict__ rbits, uint32_t salt, BlockIdx blk) {
   const uint32_t ng = n / 4;
   const uint32_t g0 = blockIdx.x * per;
   const uint32_t g1 = min(g0 + per, ng);
@@ -126,9 +156,10 @@ cast_vec(const float* __restrict__ x, float* __restrict__ y, uint32_t n,
       uint32_t rb[4] = {0u, 0u, 0u, 0u};
       if constexpr (RB == TENSOR_BITS) {
         rb[0] = r[k].x; rb[1] = r[k].y; rb[2] = r[k].z; rb[3] = r[k].w;
-      } else if constexpr (RB == SALT_BITS) {
+      } else if constexpr (RB == SALT_BITS || RB == BLOCK_SALT) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) rb[e] = fp8::sr_hash(salt, i0 + e);
+        for (int e = 0; e < 4; ++e)
+          rb[e] = rand_bits<RB>(rbits, salt, i0 + e, blk);
       }
       float out[4];
       bool bad = false;
@@ -157,7 +188,7 @@ cast_vec(const float* __restrict__ x, float* __restrict__ y, uint32_t n,
     const uint32_t i = 4 * ng + threadIdx.x;
     scale_at(i);
     y[i] = fp8::cast_elem<F, M, D>(x[i], s, inv,
-                                   rand_bits<RB>(rbits, salt, i), fast);
+                                   rand_bits<RB>(rbits, salt, i, blk), fast);
   }
 }
 
@@ -166,7 +197,8 @@ template <int F, int M, bool D, int RB, int SC>
 __global__ void __launch_bounds__(kThreads)
 cast_scalar(const float* __restrict__ x, float* __restrict__ y, long long n,
             const float* __restrict__ scale, long long inner,
-            long long nscale, const int* __restrict__ rbits, uint32_t salt) {
+            long long nscale, const int* __restrict__ rbits, uint32_t salt,
+            BlockIdx blk) {
   const long long nthreads = static_cast<long long>(gridDim.x) * blockDim.x;
   float s = scale[0], inv = fp8::recip_ftz(s);
   bool fast = fp8::fast_inv(inv);
@@ -178,7 +210,7 @@ cast_scalar(const float* __restrict__ x, float* __restrict__ y, long long n,
       fast = fp8::fast_inv(inv);
     }
     y[i] = fp8::cast_elem<F, M, D>(x[i], s, inv,
-                                   rand_bits<RB>(rbits, salt, i), fast);
+                                   rand_bits<RB>(rbits, salt, i, blk), fast);
   }
 }
 
@@ -205,7 +237,8 @@ cast_blocked(const float* __restrict__ x, float* __restrict__ y, long long n,
     const bool fast = fp8::fast_inv(inv);
     for (long long i = lo + lane; i < hi; i += 32)
       y[i] = fp8::cast_elem<F, M, D>(x[i], s, inv,
-                                     rand_bits<RB>(rbits, salt, i), fast);
+                                     rand_bits<RB>(rbits, salt, i,
+                                                   BlockIdx{}), fast);
   }
 }
 
@@ -221,10 +254,10 @@ template <int F, int M, bool D, int RB, int SC>
 void launch_elementwise(const float* x, float* y, long long n,
                         const float* scale, long long inner, long long nscale,
                         bool vec, const int* rbits, uint32_t salt,
-                        cudaStream_t stream) {
+                        const BlockIdx& blk, cudaStream_t stream) {
   if (!vec) {
     cast_scalar<F, M, D, RB, SC><<<grid_for(n), kThreads, 0, stream>>>(
-        x, y, n, scale, inner, nscale, rbits, salt);
+        x, y, n, scale, inner, nscale, rbits, salt, blk);
     return;
   }
   // Enough blocks for 8 an SM, each a contiguous run of groups that its
@@ -241,23 +274,28 @@ void launch_elementwise(const float* x, float* y, long long n,
   Layout lay{make_div(static_cast<uint32_t>(inner)),
              make_div(static_cast<uint32_t>(nscale))};
   cast_vec<F, M, D, RB, SC><<<blocks, kThreads, 0, stream>>>(
-      x, y, static_cast<uint32_t>(n), scale, lay, per, rbits, salt);
+      x, y, static_cast<uint32_t>(n), scale, lay, per, rbits, salt, blk);
 }
 
 template <int F, int M, bool D, int RB>
 void launch_rb(const float* x, float* y, long long n, const float* scale,
                long long inner, long long nscale, int block_size, bool vec,
-               const int* rbits, uint32_t salt, cudaStream_t stream) {
-  if (block_size > 0) {
-    const long long work = ((n + block_size - 1) / block_size) * 32;
-    cast_blocked<F, M, D, RB><<<grid_for(work), kThreads, 0, stream>>>(
-        x, y, n, block_size, rbits, salt);
-  } else if (nscale == 1) {
+               const int* rbits, uint32_t salt, const BlockIdx& blk,
+               cudaStream_t stream) {
+  if constexpr (RB != BLOCK_SALT) {      // the block route has no blocks
+    if (block_size > 0) {
+      const long long work = ((n + block_size - 1) / block_size) * 32;
+      cast_blocked<F, M, D, RB><<<grid_for(work), kThreads, 0, stream>>>(
+          x, y, n, block_size, rbits, salt);
+      return;
+    }
+  }
+  if (nscale == 1) {
     launch_elementwise<F, M, D, RB, SCALAR>(x, y, n, scale, inner, nscale,
-                                            vec, rbits, salt, stream);
+                                            vec, rbits, salt, blk, stream);
   } else {
     launch_elementwise<F, M, D, RB, BROADCAST>(x, y, n, scale, inner, nscale,
-                                               vec, rbits, salt, stream);
+                                               vec, rbits, salt, blk, stream);
   }
 }
 
@@ -265,36 +303,38 @@ template <int F, int M, bool D>
 void launch(const float* x, float* y, long long n, const float* scale,
             long long inner, long long nscale, int block_size, bool vec,
             const int* rbits, int rb_mode, uint32_t salt,
-            cudaStream_t stream) {
+            const BlockIdx& blk, cudaStream_t stream) {
   // Only the stochastic instances (and float16's non-RNE path, which is
   // one) read bits.
   if constexpr (M == fp8::STOCHASTIC) {
     if (rb_mode == TENSOR_BITS) {
       launch_rb<F, M, D, TENSOR_BITS>(x, y, n, scale, inner, nscale,
-                                      block_size, vec, rbits, salt, stream);
+                                      block_size, vec, rbits, salt, blk,
+                                      stream);
       return;
     }
     if (rb_mode == SALT_BITS) {
       launch_rb<F, M, D, SALT_BITS>(x, y, n, scale, inner, nscale,
-                                    block_size, vec, rbits, salt, stream);
+                                    block_size, vec, rbits, salt, blk,
+                                    stream);
+      return;
+    }
+    if (rb_mode == BLOCK_SALT) {
+      launch_rb<F, M, D, BLOCK_SALT>(x, y, n, scale, inner, nscale,
+                                     block_size, vec, rbits, salt, blk,
+                                     stream);
       return;
     }
   }
   launch_rb<F, M, D, NO_BITS>(x, y, n, scale, inner, nscale, block_size, vec,
-                              rbits, salt, stream);
+                              rbits, salt, blk, stream);
 }
 
-}  // namespace
-
-// y[i] = cast(x[i]) for the variant ``code`` (fp8::code_of).  rb_mode: 0 no
-// bits, 1 bits from ``rbits`` (int32, one per element), 2 hashed from
-// ``salt``.  vec: 1 when n < 2^31 and x, y and rbits are 16-byte aligned
-// (the wrapper decides), for 16-byte accesses.  Returns the launch's
-// cudaError_t, or -1 for an unknown code.
-extern "C" int fp8_cast(int code, const float* x, float* y, long long n,
-                        const float* scale, long long inner, long long nscale,
-                        int block_size, const int* rbits, int rb_mode,
-                        unsigned int salt, int vec, void* stream) {
+int cast_entry(int code, const float* x, float* y, long long n,
+               const float* scale, long long inner, long long nscale,
+               int block_size, const int* rbits, int rb_mode,
+               unsigned int salt, int vec, const BlockIdx& blk,
+               void* stream) {
   if (n == 0) return 0;
   if (vec && (n >= (1LL << 31) || inner >= (1LL << 31)
               || nscale >= (1LL << 31)
@@ -308,7 +348,7 @@ extern "C" int fp8_cast(int code, const float* x, float* y, long long n,
 #define FP8_LAUNCH_CASE(F, M, D)                                          \
     case fp8::code_of(F, M, D):                                           \
       launch<F, M, D>(x, y, n, scale, inner, nscale, block_size, vec != 0,\
-                      rbits, rb_mode, salt, s);                           \
+                      rbits, rb_mode, salt, blk, s);                      \
       break;
     FP8_CAST_VARIANTS(FP8_LAUNCH_CASE)
 #undef FP8_LAUNCH_CASE
@@ -316,4 +356,44 @@ extern "C" int fp8_cast(int code, const float* x, float* y, long long n,
       return -1;
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// y[i] = cast(x[i]) for the variant ``code`` (fp8::code_of).  rb_mode: 0 no
+// bits, 1 bits from ``rbits`` (int32, one per element), 2 hashed from
+// ``salt``.  vec: 1 when n < 2^31 and x, y and rbits are 16-byte aligned
+// (the wrapper decides), for 16-byte accesses.  Returns the launch's
+// cudaError_t, or -1 for an unknown code.
+extern "C" int fp8_cast(int code, const float* x, float* y, long long n,
+                        const float* scale, long long inner, long long nscale,
+                        int block_size, const int* rbits, int rb_mode,
+                        unsigned int salt, int vec, void* stream) {
+  if (rb_mode == BLOCK_SALT) return static_cast<int>(cudaErrorInvalidValue);
+  return cast_entry(code, x, y, n, scale, inner, nscale, block_size, rbits,
+                    rb_mode, salt, vec, BlockIdx{}, stream);
+}
+
+// The block route: fp8_cast with bits hashed from ``salt`` at each element's
+// global index (rb_mode 2 asks for it; no per-block scales).  blk: L1, L2
+// (local extents of the inner runs, L1 L2 dividing n), G1, G2 (global
+// extents), s0, s1, s2 (starts), the last five mod 2^32 (see the header).
+extern "C" int fp8_cast_block(int code, const float* x, float* y,
+                              long long n, const float* scale,
+                              long long inner, long long nscale,
+                              int block_size, const int* rbits, int rb_mode,
+                              unsigned int salt, int vec,
+                              const long long* blk, void* stream) {
+  if (rb_mode != SALT_BITS || block_size != 0 || blk[0] < 1 || blk[1] < 1
+      || n % (blk[0] * blk[1]) != 0
+      || (vec && blk[0] * blk[1] >= (1LL << 31)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  BlockIdx b{};
+  if (vec) {
+    b.l1 = make_div(static_cast<uint32_t>(blk[0]));
+    b.l2 = make_div(static_cast<uint32_t>(blk[1]));
+  }
+  b.r = fp8::block_runs(blk);
+  return cast_entry(code, x, y, n, scale, inner, nscale, block_size, rbits,
+                    BLOCK_SALT, salt, vec, b, stream);
 }

@@ -36,7 +36,9 @@
 //   NCHW activation or gradient as (pixels, channels)) and writes K-major
 //   planes.  Stochastic operands draw the counter hash of the salt over
 //   the element's row-major index in the operand (numerics/cast.py::
-//   sr_bits_from_salt), the stream of the JAX package's CPU route.
+//   sr_bits_from_salt), the stream of the JAX package's CPU route; an
+//   operand that is a rank's block of a split tensor hashes each
+//   element's global index instead (fp8::BlockRuns, as K1's block route).
 // * The GEMM (k2_gemm) multiplies bf16 planes on the tensor cores with
 //   mma.sync.m16n8k16 (bf16 in, f32 accumulate), keeping the plane
 //   products whose indices sum to at most 2: 1 MMA for two 1-plane
@@ -88,6 +90,8 @@ struct View {
   long long rows, cols;
   long long rg, r0, r1, cg, c0, c1;
   long long ir, ic;            // the SR index of (r, c): r * ir + c * ic
+  int blocked;                 // the SR index is then blk's global one
+  fp8::BlockRuns blk;
 };
 
 __device__ __forceinline__ long long view_off(long long i, long long g,
@@ -191,9 +195,13 @@ k2_prepass(View V, bf16* out, long long ld, long long plane, int planes,
     for (int i = 0; i < 8; ++i) {
       const long long c = c0 + i;
       float g = 0.0f;
-      if (c < V.cols)
-        g = grid_value<CODE>(tile[rr][cc0 + i], s, code, salt,
-                             r * V.ir + c * V.ic);
+      if (c < V.cols) {
+        long long idx = r * V.ir + c * V.ic;
+        if constexpr (CODE == kRuntime) {
+          if (V.blocked) idx = fp8::block_index(idx, V.blk);
+        }
+        g = grid_value<CODE>(tile[rr][cc0 + i], s, code, salt, idx);
+      }
       split3(g, h[i], m[i], l[i]);
     }
     uint16_t* dst = reinterpret_cast<uint16_t*>(out) + r * ld + c0;
@@ -635,16 +643,24 @@ int launch_gemm(const Gemm& g, cudaStream_t stream) {
 // The cast pre-pass: ``planes`` (1 or 3) bf16 planes [planes][rows][ld] of
 // the view's grid values (cast ``code``, -1 uncast; ``scale`` one value,
 // or one per row when ``per_row``; ``salt`` < 0: zero random bits), zero
-// past ``cols``.  Returns the launch's cudaError_t.
+// past ``cols``.  ``blk``: null, or the operand is a block of a larger
+// tensor and its SR index (r * ir + c * ic, row-major in the operand) is
+// mapped to the global one by the 7 values of fp8::block_runs.  Returns
+// the launch's cudaError_t.
 extern "C" int fp8_k2_prepass(const float* p, long long rows, long long cols,
                               long long rg, long long r0, long long r1,
                               long long cg, long long c0, long long c1,
                               long long ir, long long ic, void* out,
                               long long ld, int planes, int code,
                               const float* scale, int per_row,
-                              long long salt, void* stream) {
+                              long long salt, const long long* blk,
+                              void* stream) {
   if (rows == 0 || ld == 0) return 0;
-  const View v{p, rows, cols, rg, r0, r1, cg, c0, c1, ir, ic};
+  if (blk != nullptr && (blk[0] < 1 || blk[1] < 1 || salt < 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const View v{p, rows, cols, rg, r0, r1, cg, c0, c1, ir, ic,
+               blk != nullptr,
+               blk != nullptr ? fp8::block_runs(blk) : fp8::BlockRuns{1, 1}};
   const dim3 grid(static_cast<unsigned>((ld + kPrepCols - 1) / kPrepCols),
                   static_cast<unsigned>((rows + kPrepRows - 1) / kPrepRows));
   const int row_fast = r0 == 1 && c0 != 1;

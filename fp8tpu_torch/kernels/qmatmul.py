@@ -11,7 +11,10 @@ bit pipeline for every other format, float16 included), rounding to
 nearest or stochastically.  Stochastic operands take the bits of the JAX
 package's CPU route (``_qdq_matmul_jnp``): the counter hash salted by
 ``fold_in(fold_in(key(0), seed), tag)``, tag 1 for x and 2 for w, over
-the operand's row-major index.
+the operand's row-major index, or, for an operand that is a rank's block
+of a split tensor (``block_x`` / ``block_w``, a ``parallel.data.Block``),
+over each element's index in the whole tensor, as the single-process
+call draws it.
 
 On a CUDA tensor a K2 call is a cast pre-pass over each operand
 (:func:`grid_operand` is its plain version: the cast without its last
@@ -68,15 +71,17 @@ from fp8tpu_torch.numerics.cast import (_flush, _mul, _recip, cast_array,
 from fp8tpu_torch.numerics.formats import FORMATS, RoundMode
 
 from . import _build
-from .cast_kernel import FMT_IDS, variant_code
+from .cast_kernel import FMT_IDS, block_args, variant_code
 
 # Launches of K2's GEMM and of K3 since the last reset_launches(); K2's
 # GEMMs also by variant ("bitexact" and "hw" casts, or "uncast": neither
 # operand cast), and K2's cast pre-passes ("prepass": one for each operand
-# that the GEMM does not read as it is); K3's also by route (the streaming
-# loop's decode form "stream", its "prefill" route, the "general" kernel).
+# that the GEMM does not read as it is; of them "prepass_block" those that
+# hash a block's global indices); K3's also by route (the streaming loop's
+# decode form "stream", its "prefill" route, the "general" kernel).
 launches = 0
-k2_launches = {"bitexact": 0, "hw": 0, "uncast": 0, "prepass": 0}
+k2_launches = {"bitexact": 0, "hw": 0, "uncast": 0, "prepass": 0,
+               "prepass_block": 0}
 dequant_launches = 0
 dequant_routes = {"stream": 0, "prefill": 0, "general": 0}
 
@@ -160,12 +165,14 @@ def _hw_native(fmt, impl) -> bool:
     return impl == "hw" and fmt in HW_KERNEL_FMTS
 
 
-def cast_operand(v, fmt, mode, scale, impl, key, descale=True):
+def cast_operand(v, fmt, mode, scale, impl, key, descale=True, block=None):
     """One operand through the plain casts: K2's cast (``descale=False``
     gives the scaled grid values, see :func:`grid_operand`).  ``key`` is
     the operand's SR key (:func:`sr_key`: the stream ``sr_bits`` draws
-    under ``SR_BITS_IMPL``) or None."""
-    rb = None if key is None else sr_bits(key, v.shape, v.device)
+    under ``SR_BITS_IMPL``) or None; ``block`` (a ``parallel.data.Block``
+    or None) places ``v`` in the tensor whose bits it draws."""
+    rb = None if key is None else sr_bits(key, v.shape, v.device,
+                                          block=block)
     if _hw_native(fmt, impl):
         if mode == RoundMode.STOCHASTIC:
             return hw_sr(v, fmt, scale, rb, descale)
@@ -173,12 +180,12 @@ def cast_operand(v, fmt, mode, scale, impl, key, descale=True):
     return cast_array(v, scale, rb, fmt, mode, descale=descale)
 
 
-def grid_operand(v, fmt, mode, scale, impl, key):
+def grid_operand(v, fmt, mode, scale, impl, key, block=None):
     """The plain version of K2's cast pre-pass: the operand's scaled grid
     values, the cast with its last descale left out (uncast: ``v``)."""
     v = v.to(torch.float32)
     return v if fmt is None else cast_operand(v, fmt, mode, scale, impl,
-                                              key, descale=False)
+                                              key, descale=False, block=block)
 
 
 def descale_kind(fmt, impl) -> int:
@@ -238,7 +245,7 @@ def split_bf16(v: torch.Tensor):
 def plain(x, w, fmt_x: Optional[str] = "e4m3",
           mode_x: RoundMode = RoundMode.RNE, fmt_w: Optional[str] = "e4m3",
           mode_w: RoundMode = RoundMode.RNE, scale_x=1.0, scale_w=1.0,
-          seed: int = 0, impl: str = "bitexact"):
+          seed: int = 0, impl: str = "bitexact", block_x=None, block_w=None):
     """The plain version of K2 (any device): plain casts, then a full-f32
     ``torch.matmul``."""
     sx, sw = _scales(x, w, scale_x, scale_w)
@@ -246,16 +253,16 @@ def plain(x, w, fmt_x: Optional[str] = "e4m3",
     wq = w.to(torch.float32)
     if fmt_x is not None:
         xq = cast_operand(xq, fmt_x, mode_x, sx[0], impl,
-                          sr_key(seed, 1, fmt_x, mode_x))
+                          sr_key(seed, 1, fmt_x, mode_x), block=block_x)
     if fmt_w is not None:
         wq = cast_operand(wq, fmt_w, mode_w, sw.reshape(1, -1), impl,
-                          sr_key(seed, 2, fmt_w, mode_w))
+                          sr_key(seed, 2, fmt_w, mode_w), block=block_w)
     with full_fp32():
         return torch.matmul(xq, wq)
 
 
 def _hw_grid_matmul(x, w, fmt_x, mode_x, fmt_w, mode_w, scale_x, scale_w,
-                    seed):
+                    seed, block_x=None, block_w=None):
     """The "hw" route outside the kernel: each operand cast once onto its
     scaled grid and rounded to bf16 (exact), an f32 contraction of the
     bf16 values (``torch.matmul`` on bf16 tensors would round its result
@@ -264,16 +271,17 @@ def _hw_grid_matmul(x, w, fmt_x, mode_x, fmt_w, mode_w, scale_x, scale_w,
     sx, sw = _scales(x, w, scale_x, scale_w)
     sw = sw.reshape(1, -1)
 
-    def grid(v, fmt, mode, scale, tag):
+    def grid(v, fmt, mode, scale, tag, block):
         v = v.to(device=x.device, dtype=torch.float32)
         key = sr_key(seed, tag, fmt, mode)
         if _hw_native(fmt, "hw"):
             return cast_operand(v, fmt, mode, scale, "hw", key,
-                                descale=False)
-        return _mul(cast_operand(v, fmt, mode, scale, "hw", key), scale)
+                                descale=False, block=block)
+        return _mul(cast_operand(v, fmt, mode, scale, "hw", key,
+                                 block=block), scale)
 
-    xg = grid(x, fmt_x, mode_x, sx[0], 1)
-    wg = grid(w, fmt_w, mode_w, sw, 2)
+    xg = grid(x, fmt_x, mode_x, sx[0], 1, block_x)
+    wg = grid(w, fmt_w, mode_w, sw, 2, block_w)
     with full_fp32():
         out = torch.matmul(xg.to(torch.bfloat16).to(torch.float32),
                            wg.to(torch.bfloat16).to(torch.float32))
@@ -285,7 +293,8 @@ def _fns():
     lib = _build.load("qmatmul")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     prep = lib.fp8_k2_prepass
-    prep.argtypes = [vp] + [i64] * 10 + [vp, i64, i32, i32, vp, i32, i64, vp]
+    prep.argtypes = [vp] + [i64] * 10 + [vp, i64, i32, i32, vp, i32, i64, vp,
+                                         vp]
     prep.restype = i32
     gemm = lib.fp8_k2_gemm
     gemm.argtypes = [vp, i64, i32, i32, vp, i32, vp, i64, i32, i32, vp, i32,
@@ -317,24 +326,32 @@ def _stream(t):
 
 
 def _prepass(src, rows, cols, ld, view, sr_index, planes, code, scale,
-             per_row, salt):
+             per_row, salt, block=None):
     """One K2 pre-pass launch: ``planes`` bf16 planes (planes, rows, ld)
     of ``src``'s grid values, element (r, c) read at ``view`` = (rg, r0,
     r1, cg, c0, c1): (r // rg) * r1 + (r % rg) * r0 plus the same of c
     (a group of 0: r * r0); SR index r * ir + c * ic, ``sr_index`` = (ir,
-    ic)."""
+    ic), the row-major index in ``src``, which with ``block`` (a
+    ``parallel.data.Block`` of ``src``'s shape, for a salted operand) the
+    kernel maps to the global one."""
     if rows > _MAX_ROWS:
         raise ValueError(f"K2 pre-pass: {rows} rows exceed the kernel's grid")
     if salt is not None:
         require_hash_stream("K2 cast pre-pass")
+    runs = None
+    if block is not None and salt is not None:
+        runs = (ctypes.c_longlong * 7)(*block_args(block, src.shape))
     out = torch.empty((planes, rows, ld), dtype=torch.bfloat16,
                       device=src.device)
     err = _fns()[0](src.data_ptr(), rows, cols, *view, *sr_index,
                     out.data_ptr(), ld, planes, code, scale.data_ptr(),
                     int(per_row), -1 if salt is None else salt,
+                    None if runs is None else ctypes.addressof(runs),
                     _stream(src))
     _build.check(err, "K2 cast pre-pass")
     k2_launches["prepass"] += 1
+    if runs is not None:
+        k2_launches["prepass_block"] += 1
     return out
 
 
@@ -386,7 +403,8 @@ def _variant(fmt_x, fmt_w, impl) -> str:
 
 
 def _launch(x, w, fmt_x, mode_x, fmt_w, mode_w, scale_x, scale_w, seed=0,
-            impl="bitexact", unsplit: bool = False, promote=None):
+            impl="bitexact", unsplit: bool = False, promote=None,
+            block_x=None, block_w=None):
     """One K2 call on CUDA tensors: a pre-pass over each operand, read in
     place through its strides (a transposed view is not copied), then the
     GEMM; an uncast x with M contiguous goes to the GEMM as it is.
@@ -410,9 +428,10 @@ def _launch(x, w, fmt_x, mode_x, fmt_w, mode_w, scale_x, scale_w, seed=0,
     a32 = xf if fmt_x is None and _m_contiguous(xf) else None
     a = None if a32 is not None else _prepass(
         xf, m, k, ld, *_matrix_view(xf), pa,
-        _operand_code(fmt_x, mode_x, impl), sx, False, salts[0])
+        _operand_code(fmt_x, mode_x, impl), sx, False, salts[0], block_x)
     b = _prepass(wf, n, k, ld, *_matrix_view(wf, transpose=True), pb,
-                 _operand_code(fmt_w, mode_w, impl), sw, True, salts[1])
+                 _operand_code(fmt_w, mode_w, impl), sw, True, salts[1],
+                 block_w)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     _gemm(a, pa, b, pb, out, m, n, k_tiles,
           (descale_kind(fmt_x, impl), descale_kind(fmt_w, impl)), (sx, sw),
@@ -433,22 +452,31 @@ def qdq_matmul(
     seed: int = 0,
     out_dtype=torch.float32,
     impl: str = "bitexact",
+    block_x=None,
+    block_w=None,
 ) -> torch.Tensor:
     """Fused fake-quant matmul ``qdq(x) @ qdq(w)``.  ``scale_x`` is one
     per-tensor scale, ``scale_w`` a scalar or one scale per output column
     (N,); scales may be CUDA tensors (no host sync).  A ``fmt`` of None
-    leaves that operand uncast.  ``seed`` keys stochastic operands.  K2 on
-    a CUDA tensor, the plain version on the CPU; ``impl="hw"`` with two
-    operands of at most 7 mantissa bits takes the route outside the
-    kernel (see the module docstring)."""
+    leaves that operand uncast.  ``seed`` keys stochastic operands;
+    ``block_x`` / ``block_w`` (a ``parallel.data.Block`` or None) place a
+    stochastic operand in the tensor it is a rank's block of, whose bits
+    it draws at each element's global index.  K2 on a CUDA tensor, the
+    plain version on the CPU; ``impl="hw"`` with two operands of at most 7
+    mantissa bits takes the route outside the kernel (see the module
+    docstring)."""
     _check(x, w, impl)
     args = (x, w, fmt_x, mode_x, fmt_w, mode_w, scale_x, scale_w, seed)
+    # blocks are named only where given: a call without them reaches each
+    # route with the arguments it always had
+    blocks = {k: b for k, b in (("block_x", block_x), ("block_w", block_w))
+              if b is not None}
     if impl == "hw" and _hw_xla_ok(fmt_x, fmt_w):
-        out = _hw_grid_matmul(*args)
+        out = _hw_grid_matmul(*args, **blocks)
     elif x.is_cuda:
-        out = _launch(*args, impl=impl)
+        out = _launch(*args, impl=impl, **blocks)
     else:
-        out = plain(*args, impl=impl)
+        out = plain(*args, impl=impl, **blocks)
     return out.to(out_dtype)
 
 

@@ -23,10 +23,22 @@ the embedding vocabulary-sharded (:class:`VocabEmbed`).  Attention runs
 on the rank's heads; where the group does not split whole KV heads, k / v
 are gathered first, and where it does not split whole query heads the
 attention runs whole on every rank.  A rule that ``_shrink_spec`` repairs
-to replication leaves that layer whole.  Modules carry the split of
-their operands for the quantization interceptor: ``tp_in`` / ``tp_out``,
-the dimension of the input / output split over the model group (None:
-replicated), and ``tp_weight``, the Flax-layout dimension of the weight.
+to replication leaves that layer whole.  With a ``seq`` axis above one
+the sequence is split over the mesh's seq group as well (sequence
+parallelism, ``batch_sharding(seq_parallel=True)``): each rank holds a
+chunk of positions (:func:`parallel.seq_chunk`, the last chunk shorter
+where the length does not divide), its positions and causal-mask rows
+are the chunk's, and the attention BatchMatmuls gather k and v whole
+(:class:`SeqBatchMatmul`); RMSNorm, the MLP and the projections are per
+token.  Every collective carries its backward
+(``parallel.collectives``), so a train step through this form is the
+global step.  Modules carry the split of their operands for the
+quantization interceptor: ``tp_in`` / ``tp_out``, the dimension of the
+input / output split over the model group (None: replicated),
+``tp_weight``, the Flax-layout dimension of the weight, and under a
+sequence split ``seq_in`` / ``seq_out``, the dimension split over the
+seq group (per argument for a BatchMatmul), with ``seq_split``
+(:class:`SeqSplit`).
 """
 
 from __future__ import annotations
@@ -36,14 +48,14 @@ import math
 from typing import Optional
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from fp8tpu_torch._device import full_fp32, resolve_device
 from fp8tpu_torch.linen import Dense, Embed, Module, init_params, remat
 from fp8tpu_torch.ops.wrappers import BatchMatmul
-from fp8tpu_torch.parallel.mesh import gather_last
+from fp8tpu_torch.parallel import collectives as coll
+from fp8tpu_torch.parallel.data import seq_chunk
 from fp8tpu_torch.parallel.moe import top_k_routing
 
 from .resnet import variables_from_flax  # noqa: F401  (same leaf rules)
@@ -138,20 +150,89 @@ class TPLayout:
             lm_head=split("lm_head/kernel", (dm, cfg.vocab_size), 1))
 
     def block(self, t: torch.Tensor) -> torch.Tensor:
-        """This rank's block of the last dimension of a replicated ``t``."""
-        n = t.shape[-1] // self.size
-        return t[..., self.index * n:(self.index + 1) * n]
+        """This rank's block of the last dimension of a replicated ``t``
+        (backward: the blocks gathered)."""
+        return coll.block(t, self.group, -1)
 
     def sum(self, t: torch.Tensor, dtype) -> torch.Tensor:
         """The sum over the group of every rank's ``t`` in f32 (a
         row-parallel product's f32 partials, or a lookup's one nonzero
-        addend), rounded once to ``dtype``."""
-        out = t.to(torch.float32)
-        dist.all_reduce(out, group=self.group)
-        return out.to(dtype)
+        addend), rounded once to ``dtype`` (backward: the identity)."""
+        return coll.sum_f32(t, self.group, dtype)
 
     def gather(self, t: torch.Tensor) -> torch.Tensor:
-        return gather_last(t, self.group)
+        """The ranks' blocks of the last dimension put together (backward:
+        the rank's block)."""
+        return coll.gather(t, self.group, -1)
+
+    def gather_parts(self, t: torch.Tensor) -> torch.Tensor:
+        """:meth:`gather` for a consumer that uses another part on each
+        rank (backward: the rank's block of the summed gradient)."""
+        return coll.gather_parts(t, self.group, -1)
+
+    def column_input(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (replicated over the group) as f32 for a column-parallel
+        product; the backward sums the ranks' partial input gradients in
+        f32 and rounds once to ``x``'s type."""
+        return coll.column_input(x, self.group)
+
+
+class SeqSplit:
+    """The seq group of a mesh (``size`` ranks, this one ``index``) and
+    the global ``length`` of the sequence that the current forward splits
+    over it, which :meth:`Decoder.forward` sets: every offset, mask and
+    gather takes the global length, the last chunk short where it does
+    not divide."""
+
+    def __init__(self, group, size: int, index: int):
+        self.group, self.size, self.index = group, size, index
+        self.length: Optional[int] = None
+
+    @classmethod
+    def of(cls, mesh) -> Optional["SeqSplit"]:
+        """The mesh's seq split, None when its seq axis is one rank."""
+        if mesh.shape.get("seq", 1) == 1:
+            return None
+        return cls(mesh.group("seq"), mesh.shape["seq"], mesh.index("seq"))
+
+    def begin(self, local: int, length: Optional[int]) -> int:
+        """Set the global length (``local`` times the group's size when
+        None) for a forward whose chunk holds ``local`` positions; returns
+        the chunk's first global position."""
+        self.length = local * self.size if length is None else length
+        chunk = seq_chunk(self.length, self.size)
+        start = chunk * self.index
+        if local != max(0, min(chunk, self.length - start)) or local == 0:
+            raise ValueError(f"a chunk of {local} positions on seq rank "
+                             f"{self.index} of {self.size} over "
+                             f"{self.length}")
+        return start
+
+
+class SeqBatchMatmul(BatchMatmul):
+    """The attention's BatchMatmul under a sequence split: ``a`` is the
+    rank's rows (q, or the scores' probabilities), ``b`` a sequence chunk
+    (k transposed, or v) that the module gathers whole along
+    ``gather_dim`` before the product (:meth:`gathered`), inside the
+    interceptor's casts: the iact cast sees the chunk, and the igrad cast
+    the chunk of the ranks' summed gradient.  The product is f32 (the
+    gathered b is f32), rounded once to ``a``'s type, so that the ranks'
+    partial gradients of b are summed before any rounding.  The decoder
+    without a sequence split keeps the plain BatchMatmul."""
+
+    def __init__(self, seq_split: SeqSplit, gather_dim: int):
+        super().__init__()
+        self.seq_split, self.gather_dim = seq_split, gather_dim
+        self.seq_in, self.seq_out = (2, gather_dim), 2
+
+    def gathered(self, b: torch.Tensor) -> torch.Tensor:
+        sp = self.seq_split
+        return coll.seq_gather(b, sp.group, self.gather_dim, sp.length)
+
+    def forward(self, a, b):
+        with full_fp32():
+            return torch.matmul(a.to(torch.float32),
+                                self.gathered(b)).to(a.dtype)
 
 
 def _relayout(t: torch.Tensor, split: bool, want: bool,
@@ -165,9 +246,31 @@ def _relayout(t: torch.Tensor, split: bool, want: bool,
 
 class ColumnDense(Dense):
     """A column-parallel Dense: this rank's output columns, (out/T, in);
-    no collective (the output stays split)."""
+    no collective in the forward (the output stays split).  The input is
+    replicated over the group, so its gradient is the sum of the ranks'
+    partial products: with more than one rank the product is computed in
+    f32 on the layer's-type operands, rounded once to the layer's type,
+    and the partial input gradients are summed in f32 and rounded once
+    (``TPLayout.column_input``), here, below the interceptor's igrad
+    cast.  A group of one computes as the unsharded Dense."""
 
     tp_in, tp_out, tp_weight = None, -1, 1
+
+    def __init__(self, in_features: int, features: int, tp: TPLayout,
+                 use_bias: bool = True, dtype=None):
+        super().__init__(in_features, features, use_bias, dtype)
+        self.tp = tp
+
+    def forward(self, x):
+        if self.tp.size == 1:
+            return super().forward(x)
+        w, b = self.weight, self.bias
+        dt = self.dtype or x.dtype
+        x32 = self.tp.column_input(x.to(dt))
+        w32 = w.to(dt).to(torch.float32)
+        with full_fp32():
+            out = F.linear(x32, w32).to(dt)
+        return out if b is None else out + b.to(dt)
 
 
 class RowDense(Dense):
@@ -219,7 +322,13 @@ class VocabEmbed(Embed):
         return self.tp.sum(rows, rows.dtype)
 
     def attend(self, query):
-        return self.tp.gather(super().attend(query))
+        if self.tp.size == 1:
+            return self.tp.gather(super().attend(query))
+        table = self._table()
+        q32 = self.tp.column_input(query.to(table.dtype))
+        with full_fp32():
+            out = torch.matmul(q32, table.to(torch.float32).t())
+        return self.tp.gather(out.to(table.dtype))
 
 
 def _dense(tp: Optional[TPLayout], split: bool, kind: str, i: int, o: int,
@@ -229,7 +338,7 @@ def _dense(tp: Optional[TPLayout], split: bool, kind: str, i: int, o: int,
     if tp is None or not split:
         return Dense(i, o, use_bias=False, dtype=dt)
     if kind == "column":
-        return ColumnDense(i, o // tp.size, use_bias=False, dtype=dt)
+        return ColumnDense(i, o // tp.size, tp, use_bias=False, dtype=dt)
     return RowDense(i // tp.size, o, tp, use_bias=False, dtype=dt)
 
 
@@ -245,7 +354,8 @@ class RMSNorm(Module):
 
 
 class Attention(Module):
-    def __init__(self, cfg: DecoderConfig, tp: Optional[TPLayout] = None):
+    def __init__(self, cfg: DecoderConfig, tp: Optional[TPLayout] = None,
+                 seq: Optional[SeqSplit] = None):
         super().__init__()
         self.cfg, self.tp = cfg, tp
         dt = cfg.tdtype()
@@ -262,8 +372,12 @@ class Attention(Module):
                              cfg.d_model, KV * D, dt)
         self.v_proj = _dense(tp, tp is not None and tp.kv, "column",
                              cfg.d_model, KV * D, dt)
-        self.attn_scores_matmul = BatchMatmul()
-        self.attn_context_matmul = BatchMatmul()
+        # k arrives transposed (B, H, D, S), v as (B, H, S, D): the
+        # sequence dimension each gathers under a split
+        self.attn_scores_matmul = BatchMatmul() if seq is None \
+            else SeqBatchMatmul(seq, gather_dim=3)
+        self.attn_context_matmul = BatchMatmul() if seq is None \
+            else SeqBatchMatmul(seq, gather_dim=2)
         for bmm in (self.attn_scores_matmul, self.attn_context_matmul):
             bmm.tp_in = bmm.tp_out = 1 if self.heads_local else None
         self.o_proj = _dense(tp, tp is not None and tp.o, "row",
@@ -275,7 +389,9 @@ class Attention(Module):
         cfg, tp = self.cfg, self.tp
         B = t.shape[0]
         if tp is not None and tp.kv and not self.kv_local:
-            t = tp.gather(t)
+            # the rank's query heads use their part of the gathered KV
+            # heads; where every rank runs every head, all of them
+            t = tp.gather_parts(t) if self.heads_local else tp.gather(t)
         return t.reshape(B, S, -1, cfg.head_dim)
 
     def forward(self, x, positions, mask):
@@ -378,10 +494,11 @@ class MoEMLP(Module):
 
 
 class DecoderLayer(Module):
-    def __init__(self, cfg: DecoderConfig, tp: Optional[TPLayout] = None):
+    def __init__(self, cfg: DecoderConfig, tp: Optional[TPLayout] = None,
+                 seq: Optional[SeqSplit] = None):
         super().__init__()
         self.attn_norm = RMSNorm(cfg.d_model, cfg.norm_eps)
-        self.attn = Attention(cfg, tp)
+        self.attn = Attention(cfg, tp, seq)
         self.mlp_norm = RMSNorm(cfg.d_model, cfg.norm_eps)
         if cfg.n_experts > 0:
             self.moe = MoEMLP(cfg)
@@ -406,6 +523,7 @@ class Decoder(Module):
         super().__init__()
         self.cfg = cfg
         tp = self.tp = None if mesh is None else TPLayout.of(cfg, mesh)
+        self.seq_split = None if mesh is None else SeqSplit.of(mesh)
         dt = cfg.tdtype()
         if tp is not None and tp.embed:
             self.embed = VocabEmbed(cfg.vocab_size, cfg.d_model, tp,
@@ -413,19 +531,39 @@ class Decoder(Module):
         else:
             self.embed = Embed(cfg.vocab_size, cfg.d_model, dtype=dt)
         for i in range(cfg.n_layers):
-            self.add_module(f"layer_{i}", DecoderLayer(cfg, tp))
+            self.add_module(f"layer_{i}",
+                            DecoderLayer(cfg, tp, self.seq_split))
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps)
         if not cfg.tie_embeddings:
             self.lm_head = _dense(tp, tp is not None and tp.lm_head,
                                   "column", cfg.d_model, cfg.vocab_size, dt)
+        if self.seq_split is not None:
+            # every module below the decoder takes and gives (B, S, ...)
+            # activations, split over seq along dim 1, but the attention's
+            # BatchMatmuls, whose operands say their own
+            for m in self.modules():
+                if (m is not self and isinstance(m, Module)
+                        and not isinstance(m, SeqBatchMatmul)):
+                    m.seq_split = self.seq_split
+                    m.seq_in = m.seq_out = 1
 
-    def forward(self, tokens, positions: Optional[torch.Tensor] = None):
+    def forward(self, tokens, positions: Optional[torch.Tensor] = None,
+                seq_len: Optional[int] = None):
+        """``tokens`` (B, S); under a sequence split the rank's chunk of a
+        sequence of ``seq_len`` positions (the local length times the seq
+        group's size when None), its positions from the chunk's first."""
         cfg = self.cfg
         B, S = tokens.shape
+        dev = tokens.device
+        rows = torch.arange(S, device=dev)
+        length = S
+        if self.seq_split is not None:
+            rows = rows + self.seq_split.begin(S, seq_len)
+            length = self.seq_split.length
         if positions is None:
-            positions = torch.arange(S, device=tokens.device).expand(B, S)
-        mask = torch.ones(S, S, dtype=torch.bool,
-                          device=tokens.device).tril()[None, None]
+            positions = rows.expand(B, S)
+        mask = (rows[:, None] >= torch.arange(length, device=dev)[None, :]
+                )[None, None]
         h = self.embed(tokens)
         for i in range(cfg.n_layers):
             layer = getattr(self, f"layer_{i}")

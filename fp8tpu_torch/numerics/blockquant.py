@@ -88,13 +88,20 @@ def quant_blocks(x: torch.Tensor, fmt: str):
     if fmt == "bf16":
         return x.to(torch.bfloat16), torch.ones_like(amax,
                                                      dtype=torch.float32)
-    xf = x.to(torch.float32)
-    gmax = GRID_MAX[fmt]
     scale = block_scale(amax.to(torch.float32), fmt)
-    y = torch.clamp(_div(xf, scale[..., None]), -gmax, gmax)
+    return quant_given(x, scale[..., None], fmt), scale
+
+
+def quant_given(x: torch.Tensor, scale: torch.Tensor, fmt: str):
+    """The payload of ``x`` against ``scale`` (broadcastable to it, given:
+    a block's scale reduced over the ranks that hold its elements):
+    :func:`quant_blocks`' divide, clip and convert for "int8", "e4m3" and
+    "e5m2"."""
+    gmax = GRID_MAX[fmt]
+    y = torch.clamp(_div(x.to(torch.float32), scale), -gmax, gmax)
     if fmt == "int8":
-        return torch.round(y).to(torch.int8), scale
-    return _fp8(y, fmt), scale
+        return torch.round(y).to(torch.int8)
+    return _fp8(y, fmt)
 
 
 def dequant_blocks(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

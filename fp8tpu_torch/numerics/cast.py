@@ -81,10 +81,14 @@ def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
     return (lo + hi) & _M32
 
 
-def sr_bits_from_salt(salt: int, n: int, device=None) -> torch.Tensor:
-    """uint16-valued SR bits (as int64) for flat indices 0..n-1: the
+def sr_bits_from_salt(salt: int, n: int, device=None,
+                      index: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """uint16-valued SR bits (as int64) for flat indices 0..n-1 (or for
+    the int64 flat indices ``index``, a block of a larger tensor): the
     murmur3-finalizer counter hash of ``fp8tpu.numerics.cast.sr_bits``."""
-    idx = torch.arange(max(n, 1), dtype=torch.int64, device=device)
+    idx = (torch.arange(max(n, 1), dtype=torch.int64, device=device)
+           if index is None else index.to(device=device, dtype=torch.int64)
+           & _M32)
     h = (_mul32(idx, 0xCC9E2D51) + (salt & _M32)) & _M32
     h = h ^ (h >> 16)
     h = _mul32(h, 0x85EBCA6B)
@@ -114,18 +118,30 @@ def require_hash_stream(what: str) -> None:
 
 
 def sr_bits(key: PRNGKey, shape: Sequence[int], device=None,
-            offset: int = 0) -> torch.Tensor:
+            offset: int = 0, block=None) -> torch.Tensor:
     """Counter-based random bits for stochastic rounding, deterministic in
     (key, element index); bit-equal to the JAX package for the same key
     data under either :data:`SR_BITS_IMPL` (under "threefry": the low 16
     bits of ``jax.random.bits``' uint32 words, which is what its uint16
     draw keeps).  ``offset``: the bits of the elements ``offset ..`` of a
-    larger tensor (a batch shard's, at its row-major offset)."""
+    larger tensor (a batch shard's, at its row-major offset); ``block``
+    (a ``parallel.data.Block``): the bits of a block of a larger tensor,
+    each element's at its global row-major index (a column or sequence
+    block, whose indices are not one range)."""
     n = 1
     for s in shape:
         n *= int(s)
+    index = None
+    if block is not None:
+        off = block.contiguous_offset(shape)
+        if off is None:
+            index = block.index(shape, device)
+        else:
+            offset = off
     if SR_BITS_IMPL == "threefry":
-        flat = threefry_bits32(key, n, device, offset) & 0xFFFF
+        flat = threefry_bits32(key, n, device, offset, index) & 0xFFFF
+    elif index is not None:
+        flat = sr_bits_from_salt(salt_of(key), n, device, index)
     else:
         flat = sr_bits_from_salt(salt_at(salt_of(key), offset), n,
                                  device)[:n]
@@ -586,13 +602,23 @@ def block_scales(x: torch.Tensor, block_size: int, fmt: FPFormat | str):
 def qdq_plain(x: torch.Tensor, fmt_name: str, mode: RoundMode = RoundMode.RNE,
               scale=1.0, daz: bool = False,
               random_bits: Optional[torch.Tensor] = None,
-              salt: Optional[int] = None, block_size: int = 0):
+              salt: Optional[int] = None, block_size: int = 0, block=None):
     """The plain version of the cast kernel, with its arguments: ``scale``
     broadcastable to ``x`` (ignored when ``block_size`` > 0 selects
     per-block scales), SR bits from ``random_bits`` or hashed from
-    ``salt``.  Runs on any device; float32 result of ``x``'s shape."""
+    ``salt`` (with ``block``, a ``parallel.data.Block``, at each element's
+    global index in the tensor ``x`` is a block of).  Runs on any device;
+    float32 result of ``x``'s shape."""
     n = x.numel()
     pad = (-n) % block_size if block_size else 0
+    if block is not None:
+        if block_size or salt is None:
+            raise ValueError("a block takes SR bits hashed from a salt, "
+                             "and no per-block scales")
+        random_bits = sr_bits_from_salt(
+            salt, n, x.device, block.index(x.shape, x.device)).reshape(
+            x.shape)
+        salt = None
     if salt is not None:
         random_bits = sr_bits_from_salt(salt, n + pad, x.device)
     elif random_bits is not None and block_size:
@@ -612,18 +638,24 @@ def qdq_plain(x: torch.Tensor, fmt_name: str, mode: RoundMode = RoundMode.RNE,
 
 
 def _qdq(x, fmt_name, mode, scale, daz, key, random_bits, block_size=0,
-         offset=0):
+         offset=0, block=None):
+    if block is not None:
+        off = block.contiguous_offset(x.shape)
+        if off is not None:       # one range: the salt at its offset
+            block, offset = None, off
     if (SR_BITS_IMPL == "threefry" and mode == RoundMode.STOCHASTIC
             and random_bits is None and key is not None):
         # no kernel hashes threefry: the bits are drawn here
-        random_bits = sr_bits(key, x.shape, x.device, offset)
+        random_bits = sr_bits(key, x.shape, x.device, offset, block)
     salt = _salt_for(mode, key, random_bits, offset)
+    if salt is None:
+        block = None
     if x.is_cuda:
         from fp8tpu_torch.kernels.cast_kernel import cuda_qdq
         return cuda_qdq(x, fmt_name, mode, scale, daz, random_bits, salt,
-                        block_size)
+                        block_size, block)
     return qdq_plain(x, fmt_name, mode, scale, daz, random_bits, salt,
-                     block_size)
+                     block_size, block)
 
 
 def qdq(
@@ -635,19 +667,23 @@ def qdq(
     key: Optional[PRNGKey] = None,
     random_bits: Optional[torch.Tensor] = None,
     offset: int = 0,
+    block=None,
 ) -> torch.Tensor:
     """Quantize-dequantize ``x`` onto the ``fmt`` value grid.
 
     ``scale`` is a scalar or a tensor broadcastable to ``x``.  Stochastic
     rounding needs ``key`` or integer ``random_bits`` (uint16 values)
     shaped like ``x``; ``offset`` takes ``key``'s bits from that element of
-    its stream on (``x`` a piece of a larger tensor).  Returns float32 of
-    ``x``'s shape: the plain pipeline on the CPU, the cast kernel on a CUDA
-    device.
+    its stream on (``x`` a piece of a larger tensor), ``block`` (a
+    ``parallel.data.Block``) each element's at its global index (``x`` a
+    block of a larger tensor: a column block, a sequence chunk).  Returns
+    float32 of ``x``'s shape: the plain pipeline on the CPU, the cast
+    kernel on a CUDA device (its block route for a block that is not one
+    range).
     """
     fmt_name = fmt if isinstance(fmt, str) else fmt.name
     return _qdq(x, fmt_name, mode, scale, daz, key, random_bits,
-                offset=offset)
+                offset=offset, block=block)
 
 
 def qdq_mode_string(
@@ -677,8 +713,12 @@ def qdq_blocked(
     daz: bool = False,
     key: Optional[PRNGKey] = None,
     random_bits: Optional[torch.Tensor] = None,
+    offset: int = 0,
 ) -> torch.Tensor:
     """Block-normalized fake-quant: per-block power-of-two scales over the
-    flattened tensor (zero-padded to a multiple of ``block_size``)."""
+    flattened tensor (zero-padded to a multiple of ``block_size``).
+    ``offset``: ``x`` is the elements ``offset ..`` of a larger tensor
+    whose blocks it holds whole (SR bits from there on)."""
     fmt_name = fmt if isinstance(fmt, str) else fmt.name
-    return _qdq(x, fmt_name, mode, 1.0, daz, key, random_bits, block_size)
+    return _qdq(x, fmt_name, mode, 1.0, daz, key, random_bits, block_size,
+                offset)

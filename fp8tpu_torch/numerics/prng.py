@@ -10,7 +10,7 @@ happens on the host, and only the final 32-bit salt reaches a kernel.
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -36,16 +36,23 @@ def _threefry2x32(k0: int, k1: int, x0: int, x1: int) -> PRNGKey:
 
 
 def threefry_bits32(k: PRNGKey, n: int, device=None,
-                    offset: int = 0) -> torch.Tensor:
+                    offset: int = 0,
+                    index: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``jax.random.bits(k, (n,), uint32)`` as int64 values: element ``i``
     hashes the 64-bit counter ``i`` as the word pair ``(i >> 32, i mod
     2^32)`` and xors the two output words (the partitionable layout,
     trap 24).  Counters of a row-major shape are its flat indices, so a
     draw of any shape is this stream reshaped; a uint16 draw keeps the
     LOW 16 bits of each word.  ``offset`` starts the counters there: the
-    elements ``offset ..`` of a larger draw."""
-    i = torch.arange(offset, offset + max(n, 1), dtype=torch.int64,
-                     device=device)
+    elements ``offset ..`` of a larger draw; ``index`` (int64, ``n``
+    counters) gives each element's counter instead (a block of a larger
+    draw that is not one range)."""
+    if index is not None:
+        i = index.to(device=device, dtype=torch.int64)
+        n = i.numel()
+    else:
+        i = torch.arange(offset, offset + max(n, 1), dtype=torch.int64,
+                         device=device)
     k0, k1 = k[0] & _M32, k[1] & _M32
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0 = ((i >> 32) + ks[0]) & _M32

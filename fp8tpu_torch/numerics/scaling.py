@@ -69,7 +69,7 @@ def per_tensor(x: torch.Tensor, fmt, method: str = "max",
     if method == "mean":
         if shard is None:
             return _mean_scale(xf.abs().mean(), fmt, _MEAN_EPS_TENSOR)
-        total = torch.tensor(float(xf.numel() * shard.count),
+        total = torch.tensor(float(math.prod(shard.block(x.shape).shape)),
                              device=xf.device)
         return _mean_scale(shard.sum(xf.abs().sum()) / total, fmt,
                            _MEAN_EPS_TENSOR)
@@ -98,9 +98,10 @@ def per_channel(x: torch.Tensor, fmt, method: str = "max",
         if shard is None:
             mean = ax.mean(dim=reduce_axes)
         else:
+            gshape = shard.block(x.shape).shape
             total = torch.tensor(
-                float(math.prod(x.shape[i] for i in reduce_axes)
-                      * shard.count), device=x.device)
+                float(math.prod(gshape[i] for i in reduce_axes)),
+                device=x.device)
             mean = shard.sum(ax.sum(dim=reduce_axes)) / total
         scale = _mean_scale(mean, fmt, _MEAN_EPS_CHANNEL)
     else:

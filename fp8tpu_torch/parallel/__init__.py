@@ -4,7 +4,7 @@ counterpart of ``fp8tpu.parallel``, whose names it all exports.  Each
 collective that GSPMD inserts in the JAX package is issued here by hand,
 so that a sharded run computes the global program."""
 
-from .data import BatchShard, TensorShard  # noqa: F401
+from .data import Block, BatchShard, TensorShard, seq_chunk  # noqa: F401
 from .grad_comm import (  # noqa: F401
     wire_all_reduce,
     wire_all_reduce_tree,

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -116,6 +116,7 @@ class Mesh:
         self.shape = dict(shape)
         self.axis_names = tuple(shape)
         self.device_mesh = device_mesh
+        self._groups: Dict[Tuple[str, ...], object] = {}
 
     def _require_group(self):
         if self.device_mesh is None:
@@ -127,11 +128,49 @@ class Mesh:
         self._require_group()
         return self.device_mesh.get_coordinate()[self.axis_names.index(axis)]
 
-    def group(self, axis: str):
+    def split(self, axes) -> Tuple[int, int]:
+        """(this rank's index, the count) of the blocks that the axes
+        ``axes`` (one name, a tuple of names, or None) split a dimension
+        into, row-major over the axes as a ``PartitionSpec`` entry does."""
+        if axes is None:
+            return 0, 1
+        index, count = 0, 1
+        for a in ((axes,) if isinstance(axes, str) else axes):
+            index = index * self.shape[a] + self.index(a)
+            count *= self.shape[a]
+        return index, count
+
+    def group(self, *axes: str):
         """The process group of the ranks that differ from this one only
-        along ``axis``."""
+        along ``axes`` (one axis, or several: their product, as the
+        gradient sums over data x seq need).  A product group is made at
+        its first request, which every rank of the world must reach in the
+        same order (``dist.new_group`` is collective)."""
         self._require_group()
-        return self.device_mesh.get_group(axis)
+        axes = tuple(a for a in self.axis_names if a in axes)
+        if len(axes) > 1:           # a size-one axis adds no rank
+            axes = tuple(a for a in axes if self.shape[a] > 1) or axes[-1:]
+        if len(axes) == 1:
+            return self.device_mesh.get_group(axes[0])
+        if axes not in self._groups:
+            mine = None
+            for ranks in self._product_ranks(axes):
+                g = dist.new_group(ranks)
+                if dist.get_rank() in ranks:
+                    mine = g
+            self._groups[axes] = mine
+        return self._groups[axes]
+
+    def _product_ranks(self, axes: Tuple[str, ...]) -> List[List[int]]:
+        """The rank lists of the groups along ``axes``, one for each
+        coordinate of the other axes, in row-major order."""
+        ranks = torch.arange(math.prod(self.shape.values())).reshape(
+            tuple(self.shape.values()))
+        keep = [self.axis_names.index(a) for a in axes]
+        rest = [d for d in range(ranks.ndim) if d not in keep]
+        ranks = ranks.permute(*rest, *keep).reshape(
+            -1, math.prod(self.shape[a] for a in axes))
+        return [r.tolist() for r in ranks]
 
     def __repr__(self):
         return f"Mesh({self.shape})"

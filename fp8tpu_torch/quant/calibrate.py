@@ -36,16 +36,18 @@ _NULL_POLICY = _NullPolicy()
 
 def collect_stats_fn(model: torch.nn.Module,
                      policy: Optional[QuantPolicy] = None,
-                     per_channel: bool = False) -> Callable:
+                     per_channel: bool = False, mesh=None) -> Callable:
     """``(params, *args) -> (out, stats)``.  With a ``policy``, activations
     are fake-quantized while observed, as the reference's calibration
-    passes run the hooked model."""
+    passes run the hooked model.  With ``mesh`` the model is the
+    tensor-parallel form on this rank, and the statistics are the whole
+    tensors' (``make_quant_interceptor``)."""
 
     def run(params, *args, **kwargs):
         sink: Dict[str, Dict[str, Any]] = {}
         interceptor = make_quant_interceptor(
             policy if policy is not None else _NULL_POLICY,
-            stats_sink=sink, per_channel_stats=per_channel)
+            stats_sink=sink, per_channel_stats=per_channel, mesh=mesh)
         with linen.intercept_methods(interceptor, model):
             out = functional_call(model, params, args, kwargs)
         stats = {path: {k: v for k, v in rec.items() if k != "kind"}

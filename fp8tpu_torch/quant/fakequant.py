@@ -9,11 +9,13 @@ applied explicitly per the igrad/ograd/wtgrad role configs.
 of a data-parallel batch: a per-tensor scale is then the global tensor's
 and SR draws the global tensor's bits at the rank's offset, so the cast
 is the rank's share of the unsharded cast.  A ``parallel.data.
-TensorShard`` marks a block split over the data group, the model group
-or both (tensor parallelism): per-tensor and per-channel scales reduce
-over the groups that split the reduced dimensions; fine-grained,
-per-block and integer scaling and stochastic rounding of a model-split
-tensor raise ``NotImplementedError``.
+TensorShard`` marks a block split over any of the data, seq and model
+groups (tensor and sequence parallelism): per-tensor and per-channel
+scales reduce over the groups that split the reduced dimensions, and SR
+hashes each element's global row-major index (the shard's ``block``).
+Fine-grained and integer scaling of a model-split tensor raise
+``NotImplementedError``, as does per-block scaling of a block that is not
+whole blocks of one contiguous range.
 """
 
 from __future__ import annotations
@@ -77,31 +79,35 @@ def _quantize_impl(x: torch.Tensor, cfg: TensorQuantConfig,
     if cfg.is_stochastic and key is None:
         raise ValueError(f"{cfg.mode_string()} needs a PRNG key for "
                          "stochastic rounding")
+    block = None
+    if shard is not None and (cfg.is_stochastic
+                              or cfg.scaling == "per-block"):
+        block = shard.block(x.shape)
     offset = 0
-    if shard is not None and cfg.is_stochastic:
-        offset = shard.offset(x.numel())
-    if shard is not None and cfg.scaling == "per-block":
-        # blocks over the flattened tensor: a rank's rows hold whole blocks
-        # of the global tensor only when they start on a block edge
-        _local_rows_only(shard, "per-block scaling")
-        if x.numel() % cfg.block_size:
+    if cfg.scaling == "per-block" and block is not None:
+        # blocks over the flattened tensor: a rank's block holds whole
+        # blocks of the global tensor only as one range from a block edge
+        offset = block.contiguous_offset(x.shape)
+        if offset is None or offset % cfg.block_size or \
+                x.numel() % cfg.block_size:
             raise NotImplementedError(
-                f"per-block scaling of a batch shard of {x.numel()} "
-                f"elements, not a multiple of its block of "
-                f"{cfg.block_size}")
+                f"per-block scaling of a shard of {tuple(x.shape)} at "
+                f"{block.start} of {block.shape}: not whole blocks of "
+                f"{cfg.block_size} in one range")
     if _hw_eligible(cfg):
         scale = _scale(x, cfg, shard)
         if cfg.scheme == "stochastic":
             return _cast.hw_sr(x, cfg.dtype, scale,
-                               _cast.sr_bits(key, x.shape, x.device, offset))
+                               _cast.sr_bits(key, x.shape, x.device,
+                                             block=block))
         return _cast.hw_qdq(x, cfg.dtype, scale)
     fmt = FORMATS[cfg.dtype]
     key = key if cfg.is_stochastic else None
     if cfg.scaling == "per-block":
         return _cast.qdq_blocked(x, fmt, cfg.round_mode, cfg.block_size,
-                                 cfg.daz, key=key)
+                                 cfg.daz, key=key, offset=offset)
     return _cast.qdq(x, fmt, cfg.round_mode, _scale(x, cfg, shard), cfg.daz,
-                     key=key, offset=offset)
+                     key=key, block=block if cfg.is_stochastic else None)
 
 
 class _FakeQuant(torch.autograd.Function):

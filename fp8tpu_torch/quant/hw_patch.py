@@ -13,6 +13,7 @@ conv, whose forward on the card is K2 as an implicit GEMM.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -42,11 +43,38 @@ def _operand_scale(x, cfg: Optional[TensorQuantConfig], shard=None):
     return _scaling.per_tensor(x, FORMATS[cfg.dtype], cfg.method, shard)
 
 
+def _sr_block(x, cfg: Optional[TensorQuantConfig], shard):
+    """Where a stochastic operand ``x`` that ranks split lies in the whole
+    operand (``shard.block``): K2 hashes its SR bits at each element's
+    global index.  None without a shard or SR, or for the whole operand."""
+    if shard is None or cfg is None or not cfg.is_stochastic:
+        return None
+    block = shard.block(x.shape)
+    return None if block.shape == tuple(x.shape) else block
+
+
+def _flat_shard(shard, ndim: int):
+    """The shard of an ``ndim``-D operand read as (rows, last dimension):
+    a split of dimension 0 or of the last one keeps its place; a sequence
+    split or a split of another dimension interleaves the rows, and
+    raises."""
+    if shard is None or ndim == 2 or not hasattr(shard, "seq"):
+        return shard
+    if shard.seq is not None or (shard.model is not None
+                                 and shard.model_dim % ndim != ndim - 1):
+        raise NotImplementedError(
+            "an engine operand flattened to rows whose split interleaves "
+            "them (a sequence split, or a split of a middle dimension)")
+    return dataclasses.replace(shard, model_dim=-1)
+
+
 def _check_shard(cfg: Optional[TensorQuantConfig], shard) -> None:
+    """The engine conv's stochastic operand is its im2col, whose SR index
+    is the gathered matrix's: under a batch shard it raises."""
     if shard is not None and cfg is not None and cfg.is_stochastic:
         raise NotImplementedError(
-            "a stochastic engine operand of a batch shard (the engine's SR "
-            "stream has no offset)")
+            "a stochastic engine conv operand of a batch shard (the "
+            "im2col's SR stream has no offset)")
 
 
 def _impl_of(cfg_t: Optional[TensorQuantConfig]) -> str:
@@ -81,43 +109,48 @@ def _uncast(a, b):
 class _EngineMatmul(torch.autograd.Function):
     """``qdq(a) @ qdq(b)``, each operand cast per its config (None leaves
     it uncast); backward ``g @ bq.T`` and ``aq.T @ g`` over the
-    re-quantized saved operands.  ``shard`` (a ``parallel.data.
-    BatchShard`` or None) is that of both operands: their per-tensor scales
-    are then the global batch's."""
+    re-quantized saved operands.  ``shard_a`` / ``shard_b`` (a
+    ``parallel.data.BatchShard`` or ``TensorShard``, or None) are the
+    operands': their per-tensor scales are then the whole operand's, and a
+    stochastic operand's SR bits the whole operand's at each element's
+    global index (:func:`_sr_block`, which K2's pre-pass maps)."""
 
     @staticmethod
-    def forward(ctx, a, b, seed, cfg_a, cfg_b, shard):
-        for cfg_t in (cfg_a, cfg_b):
-            _check_shard(cfg_t, shard)
+    def forward(ctx, a, b, seed, cfg_a, cfg_b, shard_a, shard_b):
         ctx.save_for_backward(a, b)
-        ctx.cfgs, ctx.shard = (cfg_a, cfg_b), shard
+        ctx.cfgs, ctx.shards = (cfg_a, cfg_b), (shard_a, shard_b)
         fmt_a, mode_a = _fmt_args(cfg_a)
         fmt_b, mode_b = _fmt_args(cfg_b)
         return qdq_matmul(a, b, fmt_x=fmt_a, mode_x=mode_a, fmt_w=fmt_b,
                           mode_w=mode_b,
-                          scale_x=_operand_scale(a, cfg_a, shard),
-                          scale_w=_operand_scale(b, cfg_b, shard), seed=seed,
-                          impl=_impl_of(cfg_a)).to(a.dtype)
+                          scale_x=_operand_scale(a, cfg_a, shard_a),
+                          scale_w=_operand_scale(b, cfg_b, shard_b),
+                          seed=seed, impl=_impl_of(cfg_a),
+                          block_x=_sr_block(a, cfg_a, shard_a),
+                          block_w=_sr_block(b, cfg_b, shard_b)).to(a.dtype)
 
     @staticmethod
     def backward(ctx, g):
         a, b = ctx.saved_tensors
         cfg_a, cfg_b = ctx.cfgs
+        shard_a, shard_b = ctx.shards
         gf = g.to(torch.float32)
-        da = _uncast(gf, _requant(b, cfg_b, ctx.shard).t()) \
+        da = _uncast(gf, _requant(b, cfg_b, shard_b).t()) \
             if ctx.needs_input_grad[0] else None
-        db = _uncast(_requant(a, cfg_a, ctx.shard).t(), gf) \
+        db = _uncast(_requant(a, cfg_a, shard_a).t(), gf) \
             if ctx.needs_input_grad[1] else None
         return (None if da is None else da.to(a.dtype),
                 None if db is None else db.to(b.dtype), None, None, None,
-                None)
+                None, None)
 
 
 def patched_matmul(a: torch.Tensor, b: torch.Tensor, cfg: ModuleQuantConfig,
-                   seed: int = 0, shard=None) -> torch.Tensor:
+                   seed: int = 0, shard=None, shard_b=None) -> torch.Tensor:
     """2-D ``qdq(a) @ qdq(b)`` through the fused engine; both operands use
-    the module's ``iact`` role."""
-    return _EngineMatmul.apply(a, b, seed, cfg.iact, cfg.iact, shard)
+    the module's ``iact`` role.  ``shard`` and ``shard_b`` are ``a``'s and
+    ``b``'s (a ``parallel.data.BatchShard`` or ``TensorShard``, or None)."""
+    return _EngineMatmul.apply(a, b, seed, cfg.iact, cfg.iact, shard,
+                               shard_b)
 
 
 def patched_linear(x: torch.Tensor, w: torch.Tensor, cfg: ModuleQuantConfig,
@@ -125,7 +158,7 @@ def patched_linear(x: torch.Tensor, w: torch.Tensor, cfg: ModuleQuantConfig,
     """2-D ``qdq(x) @ w`` through the fused engine: the activation is cast
     per ``iact`` in the kernel; the weight passes uncast because
     quantize_params already applied the ``wt`` role."""
-    return _EngineMatmul.apply(x, w, seed, cfg.iact, None, None)
+    return _EngineMatmul.apply(x, w, seed, cfg.iact, None, None, None)
 
 
 def conv_patchable(module) -> bool:
@@ -245,23 +278,28 @@ def engine_conv(x: torch.Tensor, weight: torch.Tensor, bias, strides,
 
 
 def engine_matmul(a: torch.Tensor, b: torch.Tensor, cfg: ModuleQuantConfig,
-                  key: Optional[PRNGKey] = None, shard=None) -> torch.Tensor:
+                  key: Optional[PRNGKey] = None, shard=None, shards=None,
+                  slice_shards=None) -> torch.Tensor:
     """Shape-polymorphic entry: 2-D direct; batched ``a`` against a 2-D
     ``b`` by flattening; batched x batched one engine GEMM per slice.  With
     ``shard`` (the interceptor's operands are a rank's rows of a
     data-parallel batch) a 2-D operand's per-tensor max is the global
     operand's (a max, unlike an SR offset, does not depend on the layout,
-    and of a replicated operand it is its own); a batched x batched slice
-    lies whole on one rank and keeps its own scale."""
+    and of a replicated operand it is its own); ``shards`` gives each
+    operand's instead (a tensor-parallel rank's).  A batched x batched
+    slice lies whole on one rank and keeps its own scale, unless the
+    sequence is split: ``slice_shards`` are then the shards of an ``a``
+    slice (its rows, over the seq group) and of a ``b`` slice."""
     seed = _seed_of(key)
-    if a.ndim == 2 and b.ndim == 2:
-        return patched_matmul(a, b, cfg, seed, shard)
+    sa, sb = (shard, shard) if shards is None else shards
     if b.ndim == 2:
-        out = patched_matmul(a.reshape(-1, a.shape[-1]), b, cfg, seed, shard)
+        a2 = a if a.ndim == 2 else a.reshape(-1, a.shape[-1])
+        out = patched_matmul(a2, b, cfg, seed, _flat_shard(sa, a.ndim), sb)
         return out.reshape(*a.shape[:-1], b.shape[-1])
     batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
     af = a.expand(*batch, *a.shape[-2:]).reshape(-1, *a.shape[-2:])
     bf = b.expand(*batch, *b.shape[-2:]).reshape(-1, *b.shape[-2:])
-    out = torch.stack([patched_matmul(x, y, cfg, seed)
+    sa, sb = slice_shards or (None, None)
+    out = torch.stack([patched_matmul(x, y, cfg, seed, sa, sb)
                        for x, y in zip(af, bf)])
     return out.reshape(*batch, *out.shape[-2:])

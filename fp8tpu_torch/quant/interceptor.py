@@ -140,34 +140,72 @@ def make_quant_interceptor(
                    the casts see must lead with the batch dimension.
     ``mesh``       a ``parallel.Mesh``: the model is the tensor-parallel
                    form of ``models.transformer`` on one rank, its rows
-                   of the batch split over the mesh's data group.  Each
-                   cast's operand is split as its module says (``tp_in``
-                   / ``tp_out``: the dimension split over the model
-                   group), so a per-tensor scale is the whole tensor's:
-                   a column-parallel input reduces over the data group,
-                   a row-parallel input or a BatchMatmul operand on the
-                   rank's heads over data x model.  Forward only: a
-                   training policy, a calibration sweep and hw-patched
-                   engine calls raise (ROADMAP §1 item 7c).
+                   of the batch split over the mesh's data group (and its
+                   positions over the seq group).  Each cast's operand is
+                   split as its module says (``tp_in`` / ``tp_out``: the
+                   dimension split over the model group; ``seq_in`` /
+                   ``seq_out``: over the seq group), forward and
+                   backward alike (a cotangent is split as its operand),
+                   so a per-tensor scale is the whole tensor's and SR
+                   bits are the whole tensor's at each element's global
+                   index: a column-parallel input reduces over data x
+                   seq, a row-parallel input or a BatchMatmul operand on
+                   the rank's heads over data x seq x model.  A
+                   calibration sweep records the whole tensor's min, max
+                   and absmax (per-channel statistics raise); hw-patched
+                   BatchMatmuls take each slice's scale over the seq
+                   group.
     """
+    data = model = seq = None
     if mesh is not None:
         if shard is not None:
             raise ValueError("pass a mesh or a batch shard, not both")
-        if policy.is_training or stats_sink is not None:
+        if stats_sink is not None and per_channel_stats:
             raise NotImplementedError(
-                "tensor-parallel training and calibration under a mesh: "
-                "ROADMAP §1 item 7c")
+                "per-channel calibration statistics under a mesh")
         from fp8tpu_torch.parallel.data import BatchShard, TensorShard
-        data = BatchShard.of(mesh.group("data"))
+        data = BatchShard.of(mesh.group("host", "data"))
         model = BatchShard.of(mesh.group("model"))
+        if mesh.shape.get("seq", 1) > 1:
+            seq = BatchShard.of(mesh.group("seq"))
 
-    def split_as(dim):
+    def split_as(dim, seq_dim=None, sp=None):
         """The shard of an operand split over the model group along
-        ``dim`` (None: replicated over it)."""
+        ``dim`` (None: replicated over it) and, under a sequence split
+        ``sp``, over the seq group along ``seq_dim``."""
         if mesh is None:
             return shard
+        on_seq = seq is not None and sp is not None and seq_dim is not None
         return TensorShard(data, None if dim is None else model,
-                           -1 if dim is None else dim)
+                           -1 if dim is None else dim,
+                           seq if on_seq else None,
+                           seq_dim if on_seq else 1,
+                           sp.length if on_seq else None, mesh)
+
+    def arg_shards(module, n):
+        """The shard of each of ``n`` arguments of ``module``."""
+        seq_in = getattr(module, "seq_in", None)
+        sp = getattr(module, "seq_split", None)
+        return [split_as(getattr(module, "tp_in", None),
+                         seq_in[i] if isinstance(seq_in, tuple) else seq_in,
+                         sp) for i in range(n)]
+
+    def slice_shards(module):
+        """Under a sequence split, the shards of a batched engine call's
+        (a, b) slices: an ``a`` slice is the rank's rows (split over the
+        seq group along its dimension 0), ``b`` gathered whole."""
+        sp = getattr(module, "seq_split", None)
+        if mesh is None or seq is None or sp is None:
+            return None
+        return (TensorShard(seq=seq, seq_dim=0, seq_len=sp.length), None)
+
+    def global_min(a, sh):
+        m = a.amin()
+        return m if mesh is None else -sh.max(-m)
+
+    def global_max(a, sh):
+        m = a.amax()
+        return m if mesh is None else sh.max(m)
 
     def interceptor(next_fun, args, kwargs, context):
         module, path = context.module, context.path
@@ -175,8 +213,10 @@ def make_quant_interceptor(
         cfg = policy.resolve(path, kind)
         if cfg is None and stats_sink is None:
             return next_fun(*args, **kwargs)
-        in_shard = split_as(getattr(module, "tp_in", None))
-        out_shard = split_as(getattr(module, "tp_out", None))
+        in_shards = arg_shards(module, len(args))
+        out_shard = split_as(getattr(module, "tp_out", None),
+                             getattr(module, "seq_out", None),
+                             getattr(module, "seq_split", None))
 
         def mod_key(tag: int):
             return None if key is None else fold_in(key,
@@ -194,18 +234,20 @@ def make_quant_interceptor(
 
         if stats_sink is not None:
             rec = stats_sink.setdefault(path, {"kind": kind.value})
-            flat = [a for a in args if _is_float(a)]
+            flat = [(a, sh) for a, sh in zip(args, in_shards)
+                    if _is_float(a)]
             if flat:
                 with torch.no_grad():
-                    _fold(rec, "iact_min",
-                          torch.stack([a.amin() for a in flat]).amin(),
-                          torch.minimum)
-                    _fold(rec, "iact_max",
-                          torch.stack([a.amax() for a in flat]).amax(),
-                          torch.maximum)
-                    _fold(rec, "iact_absmax",
-                          torch.stack([a.abs().amax() for a in flat]).amax(),
-                          torch.maximum)
+                    _fold(rec, "iact_min", torch.stack(
+                        [global_min(a, sh) for a, sh in flat]).amin(),
+                        torch.minimum)
+                    _fold(rec, "iact_max", torch.stack(
+                        [global_max(a, sh) for a, sh in flat]).amax(),
+                        torch.maximum)
+                    _fold(rec, "iact_absmax", torch.stack(
+                        [global_max(a.abs(), sh) for a, sh in flat]).amax(),
+                        torch.maximum)
+                    flat = [a for a, _ in flat]
                     if per_channel_stats:
                         for i, a in enumerate(flat):
                             pre = "iact_ch" if i == 0 else f"iact{i}_ch"
@@ -226,26 +268,18 @@ def make_quant_interceptor(
             from .hw_patch import conv_patchable
             patched_conv = conv_patchable(module)
         patched = patched or patched_conv
-        if patched and mesh is not None:
-            raise NotImplementedError(
-                f"a hw-patched engine call ({path}) under a tensor-parallel "
-                "mesh: ROADMAP §1 item 7c")
         # On the patched path the engine casts the two contraction operands
         # itself; only other inputs (AddMatmul's addend) get the iact cast.
         if cfg is not None and cfg.iact is not None:
-            if patched:
-                ncontr = len(args) - 2
-                args = tuple(
-                    cast(a, cfg.iact, 1, shard)
-                    if (i < ncontr and _is_float(a)) else a
-                    for i, a in enumerate(args))
-            else:
-                args = _map_float_args(
-                    lambda a: cast(a, cfg.iact, 1, in_shard), args)
+            ncontr = len(args) - 2 if patched else len(args)
+            args = tuple(
+                cast(a, cfg.iact, 1, sh)
+                if (i < ncontr and _is_float(a)) else a
+                for i, (a, sh) in enumerate(zip(args, in_shards)))
         if cfg is not None and cfg.igrad is not None:
-            args = _map_float_args(
-                lambda a: grad_cast(a, cfg.igrad, mod_key(2), nchw, shard),
-                args)
+            args = tuple(
+                grad_cast(a, cfg.igrad, mod_key(2), nchw, sh)
+                if _is_float(a) else a for a, sh in zip(args, in_shards))
 
         if patched_conv:
             from .hw_patch import engine_conv
@@ -255,25 +289,31 @@ def make_quant_interceptor(
                               mod_key(5), shard)
         elif patched:
             from .hw_patch import engine_matmul
+            a, b = args[-2:]
+            if hasattr(module, "gathered"):     # a sequence-split operand
+                b = module.gathered(b)
+            kw = ({} if mesh is None else
+                  {"shards": tuple(in_shards[-2:]),
+                   "slice_shards": slice_shards(module)})
+            out = engine_matmul(a, b, cfg, mod_key(5), shard, **kw)
             if len(args) == 3:          # AddMatmul(inp, a, b)
-                out = args[0] + engine_matmul(args[1], args[2], cfg,
-                                              mod_key(5), shard)
-            else:                       # Matmul / BatchMatmul (a, b)
-                out = engine_matmul(args[0], args[1], cfg, mod_key(5),
-                                    shard)
+                out = args[0] + out
         else:
             out = next_fun(*args, **kwargs)
 
         if stats_sink is not None and _is_float(out):
             rec = stats_sink.setdefault(path, {"kind": kind.value})
             with torch.no_grad():
-                _fold(rec, "oact_min", out.amin(), torch.minimum)
-                _fold(rec, "oact_max", out.amax(), torch.maximum)
-                _fold(rec, "oact_absmax", out.abs().amax(), torch.maximum)
+                _fold(rec, "oact_min", global_min(out, out_shard),
+                      torch.minimum)
+                _fold(rec, "oact_max", global_max(out, out_shard),
+                      torch.maximum)
+                _fold(rec, "oact_absmax", global_max(out.abs(), out_shard),
+                      torch.maximum)
 
         if cfg is not None and _is_float(out):
             if cfg.ograd is not None:
-                out = grad_cast(out, cfg.ograd, mod_key(3), nchw, shard)
+                out = grad_cast(out, cfg.ograd, mod_key(3), nchw, out_shard)
             if cfg.oact is not None:
                 out = cast(out, cfg.oact, 4, out_shard)
         return out

@@ -76,43 +76,54 @@ def _entries(tensors: Params, module_table: Dict[str, LayerKind]):
         yield name, path, leaf, kind, t
 
 
-def _cast_flax(t, kind, cfg, key):
-    """``fake_quant`` of a parameter-shaped tensor in its Flax layout."""
-    return from_flax_layout(fake_quant(to_flax_layout(t, kind), cfg, key),
-                            kind)
+def _cast_flax(t, kind, cfg, key, shard=None):
+    """``fake_quant`` of a parameter-shaped tensor in its Flax layout
+    (``shard``: a tensor-parallel rank's block of the leaf in that layout,
+    so that its scale and SR bits are the whole leaf's, trap 22)."""
+    return from_flax_layout(fake_quant(to_flax_layout(t, kind), cfg, key,
+                                       shard), kind)
 
 
 def master_requant(params: Params, module_table: Dict[str, LayerKind],
                    key: PRNGKey, master_fmt: str = "fp16",
-                   emb_fmt: Optional[str] = None) -> Params:
+                   emb_fmt: Optional[str] = None,
+                   shards: Optional[Dict] = None) -> Params:
     """Requantize master params after the optimizer update.  Embeddings
     optionally cast to FP8 with per-row block-norm scaling (the block is
-    the embedding row)."""
+    the embedding row).  ``shards`` (``interceptor.weight_shards``): the
+    leaves that are a rank's shard of a tensor-parallel model, each cast
+    as its block of the whole leaf's cast (a vocabulary shard's rows at
+    their contiguous offset)."""
     master_cfg = MASTER_CFGS[master_fmt]
     emb_cfg = EMB_CFGS[emb_fmt]
+    shards = shards or {}
     out = {}
     for name, path, leaf, kind, t in _entries(params, module_table):
         k = prng.fold_in(key, module_key(f"{path}/{leaf}"))
         if emb_cfg is not None and kind == LayerKind.EMBED and t.ndim == 2:
             cfg = dataclasses.replace(emb_cfg, block_size=t.shape[1])
-            t = fake_quant(t, cfg, k)
+            t = fake_quant(t, cfg, k, shards.get(name))
         elif master_cfg is not None and t.is_floating_point():
-            t = _cast_flax(t, kind, master_cfg, k)
+            t = _cast_flax(t, kind, master_cfg, k, shards.get(name))
         out[name] = t
     return out
 
 
 def quantize_wtgrads(grads: Params, policy: QuantPolicy,
                      module_table: Dict[str, LayerKind],
-                     key: PRNGKey) -> Params:
-    """Apply the wtgrad role to weight gradients."""
+                     key: PRNGKey, shards: Optional[Dict] = None) -> Params:
+    """Apply the wtgrad role to weight gradients (``shards`` as in
+    :func:`master_requant`: a split leaf's scale over the model group, its
+    SR bits at the Flax layout's global indices)."""
+    shards = shards or {}
     out = {}
     for name, path, leaf, kind, g in _entries(grads, module_table):
         cfg = policy.resolve(path, kind) if kind is not None else None
         if (cfg is not None and cfg.wtgrad is not None
                 and leaf in ("kernel", "embedding", "scale")):
             g = _cast_flax(g, kind, cfg.wtgrad,
-                           prng.fold_in(key, module_key(f"{path}/{leaf}")))
+                           prng.fold_in(key, module_key(f"{path}/{leaf}")),
+                           shards.get(name))
         out[name] = g
     return out
 
@@ -121,13 +132,26 @@ def quantize_wtgrads(grads: Params, policy: QuantPolicy,
 class MPTEmulator:
     """Policy, module table and master-precision settings of one model
     (the reference's MPTEmulator).  Stateless: tensors live in the
-    caller's parameters and optimizer."""
+    caller's parameters and optimizer.  With ``mesh`` the model is the
+    tensor-parallel form on this rank (``models.Decoder(cfg, mesh=)``):
+    every cast takes its operand's or leaf's split (``shards``: the
+    weights the model holds split over the model group)."""
 
     model: torch.nn.Module
     policy: QuantPolicy
     module_table: Dict[str, LayerKind]
     master_fmt: str = "fp16"
     emb_fmt: Optional[str] = None
+    mesh: Optional[object] = None
+
+    @property
+    def shards(self) -> Optional[Dict]:
+        if self.mesh is None:
+            return None
+        if getattr(self, "_shards", None) is None:
+            from fp8tpu_torch.quant.interceptor import weight_shards
+            self._shards = weight_shards(self.model, self.mesh)
+        return self._shards
 
     def set_master_param_precision(self, fmt: str) -> "MPTEmulator":
         return dataclasses.replace(self, master_fmt=fmt)
@@ -149,18 +173,20 @@ class MPTEmulator:
         (``make_quant_interceptor``)."""
         params = quantize_params(
             params, self.policy, self.module_table,
-            prng.fold_in(key, 1) if key is not None else None)
+            prng.fold_in(key, 1) if key is not None else None, self.shards)
         with linen.intercept_methods(
-                make_quant_interceptor(self.policy, key=key, shard=shard),
+                make_quant_interceptor(self.policy, key=key, shard=shard,
+                                       mesh=self.mesh),
                 self.model):
             return functional_call(self.model, params, args, kwargs)
 
     def quantize_grads(self, grads: Params, key: PRNGKey) -> Params:
-        return quantize_wtgrads(grads, self.policy, self.module_table, key)
+        return quantize_wtgrads(grads, self.policy, self.module_table, key,
+                                self.shards)
 
     def post_update(self, params: Params, key: PRNGKey) -> Params:
         return master_requant(params, self.module_table, key,
-                              self.master_fmt, self.emb_fmt)
+                              self.master_fmt, self.emb_fmt, self.shards)
 
 
 def initialize(
@@ -171,11 +197,18 @@ def initialize(
     emb_fmt: Optional[str] = None,
     exempt_layers: tuple = (),
     device="cuda",
+    mesh=None,
 ) -> MPTEmulator:
     """FP8 mixed-precision training setup.  ``training_algo``: 'direct'
     (all-E5M2), 'hybrid' (E4M3 forward / E5M2 backward), 'bfloat16' or any
     training preset of ``get_policy``.  Moves ``model`` to ``device`` (CUDA
-    unless the caller asks for the CPU)."""
+    unless the caller asks for the CPU).  ``mesh``: ``model`` is the
+    tensor-parallel form built over it (``models.Decoder(cfg,
+    mesh=mesh)``), and the steps of :func:`make_train_step` are the global
+    step over the mesh."""
+    if mesh is not None and getattr(model, "tp", None) is None:
+        raise ValueError("a mesh needs the model's tensor-parallel form "
+                         "(built with the same mesh)")
     policy = get_policy(training_algo, training=True)
     if exempt_layers:
         policy = policy.with_exempt(*exempt_layers)
@@ -183,7 +216,7 @@ def initialize(
     del sample_args  # the table comes from named_modules; kept for the API
     return MPTEmulator(model=model, policy=policy,
                        module_table=build_module_table(model),
-                       master_fmt=master_fmt, emb_fmt=emb_fmt)
+                       master_fmt=master_fmt, emb_fmt=emb_fmt, mesh=mesh)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,6 +235,68 @@ class LossScaleState:
         if good >= growth_interval:
             return LossScaleState(min(self.scale * 2.0, max_scale), 0)
         return LossScaleState(self.scale, good)
+
+
+def token_shard(mesh):
+    """The ``BatchShard`` of the group over which a mesh's ranks hold
+    different tokens (host x data x seq): the group the loss and the raw
+    gradients are summed over."""
+    from fp8tpu_torch.parallel.data import BatchShard
+    return BatchShard.of(mesh.group("host", "data", "seq"))
+
+
+def world_all(ok: torch.Tensor) -> torch.Tensor:
+    """``ok`` (a bool) on every rank of the world: the MIN all-reduce."""
+    import torch.distributed as dist
+    flag = ok.to(torch.int32).reshape(1)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    return flag[0] > 0
+
+
+class LMBatch:
+    """A rank's block of a language-model batch under a mesh: ``inputs``
+    and ``labels`` (the global tokens shifted by one, then split: rows over
+    the data group, a chunk of the ``length`` positions over the seq
+    group, the last chunk short where ``length`` does not divide), and
+    ``tokens``, the global count of labels the loss is over."""
+
+    def __init__(self, inputs, labels, length: int, tokens: int):
+        self.inputs, self.labels = inputs, labels
+        self.length, self.tokens = length, tokens
+
+
+def lm_batch(tokens: torch.Tensor, mesh=None) -> LMBatch:
+    """This rank's :class:`LMBatch` of the global (B, S + 1) ``tokens``
+    (``batch_sharding(mesh, seq_parallel=True)``: rows over host x data,
+    positions over seq), split after the shift (GSPMD pads the uneven
+    split of ``tokens[:, :-1]``; the port keeps the global length in every
+    offset and gather instead); the whole batch without a mesh."""
+    from fp8tpu_torch.parallel.data import seq_chunk
+    from fp8tpu_torch.parallel.sharding import batch_sharding
+    B, S = tokens.shape[0], tokens.shape[1] - 1
+    if mesh is None:
+        return LMBatch(tokens[:, :-1], tokens[:, 1:], S, B * S)
+    row_axes, seq_axes = batch_sharding(mesh, seq_parallel=True).spec[:2]
+    i, n = mesh.split(row_axes)
+    s, ns = mesh.split(seq_axes)
+    if B % n:
+        raise ValueError(f"a batch of {B} rows does not split over {n} "
+                         "ranks")
+    rows, chunk = B // n, seq_chunk(S, ns)
+    r = slice(i * rows, (i + 1) * rows)
+    c = slice(s * chunk, min((s + 1) * chunk, S))
+    return LMBatch(tokens[r, :-1][:, c], tokens[r, 1:][:, c], S, B * S)
+
+
+def lm_loss(apply_fn, params, batch: LMBatch) -> torch.Tensor:
+    """The mean cross entropy of a language model over the global batch,
+    as this rank's share: its tokens' sum over the global count (one
+    correctly rounded divide, trap 80)."""
+    import torch.nn.functional as F
+    logits = apply_fn(params, batch.inputs, seq_len=batch.length)
+    s = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                        batch.labels.reshape(-1), reduction="sum")
+    return s / torch.tensor(float(batch.tokens), device=s.device)
 
 
 def init_train_state(optimizer: torch.optim.Optimizer,
@@ -227,7 +322,16 @@ def step_grads(emulator: MPTEmulator, loss_fn: Callable[..., torch.Tensor],
     activation and gradient casts take the global batch's scales and SR
     bits, the raw gradients and the loss are summed over the shard's group,
     and only then do the wtgrad casts run, so every rank holds the global
-    step's gradients."""
+    step's gradients.
+
+    With the emulator's mesh ``batch`` is this rank's block of the global
+    batch (its rows over data, its positions over seq: :func:`lm_batch`)
+    and ``params`` its shards; ``loss_fn`` returns the rank's tokens' share
+    of the global loss.  The raw gradients and the loss are summed over
+    data x seq, never over model: a leaf split over model is the rank's
+    block of the gradient, and one replicated over it (a norm's scale)
+    is already whole on every model rank, its input gradient summed
+    inside the model (``parallel.collectives.column_input``)."""
     kf, kg, _ = prng.split(key, 3)
     names = list(params)
     loss = loss_fn(lambda v, *a, **kw: emulator.apply_quantized(
@@ -239,6 +343,8 @@ def step_grads(emulator: MPTEmulator, loss_fn: Callable[..., torch.Tensor],
     grads = {n: torch.zeros_like(params[n]) if g is None else g
              for n, g in zip(names, grads)}
     loss = loss.detach()
+    if emulator.mesh is not None:
+        shard = token_shard(emulator.mesh)
     if shard is not None:
         grads = shard.sum_grads(grads)
         loss = shard.sum(loss)
@@ -275,7 +381,10 @@ def make_train_step(
 
     ``shard``: data parallelism as the global step (:func:`step_grads`);
     every rank then holds the same gradients, so the finite check, the
-    update and the loss scale agree on all ranks."""
+    update and the loss scale agree on all ranks.  With the emulator's
+    mesh each rank holds its shards' gradients only, so the finite check
+    is reduced over the whole world: every rank skips or keeps a step
+    alike, and the loss-scale trajectory is the global one."""
     use_scale = loss_scale is not None
 
     def step(params: Params, opt_state, batch, key: PRNGKey):
@@ -293,8 +402,11 @@ def make_train_step(
         # The one host read of the step: torch.optim updates its moments
         # and step count in place, so whether the update happens at all
         # must be known before optimizer.step() runs.
-        finite = bool(torch.stack(
-            [torch.isfinite(g).all() for g in grads.values()]).all())
+        ok = torch.stack([torch.isfinite(g).all()
+                          for g in grads.values()]).all()
+        if emulator.mesh is not None:
+            ok = world_all(ok)
+        finite = bool(ok)
         if finite:
             for n, p in params.items():
                 p.grad = grads[n]

@@ -25,6 +25,15 @@ zero-padded ``(nblocks, block)`` payload and ``(nblocks,)`` f32 scales):
   (``kernels/adam8.py::adam8_update_many``) a step does all of it for
   every leaf on the card.
 
+Under tensor parallelism (``shards``: a rank's leaves are its blocks of
+the global leaves) the moments stay the global leaves' blocks of 256.  A
+leaf whose blocks lie whole on the rank (a row shard at a block edge)
+keeps its slice of the global payload and scales and the one launch; a
+leaf whose blocks cross ranks (a column shard) stores its own elements'
+codes and every block's scale, and takes P3's split-block route, its
+blocks' scales the MAX over the model group of the ranks' partial absmax
+(one all-reduce a step for all such leaves).
+
 The bias corrections ``1 - b**count`` are computed on the host in f32, and
 the learning rate (a float, or a schedule of the count) is read on the
 host.  A step that :func:`make_train_step` skips on a non-finite gradient
@@ -33,12 +42,16 @@ never reaches the optimizer, so its moments and count stay as they were.
 
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
-from fp8tpu_torch.kernels.adam8 import (Adam8Args, Leaf, adam8_update,
-                                        adam8_update_many, bias_corrections)
+from fp8tpu_torch.kernels.adam8 import (Adam8Args, Leaf, SplitLeaf,
+                                        adam8_split_amax, adam8_split_apply,
+                                        adam8_update, adam8_update_many,
+                                        bias_corrections)
 from fp8tpu_torch.quant.interceptor import from_flax_layout, to_flax_layout
 from fp8tpu_torch.quant.policy import LayerKind
 
@@ -156,7 +169,8 @@ class Adam8W(torch.optim.Optimizer):
 
     def __init__(self, params, learning_rate, b1: float, b2: float,
                  eps: float, weight_decay: float, block: int, mask,
-                 module_table: Optional[Dict[str, LayerKind]]):
+                 module_table: Optional[Dict[str, LayerKind]],
+                 shards: Optional[Dict] = None):
         named = (list(params.items()) if isinstance(params, dict)
                  else [(str(i), p) for i, p in enumerate(params)])
         super().__init__([p for _, p in named], dict(
@@ -173,10 +187,40 @@ class Adam8W(torch.optim.Optimizer):
             mask = mask(dict(named))
         self.decay = {n: bool(weight_decay) and (mask is None or bool(
             mask[n])) for n in self.names}
+        # name -> (Block of the Flax-layout view in the global leaf, split)
+        self.blocks: Dict[str, Any] = {}
+        for n, sh in (shards or {}).items():
+            self.blocks[n] = self._placement(n, sh, block)
         for n, p in named:
-            self.state[p]["m"] = _zeros(p, block, torch.int8)
-            self.state[p]["v"] = _zeros(p, block, torch.float8_e4m3fn)
+            if self.blocks.get(n, (None, False))[1]:
+                blk = self.blocks[n][0]
+                nb = _nblocks(math.prod(blk.shape), block)
+                for which, dt in (("m", torch.int8),
+                                  ("v", torch.float8_e4m3fn)):
+                    self.state[p][which] = Moment8(
+                        torch.zeros(p.numel(), dtype=dt, device=p.device),
+                        torch.zeros(nb, dtype=torch.float32,
+                                    device=p.device))
+            else:
+                self.state[p]["m"] = _zeros(p, block, torch.int8)
+                self.state[p]["v"] = _zeros(p, block, torch.float8_e4m3fn)
+        self.shards = shards or {}
         self._table = None      # P3's leaf table, kept while it matches
+
+    def _placement(self, name: str, shard, block: int):
+        """(the Flax-layout view's ``Block`` in the global leaf, whether its
+        moment blocks cross ranks)."""
+        p = dict(zip(self.names, self.param_groups[0]["params"]))[name]
+        view = self._layout(name, p)
+        blk = shard.block(view.shape)
+        off = blk.contiguous_offset(view.shape)
+        total = math.prod(blk.shape)
+        whole = off is not None and off % block == 0 and (
+            view.numel() % block == 0 or off + view.numel() == total)
+        if not whole and view.ndim != 2:
+            raise NotImplementedError(
+                f"8-bit moments of {name}: a split {view.ndim}-D leaf")
+        return blk, not whole
 
     @property
     def count(self) -> int:
@@ -205,20 +249,45 @@ class Adam8W(torch.optim.Optimizer):
         b1, b2 = group["b1"], group["b2"]
         args = Adam8Args(b1, b2, group["eps"], *bias_corrections(b1, b2, new),
                          weight_decay=group["weight_decay"], neg_lr=neg_lr)
-        leaves, copies = [], []
+        leaves, split, copies = [], [], []
         for name, p in zip(self.names, group["params"]):
             g = p.grad if p.grad is not None else torch.zeros_like(p)
             pv, gv = self._layout(name, p), self._layout(name, g)
             st = self.state[p]
-            leaves.append(Leaf(pv, gv, *st["m"], *st["v"], mode=(
-                "apply_decay" if self.decay[name] else "apply")))
+            mode = "apply_decay" if self.decay[name] else "apply"
+            blk, crosses = self.blocks.get(name, (None, False))
+            if crosses:
+                split.append((name, SplitLeaf(
+                    pv, gv, *st["m"], *st["v"], blk.start[0], blk.start[1],
+                    blk.shape[1], mode)))
+            else:
+                leaves.append(Leaf(pv, gv, *st["m"], *st["v"], mode=mode))
             if pv.data_ptr() != p.data_ptr():
                 copies.append((p, pv, self.kinds[name]))
         self._table = adam8_update_many(leaves, args, self._table)
+        if split:
+            self._split_step(split, args)
         for p, pv, kind in copies:
             p.copy_(from_flax_layout(pv, kind))
         group["count"] = new
         return loss
+
+    def _split_step(self, split, args: Adam8Args) -> None:
+        """The leaves whose blocks cross ranks: the partial absmax of every
+        block, one MAX all-reduce over the model group, then the
+        quantization by the reduced scales and the update."""
+        import torch.distributed as dist
+        # one buffer, each leaf's (2, nblocks) slots contiguous in it
+        sizes = [2 * lf.ms.numel() for _, lf in split]
+        amax = torch.zeros(sum(sizes), dtype=torch.int32,
+                           device=split[0][1].p.device)
+        parts = [part.view(2, -1) for part in amax.split(sizes)]
+        for (_, lf), part in zip(split, parts):
+            adam8_split_amax(lf, args, part)
+        group = self.shards[split[0][0]].model.group
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+        for (_, lf), part in zip(split, parts):
+            adam8_split_apply(lf, args, part)
 
     # -- the JAX package's state tree ------------------------------------------
 
@@ -253,6 +322,89 @@ class Adam8W(torch.optim.Optimizer):
         chain.append(ScaleByScheduleState(count()) if callable(group["lr"])
                      else ())
         return tuple(chain)
+
+    def global_chain_state(self):
+        """:meth:`chain_state` with every sharded leaf's moments as the
+        global leaf's (the payload (nblocks, 256) and scales a
+        single-process run holds; the padding's codes 0).  Collective over
+        each shard's model group: every rank calls it and gets the global
+        state, which a model-parallel run saves."""
+        chain = self.chain_state()
+        if not self.shards:
+            return chain
+        params = dict(zip(self.names, self.param_groups[0]["params"]))
+
+        def whole(tree, which):
+            out = {}
+            for k, v in tree.items():
+                out[k] = (whole(v, which) if isinstance(v, dict) else v)
+            return out
+
+        adam = chain[0]
+        for which in ("m", "v"):
+            tree = whole(getattr(adam, which), which)
+            for name, sh in self.shards.items():
+                node, path = tree, self._path(name)
+                for part in path[:-1]:
+                    node = node[part]
+                node[path[-1]] = self._global_moment(name, params[name], sh,
+                                                     which)
+            adam = adam._replace(**{which: tree})
+        return (adam,) + tuple(chain[1:])
+
+    def _global_moment(self, name, p, shard, which) -> Moment8:
+        from fp8tpu_torch.parallel.collectives import gather_dim
+        st = self.state[p][which]
+        blk, crosses = self.blocks[name]
+        block = st.payload.shape[-1] if not crosses else 256
+        nb = _nblocks(math.prod(blk.shape), block)
+        group = shard.model.group
+        if not crosses:
+            return Moment8(gather_dim(st.payload, 0, group)[:nb],
+                           gather_dim(st.scale, 0, group)[:nb])
+        view = self._layout(name, p)
+        codes = gather_dim(st.payload.reshape(1, -1), 0, group)
+        flat = torch.zeros(nb * block, dtype=torch.uint8, device=p.device)
+        for r in range(shard.model.count):
+            other = dataclasses.replace(
+                shard, model=dataclasses.replace(shard.model, index=r))
+            idx = other.block(view.shape).index(view.shape, p.device)
+            flat[idx] = codes[r].view(torch.uint8)
+        return Moment8(flat.view(st.payload.dtype).reshape(nb, block),
+                       st.scale.clone())
+
+    def load_global_chain_state(self, chain) -> None:
+        """Load a global state (:meth:`global_chain_state`'s form, or a
+        single-process run's :meth:`chain_state`): each sharded leaf takes
+        its block of the global moments (no collective)."""
+        adam = chain[0]
+        group = self.param_groups[0]
+        for name, p in zip(self.names, group["params"]):
+            for which in ("m", "v"):
+                src = getattr(adam, which)
+                for part in self._path(name):
+                    src = src[part]
+                src = Moment8(*(_as_tensor(t, d) for t, d in
+                                zip(src, self.state[p][which])))
+                dst = self.state[p][which]
+                if name not in self.shards:
+                    for s_, d in zip(src, dst):
+                        d.copy_(s_)
+                    continue
+                blk, crosses = self.blocks[name]
+                view = self._layout(name, p)
+                if crosses:
+                    idx = blk.index(view.shape, p.device)
+                    dst.payload.copy_(src.payload.reshape(-1)[idx.to(
+                        src.payload.device)])
+                    dst.scale.copy_(src.scale)
+                else:
+                    b0 = blk.contiguous_offset(view.shape) // \
+                        dst.payload.shape[-1]
+                    nb = dst.payload.shape[0]
+                    dst.payload.copy_(src.payload[b0:b0 + nb])
+                    dst.scale.copy_(src.scale[b0:b0 + nb])
+        group["count"] = int(adam.count)
 
     def _path(self, name: str):
         """The keys of a leaf's moments in :meth:`chain_state`."""
@@ -296,8 +448,8 @@ def _as_tensor(a, like: torch.Tensor) -> torch.Tensor:
 def adamw_8bit(params, learning_rate, b1: float = 0.9, b2: float = 0.999,
                eps: float = 1e-8, weight_decay: float = 1e-4,
                block: int = 256, mask=None,
-               module_table: Optional[Dict[str, LayerKind]] = None
-               ) -> Adam8W:
+               module_table: Optional[Dict[str, LayerKind]] = None,
+               shards: Optional[Dict] = None) -> Adam8W:
     """AdamW with 8-bit moments over ``params`` (a dict of named tensors,
     or an iterable of tensors), with the defaults of the JAX package's
     ``adamw_8bit`` (``optax.adamw``'s, weight_decay=1e-4).
@@ -306,9 +458,12 @@ def adamw_8bit(params, learning_rate, b1: float = 0.9, b2: float = 0.999,
     ``mask`` a dict of names -> bool (or a callable of the params dict
     giving one) choosing the leaves that take the weight decay.  With the
     emulator's ``module_table``, Dense and Conv kernels keep their moments
-    in the Flax layout, so that their blocks are the JAX package's."""
+    in the Flax layout, so that their blocks are the JAX package's.
+    ``shards`` (``quant.interceptor.weight_shards`` of a tensor-parallel
+    model, or the emulator's ``shards``): ``params`` are a rank's shards,
+    and their moments the global leaves' blocks (module docstring)."""
     return Adam8W(params, learning_rate, b1, b2, eps, weight_decay, block,
-                  mask, module_table)
+                  mask, module_table, shards)
 
 
 def state_bytes(state) -> int:

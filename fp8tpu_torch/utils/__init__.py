@@ -9,7 +9,9 @@ from .bindump import (  # noqa: F401
     bindump_tree,
 )
 from .checkpoint import (  # noqa: F401
+    global_params,
     load_serve_artifact,
+    local_params,
     policy_from_json,
     policy_to_json,
     restore_checkpoint,

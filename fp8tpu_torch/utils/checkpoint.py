@@ -244,6 +244,54 @@ def restore_checkpoint(directory: str, step: int, template) -> Dict:
     return {"state": restore(template, ()), "meta": meta}
 
 
+# -- tensor-parallel runs: the global tree ------------------------------------
+
+def global_params(params: Dict[str, torch.Tensor], shards: Dict,
+                  module_table: Dict) -> Dict[str, torch.Tensor]:
+    """The global leaves of a tensor-parallel rank's ``params`` (a state
+    dict of its shards), every shard gathered over its model group along
+    its split dimension in the Flax layout (``shards``:
+    ``quant.interceptor.weight_shards``); replicated leaves as they are.
+    Collective: every rank of the model group calls it, and every rank
+    gets the global tree (what a model-parallel run saves, as the JAX
+    script saves global arrays)."""
+    from fp8tpu_torch.parallel.collectives import gather_dim
+    from fp8tpu_torch.quant.interceptor import (from_flax_layout,
+                                                to_flax_layout)
+    out = {}
+    for name, t in params.items():
+        sh = shards.get(name)
+        if sh is None:
+            out[name] = t.detach()
+            continue
+        kind = module_table.get(name.rpartition(".")[0].replace(".", "/"))
+        v = to_flax_layout(t.detach(), kind)
+        out[name] = from_flax_layout(
+            gather_dim(v, sh.model_dim % v.ndim, sh.model.group), kind)
+    return out
+
+
+def local_params(full: Dict[str, torch.Tensor], shards: Dict,
+                 module_table: Dict) -> Dict[str, torch.Tensor]:
+    """A rank's blocks of the global leaves ``full`` (the inverse of
+    :func:`global_params`; no collective)."""
+    from fp8tpu_torch.quant.interceptor import (from_flax_layout,
+                                                to_flax_layout)
+    out = {}
+    for name, t in full.items():
+        sh = shards.get(name)
+        if sh is None:
+            out[name] = t
+            continue
+        kind = module_table.get(name.rpartition(".")[0].replace(".", "/"))
+        v = to_flax_layout(t, kind)
+        d = sh.model_dim % v.ndim
+        n = v.shape[d] // sh.model.count
+        out[name] = from_flax_layout(
+            v.narrow(d, sh.model.index * n, n).contiguous(), kind)
+    return out
+
+
 # -- the serving artifact -----------------------------------------------------
 
 # The JAX package's ServeConfig has a ``staging_impl`` field (its ring

@@ -414,7 +414,8 @@ PLANTED = {
     "wtgrad-casts-dropped": (tmpt, "quantize_wtgrads",
                              lambda grads, *a: grads),
     "engine-uncast": (hw_patch, "patched_matmul",
-                      lambda a, b, cfg, seed=0, shard=None: a @ b),
+                      lambda a, b, cfg, seed=0, shard=None, shard_b=None:
+                      a @ b),
     "bmm-cotangent-as-nchw": (
         interceptor_mod, "_in_jax_layout",
         lambda fn, a, cfg, nchw=True, _f=interceptor_mod._in_jax_layout:

@@ -219,10 +219,14 @@ def test_train_fp8_checkpoint_restores_the_state(opt8, tmp_path,
 
 
 def test_train_fp8_flags_without_a_port_raise():
-    """Tensor parallelism inside the models is not ported (ROADMAP §1 item
-    7); data parallelism is, and needs a world of its size (one process
-    here: tests/test_torch_parallel_dp.py runs it)."""
-    with pytest.raises(NotImplementedError, match="item 7"):
+    """The MoE decoder under a mesh is not ported (ROADMAP §1 item 7d);
+    data and model parallelism are, and need a world of their size (one
+    process here: tests/test_torch_parallel_dp.py and
+    tests/test_torch_parallel_tp.py run them)."""
+    with pytest.raises(NotImplementedError, match="item 7d"):
+        train_fp8.main(TRAIN + CPU + ["--model-parallel", "2",
+                                      "--n-experts", "4"])
+    with pytest.raises(ValueError, match="nproc-per-node 2"):
         train_fp8.main(TRAIN + CPU + ["--model-parallel", "2"])
     with pytest.raises(ValueError, match="nproc-per-node 2"):
         train_fp8.main(TRAIN + CPU + ["--data-parallel", "2"])

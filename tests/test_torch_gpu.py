@@ -1653,3 +1653,148 @@ def test_k3_and_k4_at_the_serve_cell_shard_shapes(cuda, split):
     assert float((l - l_p).abs().max()) <= 1e-3 * float(l_p.abs().max())
     assert float((acc - acc_p).abs().max()) <= 2e-2 * float(
         acc_p.abs().max())
+
+
+# -- the model-parallel training step (ROADMAP 7c) ----------------------------
+
+@pytest.mark.parametrize("case", ["column", "seq", "odd", "contiguous"])
+def test_k1_block_route_matches_plain(cuda, case):
+    """K1's block route (SR bits hashed at each element's global index,
+    computed in the kernel from the block's runs) against its plain
+    version, bit for bit: a column block, an uneven seq chunk, a block of
+    odd extents (the scalar path), and a contiguous block, which is also
+    the salt_at route's cast."""
+    from fp8tpu_torch.parallel.data import Block
+    shape, blk = {
+        "column": ((64, 24), Block((64, 96), (0, 48))),
+        "seq": ((2, 7, 12), Block((2, 15, 12), (0, 8, 0))),
+        "odd": ((3, 5), Block((6, 17), (3, 5))),
+        "contiguous": ((2, 15, 12), Block((4, 15, 12), (2, 0, 0)))}[case]
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(3)) * 4
+    sr = RoundMode.STOCHASTIC
+    before = cast_kernel.block_launches
+    got = cast_kernel.cuda_qdq(x.to(cuda), "e5m2", sr, 2.0, salt=1234,
+                               block=blk)
+    assert cast_kernel.block_launches == before + 1
+    want = tcast.qdq_plain(x, "e5m2", sr, 2.0, salt=1234, block=blk)
+    assert np.array_equal(_bits(got), _bits(want))
+    if case == "contiguous":
+        off = blk.contiguous_offset(shape)
+        today = cast_kernel.cuda_qdq(x.to(cuda), "e5m2", sr, 2.0,
+                                     salt=tcast.salt_at(1234, off))
+        assert np.array_equal(_bits(got), _bits(today))
+
+
+@pytest.mark.parametrize("impl", ["bitexact", "hw"])
+@pytest.mark.parametrize("case", ["column", "seq", "odd"])
+def test_k2_block_route_matches_plain(cuda, case, impl):
+    """K2's pre-pass block route (a stochastic operand that is a block of a
+    split tensor: SR bits at each element's global index) through an
+    identity, bit for bit against its plain version on the CPU and against
+    the block of the whole operand's K2 call."""
+    from fp8tpu_torch.parallel.data import Block
+    (h, w), blk = {"column": ((64, 24), Block((64, 96), (0, 48))),
+                   "seq": ((7, 32), Block((15, 32), (8, 0))),
+                   "odd": ((3, 5), Block((6, 17), (3, 5)))}[case]
+    whole = torch.randn(blk.shape, generator=torch.Generator().manual_seed(5))
+    r0, c0 = blk.start
+    x = whole[r0:r0 + h, c0:c0 + w].contiguous()
+    sr, rne = RoundMode.STOCHASTIC, RoundMode.RNE
+    args = ("e5m2", sr, None, rne, 0.25)
+    before = qmatmul.k2_launches["prepass_block"]
+    got = qmatmul.qdq_matmul(x.to(cuda), torch.eye(w, device=cuda), *args,
+                             seed=77, impl=impl, block_x=blk)
+    assert qmatmul.k2_launches["prepass_block"] == before + 1
+    want = qmatmul.plain(x, torch.eye(w), *args, seed=77, impl=impl,
+                         block_x=blk)
+    assert np.array_equal(_bits(got + 0.0), _bits(want + 0.0))
+    full = qmatmul.qdq_matmul(whole.to(cuda),
+                              torch.eye(blk.shape[1], device=cuda), *args,
+                              seed=77, impl=impl)
+    assert np.array_equal(_bits(got + 0.0),
+                          _bits(full[r0:r0 + h, c0:c0 + w] + 0.0))
+
+
+def test_p3_split_route_matches_one_pass_p3(cuda):
+    """P3's split-block route on the column shards (4) of a (50, 60) leaf
+    read through transposed views (blocks of 256 cross the shards; the
+    last block is padded), the shards' partial absmax maxed as the
+    all-reduce would: parameters, each shard's codes and every block's
+    scales bit-equal to one-pass P3 on the whole leaf and to the route's
+    plain version on the CPU."""
+    from fp8tpu_torch.kernels import adam8
+    from fp8tpu_torch.parallel.data import Block
+    gen = torch.Generator().manual_seed(4)
+    K, N, T = 50, 60, 4
+    w, nb = N // T, -(-K * N // 256)
+    args = lambda c: adam8.Adam8Args(
+        0.9, 0.999, 1e-8, *adam8.bias_corrections(0.9, 0.999, c),
+        weight_decay=1e-4, neg_lr=-1e-3)
+    p = torch.randn(K, N, generator=gen) * 0.02
+    st = [torch.zeros(nb, 256, dtype=torch.int8), torch.zeros(nb),
+          torch.zeros(nb, 256, dtype=torch.float8_e4m3fn), torch.zeros(nb)]
+    adam8.adam8_update(p, torch.randn(K, N, generator=gen) * 1e-2, *st,
+                       args(1), "apply_decay")
+    g = torch.randn(K, N, generator=gen) * 1e-2
+    ref_p, ref = p.clone(), [t.clone() for t in st]
+    adam8.adam8_update(ref_p, g, *ref, args(2), "apply_decay")
+    for dev, amax_fn, apply_fn in (
+            (cuda, adam8.adam8_split_amax, adam8.adam8_split_apply),
+            ("cpu", adam8.adam8_split_amax_plain,
+             adam8.adam8_split_apply_plain)):
+        leaves = []
+        for r in range(T):
+            idx = Block((K, N), (0, r * w)).index((K, w))
+            pt = p[:, r * w:(r + 1) * w].t().contiguous().to(dev)
+            gt = g[:, r * w:(r + 1) * w].t().contiguous().to(dev)
+            leaves.append((adam8.SplitLeaf(
+                pt.t(), gt.t(), st[0].reshape(-1)[idx].to(dev),
+                st[1].clone().to(dev), st[2].reshape(-1)[idx].to(dev),
+                st[3].clone().to(dev), 0, r * w, N, "apply_decay"), idx))
+        amax = torch.zeros((2, nb), dtype=torch.int32, device=dev)
+        for lf, _ in leaves:
+            part = torch.zeros_like(amax)
+            amax_fn(lf, args(2), part)
+            amax = torch.maximum(amax, part)
+        for r, (lf, idx) in enumerate(leaves):
+            apply_fn(lf, args(2), amax)
+            for a, b in zip([lf.p, lf.mq, lf.ms, lf.vq, lf.vs],
+                            [ref_p[:, r * w:(r + 1) * w],
+                             ref[0].reshape(-1)[idx], ref[1],
+                             ref[2].reshape(-1)[idx], ref[3]]):
+                assert torch.equal(a.cpu().contiguous().view(torch.uint8),
+                                   b.contiguous().view(torch.uint8))
+
+
+def test_one_rank_model_parallel_step_matches_the_plain_step(world1):
+    """``train_fp8``'s step (hybrid-gemm, fp16 master, 8-bit AdamW, e4m3
+    embedding) over a data 1 x seq 1 x model 1 mesh, 2 steps of the tiny
+    decoder: parameters, moment bytes, losses and loss scales bit-equal to
+    the plain step's (a group of one holds every product whole); K1 and P3
+    launched."""
+    from fp8tpu_torch.kernels import adam8
+    from fp8tpu_torch.numerics import prng
+    from fp8tpu_torch.parallel import make_mesh
+    from fp8tpu_torch.tools.bench_tp import lm_tokens, run_steps, trainer
+    from fp8tpu_torch.training.mpt import lm_batch
+    cfg = tiny_config(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
+                      d_ff=256, vocab_size=256, max_seq_len=64)
+    mesh = make_mesh(data=1, seq=1, model=1)
+    toks = [lm_tokens(cfg, 4, i, "cuda") for i in range(2)]
+    runs = []
+    for m in (mesh, None):
+        _, params, opt, step, state = trainer(cfg, torch.device("cuda"), m)
+        k1, p3 = cast_kernel.launches, adam8.launches
+        params, state, losses, _ = run_steps(
+            step, params, state, [lm_batch(t, m) for t in toks],
+            prng.key(1), torch.cuda.synchronize)
+        assert cast_kernel.launches > k1 and adam8.launches == p3 + 2
+        runs.append((params, opt, state, losses))
+    (pm, om, sm, lm), (pp, op, sp, lp) = runs
+    assert lm == lp and sm[1] == sp[1]
+    for n in pp:
+        assert torch.equal(pm[n].detach().view(torch.int32),
+                           pp[n].detach().view(torch.int32)), n
+        for w in ("m", "v"):
+            for a, b in zip(om.state[pm[n]][w], op.state[pp[n]][w]):
+                assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))

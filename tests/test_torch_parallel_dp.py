@@ -217,8 +217,9 @@ def _plant(name, shard):
         return shard, None, undo
     if name == "offset-0":
         class Zero(BatchShard):
-            def offset(self, numel):
-                return 0
+            def block(self, shape):
+                b = super().block(shape)
+                return dataclasses.replace(b, start=(0,) * len(b.start))
         return Zero(shard.group, shard.index, shard.count), None, lambda: None
     if name == "local-mean":
         return shard, _loss_fn(kind), lambda: None
@@ -517,9 +518,11 @@ def test_data_parallel_flags_need_a_world_and_model_parallel_raises():
     from fp8tpu_torch.examples import train_fp8
     with pytest.raises(ValueError, match="nproc-per-node 2"):
         train_fp8.main(SCRIPT + ["--data-parallel", "2"])
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # model parallelism runs too (tests/test_torch_parallel_tp.py), in a
+    # world of its size
+    with pytest.raises(ValueError, match="nproc-per-node 2"):
         train_fp8.main(SCRIPT + ["--model-parallel", "2"])
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 7d"):
         train_fp8.main(SCRIPT + ["--data-parallel", "2", "--n-experts", "4"])
 
 

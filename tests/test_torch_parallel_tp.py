@@ -1,7 +1,9 @@
 """Tensor parallelism inside the port's decoder against the JAX package,
 on the CPU: the TP-sharded PTQ forward (``quantized_apply(mesh=)`` on
-``models.Decoder(cfg, mesh=)``) and the TP-sharded serving engine, ring
-and self-draft speculative paged (``ServingEngine(mesh=)``).
+``models.Decoder(cfg, mesh=)``), the TP-sharded serving engine, ring and
+self-draft speculative paged (``ServingEngine(mesh=)``), and the
+model-parallel training step with sequence parallelism
+(``initialize(mesh=)``, ``make_train_step``).
 
 Everything that issues collectives runs in one world of eight gloo ranks,
 spawned once for this file as ``tests/test_torch_parallel.py`` spawns its
@@ -44,6 +46,21 @@ Limits (PERF.md §2, the TP rows):
   data 2 x model 2 (the decoder config, two hosts of it) and data 2 x
   model 4 (the engine config) within 4e-3 of max|logit| of the unsharded
   step (trap 15's un-jitted limit; measured: bit for bit).
+- 7c, the model-parallel training step over data 2 x seq 2 x model 2 (the
+  JAX test's mesh; 15 positions in chunks of 8 and 7): the SR casts of a
+  split tensor bit-equal to the single-process cast and to JAX's (both
+  streams, both impls); the JAX test's hybrid SGD step by its gates
+  against JAX's replicated and GSPMD steps (loss 1%, q_proj correlation
+  0.9999, atol 2e-3), on drawn tokens within twice JAX's own GSPMD
+  distance; against the port's single-process step: uncast f32 within
+  1e-5, free running (hybrid, hybrid-gemm, bfloat16, and hybrid with hw
+  patching) losses 1e-5 relative and parameters 2e-3, call by call every
+  cast bit-equal to the block of the single call's output and its own
+  input within 2e-2 of max|input|, each of three planted faults failing
+  that; an overflow on one rank skips the step on every rank; the 8-bit
+  AdamW on split leaves, and checkpoints both ways, byte for byte;
+  ``train_fp8`` over data 4 x model 2 against the single-process script,
+  losses 1e-2 relative (bf16 compute).
 - The casts of a split tensor (every scaling kind; rows over data, columns
   over model, or both): the whole tensor's cast, bit for bit, on a 1/8 grid
   where every sum is exact; fine-grained, per-block and integer scaling of
@@ -60,7 +77,7 @@ import pytest
 import torch
 
 WORLD = 8
-TIMEOUT = 120          # seconds for the whole world, start to finish
+TIMEOUT = 240          # seconds for the whole world, start to finish
 PG_TIMEOUT = 60        # seconds for any one collective
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -454,13 +471,528 @@ def _worker_casts(rank, res):
             c = cols if "model" in split else slice(None)
             shard = data if split == "batch-shard" else TensorShard(
                 None if split == "model" else data,
-                model if "model" in split else None, 1)
+                model if "model" in split else None, 1, mesh=mesh)
             try:
                 got = fake_quant(x[r, c].contiguous(), cfg, None, shard)
                 res[f"cast/{name}/{split}"] = np.array(
                     _bits_differ(got, want[r, c].contiguous()))
             except NotImplementedError:
                 res[f"cast/{name}/{split}"] = np.array(-1)
+
+
+# -- the worker: 7c, the model-parallel training step ------------------------
+
+SEQ_MESH = dict(data=2, seq=2, model=2)      # the JAX test's step's mesh
+SR_X = (16, 64)                              # tests/test_parallel.py:44-63
+SR_X3 = (4, 16, 64)                          # data x seq x model
+SR_STREAMS = ("hash", "threefry")
+SR_IMPLS = ("bitexact", "hw")
+CALL_ALGOS = ("hybrid", "hybrid-gemm", "bfloat16")
+TRAIN_PLANTS = ("sr-contiguous-offset", "column-igrad-before-sum",
+                "ograd-local-amax")
+PLANT_ALGO = {"sr-contiguous-offset": "hybrid",
+              "column-igrad-before-sum": "hybrid",
+              "ograd-local-amax": "hybrid-gemm"}
+IN_TOL = 2e-2          # a fed cast's own input against the single call's
+NOCAST_TOL = 1e-5      # the step without casts, f32, relative
+# free running against the port's single-process step (PERF.md §2's
+# decoder-training row): losses relative, parameters max |difference|
+FREE = {a: dict(loss=1e-5, param=2e-3) for a in ("none",) + CALL_ALGOS}
+HW_ALGOS = ("hybrid", "hybrid-gemm")
+OPT8_STEPS = 2
+SCRIPT_TP = ["--steps", "3", "--d-model", "64", "--n-layers", "1",
+             "--batch-size", "4", "--seq-len", "9", "--device", "cpu",
+             "--opt8", "--emb-fmt", "e4m3"]
+SCRIPT_LOSS = 1e-2     # bf16 compute, 8-bit AdamW: the bf16 training row
+
+
+def sr_inputs():
+    """tests/test_parallel.py's (16, 64) (its ``rng`` fixture's first
+    draw) and a (4, 16, 64) draw."""
+    return (np.random.default_rng(0).standard_normal(SR_X).astype(
+        np.float32), np.random.default_rng(11).standard_normal(
+        SR_X3).astype(np.float32))
+
+
+def sr_cfg(impl):
+    from fp8tpu_torch.quant.config import TensorQuantConfig
+    return TensorQuantConfig("e4m3", "stochastic", cast_impl=impl)
+
+
+def _sr_stream(stream):
+    from fp8tpu_torch.numerics import cast
+    cast.SR_BITS_IMPL = stream
+
+
+def _worker_sr(rank, res):
+    """The SR casts of a tensor split over data x model (2 x 4) and over
+    data x seq x model (2 x 2 x 2): each rank's block of the cast."""
+    from fp8tpu_torch.numerics.prng import key
+    from fp8tpu_torch.parallel import BatchShard, TensorShard, make_mesh
+    from fp8tpu_torch.quant.fakequant import fake_quant
+    x2, x3 = (torch.from_numpy(a) for a in sr_inputs())
+    m2 = make_mesh(data=2, model=4)
+    m3 = make_mesh(**SEQ_MESH)
+    d, m = m2.index("data"), m2.index("model")
+    sh2 = TensorShard(BatchShard.of(m2.group("data")),
+                      BatchShard.of(m2.group("model")), 1, mesh=m2)
+    b2 = x2[d * 8:(d + 1) * 8, m * 16:(m + 1) * 16].contiguous()
+    d3, s3, m3i = (m3.index(a) for a in ("data", "seq", "model"))
+    sh3 = TensorShard(BatchShard.of(m3.group("data")),
+                      BatchShard.of(m3.group("model")), 2,
+                      BatchShard.of(m3.group("seq")), 1, 16, mesh=m3)
+    b3 = x3[d3 * 2:(d3 + 1) * 2, s3 * 8:(s3 + 1) * 8,
+            m3i * 32:(m3i + 1) * 32].contiguous()
+    try:
+        for stream in SR_STREAMS:
+            _sr_stream(stream)
+            for impl in SR_IMPLS:
+                res[f"sr/2/{stream}/{impl}"] = _np(fake_quant(
+                    b2, sr_cfg(impl), key(7), sh2))
+                res[f"sr/3/{stream}/{impl}"] = _np(fake_quant(
+                    b3, sr_cfg(impl), key(7), sh3))
+    finally:
+        _sr_stream("hash")
+    # a stochastic engine operand split over data x model (its rows and
+    # columns) against the whole operand through the engine: the rank's
+    # block of the cast operand (K2's SR stream at the global indices),
+    # multiplied by an identity, on the bit pipeline and the hw route
+    from fp8tpu_torch.quant.config import ModuleQuantConfig
+    from fp8tpu_torch.quant.hw_patch import engine_matmul
+    differ = 0
+    for impl in SR_IMPLS:
+        mq = ModuleQuantConfig(iact=sr_cfg(impl))
+        got = engine_matmul(b2, torch.eye(16), mq, key(9),
+                            shards=(sh2, None))
+        want = engine_matmul(x2, torch.eye(64), mq, key(9))[
+            d * 8:(d + 1) * 8, m * 16:(m + 1) * 16]
+        differ += _bits_differ(got, want)
+    res["sr/engine"] = np.array(differ)
+
+
+def _train_setup(algo, mesh=None, dtype="bfloat16", opt="sgd", hw=False):
+    """The JAX test's decoder from ``flax_vars(DEC, 0)``: its TP form over
+    ``mesh`` (this rank's shards) or the whole model, ``initialize`` with
+    ``algo`` ("none": no casts, f32 master), SGD 0.01 (``optax.sgd``) or
+    the 8-bit AdamW, and a step with loss scale 2^12 on ``lm_loss``.
+    Returns (emulator, params, optimizer, step, state)."""
+    import dataclasses
+    from fp8tpu_torch.models import variables_from_flax
+    from fp8tpu_torch.models.transformer import Decoder
+    from fp8tpu_torch.parallel import DECODER_PARAM_RULES, local_shards
+    from fp8tpu_torch.quant.config import ModuleQuantConfig
+    from fp8tpu_torch.quant.interceptor import build_module_table
+    from fp8tpu_torch.quant.policy import QuantPolicy
+    from fp8tpu_torch.training import (adamw_8bit, init_train_state,
+                                       initialize, make_train_step)
+    from fp8tpu_torch.training.mpt import lm_loss
+    cfg = dataclasses.replace(torch_cfg(DEC), dtype=dtype)
+    sd = variables_from_flax(flax_vars(DEC, 0))
+    model = Decoder(cfg, mesh=mesh)
+    if mesh is not None:
+        sd = local_shards(sd, mesh, DECODER_PARAM_RULES,
+                          build_module_table(Decoder(cfg)))
+    model.load_state_dict(sd)
+    nocast = algo == "none"
+    emu = initialize(model, training_algo="hybrid" if nocast else algo,
+                     master_fmt="fp32" if nocast else "fp16", device="cpu",
+                     mesh=mesh)
+    if nocast:
+        emu = dataclasses.replace(emu, policy=QuantPolicy(
+            default=ModuleQuantConfig(), whitelist=()))
+    if hw:
+        emu = dataclasses.replace(emu, policy=emu.policy.with_hw_patching())
+    params = dict(model.named_parameters())
+    if opt == "opt8":
+        optimizer = adamw_8bit(params, 1e-3, module_table=emu.module_table,
+                               shards=emu.shards)
+    else:
+        optimizer = torch.optim.SGD(params.values(), lr=0.01)
+    return (emu, params, optimizer, make_train_step(emu, lm_loss),
+            init_train_state(optimizer))
+
+
+def _flax_block(t, name, emu, full=None):
+    """``t`` (a torch-layout leaf) in the Flax layout; with ``full`` the
+    rank's block of it instead, as the emulator's shards say."""
+    from fp8tpu_torch.quant.interceptor import to_flax_layout
+    from fp8tpu_torch.utils import local_params
+    kind = emu.module_table.get(name.rpartition(".")[0].replace(".", "/"))
+    if full is not None:
+        t = local_params({name: full}, emu.shards or {},
+                         emu.module_table)[name]
+    return to_flax_layout(t.detach(), kind)
+
+
+def _run_step(algo, mesh, toks, key_seed=3, **kw):
+    """One step: (loss, scale after, {name: the rank's leaf})."""
+    from fp8tpu_torch.numerics.prng import key
+    from fp8tpu_torch.training.mpt import lm_batch
+    emu, params, opt, step, state = _train_setup(algo, mesh, **kw)
+    params, state, loss = step(params, state, lm_batch(toks, mesh),
+                               key(key_seed))
+    return float(loss), state[1], {n: p.detach().clone()
+                                   for n, p in params.items()}, emu
+
+
+class _Feed:
+    """Every cast of a step, recorded (``mode`` "record", the
+    single-process step) or fed (``mode`` "feed", a rank's TP step): a
+    fed cast takes the rank's block of the recorded call's input, its
+    output must be the block of the recorded output bit for bit, and its
+    own input (what the TP step handed it, everything upstream fed) must
+    lie within ``IN_TOL`` of max|input| of that block.  Calls are matched
+    by (role, key, global shape).  The casts: forward (``icp.fake_quant``:
+    iact, oact, weights), igrad / ograd (``icp.quantize_grad``), wtgrad
+    and master requant (``mpt.fake_quant``)."""
+
+    def __init__(self, mode, records=None):
+        self.mode, self.records = mode, records if records is not None \
+            else {}
+        self.bad = self.calls = 0
+        self.worst_in = 0.0
+        self.roles = set()
+
+    def _wrap(self, role, real):
+        def cast(x, cfg, key=None, shard=None):
+            if cfg is None:
+                return real(x, cfg, key, shard)
+            if self.mode == "record":
+                y = real(x, cfg, key, shard)
+                self.records.setdefault((role, key, tuple(x.shape)), []
+                                        ).append((x.detach().clone(),
+                                                  y.detach().clone()))
+                return y
+            blk = None if shard is None else shard.block(x.shape)
+            gshape = tuple(x.shape) if blk is None else blk.shape
+            xs, ys = self.records[(role, key, gshape)].pop(0)
+            if blk is not None:
+                for d, (st, n) in enumerate(zip(blk.start, x.shape)):
+                    xs, ys = xs.narrow(d, st, n), ys.narrow(d, st, n)
+            want_in = xs.to(x.dtype).contiguous()
+            scale = float(want_in.float().abs().max()) or 1.0
+            self.worst_in = max(self.worst_in, float(
+                (x.detach().float() - want_in.float()).abs().max()) / scale)
+            y = real(want_in, cfg, key, shard).detach()
+            self.bad += _bits_differ(y, ys.to(y.dtype))
+            self.calls += 1
+            self.roles.add(role)
+            if role == "fwd" and x.requires_grad:
+                # straight through, as the cast's own backward: the
+                # gradient reaches x
+                return y + (x - x.detach())
+            return y
+        return cast
+
+    def __enter__(self):
+        from fp8tpu_torch.quant import interceptor as icp
+        from fp8tpu_torch.training import mpt
+        self._saved = (icp.fake_quant, icp.quantize_grad, mpt.fake_quant)
+        icp.fake_quant = self._wrap("fwd", icp.fake_quant)
+        icp.quantize_grad = self._wrap("grad", icp.quantize_grad)
+        mpt.fake_quant = self._wrap("param", mpt.fake_quant)
+        return self
+
+    def __exit__(self, *exc):
+        from fp8tpu_torch.quant import interceptor as icp
+        from fp8tpu_torch.training import mpt
+        icp.fake_quant, icp.quantize_grad, mpt.fake_quant = self._saved
+
+
+class _LocalMax:
+    """A shard whose MAX stays on the rank (a planted fault)."""
+
+    def __init__(self, shard):
+        self.shard = shard
+
+    def __getattr__(self, name):
+        return getattr(self.shard, name)
+
+    def max(self, a):
+        return a
+
+
+def _plant(name):
+    """Install a planted fault; returns its undo."""
+    from fp8tpu_torch.models import transformer
+    from fp8tpu_torch.parallel import collectives as coll
+    from fp8tpu_torch.parallel import data
+    from fp8tpu_torch.quant import interceptor as icp
+    if name == "sr-contiguous-offset":
+        real = data.Block.contiguous_offset
+
+        def first(self, shape):
+            off = 0
+            for _, g, st in self.segments(shape):
+                off = off * g + st
+            return off
+
+        data.Block.contiguous_offset = first
+        return lambda: setattr(data.Block, "contiguous_offset", real)
+    if name == "column-igrad-before-sum":
+        # the sum moves above the interceptor: the igrad cast sees one
+        # rank's partial gradient, the sum comes after it
+        real_ci = transformer.TPLayout.column_input
+        real_make = icp.make_quant_interceptor
+        transformer.TPLayout.column_input = \
+            lambda self, x: x.to(torch.float32)
+
+        def make(*a, **kw):
+            inner = real_make(*a, **kw)
+
+            def outer(next_fun, args, kwargs, ctx):
+                if isinstance(ctx.module, transformer.ColumnDense):
+                    g = ctx.module.tp.group
+                    args = tuple(coll.column_input(x, g).to(x.dtype)
+                                 for x in args)
+                return inner(next_fun, args, kwargs, ctx)
+            return outer
+
+        icp.make_quant_interceptor = make
+        from fp8tpu_torch.training import mpt
+        real_mpt = mpt.make_quant_interceptor
+        mpt.make_quant_interceptor = make
+
+        def undo():
+            transformer.TPLayout.column_input = real_ci
+            icp.make_quant_interceptor = real_make
+            mpt.make_quant_interceptor = real_mpt
+        return undo
+    real_gc = icp.grad_cast
+
+    def local(x, cfg, key, nchw=True, shard=None):
+        return real_gc(x, cfg, key, nchw,
+                       None if shard is None else _LocalMax(shard))
+
+    icp.grad_cast = local
+    return lambda: setattr(icp, "grad_cast", real_gc)
+
+
+def _fed_step(algo, mesh, toks, records):
+    """A rank's TP step with every cast fed the single-process step's
+    (``records``): (differing bits, worst own-input error, calls)."""
+    with _Feed("feed", {k: list(v) for k, v in records.items()}) as f:
+        _run_step(algo, mesh, toks)
+    return np.array([f.bad, f.worst_in, f.calls, len(f.roles)])
+
+
+def _opt8_case(rank, res, mesh):
+    """The 8-bit AdamW over the rank's shards, OPT8_STEPS steps fed the
+    single step's gradients, against the single-process optimizer: the
+    rank's codes and every block's scale (bytes differing), then the
+    checkpoint round trips both ways (returns both optimizers)."""
+    from fp8tpu_torch.quant.interceptor import from_flax_layout
+    emu_t, p_t, o_t, _, _ = _train_setup("hybrid-gemm", mesh,
+                                         dtype="float32", opt="opt8")
+    emu_s, p_s, o_s, _, _ = _train_setup("hybrid-gemm", None,
+                                         dtype="float32", opt="opt8")
+    rng = np.random.default_rng(5)
+    for _ in range(OPT8_STEPS):
+        for n, p in p_s.items():
+            g = torch.from_numpy(rng.standard_normal(tuple(p.shape)).astype(
+                np.float32)) * 1e-2
+            p.grad = g
+            kind = emu_s.module_table.get(n.rpartition(".")[0].replace(
+                ".", "/"))
+            p_t[n].grad = from_flax_layout(
+                _flax_block(None, n, emu_t, g).contiguous(), kind) \
+                if n in (emu_t.shards or {}) else g.clone()
+        o_s.step()
+        o_t.step()
+    bad = crossing = 0
+    for n, p in p_t.items():
+        want_p = _flax_block(None, n, emu_t, p_s[n].detach())
+        bad += _bits_differ(_flax_block(p, n, emu_t).contiguous(),
+                            want_p.contiguous())
+        blk, crosses = o_t.blocks.get(n, (None, False))
+        crossing += crosses
+        for which in ("m", "v"):
+            (qs, ss), (qt, st) = o_s.state[p_s[n]][which], \
+                o_t.state[p][which]
+            if crosses:
+                idx = blk.index(_flax_block(p, n, emu_t).shape)
+                qs = qs.reshape(-1)[idx]
+            elif blk is not None:
+                b0 = blk.contiguous_offset(
+                    _flax_block(p, n, emu_t).shape) // 256
+                qs, ss = qs[b0:b0 + qt.shape[0]], ss[b0:b0 + qt.shape[0]]
+            bad += int((qs.reshape(-1).view(torch.uint8)
+                        != qt.reshape(-1).view(torch.uint8)).sum())
+            bad += _bits_differ(ss, st)
+    res["7c/opt8"] = np.array([bad, crossing, o_t.count])
+    return emu_t, p_t, o_t, emu_s, p_s, o_s
+
+
+def _checkpoints(rank, res, out, opt8_state):
+    """Sharded -> single-process and single-process -> sharded: the
+    global tree a sharded run saves restores into a single-process run
+    byte for byte, and a single-process checkpoint into the shards."""
+    import torch.distributed as dist
+    from fp8tpu_torch.models import variables_from_flax, variables_to_flax
+    from fp8tpu_torch.training import LossScaleState
+    from fp8tpu_torch.utils import (global_params, local_params,
+                                    restore_checkpoint, save_checkpoint)
+    emu_t, p_t, o_t, emu_s, p_s, o_s = opt8_state
+    ls = LossScaleState(2.0 ** 11, 3)
+    table = emu_s.module_table
+    a, b = os.path.join(out, "ck_sharded"), os.path.join(out, "ck_single")
+    tree = global_params(p_t, emu_t.shards, table)
+    chain = o_t.global_chain_state()
+    if rank == 0:
+        save_checkpoint(a, 2, variables_to_flax(tree, table), (chain, ls))
+        save_checkpoint(b, 2, variables_to_flax(p_s, table), (o_s, ls))
+    dist.barrier()
+    # into a fresh single-process run
+    _, f_p, f_o, _, _ = _train_setup("hybrid-gemm", None, dtype="float32",
+                                      opt="opt8")
+    got = restore_checkpoint(a, 2, {"params": variables_to_flax(f_p, table),
+                                    "opt_state": (f_o, LossScaleState(1.0))})
+    bad = sum(_bits_differ(t, p_s[n].detach()) for n, t in
+              variables_from_flax(got["state"]["params"]).items())
+    for n, p in f_p.items():
+        for which in ("m", "v"):
+            for x, y in zip(f_o.state[p][which], o_s.state[p_s[n]][which]):
+                bad += int((x.reshape(-1).view(torch.uint8)
+                            != y.reshape(-1).view(torch.uint8)).sum())
+    bad += int(got["state"]["opt_state"][1] != ls) + int(f_o.count
+                                                         != o_s.count)
+    # into fresh shards
+    e_t, g_p, g_o, _, _ = _train_setup("hybrid-gemm", SEQ_MESH_OBJ[0],
+                                       dtype="float32", opt="opt8")
+    got = restore_checkpoint(b, 2, {
+        "params": variables_to_flax(global_params(g_p, e_t.shards, table),
+                                    table),
+        "opt_state": (g_o.global_chain_state(), LossScaleState(1.0))})
+    full = local_params(variables_from_flax(got["state"]["params"]),
+                        e_t.shards, table)
+    bad2 = sum(_bits_differ(full[n], p.detach()) for n, p in p_t.items())
+    g_o.load_global_chain_state(got["state"]["opt_state"][0])
+    for n, p in g_p.items():
+        for which in ("m", "v"):
+            for x, y in zip(g_o.state[p][which], o_t.state[p_t[n]][which]):
+                bad2 += int((x.reshape(-1).view(torch.uint8)
+                             != y.reshape(-1).view(torch.uint8)).sum())
+    res["7c/checkpoint"] = np.array([bad, bad2])
+
+
+SEQ_MESH_OBJ = []
+
+
+def _worker_7c(rank, res, out):
+    from fp8tpu_torch.parallel import make_mesh
+    from fp8tpu_torch.training import mpt
+    mesh = make_mesh(**SEQ_MESH)
+    SEQ_MESH_OBJ[:] = [mesh]
+    res["7c/coords"] = np.array([mesh.index(a) for a in SEQ_MESH])
+    for which in TOKENS:
+        toks = torch.from_numpy(dec_tokens(which)).long()
+        loss, ls, params, emu = _run_step("hybrid", mesh, toks)
+        res[f"7c/jax-step/{which}/loss"] = np.array(loss)
+        res[f"7c/jax-step/{which}/q"] = _np(_flax_block(
+            params["layer_0.attn.q_proj.weight"],
+            "layer_0.attn.q_proj.weight", emu))
+    toks = torch.from_numpy(dec_tokens("draw")).long()
+    # without casts, in f32, and free running, against the single step
+    for algo in ("none",) + CALL_ALGOS:
+        dtype = "float32" if algo == "none" else "bfloat16"
+        one = _run_step(algo, None, toks, dtype=dtype)
+        tp = _run_step(algo, mesh, toks, dtype=dtype)
+        worst = max(float((_flax_block(tp[2][n], n, tp[3])
+                           - _flax_block(None, n, tp[3], one[2][n])
+                           ).abs().max()) for n in tp[2])
+        rel = max(float((_flax_block(tp[2][n], n, tp[3])
+                         - _flax_block(None, n, tp[3], one[2][n])).abs().max()
+                        / _flax_block(None, n, tp[3], one[2][n]).abs().max())
+                  for n in tp[2])
+        res[f"7c/free/{algo}"] = np.array(
+            [abs(tp[0] - one[0]) / abs(one[0]), worst, rel,
+             float(tp[1].scale == one[1].scale
+                   and tp[1].good_steps == one[1].good_steps)])
+    # model 4 splits the 2 KV heads: k / v gathered for the rank's query
+    # heads, each rank's part of the gradient summed in the backward
+    one = _run_step("none", None, toks, dtype="float32")
+    tp = _run_step("none", make_mesh(data=2, model=4), toks,
+                   dtype="float32")
+    res["7c/free-model4/none"] = np.array([
+        abs(tp[0] - one[0]) / abs(one[0]),
+        max(float((_flax_block(tp[2][n], n, tp[3])
+                   - _flax_block(None, n, tp[3], one[2][n])).abs().max()
+                  / _flax_block(None, n, tp[3], one[2][n]).abs().max())
+            for n in tp[2])])
+    # a calibration sweep: every module's min, max and absmax of the whole
+    # tensors, against the single-process sweep's
+    from fp8tpu_torch.models import variables_from_flax
+    from fp8tpu_torch.models.transformer import Decoder
+    from fp8tpu_torch.parallel import DECODER_PARAM_RULES, local_shards
+    from fp8tpu_torch.quant.calibrate import collect_stats_fn
+    from fp8tpu_torch.quant.interceptor import build_module_table
+    sd = variables_from_flax(flax_vars(DEC, 0))
+    whole = Decoder(torch_cfg(DEC))
+    tpm = Decoder(torch_cfg(DEC), mesh=mesh)
+    b = mpt.lm_batch(toks, mesh)
+    with torch.no_grad():
+        _, got = collect_stats_fn(tpm, mesh=mesh)(
+            local_shards(sd, mesh, DECODER_PARAM_RULES,
+                         build_module_table(whole)), b.inputs,
+            seq_len=b.length)
+        _, want = collect_stats_fn(whole)(sd, toks[:, :-1])
+    res["7c/stats"] = np.array([len(got), len(want), sum(
+        int(float(got[p][k]) != float(v)) for p, rec in want.items()
+        for k, v in rec.items())])
+    # hw patching: the attention BatchMatmuls on the engine, each slice's
+    # rows over the seq group
+    for algo in HW_ALGOS:
+        one = _run_step(algo, None, toks, hw=True)
+        tp = _run_step(algo, mesh, toks, hw=True)
+        worst = max(float((_flax_block(tp[2][n], n, tp[3])
+                           - _flax_block(None, n, tp[3], one[2][n])
+                           ).abs().max()) for n in tp[2])
+        res[f"7c/hw/{algo}"] = np.array([abs(tp[0] - one[0]) / abs(one[0]),
+                                         worst])
+    # call by call, and the planted faults
+    records = {}
+    for algo in CALL_ALGOS:
+        with _Feed("record") as f:
+            _run_step(algo, None, toks)
+        records[algo] = f.records
+        res[f"7c/calls/{algo}"] = _fed_step(algo, mesh, toks, f.records)
+    for plant in TRAIN_PLANTS:
+        undo = _plant(plant)
+        try:
+            res[f"7c/plant/{plant}"] = _fed_step(
+                PLANT_ALGO[plant], mesh, toks, records[PLANT_ALGO[plant]])
+        finally:
+            undo()
+    # an overflow in one rank's shard: every rank skips the step
+    emu, params, opt, step, state = _train_setup("hybrid", mesh)
+    before = {n: p.detach().clone() for n, p in params.items()}
+    real = emu.quantize_grads
+
+    def poisoned(grads, k):
+        grads = real(grads, k)
+        if rank == 5:
+            grads["layer_0.attn.q_proj.weight"][0, 0] = float("inf")
+        return grads
+
+    emu.quantize_grads = poisoned
+    from fp8tpu_torch.numerics.prng import key
+    params, state, _ = step(params, state, mpt.lm_batch(toks, mesh), key(3))
+    moved = sum(_bits_differ(p.detach(), before[n])
+                for n, p in params.items())
+    res["7c/overflow"] = np.array([moved, state[1].scale,
+                                   state[1].good_steps])
+    _checkpoints(rank, res, out, _opt8_case(rank, res, mesh))
+
+
+def _worker_script(rank, res):
+    """``train_fp8.main`` over data 4 x model 2 (8-bit AdamW, e4m3
+    embedding, remat)."""
+    from fp8tpu_torch.examples import train_fp8
+    got = train_fp8.main(SCRIPT_TP + ["--data-parallel", "4",
+                                      "--model-parallel", "2", "--remat"])
+    res["script/losses"] = np.array(got["losses"])
+    res["script/scale"] = np.array([got["loss_scale"].scale,
+                                    got["loss_scale"].good_steps])
 
 
 def _worker(rank, world, port, out):
@@ -470,8 +1002,11 @@ def _worker(rank, world, port, out):
     init_world("cpu", rank, world, f"tcp://localhost:{port}",
                timeout=PG_TIMEOUT)
     res = {}
-    for part in (_worker_casts, _worker_7a, _worker_7b, _worker_step):
+    for part in (_worker_casts, _worker_7a, _worker_7b, _worker_step,
+                 _worker_sr):
         part(rank, res)
+    _worker_7c(rank, res, out)
+    _worker_script(rank, res)
     np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
     dist.barrier()
     dist.destroy_process_group()
@@ -527,8 +1062,8 @@ class World:
 @pytest.fixture(scope="module", autouse=True)
 def world(tmp_path_factory):
     """Started before the file's first test; the single-process engines'
-    references (``refs``) are made here while the ranks run, and the JAX
-    references after."""
+    references (``refs``) and the JAX package's 7a and 7c references are
+    made here while the ranks run."""
     w = World(tmp_path_factory.mktemp("world"))
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -537,6 +1072,8 @@ def world(tmp_path_factory):
         engine_runs(w.refs)
     finally:
         torch.set_num_threads(threads)
+    jax_7a()
+    jax_7c()
     yield w
     w.kill()
 
@@ -846,11 +1383,353 @@ def test_casts_of_a_split_tensor_are_the_whole_tensor_s(world, name):
                 assert got == 0, (r, split, got)
 
 
+# -- 7c: the model-parallel training step -------------------------------------
+
+def jax_7c():
+    """The JAX package's side of 7c: the SR casts of tests/test_parallel.py
+    (the (16, 64) tensor over P("data", "model"), data 2 x model 4) and of
+    a (4, 16, 64) tensor over P("data", "seq", "model"), data 2 x seq 2 x
+    model 2, single-device and GSPMD, each stream and impl; and the JAX
+    test's hybrid step (``optax.sgd(0.01)``, ``key(3)``) replicated and
+    over data 2 x model 2 x seq 2 on each of ``TOKENS``: its loss and
+    ``layer_0/attn/q_proj/kernel``."""
+    if "7c" not in _JAX:
+        import jax
+        import jax.numpy as jnp
+        import optax
+        from jax.sharding import NamedSharding, PartitionSpec as P
+        from fp8tpu.models import Decoder, tiny_config
+        from fp8tpu.numerics import cast as jcast
+        from fp8tpu.parallel import (DECODER_PARAM_RULES, make_mesh,
+                                     shard_params)
+        from fp8tpu.quant.config import TensorQuantConfig
+        from fp8tpu.quant.fakequant import fake_quant
+        from fp8tpu.training import (init_train_state, initialize,
+                                     make_train_step)
+        out = {}
+        x2, x3 = sr_inputs()
+        meshes = {"2": (make_mesh(data=2, model=4), P("data", "model"), x2),
+                  "3": (make_mesh(**SEQ_MESH), P("data", "seq", "model"),
+                        x3)}
+        saved = jcast.SR_BITS_IMPL
+        try:
+            for stream in SR_STREAMS:
+                jcast.SR_BITS_IMPL = stream
+                for impl in SR_IMPLS:
+                    cfg = TensorQuantConfig("e4m3", "stochastic",
+                                            cast_impl=impl)
+                    for lay, (mesh, spec, x) in meshes.items():
+                        k = jax.random.key(7)
+                        xs = jnp.asarray(x)
+                        out[f"sr/{lay}/{stream}/{impl}/single"] = np.asarray(
+                            fake_quant(xs, cfg, k))
+                        with mesh:
+                            out[f"sr/{lay}/{stream}/{impl}/sharded"] = \
+                                np.asarray(jax.jit(
+                                    lambda a, kk: fake_quant(a, cfg, kk))(
+                                    jax.device_put(xs, NamedSharding(
+                                        mesh, spec)), k))
+        finally:
+            jcast.SR_BITS_IMPL = saved
+        m = Decoder(tiny_config(**DEC))
+        v = _jax_tree(flax_vars(DEC, 0))
+        emu = initialize(m, v, (jnp.asarray(dec_tokens("ones")),),
+                         training_algo="hybrid")
+        opt = optax.sgd(0.01)
+
+        def loss_fn(apply_fn, p, batch):
+            logits = apply_fn(p, batch[:, :-1])
+            return optax.softmax_cross_entropy_with_integer_labels(
+                logits, batch[:, 1:]).mean()
+
+        step = jax.jit(make_train_step(emu, opt, loss_fn))
+        mesh = make_mesh(**SEQ_MESH)
+        sh = shard_params(v, mesh, DECODER_PARAM_RULES)
+        for which in TOKENS:
+            toks = jnp.asarray(dec_tokens(which))
+            p, _, loss = step(v, init_train_state(opt, v), toks,
+                              jax.random.key(3))
+            q = p["params"]["layer_0"]["attn"]["q_proj"]["kernel"]
+            out[f"step/replicated/{which}"] = (float(loss), np.asarray(
+                q, np.float32))
+            with mesh:
+                p, _, loss = step(sh, init_train_state(opt, sh),
+                                  jax.device_put(toks, NamedSharding(
+                                      mesh, P("data", "seq"))),
+                                  jax.random.key(3))
+            q = p["params"]["layer_0"]["attn"]["q_proj"]["kernel"]
+            out[f"step/sharded/{which}"] = (float(loss), np.asarray(
+                q, np.float32))
+        _JAX["7c"] = out
+    return _JAX["7c"]
+
+
+def _by_coords(res):
+    """{(data, seq, model): the rank's results} of the 7c mesh."""
+    return {tuple(int(c) for c in r["7c/coords"]): r for r in res}
+
+
+def _port_step(res, which):
+    """(loss, the global q_proj kernel) of the port's sharded step: every
+    rank's loss equal, the kernel's model blocks from data 0, seq 0."""
+    by = _by_coords(res)
+    loss = float(by[(0, 0, 0)][f"7c/jax-step/{which}/loss"])
+    for r in res:
+        assert float(r[f"7c/jax-step/{which}/loss"]) == loss
+    q = np.concatenate([by[(0, 0, m)][f"7c/jax-step/{which}/q"]
+                        for m in range(SEQ_MESH["model"])], axis=1)
+    for (d, s, m), r in by.items():
+        key = f"7c/jax-step/{which}/q"
+        np.testing.assert_array_equal(r[key], by[(0, 0, m)][key])
+    return loss, q.astype(np.float32)
+
+
+def _step_gap(a, b):
+    """(relative loss gap, q correlation, max |q difference|)."""
+    (la, qa), (lb, qb) = a, b
+    return (abs(la - lb) / abs(lb),
+            float(np.corrcoef(qa.ravel(), qb.ravel())[0, 1]),
+            float(np.abs(qa - qb).max()))
+
+
+def _sr_blocks(res, lay, key):
+    """The ranks' SR blocks put together into the global tensor."""
+    x2, x3 = sr_inputs()
+    if lay == "2":
+        out = np.zeros(x2.shape, np.float32)
+        for r, rr in enumerate(res):
+            d, m = r // 4, r % 4
+            out[d * 8:(d + 1) * 8, m * 16:(m + 1) * 16] = rr[key]
+        return out
+    out = np.zeros(x3.shape, np.float32)
+    for (d, s, m), rr in _by_coords(res).items():
+        out[d * 2:(d + 1) * 2, s * 8:(s + 1) * 8, m * 32:(m + 1) * 32] = \
+            rr[key]
+    return out
+
+
+@pytest.mark.parametrize("impl", SR_IMPLS)
+@pytest.mark.parametrize("stream", SR_STREAMS)
+@pytest.mark.parametrize("lay", ["2", "3"])
+def test_7c_sr_of_a_split_tensor_is_the_single_cast(world, lay, stream,
+                                                    impl):
+    """tests/test_parallel.py:44-63's promise: an e4m3 SR cast of a tensor
+    split over data x model (2 x 4, the JAX test's (16, 64)) or over data x
+    seq x model (2 x 2 x 2, a (4, 16, 64) tensor), each rank's block cast
+    with its Block (every element's bits at its global row-major index),
+    is the single-process cast bit for bit, the JAX package's single-device
+    cast, and JAX's GSPMD cast."""
+    from fp8tpu_torch.numerics import cast
+    from fp8tpu_torch.numerics.prng import key
+    from fp8tpu_torch.quant.fakequant import fake_quant
+    got = _sr_blocks(world.results(), lay, f"sr/{lay}/{stream}/{impl}")
+    x = sr_inputs()[0 if lay == "2" else 1]
+    saved = cast.SR_BITS_IMPL
+    try:
+        cast.SR_BITS_IMPL = stream
+        single = fake_quant(torch.from_numpy(x), sr_cfg(impl), key(7)).numpy()
+    finally:
+        cast.SR_BITS_IMPL = saved
+    j = jax_7c()
+    for want in (single, j[f"sr/{lay}/{stream}/{impl}/single"],
+                 j[f"sr/{lay}/{stream}/{impl}/sharded"]):
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want.view(np.int32))
+    # the blocks are not one range: a contiguous offset would differ
+    assert (got != x).any()
+
+
+@pytest.mark.parametrize("which", ["replicated", "sharded"])
+def test_7c_step_meets_the_jax_gates(world, which):
+    """tests/test_parallel.py:159-190 on the port: one hybrid step with SGD
+    0.01 over data 2 x model 2 x seq 2, the all-ones (4, 16) tokens split
+    over (data, seq) after the shift (chunks of 8 and 7), key(3), against
+    JAX's replicated and GSPMD steps: loss within 1%, q_proj correlation
+    > 0.9999, atol 2e-3."""
+    gap, corr, diff = _step_gap(_port_step(world.results(), "ones"),
+                                jax_7c()[f"step/{which}/ones"])
+    print(f"7c step against JAX's {which} step: loss {gap:.3e} relative, "
+          f"q_proj corr {corr:.9f}, max|diff| {diff:.3e}")
+    assert gap < 0.01 and corr > 0.9999 and diff <= 2e-3, (gap, corr, diff)
+
+
+def test_7c_step_on_drawn_tokens_within_jax_s_own_spread(world):
+    """Drawn tokens (trap 89's rule): the port's sharded step meets the
+    JAX test's gates against JAX's replicated step, and lies no farther
+    from it than twice JAX's own GSPMD step does, loss and q_proj alike
+    (correlation within twice JAX's own 1 - corr)."""
+    j = jax_7c()
+    ref = j["step/replicated/draw"]
+    gap, corr, diff = _step_gap(_port_step(world.results(), "draw"), ref)
+    own = _step_gap(j["step/sharded/draw"], ref)
+    print(f"7c step (drawn tokens) against JAX's replicated step: loss "
+          f"{gap:.3e}, corr {corr:.9f}, max|diff| {diff:.3e}; JAX's GSPMD "
+          f"step: {own[0]:.3e}, {own[1]:.9f}, {own[2]:.3e}")
+    assert gap < 0.01 and corr > 0.9999 and diff <= 2e-3
+    assert gap <= 2 * own[0] and diff <= 2 * own[2]
+    assert 1 - corr <= 2 * (1 - own[1])
+
+
+def test_7c_step_without_casts_is_the_single_process_step(world):
+    """No casts, f32 compute and master: the sharded step (SGD 0.01,
+    drawn tokens) is the port's single-process step within
+    ``NOCAST_TOL`` relative (loss, and parameters of max|leaf|)."""
+    for r in world.results():
+        loss, _, rel, scales = r["7c/free/none"]
+        print(f"7c without casts: loss {loss:.3e}, parameters {rel:.3e} "
+              f"relative (limit {NOCAST_TOL})")
+        assert loss <= NOCAST_TOL and rel <= NOCAST_TOL and scales == 1
+
+
+def test_7c_stochastic_engine_operand_of_a_split_tensor(world):
+    """A stochastic engine operand split over data x model (2 x 4) is cast
+    at each element's global index on the engine's own SR stream (K2's
+    pre-pass block route on the card): through an identity it is the
+    rank's block of the whole operand's engine product, bit for bit, on
+    the bit pipeline and the hw route."""
+    assert [int(r["sr/engine"]) for r in world.results()] == [0] * WORLD
+
+
+def test_7c_calibration_sweep_records_the_whole_tensors(world):
+    """``collect_stats_fn(mesh=)`` over data 2 x seq 2 x model 2: every
+    module's iact / oact min, max and absmax are the single-process
+    sweep's, on every rank."""
+    for r in world.results():
+        n_got, n_want, bad = r["7c/stats"]
+        assert n_got == n_want > 10 and bad == 0, (n_got, n_want, bad)
+
+
+def test_7c_step_over_model_4_with_gathered_kv_heads(world):
+    """Model 4 splits no whole KV head of the decoder (2 KV heads): k / v
+    are gathered for the rank's query heads, and the backward sums the
+    ranks' parts of their gradient.  Without casts, f32, over data 2 x
+    model 4: the single-process step within ``NOCAST_TOL``."""
+    for r in world.results():
+        loss, rel = r["7c/free-model4/none"]
+        print(f"7c over data 2 x model 4 without casts: loss {loss:.3e}, "
+              f"parameters {rel:.3e} relative (limit {NOCAST_TOL})")
+        assert loss <= NOCAST_TOL and rel <= NOCAST_TOL
+
+
+@pytest.mark.parametrize("algo", CALL_ALGOS)
+def test_7c_backward_casts_call_by_call(world, algo):
+    """Every cast of a sharded step (forward, igrad, ograd, wtgrad, master
+    requant), fed the rank's block of the single-process call's input,
+    gives the block of its output bit for bit, and its own input (all
+    upstream fed) lies within ``IN_TOL`` of max|input| of that block."""
+    for r, res in enumerate(world.results()):
+        bad, worst, calls, roles = res[f"7c/calls/{algo}"]
+        if r == 0:
+            print(f"7c {algo} call by call: {int(calls)} calls, {int(bad)} "
+                  f"differing bits, own inputs {worst:.3e} of max (limit "
+                  f"{IN_TOL})")
+        assert bad == 0 and worst <= IN_TOL, (r, bad, worst)
+        assert calls > 50 and roles == 3, (r, calls, roles)
+
+
+@pytest.mark.parametrize("plant", TRAIN_PLANTS)
+def test_7c_planted_fault_fails_the_call_check(world, plant):
+    """SR bits at a contiguous offset of a column block, a column input's
+    gradient cast before the model sum, a rank-local amax in an ograd
+    cast: each fails the call-by-call check on some rank."""
+    res = world.results()
+    got = [res[r][f"7c/plant/{plant}"] for r in range(WORLD)]
+    bad = sum(int(g[0]) for g in got)
+    worst = max(float(g[1]) for g in got)
+    print(f"7c planted {plant}: {bad} differing bits, own inputs "
+          f"{worst:.3e} of max")
+    assert bad > 0 or worst > IN_TOL
+
+
+@pytest.mark.parametrize("algo", ("none",) + CALL_ALGOS)
+def test_7c_free_running_against_the_single_process_step(world, algo):
+    """The sharded step free running against the port's single-process
+    step on drawn tokens (bf16 compute but "none"): the loss within
+    ``FREE`` relative, every parameter within ``FREE`` of it, the loss
+    scale's state equal."""
+    lim = FREE[algo]
+    for r, res in enumerate(world.results()):
+        loss, worst, rel, scales = res[f"7c/free/{algo}"]
+        if r == 0:
+            print(f"7c {algo} free running: loss {loss:.3e} relative, "
+                  f"parameters {worst:.3e} (max |difference|), {rel:.3e} "
+                  f"of max|leaf|; limits {lim}")
+        assert loss <= lim["loss"] and worst <= lim["param"] and scales, \
+            (r, loss, worst)
+
+
+@pytest.mark.parametrize("algo", HW_ALGOS)
+def test_7c_hw_patched_step(world, algo):
+    """With hw patching (the attention BatchMatmuls on the engine, each
+    slice's rows over the seq group, its scale the whole slice's) the
+    sharded step is the single-process hw-patched step within ``FREE``."""
+    lim = FREE[algo]
+    for r, res in enumerate(world.results()):
+        loss, worst = res[f"7c/hw/{algo}"]
+        if r == 0:
+            print(f"7c {algo} hw-patched: loss {loss:.3e} relative, "
+                  f"parameters {worst:.3e}; limits {lim}")
+        assert loss <= lim["loss"] and worst <= lim["param"], (r, loss,
+                                                                worst)
+
+
+def test_7c_overflow_on_one_rank_skips_the_step_everywhere(world):
+    """An inf planted in rank 5's shard of one gradient: the finite check
+    is reduced over the world, so every rank skips the step (parameters
+    untouched) and halves the loss scale."""
+    for r, res in enumerate(world.results()):
+        moved, scale, good = res["7c/overflow"]
+        assert moved == 0 and scale == 2.0 ** 11 and good == 0, (r, moved,
+                                                                   scale)
+
+
+def test_7c_opt8_on_split_leaves_is_the_single_process_optimizer(world):
+    """``adamw_8bit`` over the rank's shards for 2 steps fed the single
+    step's gradients: the parameters, each rank's codes and every block's
+    scales bit-equal to the single-process optimizer's (10 leaves' blocks
+    cross ranks)."""
+    for r, res in enumerate(world.results()):
+        bad, crossing, count = res["7c/opt8"]
+        assert bad == 0 and crossing == 10 and count == OPT8_STEPS, (
+            r, bad, crossing, count)
+
+
+def test_7c_checkpoints_round_trip(world):
+    """A sharded run's checkpoint (the global tree) restores into a
+    single-process run, and a single-process checkpoint into the shards,
+    byte for byte (parameters, 8-bit moments, count, loss scale)."""
+    for r, res in enumerate(world.results()):
+        assert list(res["7c/checkpoint"]) == [0, 0], r
+
+
+def test_7c_train_fp8_script_over_data_4_model_2(world):
+    """``train_fp8.main`` over data 4 x model 2 (8-bit AdamW, e4m3
+    embedding, remat) in the world against the single-process script:
+    every rank's losses alike and within ``SCRIPT_LOSS`` relative, the
+    loss scale's state equal."""
+    from fp8tpu_torch.examples import train_fp8
+    res = world.results()
+    want = train_fp8.main(SCRIPT_TP + ["--remat"])
+    ref = np.array(want["losses"])
+    got = res[0]["script/losses"]
+    for r in res:
+        np.testing.assert_array_equal(r["script/losses"], got)
+    rel = float(np.abs(got - ref).max() / np.abs(ref).max())
+    print(f"train_fp8 over data 4 x model 2: losses {got}, single process "
+          f"{ref}: {rel:.3e} relative (limit {SCRIPT_LOSS})")
+    assert rel <= SCRIPT_LOSS
+    assert list(res[0]["script/scale"]) == [want["loss_scale"].scale,
+                                            want["loss_scale"].good_steps]
+
+
 # -- what stays raising ------------------------------------------------------------
 
 @pytest.mark.parametrize("what", ["direct", "int4", "moe", "sr-model-split",
                                   "fine-grained-model-split"])
 def test_unported_paths_under_a_mesh_raise(what):
+    """7f's serving routes (direct, int4, MoE) and fine-grained scaling of
+    a model-split tensor raise; SR of a model-split tensor, 7c's, is
+    ported and checked here for its value instead."""
     import dataclasses
     from fp8tpu_torch.parallel import make_mesh
     from fp8tpu_torch.parallel.data import BatchShard, TensorShard
@@ -872,11 +1751,16 @@ def test_unported_paths_under_a_mesh_raise(what):
             shard_serve_params(params, scfg, mesh)
         return
     x = torch.randn(8, 16)
-    shard = TensorShard(None, BatchShard(None, 0, 4), 1)
+    shard = TensorShard(None, BatchShard(None, 1, 4), 1)
     if what == "sr-model-split":
-        cfg = TensorQuantConfig("e5m2", "stochastic", "per-tensor")
-        with pytest.raises(NotImplementedError, match="item 7c"):
-            fake_quant(x, cfg, prng_key(0), shard)
+        # ported (ROADMAP 7c): the rank's column block of a (8, 64) tensor
+        # takes the whole tensor's SR bits at their global indices
+        cfg = TensorQuantConfig("e5m2", "stochastic")
+        full = torch.randn(8, 64)
+        got = fake_quant(full[:, 16:32].contiguous(), cfg, prng_key(0),
+                         shard)
+        want = fake_quant(full, cfg, prng_key(0))[:, 16:32]
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     else:
         cfg = TensorQuantConfig("e4m3", "rne", "fine-grained", group_size=4)
         with pytest.raises(NotImplementedError, match="model group"):
